@@ -55,6 +55,8 @@ def pytest_configure(config):
                    "--runslow / RUN_SLOW=1")
     config.addinivalue_line(
         "markers", "timeout(seconds): per-test timeout override")
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card; skips without one")
 
 
 def pytest_collection_modifyitems(config, items):

@@ -1,0 +1,27 @@
+"""uplift_upsample_torch — PyTorch + CUDA port of uplift_upsample_tpu for NVIDIA Hopper.
+
+The JAX package beside it is the reference; this package mirrors its module
+names so that each counterpart is easy to find. Plain tensor code is PyTorch;
+the three Pallas kernels of the serving path are CUDA C++ kernels written for
+sm_90a (`csrc/`), built with nvcc at first use and bound with ctypes
+(`ops/cuda_lib.py`). On a CPU tensor every kernel wrapper runs its plain
+PyTorch version instead, which the CPU tests use.
+
+Layout:
+  config, configs — layered config system and the bundled configurations (copied)
+  models/         — UpliftUpsampleTransformer (nn.Module), its primitives, the fused eval forward
+  ops/            — attention plus the spatial (K1), temporal (K2) and strided-block-1 (K3) kernels
+  data/           — window generator and batcher for the serving path (numpy, copied)
+  utils/          — Keras .h5 loading, keyframe interpolation
+  eval, predict   — the test step with flip-TTA and the serving CLI
+"""
+
+import torch
+
+# Parity rung: true fp32. Matmuls default to full fp32 already, but cuDNN
+# convolutions (strided blocks 2-3 run nn.Conv1d) default to TF32, which keeps
+# only ~3 decimal digits. Turn both off where the package initialises.
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+__version__ = "0.1.0"

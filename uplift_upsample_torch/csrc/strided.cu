@@ -1,0 +1,64 @@
+// K3 — the strided conv of strided block 1, computing only the selected rows.
+//
+// Replaces: uplift_upsample_tpu/ops/pallas_strided.py make_strided_b1_epilogue
+//   (fused into the last call of fused_temporal_stack_v3). Strided block 1 is
+//   PE, LN, qkv, full-window attention, proj, residual, LN, fc1 + relu (the
+//   GEMM, LayerNorm and attention kernels of temporal.cu, no key mask), then
+//   this kernel: a k=3 conv with stride s0 plus the residual.
+//
+// The TPU epilogue computes the conv at every token with lane shifts and the
+// caller keeps every s0-th; here each output row t is computed directly:
+//   out[b, t] = x[b, s0*t + (p0 == 0)] + bc + sum_j h1[b, s0*t + j - p0] . W_j
+// where a tap outside [0, N) reads zero. That covers paddings (0,0) (crop-1
+// residual, h36m_351) and (1,1) (zero-padded conv, uncropped residual, h36m_81).
+//
+// Bound: a GEMM of (B*n_out) x (3*hidden) x C — compute-bound against the
+// fp32 peak. Design: the GEMM tile loop of gemm.cuh with an A loader that
+// gathers the three taps of h1 for each output row, so neither the padded
+// h1 nor the unselected rows are ever written.
+
+#include <cuda_runtime.h>
+
+#include "gemm.cuh"
+
+namespace {
+
+struct ConvTaps {
+  const float* h1;  // (windows * n, hidden)
+  int n, hidden, n_out, stride, p0;
+  __device__ __forceinline__ float operator()(int r, int kk) const {
+    const int b = r / n_out, t = r - b * n_out;
+    const int j = kk / hidden, i = kk - j * hidden;
+    const int src = stride * t + j - p0;
+    return (src >= 0 && src < n) ? h1[((size_t)b * n + src) * hidden + i] : 0.f;
+  }
+};
+
+struct ConvResidual {
+  const float* x;  // (windows * n, c) block input after attention
+  const float* bias;
+  float* out;  // (windows * n_out, c)
+  int n, c, n_out, stride, res_off;
+  __device__ __forceinline__ void operator()(int r, int col, float v) const {
+    const int b = r / n_out, t = r - b * n_out;
+    out[(size_t)r * c + col] =
+        x[((size_t)b * n + stride * t + res_off) * c + col] + (v + bias[col]);
+  }
+};
+
+}  // namespace
+
+// w: (3 * hidden, c) row-major, the flax Conv1D kernel (3, hidden, c) flattened.
+extern "C" int strided_conv_f32(const float* h1, const float* x, const float* w,
+                                const float* bias, float* out, int windows, int n,
+                                int hidden, int c, int stride, int p0, int n_out,
+                                void* stream) {
+  if (windows <= 0 || n_out <= 0 || stride <= 0 || p0 < 0 || p0 > 1)
+    return cudaErrorInvalidValue;
+  const int res_off = p0 == 0 ? 1 : 0;
+  if (stride * (n_out - 1) + res_off >= n) return cudaErrorInvalidValue;
+  return uu::launch_gemm(ConvTaps{h1, n, hidden, n_out, stride, p0}, w,
+                         windows * n_out, c, 3 * hidden,
+                         ConvResidual{x, bias, out, n, c, n_out, stride, res_off},
+                         (cudaStream_t)stream);
+}

@@ -1,0 +1,211 @@
+"""Transformer primitives (nn.Module, eval semantics).
+
+Numeric parity targets (reference `vision_transformer.py`, strided variants in
+`uplift_upsample_transformer.py:53-160`), as in the JAX package:
+  - MHA with *separate* q/k/v projections and optional bias; per-head scaling
+    1/sqrt(head_dim); additive `mask * -1e9` with 1 = blocked key.
+  - Pre-norm blocks with LayerNorm eps 1e-5.
+  - MLP: Linear(hidden) → act → Linear(out).
+  - StridedMlp: pointwise Linear → act → explicit zero-pad →
+    Conv1d(k=3, stride=s, VALID); this is the temporal downsampler.
+  - StridedTransformerBlock's residual path: crop one frame per unpadded end,
+    then take every s-th frame (MaxPool1D(pool_size=1, strides=s) semantics).
+  - DropPath is the identity at eval, which is all this package runs.
+
+Sub-module names follow the flax names (norm1, attn.wq, mlp.fc1, ...), so a
+flax parameter path maps onto a state_dict key by renaming leaves only
+(`utils.weights_h5.params_from_jax`). Activations are (B, S, C), as in the
+JAX package.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.attention import scaled_dot_product_attention
+
+# flax's truncated_normal(stddev) samples N(0, 1) truncated to [-2, 2] and
+# divides by this constant (the std of that truncated law), so the draw has
+# std exactly `stddev`.
+_TRUNC_STD = 0.87962566103423978
+
+
+def glorot_uniform_(weight: torch.Tensor, fan_in: int, fan_out: int,
+                    generator: Optional[torch.Generator]) -> None:
+    """Keras/flax glorot_uniform on any weight layout, given its fans."""
+    limit = math.sqrt(6.0 / (fan_in + fan_out))
+    with torch.no_grad():
+        weight.uniform_(-limit, limit, generator=generator)
+
+
+def pe_init_(t: torch.Tensor, generator: Optional[torch.Generator],
+             stddev: float = 0.02) -> None:
+    """flax truncated_normal(0.02), used for the PEs and learned tokens."""
+    s = stddev / _TRUNC_STD
+    nn.init.trunc_normal_(t, mean=0.0, std=s, a=-2.0 * s, b=2.0 * s,
+                          generator=generator)
+
+
+def dense(in_features: int, out_features: int, bias: bool = True,
+          generator: Optional[torch.Generator] = None) -> nn.Linear:
+    """nn.Linear with the flax Dense init (glorot-uniform kernel, zero bias)."""
+    layer = nn.Linear(in_features, out_features, bias=bias)
+    glorot_uniform_(layer.weight, in_features, out_features, generator)
+    if bias:
+        nn.init.zeros_(layer.bias)
+    return layer
+
+
+def gelu_exact(x: torch.Tensor) -> torch.Tensor:
+    return F.gelu(x, approximate="none")
+
+
+class DropPath(nn.Module):
+    """Stochastic depth. The port runs eval only, where it is the identity."""
+
+    def __init__(self, rate: float = 0.0):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x):
+        return x
+
+
+class Mlp(nn.Module):
+    def __init__(self, in_features: int, out_features: int,
+                 hidden_features: Optional[int] = None,
+                 activation: Callable = gelu_exact, generator=None):
+        super().__init__()
+        hidden = out_features if hidden_features is None else hidden_features
+        self.fc1 = dense(in_features, hidden, generator=generator)
+        self.fc2 = dense(hidden, out_features, generator=generator)
+        self.activation = activation
+
+    def forward(self, x):
+        return self.fc2(self.activation(self.fc1(x)))
+
+
+class MultiHeadAttention(nn.Module):
+    def __init__(self, dim: int, num_heads: int = 8, qkv_bias: bool = False,
+                 generator=None):
+        super().__init__()
+        assert dim % num_heads == 0
+        self.dim = dim
+        self.num_heads = num_heads
+        self.wq = dense(dim, dim, bias=qkv_bias, generator=generator)
+        self.wk = dense(dim, dim, bias=qkv_bias, generator=generator)
+        self.wv = dense(dim, dim, bias=qkv_bias, generator=generator)
+        self.proj = dense(dim, dim, generator=generator)
+
+    def forward(self, x, mask=None):
+        b, s, _ = x.shape
+        depth = self.dim // self.num_heads
+
+        def split(t):
+            return t.reshape(b, s, self.num_heads, depth).transpose(1, 2)
+
+        out, weights = scaled_dot_product_attention(
+            split(self.wq(x)), split(self.wk(x)), split(self.wv(x)), mask)
+        out = out.transpose(1, 2).reshape(b, s, self.dim)
+        return self.proj(out), weights
+
+
+class TransformerBlock(nn.Module):
+    """Pre-norm block: x + attn(LN(x)), then + mlp(LN(x))."""
+
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
+                 qkv_bias: bool = False, drop_path_rate: float = 0.0,
+                 activation: Callable = gelu_exact, generator=None):
+        super().__init__()
+        self.norm1 = nn.LayerNorm(dim, eps=1e-5)
+        self.attn = MultiHeadAttention(dim, num_heads=num_heads,
+                                       qkv_bias=qkv_bias, generator=generator)
+        self.norm2 = nn.LayerNorm(dim, eps=1e-5)
+        self.mlp = Mlp(dim, dim, hidden_features=int(dim * mlp_ratio),
+                       activation=activation, generator=generator)
+        self.drop_path = DropPath(drop_path_rate)
+
+    def forward(self, x, pos_encoding=None, mask=None):
+        if pos_encoding is not None:
+            x = x + pos_encoding
+        y, attn = self.attn(self.norm1(x), mask=mask)
+        x = x + self.drop_path(y)
+        x = x + self.drop_path(self.mlp(self.norm2(x)))
+        return x, attn
+
+
+def resolve_padding(padding, kernel_size: int) -> Tuple[int, int]:
+    if padding is None:
+        return kernel_size // 2, kernel_size // 2
+    if isinstance(padding, int):
+        return padding, padding
+    return int(padding[0]), int(padding[1])
+
+
+class StridedMlp(nn.Module):
+    """FFN whose second layer is a strided temporal convolution."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 hidden_features: Optional[int] = None,
+                 activation: Callable = gelu_exact, kernel_size: int = 3,
+                 stride: int = 1, padding=None, generator=None):
+        super().__init__()
+        hidden = out_features if hidden_features is None else hidden_features
+        self.pad = resolve_padding(padding, kernel_size)
+        self.stride = stride
+        self.fc1 = dense(in_features, hidden, generator=generator)
+        self.fc2 = nn.Conv1d(hidden, out_features, kernel_size, stride=stride)
+        glorot_uniform_(self.fc2.weight, hidden * kernel_size,
+                        out_features * kernel_size, generator)
+        nn.init.zeros_(self.fc2.bias)
+        self.activation = activation
+
+    def forward(self, x):  # (B, S, C_in) → (B, S_out, C_out)
+        x = self.activation(self.fc1(x))
+        x = F.pad(x.transpose(1, 2), self.pad)  # explicit zero pad, then VALID
+        return self.fc2(x).transpose(1, 2)
+
+
+class StridedTransformerBlock(nn.Module):
+    """Transformer block that shrinks sequence length by `stride`.
+
+    The MLP branch is a StridedMlp; the residual path crops one frame at each
+    *unpadded* end and then takes every `stride`-th frame.
+    """
+
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
+                 qkv_bias: bool = False, drop_path_rate: float = 0.0,
+                 activation: Callable = gelu_exact, kernel_size: int = 3,
+                 stride: int = 3, padding=None, generator=None):
+        super().__init__()
+        self.stride = stride
+        self.pad = resolve_padding(padding, kernel_size)
+        self.norm1 = nn.LayerNorm(dim, eps=1e-5)
+        self.attn = MultiHeadAttention(dim, num_heads=num_heads,
+                                       qkv_bias=qkv_bias, generator=generator)
+        self.norm2 = nn.LayerNorm(dim, eps=1e-5)
+        self.mlp = StridedMlp(dim, dim, hidden_features=int(dim * mlp_ratio),
+                              activation=activation, kernel_size=kernel_size,
+                              stride=stride, padding=padding,
+                              generator=generator)
+        self.drop_path = DropPath(drop_path_rate)
+
+    def forward(self, x, pos_encoding=None, mask=None):
+        if pos_encoding is not None:
+            x = x + pos_encoding
+        y, attn = self.attn(self.norm1(x), mask=mask)
+        x = x + self.drop_path(y)
+        z = self.drop_path(self.mlp(self.norm2(x)))
+        identity = x
+        if self.stride > 1:
+            if self.pad[0] == 0:
+                identity = identity[:, 1:]
+            if self.pad[1] == 0:
+                identity = identity[:, :-1]
+            identity = identity[:, ::self.stride]
+        return identity + z, attn

@@ -1,0 +1,117 @@
+"""K3 — strided block 1 (counterpart of ops/pallas_strided.py).
+
+`strided_block1` runs the first strided transformer block on the temporal
+stack's output: per-block PE, LN, qkv, full-window attention (no key mask),
+proj, residual, LN, fc1 + relu, then the k=3 conv with stride s0 and the
+residual. It returns only the n_out rows the next block reads,
+out[:, t] = x[:, s0·t + (p0 == 0)] + conv(h1)[:, t], for paddings (p0, p1)
+with p0, p1 ∈ {0, 1}: (0, 0) for h36m_351, (1, 1) for h36m_81.
+
+On a CUDA tensor it launches the GEMM, LayerNorm and attention kernels of
+`csrc/temporal.cu` and the conv kernel of `csrc/strided.cu` (together they
+replace `pallas_strided.make_strided_b1_epilogue`); on a CPU tensor it runs
+`strided_block1_plain`, the same function in plain PyTorch.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from . import cuda_lib
+from .temporal import (attention_sublayer, gemm, layernorm,
+                       window_attention_plain)
+
+COUNTER = "strided_block1"
+
+
+def output_length(n: int, stride: int, paddings: Tuple[int, int]) -> int:
+    return (n + paddings[0] + paddings[1] - 3) // stride + 1
+
+
+def stack_strided_block1_params(state: Mapping[str, torch.Tensor],
+                                name: str = "strided_temporal_block_1",
+                                pe_name: str = "strided_temporal_pe_1") -> Dict:
+    """Model state_dict → strided block 1's operands.
+
+    Matrices are (in, out); the conv kernel is (3·hidden, C), the flax
+    (3, hidden, C) kernel flattened; biases absent with qkv_bias off become
+    zeros (as `pallas_strided.stack_strided_block1_params` does).
+    """
+    pe = state[pe_name]
+    c = pe.shape[1]
+
+    def get(key, n=None):
+        full = f"{name}.{key}"
+        if full in state:
+            return state[full]
+        return torch.zeros(n, dtype=pe.dtype, device=pe.device)
+
+    conv = get("mlp.fc2.weight")  # (C, hidden, 3), nn.Conv1d layout
+    ops = dict(
+        pe=pe,
+        ln1_g=get("norm1.weight"), ln1_b=get("norm1.bias"),
+        wqkv=torch.cat([get(f"attn.{w}.weight").t() for w in ("wq", "wk", "wv")], 1),
+        bqkv=torch.cat([get(f"attn.{w}.bias", c) for w in ("wq", "wk", "wv")]),
+        wp=get("attn.proj.weight").t(), bp=get("attn.proj.bias", c),
+        ln2_g=get("norm2.weight"), ln2_b=get("norm2.bias"),
+        w1=get("mlp.fc1.weight").t(), b1=get("mlp.fc1.bias"),
+        wc=conv.permute(2, 1, 0).reshape(-1, conv.shape[0]),
+        bc=get("mlp.fc2.bias", c),
+    )
+    return {k: v.float().contiguous() for k, v in ops.items()}
+
+
+def strided_block1_plain(x: torch.Tensor, ops: Dict, *, num_heads: int,
+                         stride: int, paddings: Tuple[int, int]) -> torch.Tensor:
+    """(B, N, C) → (B, n_out, C): strided block 1 in plain PyTorch."""
+    b, n, c = x.shape
+    p0, p1 = paddings
+    n_out = output_length(n, stride, paddings)
+    x = x + ops["pe"]
+    y = F.layer_norm(x, (c,), ops["ln1_g"], ops["ln1_b"], 1e-5)
+    ctx = window_attention_plain(y @ ops["wqkv"] + ops["bqkv"], None, num_heads)
+    x = x + (ctx @ ops["wp"] + ops["bp"])
+    z = F.layer_norm(x, (c,), ops["ln2_g"], ops["ln2_b"], 1e-5)
+    h1 = torch.relu(z @ ops["w1"] + ops["b1"])
+    h1 = F.pad(h1, (0, 0, p0, p1))  # zero taps outside the window
+    hidden = h1.shape[-1]
+    last = stride * (n_out - 1) + 1
+    taps = torch.cat([h1[:, j: j + last: stride] for j in range(3)], dim=-1)
+    conv = taps @ ops["wc"].reshape(3 * hidden, c) + ops["bc"]
+    off = 1 if p0 == 0 else 0
+    return x[:, off: off + last: stride] + conv
+
+
+def strided_block1(x: torch.Tensor, ops: Dict, *, num_heads: int, stride: int,
+                   paddings: Tuple[int, int]) -> torch.Tensor:
+    """(B, N, C) → (B, n_out, C). CPU tensor: plain version; CUDA tensor: K3."""
+    p0, p1 = (int(paddings[0]), int(paddings[1]))
+    if not (0 <= p0 <= 1 and 0 <= p1 <= 1):
+        raise ValueError(f"strided block 1 takes paddings in {{0, 1}}, got {paddings}")
+    if x.device.type == "cpu":
+        return strided_block1_plain(x, ops, num_heads=num_heads, stride=stride,
+                                    paddings=(p0, p1))
+    b, n, c = x.shape
+    n_out = output_length(n, stride, (p0, p1))
+    if n_out < 1:
+        raise ValueError(f"N={n} is too short for stride {stride}")
+    h = x.reshape(b * n, c).contiguous()
+    cuda_lib.check_cuda("x", h)
+    cuda_lib.check_cuda("pe", ops["pe"], shape=(n, c), device=x.device)
+    h, y = layernorm(h, ops["ln1_g"], ops["ln1_b"], 1e-5, pe=ops["pe"],
+                     counter=COUNTER)
+    h = attention_sublayer(h, y, ops["wqkv"], ops["bqkv"], ops["wp"], ops["bp"],
+                           key_mask=None, windows=b, n=n, num_heads=num_heads,
+                           counter=COUNTER)
+    z = layernorm(h, ops["ln2_g"], ops["ln2_b"], 1e-5, counter=COUNTER)
+    h1 = gemm(z, ops["w1"], ops["b1"], relu=True, counter=COUNTER)
+    hidden = h1.shape[1]
+    cuda_lib.check_cuda("wc", ops["wc"], shape=(3 * hidden, c), device=x.device)
+    cuda_lib.check_cuda("bc", ops["bc"], shape=(c,), device=x.device)
+    out = torch.empty((b * n_out, c), dtype=torch.float32, device=x.device)
+    cuda_lib.launch("strided", "strided_conv_f32", COUNTER, h1, h, ops["wc"],
+                    ops["bc"], out, b, n, hidden, c, stride, p0, n_out)
+    return out.reshape(b, n_out, c)

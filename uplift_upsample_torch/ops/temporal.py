@@ -1,0 +1,195 @@
+"""K2 — the temporal stack (counterpart of ops/pallas_temporal_v3.py).
+
+`temporal_stack` runs the pre-norm temporal blocks over (B, N, C): LN, qkv,
+per-window multi-head attention with an additive -1e9 key mask on
+stride-masked frames for the first `first_masked_blocks` blocks, proj,
+residual, LN, relu MLP, residual. On a CUDA tensor each block is seven
+launches of the kernels in `csrc/temporal.cu` (which replace
+`pallas_temporal_v3.fused_temporal_stack_v3`); on a CPU tensor it runs
+`temporal_stack_plain`, the same function in plain PyTorch.
+
+The GEMM, LayerNorm and window-attention wrappers below are shared with K3
+(`ops/strided.py`); each counts its launches for the K it runs for.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping, Optional
+
+import torch
+import torch.nn.functional as F
+
+from . import cuda_lib
+
+COUNTER = "temporal_stack"
+
+
+def stack_temporal_params(state: Mapping[str, torch.Tensor], num_blocks: int,
+                          prefix: str = "temporal_block_") -> Dict:
+    """Model state_dict → the temporal blocks' operands, stacked over blocks.
+
+    q/k/v are concatenated into one (C, 3C) matrix per block; matrices are
+    (in, out); missing biases become zeros.
+    """
+    first = state[f"{prefix}1.attn.wq.weight"]
+    c = first.shape[0]
+
+    def get(i, key, n=None):
+        full = f"{prefix}{i}.{key}"
+        if full in state:
+            return state[full]
+        return torch.zeros(n, dtype=first.dtype, device=first.device)
+
+    def st(fn):
+        return torch.stack([fn(i) for i in range(1, num_blocks + 1)]).float().contiguous()
+
+    return dict(
+        ln1_g=st(lambda i: get(i, "norm1.weight")),
+        ln1_b=st(lambda i: get(i, "norm1.bias")),
+        wqkv=st(lambda i: torch.cat([get(i, f"attn.{w}.weight").t()
+                                     for w in ("wq", "wk", "wv")], dim=1)),
+        bqkv=st(lambda i: torch.cat([get(i, f"attn.{w}.bias", c)
+                                     for w in ("wq", "wk", "wv")])),
+        wp=st(lambda i: get(i, "attn.proj.weight").t()),
+        bp=st(lambda i: get(i, "attn.proj.bias", c)),
+        ln2_g=st(lambda i: get(i, "norm2.weight")),
+        ln2_b=st(lambda i: get(i, "norm2.bias")),
+        w1=st(lambda i: get(i, "mlp.fc1.weight").t()),
+        b1=st(lambda i: get(i, "mlp.fc1.bias")),
+        w2=st(lambda i: get(i, "mlp.fc2.weight").t()),
+        b2=st(lambda i: get(i, "mlp.fc2.bias")),
+    )
+
+
+# -- plain versions -----------------------------------------------------------
+
+def window_attention_plain(qkv: torch.Tensor, key_mask: Optional[torch.Tensor],
+                           num_heads: int) -> torch.Tensor:
+    """(B, N, 3C) packed q|k|v → (B, N, C) context; key_mask (B, N), 1 = blocked."""
+    b, n, c3 = qkv.shape
+    c = c3 // 3
+    d = c // num_heads
+    q, k, v = (t.reshape(b, n, num_heads, d).transpose(1, 2)
+               for t in qkv.split(c, dim=-1))
+    logits = q @ k.transpose(-1, -2) * (1.0 / d ** 0.5)
+    if key_mask is not None:
+        logits = logits + key_mask[:, None, None, :] * -1e9
+    ctx = torch.softmax(logits, dim=-1) @ v
+    return ctx.transpose(1, 2).reshape(b, n, c)
+
+
+def temporal_stack_plain(x: torch.Tensor, ops: Dict,
+                         key_mask: Optional[torch.Tensor] = None, *,
+                         num_heads: int, first_masked_blocks: int = 0) -> torch.Tensor:
+    """(B, N, C) → (B, N, C): the temporal blocks in plain PyTorch."""
+    c = x.shape[-1]
+    km = None if key_mask is None else key_mask.float()
+    for blk in range(ops["ln1_g"].shape[0]):
+        y = F.layer_norm(x, (c,), ops["ln1_g"][blk], ops["ln1_b"][blk], 1e-5)
+        qkv = y @ ops["wqkv"][blk] + ops["bqkv"][blk]
+        ctx = window_attention_plain(qkv, km if blk < first_masked_blocks else None,
+                                     num_heads)
+        x = x + (ctx @ ops["wp"][blk] + ops["bp"][blk])
+        z = F.layer_norm(x, (c,), ops["ln2_g"][blk], ops["ln2_b"][blk], 1e-5)
+        z = torch.relu(z @ ops["w1"][blk] + ops["b1"][blk])
+        x = x + (z @ ops["w2"][blk] + ops["b2"][blk])
+    return x
+
+
+# -- kernel launches (CUDA tensors only) --------------------------------------
+
+def gemm(a: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor], *,
+         counter: str, residual: Optional[torch.Tensor] = None,
+         relu: bool = False, out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """act(a @ w + bias) + residual on the card; a (M, K), w (K, N) row-major."""
+    m, k = a.shape
+    n = w.shape[1]
+    cuda_lib.check_cuda("a", a)
+    cuda_lib.check_cuda("w", w, shape=(k, n), device=a.device)
+    if bias is not None:
+        cuda_lib.check_cuda("bias", bias, shape=(n,), device=a.device)
+    if residual is not None:
+        cuda_lib.check_cuda("residual", residual, shape=(m, n), device=a.device)
+    if out is None:
+        out = torch.empty((m, n), dtype=torch.float32, device=a.device)
+    cuda_lib.launch("temporal", "gemm_f32", counter, a, w, bias, residual, out,
+                    m, n, k, int(relu))
+    return out
+
+
+def layernorm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, eps: float,
+              *, counter: str, pe: Optional[torch.Tensor] = None):
+    """LN over the last dim of x (rows, C) on the card.
+
+    With `pe` (pe_rows, C), row r first gets pe[r % pe_rows] added; returns
+    (x + pe, LN(x + pe)) then, else LN(x).
+    """
+    rows, c = x.shape
+    cuda_lib.check_cuda("x", x)
+    cuda_lib.check_cuda("gamma", gamma, shape=(c,), device=x.device)
+    cuda_lib.check_cuda("beta", beta, shape=(c,), device=x.device)
+    y = torch.empty_like(x)
+    x_pe = None
+    pe_rows = 0
+    if pe is not None:
+        cuda_lib.check_cuda("pe", pe, device=x.device)
+        pe_rows = pe.shape[0]
+        x_pe = torch.empty_like(x)
+    cuda_lib.launch("temporal", "layernorm_f32", counter, x, pe, gamma, beta,
+                    x_pe, y, rows, c, pe_rows, float(eps))
+    return (x_pe, y) if pe is not None else y
+
+
+def window_attention(qkv: torch.Tensor, key_mask: Optional[torch.Tensor], *,
+                     windows: int, n: int, num_heads: int, counter: str) -> torch.Tensor:
+    """(windows·n, 3C) → (windows·n, C) attention inside each window, on the card."""
+    rows, c3 = qkv.shape
+    c = c3 // 3
+    cuda_lib.check_cuda("qkv", qkv, shape=(windows * n, c3))
+    if key_mask is not None:
+        cuda_lib.check_cuda("key_mask", key_mask, shape=(windows, n), device=qkv.device)
+    out = torch.empty((rows, c), dtype=torch.float32, device=qkv.device)
+    cuda_lib.launch("temporal", "window_attention_f32", counter, qkv, key_mask,
+                    out, windows, n, c, num_heads)
+    return out
+
+
+def attention_sublayer(x: torch.Tensor, y: torch.Tensor, wqkv, bqkv, wp, bp, *,
+                       key_mask, windows: int, n: int, num_heads: int,
+                       counter: str) -> torch.Tensor:
+    """x + proj(attention(qkv(y))) on the card, y being LN(x): three launches."""
+    qkv = gemm(y, wqkv, bqkv, counter=counter)
+    ctx = window_attention(qkv, key_mask, windows=windows, n=n,
+                           num_heads=num_heads, counter=counter)
+    return gemm(ctx, wp, bp, residual=x, counter=counter)
+
+
+def temporal_stack(x: torch.Tensor, ops: Dict,
+                   key_mask: Optional[torch.Tensor] = None, *, num_heads: int,
+                   first_masked_blocks: int = 0) -> torch.Tensor:
+    """(B, N, C) → (B, N, C). CPU tensor: plain version; CUDA tensor: K2.
+
+    key_mask: (B, N), 1 = blocked key, applied in the first
+    `first_masked_blocks` blocks.
+    """
+    if x.device.type == "cpu":
+        return temporal_stack_plain(x, ops, key_mask, num_heads=num_heads,
+                                    first_masked_blocks=first_masked_blocks)
+    b, n, c = x.shape
+    if c % num_heads != 0:
+        raise ValueError(f"C={c} does not split into {num_heads} heads")
+    km = None
+    if key_mask is not None and first_masked_blocks > 0:
+        km = key_mask.to(torch.float32).contiguous()
+    h = x.reshape(b * n, c).contiguous()
+    cuda_lib.check_cuda("x", h)
+    for blk in range(ops["ln1_g"].shape[0]):
+        y = layernorm(h, ops["ln1_g"][blk], ops["ln1_b"][blk], 1e-5, counter=COUNTER)
+        h = attention_sublayer(h, y, ops["wqkv"][blk], ops["bqkv"][blk],
+                               ops["wp"][blk], ops["bp"][blk],
+                               key_mask=km if blk < first_masked_blocks else None,
+                               windows=b, n=n, num_heads=num_heads, counter=COUNTER)
+        z = layernorm(h, ops["ln2_g"][blk], ops["ln2_b"][blk], 1e-5, counter=COUNTER)
+        z = gemm(z, ops["w1"][blk], ops["b1"][blk], relu=True, counter=COUNTER)
+        h = gemm(z, ops["w2"][blk], ops["b2"][blk], residual=h, out=h, counter=COUNTER)
+    return h.reshape(b, n, c)
