@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port's serving path on one CUDA card.
+"""Smoke run of the PyTorch port's serving and training paths on one CUDA card.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -9,14 +9,26 @@ Phases (one line each; any failure ends the run with a non-zero exit):
      all started together;
   2. each kernel against its plain PyTorch version on the card at h36m_351
      width (K1 on 72,704 frames, K2 and K3 on 1,024 windows of 71 tokens,
-     K3 also at the h36m_81 geometry), with its time from CUDA events, the
-     plain version's time, a PyTorch library call's time where one computes
-     the same function, and the least time the card could take (bound);
+     K3 also at the h36m_81 geometry; the training kernels at the train
+     step's shapes: K1 with stochastic-depth scales and K4 on the 25,600
+     frames of the keyframe budget, K5 forward and backward on 512 windows,
+     K5 also over one block and at the h36m_81 geometry), with its time from
+     CUDA events, the plain version's time, a PyTorch library call's time
+     where one computes the same function, and the least time the card could
+     take (bound);
   3. the serving path end to end: a seeded full-width h36m_351 model, flip-TTA
      on, seeded synthetic 2D sequences through `predict_sequence` on the
      kernel path, the launch counts of that run, and the same sequences
      through the plain model on the card for comparison;
-  4. one JSON line of per-kernel numbers, the card line again, and the last
+  4. the training step end to end: a seeded full-width h36m_351 model with
+     the shipped training config (B=512, mask strides [5, 10, 20], stochastic
+     depth, AdamW), synthetic H36M-shaped sequences through the train-mode
+     generator and FastH36mBatcher into `make_train_step`: ms per step split
+     into host batch time and card step time, windows/s, launches per step;
+     then the kernel path against `kernels=False` (the plain versions on the
+     card): one batch's loss and every parameter gradient, and a 5-step loss
+     curve;
+  5. one JSON line of per-kernel numbers, the card line again, and the last
      line `{"ok": true, "device": {...}}`.
 
 It needs a CUDA card and the repository checkout around it; without either it
@@ -27,6 +39,7 @@ the card's machine has no h5py to read a checkpoint.
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import math
 import os
@@ -37,6 +50,8 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 SEQUENCES, FRAMES = 3, 3000  # synthetic 2D sequences of the predict phase
+TRAIN_SEQUENCES = 8          # synthetic 3D+2D sequences of the train phase
+WARMUP_STEPS, TIMED_STEPS, CURVE_STEPS = 2, 8, 5
 
 # H100 SXM peaks (NVIDIA data sheet): fp32 on CUDA cores and HBM3 bandwidth.
 PEAK_FP32_FLOPS = 67e12
@@ -84,8 +99,241 @@ def tolerance(ref) -> float:
     return 2e-4 * max(1.0, float(ref.abs().max()))
 
 
+def out_check(torch, got, ref):
+    """(max abs error, limit text, ok) of an output against its plain version."""
+    err, tol = max_err(got, ref), tolerance(ref)
+    return err, f"{tol:.3e}", err <= tol and bool(torch.isfinite(got).all())
+
+
+def grad_check(torch, pairs):
+    """The grad bar per leaf: |got - ref| <= 2e-4 * max(max|ref|, 1e-3) +
+    2e-3 * |ref| (fp32 sums over up to 36,352 rows in another order). A pair
+    may carry a third tensor: then the leaf's true gradient is 0 (the key
+    bias shifts a softmax row by a constant) and both sides, float noise,
+    must stay below 2e-4 of that tensor's scale."""
+    worst, ok = 0.0, True
+    for got, ref, *zero_at in pairs:
+        worst = max(worst, max_err(got, ref))
+        ok = ok and bool(torch.isfinite(got).all())
+        if zero_at:
+            bar = 2e-4 * max(float(zero_at[0].abs().max()), 1e-3)
+            ok = ok and float(got.abs().max()) <= bar and float(ref.abs().max()) <= bar
+            continue
+        scale = max(float(ref.abs().max()), 1e-3)
+        ok = ok and bool(((got - ref).abs() <= 2e-4 * scale + 2e-3 * ref.abs()).all())
+    return worst, "grad bar", ok
+
+
 def ops_bytes(ops) -> int:
     return sum(v.numel() for v in ops.values()) * F32
+
+
+def profile_step(torch, run, top: int = 12) -> None:
+    """One train step under torch.profiler: the card's busy time (the union
+    of kernel intervals) against the step's wall time, and the kernels that
+    took the most card time. Says so when the trace has no card activity."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        log("phase 4 profile: the trace holds no card activity (time from CUDA events only)")
+        return
+    busy, end = 0.0, float("-inf")
+    by_name = collections.defaultdict(lambda: [0.0, 0])
+    for e in sorted(kernels, key=lambda e: e.time_range.start):  # union of intervals, us
+        busy += max(0.0, e.time_range.end - max(e.time_range.start, end))
+        end = max(end, e.time_range.end)
+        by_name[e.name][0] += e.time_range.elapsed_us()
+        by_name[e.name][1] += 1
+    rows = sorted(by_name.items(), key=lambda kv: kv[1][0], reverse=True)
+    log(f"phase 4 profile: one step {wall_ms:.3f} ms wall, card busy {busy / 1e3:.3f} ms "
+        f"({100 * busy / 1e3 / wall_ms:.1f} %, idle {100 - 100 * busy / 1e3 / wall_ms:.1f} %), "
+        f"{len(kernels)} kernels; top card time: " + "; ".join(
+            f"{name[:70]} {us / 1e3:.3f} ms x{n}" for name, (us, n) in rows[:top]))
+
+
+def train_phase(args, torch, np, rng, config, failed):
+    """Phase 4: make_train_step on synthetic H36M-shaped sequences through the
+    train-mode generator and batcher; returns the launch counts of the timed
+    steps (the main path's run)."""
+    from uplift_upsample_torch.data.fast_batcher import FastH36mBatcher
+    from uplift_upsample_torch.data.generator import H36mSequenceGenerator
+    from uplift_upsample_torch.models import build_uplift_upsample_transformer
+    from uplift_upsample_torch.ops import cuda_lib
+    from uplift_upsample_torch.parallel import make_optimizer, make_train_step
+    from uplift_upsample_torch.parallel.train_step import (batch_to_device, make_loss_fn,
+                                                           set_droppath_generator,
+                                                           step_generator)
+
+    p, b = config.NUM_KEYPOINTS, config.BATCH_SIZE
+    p3d, p2d = [], []
+    for _ in range(TRAIN_SEQUENCES):  # random-walk poses 5 m in front of the camera
+        root = np.cumsum(rng.normal(size=(FRAMES, 1, 3)) * 0.005, axis=0) + [0.0, 0.0, 5.0]
+        joints = (root + rng.normal(size=(1, p, 3)) * 0.25
+                  + np.cumsum(rng.normal(size=(FRAMES, p, 3)) * 0.002, axis=0))
+        p3d.append(joints.astype(np.float32))
+        p2d.append((joints[..., :2] / joints[..., 2:]).astype(np.float32))
+
+    def batches():
+        gen = H36mSequenceGenerator(
+            p3d, p2d, camera_params=[np.zeros(11, np.float32)] * TRAIN_SEQUENCES,
+            subjects=list(range(TRAIN_SEQUENCES)), actions=[0] * TRAIN_SEQUENCES,
+            frame_rates=[50] * TRAIN_SEQUENCES, split="train",
+            seq_len=config.SEQUENCE_LENGTH, target_frame_rate=50,
+            subsample=config.DATASET_TRAIN_3D_SUBSAMPLE_STEP, stride=config.SEQUENCE_STRIDE,
+            padding_type=config.PADDING_TYPE, flip_augment=config.AUGM_FLIP_PROB > 0,
+            in_batch_augment=config.IN_BATCH_AUGMENT,
+            flip_lr_indices=config.AUGM_FLIP_KEYPOINT_ORDER, mask_stride=config.MASK_STRIDE,
+            stride_mask_align_global=False, rand_shift_stride_mask=config.STRIDE_MASK_RAND_SHIFT,
+            shuffle=True, seed=config.SHUFFLE_SEED, verbose=False)
+        return FastH36mBatcher(gen, batch_size=b).batches()
+
+    def fresh(kernels):
+        model = build_uplift_upsample_transformer(config, device="cuda", seed=args.seed)
+        opt, _, _ = make_optimizer(config)
+        state = opt.init(model, ema=bool(config.EMA_ENABLED))
+        return model, state, make_train_step(model, opt, config, device="cuda",
+                                             kernels=kernels)
+
+    model, state, step = fresh(True)
+    feed = batches()
+    for _ in range(WARMUP_STEPS):
+        state, loss = step(state, next(feed))
+    torch.cuda.synchronize()
+    cuda_lib.reset_launches()
+    host_ms, step_ms, losses = [], [], []
+    t_wall = time.perf_counter()
+    for _ in range(TIMED_STEPS):
+        t0 = time.perf_counter()
+        batch = next(feed)
+        host_ms.append(1e3 * (time.perf_counter() - t0))
+        ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        ev0.record()
+        state, loss = step(state, batch)
+        ev1.record()
+        ev1.synchronize()
+        step_ms.append(ev0.elapsed_time(ev1))
+        losses.append(float(loss))
+    wall_ms = 1e3 * (time.perf_counter() - t_wall) / TIMED_STEPS
+    train_counts = dict(cuda_lib.LAUNCHES)
+    per_step = {k: v / TIMED_STEPS for k, v in sorted(train_counts.items())}
+    log(f"phase 4 train: h36m_351 B={b}, {TIMED_STEPS} steps after {WARMUP_STEPS}: "
+        f"card step {np.mean(step_ms):.3f} ms (CUDA events, min {min(step_ms):.3f}, "
+        f"max {max(step_ms):.3f}), host batch {np.mean(host_ms):.3f} ms, wall "
+        f"{wall_ms:.3f} ms per step = {1e3 * b / wall_ms:.1f} windows/s; "
+        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+        f"loss {losses[0]:.5f} -> {losses[-1]:.5f}; launches per step {per_step}")
+    profile_step(torch, lambda: step(state, next(feed)))
+    if not all(np.isfinite(losses)):
+        failed.append("train_loss_not_finite")
+    for key in ("spatial_stack", "spatial_bwd", "temporal_train_fwd", "temporal_train_bwd"):
+        if train_counts.get(key, 0) == 0:
+            failed.append(f"no_launch_{key}")
+
+    # One batch through the kernel path and through the plain versions. A relu
+    # pre-activation within rounding of 0 can take the other side of the kink
+    # on the plain path (K5's forward and cuBLAS round differently, and the
+    # tail sees inputs that differ by ~1e-6), which moves that unit's
+    # gradient by its whole upstream value. So the kernel path's relu
+    # decisions (K5's and the tail's strided MLPs') are recorded and replayed
+    # on the plain path for the grad bar; the comparison without the replay
+    # is reported beside it.
+    import functools
+
+    import uplift_upsample_torch.ops.temporal_train as temporal_train_mod
+    import uplift_upsample_torch.parallel.train_step as train_step_mod
+
+    batch = batch_to_device(next(feed), "cuda")
+    model.train()
+    mlps = [blk.mlp for name, blk in model.named_children()
+            if name.startswith("strided_temporal_block_")]
+    relu = mlps[0].activation
+    kernel_fwd, plain_stack = (temporal_train_mod.temporal_train_fwd,
+                               train_step_mod.temporal_stack_plain)
+    decisions = {"temporal": None, "tail": []}
+
+    def recording_fwd(*a, **kw):
+        out, saved = kernel_fwd(*a, **kw)
+        decisions["temporal"] = temporal_train_mod.saved_relu_masks(saved)
+        return out, saved
+
+    def recording_relu(x):
+        decisions["tail"].append(x > 0)
+        return relu(x)
+
+    def loss_and_grads(kernels, replay=False):
+        for q in model.parameters():
+            q.grad = None
+        if kernels:
+            decisions["tail"].clear()
+            temporal_train_mod.temporal_train_fwd = recording_fwd
+            for mlp in mlps:
+                mlp.activation = recording_relu
+        elif replay:
+            tail = iter(list(decisions["tail"]))
+            train_step_mod.temporal_stack_plain = functools.partial(
+                plain_stack, relu_masks=decisions["temporal"])
+            for mlp in mlps:
+                mlp.activation = lambda x: x * next(tail).to(x.dtype)
+        try:
+            generator = step_generator(config.SHUFFLE_SEED, 0)
+            set_droppath_generator(model, generator)
+            loss = make_loss_fn(model, config, kernels=kernels)(batch, generator)
+            loss.backward()
+        finally:
+            temporal_train_mod.temporal_train_fwd = kernel_fwd
+            train_step_mod.temporal_stack_plain = plain_stack
+            for mlp in mlps:
+                mlp.activation = relu
+        return float(loss.detach()), {k: q.grad.clone() for k, q in model.named_parameters()}
+
+    def compare(grads_k, grads_p):
+        pairs = [(grads_k[k], grads_p[k],
+                  *([grads_p[k.replace("wk", "wq")]] if k.endswith("attn.wk.bias") else []))
+                 for k in grads_p]
+        over = [k for k, pair in zip(grads_p, pairs) if not grad_check(torch, [pair])[2]]
+        l2 = max(float((grads_k[k] - grads_p[k]).norm() / grads_p[k].norm().clamp_min(1e-30))
+                 for k in grads_p if not k.endswith("attn.wk.bias"))
+        return grad_check(torch, pairs), over, l2
+
+    loss_k, grads_k = loss_and_grads(True)
+    loss_p, grads_p = loss_and_grads(False, replay=True)
+    (g_err, _, g_ok), over, l2 = compare(grads_k, grads_p)
+    loss_ok = abs(loss_k - loss_p) <= 1e-5 * abs(loss_p)
+    log(f"phase 4 grads: kernel path loss {loss_k:.7f}, plain {loss_p:.7f} "
+        f"({'ok' if loss_ok else 'FAILED'}, rtol 1e-5); {len(grads_p)} gradient leaves "
+        f"with the kernel path's relu decisions replayed ({len(decisions['tail'])} tail "
+        f"relus, {len(decisions['temporal'])} K5 blocks): max abs err {g_err:.3e}, "
+        f"largest per-leaf L2 error {l2:.2e}, under the grad bar: "
+        f"{'ok' if g_ok else 'FAILED ' + str(over)}")
+    if not (loss_ok and g_ok):
+        failed.append("train_grads_vs_plain")
+    _, grads_own = loss_and_grads(False)
+    (g_err, _, _), over, l2 = compare(grads_k, grads_own)
+    log(f"phase 4 grads, plain path with its own relu decisions: max abs err "
+        f"{g_err:.3e}, largest per-leaf L2 error {l2:.2e}; leaves over the grad bar "
+        f"{over}")
+    del model, state, step, grads_k, grads_p, grads_own
+    torch.cuda.empty_cache()
+
+    # The first steps of both paths from the same weights and batches.
+    curves = {}
+    for kernels in (True, False):
+        model, state, step = fresh(kernels)
+        feed = batches()
+        curves[kernels] = [float(step(state, next(feed))[1]) for _ in range(CURVE_STEPS)]
+        del model, state, step
+    curve_ok = bool(np.allclose(curves[True], curves[False], rtol=1e-3, atol=0))
+    log(f"phase 4 curve: {CURVE_STEPS} steps, kernel path {curves[True]}, plain "
+        f"{curves[False]} ({'ok' if curve_ok else 'FAILED'}, rtol 1e-3)")
+    if not curve_ok:
+        failed.append("train_curve_vs_plain")
+    return train_counts
 
 
 def main(argv=None) -> int:
@@ -112,7 +360,10 @@ def main(argv=None) -> int:
     from uplift_upsample_torch.models import build_uplift_upsample_transformer
     from uplift_upsample_torch.models.bench_forward import prepare_fused_params
     from uplift_upsample_torch.ops import cuda_lib
-    from uplift_upsample_torch.ops.spatial import spatial_stack, spatial_stack_plain
+    from uplift_upsample_torch.ops.spatial import (make_droppath_scales, spatial_stack,
+                                                   spatial_stack_plain)
+    from uplift_upsample_torch.ops.spatial_bwd import (spatial_stack_bwd,
+                                                       spatial_stack_bwd_plain)
     from uplift_upsample_torch.ops.strided import (output_length, strided_block1,
                                                    strided_block1_plain)
     from uplift_upsample_torch.ops.temporal import (gemm, layernorm,
@@ -120,6 +371,13 @@ def main(argv=None) -> int:
                                                     temporal_stack_plain,
                                                     window_attention,
                                                     window_attention_plain)
+    from uplift_upsample_torch.ops.temporal_train import (gemm_dw, layernorm_bwd,
+                                                          saved_relu_masks,
+                                                          temporal_stack_bwd_plain,
+                                                          temporal_train_bwd,
+                                                          temporal_train_fwd,
+                                                          window_attention_bwd)
+    from uplift_upsample_torch.parallel.train_step import keyframe_budget
     from uplift_upsample_torch.predict import make_predict_step, predict_sequence
 
     dev = torch.device("cuda")
@@ -157,23 +415,35 @@ def main(argv=None) -> int:
     results = {}
     failed = []
 
-    def record(name, route, source, replaces, got, ref, ms, plain_ms, flops, nbytes,
-               library_ms=None, counter=None, listed=True):
-        err, tol = max_err(got, ref), tolerance(ref)
+    def record(name, source, replaces, check, ms, plain_ms, flops, nbytes,
+               library_ms=None, counter=None, phase="predict", listed=True):
+        """One phase-2 line. `check` is out_check's or grad_check's result;
+        `launches` is read later from the `phase` run's count of `counter`."""
+        err, tol, ok = check
         b_ms, b_by = bound_ms(flops, nbytes)
-        entry = dict(name=name, route=route, source=source, replaces=replaces,
-                     launches=0, counter=counter or name, max_abs_err=err, tol=tol,
+        entry = dict(name=name, route="cuda", source=source, replaces=replaces,
+                     launches=0, counter=counter or name, phase=phase, max_abs_err=err,
                      ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                      library_ms=library_ms)
         if listed:  # a second geometry of a kernel is checked but not listed
             results[name] = entry
-        ok = err <= tol and bool(torch.isfinite(got).all())
         if not ok:
             failed.append(name)
         lib = "null" if library_ms is None else f"{library_ms:.4f}"
-        log(f"phase 2 {name}: max_abs_err {err:.3e} (tol {tol:.3e}) "
+        log(f"phase 2 {name}: max_abs_err {err:.3e} (limit {tol}) "
             f"{'ok' if ok else 'FAILED'}; ms {ms:.4f} plain_ms {plain_ms:.4f} "
-            f"library_ms {lib} bound_ms {b_ms:.4f} ({b_by})")
+            f"library_ms {lib} bound_ms {b_ms:.4f} ({b_by}; {flops / 1e9:.2f} GFLOP, "
+            f"{nbytes / 1e6:.1f} MB)")
+
+    def repeat_identical(name, first, second):
+        """The backward kernels sum partials in a fixed order, without float
+        atomics: a second call must give the same bits."""
+        flat = lambda r: [t for part in r for t in
+                          (part.values() if isinstance(part, dict) else [part])]
+        same = all(torch.equal(a, b) for a, b in zip(flat(first), flat(second)))
+        log(f"phase 2 {name}: a second call is bit-identical: {'yes' if same else 'NO'}")
+        if not same:
+            failed.append(f"{name}_not_deterministic")
 
     # K1: the spatial stack on every frame of a flip-TTA batch
     x_sp = rand(frames, p, 2)
@@ -184,8 +454,8 @@ def main(argv=None) -> int:
     got, ref = sp_fn(), sp_plain()
     per_frame = (p * 2 * cs * 2 + model.spatial_depth
                  * (2 * p * cs * cs * 4 + 2 * p * cs * 2 * cs * 2 + 4 * p * p * cs))
-    record("spatial_stack", "cuda", "uplift_upsample_torch/csrc/spatial.cu",
-           "uplift_upsample_tpu/ops/pallas_spatial.py:398", got, ref,
+    record("spatial_stack", "uplift_upsample_torch/csrc/spatial.cu",
+           "uplift_upsample_tpu/ops/pallas_spatial.py:398", out_check(torch, got, ref),
            time_ms(torch, sp_fn, 10), time_ms(torch, sp_plain, 3),
            frames * per_frame,
            (x_sp.numel() + got.numel() + fp["spatial_packed"].numel()) * F32)
@@ -205,8 +475,8 @@ def main(argv=None) -> int:
     got, ref = tm_fn(), tm_plain()
     rows = windows * n
     block_flops = rows * 2 * c * (3 * c + c + 2 * hid) + windows * 4 * n * n * c
-    record("temporal_stack", "cuda", "uplift_upsample_torch/csrc/temporal.cu",
-           "uplift_upsample_tpu/ops/pallas_temporal_v3.py:343", got, ref,
+    record("temporal_stack", "uplift_upsample_torch/csrc/temporal.cu",
+           "uplift_upsample_tpu/ops/pallas_temporal_v3.py:343", out_check(torch, got, ref),
            time_ms(torch, tm_fn, 5), time_ms(torch, tm_plain, 3),
            model.temporal_depth * block_flops,
            (2 * x_tm.numel() + km.numel()) * F32 + ops_bytes(tm_ops))
@@ -223,8 +493,8 @@ def main(argv=None) -> int:
         n_out = output_length(nn_, stride, pads)
         flops = (b * nn_ * 2 * c * (3 * c + c + hid) + b * 4 * nn_ * nn_ * c
                  + b * n_out * 2 * 3 * hid * c)
-        record(name, "cuda", "uplift_upsample_torch/csrc/strided.cu",
-               "uplift_upsample_tpu/ops/pallas_strided.py:231", got, ref,
+        record(name, "uplift_upsample_torch/csrc/strided.cu",
+               "uplift_upsample_tpu/ops/pallas_strided.py:231", out_check(torch, got, ref),
                time_ms(torch, fn, 5), time_ms(torch, plain, 3), flops,
                (x.numel() + got.numel()) * F32 + ops_bytes(ops),
                counter="strided_block1", listed=listed)
@@ -246,8 +516,8 @@ def main(argv=None) -> int:
     g_fn = lambda: gemm(y, wqkv, bqkv, counter="probe")
     got = g_fn()
     ref = y @ wqkv + bqkv
-    record("gemm", "cuda", "uplift_upsample_torch/csrc/gemm.cuh",
-           "uplift_upsample_tpu/ops/pallas_temporal_v3.py:174", got, ref,
+    record("gemm", "uplift_upsample_torch/csrc/gemm.cuh",
+           "uplift_upsample_tpu/ops/pallas_temporal_v3.py:174", out_check(torch, got, ref),
            time_ms(torch, g_fn, 10), time_ms(torch, lambda: y @ wqkv + bqkv, 10),
            rows * 2 * c * 3 * c, (y.numel() + wqkv.numel() + got.numel()) * F32,
            library_ms=time_ms(torch, lambda: torch.addmm(bqkv, y, wqkv), 10),
@@ -261,8 +531,8 @@ def main(argv=None) -> int:
     q, k, v = (t.reshape(windows, n, heads, c // heads).transpose(1, 2)
                for t in qkv.reshape(windows, n, 3 * c).split(c, dim=-1))
     add_mask = (km * -1e9)[:, None, None, :]
-    record("window_attention", "cuda", "uplift_upsample_torch/csrc/temporal.cu",
-           "uplift_upsample_tpu/ops/pallas_temporal_v3.py:248", got, ref,
+    record("window_attention", "uplift_upsample_torch/csrc/temporal.cu",
+           "uplift_upsample_tpu/ops/pallas_temporal_v3.py:248", out_check(torch, got, ref),
            time_ms(torch, a_fn, 10), time_ms(torch, a_plain, 5),
            windows * 4 * n * n * c, (qkv.numel() + km.numel() + got.numel()) * F32,
            library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
@@ -272,12 +542,168 @@ def main(argv=None) -> int:
     ln_fn = lambda: layernorm(y, g1, b1, 1e-5, counter="probe")
     ln_plain = lambda: F.layer_norm(y, (c,), g1, b1, 1e-5)
     got, ref = ln_fn(), ln_plain()
-    record("layernorm", "cuda", "uplift_upsample_torch/csrc/temporal.cu",
-           "uplift_upsample_tpu/ops/pallas_temporal_v3.py:128", got, ref,
+    record("layernorm", "uplift_upsample_torch/csrc/temporal.cu",
+           "uplift_upsample_tpu/ops/pallas_temporal_v3.py:128", out_check(torch, got, ref),
            time_ms(torch, ln_fn, 10), time_ms(torch, ln_plain, 10),
            rows * c * 8, 2 * y.numel() * F32, library_ms=time_ms(torch, ln_plain, 10),
            counter="layernorm_f32")
     del y, qkv, got, ref, q, k, v
+    torch.cuda.empty_cache()
+
+    # ---- phase 2, training kernels at the train step's shapes ----------------
+    tconfig = get_config("h36m_351")  # mask strides [5, 10, 20], B=512, droppath
+    tmodel = build_uplift_upsample_transformer(tconfig, device="cuda", seed=args.seed)
+    tfp = prepare_fused_params(tmodel)
+    budget = keyframe_budget(tmodel, tconfig)  # 25,600 of 36,352 frames
+    bt, nt = tconfig.BATCH_SIZE, tconfig.SEQUENCE_LENGTH
+    gen = torch.Generator().manual_seed(args.seed)
+    depth_s = tmodel.spatial_depth
+    sp_rates = [tconfig.DROP_PATH_RATE[0] * i / (depth_s - 1) for i in range(depth_s)]
+    sp_ops, sp_packed = tfp["spatial"], tfp["spatial_packed"]
+    x_kf = rand(budget, p, 2)
+    sc = make_droppath_scales(gen, sp_rates, budget).to(dev)
+    k1 = lambda: spatial_stack(x_kf, sp_ops, num_heads=heads, packed=sp_packed,
+                               droppath_scales=sc)
+    k1_plain = lambda: spatial_stack_plain(x_kf, sp_ops, num_heads=heads, droppath_scales=sc)
+    got, ref = k1(), k1_plain()
+    sp_in = (x_kf.numel() + sc.numel() + sp_packed.numel()) * F32
+    record("spatial_stack_droppath", "uplift_upsample_torch/csrc/spatial.cu",
+           "uplift_upsample_tpu/ops/pallas_spatial.py:398", out_check(torch, got, ref),
+           time_ms(torch, k1, 10), time_ms(torch, k1_plain, 3), budget * per_frame,
+           sp_in + got.numel() * F32, counter="spatial_stack", phase="train")
+    g_sp = rand(budget, p * cs, scale=1.0)
+    k4 = lambda: spatial_stack_bwd(x_kf, sp_ops, sc, g_sp, num_heads=heads, packed=sp_packed)
+    k4_plain = lambda: spatial_stack_bwd_plain(x_kf, sp_ops, sc, g_sp, num_heads=heads)
+    (dpk, dxk, ddk), (dpp, dxp, ddpp) = k4(), k4_plain()
+    repeat_identical("spatial_bwd", (dpk, dxk, ddk), k4())
+    pairs = [(dpk[k], dpp[k], *([dpp["bq"]] if k == "bk" else [])) for k in dpp]
+    # the VJP's least work: the forward plus twice its products
+    record("spatial_bwd", "uplift_upsample_torch/csrc/spatial_bwd.cu",
+           "uplift_upsample_tpu/ops/pallas_spatial_bwd.py:418",
+           grad_check(torch, pairs + [(dxk, dxp), (ddk, ddpp)]),
+           time_ms(torch, k4, 5), time_ms(torch, k4_plain, 3), 3 * budget * per_frame,
+           2 * sp_in + g_sp.numel() * F32, phase="train")
+    del got, ref, dpk, dxk, ddk, dpp, dxp, ddpp, pairs
+    torch.cuda.empty_cache()
+
+    tm_ops_t = tfp["temporal"]
+    fmb_t = tmodel.first_strided_token_attention_layer
+
+    def key_mask(b_, n_):
+        """1 - stride mask of mask strides 5/10/20 (1/2/4 frames) at random phases."""
+        step_ = rng.choice([1, 2, 4], size=(b_, 1))
+        phase_ = rng.integers(0, 4, size=(b_, 1))
+        return torch.from_numpy(((np.arange(n_)[None] + phase_) % step_ != 0)
+                                .astype(np.float32)).to(dev)
+
+    def temporal_train_case(suffix, x, ops, listed):
+        """K5 forward and backward on x (B, S, C) at keep 0.9 with a key mask in
+        the first block, against the plain stack and its autograd."""
+        kw = dict(num_heads=heads, first_masked_blocks=fmb_t)
+        blocks_, (b_, n_, _) = ops["ln1_g"].shape[0], x.shape
+        km_ = key_mask(b_, n_)
+        dp_ = make_droppath_scales(gen, [0.1] * blocks_, b_).reshape(blocks_, 2, b_).to(dev)
+        cot = rand(b_, n_, c, scale=1.0)
+        fwd = lambda: temporal_train_fwd(x, ops, km_, dp_, **kw)
+        fwd_plain = lambda: temporal_stack_plain(x, ops, km_, droppath=dp_, **kw)
+        (out, saved), ref = fwd(), fwd_plain()
+        blk_flops = b_ * n_ * 2 * c * (3 * c + c + 2 * hid) + b_ * 4 * n_ * n_ * c
+        io = (x.numel() + km_.numel() + dp_.numel()) * F32 + ops_bytes(ops)
+        record("temporal_train_fwd" + suffix, "uplift_upsample_torch/csrc/temporal_bwd.cu",
+               "uplift_upsample_tpu/ops/pallas_temporal_bwd.py:613",
+               out_check(torch, out, ref), time_ms(torch, fwd, 3),
+               time_ms(torch, fwd_plain, 3), blocks_ * blk_flops, io + out.numel() * F32,
+               counter="temporal_train_fwd", phase="train", listed=listed)
+        bwd = lambda: temporal_train_bwd(saved, cot, ops, km_, dp_, **kw)
+        # the plain backward takes each relu's kink on the side K5's forward took
+        bwd_plain = lambda: temporal_stack_bwd_plain(x, ops, km_, dp_, cot,
+                                                     relu_masks=saved_relu_masks(saved), **kw)
+        (dxk_, gk, ddk_), (dxp_, gp, ddp_) = bwd(), bwd_plain()
+        repeat_identical("temporal_train_bwd" + suffix, (dxk_, gk, ddk_), bwd())
+        pairs_ = [(dxk_, dxp_), (ddk_, ddp_)]
+        for name_ in gp:
+            if name_ == "bqkv":  # the key bias's third has a true gradient of 0
+                pairs_ += [(gk[name_][:, c:2 * c], gp[name_][:, c:2 * c], gp[name_][:, :c]),
+                           (gk[name_][:, :c], gp[name_][:, :c]),
+                           (gk[name_][:, 2 * c:], gp[name_][:, 2 * c:])]
+            else:
+                pairs_.append((gk[name_], gp[name_]))
+        saved_bytes = sum(t.numel() for blk_ in saved for t in blk_.values()) * F32
+        record("temporal_train_bwd" + suffix, "uplift_upsample_torch/csrc/temporal_bwd.cu",
+               "uplift_upsample_tpu/ops/pallas_temporal_bwd.py:681",
+               grad_check(torch, pairs_), time_ms(torch, bwd, 3),
+               time_ms(torch, bwd_plain, 2), 2 * blocks_ * blk_flops,
+               saved_bytes + io + (2 * cot.numel() + dp_.numel()) * F32 + ops_bytes(ops),
+               counter="temporal_train_bwd", phase="train", listed=listed)
+
+    x_t = rand(bt, nt, c)
+    temporal_train_case("", x_t, tm_ops_t, True)
+    torch.cuda.empty_cache()
+    # one block: the TPU's single-block train kernels (fused_temporal_block_fwd/bwd)
+    temporal_train_case("_one_block", x_t, {k: v[:1].contiguous() for k, v in tm_ops_t.items()},
+                        False)
+    torch.cuda.empty_cache()
+    config81 = get_config("h36m_81")
+    temporal_train_case("_h36m_81", rand(config81.BATCH_SIZE, config81.SEQUENCE_LENGTH, c),
+                        tm_ops_t, False)
+    torch.cuda.empty_cache()
+
+    # The pieces of K5's backward beside one PyTorch call each (timed only).
+    rows_t = bt * nt
+    yb, dq = rand(rows_t, c), rand(rows_t, 3 * c, scale=1.0)
+    dw_out = torch.empty((c, 3 * c), device=dev)
+    dw_fn = lambda: gemm_dw(yb, dq, None, 1, dw_out)
+    dw_fn()
+    got, ref = dw_out.clone(), yb.t() @ dq
+    record("gemm_dw", "uplift_upsample_torch/csrc/temporal_bwd.cu",
+           "uplift_upsample_tpu/ops/pallas_temporal_bwd.py:522",
+           grad_check(torch, [(got, ref)]), time_ms(torch, dw_fn, 10),
+           time_ms(torch, lambda: yb.t() @ dq, 10), rows_t * 2 * c * 3 * c,
+           (yb.numel() + dq.numel() + got.numel()) * F32,
+           library_ms=time_ms(torch, lambda: torch.mm(yb.t(), dq), 10),
+           counter="gemm_dw_f32", phase="train")
+    km_t = key_mask(bt, nt)
+    qkv_t, dctx_t = rand(rows_t, 3 * c), rand(rows_t, c, scale=1.0)
+    ab_fn = lambda: window_attention_bwd(qkv_t, dctx_t, km_t, windows=bt, n=nt,
+                                         num_heads=heads)
+    got = ab_fn()
+    qkv_req = qkv_t.reshape(bt, nt, 3 * c).clone().requires_grad_(True)
+    out_plain = window_attention_plain(qkv_req, km_t, heads)
+    ab_plain = lambda: torch.autograd.grad(out_plain, qkv_req, dctx_t.reshape(bt, nt, c),
+                                           retain_graph=True)[0]
+    ref = ab_plain().reshape(rows_t, 3 * c)
+    d_h = c // heads
+    q, k, v = (t.reshape(bt, nt, heads, d_h).transpose(1, 2).detach().requires_grad_(True)
+               for t in qkv_t.split(c, dim=-1))
+    out_lib = F.scaled_dot_product_attention(q, k, v, attn_mask=(km_t * -1e9)[:, None, None, :])
+    g_lib = dctx_t.reshape(bt, nt, heads, d_h).transpose(1, 2)
+    record("window_attention_bwd", "uplift_upsample_torch/csrc/temporal_bwd.cu",
+           "uplift_upsample_tpu/ops/pallas_temporal_bwd.py:514",
+           grad_check(torch, [(got, ref)]), time_ms(torch, ab_fn, 10), time_ms(torch, ab_plain, 5),
+           bt * 8 * nt * nt * c,
+           (qkv_t.numel() + dctx_t.numel() + km_t.numel() + got.numel()) * F32,
+           library_ms=time_ms(torch, lambda: torch.autograd.grad(
+               out_lib, (q, k, v), g_lib, retain_graph=True), 10),
+           counter="window_attention_bwd_f32", phase="train")
+    del qkv_req, out_plain, q, k, v, out_lib
+    x_ln, dy_ln = rand(rows_t, c), rand(rows_t, c, scale=1.0)
+    g1, b1 = tm_ops_t["ln1_g"][0], tm_ops_t["ln1_b"][0]
+    og, ob = torch.empty(c, device=dev), torch.empty(c, device=dev)
+    ln_fn = lambda: layernorm_bwd(x_ln, dy_ln, g1, None, og, ob)
+    got = [ln_fn(), og.clone(), ob.clone()]
+    leaves = [t.detach().clone().requires_grad_(True) for t in (x_ln, g1, b1)]
+    out_ln = F.layer_norm(leaves[0], (c,), leaves[1], leaves[2], 1e-5)
+    ln_plain = lambda: torch.autograd.grad(out_ln, leaves, dy_ln, retain_graph=True)
+    _, ln_mean, ln_rstd = torch.ops.aten.native_layer_norm(x_ln, [c], g1, b1, 1e-5)
+    record("layernorm_bwd", "uplift_upsample_torch/csrc/temporal_bwd.cu",
+           "uplift_upsample_tpu/ops/pallas_temporal_bwd.py:501",
+           grad_check(torch, list(zip(got, ln_plain()))), time_ms(torch, ln_fn, 10),
+           time_ms(torch, ln_plain, 10), rows_t * c * 12, 3 * x_ln.numel() * F32,
+           library_ms=time_ms(torch, lambda: torch.ops.aten.native_layer_norm_backward(
+               dy_ln, x_ln, [c], ln_mean, ln_rstd, g1, b1, [True, True, True]), 10),
+           counter="layernorm_bwd_f32", phase="train")
+    del yb, dq, qkv_t, dctx_t, x_ln, dy_ln, got, ref, leaves, out_ln, tfp, sp_ops, sp_packed
+    del x_kf, sc, g_sp, x_t, tmodel
     torch.cuda.empty_cache()
 
     # ---- phase 3: the serving path end to end --------------------------------
@@ -330,11 +756,16 @@ def main(argv=None) -> int:
     for key in ("spatial_stack", "temporal_stack", "strided_block1"):
         if counts.get(key, 0) == 0:
             failed.append(f"no_launch_{key}")
-    for r in results.values():
-        r["launches"] = counts.get(r.pop("counter"), 0)
-        r.pop("tol")
+    del model, fp
+    torch.cuda.empty_cache()
 
-    # ---- phase 4: report -----------------------------------------------------
+    # ---- phase 4: the training step end to end -------------------------------
+    train_counts = train_phase(args, torch, np, rng, tconfig, failed)
+    counts_by_phase = {"predict": counts, "train": train_counts}
+    for r in results.values():
+        r["launches"] = counts_by_phase[r.pop("phase")].get(r.pop("counter"), 0)
+
+    # ---- phase 5: report -----------------------------------------------------
     if failed:
         log(f"FAILED: {failed}")
         return 1

@@ -26,6 +26,7 @@ namespace {
 struct ConvTaps {
   const float* h1;  // (windows * n, hidden)
   int n, hidden, n_out, stride, p0;
+  static constexpr bool kAlongK = true;
   __device__ __forceinline__ float operator()(int r, int kk) const {
     const int b = r / n_out, t = r - b * n_out;
     const int j = kk / hidden, i = kk - j * hidden;
@@ -57,7 +58,7 @@ extern "C" int strided_conv_f32(const float* h1, const float* x, const float* w,
     return cudaErrorInvalidValue;
   const int res_off = p0 == 0 ? 1 : 0;
   if (stride * (n_out - 1) + res_off >= n) return cudaErrorInvalidValue;
-  return uu::launch_gemm(ConvTaps{h1, n, hidden, n_out, stride, p0}, w,
+  return uu::launch_gemm(ConvTaps{h1, n, hidden, n_out, stride, p0}, uu::RowMajorB{w, c},
                          windows * n_out, c, 3 * hidden,
                          ConvResidual{x, bias, out, n, c, n_out, stride, res_off},
                          (cudaStream_t)stream);

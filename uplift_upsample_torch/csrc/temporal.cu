@@ -116,7 +116,7 @@ window_attention_kernel(const float* __restrict__ qkv, const float* __restrict__
 extern "C" int gemm_f32(const float* a, const float* w, const float* bias,
                         const float* residual, float* out, int m, int n, int k,
                         int relu, void* stream) {
-  return uu::launch_gemm(uu::RowMajorA{a, k}, w, m, n, k,
+  return uu::launch_gemm(uu::RowMajorA{a, k}, uu::RowMajorB{w, n}, m, n, k,
                          uu::BiasActResidual{bias, residual, out, n, relu},
                          (cudaStream_t)stream);
 }

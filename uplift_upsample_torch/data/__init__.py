@@ -1,1 +1,1 @@
-"""Host data code of the serving path (numpy): joint orders, windowing, batching."""
+"""Host data code (numpy): joint orders, windowing and batching for serving and training."""

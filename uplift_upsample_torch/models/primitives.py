@@ -1,4 +1,4 @@
-"""Transformer primitives (nn.Module, eval semantics).
+"""Transformer primitives (nn.Module).
 
 Numeric parity targets (reference `vision_transformer.py`, strided variants in
 `uplift_upsample_transformer.py:53-160`), as in the JAX package:
@@ -10,7 +10,9 @@ Numeric parity targets (reference `vision_transformer.py`, strided variants in
     Conv1d(k=3, stride=s, VALID); this is the temporal downsampler.
   - StridedTransformerBlock's residual path: crop one frame per unpadded end,
     then take every s-th frame (MaxPool1D(pool_size=1, strides=s) semantics).
-  - DropPath is the identity at eval, which is all this package runs.
+  - DropPath (stochastic depth) drops whole samples with probability rate and
+    scales the kept ones by 1/keep in training (`model.train()`); it is the
+    identity under `model.eval()`.
 
 Sub-module names follow the flax names (norm1, attn.wq, mlp.fc1, ...), so a
 flax parameter path maps onto a state_dict key by renaming leaves only
@@ -66,14 +68,26 @@ def gelu_exact(x: torch.Tensor) -> torch.Tensor:
 
 
 class DropPath(nn.Module):
-    """Stochastic depth. The port runs eval only, where it is the identity."""
+    """Stochastic depth on the batch dim (counterpart of primitives.drop_path).
+
+    In training, sample i is kept when floor(keep + U[0, 1)) = 1, keep =
+    1 - rate, and kept samples are scaled by 1/keep. U is drawn on the CPU
+    from `self.generator` (set by the train step; torch's default generator
+    when None) and moved to x's device.
+    """
 
     def __init__(self, rate: float = 0.0):
         super().__init__()
         self.rate = rate
+        self.generator: Optional[torch.Generator] = None
 
     def forward(self, x):
-        return x
+        if not self.training or self.rate == 0.0:
+            return x
+        keep = 1.0 - self.rate
+        u = torch.rand(x.shape[0], generator=self.generator)
+        mask = torch.floor(keep + u).to(device=x.device, dtype=x.dtype)
+        return (x / keep) * mask.reshape((-1,) + (1,) * (x.dim() - 1))
 
 
 class Mlp(nn.Module):

@@ -1,4 +1,4 @@
-"""UpliftUpsampleTransformer (nn.Module, eval semantics).
+"""UpliftUpsampleTransformer (nn.Module).
 
 Architecture parity with reference `uplift_upsample_transformer.py:163-421`,
 as the JAX package's `models/uplift_upsample.py` implements it:
@@ -13,8 +13,12 @@ as the JAX package's `models/uplift_upsample.py` implements it:
   → strided transformer stack shrinking N → 1
   → head2: Linear(3*K) on the final token → central-frame output (B, 17, 3)
 
-Eval only: dropout, drop-path and random token masking are training-time
-operations and are not ported. Sub-modules carry the flax names
+`model.train()` turns on stochastic depth (DropPath) in every block, the
+training forward of the JAX model (`uplift_upsample.py:112-268`); the train
+step runs the spatial and temporal stacks through their kernels and only the
+tail (the `temporal_input` splice) through this module. Output BatchNorm,
+dropout and random token masking in training are not ported and raise
+NotImplementedError. Sub-modules carry the flax names
 (`spatial_block_1`, `temporal_pe`, ...), so state_dict keys map one to one
 onto the JAX package's parameter paths.
 """
@@ -147,6 +151,9 @@ class UpliftUpsampleTransformer(nn.Module):
         and head1 is skipped. Returns (full_output | None, central (B, K, 3)).
         """
         p = self.num_keypoints
+        if self.training and (self.output_bn or self.token_mask_rate > 0):
+            raise NotImplementedError(
+                "training with OUTPUT_BN or TOKEN_MASK_RATE > 0 is not ported")
         if temporal_input:
             return self._heads_and_strided(x, stride_mask, strided_entry)
         b, n = x.shape[:2]

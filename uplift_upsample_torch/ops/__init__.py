@@ -1,8 +1,13 @@
-"""Compute ops: plain attention, and the three kernels of the serving path.
+"""Compute ops: plain attention, and the kernels of the serving and training paths.
 
-  spatial  — K1, the fused spatial stack (replaces pallas_spatial.fused_spatial_stack)
-  temporal — K2, the temporal stack (replaces pallas_temporal_v3.fused_temporal_stack_v3)
-  strided  — K3, strided block 1 (replaces pallas_strided.make_strided_b1_epilogue)
+  spatial        — K1, the fused spatial stack, with droppath scales in training
+                   (replaces pallas_spatial.fused_spatial_stack)
+  temporal       — K2, the temporal stack (replaces pallas_temporal_v3.fused_temporal_stack_v3)
+  strided        — K3, strided block 1 (replaces pallas_strided.make_strided_b1_epilogue)
+  spatial_bwd    — K4, the spatial stack's backward
+                   (replaces pallas_spatial_bwd.fused_spatial_stack_bwd)
+  temporal_train — K5, the temporal stack's training forward and backward
+                   (replaces pallas_temporal_bwd.fused_temporal_stack_train)
 
 Each kernel wrapper runs the CUDA kernel on a CUDA tensor (or raises) and its
 plain PyTorch version on a CPU tensor. `cuda_lib.LAUNCHES` counts the kernel

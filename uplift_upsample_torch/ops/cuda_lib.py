@@ -11,8 +11,10 @@ touches CUDA or nvcc until a kernel is first launched, so the CPU tests can
 import every module.
 
 `LAUNCHES` counts kernel launches per wrapper (K1 "spatial_stack",
-K2 "temporal_stack", K3 "strided_block1") and per C entry ("gemm_f32", ...):
-each launch of a CUDA kernel adds one to both, and nothing else does.
+K2 "temporal_stack", K3 "strided_block1", K4 "spatial_bwd",
+K5 "temporal_train_fwd" and "temporal_train_bwd") and per C entry
+("gemm_f32", ...): each launch of a CUDA kernel adds one to both, and
+nothing else does.
 """
 
 from __future__ import annotations
@@ -32,7 +34,7 @@ import torch
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-SOURCES = ("spatial", "temporal", "strided")
+SOURCES = ("spatial", "temporal", "strided", "spatial_bwd", "temporal_bwd")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
@@ -40,13 +42,28 @@ LAUNCHES: Dict[str, int] = collections.Counter()
 
 # C signatures: "p" = pointer or stream (c_void_p), "i" = int, "f" = float.
 _SIGNATURES = {
-    "spatial": {"spatial_stack_f32": "pppiiiip"},
+    "spatial": {"spatial_stack_f32": "ppppiiiip"},
     "temporal": {
         "gemm_f32": "pppppiiiip",
         "layernorm_f32": "ppppppiiifp",
         "window_attention_f32": "pppiiiip",
     },
     "strided": {"strided_conv_f32": "pppppiiiiiiip"},
+    "spatial_bwd": {
+        "spatial_bwd_workers": "iii",
+        "spatial_bwd_f32": "pppppppiiiiip",
+        "sum_rows_f32": "ppiip",
+    },
+    "temporal_bwd": {
+        "gemm_branch_f32": "ppppipppiiiip",
+        "gemm_dx_f32": "ppipppiiip",
+        "gemm_dw_f32": "pppipiiiip",
+        "colsum_f32": "ppipiip",
+        "layernorm_bwd_f32": "ppppppiifip",
+        "window_dot_f32": "pppiiip",
+        "window_attention_bwd_f32": "ppppiiiip",
+        "sum_rows_f32": "ppiip",
+    },
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 

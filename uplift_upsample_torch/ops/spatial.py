@@ -6,6 +6,14 @@ LayerNorm (eps 1e-6). On a CUDA tensor it launches `csrc/spatial.cu` (which
 replaces `pallas_spatial.fused_spatial_stack`); on a CPU tensor it runs
 `spatial_stack_plain`, the same function in plain PyTorch.
 
+Training (counterpart of `pallas_spatial.fused_spatial_train`): optional
+stochastic-depth scales (2L, F) multiply block l's attention and MLP
+branches by rows 2l and 2l+1 (`make_droppath_scales`). `spatial_stack_train`
+is differentiable: on a CUDA tensor it is `SpatialStackTrain`, whose forward
+is K1 and whose backward is K4 (`ops/spatial_bwd.py`); on a CPU tensor it is
+the plain version under autograd. Gradients reach the stacked operands, and
+through `stack_spatial_params` the module's parameters.
+
 Unlike the TPU kernel's (P, C, F) frames-on-lanes layout, frames are rows
 here: (F, 17, 2) in, (F, 17·C) out in p-major order, which is the
 (B, N, P·C) layout the s2t Dense reads.
@@ -13,7 +21,8 @@ here: (F, 17, 2) in, (F, 17·C) out in p-major order, which is the
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+import math
+from typing import Dict, Mapping, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -23,6 +32,8 @@ from . import cuda_lib
 COUNTER = "spatial_stack"
 _PACK_ORDER = ["ln1_g", "ln1_b", "wq", "bq", "wk", "bk", "wv", "bv", "wp", "bp",
                "ln2_g", "ln2_b", "w1", "b1", "w2", "b2"]
+# The stacked operands, in the JAX package's order (pallas_spatial_bwd._PARAM_ORDER).
+PARAM_ORDER = ["emb_w", "emb_b", "pe", *_PACK_ORDER, "norm_g", "norm_b"]
 
 
 def _bias(state: Mapping[str, torch.Tensor], key: str, n: int, like) -> torch.Tensor:
@@ -75,8 +86,55 @@ def pack_spatial_params(ops: Dict) -> torch.Tensor:
     return torch.cat([p.reshape(-1) for p in parts]).float().contiguous()
 
 
-def spatial_stack_plain(x: torch.Tensor, ops: Dict, *, num_heads: int) -> torch.Tensor:
-    """(F, P, 2) keypoints → (F, P·C): the spatial stage in plain PyTorch."""
+def unpack_spatial_params(flat: torch.Tensor, like: Dict) -> Dict:
+    """The inverse of `pack_spatial_params`: a flat buffer in the packed
+    layout → operands shaped as `like`'s (K4 writes its gradients so)."""
+    pos = 0
+
+    def take(shape):
+        nonlocal pos
+        size = math.prod(shape)
+        t = flat[pos:pos + size].reshape(shape)
+        pos += size
+        return t
+
+    out = {name: take(like[name].shape) for name in ("emb_w", "emb_b", "pe")}
+    per_block = {name: [] for name in _PACK_ORDER}
+    for _ in range(like["ln1_g"].shape[0]):
+        for name in _PACK_ORDER:
+            per_block[name].append(take(like[name].shape[1:]))
+    for name, parts in per_block.items():
+        out[name] = torch.stack(parts)
+    out["norm_g"] = take(like["norm_g"].shape)
+    out["norm_b"] = take(like["norm_b"].shape)
+    if pos != flat.numel():
+        raise ValueError(f"packed buffer of {flat.numel()} floats, layout takes {pos}")
+    return out
+
+
+def make_droppath_scales(generator: Optional[torch.Generator], rates: Sequence[float],
+                         frames: int) -> torch.Tensor:
+    """(2L, F) stochastic-depth scales on the CPU (counterpart of
+    `pallas_spatial.make_droppath_scales`): per block and branch, per frame,
+    floor(keep + U[0, 1)) / keep with keep = 1 - rate; ones where rate is 0."""
+    rows = []
+    for rate in rates:
+        for _ in range(2):
+            if rate == 0.0:
+                rows.append(torch.ones(frames))
+            else:
+                keep = 1.0 - float(rate)
+                u = torch.rand(frames, generator=generator)
+                rows.append(torch.floor(keep + u) / keep)
+    return torch.stack(rows) if rows else torch.ones((0, frames))
+
+
+def spatial_stack_plain(x: torch.Tensor, ops: Dict, *, num_heads: int,
+                        droppath_scales: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(F, P, 2) keypoints → (F, P·C): the spatial stage in plain PyTorch.
+
+    droppath_scales: (2L, F) per-frame factors of the blocks' branches, or None.
+    """
     f, p, _ = x.shape
     c = ops["pe"].shape[1]
     d = c // num_heads
@@ -88,23 +146,24 @@ def spatial_stack_plain(x: torch.Tensor, ops: Dict, *, num_heads: int) -> torch.
                    .transpose(1, 2) for n in "qkv")
         att = torch.softmax(q @ k.transpose(-1, -2) * (1.0 / d ** 0.5), dim=-1)
         ctx = (att @ v).transpose(1, 2).reshape(f, p, c)
-        h = h + (ctx @ g["wp"] + g["bp"])
+        proj = ctx @ g["wp"] + g["bp"]
+        if droppath_scales is not None:
+            proj = proj * droppath_scales[2 * blk][:, None, None]
+        h = h + proj
         z = F.layer_norm(h, (c,), g["ln2_g"], g["ln2_b"], 1e-5)
         z = F.gelu(z @ g["w1"] + g["b1"], approximate="none")
-        h = h + (z @ g["w2"] + g["b2"])
+        z = z @ g["w2"] + g["b2"]
+        if droppath_scales is not None:
+            z = z * droppath_scales[2 * blk + 1][:, None, None]
+        h = h + z
     h = F.layer_norm(h, (c,), ops["norm_g"], ops["norm_b"], 1e-6)
     return h.reshape(f, p * c)
 
 
-def spatial_stack(x: torch.Tensor, ops: Dict, *, num_heads: int,
-                  packed: torch.Tensor = None) -> torch.Tensor:
-    """(F, 17, 2) → (F, 17·C). CPU tensor: plain version; CUDA tensor: K1.
-
-    `packed` is `pack_spatial_params(ops)` on the same device, built here if
-    not given (callers that run many batches pack once).
-    """
-    if x.device.type == "cpu":
-        return spatial_stack_plain(x, ops, num_heads=num_heads)
+def check_kernel_shapes(x: torch.Tensor, ops: Dict, num_heads: int,
+                        packed: Optional[torch.Tensor],
+                        droppath_scales: Optional[torch.Tensor]) -> torch.Tensor:
+    """Raise unless K1/K4 take these operands; returns the packed weights."""
     f, p, two = x.shape
     c = ops["pe"].shape[1]
     if p != 17 or two != 2 or c not in (16, 32) or c // num_heads != 4:
@@ -119,12 +178,74 @@ def spatial_stack(x: torch.Tensor, ops: Dict, *, num_heads: int,
     cuda_lib.check_cuda("x", x)
     cuda_lib.check_cuda("packed", packed, shape=(22 * c + blocks * (8 * c * c + 11 * c),),
                         device=x.device)
+    if droppath_scales is not None:
+        cuda_lib.check_cuda("droppath_scales", droppath_scales, shape=(2 * blocks, f),
+                            device=x.device)
+    return packed
+
+
+def spatial_stack(x: torch.Tensor, ops: Dict, *, num_heads: int,
+                  packed: torch.Tensor = None,
+                  droppath_scales: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(F, 17, 2) → (F, 17·C). CPU tensor: plain version; CUDA tensor: K1.
+
+    `packed` is `pack_spatial_params(ops)` on the same device, built here if
+    not given (callers that run many batches pack once). `droppath_scales`
+    (2L, F) as in `spatial_stack_plain`.
+    """
+    if x.device.type == "cpu":
+        return spatial_stack_plain(x, ops, num_heads=num_heads,
+                                   droppath_scales=droppath_scales)
+    packed = check_kernel_shapes(x, ops, num_heads, packed, droppath_scales)
+    f, p, _ = x.shape
+    c = ops["pe"].shape[1]
     out = torch.empty((f, p * c), dtype=torch.float32, device=x.device)
     if f == 0:
         return out
-    cuda_lib.launch("spatial", "spatial_stack_f32", COUNTER, x, packed, out,
-                    f, c, c // num_heads, blocks)
+    cuda_lib.launch("spatial", "spatial_stack_f32", COUNTER, x, packed, droppath_scales,
+                    out, f, c, c // num_heads, ops["ln1_g"].shape[0])
     return out
+
+
+class SpatialStackTrain(torch.autograd.Function):
+    """K1 forward, K4 backward (counterpart of `fused_spatial_train`).
+
+    apply(x, droppath_scales, num_heads, *operands in PARAM_ORDER); returns
+    gradients for x, the scales and every operand.
+    """
+
+    @staticmethod
+    def forward(ctx, x, scales, num_heads, *leaves):
+        ops = dict(zip(PARAM_ORDER, leaves))
+        packed = pack_spatial_params(ops)
+        out = spatial_stack(x, ops, num_heads=num_heads, packed=packed,
+                            droppath_scales=scales)
+        ctx.save_for_backward(x, scales, packed, *leaves)
+        ctx.num_heads = num_heads
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        from .spatial_bwd import spatial_stack_bwd
+        x, scales, packed, *leaves = ctx.saved_tensors
+        dparams, dx, ddp = spatial_stack_bwd(x, dict(zip(PARAM_ORDER, leaves)), scales,
+                                             g.contiguous(), num_heads=ctx.num_heads,
+                                             packed=packed)
+        return (dx, ddp, None, *[dparams[name] for name in PARAM_ORDER])
+
+
+def spatial_stack_train(x: torch.Tensor, ops: Dict, droppath_scales: torch.Tensor, *,
+                        num_heads: int) -> torch.Tensor:
+    """Differentiable (F, 17, 2) → (F, 17·C) with stochastic depth.
+
+    CPU tensor: the plain version under autograd; CUDA tensor: K1 forward and
+    K4 backward (`SpatialStackTrain`).
+    """
+    if x.device.type == "cpu":
+        return spatial_stack_plain(x, ops, num_heads=num_heads,
+                                   droppath_scales=droppath_scales)
+    return SpatialStackTrain.apply(x, droppath_scales.float().contiguous(), num_heads,
+                                   *[ops[name] for name in PARAM_ORDER])
 
 
 def spatial_stack_apply(ops: Dict, x2d: torch.Tensor, *, num_heads: int,

@@ -1,0 +1,67 @@
+"""K4 — the spatial stack's backward (counterpart of ops/pallas_spatial_bwd.py).
+
+`spatial_stack_bwd` returns the VJP of the spatial stack with stochastic
+depth (`spatial.spatial_stack_plain` with scales) for an output gradient g:
+the gradients of all 21 stacked operands, dx (F, 17, 2) and dscales (2L, F),
+the three things `pallas_spatial_bwd.fused_spatial_stack_bwd` returns. On a
+CUDA tensor it launches `csrc/spatial_bwd.cu` (one kernel) and a fixed-order
+sum of the per-warp gradient rows; on a CPU tensor it runs
+`spatial_stack_bwd_plain`, torch.autograd of the plain version.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from . import cuda_lib
+from .spatial import (PARAM_ORDER, check_kernel_shapes, spatial_stack_plain,
+                      unpack_spatial_params)
+
+COUNTER = "spatial_bwd"
+
+
+def spatial_stack_bwd_plain(x: torch.Tensor, ops: Dict, scales: torch.Tensor,
+                            g: torch.Tensor, *, num_heads: int
+                            ) -> Tuple[Dict, torch.Tensor, torch.Tensor]:
+    """torch.autograd of `spatial_stack_plain`: (dparams, dx, dscales)."""
+    with torch.enable_grad():
+        leaves = {k: ops[k].detach().requires_grad_(True) for k in PARAM_ORDER}
+        xg = x.detach().requires_grad_(True)
+        sg = scales.detach().requires_grad_(True)
+        out = spatial_stack_plain(xg, leaves, num_heads=num_heads, droppath_scales=sg)
+        grads = torch.autograd.grad(out, [xg, sg, *leaves.values()], g)
+    return dict(zip(PARAM_ORDER, grads[2:])), grads[0], grads[1]
+
+
+def spatial_stack_bwd(x: torch.Tensor, ops: Dict, scales: torch.Tensor, g: torch.Tensor,
+                      *, num_heads: int, packed: Optional[torch.Tensor] = None
+                      ) -> Tuple[Dict, torch.Tensor, torch.Tensor]:
+    """VJP of the spatial stack: x (F, 17, 2), scales (2L, F), g (F, 17·C) →
+    (dparams by operand name, dx, dscales). CPU tensor: plain version;
+    CUDA tensor: K4."""
+    if x.device.type == "cpu":
+        return spatial_stack_bwd_plain(x, ops, scales, g, num_heads=num_heads)
+    packed = check_kernel_shapes(x, ops, num_heads, packed, scales)
+    f, p, _ = x.shape
+    c = ops["pe"].shape[1]
+    blocks = ops["ln1_g"].shape[0]
+    cuda_lib.check_cuda("g", g, shape=(f, p * c), device=x.device)
+    lib = cuda_lib.library("spatial_bwd")
+    workers = lib.spatial_bwd_workers(c, c // num_heads, blocks)
+    if workers <= 0:
+        raise RuntimeError(f"spatial_bwd_workers: CUDA error {-workers}")
+    dx = torch.empty_like(x)
+    ddp = torch.empty((2 * blocks, f), dtype=torch.float32, device=x.device)
+    partial = torch.empty((workers, packed.numel()), dtype=torch.float32, device=x.device)
+    flat = torch.empty_like(packed)
+    if f == 0:
+        flat.zero_()
+        ddp.zero_()
+    else:
+        cuda_lib.launch("spatial_bwd", "spatial_bwd_f32", COUNTER, x, g, scales, packed,
+                        dx, ddp, partial, f, c, c // num_heads, blocks, workers)
+        cuda_lib.launch("spatial_bwd", "sum_rows_f32", COUNTER, partial, flat, workers,
+                        packed.numel())
+    return unpack_spatial_params(flat, ops), dx, ddp

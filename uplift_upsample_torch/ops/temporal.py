@@ -14,7 +14,7 @@ The GEMM, LayerNorm and window-attention wrappers below are shared with K3
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional
+from typing import Dict, Mapping, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -80,8 +80,18 @@ def window_attention_plain(qkv: torch.Tensor, key_mask: Optional[torch.Tensor],
 
 def temporal_stack_plain(x: torch.Tensor, ops: Dict,
                          key_mask: Optional[torch.Tensor] = None, *,
-                         num_heads: int, first_masked_blocks: int = 0) -> torch.Tensor:
-    """(B, N, C) → (B, N, C): the temporal blocks in plain PyTorch."""
+                         num_heads: int, first_masked_blocks: int = 0,
+                         droppath: Optional[torch.Tensor] = None,
+                         relu_masks: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
+    """(B, N, C) → (B, N, C): the temporal blocks in plain PyTorch.
+
+    droppath: (L, 2, B) per-window stochastic-depth scales of each block's
+    attention and MLP branches (training, `ops/temporal_train.py`), or None.
+    relu_masks: per block, (B·N, 2C) booleans that replace the MLP's relu
+    decisions (where fc1's output passes). A comparison of gradients hands
+    it the kernel forward's decisions, so that a pre-activation within
+    rounding of 0 takes the same side of the kink in both.
+    """
     c = x.shape[-1]
     km = None if key_mask is None else key_mask.float()
     for blk in range(ops["ln1_g"].shape[0]):
@@ -89,10 +99,20 @@ def temporal_stack_plain(x: torch.Tensor, ops: Dict,
         qkv = y @ ops["wqkv"][blk] + ops["bqkv"][blk]
         ctx = window_attention_plain(qkv, km if blk < first_masked_blocks else None,
                                      num_heads)
-        x = x + (ctx @ ops["wp"][blk] + ops["bp"][blk])
+        proj = ctx @ ops["wp"][blk] + ops["bp"][blk]
+        if droppath is not None:
+            proj = proj * droppath[blk, 0][:, None, None]
+        x = x + proj
         z = F.layer_norm(x, (c,), ops["ln2_g"][blk], ops["ln2_b"][blk], 1e-5)
-        z = torch.relu(z @ ops["w1"][blk] + ops["b1"][blk])
-        x = x + (z @ ops["w2"][blk] + ops["b2"][blk])
+        z = z @ ops["w1"][blk] + ops["b1"][blk]
+        if relu_masks is None:
+            z = torch.relu(z)
+        else:
+            z = z * relu_masks[blk].reshape(z.shape).to(z.dtype)
+        z = z @ ops["w2"][blk] + ops["b2"][blk]
+        if droppath is not None:
+            z = z * droppath[blk, 1][:, None, None]
+        x = x + z
     return x
 
 

@@ -1,0 +1,257 @@
+"""K5 — the temporal stack in training (counterpart of
+ops/pallas_temporal_bwd.py `fused_temporal_stack_train`).
+
+`temporal_stack_train(x, ops, key_mask, dp_all, ...)` is differentiable. x is
+(B, S, C); `ops` are `temporal.stack_temporal_params`' 12 stacked operands;
+dp_all (L, 2, B) holds each block's per-window stochastic-depth scales on
+its attention and MLP branches. On a CPU tensor it is
+`temporal.temporal_stack_plain` with the scales, under autograd. On a CUDA
+tensor it is `TemporalStackTrain`:
+  - forward (`temporal_train_fwd`): K2's kernels (LayerNorm, GEMM, window
+    attention) with the scales in the residual epilogues
+    (`gemm_branch_f32`), keeping every intermediate the backward reads;
+  - backward (`temporal_train_bwd`): the kernels of `csrc/temporal_bwd.cu`,
+    returning dx, the grads of all 12 operands per block and ddp (L, 2, B),
+    as `_fts_impl_bwd` does.
+Launches count as "temporal_train_fwd" and "temporal_train_bwd".
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, List, Optional, Tuple
+
+import torch
+
+from . import cuda_lib
+from .temporal import gemm, layernorm, temporal_stack_plain, window_attention
+
+COUNTER_FWD = "temporal_train_fwd"
+COUNTER_BWD = "temporal_train_bwd"
+ORDER = ["ln1_g", "ln1_b", "wqkv", "bqkv", "wp", "bp", "ln2_g", "ln2_b",
+         "w1", "b1", "w2", "b2"]
+_TARGET_BLOCKS = 264  # split-K: aim for two waves of 132 SMs
+
+
+def _empty(shape, like: torch.Tensor) -> torch.Tensor:
+    return torch.empty(shape, dtype=torch.float32, device=like.device)
+
+
+# -- forward --------------------------------------------------------------------
+
+def _branch_gemm(a, w, bias, scale, rows_per_scale, residual, relu=False):
+    """(residual + scale · act(a @ w + bias), act(a @ w + bias)) on the card."""
+    m, k = a.shape
+    n = w.shape[1]
+    out, branch = _empty((m, n), a), _empty((m, n), a)
+    cuda_lib.launch("temporal_bwd", "gemm_branch_f32", COUNTER_FWD, a, w, bias, scale,
+                    rows_per_scale, residual, branch, out, m, n, k, int(relu))
+    return out, branch
+
+
+def _check(x: torch.Tensor, ops: Dict, dp_all: torch.Tensor, num_heads: int):
+    b, n, c = x.shape
+    if c % num_heads != 0:
+        raise ValueError(f"C={c} does not split into {num_heads} heads")
+    blocks = ops["ln1_g"].shape[0]
+    cuda_lib.check_cuda("dp_all", dp_all, shape=(blocks, 2, b), device=x.device)
+    for name in ORDER:
+        cuda_lib.check_cuda(name, ops[name], device=x.device)
+
+
+def temporal_train_fwd(x: torch.Tensor, ops: Dict, key_mask: Optional[torch.Tensor],
+                       dp_all: torch.Tensor, *, num_heads: int,
+                       first_masked_blocks: int) -> Tuple[torch.Tensor, List[Dict]]:
+    """(B, S, C) → ((B, S, C), per-block intermediates) on the card."""
+    b, n, c = x.shape
+    _check(x, ops, dp_all, num_heads)
+    km = None
+    if key_mask is not None and first_masked_blocks > 0:
+        km = key_mask.to(torch.float32).contiguous()
+    h = x.reshape(b * n, c).contiguous()
+    cuda_lib.check_cuda("x", h)
+    saved = []
+    for blk in range(ops["ln1_g"].shape[0]):
+        y = layernorm(h, ops["ln1_g"][blk], ops["ln1_b"][blk], 1e-5, counter=COUNTER_FWD)
+        qkv = gemm(y, ops["wqkv"][blk], ops["bqkv"][blk], counter=COUNTER_FWD)
+        ctx = window_attention(qkv, km if blk < first_masked_blocks else None, windows=b,
+                               n=n, num_heads=num_heads, counter=COUNTER_FWD)
+        x2, proj = _branch_gemm(ctx, ops["wp"][blk], ops["bp"][blk], dp_all[blk, 0], n, h)
+        z = layernorm(x2, ops["ln2_g"][blk], ops["ln2_b"][blk], 1e-5, counter=COUNTER_FWD)
+        h1 = gemm(z, ops["w1"][blk], ops["b1"][blk], relu=True, counter=COUNTER_FWD)
+        out, z2 = _branch_gemm(h1, ops["w2"][blk], ops["b2"][blk], dp_all[blk, 1], n, x2)
+        saved.append(dict(x=h, y=y, qkv=qkv, ctx=ctx, proj=proj, x2=x2, z=z, h1=h1, z2=z2))
+        h = out
+    return h.reshape(b, n, c), saved
+
+
+# -- backward -------------------------------------------------------------------
+
+def _sum_rows(part: torch.Tensor, out: torch.Tensor) -> None:
+    rows = part.shape[0]
+    cuda_lib.launch("temporal_bwd", "sum_rows_f32", COUNTER_BWD, part, out, rows,
+                    part.numel() // rows)
+
+
+def gemm_dx(dy, scale, rows_per_scale, w, mask=None):
+    """(dy · scale[row // rows_per_scale]) @ wᵀ, zeroed where mask <= 0."""
+    m, k = dy.shape
+    n = w.shape[0]
+    out = _empty((m, n), dy)
+    cuda_lib.launch("temporal_bwd", "gemm_dx_f32", COUNTER_BWD, dy, scale, rows_per_scale,
+                    w, mask, out, m, n, k)
+    return out
+
+
+def gemm_dw(x, dy, scale, rows_per_scale, out):
+    """out (m, n) = xᵀ @ (dy · scale[row // rows_per_scale]), split over rows."""
+    rows, m = x.shape
+    n = dy.shape[1]
+    tiles = math.ceil(m / 128) * math.ceil(n / 64)
+    splits = max(1, min(64, math.ceil(_TARGET_BLOCKS / tiles), rows // 256))
+    part = _empty((splits, m, n), x)
+    cuda_lib.launch("temporal_bwd", "gemm_dw_f32", COUNTER_BWD, x, dy, scale,
+                    rows_per_scale, part, m, n, rows, splits)
+    _sum_rows(part, out)
+
+
+def colsum(x, scale, rows_per_scale, out):
+    rows, cols = x.shape
+    part = _empty((math.ceil(rows / 256), cols), x)
+    cuda_lib.launch("temporal_bwd", "colsum_f32", COUNTER_BWD, x, scale, rows_per_scale,
+                    part, rows, cols)
+    _sum_rows(part, out)
+
+
+def layernorm_bwd(x, dy, gamma, residual, out_gamma, out_beta):
+    """dx = LN backward of dy at x (eps 1e-5) + residual; γ/β grads into the outs."""
+    rows, c = x.shape
+    workers = min(1024, math.ceil(rows / 8) * 8)
+    dx, part, gb = _empty((rows, c), x), _empty((workers, 2 * c), x), _empty((2 * c,), x)
+    cuda_lib.launch("temporal_bwd", "layernorm_bwd_f32", COUNTER_BWD, x, dy, gamma,
+                    residual, dx, part, rows, c, 1e-5, workers)
+    _sum_rows(part, gb)
+    out_gamma.copy_(gb[:c])
+    out_beta.copy_(gb[c:])
+    return dx
+
+
+def window_attention_bwd(qkv, dctx, key_mask, *, windows, n, num_heads):
+    """d(q|k|v) (windows·n, 3C) of K2's window attention for dctx (windows·n, C)."""
+    rows, c = dctx.shape
+    cuda_lib.check_cuda("qkv", qkv, shape=(rows, 3 * c), device=dctx.device)
+    dqkv = _empty((rows, 3 * c), dctx)
+    cuda_lib.launch("temporal_bwd", "window_attention_bwd_f32", COUNTER_BWD, qkv, dctx,
+                    key_mask, dqkv, windows, n, c, num_heads)
+    return dqkv
+
+
+def temporal_train_bwd(saved: List[Dict], g: torch.Tensor, ops: Dict,
+                       key_mask: Optional[torch.Tensor], dp_all: torch.Tensor, *,
+                       num_heads: int, first_masked_blocks: int
+                       ) -> Tuple[torch.Tensor, Dict, torch.Tensor]:
+    """VJP of `temporal_train_fwd` for g (B, S, C) → (dx, grads by operand
+    name, stacked over blocks, ddp (L, 2, B)) on the card."""
+    b, n, c = g.shape
+    rows = b * n
+    km = None
+    if key_mask is not None and first_masked_blocks > 0:
+        km = key_mask.to(torch.float32).contiguous()
+    g = g.reshape(rows, c).contiguous()
+    cuda_lib.check_cuda("g", g)
+    grads = {name: torch.empty_like(ops[name]) for name in ORDER}
+    blocks = len(saved)
+    ddp = _empty((blocks, 2, b), g)
+    for blk in range(blocks - 1, -1, -1):
+        s = saved[blk]
+        s1, s2 = dp_all[blk, 0], dp_all[blk, 1]
+        # MLP branch: out = x2 + s2 · (relu(z @ w1 + b1) @ w2 + b2)
+        cuda_lib.launch("temporal_bwd", "window_dot_f32", COUNTER_BWD, g, s["z2"],
+                        ddp[blk, 1], b, n, c)
+        gemm_dw(s["h1"], g, s2, n, grads["w2"][blk])
+        colsum(g, s2, n, grads["b2"][blk])
+        dh1 = gemm_dx(g, s2, n, ops["w2"][blk], mask=s["h1"])
+        gemm_dw(s["z"], dh1, None, 1, grads["w1"][blk])
+        colsum(dh1, None, 1, grads["b1"][blk])
+        dz = gemm_dx(dh1, None, 1, ops["w1"][blk])
+        dx2 = layernorm_bwd(s["x2"], dz, ops["ln2_g"][blk], g, grads["ln2_g"][blk],
+                      grads["ln2_b"][blk])
+        # attention branch: x2 = x + s1 · (attention(LN1(x)) @ wp + bp)
+        cuda_lib.launch("temporal_bwd", "window_dot_f32", COUNTER_BWD, dx2, s["proj"],
+                        ddp[blk, 0], b, n, c)
+        gemm_dw(s["ctx"], dx2, s1, n, grads["wp"][blk])
+        colsum(dx2, s1, n, grads["bp"][blk])
+        dctx = gemm_dx(dx2, s1, n, ops["wp"][blk])
+        dqkv = window_attention_bwd(s["qkv"], dctx, km if blk < first_masked_blocks else None,
+                                    windows=b, n=n, num_heads=num_heads)
+        gemm_dw(s["y"], dqkv, None, 1, grads["wqkv"][blk])
+        colsum(dqkv, None, 1, grads["bqkv"][blk])
+        dy = gemm_dx(dqkv, None, 1, ops["wqkv"][blk])
+        g = layernorm_bwd(s["x"], dy, ops["ln1_g"][blk], dx2, grads["ln1_g"][blk],
+                    grads["ln1_b"][blk])
+    return g.reshape(b, n, c), grads, ddp
+
+
+def temporal_stack_bwd_plain(x: torch.Tensor, ops: Dict, key_mask: Optional[torch.Tensor],
+                             dp_all: torch.Tensor, g: torch.Tensor, *, num_heads: int,
+                             first_masked_blocks: int,
+                             relu_masks: Optional[List[torch.Tensor]] = None
+                             ) -> Tuple[torch.Tensor, Dict, torch.Tensor]:
+    """torch.autograd of `temporal_stack_plain` with scales: (dx, grads, ddp).
+
+    relu_masks as in `temporal_stack_plain`; `saved_relu_masks(saved)` gives
+    the kernel forward's."""
+    with torch.enable_grad():
+        leaves = {k: ops[k].detach().requires_grad_(True) for k in ORDER}
+        xg = x.detach().requires_grad_(True)
+        dg = dp_all.detach().requires_grad_(True)
+        out = temporal_stack_plain(xg, leaves, key_mask, num_heads=num_heads,
+                                   first_masked_blocks=first_masked_blocks, droppath=dg,
+                                   relu_masks=relu_masks)
+        grads = torch.autograd.grad(out, [xg, dg, *leaves.values()], g)
+    return grads[0], dict(zip(ORDER, grads[2:])), grads[1]
+
+
+def saved_relu_masks(saved: List[Dict]) -> List[torch.Tensor]:
+    """Where each block's MLP relu passed in `temporal_train_fwd`."""
+    return [s["h1"] > 0 for s in saved]
+
+
+class TemporalStackTrain(torch.autograd.Function):
+    """K5: apply(x, key_mask, dp_all, num_heads, first_masked_blocks,
+    *operands in ORDER); gradients for x, dp_all and every operand."""
+
+    @staticmethod
+    def forward(ctx, x, key_mask, dp_all, num_heads, first_masked_blocks, *leaves):
+        ops = dict(zip(ORDER, leaves))
+        out, saved = temporal_train_fwd(x, ops, key_mask, dp_all, num_heads=num_heads,
+                                        first_masked_blocks=first_masked_blocks)
+        ctx.intermediates = saved
+        ctx.num_heads, ctx.fmb = num_heads, first_masked_blocks
+        ctx.save_for_backward(key_mask, dp_all, *leaves)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        key_mask, dp_all, *leaves = ctx.saved_tensors
+        dx, grads, ddp = temporal_train_bwd(ctx.intermediates, g, dict(zip(ORDER, leaves)),
+                                            key_mask, dp_all, num_heads=ctx.num_heads,
+                                            first_masked_blocks=ctx.fmb)
+        ctx.intermediates = None
+        return (dx, None, ddp, None, None, *[grads[name] for name in ORDER])
+
+
+def temporal_stack_train(x: torch.Tensor, ops: Dict, key_mask: Optional[torch.Tensor],
+                         dp_all: torch.Tensor, *, num_heads: int,
+                         first_masked_blocks: int = 0) -> torch.Tensor:
+    """Differentiable (B, S, C) → (B, S, C) with per-window stochastic depth.
+
+    CPU tensor: the plain version under autograd; CUDA tensor: K5.
+    key_mask: (B, S), 1 = blocked key, in the first `first_masked_blocks` blocks.
+    """
+    if x.device.type == "cpu":
+        return temporal_stack_plain(x, ops, key_mask, num_heads=num_heads,
+                                    first_masked_blocks=first_masked_blocks,
+                                    droppath=dp_all)
+    return TemporalStackTrain.apply(x, key_mask, dp_all.float().contiguous(), num_heads,
+                                    first_masked_blocks, *[ops[name] for name in ORDER])

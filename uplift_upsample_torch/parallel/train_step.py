@@ -1,0 +1,330 @@
+"""The training step (counterpart of the JAX package's parallel/train_step.py),
+single device.
+
+Optimizer parity targets (reference `train.py:404-506`):
+  - Keras optimizer_v2 Adam (+amsgrad): ε sits outside the bias correction,
+    update = lr · √(1−β₂ᵗ)/(1−β₁ᵗ) · m / (√v + ε) (v̂max for amsgrad).
+    `torch.optim.Adam` puts ε inside, which the trajectory fixtures catch.
+  - tfa.AdamW: that Adam direction plus decoupled weight decay on its *own*
+    schedule (the LR schedule re-based to WEIGHT_DECAY), not multiplied by
+    the learning rate.
+  - Loss: central Σ‖·‖/(B·K) + sequence Σ‖·‖/(B·N·K), weighted; without
+    temporal blocks, (w_c + w_s)·central.
+  - EMA: ema ← ema − (1−d)(ema − w), d = min(EMA_DECAY, (1+g)/(10+g)) at the
+    pre-increment step g.
+
+The forward is the JAX package's accelerator path: the spatial stack on the
+keyframes only (a static budget, keyframes first), the s2t Dense, the
+strided-input token and the temporal PE, the temporal stack, then the
+model's tail (strided blocks and heads) through its `temporal_input`
+splice. With `kernels=True` the stacks run through `spatial_stack_train`
+(K1 forward, K4 backward) and `temporal_stack_train` (K5), which on CPU
+tensors are their plain versions under autograd; `kernels=False` runs the
+plain versions on the card (a comparison path, nothing else). The s2t
+Dense, the tail, the loss and the optimizer are plain PyTorch. Stochastic
+depth is drawn per step from a `torch.Generator` seeded from SHUFFLE_SEED and
+the step: per frame for the spatial stack, per window for the temporal stack
+and the tail.
+
+Not ported (NotImplementedError): AMASS batches (camera projection in the
+step), OUTPUT_BN, dropout, attention dropout and token masking in training.
+The port trains in fp32 (TF32 off); TRAIN_MATMUL_PRECISION is not read.
+"""
+
+from __future__ import annotations
+
+import copy
+import dataclasses
+import math
+from typing import Callable, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..config import UpliftUpsampleConfig
+from ..models.build import resolve_device
+from ..models.primitives import DropPath
+from ..ops.spatial import (make_droppath_scales, spatial_stack_plain, spatial_stack_train,
+                           stack_spatial_params)
+from ..ops.temporal import stack_temporal_params, temporal_stack_plain
+from ..ops.temporal_train import temporal_stack_train
+from ..utils.schedules import scheduler_by_name
+
+_F32 = torch.float32
+
+
+@dataclasses.dataclass
+class TrainState:
+    """Optimizer and EMA state; the parameters themselves live in the model.
+
+    mu, nu, nu_max (amsgrad only) and ema (EMA_ENABLED only) are keyed like
+    `model.named_parameters()`. `step` is the 0-based global step; `loss_sum`
+    sums the per-step losses on the device (the reference's all-steps epoch
+    mean, `train.py:505`).
+    """
+    mu: Dict[str, torch.Tensor]
+    nu: Dict[str, torch.Tensor]
+    nu_max: Optional[Dict[str, torch.Tensor]]
+    ema: Optional[Dict[str, torch.Tensor]]
+    step: int
+    loss_sum: torch.Tensor
+
+
+class KerasAdam:
+    """Keras Adam / tfa.AdamW, updating parameters in place.
+
+    lr_schedule and wd_schedule (None: plain Adam) map the pre-increment
+    step to a float32 value (`utils.schedules`).
+    """
+
+    def __init__(self, lr_schedule: Callable, wd_schedule: Optional[Callable] = None,
+                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+                 amsgrad: bool = False):
+        self.lr_schedule, self.wd_schedule = lr_schedule, wd_schedule
+        self.b1, self.b2, self.eps, self.amsgrad = b1, b2, eps, amsgrad
+
+    def init(self, model: torch.nn.Module, ema: bool) -> TrainState:
+        params = dict(model.named_parameters())
+        zeros = lambda: {k: torch.zeros_like(p) for k, p in params.items()}
+        return TrainState(
+            mu=zeros(), nu=zeros(), nu_max=zeros() if self.amsgrad else None,
+            ema={k: p.detach().clone() for k, p in params.items()} if ema else None,
+            step=0, loss_sum=torch.zeros((), dtype=_F32,
+                                         device=next(model.parameters()).device))
+
+    @torch.no_grad()
+    def apply(self, params: Dict[str, torch.Tensor], grads: Dict[str, torch.Tensor],
+              state: TrainState) -> None:
+        """One update at step `state.step` (which the caller then advances)."""
+        names = list(params)
+        p = [params[k] for k in names]
+        g = [grads[k] for k in names]
+        m = [state.mu[k] for k in names]
+        v = [state.nu[k] for k in names]
+        t = torch.tensor(state.step + 1, dtype=_F32)
+        b1, b2 = torch.tensor(self.b1, dtype=_F32), torch.tensor(self.b2, dtype=_F32)
+        alpha = float(torch.sqrt(1.0 - b2 ** t) / (1.0 - b1 ** t))
+        lr = float(self.lr_schedule(state.step))
+        torch._foreach_mul_(m, self.b1)
+        torch._foreach_add_(m, g, alpha=1.0 - self.b1)
+        torch._foreach_mul_(v, self.b2)
+        torch._foreach_addcmul_(v, g, g, value=1.0 - self.b2)
+        denom = v
+        if self.amsgrad:
+            denom = [state.nu_max[k] for k in names]
+            torch._foreach_maximum_(denom, v)
+        root = torch._foreach_sqrt(denom)
+        torch._foreach_add_(root, self.eps)
+        update = torch._foreach_mul(m, alpha)
+        torch._foreach_div_(update, root)
+        torch._foreach_mul_(update, -lr)
+        if self.wd_schedule is not None:
+            wd = float(self.wd_schedule(state.step))
+            torch._foreach_add_(update, torch._foreach_mul(p, wd), alpha=-1.0)
+        torch._foreach_add_(p, update)
+
+
+def make_optimizer(config: UpliftUpsampleConfig):
+    """(optimizer, lr_schedule, wd_schedule) from the config, as the JAX
+    package's make_optimizer returns them (wd_schedule None for Adam)."""
+    lr_schedule = scheduler_by_name(config.SCHEDULE)(**config.SCHEDULE_PARAMS)
+    opt_params = dict(config.OPTIMIZER_PARAMS)
+    kwargs = dict(b1=opt_params.pop("beta_1", 0.9), b2=opt_params.pop("beta_2", 0.999),
+                  eps=opt_params.pop("epsilon", 1e-8),
+                  amsgrad=opt_params.pop("amsgrad", False))
+    if opt_params:
+        raise ValueError(f"unknown OPTIMIZER_PARAMS: {opt_params}")
+    if config.OPTIMIZER == "AdamW":
+        wd_params = copy.deepcopy(config.SCHEDULE_PARAMS)
+        wd_params["initial_learning_rate"] = config.WEIGHT_DECAY
+        wd_schedule = scheduler_by_name(config.SCHEDULE)(**wd_params)
+        return KerasAdam(lr_schedule, wd_schedule, **kwargs), lr_schedule, wd_schedule
+    if config.OPTIMIZER == "Adam":
+        return KerasAdam(lr_schedule, None, **kwargs), lr_schedule, None
+    raise ValueError(config.OPTIMIZER)
+
+
+def _droppath_rates(config: UpliftUpsampleConfig, stage: int, depth: int):
+    rate = config.DROP_PATH_RATE
+    top = rate[stage] if isinstance(rate, (list, tuple)) else rate
+    return [0.0] * depth if depth <= 1 else [top * i / (depth - 1) for i in range(depth)]
+
+
+def keyframe_budget(model, config: UpliftUpsampleConfig) -> Optional[int]:
+    """Frames the spatial stack runs per step when only keyframes need it
+    (`train_step.py:290-323`): mean + 8σ of the mask-stride mix's keyframes
+    per batch plus one window, aligned up to max(128, TRAIN_SPATIAL_BLOCK_F);
+    None when that is not below B·N (then every frame runs)."""
+    if not (model.spatial_depth > 0 and model.has_strided_input
+            and bool(getattr(config, "TRAIN_KEYFRAME_SPARSE", True))):
+        return None
+    ms = config.MASK_STRIDE
+    ms_list = ms if isinstance(ms, (list, tuple)) else [ms]
+    if not (ms_list and all(isinstance(m, int) and m >= 1 for m in ms_list)):
+        return None
+    b, n = config.BATCH_SIZE, model.num_frames
+    counts = [-(-n // (m // math.gcd(config.SEQUENCE_STRIDE, m))) for m in ms_list]
+    mean = sum(counts) / len(counts)
+    var = sum((cnt - mean) ** 2 for cnt in counts) / len(counts)
+    want = mean * b + 8.0 * math.sqrt(var * b) + n
+    budget_cfg = int(getattr(config, "TRAIN_KEYFRAME_BUDGET", 0) or 0)
+    if budget_cfg:
+        want = budget_cfg
+    align = max(128, int(getattr(config, "TRAIN_SPATIAL_BLOCK_F", 128) or 128))
+    budget = int(min(b * n, -(-want // align) * align))
+    return budget if budget < b * n else None
+
+
+def make_loss_fn(model, config: UpliftUpsampleConfig, dataset_name: str = "h36m", *,
+                 kernels: bool = True):
+    """loss_fn((seq3d, seq2d, stride_mask), generator) → scalar loss (with graph)."""
+    if dataset_name != "h36m":
+        raise NotImplementedError(f"training on {dataset_name!r} batches is not ported")
+    for key in ("DROP_RATE", "ATTENTION_DROP_RATE", "TOKEN_MASK_RATE"):
+        if getattr(config, key, 0):
+            raise NotImplementedError(f"training with {key} > 0 is not ported")
+    if config.OUTPUT_BN:
+        raise NotImplementedError("training with OUTPUT_BN is not ported")
+    root = config.ROOT_KEYTPOINT
+    mid = config.SEQUENCE_LENGTH // 2
+    b, n, k = config.BATCH_SIZE, config.SEQUENCE_LENGTH, config.NUM_KEYPOINTS
+    heads = model.num_heads
+    rates_s = _droppath_rates(config, 0, model.spatial_depth)
+    rates_t = _droppath_rates(config, 1, model.temporal_depth)
+    budget = keyframe_budget(model, config)
+    fmb = model.first_strided_token_attention_layer if model.has_strided_input else 0
+
+    def spatial(x, ops, scales):
+        if kernels:
+            return spatial_stack_train(x, ops, scales, num_heads=heads)
+        return spatial_stack_plain(x, ops, num_heads=heads, droppath_scales=scales)
+
+    def temporal(y, ops, key_mask, dp):
+        if kernels:
+            return temporal_stack_train(y, ops, key_mask, dp, num_heads=heads,
+                                        first_masked_blocks=fmb)
+        return temporal_stack_plain(y, ops, key_mask, num_heads=heads,
+                                    first_masked_blocks=fmb, droppath=dp)
+
+    def apply_model(x, stride_mask, generator):
+        params = dict(model.named_parameters())
+        bb, nn_, pp, cc = x.shape
+        frames = bb * nn_
+        if model.spatial_depth > 0:
+            ops = stack_spatial_params(params, model.spatial_depth)
+            scales = make_droppath_scales(generator, rates_s, frames).to(x.device)
+            xf = x.reshape(frames, pp, cc)
+            if budget is not None:
+                flat_sm = stride_mask.reshape(frames).bool()
+                ids = torch.arange(frames, device=x.device)
+                # keyframes first (ascending), then the rest: the first
+                # `budget` rows hold every keyframe unless the batch overflows
+                order = torch.argsort(torch.where(flat_sm, ids, frames + ids))[:budget]
+                y = spatial(xf[order].contiguous(), ops, scales[:, order].contiguous())
+                inv = (torch.cumsum(flat_sm.long(), 0) - 1).clamp(0, budget - 1)
+                sp = y[inv]
+                # a dropped keyframe would read a wrong row: poison the loss
+                sp = torch.where(flat_sm.sum() > budget, torch.full_like(sp, math.nan), sp)
+            else:
+                sp = spatial(xf.contiguous(), ops, scales)
+            sp = sp.reshape(bb, nn_, -1)
+        else:
+            sp = x.reshape(bb, nn_, pp * cc)
+        y = model.spatial_to_temporal_fc(sp)
+        key_mask = None
+        if model.has_strided_input:
+            sm = stride_mask.to(y.dtype)[..., None]
+            y = sm * y + (1.0 - sm) * model.strided_input_token
+            key_mask = 1.0 - stride_mask.to(_F32)
+        y = y + model.temporal_pe
+        if model.temporal_depth > 0:
+            dp = make_droppath_scales(generator, rates_t, bb).reshape(
+                model.temporal_depth, 2, bb).to(x.device)
+            y = temporal(y, stack_temporal_params(params, model.temporal_depth),
+                         key_mask, dp)
+        return model(y, stride_mask, temporal_input=True)
+
+    def loss_fn(batch, generator: torch.Generator) -> torch.Tensor:
+        seq3d, seq2d, stride_mask = batch
+        keypoints3d = seq3d - seq3d[:, :, root:root + 1, :]
+        central_gt = keypoints3d[:, mid]
+        x = seq2d
+        if model.has_strided_input:
+            x = x * stride_mask[:, :, None, None].to(x.dtype)
+        pred_seq, pred_central = apply_model(x, stride_mask, generator)
+        central = torch.linalg.vector_norm(central_gt - pred_central, dim=-1).sum() / (b * k)
+        if config.TEMPORAL_TRANSFORMER_BLOCKS > 0:
+            sequence = torch.linalg.vector_norm(keypoints3d - pred_seq,
+                                                dim=-1).sum() / (b * n * k)
+            return (config.LOSS_WEIGHT_CENTER * central
+                    + config.LOSS_WEIGHT_SEQUENCE * sequence)
+        return (config.LOSS_WEIGHT_CENTER + config.LOSS_WEIGHT_SEQUENCE) * central
+
+    return loss_fn
+
+
+def step_generator(seed: int, step: int) -> torch.Generator:
+    """The CPU generator of one step's random draws (stochastic depth)."""
+    return torch.Generator().manual_seed(int(seed) * (1 << 32) + int(step))
+
+
+def set_droppath_generator(model: torch.nn.Module, generator: torch.Generator) -> None:
+    for module in model.modules():
+        if isinstance(module, DropPath):
+            module.generator = generator
+
+
+def batch_to_device(batch, device) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """A generator batch (seq3d, seq2d, mask, cams, subjects, actions,
+    centers, stride_mask) → (seq3d, seq2d, stride_mask) on `device`."""
+    seq3d, seq2d, stride_mask = batch[0], batch[1], batch[7]
+
+    def put(a, dtype):
+        t = a if isinstance(a, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(a))
+        return t.to(device=device, dtype=dtype)
+
+    return put(seq3d, _F32), put(seq2d, _F32), put(stride_mask, torch.bool)
+
+
+def make_train_step(model, opt: KerasAdam, config: UpliftUpsampleConfig, *,
+                    dataset_name: str = "h36m", device="cuda", kernels: bool = True,
+                    rng_seed: Optional[int] = None):
+    """step(state, batch) → (state, loss): forward, backward, the optimizer
+    update, the EMA update; state is updated in place and returned.
+
+    `model` must already be on `device`; batches are generator tuples (numpy
+    or tensors). rng_seed defaults to config.SHUFFLE_SEED.
+    """
+    device = resolve_device(device)
+    loss_fn = make_loss_fn(model, config, dataset_name, kernels=kernels)
+    seed = config.SHUFFLE_SEED if rng_seed is None else rng_seed
+    params = dict(model.named_parameters())
+    ema_enabled = bool(config.EMA_ENABLED)
+    ema_cap = torch.tensor(config.EMA_DECAY if ema_enabled else 0.0, dtype=_F32)
+
+    def step(state: TrainState, batch):
+        model.train()
+        generator = step_generator(seed, state.step)
+        set_droppath_generator(model, generator)
+        for p in params.values():
+            p.grad = None
+        loss = loss_fn(batch_to_device(batch, device), generator)
+        loss.backward()
+        grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
+                 for k, p in params.items()}
+        opt.apply(params, grads, state)
+        if ema_enabled:
+            g = torch.tensor(state.step, dtype=_F32)
+            decay = torch.minimum(ema_cap, (1.0 + g) / (10.0 + g))
+            with torch.no_grad():
+                names = list(params)
+                ema = [state.ema[k] for k in names]
+                diff = torch._foreach_sub(ema, [params[k] for k in names])
+                torch._foreach_mul_(diff, float(1.0 - decay))
+                torch._foreach_sub_(ema, diff)
+        state.step += 1
+        loss = loss.detach()
+        state.loss_sum += loss
+        return state, loss
+
+    return step

@@ -1,1 +1,1 @@
-"""Host-side utilities: Keras .h5 loading and the keyframe interpolation."""
+"""Host-side utilities: Keras .h5 loading, keyframe interpolation, LR schedules."""
