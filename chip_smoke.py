@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port's serving and training paths on one CUDA card.
+"""Smoke run of the PyTorch port's serving, training and eval paths on one CUDA card.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -12,10 +12,12 @@ Phases (one line each; any failure ends the run with a non-zero exit):
      K3 also at the h36m_81 geometry; the training kernels at the train
      step's shapes: K1 with stochastic-depth scales and K4 on the 25,600
      frames of the keyframe budget, K5 forward and backward on 512 windows,
-     K5 also over one block and at the h36m_81 geometry), with its time from
-     CUDA events, the plain version's time, a PyTorch library call's time
-     where one computes the same function, and the least time the card could
-     take (bound);
+     K5 also over one block and at the h36m_81 geometry; the eval step's K1 on
+     the shared step's 3,072 unique frames and K2 without a key mask; row 11,
+     the packed attention, at the five shapes --pallas gives it), with its
+     time from CUDA events, the plain version's time, a PyTorch library
+     call's time where one computes the same function, and the least time
+     the card could take (bound);
   3. the serving path end to end: a seeded full-width h36m_351 model, flip-TTA
      on, seeded synthetic 2D sequences through `predict_sequence` on the
      kernel path, the launch counts of that run, and the same sequences
@@ -28,7 +30,17 @@ Phases (one line each; any failure ends the run with a non-zero exit):
      then the kernel path against `kernels=False` (the plain versions on the
      card): one batch's loss and every parameter gradient, and a 5-step loss
      curve;
-  5. one JSON line of per-kernel numbers, the card line again, and the last
+  5. the eval protocol end to end: a synthetic Human3.6M pair (S9 and S11,
+     3 actions x 2 variants, 2,000-2,500 frames each, ~108 k eval samples)
+     written to a temporary directory, then `run_eval_multi_mask_stride` with
+     a seeded full-width h36m_351 model at MASK_STRIDE 5, 10 and 20 (B=512,
+     flip-TTA, window-sparse, shared spatial stage): per stride the protocol
+     frames/s (eval samples over run_eval's wall time, host included), the
+     wall attribution line, the six frame metrics and the launches; then at
+     MASK_STRIDE 10 (a) --pallas on the fused path, (b) EVAL_FUSED "none"
+     with --pallas and (c) the plain model on the card: every metric of the
+     default run, (a) and (b) within 0.1 mm of (c)'s;
+  6. one JSON line of per-kernel numbers, the card line again, and the last
      line `{"ok": true, "device": {...}}`.
 
 It needs a CUDA card and the repository checkout around it; without either it
@@ -128,10 +140,11 @@ def ops_bytes(ops) -> int:
     return sum(v.numel() for v in ops.values()) * F32
 
 
-def profile_step(torch, run, top: int = 12) -> None:
-    """One train step under torch.profiler: the card's busy time (the union
-    of kernel intervals) against the step's wall time, and the kernels that
-    took the most card time. Says so when the trace has no card activity."""
+def profile_step(torch, run, top: int = 12, label: str = "phase 4 profile: one step") -> None:
+    """`run` (one train step, one eval run) under torch.profiler: the card's
+    busy time (the union of kernel intervals) against the wall time, and the
+    kernels that took the most card time. Says so when the trace has no card
+    activity."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -141,7 +154,7 @@ def profile_step(torch, run, top: int = 12) -> None:
         wall_ms = 1e3 * (time.perf_counter() - t0)
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     if not kernels:
-        log("phase 4 profile: the trace holds no card activity (time from CUDA events only)")
+        log(f"{label}: the trace holds no card activity (time from CUDA events only)")
         return
     busy, end = 0.0, float("-inf")
     by_name = collections.defaultdict(lambda: [0.0, 0])
@@ -151,7 +164,7 @@ def profile_step(torch, run, top: int = 12) -> None:
         by_name[e.name][0] += e.time_range.elapsed_us()
         by_name[e.name][1] += 1
     rows = sorted(by_name.items(), key=lambda kv: kv[1][0], reverse=True)
-    log(f"phase 4 profile: one step {wall_ms:.3f} ms wall, card busy {busy / 1e3:.3f} ms "
+    log(f"{label} {wall_ms:.3f} ms wall, card busy {busy / 1e3:.3f} ms "
         f"({100 * busy / 1e3 / wall_ms:.1f} %, idle {100 - 100 * busy / 1e3 / wall_ms:.1f} %), "
         f"{len(kernels)} kernels; top card time: " + "; ".join(
             f"{name[:70]} {us / 1e3:.3f} ms x{n}" for name, (us, n) in rows[:top]))
@@ -336,6 +349,175 @@ def train_phase(args, torch, np, rng, config, failed):
     return train_counts
 
 
+EVAL_ACTIONS = ("Walking", "Eating", "Sitting")  # x 2 variants, S9 and S11
+
+
+def write_h36m_npz(np, rng, directory, frames=(2000, 2501)):
+    """A synthetic Human3.6M pair in the reference .npz layout: positions_3d
+    [subject][action] (T, 32, 3) world metres, positions_2d[subject][action]
+    4 cameras of (T + 0..2, 17, 2) pixels. Returns (3D path, 2D path, the
+    sequence lengths)."""
+    p3d, p2d, lengths = {}, {}, []
+    for subject in ("S9", "S11"):
+        p3d[subject], p2d[subject] = {}, {}
+        for action in EVAL_ACTIONS:
+            for variant in (action, f"{action} 1"):
+                t = int(rng.integers(*frames))
+                pose = (rng.normal(size=(t, 32, 3)) * 0.2).astype(np.float32)
+                pose[..., 2] += 1.0
+                p3d[subject][variant] = pose
+                extra = int(rng.integers(0, 3))
+                p2d[subject][variant] = [rng.uniform(100, 900, size=(t + extra, 17, 2))
+                                         .astype(np.float32) for _ in range(4)]
+                lengths.append(t)
+    paths = (os.path.join(directory, "data_3d_h36m.npz"),
+             os.path.join(directory, "data_2d_h36m_synth.npz"))
+    np.savez(paths[0], positions_3d=p3d)
+    np.savez(paths[1], positions_2d=p2d)
+    return paths[0], paths[1], lengths
+
+
+def shared_call_ms(torch, np, rng, config, model) -> None:
+    """The card time of one call of the shared eval step (CUDA events): B
+    consecutive windows of one stream, so B + N - 1 unique frames, flip-TTA,
+    all-real windows (MASK_STRIDE 5)."""
+    from uplift_upsample_torch.eval import make_test_step
+
+    b, n = config.BATCH_SIZE, config.SEQUENCE_LENGTH
+    step = make_test_step(model, flip_tta=True, flip_lr_indices=config.AUGM_FLIP_KEYPOINT_ORDER,
+                          fused="full", assume_dense_mask=True, shared_spatial=True)
+    uq = torch.from_numpy((rng.normal(size=(b + n - 1, 17, 2)) * 0.3)
+                          .astype(np.float32)).cuda()
+    idx = (torch.arange(b)[:, None] + torch.arange(n)[None, :]).cuda()
+    smb = torch.ones((b, n), dtype=torch.bool, device="cuda")
+    log(f"phase 5 step: one shared call ({2 * b} windows, {2 * (b + n - 1)} unique "
+        f"frames with flip-TTA) {time_ms(torch, lambda: step(uq, idx, smb), 5):.3f} ms "
+        f"on the card (CUDA events)")
+
+
+def eval_phase(args, torch, np, rng, failed):
+    """Phase 5: the eval CLI's run_eval_multi_mask_stride on synthetic H3.6M
+    data with seeded full-width weights, then three runs at MASK_STRIDE 10
+    against which the kernel paths are held: (a) USE_PALLAS_ATTENTION on the
+    fused path, (b) EVAL_FUSED "none" with it, (c) EVAL_FUSED "none" alone,
+    the plain model on the card. Returns the launch counts of the default
+    run (all strides) and of run (b)."""
+    import contextlib
+    import io
+    import tempfile
+
+    import uplift_upsample_torch.eval as eval_mod
+    from uplift_upsample_torch.configs import get_config
+    from uplift_upsample_torch.models import build_uplift_upsample_transformer
+    from uplift_upsample_torch.ops import cuda_lib
+
+    config = get_config("h36m_351")
+    runs = []
+    real_run_eval = eval_mod.run_eval
+
+    def timed_run_eval(cfg, *a, **kw):
+        """run_eval with the launch counts set to 0 before and read after, its
+        wall time and its log (the attribution and fallback lines)."""
+        torch.cuda.synchronize()
+        cuda_lib.reset_launches()
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            result = real_run_eval(cfg, *a, **kw)
+        wall = time.perf_counter() - t0
+        lines = [ln for ln in out.getvalue().splitlines()
+                 if ln.startswith(("Eval wall attribution", "Shared-spatial"))]
+        runs.append(dict(stride=cfg.MASK_STRIDE, wall=wall, counts=dict(cuda_lib.LAUNCHES),
+                         lines=lines, result=result))
+        return result
+
+    def metrics_of(result):
+        """Every reported number: frame and action-wise averages, all frames
+        and keyframes."""
+        return {f"{sec}/{kind}/{m}": float(v)
+                for sec, part in zip(("all", "kf"), result)
+                for kind, d in zip(("frame", "aw"), part[:2]) for m, v in d.items()}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        p3, p2, lengths = write_h36m_npz(np, rng, tmp)
+        samples = 4 * sum(lengths)
+        windows_ = 4 * sum(math.ceil(t / config.SEQUENCE_STRIDE) for t in lengths)
+        data = dict(dataset_name="h36m", dataset_path=p3, dataset2d_path=p2,
+                    test_subset="test", action_wise=False, verbose=False)
+        model = build_uplift_upsample_transformer(config, device="cuda", seed=args.seed)
+        eval_mod.run_eval = timed_run_eval
+        try:
+            eval_mod.run_eval_multi_mask_stride(config, model=model, **data)
+            default = list(runs)
+            shared_call_ms(torch, np, rng, config, model)
+            cfg = config.copy()
+            cfg.MASK_STRIDE = 10
+
+            def quiet_run():
+                with contextlib.redirect_stdout(io.StringIO()):
+                    real_run_eval(cfg, model=model, **data)
+
+            profile_step(torch, quiet_run,
+                         label="phase 5 profile: one run_eval at MASK_STRIDE 10,")
+            for label, fused, pallas in (("a", "auto", True), ("b", "none", True),
+                                         ("c", "none", False)):
+                cfg = config.copy()
+                cfg.MASK_STRIDE, cfg.EVAL_FUSED, cfg.USE_PALLAS_ATTENTION = 10, fused, pallas
+                m = model if not pallas else build_uplift_upsample_transformer(
+                    cfg, device="cuda", seed=args.seed)
+                timed_run_eval(cfg, model=m, **data)
+                runs[-1]["label"] = label
+                del m
+        finally:
+            eval_mod.run_eval = real_run_eval
+    del model
+    torch.cuda.empty_cache()
+
+    keys = ("spatial_stack", "temporal_stack", "strided_block1", "packed_attention")
+    for r in default:
+        mets = metrics_of(r["result"])
+        ok = all(np.isfinite(v) for v in mets.values())
+        if not ok:
+            failed.append(f"eval_metrics_not_finite_{r['stride']}")
+        for key in keys[:3]:
+            if r["counts"].get(key, 0) == 0:
+                failed.append(f"no_launch_{key}_eval_{r['stride']}")
+        frame = r["result"][0][0]
+        log(f"phase 5 eval: h36m_351 MASK_STRIDE {r['stride']}, {samples} eval samples, "
+            f"{windows_} computed windows, flip-TTA, shared spatial: wall {r['wall']:.3f} s = "
+            f"{samples / r['wall']:.1f} protocol frames/s; MPJPE {frame['mpjpe']:.3f} "
+            f"N-MPJPE {frame['nmpjpe']:.3f} PA-MPJPE {frame['pampjpe']:.3f} mm (all frames), "
+            f"keyframes {', '.join(f'{v:.3f}' for v in r['result'][1][0].values())}; "
+            f"launches {dict((k, r['counts'].get(k, 0)) for k in keys)}")
+        for line in r["lines"]:
+            log(f"  {line}")
+    ref = metrics_of(runs[-1]["result"])  # (c): the plain model
+    compared = [("default", next(r for r in default if r["stride"] == 10))] + [
+        (f"({r['label']})", r) for r in runs[len(default):-1]]
+    for label, r in compared:
+        mets = metrics_of(r["result"])
+        gap = max(abs(mets[k] - ref[k]) for k in ref)
+        ok = gap <= 0.1 and all(np.isfinite(v) for v in mets.values())
+        log(f"phase 5 eval {label} at MASK_STRIDE 10 against (c) the plain model: largest "
+            f"gap over {len(ref)} metrics {gap:.3e} mm (bar 0.1) {'ok' if ok else 'FAILED'}; "
+            f"wall {r['wall']:.3f} s = {samples / r['wall']:.1f} frames/s; launches "
+            f"{dict((k, r['counts'].get(k, 0)) for k in keys)}")
+        if not ok:
+            failed.append(f"eval_{label}_vs_plain")
+    r_c = runs[-1]
+    log(f"phase 5 eval (c) plain model: wall {r_c['wall']:.3f} s = "
+        f"{samples / r_c['wall']:.1f} frames/s; launches "
+        f"{dict((k, r_c['counts'].get(k, 0)) for k in keys)}")
+    for label in ("a", "b"):
+        r = next(r for r in runs if r.get("label") == label)
+        if r["counts"].get("packed_attention", 0) == 0:
+            failed.append(f"no_launch_packed_attention_eval_{label}")
+    total = collections.Counter()
+    for r in default:
+        total.update(r["counts"])
+    return dict(total), next(r for r in runs if r.get("label") == "b")["counts"]
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -359,9 +541,12 @@ def main(argv=None) -> int:
     from uplift_upsample_torch.eval import make_test_step
     from uplift_upsample_torch.models import build_uplift_upsample_transformer
     from uplift_upsample_torch.models.bench_forward import prepare_fused_params
+    from uplift_upsample_torch.models.uplift_upsample import strided_sequence_lengths
     from uplift_upsample_torch.ops import cuda_lib
+    from uplift_upsample_torch.ops.packed_attention import (packed_attention_plain,
+                                                            packed_multihead_attention)
     from uplift_upsample_torch.ops.spatial import (make_droppath_scales, spatial_stack,
-                                                   spatial_stack_plain)
+                                                   spatial_stack_apply, spatial_stack_plain)
     from uplift_upsample_torch.ops.spatial_bwd import (spatial_stack_bwd,
                                                        spatial_stack_bwd_plain)
     from uplift_upsample_torch.ops.strided import (output_length, strided_block1,
@@ -408,6 +593,7 @@ def main(argv=None) -> int:
     hid = int(c * config.MLP_RATIO)
     frames = windows * n
     p, cs = config.NUM_KEYPOINTS, config.SPATIAL_EMBED_DIM
+    model_seq_lengths = strided_sequence_lengths(n, model.strides, model.paddings)
 
     def rand(*shape, scale=0.5):
         return torch.from_numpy((rng.normal(size=shape) * scale).astype(np.float32)).to(dev)
@@ -548,6 +734,56 @@ def main(argv=None) -> int:
            rows * c * 8, 2 * y.numel() * F32, library_ms=time_ms(torch, ln_plain, 10),
            counter="layernorm_f32")
     del y, qkv, got, ref, q, k, v
+
+    # The eval step's shapes: K1 on the shared step's 2 x 1,536 unique frames
+    # (N = 1), and K2 without a key mask (assume_dense at MASK_STRIDE 5).
+    u_frames = 2 * (config.BATCH_SIZE + config.EVAL_SHARED_UMAX_EXTRA)
+    x_u = rand(u_frames, 1, p, 2)
+    su_fn = lambda: spatial_stack_apply(sp_ops, x_u, num_heads=heads,
+                                        packed=fp["spatial_packed"])
+    su_plain = lambda: spatial_stack_plain(x_u[:, 0], sp_ops, num_heads=heads)
+    got, ref = su_fn(), su_plain()
+    record("spatial_stack_shared", "uplift_upsample_torch/csrc/spatial.cu",
+           "uplift_upsample_tpu/ops/pallas_spatial.py:398",
+           out_check(torch, got.reshape(ref.shape), ref), time_ms(torch, su_fn, 10),
+           time_ms(torch, su_plain, 3), u_frames * per_frame,
+           (x_u.numel() + got.numel() + fp["spatial_packed"].numel()) * F32,
+           counter="spatial_stack", phase="eval")
+    tn_fn = lambda: temporal_stack(x_tm, tm_ops, None, num_heads=heads)
+    tn_plain = lambda: temporal_stack_plain(x_tm, tm_ops, None, num_heads=heads)
+    got, ref = tn_fn(), tn_plain()
+    record("temporal_stack_no_mask", "uplift_upsample_torch/csrc/temporal.cu",
+           "uplift_upsample_tpu/ops/pallas_temporal_v3.py:343", out_check(torch, got, ref),
+           time_ms(torch, tn_fn, 5), time_ms(torch, tn_plain, 3),
+           model.temporal_depth * block_flops, 2 * x_tm.numel() * F32 + ops_bytes(tm_ops),
+           counter="temporal_stack", phase="eval")
+    del x_u, got, ref
+
+    # Row 11, packed attention, at every shape the eval path gives it with
+    # --pallas (1,024 windows per call), beside SDPA on the head-split view.
+    for name, f_, s_, c_, masked in (
+            ("packed_attention_spatial", frames, p, cs, False),
+            ("packed_attention_temporal_mask", windows, n, c, True),
+            ("packed_attention_temporal", windows, n, c, False),
+            ("packed_attention_strided2", windows, model_seq_lengths[1], c, False),
+            ("packed_attention_strided3", windows, model_seq_lengths[2], c, False)):
+        qa, ka, va = (rand(f_, s_, c_, scale=1.0) for _ in range(3))
+        km_a = km if masked else None
+        pa_fn = lambda: packed_multihead_attention(qa, ka, va, km_a, num_heads=heads)
+        pa_plain = lambda: packed_attention_plain(qa, ka, va, km_a, num_heads=heads)
+        got, ref = pa_fn(), pa_plain()
+        d_a = c_ // heads
+        split = lambda t: t.reshape(f_, s_, heads, d_a).transpose(1, 2)
+        add_mask = None if km_a is None else (km_a * -1e9)[:, None, None, :]
+        record(name, "uplift_upsample_torch/csrc/attention.cu",
+               "uplift_upsample_tpu/ops/pallas_attention.py:75", out_check(torch, got, ref),
+               time_ms(torch, pa_fn, 10), time_ms(torch, pa_plain, 3),
+               4 * f_ * s_ * s_ * c_,
+               (4 * qa.numel() + (0 if km_a is None else km_a.numel())) * F32,
+               library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+                   split(qa), split(ka), split(va), attn_mask=add_mask), 10),
+               counter="packed_attention", phase="eval_pallas")
+        del qa, ka, va, got, ref
     torch.cuda.empty_cache()
 
     # ---- phase 2, training kernels at the train step's shapes ----------------
@@ -761,11 +997,15 @@ def main(argv=None) -> int:
 
     # ---- phase 4: the training step end to end -------------------------------
     train_counts = train_phase(args, torch, np, rng, tconfig, failed)
-    counts_by_phase = {"predict": counts, "train": train_counts}
+
+    # ---- phase 5: the eval protocol end to end -------------------------------
+    eval_counts, pallas_counts = eval_phase(args, torch, np, rng, failed)
+    counts_by_phase = {"predict": counts, "train": train_counts, "eval": eval_counts,
+                       "eval_pallas": pallas_counts}
     for r in results.values():
         r["launches"] = counts_by_phase[r.pop("phase")].get(r.pop("counter"), 0)
 
-    # ---- phase 5: report -----------------------------------------------------
+    # ---- phase 6: report -----------------------------------------------------
     if failed:
         log(f"FAILED: {failed}")
         return 1

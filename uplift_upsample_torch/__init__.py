@@ -2,7 +2,7 @@
 
 The JAX package beside it is the reference; this package mirrors its module
 names so that each counterpart is easy to find. Plain tensor code is PyTorch;
-the Pallas kernels of the serving and training paths are CUDA C++ kernels
+the Pallas kernels of the serving, training and eval paths are CUDA C++ kernels
 written for sm_90a (`csrc/`), built with nvcc at first use and bound with
 ctypes (`ops/cuda_lib.py`). On a CPU tensor every kernel wrapper runs its
 plain PyTorch version instead, which the CPU tests use.
@@ -11,11 +11,14 @@ Layout:
   config, configs — layered config system and the bundled configurations (copied)
   models/         — UpliftUpsampleTransformer (nn.Module), its primitives, the fused eval forward
   ops/            — attention; the spatial (K1), temporal (K2) and strided-block-1 (K3)
-                    kernels; the spatial backward (K4) and the temporal stack in training (K5)
+                    kernels; the spatial backward (K4) and the temporal stack in training (K5);
+                    the packed attention behind USE_PALLAS_ATTENTION (row 11)
   parallel/       — the training step: losses, Keras Adam/AdamW, EMA (single device)
-  data/           — window generator and batcher (numpy, copied)
-  utils/          — Keras .h5 loading, keyframe interpolation, LR schedules
-  eval, predict   — the test step with flip-TTA and the serving CLI
+  data/           — window generator and batcher, H3.6M loaders, cameras (numpy, copied)
+  utils/          — Keras .h5 loading, float64 metrics and the eval protocol, row
+                    dedup, LR schedules
+  eval, predict   — the eval harness and CLI (test step with flip-TTA, shared
+                    spatial stage, run_eval) and the serving CLI
 """
 
 import torch

@@ -56,6 +56,7 @@ def model_kwargs(config: UpliftUpsampleConfig) -> dict:
         first_strided_token_attention_layer=config.FIRST_STRIDED_TOKEN_ATTENTION_LAYER,
         token_mask_rate=config.TOKEN_MASK_RATE,
         learnable_masked_token=config.LEARNABLE_MASKED_TOKEN,
+        use_pallas=bool(getattr(config, "USE_PALLAS_ATTENTION", False)),
     )
 
 

@@ -3,7 +3,10 @@
 Numeric parity targets (reference `vision_transformer.py`, strided variants in
 `uplift_upsample_transformer.py:53-160`), as in the JAX package:
   - MHA with *separate* q/k/v projections and optional bias; per-head scaling
-    1/sqrt(head_dim); additive `mask * -1e9` with 1 = blocked key.
+    1/sqrt(head_dim); additive `mask * -1e9` with 1 = blocked key. With
+    `use_pallas` (USE_PALLAS_ATTENTION) it runs the packed attention op
+    (`ops/packed_attention.py`, row 11) where the JAX package runs its Pallas
+    kernel: S <= 128 and no mask or a (B, 1, 1, S) key mask.
   - Pre-norm blocks with LayerNorm eps 1e-5.
   - MLP: Linear(hidden) → act → Linear(out).
   - StridedMlp: pointwise Linear → act → explicit zero-pad →
@@ -30,6 +33,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import scaled_dot_product_attention
+from ..ops.packed_attention import MAX_SEQ, packed_multihead_attention
 
 # flax's truncated_normal(stddev) samples N(0, 1) truncated to [-2, 2] and
 # divides by this constant (the std of that truncated law), so the draw has
@@ -106,11 +110,12 @@ class Mlp(nn.Module):
 
 class MultiHeadAttention(nn.Module):
     def __init__(self, dim: int, num_heads: int = 8, qkv_bias: bool = False,
-                 generator=None):
+                 use_pallas: bool = False, generator=None):
         super().__init__()
         assert dim % num_heads == 0
         self.dim = dim
         self.num_heads = num_heads
+        self.use_pallas = use_pallas
         self.wq = dense(dim, dim, bias=qkv_bias, generator=generator)
         self.wk = dense(dim, dim, bias=qkv_bias, generator=generator)
         self.wv = dense(dim, dim, bias=qkv_bias, generator=generator)
@@ -119,6 +124,20 @@ class MultiHeadAttention(nn.Module):
     def forward(self, x, mask=None):
         b, s, _ = x.shape
         depth = self.dim // self.num_heads
+        # The JAX package's gate (primitives.py:95-98): packed q/k/v, a key
+        # mask broadcast from (B, 1, 1, S), S <= 128. Other shapes take the
+        # split-head path there too.
+        mask_ok = mask is None or (mask.dim() == 4 and mask.shape[1] == 1
+                                   and mask.shape[2] == 1)
+        if self.use_pallas and mask_ok and s <= MAX_SEQ:
+            if self.training:
+                raise NotImplementedError(
+                    "USE_PALLAS_ATTENTION in training is not ported (the packed "
+                    "attention op has no backward)")
+            key_mask = None if mask is None else mask[:, 0, 0, :].expand(b, s)
+            out = packed_multihead_attention(self.wq(x), self.wk(x), self.wv(x),
+                                             key_mask, num_heads=self.num_heads)
+            return self.proj(out), None
 
         def split(t):
             return t.reshape(b, s, self.num_heads, depth).transpose(1, 2)
@@ -134,11 +153,12 @@ class TransformerBlock(nn.Module):
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
                  qkv_bias: bool = False, drop_path_rate: float = 0.0,
-                 activation: Callable = gelu_exact, generator=None):
+                 activation: Callable = gelu_exact, use_pallas: bool = False,
+                 generator=None):
         super().__init__()
         self.norm1 = nn.LayerNorm(dim, eps=1e-5)
-        self.attn = MultiHeadAttention(dim, num_heads=num_heads,
-                                       qkv_bias=qkv_bias, generator=generator)
+        self.attn = MultiHeadAttention(dim, num_heads=num_heads, qkv_bias=qkv_bias,
+                                       use_pallas=use_pallas, generator=generator)
         self.norm2 = nn.LayerNorm(dim, eps=1e-5)
         self.mlp = Mlp(dim, dim, hidden_features=int(dim * mlp_ratio),
                        activation=activation, generator=generator)
@@ -195,13 +215,14 @@ class StridedTransformerBlock(nn.Module):
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
                  qkv_bias: bool = False, drop_path_rate: float = 0.0,
                  activation: Callable = gelu_exact, kernel_size: int = 3,
-                 stride: int = 3, padding=None, generator=None):
+                 stride: int = 3, padding=None, use_pallas: bool = False,
+                 generator=None):
         super().__init__()
         self.stride = stride
         self.pad = resolve_padding(padding, kernel_size)
         self.norm1 = nn.LayerNorm(dim, eps=1e-5)
-        self.attn = MultiHeadAttention(dim, num_heads=num_heads,
-                                       qkv_bias=qkv_bias, generator=generator)
+        self.attn = MultiHeadAttention(dim, num_heads=num_heads, qkv_bias=qkv_bias,
+                                       use_pallas=use_pallas, generator=generator)
         self.norm2 = nn.LayerNorm(dim, eps=1e-5)
         self.mlp = StridedMlp(dim, dim, hidden_features=int(dim * mlp_ratio),
                               activation=activation, kernel_size=kernel_size,

@@ -17,8 +17,9 @@ as the JAX package's `models/uplift_upsample.py` implements it:
 training forward of the JAX model (`uplift_upsample.py:112-268`); the train
 step runs the spatial and temporal stacks through their kernels and only the
 tail (the `temporal_input` splice) through this module. Output BatchNorm,
-dropout and random token masking in training are not ported and raise
-NotImplementedError. Sub-modules carry the flax names
+dropout, random token masking and `use_pallas` (USE_PALLAS_ATTENTION: the
+packed attention op, row 11, in every attention layer) in training are not
+ported and raise NotImplementedError. Sub-modules carry the flax names
 (`spatial_block_1`, `temporal_pe`, ...), so state_dict keys map one to one
 onto the JAX package's parameter paths.
 """
@@ -60,6 +61,7 @@ class UpliftUpsampleTransformer(nn.Module):
                  first_strided_token_attention_layer: int = 0,
                  token_mask_rate: float = 0.0,
                  learnable_masked_token: bool = False,
+                 use_pallas: bool = False,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.full_output = full_output
@@ -78,6 +80,7 @@ class UpliftUpsampleTransformer(nn.Module):
         self.first_strided_token_attention_layer = first_strided_token_attention_layer
         self.token_mask_rate = token_mask_rate
         self.learnable_masked_token = learnable_masked_token
+        self.use_pallas = use_pallas
         g = generator
         p, cs, ct = num_keypoints, spatial_d_model, temporal_d_model
 
@@ -95,7 +98,8 @@ class UpliftUpsampleTransformer(nn.Module):
             for i, rate in enumerate(dpr(0, spatial_depth)):
                 self.add_module(f"spatial_block_{i + 1}", TransformerBlock(
                     cs, num_heads, mlp_ratio=mlp_ratio, qkv_bias=qkv_bias,
-                    drop_path_rate=rate, activation=gelu_exact, generator=g))
+                    drop_path_rate=rate, activation=gelu_exact,
+                    use_pallas=use_pallas, generator=g))
             self.spatial_norm = nn.LayerNorm(cs, eps=1e-6)
             s2t_in = p * cs
         else:
@@ -112,7 +116,8 @@ class UpliftUpsampleTransformer(nn.Module):
         for i, rate in enumerate(dpr(1, temporal_depth)):
             self.add_module(f"temporal_block_{i + 1}", TransformerBlock(
                 ct, num_heads, mlp_ratio=mlp_ratio, qkv_bias=qkv_bias,
-                drop_path_rate=rate, activation=F.relu, generator=g))
+                drop_path_rate=rate, activation=F.relu, use_pallas=use_pallas,
+                generator=g))
 
         out_dim = 3 * num_keypoints
         if full_output and temporal_depth > 0:
@@ -132,7 +137,7 @@ class UpliftUpsampleTransformer(nn.Module):
                                 ct, num_heads, mlp_ratio=mlp_ratio,
                                 qkv_bias=qkv_bias, drop_path_rate=rate,
                                 activation=F.relu, kernel_size=3, stride=s,
-                                padding=pad, generator=g))
+                                padding=pad, use_pallas=use_pallas, generator=g))
         if output_bn:
             self.strided_temporal_norm = nn.BatchNorm1d(ct, eps=1e-5)
         self.strided_temporal_fc = dense(ct, out_dim, generator=g)
@@ -142,13 +147,22 @@ class UpliftUpsampleTransformer(nn.Module):
         return getattr(self, f"{name}_block_{i}")
 
     def forward(self, x, stride_mask=None, *, temporal_input: bool = False,
-                strided_entry: int = 0):
+                strided_entry: int = 0, spatial_input: bool = False,
+                s2t_output: bool = False, s2t_input: bool = False):
         """x: (B, N, K, 2) [already masked at non-keyframes when strided input].
 
-        With `temporal_input`, x is the temporal-stack output (B, N, C) and
-        only the heads and the strided stack run; `strided_entry` leading
-        strided blocks have then been applied already (the fused path's K3)
-        and head1 is skipped. Returns (full_output | None, central (B, K, 3)).
+        Splices (the JAX model's flags of the same names, uplift_upsample.py:
+        78-102), for the eval paths that run a stage outside the module:
+          - `spatial_input`: x is the spatial-stack output (B, N, P·C_sp);
+          - `s2t_output`: return the s2t Dense output (B, N, C) instead of the
+            heads. The prefix is frame-independent, so N may differ from
+            num_frames (the shared-spatial step passes N = 1);
+          - `s2t_input`: x is that (B, N, C) output; the rest runs;
+          - `temporal_input`: x is the temporal-stack output (B, N, C) and only
+            the heads and the strided stack run; `strided_entry` leading
+            strided blocks have then been applied already (the fused path's
+            K3) and head1 is skipped.
+        Returns (full_output | None, central (B, K, 3)), or the s2t output.
         """
         p = self.num_keypoints
         if self.training and (self.output_bn or self.token_mask_rate > 0):
@@ -157,11 +171,14 @@ class UpliftUpsampleTransformer(nn.Module):
         if temporal_input:
             return self._heads_and_strided(x, stride_mask, strided_entry)
         b, n = x.shape[:2]
-        assert x.shape[2] == p and n == self.num_frames, x.shape
+        if not (spatial_input or s2t_input):
+            assert x.shape[2] == p and (n == self.num_frames or s2t_output), x.shape
         x = x.float()
 
         # ---- spatial transformer over joints (frame-independent) ----------
-        if self.spatial_depth == 0:
+        if spatial_input or s2t_input:
+            pass  # x is already the spatial-stack (or s2t) output
+        elif self.spatial_depth == 0:
             x = x.reshape(b, n, p * x.shape[-1])
         else:
             x = x.reshape(b * n, p, x.shape[-1])
@@ -169,7 +186,10 @@ class UpliftUpsampleTransformer(nn.Module):
             for i in range(1, self.spatial_depth + 1):
                 x, _ = self.block("spatial", i)(x)
             x = self.spatial_norm(x).reshape(b, n, p * self.spatial_d_model)
-        x = self.spatial_to_temporal_fc(x)
+        if not s2t_input:
+            x = self.spatial_to_temporal_fc(x)
+        if s2t_output:
+            return x
 
         # ---- temporal transformer over frames -----------------------------
         if self.has_strided_input:

@@ -1,4 +1,4 @@
-"""Compute ops: plain attention, and the kernels of the serving and training paths.
+"""Compute ops: plain attention, and the kernels of the serving, training and eval paths.
 
   spatial        — K1, the fused spatial stack, with droppath scales in training
                    (replaces pallas_spatial.fused_spatial_stack)
@@ -8,6 +8,8 @@
                    (replaces pallas_spatial_bwd.fused_spatial_stack_bwd)
   temporal_train — K5, the temporal stack's training forward and backward
                    (replaces pallas_temporal_bwd.fused_temporal_stack_train)
+  packed_attention — row 11, multi-head attention on packed q, k, v, behind
+                   USE_PALLAS_ATTENTION (replaces pallas_attention.packed_multihead_attention)
 
 Each kernel wrapper runs the CUDA kernel on a CUDA tensor (or raises) and its
 plain PyTorch version on a CPU tensor. `cuda_lib.LAUNCHES` counts the kernel

@@ -12,7 +12,8 @@ import every module.
 
 `LAUNCHES` counts kernel launches per wrapper (K1 "spatial_stack",
 K2 "temporal_stack", K3 "strided_block1", K4 "spatial_bwd",
-K5 "temporal_train_fwd" and "temporal_train_bwd") and per C entry
+K5 "temporal_train_fwd" and "temporal_train_bwd", row 11
+"packed_attention") and per C entry
 ("gemm_f32", ...): each launch of a CUDA kernel adds one to both, and
 nothing else does.
 """
@@ -34,7 +35,7 @@ import torch
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-SOURCES = ("spatial", "temporal", "strided", "spatial_bwd", "temporal_bwd")
+SOURCES = ("spatial", "temporal", "strided", "spatial_bwd", "temporal_bwd", "attention")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
@@ -64,6 +65,7 @@ _SIGNATURES = {
         "window_attention_bwd_f32": "ppppiiiip",
         "sum_rows_f32": "ppiip",
     },
+    "attention": {"packed_attention_f32": "pppppiiiip"},
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 
