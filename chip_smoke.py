@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port's serving, training and eval paths on one CUDA card.
+"""Smoke run of the PyTorch port's serving, training, eval and training-CLI paths on one CUDA card.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -12,7 +12,8 @@ Phases (one line each; any failure ends the run with a non-zero exit):
      K3 also at the h36m_81 geometry; the training kernels at the train
      step's shapes: K1 with stochastic-depth scales and K4 on the 25,600
      frames of the keyframe budget, K5 forward and backward on 512 windows,
-     K5 also over one block and at the h36m_81 geometry; the eval step's K1 on
+     K5 also over one block and at the h36m_81 geometry, K6 (strided block 1
+     in training) forward and backward on 512 windows; the eval step's K1 on
      the shared step's 3,072 unique frames and K2 without a key mask; row 11,
      the packed attention, at the five shapes --pallas gives it), with its
      time from CUDA events, the plain version's time, a PyTorch library
@@ -29,7 +30,8 @@ Phases (one line each; any failure ends the run with a non-zero exit):
      into host batch time and card step time, windows/s, launches per step;
      then the kernel path against `kernels=False` (the plain versions on the
      card): one batch's loss and every parameter gradient, and a 5-step loss
-     curve;
+     curve; then the same with TRAIN_FUSED_STRIDED=True (K6): step time,
+     windows/s, K6 calls per step, the loss and every gradient;
   5. the eval protocol end to end: a synthetic Human3.6M pair (S9 and S11,
      3 actions x 2 variants, 2,000-2,500 frames each, ~108 k eval samples)
      written to a temporary directory, then `run_eval_multi_mask_stride` with
@@ -40,7 +42,20 @@ Phases (one line each; any failure ends the run with a non-zero exit):
      MASK_STRIDE 10 (a) --pallas on the fused path, (b) EVAL_FUSED "none"
      with --pallas and (c) the plain model on the card: every metric of the
      default run, (a) and (b) within 0.1 mm of (c)'s;
-  6. one JSON line of per-kernel numbers, the card line again, and the last
+  6. the training CLI end to end: a synthetic Human3.6M pair (S1, S5, S6, S7
+     for training, S8 for validation) written to a temporary directory, then
+     `train.train_and_validate` with a seeded full-width h36m_351 model, the
+     shipped training config at B=512, TRAIN_FUSED_STRIDED=True and the
+     device feed ("auto": on, on the card), 2 epochs x 8 steps with
+     validation on 2,048 windows and a checkpoint every epoch, then a resume
+     to epoch 3: s/step and windows/s per epoch (the CLI's own
+     train/step_duration), the feed's host wait per step, validation wall and
+     metrics, checkpoint MB and save/restore seconds, the restored state
+     against the saved one bit for bit, K6 calls per step; then 1 epoch x 4
+     steps of `--dataset amass` on a synthetic AMASS tree (world-space poses,
+     camera projection inside the step) with validation on its val split.
+     `export_h5=False`: the card's machine has no h5py, so no .h5 is written;
+  7. one JSON line of per-kernel numbers, the card line again, and the last
      line `{"ok": true, "device": {...}}`.
 
 It needs a CUDA card and the repository checkout around it; without either it
@@ -64,6 +79,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SEQUENCES, FRAMES = 3, 3000  # synthetic 2D sequences of the predict phase
 TRAIN_SEQUENCES = 8          # synthetic 3D+2D sequences of the train phase
 WARMUP_STEPS, TIMED_STEPS, CURVE_STEPS = 2, 8, 5
+CLI_EPOCHS, CLI_STEPS, CLI_VAL = 2, 8, 2048  # the training CLI phase
+AMASS_STEPS, AMASS_VAL = 4, 1024
 
 # H100 SXM peaks (NVIDIA data sheet): fp32 on CUDA cores and HBM3 bandwidth.
 PEAK_FP32_FLOPS = 67e12
@@ -170,16 +187,20 @@ def profile_step(torch, run, top: int = 12, label: str = "phase 4 profile: one s
             f"{name[:70]} {us / 1e3:.3f} ms x{n}" for name, (us, n) in rows[:top]))
 
 
-def train_phase(args, torch, np, rng, config, failed):
+def train_phase(args, torch, np, rng, config, failed, label="phase 4"):
     """Phase 4: make_train_step on synthetic H36M-shaped sequences through the
     train-mode generator and batcher; returns the launch counts of the timed
-    steps (the main path's run)."""
+    steps (the main path's run). With TRAIN_FUSED_STRIDED set in `config`
+    strided block 1 runs through K6; then neither the profile nor the loss
+    curve is repeated."""
     from uplift_upsample_torch.data.fast_batcher import FastH36mBatcher
     from uplift_upsample_torch.data.generator import H36mSequenceGenerator
     from uplift_upsample_torch.models import build_uplift_upsample_transformer
     from uplift_upsample_torch.ops import cuda_lib
     from uplift_upsample_torch.parallel import make_optimizer, make_train_step
-    from uplift_upsample_torch.parallel.train_step import (batch_to_device, make_loss_fn,
+    from uplift_upsample_torch.parallel.train_step import (batch_to_device,
+                                                           fused_strided_enabled,
+                                                           make_loss_fn,
                                                            set_droppath_generator,
                                                            step_generator)
 
@@ -214,6 +235,7 @@ def train_phase(args, torch, np, rng, config, failed):
                                              kernels=kernels)
 
     model, state, step = fresh(True)
+    fused = fused_strided_enabled(model, config, True)
     feed = batches()
     for _ in range(WARMUP_STEPS):
         state, loss = step(state, next(feed))
@@ -235,18 +257,24 @@ def train_phase(args, torch, np, rng, config, failed):
     wall_ms = 1e3 * (time.perf_counter() - t_wall) / TIMED_STEPS
     train_counts = dict(cuda_lib.LAUNCHES)
     per_step = {k: v / TIMED_STEPS for k, v in sorted(train_counts.items())}
-    log(f"phase 4 train: h36m_351 B={b}, {TIMED_STEPS} steps after {WARMUP_STEPS}: "
+    log(f"{label} train: h36m_351 B={b}, {TIMED_STEPS} steps after {WARMUP_STEPS}, "
+        f"TRAIN_FUSED_STRIDED {'on (K6)' if fused else 'off'}: "
         f"card step {np.mean(step_ms):.3f} ms (CUDA events, min {min(step_ms):.3f}, "
         f"max {max(step_ms):.3f}), host batch {np.mean(host_ms):.3f} ms, wall "
         f"{wall_ms:.3f} ms per step = {1e3 * b / wall_ms:.1f} windows/s; "
         f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
         f"loss {losses[0]:.5f} -> {losses[-1]:.5f}; launches per step {per_step}")
-    profile_step(torch, lambda: step(state, next(feed)))
+    if not fused:
+        profile_step(torch, lambda: step(state, next(feed)))
     if not all(np.isfinite(losses)):
-        failed.append("train_loss_not_finite")
+        failed.append(f"train_loss_not_finite{'_fused' if fused else ''}")
     for key in ("spatial_stack", "spatial_bwd", "temporal_train_fwd", "temporal_train_bwd"):
         if train_counts.get(key, 0) == 0:
             failed.append(f"no_launch_{key}")
+    if fused:  # K6 counts calls: one forward and one backward per step
+        for key in ("strided_train_fwd", "strided_train_bwd"):
+            if train_counts.get(key, 0) != TIMED_STEPS:
+                failed.append(f"{key}_not_once_per_step")
 
     # One batch through the kernel path and through the plain versions. A relu
     # pre-activation within rounding of 0 can take the other side of the kink
@@ -258,6 +286,7 @@ def train_phase(args, torch, np, rng, config, failed):
     # is reported beside it.
     import functools
 
+    import uplift_upsample_torch.ops.strided_train as strided_train_mod
     import uplift_upsample_torch.ops.temporal_train as temporal_train_mod
     import uplift_upsample_torch.parallel.train_step as train_step_mod
 
@@ -268,11 +297,17 @@ def train_phase(args, torch, np, rng, config, failed):
     relu = mlps[0].activation
     kernel_fwd, plain_stack = (temporal_train_mod.temporal_train_fwd,
                                train_step_mod.temporal_stack_plain)
-    decisions = {"temporal": None, "tail": []}
+    k6_fwd = strided_train_mod.strided_train_fwd
+    decisions = {"temporal": None, "tail": [], "k6": []}
 
     def recording_fwd(*a, **kw):
         out, saved = kernel_fwd(*a, **kw)
         decisions["temporal"] = temporal_train_mod.saved_relu_masks(saved)
+        return out, saved
+
+    def recording_k6(*a, **kw):  # strided block 1's relu, ahead of the tail's
+        out, saved = k6_fwd(*a, **kw)
+        decisions["k6"] = [strided_train_mod.saved_relu_mask(saved)]
         return out, saved
 
     def recording_relu(x):
@@ -285,14 +320,15 @@ def train_phase(args, torch, np, rng, config, failed):
         if kernels:
             decisions["tail"].clear()
             temporal_train_mod.temporal_train_fwd = recording_fwd
+            strided_train_mod.strided_train_fwd = recording_k6
             for mlp in mlps:
                 mlp.activation = recording_relu
         elif replay:
-            tail = iter(list(decisions["tail"]))
+            tail = iter(decisions["k6"] + decisions["tail"])
             train_step_mod.temporal_stack_plain = functools.partial(
                 plain_stack, relu_masks=decisions["temporal"])
             for mlp in mlps:
-                mlp.activation = lambda x: x * next(tail).to(x.dtype)
+                mlp.activation = lambda x: x * next(tail).reshape(x.shape).to(x.dtype)
         try:
             generator = step_generator(config.SHUFFLE_SEED, 0)
             set_droppath_generator(model, generator)
@@ -300,6 +336,7 @@ def train_phase(args, torch, np, rng, config, failed):
             loss.backward()
         finally:
             temporal_train_mod.temporal_train_fwd = kernel_fwd
+            strided_train_mod.strided_train_fwd = k6_fwd
             train_step_mod.temporal_stack_plain = plain_stack
             for mlp in mlps:
                 mlp.activation = relu
@@ -318,14 +355,18 @@ def train_phase(args, torch, np, rng, config, failed):
     loss_p, grads_p = loss_and_grads(False, replay=True)
     (g_err, _, g_ok), over, l2 = compare(grads_k, grads_p)
     loss_ok = abs(loss_k - loss_p) <= 1e-5 * abs(loss_p)
-    log(f"phase 4 grads: kernel path loss {loss_k:.7f}, plain {loss_p:.7f} "
+    log(f"{label} grads: kernel path loss {loss_k:.7f}, plain {loss_p:.7f} "
         f"({'ok' if loss_ok else 'FAILED'}, rtol 1e-5); {len(grads_p)} gradient leaves "
         f"with the kernel path's relu decisions replayed ({len(decisions['tail'])} tail "
-        f"relus, {len(decisions['temporal'])} K5 blocks): max abs err {g_err:.3e}, "
-        f"largest per-leaf L2 error {l2:.2e}, under the grad bar: "
-        f"{'ok' if g_ok else 'FAILED ' + str(over)}")
+        f"relus, {len(decisions['k6'])} K6, {len(decisions['temporal'])} K5 blocks): "
+        f"max abs err {g_err:.3e}, largest per-leaf L2 error {l2:.2e}, under the grad "
+        f"bar: {'ok' if g_ok else 'FAILED ' + str(over)}")
     if not (loss_ok and g_ok):
-        failed.append("train_grads_vs_plain")
+        failed.append(f"train_grads_vs_plain{'_fused' if fused else ''}")
+    if fused:
+        del model, state, step, grads_k, grads_p
+        torch.cuda.empty_cache()
+        return train_counts
     _, grads_own = loss_and_grads(False)
     (g_err, _, _), over, l2 = compare(grads_k, grads_own)
     log(f"phase 4 grads, plain path with its own relu decisions: max abs err "
@@ -352,13 +393,13 @@ def train_phase(args, torch, np, rng, config, failed):
 EVAL_ACTIONS = ("Walking", "Eating", "Sitting")  # x 2 variants, S9 and S11
 
 
-def write_h36m_npz(np, rng, directory, frames=(2000, 2501)):
+def write_h36m_npz(np, rng, directory, frames=(2000, 2501), subjects=("S9", "S11")):
     """A synthetic Human3.6M pair in the reference .npz layout: positions_3d
     [subject][action] (T, 32, 3) world metres, positions_2d[subject][action]
     4 cameras of (T + 0..2, 17, 2) pixels. Returns (3D path, 2D path, the
     sequence lengths)."""
     p3d, p2d, lengths = {}, {}, []
-    for subject in ("S9", "S11"):
+    for subject in subjects:
         p3d[subject], p2d[subject] = {}, {}
         for action in EVAL_ACTIONS:
             for variant in (action, f"{action} 1"):
@@ -518,6 +559,192 @@ def eval_phase(args, torch, np, rng, failed):
     return dict(total), next(r for r in runs if r.get("label") == "b")["counts"]
 
 
+class TimedLines:
+    """A stdout stand-in that keeps each line with the time it was written,
+    so a phase can time the CLI's own log lines."""
+
+    def __init__(self):
+        self.lines, self._part = [], ""
+
+    def write(self, text):
+        self._part += text
+        *done, self._part = self._part.split("\n")
+        now = time.perf_counter()
+        self.lines += [(now, line) for line in done]
+        return len(text)
+
+    def flush(self):
+        pass
+
+    def first(self, prefix, after=0.0):
+        return next((t, line) for t, line in self.lines if t >= after and line.startswith(prefix))
+
+
+def _same(torch, a, b) -> bool:
+    """Bit-for-bit equality of nested dicts of tensors and plain values."""
+    if isinstance(a, dict):
+        return isinstance(b, dict) and a.keys() == b.keys() and all(
+            _same(torch, a[k], b[k]) for k in a)
+    if isinstance(a, (tuple, list)):
+        return (isinstance(b, (tuple, list)) and len(a) == len(b)
+                and all(_same(torch, x, y) for x, y in zip(a, b)))
+    if isinstance(a, torch.Tensor):
+        return isinstance(b, torch.Tensor) and torch.equal(a, b)
+    return a == b
+
+
+def write_amass_tree(np, rng, directory, frames=(2000, 2501)):
+    """A synthetic AMASS tree: CMU.npz (the train split) and SFU.npz (val),
+    positions_3d[subject][action] = {positions_3d (T, 17, 3) world metres,
+    frame_rate 50}: random-walk poses about 1 m up, where the Human3.6M
+    cameras look."""
+    for name in ("CMU", "SFU"):
+        data = {}
+        for subject in ("s0", "s1"):
+            data[subject] = {}
+            t = int(rng.integers(*frames))
+            root = np.cumsum(rng.normal(size=(t, 1, 3)) * 0.003, axis=0) + [0.0, 0.0, 1.0]
+            pose = root + rng.normal(size=(1, 17, 3)) * 0.3 + np.cumsum(
+                rng.normal(size=(t, 17, 3)) * 0.002, axis=0)
+            data[subject]["walk"] = {"positions_3d": pose.astype(np.float32),
+                                     "frame_rate": 50.0}
+        np.savez(os.path.join(directory, f"{name}.npz"), positions_3d=data)
+
+
+def train_cli_phase(args, torch, np, rng, failed):
+    """Phase 6: the training CLI (`train.train_and_validate`) on synthetic
+    Human3.6M and AMASS data; returns the launch counts of its H3.6M training
+    run (2 epochs x 8 steps)."""
+    import contextlib
+    import tempfile
+
+    import uplift_upsample_torch.train as train_mod
+    from uplift_upsample_torch.configs import get_config
+    from uplift_upsample_torch.ops import cuda_lib
+
+    config = get_config("h36m_351")
+    config.update_from(dict(TRAIN_FUSED_STRIDED=True, EPOCHS=CLI_EPOCHS,
+                            STEPS_PER_EPOCH=CLI_STEPS, VALIDATION_EXAMPLES=CLI_VAL,
+                            CHECKPOINT_INTERVAL=1, VALIDATION_INTERVAL=1,
+                            SHUFFLE_SEED=args.seed))
+    b = config.BATCH_SIZE
+    record = {"saved": {}, "save_s": [], "mb": [], "restore_s": [], "restored_same": []}
+    real_save, real_restore = train_mod.save_checkpoint, train_mod.restore_checkpoint
+
+    def snapshot(model, state):
+        fields = {f: getattr(state, f) for f in ("mu", "nu", "nu_max", "ema", "step",
+                                                 "loss_sum")}
+        clone = lambda v: ({k: clone(x) for k, x in v.items()} if isinstance(v, dict)
+                           else v.detach().clone() if isinstance(v, torch.Tensor) else v)
+        return clone(dict(model.state_dict())), clone(fields)
+
+    def timed_save(ckpt_dir, epoch, model, state):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = real_save(ckpt_dir, epoch, model, state)
+        record["save_s"].append(time.perf_counter() - t0)
+        record["mb"].append(os.path.getsize(path) / 1e6)
+        record["saved"][epoch] = snapshot(model, state)
+        return path
+
+    def timed_restore(ckpt_dir, epoch, model, state):
+        t0 = time.perf_counter()
+        real_restore(ckpt_dir, epoch, model, state)
+        torch.cuda.synchronize()
+        record["restore_s"].append(time.perf_counter() - t0)
+        record["restored_same"].append(_same(torch, snapshot(model, state),
+                                             record["saved"][epoch]))
+
+    def run(cfg, **kw):
+        """train_and_validate with its log kept line by line; the launch
+        counts of the run."""
+        out = TimedLines()
+        torch.cuda.synchronize()
+        cuda_lib.reset_launches()
+        try:
+            with contextlib.redirect_stdout(out):
+                result = train_mod.train_and_validate(cfg, device="cuda", export_h5=False, **kw)
+        except Exception:
+            log("\n".join(line for _, line in out.lines[-40:]))
+            raise
+        torch.cuda.synchronize()
+        return result, out, dict(cuda_lib.LAUNCHES)
+
+    def report(tag, out_dir, out, counts, steps):
+        with open(os.path.join(out_dir, "scalars.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+        step_s = {r["step"]: r["value"] for r in rows if r["tag"] == "train/step_duration"}
+        vals = [r["value"] for r in rows]
+        waits = [line.split(": ")[1] for _, line in out.lines if " feed wait: " in line]
+        t_run, _ = out.first("Running validation")
+        t_done, line = out.first("Finished validation", after=t_run)
+        k6 = {k: counts.get(k, 0) / steps for k in ("strided_train_fwd", "strided_train_bwd")}
+        log(f"phase 6 {tag}: " + "; ".join(
+            f"epoch {e} {s:.3f} s/step = {b / s:.1f} windows/s" for e, s in sorted(step_s.items()))
+            + f"; feed host wait {', '.join(waits)}; first validation "
+            f"{t_done - t_run:.3f} s wall ({line.split(', ', 1)[1]}); K6 calls per step "
+            f"{k6}; launches per step "
+            + str({k: v / steps for k, v in sorted(counts.items()) if k in (
+                "spatial_stack", "spatial_bwd", "temporal_train_fwd", "temporal_train_bwd")}))
+        if not all(math.isfinite(v) for v in vals):
+            failed.append(f"cli_{tag}_not_finite")
+        if k6 != {"strided_train_fwd": 1.0, "strided_train_bwd": 1.0}:
+            failed.append(f"cli_{tag}_k6_not_once_per_step")
+
+    train_mod.save_checkpoint, train_mod.restore_checkpoint = timed_save, timed_restore
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            p3, p2, lengths = write_h36m_npz(np, rng, tmp,
+                                             subjects=("S1", "S5", "S6", "S7", "S8"))
+            out_dir = os.path.join(tmp, "run")
+            data = dict(out_dir=out_dir, dataset_name="h36m", h36m_path=p3, dataset_2d_path=p2,
+                        train_subset="train", val_subset="val", test_subset=None)
+            (hist, _, _), out, counts = run(config.copy(), **data)
+            log(f"phase 6 train CLI: h36m_351 B={b}, TRAIN_FUSED_STRIDED on, device feed "
+                f"'{config.TRAIN_DEVICE_FEED}', {len(lengths)} synthetic sequences x 4 cameras "
+                f"({4 * sum(lengths)} frames; S1, S5, S6, S7 train, S8 val), "
+                f"{CLI_EPOCHS} epochs x {CLI_STEPS} steps, validation on {CLI_VAL} windows; "
+                f"export_h5=False (this machine has no h5py): no .h5 written; "
+                + next(line for _, line in out.lines if line.startswith("Device feed")))
+            report("h36m", out_dir, out, counts, CLI_EPOCHS * CLI_STEPS)
+            config3 = config.copy()
+            config3.EPOCHS = CLI_EPOCHS + 1
+            (hist2, _, _), out, counts3 = run(config3, continue_training=True, **data)
+            kept = all(hist2.value_at_step("MPJPE", e) == hist.value_at_step("MPJPE", e)
+                       is not None for e in range(1, CLI_EPOCHS + 1))
+            restored = record["restored_same"] == [True]
+            log(f"phase 6 resume to epoch {CLI_EPOCHS + 1}: checkpoint "
+                f"{record['mb'][-1]:.1f} MB, save {', '.join(f'{t:.3f}' for t in record['save_s'])} s, "
+                f"restore {record['restore_s'][0]:.3f} s; restored state bit-identical to the "
+                f"saved one: {'yes' if restored else 'NO'}; epochs 1-{CLI_EPOCHS} kept in the "
+                f"history: {'yes' if kept else 'NO'}; MPJPE by epoch "
+                f"{[round(hist2.value_at_step('MPJPE', e), 3) for e in range(1, CLI_EPOCHS + 2)]}")
+            if not restored:
+                failed.append("cli_restore_not_bit_identical")
+            if not kept:
+                failed.append("cli_resume_history")
+            if hist2.value_at_step("MPJPE", CLI_EPOCHS + 1) is None:
+                failed.append("cli_resume_no_epoch_3")
+
+            amass_dir = os.path.join(tmp, "amass")
+            os.makedirs(amass_dir)
+            write_amass_tree(np, rng, amass_dir)
+            aconfig = config.copy()
+            aconfig.update_from(dict(EPOCHS=1, STEPS_PER_EPOCH=AMASS_STEPS,
+                                     VALIDATION_EXAMPLES=AMASS_VAL))
+            a_dir = os.path.join(tmp, "amass_run")
+            (ahist, _, _), out, acounts = run(
+                aconfig, out_dir=a_dir, dataset_name="amass", amass_path=amass_dir,
+                h36m_path=None, train_subset="train", val_subset="val", test_subset=None)
+            report("amass", a_dir, out, acounts, AMASS_STEPS)
+            if "AW-MPJPE" in ahist.metrics or ahist.latest_value("MPJPE") is None:
+                failed.append("cli_amass_metrics")
+    finally:
+        train_mod.save_checkpoint, train_mod.restore_checkpoint = real_save, real_restore
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -551,6 +778,11 @@ def main(argv=None) -> int:
                                                        spatial_stack_bwd_plain)
     from uplift_upsample_torch.ops.strided import (output_length, strided_block1,
                                                    strided_block1_plain)
+    from uplift_upsample_torch.ops.strided_train import (saved_relu_mask,
+                                                         strided_block1_bwd_plain,
+                                                         strided_block1_train_plain,
+                                                         strided_train_bwd,
+                                                         strided_train_fwd)
     from uplift_upsample_torch.ops.temporal import (gemm, layernorm,
                                                     temporal_stack,
                                                     temporal_stack_plain,
@@ -938,8 +1170,46 @@ def main(argv=None) -> int:
            library_ms=time_ms(torch, lambda: torch.ops.aten.native_layer_norm_backward(
                dy_ln, x_ln, [c], ln_mean, ln_rstd, g1, b1, [True, True, True]), 10),
            counter="layernorm_bwd_f32", phase="train")
-    del yb, dq, qkv_t, dctx_t, x_ln, dy_ln, got, ref, leaves, out_ln, tfp, sp_ops, sp_packed
-    del x_kf, sc, g_sp, x_t, tmodel
+    del yb, dq, qkv_t, dctx_t, x_ln, dy_ln, got, ref, leaves, out_ln, sp_ops, sp_packed
+    del x_kf, sc, g_sp
+    torch.cuda.empty_cache()
+
+    # K6: strided block 1 in training on the temporal stack's output at the
+    # train step's shapes (512 x 71 x 384, s0 = 3), forward and backward.
+    st_ops, s0 = tfp["strided"], tmodel.strides[0]
+    n_out_t = output_length(nt, s0, (0, 0))
+    kw6 = dict(num_heads=heads, stride=s0, paddings=(0, 0))
+    cot6 = rand(bt, n_out_t, c, scale=1.0)
+    fwd6 = lambda: strided_train_fwd(x_t, st_ops, **kw6)
+    fwd6_plain = lambda: strided_block1_train_plain(x_t, st_ops, **kw6)
+    (out6, saved6), ref6 = fwd6(), fwd6_plain()
+    flops6 = (bt * nt * 2 * c * (3 * c + c + hid) + bt * 4 * nt * nt * c
+              + bt * n_out_t * 2 * 3 * hid * c)
+    io6 = x_t.numel() * F32 + ops_bytes(st_ops)
+    record("strided_train_fwd", "uplift_upsample_torch/csrc/strided.cu",
+           "uplift_upsample_tpu/ops/pallas_strided_bwd.py:222", out_check(torch, out6, ref6),
+           time_ms(torch, fwd6, 5), time_ms(torch, fwd6_plain, 3), flops6,
+           io6 + out6.numel() * F32, counter="strided_train_fwd", phase="train_cli")
+    bwd6 = lambda: strided_train_bwd(saved6, cot6, st_ops, **kw6)
+    # the plain backward takes fc1's relu kink on the side K6's forward took
+    bwd6_plain = lambda: strided_block1_bwd_plain(x_t, st_ops, cot6,
+                                                  relu_mask=saved_relu_mask(saved6), **kw6)
+    (dx6, gk6), (dxp6, gp6) = bwd6(), bwd6_plain()
+    repeat_identical("strided_train_bwd", (dx6, gk6), bwd6())
+    pairs6 = [(dx6, dxp6)]
+    for name_, g_ in gp6.items():
+        if name_ == "bqkv":  # the key bias's third has a true gradient of 0
+            pairs6 += [(gk6[name_][c:2 * c], g_[c:2 * c], g_[:c]), (gk6[name_][:c], g_[:c]),
+                       (gk6[name_][2 * c:], g_[2 * c:])]
+        else:
+            pairs6.append((gk6[name_], g_))
+    saved6_bytes = sum(t.numel() for t in saved6.values()) * F32
+    record("strided_train_bwd", "uplift_upsample_torch/csrc/strided_bwd.cu",
+           "uplift_upsample_tpu/ops/pallas_strided_bwd.py:266", grad_check(torch, pairs6),
+           time_ms(torch, bwd6, 5), time_ms(torch, bwd6_plain, 3), 2 * flops6,
+           saved6_bytes + io6 + (cot6.numel() + x_t.numel()) * F32,
+           counter="strided_train_bwd", phase="train_cli")
+    del out6, saved6, ref6, dx6, gk6, dxp6, gp6, pairs6, cot6, x_t, tfp, tmodel, st_ops
     torch.cuda.empty_cache()
 
     # ---- phase 3: the serving path end to end --------------------------------
@@ -997,15 +1267,21 @@ def main(argv=None) -> int:
 
     # ---- phase 4: the training step end to end -------------------------------
     train_counts = train_phase(args, torch, np, rng, tconfig, failed)
+    fconfig = tconfig.copy()
+    fconfig.TRAIN_FUSED_STRIDED = True
+    train_phase(args, torch, np, rng, fconfig, failed, label="phase 4 K6")
 
     # ---- phase 5: the eval protocol end to end -------------------------------
     eval_counts, pallas_counts = eval_phase(args, torch, np, rng, failed)
+
+    # ---- phase 6: the training CLI end to end --------------------------------
+    cli_counts = train_cli_phase(args, torch, np, rng, failed)
     counts_by_phase = {"predict": counts, "train": train_counts, "eval": eval_counts,
-                       "eval_pallas": pallas_counts}
+                       "eval_pallas": pallas_counts, "train_cli": cli_counts}
     for r in results.values():
         r["launches"] = counts_by_phase[r.pop("phase")].get(r.pop("counter"), 0)
 
-    # ---- phase 6: report -----------------------------------------------------
+    # ---- phase 7: report -----------------------------------------------------
     if failed:
         log(f"FAILED: {failed}")
         return 1

@@ -11,14 +11,17 @@ Layout:
   config, configs — layered config system and the bundled configurations (copied)
   models/         — UpliftUpsampleTransformer (nn.Module), its primitives, the fused eval forward
   ops/            — attention; the spatial (K1), temporal (K2) and strided-block-1 (K3)
-                    kernels; the spatial backward (K4) and the temporal stack in training (K5);
-                    the packed attention behind USE_PALLAS_ATTENTION (row 11)
-  parallel/       — the training step: losses, Keras Adam/AdamW, EMA (single device)
-  data/           — window generator and batcher, H3.6M loaders, cameras (numpy, copied)
-  utils/          — Keras .h5 loading, float64 metrics and the eval protocol, row
-                    dedup, LR schedules
-  eval, predict   — the eval harness and CLI (test step with flip-TTA, shared
-                    spatial stage, run_eval) and the serving CLI
+                    kernels; the spatial backward (K4), the temporal stack (K5) and
+                    strided block 1 (K6) in training; the packed attention behind
+                    USE_PALLAS_ATTENTION (row 11); camera projection (AMASS)
+  parallel/       — the training and validation steps: losses, Keras Adam/AdamW, EMA
+                    (single device)
+  data/           — window generators and batchers (H3.6M, AMASS), loaders, cameras
+                    (numpy, copied); the device-resident train feed; the host pipeline
+  utils/          — Keras .h5 reading and writing, float64 metrics and the eval
+                    protocol, row dedup, LR schedules, metric history, scalar logs
+  eval, predict,  — the eval harness and CLI (test step with flip-TTA, shared
+  train             spatial stage, run_eval), the serving CLI and the training CLI
 """
 
 import torch

@@ -1,1 +1,2 @@
-"""Host data code (numpy): joint orders, windowing and batching for serving and training."""
+"""Data code: joint orders, loaders, windowing and batching for serving, eval and
+training (numpy, host side), and the device-resident train feed."""

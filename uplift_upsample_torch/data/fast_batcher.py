@@ -1,10 +1,11 @@
-"""Vectorized batch producer for H36mSequenceGenerator (numpy, host side).
+"""Vectorized batch producers for H36mSequenceGenerator and
+AMASSSequenceGenerator (numpy, host side).
 
 Copied from the JAX package's `data/fast_batcher.py`: bit-identical to the
-per-item generator (same RNG streams, same outputs), but all RNG decisions of
-an epoch are drawn in one vectorized pass and a batch is materialised with
+per-item generators (same RNG streams, same outputs), but all RNG decisions
+of an epoch are drawn in one vectorized pass and a batch is materialised with
 one window gather. The gather is the numpy path of the JAX package's
-`data/native.py`; the ctypes binding to `native/` comes with the eval slice.
+`data/native.py`; the ctypes binding to `native/` is ROADMAP A2.
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ from typing import Iterator, Optional
 
 import numpy as np
 
-from .generator import H36mSequenceGenerator
+from .generator import AMASSSequenceGenerator, H36mSequenceGenerator
 
 
 def gather_windows(src: np.ndarray, indices: np.ndarray,
@@ -199,6 +200,66 @@ class FastH36mBatcher:
         cams[flipped, 9] *= -1
         return (seq3d, seq2d, plan["valid"][sl].astype(np.float32), cams,
                 self.subjects[plan["s_i"][sl]], self.actions[plan["s_i"][sl]],
+                plan["centers"][sl].astype(np.int64), plan["stride_mask"][sl])
+
+    def batches(self) -> Iterator[tuple]:
+        return _batches_with_carry(self._epoch_plan, self._gather_slice,
+                                   self.batch_size)
+
+
+class FastAMASSBatcher:
+    """Batched equivalent of AMASSSequenceGenerator (world-space 3D + cam18).
+
+    Yields (seq3d_world (B,N,K,3), cam18 (B,18), mask (B,N), subjects (B,),
+    actions (B,), centers (B,), stride_masks (B,N)); same epoch-chaining
+    semantics as FastH36mBatcher.
+    """
+
+    def __init__(self, generator: AMASSSequenceGenerator, batch_size: int):
+        self.gen = generator
+        self.batch_size = batch_size
+        self.store3d, self.offsets = _concatenate_store(generator.sequences)
+        self.seq_lengths = [s.shape[0] for s in generator.sequences]
+        self.cams = np.stack(generator.cameras)
+        self.flip_perm = (None if generator.windower.flip_lr_indices is None
+                          else np.asarray(generator.windower.flip_lr_indices, np.int32))
+
+    def __len__(self):
+        return len(self.gen)
+
+    def _epoch_plan(self):
+        gen = self.gen
+        w = gen.windower
+        locs = w.epoch_locations(gen.sequence_locations, reset_camera_rng=True)
+        plan = _epoch_plan(w, locs, self.seq_lengths)
+        plan["abs_indices"] = plan["indices"] + self.offsets[plan["s_i"]][:, None]
+        m = plan["abs_indices"].shape[0]
+        # Camera draw per item (separate RNG stream, one value per base item)
+        plan["cam_choice"] = w.rng.integers(low=0, high=len(self.cams), size=(m, 1))[:, 0]
+        if w.in_batch_augment and w.flip_augment:
+            for key in ("s_i", "centers", "valid", "stride_mask", "abs_indices",
+                        "cam_choice"):
+                plan[key] = np.repeat(plan[key], 2, axis=0)
+            do_flip = np.zeros(m * 2, dtype=np.int64)
+            do_flip[1::2] = 1
+            plan["do_flip"] = do_flip
+        elif gen.compat_reference_flip_bug:
+            # The reference's eager flip branch is dead code; windows yield unflipped
+            plan["do_flip"] = np.zeros_like(plan["do_flip"])
+        plan["zero_fill"] = None if w.pad_edge else ~plan["valid"]
+        plan["m"] = plan["abs_indices"].shape[0]
+        return plan
+
+    def _gather_slice(self, plan, sl):
+        do_flip = plan["do_flip"][sl].astype(np.uint8)
+        zf = None if plan["zero_fill"] is None else plan["zero_fill"][sl]
+        seq3d = gather_windows(self.store3d, plan["abs_indices"][sl], zf, do_flip,
+                               self.flip_perm)
+        n_items = seq3d.shape[0]
+        zeros = np.zeros(n_items, dtype=np.int32)
+        # AMASS flip does not alter the camera
+        return (seq3d, self.cams[plan["cam_choice"][sl]],
+                plan["valid"][sl].astype(np.float32), zeros, zeros,
                 plan["centers"][sl].astype(np.int64), plan["stride_mask"][sl])
 
     def batches(self) -> Iterator[tuple]:

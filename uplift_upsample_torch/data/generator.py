@@ -10,8 +10,7 @@ and np.pads the out-of-range ends ("edge" or zero padding); that is exactly a
 clipped index gather (positions `i + (k - mid) * stride`), with zeros/validity
 applied where the position falls outside the video.
 
-Copied from the JAX package's `data/generator.py` (numpy only); the AMASS
-generator waits for the training slice.
+Copied from the JAX package's `data/generator.py` (numpy only).
 """
 
 from __future__ import annotations
@@ -237,3 +236,86 @@ class H36mSequenceGenerator:
             if w.in_batch_augment and w.flip_augment:
                 yield (w.flip_pose(sequence_3d), w.flip_pose(sequence_2d), mask,
                        w.flip_camera_intrinsics(camera), subject, action, i, stride_mask)
+
+
+class AMASSSequenceGenerator:
+    """Windows over world-space AMASS 3D sequences with a random H36M camera.
+
+    Yields (seq3d world (N,K,3), camera 18-vec [quat 4 | trans 3 | intrinsic 11],
+    valid mask (N,), subject id=0, action id=0, center index, stride mask (N,)).
+    The camera transform + 2D projection run device-side (`ops/camera.py`).
+    """
+
+    def __init__(self, amass_dataset, seq_len, target_frame_rate=50, subsample=1,
+                 stride=1, padding_type="zeros", flip_augment=True, in_batch_augment=False,
+                 flip_lr_indices=None, mask_stride=None, stride_mask_align_global=False,
+                 rand_shift_stride_mask=False, shuffle=True, seed=0, verbose=True,
+                 compat_reference_flip_bug=True):
+        self.windower = SequenceWindower(
+            seq_len=seq_len, target_frame_rate=target_frame_rate, subsample=subsample,
+            stride=stride, padding_type=padding_type, flip_augment=flip_augment,
+            in_batch_augment=in_batch_augment, flip_lr_indices=flip_lr_indices,
+            mask_stride=mask_stride, stride_mask_align_global=stride_mask_align_global,
+            rand_shift_stride_mask=rand_shift_stride_mask, shuffle=shuffle, seed=seed,
+            verbose=verbose)
+        # The reference's eager-flip branch is dead code (`if do_flip is True:`
+        # with a np.bool_ is always False, `uplifiting_dataset.py:640`), so the
+        # flip-duplicated locations are yielded *unflipped*. The released AMASS
+        # pre-trained weights come from that behavior; keep it by default.
+        self.compat_reference_flip_bug = compat_reference_flip_bug
+        self.split = amass_dataset.split
+        if verbose:
+            print("Generating sequences ...")
+
+        # Flatten dataset→subject→action
+        self.sequences, self.frame_rates = [], []
+        for subjects in amass_dataset._data.values():
+            for actions in subjects.values():
+                for seq in actions.values():
+                    self.sequences.append(seq["positions"])
+                    self.frame_rates.append(seq.get("frame_rate", 50))
+
+        # All H36M cameras as 18-vectors
+        self.cameras = []
+        for cams in amass_dataset.cameras().values():
+            for cam in cams:
+                if "orientation" in cam:
+                    self.cameras.append(np.concatenate(
+                        [cam["orientation"], cam["translation"], cam["intrinsic"]],
+                        axis=0).astype(np.float32))
+
+        self.sequence_locations = self.windower.build_locations(
+            [s.shape[0] for s in self.sequences], self.frame_rates)
+
+    def __len__(self):
+        n = len(self.sequence_locations)
+        if self.windower.in_batch_augment and self.windower.flip_augment:
+            return 2 * n
+        return n
+
+    def next_epoch_iterator(self):
+        w = self.windower
+        locs = w.epoch_locations(self.sequence_locations, reset_camera_rng=True)
+        subject, action = 0, 0
+        for (s_i, i, do_flip, frame_rate) in locs:
+            s_i, i, frame_rate = int(s_i), int(i), int(frame_rate)
+            stride, abs_mask_stride = w.resolve_strides(frame_rate)
+
+            video = self.sequences[s_i]
+            indices, valid = w.window_indices(i, video.shape[0], stride)
+            sequence_3d = w.extract_window(video, indices, valid)
+            mask = valid.astype(np.float32)
+            stride_mask = w.stride_mask_for(i, stride, abs_mask_stride)
+
+            # Random H36M camera per sample; ~2-5% of projections land outside
+            # [-1, 1] (accepted — emulates a larger sensor)
+            cam = self.cameras[w.rng.integers(low=0, high=len(self.cameras), size=1)[0]]
+
+            if do_flip == 1.0 and not self.compat_reference_flip_bug:
+                # Flip only the pose; the camera is left unchanged for AMASS
+                sequence_3d = w.flip_pose(sequence_3d)
+
+            yield sequence_3d, cam, mask, subject, action, i, stride_mask
+
+            if w.in_batch_augment and w.flip_augment:
+                yield w.flip_pose(sequence_3d), cam, mask, subject, action, i, stride_mask

@@ -1,17 +1,21 @@
-"""Mocap dataset containers: the base class and Human3.6M.
+"""Mocap dataset containers: the base class, Human3.6M and AMASS.
 
-Parity with reference `mocap_dataset.py:12-45` and `h36m_dataset.py:225-275`,
-copied from the JAX package's `data/mocap.py:40-99`. Data files are the
-VideoPose3D-style `.npz` archives (`positions_3d` dict of
-subject→action→array). The AMASS container comes with the AMASS slice.
+Parity with reference `mocap_dataset.py:12-45`, `h36m_dataset.py:225-275` and
+`amass_dataset.py:39-121`, copied from the JAX package's `data/mocap.py`.
+Data files are the VideoPose3D-style `.npz` archives (`positions_3d` dict of
+subject→action→array).
 """
 
 from __future__ import annotations
 
+import copy
+import os
+import re
+
 import numpy as np
 
 from .h36m_cameras import build_camera_dicts
-from .keypoint_order import H36MOrderFull
+from .keypoint_order import AMASS_REORDER, H36MOrderFull
 from .skeleton import Skeleton
 
 # 17-point skeleton in the canonical order (MPII-like)
@@ -20,6 +24,18 @@ h36m_skeleton = Skeleton(
     joints_left=[3, 4, 5, 14, 15, 16],
     joints_right=[0, 1, 2, 11, 12, 13],
 )
+
+# AMASS sub-dataset splits; each entry is a (dataset, subject, action) regex triple
+# (reference `amass_dataset.py:39-64`)
+amass_splits = {
+    "train": [(d, ".*", ".*") for d in [
+        "CMU", "DanceDB", "MPILimits", "TotalCapture", "EyesJapanDataset",
+        "HUMAN4D", "KIT", "BMLhandball", "BMLmovi", "BMLrub", "EKUT",
+        "TCDhandMocap", "ACCAD", "Transitionsmocap"]],
+    "val": [(d, ".*", ".*") for d in ["MPIHDM05", "SFU", "MPImosh"]],
+    "train_debug": [("CMU", ".*", ".*")],
+    "val_debug": [("CMU", ".*", ".*")],
+}
 
 
 class MocapDataset:
@@ -80,3 +96,49 @@ class Human36mDataset(MocapDataset):
 
     def supports_semi_supervised(self):
         return True
+
+
+class AMASSDataset(MocapDataset):
+    """Loads per-sub-dataset AMASS `.npz` files of 17-joint world-space 3D poses.
+
+    Borrows the Human3.6M camera rigs (for random-camera 2D projection during
+    pre-training). `_data` is keyed dataset→subject→action.
+    """
+
+    def __init__(self, path, h36m_path, split, downsample=1, h36m_cameras=None):
+        super().__init__(fps=50, skeleton=h36m_skeleton)
+        if h36m_cameras is None:
+            self._cameras = build_camera_dicts()
+        else:
+            self._cameras = copy.deepcopy(h36m_cameras)
+        self.split = split
+        dataset_filter = amass_splits[split] if isinstance(split, str) else split
+
+        files = [d for d in sorted(os.listdir(path)) if os.path.splitext(d)[1] == ".npz"]
+        self._data = {}
+        for dataset_file in files:
+            dataset = os.path.splitext(dataset_file)[0]
+            ds_matches = [p for p in dataset_filter if re.fullmatch(p[0], dataset)]
+            if not ds_matches:
+                continue
+            data = np.load(os.path.join(path, dataset_file), allow_pickle=True)["positions_3d"].item()
+            self._data[dataset] = {}
+            for subject, actions in data.items():
+                subj_matches = [p for p in ds_matches if re.fullmatch(p[1], subject)]
+                if not subj_matches:
+                    continue
+                self._data[dataset][subject] = {}
+                for action_name, seq in actions.items():
+                    if not [p for p in subj_matches if re.fullmatch(p[2], action_name)]:
+                        continue
+                    assert seq["frame_rate"] == 50.0
+                    positions = seq["positions_3d"].astype(np.float32)[:, AMASS_REORDER]
+                    if downsample > 1:
+                        positions = positions[::downsample]
+                    self._data[dataset][subject][action_name] = {
+                        "dataset": dataset,
+                        "subject": subject,
+                        "action": action_name,
+                        "positions": positions.copy(),
+                        "frame_rate": int(seq["frame_rate"]),
+                    }

@@ -15,7 +15,10 @@ K2 "temporal_stack", K3 "strided_block1", K4 "spatial_bwd",
 K5 "temporal_train_fwd" and "temporal_train_bwd", row 11
 "packed_attention") and per C entry
 ("gemm_f32", ...): each launch of a CUDA kernel adds one to both, and
-nothing else does.
+nothing else does. K6 ("strided_train_fwd", "strided_train_bwd") counts
+calls: its wrappers name their counter on the last launch of a call only,
+so each forward and each backward adds one (its other launches count per
+C entry).
 """
 
 from __future__ import annotations
@@ -28,14 +31,15 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Optional
 
 import torch
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-SOURCES = ("spatial", "temporal", "strided", "spatial_bwd", "temporal_bwd", "attention")
+SOURCES = ("spatial", "temporal", "strided", "spatial_bwd", "temporal_bwd", "attention",
+           "strided_bwd")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
@@ -66,6 +70,11 @@ _SIGNATURES = {
         "sum_rows_f32": "ppiip",
     },
     "attention": {"packed_attention_f32": "pppppiiiip"},
+    "strided_bwd": {
+        "strided_dh1_f32": "ppppiiiiiiip",
+        "strided_dwc_f32": "pppiiiiiiiip",
+        "crop_residual_add_f32": "ppiiiiiip",
+    },
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 
@@ -139,9 +148,10 @@ def library(name: str) -> ctypes.CDLL:
         return _LIBS[name]
 
 
-def launch(lib_name: str, fn: str, counter: str, *args) -> None:
+def launch(lib_name: str, fn: str, counter: Optional[str], *args) -> None:
     """Call a C entry with tensors as device pointers and the current stream
-    appended; count its one kernel launch for `counter` and for `fn`."""
+    appended; count its one kernel launch for `counter` (unless None) and
+    for `fn`."""
     cargs = []
     for a in args:
         if isinstance(a, torch.Tensor):
@@ -154,7 +164,8 @@ def launch(lib_name: str, fn: str, counter: str, *args) -> None:
     err = getattr(library(lib_name), fn)(*cargs)
     if err != 0:
         raise RuntimeError(f"{lib_name}.{fn}: CUDA error {err} at launch")
-    LAUNCHES[counter] += 1
+    if counter is not None:
+        LAUNCHES[counter] += 1
     LAUNCHES[fn] += 1
 
 

@@ -15,7 +15,7 @@ replace `pallas_strided.make_strided_b1_epilogue`); on a CPU tensor it runs
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -65,8 +65,13 @@ def stack_strided_block1_params(state: Mapping[str, torch.Tensor],
 
 
 def strided_block1_plain(x: torch.Tensor, ops: Dict, *, num_heads: int,
-                         stride: int, paddings: Tuple[int, int]) -> torch.Tensor:
-    """(B, N, C) → (B, n_out, C): strided block 1 in plain PyTorch."""
+                         stride: int, paddings: Tuple[int, int],
+                         relu_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(B, N, C) → (B, n_out, C): strided block 1 in plain PyTorch.
+
+    relu_mask (B·N, hidden) booleans replace fc1's relu decisions (a gradient
+    comparison hands it a kernel forward's, as `temporal_stack_plain` takes
+    K5's)."""
     b, n, c = x.shape
     p0, p1 = paddings
     n_out = output_length(n, stride, paddings)
@@ -75,7 +80,8 @@ def strided_block1_plain(x: torch.Tensor, ops: Dict, *, num_heads: int,
     ctx = window_attention_plain(y @ ops["wqkv"] + ops["bqkv"], None, num_heads)
     x = x + (ctx @ ops["wp"] + ops["bp"])
     z = F.layer_norm(x, (c,), ops["ln2_g"], ops["ln2_b"], 1e-5)
-    h1 = torch.relu(z @ ops["w1"] + ops["b1"])
+    h1 = z @ ops["w1"] + ops["b1"]
+    h1 = torch.relu(h1) if relu_mask is None else h1 * relu_mask.reshape(h1.shape).to(h1.dtype)
     h1 = F.pad(h1, (0, 0, p0, p1))  # zero taps outside the window
     hidden = h1.shape[-1]
     last = stride * (n_out - 1) + 1

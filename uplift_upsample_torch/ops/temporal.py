@@ -119,7 +119,7 @@ def temporal_stack_plain(x: torch.Tensor, ops: Dict,
 # -- kernel launches (CUDA tensors only) --------------------------------------
 
 def gemm(a: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor], *,
-         counter: str, residual: Optional[torch.Tensor] = None,
+         counter: Optional[str], residual: Optional[torch.Tensor] = None,
          relu: bool = False, out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """act(a @ w + bias) + residual on the card; a (M, K), w (K, N) row-major."""
     m, k = a.shape
@@ -138,7 +138,7 @@ def gemm(a: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor], *,
 
 
 def layernorm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, eps: float,
-              *, counter: str, pe: Optional[torch.Tensor] = None):
+              *, counter: Optional[str], pe: Optional[torch.Tensor] = None):
     """LN over the last dim of x (rows, C) on the card.
 
     With `pe` (pe_rows, C), row r first gets pe[r % pe_rows] added; returns
@@ -161,7 +161,8 @@ def layernorm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, eps: flo
 
 
 def window_attention(qkv: torch.Tensor, key_mask: Optional[torch.Tensor], *,
-                     windows: int, n: int, num_heads: int, counter: str) -> torch.Tensor:
+                     windows: int, n: int, num_heads: int,
+                     counter: Optional[str]) -> torch.Tensor:
     """(windows·n, 3C) → (windows·n, C) attention inside each window, on the card."""
     rows, c3 = qkv.shape
     c = c3 // 3

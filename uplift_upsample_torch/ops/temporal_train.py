@@ -87,61 +87,68 @@ def temporal_train_fwd(x: torch.Tensor, ops: Dict, key_mask: Optional[torch.Tens
 
 # -- backward -------------------------------------------------------------------
 
-def _sum_rows(part: torch.Tensor, out: torch.Tensor) -> None:
+def _sum_rows(part: torch.Tensor, out: torch.Tensor, counter=COUNTER_BWD) -> None:
     rows = part.shape[0]
-    cuda_lib.launch("temporal_bwd", "sum_rows_f32", COUNTER_BWD, part, out, rows,
+    cuda_lib.launch("temporal_bwd", "sum_rows_f32", counter, part, out, rows,
                     part.numel() // rows)
 
 
-def gemm_dx(dy, scale, rows_per_scale, w, mask=None):
+def gemm_dx(dy, scale, rows_per_scale, w, mask=None, counter=COUNTER_BWD):
     """(dy · scale[row // rows_per_scale]) @ wᵀ, zeroed where mask <= 0."""
     m, k = dy.shape
     n = w.shape[0]
     out = _empty((m, n), dy)
-    cuda_lib.launch("temporal_bwd", "gemm_dx_f32", COUNTER_BWD, dy, scale, rows_per_scale,
+    cuda_lib.launch("temporal_bwd", "gemm_dx_f32", counter, dy, scale, rows_per_scale,
                     w, mask, out, m, n, k)
     return out
 
 
-def gemm_dw(x, dy, scale, rows_per_scale, out):
+def dw_splits(rows: int, m: int, n: int) -> int:
+    """Row chunks of a split-K dW product (m, n) over `rows`: about two waves
+    of blocks, at least 256 rows a chunk."""
+    tiles = math.ceil(m / 128) * math.ceil(n / 64)
+    return max(1, min(64, math.ceil(_TARGET_BLOCKS / tiles), rows // 256))
+
+
+def gemm_dw(x, dy, scale, rows_per_scale, out, counter=COUNTER_BWD):
     """out (m, n) = xᵀ @ (dy · scale[row // rows_per_scale]), split over rows."""
     rows, m = x.shape
     n = dy.shape[1]
-    tiles = math.ceil(m / 128) * math.ceil(n / 64)
-    splits = max(1, min(64, math.ceil(_TARGET_BLOCKS / tiles), rows // 256))
+    splits = dw_splits(rows, m, n)
     part = _empty((splits, m, n), x)
-    cuda_lib.launch("temporal_bwd", "gemm_dw_f32", COUNTER_BWD, x, dy, scale,
+    cuda_lib.launch("temporal_bwd", "gemm_dw_f32", counter, x, dy, scale,
                     rows_per_scale, part, m, n, rows, splits)
-    _sum_rows(part, out)
+    _sum_rows(part, out, counter)
 
 
-def colsum(x, scale, rows_per_scale, out):
+def colsum(x, scale, rows_per_scale, out, counter=COUNTER_BWD):
     rows, cols = x.shape
     part = _empty((math.ceil(rows / 256), cols), x)
-    cuda_lib.launch("temporal_bwd", "colsum_f32", COUNTER_BWD, x, scale, rows_per_scale,
+    cuda_lib.launch("temporal_bwd", "colsum_f32", counter, x, scale, rows_per_scale,
                     part, rows, cols)
-    _sum_rows(part, out)
+    _sum_rows(part, out, counter)
 
 
-def layernorm_bwd(x, dy, gamma, residual, out_gamma, out_beta):
+def layernorm_bwd(x, dy, gamma, residual, out_gamma, out_beta, counter=COUNTER_BWD):
     """dx = LN backward of dy at x (eps 1e-5) + residual; γ/β grads into the outs."""
     rows, c = x.shape
     workers = min(1024, math.ceil(rows / 8) * 8)
     dx, part, gb = _empty((rows, c), x), _empty((workers, 2 * c), x), _empty((2 * c,), x)
-    cuda_lib.launch("temporal_bwd", "layernorm_bwd_f32", COUNTER_BWD, x, dy, gamma,
+    cuda_lib.launch("temporal_bwd", "layernorm_bwd_f32", counter, x, dy, gamma,
                     residual, dx, part, rows, c, 1e-5, workers)
-    _sum_rows(part, gb)
+    _sum_rows(part, gb, counter)
     out_gamma.copy_(gb[:c])
     out_beta.copy_(gb[c:])
     return dx
 
 
-def window_attention_bwd(qkv, dctx, key_mask, *, windows, n, num_heads):
+def window_attention_bwd(qkv, dctx, key_mask, *, windows, n, num_heads,
+                         counter=COUNTER_BWD):
     """d(q|k|v) (windows·n, 3C) of K2's window attention for dctx (windows·n, C)."""
     rows, c = dctx.shape
     cuda_lib.check_cuda("qkv", qkv, shape=(rows, 3 * c), device=dctx.device)
     dqkv = _empty((rows, 3 * c), dctx)
-    cuda_lib.launch("temporal_bwd", "window_attention_bwd_f32", COUNTER_BWD, qkv, dctx,
+    cuda_lib.launch("temporal_bwd", "window_attention_bwd_f32", counter, qkv, dctx,
                     key_mask, dqkv, windows, n, c, num_heads)
     return dqkv
 

@@ -20,15 +20,23 @@ model's tail (strided blocks and heads) through its `temporal_input`
 splice. With `kernels=True` the stacks run through `spatial_stack_train`
 (K1 forward, K4 backward) and `temporal_stack_train` (K5), which on CPU
 tensors are their plain versions under autograd; `kernels=False` runs the
-plain versions on the card (a comparison path, nothing else). The s2t
-Dense, the tail, the loss and the optimizer are plain PyTorch. Stochastic
-depth is drawn per step from a `torch.Generator` seeded from SHUFFLE_SEED and
-the step: per frame for the spatial stack, per window for the temporal stack
-and the tail.
+plain versions on the card (a comparison path, nothing else). With
+TRAIN_FUSED_STRIDED (True, or "auto" on a CUDA device) and a geometry that
+allows it, head1 runs inline, strided block 1 through `strided_block1_train`
+(K6) and the rest of the tail through the `strided_entry=1` splice, as the
+JAX package's `parallel/train_step.py:195-211,269-286` do. The s2t Dense, the tail, the loss and the
+optimizer are plain PyTorch. Stochastic depth is drawn per step from a
+`torch.Generator` seeded from SHUFFLE_SEED and the step: per frame for the
+spatial stack, per window for the temporal stack and the tail.
 
-Not ported (NotImplementedError): AMASS batches (camera projection in the
-step), OUTPUT_BN, dropout, attention dropout and token masking in training.
-The port trains in fp32 (TF32 off); TRAIN_MATMUL_PRECISION is not read.
+AMASS batches (world-space poses and an 18-vector camera) go through
+`ops/camera.world_to_cam_and_2d` inside the step, on the step's device.
+`make_train_step` / `make_val_step` take a `data.device_feed` feed as
+`device_feed=`; their batches are then the feed's plan tuples.
+
+Not ported (NotImplementedError): OUTPUT_BN, dropout, attention dropout and
+token masking in training. The port trains in fp32 (TF32 off);
+TRAIN_MATMUL_PRECISION is not read.
 """
 
 from __future__ import annotations
@@ -44,8 +52,11 @@ import torch
 from ..config import UpliftUpsampleConfig
 from ..models.build import resolve_device
 from ..models.primitives import DropPath
+from ..ops.camera import world_to_cam_and_2d
 from ..ops.spatial import (make_droppath_scales, spatial_stack_plain, spatial_stack_train,
                            stack_spatial_params)
+from ..ops.strided import stack_strided_block1_params
+from ..ops.strided_train import strided_block1_train
 from ..ops.temporal import stack_temporal_params, temporal_stack_plain
 from ..ops.temporal_train import temporal_stack_train
 from ..utils.schedules import scheduler_by_name
@@ -175,11 +186,38 @@ def keyframe_budget(model, config: UpliftUpsampleConfig) -> Optional[int]:
     return budget if budget < b * n else None
 
 
+def fused_strided_enabled(model, config: UpliftUpsampleConfig, kernels: bool) -> bool:
+    """Whether strided block 1 runs through K6: TRAIN_FUSED_STRIDED resolved
+    ("auto": the model is on a CUDA device, as the JAX package's
+    `is_tpu_backend()`) and the JAX package's eligibility rules
+    (`train_step.py:200-207`): the kernel path of the stacks, a temporal
+    stage, strided blocks, paddings (0, 0) in block 1, head1, no output BN."""
+    flag = getattr(config, "TRAIN_FUSED_STRIDED", "auto")
+    if flag == "auto":
+        flag = next(model.parameters()).device.type == "cuda"
+    return bool(flag and kernels and model.spatial_depth > 0 and model.temporal_depth > 0
+                and len(model.strides) > 0 and model.paddings is not None
+                and tuple(model.paddings[0]) == (0, 0)
+                and model.full_output and not model.output_bn)
+
+
+def prepare_batch(tensors, dataset_name: str):
+    """(seq3d, seq2d | cam18, stride_mask) on the device → (keypoints3d in
+    camera space, keypoints2d, stride_mask): AMASS windows are world-space
+    poses with an 18-vector camera, transformed and projected here."""
+    if dataset_name == "amass":
+        seq3d_world, cam18, stride_mask = tensors
+        keypoints3d, keypoints2d = world_to_cam_and_2d(seq3d_world, cam18)
+        return keypoints3d, keypoints2d, stride_mask
+    return tensors
+
+
 def make_loss_fn(model, config: UpliftUpsampleConfig, dataset_name: str = "h36m", *,
                  kernels: bool = True):
-    """loss_fn((seq3d, seq2d, stride_mask), generator) → scalar loss (with graph)."""
-    if dataset_name != "h36m":
-        raise NotImplementedError(f"training on {dataset_name!r} batches is not ported")
+    """loss_fn((seq3d, seq2d | cam18, stride_mask), generator) → scalar loss
+    (with graph); AMASS batches carry the camera in place of the 2D poses."""
+    if dataset_name not in ("h36m", "amass"):
+        raise ValueError(f"unknown dataset {dataset_name!r}")
     for key in ("DROP_RATE", "ATTENTION_DROP_RATE", "TOKEN_MASK_RATE"):
         if getattr(config, key, 0):
             raise NotImplementedError(f"training with {key} > 0 is not ported")
@@ -193,6 +231,10 @@ def make_loss_fn(model, config: UpliftUpsampleConfig, dataset_name: str = "h36m"
     rates_t = _droppath_rates(config, 1, model.temporal_depth)
     budget = keyframe_budget(model, config)
     fmb = model.first_strided_token_attention_layer if model.has_strided_input else 0
+    fused_strided = fused_strided_enabled(model, config, kernels)
+    if fused_strided:
+        # top·i/(depth-1) at i = 0: K6 has no stochastic depth to apply
+        assert model.strided_temporal_block_1.drop_path.rate == 0.0
 
     def spatial(x, ops, scales):
         if kernels:
@@ -242,10 +284,16 @@ def make_loss_fn(model, config: UpliftUpsampleConfig, dataset_name: str = "h36m"
                 model.temporal_depth, 2, bb).to(x.device)
             y = temporal(y, stack_temporal_params(params, model.temporal_depth),
                          key_mask, dp)
+        if fused_strided:
+            full = model.temporal_fc(y).reshape(bb, nn_, model.num_keypoints, 3)
+            y2 = strided_block1_train(y, stack_strided_block1_params(params), num_heads=heads,
+                                      stride=model.strides[0], paddings=model.paddings[0])
+            _, central = model(y2, stride_mask, temporal_input=True, strided_entry=1)
+            return full, central
         return model(y, stride_mask, temporal_input=True)
 
     def loss_fn(batch, generator: torch.Generator) -> torch.Tensor:
-        seq3d, seq2d, stride_mask = batch
+        seq3d, seq2d, stride_mask = prepare_batch(batch, dataset_name)
         keypoints3d = seq3d - seq3d[:, :, root:root + 1, :]
         central_gt = keypoints3d[:, mid]
         x = seq2d
@@ -275,9 +323,12 @@ def set_droppath_generator(model: torch.nn.Module, generator: torch.Generator) -
 
 
 def batch_to_device(batch, device) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """A generator batch (seq3d, seq2d, mask, cams, subjects, actions,
-    centers, stride_mask) → (seq3d, seq2d, stride_mask) on `device`."""
-    seq3d, seq2d, stride_mask = batch[0], batch[1], batch[7]
+    """A generator batch → its three columns the step reads, on `device`:
+    (seq3d, seq2d, stride_mask) of an H36M batch (seq3d, seq2d, mask, cams,
+    subjects, actions, centers, stride_mask), or (seq3d_world, cam18,
+    stride_mask) of an AMASS batch (seq3d_world, cam18, mask, subjects,
+    actions, centers, stride_mask)."""
+    seq3d, seq2d, stride_mask = batch[0], batch[1], batch[-1]
 
     def put(a, dtype):
         t = a if isinstance(a, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(a))
@@ -288,12 +339,14 @@ def batch_to_device(batch, device) -> Tuple[torch.Tensor, torch.Tensor, torch.Te
 
 def make_train_step(model, opt: KerasAdam, config: UpliftUpsampleConfig, *,
                     dataset_name: str = "h36m", device="cuda", kernels: bool = True,
-                    rng_seed: Optional[int] = None):
+                    rng_seed: Optional[int] = None, device_feed=None):
     """step(state, batch) → (state, loss): forward, backward, the optimizer
     update, the EMA update; state is updated in place and returned.
 
     `model` must already be on `device`; batches are generator tuples (numpy
-    or tensors). rng_seed defaults to config.SHUFFLE_SEED.
+    or tensors), or with `device_feed` the feed's plan tuples, materialized
+    on the card from its resident store. rng_seed defaults to
+    config.SHUFFLE_SEED.
     """
     device = resolve_device(device)
     loss_fn = make_loss_fn(model, config, dataset_name, kernels=kernels)
@@ -308,6 +361,8 @@ def make_train_step(model, opt: KerasAdam, config: UpliftUpsampleConfig, *,
         set_droppath_generator(model, generator)
         for p in params.values():
             p.grad = None
+        if device_feed is not None:
+            batch = device_feed.materialize(batch)
         loss = loss_fn(batch_to_device(batch, device), generator)
         loss.backward()
         grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
@@ -326,5 +381,57 @@ def make_train_step(model, opt: KerasAdam, config: UpliftUpsampleConfig, *,
         loss = loss.detach()
         state.loss_sum += loss
         return state, loss
+
+    return step
+
+
+def make_val_step(model, config: UpliftUpsampleConfig, dataset_name: str = "h36m", *,
+                  device="cuda", device_feed=None):
+    """val_step(params, batch) → (pred_central, central_gt, loss), on the device.
+
+    The plain model in eval mode, as the JAX step applies the flax model
+    (`train_step.py:450-505`); `params` (e.g. the EMA weights, keyed like
+    `model.named_parameters()`) replace the model's own for the call, or None
+    keeps them. The loss is the unweighted central + sequence loss of the
+    unflipped pass; with EVAL_FLIP the central prediction is the average with
+    the flipped input's, unflipped. With `device_feed`, batches are its plans.
+    """
+    device = resolve_device(device)
+    root = config.ROOT_KEYTPOINT
+    mid = config.SEQUENCE_LENGTH // 2
+    b, n, k = config.BATCH_SIZE, config.SEQUENCE_LENGTH, config.NUM_KEYPOINTS
+    flip_idx = torch.as_tensor(config.AUGM_FLIP_KEYPOINT_ORDER, dtype=torch.long, device=device)
+
+    def forward(params, keypoints2d, stride_mask):
+        x = keypoints2d
+        args = (x,)
+        if model.has_strided_input:
+            args = (x * stride_mask[:, :, None, None].to(x.dtype), stride_mask)
+        if params is None:
+            return model(*args)
+        return torch.func.functional_call(model, params, args)
+
+    @torch.no_grad()
+    def step(params, batch):
+        model.eval()
+        if device_feed is not None:
+            batch = device_feed.materialize(batch)
+        keypoints3d, keypoints2d, stride_mask = prepare_batch(
+            batch_to_device(batch, device), dataset_name)
+        keypoints3d = keypoints3d - keypoints3d[:, :, root:root + 1, :]
+        central_gt = keypoints3d[:, mid]
+        pred_seq, pred_central = forward(params, keypoints2d, stride_mask)
+        loss = torch.linalg.vector_norm(central_gt - pred_central, dim=-1).sum() / (b * k)
+        if config.TEMPORAL_TRANSFORMER_BLOCKS > 0:
+            loss = loss + torch.linalg.vector_norm(keypoints3d - pred_seq,
+                                                   dim=-1).sum() / (b * n * k)
+        if config.EVAL_FLIP:
+            flipped_in = torch.cat([-keypoints2d[..., :1], keypoints2d[..., 1:]],
+                                   dim=-1)[:, :, flip_idx]
+            _, f_central = forward(params, flipped_in, stride_mask)
+            f_central = torch.cat([-f_central[..., :1], f_central[..., 1:]],
+                                  dim=-1)[:, flip_idx]
+            pred_central = (pred_central + f_central) / 2.0
+        return pred_central, central_gt, loss
 
     return step

@@ -1,1 +1,2 @@
-"""Host-side utilities: Keras .h5 loading, keyframe interpolation, LR schedules."""
+"""Host-side utilities: Keras .h5 reading and writing, metrics and the eval protocol,
+LR schedules, metric history and scalar logs."""
