@@ -55,7 +55,23 @@ Phases (one line each; any failure ends the run with a non-zero exit):
      steps of `--dataset amass` on a synthetic AMASS tree (world-space poses,
      camera projection inside the step) with validation on its val split.
      `export_h5=False`: the card's machine has no h5py, so no .h5 is written;
-  7. one JSON line of per-kernel numbers, the card line again, and the last
+  7. the bench slice: the s2t prologue kernel (the tiled route's Dense,
+     token and PE) against its plain version on 1,024 windows x 71 frames
+     at full width, beside addmm + where + add; K2 over one block (row 9)
+     and strided block 1 as its own pass (row 8) against their plain
+     versions, and `temporal_stack_apply` and the pass as paths of their
+     own; then every route of `bench_forward` on 1,024 windows at h36m_351
+     (the default, temporal_attn "banded", temporal_impl "v2", the tiled
+     route fuse_s2t + "banded", strided_sel, and strided_sel through
+     `shared_spatial_forward` on deduplicated windows) and at h36m_81
+     ("banded", "v2") against the plain model on the card, each with its
+     launches counted from 0 (the tiled route: one s2t launch; v2 and
+     h36m_81 banded: no K3); one train step each with TRAIN_FUSED_TEMPORAL
+     off and with TRAIN_FUSED_SPATIAL off (no K5 launch in either, K1/K4
+     only with spatial on); then the bench CLI (`python -m
+     uplift_upsample_torch.bench --iters 8`) as a subprocess: the default
+     eval invocation, --strided-sel and --train, each JSON line echoed;
+  8. one JSON line of per-kernel numbers, the card line again, and the last
      line `{"ok": true, "device": {...}}`.
 
 It needs a CUDA card and the repository checkout around it; without either it
@@ -199,7 +215,7 @@ def train_phase(args, torch, np, rng, config, failed, label="phase 4"):
     from uplift_upsample_torch.ops import cuda_lib
     from uplift_upsample_torch.parallel import make_optimizer, make_train_step
     from uplift_upsample_torch.parallel.train_step import (batch_to_device,
-                                                           fused_strided_enabled,
+                                                           fused_stages,
                                                            make_loss_fn,
                                                            set_droppath_generator,
                                                            step_generator)
@@ -235,7 +251,7 @@ def train_phase(args, torch, np, rng, config, failed, label="phase 4"):
                                              kernels=kernels)
 
     model, state, step = fresh(True)
-    fused = fused_strided_enabled(model, config, True)
+    fused = fused_stages(model, config, True)[2]
     feed = batches()
     for _ in range(WARMUP_STEPS):
         state, loss = step(state, next(feed))
@@ -745,6 +761,268 @@ def train_cli_phase(args, torch, np, rng, failed):
     return counts
 
 
+def routes_phase(args, torch, np, rng, failed, record, alias):
+    """Phase 7: the s2t prologue kernel, rows 8 and 9 against their plain
+    versions, every route of `bench_forward` (and `shared_spatial_forward`
+    with strided_sel) at h36m_351 and h36m_81 full width on 1,024 windows
+    against the plain model on the card, with each route's launches counted
+    from 0; `temporal_stack_apply` and strided block 1 as its own pass as
+    paths of their own. Returns the launch counts by path."""
+    from uplift_upsample_torch.configs import get_config
+    from uplift_upsample_torch.models import build_uplift_upsample_transformer
+    from uplift_upsample_torch.models.bench_forward import (bench_forward,
+                                                            prepare_fused_params,
+                                                            shared_spatial_forward)
+    from uplift_upsample_torch.ops import cuda_lib
+    from uplift_upsample_torch.ops.s2t import s2t_prologue, s2t_prologue_plain
+    from uplift_upsample_torch.ops.strided import (output_length, strided_block1,
+                                                   strided_block1_plain)
+    from uplift_upsample_torch.ops.temporal import (temporal_block, temporal_stack_apply,
+                                                    temporal_stack_plain)
+    from uplift_upsample_torch.utils.dedup import dedup_rows
+
+    dev = torch.device("cuda")
+    counts = {}
+
+    def counted(path, fn):
+        """fn() with the launch counts set to 0 just before and read just after."""
+        torch.cuda.synchronize()
+        cuda_lib.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        counts[path] = dict(cuda_lib.LAUNCHES)
+        return out
+
+    def rand(*shape, scale=0.5):
+        return torch.from_numpy((rng.normal(size=shape) * scale).astype(np.float32)).to(dev)
+
+    def stride_mask(b, n, ms):
+        phase = rng.integers(0, ms, size=(b, 1))
+        return torch.from_numpy((np.arange(n)[None] + phase) % ms == 0).to(dev)
+
+    config = get_config("h36m_351")
+    model = build_uplift_upsample_transformer(config, device="cuda", seed=args.seed)
+    fp = prepare_fused_params(model)
+    heads, fmb = model.num_heads, model.first_strided_token_attention_layer
+    windows = 2 * config.BATCH_SIZE
+    n, c = config.SEQUENCE_LENGTH, config.TEMPORAL_EMBED_DIM
+    hid = int(c * config.MLP_RATIO)
+    k = config.NUM_KEYPOINTS * config.SPATIAL_EMBED_DIM
+
+    # The s2t prologue kernel on the tiled route's shapes (1,024 x 71 x 544 →
+    # 384), beside addmm + where + add, one PyTorch call each (TF32 off).
+    sp = rand(windows, n, k, scale=1.0)
+    sm = stride_mask(windows, n, 10)
+    s2t = fp["s2t"]
+    s2t_fn = lambda: s2t_prologue(sp, s2t, sm)
+    s2t_plain = lambda: s2t_prologue_plain(sp, s2t, sm)
+    sp2, sm3 = sp.reshape(windows * n, k), sm[..., None]
+    s2t_lib = lambda: torch.where(sm3, torch.addmm(s2t["bias"], sp2, s2t["w"]).reshape(
+        windows, n, c), s2t["token"]) + s2t["pe"]
+    got, ref = s2t_fn(), s2t_plain()
+    record("s2t_prologue", "uplift_upsample_torch/csrc/s2t.cu",
+           "uplift_upsample_tpu/ops/pallas_temporal_v3.py:518", out_check(torch, got, ref),
+           time_ms(torch, s2t_fn, 10), time_ms(torch, s2t_plain, 5),
+           2 * windows * n * k * c,
+           (sp.numel() + got.numel() + sm.numel() + s2t["w"].numel()
+            + 2 * c + s2t["pe"].numel()) * F32,
+           library_ms=time_ms(torch, s2t_lib, 10), phase="route tiled")
+    del sp, sp2, sm3, got, ref
+
+    # Row 9: K2 over one block with a key mask; temporal_stack_apply, block by
+    # block, as its own path. Row 8: strided block 1 as its own pass.
+    x_tm = rand(windows, n, c)
+    km = 1.0 - stride_mask(windows, n, 10).float()
+    one = {key: v[:1].contiguous() for key, v in fp["temporal"].items()}
+    tb_fn = lambda: temporal_block(x_tm, one, km, num_heads=heads)
+    tb_plain = lambda: temporal_stack_plain(x_tm, one, km, num_heads=heads,
+                                            first_masked_blocks=1)
+    got, ref = tb_fn(), tb_plain()
+    rows = windows * n
+    record("temporal_block", "uplift_upsample_torch/csrc/temporal.cu",
+           "uplift_upsample_tpu/ops/pallas_temporal.py:94", out_check(torch, got, ref),
+           time_ms(torch, tb_fn, 5), time_ms(torch, tb_plain, 3),
+           rows * 2 * c * (3 * c + c + 2 * hid) + windows * 4 * n * n * c,
+           (2 * x_tm.numel() + km.numel()) * F32 + ops_bytes(one),
+           counter="temporal_stack", phase="temporal_stack_apply")
+    got = counted("temporal_stack_apply", lambda: temporal_stack_apply(
+        fp["temporal"], x_tm, km, num_heads=heads, first_masked_blocks=fmb))
+    err, tol, ok = out_check(torch, got, temporal_stack_plain(
+        x_tm, fp["temporal"], km, num_heads=heads, first_masked_blocks=fmb))
+    log(f"phase 7 temporal_stack_apply (row 9's path, {model.temporal_depth} blocks one at "
+        f"a time): max_abs_err {err:.3e} (limit {tol}) {'ok' if ok else 'FAILED'}; launches "
+        f"{counts['temporal_stack_apply']}")
+    if not ok:
+        failed.append("temporal_stack_apply")
+    s0, st_ops = model.strides[0], fp["strided"]
+    n_out = output_length(n, s0, (0, 0))
+    sb_fn = lambda: strided_block1(x_tm, st_ops, num_heads=heads, stride=s0, paddings=(0, 0))
+    sb_plain = lambda: strided_block1_plain(x_tm, st_ops, num_heads=heads, stride=s0,
+                                            paddings=(0, 0))
+    got, ref = sb_fn(), sb_plain()
+    record("strided_block1_pass", "uplift_upsample_torch/csrc/strided.cu",
+           "uplift_upsample_tpu/ops/pallas_strided.py:175", out_check(torch, got, ref),
+           time_ms(torch, sb_fn, 5), time_ms(torch, sb_plain, 3),
+           rows * 2 * c * (3 * c + c + hid) + windows * 4 * n * n * c
+           + windows * n_out * 2 * 3 * hid * c,
+           (x_tm.numel() + got.numel()) * F32 + ops_bytes(st_ops),
+           counter="strided_block1", phase="strided pass")
+    counted("strided pass", sb_fn)
+    del x_tm, km, got, ref
+
+    # Every route against the plain model on the card: 1,024 windows at mask
+    # stride 10 (h36m_81: 4) with random phases, so block 1 is key-masked.
+    def windows_of(m, cfg, ms):
+        nn_ = cfg.SEQUENCE_LENGTH
+        sm_ = stride_mask(windows, nn_, ms)
+        xm = rand(windows, nn_, config.NUM_KEYPOINTS, 2, scale=0.3) * sm_[..., None, None]
+        with torch.inference_mode():
+            return xm, sm_, m(xm, sm_)[1]
+
+    inputs = windows_of(model, config, 10)
+    # consecutive windows of one stream, deduplicated on the host, for the
+    # shared spatial stage (the eval protocol's mask alignment at s_in 10)
+    stream = rng.normal(size=(windows + n - 1, config.NUM_KEYPOINTS, 2)).astype(np.float32)
+    t_off = config.SEQUENCE_STRIDE * (np.arange(n) - n // 2)
+    sm_np = np.stack([(config.SEQUENCE_STRIDE * r + t_off) % 10 == 0 for r in range(windows)])
+    xm_np = 0.3 * stream[np.arange(windows)[:, None] + np.arange(n)] * sm_np[..., None, None]
+    uniq, inv = dedup_rows(xm_np.reshape(windows * n, -1))
+    uq = torch.from_numpy(uniq.reshape(-1, config.NUM_KEYPOINTS, 2)).to(dev)
+    idx = torch.from_numpy(inv.reshape(windows, n)).to(dev)
+    sm_s = torch.from_numpy(sm_np).to(dev)
+    with torch.inference_mode():
+        ref_s = model(torch.from_numpy(xm_np).to(dev), sm_s)[1]
+    config81 = get_config("h36m_81")
+    model81 = build_uplift_upsample_transformer(config81, device="cuda", seed=args.seed)
+    fp81 = prepare_fused_params(model81)
+    inputs81 = windows_of(model81, config81, 4)
+
+    def dense(m, fp_, inp, **kw):
+        return lambda: bench_forward(m, inp[0], inp[1], fp_, **kw), inp[2]
+
+    routes = [  # (name, (call, plain reference), launches it must reach beyond K1 and K2)
+        ("default", dense(model, fp, inputs), {"strided_block1"}),
+        ("banded", dense(model, fp, inputs, temporal_attn="banded"), {"strided_block1"}),
+        ("v2", dense(model, fp, inputs, temporal_impl="v2"), set()),
+        ("tiled", dense(model, fp, inputs, temporal_attn="banded", fuse_s2t=True),
+         {"strided_block1", "s2t_prologue"}),
+        ("strided_sel", dense(model, fp, inputs, strided_sel=True), {"strided_block1"}),
+        ("strided_sel shared", (lambda: shared_spatial_forward(
+            model, uq, idx, sm_s, fp, strided_sel=True), ref_s), {"strided_block1"}),
+        ("h36m_81 banded", dense(model81, fp81, inputs81, temporal_attn="banded"), set()),
+        ("h36m_81 v2", dense(model81, fp81, inputs81, temporal_impl="v2"), set()),
+    ]
+    for name, (fn, ref), extra in routes:
+        got = counted(f"route {name}", fn)
+        err, tol, ok = out_check(torch, got, ref)
+        seen = counts[f"route {name}"]
+        wrappers = ("spatial_stack", "temporal_stack", "strided_block1", "s2t_prologue")
+        launches_ok = (all(seen.get(key, 0) > 0 for key in ("spatial_stack", "temporal_stack"))
+                       and all((seen.get(key, 0) > 0) == (key in extra)
+                               for key in ("strided_block1", "s2t_prologue"))
+                       and seen.get("s2t_prologue", 0) in (0, 1))
+        log(f"phase 7 route {name}: max_abs_err vs the plain model {err:.3e} (limit {tol}) "
+            f"{'ok' if ok else 'FAILED'}; {time_ms(torch, fn, 3):.3f} ms per call (CUDA "
+            f"events); launches {dict((key, seen.get(key, 0)) for key in wrappers)} "
+            f"{'as expected' if launches_ok else 'NOT AS EXPECTED'}")
+        if not ok:
+            failed.append(f"route_{name}")
+        if not launches_ok:
+            failed.append(f"route_{name}_launches")
+
+    # Rows 4, 6, 7 and 10 are K1, K2 and K3 at the shapes phase 2 measured;
+    # their launches are their routes'.
+    alias("spatial_stack_tiled", "spatial_stack",
+          "uplift_upsample_tpu/ops/pallas_spatial.py:481", "route tiled")
+    alias("temporal_stack_banded", "temporal_stack",
+          "uplift_upsample_tpu/ops/pallas_temporal_v3.py:343", "route banded")
+    alias("strided_block1_sel", "strided_block1",
+          "uplift_upsample_tpu/ops/pallas_strided.py:306", "route strided_sel")
+    alias("temporal_stack_v2", "temporal_stack",
+          "uplift_upsample_tpu/ops/pallas_temporal.py:355", "route v2")
+    # rows 5 and 6 beyond their first kernel: K2 inside the tiled call, K3
+    # for the banded epilogues
+    alias("temporal_stack_tiled", "temporal_stack",
+          "uplift_upsample_tpu/ops/pallas_temporal_v3.py:518", "route tiled")
+    alias("strided_block1_banded_sel", "strided_block1",
+          "uplift_upsample_tpu/ops/pallas_strided.py:377", "route tiled")
+    alias("strided_block1_banded", "strided_block1",
+          "uplift_upsample_tpu/ops/pallas_strided.py:429", "route banded")
+    del model, model81, fp, fp81, inputs, inputs81, uq, idx, ref_s
+    torch.cuda.empty_cache()
+    return counts
+
+
+def train_flags_check(args, torch, np, failed) -> None:
+    """Phase 7: one train step of h36m_351 at B=512 per setting of
+    TRAIN_FUSED_SPATIAL / TRAIN_FUSED_TEMPORAL, launches counted from 0: the
+    temporal kernel (K5) runs only with both on, and K1/K4 only with spatial."""
+    from uplift_upsample_torch.configs import get_config
+    from uplift_upsample_torch.models import build_uplift_upsample_transformer
+    from uplift_upsample_torch.ops import cuda_lib
+    from uplift_upsample_torch.parallel import make_optimizer, make_train_step
+
+    config = get_config("h36m_351")
+    b, n, k = config.BATCH_SIZE, config.SEQUENCE_LENGTH, config.NUM_KEYPOINTS
+    rng = np.random.default_rng(args.seed)
+    batch = (rng.normal(size=(b, n, k, 3)).astype(np.float32) * 0.1,
+             rng.normal(size=(b, n, k, 2)).astype(np.float32) * 0.1,
+             (np.arange(n) % 5 == 0)[None].repeat(b, 0))
+    for spatial, temporal in ((True, False), (False, True)):
+        cfg = config.copy()
+        cfg.TRAIN_FUSED_SPATIAL, cfg.TRAIN_FUSED_TEMPORAL = spatial, temporal
+        model = build_uplift_upsample_transformer(cfg, device="cuda", seed=args.seed)
+        opt, _, _ = make_optimizer(cfg)
+        step = make_train_step(model, opt, cfg, device="cuda")
+        torch.cuda.synchronize()
+        cuda_lib.reset_launches()
+        _, loss = step(opt.init(model, ema=bool(cfg.EMA_ENABLED)), batch)
+        torch.cuda.synchronize()
+        seen = {key: cuda_lib.LAUNCHES.get(key, 0) for key in (
+            "spatial_stack", "spatial_bwd", "temporal_train_fwd", "temporal_train_bwd")}
+        ok = (math.isfinite(float(loss))
+              and (seen["spatial_stack"] > 0) == (seen["spatial_bwd"] > 0) == spatial
+              and seen["temporal_train_fwd"] == seen["temporal_train_bwd"] == 0)
+        log(f"phase 7 train flags: TRAIN_FUSED_SPATIAL {spatial}, TRAIN_FUSED_TEMPORAL "
+            f"{temporal}: one step, loss {float(loss):.5f}, launches {seen} "
+            f"{'as expected' if ok else 'NOT AS EXPECTED'}")
+        if not ok:
+            failed.append(f"train_flags_{spatial}_{temporal}")
+        del model, opt, step
+    torch.cuda.empty_cache()
+
+
+def bench_cli_phase(failed) -> None:
+    """Phase 7, the bench CLI: `python -m uplift_upsample_torch.bench --iters 8`
+    as a subprocess (default eval, --strided-sel, --train), each JSON line
+    echoed on a line of its own after a prefix."""
+    for label, extra in (("eval", []), ("eval --strided-sel", ["--strided-sel"]),
+                         ("train", ["--train"])):
+        cmd = [sys.executable, "-m", "uplift_upsample_torch.bench", "--iters", "8", *extra]
+        t0 = time.perf_counter()
+        try:
+            proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=300)
+        except subprocess.TimeoutExpired:
+            log(f"phase 7 bench {label}: FAILED, no end within 300 s")
+            failed.append(f"bench_{label}")
+            continue
+        lines = proc.stdout.strip().splitlines()
+        try:
+            result = json.loads(lines[-1])
+        except (IndexError, ValueError):
+            result = {}
+        ok = proc.returncode == 0 and result.get("value", 0) > 0 and "provisional" not in result
+        summary = [ln for ln in proc.stderr.splitlines()
+                   if ln.startswith(("# device=", "# train device="))]
+        log(f"phase 7 bench {label}: exit {proc.returncode} after "
+            f"{time.perf_counter() - t0:.1f} s {'ok' if ok else 'FAILED'}; "
+            f"{summary[-1] if summary else ''}")
+        log(f"phase 7 bench {label} line: {lines[-1] if lines else ''}")
+        if not ok:
+            log("\n".join(proc.stderr.splitlines()[-30:]))
+            failed.append(f"bench_{label}")
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -804,6 +1082,7 @@ def main(argv=None) -> int:
         f"torch {torch.__version__}, cuda {torch.version.cuda}")
 
     # ---- phase 1: build ------------------------------------------------------
+    starts = [("1", time.perf_counter())]  # (phase, its start): the wall per phase
     t0 = time.perf_counter()
     built = cuda_lib.build(verbose=True)
     log(f"phase 1 build: {len(cuda_lib.SOURCES)} sources in "
@@ -814,6 +1093,7 @@ def main(argv=None) -> int:
                 log(f"  ptxas {name}: {line.strip()}")
 
     # ---- phase 2: each kernel against its plain version ----------------------
+    starts.append(("2", time.perf_counter()))
     config = get_config("h36m_351")
     config.MASK_STRIDE = config.MASK_STRIDE[0]
     model = build_uplift_upsample_transformer(config, device="cuda", seed=args.seed)
@@ -834,8 +1114,9 @@ def main(argv=None) -> int:
     failed = []
 
     def record(name, source, replaces, check, ms, plain_ms, flops, nbytes,
-               library_ms=None, counter=None, phase="predict", listed=True):
-        """One phase-2 line. `check` is out_check's or grad_check's result;
+               library_ms=None, counter=None, phase="predict", listed=True,
+               stage="phase 2"):
+        """One kernel line. `check` is out_check's or grad_check's result;
         `launches` is read later from the `phase` run's count of `counter`."""
         err, tol, ok = check
         b_ms, b_by = bound_ms(flops, nbytes)
@@ -848,10 +1129,17 @@ def main(argv=None) -> int:
         if not ok:
             failed.append(name)
         lib = "null" if library_ms is None else f"{library_ms:.4f}"
-        log(f"phase 2 {name}: max_abs_err {err:.3e} (limit {tol}) "
+        log(f"{stage} {name}: max_abs_err {err:.3e} (limit {tol}) "
             f"{'ok' if ok else 'FAILED'}; ms {ms:.4f} plain_ms {plain_ms:.4f} "
             f"library_ms {lib} bound_ms {b_ms:.4f} ({b_by}; {flops / 1e9:.2f} GFLOP, "
             f"{nbytes / 1e6:.1f} MB)")
+
+    def alias(name, of, replaces, phase):
+        """A TPU kernel whose Hopper counterpart is the kernel `of` at the same
+        shapes: `of`'s numbers, its own TPU source, its own path's launches."""
+        results[name] = dict(results[of], name=name, replaces=replaces, phase=phase)
+        log(f"phase 7 {name}: {of} at the same shapes (its phase 2 numbers); "
+            f"launches from the path '{phase}'")
 
     def repeat_identical(name, first, second):
         """The backward kernels sum partials in a fixed order, without float
@@ -1213,6 +1501,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     # ---- phase 3: the serving path end to end --------------------------------
+    starts.append(("3", time.perf_counter()))
     seqs = []
     for _ in range(SEQUENCES):
         walk = np.cumsum(rng.normal(size=(FRAMES, p, 2)) * 0.01, axis=0)
@@ -1266,22 +1555,37 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     # ---- phase 4: the training step end to end -------------------------------
+    starts.append(("4", time.perf_counter()))
     train_counts = train_phase(args, torch, np, rng, tconfig, failed)
     fconfig = tconfig.copy()
     fconfig.TRAIN_FUSED_STRIDED = True
     train_phase(args, torch, np, rng, fconfig, failed, label="phase 4 K6")
 
     # ---- phase 5: the eval protocol end to end -------------------------------
+    starts.append(("5", time.perf_counter()))
     eval_counts, pallas_counts = eval_phase(args, torch, np, rng, failed)
 
     # ---- phase 6: the training CLI end to end --------------------------------
+    starts.append(("6", time.perf_counter()))
     cli_counts = train_cli_phase(args, torch, np, rng, failed)
+
+    # ---- phase 7: the bench routes and the bench CLI -------------------------
+    starts.append(("7", time.perf_counter()))
+    route_counts = routes_phase(
+        args, torch, np, rng, failed,
+        lambda *a, **kw: record(*a, stage="phase 7", **kw), alias)
+    train_flags_check(args, torch, np, failed)
+    bench_cli_phase(failed)
     counts_by_phase = {"predict": counts, "train": train_counts, "eval": eval_counts,
-                       "eval_pallas": pallas_counts, "train_cli": cli_counts}
+                       "eval_pallas": pallas_counts, "train_cli": cli_counts,
+                       **route_counts}
     for r in results.values():
         r["launches"] = counts_by_phase[r.pop("phase")].get(r.pop("counter"), 0)
 
-    # ---- phase 7: report -----------------------------------------------------
+    # ---- phase 8: report -----------------------------------------------------
+    starts.append(("8", time.perf_counter()))
+    log("phase wall times: " + ", ".join(
+        f"{name} {t1 - t0_:.1f} s" for (name, t0_), (_, t1) in zip(starts, starts[1:])))
     if failed:
         log(f"FAILED: {failed}")
         return 1

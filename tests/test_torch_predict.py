@@ -214,9 +214,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     `uplift_upsample_tpu` import, at any depth."""
     files = sorted((REPO / "uplift_upsample_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 10
-    # the eval slice's modules among them, the numpy copies included
+    # the eval slice's modules among them, the numpy copies included, and
+    # the bench slice's
     for name in ("eval.py", "ops/packed_attention.py", "data/loading.py", "data/mocap.py",
-                 "data/h36m_cameras.py", "utils/metrics.py", "utils/dedup.py"):
+                 "data/h36m_cameras.py", "utils/metrics.py", "utils/dedup.py",
+                 "bench.py", "ops/s2t.py", "models/bench_forward.py"):
         assert REPO / "uplift_upsample_torch" / name in files, name
     banned = {"jax", "jaxlib", "flax", "uplift_upsample_tpu"}
     for path in files:

@@ -74,6 +74,11 @@ def _tiny(**over):
     return config
 
 
+# TRAIN_FUSED_SPATIAL and TRAIN_FUSED_TEMPORAL as "auto" resolves them on the
+# card: K6 (TRAIN_FUSED_STRIDED) runs only behind the temporal kernel op.
+STACKS_ON = dict(TRAIN_FUSED_SPATIAL=True, TRAIN_FUSED_TEMPORAL=True)
+
+
 def _jax_config(config):
     from uplift_upsample_tpu.config import UpliftUpsampleConfig as JaxConfig
     jc = JaxConfig()
@@ -114,8 +119,9 @@ def _loss_and_grads(model, config, batch):
 # -- TRAIN_FUSED_STRIDED ---------------------------------------------------------
 
 def test_config_flag_reaches_strided_train(monkeypatch):
-    """TRAIN_FUSED_STRIDED=True sends strided block 1 through the K6 op (on
-    the CPU its plain version); False keeps the model's own block."""
+    """TRAIN_FUSED_STRIDED=True (with the stacks' kernel ops on, as on the
+    card) sends strided block 1 through the K6 op (on the CPU its plain
+    version); False keeps the model's own block."""
     import uplift_upsample_torch.parallel.train_step as train_step
 
     calls = []
@@ -124,13 +130,13 @@ def test_config_flag_reaches_strided_train(monkeypatch):
                         lambda *a, **kw: calls.append(kw) or real(*a, **kw))
     batch = _batch(_tiny())
     for flag, expected in ((True, 1), (False, 0)):
-        config = _tiny(TRAIN_FUSED_STRIDED=flag)
+        config = _tiny(TRAIN_FUSED_STRIDED=flag, **STACKS_ON)
         model = build_uplift_upsample_transformer(config, device="cpu")
         calls.clear()
         _loss_and_grads(model, config, batch)
         assert len(calls) == expected, flag
     # "auto" is the kernel path on a CUDA device only; kernels=False never
-    config = _tiny(TRAIN_FUSED_STRIDED="auto")
+    config = _tiny(TRAIN_FUSED_STRIDED="auto", **STACKS_ON)
     model = build_uplift_upsample_transformer(config, device="cpu")
     calls.clear()
     _loss_and_grads(model, config, batch)
@@ -141,11 +147,48 @@ def test_config_flag_reaches_strided_train(monkeypatch):
     assert not calls
 
 
+def test_config_flags_reach_train_kernels(monkeypatch):
+    """TRAIN_FUSED_SPATIAL and TRAIN_FUSED_TEMPORAL decide which stacks run
+    through their kernel ops (on the CPU their plain versions under
+    autograd), chained as the JAX package chains them
+    (`parallel/train_step.py:168-207`): temporal only with spatial, K6 only
+    with temporal; "auto" is the card; kernels=False runs everything plain.
+    Every setting computes the same loss."""
+    import uplift_upsample_torch.parallel.train_step as train_step
+
+    calls = []
+    for name in ("spatial_stack_train", "temporal_stack_train", "strided_block1_train"):
+        real = getattr(train_step, name)
+        monkeypatch.setattr(train_step, name, lambda *a, _n=name, _r=real, **kw:
+                            calls.append(_n) or _r(*a, **kw))
+    batch = _batch(_tiny())
+    losses = []
+    for (sp, tm, st), expected in (
+            ((True, True, True), {"spatial_stack_train", "temporal_stack_train",
+                                  "strided_block1_train"}),
+            ((True, False, True), {"spatial_stack_train"}),
+            ((False, True, True), set()),
+            (("auto", "auto", True), set()),
+            ((True, True, False), {"spatial_stack_train", "temporal_stack_train"})):
+        config = _tiny(TRAIN_FUSED_SPATIAL=sp, TRAIN_FUSED_TEMPORAL=tm, TRAIN_FUSED_STRIDED=st)
+        model = build_uplift_upsample_transformer(config, device="cpu", seed=1)
+        calls.clear()
+        losses.append(_loss_and_grads(model, config, batch)[0])
+        assert set(calls) == expected, (sp, tm, st, calls)
+    calls.clear()
+    config = _tiny(TRAIN_FUSED_SPATIAL=True, TRAIN_FUSED_TEMPORAL=True, TRAIN_FUSED_STRIDED=True)
+    model = build_uplift_upsample_transformer(config, device="cpu", seed=1)
+    make_loss_fn(model, config, kernels=False)(batch_to_device(batch, "cpu"),
+                                                step_generator(0, 0))
+    assert not calls
+    np.testing.assert_allclose(losses, losses[0], rtol=1e-6)
+
+
 def test_fused_strided_step_matches_unfused():
     """The step with the flag on against off, with stochastic depth in the
     tail (block 2 draws from the step's generator in both): loss rtol 1e-6,
     every gradient under the grad bar."""
-    config = _tiny(DROP_PATH_RATE=[0.1, 0.1, 0.2])
+    config = _tiny(DROP_PATH_RATE=[0.1, 0.1, 0.2], **STACKS_ON)
     model = build_uplift_upsample_transformer(config, device="cpu", seed=2)
     batch = _batch(config, seed=5)
     config.TRAIN_FUSED_STRIDED = True
@@ -168,8 +211,9 @@ def test_fused_strided_steps_match_jax():
     from uplift_upsample_tpu.parallel import make_optimizer as jax_optimizer
     from uplift_upsample_tpu.parallel import make_train_step as jax_step
 
-    config = _tiny(DROP_PATH_RATE=[0.0, 0.0, 0.0], TRAIN_FUSED_STRIDED=True)
-    jconfig = _jax_config(config)
+    # the JAX step runs its own CPU path ("auto" stacks: no Pallas kernels)
+    jconfig = _jax_config(_tiny(DROP_PATH_RATE=[0.0, 0.0, 0.0]))
+    config = _tiny(DROP_PATH_RATE=[0.0, 0.0, 0.0], TRAIN_FUSED_STRIDED=True, **STACKS_ON)
     jmodel = jax_build(jconfig)
     params = init_model_params(jmodel, seed=0)["params"]
     tx, _, _ = jax_optimizer(jconfig)
@@ -596,7 +640,7 @@ def test_train_smoke_and_resume(tmp_path):
     from uplift_upsample_torch import train as train_mod
     from uplift_upsample_torch.utils.weights_h5 import load_keras_h5
 
-    config = _tiny(TRAIN_DEVICE_FEED=True, TRAIN_FUSED_STRIDED=True)
+    config = _tiny(TRAIN_DEVICE_FEED=True, TRAIN_FUSED_STRIDED=True, **STACKS_ON)
     out_dir = str(tmp_path / "run")
     kw = dict(out_dir=out_dir, dataset_name="h36m", h36m_path=H36M_3D,
               dataset_2d_path=H36M_2D, train_subset="train", val_subset="val",

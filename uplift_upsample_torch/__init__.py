@@ -13,7 +13,8 @@ Layout:
   ops/            — attention; the spatial (K1), temporal (K2) and strided-block-1 (K3)
                     kernels; the spatial backward (K4), the temporal stack (K5) and
                     strided block 1 (K6) in training; the packed attention behind
-                    USE_PALLAS_ATTENTION (row 11); camera projection (AMASS)
+                    USE_PALLAS_ATTENTION (row 11); the s2t prologue of the tiled eval
+                    route; camera projection (AMASS)
   parallel/       — the training and validation steps: losses, Keras Adam/AdamW, EMA
                     (single device)
   data/           — window generators and batchers (H3.6M, AMASS), loaders, cameras
@@ -21,7 +22,8 @@ Layout:
   utils/          — Keras .h5 reading and writing, float64 metrics and the eval
                     protocol, row dedup, LR schedules, metric history, scalar logs
   eval, predict,  — the eval harness and CLI (test step with flip-TTA, shared
-  train             spatial stage, run_eval), the serving CLI and the training CLI
+  train, bench      spatial stage, run_eval), the serving CLI, the training CLI and
+                    the benchmark CLI
 """
 
 import torch

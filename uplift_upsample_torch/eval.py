@@ -77,7 +77,7 @@ def check_precision(precision: str) -> None:
 def make_test_step(model, flip_tta: bool, flip_lr_indices, fused: str = "none",
                    precision: str = "high", max_keyframes: int = None,
                    assume_dense_mask: bool = False, shared_spatial: bool = False,
-                   tta_batched: bool = True):
+                   tta_batched: bool = True, temporal_wpt=None, strided_sel: bool = False):
     """Forward step with optional flip-TTA.
 
     `fused` selects the compute path:
@@ -89,7 +89,9 @@ def make_test_step(model, flip_tta: bool, flip_lr_indices, fused: str = "none",
       - "none": the plain model.
     On CPU tensors the kernels' plain versions run. `precision` is checked by
     `check_precision`; both fp32 rungs run the same code.
-    `max_keyframes`, `assume_dense_mask`: see `bench_forward` ("full" path).
+    `max_keyframes`, `assume_dense_mask`, `strided_sel`: see `bench_forward`
+    ("full" path). `temporal_wpt` (EVAL_TEMPORAL_WPT) is resolved by
+    `resolve_temporal_wpt` and handed on; it changes no launch.
     `tta_batched`: run flip-TTA as ONE forward on the concatenated
     [unflipped; flipped] batch instead of two forwards (the same math,
     batched).
@@ -122,16 +124,19 @@ def make_test_step(model, flip_tta: bool, flip_lr_indices, fused: str = "none",
         from .models.bench_forward import (bench_forward, prepare_fused_params,
                                            shared_spatial_forward)
         fused_params = prepare_fused_params(model)
+        route = dict(temporal_wpt=resolve_temporal_wpt(temporal_wpt, model.num_frames),
+                     strided_sel=strided_sel)
         if shared_spatial:
             def forward(unique2d, win_idx, stride_mask):
                 return None, shared_spatial_forward(
                     model, unique2d, win_idx, stride_mask, fused_params,
-                    assume_dense_mask=assume_dense_mask)
+                    assume_dense_mask=assume_dense_mask, **route)
         else:
             def forward(keypoints2d, stride_mask):
                 return None, bench_forward(
                     model, masked(keypoints2d, stride_mask), stride_mask, fused_params,
-                    max_keyframes=max_keyframes, assume_dense_mask=assume_dense_mask)
+                    max_keyframes=max_keyframes, assume_dense_mask=assume_dense_mask,
+                    **route)
     elif fused in ("full", "spatial") and model.spatial_depth > 0:
         from .ops.spatial import (pack_spatial_params, spatial_stack_apply,
                                   stack_spatial_params)
@@ -372,11 +377,11 @@ def run_eval(config: UpliftUpsampleConfig, dataset_name, dataset_path, dataset2d
     # first-block key mask is inert: K2 runs without it.
     assume_dense = bool(window_sparse and period == 1)
     eval_precision = getattr(config, "EVAL_MATMUL_PRECISION", "high") or "high"
+    eval_wpt = getattr(config, "EVAL_TEMPORAL_WPT", "auto")
     if verbose:
-        wpt = resolve_temporal_wpt(getattr(config, "EVAL_TEMPORAL_WPT", "auto"),
-                                   config.SEQUENCE_LENGTH)
-        log(f"EVAL_TEMPORAL_WPT resolves to {wpt} (a TPU tiling; the port's "
-            f"kernels do not use it)")
+        log(f"EVAL_TEMPORAL_WPT resolves to "
+            f"{resolve_temporal_wpt(eval_wpt, config.SEQUENCE_LENGTH)} (a TPU tiling; "
+            f"the port's kernels do not use it)")
 
     n_devices = torch.cuda.device_count() if dev.type == "cuda" else 1
     dp = getattr(config, "DATA_PARALLEL_DEVICES", -1)
@@ -389,7 +394,8 @@ def run_eval(config: UpliftUpsampleConfig, dataset_name, dataset_path, dataset2d
     step_kwargs = dict(flip_tta=config.EVAL_FLIP,
                        flip_lr_indices=config.AUGM_FLIP_KEYPOINT_ORDER,
                        fused=fused_mode, precision=eval_precision,
-                       assume_dense_mask=assume_dense, tta_batched=tta_batched)
+                       assume_dense_mask=assume_dense, tta_batched=tta_batched,
+                       temporal_wpt=eval_wpt)
     test_step = make_test_step(model, max_keyframes=max_kf, **step_kwargs)
 
     # Cross-window shared spatial stage: consecutive computed windows overlap

@@ -13,7 +13,7 @@ import every module.
 `LAUNCHES` counts kernel launches per wrapper (K1 "spatial_stack",
 K2 "temporal_stack", K3 "strided_block1", K4 "spatial_bwd",
 K5 "temporal_train_fwd" and "temporal_train_bwd", row 11
-"packed_attention") and per C entry
+"packed_attention", the s2t prologue "s2t_prologue") and per C entry
 ("gemm_f32", ...): each launch of a CUDA kernel adds one to both, and
 nothing else does. K6 ("strided_train_fwd", "strided_train_bwd") counts
 calls: its wrappers name their counter on the last launch of a call only,
@@ -39,7 +39,7 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 SOURCES = ("spatial", "temporal", "strided", "spatial_bwd", "temporal_bwd", "attention",
-           "strided_bwd")
+           "strided_bwd", "s2t")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
@@ -75,6 +75,7 @@ _SIGNATURES = {
         "strided_dwc_f32": "pppiiiiiiiip",
         "crop_residual_add_f32": "ppiiiiiip",
     },
+    "s2t": {"s2t_prologue_f32": "pppppppiiiip"},
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 

@@ -17,6 +17,12 @@ through `stack_spatial_params` the module's parameters.
 Unlike the TPU kernel's (P, C, F) frames-on-lanes layout, frames are rows
 here: (F, 17, 2) in, (F, 17·C) out in p-major order, which is the
 (B, N, P·C) layout the s2t Dense reads.
+
+K1 is also the counterpart of `pallas_spatial.fused_spatial_stack_tiled`
+(row 4 of the kernel table in PERF.md), which does the same per-frame math
+on window-padded (n_tiles, P·C, wpt·72) tiles for the tiled eval pipeline:
+the padding to 72 frames and the tile layout align the TPU's lanes, so the
+port runs K1 on the B·N frames as rows (`models/bench_forward._tiled_forward`).
 """
 
 from __future__ import annotations

@@ -11,6 +11,19 @@ On a CUDA tensor it launches the GEMM, LayerNorm and attention kernels of
 `csrc/temporal.cu` and the conv kernel of `csrc/strided.cu` (together they
 replace `pallas_strided.make_strided_b1_epilogue`); on a CPU tensor it runs
 `strided_block1_plain`, the same function in plain PyTorch.
+
+K3 is also the counterpart of the TPU's other strided-block-1 kernels (rows
+of the kernel table in PERF.md), which compute the same function in other
+Mosaic layouts:
+  - row 7, `make_strided_b1_epilogue_sel` with `make_strided_sel`: the
+    selection of rows u = s0·t as one-hot dots inside the kernel; K3 computes
+    only the n_out selected rows in any case;
+  - rows 5 and 6, `make_strided_b1_epilogue_banded_sel` and
+    `make_strided_b1_epilogue_banded`: the same block after banded
+    attention, paddings (0, 0);
+  - row 8, `fused_strided_block1`: the block as its own pass. The TPU kernel
+    returns the pre-selection (B, N_pad, C) and every caller keeps only the
+    rows s0·t; `strided_block1` returns only those rows, (B, n_out, C).
 """
 
 from __future__ import annotations

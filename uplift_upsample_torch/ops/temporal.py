@@ -8,6 +8,17 @@ launches of the kernels in `csrc/temporal.cu` (which replace
 `pallas_temporal_v3.fused_temporal_stack_v3`); on a CPU tensor it runs
 `temporal_stack_plain`, the same function in plain PyTorch.
 
+K2 is also the counterpart of the TPU's other temporal eval kernels, which
+compute the same function in other Mosaic layouts (rows of the kernel table
+in PERF.md):
+  - row 6, `fused_temporal_stack_v3(attn_mode="banded")`: its band softmax
+    is attention inside each window, which K2's per-window attention is;
+  - row 10, `pallas_temporal.fused_temporal_stack` (v2): the same blocks,
+    windows padded to 72 tokens with the pad token blocked;
+  - row 9, `pallas_temporal.fused_temporal_block`: one block, reached through
+    `pallas_temporal.temporal_stack_apply`; here `temporal_block` and
+    `temporal_stack_apply`, K2 over one block at a time.
+
 The GEMM, LayerNorm and window-attention wrappers below are shared with K3
 (`ops/strided.py`); each counts its launches for the K it runs for.
 """
@@ -214,3 +225,25 @@ def temporal_stack(x: torch.Tensor, ops: Dict,
         z = gemm(z, ops["w1"][blk], ops["b1"][blk], relu=True, counter=COUNTER)
         h = gemm(z, ops["w2"][blk], ops["b2"][blk], residual=h, out=h, counter=COUNTER)
     return h.reshape(b, n, c)
+
+
+def temporal_block(x: torch.Tensor, block_ops: Dict,
+                   key_mask: Optional[torch.Tensor] = None, *, num_heads: int) -> torch.Tensor:
+    """One temporal block, (B, N, C) → (B, N, C) (row 9,
+    `pallas_temporal.fused_temporal_block`): K2 over the one block of
+    `block_ops` (stacked operands of one block), the key mask (B, N), 1 =
+    blocked, applied when given."""
+    return temporal_stack(x, block_ops, key_mask, num_heads=num_heads,
+                          first_masked_blocks=0 if key_mask is None else 1)
+
+
+def temporal_stack_apply(ops: Dict, x: torch.Tensor, key_mask: Optional[torch.Tensor], *,
+                         num_heads: int, first_masked_blocks: int = 0) -> torch.Tensor:
+    """The temporal stack block by block (`pallas_temporal.temporal_stack_apply`):
+    `temporal_block` per block of the stacked `ops`, the key mask on the first
+    `first_masked_blocks` blocks."""
+    for blk in range(ops["ln1_g"].shape[0]):
+        x = temporal_block(x, {k: v[blk:blk + 1] for k, v in ops.items()},
+                           key_mask if blk < first_masked_blocks else None,
+                           num_heads=num_heads)
+    return x

@@ -17,14 +17,15 @@ The forward is the JAX package's accelerator path: the spatial stack on the
 keyframes only (a static budget, keyframes first), the s2t Dense, the
 strided-input token and the temporal PE, the temporal stack, then the
 model's tail (strided blocks and heads) through its `temporal_input`
-splice. With `kernels=True` the stacks run through `spatial_stack_train`
-(K1 forward, K4 backward) and `temporal_stack_train` (K5), which on CPU
-tensors are their plain versions under autograd; `kernels=False` runs the
-plain versions on the card (a comparison path, nothing else). With
-TRAIN_FUSED_STRIDED (True, or "auto" on a CUDA device) and a geometry that
-allows it, head1 runs inline, strided block 1 through `strided_block1_train`
-(K6) and the rest of the tail through the `strided_entry=1` splice, as the
-JAX package's `parallel/train_step.py:195-211,269-286` do. The s2t Dense, the tail, the loss and the
+splice. TRAIN_FUSED_SPATIAL, TRAIN_FUSED_TEMPORAL and TRAIN_FUSED_STRIDED
+(True, or "auto" on a CUDA device; chained, `fused_stages`) send the stacks
+through `spatial_stack_train` (K1 forward, K4 backward) and
+`temporal_stack_train` (K5), which on CPU tensors are their plain versions
+under autograd, and strided block 1 through `strided_block1_train` (K6),
+with head1 inline and the rest of the tail through the `strided_entry=1`
+splice, as the JAX package's `parallel/train_step.py:168-211,269-286` do.
+A stage whose flag is off runs its plain version; `kernels=False` runs every
+stage plain on the card (a comparison path, nothing else). The s2t Dense, the tail, the loss and the
 optimizer are plain PyTorch. Stochastic depth is drawn per step from a
 `torch.Generator` seeded from SHUFFLE_SEED and the step: per frame for the
 spatial stack, per window for the temporal stack and the tail.
@@ -186,19 +187,32 @@ def keyframe_budget(model, config: UpliftUpsampleConfig) -> Optional[int]:
     return budget if budget < b * n else None
 
 
-def fused_strided_enabled(model, config: UpliftUpsampleConfig, kernels: bool) -> bool:
-    """Whether strided block 1 runs through K6: TRAIN_FUSED_STRIDED resolved
-    ("auto": the model is on a CUDA device, as the JAX package's
-    `is_tpu_backend()`) and the JAX package's eligibility rules
-    (`train_step.py:200-207`): the kernel path of the stacks, a temporal
-    stage, strided blocks, paddings (0, 0) in block 1, head1, no output BN."""
-    flag = getattr(config, "TRAIN_FUSED_STRIDED", "auto")
+def _flag(model, config: UpliftUpsampleConfig, key: str) -> bool:
+    """A TRAIN_FUSED_* flag resolved: "auto" means the model is on a CUDA
+    device, as the JAX package's `is_tpu_backend()`."""
+    flag = getattr(config, key, "auto")
     if flag == "auto":
-        flag = next(model.parameters()).device.type == "cuda"
-    return bool(flag and kernels and model.spatial_depth > 0 and model.temporal_depth > 0
-                and len(model.strides) > 0 and model.paddings is not None
-                and tuple(model.paddings[0]) == (0, 0)
-                and model.full_output and not model.output_bn)
+        return next(model.parameters()).device.type == "cuda"
+    return bool(flag)
+
+
+def fused_stages(model, config: UpliftUpsampleConfig, kernels: bool) -> Tuple[bool, bool, bool]:
+    """Which stages run through their kernel ops: (spatial: K1/K4, temporal:
+    K5, strided block 1: K6), chained as the JAX package chains them
+    (`train_step.py:168-207`): TRAIN_FUSED_SPATIAL with a spatial stack;
+    TRAIN_FUSED_TEMPORAL only with the spatial kernels and a temporal stack;
+    TRAIN_FUSED_STRIDED only with the temporal kernels, strided blocks,
+    paddings (0, 0) in block 1, head1 and no output BN. `kernels=False`
+    turns all three off."""
+    spatial = (kernels and model.spatial_depth > 0
+               and _flag(model, config, "TRAIN_FUSED_SPATIAL"))
+    temporal = (spatial and model.temporal_depth > 0
+                and _flag(model, config, "TRAIN_FUSED_TEMPORAL"))
+    strided = (temporal and _flag(model, config, "TRAIN_FUSED_STRIDED")
+               and len(model.strides) > 0 and model.paddings is not None
+               and tuple(model.paddings[0]) == (0, 0)
+               and model.full_output and not model.output_bn)
+    return spatial, temporal, strided
 
 
 def prepare_batch(tensors, dataset_name: str):
@@ -231,18 +245,18 @@ def make_loss_fn(model, config: UpliftUpsampleConfig, dataset_name: str = "h36m"
     rates_t = _droppath_rates(config, 1, model.temporal_depth)
     budget = keyframe_budget(model, config)
     fmb = model.first_strided_token_attention_layer if model.has_strided_input else 0
-    fused_strided = fused_strided_enabled(model, config, kernels)
+    fused_spatial, fused_temporal, fused_strided = fused_stages(model, config, kernels)
     if fused_strided:
         # top·i/(depth-1) at i = 0: K6 has no stochastic depth to apply
         assert model.strided_temporal_block_1.drop_path.rate == 0.0
 
     def spatial(x, ops, scales):
-        if kernels:
+        if fused_spatial:
             return spatial_stack_train(x, ops, scales, num_heads=heads)
         return spatial_stack_plain(x, ops, num_heads=heads, droppath_scales=scales)
 
     def temporal(y, ops, key_mask, dp):
-        if kernels:
+        if fused_temporal:
             return temporal_stack_train(y, ops, key_mask, dp, num_heads=heads,
                                         first_masked_blocks=fmb)
         return temporal_stack_plain(y, ops, key_mask, num_heads=heads,
