@@ -18,7 +18,9 @@ Phases (one line each; any failure ends the run with a non-zero exit):
      the packed attention, at the five shapes --pallas gives it), with its
      time from CUDA events, the plain version's time, a PyTorch library
      call's time where one computes the same function, and the least time
-     the card could take (bound);
+     the card could take (bound); the two 3xTF32 tensor-core kernels (the
+     window attention of attention.cuh, the s2t prologue) are also held
+     against a float64 reference beside their plain versions;
   3. the serving path end to end: a seeded full-width h36m_351 model, flip-TTA
      on, seeded synthetic 2D sequences through `predict_sequence` on the
      kernel path, the launch counts of that run, and the same sequences
@@ -57,7 +59,7 @@ Phases (one line each; any failure ends the run with a non-zero exit):
      `export_h5=False`: the card's machine has no h5py, so no .h5 is written;
   7. the bench slice: the s2t prologue kernel (the tiled route's Dense,
      token and PE) against its plain version on 1,024 windows x 71 frames
-     at full width, beside addmm + where + add; K2 over one block (row 9)
+     at full width, beside addmm + where + add and addmm alone; K2 over one block (row 9)
      and strided block 1 as its own pass (row 8) against their plain
      versions, and `temporal_stack_apply` and the pass as paths of their
      own; then every route of `bench_forward` on 1,024 windows at h36m_351
@@ -98,8 +100,11 @@ WARMUP_STEPS, TIMED_STEPS, CURVE_STEPS = 2, 8, 5
 CLI_EPOCHS, CLI_STEPS, CLI_VAL = 2, 8, 2048  # the training CLI phase
 AMASS_STEPS, AMASS_VAL = 4, 1024
 
-# H100 SXM peaks (NVIDIA data sheet): fp32 on CUDA cores and HBM3 bandwidth.
+# H100 SXM peaks (NVIDIA data sheet): fp32 on CUDA cores, dense TF32 on the
+# tensor cores (the 3xTF32 kernels count three TF32 products per fp32 one),
+# and HBM3 bandwidth.
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES_PER_S = 3.35e12
 F32 = 4
 
@@ -115,8 +120,8 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def bound_ms(flops: float, nbytes: float):
-    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+def bound_ms(flops: float, nbytes: float, peak_flops: float = PEAK_FP32_FLOPS):
+    t_ops = flops / peak_flops * 1e3
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -167,6 +172,16 @@ def grad_check(torch, pairs):
         scale = max(float(ref.abs().max()), 1e-3)
         ok = ok and bool(((got - ref).abs() <= 2e-4 * scale + 2e-3 * ref.abs()).all())
     return worst, "grad bar", ok
+
+
+def f64_check(torch, got, ref, ref64):
+    """(kernel's max abs error against a float64 reference, the fp32 plain
+    version's, ok): the 3xTF32 kernels keep fp32-level error, at most 4x the
+    plain version's plus 1e-6 of the output scale (one TF32 pass would miss
+    by ~1e-3)."""
+    err = float((got.double() - ref64).abs().max())
+    err_plain = float((ref.double() - ref64).abs().max())
+    return err, err_plain, err <= 4 * err_plain + 1e-6 * float(ref64.abs().max())
 
 
 def ops_bytes(ops) -> int:
@@ -810,7 +825,7 @@ def routes_phase(args, torch, np, rng, failed, record, alias):
     k = config.NUM_KEYPOINTS * config.SPATIAL_EMBED_DIM
 
     # The s2t prologue kernel on the tiled route's shapes (1,024 x 71 x 544 →
-    # 384), beside addmm + where + add, one PyTorch call each (TF32 off).
+    # 384), beside addmm + where + add and addmm alone (TF32 off).
     sp = rand(windows, n, k, scale=1.0)
     sm = stride_mask(windows, n, 10)
     s2t = fp["s2t"]
@@ -820,14 +835,19 @@ def routes_phase(args, torch, np, rng, failed, record, alias):
     s2t_lib = lambda: torch.where(sm3, torch.addmm(s2t["bias"], sp2, s2t["w"]).reshape(
         windows, n, c), s2t["token"]) + s2t["pe"]
     got, ref = s2t_fn(), s2t_plain()
+    ref64 = s2t_prologue_plain(sp.double(), {key: v.double() for key, v in s2t.items()}, sm)
+    # bound: 3xTF32 runs three TF32 products per fp32 one on the tensor cores
     record("s2t_prologue", "uplift_upsample_torch/csrc/s2t.cu",
            "uplift_upsample_tpu/ops/pallas_temporal_v3.py:518", out_check(torch, got, ref),
            time_ms(torch, s2t_fn, 10), time_ms(torch, s2t_plain, 5),
-           2 * windows * n * k * c,
+           3 * 2 * windows * n * k * c,
            (sp.numel() + got.numel() + sm.numel() + s2t["w"].numel()
             + 2 * c + s2t["pe"].numel()) * F32,
-           library_ms=time_ms(torch, s2t_lib, 10), phase="route tiled")
-    del sp, sp2, sm3, got, ref
+           library_ms=time_ms(torch, s2t_lib, 10), phase="route tiled",
+           f64=f64_check(torch, got, ref, ref64), peak_flops=PEAK_TF32_FLOPS,
+           extra=dict(addmm_ms=time_ms(
+               torch, lambda: torch.addmm(s2t["bias"], sp2, s2t["w"]), 10)))
+    del sp, sp2, sm3, got, ref, ref64
 
     # Row 9: K2 over one block with a key mask; temporal_stack_apply, block by
     # block, as its own path. Row 8: strided block 1 as its own pass.
@@ -1115,23 +1135,32 @@ def main(argv=None) -> int:
 
     def record(name, source, replaces, check, ms, plain_ms, flops, nbytes,
                library_ms=None, counter=None, phase="predict", listed=True,
-               stage="phase 2"):
+               stage="phase 2", f64=None, peak_flops=PEAK_FP32_FLOPS, extra=None):
         """One kernel line. `check` is out_check's or grad_check's result;
-        `launches` is read later from the `phase` run's count of `counter`."""
+        `launches` is read later from the `phase` run's count of `counter`.
+        `f64` is f64_check's result for the 3xTF32 kernels (both errors go
+        into the line); `extra` adds keys to it."""
         err, tol, ok = check
-        b_ms, b_by = bound_ms(flops, nbytes)
+        b_ms, b_by = bound_ms(flops, nbytes, peak_flops)
         entry = dict(name=name, route="cuda", source=source, replaces=replaces,
                      launches=0, counter=counter or name, phase=phase, max_abs_err=err,
                      ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                     library_ms=library_ms)
+                     library_ms=library_ms, **(extra or {}))
+        f64_text = ""
+        if f64 is not None:
+            entry.update(max_abs_err_f64=f64[0], plain_max_abs_err_f64=f64[1])
+            ok = ok and f64[2]
+            f64_text = (f"; vs float64 {f64[0]:.3e}, plain {f64[1]:.3e} "
+                        f"{'ok' if f64[2] else 'FAILED'}")
         if listed:  # a second geometry of a kernel is checked but not listed
             results[name] = entry
         if not ok:
             failed.append(name)
         lib = "null" if library_ms is None else f"{library_ms:.4f}"
+        more = "".join(f" {key} {val:.4f}" for key, val in (extra or {}).items())
         log(f"{stage} {name}: max_abs_err {err:.3e} (limit {tol}) "
-            f"{'ok' if ok else 'FAILED'}; ms {ms:.4f} plain_ms {plain_ms:.4f} "
-            f"library_ms {lib} bound_ms {b_ms:.4f} ({b_by}; {flops / 1e9:.2f} GFLOP, "
+            f"{'ok' if ok else 'FAILED'}{f64_text}; ms {ms:.4f} plain_ms {plain_ms:.4f} "
+            f"library_ms {lib}{more} bound_ms {b_ms:.4f} ({b_by}; {flops / 1e9:.2f} GFLOP, "
             f"{nbytes / 1e6:.1f} MB)")
 
     def alias(name, of, replaces, phase):
@@ -1237,13 +1266,16 @@ def main(argv=None) -> int:
     q, k, v = (t.reshape(windows, n, heads, c // heads).transpose(1, 2)
                for t in qkv.reshape(windows, n, 3 * c).split(c, dim=-1))
     add_mask = (km * -1e9)[:, None, None, :]
-    record("window_attention", "uplift_upsample_torch/csrc/temporal.cu",
+    ref64 = window_attention_plain(qkv.reshape(windows, n, 3 * c).double(), km.double(),
+                                   heads).reshape(rows, c)
+    record("window_attention", "uplift_upsample_torch/csrc/attention.cuh",
            "uplift_upsample_tpu/ops/pallas_temporal_v3.py:248", out_check(torch, got, ref),
            time_ms(torch, a_fn, 10), time_ms(torch, a_plain, 5),
            windows * 4 * n * n * c, (qkv.numel() + km.numel() + got.numel()) * F32,
            library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
                q, k, v, attn_mask=add_mask), 10),
-           counter="window_attention_f32")
+           counter="window_attention_f32", f64=f64_check(torch, got, ref, ref64))
+    del ref64
     g1, b1 = tm_ops["ln1_g"][0], tm_ops["ln1_b"][0]
     ln_fn = lambda: layernorm(y, g1, b1, 1e-5, counter="probe")
     ln_plain = lambda: F.layer_norm(y, (c,), g1, b1, 1e-5)
@@ -1295,6 +1327,10 @@ def main(argv=None) -> int:
         d_a = c_ // heads
         split = lambda t: t.reshape(f_, s_, heads, d_a).transpose(1, 2)
         add_mask = None if km_a is None else (km_a * -1e9)[:, None, None, :]
+        f64 = None
+        if s_ * c_ > 1536:  # the tensor-core kernel (attention.cuh); else a warp per frame
+            f64 = f64_check(torch, got, ref, packed_attention_plain(
+                qa.double(), ka.double(), va.double(), km_a, num_heads=heads))
         record(name, "uplift_upsample_torch/csrc/attention.cu",
                "uplift_upsample_tpu/ops/pallas_attention.py:75", out_check(torch, got, ref),
                time_ms(torch, pa_fn, 10), time_ms(torch, pa_plain, 3),
@@ -1302,7 +1338,7 @@ def main(argv=None) -> int:
                (4 * qa.numel() + (0 if km_a is None else km_a.numel())) * F32,
                library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
                    split(qa), split(ka), split(va), attn_mask=add_mask), 10),
-               counter="packed_attention", phase="eval_pallas")
+               counter="packed_attention", phase="eval_pallas", f64=f64)
         del qa, ka, va, got, ref
     torch.cuda.empty_cache()
 

@@ -447,13 +447,17 @@ def _card():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("masked", [True, False])
-def test_s2t_kernel_matches_plain(masked):
+@pytest.mark.parametrize("b", [37, 1000])
+def test_s2t_kernel_matches_plain(masked, b):
     """The s2t kernel against its plain version at the h36m_351 widths
-    (K = 17·32, C = 384) on 37 windows of 71 frames: fp32 sums over K = 544
-    in another order, 2e-4 of the output scale; one launch."""
+    (K = 17·32, C = 384) on 37 and 1,000 windows of 71 frames (2,627 and
+    71,000 rows, neither a multiple of the 128-row tile): fp32 sums over
+    K = 544 in another order, 2e-4 of the output scale; and against a float64
+    reference at most 4x the fp32 plain version's error plus 1e-6 of the
+    output scale (3xTF32; one TF32 pass would miss). One launch."""
     dev = _card()
     rng = np.random.default_rng(7)
-    b, n, k, c = 37, 71, 544, 384
+    n, k, c = 71, 544, 384
     t = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(dev)
     ops = dict(w=t(k, c) * 0.05, bias=t(c), token=t(c), pe=t(n, c))
     sp = t(b, n, k)
@@ -461,6 +465,10 @@ def test_s2t_kernel_matches_plain(masked):
     cuda_lib.reset_launches()
     got = s2t_prologue(sp, ops, sm)
     ref = s2t_prologue_plain(sp, ops, sm)
+    ref64 = s2t_prologue_plain(sp.double(), {key: v.double() for key, v in ops.items()}, sm)
     torch.cuda.synchronize()
     assert cuda_lib.LAUNCHES["s2t_prologue"] == 1
     assert float((got - ref).abs().max()) <= 2e-4 * max(1.0, float(ref.abs().max()))
+    err = float((got.double() - ref64).abs().max())
+    err_plain = float((ref.double() - ref64).abs().max())
+    assert err <= 4 * err_plain + 1e-6 * float(ref64.abs().max()), (err, err_plain)

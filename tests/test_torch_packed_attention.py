@@ -47,18 +47,33 @@ def _one_torch_thread():
 
 
 def _qkv_mask(rng, f, s, c, masked):
+    """masked: False (no mask), True (random keys blocked) or "blocked"
+    (random, and every key of every third sequence blocked)."""
     q, k, v = (rng.normal(size=(f, s, c)).astype(np.float32) for _ in range(3))
     mask = (rng.uniform(size=(f, s)) < 0.5) if masked else None
+    if masked == "blocked":
+        mask[::3] = True
     return q, k, v, mask
+
+
+def _assert_fp32_level(got, ref, ref64):
+    """The kernel's error against a float64 reference at most 4x the fp32
+    plain version's, plus 1e-6 of the output scale: 3xTF32 keeps fp32-level
+    sums, where one TF32 pass (10 bits) would miss by ~1e-3."""
+    err = float((got.double() - ref64).abs().max())
+    err_plain = float((ref.double() - ref64).abs().max())
+    assert err <= 4 * err_plain + 1e-6 * float(ref64.abs().max()), (err, err_plain)
 
 
 @pytest.mark.parametrize("s,depth,masked", [
     (17, 4, False), (17, 4, True), (23, 8, False), (23, 4, True),
-    (71, 8, True), (71, 4, False),
+    (71, 8, True), (71, 4, False), (128, 4, True), (71, 4, "blocked"),
 ])
 def test_plain_matches_pallas_interpret(s, depth, masked):
     """packed_attention_plain against the interpret-mode Pallas kernel, 8
-    heads, an odd frame count: 1e-5 (tests/test_pallas_attention.py:49-50)."""
+    heads, an odd frame count: 1e-5 (tests/test_pallas_attention.py:49-50);
+    also at the longest sequence (128) and with rows whose keys are all
+    blocked (the finite mask still gives them a softmax over every key)."""
     from jax.experimental.pallas import tpu as pltpu
     from uplift_upsample_tpu.ops.pallas_attention import packed_multihead_attention as jax_op
 
@@ -183,6 +198,12 @@ def _card():
     (65, 3, 384, 8, False),     # strided block 3, one warp per window
     (129, 9, 32, 4, True),      # head depth 8
     (7, 128, 40, 8, True),      # head depth 5: the per-(sequence, head) kernel
+    (9, 1, 384, 8, "blocked"),  # one real key among 8 padded ones
+    (11, 72, 384, 8, True),
+    (5, 80, 384, 8, False),
+    (3, 128, 384, 8, True),
+    (13, 71, 384, 8, "blocked"),  # padded keys must not share an all-blocked row
+    (17, 23, 384, 8, "blocked"),
 ])
 def test_packed_attention_kernel_matches_plain(f, s, c, heads, masked):
     dev = _card()
@@ -192,7 +213,38 @@ def test_packed_attention_kernel_matches_plain(f, s, c, heads, masked):
     cuda_lib.reset_launches()
     got = packed_multihead_attention(q, k, v, mask, num_heads=heads)
     ref = packed_attention_plain(q, k, v, mask, num_heads=heads)
+    ref64 = packed_attention_plain(q.double(), k.double(), v.double(), mask,
+                                   num_heads=heads)
     torch.cuda.synchronize()
     assert cuda_lib.LAUNCHES["packed_attention"] == 1
     # fp32 sums over S <= 128 keys in another order: 2e-4 of the output scale
     assert float((got - ref).abs().max()) <= 2e-4 * max(1.0, float(ref.abs().max()))
+    _assert_fp32_level(got, ref, ref64)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("masked", [False, True, "blocked"])
+def test_window_attention_kernel_matches_plain(masked):
+    """K2's window attention (the same kernel on the packed q|k|v rows, row
+    stride 3C) against window_attention_plain on 37 windows of 71 frames at
+    h36m_351 width: the 2e-4 bar and the float64 criterion."""
+    from uplift_upsample_torch.ops.temporal import window_attention, window_attention_plain
+    dev = _card()
+    rng = np.random.default_rng(71)
+    b, n, c, heads = 37, 71, 384, 8
+    qkv = torch.from_numpy(rng.normal(size=(b, n, 3 * c)).astype(np.float32)).to(dev)
+    km = None
+    if masked:
+        km = torch.from_numpy((rng.uniform(size=(b, n)) < 0.5).astype(np.float32))
+        if masked == "blocked":
+            km[::3] = 1.0
+        km = km.to(dev)
+    cuda_lib.reset_launches()
+    got = window_attention(qkv.reshape(b * n, 3 * c), km, windows=b, n=n, num_heads=heads,
+                           counter="probe").reshape(b, n, c)
+    ref = window_attention_plain(qkv, km, heads)
+    ref64 = window_attention_plain(qkv.double(), None if km is None else km.double(), heads)
+    torch.cuda.synchronize()
+    assert cuda_lib.LAUNCHES["window_attention_f32"] == 1
+    assert float((got - ref).abs().max()) <= 2e-4 * max(1.0, float(ref.abs().max()))
+    _assert_fp32_level(got, ref, ref64)

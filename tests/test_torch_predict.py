@@ -210,9 +210,10 @@ def test_entry_points_need_a_card_unless_cpu(tmp_path):
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    """Parse every module of the port and chip_smoke.py: no `jax` and no
-    `uplift_upsample_tpu` import, at any depth."""
-    files = sorted((REPO / "uplift_upsample_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    """Parse every module of the port, chip_smoke.py and kernel_probe.py: no
+    `jax` and no `uplift_upsample_tpu` import, at any depth."""
+    files = sorted((REPO / "uplift_upsample_torch").rglob("*.py")) + [
+        REPO / "chip_smoke.py", REPO / "kernel_probe.py"]
     assert len(files) > 10
     # the eval slice's modules among them, the numpy copies included, and
     # the bench slice's

@@ -8,9 +8,13 @@ versions under autograd:
   - `traj_*`: schedule pins, the per-step loss curve, final weights, EMA and
     `loss_sum` against the reference loop (tests/test_train.py:296-386);
   - 5 steps against the JAX `make_train_step` with MASK_STRIDE [5, 10, 20]
-    and no stochastic depth: the port gathers keyframes into a sparse
+    and no stochastic depth: the port, with TRAIN_FUSED_SPATIAL on (the
+    spatial kernels' plain versions here), gathers keyframes into a sparse
     budget, the JAX CPU path runs every frame;
-  - keyframe-sparse against dense, and the NaN on an overflowing budget;
+  - keyframe-sparse against dense, and the NaN on an overflowing budget,
+    both with TRAIN_FUSED_SPATIAL on: only the spatial kernels take a
+    budget; with it off the port, like the JAX package, runs every frame
+    and trains on a batch that overflows the budget;
   - the training guards; the train-mode batcher against the JAX one.
 """
 
@@ -268,6 +272,8 @@ def test_train_step_matches_jax():
 
     config = _sparse_config()
     jmodel = jax_build(config)
+    pconfig = config.copy()  # the port's sparse path; JAX stays on its CPU path
+    pconfig.TRAIN_FUSED_SPATIAL = True
     params = init_model_params(jmodel, seed=0)["params"]
     tx, _, _ = jax_optimizer(config)
     jstate = JaxState(params=params, opt_state=tx.init(params),
@@ -277,10 +283,10 @@ def test_train_step_matches_jax():
 
     model = build_uplift_upsample_transformer(config, device="cpu")
     model.load_state_dict(params_from_jax({"params": params}))
-    assert keyframe_budget(model, config) == 256
-    opt, _, _ = make_optimizer(config)
+    assert keyframe_budget(model, pconfig) == 256
+    opt, _, _ = make_optimizer(pconfig)
     state = opt.init(model, ema=True)
-    step = make_train_step(model, opt, config, device="cpu")
+    step = make_train_step(model, opt, pconfig, device="cpu")
 
     losses, jlosses = [], []
     for s in range(5):
@@ -312,7 +318,7 @@ def test_keyframe_sparse_matches_dense():
     """Masked frames' spatial outputs are replaced by the strided-input token,
     so gathering only keyframes changes neither the loss nor any gradient
     (tests/test_fused_spatial_train.py:202-242)."""
-    config = _sparse_config(DROP_PATH_RATE=[0.1, 0.1, 0.0])
+    config = _sparse_config(DROP_PATH_RATE=[0.1, 0.1, 0.0], TRAIN_FUSED_SPATIAL=True)
     model = build_uplift_upsample_transformer(config, device="cpu", seed=3)
     batch = _mixed_batch(config, seed=11)
     assert keyframe_budget(model, config) == 256 and batch[-1].sum() <= 256
@@ -329,13 +335,45 @@ def test_keyframe_sparse_matches_dense():
 def test_keyframe_sparse_overflow_gives_nan():
     """More keyframes than the budget poisons the loss with NaN instead of
     dropping keyframes (tests/test_fused_spatial_train.py:245-267)."""
-    config = _sparse_config(BATCH_SIZE=16, TRAIN_KEYFRAME_BUDGET=128)
+    config = _sparse_config(BATCH_SIZE=16, TRAIN_KEYFRAME_BUDGET=128,
+                            TRAIN_FUSED_SPATIAL=True)
     model = build_uplift_upsample_transformer(config, device="cpu")
     assert keyframe_budget(model, config) == 128
     batch = list(_mixed_batch(config))
     batch[-1] = np.ones((16, config.SEQUENCE_LENGTH), bool)  # 144 > 128
     loss, _ = _loss_and_grads(config, model, tuple(batch))
     assert not np.isfinite(loss)
+
+
+def test_plain_spatial_overflow_matches_jax():
+    """With TRAIN_FUSED_SPATIAL off the port sizes no keyframe budget and
+    applies the model to every frame, as the JAX package does
+    (`parallel/train_step.py:302-304, 376-379`): on the batch that overflows
+    the budget above, the loss is finite and equals the JAX make_loss_fn's
+    from the same weights."""
+    import jax
+    import jax.numpy as jnp
+    from uplift_upsample_tpu.models import build_uplift_upsample_transformer as jax_build
+    from uplift_upsample_tpu.models import init_model_params
+    from uplift_upsample_tpu.parallel.train_step import make_loss_fn as jax_loss_fn
+
+    config = _sparse_config(BATCH_SIZE=16, TRAIN_KEYFRAME_BUDGET=128,
+                            TRAIN_FUSED_SPATIAL=False)
+    jmodel = jax_build(config)
+    params = init_model_params(jmodel, seed=0)["params"]
+    model = build_uplift_upsample_transformer(config, device="cpu")
+    model.load_state_dict(params_from_jax({"params": params}))
+    assert keyframe_budget(model, config) == 128
+    batch = list(_mixed_batch(config))
+    batch[-1] = np.ones((16, config.SEQUENCE_LENGTH), bool)  # 144 > 128
+    batch = tuple(batch)
+    rngs = {name: jax.random.PRNGKey(i)
+            for i, name in enumerate(("dropout", "droppath", "token_mask"))}
+    jloss = float(jax.jit(jax_loss_fn(jmodel, config))(
+        params, tuple(jnp.asarray(a) for a in batch), rngs))
+    loss, _ = _loss_and_grads(config, model, batch)
+    assert np.isfinite(loss) and np.isfinite(jloss)
+    np.testing.assert_allclose(loss, jloss, rtol=1e-5)
 
 
 def test_h36m_351_budget():

@@ -24,8 +24,8 @@
 //    rescale) and keeps its D-wide context in registers (D a template
 //    parameter, <= 64). Eight warps per block, grid-stride over sequences.
 //  - Longer sequences (71 and 23 frames x 384): K2's window-attention kernel
-//    (attention.cuh), one block per (sequence, head), reading the three
-//    tensors with row stride C.
+//    (attention.cuh), one block per (sequence, head) on the tensor cores in
+//    3xTF32, reading the three tensors with row stride C.
 
 #include <cuda_runtime.h>
 #include <math.h>

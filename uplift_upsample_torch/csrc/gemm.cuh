@@ -20,7 +20,8 @@
 //
 // Bound: these products are compute-bound on this card (K = 384-36,352
 // against the 67 TFLOP/s fp32 peak). A SIMT tile loop reaches a fraction of
-// that peak; the tensor-core route (wgmma, TMA) comes in a later change.
+// that peak; gemm_tc.cuh is the tensor-core route (3xTF32 on wgmma, TMA),
+// with the same epilogue interface, so far used by the s2t prologue only.
 #pragma once
 
 #include <cuda_runtime.h>

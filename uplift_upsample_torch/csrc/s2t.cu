@@ -11,15 +11,18 @@
 //   every m_r is 1 (a model without strided input).
 //
 // Bound: at h36m_351 (B*N = 72,704 rows, K = 544, C = 384) the product is
-// 30.4 GFLOP against ~271 MB of input and output, so fp32 operations bound it
-// (0.45 ms at 67 TFLOP/s). Design: gemm.cuh's tile loop with its row-major
-// loaders, and an epilogue that applies the bias, the token select and the PE
-// as each output element leaves the registers, so the Dense's output is
-// written once and never read back.
+// 30.4 GFLOP against ~271 MB of input and output. On the tensor cores in
+// 3xTF32 (three TF32 products per fp32 one) the operations bound it: 3 x 30.4
+// GFLOP at the 495 TFLOP/s dense TF32 peak is 0.184 ms, the bytes 0.081 ms.
+// Design: gemm_tc.cuh's wgmma GEMM (TMA ring, A split into TF32 halves in
+// registers, W's halves from shared memory), with an epilogue that applies
+// the bias, the token select and the PE as each output element leaves the
+// accumulator registers, so the Dense's output is written once and never
+// read back. W's halves come from `tf32_split_f32`, a launch of its own.
 
 #include <cuda_runtime.h>
 
-#include "gemm.cuh"
+#include "gemm_tc.cuh"
 
 namespace {
 
@@ -42,13 +45,19 @@ struct BiasTokenPe {
 
 }  // namespace
 
-// sp: (rows, k) row-major; w: (k, c) row-major, the Dense's (in, out) kernel.
-extern "C" int s2t_prologue_f32(const float* sp, const float* w, const float* bias,
+// w: (k, c) row-major, the Dense's (in, out) kernel -> split (2, c, k), its
+// TF32 halves transposed (gemm_tc.cuh).
+extern "C" int tf32_split_f32(const float* w, float* split, int k, int c, void* stream) {
+  return uu::launch_tf32_split(w, split, k, c, (cudaStream_t)stream);
+}
+
+// sp: (rows, k) row-major, k % 4 == 0; split: from tf32_split_f32.
+extern "C" int s2t_prologue_f32(const float* sp, const float* split, const float* bias,
                                 const float* mask, const float* token, const float* pe,
                                 float* out, int rows, int c, int k, int pe_rows,
                                 void* stream) {
   if (pe_rows <= 0 || (mask && !token)) return cudaErrorInvalidValue;
-  return uu::launch_gemm(uu::RowMajorA{sp, k}, uu::RowMajorB{w, c}, rows, c, k,
-                         BiasTokenPe{bias, mask, token, pe, out, c, pe_rows},
-                         (cudaStream_t)stream);
+  return uu::launch_gemm_tc(sp, split, rows, c, k,
+                            BiasTokenPe{bias, mask, token, pe, out, c, pe_rows},
+                            (cudaStream_t)stream);
 }

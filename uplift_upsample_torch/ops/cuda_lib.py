@@ -75,7 +75,7 @@ _SIGNATURES = {
         "strided_dwc_f32": "pppiiiiiiiip",
         "crop_residual_add_f32": "ppiiiiiip",
     },
-    "s2t": {"s2t_prologue_f32": "pppppppiiiip"},
+    "s2t": {"tf32_split_f32": "ppiip", "s2t_prologue_f32": "pppppppiiiip"},
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 

@@ -8,9 +8,11 @@ Per frame of (B, N, K) spatial output:
     out[b, t] = m[b, t] * (sp[b, t] @ W + bias) + (1 - m[b, t]) * token + pe[t]
 
 m the stride mask (1 on frames carrying real input; None: all real). On a
-CUDA tensor `s2t_prologue` launches `csrc/s2t.cu` (a GEMM on `csrc/gemm.cuh`
-with the bias, token and PE in its epilogue); on a CPU tensor it runs
-`s2t_prologue_plain`, the same function in plain PyTorch.
+CUDA tensor `s2t_prologue` launches `csrc/s2t.cu`: W's TF32 halves
+(`tf32_split_f32`, counted under that name), then the GEMM on the tensor
+cores in 3xTF32 (`csrc/gemm_tc.cuh`, fp32-level error) with the bias, token
+and PE in its epilogue; on a CPU tensor it runs `s2t_prologue_plain`, the
+same function in plain PyTorch.
 """
 
 from __future__ import annotations
@@ -56,6 +58,8 @@ def s2t_prologue(sp: torch.Tensor, ops: Dict,
         return s2t_prologue_plain(sp, ops, stride_mask)
     b, n, k = sp.shape
     c = ops["w"].shape[1]
+    if k % 4:
+        raise ValueError(f"the s2t kernel loads rows of 16 bytes: K={k} is not a multiple of 4")
     x = sp.reshape(b * n, k).contiguous()
     cuda_lib.check_cuda("sp", x)
     cuda_lib.check_cuda("w", ops["w"], shape=(k, c), device=x.device)
@@ -67,7 +71,9 @@ def s2t_prologue(sp: torch.Tensor, ops: Dict,
         token = ops["token"]
         cuda_lib.check_cuda("stride_mask", mask, device=x.device)
         cuda_lib.check_cuda("token", token, shape=(c,), device=x.device)
+    split = torch.empty((2, c, k), dtype=torch.float32, device=x.device)
+    cuda_lib.launch("s2t", "tf32_split_f32", None, ops["w"], split, k, c)
     out = torch.empty((b * n, c), dtype=torch.float32, device=x.device)
-    cuda_lib.launch("s2t", "s2t_prologue_f32", COUNTER, x, ops["w"], ops["bias"], mask,
+    cuda_lib.launch("s2t", "s2t_prologue_f32", COUNTER, x, split, ops["bias"], mask,
                     token, ops["pe"], out, b * n, c, k, n)
     return out.reshape(b, n, c)

@@ -243,9 +243,11 @@ def make_loss_fn(model, config: UpliftUpsampleConfig, dataset_name: str = "h36m"
     heads = model.num_heads
     rates_s = _droppath_rates(config, 0, model.spatial_depth)
     rates_t = _droppath_rates(config, 1, model.temporal_depth)
-    budget = keyframe_budget(model, config)
     fmb = model.first_strided_token_attention_layer if model.has_strided_input else 0
     fused_spatial, fused_temporal, fused_strided = fused_stages(model, config, kernels)
+    # only the spatial kernels take a keyframe budget; the plain path applies
+    # the model to every frame (the JAX package's `train_step.py:302-304`)
+    budget = keyframe_budget(model, config) if fused_spatial else None
     if fused_strided:
         # top·i/(depth-1) at i = 0: K6 has no stochastic depth to apply
         assert model.strided_temporal_block_1.drop_path.rate == 0.0
