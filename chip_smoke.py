@@ -18,9 +18,13 @@ Phases (one line each; any failure ends the run with a non-zero exit):
      the packed attention, at the five shapes --pallas gives it), with its
      time from CUDA events, the plain version's time, a PyTorch library
      call's time where one computes the same function, and the least time
-     the card could take (bound); the two 3xTF32 tensor-core kernels (the
-     window attention of attention.cuh, the s2t prologue) are also held
-     against a float64 reference beside their plain versions;
+     the card could take (bound); the dense layers' products on the tensor
+     cores (gemm_tc.cuh) at every main-path shape: K2's qkv, proj, fc1 and
+     fc2 at 72,704 rows, K5's forward products (gemm_f32, the scaled-branch
+     gemm_branch_f32), dX and dW at the train step's 36,352 rows, each beside
+     addmm / torch.mm; every 3xTF32 kernel (those, the window attention of
+     attention.cuh, the s2t prologue) is also held against a float64
+     reference beside its plain version;
   3. the serving path end to end: a seeded full-width h36m_351 model, flip-TTA
      on, seeded synthetic 2D sequences through `predict_sequence` on the
      kernel path, the launch counts of that run, and the same sequences
@@ -120,8 +124,12 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def bound_ms(flops: float, nbytes: float, peak_flops: float = PEAK_FP32_FLOPS):
-    t_ops = flops / peak_flops * 1e3
+def bound_ms(flops: float, nbytes: float, peak_flops: float = PEAK_FP32_FLOPS,
+             tc_flops: float = 0.0):
+    """(least ms, what bounds it): `flops` at `peak_flops` plus `tc_flops`, the
+    fp32 operations run in 3xTF32 on the tensor cores (three TF32 products
+    each), at the TF32 peak; against the bytes at the HBM rate."""
+    t_ops = (flops / peak_flops + 3 * tc_flops / PEAK_TF32_FLOPS) * 1e3
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -184,8 +192,14 @@ def f64_check(torch, got, ref, ref64):
     return err, err_plain, err <= 4 * err_plain + 1e-6 * float(ref64.abs().max())
 
 
-def ops_bytes(ops) -> int:
-    return sum(v.numel() for v in ops.values()) * F32
+def ops_bytes(ops, backward: bool = False) -> int:
+    """Bytes of the operands a kernel reads: the dense matrices as the TF32
+    halves the forward reads ("<name>_tc") or, with `backward`, the dX
+    products read ("<name>_tc_dx"); the other operands as they are."""
+    want = "_tc_dx" if backward else "_tc"
+    split = {key[:-len(want)] for key in ops if key.endswith(want)}
+    return sum(v.numel() for key, v in ops.items()
+               if key.endswith(want) or ("_tc" not in key and key not in split)) * F32
 
 
 def profile_step(torch, run, top: int = 12, label: str = "phase 4 profile: one step") -> None:
@@ -299,9 +313,15 @@ def train_phase(args, torch, np, rng, config, failed, label="phase 4"):
         profile_step(torch, lambda: step(state, next(feed)))
     if not all(np.isfinite(losses)):
         failed.append(f"train_loss_not_finite{'_fused' if fused else ''}")
-    for key in ("spatial_stack", "spatial_bwd", "temporal_train_fwd", "temporal_train_bwd"):
+    # every dense layer on the tensor cores (the four C entries of gemm_tc.cuh's
+    # kernels), from TF32 halves split anew from each step's weights: one
+    # tf32_halves_f32 launch per matrix and layout, stacked over blocks
+    for key in ("spatial_stack", "spatial_bwd", "temporal_train_fwd", "temporal_train_bwd",
+                "gemm_f32", "gemm_branch_f32", "gemm_dx_f32", "gemm_dw_f32"):
         if train_counts.get(key, 0) == 0:
             failed.append(f"no_launch_{key}")
+    if train_counts.get("tf32_halves_f32", 0) != TIMED_STEPS * 2 * (4 + (3 if fused else 0)):
+        failed.append(f"halves_not_split_each_step{'_fused' if fused else ''}")
     if fused:  # K6 counts calls: one forward and one backward per step
         for key in ("strided_train_fwd", "strided_train_bwd"):
             if train_counts.get(key, 0) != TIMED_STEPS:
@@ -551,7 +571,7 @@ def eval_phase(args, torch, np, rng, failed):
         ok = all(np.isfinite(v) for v in mets.values())
         if not ok:
             failed.append(f"eval_metrics_not_finite_{r['stride']}")
-        for key in keys[:3]:
+        for key in (*keys[:3], "gemm_f32"):
             if r["counts"].get(key, 0) == 0:
                 failed.append(f"no_launch_{key}_eval_{r['stride']}")
         frame = r["result"][0][0]
@@ -861,10 +881,10 @@ def routes_phase(args, torch, np, rng, failed, record, alias):
     rows = windows * n
     record("temporal_block", "uplift_upsample_torch/csrc/temporal.cu",
            "uplift_upsample_tpu/ops/pallas_temporal.py:94", out_check(torch, got, ref),
-           time_ms(torch, tb_fn, 5), time_ms(torch, tb_plain, 3),
-           rows * 2 * c * (3 * c + c + 2 * hid) + windows * 4 * n * n * c,
+           time_ms(torch, tb_fn, 5), time_ms(torch, tb_plain, 3), 0,
            (2 * x_tm.numel() + km.numel()) * F32 + ops_bytes(one),
-           counter="temporal_stack", phase="temporal_stack_apply")
+           counter="temporal_stack", phase="temporal_stack_apply",
+           tc_flops=rows * 2 * c * (3 * c + c + 2 * hid) + windows * 4 * n * n * c)
     got = counted("temporal_stack_apply", lambda: temporal_stack_apply(
         fp["temporal"], x_tm, km, num_heads=heads, first_masked_blocks=fmb))
     err, tol, ok = out_check(torch, got, temporal_stack_plain(
@@ -883,10 +903,10 @@ def routes_phase(args, torch, np, rng, failed, record, alias):
     record("strided_block1_pass", "uplift_upsample_torch/csrc/strided.cu",
            "uplift_upsample_tpu/ops/pallas_strided.py:175", out_check(torch, got, ref),
            time_ms(torch, sb_fn, 5), time_ms(torch, sb_plain, 3),
-           rows * 2 * c * (3 * c + c + hid) + windows * 4 * n * n * c
-           + windows * n_out * 2 * 3 * hid * c,
+           windows * n_out * 2 * 3 * hid * c,
            (x_tm.numel() + got.numel()) * F32 + ops_bytes(st_ops),
-           counter="strided_block1", phase="strided pass")
+           counter="strided_block1", phase="strided pass",
+           tc_flops=rows * 2 * c * (3 * c + c + hid) + windows * 4 * n * n * c)
     counted("strided pass", sb_fn)
     del x_tm, km, got, ref
 
@@ -1086,8 +1106,8 @@ def main(argv=None) -> int:
                                                     temporal_stack_plain,
                                                     window_attention,
                                                     window_attention_plain)
-    from uplift_upsample_torch.ops.temporal_train import (gemm_dw, layernorm_bwd,
-                                                          saved_relu_masks,
+    from uplift_upsample_torch.ops.temporal_train import (_branch_gemm, gemm_dw, gemm_dx,
+                                                          layernorm_bwd, saved_relu_masks,
                                                           temporal_stack_bwd_plain,
                                                           temporal_train_bwd,
                                                           temporal_train_fwd,
@@ -1135,13 +1155,17 @@ def main(argv=None) -> int:
 
     def record(name, source, replaces, check, ms, plain_ms, flops, nbytes,
                library_ms=None, counter=None, phase="predict", listed=True,
-               stage="phase 2", f64=None, peak_flops=PEAK_FP32_FLOPS, extra=None):
+               stage="phase 2", f64=None, peak_flops=PEAK_FP32_FLOPS, extra=None,
+               tc_flops=0.0):
         """One kernel line. `check` is out_check's or grad_check's result;
         `launches` is read later from the `phase` run's count of `counter`.
         `f64` is f64_check's result for the 3xTF32 kernels (both errors go
-        into the line); `extra` adds keys to it."""
+        into the line); `extra` adds keys to it. The bound counts `flops` at
+        `peak_flops` and `tc_flops` (fp32 products run in 3xTF32 on the
+        tensor cores) at the TF32 peak."""
         err, tol, ok = check
-        b_ms, b_by = bound_ms(flops, nbytes, peak_flops)
+        b_ms, b_by = bound_ms(flops, nbytes, peak_flops, tc_flops)
+        flops = flops + 3 * tc_flops  # the operations issued, for the log line
         entry = dict(name=name, route="cuda", source=source, replaces=replaces,
                      launches=0, counter=counter or name, phase=phase, max_abs_err=err,
                      ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
@@ -1212,9 +1236,9 @@ def main(argv=None) -> int:
     block_flops = rows * 2 * c * (3 * c + c + 2 * hid) + windows * 4 * n * n * c
     record("temporal_stack", "uplift_upsample_torch/csrc/temporal.cu",
            "uplift_upsample_tpu/ops/pallas_temporal_v3.py:343", out_check(torch, got, ref),
-           time_ms(torch, tm_fn, 5), time_ms(torch, tm_plain, 3),
-           model.temporal_depth * block_flops,
-           (2 * x_tm.numel() + km.numel()) * F32 + ops_bytes(tm_ops))
+           time_ms(torch, tm_fn, 5), time_ms(torch, tm_plain, 3), 0,
+           (2 * x_tm.numel() + km.numel()) * F32 + ops_bytes(tm_ops),
+           tc_flops=model.temporal_depth * block_flops)
     del got, ref
 
     # K3: strided block 1 at h36m_351 (0,0) and at the h36m_81 geometry (1,1)
@@ -1226,13 +1250,13 @@ def main(argv=None) -> int:
         got, ref = fn(), plain()
         b, nn_, _ = x.shape
         n_out = output_length(nn_, stride, pads)
-        flops = (b * nn_ * 2 * c * (3 * c + c + hid) + b * 4 * nn_ * nn_ * c
-                 + b * n_out * 2 * 3 * hid * c)
+        # the dense layers and the attention on the tensor cores, the conv on CUDA cores
         record(name, "uplift_upsample_torch/csrc/strided.cu",
                "uplift_upsample_tpu/ops/pallas_strided.py:231", out_check(torch, got, ref),
-               time_ms(torch, fn, 5), time_ms(torch, plain, 3), flops,
+               time_ms(torch, fn, 5), time_ms(torch, plain, 3), b * n_out * 2 * 3 * hid * c,
                (x.numel() + got.numel()) * F32 + ops_bytes(ops),
-               counter="strided_block1", listed=listed)
+               counter="strided_block1", listed=listed,
+               tc_flops=b * nn_ * 2 * c * (3 * c + c + hid) + b * 4 * nn_ * nn_ * c)
 
     strided_case("strided_block1", fp["strided"], x_tm, model.strides[0],
                  model.paddings[0])
@@ -1246,18 +1270,46 @@ def main(argv=None) -> int:
 
     # The pieces K2 and K3 are made of, each beside the one PyTorch call that
     # computes the same function (timed here only; the port never calls them).
+    # The dense layers run on the tensor cores in 3xTF32 (gemm_tc.cuh): each
+    # product at each main-path shape against its plain version, addmm and
+    # float64; the bound counts three TF32 products per fp32 one.
+    def gemm_record(name, replaces, a_, w_, halves, bias_, relu=False, res=None,
+                    alias=False, phase_="predict"):
+        """act(a_ @ w_ + bias_) (+ res, written over res with `alias`, as the
+        fc2 sublayer does) through gemm_f32; returns the kernel's output."""
+        m_, k_ = a_.shape
+        n_ = w_.shape[1]
+        act = torch.relu if relu else (lambda t: t)
+        buf = None if res is None else res.clone()  # timed launches write here
+        fn = lambda: gemm(a_, halves, bias_, relu=relu, residual=buf,
+                          out=buf if alias else None, counter="probe")
+        out_ = None if res is None else res.clone()
+        got_ = gemm(a_, halves, bias_, relu=relu, residual=out_,
+                    out=out_ if alias else None, counter="probe")
+        plain = lambda: act(a_ @ w_ + bias_) + (0 if res is None else res)
+        ref_ = plain()
+        ref64 = act(a_.double() @ w_.double() + bias_.double())
+        if res is not None:
+            ref64 = ref64 + res.double()
+        record(name, "uplift_upsample_torch/csrc/gemm_tc.cuh", replaces,
+               out_check(torch, got_, ref_), time_ms(torch, fn, 10), time_ms(torch, plain, 10),
+               0, (a_.numel() + halves.numel() + n_ + m_ * n_ * (1 if res is None else 2)) * F32,
+               library_ms=time_ms(torch, lambda: torch.addmm(bias_, a_, w_), 10),
+               counter="gemm_f32", phase=phase_, f64=f64_check(torch, got_, ref_, ref64),
+               tc_flops=2 * m_ * k_ * n_)
+        return got_
+
+    v3 = "uplift_upsample_tpu/ops/pallas_temporal_v3.py"
     y = rand(rows, c)
-    wqkv, bqkv = tm_ops["wqkv"][0], tm_ops["bqkv"][0]
-    g_fn = lambda: gemm(y, wqkv, bqkv, counter="probe")
-    got = g_fn()
-    ref = y @ wqkv + bqkv
-    record("gemm", "uplift_upsample_torch/csrc/gemm.cuh",
-           "uplift_upsample_tpu/ops/pallas_temporal_v3.py:174", out_check(torch, got, ref),
-           time_ms(torch, g_fn, 10), time_ms(torch, lambda: y @ wqkv + bqkv, 10),
-           rows * 2 * c * 3 * c, (y.numel() + wqkv.numel() + got.numel()) * F32,
-           library_ms=time_ms(torch, lambda: torch.addmm(bqkv, y, wqkv), 10),
-           counter="gemm_f32")
-    qkv = got
+    qkv = gemm_record("gemm", f"{v3}:174", y, tm_ops["wqkv"][0], tm_ops["wqkv_tc"][0],
+                      tm_ops["bqkv"][0])
+    gemm_record("gemm_proj", f"{v3}:260", rand(rows, c), tm_ops["wp"][0], tm_ops["wp_tc"][0],
+                tm_ops["bp"][0], res=rand(rows, c))
+    gemm_record("gemm_fc1", f"{v3}:264", rand(rows, c), tm_ops["w1"][0], tm_ops["w1_tc"][0],
+                tm_ops["b1"][0], relu=True)
+    gemm_record("gemm_fc2", f"{v3}:270", torch.relu(rand(rows, hid)), tm_ops["w2"][0],
+                tm_ops["w2_tc"][0], tm_ops["b2"][0], res=rand(rows, c), alias=True)
+    torch.cuda.empty_cache()
     a_fn = lambda: window_attention(qkv, km, windows=windows, n=n, num_heads=heads,
                                     counter="probe")
     got = a_fn()
@@ -1306,9 +1358,9 @@ def main(argv=None) -> int:
     got, ref = tn_fn(), tn_plain()
     record("temporal_stack_no_mask", "uplift_upsample_torch/csrc/temporal.cu",
            "uplift_upsample_tpu/ops/pallas_temporal_v3.py:343", out_check(torch, got, ref),
-           time_ms(torch, tn_fn, 5), time_ms(torch, tn_plain, 3),
-           model.temporal_depth * block_flops, 2 * x_tm.numel() * F32 + ops_bytes(tm_ops),
-           counter="temporal_stack", phase="eval")
+           time_ms(torch, tn_fn, 5), time_ms(torch, tn_plain, 3), 0,
+           2 * x_tm.numel() * F32 + ops_bytes(tm_ops), counter="temporal_stack",
+           phase="eval", tc_flops=model.temporal_depth * block_flops)
     del x_u, got, ref
 
     # Row 11, packed attention, at every shape the eval path gives it with
@@ -1399,12 +1451,15 @@ def main(argv=None) -> int:
         fwd = lambda: temporal_train_fwd(x, ops, km_, dp_, **kw)
         fwd_plain = lambda: temporal_stack_plain(x, ops, km_, droppath=dp_, **kw)
         (out, saved), ref = fwd(), fwd_plain()
-        blk_flops = b_ * n_ * 2 * c * (3 * c + c + 2 * hid) + b_ * 4 * n_ * n_ * c
+        gemm_flops = b_ * n_ * 2 * c * (3 * c + c + 2 * hid)
+        attn_flops = b_ * 4 * n_ * n_ * c
+        blk_flops = gemm_flops + attn_flops
         io = (x.numel() + km_.numel() + dp_.numel()) * F32 + ops_bytes(ops)
         record("temporal_train_fwd" + suffix, "uplift_upsample_torch/csrc/temporal_bwd.cu",
                "uplift_upsample_tpu/ops/pallas_temporal_bwd.py:613",
                out_check(torch, out, ref), time_ms(torch, fwd, 3),
-               time_ms(torch, fwd_plain, 3), blocks_ * blk_flops, io + out.numel() * F32,
+               time_ms(torch, fwd_plain, 3), 0, io + out.numel() * F32,
+               tc_flops=blocks_ * blk_flops,
                counter="temporal_train_fwd", phase="train", listed=listed)
         bwd = lambda: temporal_train_bwd(saved, cot, ops, km_, dp_, **kw)
         # the plain backward takes each relu's kink on the side K5's forward took
@@ -1421,12 +1476,16 @@ def main(argv=None) -> int:
             else:
                 pairs_.append((gk[name_], gp[name_]))
         saved_bytes = sum(t.numel() for blk_ in saved for t in blk_.values()) * F32
+        grads_bytes = sum(ops[name_].numel() for name_ in gp) * F32
+        # dX and dW on the tensor cores; the attention backward on CUDA cores
         record("temporal_train_bwd" + suffix, "uplift_upsample_torch/csrc/temporal_bwd.cu",
                "uplift_upsample_tpu/ops/pallas_temporal_bwd.py:681",
                grad_check(torch, pairs_), time_ms(torch, bwd, 3),
-               time_ms(torch, bwd_plain, 2), 2 * blocks_ * blk_flops,
-               saved_bytes + io + (2 * cot.numel() + dp_.numel()) * F32 + ops_bytes(ops),
-               counter="temporal_train_bwd", phase="train", listed=listed)
+               time_ms(torch, bwd_plain, 2), 2 * blocks_ * attn_flops,
+               saved_bytes + (x.numel() + km_.numel() + 2 * cot.numel() + 2 * dp_.numel())
+               * F32 + ops_bytes(ops, backward=True) + grads_bytes,
+               counter="temporal_train_bwd", phase="train", listed=listed,
+               tc_flops=2 * blocks_ * gemm_flops)
 
     x_t = rand(bt, nt, c)
     temporal_train_case("", x_t, tm_ops_t, True)
@@ -1440,20 +1499,84 @@ def main(argv=None) -> int:
                         tm_ops_t, False)
     torch.cuda.empty_cache()
 
-    # The pieces of K5's backward beside one PyTorch call each (timed only).
+    # The pieces of K5 beside one PyTorch call each (timed only): its dense
+    # layers on the tensor cores at the train step's 36,352 rows. Forward:
+    # qkv and fc1 through gemm_f32, proj and fc2 through gemm_branch_f32 (the
+    # per-window stochastic-depth scale and the unscaled branch); backward:
+    # dX = (s · dY) @ Wᵀ (gemm_dx_f32, fc1's relu mask on dh1) and dW = Xᵀ @ (s
+    # · dY) (gemm_dw_f32, split over the rows, summed in a fixed order).
     rows_t = bt * nt
-    yb, dq = rand(rows_t, c), rand(rows_t, 3 * c, scale=1.0)
-    dw_out = torch.empty((c, 3 * c), device=dev)
-    dw_fn = lambda: gemm_dw(yb, dq, None, 1, dw_out)
-    dw_fn()
-    got, ref = dw_out.clone(), yb.t() @ dq
-    record("gemm_dw", "uplift_upsample_torch/csrc/temporal_bwd.cu",
-           "uplift_upsample_tpu/ops/pallas_temporal_bwd.py:522",
-           grad_check(torch, [(got, ref)]), time_ms(torch, dw_fn, 10),
-           time_ms(torch, lambda: yb.t() @ dq, 10), rows_t * 2 * c * 3 * c,
-           (yb.numel() + dq.numel() + got.numel()) * F32,
-           library_ms=time_ms(torch, lambda: torch.mm(yb.t(), dq), 10),
-           counter="gemm_dw_f32", phase="train")
+    bwd_src = "uplift_upsample_tpu/ops/pallas_temporal_bwd.py"
+    s_t = torch.tensor(np.where(rng.uniform(size=bt) < 0.9, 1 / 0.9, 0.0),
+                       dtype=torch.float32, device=dev)  # keep 0.9, per window
+    s_rows = s_t.repeat_interleave(nt)[:, None]
+    op = lambda name_: (tm_ops_t[name_][0], tm_ops_t[f"{name_}_tc"][0],
+                        tm_ops_t[f"{name_}_tc_dx"][0])
+    gemm_record("gemm_qkv_train", f"{bwd_src}:420", rand(rows_t, c), *op("wqkv")[:2],
+                tm_ops_t["bqkv"][0], phase_="train")
+    gemm_record("gemm_fc1_train", f"{bwd_src}:436", rand(rows_t, c), *op("w1")[:2],
+                tm_ops_t["b1"][0], relu=True, phase_="train")
+    for name_, line, k_, wname, bname in (("proj", 433, c, "wp", "bp"),
+                                          ("fc2", 438, hid, "w2", "b2")):
+        a_, res_ = rand(rows_t, k_), rand(rows_t, c)
+        w_, halves = op(wname)[:2]
+        bias_ = tm_ops_t[bname][0]
+        br_fn = lambda: _branch_gemm(a_, halves, bias_, s_t, nt, res_)
+        br_plain = lambda: (res_ + (a_ @ w_ + bias_) * s_rows, a_ @ w_ + bias_)
+        (out_, br_), (ref_out, ref_br) = br_fn(), br_plain()
+        checks = [out_check(torch, out_, ref_out), out_check(torch, br_, ref_br)]
+        record(f"gemm_branch_{name_}", "uplift_upsample_torch/csrc/gemm_tc.cuh",
+               f"{bwd_src}:{line}",
+               (max(ch[0] for ch in checks), checks[0][1], all(ch[2] for ch in checks)),
+               time_ms(torch, br_fn, 10), time_ms(torch, br_plain, 10), 0,
+               (a_.numel() + halves.numel() + c + bt + 3 * res_.numel()) * F32,
+               library_ms=time_ms(torch, lambda: torch.addmm(bias_, a_, w_), 10),
+               counter="gemm_branch_f32", phase="train",
+               f64=f64_check(torch, br_, ref_br, a_.double() @ w_.double() + bias_.double()),
+               tc_flops=2 * rows_t * k_ * c)
+        del a_, res_, out_, br_, ref_out, ref_br
+    # dX per product: (dY's width, the mask's, scaled); dW: X's width
+    for name_, line_dx, line_dw, wname, x_w, scaled in (
+            ("fc2", 494, 492, "w2", hid, True), ("fc1", 498, 496, "w1", c, False),
+            ("proj", 508, 506, "wp", c, True), ("qkv", 524, 522, "wqkv", c, False)):
+        w_, _, halves = op(wname)
+        n_, k_ = w_.shape  # dX (rows, n_) = dY (rows, k_) @ wᵀ
+        dy_ = rand(rows_t, k_, scale=1.0)
+        sc_, rs_ = (s_t, s_rows) if scaled else (None, 1.0)
+        mask_ = torch.relu(rand(rows_t, n_)) if name_ == "fc2" else None
+        keep = 1.0 if mask_ is None else (mask_ > 0).float()
+        dx_fn = lambda: gemm_dx(dy_, sc_, nt, halves, mask=mask_)
+        dx_plain = lambda: (dy_ * rs_) @ w_.t() * keep
+        got, ref = dx_fn(), dx_plain()
+        ref64 = (dy_.double() * (rs_.double() if scaled else 1.0)) @ w_.double().t()
+        record(f"gemm_dx_{name_}", "uplift_upsample_torch/csrc/gemm_tc.cuh",
+               f"{bwd_src}:{line_dx}", grad_check(torch, [(got, ref)]),
+               time_ms(torch, dx_fn, 10), time_ms(torch, dx_plain, 10), 0,
+               (dy_.numel() + halves.numel() + got.numel() * (1 if mask_ is None else 2)) * F32,
+               library_ms=time_ms(torch, lambda: torch.mm(dy_, w_.t()), 10),
+               counter="gemm_dx_f32", phase="train",
+               f64=f64_check(torch, got, ref, ref64 * (keep.double() if name_ == "fc2" else 1.0)),
+               tc_flops=2 * rows_t * k_ * n_)
+        # dW = xᵀ @ (s · dY) with the same dY and scale, x (rows, n_)
+        x_ = rand(rows_t, x_w)
+        dw_out = torch.empty((x_w, k_), device=dev)
+        dw_fn = lambda: gemm_dw(x_, dy_, sc_, nt, dw_out)
+        dw_plain = lambda: x_.t() @ (dy_ * rs_)
+        dw_fn()
+        got, ref = dw_out.clone(), dw_plain()
+        dw_fn()
+        repeat_identical(f"gemm_dw_{name_}", [got], [dw_out])
+        ref64 = x_.double().t() @ (dy_.double() * (rs_.double() if scaled else 1.0))
+        record("gemm_dw" if name_ == "qkv" else f"gemm_dw_{name_}",
+               "uplift_upsample_torch/csrc/gemm_tc.cuh", f"{bwd_src}:{line_dw}",
+               grad_check(torch, [(got, ref)]), time_ms(torch, dw_fn, 10),
+               time_ms(torch, dw_plain, 10), 0,
+               (x_.numel() + dy_.numel() + got.numel() + (bt if scaled else 0)) * F32,
+               library_ms=time_ms(torch, lambda: torch.mm(x_.t(), dy_), 10),
+               counter="gemm_dw_f32", phase="train", f64=f64_check(torch, got, ref, ref64),
+               tc_flops=2 * rows_t * x_w * k_)
+        del dy_, mask_, x_, got, ref, ref64
+    torch.cuda.empty_cache()
     km_t = key_mask(bt, nt)
     qkv_t, dctx_t = rand(rows_t, 3 * c), rand(rows_t, c, scale=1.0)
     ab_fn = lambda: window_attention_bwd(qkv_t, dctx_t, km_t, windows=bt, n=nt,
@@ -1494,7 +1617,7 @@ def main(argv=None) -> int:
            library_ms=time_ms(torch, lambda: torch.ops.aten.native_layer_norm_backward(
                dy_ln, x_ln, [c], ln_mean, ln_rstd, g1, b1, [True, True, True]), 10),
            counter="layernorm_bwd_f32", phase="train")
-    del yb, dq, qkv_t, dctx_t, x_ln, dy_ln, got, ref, leaves, out_ln, sp_ops, sp_packed
+    del qkv_t, dctx_t, x_ln, dy_ln, got, ref, leaves, out_ln, sp_ops, sp_packed
     del x_kf, sc, g_sp
     torch.cuda.empty_cache()
 
@@ -1507,13 +1630,16 @@ def main(argv=None) -> int:
     fwd6 = lambda: strided_train_fwd(x_t, st_ops, **kw6)
     fwd6_plain = lambda: strided_block1_train_plain(x_t, st_ops, **kw6)
     (out6, saved6), ref6 = fwd6(), fwd6_plain()
-    flops6 = (bt * nt * 2 * c * (3 * c + c + hid) + bt * 4 * nt * nt * c
-              + bt * n_out_t * 2 * 3 * hid * c)
+    # the dense layers on the tensor cores; the conv and (backward) the
+    # attention on CUDA cores, the forward's attention on the tensor cores
+    gemm6 = bt * nt * 2 * c * (3 * c + c + hid)
+    attn6, conv6 = bt * 4 * nt * nt * c, bt * n_out_t * 2 * 3 * hid * c
     io6 = x_t.numel() * F32 + ops_bytes(st_ops)
     record("strided_train_fwd", "uplift_upsample_torch/csrc/strided.cu",
            "uplift_upsample_tpu/ops/pallas_strided_bwd.py:222", out_check(torch, out6, ref6),
-           time_ms(torch, fwd6, 5), time_ms(torch, fwd6_plain, 3), flops6,
-           io6 + out6.numel() * F32, counter="strided_train_fwd", phase="train_cli")
+           time_ms(torch, fwd6, 5), time_ms(torch, fwd6_plain, 3), conv6,
+           io6 + out6.numel() * F32, counter="strided_train_fwd", phase="train_cli",
+           tc_flops=gemm6 + attn6)
     bwd6 = lambda: strided_train_bwd(saved6, cot6, st_ops, **kw6)
     # the plain backward takes fc1's relu kink on the side K6's forward took
     bwd6_plain = lambda: strided_block1_bwd_plain(x_t, st_ops, cot6,
@@ -1530,9 +1656,10 @@ def main(argv=None) -> int:
     saved6_bytes = sum(t.numel() for t in saved6.values()) * F32
     record("strided_train_bwd", "uplift_upsample_torch/csrc/strided_bwd.cu",
            "uplift_upsample_tpu/ops/pallas_strided_bwd.py:266", grad_check(torch, pairs6),
-           time_ms(torch, bwd6, 5), time_ms(torch, bwd6_plain, 3), 2 * flops6,
-           saved6_bytes + io6 + (cot6.numel() + x_t.numel()) * F32,
-           counter="strided_train_bwd", phase="train_cli")
+           time_ms(torch, bwd6, 5), time_ms(torch, bwd6_plain, 3), 2 * (attn6 + conv6),
+           saved6_bytes + (2 * x_t.numel() + cot6.numel()) * F32
+           + ops_bytes(st_ops, backward=True) + sum(g_.numel() for g_ in gp6.values()) * F32,
+           counter="strided_train_bwd", phase="train_cli", tc_flops=2 * gemm6)
     del out6, saved6, ref6, dx6, gk6, dxp6, gp6, pairs6, cot6, x_t, tfp, tmodel, st_ops
     torch.cuda.empty_cache()
 
@@ -1584,7 +1711,7 @@ def main(argv=None) -> int:
         failed.append("predict_shapes")
     if e2e_err > e2e_tol:
         failed.append("predict_vs_plain")
-    for key in ("spatial_stack", "temporal_stack", "strided_block1"):
+    for key in ("spatial_stack", "temporal_stack", "strided_block1", "gemm_f32"):
         if counts.get(key, 0) == 0:
             failed.append(f"no_launch_{key}")
     del model, fp

@@ -1,20 +1,32 @@
 #!/usr/bin/env python3
-"""What bounds the tensor-core window attention (csrc/attention.cuh) on the card.
+"""What bounds the tensor-core kernels (csrc/attention.cuh, csrc/gemm_tc.cuh) on the card.
 
     python3 kernel_probe.py [--seed 0]
 
-Builds five versions of `csrc/attention.cu` from a patched copy of
-`csrc/` under `uplift_upsample_torch/_build/probe/`: the kernel as it is;
-"products only" (no copies into shared memory: the products run on whatever
-shared memory holds); "copies only" (no products: the block stages q, k and
-v and writes the context); "no splits" (every operand passed to the three
-mma.sync unsplit: the splits' cost); "one pass, no splits" (one mma.sync per
-product: the cost of the other two). Each is timed with CUDA events on row
-11's 71-token shapes (1,024 sequences x 8 heads of 48, with and without a
-key mask) and at 23 tokens, beside SDPA, and prints one line each. The
-patched versions compute nothing meaningful; only the first is checked
-against the plain version. Needs a CUDA card and the repository checkout
-around it.
+Builds patched copies of `csrc/` under `uplift_upsample_torch/_build/probe/`
+(one nvcc per copy, all started together) and times each with CUDA events:
+
+- the window attention (`attention.cu`, row 11's 71-token shapes, 1,024
+  sequences x 8 heads of 48, with and without a key mask, and 23 tokens,
+  beside SDPA): the kernel as it is; "products only" (no copies into shared
+  memory: the products run on whatever shared memory holds); "copies only"
+  (no products: the block stages q, k and v and writes the context); "no
+  splits" (every operand passed to the three mma.sync unsplit: the splits'
+  cost); "one pass, no splits" (one mma.sync per product: the cost of the
+  other two);
+- the dense-layer GEMM (`temporal.cu`'s gemm_f32 at K2's qkv product,
+  72,704 x 384 -> 1,152, beside addmm): the kernel; "products only" (no TMA
+  loads: the producer only signals the stages); "copies only" (no wgmma);
+  "no epilogue" (nothing read or written in device memory); "no splits"
+  and "one pass, no splits" as above;
+- the dW product (`temporal_bwd.cu`'s gemm_dw_f32 at the qkv weight's
+  384 x 1,152 over 36,352 rows, split as ops/temporal_train.dw_splits cuts
+  it, beside torch.mm): the kernel; "products only" (no cp.async copies);
+  "copies only" (no mma.sync); "no splits"; "one pass, no splits".
+
+Each prints one line. The patched versions compute nothing meaningful; only
+each kernel as it is is checked against its plain version. Needs a CUDA card
+and the repository checkout around it.
 """
 
 from __future__ import annotations
@@ -31,20 +43,47 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # (file in csrc/, text, replacement)
 NO_SPLITS = [("tf32.cuh", "  big = tf32_round(x);\n  small = __float_as_uint(x - __uint_as_float(big));",
               "  big = __float_as_uint(x);\n  small = big;")]
-VARIANTS = {
+ONE_MMA = [("tf32.cuh", "  mma_tf32(d, a_small, b_big);\n  mma_tf32(d, a_big, b_small);\n", "")]
+ATTENTION = {
     "kernel": [],
     "products only": [("attention.cuh", f"  stage_head({t}s", f"  if (n < 0) stage_head({t}s")
                       for t in "qkv"],
     "copies only": [("attention.cuh", "nt = nk / 8;", "nt = nk / 8 - 100;")],
     "no splits": NO_SPLITS,
-    "one pass, no splits": NO_SPLITS + [
-        ("tf32.cuh", "  mma_tf32(d, a_small, b_big);\n  mma_tf32(d, a_big, b_small);\n", "")],
+    "one pass, no splits": NO_SPLITS + ONE_MMA,
+}
+_TMA = ("          mbar_expect_tx(full + 8 * s, TC_STAGE_BYTES);\n"
+        "          tma_load_2d(st, &map_a, kt * TC_BK, m0, full + 8 * s);\n"
+        "          tma_load_2d(st + TC_TILE_BYTES, &map_w, kt * TC_BK, n0, full + 8 * s);\n"
+        "          tma_load_2d(st + 2 * TC_TILE_BYTES, &map_w, kt * TC_BK, n + n0, full + 8 * s);\n")
+_SMALL_WGMMA = ("          wgmma_m64n64k8_tf32(part, a_small[j], desc_big + half + 2 * j);\n"
+                "          wgmma_m64n64k8_tf32(part, a_big[j], desc_small + half + 2 * j);\n")
+_BIG_WGMMA = "          wgmma_m64n64k8_tf32(part, a_big[j], desc_big + half + 2 * j);\n"
+GEMM = {
+    "kernel": [],
+    "products only": [("gemm_tc.cuh", _TMA, "          mbar_arrive(full + 8 * s);\n")],
+    "copies only": [("gemm_tc.cuh", _SMALL_WGMMA + _BIG_WGMMA, "")],
+    "no epilogue": [("gemm_tc.cuh", "    const int row0 = m0 + r, row1 = row0 + 8;",
+                     "    const int row0 = m0 + r + (k > 0 ? m : 0), row1 = row0 + 8;")],
+    "no splits": NO_SPLITS,
+    "one pass, no splits": NO_SPLITS + [("gemm_tc.cuh", _SMALL_WGMMA, "")],
+}
+_CP = "      cp_async16({t}s + kk * AB_LD + c4,"
+DW = {
+    "kernel": [],
+    "products only": [("gemm_tc.cuh", _CP.format(t=t), "      if (m < 0) " + _CP.format(t=t)[6:])
+                      for t in "xy"],
+    "copies only": [("gemm_tc.cuh", "          mma_3xtf32(part, a_big, a_small, b_big[j], "
+                     "b_small[j]);\n", "")],
+    "no splits": NO_SPLITS,
+    "one pass, no splits": NO_SPLITS + ONE_MMA,
 }
 
 
-def build(cuda_lib, name, reps):
-    """csrc/ copied, `reps` applied, attention.cu built."""
-    out = cuda_lib.BUILD_DIR / "probe" / name.replace(" ", "_").replace(",", "")
+def start_build(cuda_lib, tag, source, reps):
+    """csrc/ copied to _build/probe/<tag>, `reps` applied, nvcc started on
+    <source>.cu; returns (process, library path)."""
+    out = cuda_lib.BUILD_DIR / "probe" / tag.replace(" ", "_").replace(",", "")
     shutil.rmtree(out, ignore_errors=True)
     shutil.copytree(cuda_lib.CSRC_DIR, out)
     for fname, old, new in reps:
@@ -53,11 +92,16 @@ def build(cuda_lib, name, reps):
         if old not in text:
             raise RuntimeError(f"probe patch {old!r} no longer matches {fname}")
         path.write_text(text.replace(old, new))
-    lib = out / "libattention.so"
-    subprocess.run([cuda_lib._nvcc(), *cuda_lib.NVCC_FLAGS, "-o", str(lib),
-                    str(out / "attention.cu")], check=True)
-    fn = ctypes.CDLL(str(lib)).packed_attention_f32
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    lib = out / f"lib{source}.so"
+    proc = subprocess.Popen([cuda_lib._nvcc(), *cuda_lib.NVCC_FLAGS, "-o", str(lib),
+                             str(out / f"{source}.cu")])
+    return proc, lib
+
+
+def bind(lib, fn_name, nptr, nint):
+    """fn_name of the built library with `nptr` pointers, `nint` ints and the stream."""
+    fn = getattr(ctypes.CDLL(str(lib)), fn_name)
+    fn.argtypes = [ctypes.c_void_p] * nptr + [ctypes.c_int] * nint + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -77,15 +121,30 @@ def main(argv=None) -> int:
     from chip_smoke import card_line, time_ms
     from uplift_upsample_torch.ops import cuda_lib
     from uplift_upsample_torch.ops.packed_attention import packed_attention_plain
+    from uplift_upsample_torch.ops.temporal import tf32_halves
+    from uplift_upsample_torch.ops.temporal_train import dw_splits
 
+    torch.backends.cuda.matmul.allow_tf32 = False
     print(f"card: {card_line()}", flush=True)
+    builds = {}
+    for group, source, variants in (("attention", "attention", ATTENTION),
+                                    ("gemm", "temporal", GEMM), ("dw", "temporal_bwd", DW)):
+        for name, reps in variants.items():
+            builds[group, name] = start_build(cuda_lib, f"{group} {name}", source, reps)
+    for key, (proc, _) in builds.items():
+        if proc.wait() != 0:
+            raise RuntimeError(f"probe build {key} failed")
+
     dev = torch.device("cuda")
+    stream = lambda: torch.cuda.current_stream().cuda_stream
     rng = np.random.default_rng(args.seed)
+    rand = lambda *shape, scale=0.5: torch.from_numpy(
+        (rng.normal(size=shape) * scale).astype(np.float32)).to(dev)
+
     heads, c = 8, 384
     cases = []
     for s, masked in ((71, True), (71, False), (23, False)):
-        q, k, v = (torch.from_numpy(rng.normal(size=(1024, s, c)).astype(np.float32)).to(dev)
-                   for _ in range(3))
+        q, k, v = (rand(1024, s, c, scale=1.0) for _ in range(3))
         km = (torch.from_numpy((rng.uniform(size=(1024, s)) < 0.5).astype(np.float32)).to(dev)
               if masked else None)
         split = lambda t: t.reshape(1024, s, heads, c // heads).transpose(1, 2)
@@ -93,13 +152,13 @@ def main(argv=None) -> int:
         sdpa = time_ms(torch, lambda: F.scaled_dot_product_attention(
             split(q), split(k), split(v), attn_mask=add_mask), 10)
         cases.append((s, masked, q, k, v, km, sdpa))
-    for name, reps in VARIANTS.items():
-        fn = build(cuda_lib, name, reps)
+    for name in ATTENTION:
+        fn = bind(builds["attention", name][1], "packed_attention_f32", 5, 4)
         for s, masked, q, k, v, km, sdpa in cases:
             out = torch.empty_like(q)
             call = lambda: fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                               None if km is None else km.data_ptr(), out.data_ptr(),
-                              1024, s, c, heads, torch.cuda.current_stream().cuda_stream)
+                              1024, s, c, heads, stream())
             if call() != 0:
                 raise RuntimeError(f"{name}: launch failed")
             torch.cuda.synchronize()
@@ -109,6 +168,46 @@ def main(argv=None) -> int:
                 err = f" max_abs_err {float((out - ref).abs().max()):.3e};"
             print(f"probe {name}: 1024 x {s} x {c}, key mask {masked}:{err} "
                   f"ms {time_ms(torch, call, 20):.4f} (SDPA {sdpa:.4f})", flush=True)
+    del cases
+
+    m, n = 1024 * 71, 3 * c
+    a, w, bias = rand(m, c), rand(c, n, scale=0.05), rand(n, scale=0.1)
+    halves = tf32_halves(w)
+    out = torch.empty((m, n), device=dev)
+    addmm = time_ms(torch, lambda: torch.addmm(bias, a, w), 20)
+    for name in GEMM:
+        fn = bind(builds["gemm", name][1], "gemm_f32", 5, 4)
+        call = lambda: fn(a.data_ptr(), halves.data_ptr(), bias.data_ptr(), None,
+                          out.data_ptr(), m, n, c, 0, stream())
+        if call() != 0:
+            raise RuntimeError(f"gemm {name}: launch failed")
+        torch.cuda.synchronize()
+        err = ""
+        if name == "kernel":
+            err = f" max_abs_err {float((out - (a @ w + bias)).abs().max()):.3e};"
+        print(f"probe gemm {name}: {m} x {c} -> {n}:{err} ms {time_ms(torch, call, 20):.4f} "
+              f"(addmm {addmm:.4f})", flush=True)
+    del a, out
+
+    rows, mw = 512 * 71, c
+    x, dy = rand(rows, mw), rand(rows, n, scale=1.0)
+    splits = dw_splits(rows, mw, n)
+    part = torch.empty((splits, mw, n), device=dev)
+    mm = time_ms(torch, lambda: torch.mm(x.t(), dy), 20)
+    for name in DW:
+        fn = bind(builds["dw", name][1], "gemm_dw_f32", 3, 1)
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p] + \
+            [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        call = lambda: fn(x.data_ptr(), dy.data_ptr(), None, 1, part.data_ptr(), mw, n, rows,
+                          splits, stream())
+        if call() != 0:
+            raise RuntimeError(f"dw {name}: launch failed")
+        torch.cuda.synchronize()
+        err = ""
+        if name == "kernel":
+            err = f" max_abs_err {float((part.sum(0) - x.t() @ dy).abs().max()):.3e};"
+        print(f"probe dw {name}: {mw} x {n} over {rows} rows in {splits} chunks (partials "
+              f"only):{err} ms {time_ms(torch, call, 20):.4f} (torch.mm {mm:.4f})", flush=True)
     return 0
 
 

@@ -23,12 +23,13 @@ import pytest
 import torch
 
 from uplift_upsample_torch.ops import cuda_lib
-from uplift_upsample_torch.ops.strided import output_length, stack_strided_block1_params
+from uplift_upsample_torch.ops.strided import DENSE, output_length, stack_strided_block1_params
 from uplift_upsample_torch.ops.strided_train import (ORDER, saved_relu_mask,
                                                      strided_block1_bwd_plain,
                                                      strided_block1_train,
                                                      strided_block1_train_plain,
                                                      strided_train_bwd, strided_train_fwd)
+from uplift_upsample_torch.ops.temporal import add_tf32_halves
 from uplift_upsample_torch.utils.weights_h5 import params_from_jax
 
 torch.set_num_threads(1)  # six xdist workers share the CPU cores
@@ -192,10 +193,11 @@ def test_strided_train_kernels_match_plain(b, n, c, hidden, stride, pads):
     def rand(*shape, scale=0.1):
         return torch.tensor(rng.normal(size=shape) * scale, dtype=torch.float32, device=dev)
 
-    ops = dict(pe=rand(n, c), ln1_g=1 + rand(c), ln1_b=rand(c), wqkv=rand(c, 3 * c, scale=0.05),
-               bqkv=rand(3 * c), wp=rand(c, c, scale=0.05), bp=rand(c), ln2_g=1 + rand(c),
-               ln2_b=rand(c), w1=rand(c, hidden, scale=0.05), b1=rand(hidden),
-               wc=rand(3 * hidden, c, scale=0.03), bc=rand(c))
+    ops = add_tf32_halves(dict(
+        pe=rand(n, c), ln1_g=1 + rand(c), ln1_b=rand(c), wqkv=rand(c, 3 * c, scale=0.05),
+        bqkv=rand(3 * c), wp=rand(c, c, scale=0.05), bp=rand(c), ln2_g=1 + rand(c),
+        ln2_b=rand(c), w1=rand(c, hidden, scale=0.05), b1=rand(hidden),
+        wc=rand(3 * hidden, c, scale=0.03), bc=rand(c)), DENSE)
     x = rand(b, n, c, scale=0.5)
     g = rand(b, output_length(n, stride, pads), c, scale=1.0)
     kw = dict(num_heads=8, stride=stride, paddings=pads)
@@ -235,6 +237,7 @@ def test_strided_train_autograd_function_on_card():
         wp=rng.normal(size=(c, c)) * 0.1, bp=np.zeros(c), ln2_g=np.ones(c), ln2_b=np.zeros(c),
         w1=rng.normal(size=(c, hidden)) * 0.1, b1=np.zeros(hidden),
         wc=rng.normal(size=(3 * hidden, c)) * 0.1, bc=np.zeros(c)).items()}
+    ops = add_tf32_halves(ops, DENSE)  # the TF32 halves K6's products read
     x = torch.tensor(rng.normal(size=(b, n, c)), dtype=torch.float32, device=dev,
                      requires_grad=True)
     cuda_lib.reset_launches()

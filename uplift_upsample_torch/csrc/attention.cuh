@@ -70,12 +70,6 @@ __host__ __device__ __forceinline__ int attn_qk_pitch(int dp) {
 }
 __host__ __device__ __forceinline__ int attn_v_pitch(int dp) { return dp + 4; }
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, int src_bytes) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(s), "l"(src), "r"(src_bytes) : "memory");
-}
-
 __device__ __forceinline__ void cp_async4(float* dst, const float* src, int src_bytes) {
   const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"

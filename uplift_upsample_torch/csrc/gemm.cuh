@@ -1,27 +1,26 @@
-// Shared device code of the temporal (K2, K5) and strided-block-1 (K3)
-// kernels: warp reductions and a tiled fp32 GEMM on CUDA cores.
+// Shared device code of the temporal (K2, K5) and strided-block-1 (K3, K6)
+// kernels: warp reductions, the fixed-order sum of partials, and a tiled
+// fp32 GEMM on CUDA cores for the strided conv's products.
 //
 // The GEMM computes out = epilogue(A · B). A and B are read through loader
-// functors, so the same tile loop serves a plain row-major A and W (the
-// dense layers), the gathered taps of the strided conv (strided.cu), and the
-// products of the backward pass (temporal_bwd.cu): dX = dY · Wᵀ reads W
-// transposed, dW = Xᵀ · dY reads X transposed, and either may scale its rows
-// by a per-window stochastic-depth factor. A loader says with `kAlongK`
-// whether neighbouring threads should fetch neighbouring k (row-major A,
-// transposed B) or neighbouring rows/columns (transposed A, row-major B), so
-// every tile fetch is coalesced. Tiles are 128 x 64 x 16 in shared memory;
-// each of the 256 threads keeps an 8 x 4 block of the output in registers, so
-// every shared-memory read feeds 8 or 4 FMAs.
+// functors: strided.cu gathers the conv's taps of h1 as A, strided_bwd.cu
+// reads the taps transposed for the conv kernel's dW and the kernel
+// transposed for dH1. A loader says with `kAlongK` whether neighbouring
+// threads should fetch neighbouring k (row-major A, transposed B) or
+// neighbouring rows/columns (transposed A, row-major B), so every tile fetch
+// is coalesced. Tiles are 128 x 64 x 16 in shared memory; each of the 256
+// threads keeps an 8 x 4 block of the output in registers, so every
+// shared-memory read feeds 8 or 4 FMAs.
 //
 // Split-K: with gridDim.z > 1, block z sums k in [z*k_split, (z+1)*k_split)
 // and hands the epilogue row r + z*m, so partial products land in a
 // (splits*m, n) buffer that a second pass sums in a fixed order (no atomics:
 // repeated runs agree bit for bit).
 //
-// Bound: these products are compute-bound on this card (K = 384-36,352
-// against the 67 TFLOP/s fp32 peak). A SIMT tile loop reaches a fraction of
-// that peak; gemm_tc.cuh is the tensor-core route (3xTF32 on wgmma, TMA),
-// with the same epilogue interface, so far used by the s2t prologue only.
+// Bound: operations, against the 67 TFLOP/s fp32 CUDA-core peak, which a
+// SIMT tile loop reaches a fraction of. The dense layers moved to the tensor
+// cores (gemm_tc.cuh, 3xTF32, same epilogue interface); the conv's gathered
+// loaders have no TMA counterpart yet, so they stay here.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -50,39 +49,23 @@ __device__ __forceinline__ float row_factor(const float* scale, int rows_per_sca
   return scale ? scale[r / rows_per_scale] : 1.f;
 }
 
-// A (m, k) row-major, rows optionally scaled.
+// A (m, k) row-major.
 struct RowMajorA {
   const float* a;
   int k;
-  const float* scale = nullptr;
-  int rows_per_scale = 1;
   static constexpr bool kAlongK = true;
   __device__ __forceinline__ float operator()(int r, int c) const {
-    const float v = a[(size_t)r * k + c];
-    return scale ? v * row_factor(scale, rows_per_scale, r) : v;
+    return a[(size_t)r * k + c];
   }
 };
 
-// A = Xᵀ with X (k, m) row-major: A(r, c) = X[c, r].
-struct TransposedA {
-  const float* x;
-  int m;
-  static constexpr bool kAlongK = false;
-  __device__ __forceinline__ float operator()(int r, int c) const {
-    return x[(size_t)c * m + r];
-  }
-};
-
-// B (k, n) row-major, rows (the k index) optionally scaled.
+// B (k, n) row-major.
 struct RowMajorB {
   const float* w;
   int n;
-  const float* scale = nullptr;
-  int rows_per_scale = 1;
   static constexpr bool kAlongK = false;
   __device__ __forceinline__ float operator()(int kk, int c) const {
-    const float v = w[(size_t)kk * n + c];
-    return scale ? v * row_factor(scale, rows_per_scale, kk) : v;
+    return w[(size_t)kk * n + c];
   }
 };
 
@@ -93,23 +76,6 @@ struct TransposedB {
   static constexpr bool kAlongK = true;
   __device__ __forceinline__ float operator()(int kk, int c) const {
     return w[(size_t)c * k + kk];
-  }
-};
-
-// out[r, c] = act(v + bias[c]) + residual[r, c]; bias and residual optional.
-// residual may alias out: each element is read and written by one thread.
-struct BiasActResidual {
-  const float* bias;
-  const float* residual;
-  float* out;
-  int n;
-  int relu;
-  __device__ __forceinline__ void operator()(int r, int c, float v) const {
-    if (bias) v += bias[c];
-    if (relu) v = fmaxf(v, 0.f);
-    const size_t o = (size_t)r * n + c;
-    if (residual) v += residual[o];
-    out[o] = v;
   }
 };
 

@@ -1,34 +1,69 @@
-// A tensor-core GEMM at fp32-level error for Hopper: 3xTF32 on wgmma, fed by
-// TMA. Used by the s2t prologue (s2t.cu); gemm.cuh's SIMT tile loop serves
-// the other kernels.
+// Tensor-core GEMMs at fp32-level error for Hopper: 3xTF32 (tf32.cuh), in
+// two kernels. They carry every dense layer of K2, K3, K5 and K6 (forward,
+// and the backward's dX and dW) and the s2t prologue; gemm.cuh's SIMT loop
+// keeps only the strided conv's gathered products (strided.cu,
+// strided_bwd.cu).
 //
-// out = epilogue(A · B) with A (m, k) fp32 row-major and B given as the two
-// TF32 halves of W (k, n): `launch_tf32_split` writes W_big = tf32(W) and
-// W_small = tf32(W - W_big), each transposed to (n, k) (K-major, as TF32
-// wgmma needs both operands), into one (2, n, k) buffer. The epilogue is a
-// functor `epi(r, c, v)` called once per output element, gemm.cuh's
-// interface, so a product of gemm.cuh's row-major A and W moves here by
-// changing its launch call (and splitting its W once).
+// 1. gemm_tc_kernel: out = epilogue(A · B), A (m, k) fp32 row-major, B the
+//    two TF32 halves of an (n, k) K-major matrix in one (2, n, k) buffer
+//    (`launch_tf32_halves`): for x·W with W (k, n) the halves of Wᵀ, for the
+//    backward's dX = dY·Wᵀ the halves of W as it is stored. The epilogue is
+//    a functor `epi(r, c, v)` called once per output element, gemm.cuh's
+//    interface.
 //
-// Bound: operations. 3xTF32 takes three TF32 products per fp32 one; at the
-// s2t prologue's 72,704 x 544 x 384 that is 3 x 30.4 GFLOP, 0.184 ms at the
-// 495 TFLOP/s dense TF32 peak, against 0.081 ms for its 271 MB.
+//    Bound: operations. 3xTF32 takes three TF32 products per fp32 one; K2's
+//    qkv product (72,704 x 384 -> 1,152) is 3 x 64.3 GFLOP, 0.390 ms at the
+//    495 TFLOP/s dense TF32 peak, against 0.133 ms for its 447 MB.
 //
-// Design: one block per 128 x 128 output tile (n fastest, so the blocks that
-// share an A tile run together and A comes from device memory about once),
-// 384 threads:
-//  - warpgroup 0 is the producer: one thread keeps a ring of 4 shared-memory
-//    stages filled with TMA loads (A 128 x 32, W_big and W_small 128 x 32,
-//    128-byte swizzle), each stage guarded by a full and an empty mbarrier;
-//  - warpgroups 1 and 2 are consumers, 64 rows each: per 32-deep stage a
-//    thread loads its A fragments from shared memory, splits them into TF32
-//    halves in registers, and issues wgmma.m64n128k8 three times per 8-deep
-//    step (A_small·W_big, A_big·W_small, A_big·W_big) with B read from
-//    shared memory through descriptors; fp32 accumulators stay in registers;
-//  - the epilogue runs from the accumulator registers: only rows < m and
-//    columns < n are written. TMA fills rows and columns past the ends of A
-//    with zeros.
+//    Design: persistent, one block per SM walking 128 x 128 output tiles in
+//    order, n fastest (the blocks running together share A tiles, so A
+//    comes from device memory about once), 384 threads:
+//     - warpgroup 0 is the producer: one thread keeps a ring of 4
+//       shared-memory stages filled with TMA loads (A 128 x 32, W_big and
+//       W_small 128 x 32, 128-byte swizzle), each stage guarded by a full
+//       and an empty mbarrier. It runs on into the next tile's loads while
+//       the consumers finish the current one: with K = 384-1,152 a tile is
+//       only 12-36 stages deep, and a block per tile would refill the ring
+//       and leave TMA idle through every epilogue;
+//     - warpgroups 1 and 2 are consumers, 64 rows each: per 32-deep stage a
+//       thread loads its A fragments from shared memory and splits them into
+//       TF32 halves in registers; per 64-column half of the tile it issues
+//       wgmma.m64n64k8 three times per 8-deep step (A_small·W_big,
+//       A_big·W_small, A_big·W_big, B read from shared memory through
+//       descriptors) into a fresh partial, then adds the partial to its fp32
+//       accumulators. The tensor cores round toward zero as they accumulate:
+//       with every product of K = 768 added into one sum that came to ~10x
+//       the fp32 plain version's error on the card, and a partial per stage
+//       brings it back to fp32's level;
+//     - the epilogue runs from the accumulator registers: only rows < m and
+//       columns < n are written. TMA fills rows and columns past the ends
+//       of A with zeros. Each output element is read (a residual may alias
+//       out) and written by one thread; A must not alias out. It does not
+//       overlap the tensor cores' work (~0.3 of the qkv product's 0.86 ms,
+//       kernel_probe.py); passing it through shared memory for 128-byte
+//       stores was tried and was slower with a residual (spills).
+//
+// 2. gemm_atb_kernel: part[z] = Xᵀ · (s ⊙ dY) over chunk z of the rows, X
+//    (rows, m) and dY (rows, n) row-major: the backward's dW, split over the
+//    rows (36,352 at the train step) into partials that launch_sum_rows
+//    (gemm.cuh) adds in a fixed order, so repeated runs agree bit for bit.
+//
+//    Bound: operations, as above (3 x 85.8 GFLOP per temporal block at the
+//    train step, 0.52 ms at the TF32 peak, against 0.20 ms for its 670 MB).
+//
+//    Design: both operands are MN-major here, and TF32 wgmma reads 32-bit
+//    operands from shared memory only K-major, so this kernel runs
+//    mma.sync.m16n8k8 (as attention.cuh does) with both fragments read from
+//    shared memory by the threads: 128 x 128 x 32 tiles in a 3-stage
+//    cp.async ring, 8 warps of 64 x 32, rows padded by 8 floats so each
+//    fragment read hits 32 banks; dY's row scale is applied as its values
+//    leave shared memory, before the split. Each 8-deep step's three
+//    products go into a fresh partial that joins the accumulators with a
+//    rounded add (over 36,352 rows the toward-zero rounding of one running
+//    sum cost ~15x the plain version's error). Two blocks per SM; the caller
+//    picks the split count for about one wave (ops/temporal_train.py).
 #pragma once
+
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -91,30 +126,39 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
          ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
 }
 
-// d (64 x 128 per warpgroup) += a (64 x 8, registers) · b (8 x 128, shared memory)
-__device__ __forceinline__ void wgmma_m64n128k8_tf32(float (&d)[64], const uint32_t (&a)[4],
-                                                     uint64_t desc_b) {
+// d (64 x 64 per warpgroup) += a (64 x 8, registers) · b (8 x 64, shared memory)
+__device__ __forceinline__ void wgmma_m64n64k8_tf32(float (&d)[32], const uint32_t (&a)[4],
+                                                    uint64_t desc_b) {
   asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
-        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
-        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
-        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
-        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
-        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
-        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
-        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
+
+// out[r, c] = act(v + bias[c]) + residual[r, c]; bias and residual optional.
+// residual may alias out: each element is read and written by one thread.
+struct BiasActResidual {
+  const float* bias;
+  const float* residual;
+  float* out;
+  int n;
+  int relu;
+  __device__ __forceinline__ void operator()(int r, int c, float v) const {
+    if (bias) v += bias[c];
+    if (relu) v = fmaxf(v, 0.f);
+    const size_t o = (size_t)r * n + c;
+    if (residual) v += residual[o];
+    out[o] = v;
+  }
+};
 
 template <class Epilogue>
 __global__ void __launch_bounds__(TC_THREADS, 1)
@@ -129,7 +173,8 @@ gemm_tc_kernel(const __grid_constant__ CUtensorMap map_a,
   const uint32_t full = base + TC_STAGES * TC_STAGE_BYTES;  // TC_STAGES mbarriers
   const uint32_t empty = full + TC_STAGES * 8;              // TC_STAGES mbarriers
   const int ktiles = (k + TC_BK - 1) / TC_BK;
-  const int n0 = blockIdx.x * TC_BN, m0 = blockIdx.y * TC_BM;
+  const int tiles_n = (n + TC_BN - 1) / TC_BN;
+  const int tile_count = tiles_n * ((m + TC_BM - 1) / TC_BM);
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < TC_STAGES; ++s) {
@@ -140,93 +185,125 @@ gemm_tc_kernel(const __grid_constant__ CUtensorMap map_a,
   }
   __syncthreads();
 
+  // Both sides count the stages they have used, `it`, across tiles: stage
+  // it % TC_STAGES, in its (it / TC_STAGES)-th round.
   if (threadIdx.x < 128) {  // producer warpgroup: one thread issues every load
     if (threadIdx.x == 0) {
-      for (int kt = 0; kt < ktiles; ++kt) {
-        const int s = kt % TC_STAGES;
-        const uint32_t round = kt / TC_STAGES;
-        if (round > 0) mbar_wait(empty + 8 * s, (round - 1) & 1);
-        const uint32_t st = base + s * TC_STAGE_BYTES;
-        mbar_expect_tx(full + 8 * s, TC_STAGE_BYTES);
-        tma_load_2d(st, &map_a, kt * TC_BK, m0, full + 8 * s);
-        tma_load_2d(st + TC_TILE_BYTES, &map_w, kt * TC_BK, n0, full + 8 * s);
-        tma_load_2d(st + 2 * TC_TILE_BYTES, &map_w, kt * TC_BK, n + n0, full + 8 * s);
+      uint32_t it = 0;
+      for (int tile = blockIdx.x; tile < tile_count; tile += gridDim.x) {
+        const int n0 = (tile % tiles_n) * TC_BN, m0 = (tile / tiles_n) * TC_BM;
+        for (int kt = 0; kt < ktiles; ++kt, ++it) {
+          const int s = it % TC_STAGES;
+          const uint32_t round = it / TC_STAGES;
+          if (round > 0) mbar_wait(empty + 8 * s, (round - 1) & 1);
+          const uint32_t st = base + s * TC_STAGE_BYTES;
+          mbar_expect_tx(full + 8 * s, TC_STAGE_BYTES);
+          tma_load_2d(st, &map_a, kt * TC_BK, m0, full + 8 * s);
+          tma_load_2d(st + TC_TILE_BYTES, &map_w, kt * TC_BK, n0, full + 8 * s);
+          tma_load_2d(st + 2 * TC_TILE_BYTES, &map_w, kt * TC_BK, n + n0, full + 8 * s);
+        }
       }
     }
     return;
   }
 
-  // consumers: warpgroup cw owns rows 64cw..64cw+63 of the tile
+  // consumers: warpgroup cw owns rows 64cw..64cw+63 of each tile
   const int cw = threadIdx.x / 128 - 1, tid = threadIdx.x % 128;
   const int warp = tid / 32, lane = tid % 32, g = lane >> 2, t = lane & 3;
   const int r = cw * 64 + warp * 16 + g;  // this thread's rows r and r + 8 (r % 8 == g)
-  float acc[64];
+  uint32_t it = 0;
+  for (int tile = blockIdx.x; tile < tile_count; tile += gridDim.x) {
+    const int n0 = (tile % tiles_n) * TC_BN, m0 = (tile / tiles_n) * TC_BM;
+    float acc[64];
 #pragma unroll
-  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
 
-  for (int kt = 0; kt < ktiles; ++kt) {
-    const int s = kt % TC_STAGES;
-    mbar_wait(full + 8 * s, (kt / TC_STAGES) & 1);
-    const float* at = tiles + s * (TC_STAGE_BYTES / 4);
-    const uint32_t wb = base + s * TC_STAGE_BYTES + TC_TILE_BYTES;
-    const uint64_t desc_big = sw128_desc(wb), desc_small = sw128_desc(wb + TC_TILE_BYTES);
-    // A fragment of step j: (r, 8j+t), (r+8, 8j+t), (r, 8j+t+4), (r+8, 8j+t+4);
-    // element (row, col) of the swizzled tile sits at
-    // row*32 + ((col/4) ^ (row%8))*4 + col%4
-    uint32_t a_big[4][4], a_small[4][4];
+    for (int kt = 0; kt < ktiles; ++kt, ++it) {
+      const int s = it % TC_STAGES;
+      mbar_wait(full + 8 * s, (it / TC_STAGES) & 1);
+      const float* at = tiles + s * (TC_STAGE_BYTES / 4);
+      const uint32_t wb = base + s * TC_STAGE_BYTES + TC_TILE_BYTES;
+      const uint64_t desc_big = sw128_desc(wb), desc_small = sw128_desc(wb + TC_TILE_BYTES);
+      // A fragment of step j: (r, 8j+t), (r+8, 8j+t), (r, 8j+t+4), (r+8, 8j+t+4);
+      // element (row, col) of the swizzled tile sits at
+      // row*32 + ((col/4) ^ (row%8))*4 + col%4
+      uint32_t a_big[4][4], a_small[4][4];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int lo = ((2 * j) ^ g) * 4 + t, hi = ((2 * j + 1) ^ g) * 4 + t;
-      tf32_split(at[r * 32 + lo], a_big[j][0], a_small[j][0]);
-      tf32_split(at[(r + 8) * 32 + lo], a_big[j][1], a_small[j][1]);
-      tf32_split(at[r * 32 + hi], a_big[j][2], a_small[j][2]);
-      tf32_split(at[(r + 8) * 32 + hi], a_big[j][3], a_small[j][3]);
-    }
-    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+      for (int j = 0; j < 4; ++j) {
+        const int lo = ((2 * j) ^ g) * 4 + t, hi = ((2 * j + 1) ^ g) * 4 + t;
+        tf32_split(at[r * 32 + lo], a_big[j][0], a_small[j][0]);
+        tf32_split(at[(r + 8) * 32 + lo], a_big[j][1], a_small[j][1]);
+        tf32_split(at[r * 32 + hi], a_big[j][2], a_small[j][2]);
+        tf32_split(at[(r + 8) * 32 + hi], a_big[j][3], a_small[j][3]);
+      }
+      // The tensor cores add each product into their accumulator rounding
+      // toward zero, an error that grows with the number of adds into one
+      // sum (~1e-5 relative over K = 768 where the fp32 plain version keeps
+      // ~1e-6). So each 32-deep stage sums into a fresh partial, per 64-column
+      // half (32 registers), which then joins acc with a rounded fp32 add.
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      wgmma_m64n128k8_tf32(acc, a_small[j], desc_big + 2 * j);
-      wgmma_m64n128k8_tf32(acc, a_big[j], desc_small + 2 * j);
-      wgmma_m64n128k8_tf32(acc, a_big[j], desc_big + 2 * j);
+      for (int h = 0; h < 2; ++h) {
+        float part[32];
+#pragma unroll
+        for (int i = 0; i < 32; ++i) part[i] = 0.f;
+        const uint64_t half = h * (64 * TC_BK * 4 >> 4);  // W's rows 64h.. of the tile
+        asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          wgmma_m64n64k8_tf32(part, a_small[j], desc_big + half + 2 * j);
+          wgmma_m64n64k8_tf32(part, a_big[j], desc_small + half + 2 * j);
+          wgmma_m64n64k8_tf32(part, a_big[j], desc_big + half + 2 * j);
+        }
+        asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+        asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+#pragma unroll
+        for (int i = 0; i < 32; ++i) acc[32 * h + i] += part[i];
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + 8 * s);
     }
-    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-    __syncwarp();
-    if (lane == 0) mbar_arrive(empty + 8 * s);
-  }
 
-  // accumulator i: column 8(i/4) + 2t + (i%2), row r + 8((i/2)%2)
-  const int row0 = m0 + r, row1 = row0 + 8;
+    // accumulator i: column 8(i/4) + 2t + (i%2), row r + 8((i/2)%2)
+    const int row0 = m0 + r, row1 = row0 + 8;
 #pragma unroll
-  for (int j = 0; j < 16; ++j) {
-    const int col = n0 + 8 * j + 2 * t;
-    if (row0 < m) {
-      if (col < n) epi(row0, col, acc[4 * j]);
-      if (col + 1 < n) epi(row0, col + 1, acc[4 * j + 1]);
-    }
-    if (row1 < m) {
-      if (col < n) epi(row1, col, acc[4 * j + 2]);
-      if (col + 1 < n) epi(row1, col + 1, acc[4 * j + 3]);
+    for (int j = 0; j < 16; ++j) {
+      const int col = n0 + 8 * j + 2 * t;
+      if (row0 < m) {
+        if (col < n) epi(row0, col, acc[4 * j]);
+        if (col + 1 < n) epi(row0, col + 1, acc[4 * j + 1]);
+      }
+      if (row1 < m) {
+        if (col < n) epi(row1, col, acc[4 * j + 2]);
+        if (col + 1 < n) epi(row1, col + 1, acc[4 * j + 3]);
+      }
     }
   }
 }
 
-// W (k, n) row-major -> split (2, n, k): [0] = tf32(W)ᵀ, [1] = tf32(W - tf32(W))ᵀ.
-static __global__ void tf32_split_kernel(const float* __restrict__ w, float* __restrict__ split,
-                                         int k, int n) {
+// W (batch, k, n) row-major -> halves (batch, 2, n, k) with `transpose`, else
+// (batch, 2, k, n): [0] = tf32(W), [1] = W - tf32(W).
+static __global__ void tf32_halves_kernel(const float* __restrict__ w,
+                                          float* __restrict__ halves, int k, int n,
+                                          int transpose) {
   const int col = blockIdx.x * blockDim.x + threadIdx.x;  // along n: coalesced reads
   const int kk = blockIdx.y;
   if (col >= n) return;
+  const size_t plane = (size_t)k * n;
+  const size_t b = blockIdx.z;
   uint32_t big, small;
-  tf32_split(w[(size_t)kk * n + col], big, small);
-  split[(size_t)col * k + kk] = __uint_as_float(big);
-  split[((size_t)n + col) * k + kk] = __uint_as_float(small);
+  tf32_split(w[b * plane + (size_t)kk * n + col], big, small);
+  float* out = halves + 2 * b * plane;
+  const size_t at = transpose ? (size_t)col * k + kk : (size_t)kk * n + col;
+  out[at] = __uint_as_float(big);
+  out[plane + at] = __uint_as_float(small);
 }
 
-inline cudaError_t launch_tf32_split(const float* w, float* split, int k, int n,
-                                     cudaStream_t stream) {
-  if (k <= 0 || n <= 0 || k > 65535) return cudaErrorInvalidValue;
-  tf32_split_kernel<<<dim3((n + 127) / 128, k), 128, 0, stream>>>(w, split, k, n);
+inline cudaError_t launch_tf32_halves(const float* w, float* halves, int batch, int k, int n,
+                                      int transpose, cudaStream_t stream) {
+  if (batch <= 0 || k <= 0 || n <= 0 || k > 65535 || batch > 65535)
+    return cudaErrorInvalidValue;
+  tf32_halves_kernel<<<dim3((n + 127) / 128, k, batch), 128, 0, stream>>>(w, halves, k, n,
+                                                                         transpose);
   return cudaGetLastError();
 }
 
@@ -265,25 +342,176 @@ inline bool make_tile_map(CUtensorMap* map, const float* ptr, int rows, int cols
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// out = epi(A · W) with A (m, k) row-major and w_split from launch_tf32_split.
-// TMA needs 16-byte aligned rows: k % 4 == 0 and 16-byte aligned pointers.
+inline int sm_count() {
+  static int count = 0;
+  if (!count) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+      count = 0;
+  }
+  return count;
+}
+
+// out = epi(A · B) with A (m, k) row-major and halves (2, n, k) from
+// launch_tf32_halves. TMA needs 16-byte aligned rows: k % 4 == 0 and 16-byte
+// aligned pointers.
 template <class Epilogue>
-inline cudaError_t launch_gemm_tc(const float* a, const float* w_split, int m, int n, int k,
+inline cudaError_t launch_gemm_tc(const float* a, const float* halves, int m, int n, int k,
                                   Epilogue epi, cudaStream_t stream) {
   if (m <= 0 || n <= 0 || k <= 0 || k % 4 != 0) return cudaErrorInvalidValue;
-  if (reinterpret_cast<uintptr_t>(a) % 16 || reinterpret_cast<uintptr_t>(w_split) % 16)
+  if (reinterpret_cast<uintptr_t>(a) % 16 || reinterpret_cast<uintptr_t>(halves) % 16)
     return cudaErrorInvalidValue;
-  const long long tiles_m = (m + TC_BM - 1) / TC_BM;
-  if (tiles_m > 65535) return cudaErrorInvalidValue;
+  const long long tiles =
+      (long long)((m + TC_BM - 1) / TC_BM) * ((n + TC_BN - 1) / TC_BN);
+  const int sms = sm_count();
+  if (tiles > (1LL << 30) || sms <= 0) return cudaErrorInvalidValue;
   CUtensorMap map_a, map_w;
-  if (!make_tile_map(&map_a, a, m, k, TC_BM) || !make_tile_map(&map_w, w_split, 2 * n, k, TC_BN))
+  if (!make_tile_map(&map_a, a, m, k, TC_BM) || !make_tile_map(&map_w, halves, 2 * n, k, TC_BN))
     return cudaErrorInvalidValue;
   auto kernel = gemm_tc_kernel<Epilogue>;
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, TC_SMEM_BYTES);
   if (err != cudaSuccess) return err;
-  const dim3 grid((n + TC_BN - 1) / TC_BN, (unsigned)tiles_m);
+  const int grid = tiles < sms ? (int)tiles : sms;
   kernel<<<grid, TC_THREADS, TC_SMEM_BYTES, stream>>>(map_a, map_w, m, n, k, epi);
+  return cudaGetLastError();
+}
+
+constexpr int AB_BM = 128, AB_BN = 128, AB_BK = 32, AB_STAGES = 3;
+constexpr int AB_THREADS = 256;                       // 8 warps of 64 x 32
+constexpr int AB_LD = AB_BM + 8;                      // floats per staged row (= AB_BN + 8)
+constexpr int AB_TILE = AB_BK * AB_LD;                // floats per operand per stage
+constexpr int AB_STAGE = 2 * AB_TILE + AB_BK;         // X, dY, the rows' scales
+constexpr int AB_SMEM_BYTES = AB_STAGES * AB_STAGE * 4;
+
+static __global__ void __launch_bounds__(AB_THREADS, 2)
+gemm_atb_kernel(const float* __restrict__ x, const float* __restrict__ dy,
+                const float* __restrict__ scale, int rows_per_scale, float* __restrict__ part,
+                int m, int n, int rows, int k_split) {
+  extern __shared__ float4 ab_smem[];
+  float* sm = reinterpret_cast<float*>(ab_smem);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane >> 2, t = lane & 3;
+  const int wm = warp / 4, wn = warp % 4;  // the warp's rows wm*64.., columns wn*32..
+  const int m0 = blockIdx.y * AB_BM, n0 = blockIdx.x * AB_BN;
+  const int k_begin = blockIdx.z * k_split;
+  const int k_end = min(rows, k_begin + k_split);
+  const int ktiles = k_end > k_begin ? (k_end - k_begin + AB_BK - 1) / AB_BK : 0;
+
+  // stage kt: 32 rows of X's and dY's column slices, 16 bytes a copy;
+  // rows past the chunk and columns past m or n are zero-filled
+  auto load = [&](int kt) {
+    float* xs = sm + (kt % AB_STAGES) * AB_STAGE;
+    float* ys = xs + AB_TILE;
+    const int k0 = k_begin + kt * AB_BK;
+#pragma unroll
+    for (int i = 0; i < (AB_BK * AB_BM / 4) / AB_THREADS; ++i) {
+      const int idx = tid + i * AB_THREADS;
+      const int kk = idx / (AB_BM / 4), c4 = (idx % (AB_BM / 4)) * 4;
+      const int gk = k0 + kk;
+      const bool vx = gk < k_end && m0 + c4 < m, vy = gk < k_end && n0 + c4 < n;
+      cp_async16(xs + kk * AB_LD + c4, vx ? x + (size_t)gk * m + m0 + c4 : x, vx ? 16 : 0);
+      cp_async16(ys + kk * AB_LD + c4, vy ? dy + (size_t)gk * n + n0 + c4 : dy, vy ? 16 : 0);
+    }
+    if (tid < AB_BK) {
+      const int gk = k0 + tid;
+      ys[AB_TILE + tid] = gk >= k_end ? 0.f : scale ? scale[gk / rows_per_scale] : 1.f;
+    }
+  };
+
+  float acc[4][4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < AB_STAGES - 1; ++s) {
+    if (s < ktiles) load(s);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  }
+  for (int kt = 0; kt < ktiles; ++kt) {
+    asm volatile("cp.async.wait_group %0;\n" :: "n"(AB_STAGES - 2) : "memory");
+    __syncthreads();  // stage kt landed; every warp is done with stage kt - 1
+    if (kt + AB_STAGES - 1 < ktiles) load(kt + AB_STAGES - 1);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    const float* xs = sm + (kt % AB_STAGES) * AB_STAGE;
+    const float* ys = xs + AB_TILE;
+    const float* sc = ys + AB_TILE;
+#pragma unroll
+    for (int k8 = 0; k8 < AB_BK / 8; ++k8) {
+      const int lo = k8 * 8 + t, hi = lo + 4;  // the fragments' rows of X and dY
+      const float s_lo = sc[lo], s_hi = sc[hi];
+      uint32_t b_big[4][2], b_small[4][2];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int col = wn * 32 + j * 8 + g;
+        tf32_split(ys[lo * AB_LD + col] * s_lo, b_big[j][0], b_small[j][0]);
+        tf32_split(ys[hi * AB_LD + col] * s_hi, b_big[j][1], b_small[j][1]);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int row = wm * 64 + i * 16 + g;
+        uint32_t a_big[4], a_small[4];
+        tf32_split(xs[lo * AB_LD + row], a_big[0], a_small[0]);
+        tf32_split(xs[lo * AB_LD + row + 8], a_big[1], a_small[1]);
+        tf32_split(xs[hi * AB_LD + row], a_big[2], a_small[2]);
+        tf32_split(xs[hi * AB_LD + row + 8], a_big[3], a_small[3]);
+        // each 8-deep step's three products into a fresh partial, added to
+        // acc rounded (the tensor cores round toward zero: see gemm_tc_kernel)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          float part[4] = {0.f, 0.f, 0.f, 0.f};
+          mma_3xtf32(part, a_big, a_small, b_big[j], b_small[j]);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][j][e] += part[e];
+        }
+      }
+    }
+  }
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+
+  // accumulator e of (i, j): row wm*64 + 16i + g + 8(e/2), column wn*32 + 8j + 2t + e%2
+  float* out = part + (size_t)blockIdx.z * m * n;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = m0 + wm * 64 + i * 16 + g;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int col = n0 + wn * 32 + j * 8 + 2 * t;
+      if (col >= n) continue;  // n is even: col + 1 < n with it
+      if (row < m)
+        *reinterpret_cast<float2*>(out + (size_t)row * n + col) =
+            make_float2(acc[i][j][0], acc[i][j][1]);
+      if (row + 8 < m)
+        *reinterpret_cast<float2*>(out + (size_t)(row + 8) * n + col) =
+            make_float2(acc[i][j][2], acc[i][j][3]);
+    }
+  }
+}
+
+// part (splits, m, n): chunk z of Xᵀ · (dY * scale[row / rows_per_scale])
+// over rows [z·k_split, (z+1)·k_split), k_split a multiple of 32; X (rows,
+// m), dY (rows, n) row-major, m and n multiples of 4, 16-byte aligned.
+inline cudaError_t launch_gemm_atb(const float* x, const float* dy, const float* scale,
+                                   int rows_per_scale, float* part, int m, int n, int rows,
+                                   int splits, cudaStream_t stream) {
+  if (m <= 0 || n <= 0 || rows <= 0 || splits <= 0 || splits > 65535 || m % 4 || n % 4 ||
+      (scale && rows_per_scale <= 0))
+    return cudaErrorInvalidValue;
+  if (reinterpret_cast<uintptr_t>(x) % 16 || reinterpret_cast<uintptr_t>(dy) % 16)
+    return cudaErrorInvalidValue;
+  if ((m + AB_BM - 1) / AB_BM > 65535) return cudaErrorInvalidValue;
+  int k_split = (rows + splits - 1) / splits;
+  k_split = (k_split + AB_BK - 1) / AB_BK * AB_BK;
+  const cudaError_t err = cudaFuncSetAttribute(
+      gemm_atb_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, AB_SMEM_BYTES);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((n + AB_BN - 1) / AB_BN, (m + AB_BM - 1) / AB_BM, splits);
+  gemm_atb_kernel<<<grid, AB_THREADS, AB_SMEM_BYTES, stream>>>(x, dy, scale, rows_per_scale,
+                                                               part, m, n, rows, k_split);
   return cudaGetLastError();
 }
 

@@ -18,7 +18,8 @@
 // registers, W's halves from shared memory), with an epilogue that applies
 // the bias, the token select and the PE as each output element leaves the
 // accumulator registers, so the Dense's output is written once and never
-// read back. W's halves come from `tf32_split_f32`, a launch of its own.
+// read back. W's halves come from `tf32_halves_f32` (temporal.cu), a launch
+// of its own.
 
 #include <cuda_runtime.h>
 
@@ -45,13 +46,9 @@ struct BiasTokenPe {
 
 }  // namespace
 
-// w: (k, c) row-major, the Dense's (in, out) kernel -> split (2, c, k), its
-// TF32 halves transposed (gemm_tc.cuh).
-extern "C" int tf32_split_f32(const float* w, float* split, int k, int c, void* stream) {
-  return uu::launch_tf32_split(w, split, k, c, (cudaStream_t)stream);
-}
-
-// sp: (rows, k) row-major, k % 4 == 0; split: from tf32_split_f32.
+// sp: (rows, k) row-major, k % 4 == 0; split (2, c, k): the TF32 halves of
+// the Dense's (in, out) kernel w (k, c), transposed (temporal.cu's
+// tf32_halves_f32).
 extern "C" int s2t_prologue_f32(const float* sp, const float* split, const float* bias,
                                 const float* mask, const float* token, const float* pe,
                                 float* out, int rows, int c, int k, int pe_rows,

@@ -7,11 +7,14 @@
 //   first `first_masked_blocks` blocks. K3 (strided.cu) reuses these kernels.
 //
 // What bounds it here: the dense layers, ~0.17 TFLOP per block at B=1,024
-// windows, are compute-bound against the 67 TFLOP/s fp32 CUDA-core peak; the
-// weights (4.7 MB per block in fp32) do not fit in shared memory, so one block
-// is seven launches: LayerNorm, qkv GEMM, window attention, proj GEMM (+
-// residual), LayerNorm, fc1 GEMM (+ relu), fc2 GEMM (+ residual). The
-// activations of one launch stay in L2 (50 MB) for the next where they fit.
+// windows. They run on the tensor cores in 3xTF32 (gemm_tc.cuh: persistent
+// TMA + wgmma, fp32-level error), bound by operations at 3 x 0.17 TFLOP per
+// block over the 495 TFLOP/s TF32 peak (1.04 ms); W's TF32 halves are split
+// once, when the operands are stacked (`tf32_halves_f32`). The weights (4.7
+// MB per block in fp32) do not fit in shared memory, so one block is seven
+// launches: LayerNorm, qkv GEMM, window attention, proj GEMM (+ residual),
+// LayerNorm, fc1 GEMM (+ relu), fc2 GEMM (+ residual). The activations of
+// one launch stay in L2 (50 MB) for the next where they fit.
 //
 // Design: rows are the B*71 real tokens; no 72-token padding, no
 // block-diagonal window mask (the TPU kernel's Mosaic workarounds): each
@@ -23,6 +26,7 @@
 
 #include "attention.cuh"
 #include "gemm.cuh"
+#include "gemm_tc.cuh"
 
 namespace {
 
@@ -56,12 +60,22 @@ __global__ void layernorm_kernel(const float* __restrict__ x, const float* __res
 
 }  // namespace
 
-extern "C" int gemm_f32(const float* a, const float* w, const float* bias,
+// out (m, n) = act(a . w + bias) + residual; a (m, k) row-major, k % 4 == 0;
+// halves (2, n, k): w's TF32 halves transposed (tf32_halves_f32); bias and
+// residual optional, residual may alias out.
+extern "C" int gemm_f32(const float* a, const float* halves, const float* bias,
                         const float* residual, float* out, int m, int n, int k,
                         int relu, void* stream) {
-  return uu::launch_gemm(uu::RowMajorA{a, k}, uu::RowMajorB{w, n}, m, n, k,
-                         uu::BiasActResidual{bias, residual, out, n, relu},
-                         (cudaStream_t)stream);
+  return uu::launch_gemm_tc(a, halves, m, n, k,
+                            uu::BiasActResidual{bias, residual, out, n, relu},
+                            (cudaStream_t)stream);
+}
+
+// w (batch, k, n) row-major -> halves (batch, 2, n, k) with transpose (for
+// x . w), else (batch, 2, k, n) (for dy . w^T): [0] = tf32(w), [1] = w - [0].
+extern "C" int tf32_halves_f32(const float* w, float* halves, int batch, int k, int n,
+                               int transpose, void* stream) {
+  return uu::launch_tf32_halves(w, halves, batch, k, n, transpose, (cudaStream_t)stream);
 }
 
 extern "C" int layernorm_f32(const float* x, const float* pe, const float* gamma,

@@ -28,13 +28,18 @@
 // and block groups are TPU layout and have no counterpart here.
 //
 // What bounds it: the GEMMs (~0.27 TFLOP per block backward at 36,352 rows,
-// twice the forward's), compute-bound against the 67 TFLOP/s fp32 peak on
-// CUDA cores; the rest is memory-bound.
+// twice the forward's), bound by operations; the rest is memory-bound. Every
+// product runs on the tensor cores in 3xTF32 (gemm_tc.cuh, fp32-level
+// error): the forward's and dX on the persistent TMA + wgmma kernel, with
+// W's halves split once per step when the operands are stacked (dX reads W
+// as stored, which is the K-major layout wgmma wants); dW = X^T . dY, whose
+// operands are both MN-major, on mma.sync (gemm_atb_kernel).
 
 #include <cuda_runtime.h>
 #include <math.h>
 
 #include "gemm.cuh"
+#include "gemm_tc.cuh"
 
 namespace {
 
@@ -58,22 +63,18 @@ struct ScaledBranch {
   }
 };
 
-// out = v, zeroed where mask <= 0 (the relu derivative through its output).
-struct MaskStore {
+// out = v * scale[r / rows_per_scale], zeroed where mask <= 0 (the relu
+// derivative through its output). The row scale belongs to dY; it is applied
+// here, to the product, which equals (s . dY) . W^T up to rounding.
+struct ScaledMaskStore {
+  const float* scale;
+  int rows_per_scale;
   const float* mask;
   float* out;
   int n;
   __device__ __forceinline__ void operator()(int r, int c, float v) const {
     const size_t o = (size_t)r * n + c;
-    out[o] = (mask && !(mask[o] > 0.f)) ? 0.f : v;
-  }
-};
-
-struct Store {
-  float* out;
-  int n;
-  __device__ __forceinline__ void operator()(int r, int c, float v) const {
-    out[(size_t)r * n + c] = v;
+    out[o] = (mask && !(mask[o] > 0.f)) ? 0.f : v * uu::row_factor(scale, rows_per_scale, r);
   }
 };
 
@@ -276,37 +277,40 @@ window_attention_bwd_kernel(const float* __restrict__ qkv, const float* __restri
 }  // namespace
 
 // out = residual + scale[row / rows_per_scale] * act(a . w + bias), branch =
-// act(a . w + bias); a (m, k), w (k, n) row-major; residual, branch, scale
-// and bias optional; residual may alias out.
-extern "C" int gemm_branch_f32(const float* a, const float* w, const float* bias,
+// act(a . w + bias); a (m, k) row-major, k % 4 == 0; halves (2, n, k): w's
+// TF32 halves transposed (temporal.cu's tf32_halves_f32); residual, branch,
+// scale and bias optional; residual may alias out.
+extern "C" int gemm_branch_f32(const float* a, const float* halves, const float* bias,
                                const float* scale, int rows_per_scale, const float* residual,
                                float* branch, float* out, int m, int n, int k, int relu,
                                void* stream) {
   if (scale && rows_per_scale <= 0) return cudaErrorInvalidValue;
-  return uu::launch_gemm(
-      uu::RowMajorA{a, k}, uu::RowMajorB{w, n}, m, n, k,
+  return uu::launch_gemm_tc(
+      a, halves, m, n, k,
       ScaledBranch{bias, scale, rows_per_scale, residual, branch, out, n, relu},
       (cudaStream_t)stream);
 }
 
 // out (m, n) = ((a * scale[row / rows_per_scale]) . w^T), zeroed where
-// mask <= 0; a (m, k), w (n, k) row-major (the forward's (in, out) kernel).
+// mask <= 0; a (m, k) row-major, k % 4 == 0; halves (2, n, k): the TF32
+// halves of w (n, k), the forward's (in, out) kernel, as stored.
 extern "C" int gemm_dx_f32(const float* a, const float* scale, int rows_per_scale,
-                           const float* w, const float* mask, float* out, int m, int n, int k,
-                           void* stream) {
+                           const float* halves, const float* mask, float* out, int m, int n,
+                           int k, void* stream) {
   if (scale && rows_per_scale <= 0) return cudaErrorInvalidValue;
-  return uu::launch_gemm(uu::RowMajorA{a, k, scale, rows_per_scale}, uu::TransposedB{w, k},
-                         m, n, k, MaskStore{mask, out, n}, (cudaStream_t)stream);
+  return uu::launch_gemm_tc(a, halves, m, n, k,
+                            ScaledMaskStore{scale, rows_per_scale, mask, out, n},
+                            (cudaStream_t)stream);
 }
 
 // part (splits, m, n): chunk z of x^T . (dy * scale[row / rows_per_scale])
-// over rows; x (rows, m), dy (rows, n). sum_rows_f32 over the splits finishes it.
+// over rows; x (rows, m), dy (rows, n), m and n multiples of 4. sum_rows_f32
+// over the splits finishes it.
 extern "C" int gemm_dw_f32(const float* x, const float* dy, const float* scale,
                            int rows_per_scale, float* part, int m, int n, int rows,
                            int splits, void* stream) {
-  if (scale && rows_per_scale <= 0) return cudaErrorInvalidValue;
-  return uu::launch_gemm(uu::TransposedA{x, m}, uu::RowMajorB{dy, n, scale, rows_per_scale},
-                         m, n, rows, Store{part, n}, (cudaStream_t)stream, splits);
+  return uu::launch_gemm_atb(x, dy, scale, rows_per_scale, part, m, n, rows, splits,
+                             (cudaStream_t)stream);
 }
 
 // part (ceil(rows / 256), cols): column sums of x * scale[row / rows_per_scale]

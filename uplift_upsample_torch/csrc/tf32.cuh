@@ -6,7 +6,8 @@
 // small enters truncated to TF32; with the dropped small·small term that
 // leaves an error of about 2^-21 of each product, near fp32's own rounding,
 // where one TF32 pass keeps 10 bits. Shared by the window attention
-// (attention.cuh, mma.sync) and the tensor-core GEMM (gemm_tc.cuh, wgmma).
+// (attention.cuh, mma.sync) and the tensor-core GEMMs (gemm_tc.cuh: wgmma
+// for A·B, mma.sync for the backward's Xᵀ·dY).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -31,6 +32,14 @@ __device__ __forceinline__ uint32_t tf32_round(float x) {
 __device__ __forceinline__ void tf32_split(float x, uint32_t& big, uint32_t& small) {
   big = tf32_round(x);
   small = __float_as_uint(x - __uint_as_float(big));
+}
+
+// 16 bytes from global to shared memory, asynchronously; src_bytes 0 fills
+// dst with zeros (the ragged edge of a tile).
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, int src_bytes) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(s), "l"(src), "r"(src_bytes) : "memory");
 }
 
 // d += a·b on one m16n8k8 tile: a row-major 16x8, b 8x8 (k by n), fp32 sums.

@@ -50,6 +50,7 @@ _SIGNATURES = {
     "spatial": {"spatial_stack_f32": "ppppiiiip"},
     "temporal": {
         "gemm_f32": "pppppiiiip",
+        "tf32_halves_f32": "ppiiiip",
         "layernorm_f32": "ppppppiiifp",
         "window_attention_f32": "pppiiiip",
     },
@@ -75,7 +76,7 @@ _SIGNATURES = {
         "strided_dwc_f32": "pppiiiiiiiip",
         "crop_residual_add_f32": "ppiiiiiip",
     },
-    "s2t": {"tf32_split_f32": "ppiip", "s2t_prologue_f32": "pppppppiiiip"},
+    "s2t": {"s2t_prologue_f32": "pppppppiiiip"},
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 

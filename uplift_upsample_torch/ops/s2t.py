@@ -8,8 +8,8 @@ Per frame of (B, N, K) spatial output:
     out[b, t] = m[b, t] * (sp[b, t] @ W + bias) + (1 - m[b, t]) * token + pe[t]
 
 m the stride mask (1 on frames carrying real input; None: all real). On a
-CUDA tensor `s2t_prologue` launches `csrc/s2t.cu`: W's TF32 halves
-(`tf32_split_f32`, counted under that name), then the GEMM on the tensor
+CUDA tensor `s2t_prologue` launches W's TF32 halves (`temporal.tf32_halves`,
+counted under `tf32_halves_f32`), then `csrc/s2t.cu`: the GEMM on the tensor
 cores in 3xTF32 (`csrc/gemm_tc.cuh`, fp32-level error) with the bias, token
 and PE in its epilogue; on a CPU tensor it runs `s2t_prologue_plain`, the
 same function in plain PyTorch.
@@ -22,6 +22,7 @@ from typing import Dict, Optional
 import torch
 
 from . import cuda_lib
+from .temporal import tf32_halves
 
 COUNTER = "s2t_prologue"
 
@@ -71,8 +72,7 @@ def s2t_prologue(sp: torch.Tensor, ops: Dict,
         token = ops["token"]
         cuda_lib.check_cuda("stride_mask", mask, device=x.device)
         cuda_lib.check_cuda("token", token, shape=(c,), device=x.device)
-    split = torch.empty((2, c, k), dtype=torch.float32, device=x.device)
-    cuda_lib.launch("s2t", "tf32_split_f32", None, ops["w"], split, k, c)
+    split = tf32_halves(ops["w"])
     out = torch.empty((b * n, c), dtype=torch.float32, device=x.device)
     cuda_lib.launch("s2t", "s2t_prologue_f32", COUNTER, x, split, ops["bias"], mask,
                     token, ops["pe"], out, b * n, c, k, n)

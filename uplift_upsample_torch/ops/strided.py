@@ -34,10 +34,11 @@ import torch
 import torch.nn.functional as F
 
 from . import cuda_lib
-from .temporal import (attention_sublayer, gemm, layernorm,
+from .temporal import (add_tf32_halves, attention_sublayer, gemm, layernorm,
                        window_attention_plain)
 
 COUNTER = "strided_block1"
+DENSE = ("wqkv", "wp", "w1")  # the block's (in, out) matrices on the tensor cores
 
 
 def output_length(n: int, stride: int, paddings: Tuple[int, int]) -> int:
@@ -51,7 +52,8 @@ def stack_strided_block1_params(state: Mapping[str, torch.Tensor],
 
     Matrices are (in, out); the conv kernel is (3·hidden, C), the flax
     (3, hidden, C) kernel flattened; biases absent with qkv_bias off become
-    zeros (as `pallas_strided.stack_strided_block1_params` does).
+    zeros (as `pallas_strided.stack_strided_block1_params` does). The dense
+    matrices' TF32 halves are split here (`temporal.add_tf32_halves`).
     """
     pe = state[pe_name]
     c = pe.shape[1]
@@ -74,7 +76,7 @@ def stack_strided_block1_params(state: Mapping[str, torch.Tensor],
         wc=conv.permute(2, 1, 0).reshape(-1, conv.shape[0]),
         bc=get("mlp.fc2.bias", c),
     )
-    return {k: v.float().contiguous() for k, v in ops.items()}
+    return add_tf32_halves({k: v.float().contiguous() for k, v in ops.items()}, DENSE)
 
 
 def strided_block1_plain(x: torch.Tensor, ops: Dict, *, num_heads: int,
@@ -122,11 +124,11 @@ def strided_block1(x: torch.Tensor, ops: Dict, *, num_heads: int, stride: int,
     cuda_lib.check_cuda("pe", ops["pe"], shape=(n, c), device=x.device)
     h, y = layernorm(h, ops["ln1_g"], ops["ln1_b"], 1e-5, pe=ops["pe"],
                      counter=COUNTER)
-    h = attention_sublayer(h, y, ops["wqkv"], ops["bqkv"], ops["wp"], ops["bp"],
+    h = attention_sublayer(h, y, ops["wqkv_tc"], ops["bqkv"], ops["wp_tc"], ops["bp"],
                            key_mask=None, windows=b, n=n, num_heads=num_heads,
                            counter=COUNTER)
     z = layernorm(h, ops["ln2_g"], ops["ln2_b"], 1e-5, counter=COUNTER)
-    h1 = gemm(z, ops["w1"], ops["b1"], relu=True, counter=COUNTER)
+    h1 = gemm(z, ops["w1_tc"], ops["b1"], relu=True, counter=COUNTER)
     hidden = h1.shape[1]
     cuda_lib.check_cuda("wc", ops["wc"], shape=(3 * hidden, c), device=x.device)
     cuda_lib.check_cuda("bc", ops["bc"], shape=(c,), device=x.device)

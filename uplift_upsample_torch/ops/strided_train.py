@@ -3,7 +3,8 @@
 
 `strided_block1_train(x, ops, num_heads=..., stride=...)` is differentiable.
 x is the temporal stack's output (B, S, C); `ops` are
-`strided.stack_strided_block1_params`' operands. It returns the n_out rows
+`strided.stack_strided_block1_params`' operands (with the dense matrices' TF32
+halves, HALVES). It returns the n_out rows
 the next strided block reads, (B, n_out, C): the JAX op followed by its
 caller's `[:, :(n_out-1)·s0+1:s0]` slice. Strided block 1 has no stochastic
 depth (its rate top·i/(depth-1) is 0 at i = 0; the train step asserts it).
@@ -24,20 +25,29 @@ launch, "strided_train_bwd" on the backward's last launch.
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional, Tuple
 
 import torch
 
 from . import cuda_lib
-from .strided import output_length, strided_block1_plain
+from .strided import DENSE, output_length, strided_block1_plain
 from .temporal import gemm, layernorm, window_attention
-from .temporal_train import (_sum_rows, colsum, dw_splits, gemm_dw, gemm_dx, layernorm_bwd,
+from .temporal_train import (_sum_rows, colsum, gemm_dw, gemm_dx, layernorm_bwd,
                              window_attention_bwd)
 
 COUNTER_FWD = "strided_train_fwd"
 COUNTER_BWD = "strided_train_bwd"
 ORDER = ["pe", "ln1_g", "ln1_b", "wqkv", "bqkv", "wp", "bp", "ln2_g", "ln2_b",
          "w1", "b1", "wc", "bc"]
+HALVES = [f"{name}{kind}" for kind in ("_tc", "_tc_dx") for name in DENSE]
+
+
+def _conv_dw_splits(rows: int, m: int, n: int) -> int:
+    """Row chunks of the conv's split-K dW on gemm.cuh's 128 x 64 tiles: about
+    two waves of blocks on 132 SMs, at least 256 rows a chunk."""
+    tiles = math.ceil(m / 128) * math.ceil(n / 64)
+    return max(1, min(64, math.ceil(264 / tiles), rows // 256))
 
 
 def _geometry(x: torch.Tensor, stride: int, paddings) -> Tuple[int, int, int, int, int]:
@@ -57,17 +67,17 @@ def strided_train_fwd(x: torch.Tensor, ops: Dict, *, num_heads: int, stride: int
     b, n, c, p0, n_out = _geometry(x, stride, paddings)
     if c % num_heads != 0:
         raise ValueError(f"C={c} does not split into {num_heads} heads")
-    for name in ORDER:
+    for name in ORDER + HALVES:
         cuda_lib.check_cuda(name, ops[name], device=x.device)
     cuda_lib.check_cuda("pe", ops["pe"], shape=(n, c))
     h = x.reshape(b * n, c).contiguous()
     cuda_lib.check_cuda("x", h)
     xpe, y = layernorm(h, ops["ln1_g"], ops["ln1_b"], 1e-5, pe=ops["pe"], counter=None)
-    qkv = gemm(y, ops["wqkv"], ops["bqkv"], counter=None)
+    qkv = gemm(y, ops["wqkv_tc"], ops["bqkv"], counter=None)
     ctx = window_attention(qkv, None, windows=b, n=n, num_heads=num_heads, counter=None)
-    x2 = gemm(ctx, ops["wp"], ops["bp"], residual=xpe, counter=None)
+    x2 = gemm(ctx, ops["wp_tc"], ops["bp"], residual=xpe, counter=None)
     z = layernorm(x2, ops["ln2_g"], ops["ln2_b"], 1e-5, counter=None)
-    h1 = gemm(z, ops["w1"], ops["b1"], relu=True, counter=None)
+    h1 = gemm(z, ops["w1_tc"], ops["b1"], relu=True, counter=None)
     hidden = h1.shape[1]
     cuda_lib.check_cuda("wc", ops["wc"], shape=(3 * hidden, c))
     cuda_lib.check_cuda("bc", ops["bc"], shape=(c,))
@@ -94,7 +104,7 @@ def strided_train_bwd(saved: Dict, g: torch.Tensor, ops: Dict, *, num_heads: int
     grads = {name: torch.empty_like(ops[name]) for name in ORDER}
     # the conv: out[t] = x2[s0·t + (p0 == 0)] + bc + Σ_j h1[s0·t + j - p0] · W_j
     colsum(g, None, 1, grads["bc"], counter=None)
-    splits = dw_splits(b * n_out, hidden, c)
+    splits = _conv_dw_splits(b * n_out, hidden, c)
     part = torch.empty((splits, 3 * hidden, c), dtype=torch.float32, device=g.device)
     cuda_lib.launch("strided_bwd", "strided_dwc_f32", None, saved["h1"], g, part, b, n,
                     hidden, c, stride, p0, n_out, splits)
@@ -105,7 +115,7 @@ def strided_train_bwd(saved: Dict, g: torch.Tensor, ops: Dict, *, num_heads: int
     # the MLP's first layer and LN2; then the crop residual joins dx2
     gemm_dw(saved["z"], dpre1, None, 1, grads["w1"], counter=None)
     colsum(dpre1, None, 1, grads["b1"], counter=None)
-    dz = gemm_dx(dpre1, None, 1, ops["w1"], counter=None)
+    dz = gemm_dx(dpre1, None, 1, ops["w1_tc_dx"], counter=None)
     dx2 = layernorm_bwd(saved["x2"], dz, ops["ln2_g"], None, grads["ln2_g"], grads["ln2_b"],
                         counter=None)
     cuda_lib.launch("strided_bwd", "crop_residual_add_f32", None, g, dx2, b, n, c, stride,
@@ -113,12 +123,12 @@ def strided_train_bwd(saved: Dict, g: torch.Tensor, ops: Dict, *, num_heads: int
     # attention branch: x2 = (x + pe) + proj(attention(LN1(x + pe)))
     gemm_dw(saved["ctx"], dx2, None, 1, grads["wp"], counter=None)
     colsum(dx2, None, 1, grads["bp"], counter=None)
-    dctx = gemm_dx(dx2, None, 1, ops["wp"], counter=None)
+    dctx = gemm_dx(dx2, None, 1, ops["wp_tc_dx"], counter=None)
     dqkv = window_attention_bwd(saved["qkv"], dctx, None, windows=b, n=n,
                                 num_heads=num_heads, counter=None)
     gemm_dw(saved["y"], dqkv, None, 1, grads["wqkv"], counter=None)
     colsum(dqkv, None, 1, grads["bqkv"], counter=None)
-    dy = gemm_dx(dqkv, None, 1, ops["wqkv"], counter=None)
+    dy = gemm_dx(dqkv, None, 1, ops["wqkv_tc_dx"], counter=None)
     dx = layernorm_bwd(saved["xpe"], dy, ops["ln1_g"], dx2, grads["ln1_g"], grads["ln1_b"],
                        counter=None)
     _sum_rows(dx.reshape(b, n * c), grads["pe"], counter=COUNTER_BWD)  # dpe: Σ over windows
@@ -153,13 +163,13 @@ def strided_block1_bwd_plain(x: torch.Tensor, ops: Dict, g: torch.Tensor, *, num
 
 
 class StridedBlock1Train(torch.autograd.Function):
-    """K6: apply(x, num_heads, stride, paddings, *operands in ORDER);
-    gradients for x and every operand."""
+    """K6: apply(x, num_heads, stride, paddings, *operands in ORDER, *halves in
+    HALVES); gradients for x and every operand (none for the halves)."""
 
     @staticmethod
     def forward(ctx, x, num_heads, stride, paddings, *leaves):
-        out, saved = strided_train_fwd(x, dict(zip(ORDER, leaves)), num_heads=num_heads,
-                                       stride=stride, paddings=paddings)
+        out, saved = strided_train_fwd(x, dict(zip(ORDER + HALVES, leaves)),
+                                       num_heads=num_heads, stride=stride, paddings=paddings)
         ctx.intermediates = saved
         ctx.cfg = dict(num_heads=num_heads, stride=stride, paddings=paddings)
         ctx.save_for_backward(*leaves)
@@ -167,10 +177,11 @@ class StridedBlock1Train(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        dx, grads = strided_train_bwd(ctx.intermediates, g, dict(zip(ORDER, ctx.saved_tensors)),
-                                      **ctx.cfg)
+        dx, grads = strided_train_bwd(ctx.intermediates, g,
+                                      dict(zip(ORDER + HALVES, ctx.saved_tensors)), **ctx.cfg)
         ctx.intermediates = None
-        return (dx, None, None, None, *[grads[name] for name in ORDER])
+        return (dx, None, None, None, *[grads[name] for name in ORDER],
+                *[None] * len(HALVES))
 
 
 def strided_block1_train(x: torch.Tensor, ops: Dict, *, num_heads: int, stride: int,
@@ -182,4 +193,4 @@ def strided_block1_train(x: torch.Tensor, ops: Dict, *, num_heads: int, stride: 
                                           paddings=paddings)
     paddings = (int(paddings[0]), int(paddings[1]))
     return StridedBlock1Train.apply(x, num_heads, stride, paddings,
-                                    *[ops[name] for name in ORDER])
+                                    *[ops[name] for name in ORDER + HALVES])

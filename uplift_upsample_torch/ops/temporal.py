@@ -20,11 +20,16 @@ in PERF.md):
     `temporal_stack_apply`, K2 over one block at a time.
 
 The GEMM, LayerNorm and window-attention wrappers below are shared with K3
-(`ops/strided.py`); each counts its launches for the K it runs for.
+(`ops/strided.py`); each counts its launches for the K it runs for. The GEMM
+runs on the tensor cores in 3xTF32 (`csrc/gemm_tc.cuh`) and reads each
+weight matrix as its two TF32 halves, which `stack_temporal_params` (and
+`strided.stack_strided_block1_params`) split when they stack the operands:
+once for serving, anew from each step's weights in training.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Mapping, Optional, Sequence
 
 import torch
@@ -33,6 +38,43 @@ import torch.nn.functional as F
 from . import cuda_lib
 
 COUNTER = "temporal_stack"
+DENSE = ("wqkv", "wp", "w1", "w2")  # the blocks' (in, out) weight matrices
+
+
+def tf32_halves_plain(w: torch.Tensor, transpose: bool = True) -> torch.Tensor:
+    """(…, K, N) → (…, 2, N, K) with `transpose`, else (…, 2, K, N): [0] = w
+    rounded to TF32 (to nearest, ties away from zero, by `csrc/tf32.cuh`'s
+    integer rounding), [1] = w - [0] (exact in fp32)."""
+    w = w.detach().float().contiguous()
+    bits = w.view(torch.int32)
+    big = (torch.where(torch.isfinite(w), bits + 0x1000, bits) & -0x2000).view(torch.float32)
+    halves = torch.stack([big, w - big], dim=-3)
+    return halves.transpose(-1, -2).contiguous() if transpose else halves
+
+
+def tf32_halves(w: torch.Tensor, transpose: bool = True) -> torch.Tensor:
+    """The TF32 halves of w (…, K, N) that `gemm` (transposed) and the
+    backward's `gemm_dx` (as stored) read. CPU tensor: the plain version;
+    CUDA tensor: one launch of `tf32_halves_f32`, bit for bit the same."""
+    if w.device.type == "cpu":
+        return tf32_halves_plain(w, transpose)
+    w = w.detach().float().contiguous()
+    *lead, k, n = w.shape
+    out = torch.empty((*lead, 2, n, k) if transpose else (*lead, 2, k, n),
+                      dtype=torch.float32, device=w.device)
+    cuda_lib.launch("temporal", "tf32_halves_f32", None, w, out, math.prod(lead), k, n,
+                    int(transpose))
+    return out
+
+
+def add_tf32_halves(ops: Dict, names: Sequence[str] = DENSE) -> Dict:
+    """`ops` with each named matrix's TF32 halves beside it: "<name>_tc" for
+    x @ w (`gemm`), "<name>_tc_dx" for dy @ wᵀ (`temporal_train.gemm_dx`)."""
+    out = dict(ops)
+    for name in names:
+        out[f"{name}_tc"] = tf32_halves(ops[name], transpose=True)
+        out[f"{name}_tc_dx"] = tf32_halves(ops[name], transpose=False)
+    return out
 
 
 def stack_temporal_params(state: Mapping[str, torch.Tensor], num_blocks: int,
@@ -40,7 +82,8 @@ def stack_temporal_params(state: Mapping[str, torch.Tensor], num_blocks: int,
     """Model state_dict → the temporal blocks' operands, stacked over blocks.
 
     q/k/v are concatenated into one (C, 3C) matrix per block; matrices are
-    (in, out); missing biases become zeros.
+    (in, out); missing biases become zeros. Each matrix's TF32 halves are
+    split here, from these weights (`add_tf32_halves`).
     """
     first = state[f"{prefix}1.attn.wq.weight"]
     c = first.shape[0]
@@ -54,7 +97,7 @@ def stack_temporal_params(state: Mapping[str, torch.Tensor], num_blocks: int,
     def st(fn):
         return torch.stack([fn(i) for i in range(1, num_blocks + 1)]).float().contiguous()
 
-    return dict(
+    return add_tf32_halves(dict(
         ln1_g=st(lambda i: get(i, "norm1.weight")),
         ln1_b=st(lambda i: get(i, "norm1.bias")),
         wqkv=st(lambda i: torch.cat([get(i, f"attn.{w}.weight").t()
@@ -69,7 +112,7 @@ def stack_temporal_params(state: Mapping[str, torch.Tensor], num_blocks: int,
         b1=st(lambda i: get(i, "mlp.fc1.bias")),
         w2=st(lambda i: get(i, "mlp.fc2.weight").t()),
         b2=st(lambda i: get(i, "mlp.fc2.bias")),
-    )
+    ))
 
 
 # -- plain versions -----------------------------------------------------------
@@ -129,21 +172,26 @@ def temporal_stack_plain(x: torch.Tensor, ops: Dict,
 
 # -- kernel launches (CUDA tensors only) --------------------------------------
 
-def gemm(a: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor], *,
+def gemm(a: torch.Tensor, w_tc: torch.Tensor, bias: Optional[torch.Tensor], *,
          counter: Optional[str], residual: Optional[torch.Tensor] = None,
          relu: bool = False, out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """act(a @ w + bias) + residual on the card; a (M, K), w (K, N) row-major."""
+    """act(a @ w + bias) + residual on the card; a (M, K) row-major, w_tc
+    (2, N, K) the TF32 halves of w (K, N) (`tf32_halves`). `out` may be
+    `residual`, never `a`."""
     m, k = a.shape
-    n = w.shape[1]
+    n = w_tc.shape[1]
+    if k % 4:
+        raise ValueError(f"the tensor-core GEMM loads rows of 16 bytes: K={k} is not a "
+                         "multiple of 4")
     cuda_lib.check_cuda("a", a)
-    cuda_lib.check_cuda("w", w, shape=(k, n), device=a.device)
+    cuda_lib.check_cuda("w_tc", w_tc, shape=(2, n, k), device=a.device)
     if bias is not None:
         cuda_lib.check_cuda("bias", bias, shape=(n,), device=a.device)
     if residual is not None:
         cuda_lib.check_cuda("residual", residual, shape=(m, n), device=a.device)
     if out is None:
         out = torch.empty((m, n), dtype=torch.float32, device=a.device)
-    cuda_lib.launch("temporal", "gemm_f32", counter, a, w, bias, residual, out,
+    cuda_lib.launch("temporal", "gemm_f32", counter, a, w_tc, bias, residual, out,
                     m, n, k, int(relu))
     return out
 
@@ -189,7 +237,8 @@ def window_attention(qkv: torch.Tensor, key_mask: Optional[torch.Tensor], *,
 def attention_sublayer(x: torch.Tensor, y: torch.Tensor, wqkv, bqkv, wp, bp, *,
                        key_mask, windows: int, n: int, num_heads: int,
                        counter: str) -> torch.Tensor:
-    """x + proj(attention(qkv(y))) on the card, y being LN(x): three launches."""
+    """x + proj(attention(qkv(y))) on the card, y being LN(x): three launches
+    (wqkv, wp: TF32 halves)."""
     qkv = gemm(y, wqkv, bqkv, counter=counter)
     ctx = window_attention(qkv, key_mask, windows=windows, n=n,
                            num_heads=num_heads, counter=counter)
@@ -217,13 +266,13 @@ def temporal_stack(x: torch.Tensor, ops: Dict,
     cuda_lib.check_cuda("x", h)
     for blk in range(ops["ln1_g"].shape[0]):
         y = layernorm(h, ops["ln1_g"][blk], ops["ln1_b"][blk], 1e-5, counter=COUNTER)
-        h = attention_sublayer(h, y, ops["wqkv"][blk], ops["bqkv"][blk],
-                               ops["wp"][blk], ops["bp"][blk],
+        h = attention_sublayer(h, y, ops["wqkv_tc"][blk], ops["bqkv"][blk],
+                               ops["wp_tc"][blk], ops["bp"][blk],
                                key_mask=km if blk < first_masked_blocks else None,
                                windows=b, n=n, num_heads=num_heads, counter=COUNTER)
         z = layernorm(h, ops["ln2_g"][blk], ops["ln2_b"][blk], 1e-5, counter=COUNTER)
-        z = gemm(z, ops["w1"][blk], ops["b1"][blk], relu=True, counter=COUNTER)
-        h = gemm(z, ops["w2"][blk], ops["b2"][blk], residual=h, out=h, counter=COUNTER)
+        z = gemm(z, ops["w1_tc"][blk], ops["b1"][blk], relu=True, counter=COUNTER)
+        h = gemm(z, ops["w2_tc"][blk], ops["b2"][blk], residual=h, out=h, counter=COUNTER)
     return h.reshape(b, n, c)
 
 

@@ -2,7 +2,8 @@
 ops/pallas_temporal_bwd.py `fused_temporal_stack_train`).
 
 `temporal_stack_train(x, ops, key_mask, dp_all, ...)` is differentiable. x is
-(B, S, C); `ops` are `temporal.stack_temporal_params`' 12 stacked operands;
+(B, S, C); `ops` are `temporal.stack_temporal_params`' 12 stacked operands
+and their matrices' TF32 halves (HALVES, split from the same weights);
 dp_all (L, 2, B) holds each block's per-window stochastic-depth scales on
 its attention and MLP branches. On a CPU tensor it is
 `temporal.temporal_stack_plain` with the scales, under autograd. On a CUDA
@@ -13,6 +14,9 @@ tensor it is `TemporalStackTrain`:
   - backward (`temporal_train_bwd`): the kernels of `csrc/temporal_bwd.cu`,
     returning dx, the grads of all 12 operands per block and ddp (L, 2, B),
     as `_fts_impl_bwd` does.
+Every product runs on the tensor cores in 3xTF32 (`csrc/gemm_tc.cuh`): the
+forward's and dX = dY·Wᵀ on TMA + wgmma from W's halves, dW = Xᵀ·dY on
+mma.sync, split over the rows.
 Launches count as "temporal_train_fwd" and "temporal_train_bwd".
 """
 
@@ -24,13 +28,14 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 from . import cuda_lib
-from .temporal import gemm, layernorm, temporal_stack_plain, window_attention
+from .temporal import DENSE, gemm, layernorm, temporal_stack_plain, window_attention
 
 COUNTER_FWD = "temporal_train_fwd"
 COUNTER_BWD = "temporal_train_bwd"
 ORDER = ["ln1_g", "ln1_b", "wqkv", "bqkv", "wp", "bp", "ln2_g", "ln2_b",
          "w1", "b1", "w2", "b2"]
-_TARGET_BLOCKS = 264  # split-K: aim for two waves of 132 SMs
+HALVES = [f"{name}{kind}" for kind in ("_tc", "_tc_dx") for name in DENSE]
+_TARGET_BLOCKS = 264  # split-K dW: one wave of two blocks on each of 132 SMs
 
 
 def _empty(shape, like: torch.Tensor) -> torch.Tensor:
@@ -39,12 +44,14 @@ def _empty(shape, like: torch.Tensor) -> torch.Tensor:
 
 # -- forward --------------------------------------------------------------------
 
-def _branch_gemm(a, w, bias, scale, rows_per_scale, residual, relu=False):
-    """(residual + scale · act(a @ w + bias), act(a @ w + bias)) on the card."""
+def _branch_gemm(a, w_tc, bias, scale, rows_per_scale, residual, relu=False):
+    """(residual + scale · act(a @ w + bias), act(a @ w + bias)) on the card;
+    w_tc (2, N, K) the TF32 halves of w (K, N)."""
     m, k = a.shape
-    n = w.shape[1]
+    n = w_tc.shape[1]
+    cuda_lib.check_cuda("w_tc", w_tc, shape=(2, n, k), device=a.device)
     out, branch = _empty((m, n), a), _empty((m, n), a)
-    cuda_lib.launch("temporal_bwd", "gemm_branch_f32", COUNTER_FWD, a, w, bias, scale,
+    cuda_lib.launch("temporal_bwd", "gemm_branch_f32", COUNTER_FWD, a, w_tc, bias, scale,
                     rows_per_scale, residual, branch, out, m, n, k, int(relu))
     return out, branch
 
@@ -55,7 +62,7 @@ def _check(x: torch.Tensor, ops: Dict, dp_all: torch.Tensor, num_heads: int):
         raise ValueError(f"C={c} does not split into {num_heads} heads")
     blocks = ops["ln1_g"].shape[0]
     cuda_lib.check_cuda("dp_all", dp_all, shape=(blocks, 2, b), device=x.device)
-    for name in ORDER:
+    for name in ORDER + HALVES:
         cuda_lib.check_cuda(name, ops[name], device=x.device)
 
 
@@ -73,13 +80,13 @@ def temporal_train_fwd(x: torch.Tensor, ops: Dict, key_mask: Optional[torch.Tens
     saved = []
     for blk in range(ops["ln1_g"].shape[0]):
         y = layernorm(h, ops["ln1_g"][blk], ops["ln1_b"][blk], 1e-5, counter=COUNTER_FWD)
-        qkv = gemm(y, ops["wqkv"][blk], ops["bqkv"][blk], counter=COUNTER_FWD)
+        qkv = gemm(y, ops["wqkv_tc"][blk], ops["bqkv"][blk], counter=COUNTER_FWD)
         ctx = window_attention(qkv, km if blk < first_masked_blocks else None, windows=b,
                                n=n, num_heads=num_heads, counter=COUNTER_FWD)
-        x2, proj = _branch_gemm(ctx, ops["wp"][blk], ops["bp"][blk], dp_all[blk, 0], n, h)
+        x2, proj = _branch_gemm(ctx, ops["wp_tc"][blk], ops["bp"][blk], dp_all[blk, 0], n, h)
         z = layernorm(x2, ops["ln2_g"][blk], ops["ln2_b"][blk], 1e-5, counter=COUNTER_FWD)
-        h1 = gemm(z, ops["w1"][blk], ops["b1"][blk], relu=True, counter=COUNTER_FWD)
-        out, z2 = _branch_gemm(h1, ops["w2"][blk], ops["b2"][blk], dp_all[blk, 1], n, x2)
+        h1 = gemm(z, ops["w1_tc"][blk], ops["b1"][blk], relu=True, counter=COUNTER_FWD)
+        out, z2 = _branch_gemm(h1, ops["w2_tc"][blk], ops["b2"][blk], dp_all[blk, 1], n, x2)
         saved.append(dict(x=h, y=y, qkv=qkv, ctx=ctx, proj=proj, x2=x2, z=z, h1=h1, z2=z2))
         h = out
     return h.reshape(b, n, c), saved
@@ -93,27 +100,37 @@ def _sum_rows(part: torch.Tensor, out: torch.Tensor, counter=COUNTER_BWD) -> Non
                     part.numel() // rows)
 
 
-def gemm_dx(dy, scale, rows_per_scale, w, mask=None, counter=COUNTER_BWD):
-    """(dy · scale[row // rows_per_scale]) @ wᵀ, zeroed where mask <= 0."""
+def gemm_dx(dy, scale, rows_per_scale, w_tc_dx, mask=None, counter=COUNTER_BWD):
+    """(dy · scale[row // rows_per_scale]) @ wᵀ, zeroed where mask <= 0; w_tc_dx
+    (2, N, K) the TF32 halves of w (N, K) as stored (`tf32_halves(w,
+    transpose=False)`)."""
     m, k = dy.shape
-    n = w.shape[0]
+    n = w_tc_dx.shape[1]
+    if k % 4:
+        raise ValueError(f"the tensor-core GEMM loads rows of 16 bytes: K={k} is not a "
+                         "multiple of 4")
+    cuda_lib.check_cuda("w_tc_dx", w_tc_dx, shape=(2, n, k), device=dy.device)
     out = _empty((m, n), dy)
     cuda_lib.launch("temporal_bwd", "gemm_dx_f32", counter, dy, scale, rows_per_scale,
-                    w, mask, out, m, n, k)
+                    w_tc_dx, mask, out, m, n, k)
     return out
 
 
 def dw_splits(rows: int, m: int, n: int) -> int:
-    """Row chunks of a split-K dW product (m, n) over `rows`: about two waves
-    of blocks, at least 256 rows a chunk."""
-    tiles = math.ceil(m / 128) * math.ceil(n / 64)
-    return max(1, min(64, math.ceil(_TARGET_BLOCKS / tiles), rows // 256))
+    """Row chunks of a split-K dW product (m, n) over `rows` on `gemm_dw_f32`'s
+    128 x 128 tiles: as many as one wave of blocks holds (two per SM), at
+    least 256 rows a chunk."""
+    tiles = math.ceil(m / 128) * math.ceil(n / 128)
+    return max(1, min(64, _TARGET_BLOCKS // tiles, rows // 256))
 
 
 def gemm_dw(x, dy, scale, rows_per_scale, out, counter=COUNTER_BWD):
-    """out (m, n) = xᵀ @ (dy · scale[row // rows_per_scale]), split over rows."""
+    """out (m, n) = xᵀ @ (dy · scale[row // rows_per_scale]), split over rows;
+    m and n multiples of 4."""
     rows, m = x.shape
     n = dy.shape[1]
+    if m % 4 or n % 4:
+        raise ValueError(f"dW loads rows of 16 bytes: ({m}, {n}) are not multiples of 4")
     splits = dw_splits(rows, m, n)
     part = _empty((splits, m, n), x)
     cuda_lib.launch("temporal_bwd", "gemm_dw_f32", counter, x, dy, scale,
@@ -177,10 +194,10 @@ def temporal_train_bwd(saved: List[Dict], g: torch.Tensor, ops: Dict,
                         ddp[blk, 1], b, n, c)
         gemm_dw(s["h1"], g, s2, n, grads["w2"][blk])
         colsum(g, s2, n, grads["b2"][blk])
-        dh1 = gemm_dx(g, s2, n, ops["w2"][blk], mask=s["h1"])
+        dh1 = gemm_dx(g, s2, n, ops["w2_tc_dx"][blk], mask=s["h1"])
         gemm_dw(s["z"], dh1, None, 1, grads["w1"][blk])
         colsum(dh1, None, 1, grads["b1"][blk])
-        dz = gemm_dx(dh1, None, 1, ops["w1"][blk])
+        dz = gemm_dx(dh1, None, 1, ops["w1_tc_dx"][blk])
         dx2 = layernorm_bwd(s["x2"], dz, ops["ln2_g"][blk], g, grads["ln2_g"][blk],
                       grads["ln2_b"][blk])
         # attention branch: x2 = x + s1 · (attention(LN1(x)) @ wp + bp)
@@ -188,12 +205,12 @@ def temporal_train_bwd(saved: List[Dict], g: torch.Tensor, ops: Dict,
                         ddp[blk, 0], b, n, c)
         gemm_dw(s["ctx"], dx2, s1, n, grads["wp"][blk])
         colsum(dx2, s1, n, grads["bp"][blk])
-        dctx = gemm_dx(dx2, s1, n, ops["wp"][blk])
+        dctx = gemm_dx(dx2, s1, n, ops["wp_tc_dx"][blk])
         dqkv = window_attention_bwd(s["qkv"], dctx, km if blk < first_masked_blocks else None,
                                     windows=b, n=n, num_heads=num_heads)
         gemm_dw(s["y"], dqkv, None, 1, grads["wqkv"][blk])
         colsum(dqkv, None, 1, grads["bqkv"][blk])
-        dy = gemm_dx(dqkv, None, 1, ops["wqkv"][blk])
+        dy = gemm_dx(dqkv, None, 1, ops["wqkv_tc_dx"][blk])
         g = layernorm_bwd(s["x"], dy, ops["ln1_g"][blk], dx2, grads["ln1_g"][blk],
                     grads["ln1_b"][blk])
     return g.reshape(b, n, c), grads, ddp
@@ -226,11 +243,12 @@ def saved_relu_masks(saved: List[Dict]) -> List[torch.Tensor]:
 
 class TemporalStackTrain(torch.autograd.Function):
     """K5: apply(x, key_mask, dp_all, num_heads, first_masked_blocks,
-    *operands in ORDER); gradients for x, dp_all and every operand."""
+    *operands in ORDER, *halves in HALVES); gradients for x, dp_all and every
+    operand (none for the halves: the weights carry them)."""
 
     @staticmethod
     def forward(ctx, x, key_mask, dp_all, num_heads, first_masked_blocks, *leaves):
-        ops = dict(zip(ORDER, leaves))
+        ops = dict(zip(ORDER + HALVES, leaves))
         out, saved = temporal_train_fwd(x, ops, key_mask, dp_all, num_heads=num_heads,
                                         first_masked_blocks=first_masked_blocks)
         ctx.intermediates = saved
@@ -241,11 +259,13 @@ class TemporalStackTrain(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         key_mask, dp_all, *leaves = ctx.saved_tensors
-        dx, grads, ddp = temporal_train_bwd(ctx.intermediates, g, dict(zip(ORDER, leaves)),
-                                            key_mask, dp_all, num_heads=ctx.num_heads,
+        dx, grads, ddp = temporal_train_bwd(ctx.intermediates, g,
+                                            dict(zip(ORDER + HALVES, leaves)), key_mask,
+                                            dp_all, num_heads=ctx.num_heads,
                                             first_masked_blocks=ctx.fmb)
         ctx.intermediates = None
-        return (dx, None, ddp, None, None, *[grads[name] for name in ORDER])
+        return (dx, None, ddp, None, None, *[grads[name] for name in ORDER],
+                *[None] * len(HALVES))
 
 
 def temporal_stack_train(x: torch.Tensor, ops: Dict, key_mask: Optional[torch.Tensor],
@@ -261,4 +281,5 @@ def temporal_stack_train(x: torch.Tensor, ops: Dict, key_mask: Optional[torch.Te
                                     first_masked_blocks=first_masked_blocks,
                                     droppath=dp_all)
     return TemporalStackTrain.apply(x, key_mask, dp_all.float().contiguous(), num_heads,
-                                    first_masked_blocks, *[ops[name] for name in ORDER])
+                                    first_masked_blocks,
+                                    *[ops[name] for name in ORDER + HALVES])
