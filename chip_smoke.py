@@ -22,9 +22,12 @@ Phases (one line each; any failure ends the run with a non-zero exit):
      cores (gemm_tc.cuh) at every main-path shape: K2's qkv, proj, fc1 and
      fc2 at 72,704 rows, K5's forward products (gemm_f32, the scaled-branch
      gemm_branch_f32), dX and dW at the train step's 36,352 rows, each beside
-     addmm / torch.mm; every 3xTF32 kernel (those, the window attention of
-     attention.cuh, the s2t prologue) is also held against a float64
-     reference beside its plain version;
+     addmm / torch.mm; the strided conv's products, its taps gathered from
+     h1 (strided_conv_f32 at 1,024 and 512 windows beside F.conv1d + the
+     residual add; dH1 and dWc at 512 windows beside convolution_backward);
+     every 3xTF32 kernel (those, the window attention of attention.cuh, the
+     s2t prologue) is also held against a float64 reference beside its
+     plain version;
   3. the serving path end to end: a seeded full-width h36m_351 model, flip-TTA
      on, seeded synthetic 2D sequences through `predict_sequence` on the
      kernel path, the launch counts of that run, and the same sequences
@@ -242,6 +245,8 @@ def train_phase(args, torch, np, rng, config, failed, label="phase 4"):
     from uplift_upsample_torch.data.generator import H36mSequenceGenerator
     from uplift_upsample_torch.models import build_uplift_upsample_transformer
     from uplift_upsample_torch.ops import cuda_lib
+    from uplift_upsample_torch.ops.strided import DENSE as STRIDED_DENSE
+    from uplift_upsample_torch.ops.temporal import DENSE as TEMPORAL_DENSE
     from uplift_upsample_torch.parallel import make_optimizer, make_train_step
     from uplift_upsample_torch.parallel.train_step import (batch_to_device,
                                                            fused_stages,
@@ -315,12 +320,18 @@ def train_phase(args, torch, np, rng, config, failed, label="phase 4"):
         failed.append(f"train_loss_not_finite{'_fused' if fused else ''}")
     # every dense layer on the tensor cores (the four C entries of gemm_tc.cuh's
     # kernels), from TF32 halves split anew from each step's weights: one
-    # tf32_halves_f32 launch per matrix and layout, stacked over blocks
+    # tf32_halves_f32 launch per matrix and layout, stacked over blocks (K6:
+    # its three dense matrices and the conv kernel, each on its own)
     for key in ("spatial_stack", "spatial_bwd", "temporal_train_fwd", "temporal_train_bwd",
                 "gemm_f32", "gemm_branch_f32", "gemm_dx_f32", "gemm_dw_f32"):
         if train_counts.get(key, 0) == 0:
             failed.append(f"no_launch_{key}")
-    if train_counts.get("tf32_halves_f32", 0) != TIMED_STEPS * 2 * (4 + (3 if fused else 0)):
+    if fused:  # and the conv's three products on them too
+        for key in ("strided_conv_f32", "strided_dh1_f32", "strided_dwc_f32"):
+            if train_counts.get(key, 0) != TIMED_STEPS:
+                failed.append(f"{key}_not_once_per_step")
+    halves = len(TEMPORAL_DENSE) + (len(STRIDED_DENSE) if fused else 0)
+    if train_counts.get("tf32_halves_f32", 0) != TIMED_STEPS * 2 * halves:
         failed.append(f"halves_not_split_each_step{'_fused' if fused else ''}")
     if fused:  # K6 counts calls: one forward and one backward per step
         for key in ("strided_train_fwd", "strided_train_bwd"):
@@ -902,11 +913,11 @@ def routes_phase(args, torch, np, rng, failed, record, alias):
     got, ref = sb_fn(), sb_plain()
     record("strided_block1_pass", "uplift_upsample_torch/csrc/strided.cu",
            "uplift_upsample_tpu/ops/pallas_strided.py:175", out_check(torch, got, ref),
-           time_ms(torch, sb_fn, 5), time_ms(torch, sb_plain, 3),
-           windows * n_out * 2 * 3 * hid * c,
+           time_ms(torch, sb_fn, 5), time_ms(torch, sb_plain, 3), 0,
            (x_tm.numel() + got.numel()) * F32 + ops_bytes(st_ops),
            counter="strided_block1", phase="strided pass",
-           tc_flops=rows * 2 * c * (3 * c + c + hid) + windows * 4 * n * n * c)
+           tc_flops=(rows * 2 * c * (3 * c + c + hid) + windows * 4 * n * n * c
+                     + windows * n_out * 2 * 3 * hid * c))
     counted("strided pass", sb_fn)
     del x_tm, km, got, ref
 
@@ -1095,8 +1106,10 @@ def main(argv=None) -> int:
     from uplift_upsample_torch.ops.spatial_bwd import (spatial_stack_bwd,
                                                        spatial_stack_bwd_plain)
     from uplift_upsample_torch.ops.strided import (output_length, strided_block1,
-                                                   strided_block1_plain)
-    from uplift_upsample_torch.ops.strided_train import (saved_relu_mask,
+                                                   strided_block1_plain, strided_conv,
+                                                   strided_conv_plain)
+    from uplift_upsample_torch.ops.strided_train import (conv_dh1, conv_dh1_plain, conv_dwc,
+                                                         conv_dwc_plain, saved_relu_mask,
                                                          strided_block1_bwd_plain,
                                                          strided_block1_train_plain,
                                                          strided_train_bwd,
@@ -1250,13 +1263,14 @@ def main(argv=None) -> int:
         got, ref = fn(), plain()
         b, nn_, _ = x.shape
         n_out = output_length(nn_, stride, pads)
-        # the dense layers and the attention on the tensor cores, the conv on CUDA cores
+        # every product on the tensor cores: the dense layers, the attention, the conv
         record(name, "uplift_upsample_torch/csrc/strided.cu",
                "uplift_upsample_tpu/ops/pallas_strided.py:231", out_check(torch, got, ref),
-               time_ms(torch, fn, 5), time_ms(torch, plain, 3), b * n_out * 2 * 3 * hid * c,
+               time_ms(torch, fn, 5), time_ms(torch, plain, 3), 0,
                (x.numel() + got.numel()) * F32 + ops_bytes(ops),
                counter="strided_block1", listed=listed,
-               tc_flops=b * nn_ * 2 * c * (3 * c + c + hid) + b * 4 * nn_ * nn_ * c)
+               tc_flops=(b * nn_ * 2 * c * (3 * c + c + hid) + b * 4 * nn_ * nn_ * c
+                         + b * n_out * 2 * 3 * hid * c))
 
     strided_case("strided_block1", fp["strided"], x_tm, model.strides[0],
                  model.paddings[0])
@@ -1267,6 +1281,45 @@ def main(argv=None) -> int:
                  rand(2 * config81.BATCH_SIZE, config81.SEQUENCE_LENGTH, c),
                  model81.strides[0], model81.paddings[0], listed=False)
     del model81
+
+    # The conv of strided block 1 alone, K3's and K6's products over the taps
+    # matrix T (B·n_out, 3·hidden) that the kernels gather from h1, beside
+    # one cuDNN call each (TF32 off, as the package sets it) on operands laid
+    # out as cuDNN wants them: the forward against F.conv1d on a transposed
+    # h1 plus the residual add; dH1 and dWc against convolution_backward.
+    def conv_operands(ops, b_, stride, pads):
+        """h1 (relu'd), the block input x, the cuDNN layouts and the residual rows."""
+        h1_, x_ = torch.relu(rand(b_, n, hid)), rand(b_, n, c)
+        n_out = output_length(n, stride, pads)
+        off = 1 if pads[0] == 0 else 0
+        lib = dict(h1t=h1_.transpose(1, 2).contiguous(),  # (B, hidden, n)
+                   wt=ops["wc"].reshape(3, hid, c).permute(2, 1, 0).contiguous(),  # (C, hid, 3)
+                   res=x_[:, off: off + stride * (n_out - 1) + 1: stride])
+        return h1_, x_, n_out, lib
+
+    def conv_fwd_record(name, ops, b_, stride, pads, phase_):
+        h1_, x_, n_out, lib = conv_operands(ops, b_, stride, pads)
+        kw_ = dict(stride=stride, paddings=pads)
+        fn = lambda: strided_conv(h1_, x_, ops, counter="probe", **kw_)
+        plain = lambda: strided_conv_plain(h1_, x_, ops["wc"], ops["bc"], **kw_)
+        lib_fn = lambda: lib["res"] + F.conv1d(lib["h1t"], lib["wt"], ops["bc"], stride=stride,
+                                               padding=pads[0]).transpose(1, 2)
+        got, ref = fn(), plain()
+        ref64 = strided_conv_plain(h1_.double(), x_.double(), ops["wc"].double(),
+                                   ops["bc"].double(), **kw_)
+        log(f"phase 2 {name}: F.conv1d + add against the plain version: max_abs_err "
+            f"{max_err(lib_fn(), ref):.3e}")
+        m_ = b_ * n_out
+        record(name, "uplift_upsample_torch/csrc/strided.cu",
+               "uplift_upsample_tpu/ops/pallas_strided.py:231", out_check(torch, got, ref),
+               time_ms(torch, fn, 10), time_ms(torch, plain, 5), 0,
+               (h1_.numel() + 2 * m_ * c + 3 * hid * c * 2 + c) * F32,
+               library_ms=time_ms(torch, lib_fn, 10), counter="strided_conv_f32",
+               phase=phase_, f64=f64_check(torch, got, ref, ref64),
+               tc_flops=2 * m_ * 3 * hid * c)
+
+    conv_fwd_record("strided_conv", fp["strided"], windows, model.strides[0],
+                    model.paddings[0], "predict")
 
     # The pieces K2 and K3 are made of, each beside the one PyTorch call that
     # computes the same function (timed here only; the port never calls them).
@@ -1630,16 +1683,15 @@ def main(argv=None) -> int:
     fwd6 = lambda: strided_train_fwd(x_t, st_ops, **kw6)
     fwd6_plain = lambda: strided_block1_train_plain(x_t, st_ops, **kw6)
     (out6, saved6), ref6 = fwd6(), fwd6_plain()
-    # the dense layers on the tensor cores; the conv and (backward) the
-    # attention on CUDA cores, the forward's attention on the tensor cores
+    # every product on the tensor cores but the backward's attention (CUDA cores)
     gemm6 = bt * nt * 2 * c * (3 * c + c + hid)
     attn6, conv6 = bt * 4 * nt * nt * c, bt * n_out_t * 2 * 3 * hid * c
     io6 = x_t.numel() * F32 + ops_bytes(st_ops)
     record("strided_train_fwd", "uplift_upsample_torch/csrc/strided.cu",
            "uplift_upsample_tpu/ops/pallas_strided_bwd.py:222", out_check(torch, out6, ref6),
-           time_ms(torch, fwd6, 5), time_ms(torch, fwd6_plain, 3), conv6,
+           time_ms(torch, fwd6, 5), time_ms(torch, fwd6_plain, 3), 0,
            io6 + out6.numel() * F32, counter="strided_train_fwd", phase="train_cli",
-           tc_flops=gemm6 + attn6)
+           tc_flops=gemm6 + attn6 + conv6)
     bwd6 = lambda: strided_train_bwd(saved6, cot6, st_ops, **kw6)
     # the plain backward takes fc1's relu kink on the side K6's forward took
     bwd6_plain = lambda: strided_block1_bwd_plain(x_t, st_ops, cot6,
@@ -1656,11 +1708,52 @@ def main(argv=None) -> int:
     saved6_bytes = sum(t.numel() for t in saved6.values()) * F32
     record("strided_train_bwd", "uplift_upsample_torch/csrc/strided_bwd.cu",
            "uplift_upsample_tpu/ops/pallas_strided_bwd.py:266", grad_check(torch, pairs6),
-           time_ms(torch, bwd6, 5), time_ms(torch, bwd6_plain, 3), 2 * (attn6 + conv6),
+           time_ms(torch, bwd6, 5), time_ms(torch, bwd6_plain, 3), 2 * attn6,
            saved6_bytes + (2 * x_t.numel() + cot6.numel()) * F32
            + ops_bytes(st_ops, backward=True) + sum(g_.numel() for g_ in gp6.values()) * F32,
-           counter="strided_train_bwd", phase="train_cli", tc_flops=2 * gemm6)
-    del out6, saved6, ref6, dx6, gk6, dxp6, gp6, pairs6, cot6, x_t, tfp, tmodel, st_ops
+           counter="strided_train_bwd", phase="train_cli", tc_flops=2 * (gemm6 + conv6))
+    del out6, saved6, ref6, dx6, gk6, dxp6, gp6, pairs6, cot6, x_t
+    torch.cuda.empty_cache()
+
+    # K6's conv alone at the train step's shapes: the forward, then dH1 (the
+    # taps' gradient scattered onto the h1 rows they read, relu-masked) and
+    # dWc = Tᵀ·g, each against convolution_backward for its own output (and
+    # for the pair, the call the backward would make).
+    conv_fwd_record("strided_conv_train", st_ops, bt, s0, (0, 0), "train_cli")
+    h1_, _, _, lib = conv_operands(st_ops, bt, s0, (0, 0))
+    g_ = rand(bt, n_out_t, c, scale=1.0)
+    kw_ = dict(stride=s0, paddings=(0, 0))
+    g_t = g_.transpose(1, 2).contiguous()  # (B, C, n_out)
+    conv_bwd = lambda mask_: torch.ops.aten.convolution_backward(
+        g_t, lib["h1t"], lib["wt"], None, [s0], [0], [1], False, [0], 1, mask_)
+    pair_ms = time_ms(torch, lambda: conv_bwd([True, True, False]), 10)
+    dh1_fn = lambda: conv_dh1(g_, st_ops, h1_, **kw_)
+    dh1_plain = lambda: conv_dh1_plain(g_, st_ops["wc"], h1_, **kw_)
+    got, ref = dh1_fn(), dh1_plain()
+    repeat_identical("strided_dh1", [got], [dh1_fn()])
+    ref64 = conv_dh1_plain(g_.double(), st_ops["wc"].double(), h1_.double(), **kw_)
+    m_ = bt * n_out_t
+    record("strided_dh1", "uplift_upsample_torch/csrc/strided_bwd.cu",
+           "uplift_upsample_tpu/ops/pallas_strided_bwd.py:266", grad_check(torch, [(got, ref)]),
+           time_ms(torch, dh1_fn, 10), time_ms(torch, dh1_plain, 5), 0,
+           (g_.numel() + 3 * hid * c * 2 + 2 * h1_.numel()) * F32,
+           library_ms=time_ms(torch, lambda: conv_bwd([True, False, False]), 10),
+           counter="strided_dh1_f32", phase="train_cli", f64=f64_check(torch, got, ref, ref64),
+           extra=dict(library_pair_ms=pair_ms), tc_flops=2 * m_ * c * 3 * hid)
+    dwc_out = torch.empty((3 * hid, c), device=dev)
+    dwc_fn = lambda: conv_dwc(h1_, g_, dwc_out, **kw_)
+    dwc_plain = lambda: conv_dwc_plain(h1_, g_, **kw_)
+    got, ref = dwc_fn().clone(), dwc_plain()
+    repeat_identical("strided_dwc", [got], [dwc_fn()])
+    ref64 = conv_dwc_plain(h1_.double(), g_.double(), **kw_)
+    record("strided_dwc", "uplift_upsample_torch/csrc/strided_bwd.cu",
+           "uplift_upsample_tpu/ops/pallas_strided_bwd.py:266", grad_check(torch, [(got, ref)]),
+           time_ms(torch, dwc_fn, 10), time_ms(torch, dwc_plain, 5), 0,
+           (h1_.numel() + g_.numel() + got.numel()) * F32,
+           library_ms=time_ms(torch, lambda: conv_bwd([False, True, False]), 10),
+           counter="strided_dwc_f32", phase="train_cli", f64=f64_check(torch, got, ref, ref64),
+           tc_flops=2 * m_ * 3 * hid * c)
+    del h1_, g_, g_t, lib, got, ref, ref64, dwc_out, tfp, tmodel, st_ops
     torch.cuda.empty_cache()
 
     # ---- phase 3: the serving path end to end --------------------------------

@@ -22,7 +22,17 @@ Builds patched copies of `csrc/` under `uplift_upsample_torch/_build/probe/`
 - the dW product (`temporal_bwd.cu`'s gemm_dw_f32 at the qkv weight's
   384 x 1,152 over 36,352 rows, split as ops/temporal_train.dw_splits cuts
   it, beside torch.mm): the kernel; "products only" (no cp.async copies);
-  "copies only" (no mma.sync); "no splits"; "one pass, no splits".
+  "copies only" (no mma.sync); "no splits"; "one pass, no splits";
+- the conv forward (`strided.cu`'s strided_conv_f32 at serving, 1,024
+  windows x 23 selected rows, K = 3 x 768 -> 384, its taps gathered from h1,
+  beside F.conv1d + the residual add): the kernel; "dense A" (gemm_f32 on
+  the taps matrix written out, read by TMA: the same products without the
+  gather); "no gathered copies" (the producer threads issue no cp.async);
+  "no products" (no wgmma); "no epilogue"; "no splits"; "registers 56/224"
+  (setmaxnreg: the producer warpgroup gives registers to the consumers);
+- the conv's dH1 (`strided_bwd.cu`'s strided_dh1_f32 at the train step,
+  11,776 rows x 384 -> 3 x 768, beside convolution_backward's input
+  gradient): the kernel; "no epilogue"; "registers 56/224".
 
 Each prints one line. The patched versions compute nothing meaningful; only
 each kernel as it is is checked against its plain version. Needs a CUDA card
@@ -52,16 +62,17 @@ ATTENTION = {
     "no splits": NO_SPLITS,
     "one pass, no splits": NO_SPLITS + ONE_MMA,
 }
-_TMA = ("          mbar_expect_tx(full + 8 * s, TC_STAGE_BYTES);\n"
-        "          tma_load_2d(st, &map_a, kt * TC_BK, m0, full + 8 * s);\n"
-        "          tma_load_2d(st + TC_TILE_BYTES, &map_w, kt * TC_BK, n0, full + 8 * s);\n"
-        "          tma_load_2d(st + 2 * TC_TILE_BYTES, &map_w, kt * TC_BK, n + n0, full + 8 * s);\n")
+_TMA = ("            mbar_expect_tx(full + 8 * s, TC_STAGE_BYTES);\n"
+        "            tma_load_2d(st, &map_a, kt * TC_BK, m0, full + 8 * s);\n"
+        "            tma_load_2d(st + TC_TILE_BYTES, &map_w, kt * TC_BK, n0, full + 8 * s);\n"
+        "            tma_load_2d(st + 2 * TC_TILE_BYTES, &map_w, kt * TC_BK, w_small + n0,"
+        " full + 8 * s);\n")
 _SMALL_WGMMA = ("          wgmma_m64n64k8_tf32(part, a_small[j], desc_big + half + 2 * j);\n"
                 "          wgmma_m64n64k8_tf32(part, a_big[j], desc_small + half + 2 * j);\n")
 _BIG_WGMMA = "          wgmma_m64n64k8_tf32(part, a_big[j], desc_big + half + 2 * j);\n"
 GEMM = {
     "kernel": [],
-    "products only": [("gemm_tc.cuh", _TMA, "          mbar_arrive(full + 8 * s);\n")],
+    "products only": [("gemm_tc.cuh", _TMA, "            mbar_arrive(full + 8 * s);\n")],
     "copies only": [("gemm_tc.cuh", _SMALL_WGMMA + _BIG_WGMMA, "")],
     "no epilogue": [("gemm_tc.cuh", "    const int row0 = m0 + r, row1 = row0 + 8;",
                      "    const int row0 = m0 + r + (k > 0 ? m : 0), row1 = row0 + 8;")],
@@ -69,6 +80,23 @@ GEMM = {
     "one pass, no splits": NO_SPLITS + [("gemm_tc.cuh", _SMALL_WGMMA, "")],
 }
 _CP = "      cp_async16({t}s + kk * AB_LD + c4,"
+_GATHER = "            cp_async16(at + r * 32 + (q ^ (r % 8)) * 4,"
+_PROD = "  if (threadIdx.x < 128) {  // producer warpgroup\n"
+_CONS = "  // consumers: warpgroup cw owns rows 64cw..64cw+63 of each tile\n"
+# registers moved from the producer warpgroup to the consumers (setmaxnreg)
+_SETMAXNREG = '{}asm volatile("setmaxnreg.{}.sync.aligned.u32 {};\\n");\n'
+REGS = [("gemm_tc.cuh", _PROD, _PROD + _SETMAXNREG.format("    ", "dec", 56)),
+        ("gemm_tc.cuh", _CONS, _CONS + _SETMAXNREG.format("  ", "inc", 224))]
+NO_EPILOGUE = GEMM["no epilogue"]
+CONV = {
+    "kernel": [],
+    "no gathered copies": [("gemm_tc.cuh", _GATHER, "            if (k < 0) " + _GATHER[12:])],
+    "no products": [("gemm_tc.cuh", _SMALL_WGMMA + _BIG_WGMMA, "")],
+    "no epilogue": NO_EPILOGUE,
+    "no splits": NO_SPLITS,
+    "registers 56/224": REGS,
+}
+DH1 = {"kernel": [], "no epilogue": NO_EPILOGUE, "registers 56/224": REGS}
 DW = {
     "kernel": [],
     "products only": [("gemm_tc.cuh", _CP.format(t=t), "      if (m < 0) " + _CP.format(t=t)[6:])
@@ -121,6 +149,8 @@ def main(argv=None) -> int:
     from chip_smoke import card_line, time_ms
     from uplift_upsample_torch.ops import cuda_lib
     from uplift_upsample_torch.ops.packed_attention import packed_attention_plain
+    from uplift_upsample_torch.ops.strided import conv_taps_plain, strided_conv_plain
+    from uplift_upsample_torch.ops.strided_train import conv_dh1_plain
     from uplift_upsample_torch.ops.temporal import tf32_halves
     from uplift_upsample_torch.ops.temporal_train import dw_splits
 
@@ -128,7 +158,8 @@ def main(argv=None) -> int:
     print(f"card: {card_line()}", flush=True)
     builds = {}
     for group, source, variants in (("attention", "attention", ATTENTION),
-                                    ("gemm", "temporal", GEMM), ("dw", "temporal_bwd", DW)):
+                                    ("gemm", "temporal", GEMM), ("dw", "temporal_bwd", DW),
+                                    ("conv", "strided", CONV), ("dh1", "strided_bwd", DH1)):
         for name, reps in variants.items():
             builds[group, name] = start_build(cuda_lib, f"{group} {name}", source, reps)
     for key, (proc, _) in builds.items():
@@ -208,6 +239,60 @@ def main(argv=None) -> int:
             err = f" max_abs_err {float((part.sum(0) - x.t() @ dy).abs().max()):.3e};"
         print(f"probe dw {name}: {mw} x {n} over {rows} rows in {splits} chunks (partials "
               f"only):{err} ms {time_ms(torch, call, 20):.4f} (torch.mm {mm:.4f})", flush=True)
+    del x, dy, part
+
+    b, n, hid, s0 = 1024, 71, 2 * c, 3
+    n_out = (n - 3) // s0 + 1
+    h1, x = torch.relu(rand(b, n, hid)), rand(b, n, c)
+    wc, bc = rand(3 * hid, c, scale=0.03), rand(c, scale=0.1)
+    halves = tf32_halves(wc)
+    res = x[:, 1: 1 + s0 * (n_out - 1) + 1: s0]
+    h1t, wt = h1.transpose(1, 2).contiguous(), wc.reshape(3, hid, c).permute(2, 1, 0).contiguous()
+    conv1d = time_ms(torch, lambda: res + F.conv1d(h1t, wt, bc, stride=s0).transpose(1, 2), 20)
+    ref = strided_conv_plain(h1, x, wc, bc, stride=s0, paddings=(0, 0))
+    out = torch.empty((b * n_out, c), device=dev)
+    taps, res = conv_taps_plain(h1, s0, (0, 0)).reshape(-1, 3 * hid), res.reshape(-1, c)
+    dense = bind(builds["gemm", "kernel"][1], "gemm_f32", 5, 4)
+    variants = {"dense A": lambda: dense(taps.data_ptr(), halves.data_ptr(), bc.data_ptr(),
+                                         res.data_ptr(), out.data_ptr(), b * n_out, c,
+                                         3 * hid, 0, stream())}
+    for name in CONV:
+        fn = bind(builds["conv", name][1], "strided_conv_f32", 5, 7)
+        variants[name] = lambda fn=fn: fn(h1.data_ptr(), x.data_ptr(), halves.data_ptr(),
+                                          bc.data_ptr(), out.data_ptr(), b, n, hid, c, s0, 0,
+                                          n_out, stream())
+    for name in ["kernel", "dense A", *list(CONV)[1:]]:
+        call = variants[name]
+        if call() != 0:
+            raise RuntimeError(f"conv {name}: launch failed")
+        torch.cuda.synchronize()
+        err = ""
+        if name in ("kernel", "dense A"):
+            err = f" max_abs_err {float((out.reshape(ref.shape) - ref).abs().max()):.3e};"
+        print(f"probe conv {name}: {b * n_out} x {3 * hid} -> {c}:{err} ms "
+              f"{time_ms(torch, call, 20):.4f} (F.conv1d + add {conv1d:.4f})", flush=True)
+    del h1, x, taps, res, out
+
+    b = 512
+    h1, g = torch.relu(rand(b, n, hid)), rand(b, n_out, c, scale=1.0)
+    halves_dx = tf32_halves(wc, transpose=False)
+    ref = conv_dh1_plain(g, wc, h1, stride=s0, paddings=(0, 0))
+    dh1 = torch.empty_like(h1)
+    g_t = g.transpose(1, 2).contiguous()
+    h1t = h1.transpose(1, 2).contiguous()
+    lib = time_ms(torch, lambda: torch.ops.aten.convolution_backward(
+        g_t, h1t, wt, None, [s0], [0], [1], False, [0], 1, [True, False, False]), 20)
+    for name in DH1:
+        fn = bind(builds["dh1", name][1], "strided_dh1_f32", 4, 7)
+        call = lambda: fn(g.data_ptr(), halves_dx.data_ptr(), h1.data_ptr(), dh1.data_ptr(), b,
+                          n, hid, c, s0, 0, n_out, stream())
+        if call() != 0:
+            raise RuntimeError(f"dh1 {name}: launch failed")
+        torch.cuda.synchronize()
+        err = f" max_abs_err {float((dh1 - ref).abs().max()):.3e};" if name == "kernel" else ""
+        print(f"probe dh1 {name}: {b * n_out} x {c} -> {3 * hid}:{err} ms "
+              f"{time_ms(torch, call, 20):.4f} (convolution_backward, input {lib:.4f})",
+              flush=True)
     return 0
 
 

@@ -24,6 +24,7 @@ import pytest
 import torch
 
 from uplift_upsample_torch.ops import cuda_lib
+from uplift_upsample_torch.ops.strided import DENSE as STRIDED_DENSE
 from uplift_upsample_torch.ops.temporal import (DENSE, gemm, tf32_halves,
                                                 tf32_halves_plain)
 from uplift_upsample_torch.ops.temporal_train import _branch_gemm, dw_splits, gemm_dw, gemm_dx
@@ -146,8 +147,9 @@ def test_3xtf32_emulation_meets_float64_criterion(k, n, dw):
 
 def test_training_path_splits_halves_from_each_steps_weights(monkeypatch):
     """Stale-halves guard: the train step stacks K5's and K6's operands anew
-    each step, and their TF32 halves with them. Two steps of make_train_step
-    on the CPU with the temporal and strided kernel paths on: at each call
+    each step, and their TF32 halves with them (K6's conv kernel "wc" too).
+    Two steps of make_train_step on the CPU with the temporal and strided
+    kernel paths on: at each call
     the halves are those of that call's weights, and after an optimizer step
     both the weights and the halves have changed."""
     from uplift_upsample_torch.config import UpliftUpsampleConfig
@@ -177,7 +179,7 @@ def test_training_path_splits_halves_from_each_steps_weights(monkeypatch):
     monkeypatch.setattr(ts, "temporal_stack_train",
                         spy("temporal", ts.temporal_stack_train, DENSE))
     monkeypatch.setattr(ts, "strided_block1_train",
-                        spy("strided", ts.strided_block1_train, ("wqkv", "wp", "w1")))
+                        spy("strided", ts.strided_block1_train, STRIDED_DENSE))
     opt, _, _ = make_optimizer(config)
     state = opt.init(model, ema=False)
     step = make_train_step(model, opt, config, device="cpu")
@@ -189,7 +191,7 @@ def test_training_path_splits_halves_from_each_steps_weights(monkeypatch):
                  (np.arange(n)[None] + rng.integers(0, 3, size=(b, 1))) % 3 == 0)
         state, loss = step(state, batch)
         assert np.isfinite(float(loss))
-    for kind, names in (("temporal", DENSE), ("strided", ("wqkv", "wp", "w1"))):
+    for kind, names in (("temporal", DENSE), ("strided", STRIDED_DENSE)):
         calls = seen[kind]
         assert len(calls) == 2, kind
         for call in calls:

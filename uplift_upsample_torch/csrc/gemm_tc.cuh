@@ -1,15 +1,16 @@
 // Tensor-core GEMMs at fp32-level error for Hopper: 3xTF32 (tf32.cuh), in
-// two kernels. They carry every dense layer of K2, K3, K5 and K6 (forward,
-// and the backward's dX and dW) and the s2t prologue; gemm.cuh's SIMT loop
-// keeps only the strided conv's gathered products (strided.cu,
-// strided_bwd.cu).
+// two kernels. They carry every product of K2, K3, K5 and K6 outside the
+// attention: the dense layers (forward, and the backward's dX and dW), the
+// strided conv's three products (strided.cu, strided_bwd.cu: its taps
+// gathered from h1 by the loaders, conv_taps.cuh) and the s2t prologue.
 //
 // 1. gemm_tc_kernel: out = epilogue(A · B), A (m, k) fp32 row-major, B the
 //    two TF32 halves of an (n, k) K-major matrix in one (2, n, k) buffer
 //    (`launch_tf32_halves`): for x·W with W (k, n) the halves of Wᵀ, for the
 //    backward's dX = dY·Wᵀ the halves of W as it is stored. The epilogue is
-//    a functor `epi(r, c, v)` called once per output element, gemm.cuh's
-//    interface.
+//    a functor `epi(r, c, v)` called once per output element. A comes by
+//    TMA (`launch_gemm_tc`) or, for the conv's taps, gathered row by row
+//    (`launch_gemm_tc_gather`).
 //
 //    Bound: operations. 3xTF32 takes three TF32 products per fp32 one; K2's
 //    qkv product (72,704 x 384 -> 1,152) is 3 x 64.3 GFLOP, 0.390 ms at the
@@ -24,7 +25,12 @@
 //       and an empty mbarrier. It runs on into the next tile's loads while
 //       the consumers finish the current one: with K = 384-1,152 a tile is
 //       only 12-36 stages deep, and a block per tile would refill the ring
-//       and leave TMA idle through every epilogue;
+//       and leave TMA idle through every epilogue. A gathered A (TMA takes
+//       no row list) is fetched by all 128 producer threads instead, with
+//       cp.async in 16-byte pieces written where the swizzle puts them,
+//       zero-filled where the gather says so; each thread's copies arrive
+//       on the stage's full mbarrier as they land (cp.async.mbarrier.arrive),
+//       beside the TMA bytes of W;
 //     - warpgroups 1 and 2 are consumers, 64 rows each: per 32-deep stage a
 //       thread loads its A fragments from shared memory and splits them into
 //       TF32 halves in registers; per 64-column half of the tile it issues
@@ -61,13 +67,16 @@
 //    products go into a fresh partial that joins the accumulators with a
 //    rounded add (over 36,352 rows the toward-zero rounding of one running
 //    sum cost ~15x the plain version's error). Two blocks per SM; the caller
-//    picks the split count for about one wave (ops/temporal_train.py).
+//    picks the split count for about one wave (ops/temporal_train.py). X is
+//    read through a functor, so the conv's dWc = Tᵀ·g gathers its taps
+//    (conv_taps.cuh) the way the dense dW reads a matrix.
 #pragma once
 
 
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 #include "tf32.cuh"
 
@@ -94,6 +103,12 @@ __device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
 
 __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
+}
+
+// One arrival on `bar` once every cp.async this thread issued so far has
+// landed; counted in the barrier's expected arrivals (.noinc).
+__device__ __forceinline__ void cp_async_mbar_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" :: "r"(bar) : "memory");
 }
 
 // Wait until the phase of parity `parity` has completed.
@@ -160,11 +175,20 @@ struct BiasActResidual {
   }
 };
 
-template <class Epilogue>
+// A read by TMA through map_a.
+struct TmaA {
+  static constexpr bool kGather = false;
+};
+
+// map_w holds W's big half in rows [0, n) and its small half in rows
+// [w_small, w_small + n); A comes through map_a (ASrc = TmaA) or through the
+// gather `a_at` (ASrc::kGather: `row(r)` once per tile row, `at(row, k)` a
+// pointer to A[r, k..k+3] or nullptr for zeros).
+template <class Epilogue, class ASrc>
 __global__ void __launch_bounds__(TC_THREADS, 1)
 gemm_tc_kernel(const __grid_constant__ CUtensorMap map_a,
-               const __grid_constant__ CUtensorMap map_w, int m, int n, int k,
-               Epilogue epi) {
+               const __grid_constant__ CUtensorMap map_w, int m, int n, int k, int w_small,
+               ASrc a_at, Epilogue epi) {
   extern __shared__ float4 tc_smem[];
   unsigned char* smem_raw = reinterpret_cast<unsigned char*>(tc_smem);
   const uint32_t raw = smem_addr(smem_raw);
@@ -178,7 +202,7 @@ gemm_tc_kernel(const __grid_constant__ CUtensorMap map_a,
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < TC_STAGES; ++s) {
-      mbar_init(full + 8 * s, 1);
+      mbar_init(full + 8 * s, ASrc::kGather ? 1 + 128 : 1);  // + each gathering thread
       mbar_init(empty + 8 * s, 8);  // one arrival per consumer warp
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -187,20 +211,53 @@ gemm_tc_kernel(const __grid_constant__ CUtensorMap map_a,
 
   // Both sides count the stages they have used, `it`, across tiles: stage
   // it % TC_STAGES, in its (it / TC_STAGES)-th round.
-  if (threadIdx.x < 128) {  // producer warpgroup: one thread issues every load
-    if (threadIdx.x == 0) {
+  if (threadIdx.x < 128) {  // producer warpgroup
+    if constexpr (!ASrc::kGather) {  // one thread issues every load
+      if (threadIdx.x == 0) {
+        uint32_t it = 0;
+        for (int tile = blockIdx.x; tile < tile_count; tile += gridDim.x) {
+          const int n0 = (tile % tiles_n) * TC_BN, m0 = (tile / tiles_n) * TC_BM;
+          for (int kt = 0; kt < ktiles; ++kt, ++it) {
+            const int s = it % TC_STAGES;
+            const uint32_t round = it / TC_STAGES;
+            if (round > 0) mbar_wait(empty + 8 * s, (round - 1) & 1);
+            const uint32_t st = base + s * TC_STAGE_BYTES;
+            mbar_expect_tx(full + 8 * s, TC_STAGE_BYTES);
+            tma_load_2d(st, &map_a, kt * TC_BK, m0, full + 8 * s);
+            tma_load_2d(st + TC_TILE_BYTES, &map_w, kt * TC_BK, n0, full + 8 * s);
+            tma_load_2d(st + 2 * TC_TILE_BYTES, &map_w, kt * TC_BK, w_small + n0, full + 8 * s);
+          }
+        }
+      }
+    } else {
+      // Thread p copies 16-byte piece q = p % 8 of the tile rows p / 8 + 16i;
+      // in the 128-byte swizzle piece q of row r sits at piece q ^ (r % 8).
+      const int p = threadIdx.x, q = p % 8, r0 = p / 8;
       uint32_t it = 0;
       for (int tile = blockIdx.x; tile < tile_count; tile += gridDim.x) {
         const int n0 = (tile % tiles_n) * TC_BN, m0 = (tile / tiles_n) * TC_BM;
+        typename ASrc::Row rows[TC_BM / 16];
+#pragma unroll
+        for (int i = 0; i < TC_BM / 16; ++i) rows[i] = a_at.row(m0 + r0 + 16 * i);
         for (int kt = 0; kt < ktiles; ++kt, ++it) {
           const int s = it % TC_STAGES;
           const uint32_t round = it / TC_STAGES;
           if (round > 0) mbar_wait(empty + 8 * s, (round - 1) & 1);
           const uint32_t st = base + s * TC_STAGE_BYTES;
-          mbar_expect_tx(full + 8 * s, TC_STAGE_BYTES);
-          tma_load_2d(st, &map_a, kt * TC_BK, m0, full + 8 * s);
-          tma_load_2d(st + TC_TILE_BYTES, &map_w, kt * TC_BK, n0, full + 8 * s);
-          tma_load_2d(st + 2 * TC_TILE_BYTES, &map_w, kt * TC_BK, n + n0, full + 8 * s);
+          if (p == 0) {
+            mbar_expect_tx(full + 8 * s, 2 * TC_TILE_BYTES);
+            tma_load_2d(st + TC_TILE_BYTES, &map_w, kt * TC_BK, n0, full + 8 * s);
+            tma_load_2d(st + 2 * TC_TILE_BYTES, &map_w, kt * TC_BK, w_small + n0, full + 8 * s);
+          }
+          float* at = tiles + s * (TC_STAGE_BYTES / 4);
+          const int kk = kt * TC_BK + 4 * q;
+#pragma unroll
+          for (int i = 0; i < TC_BM / 16; ++i) {
+            const int r = r0 + 16 * i;
+            const float* src = kk < k ? a_at.at(rows[i], kk) : nullptr;
+            cp_async16(at + r * 32 + (q ^ (r % 8)) * 4, src ? src : a_at.h1, src ? 16 : 0);
+          }
+          cp_async_mbar_arrive(full + 8 * s);
         }
       }
     }
@@ -353,29 +410,50 @@ inline int sm_count() {
   return count;
 }
 
-// out = epi(A · B) with A (m, k) row-major and halves (2, n, k) from
-// launch_tf32_halves. TMA needs 16-byte aligned rows: k % 4 == 0 and 16-byte
-// aligned pointers.
-template <class Epilogue>
-inline cudaError_t launch_gemm_tc(const float* a, const float* halves, int m, int n, int k,
-                                  Epilogue epi, cudaStream_t stream) {
-  if (m <= 0 || n <= 0 || k <= 0 || k % 4 != 0) return cudaErrorInvalidValue;
-  if (reinterpret_cast<uintptr_t>(a) % 16 || reinterpret_cast<uintptr_t>(halves) % 16)
-    return cudaErrorInvalidValue;
+template <class Epilogue, class ASrc>
+inline cudaError_t launch_tc(const CUtensorMap& map_a, ASrc a_at, const float* halves,
+                             int w_small, int m, int n, int k, Epilogue epi,
+                             cudaStream_t stream) {
+  if (m <= 0 || n <= 0 || k <= 0 || k % 4 != 0 || w_small < n) return cudaErrorInvalidValue;
+  if (reinterpret_cast<uintptr_t>(halves) % 16) return cudaErrorInvalidValue;
   const long long tiles =
       (long long)((m + TC_BM - 1) / TC_BM) * ((n + TC_BN - 1) / TC_BN);
   const int sms = sm_count();
   if (tiles > (1LL << 30) || sms <= 0) return cudaErrorInvalidValue;
-  CUtensorMap map_a, map_w;
-  if (!make_tile_map(&map_a, a, m, k, TC_BM) || !make_tile_map(&map_w, halves, 2 * n, k, TC_BN))
-    return cudaErrorInvalidValue;
-  auto kernel = gemm_tc_kernel<Epilogue>;
+  CUtensorMap map_w;
+  if (!make_tile_map(&map_w, halves, w_small + n, k, TC_BN)) return cudaErrorInvalidValue;
+  auto kernel = gemm_tc_kernel<Epilogue, ASrc>;
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, TC_SMEM_BYTES);
   if (err != cudaSuccess) return err;
   const int grid = tiles < sms ? (int)tiles : sms;
-  kernel<<<grid, TC_THREADS, TC_SMEM_BYTES, stream>>>(map_a, map_w, m, n, k, epi);
+  kernel<<<grid, TC_THREADS, TC_SMEM_BYTES, stream>>>(map_a, map_w, m, n, k, w_small, a_at,
+                                                      epi);
   return cudaGetLastError();
+}
+
+// out = epi(A · B) with A (m, k) row-major and halves (2, n, k) from
+// launch_tf32_halves; or, with w_small > 0, a slice of n rows of larger
+// halves whose small half starts w_small rows after `halves`. TMA needs
+// 16-byte aligned rows: k % 4 == 0 and 16-byte aligned pointers.
+template <class Epilogue>
+inline cudaError_t launch_gemm_tc(const float* a, const float* halves, int m, int n, int k,
+                                  Epilogue epi, cudaStream_t stream, int w_small = 0) {
+  if (m <= 0 || k <= 0 || k % 4 != 0 || reinterpret_cast<uintptr_t>(a) % 16)
+    return cudaErrorInvalidValue;
+  CUtensorMap map_a;
+  if (!make_tile_map(&map_a, a, m, k, TC_BM)) return cudaErrorInvalidValue;
+  return launch_tc(map_a, TmaA{}, halves, w_small > 0 ? w_small : n, m, n, k, epi, stream);
+}
+
+// out = epi(A · B) with A (m, k) read through the gather `a_at` (a ConvTaps,
+// conv_taps.cuh) and halves (2, n, k).
+template <class Epilogue, class Gather>
+inline cudaError_t launch_gemm_tc_gather(Gather a_at, const float* halves, int m, int n, int k,
+                                         Epilogue epi, cudaStream_t stream) {
+  CUtensorMap unused;
+  memset(&unused, 0, sizeof(unused));
+  return launch_tc(unused, a_at, halves, n, m, n, k, epi, stream);
 }
 
 constexpr int AB_BM = 128, AB_BN = 128, AB_BK = 32, AB_STAGES = 3;
@@ -385,8 +463,20 @@ constexpr int AB_TILE = AB_BK * AB_LD;                // floats per operand per 
 constexpr int AB_STAGE = 2 * AB_TILE + AB_BK;         // X, dY, the rows' scales
 constexpr int AB_SMEM_BYTES = AB_STAGES * AB_STAGE * 4;
 
-static __global__ void __launch_bounds__(AB_THREADS, 2)
-gemm_atb_kernel(const float* __restrict__ x, const float* __restrict__ dy,
+// X (rows, m) row-major, read as x_at(row, col): a pointer to X[row, col..col+3].
+struct DenseRows {
+  const float* x;
+  int m;
+  __device__ __forceinline__ const float* operator()(int r, int c) const {
+    return x + (size_t)r * m + c;
+  }
+};
+
+// x_at(row, col): a pointer to X[row, col..col+3], or nullptr where X is
+// zero (DenseRows, or the conv's taps: ConvTaps, conv_taps.cuh).
+template <class XSrc>
+__global__ void __launch_bounds__(AB_THREADS, 2)
+gemm_atb_kernel(XSrc x_at, const float* __restrict__ dy,
                 const float* __restrict__ scale, int rows_per_scale, float* __restrict__ part,
                 int m, int n, int rows, int k_split) {
   extern __shared__ float4 ab_smem[];
@@ -409,8 +499,9 @@ gemm_atb_kernel(const float* __restrict__ x, const float* __restrict__ dy,
       const int idx = tid + i * AB_THREADS;
       const int kk = idx / (AB_BM / 4), c4 = (idx % (AB_BM / 4)) * 4;
       const int gk = k0 + kk;
-      const bool vx = gk < k_end && m0 + c4 < m, vy = gk < k_end && n0 + c4 < n;
-      cp_async16(xs + kk * AB_LD + c4, vx ? x + (size_t)gk * m + m0 + c4 : x, vx ? 16 : 0);
+      const bool vy = gk < k_end && n0 + c4 < n;
+      const float* xp = gk < k_end && m0 + c4 < m ? x_at(gk, m0 + c4) : nullptr;
+      cp_async16(xs + kk * AB_LD + c4, xp ? xp : dy, xp ? 16 : 0);
       cp_async16(ys + kk * AB_LD + c4, vy ? dy + (size_t)gk * n + n0 + c4 : dy, vy ? 16 : 0);
     }
     if (tid < AB_BK) {
@@ -494,23 +585,23 @@ gemm_atb_kernel(const float* __restrict__ x, const float* __restrict__ dy,
 
 // part (splits, m, n): chunk z of Xᵀ · (dY * scale[row / rows_per_scale])
 // over rows [z·k_split, (z+1)·k_split), k_split a multiple of 32; X (rows,
-// m), dY (rows, n) row-major, m and n multiples of 4, 16-byte aligned.
-inline cudaError_t launch_gemm_atb(const float* x, const float* dy, const float* scale,
+// m) through x_at (DenseRows, 16-byte aligned, or the conv's ConvTaps), dY
+// (rows, n) row-major, 16-byte aligned; m and n multiples of 4.
+template <class XSrc>
+inline cudaError_t launch_gemm_atb(XSrc x_at, const float* dy, const float* scale,
                                    int rows_per_scale, float* part, int m, int n, int rows,
                                    int splits, cudaStream_t stream) {
   if (m <= 0 || n <= 0 || rows <= 0 || splits <= 0 || splits > 65535 || m % 4 || n % 4 ||
-      (scale && rows_per_scale <= 0))
-    return cudaErrorInvalidValue;
-  if (reinterpret_cast<uintptr_t>(x) % 16 || reinterpret_cast<uintptr_t>(dy) % 16)
+      (scale && rows_per_scale <= 0) || reinterpret_cast<uintptr_t>(dy) % 16)
     return cudaErrorInvalidValue;
   if ((m + AB_BM - 1) / AB_BM > 65535) return cudaErrorInvalidValue;
   int k_split = (rows + splits - 1) / splits;
   k_split = (k_split + AB_BK - 1) / AB_BK * AB_BK;
   const cudaError_t err = cudaFuncSetAttribute(
-      gemm_atb_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, AB_SMEM_BYTES);
+      gemm_atb_kernel<XSrc>, cudaFuncAttributeMaxDynamicSharedMemorySize, AB_SMEM_BYTES);
   if (err != cudaSuccess) return err;
   const dim3 grid((n + AB_BN - 1) / AB_BN, (m + AB_BM - 1) / AB_BM, splits);
-  gemm_atb_kernel<<<grid, AB_THREADS, AB_SMEM_BYTES, stream>>>(x, dy, scale, rows_per_scale,
+  gemm_atb_kernel<<<grid, AB_THREADS, AB_SMEM_BYTES, stream>>>(x_at, dy, scale, rows_per_scale,
                                                                part, m, n, rows, k_split);
   return cudaGetLastError();
 }

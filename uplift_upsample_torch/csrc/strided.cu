@@ -12,28 +12,22 @@
 // where a tap outside [0, N) reads zero. That covers paddings (0,0) (crop-1
 // residual, h36m_351) and (1,1) (zero-padded conv, uncropped residual, h36m_81).
 //
-// Bound: a GEMM of (B*n_out) x (3*hidden) x C — compute-bound against the
-// fp32 peak. Design: the GEMM tile loop of gemm.cuh with an A loader that
-// gathers the three taps of h1 for each output row, so neither the padded
-// h1 nor the unselected rows are ever written.
+// Bound: a GEMM of (B*n_out) x (3*hidden) x C, operations: at serving
+// 23,552 x 2,304 x 384 = 41.7 GFLOP, three TF32 products each in 3xTF32,
+// 0.253 ms at the 495 TFLOP/s TF32 peak, against 0.087 ms for its ~290 MB.
+// Design: the persistent TMA + wgmma kernel of gemm_tc.cuh (3xTF32, a fresh
+// partial per 32-deep stage: K = 2,304 is 72 of them), with A = the taps
+// matrix T gathered from h1 by the producer warpgroup (conv_taps.cuh:
+// cp.async, zero-fill for taps outside the window), so neither T, the padded
+// h1 nor the unselected rows are ever written. Wc's TF32 halves are split
+// once, with the block's dense matrices (ops/strided.py).
 
 #include <cuda_runtime.h>
 
-#include "gemm.cuh"
+#include "conv_taps.cuh"
+#include "gemm_tc.cuh"
 
 namespace {
-
-struct ConvTaps {
-  const float* h1;  // (windows * n, hidden)
-  int n, hidden, n_out, stride, p0;
-  static constexpr bool kAlongK = true;
-  __device__ __forceinline__ float operator()(int r, int kk) const {
-    const int b = r / n_out, t = r - b * n_out;
-    const int j = kk / hidden, i = kk - j * hidden;
-    const int src = stride * t + j - p0;
-    return (src >= 0 && src < n) ? h1[((size_t)b * n + src) * hidden + i] : 0.f;
-  }
-};
 
 struct ConvResidual {
   const float* x;  // (windows * n, c) block input after attention
@@ -49,17 +43,19 @@ struct ConvResidual {
 
 }  // namespace
 
-// w: (3 * hidden, c) row-major, the flax Conv1D kernel (3, hidden, c) flattened.
-extern "C" int strided_conv_f32(const float* h1, const float* x, const float* w,
+// halves (2, c, 3 * hidden): the TF32 halves of Wc transposed (tf32_halves_f32
+// of the flax Conv1D kernel (3, hidden, c) flattened to (3 * hidden, c)).
+extern "C" int strided_conv_f32(const float* h1, const float* x, const float* halves,
                                 const float* bias, float* out, int windows, int n,
                                 int hidden, int c, int stride, int p0, int n_out,
                                 void* stream) {
-  if (windows <= 0 || n_out <= 0 || stride <= 0 || p0 < 0 || p0 > 1)
+  if (windows <= 0 || n_out <= 0 || stride <= 0 || p0 < 0 || p0 > 1 || hidden <= 0 ||
+      hidden % 4 || reinterpret_cast<uintptr_t>(h1) % 16)
     return cudaErrorInvalidValue;
   const int res_off = p0 == 0 ? 1 : 0;
   if (stride * (n_out - 1) + res_off >= n) return cudaErrorInvalidValue;
-  return uu::launch_gemm(ConvTaps{h1, n, hidden, n_out, stride, p0}, uu::RowMajorB{w, c},
-                         windows * n_out, c, 3 * hidden,
-                         ConvResidual{x, bias, out, n, c, n_out, stride, res_off},
-                         (cudaStream_t)stream);
+  return uu::launch_gemm_tc_gather(uu::ConvTaps{h1, windows, n, hidden, n_out, stride, p0},
+                                   halves, windows * n_out, c, 3 * hidden,
+                                   ConvResidual{x, bias, out, n, c, n_out, stride, res_off},
+                                   (cudaStream_t)stream);
 }

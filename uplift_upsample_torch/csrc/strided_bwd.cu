@@ -14,66 +14,51 @@
 //
 // Backward: everything up to h1 reuses K5's kernels (temporal_bwd.cu: dX and
 // dW GEMMs, column sums, LayerNorm and window-attention backward). The conv's
-// backward is new, and lives here:
-//   strided_dh1_f32   dH1 = the taps' gradient: for tap j, the selected rows
-//                     of g times W_j^T, added into the h1 row the tap read,
-//                     zeroed where relu cut (h1 <= 0). One GEMM per tap over
-//                     the B*n_out selected rows, launched in tap order on one
-//                     stream, so rows that several taps read (s0 < 3) sum in
-//                     a fixed order; rows no tap reads stay 0.
-//   strided_dwc_f32   dW_j = sum_t h1[s0*t + j - p0]^T . g[t]: per tap a
-//                     split-K GEMM whose A loader gathers the tap's h1 rows,
-//                     partials summed in a fixed order by sum_rows_f32.
+// backward is new, and lives here; both of its products run on the tensor
+// cores in 3xTF32 (gemm_tc.cuh) over the taps matrix T (conv_taps.cuh):
+//   strided_dh1_f32   dH1 = g . Wc^T, column j*hidden + i placed at channel i
+//                     of the h1 row tap j read, zeroed where relu cut
+//                     (h1 <= 0): the persistent TMA + wgmma kernel with A = g
+//                     and Wc's halves as stored (the K-major B it wants, as
+//                     dX reads W). With s0 >= 3 the taps read disjoint rows
+//                     and one launch writes them all; with s0 < 3 one launch
+//                     per tap in tap order, each adding into what the one
+//                     before wrote, so rows several taps read sum in a fixed
+//                     order. Rows no tap reads stay 0.
+//   strided_dwc_f32   dWc = T^T . g: gemm_atb_kernel (mma.sync) with X
+//                     gathered from h1, split over the selected rows into
+//                     partials that sum_rows_f32 adds in a fixed order.
 //   crop_residual_add_f32  the residual: dx2[s0*t + (p0 == 0)] += g[t].
 // The TPU computes the conv at every token with lane shifts and transposes
 // its slice; here only the selected rows are read and written. No float
 // atomics anywhere, so a second backward gives the same bits.
 //
-// What bounds it: the GEMMs (~178 GFLOP for the whole backward at 512
-// windows, fp32 on CUDA cores at 67 TFLOP/s); the tap GEMMs are 21 GFLOP of it.
+// What bounds it: the GEMMs, operations. At 512 windows the backward's dense
+// and conv products are ~0.17 TFLOP (each of the conv's two 20.8 GFLOP, 0.126
+// ms in 3xTF32 at the 495 TFLOP/s TF32 peak); its attention backward runs on
+// the CUDA cores (temporal_bwd.cu).
 
 #include <cuda_runtime.h>
 
-#include "gemm.cuh"
+#include "conv_taps.cuh"
+#include "gemm_tc.cuh"
 
 namespace {
 
-// A(r, kk) = h1[b*n + s0*t + off, r] for kk = b*n_out + t: tap (off + p0)'s
-// h1 row of selected row kk, transposed; zero outside the window.
-struct TapRowsT {
-  const float* h1;
-  int n, n_out, hidden, stride, off;
-  static constexpr bool kAlongK = false;
-  __device__ __forceinline__ float operator()(int r, int kk) const {
-    const int b = kk / n_out, t = kk - b * n_out;
-    const int src = stride * t + off;
-    return (src >= 0 && src < n) ? h1[((size_t)b * n + src) * hidden + r] : 0.f;
-  }
-};
-
-// Selected row r = b*n_out + t adds v into the h1 row its tap read, where
-// relu passed; elsewhere that element is 0.
-struct TapScatterAdd {
+// Selected row r = b*n_out + t, column col of g . Wc^T (tap tap0 + col /
+// hidden, channel col % hidden) lands in the h1 row that tap read, 0 where
+// relu cut; with `accumulate` it adds to what is there.
+struct TapScatter {
   const float* h1;  // the forward's relu output: the mask
   float* out;       // (windows * n, hidden)
-  int n, n_out, hidden, stride, off;
+  int n, n_out, hidden, stride, p0, tap0, accumulate;
   __device__ __forceinline__ void operator()(int r, int col, float v) const {
     const int b = r / n_out, t = r - b * n_out;
-    const int src = stride * t + off;
+    const int j = col / hidden;
+    const int src = stride * t + tap0 + j - p0;
     if (src < 0 || src >= n) return;
-    const size_t o = ((size_t)b * n + src) * hidden + col;
-    out[o] = h1[o] > 0.f ? out[o] + v : 0.f;
-  }
-};
-
-// Split-K partial of tap `tap`: epilogue row r + z*m lands in
-// part[z, tap, r, :] of a (splits, taps, m, n) buffer.
-struct TapPartStore {
-  float* part;
-  int m, n, taps, tap;
-  __device__ __forceinline__ void operator()(int r, int c, float v) const {
-    const int z = r / m, rr = r - z * m;
-    part[(((size_t)z * taps + tap) * m + rr) * n + c] = v;
+    const size_t o = ((size_t)b * n + src) * hidden + (col - j * hidden);
+    out[o] = h1[o] > 0.f ? (accumulate ? out[o] + v : v) : 0.f;
   }
 };
 
@@ -89,7 +74,8 @@ __global__ void crop_residual_add_kernel(const float* __restrict__ g, float* __r
 }
 
 bool geometry_ok(int windows, int n, int hidden, int c, int stride, int p0, int n_out) {
-  if (windows <= 0 || n <= 0 || hidden <= 0 || c <= 0 || stride <= 0 || n_out <= 0)
+  if (windows <= 0 || n <= 0 || hidden <= 0 || c <= 0 || stride <= 0 || n_out <= 0 ||
+      hidden % 4 || c % 4)
     return false;
   if (p0 < 0 || p0 > 1) return false;
   return stride * (n_out - 1) + (p0 == 0 ? 1 : 0) < n;
@@ -99,38 +85,41 @@ bool geometry_ok(int windows, int n, int hidden, int c, int stride, int p0, int 
 
 // dh1 (windows*n, hidden) = relu'(h1) * sum over taps j of the selected rows
 // of g (windows*n_out, c) times W_j^T, placed at the h1 row each tap read.
-// wc: (3*hidden, c), the flax Conv1D kernel (3, hidden, c) flattened.
-extern "C" int strided_dh1_f32(const float* g, const float* wc, const float* h1, float* dh1,
-                               int windows, int n, int hidden, int c, int stride, int p0,
-                               int n_out, void* stream) {
-  if (!geometry_ok(windows, n, hidden, c, stride, p0, n_out)) return cudaErrorInvalidValue;
+// halves (2, 3*hidden, c): Wc's TF32 halves as stored (tf32_halves_f32 without
+// the transpose); dh1 must not alias h1.
+extern "C" int strided_dh1_f32(const float* g, const float* halves, const float* h1,
+                               float* dh1, int windows, int n, int hidden, int c, int stride,
+                               int p0, int n_out, void* stream) {
+  if (!geometry_ok(windows, n, hidden, c, stride, p0, n_out) || dh1 == h1)
+    return cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err =
       cudaMemsetAsync(dh1, 0, sizeof(float) * (size_t)windows * n * hidden, s);
   if (err != cudaSuccess) return err;
-  for (int j = 0; j < 3; ++j) {
-    err = uu::launch_gemm(uu::RowMajorA{g, c}, uu::TransposedB{wc + (size_t)j * hidden * c, c},
-                          windows * n_out, hidden, c,
-                          TapScatterAdd{h1, dh1, n, n_out, hidden, stride, j - p0}, s);
+  const int m = windows * n_out;
+  if (stride >= 3)
+    return uu::launch_gemm_tc(g, halves, m, 3 * hidden, c,
+                              TapScatter{h1, dh1, n, n_out, hidden, stride, p0, 0, 0}, s);
+  for (int j = 0; j < 3; ++j) {  // tap j: rows j*hidden.. of each half
+    err = uu::launch_gemm_tc(g, halves + (size_t)j * hidden * c, m, hidden, c,
+                             TapScatter{h1, dh1, n, n_out, hidden, stride, p0, j, 1}, s,
+                             3 * hidden);
     if (err != cudaSuccess) return err;
   }
   return cudaSuccess;
 }
 
-// part (splits, 3*hidden, c): chunk z of dW_j = sum over the selected rows of
-// h1[tap row]^T . g; sum_rows_f32 over the splits gives dW in wc's layout.
+// part (splits, 3*hidden, c): chunk z of dWc = T^T . g over the selected rows;
+// sum_rows_f32 over the splits gives dWc in wc's layout.
 extern "C" int strided_dwc_f32(const float* h1, const float* g, float* part, int windows,
                                int n, int hidden, int c, int stride, int p0, int n_out,
                                int splits, void* stream) {
-  if (!geometry_ok(windows, n, hidden, c, stride, p0, n_out) || splits <= 0)
+  if (!geometry_ok(windows, n, hidden, c, stride, p0, n_out) ||
+      reinterpret_cast<uintptr_t>(h1) % 16)
     return cudaErrorInvalidValue;
-  for (int j = 0; j < 3; ++j) {
-    const cudaError_t err = uu::launch_gemm(
-        TapRowsT{h1, n, n_out, hidden, stride, j - p0}, uu::RowMajorB{g, c}, hidden, c,
-        windows * n_out, TapPartStore{part, hidden, c, 3, j}, (cudaStream_t)stream, splits);
-    if (err != cudaSuccess) return err;
-  }
-  return cudaSuccess;
+  return uu::launch_gemm_atb(uu::ConvTaps{h1, windows, n, hidden, n_out, stride, p0}, g,
+                             nullptr, 1, part, 3 * hidden, c, windows * n_out, splits,
+                             (cudaStream_t)stream);
 }
 
 // dx2[b, stride*t + res_off] += g[b, t] for the n_out selected rows t.

@@ -309,8 +309,9 @@ extern "C" int gemm_dx_f32(const float* a, const float* scale, int rows_per_scal
 extern "C" int gemm_dw_f32(const float* x, const float* dy, const float* scale,
                            int rows_per_scale, float* part, int m, int n, int rows,
                            int splits, void* stream) {
-  return uu::launch_gemm_atb(x, dy, scale, rows_per_scale, part, m, n, rows, splits,
-                             (cudaStream_t)stream);
+  if (reinterpret_cast<uintptr_t>(x) % 16) return cudaErrorInvalidValue;
+  return uu::launch_gemm_atb(uu::DenseRows{x, m}, dy, scale, rows_per_scale, part, m, n, rows,
+                             splits, (cudaStream_t)stream);
 }
 
 // part (ceil(rows / 256), cols): column sums of x * scale[row / rows_per_scale]

@@ -10,7 +10,11 @@ with p0, p1 ∈ {0, 1}: (0, 0) for h36m_351, (1, 1) for h36m_81.
 On a CUDA tensor it launches the GEMM, LayerNorm and attention kernels of
 `csrc/temporal.cu` and the conv kernel of `csrc/strided.cu` (together they
 replace `pallas_strided.make_strided_b1_epilogue`); on a CPU tensor it runs
-`strided_block1_plain`, the same function in plain PyTorch.
+`strided_block1_plain`, the same function in plain PyTorch. Every product,
+the conv's too, runs on the tensor cores in 3xTF32 from TF32 halves split
+once with the operands (DENSE, `temporal.add_tf32_halves`); the conv's
+operand T, its three taps of h1 side by side, is gathered as it is loaded
+(`conv_tap_rows` is its index).
 
 K3 is also the counterpart of the TPU's other strided-block-1 kernels (rows
 of the kernel table in PERF.md), which compute the same function in other
@@ -38,11 +42,83 @@ from .temporal import (add_tf32_halves, attention_sublayer, gemm, layernorm,
                        window_attention_plain)
 
 COUNTER = "strided_block1"
-DENSE = ("wqkv", "wp", "w1")  # the block's (in, out) matrices on the tensor cores
+DENSE = ("wqkv", "wp", "w1", "wc")  # the block's (in, out) matrices on the tensor cores
 
 
 def output_length(n: int, stride: int, paddings: Tuple[int, int]) -> int:
     return (n + paddings[0] + paddings[1] - 3) // stride + 1
+
+
+def conv_tap_rows(n: int, stride: int, paddings: Tuple[int, int]) -> torch.Tensor:
+    """(n_out, 3) int64: the h1 row that tap j of output row t reads, s0·t + j - p0,
+    or -1 where it falls outside [0, n) (the tap reads zero). This is the index
+    the CUDA loaders compute: row r = (b, t), column k = j·hidden + i of the
+    taps matrix T (B·n_out, 3·hidden) is h1[b, rows[t, j], i]."""
+    n_out = output_length(n, stride, paddings)
+    rows = stride * torch.arange(n_out)[:, None] + torch.arange(3)[None] - int(paddings[0])
+    return torch.where((rows >= 0) & (rows < n), rows, -1)
+
+
+def conv_taps_plain(h1: torch.Tensor, stride: int, paddings: Tuple[int, int]) -> torch.Tensor:
+    """(B, n, hidden) → T (B, n_out, 3·hidden) through `conv_tap_rows`: the
+    matrix the conv's products gather and never write out."""
+    b, n, hidden = h1.shape
+    rows = conv_tap_rows(n, stride, paddings).to(h1.device)
+    taps = torch.where((rows >= 0)[None, :, :, None], h1[:, rows.clamp(min=0)], 0.0)
+    return taps.reshape(b, rows.shape[0], 3 * hidden)
+
+
+def conv_scatter_plain(dtaps: torch.Tensor, n: int, stride: int,
+                       paddings: Tuple[int, int]) -> torch.Tensor:
+    """The transpose of `conv_taps_plain`: (B, n_out, 3·hidden) → (B, n, hidden),
+    each tap's slice added into the h1 row it read, taps in the order 0, 1, 2
+    (rows that several taps read, s0 < 3, sum in that order); rows no tap
+    reads are 0."""
+    b, n_out, k = dtaps.shape
+    rows = conv_tap_rows(n, stride, paddings).to(dtaps.device)
+    d = dtaps.reshape(b, n_out, 3, k // 3)
+    out = dtaps.new_zeros((b, n, k // 3))
+    for j in range(3):
+        ok = rows[:, j] >= 0
+        out[:, rows[ok, j]] += d[:, ok, j]
+    return out
+
+
+def strided_conv_plain(h1: torch.Tensor, x: torch.Tensor, wc: torch.Tensor, bc: torch.Tensor,
+                       *, stride: int, paddings: Tuple[int, int]) -> torch.Tensor:
+    """The block's conv with its residual, (B, n, hidden) and (B, n, C) →
+    (B, n_out, C): x[:, s0·t + (p0 == 0)] + bc + Σ_j h1[:, s0·t + j - p0] · W_j."""
+    _, n, hidden = h1.shape
+    p0, p1 = paddings
+    n_out = output_length(n, stride, paddings)
+    h1 = F.pad(h1, (0, 0, p0, p1))  # zero taps outside the window
+    last = stride * (n_out - 1) + 1
+    taps = torch.cat([h1[:, j: j + last: stride] for j in range(3)], dim=-1)
+    conv = taps @ wc.reshape(3 * hidden, -1) + bc
+    off = 1 if p0 == 0 else 0
+    return x[:, off: off + last: stride] + conv
+
+
+def strided_conv(h1: torch.Tensor, x: torch.Tensor, ops: Dict, *, stride: int,
+                 paddings: Tuple[int, int], counter: Optional[str] = COUNTER) -> torch.Tensor:
+    """`strided_conv_plain` on a CPU tensor; on a CUDA tensor one launch of
+    `strided_conv_f32` (T · Wc on the tensor cores in 3xTF32, T gathered from
+    h1 as it is read, Wc's halves "wc_tc"), counted for `counter`."""
+    if h1.device.type == "cpu":
+        return strided_conv_plain(h1, x, ops["wc"], ops["bc"], stride=stride, paddings=paddings)
+    b, n, hidden = h1.shape
+    c = x.shape[-1]
+    n_out = output_length(n, stride, paddings)
+    h1 = h1.reshape(b * n, hidden).contiguous()
+    x = x.reshape(b * n, c).contiguous()
+    cuda_lib.check_cuda("h1", h1)
+    cuda_lib.check_cuda("x", x, device=h1.device)
+    cuda_lib.check_cuda("wc_tc", ops["wc_tc"], shape=(2, c, 3 * hidden), device=h1.device)
+    cuda_lib.check_cuda("bc", ops["bc"], shape=(c,), device=h1.device)
+    out = torch.empty((b * n_out, c), dtype=torch.float32, device=h1.device)
+    cuda_lib.launch("strided", "strided_conv_f32", counter, h1, x, ops["wc_tc"], ops["bc"],
+                    out, b, n, hidden, c, stride, int(paddings[0]), n_out)
+    return out.reshape(b, n_out, c)
 
 
 def stack_strided_block1_params(state: Mapping[str, torch.Tensor],
@@ -87,9 +163,7 @@ def strided_block1_plain(x: torch.Tensor, ops: Dict, *, num_heads: int,
     relu_mask (B·N, hidden) booleans replace fc1's relu decisions (a gradient
     comparison hands it a kernel forward's, as `temporal_stack_plain` takes
     K5's)."""
-    b, n, c = x.shape
-    p0, p1 = paddings
-    n_out = output_length(n, stride, paddings)
+    c = x.shape[-1]
     x = x + ops["pe"]
     y = F.layer_norm(x, (c,), ops["ln1_g"], ops["ln1_b"], 1e-5)
     ctx = window_attention_plain(y @ ops["wqkv"] + ops["bqkv"], None, num_heads)
@@ -97,13 +171,8 @@ def strided_block1_plain(x: torch.Tensor, ops: Dict, *, num_heads: int,
     z = F.layer_norm(x, (c,), ops["ln2_g"], ops["ln2_b"], 1e-5)
     h1 = z @ ops["w1"] + ops["b1"]
     h1 = torch.relu(h1) if relu_mask is None else h1 * relu_mask.reshape(h1.shape).to(h1.dtype)
-    h1 = F.pad(h1, (0, 0, p0, p1))  # zero taps outside the window
-    hidden = h1.shape[-1]
-    last = stride * (n_out - 1) + 1
-    taps = torch.cat([h1[:, j: j + last: stride] for j in range(3)], dim=-1)
-    conv = taps @ ops["wc"].reshape(3 * hidden, c) + ops["bc"]
-    off = 1 if p0 == 0 else 0
-    return x[:, off: off + last: stride] + conv
+    return strided_conv_plain(h1, x, ops["wc"], ops["bc"], stride=stride,
+                              paddings=tuple(paddings))
 
 
 def strided_block1(x: torch.Tensor, ops: Dict, *, num_heads: int, stride: int,
@@ -129,10 +198,5 @@ def strided_block1(x: torch.Tensor, ops: Dict, *, num_heads: int, stride: int,
                            counter=COUNTER)
     z = layernorm(h, ops["ln2_g"], ops["ln2_b"], 1e-5, counter=COUNTER)
     h1 = gemm(z, ops["w1_tc"], ops["b1"], relu=True, counter=COUNTER)
-    hidden = h1.shape[1]
-    cuda_lib.check_cuda("wc", ops["wc"], shape=(3 * hidden, c), device=x.device)
-    cuda_lib.check_cuda("bc", ops["bc"], shape=(c,), device=x.device)
-    out = torch.empty((b * n_out, c), dtype=torch.float32, device=x.device)
-    cuda_lib.launch("strided", "strided_conv_f32", COUNTER, h1, h, ops["wc"],
-                    ops["bc"], out, b, n, hidden, c, stride, p0, n_out)
-    return out.reshape(b, n_out, c)
+    return strided_conv(h1.reshape(b, n, -1), h.reshape(b, n, c), ops, stride=stride,
+                        paddings=(p0, p1))

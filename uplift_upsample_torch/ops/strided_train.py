@@ -3,8 +3,8 @@
 
 `strided_block1_train(x, ops, num_heads=..., stride=...)` is differentiable.
 x is the temporal stack's output (B, S, C); `ops` are
-`strided.stack_strided_block1_params`' operands (with the dense matrices' TF32
-halves, HALVES). It returns the n_out rows
+`strided.stack_strided_block1_params`' operands (with the TF32 halves of
+the dense matrices and the conv kernel, HALVES). It returns the n_out rows
 the next strided block reads, (B, n_out, C): the JAX op followed by its
 caller's `[:, :(n_out-1)·s0+1:s0]` slice. Strided block 1 has no stochastic
 depth (its rate top·i/(depth-1) is 0 at i = 0; the train step asserts it).
@@ -15,8 +15,9 @@ tensor it is `StridedBlock1Train`:
     GEMMs, window attention, the conv on the selected rows), keeping every
     intermediate the backward reads;
   - backward (`strided_train_bwd`): K5's backward kernels up to h1 and the
-    conv's backward of `csrc/strided_bwd.cu` (the taps' dH1 scattered into
-    the rows they read, the gathered dW GEMMs, the crop residual), returning
+    conv's backward of `csrc/strided_bwd.cu` (`conv_dh1`: g · Wcᵀ scattered
+    into the rows the taps read; `conv_dwc`: Tᵀ · g with the taps gathered
+    from h1; both on the tensor cores; the crop residual), returning
     dx and the grads of all 13 operands (dpe the fixed-order sum of dx over
     windows), as `_fsb_bwd_rule` does.
 The wrappers count one per call: "strided_train_fwd" on the forward's last
@@ -25,15 +26,15 @@ launch, "strided_train_bwd" on the backward's last launch.
 
 from __future__ import annotations
 
-import math
 from typing import Dict, Optional, Tuple
 
 import torch
 
 from . import cuda_lib
-from .strided import DENSE, output_length, strided_block1_plain
+from .strided import (DENSE, conv_scatter_plain, conv_taps_plain, output_length,
+                      strided_block1_plain, strided_conv)
 from .temporal import gemm, layernorm, window_attention
-from .temporal_train import (_sum_rows, colsum, gemm_dw, gemm_dx, layernorm_bwd,
+from .temporal_train import (_sum_rows, colsum, dw_splits, gemm_dw, gemm_dx, layernorm_bwd,
                              window_attention_bwd)
 
 COUNTER_FWD = "strided_train_fwd"
@@ -43,28 +44,76 @@ ORDER = ["pe", "ln1_g", "ln1_b", "wqkv", "bqkv", "wp", "bp", "ln2_g", "ln2_b",
 HALVES = [f"{name}{kind}" for kind in ("_tc", "_tc_dx") for name in DENSE]
 
 
-def _conv_dw_splits(rows: int, m: int, n: int) -> int:
-    """Row chunks of the conv's split-K dW on gemm.cuh's 128 x 64 tiles: about
-    two waves of blocks on 132 SMs, at least 256 rows a chunk."""
-    tiles = math.ceil(m / 128) * math.ceil(n / 64)
-    return max(1, min(64, math.ceil(264 / tiles), rows // 256))
+def conv_dh1_plain(g: torch.Tensor, wc: torch.Tensor, h1: torch.Tensor, *, stride: int,
+                   paddings) -> torch.Tensor:
+    """The conv's input gradient through fc1's relu: g (B, n_out, C), wc
+    (3·hidden, C), h1 (B, n, hidden) → (B, n, hidden), `conv_scatter_plain` of
+    g · wcᵀ, zero where h1 <= 0."""
+    d = conv_scatter_plain(g @ wc.t(), h1.shape[1], stride, paddings)
+    return torch.where(h1 > 0, d, 0.0)
 
 
-def _geometry(x: torch.Tensor, stride: int, paddings) -> Tuple[int, int, int, int, int]:
+def conv_dwc_plain(h1: torch.Tensor, g: torch.Tensor, *, stride: int, paddings) -> torch.Tensor:
+    """The conv's kernel gradient Tᵀ · g, (3·hidden, C), T = `conv_taps_plain`(h1)."""
+    taps = conv_taps_plain(h1, stride, paddings)
+    return taps.reshape(-1, taps.shape[-1]).t() @ g.reshape(-1, g.shape[-1])
+
+
+def conv_dh1(g: torch.Tensor, ops: Dict, h1: torch.Tensor, *, stride: int,
+             paddings) -> torch.Tensor:
+    """(B, n_out, C), (B, n, hidden) → dH1 (B, n, hidden). CPU tensor: the
+    plain version; CUDA tensor: `strided_dh1_f32` (g · Wcᵀ on the tensor
+    cores from Wc's halves as stored, "wc_tc_dx", scattered in the epilogue)."""
+    if g.device.type == "cpu":
+        return conv_dh1_plain(g, ops["wc"], h1, stride=stride, paddings=paddings)
+    b, n_out, c = g.shape
+    n, hidden = h1.shape[1:]
+    g = g.reshape(b * n_out, c).contiguous()
+    cuda_lib.check_cuda("g", g)
+    cuda_lib.check_cuda("h1", h1, device=g.device)
+    cuda_lib.check_cuda("wc_tc_dx", ops["wc_tc_dx"], shape=(2, 3 * hidden, c), device=g.device)
+    out = torch.empty_like(h1)  # never h1 itself: the relu mask is read as dH1 is written
+    cuda_lib.launch("strided_bwd", "strided_dh1_f32", None, g, ops["wc_tc_dx"], h1, out, b, n,
+                    hidden, c, stride, int(paddings[0]), n_out)
+    return out
+
+
+def conv_dwc(h1: torch.Tensor, g: torch.Tensor, out: torch.Tensor, *, stride: int,
+             paddings) -> torch.Tensor:
+    """dWc (3·hidden, C) into `out`. CPU tensor: the plain version; CUDA
+    tensor: `strided_dwc_f32` (Tᵀ · g on the tensor cores, T gathered from h1)
+    split over the selected rows as `dw_splits` cuts them, the partials
+    summed in a fixed order (`sum_rows_f32`)."""
+    if g.device.type == "cpu":
+        return out.copy_(conv_dwc_plain(h1, g, stride=stride, paddings=paddings))
+    b, n_out, c = g.shape
+    n, hidden = h1.shape[1:]
+    g = g.reshape(b * n_out, c).contiguous()
+    cuda_lib.check_cuda("g", g)
+    cuda_lib.check_cuda("h1", h1, device=g.device)
+    cuda_lib.check_cuda("out", out, shape=(3 * hidden, c), device=g.device)
+    splits = dw_splits(b * n_out, 3 * hidden, c)
+    part = torch.empty((splits, 3 * hidden, c), dtype=torch.float32, device=g.device)
+    cuda_lib.launch("strided_bwd", "strided_dwc_f32", None, h1, g, part, b, n, hidden, c,
+                    stride, int(paddings[0]), n_out, splits)
+    _sum_rows(part, out, counter=None)
+    return out
+
+
+def _geometry(x: torch.Tensor, stride: int, paddings) -> Tuple[int, int, int]:
     b, n, c = x.shape
     p0, p1 = int(paddings[0]), int(paddings[1])
     if not (0 <= p0 <= 1 and 0 <= p1 <= 1):
         raise ValueError(f"strided block 1 takes paddings in {{0, 1}}, got {paddings}")
-    n_out = output_length(n, stride, (p0, p1))
-    if n_out < 1:
+    if output_length(n, stride, (p0, p1)) < 1:
         raise ValueError(f"N={n} is too short for stride {stride}")
-    return b, n, c, p0, n_out
+    return b, n, c
 
 
 def strided_train_fwd(x: torch.Tensor, ops: Dict, *, num_heads: int, stride: int,
                       paddings=(0, 0)) -> Tuple[torch.Tensor, Dict]:
     """(B, S, C) → ((B, n_out, C), intermediates) on the card."""
-    b, n, c, p0, n_out = _geometry(x, stride, paddings)
+    b, n, c = _geometry(x, stride, paddings)
     if c % num_heads != 0:
         raise ValueError(f"C={c} does not split into {num_heads} heads")
     for name in ORDER + HALVES:
@@ -78,14 +127,10 @@ def strided_train_fwd(x: torch.Tensor, ops: Dict, *, num_heads: int, stride: int
     x2 = gemm(ctx, ops["wp_tc"], ops["bp"], residual=xpe, counter=None)
     z = layernorm(x2, ops["ln2_g"], ops["ln2_b"], 1e-5, counter=None)
     h1 = gemm(z, ops["w1_tc"], ops["b1"], relu=True, counter=None)
-    hidden = h1.shape[1]
-    cuda_lib.check_cuda("wc", ops["wc"], shape=(3 * hidden, c))
-    cuda_lib.check_cuda("bc", ops["bc"], shape=(c,))
-    out = torch.empty((b * n_out, c), dtype=torch.float32, device=x.device)
-    cuda_lib.launch("strided", "strided_conv_f32", COUNTER_FWD, h1, x2, ops["wc"], ops["bc"],
-                    out, b, n, hidden, c, stride, p0, n_out)
+    out = strided_conv(h1.reshape(b, n, -1), x2.reshape(b, n, c), ops, stride=stride,
+                       paddings=paddings, counter=COUNTER_FWD)
     saved = dict(xpe=xpe, y=y, qkv=qkv, ctx=ctx, x2=x2, z=z, h1=h1)
-    return out.reshape(b, n_out, c), saved
+    return out, saved
 
 
 def strided_train_bwd(saved: Dict, g: torch.Tensor, ops: Dict, *, num_heads: int,
@@ -99,19 +144,15 @@ def strided_train_bwd(saved: Dict, g: torch.Tensor, ops: Dict, *, num_heads: int
     if n_out != output_length(n, stride, paddings):
         raise ValueError(f"g has {n_out} rows per window, expected "
                          f"{output_length(n, stride, paddings)}")
-    g = g.reshape(b * n_out, c).contiguous()
+    g3 = g.contiguous()
+    g = g3.reshape(b * n_out, c)
     cuda_lib.check_cuda("g", g)
     grads = {name: torch.empty_like(ops[name]) for name in ORDER}
     # the conv: out[t] = x2[s0·t + (p0 == 0)] + bc + Σ_j h1[s0·t + j - p0] · W_j
     colsum(g, None, 1, grads["bc"], counter=None)
-    splits = _conv_dw_splits(b * n_out, hidden, c)
-    part = torch.empty((splits, 3 * hidden, c), dtype=torch.float32, device=g.device)
-    cuda_lib.launch("strided_bwd", "strided_dwc_f32", None, saved["h1"], g, part, b, n,
-                    hidden, c, stride, p0, n_out, splits)
-    _sum_rows(part, grads["wc"], counter=None)
-    dpre1 = torch.empty((rows, hidden), dtype=torch.float32, device=g.device)
-    cuda_lib.launch("strided_bwd", "strided_dh1_f32", None, g, ops["wc"], saved["h1"], dpre1,
-                    b, n, hidden, c, stride, p0, n_out)
+    h1 = saved["h1"].reshape(b, n, hidden)
+    conv_dwc(h1, g3, grads["wc"], stride=stride, paddings=paddings)
+    dpre1 = conv_dh1(g3, ops, h1, stride=stride, paddings=paddings).reshape(rows, hidden)
     # the MLP's first layer and LN2; then the crop residual joins dx2
     gemm_dw(saved["z"], dpre1, None, 1, grads["w1"], counter=None)
     colsum(dpre1, None, 1, grads["b1"], counter=None)
