@@ -195,6 +195,13 @@ def f64_check(torch, got, ref, ref64):
     return err, err_plain, err <= 4 * err_plain + 1e-6 * float(ref64.abs().max())
 
 
+def f64_check_all(torch, triples):
+    """f64_check over (got, plain, float64) triples: the worst kernel and
+    plain errors, and whether every triple holds the criterion."""
+    checks = [f64_check(torch, *t) for t in triples]
+    return (max(c[0] for c in checks), max(c[1] for c in checks), all(c[2] for c in checks))
+
+
 def ops_bytes(ops, backward: bool = False) -> int:
     """Bytes of the operands a kernel reads: the dense matrices as the TF32
     halves the forward reads ("<name>_tc") or, with `backward`, the dX
@@ -1124,7 +1131,8 @@ def main(argv=None) -> int:
                                                           temporal_stack_bwd_plain,
                                                           temporal_train_bwd,
                                                           temporal_train_fwd,
-                                                          window_attention_bwd)
+                                                          window_attention_bwd,
+                                                          window_attention_bwd_plain)
     from uplift_upsample_torch.parallel.train_step import keyframe_budget
     from uplift_upsample_torch.predict import make_predict_step, predict_sequence
 
@@ -1474,13 +1482,23 @@ def main(argv=None) -> int:
     (dpk, dxk, ddk), (dpp, dxp, ddpp) = k4(), k4_plain()
     repeat_identical("spatial_bwd", (dpk, dxk, ddk), k4())
     pairs = [(dpk[k], dpp[k], *([dpp["bq"]] if k == "bk" else [])) for k in dpp]
-    # the VJP's least work: the forward plus twice its products
+    dp64, dx64, dd64 = spatial_stack_bwd_plain(
+        x_kf.double(), {k: v.double() for k, v in sp_ops.items()}, sc.double(),
+        g_sp.double(), num_heads=heads)
+    # float64 per leaf but the key bias (its true gradient is 0: noise on both sides)
+    f64_k4 = f64_check_all(torch, [(dpk[k], dpp[k], dp64[k]) for k in dpp if k != "bk"]
+                           + [(dxk, dxp, dx64), (ddk, ddpp, dd64)])
+    # the VJP's least work: the forward plus twice its products; the dense
+    # products (q, k, v, proj, fc1, fc2) in 3xTF32 on the tensor cores
+    dense_frame = model.spatial_depth * (2 * p * cs * cs * 4 + 2 * p * cs * 2 * cs * 2)
     record("spatial_bwd", "uplift_upsample_torch/csrc/spatial_bwd.cu",
            "uplift_upsample_tpu/ops/pallas_spatial_bwd.py:418",
            grad_check(torch, pairs + [(dxk, dxp), (ddk, ddpp)]),
-           time_ms(torch, k4, 5), time_ms(torch, k4_plain, 3), 3 * budget * per_frame,
-           2 * sp_in + g_sp.numel() * F32, phase="train")
-    del got, ref, dpk, dxk, ddk, dpp, dxp, ddpp, pairs
+           time_ms(torch, k4, 5), time_ms(torch, k4_plain, 3),
+           3 * budget * (per_frame - dense_frame),
+           2 * sp_in + g_sp.numel() * F32, phase="train", f64=f64_k4,
+           tc_flops=3 * budget * dense_frame)
+    del got, ref, dpk, dxk, ddk, dpp, dxp, ddpp, pairs, dp64, dx64, dd64
     torch.cuda.empty_cache()
 
     tm_ops_t = tfp["temporal"]
@@ -1645,14 +1663,19 @@ def main(argv=None) -> int:
                for t in qkv_t.split(c, dim=-1))
     out_lib = F.scaled_dot_product_attention(q, k, v, attn_mask=(km_t * -1e9)[:, None, None, :])
     g_lib = dctx_t.reshape(bt, nt, heads, d_h).transpose(1, 2)
+    repeat_identical("window_attention_bwd", [got], [ab_fn()])
+    ref64 = window_attention_bwd_plain(qkv_t.double(), dctx_t.double(), km_t.double(),
+                                       windows=bt, n=nt, num_heads=heads)
+    # four products (dP, dq, dk, dv) of 2·n²·d per head, in 3xTF32
     record("window_attention_bwd", "uplift_upsample_torch/csrc/temporal_bwd.cu",
            "uplift_upsample_tpu/ops/pallas_temporal_bwd.py:514",
            grad_check(torch, [(got, ref)]), time_ms(torch, ab_fn, 10), time_ms(torch, ab_plain, 5),
-           bt * 8 * nt * nt * c,
-           (qkv_t.numel() + dctx_t.numel() + km_t.numel() + got.numel()) * F32,
+           0, (qkv_t.numel() + dctx_t.numel() + km_t.numel() + got.numel()) * F32,
            library_ms=time_ms(torch, lambda: torch.autograd.grad(
                out_lib, (q, k, v), g_lib, retain_graph=True), 10),
-           counter="window_attention_bwd_f32", phase="train")
+           counter="window_attention_bwd_f32", phase="train",
+           f64=f64_check(torch, got, ref, ref64), tc_flops=bt * 8 * nt * nt * c)
+    del ref64
     del qkv_req, out_plain, q, k, v, out_lib
     x_ln, dy_ln = rand(rows_t, c), rand(rows_t, c, scale=1.0)
     g1, b1 = tm_ops_t["ln1_g"][0], tm_ops_t["ln1_b"][0]

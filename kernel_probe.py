@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""What bounds the tensor-core kernels (csrc/attention.cuh, csrc/gemm_tc.cuh) on the card.
+"""What bounds the hand-written tensor-core kernels on the card (csrc/).
 
     python3 kernel_probe.py [--seed 0]
 
@@ -33,6 +33,15 @@ Builds patched copies of `csrc/` under `uplift_upsample_torch/_build/probe/`
 - the conv's dH1 (`strided_bwd.cu`'s strided_dh1_f32 at the train step,
   11,776 rows x 384 -> 3 x 768, beside convolution_backward's input
   gradient): the kernel; "no epilogue"; "registers 56/224".
+- K5's window-attention backward (`temporal_bwd.cu`'s
+  window_attention_bwd_f32 at the train step, 512 windows x 71 tokens x
+  384, 8 heads, a key mask, beside SDPA's backward): the kernel; "no
+  products" (no mma.sync, so no splits either); "no splits"; "no gradient
+  writes" (dq, dk, dv computed, not stored);
+- K4 (`spatial_bwd.cu`'s spatial_bwd_f32 at the train step's 25,600
+  keyframes, C = 32, 4 blocks, random weights from the seed): the kernel;
+  "no products"; "no splits"; "no gradient writes" (no read-modify-write
+  of dW in the gradient rows); "no attention backward".
 
 Each prints one line. The patched versions compute nothing meaningful; only
 each kernel as it is is checked against its plain version. Needs a CUDA card
@@ -47,6 +56,8 @@ import os
 import shutil
 import subprocess
 import sys
+
+import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -97,6 +108,34 @@ CONV = {
     "registers 56/224": REGS,
 }
 DH1 = {"kernel": [], "no epilogue": NO_EPILOGUE, "registers 56/224": REGS}
+_SINK = "if ({} == 1.2345e-30f) "  # a store the compiler cannot drop, never taken
+ATTN_BWD = {
+    "kernel": [],
+    "no products": [("temporal_bwd.cu", "  uu::mma_3xtf32(part, ab, as, bb, bs);\n", "")],
+    "no splits": NO_SPLITS,
+    "no gradient writes": [("temporal_bwd.cu", f"({r} < n)", f"({r} < n - 4096)")
+                           for r in ("row0", "row1")]
+                          + [("temporal_bwd.cu", f"{r} < n &&", f"{r} < n - 4096 &&")
+                             for r in ("key0", "key1")],
+}
+_MMA = "      uu::mma_3xtf32(part, ab, as, bb, bs);\n"
+_DW = [("*out(i, o + 8 * u)", 0), ("*out(i, o + 8 * u + 1)", 1), ("*out(i + 8, o + 8 * u)", 2),
+       ("*out(i + 8, o + 8 * u + 1)", 3)]
+_DW_STORES = "".join(f"      {ref} = old[u][{e}] + acc[u][{e}];\n" for ref, e in _DW)
+_DW_LOADS = "".join(f"      old[u][{e}] = {ref};\n" for ref, e in _DW)
+K4 = {
+    "kernel": [],
+    "no products": [("spatial_bwd.cu", _MMA, "")],
+    "no splits": NO_SPLITS,
+    "no gradient writes": [  # dW's read-modify-writes of the gradient row
+        ("spatial_bwd.cu", _DW_STORES,
+         "      " + _SINK.format("acc[u][0] + acc[u][1] + acc[u][2] + acc[u][3]")
+         + "*out(i, o) = 0.f;\n"),
+        ("spatial_bwd.cu", _DW_LOADS,
+         "      old[u][0] = old[u][1] = old[u][2] = old[u][3] = 0.f;\n")],
+    "no attention backward": [
+        ("spatial_bwd.cu", "      attention_bwd<C>(QKV_C, CTX, DQ, ST, nf, scale);\n", "")],
+}
 DW = {
     "kernel": [],
     "products only": [("gemm_tc.cuh", _CP.format(t=t), "      if (m < 0) " + _CP.format(t=t)[6:])
@@ -138,7 +177,6 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
     args = parser.parse_args(argv)
-    import numpy as np
     import torch
     import torch.nn.functional as F
 
@@ -159,7 +197,9 @@ def main(argv=None) -> int:
     builds = {}
     for group, source, variants in (("attention", "attention", ATTENTION),
                                     ("gemm", "temporal", GEMM), ("dw", "temporal_bwd", DW),
-                                    ("conv", "strided", CONV), ("dh1", "strided_bwd", DH1)):
+                                    ("conv", "strided", CONV), ("dh1", "strided_bwd", DH1),
+                                    ("attn_bwd", "temporal_bwd", ATTN_BWD),
+                                    ("k4", "spatial_bwd", K4)):
         for name, reps in variants.items():
             builds[group, name] = start_build(cuda_lib, f"{group} {name}", source, reps)
     for key, (proc, _) in builds.items():
@@ -293,7 +333,86 @@ def main(argv=None) -> int:
         print(f"probe dh1 {name}: {b * n_out} x {c} -> {3 * hid}:{err} ms "
               f"{time_ms(torch, call, 20):.4f} (convolution_backward, input {lib:.4f})",
               flush=True)
+    del h1, g, dh1, g_t, h1t
+    torch.cuda.empty_cache()
+    probe_attention_bwd(torch, F, builds, rand, rng, dev, stream)
+    probe_spatial_bwd(torch, builds, rand, args.seed, dev, stream)
     return 0
+
+
+def probe_attention_bwd(torch, F, builds, rand, rng, dev, stream):
+    """K5's window-attention backward at the train step (512 windows x 71
+    tokens x 384, 8 heads, a key mask), beside SDPA's backward."""
+    from chip_smoke import time_ms
+    from uplift_upsample_torch.ops.temporal import window_attention_plain
+
+    b, n, c, heads = 512, 71, 384, 8
+    qkv, dctx = rand(b * n, 3 * c), rand(b * n, c, scale=1.0)
+    km = torch.from_numpy((rng.uniform(size=(b, n)) < 0.5).astype(np.float32)).to(dev)
+    qkv_req = qkv.reshape(b, n, 3 * c).clone().requires_grad_(True)
+    ref = torch.autograd.grad(window_attention_plain(qkv_req, km, heads), qkv_req,
+                              dctx.reshape(b, n, c))[0].reshape(b * n, 3 * c)
+    q, k, v = (t.reshape(b, n, heads, c // heads).transpose(1, 2).detach().requires_grad_(True)
+               for t in qkv.split(c, dim=-1))
+    out = F.scaled_dot_product_attention(q, k, v, attn_mask=(km * -1e9)[:, None, None, :])
+    g = dctx.reshape(b, n, heads, c // heads).transpose(1, 2)
+    sdpa = time_ms(torch, lambda: torch.autograd.grad(out, (q, k, v), g, retain_graph=True), 10)
+    dqkv = torch.empty_like(qkv)
+    for name in ATTN_BWD:
+        fn = bind(builds["attn_bwd", name][1], "window_attention_bwd_f32", 4, 4)
+        call = lambda: fn(qkv.data_ptr(), dctx.data_ptr(), km.data_ptr(), dqkv.data_ptr(), b, n,
+                          c, heads, stream())
+        if call() != 0:
+            raise RuntimeError(f"attention backward {name}: launch failed")
+        torch.cuda.synchronize()
+        err = f" max_abs_err {float((dqkv - ref).abs().max()):.3e};" if name == "kernel" else ""
+        print(f"probe attn_bwd {name}: {b} x {n} x {c}, key mask True:{err} ms "
+              f"{time_ms(torch, call, 20):.4f} (SDPA backward {sdpa:.4f})", flush=True)
+
+
+def probe_spatial_bwd(torch, builds, rand, seed, dev, stream):
+    """K4 at the train step's keyframe budget (25,600 frames, C = 32, 4 blocks,
+    8 heads of 4), random weights from the seed."""
+    from chip_smoke import time_ms
+    from uplift_upsample_torch.configs import get_config
+    from uplift_upsample_torch.models import build_uplift_upsample_transformer
+    from uplift_upsample_torch.models.bench_forward import prepare_fused_params
+    from uplift_upsample_torch.ops.spatial import make_droppath_scales
+    from uplift_upsample_torch.ops.spatial_bwd import spatial_stack_bwd_plain
+
+    config = get_config("h36m_351")
+    model = build_uplift_upsample_transformer(config, device="cuda", seed=seed)
+    fp = prepare_fused_params(model)
+    ops, packed = fp["spatial"], fp["spatial_packed"]
+    f, c, heads, blocks = 25600, config.SPATIAL_EMBED_DIM, model.num_heads, model.spatial_depth
+    x, g = rand(f, 17, 2), rand(f, 17 * c, scale=1.0)
+    gen = torch.Generator().manual_seed(seed)
+    rates = [config.DROP_PATH_RATE[0] * i / (blocks - 1) for i in range(blocks)]
+    sc = make_droppath_scales(gen, rates, f).to(dev)
+    _, ref_dx, _ = spatial_stack_bwd_plain(x, ops, sc, g, num_heads=heads)
+    for name in K4:
+        path = builds["k4", name][1]
+        workers = bind(path, "spatial_bwd_workers", 0, 0)
+        workers.argtypes = [ctypes.c_int] * 4
+        rows = workers(c, c // heads, blocks, f)
+        scratch_floats = bind(path, "spatial_bwd_scratch_floats", 0, 0)
+        scratch_floats.argtypes = [ctypes.c_int] * 2
+        if rows <= 0:
+            raise RuntimeError(f"k4 {name}: spatial_bwd_workers returned {rows}")
+        fn = bind(path, "spatial_bwd_f32", 8, 5)
+        dx = torch.empty_like(x)
+        ddp = torch.empty((2 * blocks, f), device=dev)
+        partial = torch.empty((rows, packed.numel()), device=dev)
+        scratch = torch.empty((rows, scratch_floats(c, blocks)), device=dev)
+        call = lambda: fn(x.data_ptr(), g.data_ptr(), sc.data_ptr(), packed.data_ptr(),
+                          dx.data_ptr(), ddp.data_ptr(), partial.data_ptr(), scratch.data_ptr(),
+                          f, c, c // heads, blocks, rows, stream())
+        if call() != 0:
+            raise RuntimeError(f"k4 {name}: launch failed")
+        torch.cuda.synchronize()
+        err = f" dx max_abs_err {float((dx - ref_dx).abs().max()):.3e};" if name == "kernel" else ""
+        print(f"probe k4 {name}: {f} frames, C {c}, {blocks} blocks, {rows} gradient rows:{err} "
+              f"ms {time_ms(torch, call, 5):.4f}", flush=True)
 
 
 if __name__ == "__main__":

@@ -1,9 +1,10 @@
 // Shared device code of the temporal (K2, K5), strided-block-1 (K3, K6) and
-// spatial kernels: warp reductions, a row's scale factor, and the
+// spatial kernels: a warp sum, a row's scale factor, and the
 // fixed-order sum of partials that the split-K products (gemm_tc.cuh) and
-// the per-warp gradient partials end with. Every product runs on the tensor
-// cores (gemm_tc.cuh, attention.cuh) or inside its own kernel (K1, K4, the
-// attention backward).
+// the per-block gradient partials end with. The products run on the tensor
+// cores (gemm_tc.cuh, attention.cuh, temporal_bwd.cu's attention backward,
+// K4's dense layers) except K1's and K4's 17-token attention, which run on
+// the CUDA cores inside their own kernels.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -13,12 +14,6 @@ namespace uu {
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
 }
 

@@ -2,7 +2,8 @@
 // fixed-order sum.
 //
 // Replaces: uplift_upsample_tpu/ops/pallas_spatial_bwd.py
-//   fused_spatial_stack_bwd (kernel _make_bwd_kernel), the VJP of
+//   fused_spatial_stack_bwd (:418, pallas_call :491; kernel _make_bwd_kernel
+//   :113, its attention backward :234), the VJP of
 //   pallas_spatial.fused_spatial_train. Given the frames' input x (F, 17, 2),
 //   the packed weights, the stochastic-depth scales (2L, F) and the output
 //   gradient g (F, 17*C), it returns the gradients of every weight (packed as
@@ -10,479 +11,933 @@
 //   The gradients are those of the true parameters (the 1/sqrt(D) logit
 //   scale stays explicit); the gelu derivative is exact, Phi(h) + h*phi(h).
 //
-// What bounds it here: ~3x K1's FLOPs (forward replay, the block recompute
-// and the backward products; ~97 GFLOP at 25,600 frames), so fp32 operations
-// again. Design (not the TPU's frames-on-lanes tile): K1's scheme of one warp
-// per frame, lane = channel, on a persistent grid. Per frame the warp replays
-// the forward from x, keeping each block's input (L+1 checkpoints) in its
-// slice of shared memory, then walks the blocks backwards, recomputing one
-// block's intermediates at a time (LN outputs, q/k/v, context, projection,
-// fc1) into shared memory. The weights (140 KB at C=32) are read through the
-// L1 cache instead of being staged, which leaves the shared memory to the
-// warps' working sets (~43 KB each at C=32, L=4: 5 warps per SM).
-// Attention's backward takes two passes: one (query, head) per lane for dq
-// and the softmax row statistics, then one (key, head) per lane for dk and dv.
+// What bounds it: operations, ~97 GFLOP at 25,600 frames (the forward
+// replay, the block recompute and the backward products), of which the
+// dense layers' 86 GFLOP run on the tensor cores in 3xTF32 (three TF32
+// products each, tf32.cuh); the 17-token attention (8 heads of 4), the
+// LayerNorms and the gelu run on the CUDA cores. In practice it is bound by
+// latency, not by either peak: the products' fragment loads and splits, the
+// attention's serial chains and ~30 barriers per block and tile with 8
+// warps per SM (kernel_probe.py times it without each part).
 //
-// Parameter gradients: each warp accumulates into its own row of a
-// (workers, n_params) buffer in device memory (no atomics), and
-// sum_rows_f32 adds the rows in a fixed order, so repeated runs agree bit for
-// bit (the TPU kernel's per-tile partials, pallas_spatial_bwd.py:15-17).
+// Design (Hopper; not the TPU's frames-on-lanes tile): one thread block of 8
+// warps per SM walks tiles of TF = 7 frames. A tile's 119 token rows, padded
+// to 128, are 8 m16 tiles, one per warp, so every dense product has M = 128
+// rows on mma.sync.m16n8k8: warp w owns rows 16w..16w+15 of x.W and dY.W^T,
+// or pairs of (m16, n8) tiles of dW = X^T.dY, whose K is the tile's rows.
+// 16 frames (272 rows, 17 m16 tiles) would need 313 KB of row buffers, more
+// than an SM has; 8 frames (9 warps) fit but ptxas held 288 threads to 168
+// registers and spilled; 7 frames leave 255 registers to 256 threads.
+//  - Per tile: the embedding, then the forward replay block by block, each
+//    block's input (a checkpoint) and its attention context written to the
+//    thread block's slice of a scratch buffer in device memory ((2L+1) x 128
+//    x C floats, 19 MB over 132 blocks, read back with cp.async beside the
+//    weights' staging); the tile's output gradient arrives by cp.async
+//    during the replay. Then the final LayerNorm's backward and the blocks
+//    last to first: from the checkpoint and the context, proj + residual,
+//    LN2 and fc1 again, the MLP branch's backward, then the attention
+//    branch's with q|k|v recomputed (shared memory does not hold them
+//    through the MLP's backward; keeping X2 and fc1's output in the scratch
+//    as well was slower: 45 MB no longer stays in L2).
+//  - The LayerNorm outputs are not stored: the products normalise x0 as they
+//    load it (q|k|v), or read the normalised input kept in place (fc1, dW of
+//    fc1 and q|k|v, the LayerNorm backward). The scale gradients use
+//    sum(dY . branch) = sum(X . (dY.W^T)) + sum(dY . b), so the backward
+//    recomputes no fc2 or proj output.
+//  - Each block's weights are staged in shared memory already split into
+//    TF32 halves (2 x 38 KB), once per block and pass. Row pitches are 4 mod
+//    8 floats and the weights' 8 mod 16, so the fragment loads of x.W hit 32
+//    banks; dW takes its K rows permuted inside each 8-row step (A column t
+//    <-> row 2t, t+4 <-> 2t+1, the same for dY), which keeps those loads on
+//    32 banks too.
+//  - Each 8-deep step's three products go into a fresh partial that joins
+//    the fp32 accumulators with a rounded add (the tensor cores round
+//    toward zero as they accumulate).
+//  - Parameter gradients: each tile's dW partial (K = 128 rows) is added into
+//    the thread block's own row of a (grid, n_params) buffer, element by
+//    element by one thread (the row's slice prefetched into L2, its values
+//    loaded before the products); the bias gradients come with dW from the
+//    same fragments, the LayerNorm, embedding and PE gradients are column
+//    sums over the tile's rows in a fixed order; those small ones are kept
+//    in shared memory over the block's tiles and written to the row at the
+//    end. sum_rows_f32 adds the 132 rows in a fixed order. No float atomics:
+//    repeated runs agree bit for bit. The scale gradients are summed per
+//    frame at the end of each tile.
+//  - Padded rows (the 9 after 119, and the frames after F in the last tile)
+//    carry a row factor of 0 into every gradient sum, and the gradient
+//    flowing down the residual stream is kept 0 there.
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 #include "spatial_common.cuh"
+#include "tf32.cuh"
 
 namespace {
 
 using sp::Layout;
 using sp::P;
-using sp::warp_sum;
-constexpr int MAX_WARPS = 8;
 
-// g[i, o] += s * sum_p in[p, i] * dy[p, o]; in (P, CIN), dy (P, COUT).
-template <int CIN, int COUT>
-__device__ __forceinline__ void dense_dw(const float* in, const float* dy, float s, float* g,
-                                         int lane) {
+constexpr int TF = 7;                     // frames per tile
+constexpr int R = 128;                    // the tile's rows: 7 x 17 = 119, padded to 8 x 16
+constexpr int WARPS = R / 16;             // one m16 tile of rows per warp
+constexpr int THREADS = WARPS * 32;
+constexpr float INV_SQRT2 = 0.70710678118654752f;
+constexpr float INV_SQRT_2PI = 0.39894228040143268f;
+constexpr float LOG2E = 1.4426950408889634f;
+
+// gelu(h) = h * Phi(h) and its derivative Phi(h) + h * phi(h), one erff.
+__device__ __forceinline__ float gelu_and_grad(float h, float* grad) {
+  const float phi = 0.5f * (1.f + erff(h * INV_SQRT2));
+  *grad = phi + h * INV_SQRT_2PI * expf(-0.5f * h * h);
+  return h * phi;
+}
+
+// Shared-memory layout (floats) of one thread block, and the pitches.
+template <int C>
+struct Tile {
+  static constexpr int H = C / 4, HID = 2 * C, C3 = 3 * C;
+  static constexpr int PC = C + 4, PH = HID + 4, P3 = C3 + 4;  // activations: 4 mod 8
+  static constexpr int WC = C + 8, WH = HID + 8, W3 = C3 + 8;  // weights: 8 mod 16
+  static constexpr int U = R * PC;
+  static constexpr int STATS = 2 * TF * H * P;  // attention backward: lse, rowsum(P dP)
+  // G: the working region, laid out per phase (see the kernel)
+  static constexpr int G_A = U + R * P3, G_B = U + 2 * R * PH, G_C = 2 * U + R * P3 + STATS;
+  static constexpr int G = G_A > G_B ? (G_A > G_C ? G_A : G_C) : (G_B > G_C ? G_B : G_C);
+  static constexpr int WEIGHTS = C * W3 + C * WC + C * WH + HID * WC;
+  static constexpr int ROWS = 8 * R;  // mu1, rs1, mu2, rs2, rowf, s1r, s2r, rsum
+  static constexpr int FLOATS = 2 * U + G + 2 * WEIGHTS + ROWS + 2 * THREADS;
+};
+
+// out[r, n] = epi(r, n, sum_k a(r, k) b(k, n)) for the warp's 16 rows; epi
+// returns a value summed per row into rsum[r] when rsum is given. b_at(k, n)
+// points at the big TF32 half of a staged weight, its small half `small`
+// floats further.
+template <int K, int N, class A, class B, class Epi>
+__device__ __forceinline__ void rows_gemm(A a_at, B b_at, int small, Epi epi, float* rsum) {
+  constexpr int NJ = N / 8;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
+  const int r0 = 16 * warp + g, r1 = r0 + 8;
+  float acc[NJ][4];
 #pragma unroll
-  for (int o0 = 0; o0 < COUT; o0 += 32) {
-    const int o = o0 + lane;
-    if (o < COUT) {
-      float dyc[P];
+  for (int j = 0; j < NJ; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
 #pragma unroll
-      for (int p = 0; p < P; ++p) dyc[p] = dy[p * COUT + o];
-#pragma unroll 4
-      for (int i = 0; i < CIN; ++i) {
-        float acc = 0.f;
+  for (int kk = 0; kk < K / 8; ++kk) {
+    uint32_t ab[4], as[4];
+    uu::tf32_split(a_at(r0, 8 * kk + t), ab[0], as[0]);
+    uu::tf32_split(a_at(r1, 8 * kk + t), ab[1], as[1]);
+    uu::tf32_split(a_at(r0, 8 * kk + t + 4), ab[2], as[2]);
+    uu::tf32_split(a_at(r1, 8 * kk + t + 4), ab[3], as[3]);
 #pragma unroll
-        for (int p = 0; p < P; ++p) acc = fmaf(in[p * CIN + i], dyc[p], acc);
-        g[i * COUT + o] += acc * s;
+    for (int j = 0; j < NJ; ++j) {
+      const float* b0 = b_at(8 * kk + t, 8 * j + g);
+      const float* b1 = b_at(8 * kk + t + 4, 8 * j + g);
+      const uint32_t bb[2] = {__float_as_uint(b0[0]), __float_as_uint(b1[0])};
+      const uint32_t bs[2] = {__float_as_uint(b0[small]), __float_as_uint(b1[small])};
+      float part[4] = {0.f, 0.f, 0.f, 0.f};
+      uu::mma_3xtf32(part, ab, as, bb, bs);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] += part[e];
+    }
+  }
+  float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    const int c = 8 * j + 2 * t;
+    s0 += epi(r0, c, acc[j][0]) + epi(r0, c + 1, acc[j][1]);
+    s1 += epi(r1, c, acc[j][2]) + epi(r1, c + 1, acc[j][3]);
+  }
+  if (rsum) {
+#pragma unroll
+    for (int o = 1; o <= 2; o <<= 1) {
+      s0 += __shfl_xor_sync(0xffffffffu, s0, o);
+      s1 += __shfl_xor_sync(0xffffffffu, s1, o);
+    }
+    if (t == 0) {
+      rsum[r0] = s0;
+      rsum[r1] = s1;
+    }
+  }
+}
+
+// *out(i, o) += sum over the tile's rows r of x(r, i) * dy(r, o) * f[r]
+// (dW = X^T . dY, CIN x N): pairs of (m16, n8) output tiles side by side,
+// which share X's fragments, spread over the warps. The warps of the first
+// m16 tile also add the bias gradient, *bias(o) += sum over r of dy(r, o) *
+// f[r], from the same values (per lane in row order, then over the quad).
+template <int CIN, int N, class X, class Y, class Out, class Bias>
+__device__ __forceinline__ void tile_dw(X x_at, Y dy_at, const float* f, Out out, Bias bias) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
+  constexpr int NP = N / 16, PAIRS = CIN / 16 * NP;  // two n8 tiles beside each other
+  for (int pair = warp; pair < PAIRS; pair += WARPS) {
+    const int i = 16 * (pair / NP) + g, o0 = 16 * (pair % NP) + g;
+    const int o = o0 - g + 2 * t;  // C fragment: rows g, g+8; columns 2t, 2t+1 (+8)
+    // the gradient row's values, loaded before the products hide their latency
+    float old[2][4], acc[2][4], bsum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      old[u][0] = *out(i, o + 8 * u);
+      old[u][1] = *out(i, o + 8 * u + 1);
+      old[u][2] = *out(i + 8, o + 8 * u);
+      old[u][3] = *out(i + 8, o + 8 * u + 1);
+      acc[u][0] = acc[u][1] = acc[u][2] = acc[u][3] = 0.f;  // this tile's partial
+    }
+#pragma unroll 8
+    for (int s = 0; s < R / 8; ++s) {
+      const int ra = 8 * s + 2 * t, rb = ra + 1;  // A column t <-> row ra, t+4 <-> rb
+      uint32_t ab[4], as[4];
+      uu::tf32_split(x_at(ra, i), ab[0], as[0]);
+      uu::tf32_split(x_at(ra, i + 8), ab[1], as[1]);
+      uu::tf32_split(x_at(rb, i), ab[2], as[2]);
+      uu::tf32_split(x_at(rb, i + 8), ab[3], as[3]);
+      const float fa = f[ra], fb = f[rb];
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const float ya = dy_at(ra, o0 + 8 * u) * fa, yb = dy_at(rb, o0 + 8 * u) * fb;
+        bsum[u] += ya + yb;
+        uint32_t bb[2], bs[2];
+        uu::tf32_split(ya, bb[0], bs[0]);
+        uu::tf32_split(yb, bb[1], bs[1]);
+        float part[4] = {0.f, 0.f, 0.f, 0.f};
+        uu::mma_3xtf32(part, ab, as, bb, bs);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[u][e] += part[e];
       }
     }
-  }
-}
-
-// g[o] += s * sum_p dy[p, o]
-template <int COUT>
-__device__ __forceinline__ void bias_grad(const float* dy, float s, float* g, int lane) {
-  for (int o = lane; o < COUT; o += 32) {
-    float acc = 0.f;
 #pragma unroll
-    for (int p = 0; p < P; ++p) acc += dy[p * COUT + o];
-    g[o] += acc * s;
-  }
-}
-
-// MODE 0: out[p, i] = s * sum_o dy[p, o] * W[i, o]  (dX = dY . W^T); MODE 2: +=.
-template <int CIN, int COUT, int MODE>
-__device__ __forceinline__ void dense_t(const float* dy, const float* w, float s, float* out,
-                                        int lane) {
-#pragma unroll
-  for (int i0 = 0; i0 < CIN; i0 += 32) {
-    const int i = i0 + lane;
-    if (i < CIN) {
-      float wr[COUT];
-#pragma unroll
-      for (int o = 0; o < COUT; ++o) wr[o] = w[i * COUT + o];
-#pragma unroll 1
-      for (int p = 0; p < P; ++p) {
-        const float* row = dy + p * COUT;
-        float acc = 0.f;
-#pragma unroll
-        for (int o = 0; o < COUT; o += 4) {
-          const float4 v = *reinterpret_cast<const float4*>(row + o);
-          acc = fmaf(v.x, wr[o], acc);
-          acc = fmaf(v.y, wr[o + 1], acc);
-          acc = fmaf(v.z, wr[o + 2], acc);
-          acc = fmaf(v.w, wr[o + 3], acc);
-        }
-        acc *= s;
-        if (MODE == 2)
-          out[p * CIN + i] += acc;
-        else
-          out[p * CIN + i] = acc;
-      }
+    for (int u = 0; u < 2; ++u) {
+      *out(i, o + 8 * u) = old[u][0] + acc[u][0];
+      *out(i, o + 8 * u + 1) = old[u][1] + acc[u][1];
+      *out(i + 8, o + 8 * u) = old[u][2] + acc[u][2];
+      *out(i + 8, o + 8 * u + 1) = old[u][3] + acc[u][3];
+      bsum[u] += __shfl_xor_sync(0xffffffffu, bsum[u], 1);
+      bsum[u] += __shfl_xor_sync(0xffffffffu, bsum[u], 2);
+    }
+    if (pair < NP && t == 0) {
+      *bias(o0) += bsum[0];
+      *bias(o0 + 8) += bsum[1];
     }
   }
 }
 
-// Backward of out = LN(src) * gamma + beta per token: dx (MODE 0: =, 2: +=)
-// from dy, the statistics recomputed from src; accumulates dgamma, dbeta.
-template <int C, int MODE>
-__device__ __forceinline__ void ln_bwd(const float* src, const float* dy, const float* gamma,
-                                       float eps, float* out, float* g_gamma, float* g_beta,
-                                       int lane) {
-  const bool on = lane < C;
-  const float gm = on ? gamma[lane] : 0.f;
-  float acc_g = 0.f, acc_b = 0.f;
-#pragma unroll 1
-  for (int p = 0; p < P; ++p) {
-    const float v = on ? src[p * C + lane] : 0.f;
-    const float mu = warp_sum(v) / C;
-    const float d = on ? v - mu : 0.f;
-    const float inv = 1.f / sqrtf(warp_sum(d * d) / C + eps);
-    const float xhat = d * inv;
-    const float dyv = on ? dy[p * C + lane] : 0.f;
-    acc_g = fmaf(dyv, xhat, acc_g);
-    acc_b += dyv;
-    const float dxhat = dyv * gm;
-    const float m1 = warp_sum(dxhat) / C;
-    const float m2 = warp_sum(dxhat * xhat) / C;
-    const float dx = (dxhat - m1 - xhat * m2) * inv;
-    if (on) {
-      if (MODE == 2)
-        out[p * C + lane] += dx;
-      else
-        out[p * C + lane] = dx;
+// Column sums over the tile's rows in a fixed order, in two parts: part 1
+// sums interleaved chunks of rows (THREADS / ncols of them) of val(r, c)
+// and, when given, val2(r, c) into red; after a barrier, part 2 adds the
+// chunks in order to *out(c) and *out2(c) (shared memory).
+template <class V, class V2 = V>
+__device__ __forceinline__ void colsum_part1(int ncols, V val, float* red,
+                                             const V2* val2 = nullptr) {
+  const int chunks = THREADS / ncols;
+  const int c = threadIdx.x % ncols, k = threadIdx.x / ncols;
+  if (k < chunks) {
+    float s = 0.f, s2 = 0.f;
+    for (int r = k; r < R; r += chunks) {
+      s += val(r, c);
+      if (val2) s2 += (*val2)(r, c);
     }
-  }
-  if (on) {
-    g_gamma[lane] += acc_g;
-    g_beta[lane] += acc_b;
+    red[k * ncols + c] = s;
+    red[THREADS + k * ncols + c] = s2;
   }
 }
 
-// dq, dk, dv of ctx = softmax(q k^T * scale) v per head, from dctx.
-// ast: 3 * P * H floats for the rows' max, sum and sum_k(attn * dattn).
-template <int C, int D>
-__device__ __forceinline__ void attention_bwd(const float* q, const float* k, const float* v,
-                                              const float* dctx, float* dq, float* dk,
-                                              float* dv, float* ast, float scale, int lane) {
-  constexpr int H = C / D;
-  // pass 1: one (query p, head h) per lane -> dq and the row statistics
-#pragma unroll 1
-  for (int idx = lane; idx < P * H; idx += 32) {
-    const int p = idx / H, h = idx % H;
-    float qv[D], dc[D];
-#pragma unroll
-    for (int e = 0; e < D; ++e) {
-      qv[e] = q[p * C + h * D + e];
-      dc[e] = dctx[p * C + h * D + e];
+template <class Out, class Out2 = Out>
+__device__ __forceinline__ void colsum_part2(int ncols, Out out, const float* red,
+                                             const Out2* out2 = nullptr) {
+  if (threadIdx.x < ncols) {
+    const int chunks = THREADS / ncols;
+    float s = 0.f, s2 = 0.f;
+    for (int j = 0; j < chunks; ++j) {
+      s += red[j * ncols + threadIdx.x];
+      s2 += red[THREADS + j * ncols + threadIdx.x];
     }
-    float a[P], da[P];
-    float mx = -INFINITY;
+    *out(threadIdx.x) += s;
+    if (out2) *(*out2)(threadIdx.x) += s2;
+  }
+}
+
+// *out(c) += sum over rows r of val(r, c), c < ncols, both parts.
+template <class V, class Out>
+__device__ __forceinline__ void colsum_add(int ncols, V val, Out out, float* red) {
+  colsum_part1(ncols, val, red);
+  __syncthreads();
+  colsum_part2(ncols, out, red);
+  __syncthreads();
+}
+
+// Mean and 1/sqrt(var + eps) of each of the R rows of x (pitch PC), one
+// thread per row (float4 loads: a warp's rows cover the 32 banks).
+template <int C>
+__device__ __forceinline__ void ln_stats(const float* x, float* mu, float* rs, float eps) {
+  constexpr int PC = Tile<C>::PC;
+  for (int r = threadIdx.x; r < R; r += THREADS) {
+    float v[C];
+#pragma unroll
+    for (int c = 0; c < C; c += 4)
+      *reinterpret_cast<float4*>(v + c) = *reinterpret_cast<const float4*>(x + r * PC + c);
+    float m = 0.f;
+#pragma unroll
+    for (int c = 0; c < C; ++c) m += v[c];
+    m /= C;
+    float var = 0.f;
+#pragma unroll
+    for (int c = 0; c < C; ++c) var = fmaf(v[c] - m, v[c] - m, var);
+    mu[r] = m;
+    rs[r] = 1.f / sqrtf(var / C + eps);
+  }
+}
+
+// x (pitch PC) normalised in place, row by row (xhat = (x - mean) * rs),
+// and each row's rs = 1/sqrt(var + eps), one thread per row.
+template <int C>
+__device__ __forceinline__ void ln_normalize(float* x, float* rs, float eps) {
+  constexpr int PC = Tile<C>::PC;
+  for (int r = threadIdx.x; r < R; r += THREADS) {
+    float v[C];
+#pragma unroll
+    for (int c = 0; c < C; c += 4)
+      *reinterpret_cast<float4*>(v + c) = *reinterpret_cast<const float4*>(x + r * PC + c);
+    float m = 0.f;
+#pragma unroll
+    for (int c = 0; c < C; ++c) m += v[c];
+    m /= C;
+    float var = 0.f;
+#pragma unroll
+    for (int c = 0; c < C; ++c) var = fmaf(v[c] - m, v[c] - m, var);
+    const float inv = 1.f / sqrtf(var / C + eps);
+    rs[r] = inv;
+#pragma unroll
+    for (int c = 0; c < C; c += 4)
+      *reinterpret_cast<float4*>(x + r * PC + c) =
+          make_float4((v[c] - m) * inv, (v[c + 1] - m) * inv, (v[c + 2] - m) * inv,
+                      (v[c + 3] - m) * inv);
+  }
+}
+
+// out (pitch PC) = [out +] LN'(dy) at xhat (the normalised input; rs the
+// rows' 1/sqrt(var + eps)), 0 on padded rows, one thread per row; the
+// LayerNorm's gamma and beta gradients first go to g_gamma, g_beta (one
+// column-sum pass).
+template <int C>
+__device__ __forceinline__ void ln_bwd(const float* xhat, const float* dy, const float* gamma,
+                                       const float* rs, const float* rowf, float* out, bool add,
+                                       float* g_gamma, float* g_beta, float* red) {
+  constexpr int PC = Tile<C>::PC;
+  const auto beta_val = [&](int r, int c) { return dy[r * PC + c] * rowf[r]; };
+  colsum_part1(
+      C, [&](int r, int c) { return dy[r * PC + c] * xhat[r * PC + c] * rowf[r]; }, red,
+      &beta_val);
+  for (int r = threadIdx.x; r < R; r += THREADS) {
+    float xh[C], d[C];
+#pragma unroll
+    for (int c = 0; c < C; c += 4) {
+      *reinterpret_cast<float4*>(xh + c) = *reinterpret_cast<const float4*>(xhat + r * PC + c);
+      *reinterpret_cast<float4*>(d + c) = *reinterpret_cast<const float4*>(dy + r * PC + c);
+    }
+    const float inv = rs[r];
+    float m1 = 0.f, m2 = 0.f;
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      d[c] *= gamma[c];
+      m1 += d[c];
+      m2 = fmaf(d[c], xh[c], m2);
+    }
+    m1 /= C;
+    m2 /= C;
+    const bool on = rowf[r] > 0.f;
+#pragma unroll
+    for (int c = 0; c < C; c += 4) {
+      float4 o = add ? *reinterpret_cast<const float4*>(out + r * PC + c)
+                     : make_float4(0.f, 0.f, 0.f, 0.f);
+      o.x = on ? o.x + (d[c] - m1 - xh[c] * m2) * inv : 0.f;
+      o.y = on ? o.y + (d[c + 1] - m1 - xh[c + 1] * m2) * inv : 0.f;
+      o.z = on ? o.z + (d[c + 2] - m1 - xh[c + 2] * m2) * inv : 0.f;
+      o.w = on ? o.w + (d[c + 3] - m1 - xh[c + 3] * m2) * inv : 0.f;
+      *reinterpret_cast<float4*>(out + r * PC + c) = o;
+    }
+  }
+  __syncthreads();
+  const auto beta_out = [&](int c) { return g_beta + c; };
+  colsum_part2(C, [&](int c) { return g_gamma + c; }, red, &beta_out);
+}
+
+// ctx = softmax(q k^T * scale) v per (frame, head, query) of the tile's
+// frames; q|k|v rows at pitch P3.
+template <int C>
+__device__ __forceinline__ void attention_fwd(const float* qkv, float* ctx, int nf, float scale) {
+  using T = Tile<C>;
+  const float sl = scale * LOG2E;  // the softmax in base 2
+  for (int it = threadIdx.x; it < nf * T::H * P; it += THREADS) {
+    const int f = it / (T::H * P), h = it / P % T::H, p = it % P;
+    const int base = f * P * T::P3 + 4 * h;
+    const float4 q = *reinterpret_cast<const float4*>(qkv + base + p * T::P3);
+    float e[P], mx = -INFINITY;
 #pragma unroll
     for (int j = 0; j < P; ++j) {
-      float s = 0.f;
+      const float4 k = *reinterpret_cast<const float4*>(qkv + base + j * T::P3 + C);
+      e[j] = (q.x * k.x + q.y * k.y + q.z * k.z + q.w * k.w) * sl;
+      mx = fmaxf(mx, e[j]);
+    }
+    float sum = 0.f;
+    float4 o = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
-      for (int e = 0; e < D; ++e) s = fmaf(qv[e], k[j * C + h * D + e], s);
-      a[j] = s * scale;
-      mx = fmaxf(mx, a[j]);
+    for (int j = 0; j < P; ++j) {
+      e[j] = exp2f(e[j] - mx);
+      sum += e[j];
+      const float4 v = *reinterpret_cast<const float4*>(qkv + base + j * T::P3 + 2 * C);
+      o.x = fmaf(e[j], v.x, o.x);
+      o.y = fmaf(e[j], v.y, o.y);
+      o.z = fmaf(e[j], v.z, o.z);
+      o.w = fmaf(e[j], v.w, o.w);
+    }
+    const float inv = 1.f / sum;
+    *reinterpret_cast<float4*>(ctx + (f * P + p) * T::PC + 4 * h) =
+        make_float4(o.x * inv, o.y * inv, o.z * inv, o.w * inv);
+  }
+}
+
+// The attention's backward from q|k|v (pitch P3) and dctx (pitch PC): one
+// (frame, head, query) per thread for dq (into dq, pitch PC) and each row's
+// log-sum-exp and sum(P dP) (into st), then one (frame, head, key) per
+// thread for dk and dv, written over that key's k and v (no other item of
+// the second pass reads them).
+template <int C>
+__device__ __forceinline__ void attention_bwd(float* qkv, const float* dctx, float* dq_out,
+                                              float* st, int nf, float scale) {
+  using T = Tile<C>;
+  const float sl = scale * LOG2E;  // the softmax in base 2: st holds log2-sum-exp2
+  const int items = nf * T::H * P;
+  for (int it = threadIdx.x; it < items; it += THREADS) {
+    const int f = it / (T::H * P), h = it / P % T::H, p = it % P;
+    const int base = f * P * T::P3 + 4 * h;
+    const float4 q = *reinterpret_cast<const float4*>(qkv + base + p * T::P3);
+    const float4 g = *reinterpret_cast<const float4*>(dctx + (f * P + p) * T::PC + 4 * h);
+    float e[P], dp[P], mx = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+      const float4 k = *reinterpret_cast<const float4*>(qkv + base + j * T::P3 + C);
+      const float4 v = *reinterpret_cast<const float4*>(qkv + base + j * T::P3 + 2 * C);
+      e[j] = (q.x * k.x + q.y * k.y + q.z * k.z + q.w * k.w) * sl;
+      dp[j] = g.x * v.x + g.y * v.y + g.z * v.z + g.w * v.w;
+      mx = fmaxf(mx, e[j]);
     }
     float sum = 0.f;
 #pragma unroll
     for (int j = 0; j < P; ++j) {
-      a[j] = expf(a[j] - mx);
-      sum += a[j];
+      e[j] = exp2f(e[j] - mx);
+      sum += e[j];
     }
+    const float inv = 1.f / sum;
     float sd = 0.f;
 #pragma unroll
     for (int j = 0; j < P; ++j) {
-      a[j] = a[j] / sum;
-      float s = 0.f;
-#pragma unroll
-      for (int e = 0; e < D; ++e) s = fmaf(dc[e], v[j * C + h * D + e], s);
-      da[j] = s;
-      sd = fmaf(a[j], s, sd);
+      e[j] *= inv;
+      sd = fmaf(e[j], dp[j], sd);
     }
-    float dqv[D];
-#pragma unroll
-    for (int e = 0; e < D; ++e) dqv[e] = 0.f;
+    float4 dq = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
     for (int j = 0; j < P; ++j) {
-      const float dl = a[j] * (da[j] - sd);
-#pragma unroll
-      for (int e = 0; e < D; ++e) dqv[e] = fmaf(dl, k[j * C + h * D + e], dqv[e]);
+      const float4 k = *reinterpret_cast<const float4*>(qkv + base + j * T::P3 + C);
+      const float ds = e[j] * (dp[j] - sd);
+      dq.x = fmaf(ds, k.x, dq.x);
+      dq.y = fmaf(ds, k.y, dq.y);
+      dq.z = fmaf(ds, k.z, dq.z);
+      dq.w = fmaf(ds, k.w, dq.w);
     }
-#pragma unroll
-    for (int e = 0; e < D; ++e) dq[p * C + h * D + e] = dqv[e] * scale;
-    ast[idx] = mx;
-    ast[P * H + idx] = sum;
-    ast[2 * P * H + idx] = sd;
+    *reinterpret_cast<float4*>(dq_out + (f * P + p) * T::PC + 4 * h) =
+        make_float4(dq.x * scale, dq.y * scale, dq.z * scale, dq.w * scale);
+    st[it] = mx + log2f(sum);
+    st[items + it] = sd;
   }
-  __syncwarp();
-  // pass 2: one (key j, head h) per lane -> dk, dv
-#pragma unroll 1
-  for (int idx = lane; idx < P * H; idx += 32) {
-    const int j = idx / H, h = idx % H;
-    float kv[D], vv[D], dkv[D], dvv[D];
+  __syncthreads();
+  for (int it = threadIdx.x; it < items; it += THREADS) {
+    const int f = it / (T::H * P), h = it / P % T::H, j = it % P;
+    const int base = f * P * T::P3 + 4 * h;
+    const int row0 = it - j;  // the (frame, head)'s first query item
+    const float4 k = *reinterpret_cast<const float4*>(qkv + base + j * T::P3 + C);
+    const float4 v = *reinterpret_cast<const float4*>(qkv + base + j * T::P3 + 2 * C);
+    float4 dk = make_float4(0.f, 0.f, 0.f, 0.f), dv = dk;
 #pragma unroll
-    for (int e = 0; e < D; ++e) {
-      kv[e] = k[j * C + h * D + e];
-      vv[e] = v[j * C + h * D + e];
-      dkv[e] = 0.f;
-      dvv[e] = 0.f;
-    }
-#pragma unroll 1
     for (int p = 0; p < P; ++p) {
-      const int r = p * H + h;
-      float s = 0.f, dd = 0.f;
-#pragma unroll
-      for (int e = 0; e < D; ++e) {
-        s = fmaf(q[p * C + h * D + e], kv[e], s);
-        dd = fmaf(dctx[p * C + h * D + e], vv[e], dd);
-      }
-      const float a = expf(s * scale - ast[r]) / ast[P * H + r];
-      const float dl = a * (dd - ast[2 * P * H + r]);
-#pragma unroll
-      for (int e = 0; e < D; ++e) {
-        dkv[e] = fmaf(dl, q[p * C + h * D + e], dkv[e]);
-        dvv[e] = fmaf(a, dctx[p * C + h * D + e], dvv[e]);
-      }
+      const float4 q = *reinterpret_cast<const float4*>(qkv + base + p * T::P3);
+      const float4 g = *reinterpret_cast<const float4*>(dctx + (f * P + p) * T::PC + 4 * h);
+      const float a = exp2f((q.x * k.x + q.y * k.y + q.z * k.z + q.w * k.w) * sl - st[row0 + p]);
+      const float ds = a * ((g.x * v.x + g.y * v.y + g.z * v.z + g.w * v.w) - st[items + row0 + p]);
+      dk.x = fmaf(ds, q.x, dk.x);
+      dk.y = fmaf(ds, q.y, dk.y);
+      dk.z = fmaf(ds, q.z, dk.z);
+      dk.w = fmaf(ds, q.w, dk.w);
+      dv.x = fmaf(a, g.x, dv.x);
+      dv.y = fmaf(a, g.y, dv.y);
+      dv.z = fmaf(a, g.z, dv.z);
+      dv.w = fmaf(a, g.w, dv.w);
     }
-#pragma unroll
-    for (int e = 0; e < D; ++e) {
-      dk[j * C + h * D + e] = dkv[e] * scale;
-      dv[j * C + h * D + e] = dvv[e];
-    }
+    *reinterpret_cast<float4*>(qkv + base + j * T::P3 + C) =
+        make_float4(dk.x * scale, dk.y * scale, dk.z * scale, dk.w * scale);
+    *reinterpret_cast<float4*>(qkv + base + j * T::P3 + 2 * C) = dv;
   }
 }
 
-template <int C, int D>
-__host__ __device__ constexpr int per_warp_floats(int blocks) {
-  // (L+1) checkpoints, 10 buffers of (P, C), 2 of (P, 2C), attention stats
-  return ((blocks + 1 + 14) * P * C + 3 * P * (C / D) + 3) & ~3;
+// Floats of the small gradients a thread block keeps in shared memory.
+template <int C>
+__host__ __device__ constexpr int small_floats(int blocks) {
+  return Layout<C>::BLOCKS + 2 * C + 11 * C * blocks;
 }
 
-template <int C, int D>
-__global__ void __launch_bounds__(MAX_WARPS * 32)
-spatial_bwd_kernel(const float* __restrict__ x, const float* __restrict__ gout,
-                   const float* __restrict__ scales, const float* __restrict__ w,
-                   float* __restrict__ dx, float* __restrict__ ddp, float* __restrict__ partial,
-                   int frames, int blocks, int n_params) {
+template <int C>
+__global__ void __launch_bounds__(THREADS, 1)
+spatial_bwd_tc_kernel(const float* __restrict__ x, const float* __restrict__ gout,
+                      const float* __restrict__ scales, const float* __restrict__ w,
+                      float* __restrict__ dx, float* __restrict__ ddp, float* __restrict__ partial,
+                      float* __restrict__ scratch, int frames, int blocks, int n_params) {
   using L = Layout<C>;
-  constexpr int HID = L::HID;
-  constexpr int S = P * C;
-  static_assert(C <= 32 && C % 4 == 0 && C % D == 0, "lane = channel needs C <= 32");
-  extern __shared__ __align__(16) float smem[];
-  const int warps = blockDim.x / 32;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  float* ck = smem + (size_t)warp * per_warp_floats<C, D>(blocks);  // (L+1) x (P, C)
-  float* Y = ck + (blocks + 1) * S;  // LN1 output
-  float* Q = Y + S;
-  float* K = Q + S;
-  float* V = K + S;
-  float* CTX = V + S;
-  float* PROJ = CTX + S;  // proj branch before its scale
-  float* X2 = PROJ + S;   // x + s1 * proj
-  float* Z = X2 + S;      // LN2 output
-  float* T = Z + S;       // scratch: fc2 branch, dz, dctx, dy
-  float* DD = T + S;      // the gradient flowing down the residual stream
-  float* H1 = DD + S;     // (P, 2C) fc1 pre-activation; later dv
-  float* A = H1 + 2 * S;  // (P, 2C) gelu(h1), then dh1; later dq, dk
-  float* AST = A + 2 * S;
+  using T = Tile<C>;
+  constexpr int HID = T::HID, C3 = T::C3, PC = T::PC, PH = T::PH, P3 = T::P3;
+  static_assert(C % 16 == 0 && C <= 32, "C = 16 or 32: rows of C lanes, m16 tiles of C");
+  extern __shared__ float4 k4_smem[];
+  float* sm = reinterpret_cast<float*>(k4_smem);
+  float* DD = sm;            // the gradient down the residual stream (then DX2)
+  float* XS = DD + T::U;     // the block's input x0: X2 in place, then xhat2; x0, xhat1
+  float* G = XS + T::U;      // the working region
+  float* WQKV = G + T::G;    // (C, 3C) q|k|v weights' big TF32 halves, pitch W3
+  float* WP = WQKV + C * T::W3;
+  float* W1 = WP + C * T::WC;
+  float* W2 = W1 + C * T::WH;
+  float* mu1 = WQKV + 2 * T::WEIGHTS;  // the weights' small halves lie WEIGHTS after the big
+  float* rs1 = mu1 + R;
+  float* mu2 = rs1 + R;
+  float* rs2 = mu2 + R;
+  float* rowf = rs2 + R;     // 1 on the tile's real rows, 0 on padded ones
+  float* s1r = rowf + R;     // the rows' attention-branch scale (0 on padded rows)
+  float* s2r = s1r + R;      // the rows' MLP-branch scale
+  float* rsum = s2r + R;     // per-row sums of the scale gradients
+  float* red = rsum + R;     // 2 x THREADS: column-sum chunks
+  // the small gradients (embedding, PE, LayerNorms, biases), summed here over
+  // the block's tiles and written to its gradient row at the end: the
+  // packed order of emb_w, emb_b, pe, then norm_g, norm_b, then per block
+  // ln1_g, ln1_b, bq, bk, bv, bp, ln2_g, ln2_b, b1, b2 (small_floats)
+  float* SG = red + 2 * THREADS;
+  float* RSA = SG + small_floats<C>(blocks);  // (2L, R) per-row scale gradients
+  float* sg_norm = SG + L::BLOCKS;
+  constexpr int SB = 11 * C;  // per block: LN1 0, bq|bk|bv 2C, bp 5C, LN2 6C, b1 8C, b2 10C
+  // phase layouts of G: the replay's front CTX | q|k|v, then CTX | H1; the MLP
+  // backward CTX | H1 -> gelu(H1) -> dZ | dH1; the attention backward dCTX
+  // (over CTX) | q|k|v (then dk, dv over k, v) | dq (then dY) | statistics
+  float* CTX = G;
+  float* QKV_A = G + T::U;
+  float* H1 = G + T::U;
+  float* DH1 = H1 + R * PH;
+  float* DZ = H1;
+  float* QKV_C = G + T::U;  // beside CTX (then dCTX in place); dk, dv over k, v
+  float* DQ = QKV_C + R * P3;
+  float* ST = DQ + T::U;
+  // d(q|k|v)[r, o]: dq from DQ, dk and dv from over k and v
+  auto dqkv = [&](int r, int o) { return o < C ? DQ[r * PC + o] : QKV_C[r * P3 + o]; };
+  float* DY = DQ;  // dY over dq: rows_gemm reads and writes only the warp's own rows
 
-  float* gw = partial + (size_t)(blockIdx.x * warps + warp) * n_params;
-  for (int i = lane; i < n_params; i += 32) gw[i] = 0.f;
-  __syncwarp();
-  const float scale = 1.f / sqrtf((float)D);
+  for (int i = threadIdx.x; i < T::FLOATS + small_floats<C>(blocks) + 2 * blocks * R;
+       i += THREADS)
+    sm[i] = 0.f;
+  float* gw = partial + (size_t)blockIdx.x * n_params;
+  for (int i = threadIdx.x; i < n_params; i += THREADS) gw[i] = 0.f;
+  // scratch: each block's input (the checkpoints), then each block's CTX
+  float* ck = scratch + (size_t)blockIdx.x * (2 * blocks + 1) * R * C;
+  float* ctxg = ck + (size_t)(blocks + 1) * R * C;
+  const float scale = 0.5f;  // 1 / sqrt(D), D = 4
   const float* norm = w + L::BLOCKS + blocks * L::BLOCK;
-  float* gnorm = gw + L::BLOCKS + blocks * L::BLOCK;
+  __syncthreads();
 
-  // the block's forward up to gelu(h1), from its input x0
-  auto block_front = [&](int blk, const float* x0, float s1) {
+  // an (R, C) slice of the scratch <-> a buffer of pitch PC
+  auto save = [&](float* dst, const float* src) {
+    for (int e = threadIdx.x; e < R * C / 4; e += THREADS) {
+      const int r = e / (C / 4), c = 4 * (e % (C / 4));
+      *reinterpret_cast<float4*>(dst + r * C + c) =
+          *reinterpret_cast<const float4*>(src + r * PC + c);
+    }
+  };
+  // asynchronous (cp.async): wait_copies() and a barrier before the data is read
+  auto restore = [&](float* dst, const float* src) {
+    for (int e = threadIdx.x; e < R * C / 4; e += THREADS) {
+      const int r = e / (C / 4), c = 4 * (e % (C / 4));
+      uu::cp_async16(dst + r * PC + c, src + r * C + c, 16);
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+  auto wait_copies = []() { asm volatile("cp.async.wait_group 0;\n" ::: "memory"); };
+  auto store_ck = [&](int i) { save(ck + (size_t)i * R * C, XS); };
+  // block blk's weights into shared memory, its scales per row
+  // 4 floats as TF32 halves: big at dst, small T::WEIGHTS further
+  auto put_split = [&](float* dst, const float4 v) {
+    uint32_t b[4], sm4[4];
+    uu::tf32_split(v.x, b[0], sm4[0]);
+    uu::tf32_split(v.y, b[1], sm4[1]);
+    uu::tf32_split(v.z, b[2], sm4[2]);
+    uu::tf32_split(v.w, b[3], sm4[3]);
+    *reinterpret_cast<uint4*>(dst) = make_uint4(b[0], b[1], b[2], b[3]);
+    *reinterpret_cast<uint4*>(dst + T::WEIGHTS) = make_uint4(sm4[0], sm4[1], sm4[2], sm4[3]);
+  };
+  // block blk's weights into shared memory as TF32 halves, its scales per
+  // row: every load issued first, then the splits and stores. Float4 e of
+  // the 2C^2: wq, wk, wv, wp (C x C each), w1 (C x 2C), w2 (2C x C).
+  auto weight4 = [&](int e, const float* bw, float** dst) {
+    constexpr int Q = C * C / 4;  // float4s per C x C matrix
+    if (e < 4 * Q) {
+      const int m = e / Q, i = e % Q / (C / 4), o = 4 * (e % (C / 4));
+      const int src[4] = {L::WQ, L::WK, L::WV, L::WP};
+      *dst = m < 3 ? WQKV + i * T::W3 + m * C + o : WP + i * T::WC + o;
+      return bw + src[m] + i * C + o;
+    }
+    if (e < 6 * Q) {
+      const int i = (e - 4 * Q) / (HID / 4), o = 4 * ((e - 4 * Q) % (HID / 4));
+      *dst = W1 + i * T::WH + o;
+      return bw + L::W1 + i * HID + o;
+    }
+    const int i = (e - 6 * Q) / (C / 4), o = 4 * ((e - 6 * Q) % (C / 4));
+    *dst = W2 + i * T::WC + o;
+    return bw + L::W2 + i * C + o;
+  };
+  auto stage = [&](int blk, int f0) {
     const float* bw = w + L::BLOCKS + blk * L::BLOCK;
-    sp::layer_norm<C>(x0, Y, bw + L::LN1_G, bw + L::LN1_B, 1e-5f, lane);
-    __syncwarp();
-    sp::dense<C, C, 0>(Y, bw + L::WQ, bw + L::BQ, Q, lane);
-    sp::dense<C, C, 0>(Y, bw + L::WK, bw + L::BK, K, lane);
-    sp::dense<C, C, 0>(Y, bw + L::WV, bw + L::BV, V, lane);
-    __syncwarp();
-    sp::attention<C, D>(Q, K, V, CTX, scale, lane);
-    __syncwarp();
-    sp::dense<C, C, 0>(CTX, bw + L::WP, bw + L::BP, PROJ, lane);
-    __syncwarp();
-    if (lane < C)
-      for (int p = 0; p < P; ++p) X2[p * C + lane] = x0[p * C + lane] + PROJ[p * C + lane] * s1;
-    __syncwarp();
-    sp::layer_norm<C>(X2, Z, bw + L::LN2_G, bw + L::LN2_B, 1e-5f, lane);
-    __syncwarp();
-    sp::dense<C, HID, 0>(Z, bw + L::W1, bw + L::B1, H1, lane);
-    __syncwarp();
-    for (int i = lane; i < P * HID; i += 32) A[i] = sp::gelu(H1[i]);
-    __syncwarp();
+    constexpr int NV = 2 * C * C / THREADS;
+    static_assert(2 * C * C % THREADS == 0, "the weights' float4s spread evenly");
+    float4 v[NV];
+    float* dst[NV];
+#pragma unroll
+    for (int k = 0; k < NV; ++k)
+      v[k] = *reinterpret_cast<const float4*>(weight4(threadIdx.x + k * THREADS, bw, &dst[k]));
+#pragma unroll
+    for (int k = 0; k < NV; ++k) put_split(dst[k], v[k]);
+    for (int r = threadIdx.x; r < R; r += THREADS) {
+      const bool on = rowf[r] > 0.f;
+      s1r[r] = on ? scales[(size_t)(2 * blk) * frames + f0 + r / P] : 0.f;
+      s2r[r] = on ? scales[(size_t)(2 * blk + 1) * frames + f0 + r / P] : 0.f;
+    }
+  };
+  // LN1(x0)[r, k] and LN2(X2)[r, k] as the products load them
+  auto ln1_at = [&](const float* x0, const float* bw) {
+    return [=](int r, int k) {
+      return (x0[r * PC + k] - mu1[r]) * rs1[r] * bw[L::LN1_G + k] + bw[L::LN1_B + k];
+    };
+  };
+  auto qkv_bias = [](const float* bw, int n) {
+    return n < C ? bw[L::BQ + n] : n < 2 * C ? bw[L::BK + n - C] : bw[L::BV + n - 2 * C];
+  };
+  // XS = (XS - mu) * rs per row: the LayerNorm's xhat in place (no barrier)
+  auto normalize = [&](const float* mu, const float* rs) {
+    for (int e = threadIdx.x; e < R * C; e += THREADS) {
+      const int r = e / C, c = e % C;
+      XS[r * PC + c] = (XS[r * PC + c] - mu[r]) * rs[r];
+    }
+  };
+  // the block's front from x0 in XS: (the replay) q|k|v, CTX; then X2 into
+  // XS, H1 = LN2(X2) . W1 + b1 (the backward: X2 normalised in place)
+  auto front = [&](int blk, int nf, bool replay) {
+    const float* bw = w + L::BLOCKS + blk * L::BLOCK;
+    ln_stats<C>(XS, mu1, rs1, 1e-5f);
+    __syncthreads();
+    if (replay) {  // the replay: the attention, its context kept in the scratch
+      rows_gemm<C, C3>(ln1_at(XS, bw), [&](int k, int n) { return WQKV + k * T::W3 + n; },
+                       T::WEIGHTS,
+                       [&](int r, int n, float v) {
+                         QKV_A[r * P3 + n] = v + qkv_bias(bw, n);
+                         return 0.f;
+                       },
+                       nullptr);
+      __syncthreads();
+      attention_fwd<C>(QKV_A, CTX, nf, scale);
+      __syncthreads();
+      save(ctxg + (size_t)blk * R * C, CTX);
+    }  // the backward: CTX restored from the replay's context by the caller
+    rows_gemm<C, C>([&](int r, int k) { return CTX[r * PC + k]; },
+                    [&](int k, int n) { return WP + k * T::WC + n; }, T::WEIGHTS,
+                    [&](int r, int n, float v) {
+                      XS[r * PC + n] += s1r[r] * (v + bw[L::BP + n]);
+                      return 0.f;
+                    },
+                    nullptr);
+    __syncthreads();
+    const auto w1_at = [&](int k, int n) { return W1 + k * T::WH + n; };
+    if (replay) {  // the replay: X2 stays, the residual of fc2
+      ln_stats<C>(XS, mu2, rs2, 1e-5f);
+      __syncthreads();
+      rows_gemm<C, HID>(
+          [&](int r, int k) {
+            return (XS[r * PC + k] - mu2[r]) * rs2[r] * bw[L::LN2_G + k] + bw[L::LN2_B + k];
+          },
+          w1_at, T::WEIGHTS,
+          [&](int r, int n, float v) {
+            H1[r * PH + n] = sp::gelu(v + bw[L::B1 + n]);
+            return 0.f;
+          },
+          nullptr);
+    } else {  // the backward: X2 normalised in place (xhat2), read by fc1, dW1, LN2'
+      ln_normalize<C>(XS, rs2, 1e-5f);
+      __syncthreads();
+      rows_gemm<C, HID>(
+          [&](int r, int k) { return XS[r * PC + k] * bw[L::LN2_G + k] + bw[L::LN2_B + k]; },
+          w1_at, T::WEIGHTS,
+          [&](int r, int n, float v) {
+            H1[r * PH + n] = v + bw[L::B1 + n];
+            return 0.f;
+          },
+          nullptr);
+    }
+    __syncthreads();
+  };
+  // the scale gradient ddp[row, f] per row: rsum + sum_c dy[r, c] b[c] into
+  // row `row` of RSA; the frames' sums of the tile's 2L rows at its end
+  auto frame_rows = [&](const float* dy, const float* b, int row) {
+    for (int r = threadIdx.x; r < R; r += THREADS) {
+      float s = rsum[r];
+      for (int c = 0; c < C; c += 4) {
+        const float4 d = *reinterpret_cast<const float4*>(dy + r * PC + c);
+        s = fmaf(d.x, b[c], fmaf(d.y, b[c + 1], fmaf(d.z, b[c + 2], fmaf(d.w, b[c + 3], s))));
+      }
+      RSA[row * R + r] = s;
+    }
   };
 
-  for (int f = blockIdx.x * warps + warp; f < frames; f += gridDim.x * warps) {
-    const float* xin = x + (size_t)f * P * 2;
-    // ---- forward replay, checkpointing each block's input ----------------
-    if (lane < C) {
-      const float we0 = w[L::EMB_W + lane], we1 = w[L::EMB_W + C + lane];
-      const float be = w[L::EMB_B + lane];
-      for (int p = 0; p < P; ++p)
-        ck[p * C + lane] = fmaf(xin[2 * p], we0, fmaf(xin[2 * p + 1], we1, 0.f)) + be
-                           + w[L::PE + p * C + lane];
+  const int tiles = (frames + TF - 1) / TF;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int f0 = tile * TF, nf = min(TF, frames - f0), real = nf * P;
+    const float* xin = x + (size_t)f0 * P * 2;
+    // ---- embedding + PE, the forward replay, checkpoints ---------------------
+    for (int r = threadIdx.x; r < R; r += THREADS) rowf[r] = r < real ? 1.f : 0.f;
+    for (int e = threadIdx.x; e < R * C; e += THREADS) {
+      const int r = e / C, c = e % C;
+      XS[r * PC + c] = r < real ? fmaf(xin[2 * r], w[L::EMB_W + c],
+                                       fmaf(xin[2 * r + 1], w[L::EMB_W + C + c], 0.f)) +
+                                      w[L::EMB_B + c] + w[L::PE + (r % P) * C + c]
+                                : 0.f;
     }
-    __syncwarp();
+    __syncthreads();
+    store_ck(0);
+    // the tile's output gradient into DD (0 on padded rows) while the replay runs
+    for (int e = threadIdx.x; e < R * C / 4; e += THREADS) {
+      const int r = e / (C / 4), c = 4 * (e % (C / 4));
+      const bool on = r < real;
+      uu::cp_async16(DD + r * PC + c, on ? gout + ((size_t)f0 * P + r) * C + c : gout, on ? 16 : 0);
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
     for (int blk = 0; blk < blocks; ++blk) {
       const float* bw = w + L::BLOCKS + blk * L::BLOCK;
-      const float s1 = scales[(size_t)(2 * blk) * frames + f];
-      const float s2 = scales[(size_t)(2 * blk + 1) * frames + f];
-      block_front(blk, ck + blk * S, s1);
-      float* nxt = ck + (blk + 1) * S;
-      if (lane < C)
-        for (int p = 0; p < P; ++p) nxt[p * C + lane] = X2[p * C + lane];
-      __syncwarp();
-      sp::dense<HID, C, 2>(A, bw + L::W2, bw + L::B2, nxt, lane, s2);
-      __syncwarp();
+      stage(blk, f0);
+      __syncthreads();
+      front(blk, nf, true);
+      rows_gemm<HID, C>([&](int r, int k) { return H1[r * PH + k]; },
+                        [&](int k, int n) { return W2 + k * T::WC + n; }, T::WEIGHTS,
+                        [&](int r, int n, float v) {
+                          XS[r * PC + n] += s2r[r] * (v + bw[L::B2 + n]);
+                          return 0.f;
+                        },
+                        nullptr);
+      __syncthreads();
+      store_ck(blk + 1);
     }
 
-    // ---- final LayerNorm (eps 1e-6) ---------------------------------------
-    ln_bwd<C, 0>(ck + blocks * S, gout + (size_t)f * S, norm, 1e-6f, DD, gnorm, gnorm + C,
-                 lane);
-    __syncwarp();
+    // ---- final LayerNorm (eps 1e-6): DD = its backward of g ------------------
+    ln_normalize<C>(XS, rs2, 1e-6f);
+    wait_copies();
+    __syncthreads();
+    ln_bwd<C>(XS, DD, norm, rs2, rowf, DD, false, sg_norm, sg_norm + C, red);
 
-    // ---- blocks, last to first --------------------------------------------
+    // ---- blocks, last to first ----------------------------------------------
     for (int blk = blocks - 1; blk >= 0; --blk) {
       const float* bw = w + L::BLOCKS + blk * L::BLOCK;
       float* gb = gw + L::BLOCKS + blk * L::BLOCK;
-      const float s1 = scales[(size_t)(2 * blk) * frames + f];
-      const float s2 = scales[(size_t)(2 * blk + 1) * frames + f];
-      const float* x0 = ck + blk * S;
-      block_front(blk, x0, s1);
+      float* sgb = sg_norm + 2 * C + blk * SB;
+      // the block's gradient row into L2 ahead of the tile_dw read-modify-writes
+      for (int i = 32 * threadIdx.x; i < L::BLOCK; i += 32 * THREADS)
+        asm volatile("prefetch.global.L2 [%0];" ::"l"(gb + i));
+      restore(XS, ck + (size_t)blk * R * C);
+      restore(CTX, ctxg + (size_t)blk * R * C);
+      if (blk < blocks - 1) stage(blk, f0);  // the last block's are staged from the replay
+      wait_copies();
+      __syncthreads();
+      front(blk, nf, false);
 
-      // MLP branch: out = x2 + s2 * (gelu(h1) . W2 + b2)
-      sp::dense<HID, C, 0>(A, bw + L::W2, bw + L::B2, T, lane);
-      __syncwarp();
-      float part = 0.f;
-      if (lane < C)
-        for (int p = 0; p < P; ++p) part = fmaf(DD[p * C + lane], T[p * C + lane], part);
-      part = warp_sum(part);
-      if (lane == 0) ddp[(size_t)(2 * blk + 1) * frames + f] = part;
-      dense_dw<HID, C>(A, DD, s2, gb + L::W2, lane);
-      bias_grad<C>(DD, s2, gb + L::B2, lane);
-      __syncwarp();
-      dense_t<HID, C, 0>(DD, bw + L::W2, s2, A, lane);  // d gelu(h1)
-      __syncwarp();
-      for (int i = lane; i < P * HID; i += 32) {
-        const float h = H1[i];
-        const float phi = 0.5f * (1.f + erff(h * 0.70710678118654752f));
-        A[i] *= phi + h * 0.39894228040143268f * expf(-0.5f * h * h);  // dh1
-      }
-      __syncwarp();
-      dense_dw<C, HID>(Z, A, 1.f, gb + L::W1, lane);
-      bias_grad<HID>(A, 1.f, gb + L::B1, lane);
-      dense_t<C, HID, 0>(A, bw + L::W1, 1.f, T, lane);  // dz
-      __syncwarp();
-      ln_bwd<C, 2>(X2, T, bw + L::LN2_G, 1e-5f, DD, gb + L::LN2_G, gb + L::LN2_B, lane);
-      __syncwarp();
+      // MLP branch: out = X2 + s2 * (gelu(H1) . W2 + b2)
+      rows_gemm<C, HID>([&](int r, int k) { return DD[r * PC + k]; },
+                        [&](int k, int n) { return W2 + n * T::WC + k; }, T::WEIGHTS,
+                        [&](int r, int n, float u) {
+                          float grad;
+                          const float a = gelu_and_grad(H1[r * PH + n], &grad);
+                          H1[r * PH + n] = a;  // gelu(H1) from here on
+                          DH1[r * PH + n] = s2r[r] * u * grad;
+                          return a * u;
+                        },
+                        rsum);
+      __syncthreads();
+      frame_rows(DD, bw + L::B2, 2 * blk + 1);
+      tile_dw<HID, C>([&](int r, int i) { return H1[r * PH + i]; },
+                      [&](int r, int o) { return DD[r * PC + o]; }, s2r,
+                      [&](int i, int o) { return gb + L::W2 + i * C + o; },
+                      [&](int o) { return sgb + 10 * C + o; });
+      tile_dw<C, HID>(
+          [&](int r, int i) { return XS[r * PC + i] * bw[L::LN2_G + i] + bw[L::LN2_B + i]; },
+          [&](int r, int o) { return DH1[r * PH + o]; }, rowf,
+          [&](int i, int o) { return gb + L::W1 + i * HID + o; },
+          [&](int o) { return sgb + 8 * C + o; });
+      __syncthreads();  // dZ goes over gelu(H1)
+      rows_gemm<HID, C>([&](int r, int k) { return DH1[r * PH + k]; },
+                        [&](int k, int n) { return W1 + n * T::WH + k; }, T::WEIGHTS,
+                        [&](int r, int n, float v) {
+                          DZ[r * PC + n] = v;
+                          return 0.f;
+                        },
+                        nullptr);
+      __syncthreads();
+      ln_bwd<C>(XS, DZ, bw + L::LN2_G, rs2, rowf, DD, true, sgb + 6 * C, sgb + 7 * C,
+                red);
 
-      // attention branch: x2 = x0 + s1 * (ctx . Wp + bp)
-      part = 0.f;
-      if (lane < C)
-        for (int p = 0; p < P; ++p) part = fmaf(DD[p * C + lane], PROJ[p * C + lane], part);
-      part = warp_sum(part);
-      if (lane == 0) ddp[(size_t)(2 * blk) * frames + f] = part;
-      dense_dw<C, C>(CTX, DD, s1, gb + L::WP, lane);
-      bias_grad<C>(DD, s1, gb + L::BP, lane);
-      dense_t<C, C, 0>(DD, bw + L::WP, s1, T, lane);  // dctx
-      __syncwarp();
-      float* dQ = A;
-      float* dK = A + S;
-      float* dV = H1;
-      attention_bwd<C, D>(Q, K, V, T, dQ, dK, dV, AST, scale, lane);
-      __syncwarp();
-      dense_dw<C, C>(Y, dQ, 1.f, gb + L::WQ, lane);
-      bias_grad<C>(dQ, 1.f, gb + L::BQ, lane);
-      dense_dw<C, C>(Y, dK, 1.f, gb + L::WK, lane);
-      bias_grad<C>(dK, 1.f, gb + L::BK, lane);
-      dense_dw<C, C>(Y, dV, 1.f, gb + L::WV, lane);
-      bias_grad<C>(dV, 1.f, gb + L::BV, lane);
-      dense_t<C, C, 0>(dQ, bw + L::WQ, 1.f, T, lane);  // dy
-      dense_t<C, C, 2>(dK, bw + L::WK, 1.f, T, lane);
-      dense_t<C, C, 2>(dV, bw + L::WV, 1.f, T, lane);
-      __syncwarp();
-      ln_bwd<C, 2>(x0, T, bw + L::LN1_G, 1e-5f, DD, gb + L::LN1_G, gb + L::LN1_B, lane);
-      __syncwarp();
+      // attention branch: X2 = x0 + s1 * (CTX . Wp + bp); x0 comes back
+      // while dWp and dCTX run
+      restore(XS, ck + (size_t)blk * R * C);
+      tile_dw<C, C>([&](int r, int i) { return CTX[r * PC + i]; },
+                    [&](int r, int o) { return DD[r * PC + o]; }, s1r,
+                    [&](int i, int o) { return gb + L::WP + i * C + o; },
+                    [&](int o) { return sgb + 5 * C + o; });
+      __syncthreads();  // dCTX goes over CTX
+      rows_gemm<C, C>([&](int r, int k) { return DD[r * PC + k]; },
+                      [&](int k, int n) { return WP + n * T::WC + k; }, T::WEIGHTS,
+                      [&](int r, int n, float u) {
+                        const float ctx = CTX[r * PC + n];
+                        CTX[r * PC + n] = s1r[r] * u;  // dCTX
+                        return ctx * u;
+                      },
+                      rsum);
+      __syncthreads();
+      frame_rows(DD, bw + L::BP, 2 * blk);
+      wait_copies();
+      __syncthreads();
+      rows_gemm<C, C3>(ln1_at(XS, bw), [&](int k, int n) { return WQKV + k * T::W3 + n; },
+                       T::WEIGHTS,
+                       [&](int r, int n, float v) {
+                         QKV_C[r * P3 + n] = v + qkv_bias(bw, n);
+                         return 0.f;
+                       },
+                       nullptr);
+      __syncthreads();
+      normalize(mu1, rs1);  // xhat1, beside the attention's backward (no barrier)
+      attention_bwd<C>(QKV_C, CTX, DQ, ST, nf, scale);
+      __syncthreads();
+      tile_dw<C, C3>(
+          [&](int r, int i) { return XS[r * PC + i] * bw[L::LN1_G + i] + bw[L::LN1_B + i]; },
+          dqkv, rowf,
+          [&](int i, int o) {
+            const int part = o / C, oo = o % C;
+            return gb + (part == 0 ? L::WQ : part == 1 ? L::WK : L::WV) + i * C + oo;
+          },
+          [&](int o) { return sgb + 2 * C + o; });
+      __syncthreads();  // dY goes over dq
+      rows_gemm<C3, C>(dqkv, [&](int k, int n) { return WQKV + n * T::W3 + k; }, T::WEIGHTS,
+                       [&](int r, int n, float v) {
+                         DY[r * PC + n] = v;
+                         return 0.f;
+                       },
+                       nullptr);
+      __syncthreads();
+      ln_bwd<C>(XS, DY, bw + L::LN1_G, rs1, rowf, DD, true, sgb, sgb + C, red);
     }
 
     // ---- embedding + PE ------------------------------------------------------
-    if (lane < C) {
-      float sb = 0.f, sw0 = 0.f, sw1 = 0.f;
-      for (int p = 0; p < P; ++p) {
-        const float d = DD[p * C + lane];
-        gw[L::PE + p * C + lane] += d;
-        sb += d;
-        sw0 = fmaf(xin[2 * p], d, sw0);
-        sw1 = fmaf(xin[2 * p + 1], d, sw1);
-      }
-      gw[L::EMB_B + lane] += sb;
-      gw[L::EMB_W + lane] += sw0;
-      gw[L::EMB_W + C + lane] += sw1;
+    for (int e = threadIdx.x; e < P * C; e += THREADS) {
+      const int p = e / C, c = e % C;
+      float s = 0.f;
+      for (int f = 0; f < nf; ++f) s += DD[(f * P + p) * PC + c];
+      SG[L::PE + e] += s;
     }
-    const float we0 = lane < C ? w[L::EMB_W + lane] : 0.f;
-    const float we1 = lane < C ? w[L::EMB_W + C + lane] : 0.f;
-#pragma unroll 1
-    for (int p = 0; p < P; ++p) {
-      const float d = lane < C ? DD[p * C + lane] : 0.f;
-      const float d0 = warp_sum(d * we0), d1 = warp_sum(d * we1);
-      if (lane == 0) {
-        dx[(size_t)f * P * 2 + 2 * p] = d0;
-        dx[(size_t)f * P * 2 + 2 * p + 1] = d1;
+    colsum_add(C, [&](int r, int c) { return DD[r * PC + c]; },
+               [&](int c) { return SG + L::EMB_B + c; }, red);
+    colsum_add(2 * C,
+               [&](int r, int c) {
+                 return r < real ? xin[2 * r + c / C] * DD[r * PC + c % C] : 0.f;
+               },
+               [&](int c) { return SG + L::EMB_W + c; }, red);
+    for (int r = threadIdx.x; r < real; r += THREADS) {
+      float d0 = 0.f, d1 = 0.f;
+      for (int c = 0; c < C; ++c) {
+        d0 = fmaf(DD[r * PC + c], w[L::EMB_W + c], d0);
+        d1 = fmaf(DD[r * PC + c], w[L::EMB_W + C + c], d1);
       }
+      __stcs(dx + ((size_t)f0 * P + r) * 2, d0);  // streamed: read by no one here
+      __stcs(dx + ((size_t)f0 * P + r) * 2 + 1, d1);
     }
-    __syncwarp();
+    for (int i = threadIdx.x; i < 2 * blocks * nf; i += THREADS) {
+      const int row = i / nf, f = i % nf;
+      float sum = 0.f;
+      for (int p = 0; p < P; ++p) sum += RSA[row * R + f * P + p];
+      __stcs(ddp + (size_t)row * frames + f0 + f, sum);
+    }
+    __syncthreads();
+  }
+  // the small gradients into the block's row (the rest of it is dW)
+  for (int i = threadIdx.x; i < L::BLOCKS + 2 * C; i += THREADS)
+    gw[i < L::BLOCKS ? i : L::BLOCKS + blocks * L::BLOCK + i - L::BLOCKS] = SG[i];
+  constexpr int FIELD[10] = {L::LN1_G, L::LN1_B, L::BQ, L::BK, L::BV, L::BP, L::LN2_G,
+                             L::LN2_B, L::B1, L::B1 + C};
+  for (int i = threadIdx.x; i < blocks * SB; i += THREADS) {
+    const int blk = i / SB, j = i % SB;
+    const int field = j / C;  // C-wide fields; b1 is two of them, b2 the last
+    const int off = field < 10 ? FIELD[field] + j % C : L::B2 + j % C;
+    gw[L::BLOCKS + blk * L::BLOCK + off] = sg_norm[2 * C + i];
   }
 }
 
-template <int C, int D>
-cudaError_t config(int blocks, int* warps, int* grid, size_t* smem) {
-  const size_t per_warp = sizeof(float) * per_warp_floats<C, D>(blocks);
-  int dev = 0, optin = 0, sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (per_warp > (size_t)optin) return cudaErrorInvalidValue;
-  int n = (int)(optin / per_warp);
-  *warps = n < MAX_WARPS ? n : MAX_WARPS;
-  *grid = sms;
-  *smem = *warps * per_warp;
-  return cudaSuccess;
-}
-
-template <int C, int D>
+template <int C>
 cudaError_t launch(const float* x, const float* g, const float* scales, const float* params,
-                   float* dx, float* ddp, float* partial, int frames, int blocks, int workers,
-                   cudaStream_t stream) {
-  int warps = 0, grid = 0;
-  size_t smem = 0;
-  cudaError_t err = config<C, D>(blocks, &warps, &grid, &smem);
+                   float* dx, float* ddp, float* partial, float* scratch, int frames,
+                   int blocks, int workers, cudaStream_t stream) {
+  const size_t smem =
+      sizeof(float) * (Tile<C>::FLOATS + small_floats<C>(blocks) + 2 * (size_t)blocks * R);
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return err;
-  if (workers != warps * grid) return cudaErrorInvalidValue;
-  err = cudaFuncSetAttribute(spatial_bwd_kernel<C, D>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (smem > (size_t)optin) return cudaErrorInvalidValue;
+  err = cudaFuncSetAttribute(spatial_bwd_tc_kernel<C>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  spatial_bwd_kernel<C, D><<<grid, warps * 32, smem, stream>>>(
-      x, g, scales, params, dx, ddp, partial, frames, blocks, Layout<C>::params(blocks));
+  spatial_bwd_tc_kernel<C><<<workers, THREADS, smem, stream>>>(
+      x, g, scales, params, dx, ddp, partial, scratch, frames, blocks,
+      Layout<C>::params(blocks));
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// Rows of the per-warp gradient buffer spatial_bwd_f32 needs (warps x SMs),
-// or a negative CUDA error. Launches nothing.
-extern "C" int spatial_bwd_workers(int c, int depth, int blocks) {
-  int warps = 0, grid = 0;
-  size_t smem = 0;
-  cudaError_t err = cudaErrorInvalidValue;
-  if (depth == 4 && blocks >= 0 && c == 32) err = config<32, 4>(blocks, &warps, &grid, &smem);
-  if (depth == 4 && blocks >= 0 && c == 16) err = config<16, 4>(blocks, &warps, &grid, &smem);
-  return err == cudaSuccess ? warps * grid : -(int)err;
+// Rows of the per-block gradient buffer spatial_bwd_f32 needs for `frames`
+// (one per thread block: min(SMs, tiles of 7 frames)), or a negative CUDA
+// error. Launches nothing.
+extern "C" int spatial_bwd_workers(int c, int depth, int blocks, int frames) {
+  if (depth != 4 || blocks < 0 || frames <= 0 || (c != 32 && c != 16))
+    return -(int)cudaErrorInvalidValue;
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return -(int)err;
+  const int tiles = (frames + TF - 1) / TF;
+  return tiles < sms ? tiles : sms;
 }
 
+// Floats of checkpoint scratch spatial_bwd_f32 needs per gradient row.
+extern "C" int spatial_bwd_scratch_floats(int c, int blocks) { return (2 * blocks + 1) * R * c; }
+
 // x (frames, 17, 2), g (frames, 17*c), scales (2*blocks, frames), params packed;
-// out: dx (frames, 17, 2), ddp (2*blocks, frames), partial (workers, n_params).
+// out: dx (frames, 17, 2), ddp (2*blocks, frames), partial (workers, n_params);
+// scratch (workers, spatial_bwd_scratch_floats) checkpoints.
 extern "C" int spatial_bwd_f32(const float* x, const float* g, const float* scales,
                                const float* params, float* dx, float* ddp, float* partial,
-                               int frames, int c, int depth, int blocks, int workers,
-                               void* stream) {
-  if (frames <= 0 || blocks < 0 || depth != 4) return cudaErrorInvalidValue;
+                               float* scratch, int frames, int c, int depth, int blocks,
+                               int workers, void* stream) {
+  if (frames <= 0 || blocks < 0 || depth != 4 || workers <= 0) return cudaErrorInvalidValue;
   if (c == 32)
-    return launch<32, 4>(x, g, scales, params, dx, ddp, partial, frames, blocks, workers,
-                         (cudaStream_t)stream);
+    return launch<32>(x, g, scales, params, dx, ddp, partial, scratch, frames, blocks, workers,
+                      (cudaStream_t)stream);
   if (c == 16)
-    return launch<16, 4>(x, g, scales, params, dx, ddp, partial, frames, blocks, workers,
-                         (cudaStream_t)stream);
+    return launch<16>(x, g, scales, params, dx, ddp, partial, scratch, frames, blocks, workers,
+                      (cudaStream_t)stream);
   return cudaErrorInvalidValue;
 }
 

@@ -1,7 +1,8 @@
 // Device code shared by the spatial stack's forward (K1, spatial.cu) and
-// backward (K4, spatial_bwd.cu): one warp owns one frame, lane = channel
-// (C <= 32), a frame's activations (17 tokens x C) sit in the warp's slice of
-// shared memory, and weights are read from a flat packed buffer.
+// backward (K4, spatial_bwd.cu): the packed weights' layout and the gelu;
+// and K1's helpers, where one warp owns one frame, lane = channel (C <= 32),
+// a frame's activations (17 tokens x C) sit in the warp's slice of shared
+// memory, and weights are read from the flat packed buffer.
 //
 // Packed parameter buffer (float32, this order): emb_w (2, C), emb_b (C),
 // pe (17, C); per block: ln1_g, ln1_b, wq (C, C), bq, wk, bk, wv, bv, wp, bp,

@@ -21,7 +21,8 @@
 //   bias grads      colsum_f32    per-chunk column sums, then sum_rows_f32
 //   LN backward     layernorm_bwd_f32 (+ per-warp gamma/beta partials)
 //   window attention backward   window_attention_bwd_f32, one block per
-//                                 (window, head), softmax recomputed
+//                                 (window, head), softmax recomputed, its
+//                                 five products on mma.sync (below)
 //   scale grads     window_dot_f32: per-window sum of g . branch
 // Nothing adds floats with atomics, so repeated runs agree bit for bit.
 // The TPU's 72-token padding, block-diagonal mask, windows-per-tile tiling
@@ -38,6 +39,9 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include <algorithm>
+
+#include "attention.cuh"
 #include "gemm.cuh"
 #include "gemm_tc.cuh"
 
@@ -189,89 +193,357 @@ window_dot_kernel(const float* __restrict__ a, const float* __restrict__ b,
   if (threadIdx.x == 0) out[blockIdx.x] = red[0];
 }
 
-constexpr int ATTN_WARPS = 8;
+// The window-attention backward on the tensor cores, one thread block per
+// (window, head): dS = P * (dP - rowsum(P * dP)) with P recomputed and
+// dP = dO . v^T; dq = scale * dS . k, dk = scale * dS^T . q, dv = P^T . dO.
+//
+// Replaces: uplift_upsample_tpu/ops/pallas_temporal_bwd.py:510-521, the
+//   per-head loop inside _fts_impl_bwd (pallas_call at :681).
+//
+// What bounds it: bytes at best (q, k, v and dO read, dq, dk, dv written:
+// 391 MB at 512 windows x 71 x 384, 0.117 ms); its five products, 9.9
+// GFLOP with S recomputed, run on mma.sync in 3xTF32 (tf32.cuh), and they
+// take most of its time (kernel_probe.py on an H100: 0.59 ms, 0.20 without
+// them).
+//
+// Design (attention.cuh's register fragments):
+//  - q, k, v and dO of the head are staged with cp.async, zero-filled:
+//    queries to nq = 16 x warps rows (a warp's m16 tile), keys to a multiple
+//    of 8, D to a multiple of 8; every pitch is 4 mod 8 floats, so the
+//    scalar fragment loads below (rows g, columns t and t+4; or rows 2t,
+//    2t+1, column g) hit 32 distinct banks.
+//  - Pass 1: warp w owns query rows 16w..16w+15. S = q k^T and dP = dO v^T
+//    land in accumulator registers; scale, the key mask (-1e9 per blocked
+//    key, -inf on padded keys), the softmax in base 2 and the row sums of
+//    P * dP (quad shuffles) run there, and dS replaces dP. dq = dS . k takes
+//    dS's accumulator fragment as its A fragment, the keys permuted inside
+//    each 8-key step (A column t <-> key 2t, t+4 <-> 2t+1, and the same rows
+//    of k), so no value moves between lanes.
+//  - Pass 2: dk and dv sum over every warp's queries, so P^T and dS^T go to
+//    shared memory once (over k and v, which pass 2 no longer reads: 90 KB a
+//    block at 71 tokens, two blocks per SM), and warp w then owns key rows
+//    16w..16w+15 for dk = dS^T . q and dv = P^T . dO, the queries permuted
+//    the same way so that each A fragment is one float2 load per row.
+//  - Every 8-deep step's three products go into a fresh partial that joins
+//    the fp32 accumulators with a rounded add: the tensor cores round toward
+//    zero as they accumulate (tests/test_torch_attention_bwd_tc.py emulates
+//    the order). Each output element has one writer, no atomics: repeated
+//    runs agree bit for bit.
+__device__ __forceinline__ void add_part(float (&acc)[4], const uint32_t (&ab)[4],
+                                         const uint32_t (&as)[4], const uint32_t (&bb)[2],
+                                         const uint32_t (&bs)[2]) {
+  float part[4] = {0.f, 0.f, 0.f, 0.f};
+  uu::mma_3xtf32(part, ab, as, bb, bs);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) acc[e] += part[e];
+}
 
-// One thread block per (window, head): recompute the softmax P, then
-// dS = P * (dP - rowsum(P * dP)) with dP = dctx . v^T, and
-// dq = scale * dS . k, dk = scale * dS^T . q, dv = P^T . dctx.
-// q/k/v/dctx rows use a stride of d+1 floats so a warp's lanes, one key
-// each, hit distinct banks.
-__global__ void __launch_bounds__(ATTN_WARPS * 32)
-window_attention_bwd_kernel(const float* __restrict__ qkv, const float* __restrict__ dctx,
-                            const float* __restrict__ key_mask, float* __restrict__ dqkv,
-                            int n, int c, int heads, float scale) {
-  extern __shared__ float sm[];
-  const int d = c / heads, ds = d + 1;
+// acc[j] += a . b^T for the warp's 16 rows of a (at aw) against rows
+// 8j..8j+7 of b, over the dk 8-column steps of D; both with pitch p.
+template <int NT>
+__device__ __forceinline__ void rows_dot(float (&acc)[NT][4], const float* aw, const float* b,
+                                         int p, int dk, int nt, int g, int t) {
+  for (int kk = 0; kk < dk; ++kk) {
+    const float* a0 = aw + g * p + 8 * kk + t;
+    uint32_t ab[4], as[4];
+    uu::tf32_split(a0[0], ab[0], as[0]);
+    uu::tf32_split(a0[8 * p], ab[1], as[1]);
+    uu::tf32_split(a0[4], ab[2], as[2]);
+    uu::tf32_split(a0[8 * p + 4], ab[3], as[3]);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      if (j < nt) {
+        const float* b0 = b + (8 * j + g) * p + 8 * kk + t;
+        uint32_t bb[2], bs[2];
+        uu::tf32_split(b0[0], bb[0], bs[0]);
+        uu::tf32_split(b0[4], bb[1], bs[1]);
+        add_part(acc[j], ab, as, bb, bs);
+      }
+    }
+  }
+}
+
+template <int NT, int CW>
+__global__ void __launch_bounds__((NT + 1) / 2 * 32, NT <= 9 ? 2 : 1)
+window_attention_bwd_tc_kernel(const float* __restrict__ qkv, const float* __restrict__ dctx,
+                               const float* __restrict__ key_mask, float* __restrict__ dqkv,
+                               int n, int c, int heads, float scale, bool vec) {
+  extern __shared__ float4 bwd_smem[];  // 16-byte aligned for cp.async
+  float* sm = reinterpret_cast<float*>(bwd_smem);
+  const int d = c / heads, dp = (d + 7) & ~7, dk = dp / 8, p = uu::attn_v_pitch(dp);
+  const int warps = blockDim.x / 32, nq = 16 * warps, nk = (n + 7) & ~7, nt = nk / 8;
+  const int pp = uu::attn_qk_pitch(nq);
+  float* qs = sm;             // nq x p
+  float* gs = qs + nq * p;    // dO: nq x p
+  float* ks = gs + nq * p;    // pass 1: nk x p
+  float* vs = ks + nk * p;    // pass 1: nk x p
+  float* pt = ks;             // pass 2: P^T, nq x pp (keys x queries)
+  float* dst = pt + nq * pp;  // pass 2: dS^T
+  float* mk = ks + max(2 * nk * p, 2 * nq * pp);  // nk additive key mask (log2 units)
   const int win = blockIdx.x / heads, h = blockIdx.x % heads;
+  const size_t first = (size_t)win * n * 3 * c + (size_t)h * d;
+  const float* dbase = dctx + (size_t)win * n * c + (size_t)h * d;
+  uu::stage_head(qs, p, qkv + first, 3 * c, nq, n, d, dp, vec);
+  uu::stage_head(ks, p, qkv + first + c, 3 * c, nk, n, d, dp, vec);
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  uu::stage_head(gs, p, dbase, c, nq, n, d, dp, vec);
+  uu::stage_head(vs, p, qkv + first + 2 * c, 3 * c, nk, n, d, dp, vec);
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  for (int j = threadIdx.x; j < nk; j += blockDim.x)
+    mk[j] = j >= n ? -INFINITY
+                   : key_mask ? key_mask[(size_t)win * n + j] * (-1e9f * uu::ATTN_LOG2E) : 0.f;
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+  __syncthreads();
+
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  float* qs = sm;
-  float* ks = qs + n * ds;
-  float* vs = ks + n * ds;
-  float* gs = vs + n * ds;  // dctx
-  float* mk = gs + n * ds;
-  float* pm = mk + n;        // n x (n+1): P
-  float* dsm = pm + n * (n + 1);  // n x (n+1): dS
-  const int ps = n + 1;
-  const float* base = qkv + (size_t)win * n * 3 * c;
-  const float* gbase = dctx + (size_t)win * n * c;
-  for (int idx = threadIdx.x; idx < n * d; idx += blockDim.x) {
-    const int t = idx / d, e = idx % d;
-    qs[t * ds + e] = base[(size_t)t * 3 * c + h * d + e];
-    ks[t * ds + e] = base[(size_t)t * 3 * c + c + h * d + e];
-    vs[t * ds + e] = base[(size_t)t * 3 * c + 2 * c + h * d + e];
-    gs[t * ds + e] = gbase[(size_t)t * c + h * d + e];
+  const int g = lane >> 2, t = lane & 3;
+  // ---- pass 1: the warp's 16 query rows ----------------------------------
+  float s[NT][4], ds[NT][4];  // s: logits, then P; ds: dP, then dS
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = ds[j][e] = 0.f;
+  rows_dot<NT>(s, qs + warp * 16 * p, ks, p, dk, nt, g, t);
+  const float sl = scale * uu::ATTN_LOG2E;
+  float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    if (j < nt) {
+      const float m0 = mk[8 * j + 2 * t], m1 = mk[8 * j + 2 * t + 1];
+      s[j][0] = s[j][0] * sl + m0;
+      s[j][1] = s[j][1] * sl + m1;
+      s[j][2] = s[j][2] * sl + m0;
+      s[j][3] = s[j][3] * sl + m1;
+      mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
+      mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
+    }
   }
-  for (int t = threadIdx.x; t < n; t += blockDim.x)
-    mk[t] = key_mask ? key_mask[(size_t)win * n + t] * -1e9f : 0.f;
+#pragma unroll
+  for (int o = 1; o <= 2; o <<= 1) {
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, o));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, o));
+  }
+  float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    if (j < nt) {
+      s[j][0] = exp2f(s[j][0] - mx0);
+      s[j][1] = exp2f(s[j][1] - mx0);
+      s[j][2] = exp2f(s[j][2] - mx1);
+      s[j][3] = exp2f(s[j][3] - mx1);
+      sum0 += s[j][0] + s[j][1];
+      sum1 += s[j][2] + s[j][3];
+    }
+  }
+#pragma unroll
+  for (int o = 1; o <= 2; o <<= 1) {
+    sum0 += __shfl_xor_sync(0xffffffffu, sum0, o);
+    sum1 += __shfl_xor_sync(0xffffffffu, sum1, o);
+  }
+  const float inv0 = 1.f / sum0, inv1 = 1.f / sum1;
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    s[j][0] *= inv0;
+    s[j][1] *= inv0;
+    s[j][2] *= inv1;
+    s[j][3] *= inv1;
+  }
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
   __syncthreads();
-  for (int t = warp; t < n; t += ATTN_WARPS) {
-    const float* q = qs + t * ds;
-    const float* g = gs + t * ds;
-    float mx = -INFINITY;
-    for (int j = lane; j < n; j += 32) {
-      const float* kj = ks + j * ds;
-      float s = 0.f;
-      for (int e = 0; e < d; ++e) s = fmaf(q[e], kj[e], s);
-      s = s * scale + mk[j];
-      pm[t * ps + j] = s;
-      mx = fmaxf(mx, s);
+  rows_dot<NT>(ds, gs + warp * 16 * p, vs, p, dk, nt, g, t);
+  float rs0 = 0.f, rs1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    if (j < nt) {
+      rs0 = fmaf(s[j][0], ds[j][0], fmaf(s[j][1], ds[j][1], rs0));
+      rs1 = fmaf(s[j][2], ds[j][2], fmaf(s[j][3], ds[j][3], rs1));
     }
-    mx = uu::warp_max(mx);
-    float sum = 0.f;
-    for (int j = lane; j < n; j += 32) {
-      const float ex = expf(pm[t * ps + j] - mx);
-      pm[t * ps + j] = ex;
-      sum += ex;
+  }
+#pragma unroll
+  for (int o = 1; o <= 2; o <<= 1) {
+    rs0 += __shfl_xor_sync(0xffffffffu, rs0, o);
+    rs1 += __shfl_xor_sync(0xffffffffu, rs1, o);
+  }
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    ds[j][0] = s[j][0] * (ds[j][0] - rs0);
+    ds[j][1] = s[j][1] * (ds[j][1] - rs0);
+    ds[j][2] = s[j][2] * (ds[j][2] - rs1);
+    ds[j][3] = s[j][3] * (ds[j][3] - rs1);
+  }
+
+  // dq = scale * dS . k, 8·CW columns of D per pass
+  const int row0 = warp * 16 + g, row1 = row0 + 8;
+  float* dq0 = dqkv + ((size_t)win * n + row0) * 3 * c + (size_t)h * d;
+  float* dq1 = dq0 + (size_t)8 * 3 * c;
+  for (int c0 = 0; c0 < dk; c0 += CW) {
+    float o[CW][4];
+#pragma unroll
+    for (int cc = 0; cc < CW; ++cc) o[cc][0] = o[cc][1] = o[cc][2] = o[cc][3] = 0.f;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      if (j < nt) {
+        uint32_t ab[4], as[4];  // A column t is key 2t, column t+4 key 2t+1
+        uu::tf32_split(ds[j][0], ab[0], as[0]);
+        uu::tf32_split(ds[j][2], ab[1], as[1]);
+        uu::tf32_split(ds[j][1], ab[2], as[2]);
+        uu::tf32_split(ds[j][3], ab[3], as[3]);
+        const float* kj = ks + (8 * j + 2 * t) * p + 8 * c0 + g;
+#pragma unroll
+        for (int cc = 0; cc < CW; ++cc) {
+          if (c0 + cc < dk) {
+            uint32_t bb[2], bs[2];
+            uu::tf32_split(kj[8 * cc], bb[0], bs[0]);
+            uu::tf32_split(kj[p + 8 * cc], bb[1], bs[1]);
+            add_part(o[cc], ab, as, bb, bs);
+          }
+        }
+      }
     }
-    sum = uu::warp_sum(sum);
-    float sd = 0.f;
-    for (int j = lane; j < n; j += 32) {
-      const float p = pm[t * ps + j] / sum;
-      const float* vj = vs + j * ds;
-      float dp = 0.f;
-      for (int e = 0; e < d; ++e) dp = fmaf(g[e], vj[e], dp);
-      pm[t * ps + j] = p;
-      dsm[t * ps + j] = dp;
-      sd = fmaf(p, dp, sd);
+#pragma unroll
+    for (int cc = 0; cc < CW; ++cc) {
+      const int col = 8 * (c0 + cc) + 2 * t;
+      if (c0 + cc < dk) {
+        if (row0 < n) {
+          if (col < d) dq0[col] = o[cc][0] * scale;
+          if (col + 1 < d) dq0[col + 1] = o[cc][1] * scale;
+        }
+        if (row1 < n) {
+          if (col < d) dq1[col] = o[cc][2] * scale;
+          if (col + 1 < d) dq1[col + 1] = o[cc][3] * scale;
+        }
+      }
     }
-    sd = uu::warp_sum(sd);
-    for (int j = lane; j < n; j += 32)
-      dsm[t * ps + j] = pm[t * ps + j] * (dsm[t * ps + j] - sd);
+  }
+
+  // ---- P^T and dS^T over k and v ------------------------------------------
+  __syncthreads();  // every warp is done with k and v
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    if (j < nt) {
+      const int k0 = (8 * j + 2 * t) * pp, k1 = k0 + pp;
+      pt[k0 + row0] = s[j][0];
+      pt[k1 + row0] = s[j][1];
+      pt[k0 + row1] = s[j][2];
+      pt[k1 + row1] = s[j][3];
+      dst[k0 + row0] = ds[j][0];
+      dst[k1 + row0] = ds[j][1];
+      dst[k0 + row1] = ds[j][2];
+      dst[k1 + row1] = ds[j][3];
+    }
+  }
+  for (int i = threadIdx.x; i < (nq - nk) * nq; i += blockDim.x) {  // padded key rows
+    const int o = (nk + i / nq) * pp + i % nq;
+    pt[o] = 0.f;
+    dst[o] = 0.f;
   }
   __syncthreads();
-  float* out = dqkv + (size_t)win * n * 3 * c;
-  for (int idx = threadIdx.x; idx < n * d; idx += blockDim.x) {
-    const int t = idx / d, e = idx % d;
-    float dq = 0.f, dk = 0.f, dv = 0.f;
-    for (int j = 0; j < n; ++j) {
-      dq = fmaf(dsm[t * ps + j], ks[j * ds + e], dq);
-      dk = fmaf(dsm[j * ps + t], qs[j * ds + e], dk);
-      dv = fmaf(pm[j * ps + t], gs[j * ds + e], dv);
+
+  // ---- pass 2: the warp's 16 key rows ---------------------------------------
+  const int key0 = warp * 16 + g, key1 = key0 + 8;
+  float* dk0 = dqkv + ((size_t)win * n + key0) * 3 * c + c + (size_t)h * d;
+  float* dk1 = dk0 + (size_t)8 * 3 * c;
+  for (int c0 = 0; c0 < dk; c0 += CW) {
+    float ok[CW][4], ov[CW][4];
+#pragma unroll
+    for (int cc = 0; cc < CW; ++cc)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) ok[cc][e] = ov[cc][e] = 0.f;
+#pragma unroll
+    for (int i = 0; i < NT; ++i) {
+      if (i < nt) {
+        // A column t is query 8i+2t, column t+4 query 8i+2t+1: one float2 a row
+        const int a_off = key0 * pp + 8 * i + 2 * t;
+        const float2 p0 = *reinterpret_cast<const float2*>(pt + a_off);
+        const float2 p1 = *reinterpret_cast<const float2*>(pt + a_off + 8 * pp);
+        const float2 s0 = *reinterpret_cast<const float2*>(dst + a_off);
+        const float2 s1 = *reinterpret_cast<const float2*>(dst + a_off + 8 * pp);
+        uint32_t pb[4], ps[4], sb[4], ss[4];
+        uu::tf32_split(p0.x, pb[0], ps[0]);
+        uu::tf32_split(p1.x, pb[1], ps[1]);
+        uu::tf32_split(p0.y, pb[2], ps[2]);
+        uu::tf32_split(p1.y, pb[3], ps[3]);
+        uu::tf32_split(s0.x, sb[0], ss[0]);
+        uu::tf32_split(s1.x, sb[1], ss[1]);
+        uu::tf32_split(s0.y, sb[2], ss[2]);
+        uu::tf32_split(s1.y, sb[3], ss[3]);
+        const float* gi = gs + (8 * i + 2 * t) * p + 8 * c0 + g;
+        const float* qi = qs + (8 * i + 2 * t) * p + 8 * c0 + g;
+#pragma unroll
+        for (int cc = 0; cc < CW; ++cc) {
+          if (c0 + cc < dk) {
+            uint32_t bb[2], bs[2];
+            uu::tf32_split(gi[8 * cc], bb[0], bs[0]);
+            uu::tf32_split(gi[p + 8 * cc], bb[1], bs[1]);
+            add_part(ov[cc], pb, ps, bb, bs);
+            uu::tf32_split(qi[8 * cc], bb[0], bs[0]);
+            uu::tf32_split(qi[p + 8 * cc], bb[1], bs[1]);
+            add_part(ok[cc], sb, ss, bb, bs);
+          }
+        }
+      }
     }
-    out[(size_t)t * 3 * c + h * d + e] = dq * scale;
-    out[(size_t)t * 3 * c + c + h * d + e] = dk * scale;
-    out[(size_t)t * 3 * c + 2 * c + h * d + e] = dv;
+#pragma unroll
+    for (int cc = 0; cc < CW; ++cc) {
+      const int col = 8 * (c0 + cc) + 2 * t;
+      if (c0 + cc < dk) {
+        // dk at column c + h*d + col of the row, dv C further
+        if (key0 < n && col < d) {
+          dk0[col] = ok[cc][0] * scale;
+          dk0[c + col] = ov[cc][0];
+        }
+        if (key0 < n && col + 1 < d) {
+          dk0[col + 1] = ok[cc][1] * scale;
+          dk0[c + col + 1] = ov[cc][1];
+        }
+        if (key1 < n && col < d) {
+          dk1[col] = ok[cc][2] * scale;
+          dk1[c + col] = ov[cc][2];
+        }
+        if (key1 < n && col + 1 < d) {
+          dk1[col + 1] = ok[cc][3] * scale;
+          dk1[c + col + 1] = ov[cc][3];
+        }
+      }
+    }
   }
+}
+
+template <int NT, int CW>
+cudaError_t launch_attention_bwd_tc(const float* qkv, const float* dctx, const float* key_mask,
+                                    float* dqkv, int windows, int n, int c, int heads,
+                                    size_t smem, int threads, bool vec, cudaStream_t stream) {
+  auto kernel = window_attention_bwd_tc_kernel<NT, CW>;
+  if (smem > 48 * 1024) {
+    int dev = 0, optin = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (smem > (size_t)optin) return cudaErrorInvalidValue;
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<(unsigned)windows * heads, threads, smem, stream>>>(
+      qkv, dctx, key_mask, dqkv, n, c, heads, 1.f / sqrtf((float)(c / heads)), vec);
+  return cudaGetLastError();
+}
+
+template <int CW>
+cudaError_t launch_attention_bwd_nt(const float* qkv, const float* dctx, const float* key_mask,
+                                    float* dqkv, int windows, int n, int c, int heads,
+                                    size_t smem, int threads, bool vec, cudaStream_t stream) {
+  const int nt = (n + 7) / 8;
+#define UU_ATTN_BWD_CASE(NT_)                                                            \
+  if (nt <= NT_)                                                                         \
+    return launch_attention_bwd_tc<NT_, CW>(qkv, dctx, key_mask, dqkv, windows, n, c, \
+                                            heads, smem, threads, vec, stream);
+  UU_ATTN_BWD_CASE(3)
+  UU_ATTN_BWD_CASE(6)
+  UU_ATTN_BWD_CASE(9)
+  UU_ATTN_BWD_CASE(12)
+  UU_ATTN_BWD_CASE(16)
+#undef UU_ATTN_BWD_CASE
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -347,26 +619,32 @@ extern "C" int window_dot_f32(const float* a, const float* b, float* out, int wi
 }
 
 // dqkv (windows*n, 3c) from qkv (windows*n, 3c) and dctx (windows*n, c);
-// key_mask (windows, n), 1 = blocked, or null.
+// key_mask (windows, n), 1 = blocked, or null; n <= uu::ATTN_MAX_SEQ.
 extern "C" int window_attention_bwd_f32(const float* qkv, const float* dctx,
                                         const float* key_mask, float* dqkv, int windows, int n,
                                         int c, int heads, void* stream) {
-  if (windows <= 0 || n <= 0 || heads <= 0 || c % heads != 0) return cudaErrorInvalidValue;
-  const int d = c / heads;
-  const size_t smem = sizeof(float) * (4 * (size_t)n * (d + 1) + n + 2 * (size_t)n * (n + 1));
-  if (smem > 48 * 1024) {
-    int dev = 0, optin = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    if (smem > (size_t)optin) return cudaErrorInvalidValue;
-    const cudaError_t err = cudaFuncSetAttribute(
-        window_attention_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
-  window_attention_bwd_kernel<<<windows * heads, ATTN_WARPS * 32, smem,
-                                (cudaStream_t)stream>>>(qkv, dctx, key_mask, dqkv, n, c,
-                                                        heads, 1.f / sqrtf((float)d));
-  return cudaGetLastError();
+  if (windows <= 0 || n <= 0 || n > uu::ATTN_MAX_SEQ || heads <= 0 || c % heads != 0)
+    return cudaErrorInvalidValue;
+  const int d = c / heads, dp = (d + 7) & ~7, dk = dp / 8;
+  const int warps = (n + 15) / 16, nq = 16 * warps, nk = (n + 7) & ~7;
+  const int p = uu::attn_v_pitch(dp), pp = uu::attn_qk_pitch(nq);
+  const size_t smem =
+      sizeof(float) * (2 * (size_t)nq * p + std::max(2 * nk * p, 2 * nq * pp) + (size_t)nk);
+  const auto aligned = [](const float* x) { return reinterpret_cast<uintptr_t>(x) % 16 == 0; };
+  const bool vec = aligned(qkv) && aligned(dctx) && c % 4 == 0 && d % 4 == 0;
+  const int threads = warps * 32;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dk <= 2)
+    return launch_attention_bwd_nt<2>(qkv, dctx, key_mask, dqkv, windows, n, c, heads, smem,
+                                      threads, vec, st);
+  if (dk <= 4)
+    return launch_attention_bwd_nt<4>(qkv, dctx, key_mask, dqkv, windows, n, c, heads, smem,
+                                      threads, vec, st);
+  if (dk <= 6)
+    return launch_attention_bwd_nt<6>(qkv, dctx, key_mask, dqkv, windows, n, c, heads, smem,
+                                      threads, vec, st);
+  return launch_attention_bwd_nt<8>(qkv, dctx, key_mask, dqkv, windows, n, c, heads, smem,
+                                    threads, vec, st);
 }
 
 // out[c] = sum over r (in order) of part[r, c].

@@ -56,8 +56,9 @@ _SIGNATURES = {
     },
     "strided": {"strided_conv_f32": "pppppiiiiiiip"},
     "spatial_bwd": {
-        "spatial_bwd_workers": "iii",
-        "spatial_bwd_f32": "pppppppiiiiip",
+        "spatial_bwd_workers": "iiii",
+        "spatial_bwd_scratch_floats": "ii",
+        "spatial_bwd_f32": "ppppppppiiiiip",
         "sum_rows_f32": "ppiip",
     },
     "temporal_bwd": {

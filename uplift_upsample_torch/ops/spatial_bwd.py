@@ -4,8 +4,9 @@
 depth (`spatial.spatial_stack_plain` with scales) for an output gradient g:
 the gradients of all 21 stacked operands, dx (F, 17, 2) and dscales (2L, F),
 the three things `pallas_spatial_bwd.fused_spatial_stack_bwd` returns. On a
-CUDA tensor it launches `csrc/spatial_bwd.cu` (one kernel) and a fixed-order
-sum of the per-warp gradient rows; on a CPU tensor it runs
+CUDA tensor it launches `csrc/spatial_bwd.cu` (one kernel: tiles of 7 frames,
+the dense products on the tensor cores) and a fixed-order sum of the
+per-thread-block gradient rows; on a CPU tensor it runs
 `spatial_stack_bwd_plain`, torch.autograd of the plain version.
 """
 
@@ -49,19 +50,21 @@ def spatial_stack_bwd(x: torch.Tensor, ops: Dict, scales: torch.Tensor, g: torch
     blocks = ops["ln1_g"].shape[0]
     cuda_lib.check_cuda("g", g, shape=(f, p * c), device=x.device)
     lib = cuda_lib.library("spatial_bwd")
-    workers = lib.spatial_bwd_workers(c, c // num_heads, blocks)
-    if workers <= 0:
-        raise RuntimeError(f"spatial_bwd_workers: CUDA error {-workers}")
     dx = torch.empty_like(x)
     ddp = torch.empty((2 * blocks, f), dtype=torch.float32, device=x.device)
-    partial = torch.empty((workers, packed.numel()), dtype=torch.float32, device=x.device)
     flat = torch.empty_like(packed)
     if f == 0:
         flat.zero_()
         ddp.zero_()
     else:
+        workers = lib.spatial_bwd_workers(c, c // num_heads, blocks, f)
+        if workers <= 0:
+            raise RuntimeError(f"spatial_bwd_workers: CUDA error {-workers}")
+        partial = torch.empty((workers, packed.numel()), dtype=torch.float32, device=x.device)
+        scratch = torch.empty((workers, lib.spatial_bwd_scratch_floats(c, blocks)),
+                              dtype=torch.float32, device=x.device)
         cuda_lib.launch("spatial_bwd", "spatial_bwd_f32", COUNTER, x, g, scales, packed,
-                        dx, ddp, partial, f, c, c // num_heads, blocks, workers)
+                        dx, ddp, partial, scratch, f, c, c // num_heads, blocks, workers)
         cuda_lib.launch("spatial_bwd", "sum_rows_f32", COUNTER, partial, flat, workers,
                         packed.numel())
     return unpack_spatial_params(flat, ops), dx, ddp

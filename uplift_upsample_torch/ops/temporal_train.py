@@ -16,7 +16,8 @@ tensor it is `TemporalStackTrain`:
     as `_fts_impl_bwd` does.
 Every product runs on the tensor cores in 3xTF32 (`csrc/gemm_tc.cuh`): the
 forward's and dX = dY·Wᵀ on TMA + wgmma from W's halves, dW = Xᵀ·dY on
-mma.sync, split over the rows.
+mma.sync, split over the rows; the window attention's backward
+(`window_attention_bwd`, also K6's) on mma.sync in `csrc/temporal_bwd.cu`.
 Launches count as "temporal_train_fwd" and "temporal_train_bwd".
 """
 
@@ -28,7 +29,8 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 from . import cuda_lib
-from .temporal import DENSE, gemm, layernorm, temporal_stack_plain, window_attention
+from .temporal import (DENSE, gemm, layernorm, temporal_stack_plain, window_attention,
+                       window_attention_plain)
 
 COUNTER_FWD = "temporal_train_fwd"
 COUNTER_BWD = "temporal_train_bwd"
@@ -159,9 +161,24 @@ def layernorm_bwd(x, dy, gamma, residual, out_gamma, out_beta, counter=COUNTER_B
     return dx
 
 
+def window_attention_bwd_plain(qkv, dctx, key_mask, *, windows, n, num_heads):
+    """torch.autograd of `window_attention_plain`: d(q|k|v) (windows·n, 3C)."""
+    rows, c = dctx.shape
+    with torch.enable_grad():
+        leaf = qkv.detach().reshape(windows, n, 3 * c).requires_grad_(True)
+        out = window_attention_plain(leaf, key_mask, num_heads)
+        (dqkv,) = torch.autograd.grad(out, leaf, dctx.reshape(windows, n, c))
+    return dqkv.reshape(rows, 3 * c)
+
+
 def window_attention_bwd(qkv, dctx, key_mask, *, windows, n, num_heads,
                          counter=COUNTER_BWD):
-    """d(q|k|v) (windows·n, 3C) of K2's window attention for dctx (windows·n, C)."""
+    """d(q|k|v) (windows·n, 3C) of K2's window attention for dctx (windows·n, C);
+    key_mask (windows, n), 1 = blocked, or None; n <= 128. CPU tensor: the
+    plain version; CUDA tensor: the tensor-core kernel of csrc/temporal_bwd.cu."""
+    if dctx.device.type == "cpu":
+        return window_attention_bwd_plain(qkv, dctx, key_mask, windows=windows, n=n,
+                                          num_heads=num_heads)
     rows, c = dctx.shape
     cuda_lib.check_cuda("qkv", qkv, shape=(rows, 3 * c), device=dctx.device)
     dqkv = _empty((rows, 3 * c), dctx)
