@@ -1216,7 +1216,7 @@ def main(argv=None) -> int:
             f"launches from the path '{phase}'")
 
     def repeat_identical(name, first, second):
-        """The backward kernels sum partials in a fixed order, without float
+        """The backward kernels and K1 sum in a fixed order, without float
         atomics: a second call must give the same bits."""
         flat = lambda r: [t for part in r for t in
                           (part.values() if isinstance(part, dict) else [part])]
@@ -1232,14 +1232,21 @@ def main(argv=None) -> int:
                                   packed=fp["spatial_packed"])
     sp_plain = lambda: spatial_stack_plain(x_sp, sp_ops, num_heads=heads)
     got, ref = sp_fn(), sp_plain()
+    sp_ops64 = {key: v.double() for key, v in sp_ops.items()}
+    ref64 = spatial_stack_plain(x_sp.double(), sp_ops64, num_heads=heads)
     per_frame = (p * 2 * cs * 2 + model.spatial_depth
                  * (2 * p * cs * cs * 4 + 2 * p * cs * 2 * cs * 2 + 4 * p * p * cs))
+    # the dense products (q, k, v, proj, fc1, fc2) run in 3xTF32 on the tensor
+    # cores, the attention and the embedding in fp32 on the CUDA cores
+    dense_frame = model.spatial_depth * (2 * p * cs * cs * 4 + 2 * p * cs * 2 * cs * 2)
     record("spatial_stack", "uplift_upsample_torch/csrc/spatial.cu",
            "uplift_upsample_tpu/ops/pallas_spatial.py:398", out_check(torch, got, ref),
            time_ms(torch, sp_fn, 10), time_ms(torch, sp_plain, 3),
-           frames * per_frame,
-           (x_sp.numel() + got.numel() + fp["spatial_packed"].numel()) * F32)
-    del got, ref
+           frames * (per_frame - dense_frame),
+           (x_sp.numel() + got.numel() + fp["spatial_packed"].numel()) * F32,
+           f64=f64_check(torch, got, ref, ref64), tc_flops=frames * dense_frame)
+    repeat_identical("spatial_stack", (got,), (sp_fn(),))
+    del got, ref, ref64
 
     # K2: the temporal stack, key mask from a mask stride of 10 at random phases
     x_tm = rand(windows, n, c)
@@ -1408,12 +1415,17 @@ def main(argv=None) -> int:
                                         packed=fp["spatial_packed"])
     su_plain = lambda: spatial_stack_plain(x_u[:, 0], sp_ops, num_heads=heads)
     got, ref = su_fn(), su_plain()
+    ref64 = spatial_stack_plain(x_u[:, 0].double(), sp_ops64, num_heads=heads)
     record("spatial_stack_shared", "uplift_upsample_torch/csrc/spatial.cu",
            "uplift_upsample_tpu/ops/pallas_spatial.py:398",
            out_check(torch, got.reshape(ref.shape), ref), time_ms(torch, su_fn, 10),
-           time_ms(torch, su_plain, 3), u_frames * per_frame,
+           time_ms(torch, su_plain, 3), u_frames * (per_frame - dense_frame),
            (x_u.numel() + got.numel() + fp["spatial_packed"].numel()) * F32,
-           counter="spatial_stack", phase="eval")
+           counter="spatial_stack", phase="eval",
+           f64=f64_check(torch, got.reshape(ref.shape), ref, ref64),
+           tc_flops=u_frames * dense_frame)
+    repeat_identical("spatial_stack_shared", (got,), (su_fn(),))
+    del ref64, sp_ops64
     tn_fn = lambda: temporal_stack(x_tm, tm_ops, None, num_heads=heads)
     tn_plain = lambda: temporal_stack_plain(x_tm, tm_ops, None, num_heads=heads)
     got, ref = tn_fn(), tn_plain()
@@ -1471,11 +1483,17 @@ def main(argv=None) -> int:
                                droppath_scales=sc)
     k1_plain = lambda: spatial_stack_plain(x_kf, sp_ops, num_heads=heads, droppath_scales=sc)
     got, ref = k1(), k1_plain()
+    ref64 = spatial_stack_plain(x_kf.double(), {key: v.double() for key, v in sp_ops.items()},
+                                num_heads=heads, droppath_scales=sc.double())
     sp_in = (x_kf.numel() + sc.numel() + sp_packed.numel()) * F32
     record("spatial_stack_droppath", "uplift_upsample_torch/csrc/spatial.cu",
            "uplift_upsample_tpu/ops/pallas_spatial.py:398", out_check(torch, got, ref),
-           time_ms(torch, k1, 10), time_ms(torch, k1_plain, 3), budget * per_frame,
-           sp_in + got.numel() * F32, counter="spatial_stack", phase="train")
+           time_ms(torch, k1, 10), time_ms(torch, k1_plain, 3),
+           budget * (per_frame - dense_frame), sp_in + got.numel() * F32,
+           counter="spatial_stack", phase="train", f64=f64_check(torch, got, ref, ref64),
+           tc_flops=budget * dense_frame)
+    repeat_identical("spatial_stack_droppath", (got,), (k1(),))
+    del ref64
     g_sp = rand(budget, p * cs, scale=1.0)
     k4 = lambda: spatial_stack_bwd(x_kf, sp_ops, sc, g_sp, num_heads=heads, packed=sp_packed)
     k4_plain = lambda: spatial_stack_bwd_plain(x_kf, sp_ops, sc, g_sp, num_heads=heads)
@@ -1490,7 +1508,6 @@ def main(argv=None) -> int:
                            + [(dxk, dxp, dx64), (ddk, ddpp, dd64)])
     # the VJP's least work: the forward plus twice its products; the dense
     # products (q, k, v, proj, fc1, fc2) in 3xTF32 on the tensor cores
-    dense_frame = model.spatial_depth * (2 * p * cs * cs * 4 + 2 * p * cs * 2 * cs * 2)
     record("spatial_bwd", "uplift_upsample_torch/csrc/spatial_bwd.cu",
            "uplift_upsample_tpu/ops/pallas_spatial_bwd.py:418",
            grad_check(torch, pairs + [(dxk, dxp), (ddk, ddpp)]),

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """What bounds the hand-written tensor-core kernels on the card (csrc/).
 
-    python3 kernel_probe.py [--seed 0]
+    python3 kernel_probe.py [--seed 0] [--only dense,attn_bwd,k4,k1]
 
 Builds patched copies of `csrc/` under `uplift_upsample_torch/_build/probe/`
 (one nvcc per copy, all started together) and times each with CUDA events:
@@ -41,7 +41,20 @@ Builds patched copies of `csrc/` under `uplift_upsample_torch/_build/probe/`
 - K4 (`spatial_bwd.cu`'s spatial_bwd_f32 at the train step's 25,600
   keyframes, C = 32, 4 blocks, random weights from the seed): the kernel;
   "no products"; "no splits"; "no gradient writes" (no read-modify-write
-  of dW in the gradient rows); "no attention backward".
+  of dW in the gradient rows); "no attention backward";
+- K1 (`spatial.cu`'s spatial_stack_f32, C = 32, 4 blocks, random weights
+  from the seed) at serving (72,704 frames), the train step (25,600
+  keyframes, droppath scales) and the eval shared step (3,072 frames): the
+  kernel beside "fresh partials" (a fresh partial per 8-deep step, K4's
+  accumulation), each against the plain version and float64; at serving
+  also "no products", "no attention", "no LayerNorm statistics", "no gelu"
+  (fc1's output as it is), "no splits", "one pass, no splits" and "staged
+  once" (block 0's weights only: the cost of restaging). 3 rounds of 20
+  launches per variant, taken in turn; ptxas's registers and spills of
+  both accumulations are printed first.
+
+`--only` runs a subset: "dense" is the attention, GEMM, dW, conv and dH1
+groups.
 
 Each prints one line. The patched versions compute nothing meaningful; only
 each kernel as it is is checked against its plain version. Needs a CUDA card
@@ -119,13 +132,16 @@ ATTN_BWD = {
                              for r in ("key0", "key1")],
 }
 _MMA = "      uu::mma_3xtf32(part, ab, as, bb, bs);\n"
+# rows_gemm's products (spatial_common.cuh): a running sum, fresh partials
+_RUNNING = "        uu::mma_3xtf32(acc[j], ab, as, bb, bs);\n"
+_FRESH = "        uu::mma_3xtf32(part, ab, as, bb, bs);\n"
 _DW = [("*out(i, o + 8 * u)", 0), ("*out(i, o + 8 * u + 1)", 1), ("*out(i + 8, o + 8 * u)", 2),
        ("*out(i + 8, o + 8 * u + 1)", 3)]
 _DW_STORES = "".join(f"      {ref} = old[u][{e}] + acc[u][{e}];\n" for ref, e in _DW)
 _DW_LOADS = "".join(f"      old[u][{e}] = {ref};\n" for ref, e in _DW)
 K4 = {
     "kernel": [],
-    "no products": [("spatial_bwd.cu", _MMA, "")],
+    "no products": [("spatial_bwd.cu", _MMA, ""), ("spatial_common.cuh", _FRESH, "")],
     "no splits": NO_SPLITS,
     "no gradient writes": [  # dW's read-modify-writes of the gradient row
         ("spatial_bwd.cu", _DW_STORES,
@@ -136,6 +152,24 @@ K4 = {
     "no attention backward": [
         ("spatial_bwd.cu", "      attention_bwd<C>(QKV_C, CTX, DQ, ST, nf, scale);\n", "")],
 }
+# K1: its accumulation against K4's (A/B), then without its parts
+K1_AB = {
+    "kernel": [],
+    "fresh partials": [("spatial_common.cuh", "      if (FRESH) {\n", "      if (true) {\n")],
+}
+K1 = {
+    **K1_AB,
+    "no products": [("spatial_common.cuh", _RUNNING, ""), ("spatial_common.cuh", _FRESH, "")],
+    "no attention": [("spatial.cu", "      sp::attention_fwd<C>(QKV, QKV, P3, nf, scale);\n", "")],
+    "no LayerNorm statistics": [("spatial.cu", "      sp::ln_stats<C>(X, mu, rs, 1e-5f);\n", "")],
+    "no gelu": [("spatial.cu", "sp::gelu(v + V[S::B1 + n])", "(v + V[S::B1 + n])")],
+    "no splits": NO_SPLITS,
+    "one pass, no splits": NO_SPLITS + ONE_MMA,
+    "staged once": [("spatial.cu", "      {  // stage this block's weights",
+                     "      if (blk == 0) {  // stage this block's weights")],
+}
+# the probes --only selects; "dense" is the attention, GEMM, dW and conv groups
+PROBES = ("dense", "attn_bwd", "k4", "k1")
 DW = {
     "kernel": [],
     "products only": [("gemm_tc.cuh", _CP.format(t=t), "      if (m < 0) " + _CP.format(t=t)[6:])
@@ -149,7 +183,8 @@ DW = {
 
 def start_build(cuda_lib, tag, source, reps):
     """csrc/ copied to _build/probe/<tag>, `reps` applied, nvcc started on
-    <source>.cu; returns (process, library path)."""
+    <source>.cu with ptxas's report on stderr; returns (process, library
+    path)."""
     out = cuda_lib.BUILD_DIR / "probe" / tag.replace(" ", "_").replace(",", "")
     shutil.rmtree(out, ignore_errors=True)
     shutil.copytree(cuda_lib.CSRC_DIR, out)
@@ -160,8 +195,9 @@ def start_build(cuda_lib, tag, source, reps):
             raise RuntimeError(f"probe patch {old!r} no longer matches {fname}")
         path.write_text(text.replace(old, new))
     lib = out / f"lib{source}.so"
-    proc = subprocess.Popen([cuda_lib._nvcc(), *cuda_lib.NVCC_FLAGS, "-o", str(lib),
-                             str(out / f"{source}.cu")])
+    proc = subprocess.Popen([cuda_lib._nvcc(), *cuda_lib.NVCC_FLAGS, "-Xptxas", "-v", "-o",
+                             str(lib), str(out / f"{source}.cu")],
+                            stderr=subprocess.PIPE, text=True)
     return proc, lib
 
 
@@ -176,6 +212,8 @@ def bind(lib, fn_name, nptr, nint):
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--only", default="",
+                        help=f"a comma-separated subset of {','.join(PROBES)}")
     args = parser.parse_args(argv)
     import torch
     import torch.nn.functional as F
@@ -184,33 +222,58 @@ def main(argv=None) -> int:
         print("kernel_probe: no CUDA device; this run needs a card", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
-    from chip_smoke import card_line, time_ms
+    from chip_smoke import card_line
     from uplift_upsample_torch.ops import cuda_lib
-    from uplift_upsample_torch.ops.packed_attention import packed_attention_plain
-    from uplift_upsample_torch.ops.strided import conv_taps_plain, strided_conv_plain
-    from uplift_upsample_torch.ops.strided_train import conv_dh1_plain
-    from uplift_upsample_torch.ops.temporal import tf32_halves
-    from uplift_upsample_torch.ops.temporal_train import dw_splits
 
     torch.backends.cuda.matmul.allow_tf32 = False
     print(f"card: {card_line()}", flush=True)
+    only = set(args.only.split(",")) if args.only else set(PROBES)
+    if only - set(PROBES):
+        raise SystemExit(f"--only takes {','.join(PROBES)}")
     builds = {}
     for group, source, variants in (("attention", "attention", ATTENTION),
                                     ("gemm", "temporal", GEMM), ("dw", "temporal_bwd", DW),
                                     ("conv", "strided", CONV), ("dh1", "strided_bwd", DH1),
                                     ("attn_bwd", "temporal_bwd", ATTN_BWD),
-                                    ("k4", "spatial_bwd", K4)):
-        for name, reps in variants.items():
+                                    ("k4", "spatial_bwd", K4), ("k1", "spatial", K1)):
+        probe = group if group in PROBES else "dense"
+        for name, reps in variants.items() if probe in only else ():
             builds[group, name] = start_build(cuda_lib, f"{group} {name}", source, reps)
     for key, (proc, _) in builds.items():
-        if proc.wait() != 0:
-            raise RuntimeError(f"probe build {key} failed")
+        _, report = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"probe build {key} failed:\n{report}")
+        if key[0] == "k1" and key[1] in K1_AB:  # registers and spills of each accumulation
+            for line in report.splitlines():
+                if "Used" in line or "spill" in line:
+                    print(f"ptxas k1 {key[1]}: {line.strip()}", flush=True)
 
     dev = torch.device("cuda")
     stream = lambda: torch.cuda.current_stream().cuda_stream
     rng = np.random.default_rng(args.seed)
     rand = lambda *shape, scale=0.5: torch.from_numpy(
         (rng.normal(size=shape) * scale).astype(np.float32)).to(dev)
+
+    if "dense" in only:
+        probe_dense(torch, F, builds, rand, rng, dev, stream)
+    if "attn_bwd" in only:
+        probe_attention_bwd(torch, F, builds, rand, rng, dev, stream)
+    if "k4" in only:
+        probe_spatial_bwd(torch, builds, rand, args.seed, dev, stream)
+    if "k1" in only:
+        probe_spatial(torch, builds, rand, args.seed, dev, stream)
+    return 0
+
+
+def probe_dense(torch, F, builds, rand, rng, dev, stream):
+    """The attention (row 11's shapes), the dense-layer GEMM, dW, the conv
+    forward and its dH1, each beside its PyTorch call."""
+    from chip_smoke import time_ms
+    from uplift_upsample_torch.ops.packed_attention import packed_attention_plain
+    from uplift_upsample_torch.ops.strided import conv_taps_plain, strided_conv_plain
+    from uplift_upsample_torch.ops.strided_train import conv_dh1_plain
+    from uplift_upsample_torch.ops.temporal import tf32_halves
+    from uplift_upsample_torch.ops.temporal_train import dw_splits
 
     heads, c = 8, 384
     cases = []
@@ -335,9 +398,6 @@ def main(argv=None) -> int:
               flush=True)
     del h1, g, dh1, g_t, h1t
     torch.cuda.empty_cache()
-    probe_attention_bwd(torch, F, builds, rand, rng, dev, stream)
-    probe_spatial_bwd(torch, builds, rand, args.seed, dev, stream)
-    return 0
 
 
 def probe_attention_bwd(torch, F, builds, rand, rng, dev, stream):
@@ -413,6 +473,63 @@ def probe_spatial_bwd(torch, builds, rand, seed, dev, stream):
         err = f" dx max_abs_err {float((dx - ref_dx).abs().max()):.3e};" if name == "kernel" else ""
         print(f"probe k4 {name}: {f} frames, C {c}, {blocks} blocks, {rows} gradient rows:{err} "
               f"ms {time_ms(torch, call, 5):.4f}", flush=True)
+
+
+def probe_spatial(torch, builds, rand, seed, dev, stream):
+    """K1 at serving (72,704 frames), the train step (25,600 keyframes with
+    droppath scales) and the eval shared step (3,072 frames), C = 32, 4
+    blocks, random weights from the seed: the A/B variants at each shape,
+    every variant at serving; 3 rounds of 20 launches per variant, taken in
+    turn, and each A/B variant against the plain version and float64."""
+    from chip_smoke import time_ms
+    from uplift_upsample_torch.configs import get_config
+    from uplift_upsample_torch.models import build_uplift_upsample_transformer
+    from uplift_upsample_torch.models.bench_forward import prepare_fused_params
+    from uplift_upsample_torch.ops.spatial import make_droppath_scales, spatial_stack_plain
+
+    config = get_config("h36m_351")
+    model = build_uplift_upsample_transformer(config, device="cuda", seed=seed)
+    fp = prepare_fused_params(model)
+    ops, packed = fp["spatial"], fp["spatial_packed"]
+    c, heads, blocks = config.SPATIAL_EMBED_DIM, model.num_heads, model.spatial_depth
+    gen = torch.Generator().manual_seed(seed)
+    rates = [config.DROP_PATH_RATE[0] * i / (blocks - 1) for i in range(blocks)]
+    fns = {name: bind(builds["k1", name][1], "spatial_stack_f32", 4, 4) for name in K1}
+    for label, f, scaled in (("serving", 72704, False), ("train", 25600, True),
+                             ("eval", 3072, False)):
+        x = rand(f, 17, 2)
+        sc = make_droppath_scales(gen, rates, f).to(dev) if scaled else None
+        ref = spatial_stack_plain(x, ops, num_heads=heads, droppath_scales=sc)
+        ref64 = spatial_stack_plain(x.double(), {k: v.double() for k, v in ops.items()},
+                                    num_heads=heads,
+                                    droppath_scales=None if sc is None else sc.double())
+        err_plain = float((ref.double() - ref64).abs().max())
+        names = list(K1) if label == "serving" else list(K1_AB)
+        outs = {name: torch.empty((f, 17 * c), device=dev) for name in names}
+        calls = {}
+        for name in names:
+            calls[name] = lambda fn=fns[name], out=outs[name]: fn(
+                x.data_ptr(), packed.data_ptr(), None if sc is None else sc.data_ptr(),
+                out.data_ptr(), f, c, c // heads, blocks, stream())
+            if calls[name]() != 0:
+                raise RuntimeError(f"k1 {name}: launch failed")
+        torch.cuda.synchronize()
+        times = {name: [] for name in names}
+        for _ in range(3):
+            for name in names:
+                times[name].append(time_ms(torch, calls[name], 20))
+        for name in names:
+            err = ""
+            if name in K1_AB:
+                got = outs[name]
+                err = (f" max_abs_err {float((got - ref).abs().max()):.3e}, vs float64 "
+                       f"{float((got.double() - ref64).abs().max()):.3e} (plain "
+                       f"{err_plain:.3e});")
+            rounds = ", ".join(f"{t:.4f}" for t in times[name])
+            print(f"probe k1 {name}: {label}, {f} frames, C {c}, {blocks} blocks, scales "
+                  f"{scaled}:{err} ms {min(times[name]):.4f} (rounds {rounds})", flush=True)
+        del x, sc, ref, ref64, outs
+        torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

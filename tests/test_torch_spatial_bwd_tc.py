@@ -1,6 +1,6 @@
 """K4 on the tensor cores (`csrc/spatial_bwd.cu`).
 
-K4 walks tiles of 8 frames (136 token rows, padded to 144: nine m16 tiles,
+K4 walks tiles of 7 frames (119 token rows, padded to 128: eight m16 tiles,
 one per warp) and runs every dense product of the forward replay, the block
 recompute and the backward on mma.sync in 3xTF32: x·W and dY·Wᵀ with the
 warp's 16 rows as M, dW = Xᵀ·dY with the tile's rows as K. Each tile's dW
@@ -13,7 +13,7 @@ each 8-row step) against plain products; a float64 emulation of dW's 3xTF32
 sums over one thread block's rows at the train step's depth (25,600 frames
 on 132 blocks), a fresh partial per 8-row step and per tile against one
 running sum, held to the float64 criterion; and the kernel's partition of
-the frames (tiles of 8, the tail tile at F = 1,031, tiles dealt to the
+the frames (tiles of 7, the tail tile at F = 1,031, tiles dealt to the
 blocks in turn, per-block rows summed in order) run with the plain version
 per tile, against the plain version on all frames.
 
@@ -47,7 +47,7 @@ SMS = 132
 
 
 def _rows_gemm_model(a, w):
-    """a (144, K) · w (K, N) as csrc/spatial_bwd.cu's rows_gemm takes it:
+    """a (128, K) · w (K, N) as rows_gemm (csrc/spatial_common.cuh) takes it:
     warp w's rows 16w.., A at rows g, g+8 and columns t, t+4 of each 8-deep
     step, B (w) at rows t, t+4 and column g of each 8-column tile."""
     k, n = w.shape
@@ -68,7 +68,7 @@ def _rows_gemm_model(a, w):
 
 
 def _tile_dw_model(x, dy, f):
-    """Xᵀ·(f ⊙ dY) over the tile's 144 rows as tile_dw takes it: output
+    """Xᵀ·(f ⊙ dY) over the tile's 128 rows as tile_dw takes it: output
     tiles (m16 of X's columns, n8 of dY's), each 8-row step's rows permuted
     (A column t <-> row 2t, t+4 <-> 2t+1, the same rows of dY)."""
     cin, n = x.shape[1], dy.shape[1]
@@ -103,8 +103,8 @@ def test_k4_fragment_model_gives_the_products(k, n):
 @pytest.mark.parametrize("cin,n", [(32, 96), (64, 32)])
 def test_k4_dw_emulation_meets_float64_criterion(cin, n):
     """dW of q|k|v (32 x 96) and of fc2 (64 x 32) over the rows one thread
-    block takes at the train step (25,600 frames in tiles of 8 on 132 blocks:
-    25 tiles of 136 rows), dY scaled per frame at keep 0.9: with a fresh
+    block takes at the train step (25,600 frames in tiles of 7 on 132 blocks:
+    28 tiles of 119 rows), dY scaled per frame at keep 0.9: with a fresh
     partial per 8-row step and per tile, added into the block's row in fp32,
     the kernel's error against float64 is at most 4x the fp32 plain
     version's plus 1e-6 of the scale; one running sum over the block's rows
@@ -144,8 +144,8 @@ def _grad_ok(got, ref, zero_at=None):
 
 
 def test_k4_tile_partition_matches_plain():
-    """The kernel's partition at F = 1,031: tiles of 8 frames (the last of
-    7), tile i on thread block i mod min(132, tiles), each block's row the
+    """The kernel's partition at F = 1,031: tiles of 7 frames (the last of
+    2), tile i on thread block i mod min(132, tiles), each block's row the
     sum of its tiles in order, the rows summed in block order; with the
     plain version on each tile it gives the plain version's gradients on
     all frames (the grad bar), and dx and dscales frame by frame."""

@@ -3,8 +3,8 @@
 // fixed-order sum of partials that the split-K products (gemm_tc.cuh) and
 // the per-block gradient partials end with. The products run on the tensor
 // cores (gemm_tc.cuh, attention.cuh, temporal_bwd.cu's attention backward,
-// K4's dense layers) except K1's and K4's 17-token attention, which run on
-// the CUDA cores inside their own kernels.
+// K1's and K4's dense layers) except K1's and K4's 17-token attention, which
+// runs on the CUDA cores inside their own kernels.
 #pragma once
 
 #include <cuda_runtime.h>

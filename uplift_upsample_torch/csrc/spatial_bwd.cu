@@ -21,8 +21,11 @@
 // warps per SM (kernel_probe.py times it without each part).
 //
 // Design (Hopper; not the TPU's frames-on-lanes tile): one thread block of 8
-// warps per SM walks tiles of TF = 7 frames. A tile's 119 token rows, padded
-// to 128, are 8 m16 tiles, one per warp, so every dense product has M = 128
+// warps per SM walks tiles of TF = 7 frames. The tile, the products x.W
+// (rows_gemm), the LayerNorm statistics (two lanes per row), the forward
+// attention and the staging of a block's weights are spatial_common.cuh's,
+// which K1 runs too. A tile's 119 token rows, padded to 128, are 8 m16
+// tiles, one per warp, so every dense product has M = 128
 // rows on mma.sync.m16n8k8: warp w owns rows 16w..16w+15 of x.W and dY.W^T,
 // or pairs of (m16, n8) tiles of dW = X^T.dY, whose K is the tile's rows.
 // 16 frames (272 rows, 17 m16 tiles) would need 313 KB of row buffers, more
@@ -71,21 +74,22 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "gemm.cuh"
 #include "spatial_common.cuh"
 #include "tf32.cuh"
 
 namespace {
 
 using sp::Layout;
+using sp::LOG2E;
 using sp::P;
+using sp::R;
+using sp::TF;
+using sp::THREADS;
+using sp::WARPS;
 
-constexpr int TF = 7;                     // frames per tile
-constexpr int R = 128;                    // the tile's rows: 7 x 17 = 119, padded to 8 x 16
-constexpr int WARPS = R / 16;             // one m16 tile of rows per warp
-constexpr int THREADS = WARPS * 32;
 constexpr float INV_SQRT2 = 0.70710678118654752f;
 constexpr float INV_SQRT_2PI = 0.39894228040143268f;
-constexpr float LOG2E = 1.4426950408889634f;
 
 // gelu(h) = h * Phi(h) and its derivative Phi(h) + h * phi(h), one erff.
 __device__ __forceinline__ float gelu_and_grad(float h, float* grad) {
@@ -94,72 +98,20 @@ __device__ __forceinline__ float gelu_and_grad(float h, float* grad) {
   return h * phi;
 }
 
-// Shared-memory layout (floats) of one thread block, and the pitches.
+// Shared-memory layout (floats) of one thread block; the pitches are
+// spatial_common.cuh's.
 template <int C>
-struct Tile {
-  static constexpr int H = C / 4, HID = 2 * C, C3 = 3 * C;
-  static constexpr int PC = C + 4, PH = HID + 4, P3 = C3 + 4;  // activations: 4 mod 8
-  static constexpr int WC = C + 8, WH = HID + 8, W3 = C3 + 8;  // weights: 8 mod 16
+struct Tile : sp::Pitch<C> {
+  using Base = sp::Pitch<C>;
+  using Base::C3, Base::HID, Base::P3, Base::PC, Base::PH, Base::H, Base::WEIGHTS;
   static constexpr int U = R * PC;
   static constexpr int STATS = 2 * TF * H * P;  // attention backward: lse, rowsum(P dP)
   // G: the working region, laid out per phase (see the kernel)
   static constexpr int G_A = U + R * P3, G_B = U + 2 * R * PH, G_C = 2 * U + R * P3 + STATS;
   static constexpr int G = G_A > G_B ? (G_A > G_C ? G_A : G_C) : (G_B > G_C ? G_B : G_C);
-  static constexpr int WEIGHTS = C * W3 + C * WC + C * WH + HID * WC;
   static constexpr int ROWS = 8 * R;  // mu1, rs1, mu2, rs2, rowf, s1r, s2r, rsum
   static constexpr int FLOATS = 2 * U + G + 2 * WEIGHTS + ROWS + 2 * THREADS;
 };
-
-// out[r, n] = epi(r, n, sum_k a(r, k) b(k, n)) for the warp's 16 rows; epi
-// returns a value summed per row into rsum[r] when rsum is given. b_at(k, n)
-// points at the big TF32 half of a staged weight, its small half `small`
-// floats further.
-template <int K, int N, class A, class B, class Epi>
-__device__ __forceinline__ void rows_gemm(A a_at, B b_at, int small, Epi epi, float* rsum) {
-  constexpr int NJ = N / 8;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
-  const int r0 = 16 * warp + g, r1 = r0 + 8;
-  float acc[NJ][4];
-#pragma unroll
-  for (int j = 0; j < NJ; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < K / 8; ++kk) {
-    uint32_t ab[4], as[4];
-    uu::tf32_split(a_at(r0, 8 * kk + t), ab[0], as[0]);
-    uu::tf32_split(a_at(r1, 8 * kk + t), ab[1], as[1]);
-    uu::tf32_split(a_at(r0, 8 * kk + t + 4), ab[2], as[2]);
-    uu::tf32_split(a_at(r1, 8 * kk + t + 4), ab[3], as[3]);
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const float* b0 = b_at(8 * kk + t, 8 * j + g);
-      const float* b1 = b_at(8 * kk + t + 4, 8 * j + g);
-      const uint32_t bb[2] = {__float_as_uint(b0[0]), __float_as_uint(b1[0])};
-      const uint32_t bs[2] = {__float_as_uint(b0[small]), __float_as_uint(b1[small])};
-      float part[4] = {0.f, 0.f, 0.f, 0.f};
-      uu::mma_3xtf32(part, ab, as, bb, bs);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[j][e] += part[e];
-    }
-  }
-  float s0 = 0.f, s1 = 0.f;
-#pragma unroll
-  for (int j = 0; j < NJ; ++j) {
-    const int c = 8 * j + 2 * t;
-    s0 += epi(r0, c, acc[j][0]) + epi(r0, c + 1, acc[j][1]);
-    s1 += epi(r1, c, acc[j][2]) + epi(r1, c + 1, acc[j][3]);
-  }
-  if (rsum) {
-#pragma unroll
-    for (int o = 1; o <= 2; o <<= 1) {
-      s0 += __shfl_xor_sync(0xffffffffu, s0, o);
-      s1 += __shfl_xor_sync(0xffffffffu, s1, o);
-    }
-    if (t == 0) {
-      rsum[r0] = s0;
-      rsum[r1] = s1;
-    }
-  }
-}
 
 // *out(i, o) += sum over the tile's rows r of x(r, i) * dy(r, o) * f[r]
 // (dW = X^T . dY, CIN x N): pairs of (m16, n8) output tiles side by side,
@@ -265,28 +217,6 @@ __device__ __forceinline__ void colsum_add(int ncols, V val, Out out, float* red
   __syncthreads();
 }
 
-// Mean and 1/sqrt(var + eps) of each of the R rows of x (pitch PC), one
-// thread per row (float4 loads: a warp's rows cover the 32 banks).
-template <int C>
-__device__ __forceinline__ void ln_stats(const float* x, float* mu, float* rs, float eps) {
-  constexpr int PC = Tile<C>::PC;
-  for (int r = threadIdx.x; r < R; r += THREADS) {
-    float v[C];
-#pragma unroll
-    for (int c = 0; c < C; c += 4)
-      *reinterpret_cast<float4*>(v + c) = *reinterpret_cast<const float4*>(x + r * PC + c);
-    float m = 0.f;
-#pragma unroll
-    for (int c = 0; c < C; ++c) m += v[c];
-    m /= C;
-    float var = 0.f;
-#pragma unroll
-    for (int c = 0; c < C; ++c) var = fmaf(v[c] - m, v[c] - m, var);
-    mu[r] = m;
-    rs[r] = 1.f / sqrtf(var / C + eps);
-  }
-}
-
 // x (pitch PC) normalised in place, row by row (xhat = (x - mean) * rs),
 // and each row's rs = 1/sqrt(var + eps), one thread per row.
 template <int C>
@@ -359,41 +289,6 @@ __device__ __forceinline__ void ln_bwd(const float* xhat, const float* dy, const
   __syncthreads();
   const auto beta_out = [&](int c) { return g_beta + c; };
   colsum_part2(C, [&](int c) { return g_gamma + c; }, red, &beta_out);
-}
-
-// ctx = softmax(q k^T * scale) v per (frame, head, query) of the tile's
-// frames; q|k|v rows at pitch P3.
-template <int C>
-__device__ __forceinline__ void attention_fwd(const float* qkv, float* ctx, int nf, float scale) {
-  using T = Tile<C>;
-  const float sl = scale * LOG2E;  // the softmax in base 2
-  for (int it = threadIdx.x; it < nf * T::H * P; it += THREADS) {
-    const int f = it / (T::H * P), h = it / P % T::H, p = it % P;
-    const int base = f * P * T::P3 + 4 * h;
-    const float4 q = *reinterpret_cast<const float4*>(qkv + base + p * T::P3);
-    float e[P], mx = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < P; ++j) {
-      const float4 k = *reinterpret_cast<const float4*>(qkv + base + j * T::P3 + C);
-      e[j] = (q.x * k.x + q.y * k.y + q.z * k.z + q.w * k.w) * sl;
-      mx = fmaxf(mx, e[j]);
-    }
-    float sum = 0.f;
-    float4 o = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll
-    for (int j = 0; j < P; ++j) {
-      e[j] = exp2f(e[j] - mx);
-      sum += e[j];
-      const float4 v = *reinterpret_cast<const float4*>(qkv + base + j * T::P3 + 2 * C);
-      o.x = fmaf(e[j], v.x, o.x);
-      o.y = fmaf(e[j], v.y, o.y);
-      o.z = fmaf(e[j], v.z, o.z);
-      o.w = fmaf(e[j], v.w, o.w);
-    }
-    const float inv = 1.f / sum;
-    *reinterpret_cast<float4*>(ctx + (f * P + p) * T::PC + 4 * h) =
-        make_float4(o.x * inv, o.y * inv, o.z * inv, o.w * inv);
-  }
 }
 
 // The attention's backward from q|k|v (pitch P3) and dctx (pitch PC): one
@@ -565,48 +460,12 @@ spatial_bwd_tc_kernel(const float* __restrict__ x, const float* __restrict__ gou
   };
   auto wait_copies = []() { asm volatile("cp.async.wait_group 0;\n" ::: "memory"); };
   auto store_ck = [&](int i) { save(ck + (size_t)i * R * C, XS); };
-  // block blk's weights into shared memory, its scales per row
-  // 4 floats as TF32 halves: big at dst, small T::WEIGHTS further
-  auto put_split = [&](float* dst, const float4 v) {
-    uint32_t b[4], sm4[4];
-    uu::tf32_split(v.x, b[0], sm4[0]);
-    uu::tf32_split(v.y, b[1], sm4[1]);
-    uu::tf32_split(v.z, b[2], sm4[2]);
-    uu::tf32_split(v.w, b[3], sm4[3]);
-    *reinterpret_cast<uint4*>(dst) = make_uint4(b[0], b[1], b[2], b[3]);
-    *reinterpret_cast<uint4*>(dst + T::WEIGHTS) = make_uint4(sm4[0], sm4[1], sm4[2], sm4[3]);
-  };
-  // block blk's weights into shared memory as TF32 halves, its scales per
-  // row: every load issued first, then the splits and stores. Float4 e of
-  // the 2C^2: wq, wk, wv, wp (C x C each), w1 (C x 2C), w2 (2C x C).
-  auto weight4 = [&](int e, const float* bw, float** dst) {
-    constexpr int Q = C * C / 4;  // float4s per C x C matrix
-    if (e < 4 * Q) {
-      const int m = e / Q, i = e % Q / (C / 4), o = 4 * (e % (C / 4));
-      const int src[4] = {L::WQ, L::WK, L::WV, L::WP};
-      *dst = m < 3 ? WQKV + i * T::W3 + m * C + o : WP + i * T::WC + o;
-      return bw + src[m] + i * C + o;
-    }
-    if (e < 6 * Q) {
-      const int i = (e - 4 * Q) / (HID / 4), o = 4 * ((e - 4 * Q) % (HID / 4));
-      *dst = W1 + i * T::WH + o;
-      return bw + L::W1 + i * HID + o;
-    }
-    const int i = (e - 6 * Q) / (C / 4), o = 4 * ((e - 6 * Q) % (C / 4));
-    *dst = W2 + i * T::WC + o;
-    return bw + L::W2 + i * C + o;
-  };
+  // block blk's weights into shared memory as TF32 halves (every load issued
+  // first, then the splits and stores), its scales per row
   auto stage = [&](int blk, int f0) {
-    const float* bw = w + L::BLOCKS + blk * L::BLOCK;
-    constexpr int NV = 2 * C * C / THREADS;
-    static_assert(2 * C * C % THREADS == 0, "the weights' float4s spread evenly");
-    float4 v[NV];
-    float* dst[NV];
-#pragma unroll
-    for (int k = 0; k < NV; ++k)
-      v[k] = *reinterpret_cast<const float4*>(weight4(threadIdx.x + k * THREADS, bw, &dst[k]));
-#pragma unroll
-    for (int k = 0; k < NV; ++k) put_split(dst[k], v[k]);
+    sp::BlockWeights<C, THREADS> bwts;
+    bwts.load(w + L::BLOCKS + blk * L::BLOCK, threadIdx.x);
+    bwts.store(WQKV);
     for (int r = threadIdx.x; r < R; r += THREADS) {
       const bool on = rowf[r] > 0.f;
       s1r[r] = on ? scales[(size_t)(2 * blk) * frames + f0 + r / P] : 0.f;
@@ -633,34 +492,34 @@ spatial_bwd_tc_kernel(const float* __restrict__ x, const float* __restrict__ gou
   // XS, H1 = LN2(X2) . W1 + b1 (the backward: X2 normalised in place)
   auto front = [&](int blk, int nf, bool replay) {
     const float* bw = w + L::BLOCKS + blk * L::BLOCK;
-    ln_stats<C>(XS, mu1, rs1, 1e-5f);
+    sp::ln_stats<C>(XS, mu1, rs1, 1e-5f);
     __syncthreads();
     if (replay) {  // the replay: the attention, its context kept in the scratch
-      rows_gemm<C, C3>(ln1_at(XS, bw), [&](int k, int n) { return WQKV + k * T::W3 + n; },
-                       T::WEIGHTS,
-                       [&](int r, int n, float v) {
-                         QKV_A[r * P3 + n] = v + qkv_bias(bw, n);
-                         return 0.f;
-                       },
-                       nullptr);
+      sp::rows_gemm<C, C3>(ln1_at(XS, bw), [&](int k, int n) { return WQKV + k * T::W3 + n; },
+                           T::WEIGHTS,
+                           [&](int r, int n, float v) {
+                             QKV_A[r * P3 + n] = v + qkv_bias(bw, n);
+                             return 0.f;
+                           },
+                           nullptr);
       __syncthreads();
-      attention_fwd<C>(QKV_A, CTX, nf, scale);
+      sp::attention_fwd<C>(QKV_A, CTX, PC, nf, scale);
       __syncthreads();
       save(ctxg + (size_t)blk * R * C, CTX);
     }  // the backward: CTX restored from the replay's context by the caller
-    rows_gemm<C, C>([&](int r, int k) { return CTX[r * PC + k]; },
-                    [&](int k, int n) { return WP + k * T::WC + n; }, T::WEIGHTS,
-                    [&](int r, int n, float v) {
-                      XS[r * PC + n] += s1r[r] * (v + bw[L::BP + n]);
-                      return 0.f;
-                    },
-                    nullptr);
+    sp::rows_gemm<C, C>([&](int r, int k) { return CTX[r * PC + k]; },
+                        [&](int k, int n) { return WP + k * T::WC + n; }, T::WEIGHTS,
+                        [&](int r, int n, float v) {
+                          XS[r * PC + n] += s1r[r] * (v + bw[L::BP + n]);
+                          return 0.f;
+                        },
+                        nullptr);
     __syncthreads();
     const auto w1_at = [&](int k, int n) { return W1 + k * T::WH + n; };
     if (replay) {  // the replay: X2 stays, the residual of fc2
-      ln_stats<C>(XS, mu2, rs2, 1e-5f);
+      sp::ln_stats<C>(XS, mu2, rs2, 1e-5f);
       __syncthreads();
-      rows_gemm<C, HID>(
+      sp::rows_gemm<C, HID>(
           [&](int r, int k) {
             return (XS[r * PC + k] - mu2[r]) * rs2[r] * bw[L::LN2_G + k] + bw[L::LN2_B + k];
           },
@@ -673,7 +532,7 @@ spatial_bwd_tc_kernel(const float* __restrict__ x, const float* __restrict__ gou
     } else {  // the backward: X2 normalised in place (xhat2), read by fc1, dW1, LN2'
       ln_normalize<C>(XS, rs2, 1e-5f);
       __syncthreads();
-      rows_gemm<C, HID>(
+      sp::rows_gemm<C, HID>(
           [&](int r, int k) { return XS[r * PC + k] * bw[L::LN2_G + k] + bw[L::LN2_B + k]; },
           w1_at, T::WEIGHTS,
           [&](int r, int n, float v) {
@@ -724,13 +583,13 @@ spatial_bwd_tc_kernel(const float* __restrict__ x, const float* __restrict__ gou
       stage(blk, f0);
       __syncthreads();
       front(blk, nf, true);
-      rows_gemm<HID, C>([&](int r, int k) { return H1[r * PH + k]; },
-                        [&](int k, int n) { return W2 + k * T::WC + n; }, T::WEIGHTS,
-                        [&](int r, int n, float v) {
-                          XS[r * PC + n] += s2r[r] * (v + bw[L::B2 + n]);
-                          return 0.f;
-                        },
-                        nullptr);
+      sp::rows_gemm<HID, C>([&](int r, int k) { return H1[r * PH + k]; },
+                            [&](int k, int n) { return W2 + k * T::WC + n; }, T::WEIGHTS,
+                            [&](int r, int n, float v) {
+                              XS[r * PC + n] += s2r[r] * (v + bw[L::B2 + n]);
+                              return 0.f;
+                            },
+                            nullptr);
       __syncthreads();
       store_ck(blk + 1);
     }
@@ -757,16 +616,16 @@ spatial_bwd_tc_kernel(const float* __restrict__ x, const float* __restrict__ gou
       front(blk, nf, false);
 
       // MLP branch: out = X2 + s2 * (gelu(H1) . W2 + b2)
-      rows_gemm<C, HID>([&](int r, int k) { return DD[r * PC + k]; },
-                        [&](int k, int n) { return W2 + n * T::WC + k; }, T::WEIGHTS,
-                        [&](int r, int n, float u) {
-                          float grad;
-                          const float a = gelu_and_grad(H1[r * PH + n], &grad);
-                          H1[r * PH + n] = a;  // gelu(H1) from here on
-                          DH1[r * PH + n] = s2r[r] * u * grad;
-                          return a * u;
-                        },
-                        rsum);
+      sp::rows_gemm<C, HID>([&](int r, int k) { return DD[r * PC + k]; },
+                            [&](int k, int n) { return W2 + n * T::WC + k; }, T::WEIGHTS,
+                            [&](int r, int n, float u) {
+                              float grad;
+                              const float a = gelu_and_grad(H1[r * PH + n], &grad);
+                              H1[r * PH + n] = a;  // gelu(H1) from here on
+                              DH1[r * PH + n] = s2r[r] * u * grad;
+                              return a * u;
+                            },
+                            rsum);
       __syncthreads();
       frame_rows(DD, bw + L::B2, 2 * blk + 1);
       tile_dw<HID, C>([&](int r, int i) { return H1[r * PH + i]; },
@@ -779,13 +638,13 @@ spatial_bwd_tc_kernel(const float* __restrict__ x, const float* __restrict__ gou
           [&](int i, int o) { return gb + L::W1 + i * HID + o; },
           [&](int o) { return sgb + 8 * C + o; });
       __syncthreads();  // dZ goes over gelu(H1)
-      rows_gemm<HID, C>([&](int r, int k) { return DH1[r * PH + k]; },
-                        [&](int k, int n) { return W1 + n * T::WH + k; }, T::WEIGHTS,
-                        [&](int r, int n, float v) {
-                          DZ[r * PC + n] = v;
-                          return 0.f;
-                        },
-                        nullptr);
+      sp::rows_gemm<HID, C>([&](int r, int k) { return DH1[r * PH + k]; },
+                            [&](int k, int n) { return W1 + n * T::WH + k; }, T::WEIGHTS,
+                            [&](int r, int n, float v) {
+                              DZ[r * PC + n] = v;
+                              return 0.f;
+                            },
+                            nullptr);
       __syncthreads();
       ln_bwd<C>(XS, DZ, bw + L::LN2_G, rs2, rowf, DD, true, sgb + 6 * C, sgb + 7 * C,
                 red);
@@ -798,25 +657,25 @@ spatial_bwd_tc_kernel(const float* __restrict__ x, const float* __restrict__ gou
                     [&](int i, int o) { return gb + L::WP + i * C + o; },
                     [&](int o) { return sgb + 5 * C + o; });
       __syncthreads();  // dCTX goes over CTX
-      rows_gemm<C, C>([&](int r, int k) { return DD[r * PC + k]; },
-                      [&](int k, int n) { return WP + n * T::WC + k; }, T::WEIGHTS,
-                      [&](int r, int n, float u) {
-                        const float ctx = CTX[r * PC + n];
-                        CTX[r * PC + n] = s1r[r] * u;  // dCTX
-                        return ctx * u;
-                      },
-                      rsum);
+      sp::rows_gemm<C, C>([&](int r, int k) { return DD[r * PC + k]; },
+                          [&](int k, int n) { return WP + n * T::WC + k; }, T::WEIGHTS,
+                          [&](int r, int n, float u) {
+                            const float ctx = CTX[r * PC + n];
+                            CTX[r * PC + n] = s1r[r] * u;  // dCTX
+                            return ctx * u;
+                          },
+                          rsum);
       __syncthreads();
       frame_rows(DD, bw + L::BP, 2 * blk);
       wait_copies();
       __syncthreads();
-      rows_gemm<C, C3>(ln1_at(XS, bw), [&](int k, int n) { return WQKV + k * T::W3 + n; },
-                       T::WEIGHTS,
-                       [&](int r, int n, float v) {
-                         QKV_C[r * P3 + n] = v + qkv_bias(bw, n);
-                         return 0.f;
-                       },
-                       nullptr);
+      sp::rows_gemm<C, C3>(ln1_at(XS, bw), [&](int k, int n) { return WQKV + k * T::W3 + n; },
+                           T::WEIGHTS,
+                           [&](int r, int n, float v) {
+                             QKV_C[r * P3 + n] = v + qkv_bias(bw, n);
+                             return 0.f;
+                           },
+                           nullptr);
       __syncthreads();
       normalize(mu1, rs1);  // xhat1, beside the attention's backward (no barrier)
       attention_bwd<C>(QKV_C, CTX, DQ, ST, nf, scale);
@@ -830,12 +689,12 @@ spatial_bwd_tc_kernel(const float* __restrict__ x, const float* __restrict__ gou
           },
           [&](int o) { return sgb + 2 * C + o; });
       __syncthreads();  // dY goes over dq
-      rows_gemm<C3, C>(dqkv, [&](int k, int n) { return WQKV + n * T::W3 + k; }, T::WEIGHTS,
-                       [&](int r, int n, float v) {
-                         DY[r * PC + n] = v;
-                         return 0.f;
-                       },
-                       nullptr);
+      sp::rows_gemm<C3, C>(dqkv, [&](int k, int n) { return WQKV + n * T::W3 + k; }, T::WEIGHTS,
+                           [&](int r, int n, float v) {
+                             DY[r * PC + n] = v;
+                             return 0.f;
+                           },
+                           nullptr);
       __syncthreads();
       ln_bwd<C>(XS, DY, bw + L::LN1_G, rs1, rowf, DD, true, sgb, sgb + C, red);
     }
