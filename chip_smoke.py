@@ -6,7 +6,8 @@
 Phases (one line each; any failure ends the run with a non-zero exit):
   1. the card's name and power limit; build the CUDA kernels of
      uplift_upsample_torch/csrc with nvcc for sm_90a, one nvcc per source,
-     all started together;
+     all started together, and print ptxas's registers and spills of each
+     kernel;
   2. each kernel against its plain PyTorch version on the card at h36m_351
      width (K1 on 72,704 frames, K2 and K3 on 1,024 windows of 71 tokens,
      K3 also at the h36m_81 geometry; the training kernels at the train
@@ -15,7 +16,9 @@ Phases (one line each; any failure ends the run with a non-zero exit):
      K5 also over one block and at the h36m_81 geometry, K6 (strided block 1
      in training) forward and backward on 512 windows; the eval step's K1 on
      the shared step's 3,072 unique frames and K2 without a key mask; row 11,
-     the packed attention, at the five shapes --pallas gives it), with its
+     the packed attention, at the five shapes --pallas gives it, each also
+     against float64 and repeated bit for bit, and timed in a CUDA graph
+     too: `graph_ms`), with its
      time from CUDA events, the plain version's time, a PyTorch library
      call's time where one computes the same function, and the least time
      the card could take (bound); the dense layers' products on the tensor
@@ -95,6 +98,7 @@ import collections
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -109,10 +113,11 @@ AMASS_STEPS, AMASS_VAL = 4, 1024
 
 # H100 SXM peaks (NVIDIA data sheet): fp32 on CUDA cores, dense TF32 on the
 # tensor cores (the 3xTF32 kernels count three TF32 products per fp32 one),
-# and HBM3 bandwidth.
+# and HBM3 bandwidth; its L2 cache.
 PEAK_FP32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES_PER_S = 3.35e12
+L2_BYTES = 50 * 2**20
 F32 = 4
 
 
@@ -149,6 +154,70 @@ def time_ms(torch, fn, iters: int, warmup: int = 2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(torch, fns, iters: int = 20, replays: int = 1) -> float:
+    """The card's time per call: `iters` calls captured in one CUDA graph and
+    replayed, so the host's cost per call (Python, ctypes, the wrapper's
+    checks) is not in it, as it is in time_ms when a kernel takes less time
+    than its launch. `fns`: a callable, or a list of them taken in turn
+    (calls on distinct copies of the inputs: `l2_copies`)."""
+    fns = fns if isinstance(fns, (list, tuple)) else [fns]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for fn in fns:
+            fn()  # warm-up off the captured stream, as torch.cuda.graph asks
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(iters):
+            fns[i % len(fns)]()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (iters * replays)
+
+
+def l2_copies(nbytes: int) -> int:
+    """Copies of a call's inputs (`nbytes`) that, taken in turn, stream 4x
+    the card's L2 between two reads of one copy: each call reads from HBM,
+    as the bytes bound assumes."""
+    return max(1, -(-4 * L2_BYTES // nbytes))
+
+
+def kernel_name(symbol: str) -> str:
+    """A kernel's name and integer template arguments from its mangled
+    symbol ("task_attention_kernel<4, 17, 32>"); the symbol itself where it
+    is not of that form."""
+    pos, name = (3 if symbol.startswith("_ZN") else 2), None
+    while (m := re.compile(r"\d+").match(symbol, pos)):
+        name, pos = symbol[m.end():m.end() + int(m[0])], m.end() + int(m[0])
+    if not name:
+        return symbol
+    args = re.match(r"I((?:Li-?\d+E)+)E", symbol[pos:])
+    if args:
+        return name + "<" + ", ".join(re.findall(r"Li(-?\d+)E", args[1])) + ">"
+    return name if symbol[pos:pos + 1] != "I" else symbol
+
+
+def ptxas_report(report: str):
+    """(kernel, line) for each register and spill line of ptxas's report,
+    the kernel named from the entry-function line before it."""
+    kernel = "?"
+    for line in report.splitlines():
+        entry = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)",
+                          line)
+        if entry:
+            kernel = kernel_name(entry[1])
+        elif "Used" in line or "spill" in line:
+            yield kernel, line.strip()
 
 
 def max_err(got, ref) -> float:
@@ -1149,9 +1218,8 @@ def main(argv=None) -> int:
     log(f"phase 1 build: {len(cuda_lib.SOURCES)} sources in "
         f"{time.perf_counter() - t0:.1f} s")
     for name in cuda_lib.SOURCES:
-        for line in built[f"{name}.log"].splitlines():
-            if "Used" in line or "spill" in line:
-                log(f"  ptxas {name}: {line.strip()}")
+        for kernel, line in ptxas_report(built[f"{name}.log"]):
+            log(f"  ptxas {name} {kernel}: {line}")
 
     # ---- phase 2: each kernel against its plain version ----------------------
     starts.append(("2", time.perf_counter()))
@@ -1216,8 +1284,8 @@ def main(argv=None) -> int:
             f"launches from the path '{phase}'")
 
     def repeat_identical(name, first, second):
-        """The backward kernels and K1 sum in a fixed order, without float
-        atomics: a second call must give the same bits."""
+        """The backward kernels, K1 and row 11 sum in a fixed order, without
+        float atomics: a second call must give the same bits."""
         flat = lambda r: [t for part in r for t in
                           (part.values() if isinstance(part, dict) else [part])]
         same = all(torch.equal(a, b) for a, b in zip(flat(first), flat(second)))
@@ -1438,6 +1506,9 @@ def main(argv=None) -> int:
 
     # Row 11, packed attention, at every shape the eval path gives it with
     # --pallas (1,024 windows per call), beside SDPA on the head-split view.
+    # Beside the back-to-back time, "graph_ms" is the card's alone: 20 calls in
+    # a CUDA graph, on copies of the inputs that keep them out of L2 (at
+    # 1,024 x 3 the kernel takes less time than the wrapper's Python).
     for name, f_, s_, c_, masked in (
             ("packed_attention_spatial", frames, p, cs, False),
             ("packed_attention_temporal_mask", windows, n, c, True),
@@ -1449,21 +1520,26 @@ def main(argv=None) -> int:
         pa_fn = lambda: packed_multihead_attention(qa, ka, va, km_a, num_heads=heads)
         pa_plain = lambda: packed_attention_plain(qa, ka, va, km_a, num_heads=heads)
         got, ref = pa_fn(), pa_plain()
+        repeat_identical(name, [got], [pa_fn()])
         d_a = c_ // heads
         split = lambda t: t.reshape(f_, s_, heads, d_a).transpose(1, 2)
         add_mask = None if km_a is None else (km_a * -1e9)[:, None, None, :]
-        f64 = None
-        if s_ * c_ > 1536:  # the tensor-core kernel (attention.cuh); else a warp per frame
-            f64 = f64_check(torch, got, ref, packed_attention_plain(
-                qa.double(), ka.double(), va.double(), km_a, num_heads=heads))
+        f64 = f64_check(torch, got, ref, packed_attention_plain(
+            qa.double(), ka.double(), va.double(), km_a, num_heads=heads))
+        nbytes = (4 * qa.numel() + (0 if km_a is None else km_a.numel())) * F32
+        copies = [(qa, ka, va)] + [(qa.clone(), ka.clone(), va.clone())
+                                   for _ in range(l2_copies(nbytes) - 1)]
+        cold = [lambda x=x: packed_multihead_attention(*x, km_a, num_heads=heads)
+                for x in copies]
         record(name, "uplift_upsample_torch/csrc/attention.cu",
                "uplift_upsample_tpu/ops/pallas_attention.py:75", out_check(torch, got, ref),
                time_ms(torch, pa_fn, 10), time_ms(torch, pa_plain, 3),
-               4 * f_ * s_ * s_ * c_,
-               (4 * qa.numel() + (0 if km_a is None else km_a.numel())) * F32,
+               4 * f_ * s_ * s_ * c_, nbytes,
                library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
                    split(qa), split(ka), split(va), attn_mask=add_mask), 10),
-               counter="packed_attention", phase="eval_pallas", f64=f64)
+               counter="packed_attention", phase="eval_pallas", f64=f64,
+               extra={"graph_ms": graph_ms(torch, cold)})
+        del copies, cold
         del qa, ka, va, got, ref
     torch.cuda.empty_cache()
 

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""What bounds the hand-written tensor-core kernels on the card (csrc/).
+"""What bounds the hand-written kernels on the card (csrc/).
 
-    python3 kernel_probe.py [--seed 0] [--only dense,attn_bwd,k4,k1]
+    python3 kernel_probe.py [--seed 0] [--only dense,attn_bwd,k4,k1,short]
+                            [--parent DIR]
 
 Builds patched copies of `csrc/` under `uplift_upsample_torch/_build/probe/`
 (one nvcc per copy, all started together) and times each with CUDA events:
@@ -52,6 +53,23 @@ Builds patched copies of `csrc/` under `uplift_upsample_torch/_build/probe/`
   once" (block 0's weights only: the cost of restaging). 3 rounds of 20
   launches per variant, taken in turn; ptxas's registers and spills of
   both accumulations are printed first.
+
+- row 11's two short-sequence kernels (`attention.cu`) at their h36m_351
+  shapes, 8 heads: task_attention_kernel at the spatial blocks' 72,704
+  frames x 17 x 32 and lane_attention_kernel at strided block 3's 1,024
+  windows x 3 x 384, each beside SDPA: the kernel; "copies only" (every
+  load and store, no logits, softmax or weighted sum); "compute only" (no
+  loads from device memory: q, k and v made up in registers, no bulk
+  copies; the context still stored); "1 block per SM" and "3 blocks per
+  SM" (TASK_BLOCKS, the register cap of the 17 x 32 instance: 80 and 32
+  registers against 56); with `--parent DIR` also "parent",
+  `packed_attention_f32` built from DIR, a copy of an earlier `csrc/` (an
+  A/B against an earlier design). Times from CUDA graphs of 20 launches
+  (`chip_smoke.graph_ms`: the card's time without the host's per call), 3
+  rounds taken in turn, "cold" on copies of the inputs that stream 4x the
+  L2 between two reads of one copy and "warm" on one copy (at 1,024 x 3 x
+  384 it stays in L2); the kernel's and parent's back-to-back time with the
+  host in it; ptxas's registers and spills of every variant first.
 
 `--only` runs a subset: "dense" is the attention, GEMM, dW, conv and dH1
 groups.
@@ -168,8 +186,39 @@ K1 = {
     "staged once": [("spatial.cu", "      {  // stage this block's weights",
                      "      if (blk == 0) {  // stage this block's weights")],
 }
+# row 11's short kernels without their arithmetic, and without their loads
+_TASK_CALL = "      task_attend<D>(qc, kh, kh + gf, mk, s, c, o);\n"
+_LANE_CALL = "      lane_attend<NV, SMAX>(qr, kr, vr, mk, s, lph, scale2, o);\n"
+_ADD3 = "make_float4({a}.x + {b}.x + {c}.x, {a}.y + {b}.y + {c}.y, {a}.z + {b}.z + {c}.z, " \
+        "{a}.w + {b}.w + {c}.w)"
+_BULK = ("    mbar_expect_tx(bar, 2 * bytes);\n"
+         "    bulk_load(dst, k + (size_t)grp * gf, bytes, bar);\n"
+         "    bulk_load(dst + gf, v + (size_t)grp * gf, bytes, bar);\n")
+SHORT = {
+    "kernel": [],
+    "copies only": [
+        ("attention.cu", _TASK_CALL,
+         "      for (int u = 0; u < D / 4; ++u) o[u] = "
+         + _ADD3.format(a="qc[u]", b="(*reinterpret_cast<const float4*>(kh + 4 * u))",
+                        c="(*reinterpret_cast<const float4*>(kh + gf + 4 * u))") + ";\n"),
+        ("attention.cu", _LANE_CALL,
+         "      for (int u = 0; u < NV; ++u) {\n        o[u] = qr[u];\n"
+         "        for (int j = 0; j < SMAX; ++j)\n          if (j < s) o[u] = "
+         + _ADD3.format(a="o[u]", b="kr[j][u]", c="vr[j][u]") + ";\n      }\n")],
+    "compute only": [
+        ("attention.cu", "  return __ldg(reinterpret_cast<const float4*>(p));\n",
+         "  const float a = (float)((size_t)p % 4096) * 1e-4f;\n"
+         "  return make_float4(a, a, a, a);\n"),
+        ("attention.cu", _BULK,
+         '    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\\n" :: "r"(bar) : '
+         '"memory");\n')],
+    "3 blocks per SM": [("attention.cu", "constexpr int TASK_BLOCKS = 2;",
+                         "constexpr int TASK_BLOCKS = 3;")],
+    "1 block per SM": [("attention.cu", "constexpr int TASK_BLOCKS = 2;",
+                        "constexpr int TASK_BLOCKS = 1;")],
+}
 # the probes --only selects; "dense" is the attention, GEMM, dW and conv groups
-PROBES = ("dense", "attn_bwd", "k4", "k1")
+PROBES = ("dense", "attn_bwd", "k4", "k1", "short")
 DW = {
     "kernel": [],
     "products only": [("gemm_tc.cuh", _CP.format(t=t), "      if (m < 0) " + _CP.format(t=t)[6:])
@@ -181,13 +230,13 @@ DW = {
 }
 
 
-def start_build(cuda_lib, tag, source, reps):
-    """csrc/ copied to _build/probe/<tag>, `reps` applied, nvcc started on
-    <source>.cu with ptxas's report on stderr; returns (process, library
-    path)."""
+def start_build(cuda_lib, tag, source, reps, csrc=None):
+    """csrc/ (or `csrc`) copied to _build/probe/<tag>, `reps` applied, nvcc
+    started on <source>.cu with ptxas's report on stderr; returns (process,
+    library path)."""
     out = cuda_lib.BUILD_DIR / "probe" / tag.replace(" ", "_").replace(",", "")
     shutil.rmtree(out, ignore_errors=True)
-    shutil.copytree(cuda_lib.CSRC_DIR, out)
+    shutil.copytree(csrc or cuda_lib.CSRC_DIR, out)
     for fname, old, new in reps:
         path = out / fname
         text = path.read_text()
@@ -214,6 +263,9 @@ def main(argv=None) -> int:
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--only", default="",
                         help=f"a comma-separated subset of {','.join(PROBES)}")
+    parser.add_argument("--parent", default=None,
+                        help="a copy of an earlier csrc/: 'short' times its "
+                             "packed_attention_f32 beside the kernels")
     args = parser.parse_args(argv)
     import torch
     import torch.nn.functional as F
@@ -222,7 +274,7 @@ def main(argv=None) -> int:
         print("kernel_probe: no CUDA device; this run needs a card", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
-    from chip_smoke import card_line
+    from chip_smoke import card_line, ptxas_report
     from uplift_upsample_torch.ops import cuda_lib
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -235,18 +287,22 @@ def main(argv=None) -> int:
                                     ("gemm", "temporal", GEMM), ("dw", "temporal_bwd", DW),
                                     ("conv", "strided", CONV), ("dh1", "strided_bwd", DH1),
                                     ("attn_bwd", "temporal_bwd", ATTN_BWD),
-                                    ("k4", "spatial_bwd", K4), ("k1", "spatial", K1)):
+                                    ("k4", "spatial_bwd", K4), ("k1", "spatial", K1),
+                                    ("short", "attention", SHORT)):
         probe = group if group in PROBES else "dense"
         for name, reps in variants.items() if probe in only else ():
             builds[group, name] = start_build(cuda_lib, f"{group} {name}", source, reps)
+    if "short" in only and args.parent:
+        builds["short", "parent"] = start_build(cuda_lib, "short parent", "attention", [],
+                                                csrc=os.path.abspath(args.parent))
     for key, (proc, _) in builds.items():
         _, report = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"probe build {key} failed:\n{report}")
-        if key[0] == "k1" and key[1] in K1_AB:  # registers and spills of each accumulation
-            for line in report.splitlines():
-                if "Used" in line or "spill" in line:
-                    print(f"ptxas k1 {key[1]}: {line.strip()}", flush=True)
+        # registers and spills of each K1 accumulation and each short variant
+        if (key[0] == "k1" and key[1] in K1_AB) or key[0] == "short":
+            for kernel, line in ptxas_report(report):
+                print(f"ptxas {key[0]} {key[1]}, {kernel}: {line}", flush=True)
 
     dev = torch.device("cuda")
     stream = lambda: torch.cuda.current_stream().cuda_stream
@@ -262,6 +318,8 @@ def main(argv=None) -> int:
         probe_spatial_bwd(torch, builds, rand, args.seed, dev, stream)
     if "k1" in only:
         probe_spatial(torch, builds, rand, args.seed, dev, stream)
+    if "short" in only:
+        probe_short(torch, F, builds, rand, dev, stream)
     return 0
 
 
@@ -529,6 +587,67 @@ def probe_spatial(torch, builds, rand, seed, dev, stream):
             print(f"probe k1 {name}: {label}, {f} frames, C {c}, {blocks} blocks, scales "
                   f"{scaled}:{err} ms {min(times[name]):.4f} (rounds {rounds})", flush=True)
         del x, sc, ref, ref64, outs
+        torch.cuda.empty_cache()
+
+
+def probe_short(torch, F, builds, rand, dev, stream):
+    """Row 11's two short kernels at their h36m_351 shapes, 8 heads, beside
+    SDPA on the head-split view: each variant's card time from CUDA graphs
+    of 20 launches, 3 rounds taken in turn (the A/B against --parent
+    included), on copies of the inputs that keep them out of L2 (`cold`,
+    what the bytes bound assumes) and on one copy (`warm`: at 1,024 x 3 x
+    384 its 18.9 MB stay in L2); the kernel's and the parent's error against
+    the plain version and float64."""
+    from chip_smoke import graph_ms, l2_copies, time_ms
+    from uplift_upsample_torch.ops.packed_attention import packed_attention_plain
+
+    heads = 8
+    names = [name for name in (*SHORT, "parent") if ("short", name) in builds]
+    fns = {name: bind(builds["short", name][1], "packed_attention_f32", 5, 4)
+           for name in names}
+    for label, f, s, c in (("spatial", 72704, 17, 32), ("strided 3", 1024, 3, 384)):
+        sets = [tuple(rand(f, s, c, scale=1.0) for _ in range(3))
+                for _ in range(l2_copies(4 * 4 * f * s * c))]
+        q, k, v = sets[0]
+        ref = packed_attention_plain(q, k, v, None, num_heads=heads)
+        ref64 = packed_attention_plain(q.double(), k.double(), v.double(), None,
+                                       num_heads=heads)
+        err_plain = float((ref.double() - ref64).abs().max())
+        outs = {name: [torch.empty_like(q) for _ in sets] for name in names}
+        split = lambda t: t.reshape(f, s, heads, c // heads).transpose(1, 2)
+        calls = {"SDPA": [lambda x=x: F.scaled_dot_product_attention(*map(split, x))
+                          for x in sets]}
+        for name in names:
+            calls[name] = [lambda fn=fns[name], x=x, out=out: fn(
+                x[0].data_ptr(), x[1].data_ptr(), x[2].data_ptr(), None, out.data_ptr(), f, s,
+                c, heads, stream()) for x, out in zip(sets, outs[name])]
+            if calls[name][0]() != 0:
+                raise RuntimeError(f"short {name}: launch failed")
+        torch.cuda.synchronize()
+        cold = {name: [] for name in calls}
+        warm = {name: [] for name in calls}
+        for _ in range(3):
+            for name, call in calls.items():
+                cold[name].append(graph_ms(torch, call, 20))
+                warm[name].append(graph_ms(torch, call[0], 20))
+        for name in names:
+            err = ""
+            if name in ("kernel", "parent"):
+                got = outs[name][0]
+                again = torch.empty_like(q)
+                fns[name](q.data_ptr(), k.data_ptr(), v.data_ptr(), None, again.data_ptr(), f,
+                          s, c, heads, stream())
+                err = (f" max_abs_err {float((got - ref).abs().max()):.3e}, vs float64 "
+                       f"{float((got.double() - ref64).abs().max()):.3e} (plain "
+                       f"{err_plain:.3e}), repeat bit-identical "
+                       f"{'yes' if torch.equal(got, again) else 'NO'}, back-to-back with "
+                       f"the host {time_ms(torch, calls[name][0], 20):.4f} ms;")
+            rounds = ", ".join(f"{t:.4f}" for t in cold[name])
+            print(f"probe short {name}: {label} {f} x {s} x {c}, {heads} heads, "
+                  f"{len(sets)} input copies:{err} ms cold {min(cold[name]):.4f} (rounds "
+                  f"{rounds}), warm {min(warm[name]):.4f}; SDPA cold "
+                  f"{min(cold['SDPA']):.4f}, warm {min(warm['SDPA']):.4f}", flush=True)
+        del q, k, v, sets, ref, ref64, outs, calls
         torch.cuda.empty_cache()
 
 

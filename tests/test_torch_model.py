@@ -144,3 +144,25 @@ def test_h36m_351_param_count_and_init():
     again = build_uplift_upsample_transformer(get_config("h36m_351"), device="cpu",
                                               seed=0)
     assert torch.equal(again.temporal_pe, model.temporal_pe)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32", None])
+def test_spatial_compute_dtype_float32_only(dtype):
+    """SPATIAL_COMPUTE_DTYPE is read: the JAX package runs the spatial stage
+    in it (`spatial_dtype`); the port runs float32 only, so any other value
+    raises as COMPUTE_DTYPE's does instead of running float32 silently."""
+    from uplift_upsample_torch.config import UpliftUpsampleConfig
+    from uplift_upsample_torch.models import build_uplift_upsample_transformer
+
+    config = UpliftUpsampleConfig()
+    config.update_from({"SEQUENCE_LENGTH": 9, "SPATIAL_EMBED_DIM": 16,
+                        "TEMPORAL_EMBED_DIM": 32, "SPATIAL_TRANSFORMER_BLOCKS": 1,
+                        "TEMPORAL_TRANSFORMER_BLOCKS": 1, "STRIDES": [3, 3],
+                        "PADDINGS": [[0, 0], [0, 0]], "NUM_HEADS": 4,
+                        "DROP_PATH_RATE": 0.0, "SPATIAL_COMPUTE_DTYPE": dtype})
+    if dtype == "bfloat16":
+        with pytest.raises(ValueError, match="SPATIAL_COMPUTE_DTYPE"):
+            build_uplift_upsample_transformer(config, device="cpu", seed=0)
+    else:
+        model = build_uplift_upsample_transformer(config, device="cpu", seed=0)
+        assert next(model.parameters()).dtype == torch.float32

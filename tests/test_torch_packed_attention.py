@@ -5,10 +5,11 @@ package's Pallas kernel in interpret mode, as tests/test_pallas_attention.py
 runs it; the port's model with `use_pallas=True` against the JAX model with
 `use_pallas=True`; USE_PALLAS_ATTENTION reaching the op from the config.
 
-`gpu` tests: the CUDA kernel against its plain version on the card, at the
-h36m_351 shapes and at odd ones. They decide inside the test whether there
-is a card. JAX is imported inside the CPU tests only, so this file also runs
-where JAX is not installed (the card's machine).
+`gpu` tests: the CUDA kernels against their plain version and float64 on the
+card, at the h36m_351 shapes and at odd ones, and a second call bit for bit.
+They decide inside the test whether there is a card. JAX is imported inside
+the CPU tests only, so this file also runs where JAX is not installed (the
+card's machine).
 """
 
 import os
@@ -68,6 +69,7 @@ def _assert_fp32_level(got, ref, ref64):
 @pytest.mark.parametrize("s,depth,masked", [
     (17, 4, False), (17, 4, True), (23, 8, False), (23, 4, True),
     (71, 8, True), (71, 4, False), (128, 4, True), (71, 4, "blocked"),
+    (3, 48, False), (3, 48, True),  # strided block 3's 3 x 384 (h36m_351)
 ])
 def test_plain_matches_pallas_interpret(s, depth, masked):
     """packed_attention_plain against the interpret-mode Pallas kernel, 8
@@ -191,12 +193,29 @@ def _card():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("f,s,c,heads,masked", [
-    (1027, 17, 32, 8, False),   # spatial blocks, one warp per frame
+    (1027, 17, 32, 8, False),   # spatial blocks, a thread per (frame, query, head)
+    (1, 17, 32, 8, False),      # frame counts off the 4-frame group
+    (31, 17, 32, 8, False),
+    (33, 17, 32, 8, False),
+    (72704, 17, 32, 8, False),  # the serving call's spatial shape
+    (1027, 17, 32, 8, True),
+    (1027, 17, 32, 8, "blocked"),
     (33, 71, 384, 8, True),     # temporal block 1, one block per (window, head)
     (33, 71, 384, 8, False),
     (33, 23, 384, 8, False),    # strided block 2
     (65, 3, 384, 8, False),     # strided block 3, one warp per window
+    (65, 3, 384, 8, True),
+    (65, 3, 384, 8, "blocked"),
+    (1024, 3, 384, 8, False),   # the eval call's strided block 3
+    (31, 12, 128, 8, True),     # a warp per frame at C = 128 and 256 (16 heads)
+    (31, 6, 256, 16, "blocked"),
     (129, 9, 32, 4, True),      # head depth 8
+    (33, 41, 32, 8, True),      # more than 17 keys: the running max over chunks
+    (9, 71, 16, 4, "blocked"),
+    (17, 24, 64, 4, False),     # head depths 16, 32, 48 and 64 on the task kernel
+    (17, 24, 64, 2, True),
+    (5, 8, 96, 2, True),
+    (17, 24, 64, 1, True),
     (7, 128, 40, 8, True),      # head depth 5: the per-(sequence, head) kernel
     (9, 1, 384, 8, "blocked"),  # one real key among 8 padded ones
     (11, 72, 384, 8, True),
@@ -212,14 +231,16 @@ def test_packed_attention_kernel_matches_plain(f, s, c, heads, masked):
                      for t in _qkv_mask(rng, f, s, c, masked))
     cuda_lib.reset_launches()
     got = packed_multihead_attention(q, k, v, mask, num_heads=heads)
+    torch.cuda.synchronize()
+    assert cuda_lib.LAUNCHES["packed_attention"] == 1
     ref = packed_attention_plain(q, k, v, mask, num_heads=heads)
     ref64 = packed_attention_plain(q.double(), k.double(), v.double(), mask,
                                    num_heads=heads)
-    torch.cuda.synchronize()
-    assert cuda_lib.LAUNCHES["packed_attention"] == 1
     # fp32 sums over S <= 128 keys in another order: 2e-4 of the output scale
     assert float((got - ref).abs().max()) <= 2e-4 * max(1.0, float(ref.abs().max()))
     _assert_fp32_level(got, ref, ref64)
+    # every kernel sums in a fixed order, without atomics
+    assert torch.equal(packed_multihead_attention(q, k, v, mask, num_heads=heads), got)
 
 
 @pytest.mark.gpu

@@ -91,6 +91,21 @@ def test_test_step_full_matches_plain_model(tta_batched):
     assert float((plain - no_tta).abs().max()) > 1e-6  # TTA is not a no-op
 
 
+@pytest.mark.parametrize("precision", ["default", "high"])
+def test_predict_step_reads_eval_precision(precision):
+    """make_predict_step hands EVAL_MATMUL_PRECISION to make_test_step, as the
+    eval CLI does: the TPU's bf16 rung "default" raises, "high" builds."""
+    from uplift_upsample_torch.predict import make_predict_step
+
+    config = _flagship_small(EVAL_MATMUL_PRECISION=precision)
+    model = build_uplift_upsample_transformer(config, device="cpu", seed=0)
+    if precision == "default":
+        with pytest.raises(NotImplementedError, match="EVAL_MATMUL_PRECISION"):
+            make_predict_step(model, config)
+    else:
+        assert callable(make_predict_step(model, config))
+
+
 def _small_models():
     jax_config = pytest.importorskip("uplift_upsample_tpu.configs").resolve_config(
         SMALL_CONFIG)

@@ -36,6 +36,9 @@ def model_kwargs(config: UpliftUpsampleConfig) -> dict:
     dtype = getattr(config, "COMPUTE_DTYPE", "float32")
     if dtype != "float32":
         raise ValueError(f"COMPUTE_DTYPE {dtype!r}: the port runs float32 only")
+    spatial_dtype = getattr(config, "SPATIAL_COMPUTE_DTYPE", None)
+    if spatial_dtype not in (None, "float32"):
+        raise ValueError(f"SPATIAL_COMPUTE_DTYPE {spatial_dtype!r}: the port runs float32 only")
     return dict(
         full_output=not config.USE_REFINE,
         num_frames=config.SEQUENCE_LENGTH,

@@ -37,11 +37,12 @@ from .utils.weights_h5 import load_keras_h5
 def make_predict_step(model, config: UpliftUpsampleConfig, flip_tta: bool = True):
     """ONE step for all sequences of a run. On CUDA it takes the kernel path
     (K1-K3 + plain tail); on the CPU the plain model, as the JAX package does
-    off the TPU."""
+    off the TPU. EVAL_MATMUL_PRECISION is checked as the eval CLI checks it."""
     on_card = next(model.parameters()).device.type == "cuda"
     return make_test_step(
         model, flip_tta=flip_tta, flip_lr_indices=config.AUGM_FLIP_KEYPOINT_ORDER,
         fused="full" if on_card else "none",
+        precision=getattr(config, "EVAL_MATMUL_PRECISION", "high") or "high",
         tta_batched=bool(getattr(config, "EVAL_TTA_BATCHED", True)))
 
 
