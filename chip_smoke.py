@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port's serving, training, eval and training-CLI paths on one CUDA card.
+"""Smoke run of the PyTorch port's serving, training, eval, CLI and data-parallel paths on one card.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -83,7 +83,21 @@ Phases (one line each; any failure ends the run with a non-zero exit):
      only with spatial on); then the bench CLI (`python -m
      uplift_upsample_torch.bench --iters 8`) as a subprocess: the default
      eval invocation, --strided-sel and --train, each JSON line echoed;
-  8. one JSON line of per-kernel numbers, the card line again, and the last
+  8. data parallel (`parallel/mesh.py`), h36m_351 full width, the shipped
+     training config, each sub-phase with its wall time: (a) NCCL at world
+     size 1 in this process, TRAIN_FUSED_STRIDED on: 3 dp steps against 3
+     1-process steps from the same seed (loss rtol 1e-5, params and EMA atol
+     2e-4), beside the gap between two 1-process runs; (b) two gloo ranks
+     spawned on the one card, local batch 256: 3 steps against the
+     1-process step on the same global batches (loss rtol 2e-5, params and
+     EMA atol 2e-4), the ranks bit-identical, each rank launching K1, K4 and
+     K5; (c) in the same ranks, run_eval at MASK_STRIDE 10 on a synthetic
+     S9/S11 pair, every metric within 0.1 mm of the 1-process run; (d) the
+     training CLI under torchrun (`python -m torch.distributed.run
+     --standalone --nproc-per-node 1 -m uplift_upsample_torch.train`, NCCL):
+     one epoch of phase 6's size, exit 0, one checkpoint. The card has no
+     second H100: the speed on many cards is not measured here;
+  9. one JSON line of per-kernel numbers, the card line again, and the last
      line `{"ok": true, "device": {...}}`.
 
 It needs a CUDA card and the repository checkout around it; without either it
@@ -109,6 +123,7 @@ SEQUENCES, FRAMES = 3, 3000  # synthetic 2D sequences of the predict phase
 TRAIN_SEQUENCES = 8          # synthetic 3D+2D sequences of the train phase
 WARMUP_STEPS, TIMED_STEPS, CURVE_STEPS = 2, 8, 5
 CLI_EPOCHS, CLI_STEPS, CLI_VAL = 2, 8, 2048  # the training CLI phase
+DP_STEPS, DP_RANKS = 3, 2    # the data-parallel phase: steps per run, gloo ranks on the card
 AMASS_STEPS, AMASS_VAL = 4, 1024
 
 # H100 SXM peaks (NVIDIA data sheet): fp32 on CUDA cores, dense TF32 on the
@@ -311,6 +326,37 @@ def profile_step(torch, run, top: int = 12, label: str = "phase 4 profile: one s
             f"{name[:70]} {us / 1e3:.3f} ms x{n}" for name, (us, n) in rows[:top]))
 
 
+def train_sequences(np, rng, p: int):
+    """TRAIN_SEQUENCES synthetic (3D, 2D) sequences of FRAMES frames:
+    random-walk poses 5 m in front of the camera. Returns (p3d, p2d)."""
+    p3d, p2d = [], []
+    for _ in range(TRAIN_SEQUENCES):
+        root = np.cumsum(rng.normal(size=(FRAMES, 1, 3)) * 0.005, axis=0) + [0.0, 0.0, 5.0]
+        joints = (root + rng.normal(size=(1, p, 3)) * 0.25
+                  + np.cumsum(rng.normal(size=(FRAMES, p, 3)) * 0.002, axis=0))
+        p3d.append(joints.astype(np.float32))
+        p2d.append((joints[..., :2] / joints[..., 2:]).astype(np.float32))
+    return p3d, p2d
+
+
+def train_generator(np, config, p3d, p2d):
+    """The train-mode H36mSequenceGenerator over synthetic sequences."""
+    from uplift_upsample_torch.data.generator import H36mSequenceGenerator
+
+    count = len(p3d)
+    return H36mSequenceGenerator(
+        p3d, p2d, camera_params=[np.zeros(11, np.float32)] * count,
+        subjects=list(range(count)), actions=[0] * count,
+        frame_rates=[50] * count, split="train",
+        seq_len=config.SEQUENCE_LENGTH, target_frame_rate=50,
+        subsample=config.DATASET_TRAIN_3D_SUBSAMPLE_STEP, stride=config.SEQUENCE_STRIDE,
+        padding_type=config.PADDING_TYPE, flip_augment=config.AUGM_FLIP_PROB > 0,
+        in_batch_augment=config.IN_BATCH_AUGMENT,
+        flip_lr_indices=config.AUGM_FLIP_KEYPOINT_ORDER, mask_stride=config.MASK_STRIDE,
+        stride_mask_align_global=False, rand_shift_stride_mask=config.STRIDE_MASK_RAND_SHIFT,
+        shuffle=True, seed=config.SHUFFLE_SEED, verbose=False)
+
+
 def train_phase(args, torch, np, rng, config, failed, label="phase 4"):
     """Phase 4: make_train_step on synthetic H36M-shaped sequences through the
     train-mode generator and batcher; returns the launch counts of the timed
@@ -318,7 +364,6 @@ def train_phase(args, torch, np, rng, config, failed, label="phase 4"):
     strided block 1 runs through K6; then neither the profile nor the loss
     curve is repeated."""
     from uplift_upsample_torch.data.fast_batcher import FastH36mBatcher
-    from uplift_upsample_torch.data.generator import H36mSequenceGenerator
     from uplift_upsample_torch.models import build_uplift_upsample_transformer
     from uplift_upsample_torch.ops import cuda_lib
     from uplift_upsample_torch.ops.strided import DENSE as STRIDED_DENSE
@@ -330,28 +375,11 @@ def train_phase(args, torch, np, rng, config, failed, label="phase 4"):
                                                            set_droppath_generator,
                                                            step_generator)
 
-    p, b = config.NUM_KEYPOINTS, config.BATCH_SIZE
-    p3d, p2d = [], []
-    for _ in range(TRAIN_SEQUENCES):  # random-walk poses 5 m in front of the camera
-        root = np.cumsum(rng.normal(size=(FRAMES, 1, 3)) * 0.005, axis=0) + [0.0, 0.0, 5.0]
-        joints = (root + rng.normal(size=(1, p, 3)) * 0.25
-                  + np.cumsum(rng.normal(size=(FRAMES, p, 3)) * 0.002, axis=0))
-        p3d.append(joints.astype(np.float32))
-        p2d.append((joints[..., :2] / joints[..., 2:]).astype(np.float32))
+    b = config.BATCH_SIZE
+    seqs = train_sequences(np, rng, config.NUM_KEYPOINTS)
 
     def batches():
-        gen = H36mSequenceGenerator(
-            p3d, p2d, camera_params=[np.zeros(11, np.float32)] * TRAIN_SEQUENCES,
-            subjects=list(range(TRAIN_SEQUENCES)), actions=[0] * TRAIN_SEQUENCES,
-            frame_rates=[50] * TRAIN_SEQUENCES, split="train",
-            seq_len=config.SEQUENCE_LENGTH, target_frame_rate=50,
-            subsample=config.DATASET_TRAIN_3D_SUBSAMPLE_STEP, stride=config.SEQUENCE_STRIDE,
-            padding_type=config.PADDING_TYPE, flip_augment=config.AUGM_FLIP_PROB > 0,
-            in_batch_augment=config.IN_BATCH_AUGMENT,
-            flip_lr_indices=config.AUGM_FLIP_KEYPOINT_ORDER, mask_stride=config.MASK_STRIDE,
-            stride_mask_align_global=False, rand_shift_stride_mask=config.STRIDE_MASK_RAND_SHIFT,
-            shuffle=True, seed=config.SHUFFLE_SEED, verbose=False)
-        return FastH36mBatcher(gen, batch_size=b).batches()
+        return FastH36mBatcher(train_generator(np, config, *seqs), batch_size=b).batches()
 
     def fresh(kernels):
         model = build_uplift_upsample_transformer(config, device="cuda", seed=args.seed)
@@ -574,6 +602,14 @@ def shared_call_ms(torch, np, rng, config, model) -> None:
         f"on the card (CUDA events)")
 
 
+def eval_metrics(result):
+    """Every number run_eval reports: frame and action-wise averages, all
+    frames and keyframes."""
+    return {f"{sec}/{kind}/{m}": float(v)
+            for sec, part in zip(("all", "kf"), result)
+            for kind, d in zip(("frame", "aw"), part[:2]) for m, v in d.items()}
+
+
 def eval_phase(args, torch, np, rng, failed):
     """Phase 5: the eval CLI's run_eval_multi_mask_stride on synthetic H3.6M
     data with seeded full-width weights, then three runs at MASK_STRIDE 10
@@ -609,13 +645,6 @@ def eval_phase(args, torch, np, rng, failed):
         runs.append(dict(stride=cfg.MASK_STRIDE, wall=wall, counts=dict(cuda_lib.LAUNCHES),
                          lines=lines, result=result))
         return result
-
-    def metrics_of(result):
-        """Every reported number: frame and action-wise averages, all frames
-        and keyframes."""
-        return {f"{sec}/{kind}/{m}": float(v)
-                for sec, part in zip(("all", "kf"), result)
-                for kind, d in zip(("frame", "aw"), part[:2]) for m, v in d.items()}
 
     with tempfile.TemporaryDirectory() as tmp:
         p3, p2, lengths = write_h36m_npz(np, rng, tmp)
@@ -654,7 +683,7 @@ def eval_phase(args, torch, np, rng, failed):
 
     keys = ("spatial_stack", "temporal_stack", "strided_block1", "packed_attention")
     for r in default:
-        mets = metrics_of(r["result"])
+        mets = eval_metrics(r["result"])
         ok = all(np.isfinite(v) for v in mets.values())
         if not ok:
             failed.append(f"eval_metrics_not_finite_{r['stride']}")
@@ -670,11 +699,11 @@ def eval_phase(args, torch, np, rng, failed):
             f"launches {dict((k, r['counts'].get(k, 0)) for k in keys)}")
         for line in r["lines"]:
             log(f"  {line}")
-    ref = metrics_of(runs[-1]["result"])  # (c): the plain model
+    ref = eval_metrics(runs[-1]["result"])  # (c): the plain model
     compared = [("default", next(r for r in default if r["stride"] == 10))] + [
         (f"({r['label']})", r) for r in runs[len(default):-1]]
     for label, r in compared:
-        mets = metrics_of(r["result"])
+        mets = eval_metrics(r["result"])
         gap = max(abs(mets[k] - ref[k]) for k in ref)
         ok = gap <= 0.1 and all(np.isfinite(v) for v in mets.values())
         log(f"phase 5 eval {label} at MASK_STRIDE 10 against (c) the plain model: largest "
@@ -1148,6 +1177,254 @@ def bench_cli_phase(failed) -> None:
         if not ok:
             log("\n".join(proc.stderr.splitlines()[-30:]))
             failed.append(f"bench_{label}")
+
+
+# ---- phase 8: data parallel -------------------------------------------------
+
+def dp_train_steps(torch, np, config, seqs, seed, dp=None):
+    """DP_STEPS train steps from the seeded weights over the train-mode batches
+    of `seqs`: the 1-process step, or with `dp` this rank's rows of each
+    batch. Returns (losses, params, EMA on the host, the launch counts of the
+    steps)."""
+    from uplift_upsample_torch.data.fast_batcher import FastH36mBatcher
+    from uplift_upsample_torch.data.multihost import HostShardedBatcher
+    from uplift_upsample_torch.models import build_uplift_upsample_transformer
+    from uplift_upsample_torch.ops import cuda_lib
+    from uplift_upsample_torch.parallel import make_optimizer, make_train_step
+
+    device = "cuda" if dp is None else dp.device
+    model = build_uplift_upsample_transformer(config, device=device, seed=seed)
+    opt, _, _ = make_optimizer(config)
+    state = opt.init(model, ema=True)
+    step = make_train_step(model, opt, config, device=device, dp=dp)
+    batcher = FastH36mBatcher(train_generator(np, config, *seqs), config.BATCH_SIZE)
+    feed = (batcher if dp is None else HostShardedBatcher(batcher, dp.rank, dp.world)).batches()
+    torch.cuda.synchronize()
+    cuda_lib.reset_launches()
+    losses = [float(step(state, next(feed))[1]) for _ in range(DP_STEPS)]
+    return (losses, {k: v.detach().cpu() for k, v in model.state_dict().items()},
+            {k: v.cpu() for k, v in state.ema.items()}, dict(cuda_lib.LAUNCHES))
+
+
+def dp_gaps(torch, got, ref):
+    """(largest relative loss gap, largest params gap, largest EMA gap)."""
+    loss = max(abs(a - b) / abs(b) for a, b in zip(got[0], ref[0]))
+    return (loss,) + tuple(max(float((x[k] - y[k]).abs().max()) for k in y)
+                           for x, y in zip(got[1:3], ref[1:3]))
+
+
+def dp_rank(rank, world, store, seqs, eval_data, seed, out_dir):
+    """Phase 8 (b) and (c) as rank `rank` of `world` gloo ranks on the one
+    card: DP_STEPS train steps of the shipped config on this rank's rows,
+    then run_eval at MASK_STRIDE 10 with the windows split over the ranks.
+    Saves what it computed to out_dir/rank<r>.pt."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
+                      LOCAL_WORLD_SIZE=str(world))
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))  # the ranks share the host
+    from uplift_upsample_torch.configs import get_config
+    from uplift_upsample_torch.eval import run_eval
+    from uplift_upsample_torch.models import build_uplift_upsample_transformer
+    from uplift_upsample_torch.parallel.mesh import init_data_parallel
+
+    dp = init_data_parallel("cuda", backend="gloo", init_method=store)
+    t0 = time.perf_counter()
+    train = dp_train_steps(torch, np, get_config("h36m_351"), seqs, seed, dp)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    config = get_config("h36m_351")
+    config.MASK_STRIDE = 10
+    model = build_uplift_upsample_transformer(config, device=dp.device, seed=seed)
+    with contextlib.redirect_stdout(io.StringIO()):
+        result = run_eval(config, model=model, dp=dp, **eval_data)
+    torch.save(dict(train=train, eval=eval_metrics(result), train_s=t1 - t0,
+                    eval_s=time.perf_counter() - t1),
+               os.path.join(out_dir, f"rank{rank}.pt"))
+    dp.close()
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def dp_phase(args, torch, np, rng, failed):
+    """Phase 8: the data-parallel step, eval and training CLI at h36m_351 full
+    width on the one card: (a) NCCL at world size 1 in this process against
+    the 1-process step, TRAIN_FUSED_STRIDED on (K6); (b) and (c) DP_RANKS gloo
+    ranks spawned on the card, the shipped config's steps and run_eval at
+    MASK_STRIDE 10 against the 1-process ones; (d) the training CLI under
+    torchrun, one rank (NCCL). Each sub-phase's wall time is logged."""
+    import contextlib
+    import io
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    from uplift_upsample_torch.configs import get_config
+    from uplift_upsample_torch.eval import run_eval
+    from uplift_upsample_torch.models import build_uplift_upsample_transformer
+    from uplift_upsample_torch.parallel.mesh import init_data_parallel
+
+    log(f"phase 8 card: {card_line()}")
+    # every rank of this phase runs on this host
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    seqs = train_sequences(np, rng, 17)
+    config = get_config("h36m_351")  # B=512, mask strides [5, 10, 20], droppath, AdamW, EMA
+    b = config.BATCH_SIZE
+
+    # (a) NCCL at world size 1, in this process
+    t0 = time.perf_counter()
+    kconfig = config.copy()
+    kconfig.TRAIN_FUSED_STRIDED = True
+    ref = dp_train_steps(torch, np, kconfig, seqs, args.seed)
+    again = dp_train_steps(torch, np, kconfig, seqs, args.seed)
+    env = dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", LOCAL_WORLD_SIZE="1",
+               MASTER_ADDR="localhost", MASTER_PORT=str(free_port()))
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        dp = init_data_parallel("cuda")
+        got = dp_train_steps(torch, np, kconfig, seqs, args.seed, dp)
+        dp.close()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    gap, noise = dp_gaps(torch, got, ref), dp_gaps(torch, again, ref)
+    ok = gap[0] <= 1e-5 and max(gap[1:]) <= 2e-4 and got[3].get("strided_train_fwd", 0) > 0
+    log(f"phase 8 (a) NCCL world 1: h36m_351 B={b}, TRAIN_FUSED_STRIDED on (K6), {DP_STEPS} "
+        f"steps from seed {args.seed}: losses {got[0]} against the 1-process {ref[0]}; largest "
+        f"gap loss {gap[0]:.2e} (rtol 1e-5), params {gap[1]:.2e}, EMA {gap[2]:.2e} (atol "
+        f"2e-4); two 1-process runs: loss {noise[0]:.2e}, params {noise[1]:.2e}, EMA "
+        f"{noise[2]:.2e}; K6 calls {got[3].get('strided_train_fwd', 0)}; "
+        f"{'ok' if ok else 'FAILED'}; wall {time.perf_counter() - t0:.1f} s")
+    if not ok:
+        failed.append("dp_nccl_world1")
+    del ref, again, got
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # (b) and (c): DP_RANKS gloo ranks on the card against one process
+        t0 = time.perf_counter()
+        p3, p2, lengths = write_h36m_npz(np, rng, tmp)
+        eval_data = dict(dataset_name="h36m", dataset_path=p3, dataset2d_path=p2,
+                         test_subset="test", action_wise=False, verbose=False)
+        ref = dp_train_steps(torch, np, config, seqs, args.seed)
+        econfig = config.copy()
+        econfig.MASK_STRIDE = 10
+        model = build_uplift_upsample_transformer(econfig, device="cuda", seed=args.seed)
+        t1 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            ref_eval = eval_metrics(run_eval(econfig, model=model, **eval_data))
+        ref_eval_s = time.perf_counter() - t1
+        del model
+        torch.cuda.empty_cache()
+        out = os.path.join(tmp, "ranks")
+        os.makedirs(out)
+        t1 = time.perf_counter()
+        ctx = mp.start_processes(dp_rank, nprocs=DP_RANKS, join=False, start_method="spawn",
+                                 args=(DP_RANKS, f"file://{tmp}/store", seqs, eval_data,
+                                       args.seed, out))
+        try:
+            while not ctx.join(timeout=5.0):
+                if time.perf_counter() - t1 > 240:
+                    raise TimeoutError(f"{DP_RANKS} ranks still running after 240 s")
+            ranks = [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
+                     for r in range(DP_RANKS)]
+        except Exception as e:  # the phase fails; no rank's result is used
+            log(f"phase 8 (b)/(c): the {DP_RANKS} ranks FAILED: {type(e).__name__}: {e}")
+            failed.append("dp_gloo_ranks")
+            ranks = None
+        finally:
+            for proc in ctx.processes:
+                if proc.is_alive():
+                    proc.kill()
+                    proc.join(10)
+        spawn_s = time.perf_counter() - t1
+        if ranks is not None:
+            gap = dp_gaps(torch, ranks[0]["train"], ref)
+            same = all(_same(torch, ranks[0]["train"][i], r["train"][i])
+                       for r in ranks[1:] for i in range(3))
+            keys = ("spatial_stack", "spatial_bwd", "temporal_train_fwd", "temporal_train_bwd")
+            launched = all(r["train"][3].get(k, 0) > 0 for r in ranks for k in keys)
+            ok = gap[0] <= 2e-5 and max(gap[1:]) <= 2e-4 and same and launched
+            log(f"phase 8 (b) gloo world {DP_RANKS} on one card: local batch {b // DP_RANKS}, "
+                f"{DP_STEPS} steps: losses {ranks[0]['train'][0]} against the 1-process "
+                f"{ref[0]}; largest gap loss {gap[0]:.2e} (rtol 2e-5), params {gap[1]:.2e}, "
+                f"EMA {gap[2]:.2e} (atol 2e-4); ranks' losses, params and EMA bit-identical: "
+                f"{'yes' if same else 'NO'}; launches per rank "
+                + "; ".join(str({k: r['train'][3].get(k, 0) for k in keys}) for r in ranks)
+                + f"; {'ok' if ok else 'FAILED'}; rank wall "
+                + ", ".join(f"{r['train_s']:.1f}" for r in ranks) + " s")
+            if not ok:
+                failed.append("dp_gloo_train")
+            egap = max(abs(ranks[0]["eval"][k] - ref_eval[k]) for k in ref_eval)
+            agree = all(r["eval"] == ranks[0]["eval"] for r in ranks[1:])
+            finite = all(np.isfinite(v) for v in ranks[0]["eval"].values())
+            ok = egap <= 0.1 and agree and finite
+            frame = {k.split("/")[-1]: round(v, 3) for k, v in ranks[0]["eval"].items()
+                     if k.startswith("all/frame/")}
+            log(f"phase 8 (c) run_eval over {DP_RANKS} gloo ranks on one card, MASK_STRIDE 10, "
+                f"{4 * sum(lengths)} eval samples: {frame} mm; largest gap over "
+                f"{len(ref_eval)} metrics to the 1-process run {egap:.3e} mm (bar 0.1); ranks "
+                f"agree: {'yes' if agree else 'NO'}; {'ok' if ok else 'FAILED'}; rank wall "
+                + ", ".join(f"{r['eval_s']:.1f}" for r in ranks)
+                + f" s, 1-process {ref_eval_s:.1f} s")
+            if not ok:
+                failed.append("dp_gloo_eval")
+        log(f"phase 8 (b)+(c) wall {time.perf_counter() - t0:.1f} s (the ranks' spawn to "
+            f"exit {spawn_s:.1f} s)")
+        del ref
+        torch.cuda.empty_cache()
+
+        # (d) the training CLI under torchrun, one rank (NCCL)
+        t0 = time.perf_counter()
+        p3, p2, _ = write_h36m_npz(np, rng, tmp, subjects=("S1", "S5", "S6", "S7", "S8"))
+        cconfig = config.copy()
+        cconfig.update_from(dict(TRAIN_FUSED_STRIDED=True, EPOCHS=1, STEPS_PER_EPOCH=CLI_STEPS,
+                                 VALIDATION_EXAMPLES=CLI_VAL, CHECKPOINT_INTERVAL=1,
+                                 VALIDATION_INTERVAL=1, SHUFFLE_SEED=args.seed))
+        cfg_path, run_dir = os.path.join(tmp, "dp_cli.json"), os.path.join(tmp, "cli")
+        cconfig.dump(cfg_path)
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc-per-node", "1", "-m", "uplift_upsample_torch.train",
+               "--config", cfg_path, "--out_dir", run_dir, "--h36m_path", p3,
+               "--dataset_2d_path", p2, "--export_h5", "false"]
+        env = {k: v for k, v in os.environ.items()
+               if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE",
+                            "MASTER_ADDR", "MASTER_PORT")}
+        proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True, start_new_session=True)
+        try:
+            text, _ = proc.communicate(timeout=240)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, 9)
+            text, _ = proc.communicate()
+        lines = text.splitlines()
+        ckpts = sorted(os.listdir(os.path.join(run_dir, "checkpoints"))) \
+            if os.path.isdir(os.path.join(run_dir, "checkpoints")) else []
+        dp_line = next((ln for ln in lines if ln.startswith("Data-parallel training")), "")
+        epoch = next((ln for ln in lines if ln.startswith("Finished epoch 1")), "")
+        val = next((ln for ln in lines if ln.startswith("Finished validation")), "")
+        ok = proc.returncode == 0 and ckpts == ["ckpt_0001.pt"] and "(nccl)" in dp_line
+        log(f"phase 8 (d) torchrun --nproc-per-node 1 -m uplift_upsample_torch.train: exit "
+            f"{proc.returncode}, checkpoints {ckpts}; {dp_line}; {epoch}; {val}; "
+            f"{'ok' if ok else 'FAILED'}; wall {time.perf_counter() - t0:.1f} s")
+        if not ok:
+            log("\n".join(lines[-40:]))
+            failed.append("dp_torchrun_cli")
 
 
 def main(argv=None) -> int:
@@ -1948,14 +2225,18 @@ def main(argv=None) -> int:
         lambda *a, **kw: record(*a, stage="phase 7", **kw), alias)
     train_flags_check(args, torch, np, failed)
     bench_cli_phase(failed)
+
+    # ---- phase 8: data parallel ----------------------------------------------
+    starts.append(("8", time.perf_counter()))
+    dp_phase(args, torch, np, rng, failed)
     counts_by_phase = {"predict": counts, "train": train_counts, "eval": eval_counts,
                        "eval_pallas": pallas_counts, "train_cli": cli_counts,
                        **route_counts}
     for r in results.values():
         r["launches"] = counts_by_phase[r.pop("phase")].get(r.pop("counter"), 0)
 
-    # ---- phase 8: report -----------------------------------------------------
-    starts.append(("8", time.perf_counter()))
+    # ---- phase 9: report -----------------------------------------------------
+    starts.append(("9", time.perf_counter()))
     log("phase wall times: " + ", ".join(
         f"{name} {t1 - t0_:.1f} s" for (name, t0_), (_, t1) in zip(starts, starts[1:])))
     if failed:

@@ -18,7 +18,7 @@ then take the feed's plan tuples instead of batches.
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -108,9 +108,12 @@ class _DeviceFeed:
                 plan["centers"][sl].astype(np.int64),
                 plan["stride_mask"][sl].astype(bool))
 
-    def plan_batches(self):
-        """Infinite per-row plan tuples (numpy), one per batch."""
-        return _batches_with_carry(self.b._epoch_plan, self._plan_slice, self.batch_size)
+    def plan_batches(self, rows: Optional[slice] = None):
+        """Infinite per-row plan tuples (numpy), one per batch; `rows` keeps
+        that row range of every batch (one rank's shard: every rank holds
+        the whole store and plans every batch, as `fast_batcher.py` does)."""
+        return _batches_with_carry(self.b._epoch_plan, self._plan_slice, self.batch_size,
+                                   rows)
 
     def materialize(self, plan):
         """A plan tuple (numpy or tensors) → the host batcher's batch tuple,

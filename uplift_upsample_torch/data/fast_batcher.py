@@ -112,9 +112,18 @@ def _epoch_plan(windower, locs, seq_lengths):
                 stride_mask=stride_mask)
 
 
-def _batches_with_carry(epoch_plan_fn, gather_slice_fn, batch_size: int):
+def _batches_with_carry(epoch_plan_fn, gather_slice_fn, batch_size: int,
+                        rows: Optional[slice] = None):
     """Infinite batch stream over chained epochs, tf.data repeat→batch style:
-    batches straddle epoch boundaries, no item is ever dropped."""
+    batches straddle epoch boundaries, no item is ever dropped.
+
+    `rows`: optional [start, stop) row range of each *global* batch to
+    materialize, one rank's shard of a data-parallel feed. All RNG is spent
+    at epoch-plan time, so skipping rows at gather time cannot desync the
+    streams: rank r's output is exactly `global_batch[rows]`.
+    """
+    row_start = 0 if rows is None else rows.start
+    row_stop = batch_size if rows is None else rows.stop
     pieces = []
     have = 0
     while True:
@@ -123,7 +132,11 @@ def _batches_with_carry(epoch_plan_fn, gather_slice_fn, batch_size: int):
         pos = 0
         while pos < m:
             take = min(batch_size - have, m - pos)
-            pieces.append(gather_slice_fn(plan, slice(pos, pos + take)))
+            # this plan slice's batch rows [have, have + take) within `rows`
+            lo = max(have, row_start)
+            hi = min(have + take, row_stop)
+            if hi > lo:
+                pieces.append(gather_slice_fn(plan, slice(pos + lo - have, pos + hi - have)))
             have += take
             pos += take
             if have == batch_size:
@@ -202,9 +215,10 @@ class FastH36mBatcher:
                 self.subjects[plan["s_i"][sl]], self.actions[plan["s_i"][sl]],
                 plan["centers"][sl].astype(np.int64), plan["stride_mask"][sl])
 
-    def batches(self) -> Iterator[tuple]:
+    def batches(self, rows: Optional[slice] = None) -> Iterator[tuple]:
+        """The batch stream; `rows` keeps that row range of every batch."""
         return _batches_with_carry(self._epoch_plan, self._gather_slice,
-                                   self.batch_size)
+                                   self.batch_size, rows)
 
 
 class FastAMASSBatcher:
@@ -262,6 +276,7 @@ class FastAMASSBatcher:
                 plan["valid"][sl].astype(np.float32), zeros, zeros,
                 plan["centers"][sl].astype(np.int64), plan["stride_mask"][sl])
 
-    def batches(self) -> Iterator[tuple]:
+    def batches(self, rows: Optional[slice] = None) -> Iterator[tuple]:
+        """The batch stream; `rows` keeps that row range of every batch."""
         return _batches_with_carry(self._epoch_plan, self._gather_slice,
-                                   self.batch_size)
+                                   self.batch_size, rows)

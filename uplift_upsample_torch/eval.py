@@ -16,12 +16,19 @@ On the card (the default) the step runs the kernel path: K1 on the unique
 frames, the s2t Dense, K2, K3 and the plain tail (with `--pallas`, the tail's
 attention through row 11). `--device cpu` runs the plain model. Loading `.h5`
 weights needs h5py.
+
+Data parallel, one process per card (rank 0 prints the results):
+    torchrun --nproc-per-node N -m uplift_upsample_torch.eval ...
+Every rank runs the same host-side protocol; the windows of each padded
+batch split over the ranks, and the predictions are gathered back before
+the float64 metrics, which every rank computes alike.
 """
 
 from __future__ import annotations
 
 import itertools
 import math
+import os
 import sys
 import time
 
@@ -33,7 +40,10 @@ from .data import h36m_splits
 from .data.fast_batcher import FastH36mBatcher
 from .data.generator import H36mSequenceGenerator
 from .data.loading import filter_and_subsample_dataset, load_dataset_and_2d_poses
+from .data.multihost import gather_rows, host_row_slice
 from .models import build_uplift_upsample_transformer
+from .parallel.mesh import (broadcast_params_, check_data_parallel_devices,
+                            init_data_parallel, launch_world, rank0_stdout)
 from .utils.dedup import dedup_rows
 from .utils.eval_protocol import compute_and_log_metrics, interpolate_between_keyframes
 from .utils.time_format import format_time
@@ -77,7 +87,8 @@ def check_precision(precision: str) -> None:
 def make_test_step(model, flip_tta: bool, flip_lr_indices, fused: str = "none",
                    precision: str = "high", max_keyframes: int = None,
                    assume_dense_mask: bool = False, shared_spatial: bool = False,
-                   tta_batched: bool = True, temporal_wpt=None, strided_sel: bool = False):
+                   tta_batched: bool = True, temporal_wpt=None, strided_sel: bool = False,
+                   dp=None):
     """Forward step with optional flip-TTA.
 
     `fused` selects the compute path:
@@ -104,6 +115,11 @@ def make_test_step(model, flip_tta: bool, flip_lr_indices, fused: str = "none",
     Returns fn(keypoints2d (B,N,K,2) unmasked, stride_mask (B,N) bool) — or
     the shared signature above — → (pred_sequence (B,N,K,3) | None,
     pred_central (B,K,3)).
+
+    `dp` (a `parallel.mesh.DataParallel`): the step still takes and returns
+    the global batch, but each rank runs its rows of the windows (the unique
+    frames, replicated, whole) and the outputs are gathered in rank order.
+    B must divide over the ranks.
     """
     check_precision(precision)
     device = next(model.parameters()).device
@@ -212,7 +228,17 @@ def make_test_step(model, flip_tta: bool, flip_lr_indices, fused: str = "none",
             return average(pred, forward(flip_in(unique2d), win_idx, stride_mask))
         return pred
 
-    return step_shared if shared_spatial else step
+    inner = step_shared if shared_spatial else step
+    if dp is None:
+        return inner
+
+    def dp_step(*args):
+        rows = host_row_slice(args[-1].shape[0], dp.rank, dp.world)
+        shared = args[:1] if shared_spatial else ()  # the unique frames, whole
+        seq, central = inner(*shared, *(a[rows] for a in args[len(shared):]))
+        return (None if seq is None else gather_rows(dp, seq)), gather_rows(dp, central)
+
+    return dp_step
 
 
 def sparse_rows_to_compute(frame_indices, kf_stride, state):
@@ -312,24 +338,31 @@ def _packed_upload(shared_step, u_max: int, batch: int, n: int, k: int, device):
 
 def run_eval(config: UpliftUpsampleConfig, dataset_name, dataset_path, dataset2d_path,
              test_subset, weights_path=None, model=None, action_wise=True,
-             verbose=True, device="cuda"):
+             verbose=True, device="cuda", dp=None):
     """Run H3.6M evaluation; returns (all-frames results, keyframes results or None),
     each as (frame_results, average_results, per_action_results).
 
     The model is built on `device` (the card unless the caller asks for the
     CPU) from the config and `weights_path`, or passed in as `model` (its
     weights are used, or replaced by `weights_path` when that is given).
+    With `dp` (a `parallel.mesh.DataParallel`) the model is built on the
+    rank's device and rank 0's weights are broadcast; every rank returns the
+    same results. DATA_PARALLEL_DEVICES must be -1 or the world size.
     """
     assert dataset_name == "h36m", "Invalid dataset"
     assert not (weights_path is None and model is None)
+    check_data_parallel_devices(config, 1 if dp is None else dp.world, "eval")
 
     if model is None:
-        model = build_uplift_upsample_transformer(config, device=device)
+        model = build_uplift_upsample_transformer(
+            config, device=device if dp is None else dp.device)
     if weights_path is not None:
         log(f"Loading weights from {weights_path}")
         load_keras_h5(weights_path, model)
     model.eval()
     dev = next(model.parameters()).device
+    if dp is not None:
+        broadcast_params_(dp, list(model.parameters()))
 
     generator = build_eval_generator(config, dataset_path, dataset2d_path,
                                      test_subset, verbose=verbose)
@@ -383,19 +416,19 @@ def run_eval(config: UpliftUpsampleConfig, dataset_name, dataset_path, dataset2d
             f"{resolve_temporal_wpt(eval_wpt, config.SEQUENCE_LENGTH)} (a TPU tiling; "
             f"the port's kernels do not use it)")
 
-    n_devices = torch.cuda.device_count() if dev.type == "cuda" else 1
-    dp = getattr(config, "DATA_PARALLEL_DEVICES", -1)
-    dp = n_devices if dp in (-1, None) else dp
-    if dp > 1:
-        log(f"DATA_PARALLEL_DEVICES={dp}: data-parallel eval is not ported — "
-            f"single-device eval on {dev}")
+    if dp is not None and config.BATCH_SIZE % dp.world:
+        log(f"BATCH_SIZE {config.BATCH_SIZE} does not divide over {dp.world} ranks — "
+            f"single-device eval")
+        dp = None
+    elif dp is not None:
+        log(f"Data-parallel eval over {dp.world} ranks ({dp.backend})")
 
     tta_batched = bool(getattr(config, "EVAL_TTA_BATCHED", True))
     step_kwargs = dict(flip_tta=config.EVAL_FLIP,
                        flip_lr_indices=config.AUGM_FLIP_KEYPOINT_ORDER,
                        fused=fused_mode, precision=eval_precision,
                        assume_dense_mask=assume_dense, tta_batched=tta_batched,
-                       temporal_wpt=eval_wpt)
+                       temporal_wpt=eval_wpt, dp=dp)
     test_step = make_test_step(model, max_keyframes=max_kf, **step_kwargs)
 
     # Cross-window shared spatial stage: consecutive computed windows overlap
@@ -419,7 +452,7 @@ def run_eval(config: UpliftUpsampleConfig, dataset_name, dataset_path, dataset2d
         u_max = -(-u_max // 8) * 8
 
     pack_host = packed_step = None
-    if (shared and u_max < 2 ** 15
+    if (shared and dp is None and u_max < 2 ** 15
             and bool(getattr(config, "EVAL_PACKED_UPLOAD", True))):
         pack_host, packed_step = _packed_upload(
             shared_step, u_max, config.BATCH_SIZE, config.SEQUENCE_LENGTH,
@@ -660,11 +693,19 @@ def main(argv=None):
     if args.pallas:
         config.USE_PALLAS_ATTENTION = True
 
-    config.display()
-    return run_eval_multi_mask_stride(
-        config, dataset_name="h36m", dataset_path=args.dataset,
-        dataset2d_path=args.dataset_2d, test_subset=args.test_subset,
-        weights_path=args.weights, action_wise=args.action_wise, device=args.device)
+    check_data_parallel_devices(config, launch_world(), "eval")
+    dp = init_data_parallel(args.device) if "WORLD_SIZE" in os.environ else None
+    try:
+        with rank0_stdout(dp):  # rank 0 prints the results
+            config.display()
+            return run_eval_multi_mask_stride(
+                config, dataset_name="h36m", dataset_path=args.dataset,
+                dataset2d_path=args.dataset_2d, test_subset=args.test_subset,
+                weights_path=args.weights, action_wise=args.action_wise,
+                device=args.device, dp=dp)
+    finally:
+        if dp is not None:
+            dp.close()
 
 
 if __name__ == "__main__":

@@ -77,19 +77,27 @@ class DropPath(nn.Module):
     In training, sample i is kept when floor(keep + U[0, 1)) = 1, keep =
     1 - rate, and kept samples are scaled by 1/keep. U is drawn on the CPU
     from `self.generator` (set by the train step; torch's default generator
-    when None) and moved to x's device.
+    when None) and moved to x's device. With `self.rows` = (start, total),
+    x holds rows [start, start + B) of a global batch of `total` (one rank's
+    shard): U is drawn for the whole batch and those rows kept, so the ranks
+    apply the 1-process draws.
     """
 
     def __init__(self, rate: float = 0.0):
         super().__init__()
         self.rate = rate
         self.generator: Optional[torch.Generator] = None
+        self.rows: Optional[Tuple[int, int]] = None
 
     def forward(self, x):
         if not self.training or self.rate == 0.0:
             return x
         keep = 1.0 - self.rate
-        u = torch.rand(x.shape[0], generator=self.generator)
+        if self.rows is None:
+            u = torch.rand(x.shape[0], generator=self.generator)
+        else:
+            start, total = self.rows
+            u = torch.rand(total, generator=self.generator)[start:start + x.shape[0]]
         mask = torch.floor(keep + u).to(device=x.device, dtype=x.dtype)
         return (x / keep) * mask.reshape((-1,) + (1,) * (x.dim() - 1))
 

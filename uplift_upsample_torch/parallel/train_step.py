@@ -1,5 +1,5 @@
 """The training step (counterpart of the JAX package's parallel/train_step.py),
-single device.
+on one device or data-parallel over ranks.
 
 Optimizer parity targets (reference `train.py:404-506`):
   - Keras optimizer_v2 Adam (+amsgrad): ε sits outside the bias correction,
@@ -35,6 +35,17 @@ AMASS batches (world-space poses and an 18-vector camera) go through
 `make_train_step` / `make_val_step` take a `data.device_feed` feed as
 `device_feed=`; their batches are then the feed's plan tuples.
 
+Data parallel (`dp=`, a `parallel.mesh.DataParallel`): each rank's batch is
+its rows of the global batch (`data/multihost.py`). The loss still divides
+by config.BATCH_SIZE, the global batch, so a rank's loss is its share of
+the global loss; the flat gradient and the loss are summed over the ranks
+before the optimizer, so every rank holds the same parameters, moments and
+EMA. The stochastic-depth draws are the rank's rows of the 1-process
+draws: spatial, temporal and the tail's DropPath each draw for the global
+batch from the step's generator and keep the rank's frames or windows. The
+keyframe budget is per rank, from the local batch; an overflow on one rank
+poisons every rank through the summed gradient.
+
 Not ported (NotImplementedError): OUTPUT_BN, dropout, attention dropout and
 token masking in training. The port trains in fp32 (TF32 off);
 TRAIN_MATMUL_PRECISION is not read.
@@ -51,6 +62,7 @@ import numpy as np
 import torch
 
 from ..config import UpliftUpsampleConfig
+from ..data.multihost import gather_rows, host_row_slice
 from ..models.build import resolve_device
 from ..models.primitives import DropPath
 from ..ops.camera import world_to_cam_and_2d
@@ -61,6 +73,7 @@ from ..ops.strided_train import strided_block1_train
 from ..ops.temporal import stack_temporal_params, temporal_stack_plain
 from ..ops.temporal_train import temporal_stack_train
 from ..utils.schedules import scheduler_by_name
+from .mesh import DataParallel, all_reduce_sum_
 
 _F32 = torch.float32
 
@@ -162,11 +175,13 @@ def _droppath_rates(config: UpliftUpsampleConfig, stage: int, depth: int):
     return [0.0] * depth if depth <= 1 else [top * i / (depth - 1) for i in range(depth)]
 
 
-def keyframe_budget(model, config: UpliftUpsampleConfig) -> Optional[int]:
+def keyframe_budget(model, config: UpliftUpsampleConfig,
+                    batch: Optional[int] = None) -> Optional[int]:
     """Frames the spatial stack runs per step when only keyframes need it
     (`train_step.py:290-323`): mean + 8σ of the mask-stride mix's keyframes
     per batch plus one window, aligned up to max(128, TRAIN_SPATIAL_BLOCK_F);
-    None when that is not below B·N (then every frame runs)."""
+    None when that is not below B·N (then every frame runs). B is `batch`
+    (a rank's local batch under data parallelism), else config.BATCH_SIZE."""
     if not (model.spatial_depth > 0 and model.has_strided_input
             and bool(getattr(config, "TRAIN_KEYFRAME_SPARSE", True))):
         return None
@@ -174,7 +189,7 @@ def keyframe_budget(model, config: UpliftUpsampleConfig) -> Optional[int]:
     ms_list = ms if isinstance(ms, (list, tuple)) else [ms]
     if not (ms_list and all(isinstance(m, int) and m >= 1 for m in ms_list)):
         return None
-    b, n = config.BATCH_SIZE, model.num_frames
+    b, n = batch or config.BATCH_SIZE, model.num_frames
     counts = [-(-n // (m // math.gcd(config.SEQUENCE_STRIDE, m))) for m in ms_list]
     mean = sum(counts) / len(counts)
     var = sum((cnt - mean) ** 2 for cnt in counts) / len(counts)
@@ -227,9 +242,12 @@ def prepare_batch(tensors, dataset_name: str):
 
 
 def make_loss_fn(model, config: UpliftUpsampleConfig, dataset_name: str = "h36m", *,
-                 kernels: bool = True):
+                 kernels: bool = True, dp: Optional[DataParallel] = None):
     """loss_fn((seq3d, seq2d | cam18, stride_mask), generator) → scalar loss
-    (with graph); AMASS batches carry the camera in place of the 2D poses."""
+    (with graph); AMASS batches carry the camera in place of the 2D poses.
+    `generator` draws the stochastic depth, the model's DropPath included.
+    With `dp` the batch is the rank's rows of the global batch and the loss
+    is their share of the global loss (module docstring)."""
     if dataset_name not in ("h36m", "amass"):
         raise ValueError(f"unknown dataset {dataset_name!r}")
     for key in ("DROP_RATE", "ATTENTION_DROP_RATE", "TOKEN_MASK_RATE"):
@@ -245,9 +263,12 @@ def make_loss_fn(model, config: UpliftUpsampleConfig, dataset_name: str = "h36m"
     rates_t = _droppath_rates(config, 1, model.temporal_depth)
     fmb = model.first_strided_token_attention_layer if model.has_strided_input else 0
     fused_spatial, fused_temporal, fused_strided = fused_stages(model, config, kernels)
+    rows = None if dp is None else host_row_slice(b, dp.rank, dp.world)
     # only the spatial kernels take a keyframe budget; the plain path applies
-    # the model to every frame (the JAX package's `train_step.py:302-304`)
-    budget = keyframe_budget(model, config) if fused_spatial else None
+    # the model to every frame (the JAX package's `train_step.py:302-304`).
+    # Under dp it is the rank's, from its local batch.
+    budget = (keyframe_budget(model, config, None if rows is None else rows.stop - rows.start)
+              if fused_spatial else None)
     if fused_strided:
         # top·i/(depth-1) at i = 0: K6 has no stochastic depth to apply
         assert model.strided_temporal_block_1.drop_path.rate == 0.0
@@ -257,12 +278,21 @@ def make_loss_fn(model, config: UpliftUpsampleConfig, dataset_name: str = "h36m"
             return spatial_stack_train(x, ops, scales, num_heads=heads)
         return spatial_stack_plain(x, ops, num_heads=heads, droppath_scales=scales)
 
-    def temporal(y, ops, key_mask, dp):
+    def temporal(y, ops, key_mask, scales):
         if fused_temporal:
-            return temporal_stack_train(y, ops, key_mask, dp, num_heads=heads,
+            return temporal_stack_train(y, ops, key_mask, scales, num_heads=heads,
                                         first_masked_blocks=fmb)
         return temporal_stack_plain(y, ops, key_mask, num_heads=heads,
-                                    first_masked_blocks=fmb, droppath=dp)
+                                    first_masked_blocks=fmb, droppath=scales)
+
+    def draws(generator, rates, per_window, bb):
+        """Stochastic-depth scales (2L, bb·per_window): under dp the rank's
+        columns of the global batch's draws."""
+        if rows is None:
+            return make_droppath_scales(generator, rates, bb * per_window)
+        assert bb == rows.stop - rows.start, (bb, rows)
+        full = make_droppath_scales(generator, rates, b * per_window)
+        return full[:, rows.start * per_window:rows.stop * per_window]
 
     def apply_model(x, stride_mask, generator):
         params = dict(model.named_parameters())
@@ -270,7 +300,7 @@ def make_loss_fn(model, config: UpliftUpsampleConfig, dataset_name: str = "h36m"
         frames = bb * nn_
         if model.spatial_depth > 0:
             ops = stack_spatial_params(params, model.spatial_depth)
-            scales = make_droppath_scales(generator, rates_s, frames).to(x.device)
+            scales = draws(generator, rates_s, nn_, bb).to(x.device)
             xf = x.reshape(frames, pp, cc)
             if budget is not None:
                 flat_sm = stride_mask.reshape(frames).bool()
@@ -296,10 +326,10 @@ def make_loss_fn(model, config: UpliftUpsampleConfig, dataset_name: str = "h36m"
             key_mask = 1.0 - stride_mask.to(_F32)
         y = y + model.temporal_pe
         if model.temporal_depth > 0:
-            dp = make_droppath_scales(generator, rates_t, bb).reshape(
+            scales_t = draws(generator, rates_t, 1, bb).reshape(
                 model.temporal_depth, 2, bb).to(x.device)
             y = temporal(y, stack_temporal_params(params, model.temporal_depth),
-                         key_mask, dp)
+                         key_mask, scales_t)
         if fused_strided:
             full = model.temporal_fc(y).reshape(bb, nn_, model.num_keypoints, 3)
             y2 = strided_block1_train(y, stack_strided_block1_params(params), num_heads=heads,
@@ -309,6 +339,8 @@ def make_loss_fn(model, config: UpliftUpsampleConfig, dataset_name: str = "h36m"
         return model(y, stride_mask, temporal_input=True)
 
     def loss_fn(batch, generator: torch.Generator) -> torch.Tensor:
+        set_droppath_generator(model, generator,
+                               None if rows is None else (rows.start, b))
         seq3d, seq2d, stride_mask = prepare_batch(batch, dataset_name)
         keypoints3d = seq3d - seq3d[:, :, root:root + 1, :]
         central_gt = keypoints3d[:, mid]
@@ -332,10 +364,14 @@ def step_generator(seed: int, step: int) -> torch.Generator:
     return torch.Generator().manual_seed(int(seed) * (1 << 32) + int(step))
 
 
-def set_droppath_generator(model: torch.nn.Module, generator: torch.Generator) -> None:
+def set_droppath_generator(model: torch.nn.Module, generator: torch.Generator,
+                           rows: Optional[Tuple[int, int]] = None) -> None:
+    """The model's DropPath draws: from `generator`; with rows = (start,
+    total), for a rank's rows of a global batch (`DropPath`)."""
     for module in model.modules():
         if isinstance(module, DropPath):
             module.generator = generator
+            module.rows = rows
 
 
 def batch_to_device(batch, device) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -355,17 +391,20 @@ def batch_to_device(batch, device) -> Tuple[torch.Tensor, torch.Tensor, torch.Te
 
 def make_train_step(model, opt: KerasAdam, config: UpliftUpsampleConfig, *,
                     dataset_name: str = "h36m", device="cuda", kernels: bool = True,
-                    rng_seed: Optional[int] = None, device_feed=None):
+                    rng_seed: Optional[int] = None, device_feed=None,
+                    dp: Optional[DataParallel] = None):
     """step(state, batch) → (state, loss): forward, backward, the optimizer
     update, the EMA update; state is updated in place and returned.
 
     `model` must already be on `device`; batches are generator tuples (numpy
     or tensors), or with `device_feed` the feed's plan tuples, materialized
     on the card from its resident store. rng_seed defaults to
-    config.SHUFFLE_SEED.
+    config.SHUFFLE_SEED. With `dp` the batch is the rank's rows of the
+    global batch; the gradient and the loss are summed over the ranks in one
+    all-reduce, and the loss returned is the global one.
     """
     device = resolve_device(device)
-    loss_fn = make_loss_fn(model, config, dataset_name, kernels=kernels)
+    loss_fn = make_loss_fn(model, config, dataset_name, kernels=kernels, dp=dp)
     seed = config.SHUFFLE_SEED if rng_seed is None else rng_seed
     params = dict(model.named_parameters())
     ema_enabled = bool(config.EMA_ENABLED)
@@ -374,15 +413,17 @@ def make_train_step(model, opt: KerasAdam, config: UpliftUpsampleConfig, *,
     def step(state: TrainState, batch):
         model.train()
         generator = step_generator(seed, state.step)
-        set_droppath_generator(model, generator)
         for p in params.values():
             p.grad = None
         if device_feed is not None:
             batch = device_feed.materialize(batch)
         loss = loss_fn(batch_to_device(batch, device), generator)
         loss.backward()
+        loss = loss.detach()
         grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
                  for k, p in params.items()}
+        if dp is not None:
+            all_reduce_sum_(dp, [*grads.values(), loss])
         opt.apply(params, grads, state)
         if ema_enabled:
             g = torch.tensor(state.step, dtype=_F32)
@@ -394,7 +435,6 @@ def make_train_step(model, opt: KerasAdam, config: UpliftUpsampleConfig, *,
                 torch._foreach_mul_(diff, float(1.0 - decay))
                 torch._foreach_sub_(ema, diff)
         state.step += 1
-        loss = loss.detach()
         state.loss_sum += loss
         return state, loss
 
@@ -402,7 +442,7 @@ def make_train_step(model, opt: KerasAdam, config: UpliftUpsampleConfig, *,
 
 
 def make_val_step(model, config: UpliftUpsampleConfig, dataset_name: str = "h36m", *,
-                  device="cuda", device_feed=None):
+                  device="cuda", device_feed=None, dp: Optional[DataParallel] = None):
     """val_step(params, batch) → (pred_central, central_gt, loss), on the device.
 
     The plain model in eval mode, as the JAX step applies the flax model
@@ -411,6 +451,9 @@ def make_val_step(model, config: UpliftUpsampleConfig, dataset_name: str = "h36m
     keeps them. The loss is the unweighted central + sequence loss of the
     unflipped pass; with EVAL_FLIP the central prediction is the average with
     the flipped input's, unflipped. With `device_feed`, batches are its plans.
+    With `dp` the batch is the rank's rows of the global batch; the loss is
+    summed over the ranks and the predictions and ground truth gathered, so
+    every rank returns the global batch's.
     """
     device = resolve_device(device)
     root = config.ROOT_KEYTPOINT
@@ -448,6 +491,9 @@ def make_val_step(model, config: UpliftUpsampleConfig, dataset_name: str = "h36m
             f_central = torch.cat([-f_central[..., :1], f_central[..., 1:]],
                                   dim=-1)[:, flip_idx]
             pred_central = (pred_central + f_central) / 2.0
+        if dp is not None:
+            all_reduce_sum_(dp, [loss])
+            pred_central, central_gt = gather_rows(dp, pred_central), gather_rows(dp, central_gt)
         return pred_central, central_gt, loss
 
     return step

@@ -2,7 +2,8 @@
 with reference `train.py`).
 
 Flow: config → datasets (H36M or AMASS) → model + optimizer + optional EMA →
-epoch loop of train steps on one device → periodic validation with flip-TTA
+epoch loop of train steps on one device or over data-parallel ranks →
+periodic validation with flip-TTA
 and (action-wise) float64 metrics → checkpoints of the full training state +
 Keras-compatible `.h5` export of best/last weights → final test-set eval
 sweep over mask strides.
@@ -16,17 +17,25 @@ The same flow, log lines, file names and flags as the JAX CLI, plus
   - the train feed is the device feed (`data/device_feed.py`) when
     TRAIN_DEVICE_FEED is True, or "auto" on a CUDA device; else the host
     batchers through a background thread;
-  - DATA_PARALLEL_DEVICES > 1 is logged and the run uses one device.
+  - data parallelism is one process per card under `torchrun` (NCCL; gloo
+    with `--device cpu`) in place of the JAX mesh: DATA_PARALLEL_DEVICES -1
+    is the launch's world size (1 without torchrun), any other value must
+    equal it. Each rank feeds its rows of every global batch (host or
+    device feed), the gradient is summed over the ranks, validation rows
+    are gathered so every rank computes the same metrics, and rank 0 alone
+    writes checkpoints, `.h5` files, the history sidecar and scalars (a
+    barrier follows each write) and prints the log.
 
-One departure: `train_and_validate(..., export_h5=False)` writes no `.h5`
-(its best/last paths are then None; best/last tracking and the history
-sidecar still run). `main` always exports, and with `export_h5=True` a
-machine without h5py fails before the first step, naming h5py.
+One departure: `train_and_validate(..., export_h5=False)` (`--export_h5
+false`) writes no `.h5` (its best/last paths are then None; best/last
+tracking and the history sidecar still run). With `export_h5=True` a machine
+without h5py fails before the first step, naming h5py.
 
 CLI:
     python -m uplift_upsample_torch.train --config cfg.json --out_dir out/ \\
         [--dataset h36m|amass] [--weights init.h5] [--continue_training true] \\
-        [--device cpu]
+        [--export_h5 false] [--device cpu]
+    torchrun --nproc-per-node N -m uplift_upsample_torch.train ...  (data parallel)
 """
 
 from __future__ import annotations
@@ -50,8 +59,11 @@ from .data.generator import AMASSSequenceGenerator, H36mSequenceGenerator
 from .data.keypoint_order import H36MOrder17P
 from .data.loading import filter_and_subsample_dataset, load_dataset_and_2d_poses
 from .data.mocap import AMASSDataset
+from .data.multihost import HostShardedBatcher, gather_rows, host_row_slice
 from .data.pipeline import _threaded
 from .models.build import build_uplift_upsample_transformer, resolve_device
+from .parallel.mesh import (broadcast_params_, check_data_parallel_devices,
+                            init_data_parallel, launch_world, rank0_stdout)
 from .parallel.train_step import TrainState, make_optimizer, make_train_step, make_val_step
 from .utils import eval_protocol
 from .utils.metric_history import MetricHistory
@@ -65,6 +77,16 @@ CHECKPOINTS_KEPT = 3
 def log(*args):
     print(*args)
     sys.stdout.flush()
+
+
+class _NoScalars:
+    """The scalar logger of a rank other than 0: rank 0 writes the scalars."""
+
+    def scalar(self, tag, value, step):
+        pass
+
+    def close(self):
+        pass
 
 
 def resolve_weight_selector(weight_path, target_extension=".h5"):
@@ -218,26 +240,47 @@ def restore_checkpoint(checkpoint_dir, epoch: int, model, state: TrainState) -> 
 
 # ---- the run ---------------------------------------------------------------
 
+def _replicated(model, state: TrainState):
+    """The tensors every rank holds alike: parameters, moments, EMA."""
+    out = list(model.parameters())
+    for d in (state.mu, state.nu, state.nu_max, state.ema):
+        out += [] if d is None else list(d.values())
+    return out
+
+
 def train_and_validate(config: UpliftUpsampleConfig, out_dir, dataset_name="h36m",
                        val_dataset_name=None, h36m_path=None, amass_path=None,
                        dataset_2d_path=None, train_subset="train", val_subset="val",
                        test_subset=None, weights=None, continue_training=False,
                        amass_frame_rate=50, use_tensorboard=False, device="cuda",
-                       export_h5: bool = True):
+                       export_h5: bool = True, dp=None):
     """Full training run; returns (MetricHistory, best_weights_path, last_weights_path).
 
     `export_h5=False` writes no `.h5` (both paths are then None); with True
-    and no h5py the run fails here, before any data is loaded.
+    and no h5py the run fails here, before any data is loaded. `dp` (a
+    `parallel.mesh.DataParallel`) runs it as one rank of a data-parallel
+    group on the rank's device; every rank returns the same history.
     """
     if export_h5 and importlib.util.find_spec("h5py") is None:
         raise RuntimeError("the .h5 export of best/last weights needs h5py, which this "
                            "machine does not have (train_and_validate(..., "
                            "export_h5=False) trains without it)")
-    device = resolve_device(device)
+    check_data_parallel_devices(config, 1 if dp is None else dp.world, "train")
+    device = resolve_device(device) if dp is None else dp.device
+    rank0 = dp is None or dp.rank == 0
+
+    def written():
+        """After a write by rank 0: the other ranks wait until it is there."""
+        if dp is not None:
+            dp.barrier()
+
     val_dataset_name = val_dataset_name or dataset_name
-    os.makedirs(out_dir, exist_ok=True)
     checkpoint_dir = os.path.join(out_dir, "checkpoints")
-    os.makedirs(checkpoint_dir, exist_ok=True)
+    if rank0:
+        os.makedirs(checkpoint_dir, exist_ok=True)
+    written()
+    log(f"TRAIN_MATMUL_PRECISION={getattr(config, 'TRAIN_MATMUL_PRECISION', None)!r} is "
+        f"not read: the port trains in fp32 (TF32 off)")
 
     # ---- datasets ---------------------------------------------------------
     val_subset_name = None if val_dataset_name != dataset_name else val_subset
@@ -261,12 +304,14 @@ def train_and_validate(config: UpliftUpsampleConfig, out_dir, dataset_name="h36m
     log(f"val batches: {val_batches}")
 
     # ---- model / optimizer / state ---------------------------------------
-    n_devices = torch.cuda.device_count() if device.type == "cuda" else 1
-    dp = getattr(config, "DATA_PARALLEL_DEVICES", -1)
-    dp = n_devices if dp in (-1, None) else dp
-    if dp > 1:
-        log(f"DATA_PARALLEL_DEVICES={dp}: data-parallel training is not ported — "
-            f"single-device training on {device}")
+    rows = None
+    if dp is not None:
+        if config.BATCH_SIZE % dp.world:
+            raise ValueError(f"BATCH_SIZE {config.BATCH_SIZE} must divide over "
+                             f"{dp.world} ranks")
+        rows = host_row_slice(config.BATCH_SIZE, dp.rank, dp.world)
+        log(f"Data-parallel training over {dp.world} ranks ({dp.backend}), "
+            f"local batch {rows.stop - rows.start}")
 
     model = build_uplift_upsample_transformer(config, device=device, seed=config.SHUFFLE_SEED)
     if weights is not None:
@@ -291,9 +336,11 @@ def train_and_validate(config: UpliftUpsampleConfig, out_dir, dataset_name="h36m
         restore_checkpoint(checkpoint_dir, latest, model, state)
         initial_epoch = latest + 1
         log(f"Will continue training from epoch {initial_epoch}")
+    if dp is not None:  # every rank starts from rank 0's weights and state
+        broadcast_params_(dp, _replicated(model, state))
 
     # ---- bookkeeping ------------------------------------------------------
-    logger = ScalarLogger(out_dir, use_tensorboard=use_tensorboard)
+    logger = ScalarLogger(out_dir, use_tensorboard=use_tensorboard) if rank0 else _NoScalars()
     metric_hist = MetricHistory()
     metrics = ["loss", "MPJPE", "NMPJPE", "PAMPJPE"]
     if val_dataset_name == "h36m":
@@ -337,6 +384,8 @@ def train_and_validate(config: UpliftUpsampleConfig, out_dir, dataset_name="h36m
     tdf = getattr(config, "TRAIN_DEVICE_FEED", "auto")
     if tdf == "auto":
         tdf = device.type == "cuda"
+    # Under dp every rank uploads the whole store and plans every batch, and
+    # keeps its rows of each (as the host feed does).
     device_feed = None
     if tdf:
         from .data.device_feed import make_device_feed
@@ -344,20 +393,24 @@ def train_and_validate(config: UpliftUpsampleConfig, out_dir, dataset_name="h36m
         log("Device feed: pose store resident on device "
             f"({device_feed.store_bytes() / 1e6:.0f} MB), "
             "per-step transfer = window plans only")
+    elif dp is not None:
+        train_batcher = HostShardedBatcher(train_batcher, dp.rank, dp.world)
 
     train_step = make_train_step(model, opt, config, dataset_name=dataset_name, device=device,
-                                 rng_seed=config.SHUFFLE_SEED, device_feed=device_feed)
+                                 rng_seed=config.SHUFFLE_SEED, device_feed=device_feed, dp=dp)
 
     # Host feed produced ahead by a background thread
-    train_iter = _threaded(device_feed.plan_batches() if device_feed is not None
+    train_iter = _threaded(device_feed.plan_batches(rows=rows) if device_feed is not None
                            else train_batcher.batches(), depth=4)
     val_batcher = None if val_gen is None else make_fast_batcher(val_gen)
     val_feed = None
     if val_batcher is not None and device_feed is not None:
         from .data.device_feed import make_device_feed
         val_feed = make_device_feed(val_batcher, device)
+    elif val_batcher is not None and dp is not None:
+        val_batcher = HostShardedBatcher(val_batcher, dp.rank, dp.world)
     val_step = make_val_step(model, config, dataset_name=val_dataset_name, device=device,
-                             device_feed=val_feed)
+                             device_feed=val_feed, dp=dp)
 
     for epoch in range(initial_epoch, config.EPOCHS + 1):
         epoch_start = time.time()
@@ -383,7 +436,9 @@ def train_and_validate(config: UpliftUpsampleConfig, out_dir, dataset_name="h36m
                     f"(ETA {format_time(eta)}): loss {loss_val:.6f}")
 
         if epoch % config.CHECKPOINT_INTERVAL == 0:
-            save_checkpoint(checkpoint_dir, epoch, model, state)
+            if rank0:
+                save_checkpoint(checkpoint_dir, epoch, model, state)
+            written()
             log(f"Saved checkpoint for epoch {epoch}")
 
         if device.type == "cuda":
@@ -411,14 +466,17 @@ def train_and_validate(config: UpliftUpsampleConfig, out_dir, dataset_name="h36m
             gt_list, pred_list, act_list, loss_vals = [], [], [], []
             examples = 0
             n_val_batches = int(np.ceil(config.VALIDATION_EXAMPLES / config.BATCH_SIZE))
-            val_src = (val_feed.plan_batches() if val_feed is not None
+            val_src = (val_feed.plan_batches(rows=rows) if val_feed is not None
                        else val_batcher.batches())
             for batch in itertools.islice(val_src, n_val_batches):
                 if val_feed is not None:
                     _, actions = val_feed.host_ids(batch)
                 else:
                     actions = batch[-3]
+                # under dp: the global batch's outputs and summed loss
                 pred_central, central_gt, loss = val_step(val_params, batch)
+                if dp is not None:
+                    actions = gather_rows(dp, np.asarray(actions))
                 # Keep the outputs on the device; fetch once after the loop
                 include = min(config.BATCH_SIZE, config.VALIDATION_EXAMPLES - examples)
                 loss_vals.append(loss)
@@ -466,24 +524,31 @@ def train_and_validate(config: UpliftUpsampleConfig, out_dir, dataset_name="h36m
                         f"({config.BEST_CHECKPOINT_METRIC}: {best_value}) as .h5")
                     weights_path = os.path.join(checkpoint_dir,
                                                 f"best_weights_{best_epoch:04d}.h5")
-                    save_keras_h5(weights_path, val_params, model)
-                    if prev_best_weights_path is not None:
-                        os.remove(prev_best_weights_path)
+                    if rank0:
+                        save_keras_h5(weights_path, val_params, model)
+                        if prev_best_weights_path is not None:
+                            os.remove(prev_best_weights_path)
+                    written()
                     prev_best_weights_path = weights_path
 
         # last weights each epoch
         if export_h5:
-            if last_weights_path is not None:
-                os.remove(last_weights_path)
-            last_weights_path = os.path.join(checkpoint_dir, f"last_weights_{epoch:04d}.h5")
-            os.makedirs(checkpoint_dir, exist_ok=True)
-            save_keras_h5(last_weights_path, val_params, model)
+            new_last = os.path.join(checkpoint_dir, f"last_weights_{epoch:04d}.h5")
+            if rank0:
+                if last_weights_path is not None:
+                    os.remove(last_weights_path)
+                os.makedirs(checkpoint_dir, exist_ok=True)
+                save_keras_h5(new_last, val_params, model)
+            written()
+            last_weights_path = new_last
 
-        with open(history_sidecar, "w") as f:
-            json.dump({"epoch": epoch,
-                       "metric_history": metric_hist.to_dict(),
-                       "prev_best_weights_path": prev_best_weights_path,
-                       "last_weights_path": last_weights_path}, f)
+        if rank0:
+            with open(history_sidecar, "w") as f:
+                json.dump({"epoch": epoch,
+                           "metric_history": metric_hist.to_dict(),
+                           "prev_best_weights_path": prev_best_weights_path,
+                           "last_weights_path": last_weights_path}, f)
+        written()
 
     logger.close()
     if val_gen is not None:
@@ -509,7 +574,8 @@ def train_and_validate(config: UpliftUpsampleConfig, out_dir, dataset_name="h36m
         run_eval_multi_mask_stride(
             config=config, dataset_name=val_dataset_name, dataset_path=h36m_path,
             dataset2d_path=dataset_2d_path, test_subset=test_subset,
-            weights_path=eval_weights, model=eval_model, action_wise=True, device=device)
+            weights_path=eval_weights, model=eval_model, action_wise=True, device=device,
+            dp=dp)
 
     return metric_hist, prev_best_weights_path, last_weights_path
 
@@ -532,6 +598,8 @@ def main(argv=None):
     parser.add_argument("--test_subset", required=False, default=None)
     parser.add_argument("--weights", required=False, default=None)
     parser.add_argument("--continue_training", required=False, default=False)
+    parser.add_argument("--export_h5", required=False, default=True,
+                        help="false: write no best/last .h5 (no h5py needed)")
     parser.add_argument("--out_dir", required=True)
     parser.add_argument("--tensorboard", action="store_true")
     parser.add_argument("--device", default="cuda",
@@ -539,6 +607,7 @@ def main(argv=None):
     args = parser.parse_args(argv)
 
     args.continue_training = args.continue_training not in [False, "False", "false", "f", "n", "0"]
+    args.export_h5 = args.export_h5 not in [False, "False", "false", "f", "n", "0"]
     args.val_subset = None if args.val_subset in ["none", "None", "", 0] else args.val_subset
     args.test_subset = None if args.test_subset in ["none", "None", "", 0] else args.test_subset
     args.dataset = args.dataset.lower()
@@ -551,25 +620,32 @@ def main(argv=None):
     config = resolve_config(args.config)
     assert config.ARCH == "UpliftUpsampleTransformer"
     config.AUGM_FLIP_KEYPOINT_ORDER = H36MOrder17P.flip_lr_indices()
+    check_data_parallel_devices(config, launch_world(), "train")
+    dp = init_data_parallel(args.device) if "WORLD_SIZE" in os.environ else None
 
-    os.makedirs(args.out_dir, exist_ok=True)
-    if args.config:
-        stem = os.path.splitext(os.path.split(args.config)[1])[0]
-        config.dump(os.path.join(args.out_dir, stem + "_complete.json"))
-    else:
-        config.dump(os.path.join(args.out_dir, "config_complete.json"))
-    config.display()
+    try:
+        with rank0_stdout(dp):  # rank 0 prints the log
+            if dp is None or dp.rank == 0:
+                os.makedirs(args.out_dir, exist_ok=True)
+                stem = (os.path.splitext(os.path.split(args.config)[1])[0] if args.config
+                        else "config")
+                config.dump(os.path.join(args.out_dir, stem + "_complete.json"))
+            config.display()
 
-    train_and_validate(
-        config=config, out_dir=args.out_dir, dataset_name=args.dataset,
-        val_dataset_name=args.dataset_val, h36m_path=args.h36m_path,
-        amass_path=args.amass_path, dataset_2d_path=args.dataset_2d_path,
-        train_subset=args.train_subset, val_subset=args.val_subset,
-        test_subset=args.test_subset, weights=args.weights,
-        continue_training=args.continue_training,
-        amass_frame_rate=int(args.amass_frame_rate),
-        use_tensorboard=args.tensorboard, device=args.device, export_h5=True)
-    log("Done.")
+            train_and_validate(
+                config=config, out_dir=args.out_dir, dataset_name=args.dataset,
+                val_dataset_name=args.dataset_val, h36m_path=args.h36m_path,
+                amass_path=args.amass_path, dataset_2d_path=args.dataset_2d_path,
+                train_subset=args.train_subset, val_subset=args.val_subset,
+                test_subset=args.test_subset, weights=args.weights,
+                continue_training=args.continue_training,
+                amass_frame_rate=int(args.amass_frame_rate),
+                use_tensorboard=args.tensorboard, device=args.device,
+                export_h5=args.export_h5, dp=dp)
+            log("Done.")
+    finally:
+        if dp is not None:
+            dp.close()
 
 
 if __name__ == "__main__":
