@@ -97,24 +97,46 @@ Phases (one line each; any failure ends the run with a non-zero exit):
      --standalone --nproc-per-node 1 -m uplift_upsample_torch.train`, NCCL):
      one epoch of phase 6's size, exit 0, one checkpoint. The card has no
      second H100: the speed on many cards is not measured here;
-  9. one JSON line of per-kernel numbers, the card line again, and the last
+  9. the host tools, each sub-phase with its wall time: (a) the C++ window
+     gather (data/native.py, built with g++) against the numpy one at the
+     train batch's shapes with flip and zero-fill on (equal in value; only
+     the zeros of zero-filled flipped rows may differ in sign), both timed,
+     the native one also on 1-8 threads, and phase 5's eval batcher per
+     stride with each gather, every batch compared; (b) npz weights: a seeded h36m_351 through save_npz and
+     load_npz into a fresh model (bit for bit), then `python -m
+     uplift_upsample_torch.predict --weights w.npz` and the eval CLI's main
+     (`--weights w.npz --forced_mask_stride 10` on phase 5's data, its
+     returned metrics printed) as subprocesses against the same model in
+     process (metrics within 1e-6 mm); (c) utils/profiling.device_timer on
+     K2 at 1,024 windows beside time_ms (the gap printed; 10 % expected);
+     (d) utils/profiling.trace around one serving call in a fresh process:
+     the Chrome trace is written, every launch in it has its kernel's
+     record, and it names K1's, K2's and K3's CUDA kernels; then, in this
+     process, the kernel records of a plain profiler session and of
+     `trace` around the same call (printed: a plain session here loses its
+     first launches' records);
+ 10. one JSON line of per-kernel numbers, the card line again, and the last
      line `{"ok": true, "device": {...}}`.
 
 It needs a CUDA card and the repository checkout around it; without either it
-exits non-zero before printing any result. Weights are random (from --seed):
-the card's machine has no h5py to read a checkpoint.
+exits non-zero before printing any result. Weights are random (from --seed);
+phase 9 carries them through the npz the card's machine reads without h5py.
 """
 
 from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
+import io
+import itertools
 import json
 import math
 import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -296,34 +318,36 @@ def ops_bytes(ops, backward: bool = False) -> int:
                if key.endswith(want) or ("_tc" not in key and key not in split)) * F32
 
 
-def profile_step(torch, run, top: int = 12, label: str = "phase 4 profile: one step") -> None:
-    """`run` (one train step, one eval run) under torch.profiler: the card's
-    busy time (the union of kernel intervals) against the wall time, and the
-    kernels that took the most card time. Says so when the trace has no card
-    activity."""
-    from torch.profiler import ProfilerActivity, profile
+FIRST_PROFILE = []  # when this process's first profiler session started
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0)
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not kernels:
+
+def profile_step(torch, run, top: int = 12, label: str = "phase 4 profile: one step") -> None:
+    """`run` (one train step, one eval run) under `utils.profiling.trace`:
+    the card's busy time (the union of kernel intervals) against the wall
+    time, the kernels that took the most card time, and the launches whose
+    kernel record the trace lost. Says so when the trace has no card
+    activity."""
+    from uplift_upsample_torch.utils.profiling import card_busy, trace
+
+    if not FIRST_PROFILE:
+        FIRST_PROFILE.append(time.perf_counter())
+    with tempfile.TemporaryDirectory() as logdir:
+        with trace(logdir, strict=False) as prof:
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+        busy_s, count, by_name = card_busy(prof.trace_file)
+    if not count:
         log(f"{label}: the trace holds no card activity (time from CUDA events only)")
         return
-    busy, end = 0.0, float("-inf")
-    by_name = collections.defaultdict(lambda: [0.0, 0])
-    for e in sorted(kernels, key=lambda e: e.time_range.start):  # union of intervals, us
-        busy += max(0.0, e.time_range.end - max(e.time_range.start, end))
-        end = max(end, e.time_range.end)
-        by_name[e.name][0] += e.time_range.elapsed_us()
-        by_name[e.name][1] += 1
+    busy = 1e3 * busy_s
     rows = sorted(by_name.items(), key=lambda kv: kv[1][0], reverse=True)
-    log(f"{label} {wall_ms:.3f} ms wall, card busy {busy / 1e3:.3f} ms "
-        f"({100 * busy / 1e3 / wall_ms:.1f} %, idle {100 - 100 * busy / 1e3 / wall_ms:.1f} %), "
-        f"{len(kernels)} kernels; top card time: " + "; ".join(
-            f"{name[:70]} {us / 1e3:.3f} ms x{n}" for name, (us, n) in rows[:top]))
+    log(f"{label} {wall_ms:.3f} ms wall, card busy {busy:.3f} ms "
+        f"({100 * busy / wall_ms:.1f} %, idle {100 - 100 * busy / wall_ms:.1f} %), "
+        f"{count} kernels, {prof.lost_kernels} launches without their kernel's record; "
+        f"top card time: " + "; ".join(
+            f"{name[:70]} {1e3 * s:.3f} ms x{n}" for name, (s, n) in rows[:top]))
 
 
 def train_sequences(np, rng, p: int):
@@ -610,16 +634,16 @@ def eval_metrics(result):
             for kind, d in zip(("frame", "aw"), part[:2]) for m, v in d.items()}
 
 
-def eval_phase(args, torch, np, rng, failed):
+def eval_phase(args, torch, np, rng, failed, tmp):
     """Phase 5: the eval CLI's run_eval_multi_mask_stride on synthetic H3.6M
-    data with seeded full-width weights, then three runs at MASK_STRIDE 10
-    against which the kernel paths are held: (a) USE_PALLAS_ATTENTION on the
-    fused path, (b) EVAL_FUSED "none" with it, (c) EVAL_FUSED "none" alone,
-    the plain model on the card. Returns the launch counts of the default
-    run (all strides) and of run (b)."""
+    data (written into `tmp`) with seeded full-width weights, then three runs
+    at MASK_STRIDE 10 against which the kernel paths are held: (a)
+    USE_PALLAS_ATTENTION on the fused path, (b) EVAL_FUSED "none" with it, (c)
+    EVAL_FUSED "none" alone, the plain model on the card. Returns the launch
+    counts of the default run (all strides) and of run (b), and the data:
+    (3D path, 2D path, eval samples, run_eval's wall per stride)."""
     import contextlib
     import io
-    import tempfile
 
     import uplift_upsample_torch.eval as eval_mod
     from uplift_upsample_torch.configs import get_config
@@ -646,38 +670,37 @@ def eval_phase(args, torch, np, rng, failed):
                          lines=lines, result=result))
         return result
 
-    with tempfile.TemporaryDirectory() as tmp:
-        p3, p2, lengths = write_h36m_npz(np, rng, tmp)
-        samples = 4 * sum(lengths)
-        windows_ = 4 * sum(math.ceil(t / config.SEQUENCE_STRIDE) for t in lengths)
-        data = dict(dataset_name="h36m", dataset_path=p3, dataset2d_path=p2,
-                    test_subset="test", action_wise=False, verbose=False)
-        model = build_uplift_upsample_transformer(config, device="cuda", seed=args.seed)
-        eval_mod.run_eval = timed_run_eval
-        try:
-            eval_mod.run_eval_multi_mask_stride(config, model=model, **data)
-            default = list(runs)
-            shared_call_ms(torch, np, rng, config, model)
+    p3, p2, lengths = write_h36m_npz(np, rng, tmp)
+    samples = 4 * sum(lengths)
+    windows_ = 4 * sum(math.ceil(t / config.SEQUENCE_STRIDE) for t in lengths)
+    data = dict(dataset_name="h36m", dataset_path=p3, dataset2d_path=p2,
+                test_subset="test", action_wise=False, verbose=False)
+    model = build_uplift_upsample_transformer(config, device="cuda", seed=args.seed)
+    eval_mod.run_eval = timed_run_eval
+    try:
+        eval_mod.run_eval_multi_mask_stride(config, model=model, **data)
+        default = list(runs)
+        shared_call_ms(torch, np, rng, config, model)
+        cfg = config.copy()
+        cfg.MASK_STRIDE = 10
+
+        def quiet_run():
+            with contextlib.redirect_stdout(io.StringIO()):
+                real_run_eval(cfg, model=model, **data)
+
+        profile_step(torch, quiet_run,
+                     label="phase 5 profile: one run_eval at MASK_STRIDE 10,")
+        for label, fused, pallas in (("a", "auto", True), ("b", "none", True),
+                                     ("c", "none", False)):
             cfg = config.copy()
-            cfg.MASK_STRIDE = 10
-
-            def quiet_run():
-                with contextlib.redirect_stdout(io.StringIO()):
-                    real_run_eval(cfg, model=model, **data)
-
-            profile_step(torch, quiet_run,
-                         label="phase 5 profile: one run_eval at MASK_STRIDE 10,")
-            for label, fused, pallas in (("a", "auto", True), ("b", "none", True),
-                                         ("c", "none", False)):
-                cfg = config.copy()
-                cfg.MASK_STRIDE, cfg.EVAL_FUSED, cfg.USE_PALLAS_ATTENTION = 10, fused, pallas
-                m = model if not pallas else build_uplift_upsample_transformer(
-                    cfg, device="cuda", seed=args.seed)
-                timed_run_eval(cfg, model=m, **data)
-                runs[-1]["label"] = label
-                del m
-        finally:
-            eval_mod.run_eval = real_run_eval
+            cfg.MASK_STRIDE, cfg.EVAL_FUSED, cfg.USE_PALLAS_ATTENTION = 10, fused, pallas
+            m = model if not pallas else build_uplift_upsample_transformer(
+                cfg, device="cuda", seed=args.seed)
+            timed_run_eval(cfg, model=m, **data)
+            runs[-1]["label"] = label
+            del m
+    finally:
+        eval_mod.run_eval = real_run_eval
     del model
     torch.cuda.empty_cache()
 
@@ -723,7 +746,8 @@ def eval_phase(args, torch, np, rng, failed):
     total = collections.Counter()
     for r in default:
         total.update(r["counts"])
-    return dict(total), next(r for r in runs if r.get("label") == "b")["counts"]
+    return (dict(total), next(r for r in runs if r.get("label") == "b")["counts"],
+            (p3, p2, samples, {r["stride"]: r["wall"] for r in default}))
 
 
 class TimedLines:
@@ -1179,6 +1203,20 @@ def bench_cli_phase(failed) -> None:
             failed.append(f"bench_{label}")
 
 
+def run_cli(cmd, timeout: int = 300, env=None):
+    """A CLI as a subprocess in its own session, its process group killed at
+    `timeout`: (exit code, its output and errors as lines, wall seconds)."""
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True, start_new_session=True)
+    try:
+        text, _ = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, 9)
+        text, _ = proc.communicate()
+    return proc.returncode, text.splitlines(), time.perf_counter() - t0
+
+
 # ---- phase 8: data parallel -------------------------------------------------
 
 def dp_train_steps(torch, np, config, seqs, seed, dp=None):
@@ -1405,26 +1443,329 @@ def dp_phase(args, torch, np, rng, failed):
         env = {k: v for k, v in os.environ.items()
                if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE",
                             "MASTER_ADDR", "MASTER_PORT")}
-        proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
-                                stderr=subprocess.STDOUT, text=True, start_new_session=True)
-        try:
-            text, _ = proc.communicate(timeout=240)
-        except subprocess.TimeoutExpired:
-            os.killpg(proc.pid, 9)
-            text, _ = proc.communicate()
-        lines = text.splitlines()
+        rc, lines, _ = run_cli(cmd, timeout=240, env=env)
         ckpts = sorted(os.listdir(os.path.join(run_dir, "checkpoints"))) \
             if os.path.isdir(os.path.join(run_dir, "checkpoints")) else []
         dp_line = next((ln for ln in lines if ln.startswith("Data-parallel training")), "")
         epoch = next((ln for ln in lines if ln.startswith("Finished epoch 1")), "")
         val = next((ln for ln in lines if ln.startswith("Finished validation")), "")
-        ok = proc.returncode == 0 and ckpts == ["ckpt_0001.pt"] and "(nccl)" in dp_line
+        ok = rc == 0 and ckpts == ["ckpt_0001.pt"] and "(nccl)" in dp_line
         log(f"phase 8 (d) torchrun --nproc-per-node 1 -m uplift_upsample_torch.train: exit "
-            f"{proc.returncode}, checkpoints {ckpts}; {dp_line}; {epoch}; {val}; "
+            f"{rc}, checkpoints {ckpts}; {dp_line}; {epoch}; {val}; "
             f"{'ok' if ok else 'FAILED'}; wall {time.perf_counter() - t0:.1f} s")
         if not ok:
             log("\n".join(lines[-40:]))
             failed.append("dp_torchrun_cli")
+
+
+
+# ---- phase 9: the native gather, npz weights, profiling ---------------------
+
+# Substrings of each kernel's CUDA kernel names in a trace of a serving call:
+# K1's tiles, K2's LayerNorm and window attention, K3's conv (the persistent
+# GEMM with its taps gathered from h1)
+TRACE_KERNELS = {"K1": ("spatial_stack_tc_kernel",),
+                 "K2": ("layernorm_kernel", "head_attention_tc_kernel", "gemm_tc_kernel"),
+                 "K3": ("ConvTaps",)}
+
+# The eval CLI run as a subprocess through its `main`, which returns the
+# metrics that the CLI prints to 3 decimals: the last line is all of them
+EVAL_CLI = ("import json, sys\n"
+            "from uplift_upsample_torch.eval import main\n"
+            "res = main(sys.argv[1:])\n"
+            "print(json.dumps({str(s): [[{k: float(v) for k, v in d.items()}\n"
+            "                            for d in part[:2]] for part in r]\n"
+            "                  for s, r in res.items()}))\n")
+
+
+def json_lines(lines):
+    """The lines of a subprocess's output that hold a JSON object."""
+    return [ln for ln in lines if ln.startswith("{")]
+
+
+def best_s(fn, reps: int = 5) -> float:
+    best = float("inf")
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        best = min(best, time.perf_counter() - t0)
+    return best
+
+
+def gather_checks(torch, np, config, rng, eval_data, failed) -> None:
+    """Phase 9 (a): the C++ window gather against the numpy one at the train
+    batch's shapes (flip and zero-fill on) and on phase 5's eval batches; the
+    eval batcher's seconds per stride with each."""
+    from unittest import mock
+
+    from uplift_upsample_torch.data import fast_batcher, native
+    from uplift_upsample_torch.eval import build_eval_generator
+
+    t0 = time.perf_counter()
+    lib = native.build()
+    native.gather_windows(np.zeros((1, 17, 2), np.float32), np.zeros((1, 1), np.int64))
+    log(f"phase 9 (a) native gather: {lib.name} built and loaded in "
+        f"{time.perf_counter() - t0:.2f} s (g++ {' '.join(native.CXX_FLAGS)}); "
+        f"{os.cpu_count()} host cores, {torch.get_num_threads()} torch threads")
+    b, n, p = config.BATCH_SIZE, config.SEQUENCE_LENGTH, config.NUM_KEYPOINTS
+    perm = np.asarray(config.AUGM_FLIP_KEYPOINT_ORDER, np.int32)
+    # phase 4's batch (B windows of N frames, 2D and 3D), windows of 351 and
+    # the eval's central 3D rows
+    for bn, c in (((b, n), 2), ((b, n), 3), ((b, 351), 2), ((b, 1), 3)):
+        src = rng.normal(size=(50_000, p, c)).astype(np.float32)
+        idx = rng.integers(0, len(src), size=bn)
+        zero = rng.random(bn) < 0.1
+        flip = (np.arange(bn[0]) % 2).astype(np.uint8)  # in-batch flips
+        args = (src, idx, zero, flip, perm)
+        got, ref = native.gather_windows(*args), native.gather_windows_plain(*args)
+        sign = np.signbit(got) != np.signbit(ref)
+        allowed = np.zeros_like(sign)
+        allowed[..., 0] = (zero & flip[:, None].astype(bool))[..., None]
+        ok = (np.array_equal(got, ref) and not (sign & ~allowed).any()
+              and not got[sign].any())
+        t_native = best_s(lambda: native.gather_windows(*args))
+        t_plain = best_s(lambda: native.gather_windows_plain(*args))
+        # the basis of native.default_threads: the gather on 1-8 threads
+        sweep = {k: best_s(lambda: native.gather_windows(*args, n_threads=k), reps=20)
+                 for k in (1, 2, 3, 4, 6, 8)}
+        log(f"phase 9 (a) gather {bn[0]} x {bn[1]} x {p} x {c} ({got.nbytes / 2 ** 20:.2f} "
+            f"MiB), flip + zero-fill: equal to the numpy gather in value "
+            f"{'ok' if ok else 'FAILED'} ({int(sign.sum())} zeros of another sign, all in "
+            f"channel 0 of zero-filled flipped rows); native {1e3 * t_native:.3f} ms on "
+            f"{native.default_threads(got.nbytes)} threads, numpy {1e3 * t_plain:.3f} ms; "
+            f"by threads " + ", ".join(f"{k}: {1e3 * v:.3f}" for k, v in sweep.items()))
+        if not ok:
+            failed.append(f"native_gather_{bn[1]}x{c}")
+
+    p3, p2 = eval_data[:2]
+    plain = mock.patch.object(fast_batcher, "gather_windows", native.gather_windows_plain)
+    for stride in config.MASK_STRIDE:
+        cfg = config.copy()
+        cfg.MASK_STRIDE = stride
+        gen = build_eval_generator(cfg, p3, p2, "test", verbose=False)
+        count = -(-len(gen) // cfg.BATCH_SIZE)
+        stream = lambda: itertools.islice(fast_batcher.FastH36mBatcher(
+            gen, batch_size=cfg.BATCH_SIZE, central_3d_only=True).batches(), count)
+        # one pass, each batch made by both gathers in turn (the epoch plan
+        # in each stream's first batch): the batcher's seconds with each
+        ok, t_native, t_plain, ours, ref = True, 0.0, 0.0, stream(), stream()
+        for _ in range(count):
+            t1 = time.perf_counter()
+            got = next(ours)
+            t2 = time.perf_counter()
+            with plain:
+                want = next(ref)
+            t_native, t_plain = t_native + t2 - t1, t_plain + time.perf_counter() - t2
+            ok = ok and all(np.array_equal(x, y) for x, y in zip(got, want))
+        log(f"phase 9 (a) eval batcher (phase 5's data), MASK_STRIDE {stride}: {count} "
+            f"batches, {len(gen)} eval samples: native gather {t_native:.3f} s, numpy "
+            f"{t_plain:.3f} s per stride; every batch equal {'ok' if ok else 'FAILED'}")
+        if not ok:
+            failed.append(f"native_gather_eval_{stride}")
+
+
+def serving_call(torch, np, seed: int):
+    """One call of a seeded h36m_351 serving step on a seeded batch, warmed
+    up (the function that phase 9 (d) traces)."""
+    from uplift_upsample_torch.configs import get_config
+    from uplift_upsample_torch.models import build_uplift_upsample_transformer
+    from uplift_upsample_torch.predict import make_predict_step
+
+    config = get_config("h36m_351")
+    config.MASK_STRIDE = config.MASK_STRIDE[0]
+    model = build_uplift_upsample_transformer(config, device="cuda", seed=seed)
+    step = make_predict_step(model, config, flip_tta=True)
+    b, n, p = config.BATCH_SIZE, config.SEQUENCE_LENGTH, config.NUM_KEYPOINTS
+    rng = np.random.default_rng(seed)
+    xb = torch.from_numpy((rng.normal(size=(b, n, p, 2)) * 0.3).astype(np.float32)).cuda()
+    smb = torch.ones((b, n), dtype=torch.bool, device="cuda")
+    step(xb, smb)
+    torch.cuda.synchronize()
+    return lambda: step(xb, smb)
+
+
+def trace_kernels(path: str):
+    """The kernel records of a Chrome trace: their number, and K1-K3's by
+    name substring."""
+    with open(path) as f:
+        names = [e.get("name", "") for e in json.load(f)["traceEvents"]
+                 if e.get("cat") == "kernel"]
+    return len(names), {k: {s: sum(s in name for name in names) for s in subs}
+                        for k, subs in TRACE_KERNELS.items()}
+
+
+def trace_serving_call(logdir: str, seed: int) -> None:
+    """Phase 9 (d), run in a fresh process: `utils.profiling.trace` (strict)
+    around one serving call; prints the trace file, its size, its kernel
+    records and K1-K3's by name (JSON)."""
+    import numpy as np
+    import torch
+
+    from uplift_upsample_torch.utils.profiling import trace
+
+    call = serving_call(torch, np, seed)
+    with trace(logdir) as prof:
+        call()
+    events, kernels = trace_kernels(prof.trace_file)
+    print(json.dumps({"file": os.path.basename(prof.trace_file),
+                      "mb": os.path.getsize(prof.trace_file) / 1e6, "events": events,
+                      "lost": prof.lost_kernels, "kernels": kernels}))
+
+
+def trace_in_process(torch, np, seed: int) -> None:
+    """Phase 9 (d) in this process, after phases 4 and 5's profiler
+    sessions: one serving call under a plain torch.profiler session, which
+    records from its first kernel, and under `utils.profiling.trace`, which
+    records after a warm-up step; the kernel records of each and the launches
+    whose record each lost. Printed, not held: the count grows with the time
+    since the process's first session."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from uplift_upsample_torch.utils.profiling import lost_kernels, trace
+
+    call = serving_call(torch, np, seed)
+    age = time.perf_counter() - FIRST_PROFILE[0] if FIRST_PROFILE else float("nan")
+    with tempfile.TemporaryDirectory() as logdir:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as plain:
+            call()
+            torch.cuda.synchronize()
+        path = os.path.join(logdir, "plain.pt.trace.json")
+        plain.export_chrome_trace(path)
+        plain_events, plain_lost = trace_kernels(path)[0], lost_kernels(path)
+        with trace(logdir, strict=False) as prof:
+            call()
+        events = trace_kernels(prof.trace_file)[0]
+    log(f"phase 9 (d) in this process, {age:.1f} s after its first profiler session, one "
+        f"serving call: a plain torch.profiler session {plain_events} kernel records, "
+        f"{plain_lost} launches without theirs; utils.profiling.trace (warm-up step) "
+        f"{events} kernel records, {prof.lost_kernels} launches without theirs")
+
+
+def tools_phase(args, torch, np, rng, failed, eval_data, tmp) -> None:
+    """Phase 9: (a) the native gather; (b) npz weights: save_npz / load_npz
+    bit for bit, then the predict and eval CLIs from `--weights w.npz` as
+    subprocesses against the same model in process; (c) `device_timer` on K2
+    beside `time_ms`; (d) `trace` around one serving call. Each with its
+    wall time."""
+    from uplift_upsample_torch.configs import get_config
+    from uplift_upsample_torch.eval import run_eval
+    from uplift_upsample_torch.models import build_uplift_upsample_transformer
+    from uplift_upsample_torch.models.bench_forward import prepare_fused_params
+    from uplift_upsample_torch.ops.temporal import temporal_stack
+    from uplift_upsample_torch.predict import predict_sequence
+    from uplift_upsample_torch.utils.profiling import device_timer
+    from uplift_upsample_torch.utils.weights_npz import load_npz, save_npz
+
+    config = get_config("h36m_351")
+    t0 = time.perf_counter()
+    gather_checks(torch, np, config, rng, eval_data, failed)
+    log(f"phase 9 (a) wall {time.perf_counter() - t0:.1f} s")
+
+    # (b) npz weights on the card
+    t0 = time.perf_counter()
+    model = build_uplift_upsample_transformer(config, device="cuda", seed=args.seed)
+    weights = os.path.join(tmp, "h36m_351.npz")
+    save_npz(weights, None, model)
+    fresh = load_npz(weights, build_uplift_upsample_transformer(config, device="cuda",
+                                                                seed=args.seed + 1))
+    same = _same(torch, model.state_dict(), fresh.state_dict())
+    del fresh
+    log(f"phase 9 (b) save_npz -> load_npz into a fresh h36m_351 on the card: "
+        f"{os.path.getsize(weights) / 1e6:.1f} MB, state equal bit for bit "
+        f"{'ok' if same else 'FAILED'}")
+    if not same:
+        failed.append("npz_round_trip")
+
+    pconfig = config.copy()
+    pconfig.MASK_STRIDE = pconfig.MASK_STRIDE[0]  # the predict CLI's choice
+    p = pconfig.NUM_KEYPOINTS
+    kps = (np.cumsum(rng.normal(size=(FRAMES, p, 2)) * 0.01, axis=0)
+           + rng.normal(size=(1, p, 2)) * 0.3).astype(np.float32)
+    inp, out = os.path.join(tmp, "kps2d.npz"), os.path.join(tmp, "poses3d.npz")
+    np.savez(inp, positions_2d={"seq": kps})
+    rc, lines, wall = run_cli([sys.executable, "-m", "uplift_upsample_torch.predict",
+                               "--weights", weights, "--config", "h36m_351",
+                               "--input", inp, "--output", out])
+    ok = rc == 0 and os.path.exists(out)
+    gap = tol = float("nan")
+    if ok:
+        got = np.load(out)["seq"]
+        ref = predict_sequence(model, pconfig, kps)
+        gap = float(np.abs(got - ref).max())
+        tol = 2e-4 * max(1.0, float(np.abs(ref).max()))
+        ok = got.shape == (FRAMES, p, 3) and bool(np.isfinite(got).all()) and gap <= tol
+    log(f"phase 9 (b) python -m uplift_upsample_torch.predict --weights {weights}: exit {rc}, "
+        f"{FRAMES} frames, max |gap| to predict_sequence in process {gap:.3e} (limit "
+        f"{tol:.3e}) {'ok' if ok else 'FAILED'}; wall {wall:.1f} s")
+    if not ok:
+        log("\n".join(lines[-30:]))
+        failed.append("predict_cli_npz")
+
+    p3, p2 = eval_data[:2]
+    rc, lines, wall = run_cli([sys.executable, "-c", EVAL_CLI, "--weights", weights,
+                               "--config", "h36m_351", "--dataset", p3, "--dataset_2d", p2,
+                               "--forced_mask_stride", "10"])
+    cfg = config.copy()
+    cfg.MASK_STRIDE = 10
+    with contextlib.redirect_stdout(io.StringIO()), contextlib.redirect_stderr(io.StringIO()):
+        mine = eval_metrics(run_eval(cfg, "h36m", p3, p2, "test", model=model))
+    gap, ok = float("nan"), False
+    if rc == 0 and json_lines(lines):
+        sub = json.loads(json_lines(lines)[-1])["10"]
+        theirs = {f"{sec}/{kind}/{m}": v for sec, part in zip(("all", "kf"), sub)
+                  for kind, d in zip(("frame", "aw"), part) for m, v in d.items()}
+        gap = max(abs(theirs[k] - mine[k]) for k in mine) if theirs.keys() == mine.keys() \
+            else float("inf")
+        ok = gap <= 1e-6
+    attribution = next((ln for ln in lines if ln.startswith("Eval wall attribution")), "")
+    log(f"phase 9 (b) the eval CLI (main) --weights {os.path.basename(weights)} "
+        f"--forced_mask_stride 10 in a subprocess: exit {rc}, largest gap over {len(mine)} "
+        f"metrics to run_eval in process {gap:.3e} mm (limit 1e-6) {'ok' if ok else 'FAILED'}"
+        f"; wall {wall:.1f} s; {attribution}")
+    if not ok:
+        log("\n".join(lines[-30:]))
+        failed.append("eval_cli_npz")
+    log(f"phase 9 (b) wall {time.perf_counter() - t0:.1f} s")
+
+    # (c) device_timer against time_ms on K2 at 1,024 windows
+    t0 = time.perf_counter()
+    fp = prepare_fused_params(model)
+    windows, n, c = 2 * config.BATCH_SIZE, config.SEQUENCE_LENGTH, config.TEMPORAL_EMBED_DIM
+    x = torch.from_numpy((rng.normal(size=(windows, n, c)) * 0.5).astype(np.float32)).cuda()
+    km = torch.from_numpy(((np.arange(n)[None] + rng.integers(0, 10, size=(windows, 1)))
+                           % 10 != 0).astype(np.float32)).cuda()
+    k2 = lambda a: temporal_stack(a, fp["temporal"], km, num_heads=model.num_heads,
+                                  first_masked_blocks=model.first_strided_token_attention_layer)
+    dt_ms = 1e3 * device_timer(k2, x)
+    ev_ms = time_ms(torch, lambda: k2(x), 5)
+    gap_pct = 100 * (dt_ms - ev_ms) / ev_ms
+    log(f"phase 9 (c) K2 on {windows} windows: device_timer {dt_ms:.3f} ms per call (slope "
+        f"of 16 and 4 chained calls, each with the carry's add), time_ms {ev_ms:.3f} ms: "
+        f"gap {gap_pct:+.1f} % ({'within' if abs(gap_pct) <= 10 else 'OUTSIDE'} 10 %); wall "
+        f"{time.perf_counter() - t0:.1f} s")
+    del x, km, fp
+
+    # (d) trace around one serving call in a fresh process (strict: every
+    # launch's kernel recorded), then plain and warmed-up sessions in this one
+    t0 = time.perf_counter()
+    logdir = os.path.join(tmp, "trace")
+    rc, lines, wall = run_cli([sys.executable, "-c", "import chip_smoke; "
+                               f"chip_smoke.trace_serving_call({logdir!r}, {args.seed})"])
+    found = json.loads(json_lines(lines)[-1]) if rc == 0 and json_lines(lines) else {}
+    ok = (bool(found) and found["lost"] == 0
+          and all(n for subs in found["kernels"].values() for n in subs.values()))
+    log(f"phase 9 (d) utils.profiling.trace of one serving call ({2 * config.BATCH_SIZE} "
+        f"windows) in a fresh process: exit {rc}, {found.get('file', 'no file')} "
+        f"({found.get('mb', 0):.1f} MB), {found.get('events', 0)} kernel records, "
+        f"{found.get('lost')} launches without theirs; by kernel {found.get('kernels')} "
+        f"{'ok' if ok else 'FAILED'}; wall {wall:.1f} s")
+    if not ok:
+        log("\n".join(lines[-30:]))
+        failed.append("trace_serving_call")
+    trace_in_process(torch, np, args.seed)
+    log(f"phase 9 (d) wall {time.perf_counter() - t0:.1f} s")
+    del model
+    torch.cuda.empty_cache()
 
 
 def main(argv=None) -> int:
@@ -2212,7 +2553,9 @@ def main(argv=None) -> int:
 
     # ---- phase 5: the eval protocol end to end -------------------------------
     starts.append(("5", time.perf_counter()))
-    eval_counts, pallas_counts = eval_phase(args, torch, np, rng, failed)
+    data_dir = tempfile.TemporaryDirectory()  # phase 5's data, read again in phase 9
+    eval_counts, pallas_counts, eval_data = eval_phase(args, torch, np, rng, failed,
+                                                       data_dir.name)
 
     # ---- phase 6: the training CLI end to end --------------------------------
     starts.append(("6", time.perf_counter()))
@@ -2235,8 +2578,13 @@ def main(argv=None) -> int:
     for r in results.values():
         r["launches"] = counts_by_phase[r.pop("phase")].get(r.pop("counter"), 0)
 
-    # ---- phase 9: report -----------------------------------------------------
+    # ---- phase 9: the native gather, npz weights, profiling -------------------
     starts.append(("9", time.perf_counter()))
+    tools_phase(args, torch, np, rng, failed, eval_data, data_dir.name)
+    data_dir.cleanup()
+
+    # ---- phase 10: report ----------------------------------------------------
+    starts.append(("10", time.perf_counter()))
     log("phase wall times: " + ", ".join(
         f"{name} {t1 - t0_:.1f} s" for (name, t0_), (_, t1) in zip(starts, starts[1:])))
     if failed:

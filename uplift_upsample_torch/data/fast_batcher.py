@@ -4,8 +4,7 @@ AMASSSequenceGenerator (numpy, host side).
 Copied from the JAX package's `data/fast_batcher.py`: bit-identical to the
 per-item generators (same RNG streams, same outputs), but all RNG decisions
 of an epoch are drawn in one vectorized pass and a batch is materialised with
-one window gather. The gather is the numpy path of the JAX package's
-`data/native.py`; the ctypes binding to `native/` is ROADMAP A2.
+one window gather, the C++ gather of `data/native.py` (as in the JAX package).
 """
 
 from __future__ import annotations
@@ -15,28 +14,7 @@ from typing import Iterator, Optional
 import numpy as np
 
 from .generator import AMASSSequenceGenerator, H36mSequenceGenerator
-
-
-def gather_windows(src: np.ndarray, indices: np.ndarray,
-                   zero_mask: Optional[np.ndarray] = None,
-                   do_flip: Optional[np.ndarray] = None,
-                   flip_perm: Optional[np.ndarray] = None) -> np.ndarray:
-    """Gather (B, N, K, C) windows from the concatenated (T, K, C) pose store.
-
-    zero_mask (B, N): True rows are zero-filled (zeros-padding mode).
-    do_flip (B) + flip_perm (K): flipped examples get the joint permutation
-    and x (channel 0) negation.
-    """
-    src = np.ascontiguousarray(src, dtype=np.float32)
-    dst = src[np.asarray(indices, dtype=np.int64)]
-    if zero_mask is not None:
-        dst[zero_mask.astype(bool)] = 0.0
-    if do_flip is not None and flip_perm is not None:
-        sel = do_flip.astype(bool)
-        flipped = dst[sel][:, :, flip_perm]
-        flipped[..., 0] *= -1
-        dst[sel] = flipped
-    return dst
+from .native import gather_windows
 
 
 def _concatenate_store(videos):

@@ -14,8 +14,8 @@ CLI:
 
 On the card (the default) the step runs the kernel path: K1 on the unique
 frames, the s2t Dense, K2, K3 and the plain tail (with `--pallas`, the tail's
-attention through row 11). `--device cpu` runs the plain model. Loading `.h5`
-weights needs h5py.
+attention through row 11). `--device cpu` runs the plain model. `--weights`
+takes a Keras `.h5` (needs h5py) or the npz of `tools/convert_weights.py`.
 
 Data parallel, one process per card (rank 0 prints the results):
     torchrun --nproc-per-node N -m uplift_upsample_torch.eval ...
@@ -47,7 +47,7 @@ from .parallel.mesh import (broadcast_params_, check_data_parallel_devices,
 from .utils.dedup import dedup_rows
 from .utils.eval_protocol import compute_and_log_metrics, interpolate_between_keyframes
 from .utils.time_format import format_time
-from .utils.weights_h5 import load_keras_h5
+from .utils.weights_npz import load_weights
 
 
 def log(*args):
@@ -358,7 +358,7 @@ def run_eval(config: UpliftUpsampleConfig, dataset_name, dataset_path, dataset2d
             config, device=device if dp is None else dp.device)
     if weights_path is not None:
         log(f"Loading weights from {weights_path}")
-        load_keras_h5(weights_path, model)
+        load_weights(weights_path, model)
     model.eval()
     dev = next(model.parameters()).device
     if dp is not None:
@@ -628,7 +628,8 @@ def run_eval(config: UpliftUpsampleConfig, dataset_name, dataset_path, dataset2d
     attributed = sum(timing.values())
     log("Eval wall attribution: "
         + " ".join(f"{k}={v:.1f}s" for k, v in timing.items())
-        + f" other={total - attributed:.1f}s total={total:.1f}s")
+        + f" other={total - attributed:.1f}s total={total:.1f}s "
+        f"gather=native(up to {torch.get_num_threads()} threads)")
     log(f"Finished evaluation in {format_time(total)}")
     return all_frames, keyframes_results
 
@@ -654,7 +655,7 @@ def main(argv=None):
     import argparse
 
     parser = argparse.ArgumentParser(description="3D evaluation on H36m (PyTorch + CUDA).")
-    parser.add_argument("--weights", required=True, help="Path to .h5 weights")
+    parser.add_argument("--weights", required=True, help="Path to .h5 or .npz weights")
     parser.add_argument("--config", required=False, default=None)
     parser.add_argument("--batch_size", required=False, default=None, type=int)
     parser.add_argument("--dataset", required=False, default="./data/data_3d_h36m.npz")

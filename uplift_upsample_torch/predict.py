@@ -11,8 +11,8 @@ linear interpolation in between, optional flip-TTA.
 
 Input npz: either a raw (T, 17, 2) array under 'positions_2d' (single
 sequence) or a dict {name: (T, 17, 2)}. On CUDA the step runs the K1-K3
-kernels; `--device cpu` runs the plain model. Loading `.h5` weights needs
-h5py.
+kernels; `--device cpu` runs the plain model. `--weights` takes a Keras `.h5`
+(needs h5py) or the npz of `tools/convert_weights.py`.
 """
 
 from __future__ import annotations
@@ -31,7 +31,7 @@ from .data.keypoint_order import H36MOrder17POriginalOrder
 from .eval import make_test_step
 from .models import build_uplift_upsample_transformer
 from .utils.eval_protocol import interpolate_between_keyframes
-from .utils.weights_h5 import load_keras_h5
+from .utils.weights_npz import load_weights
 
 
 def make_predict_step(model, config: UpliftUpsampleConfig, flip_tta: bool = True):
@@ -108,7 +108,7 @@ def predict_sequence(model, config: UpliftUpsampleConfig,
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description="2D→3D pose inference")
-    parser.add_argument("--weights", required=True)
+    parser.add_argument("--weights", required=True, help="Path to .h5 or .npz weights")
     parser.add_argument("--config", required=False, default="h36m_351")
     parser.add_argument("--input", required=True, help="npz with 'positions_2d'")
     parser.add_argument("--output", required=True)
@@ -127,7 +127,7 @@ def main(argv=None):
         config.MASK_STRIDE = config.MASK_STRIDE[0]
 
     model = build_uplift_upsample_transformer(config, device=args.device)
-    load_keras_h5(args.weights, model)
+    load_weights(args.weights, model)
     # ONE step shared by every sequence of the run
     step = make_predict_step(model, config, flip_tta=args.flip_tta)
 

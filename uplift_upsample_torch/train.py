@@ -26,14 +26,15 @@ The same flow, log lines, file names and flags as the JAX CLI, plus
     writes checkpoints, `.h5` files, the history sidecar and scalars (a
     barrier follows each write) and prints the log.
 
-One departure: `train_and_validate(..., export_h5=False)` (`--export_h5
+Two departures: `train_and_validate(..., export_h5=False)` (`--export_h5
 false`) writes no `.h5` (its best/last paths are then None; best/last
 tracking and the history sidecar still run). With `export_h5=True` a machine
-without h5py fails before the first step, naming h5py.
+without h5py fails before the first step, naming h5py. And `--weights` also
+takes the npz of `tools/convert_weights.py` (loaded by name, as the `.h5`).
 
 CLI:
     python -m uplift_upsample_torch.train --config cfg.json --out_dir out/ \\
-        [--dataset h36m|amass] [--weights init.h5] [--continue_training true] \\
+        [--dataset h36m|amass] [--weights init.h5|init.npz] [--continue_training true] \\
         [--export_h5 false] [--device cpu]
     torchrun --nproc-per-node N -m uplift_upsample_torch.train ...  (data parallel)
 """
@@ -69,7 +70,8 @@ from .utils import eval_protocol
 from .utils.metric_history import MetricHistory
 from .utils.scalar_log import ScalarLogger
 from .utils.time_format import format_time
-from .utils.weights_h5 import load_keras_h5_by_name, save_keras_h5
+from .utils.weights_h5 import save_keras_h5
+from .utils.weights_npz import load_weights_by_name
 
 CHECKPOINTS_KEPT = 3
 
@@ -89,17 +91,23 @@ class _NoScalars:
         pass
 
 
-def resolve_weight_selector(weight_path, target_extension=".h5"):
-    """Resolve a weight-file prefix (e.g. '<dir>/best_weights') to a file."""
+def resolve_weight_selector(weight_path):
+    """Resolve a weight-file prefix (e.g. '<dir>/best_weights') to a file: the
+    first of its matches by name, `.h5` or `.npz`; matches of both formats
+    raise, since the prefix does not say which is meant."""
     if weight_path is None:
         return None
     if os.path.splitext(weight_path)[1]:
         return weight_path
     weight_dir, selector = os.path.split(weight_path)
     candidates = sorted(s for s in os.listdir(weight_dir)
-                        if s.startswith(selector) and s.endswith(target_extension))
+                        if s.startswith(selector) and s.endswith((".h5", ".npz")))
     if not candidates:
-        raise FileNotFoundError(f"No weights matching {weight_path}*{target_extension}")
+        raise FileNotFoundError(f"No weights matching {weight_path}*.h5|.npz")
+    formats = sorted({os.path.splitext(s)[1] for s in candidates})
+    if len(formats) > 1:
+        raise ValueError(f"{weight_path}* matches weights of {len(formats)} formats "
+                         f"({', '.join(formats)}): name the file")
     return os.path.join(weight_dir, candidates[0])
 
 
@@ -319,7 +327,7 @@ def train_and_validate(config: UpliftUpsampleConfig, out_dir, dataset_name="h36m
         # Name-based partial loading (reference weight_io.py:76-263): layers
         # absent from the file keep their initialization; extra file layers
         # are ignored; both are reported.
-        report = load_keras_h5_by_name(weights, model, verbose=False)
+        report = load_weights_by_name(weights, model, verbose=False)
         report.log(print_fn=log)
 
     opt, lr_schedule, wd_schedule = make_optimizer(config)

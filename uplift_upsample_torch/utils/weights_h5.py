@@ -73,35 +73,44 @@ def _block_params(h5_group, strided: bool) -> Dict[str, Dict]:
     }
 
 
+# flax param keys whose .h5 layer has another name
+_H5_NAMES = {"strided_input_token": "strided_input_token_layer",
+             "masked_token": "learnable_masked_token_layer"}
+
+
+def h5_layer_name(key: str) -> str:
+    """The .h5 layer name of the flax param key `key`."""
+    return _H5_NAMES.get(key, key)
+
+
 def _model_layer_plan(model):
     """Ordered (flax param key, h5 layer name, kind) for every model layer."""
     plan = []
     if model.spatial_depth > 0:
-        plan.append(("keypoint_embedding", "keypoint_embedding", "dense"))
-        plan.append(("spatial_pe", "spatial_pe", "pe"))
+        plan.append(("keypoint_embedding", "dense"))
+        plan.append(("spatial_pe", "pe"))
         for i in range(1, model.spatial_depth + 1):
-            plan.append((f"spatial_block_{i}", f"spatial_block_{i}", "block"))
-        plan.append(("spatial_norm", "spatial_norm", "ln"))
-    plan.append(("temporal_pe", "temporal_pe", "pe"))
-    plan.append(("spatial_to_temporal_fc", "spatial_to_temporal_fc", "dense"))
+            plan.append((f"spatial_block_{i}", "block"))
+        plan.append(("spatial_norm", "ln"))
+    plan.append(("temporal_pe", "pe"))
+    plan.append(("spatial_to_temporal_fc", "dense"))
     if model.has_strided_input:
-        plan.append(("strided_input_token", "strided_input_token_layer", "pe"))
+        plan.append(("strided_input_token", "pe"))
     if model.token_mask_rate > 0 and model.learnable_masked_token:
-        plan.append(("masked_token", "learnable_masked_token_layer", "pe"))
+        plan.append(("masked_token", "pe"))
     for i in range(1, model.temporal_depth + 1):
-        plan.append((f"temporal_block_{i}", f"temporal_block_{i}", "block"))
+        plan.append((f"temporal_block_{i}", "block"))
     for i in range(1, len(model.strides) + 1):
-        plan.append((f"strided_temporal_pe_{i}", f"strided_temporal_pe_{i}", "pe"))
-        plan.append((f"strided_temporal_block_{i}", f"strided_temporal_block_{i}",
-                     "strided_block"))
+        plan.append((f"strided_temporal_pe_{i}", "pe"))
+        plan.append((f"strided_temporal_block_{i}", "strided_block"))
     if model.full_output and model.temporal_depth > 0:
         if model.output_bn:
-            plan.append(("temporal_norm", "temporal_norm", "bn"))
-        plan.append(("temporal_fc", "temporal_fc", "dense"))
+            plan.append(("temporal_norm", "bn"))
+        plan.append(("temporal_fc", "dense"))
     if model.output_bn:
-        plan.append(("strided_temporal_norm", "strided_temporal_norm", "bn"))
-    plan.append(("strided_temporal_fc", "strided_temporal_fc", "dense"))
-    return plan
+        plan.append(("strided_temporal_norm", "bn"))
+    plan.append(("strided_temporal_fc", "dense"))
+    return [(key, h5_layer_name(key), kind) for key, kind in plan]
 
 
 def read_keras_h5(path: str, model) -> Dict:
@@ -370,6 +379,17 @@ def load_keras_h5_by_name(path: str, model, transform=None, skip_mismatch: bool 
     is_bn = lambda v: isinstance(v, dict) and "params" in v and "batch_stats" in v
     params_loaded = {k: (v["params"] if is_bn(v) else v) for k, v in loaded.items()}
     bn_loaded = {k: v["batch_stats"] for k, v in loaded.items() if is_bn(v)}
+    load_merged(params_loaded, bn_loaded, model, report, transform, skip_mismatch)
+    if verbose:
+        report.log()
+    return report
+
+
+def load_merged(params_loaded: Dict, bn_loaded: Dict, model, report: WeightLoadReport,
+                transform=None, skip_mismatch: bool = False) -> None:
+    """Merge the layers read from a file (flax-named params and batch stats)
+    into `model`'s own weights leaf by leaf, recording into `report`, and
+    load the result: what the file lacks keeps the model's values."""
     template = params_to_jax({}, model)
     variables = {"params": _merge_with_template(params_loaded, template["params"], "",
                                                 transform, report, skip_mismatch)}
@@ -381,9 +401,6 @@ def load_keras_h5_by_name(path: str, model, transform=None, skip_mismatch: bool 
     state = params_from_jax(variables)
     state = {k: v for k, v in state.items() if not k.endswith("num_batches_tracked")}
     model.load_state_dict(state, strict=False)
-    if verbose:
-        report.log()
-    return report
 
 
 # ---------------------------------------------------------------------------
