@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port's serving, training, eval, CLI and data-parallel paths on one card.
+"""Smoke run of the PyTorch port's serving, training, eval, CLI, data- and tensor-parallel paths on one card.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -115,7 +115,22 @@ Phases (one line each; any failure ends the run with a non-zero exit):
      process, the kernel records of a plain profiler session and of
      `trace` around the same call (printed: a plain session here loses its
      first launches' records);
- 10. one JSON line of per-kernel numbers, the card line again, and the last
+ 10. tensor parallel (`parallel/sharding.py`, `init_mesh`), h36m_351 full
+     width, two gloo ranks sharing the card (dp 1 x mp 2), each sub-phase
+     with its wall time: (a) K2 (4 blocks, key mask in block 1) and K3 split
+     over the ranks on 64 windows against the unsplit kernels (out_check's
+     tolerance), the split launches counted on each rank, each launch at
+     mp rank 0's widths timed beside the same launch at full width, the
+     split passes and one all-reduce timed on the ranks; (b) the TP serving
+     forward (fused full, shared spatial, flip-TTA, 64 windows) against one
+     process (1e-4) and 3 TP train steps at B=64 with TRAIN_FUSED_STRIDED
+     on against one process (loss rtol 2e-5, params and EMA atol 2e-4),
+     the replicated parameters bit-identical over the ranks and K1 and
+     K4-K6 launched on each (on gathered weights); (c) `python -m
+     uplift_upsample_torch.tools.dryrun_multichip --devices 4` (dp 2 x mp 2,
+     4 gloo ranks on the card): exit 0 with MULTICHIP_CORE_OK, each stage's
+     wall time or its budget skip; (d) the phase's wall time;
+ 11. one JSON line of per-kernel numbers, the card line again, and the last
      line `{"ok": true, "device": {...}}`.
 
 It needs a CUDA card and the repository checkout around it; without either it
@@ -1768,6 +1783,348 @@ def tools_phase(args, torch, np, rng, failed, eval_data, tmp) -> None:
     torch.cuda.empty_cache()
 
 
+# ---- phase 10: tensor parallel ----------------------------------------------
+
+TP_RANKS = 2     # gloo ranks sharing the card: dp = 1, mp = 2
+TP_WINDOWS = 64  # (a)'s split passes and (b)'s serving forward
+TP_BATCH = 64    # (b)'s train batch
+TP_STEPS = 3
+
+
+def tp_batches(np, rng, config):
+    """TP_STEPS random train batches of TP_BATCH windows, stride masks from
+    the shipped mask-stride mix (5, 10, 20 over the sequence stride 5)."""
+    b, n, k = TP_BATCH, config.SEQUENCE_LENGTH, config.NUM_KEYPOINTS
+    out = []
+    for _ in range(TP_STEPS):
+        strides = rng.choice([1, 2, 4], size=b)
+        sm = (np.arange(n)[None] + rng.integers(0, 4, size=(b, 1))) % strides[:, None] == 0
+        out.append((rng.normal(size=(b, n, k, 3)).astype(np.float32) * 0.1,
+                    rng.normal(size=(b, n, k, 2)).astype(np.float32) * 0.1,
+                    np.ones((b, n), np.float32), np.zeros((b, 11), np.float32),
+                    np.zeros(b, np.int32), np.zeros(b, np.int32), np.zeros(b, np.int32), sm))
+    return out
+
+
+def tp_train_config(get_config):
+    config = get_config("h36m_351")  # mask strides [5, 10, 20], droppath, AdamW, EMA
+    config.update_from(dict(BATCH_SIZE=TP_BATCH, TRAIN_FUSED_STRIDED=True))
+    return config
+
+
+def tp_train_steps(torch, config, seed, batches, device, mesh=None):
+    """TP_STEPS train steps from the seeded weights (with `mesh`, its mp
+    rank's shard): (losses, the local state, the whole params and EMA on the
+    host, the launch counts of the steps)."""
+    from uplift_upsample_torch.models import build_uplift_upsample_transformer
+    from uplift_upsample_torch.ops import cuda_lib
+    from uplift_upsample_torch.parallel import make_optimizer, make_train_step
+    from uplift_upsample_torch.parallel.sharding import gather_params_tp
+
+    tp = None if mesh is None else mesh.tp
+    model = build_uplift_upsample_transformer(config, device=device, seed=seed, tp=tp)
+    opt, _, _ = make_optimizer(config)
+    state = opt.init(model, ema=True)
+    step = make_train_step(model, opt, config, device=device, dp=mesh, tp=tp)
+    torch.cuda.synchronize()
+    cuda_lib.reset_launches()
+    losses = [float(step(state, batch)[1]) for batch in batches]
+    counts = dict(cuda_lib.LAUNCHES)
+    local = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    whole = lambda d: {k: v.cpu() for k, v in gather_params_tp(d, tp).items()}
+    return losses, local, whole(dict(model.state_dict())), whole(state.ema), counts
+
+
+def tp_rank(rank, world, store, seed, data, out_dir):
+    """Phase 10 (a) and (b) as mp rank `rank` of `world` gloo ranks on the one
+    card (dp = 1): K2 and K3 split over the ranks on (a)'s input, the split
+    passes and the all-reduce timed; then the TP serving forward on (b)'s
+    shared windows and TP_STEPS TP train steps. Saves what it computed,
+    with the launch counts of each part, to out_dir/rank<r>.pt."""
+    import torch
+
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
+                      LOCAL_WORLD_SIZE=str(world))
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))  # the ranks share the host
+    from uplift_upsample_torch.configs import get_config
+    from uplift_upsample_torch.eval import make_test_step
+    from uplift_upsample_torch.models import build_uplift_upsample_transformer
+    from uplift_upsample_torch.models.bench_forward import prepare_fused_params
+    from uplift_upsample_torch.ops import cuda_lib
+    from uplift_upsample_torch.ops.strided import strided_block1
+    from uplift_upsample_torch.ops.temporal import temporal_stack
+    from uplift_upsample_torch.parallel.mesh import init_mesh
+    from uplift_upsample_torch.parallel.sharding import all_reduce_sum
+
+    mesh = init_mesh(1, world, device="cuda", backend="gloo", init_method=store)
+    tp, dev = mesh.tp, mesh.device
+    config = get_config("h36m_351")
+    model = build_uplift_upsample_transformer(config, device=dev, seed=seed, tp=tp)
+    fp = prepare_fused_params(model)
+    heads, s0, pads = model.num_heads, model.strides[0], model.paddings[0]
+    y, key_mask = (t.to(dev) for t in data["split"])
+    k2 = lambda: temporal_stack(y, fp["temporal"], key_mask, num_heads=heads,
+                                first_masked_blocks=1, tp=tp)
+    k3 = lambda t: strided_block1(t, fp["strided"], num_heads=heads, stride=s0, paddings=pads,
+                                  tp=tp)
+    torch.cuda.synchronize()
+    cuda_lib.reset_launches()
+    t_out = k2()
+    s_out = k3(t_out)
+    torch.cuda.synchronize()
+    out = dict(split=(t_out.cpu(), s_out.cpu()), split_counts=dict(cuda_lib.LAUNCHES))
+    # both ranks time the same collectives in step; the card is shared
+    out["split_ms"] = dict(k2=time_ms(torch, k2, 5), k3=time_ms(torch, lambda: k3(t_out), 5),
+                           all_reduce=time_ms(torch, lambda: all_reduce_sum(tp, t_out), 10))
+
+    uq, win_idx, sm = (t.to(dev) for t in data["shared"])
+    step = make_test_step(model, flip_tta=True, flip_lr_indices=config.AUGM_FLIP_KEYPOINT_ORDER,
+                          fused="full", shared_spatial=True, tp=tp)
+    torch.cuda.synchronize()
+    cuda_lib.reset_launches()
+    central = step(uq, win_idx, sm)[1]
+    torch.cuda.synchronize()
+    out.update(serve=central.cpu(), serve_counts=dict(cuda_lib.LAUNCHES),
+               serve_ms=time_ms(torch, lambda: step(uq, win_idx, sm), 3))
+    del model, fp, step
+    t0 = time.perf_counter()
+    out["train"] = tp_train_steps(torch, tp_train_config(get_config), seed, data["batches"],
+                                  dev, mesh)
+    torch.cuda.synchronize()
+    out["train_s"] = time.perf_counter() - t0
+    torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    mesh.close()
+
+
+def tp_launch_times(torch, rand, model, fp, windows, n):
+    """(name, split ms, full-width ms) of each launch of K2's and K3's blocks
+    at mp rank 0's widths beside the same launch at full width, on `windows`
+    windows, from the rank's operands (`shard_params_tp`), in this process
+    with nothing else on the card."""
+    from uplift_upsample_torch.ops.strided import stack_strided_block1_params, strided_conv
+    from uplift_upsample_torch.ops.temporal import gemm, stack_temporal_params, window_attention
+    from uplift_upsample_torch.parallel.sharding import shard_params_tp
+
+    local = shard_params_tp({k: v.detach() for k, v in model.state_dict().items()}, 0, 2)
+    lt, ls = stack_temporal_params(local, model.temporal_depth), stack_strided_block1_params(local)
+    ft, fs = fp["temporal"], fp["strided"]
+    rows, c, heads = windows * n, model.temporal_d_model, model.num_heads
+    x, mask = rand(rows, c), (torch.rand((windows, n), device="cuda") < 0.5).float()
+    out = []
+
+    def pair(name, split_fn, full_fn):
+        out.append((name, time_ms(torch, split_fn, 20), time_ms(torch, full_fn, 20)))
+
+    def product(name, w, b, **kw):  # mp rank 0's epilogue: the bias (and the residual)
+        a_l, a_f = rand(rows, lt[w].shape[1]), rand(rows, ft[w].shape[1])
+        pair(name, lambda: gemm(a_l, lt[f"{w}_tc"][0], lt[b][0], counter=None, **kw),
+             lambda: gemm(a_f, ft[f"{w}_tc"][0], ft[b][0], counter=None, **kw))
+
+    product("qkv", "wqkv", "bqkv")
+    product("proj (+ bp + h)", "wp", "bp", residual=x)
+    product("fc1 + relu", "w1", "b1", relu=True)
+    product("fc2 (+ b2 + h)", "w2", "b2", residual=x)
+    qkv_l, qkv_f = rand(rows, 3 * c // 2), rand(rows, 3 * c)
+    pair("attention", lambda: window_attention(qkv_l, mask, windows=windows, n=n,
+                                               num_heads=heads // 2, counter=None),
+         lambda: window_attention(qkv_f, mask, windows=windows, n=n, num_heads=heads,
+                                  counter=None))
+    h1_l, h1_f = (torch.relu(rand(windows, n, ops["w1"].shape[1])) for ops in (ls, fs))
+    xs = rand(windows, n, c)
+    kw = dict(stride=model.strides[0], paddings=model.paddings[0], counter=None)
+    pair("conv (+ bc + crop)", lambda: strided_conv(h1_l, xs, ls, **kw),
+         lambda: strided_conv(h1_f, xs, fs, **kw))
+    return out
+
+
+def tp_phase(args, torch, np, rng, failed) -> None:
+    """Phase 10: tensor parallelism at h36m_351 full width on the one card:
+    (a) K2 and K3 split over TP_RANKS gloo ranks against the unsplit kernels,
+    the split launches timed beside the full-width ones; (b) the TP serving
+    forward and TP_STEPS TP train steps against one process; (c) the dry-run
+    tool over 4 gloo ranks; (d) the phase's wall time."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    from uplift_upsample_torch.configs import get_config
+    from uplift_upsample_torch.eval import make_test_step
+    from uplift_upsample_torch.models import build_uplift_upsample_transformer
+    from uplift_upsample_torch.models.bench_forward import prepare_fused_params
+    from uplift_upsample_torch.ops.strided import (output_length, stack_strided_block1_params,
+                                                   strided_block1)
+    from uplift_upsample_torch.ops.temporal import stack_temporal_params, temporal_stack
+    from uplift_upsample_torch.parallel.sharding import param_spec, shard_params_tp
+    from uplift_upsample_torch.utils.dedup import dedup_rows
+
+    t_phase = time.perf_counter()
+    card = card_line()
+    log(f"phase 10 card: {card}")
+    config = get_config("h36m_351")
+    n, k = config.SEQUENCE_LENGTH, config.NUM_KEYPOINTS
+    model = build_uplift_upsample_transformer(config, device="cuda", seed=args.seed)
+    fp = prepare_fused_params(model)
+    heads, s0, pads = model.num_heads, model.strides[0], model.paddings[0]
+    depth = model.temporal_depth
+
+    def rand(*shape, scale=0.5):
+        return torch.from_numpy((rng.normal(size=shape) * scale).astype(np.float32)).cuda()
+
+    # (a)'s input: the temporal stack's input and its key mask (stride 5)
+    y = rand(TP_WINDOWS, n, model.temporal_d_model)
+    sm_a = (np.arange(n)[None] + rng.integers(0, 5, size=(TP_WINDOWS, 1))) % 5 == 0
+    key_mask = torch.from_numpy(1.0 - sm_a.astype(np.float32)).cuda()
+    k2 = lambda: temporal_stack(y, fp["temporal"], key_mask, num_heads=heads,
+                                first_masked_blocks=1)
+    ref_t = k2()
+    k3 = lambda: strided_block1(ref_t, fp["strided"], num_heads=heads, stride=s0, paddings=pads)
+    ref_s = k3()
+    unsplit_ms = dict(k2=time_ms(torch, k2, 5), k3=time_ms(torch, k3, 5))
+    # the least time of one rank's share of the split passes (half of every
+    # product, the attention included, in 3xTF32; its operands read once)
+    c, hid, rows = model.temporal_d_model, int(model.temporal_d_model * config.MLP_RATIO), \
+        TP_WINDOWS * n
+    n_out = output_length(n, s0, pads)
+    local = shard_params_tp({key: v.detach() for key, v in model.state_dict().items()}, 0, 2)
+    split_bound = dict(
+        k2=bound_ms(0, (2 * y.numel() + key_mask.numel()) * F32
+                    + ops_bytes(stack_temporal_params(local, depth)),
+                    tc_flops=depth * (rows * 2 * c * (3 * c + c + 2 * hid)
+                                      + TP_WINDOWS * 4 * n * n * c) / 2),
+        k3=bound_ms(0, (y.numel() + ref_s.numel()) * F32
+                    + ops_bytes(stack_strided_block1_params(local)),
+                    tc_flops=(rows * 2 * c * (3 * c + c + hid) + TP_WINDOWS * 4 * n * n * c
+                              + TP_WINDOWS * n_out * 2 * 3 * hid * c) / 2))
+    for windows in (TP_WINDOWS, 1024):
+        t0 = time.perf_counter()
+        launches = tp_launch_times(torch, rand, model, fp, windows, n)
+        log(f"phase 10 (a) launches at mp rank 0's widths beside full width, {windows} windows "
+            f"({card}): " + "; ".join(f"{name} {a:.4f} ms vs {b:.4f}" for name, a, b in launches)
+            + f"; wall {time.perf_counter() - t0:.1f} s")
+
+    # (b)'s inputs: TP_WINDOWS overlapping windows of masked unique frames, train batches
+    x2d = rng.normal(size=(TP_WINDOWS + n - 1, k, 2)).astype(np.float32) * 0.3
+    win = np.arange(TP_WINDOWS)[:, None] + np.arange(n)
+    sm_b = (win % 5 == 0)
+    uniq, inv = dedup_rows((x2d[win] * sm_b[..., None, None]).reshape(TP_WINDOWS * n, -1))
+    uq = np.zeros((-(-len(uniq) // 8) * 8, k, 2), np.float32)
+    uq[:len(uniq)] = uniq.reshape(-1, k, 2)
+    shared = tuple(torch.from_numpy(a) for a in (uq, inv.reshape(TP_WINDOWS, n).astype(np.int64),
+                                                 sm_b))
+    serve = make_test_step(model, flip_tta=True, flip_lr_indices=config.AUGM_FLIP_KEYPOINT_ORDER,
+                           fused="full", shared_spatial=True)
+    serve_ref = serve(*(t.cuda() for t in shared))[1].cpu()
+    serve_ref_ms = time_ms(torch, lambda: serve(*(t.cuda() for t in shared)), 3)
+    batches = tp_batches(np, rng, config)
+    t0 = time.perf_counter()
+    ref = tp_train_steps(torch, tp_train_config(get_config), args.seed, batches, "cuda")
+    ref_s_train = time.perf_counter() - t0
+    data = dict(split=(y.cpu(), key_mask.cpu()), shared=shared, batches=batches)
+    del model, fp, serve, local
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ctx = mp.start_processes(tp_rank, nprocs=TP_RANKS, join=False, start_method="spawn",
+                                 args=(TP_RANKS, f"file://{tmp}/store", args.seed, data, tmp))
+        try:
+            while not ctx.join(timeout=5.0):
+                if time.perf_counter() - t0 > 240:
+                    raise TimeoutError(f"{TP_RANKS} ranks still running after 240 s")
+            ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+                     for r in range(TP_RANKS)]
+        except Exception as e:  # the phase fails; no rank's result is used
+            log(f"phase 10 (a)/(b): the {TP_RANKS} ranks FAILED: {type(e).__name__}: {e}")
+            failed.append("tp_ranks")
+            ranks = None
+        finally:
+            for proc in ctx.processes:
+                if proc.is_alive():
+                    proc.kill()
+                    proc.join(10)
+        spawn_s = time.perf_counter() - t0
+    if ranks is not None:
+        # (a) the split passes against the unsplit kernels
+        checks = [out_check(torch, r["split"][i], got.cpu()) for r in ranks
+                  for i, got in enumerate((ref_t, ref_s))]
+        want = dict(temporal_stack=7 * depth, strided_block1=7)
+        counted = all(r["split_counts"].get(key, 0) == v for r in ranks for key, v in want.items())
+        ok = all(c_[2] for c_ in checks) and counted
+        log(f"phase 10 (a) K2 ({depth} blocks, key mask in block 1) and K3 "
+            f"split over {TP_RANKS} gloo ranks on one card, {TP_WINDOWS} windows: largest error "
+            f"against the unsplit kernels {max(c_[0] for c_ in checks):.3e} (limit "
+            f"{checks[0][1]}); launches per rank "
+            + "; ".join(str({key: r["split_counts"].get(key, 0) for key in
+                             ("temporal_stack", "strided_block1", "gemm_f32",
+                              "window_attention_f32", "layernorm_f32", "strided_conv_f32")})
+                        for r in ranks)
+            + f" (want {want}); split pass ms per rank (both ranks at once, all-reduces through "
+            f"the host): " + "; ".join(
+                f"K2 {r['split_ms']['k2']:.3f}, K3 {r['split_ms']['k3']:.3f}, one all-reduce "
+                f"of {TP_WINDOWS * n} x {config.TEMPORAL_EMBED_DIM} {r['split_ms']['all_reduce']:.3f}"
+                for r in ranks)
+            + f"; a rank's bound K2 {split_bound['k2'][0]:.4f} ({split_bound['k2'][1]}), K3 "
+            f"{split_bound['k3'][0]:.4f} ({split_bound['k3'][1]}); unsplit in one process K2 "
+            f"{unsplit_ms['k2']:.3f}, K3 {unsplit_ms['k3']:.3f} ({card}); "
+            f"{'ok' if ok else 'FAILED'}")
+        if not ok:
+            failed.append("tp_split_kernels")
+        # (b) serving forward and train steps against one process
+        serve_gap = max(float((r["serve"] - serve_ref).abs().max()) for r in ranks)
+        serve_launched = all(r["serve_counts"].get(key, 0) > 0 for r in ranks
+                             for key in ("spatial_stack", "temporal_stack", "strided_block1"))
+        loss_gap = max(abs(a - b) / abs(b) for r in ranks for a, b in zip(r["train"][0], ref[0]))
+        param_gap, ema_gap = (max(float((r["train"][i][key] - ref[i][key]).abs().max())
+                                  for r in ranks for key in ref[i]) for i in (2, 3))
+        same = all(torch.equal(v, r["train"][1][key]) for r in ranks[1:]
+                   for key, v in ranks[0]["train"][1].items() if param_spec(key, v) is None)
+        keys = ("spatial_stack", "spatial_bwd", "temporal_train_fwd", "temporal_train_bwd",
+                "strided_train_fwd", "strided_train_bwd")
+        launched = all(r["train"][4].get(key, 0) > 0 for r in ranks for key in keys)
+        ok = (serve_gap <= 1e-4 and serve_launched and all(torch.isfinite(r["serve"]).all()
+                                                           for r in ranks))
+        log(f"phase 10 (b) TP serving forward (fused full, shared spatial, flip-TTA, "
+            f"{TP_WINDOWS} windows) on dp 1 x mp {TP_RANKS}: largest gap to one process "
+            f"{serve_gap:.3e} (bar 1e-4); K1/K2/K3 launches per rank "
+            + "; ".join(str({key: r["serve_counts"].get(key, 0) for key in
+                             ("spatial_stack", "temporal_stack", "strided_block1")})
+                        for r in ranks)
+            + "; ms per call per rank " + ", ".join(f"{r['serve_ms']:.3f}" for r in ranks)
+            + f", one process {serve_ref_ms:.3f} ({card}); {'ok' if ok else 'FAILED'}")
+        if not ok:
+            failed.append("tp_serving")
+        ok = loss_gap <= 2e-5 and max(param_gap, ema_gap) <= 2e-4 and same and launched
+        log(f"phase 10 (b) TP train: h36m_351 B={TP_BATCH}, TRAIN_FUSED_STRIDED on, {TP_STEPS} "
+            f"steps: losses {ranks[0]['train'][0]} against the 1-process {ref[0]}; largest gap "
+            f"loss {loss_gap:.2e} (rtol 2e-5), params {param_gap:.2e}, EMA {ema_gap:.2e} (atol "
+            f"2e-4); replicated parameters bit-identical over the ranks: "
+            f"{'yes' if same else 'NO'}; launches per rank "
+            + "; ".join(str({key: r["train"][4].get(key, 0) for key in keys}) for r in ranks)
+            + f"; {'ok' if ok else 'FAILED'}; rank wall "
+            + ", ".join(f"{r['train_s']:.1f}" for r in ranks)
+            + f" s, 1-process {ref_s_train:.1f} s")
+        if not ok:
+            failed.append("tp_train")
+    log(f"phase 10 (a)+(b) the ranks' spawn to exit {spawn_s:.1f} s")
+
+    # (c) the dry-run tool over 4 gloo ranks on the card
+    env = dict(os.environ, MULTICHIP_BUDGET_S="300")
+    rc, lines, wall = run_cli([sys.executable, "-m", "uplift_upsample_torch.tools.dryrun_multichip",
+                               "--devices", "4", "--seed", str(args.seed)], timeout=360, env=env)
+    stages = [ln for ln in lines if ": ok, wall" in ln or "SKIP " in ln]
+    summary = next((ln for ln in lines if "dryrun staged summary" in ln), "")
+    core = any("MULTICHIP_CORE_OK" in ln for ln in lines)
+    ok = rc == 0 and core
+    log(f"phase 10 (c) python -m uplift_upsample_torch.tools.dryrun_multichip --devices 4: exit "
+        f"{rc}, MULTICHIP_CORE_OK {'yes' if core else 'NO'}; {summary.strip()}; wall {wall:.1f} s")
+    for ln in stages:
+        log(f"phase 10 (c) {ln.strip()}")
+    if not ok:
+        log("\n".join(lines[-40:]))
+        failed.append("tp_dryrun")
+    log(f"phase 10 (d) wall {time.perf_counter() - t_phase:.1f} s ({card})")
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2583,8 +2940,12 @@ def main(argv=None) -> int:
     tools_phase(args, torch, np, rng, failed, eval_data, data_dir.name)
     data_dir.cleanup()
 
-    # ---- phase 10: report ----------------------------------------------------
+    # ---- phase 10: tensor parallel ------------------------------------------
     starts.append(("10", time.perf_counter()))
+    tp_phase(args, torch, np, rng, failed)
+
+    # ---- phase 11: report ----------------------------------------------------
+    starts.append(("11", time.perf_counter()))
     log("phase wall times: " + ", ".join(
         f"{name} {t1 - t0_:.1f} s" for (name, t0_), (_, t1) in zip(starts, starts[1:])))
     if failed:

@@ -15,8 +15,9 @@ Layout:
                     strided block 1 (K6) in training; the packed attention behind
                     USE_PALLAS_ATTENTION (row 11); the s2t prologue of the tiled eval
                     route; camera projection (AMASS)
-  parallel/       — the training and validation steps: losses, Keras Adam/AdamW, EMA
-                    (single device)
+  parallel/       — the training and validation steps: losses, Keras Adam/AdamW, EMA;
+                    data parallelism over torch.distributed, tensor parallelism
+                    over a dp × mp layout
   data/           — window generators and batchers (H3.6M, AMASS), loaders, cameras
                     (numpy, copied); the device-resident train feed; the host pipeline
   utils/          — Keras .h5 reading and writing, float64 metrics and the eval

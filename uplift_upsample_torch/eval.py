@@ -44,6 +44,7 @@ from .data.multihost import gather_rows, host_row_slice
 from .models import build_uplift_upsample_transformer
 from .parallel.mesh import (broadcast_params_, check_data_parallel_devices,
                             init_data_parallel, launch_world, rank0_stdout)
+from .parallel.sharding import check_model_tp, gather_params_tp
 from .utils.dedup import dedup_rows
 from .utils.eval_protocol import compute_and_log_metrics, interpolate_between_keyframes
 from .utils.time_format import format_time
@@ -88,7 +89,7 @@ def make_test_step(model, flip_tta: bool, flip_lr_indices, fused: str = "none",
                    precision: str = "high", max_keyframes: int = None,
                    assume_dense_mask: bool = False, shared_spatial: bool = False,
                    tta_batched: bool = True, temporal_wpt=None, strided_sel: bool = False,
-                   dp=None):
+                   dp=None, tp=None):
     """Forward step with optional flip-TTA.
 
     `fused` selects the compute path:
@@ -120,8 +121,16 @@ def make_test_step(model, flip_tta: bool, flip_lr_indices, fused: str = "none",
     the global batch, but each rank runs its rows of the windows (the unique
     frames, replicated, whole) and the outputs are gathered in rank order.
     B must divide over the ranks.
+
+    `tp` (a `parallel.sharding.TensorParallel`, the model's own: the model
+    is built with it): tensor parallelism over the mp ranks, "none" and
+    "full" ("spatial" too). The mp peers of a dp rank run the same windows
+    (with `dp` a `parallel.mesh.Mesh`, its rows follow the dp index); "none"
+    runs the model's split modules, "full" K1 on gathered spatial weights,
+    K2 and K3 split over mp and the split tail (`bench_forward`).
     """
     check_precision(precision)
+    check_model_tp(model, tp)
     device = next(model.parameters()).device
     flip_idx = torch.as_tensor(np.asarray(flip_lr_indices, dtype=np.int64),
                                device=device)
@@ -156,7 +165,8 @@ def make_test_step(model, flip_tta: bool, flip_lr_indices, fused: str = "none",
     elif fused in ("full", "spatial") and model.spatial_depth > 0:
         from .ops.spatial import (pack_spatial_params, spatial_stack_apply,
                                   stack_spatial_params)
-        state = {k: v.detach() for k, v in model.state_dict().items()}
+        state = gather_params_tp({k: v.detach() for k, v in model.state_dict().items()},
+                                 model.tp)
         sp_ops = stack_spatial_params(state, model.spatial_depth)
         sp_packed = pack_spatial_params(sp_ops)
 

@@ -27,6 +27,13 @@ kernels lay windows out as rows, so it is accepted and changes no launch.
 The TPU's dot-precision keywords have no counterpart: the port is fp32
 (`eval.check_precision`).
 
+Under tensor parallelism (the model built with `tp`, mp > 1) the default
+route runs K2 and K3 split over the mp ranks on the rank's operands
+(`ops/temporal.py`, `ops/strided.py`), K1 on the spatial weights gathered
+once when the operands are stacked (every mp peer computes the same
+frames), and the tail's split modules. The other routes (banded, v2, tiled;
+rows 4-7, 9, 10) raise NotImplementedError under mp > 1.
+
 `bench_forward` takes (B, N) windows, optionally keyframe-sparse
 (`max_keyframes`); `shared_spatial_forward` takes the eval protocol's
 deduplicated unique frames and gathers their features into windows. Both
@@ -46,6 +53,7 @@ from ..ops.spatial import (pack_spatial_params, spatial_stack, spatial_stack_app
                            stack_spatial_params)
 from ..ops.strided import stack_strided_block1_params, strided_block1
 from ..ops.temporal import stack_temporal_params, temporal_stack
+from ..parallel.sharding import gather_params_tp
 from .uplift_upsample import UpliftUpsampleTransformer
 
 TEMPORAL_IMPLS = ("v3", "v2")
@@ -70,11 +78,25 @@ def can_fuse_strided(model: UpliftUpsampleTransformer, temporal_impl: str = "v3"
     return 0 <= p0 <= 1 and 0 <= p1 <= 1
 
 
+def check_tp_route(model: UpliftUpsampleTransformer, temporal_impl: str = "v3",
+                   temporal_attn: str = "full", fuse_s2t: bool = False) -> None:
+    """Under mp > 1 only the default route is split (ROADMAP A6)."""
+    if model.tp is not None and (temporal_impl, temporal_attn, fuse_s2t) != ("v3", "full",
+                                                                             False):
+        raise NotImplementedError(
+            f"the bench route temporal_impl={temporal_impl!r}, temporal_attn="
+            f"{temporal_attn!r}, fuse_s2t={fuse_s2t} is not split for tensor parallelism "
+            f"(mp > 1): only the default route is (ROADMAP A6, rows 4-7, 9, 10)")
+
+
 def prepare_fused_params(model: UpliftUpsampleTransformer) -> Dict:
-    """The kernels' operands, stacked once from the model's weights."""
+    """The kernels' operands, stacked once from the model's weights: under
+    mp > 1 K2's and K3's from the rank's shards, K1's from the spatial
+    weights gathered whole."""
     state = {k: v.detach() for k, v in model.state_dict().items()}
+    whole = gather_params_tp(state, model.tp)
     ops = dict(
-        spatial=stack_spatial_params(state, model.spatial_depth),
+        spatial=stack_spatial_params(whole, model.spatial_depth),
         temporal=stack_temporal_params(state, model.temporal_depth),
         strided=(stack_strided_block1_params(state)
                  if can_fuse_strided(model) else None),
@@ -107,6 +129,7 @@ def bench_forward(model: UpliftUpsampleTransformer, x2d_masked: torch.Tensor,
     routes of the module docstring.
     """
     del temporal_wpt, strided_sel  # the same launches on every value
+    check_tp_route(model, temporal_impl, temporal_attn, fuse_s2t)
     if fused_params is None:
         fused_params = prepare_fused_params(model)
     fuse_strided = can_fuse_strided(model, temporal_impl, temporal_attn)
@@ -159,6 +182,7 @@ def shared_spatial_forward(model: UpliftUpsampleTransformer, unique2d: torch.Ten
     stride_mask: (B, N) — 1/True on real-input frames.
     """
     del temporal_wpt, strided_sel  # the same launches on every value
+    check_tp_route(model, temporal_impl, temporal_attn)
     if fused_params is None:
         fused_params = prepare_fused_params(model)
     fuse_strided = can_fuse_strided(model, temporal_impl, temporal_attn)
@@ -211,11 +235,11 @@ def _temporal_and_tail(model, y, stride_mask, key_mask, fused_params,
     fmb = (model.first_strided_token_attention_layer
            if model.has_strided_input else 0)
     y = temporal_stack(y, fused_params["temporal"], key_mask,
-                       num_heads=model.num_heads, first_masked_blocks=fmb)
+                       num_heads=model.num_heads, first_masked_blocks=fmb, tp=model.tp)
     entry = 0
     if fuse_strided:
         y = strided_block1(y, fused_params["strided"], num_heads=model.num_heads,
-                           stride=model.strides[0], paddings=model.paddings[0])
+                           stride=model.strides[0], paddings=model.paddings[0], tp=model.tp)
         entry = 1
     _, central = model(y, stride_mask, temporal_input=True, strided_entry=entry)
     return central

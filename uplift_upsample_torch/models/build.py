@@ -3,9 +3,12 @@
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from ..config import UpliftUpsampleConfig
+from ..parallel.sharding import TensorParallel, active, shard_params_tp
 from .uplift_upsample import UpliftUpsampleTransformer
 
 
@@ -65,6 +68,7 @@ def model_kwargs(config: UpliftUpsampleConfig) -> dict:
 
 def build_uplift_upsample_transformer(config: UpliftUpsampleConfig,
                                       device="cuda", seed: int = 0,
+                                      tp: Optional[TensorParallel] = None,
                                       **overrides) -> UpliftUpsampleTransformer:
     """Build the model in eval mode on `device`, initialised from `seed`.
 
@@ -72,10 +76,20 @@ def build_uplift_upsample_transformer(config: UpliftUpsampleConfig,
     tokens, drawn from a seeded CPU `torch.Generator` (the same seed gives the
     same weights on every device; not the JAX package's numbers, which come
     from jax.random).
+
+    With `tp` (mp > 1) the model holds mp rank tp.rank's shard of the same
+    seeded weights (`parallel.sharding.shard_params_tp`); its
+    `load_state_dict` takes such shards.
     """
     device = resolve_device(device)
     kwargs = model_kwargs(config)
     kwargs.update(overrides)
     generator = torch.Generator().manual_seed(seed)
     model = UpliftUpsampleTransformer(generator=generator, **kwargs)
+    tp = active(tp)
+    if tp is not None:
+        full = model.state_dict()
+        model = UpliftUpsampleTransformer(generator=torch.Generator().manual_seed(seed),
+                                          tp=tp, **kwargs)
+        model.load_state_dict(shard_params_tp(full, tp.rank, tp.size))
     return model.to(device).eval()

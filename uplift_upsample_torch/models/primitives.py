@@ -17,6 +17,15 @@ Numeric parity targets (reference `vision_transformer.py`, strided variants in
     scales the kept ones by 1/keep in training (`model.train()`); it is the
     identity under `model.eval()`.
 
+Tensor parallelism (`tp`, a `parallel.sharding.TensorParallel` with size >
+1): MultiHeadAttention, Mlp and StridedMlp hold their mp rank's shard (the
+rank's heads, with the head depth unchanged; its block of fc1's outputs and
+of fc2's or the conv's inputs), take their input through `copy_to_tp` and
+sum the proj / fc2 / conv partials with `reduce_from_tp`, adding the
+replicated bias after the reduction: the Megatron pairing that GSPMD runs
+for the JAX package's `shard_params_tp`. The state_dict keys stay the same;
+the tensors are the shards.
+
 Sub-module names follow the flax names (norm1, attn.wq, mlp.fc1, ...), so a
 flax parameter path maps onto a state_dict key by renaming leaves only
 (`utils.weights_h5.params_from_jax`). Activations are (B, S, C), as in the
@@ -34,6 +43,7 @@ from torch import nn
 
 from ..ops.attention import scaled_dot_product_attention
 from ..ops.packed_attention import MAX_SEQ, packed_multihead_attention
+from ..parallel.sharding import TensorParallel, active, copy_to_tp, reduce_from_tp
 
 # flax's truncated_normal(stddev) samples N(0, 1) truncated to [-2, 2] and
 # divides by this constant (the std of that truncated law), so the draw has
@@ -102,36 +112,54 @@ class DropPath(nn.Module):
         return (x / keep) * mask.reshape((-1,) + (1,) * (x.dim() - 1))
 
 
+def _mp(tp: Optional[TensorParallel]) -> int:
+    return 1 if active(tp) is None else tp.size
+
+
 class Mlp(nn.Module):
     def __init__(self, in_features: int, out_features: int,
                  hidden_features: Optional[int] = None,
-                 activation: Callable = gelu_exact, generator=None):
+                 activation: Callable = gelu_exact, generator=None,
+                 tp: Optional[TensorParallel] = None):
         super().__init__()
         hidden = out_features if hidden_features is None else hidden_features
-        self.fc1 = dense(in_features, hidden, generator=generator)
-        self.fc2 = dense(hidden, out_features, generator=generator)
+        self.tp = active(tp)
+        self.fc1 = dense(in_features, hidden // _mp(tp), generator=generator)
+        self.fc2 = dense(hidden // _mp(tp), out_features, generator=generator)
         self.activation = activation
 
     def forward(self, x):
-        return self.fc2(self.activation(self.fc1(x)))
+        if self.tp is None:
+            return self.fc2(self.activation(self.fc1(x)))
+        h = self.activation(self.fc1(copy_to_tp(x, self.tp)))
+        return reduce_from_tp(F.linear(h, self.fc2.weight), self.tp) + self.fc2.bias
 
 
 class MultiHeadAttention(nn.Module):
     def __init__(self, dim: int, num_heads: int = 8, qkv_bias: bool = False,
-                 use_pallas: bool = False, generator=None):
+                 use_pallas: bool = False, generator=None,
+                 tp: Optional[TensorParallel] = None):
         super().__init__()
         assert dim % num_heads == 0
-        self.dim = dim
-        self.num_heads = num_heads
+        self.tp = active(tp)
+        if self.tp is not None and use_pallas:
+            raise NotImplementedError(
+                "USE_PALLAS_ATTENTION under tensor parallelism (mp > 1) is not ported: "
+                "row 11 has no split (ROADMAP A6)")
+        mp = _mp(tp)
+        self.dim = dim // mp                 # the rank's heads × the head depth
+        self.num_heads = num_heads // mp
         self.use_pallas = use_pallas
-        self.wq = dense(dim, dim, bias=qkv_bias, generator=generator)
-        self.wk = dense(dim, dim, bias=qkv_bias, generator=generator)
-        self.wv = dense(dim, dim, bias=qkv_bias, generator=generator)
-        self.proj = dense(dim, dim, generator=generator)
+        self.wq = dense(dim, self.dim, bias=qkv_bias, generator=generator)
+        self.wk = dense(dim, self.dim, bias=qkv_bias, generator=generator)
+        self.wv = dense(dim, self.dim, bias=qkv_bias, generator=generator)
+        self.proj = dense(self.dim, dim, generator=generator)
 
     def forward(self, x, mask=None):
         b, s, _ = x.shape
         depth = self.dim // self.num_heads
+        if self.tp is not None:
+            x = copy_to_tp(x, self.tp)
         # The JAX package's gate (primitives.py:95-98): packed q/k/v, a key
         # mask broadcast from (B, 1, 1, S), S <= 128. Other shapes take the
         # split-head path there too.
@@ -153,7 +181,9 @@ class MultiHeadAttention(nn.Module):
         out, weights = scaled_dot_product_attention(
             split(self.wq(x)), split(self.wk(x)), split(self.wv(x)), mask)
         out = out.transpose(1, 2).reshape(b, s, self.dim)
-        return self.proj(out), weights
+        if self.tp is None:
+            return self.proj(out), weights
+        return reduce_from_tp(F.linear(out, self.proj.weight), self.tp) + self.proj.bias, weights
 
 
 class TransformerBlock(nn.Module):
@@ -162,14 +192,14 @@ class TransformerBlock(nn.Module):
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
                  qkv_bias: bool = False, drop_path_rate: float = 0.0,
                  activation: Callable = gelu_exact, use_pallas: bool = False,
-                 generator=None):
+                 generator=None, tp: Optional[TensorParallel] = None):
         super().__init__()
         self.norm1 = nn.LayerNorm(dim, eps=1e-5)
         self.attn = MultiHeadAttention(dim, num_heads=num_heads, qkv_bias=qkv_bias,
-                                       use_pallas=use_pallas, generator=generator)
+                                       use_pallas=use_pallas, generator=generator, tp=tp)
         self.norm2 = nn.LayerNorm(dim, eps=1e-5)
         self.mlp = Mlp(dim, dim, hidden_features=int(dim * mlp_ratio),
-                       activation=activation, generator=generator)
+                       activation=activation, generator=generator, tp=tp)
         self.drop_path = DropPath(drop_path_rate)
 
     def forward(self, x, pos_encoding=None, mask=None):
@@ -195,22 +225,30 @@ class StridedMlp(nn.Module):
     def __init__(self, in_features: int, out_features: int,
                  hidden_features: Optional[int] = None,
                  activation: Callable = gelu_exact, kernel_size: int = 3,
-                 stride: int = 1, padding=None, generator=None):
+                 stride: int = 1, padding=None, generator=None,
+                 tp: Optional[TensorParallel] = None):
         super().__init__()
         hidden = out_features if hidden_features is None else hidden_features
+        self.tp = active(tp)
+        local = hidden // _mp(tp)
         self.pad = resolve_padding(padding, kernel_size)
         self.stride = stride
-        self.fc1 = dense(in_features, hidden, generator=generator)
-        self.fc2 = nn.Conv1d(hidden, out_features, kernel_size, stride=stride)
-        glorot_uniform_(self.fc2.weight, hidden * kernel_size,
+        self.fc1 = dense(in_features, local, generator=generator)
+        self.fc2 = nn.Conv1d(local, out_features, kernel_size, stride=stride)
+        glorot_uniform_(self.fc2.weight, local * kernel_size,
                         out_features * kernel_size, generator)
         nn.init.zeros_(self.fc2.bias)
         self.activation = activation
 
     def forward(self, x):  # (B, S, C_in) → (B, S_out, C_out)
+        if self.tp is not None:
+            x = copy_to_tp(x, self.tp)
         x = self.activation(self.fc1(x))
         x = F.pad(x.transpose(1, 2), self.pad)  # explicit zero pad, then VALID
-        return self.fc2(x).transpose(1, 2)
+        if self.tp is None:
+            return self.fc2(x).transpose(1, 2)
+        part = F.conv1d(x, self.fc2.weight, None, stride=self.stride)
+        return (reduce_from_tp(part, self.tp) + self.fc2.bias[:, None]).transpose(1, 2)
 
 
 class StridedTransformerBlock(nn.Module):
@@ -224,18 +262,18 @@ class StridedTransformerBlock(nn.Module):
                  qkv_bias: bool = False, drop_path_rate: float = 0.0,
                  activation: Callable = gelu_exact, kernel_size: int = 3,
                  stride: int = 3, padding=None, use_pallas: bool = False,
-                 generator=None):
+                 generator=None, tp: Optional[TensorParallel] = None):
         super().__init__()
         self.stride = stride
         self.pad = resolve_padding(padding, kernel_size)
         self.norm1 = nn.LayerNorm(dim, eps=1e-5)
         self.attn = MultiHeadAttention(dim, num_heads=num_heads, qkv_bias=qkv_bias,
-                                       use_pallas=use_pallas, generator=generator)
+                                       use_pallas=use_pallas, generator=generator, tp=tp)
         self.norm2 = nn.LayerNorm(dim, eps=1e-5)
         self.mlp = StridedMlp(dim, dim, hidden_features=int(dim * mlp_ratio),
                               activation=activation, kernel_size=kernel_size,
                               stride=stride, padding=padding,
-                              generator=generator)
+                              generator=generator, tp=tp)
         self.drop_path = DropPath(drop_path_rate)
 
     def forward(self, x, pos_encoding=None, mask=None):

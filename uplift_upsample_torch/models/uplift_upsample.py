@@ -22,6 +22,11 @@ packed attention op, row 11, in every attention layer) in training are not
 ported and raise NotImplementedError. Sub-modules carry the flax names
 (`spatial_block_1`, `temporal_pe`, ...), so state_dict keys map one to one
 onto the JAX package's parameter paths.
+
+With `tp` (tensor parallelism, mp > 1) every block holds its mp rank's shard
+of the attention and MLP weights (`primitives.py`); the embedding, the PEs
+and tokens, the LayerNorms, the s2t Dense and the heads are replicated. mp
+must divide the heads and the hidden width of every stack (ValueError).
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.sharding import TensorParallel, active, check_divides
 from .primitives import (StridedTransformerBlock, TransformerBlock, dense,
                          gelu_exact, pe_init_)
 
@@ -62,8 +68,16 @@ class UpliftUpsampleTransformer(nn.Module):
                  token_mask_rate: float = 0.0,
                  learnable_masked_token: bool = False,
                  use_pallas: bool = False,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 tp: Optional[TensorParallel] = None):
         super().__init__()
+        self.tp = tp = active(tp)
+        if tp is not None:
+            for stack, depth, width in (("spatial", spatial_depth, spatial_d_model),
+                                        ("temporal", temporal_depth, temporal_d_model),
+                                        ("strided", len(strides), temporal_d_model)):
+                if depth > 0:
+                    check_divides(tp.size, num_heads, int(width * mlp_ratio), stack)
         self.full_output = full_output
         self.num_frames = num_frames
         self.num_keypoints = num_keypoints
@@ -99,7 +113,7 @@ class UpliftUpsampleTransformer(nn.Module):
                 self.add_module(f"spatial_block_{i + 1}", TransformerBlock(
                     cs, num_heads, mlp_ratio=mlp_ratio, qkv_bias=qkv_bias,
                     drop_path_rate=rate, activation=gelu_exact,
-                    use_pallas=use_pallas, generator=g))
+                    use_pallas=use_pallas, generator=g, tp=tp))
             self.spatial_norm = nn.LayerNorm(cs, eps=1e-6)
             s2t_in = p * cs
         else:
@@ -117,7 +131,7 @@ class UpliftUpsampleTransformer(nn.Module):
             self.add_module(f"temporal_block_{i + 1}", TransformerBlock(
                 ct, num_heads, mlp_ratio=mlp_ratio, qkv_bias=qkv_bias,
                 drop_path_rate=rate, activation=F.relu, use_pallas=use_pallas,
-                generator=g))
+                generator=g, tp=tp))
 
         out_dim = 3 * num_keypoints
         if full_output and temporal_depth > 0:
@@ -137,7 +151,8 @@ class UpliftUpsampleTransformer(nn.Module):
                                 ct, num_heads, mlp_ratio=mlp_ratio,
                                 qkv_bias=qkv_bias, drop_path_rate=rate,
                                 activation=F.relu, kernel_size=3, stride=s,
-                                padding=pad, use_pallas=use_pallas, generator=g))
+                                padding=pad, use_pallas=use_pallas, generator=g,
+                                tp=tp))
         if output_bn:
             self.strided_temporal_norm = nn.BatchNorm1d(ct, eps=1e-5)
         self.strided_temporal_fc = dense(ct, out_dim, generator=g)

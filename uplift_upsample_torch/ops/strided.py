@@ -28,6 +28,13 @@ Mosaic layouts:
   - row 8, `fused_strided_block1`: the block as its own pass. The TPU kernel
     returns the pre-selection (B, N_pad, C) and every caller keeps only the
     rows s0·t; `strided_block1` returns only those rows, (B, n_out, C).
+
+Split over mp (`tp`: the operands stacked from an mp rank's shard of the
+weights), the block runs as K2's split blocks do (`temporal.py`) and ends in
+the conv over the rank's hidden channels as a partial sum, then an
+all-reduce: mp rank 0 passes the crop residual and bc, the other ranks zeros
+in their place, so the sum is x + bc + conv. The rank's conv operand is its
+hidden shard taken inside every tap, then flattened (3·hidden/mp, C).
 """
 
 from __future__ import annotations
@@ -37,9 +44,10 @@ from typing import Dict, Mapping, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..parallel.sharding import TensorParallel, active, all_reduce_sum
 from . import cuda_lib
 from .temporal import (add_tf32_halves, attention_sublayer, gemm, layernorm,
-                       window_attention_plain)
+                       split_attention_sublayer, window_attention_plain)
 
 COUNTER = "strided_block1"
 DENSE = ("wqkv", "wp", "w1", "wc")  # the block's (in, out) matrices on the tensor cores
@@ -129,10 +137,13 @@ def stack_strided_block1_params(state: Mapping[str, torch.Tensor],
     Matrices are (in, out); the conv kernel is (3·hidden, C), the flax
     (3, hidden, C) kernel flattened; biases absent with qkv_bias off become
     zeros (as `pallas_strided.stack_strided_block1_params` does). The dense
-    matrices' TF32 halves are split here (`temporal.add_tf32_halves`).
+    matrices' TF32 halves are split here (`temporal.add_tf32_halves`). From
+    an mp rank's shard: wqkv is (C, 3·C/mp), its q, k and v shards side by
+    side, and wc (3·hidden/mp, C), its hidden shard within every tap.
     """
     pe = state[pe_name]
     c = pe.shape[1]
+    c_local = state[f"{name}.attn.wq.weight"].shape[0]
 
     def get(key, n=None):
         full = f"{name}.{key}"
@@ -145,7 +156,7 @@ def stack_strided_block1_params(state: Mapping[str, torch.Tensor],
         pe=pe,
         ln1_g=get("norm1.weight"), ln1_b=get("norm1.bias"),
         wqkv=torch.cat([get(f"attn.{w}.weight").t() for w in ("wq", "wk", "wv")], 1),
-        bqkv=torch.cat([get(f"attn.{w}.bias", c) for w in ("wq", "wk", "wv")]),
+        bqkv=torch.cat([get(f"attn.{w}.bias", c_local) for w in ("wq", "wk", "wv")]),
         wp=get("attn.proj.weight").t(), bp=get("attn.proj.bias", c),
         ln2_g=get("norm2.weight"), ln2_b=get("norm2.bias"),
         w1=get("mlp.fc1.weight").t(), b1=get("mlp.fc1.bias"),
@@ -157,33 +168,45 @@ def stack_strided_block1_params(state: Mapping[str, torch.Tensor],
 
 def strided_block1_plain(x: torch.Tensor, ops: Dict, *, num_heads: int,
                          stride: int, paddings: Tuple[int, int],
-                         relu_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                         relu_mask: Optional[torch.Tensor] = None,
+                         tp: Optional[TensorParallel] = None) -> torch.Tensor:
     """(B, N, C) → (B, n_out, C): strided block 1 in plain PyTorch.
 
     relu_mask (B·N, hidden) booleans replace fc1's relu decisions (a gradient
     comparison hands it a kernel forward's, as `temporal_stack_plain` takes
-    K5's)."""
+    K5's). tp: `ops` are an mp rank's operands; the proj and conv partials
+    are summed over mp before their replicated biases are added."""
     c = x.shape[-1]
+    tp = active(tp)
+    heads = num_heads if tp is None else num_heads // tp.size
+    reduce = (lambda t: t) if tp is None else (lambda t: all_reduce_sum(tp, t))
     x = x + ops["pe"]
     y = F.layer_norm(x, (c,), ops["ln1_g"], ops["ln1_b"], 1e-5)
-    ctx = window_attention_plain(y @ ops["wqkv"] + ops["bqkv"], None, num_heads)
-    x = x + (ctx @ ops["wp"] + ops["bp"])
+    ctx = window_attention_plain(y @ ops["wqkv"] + ops["bqkv"], None, heads)
+    x = x + (reduce(ctx @ ops["wp"]) + ops["bp"])
     z = F.layer_norm(x, (c,), ops["ln2_g"], ops["ln2_b"], 1e-5)
     h1 = z @ ops["w1"] + ops["b1"]
     h1 = torch.relu(h1) if relu_mask is None else h1 * relu_mask.reshape(h1.shape).to(h1.dtype)
-    return strided_conv_plain(h1, x, ops["wc"], ops["bc"], stride=stride,
-                              paddings=tuple(paddings))
+    bc = ops["bc"]
+    if tp is not None and tp.rank != 0:  # the crop residual and bc enter on mp rank 0 only
+        x, bc = torch.zeros_like(x), torch.zeros_like(bc)
+    return reduce(strided_conv_plain(h1, x, ops["wc"], bc, stride=stride,
+                                     paddings=tuple(paddings)))
 
 
 def strided_block1(x: torch.Tensor, ops: Dict, *, num_heads: int, stride: int,
-                   paddings: Tuple[int, int]) -> torch.Tensor:
-    """(B, N, C) → (B, n_out, C). CPU tensor: plain version; CUDA tensor: K3."""
+                   paddings: Tuple[int, int],
+                   tp: Optional[TensorParallel] = None) -> torch.Tensor:
+    """(B, N, C) → (B, n_out, C). CPU tensor: plain version; CUDA tensor: K3.
+    tp: `ops` are an mp rank's operands and the block runs split over mp
+    (module docstring); every mp rank returns the whole result."""
     p0, p1 = (int(paddings[0]), int(paddings[1]))
+    tp = active(tp)
     if not (0 <= p0 <= 1 and 0 <= p1 <= 1):
         raise ValueError(f"strided block 1 takes paddings in {{0, 1}}, got {paddings}")
     if x.device.type == "cpu":
         return strided_block1_plain(x, ops, num_heads=num_heads, stride=stride,
-                                    paddings=(p0, p1))
+                                    paddings=(p0, p1), tp=tp)
     b, n, c = x.shape
     n_out = output_length(n, stride, (p0, p1))
     if n_out < 1:
@@ -193,10 +216,19 @@ def strided_block1(x: torch.Tensor, ops: Dict, *, num_heads: int, stride: int,
     cuda_lib.check_cuda("pe", ops["pe"], shape=(n, c), device=x.device)
     h, y = layernorm(h, ops["ln1_g"], ops["ln1_b"], 1e-5, pe=ops["pe"],
                      counter=COUNTER)
-    h = attention_sublayer(h, y, ops["wqkv_tc"], ops["bqkv"], ops["wp_tc"], ops["bp"],
-                           key_mask=None, windows=b, n=n, num_heads=num_heads,
-                           counter=COUNTER)
+    weights = (ops["wqkv_tc"], ops["bqkv"], ops["wp_tc"], ops["bp"])
+    attn = dict(key_mask=None, windows=b, n=n, num_heads=num_heads, counter=COUNTER)
+    if tp is None:
+        h = attention_sublayer(h, y, *weights, **attn)
+    else:
+        h = split_attention_sublayer(h, y, *weights, tp=tp, **attn)
     z = layernorm(h, ops["ln2_g"], ops["ln2_b"], 1e-5, counter=COUNTER)
     h1 = gemm(z, ops["w1_tc"], ops["b1"], relu=True, counter=COUNTER)
-    return strided_conv(h1.reshape(b, n, -1), h.reshape(b, n, c), ops, stride=stride,
+    if tp is None:
+        return strided_conv(h1.reshape(b, n, -1), h.reshape(b, n, c), ops, stride=stride,
+                            paddings=(p0, p1))
+    if tp.rank != 0:  # the crop residual and bc enter on mp rank 0 only
+        h, ops = torch.zeros_like(h), dict(ops, bc=torch.zeros_like(ops["bc"]))
+    part = strided_conv(h1.reshape(b, n, -1), h.reshape(b, n, c), ops, stride=stride,
                         paddings=(p0, p1))
+    return all_reduce_sum(tp, part)

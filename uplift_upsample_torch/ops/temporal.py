@@ -25,6 +25,16 @@ runs on the tensor cores in 3xTF32 (`csrc/gemm_tc.cuh`) and reads each
 weight matrix as its two TF32 halves, which `stack_temporal_params` (and
 `strided.stack_strided_block1_params`) split when they stack the operands:
 once for serving, anew from each step's weights in training.
+
+Split over mp (`tp`, tensor parallelism: the operands stacked from an mp
+rank's shard of the weights, `parallel/sharding.py`), each block runs per
+rank: LN1 at full width; qkv into the rank's (rows, 3·C/mp), its q, k and v
+shards side by side; the window attention over its C/mp channels and H/mp
+heads; proj on its C/mp rows of wp as a partial sum; an all-reduce over mp;
+LN2, its fc1 columns with relu, its fc2 rows as a partial; the all-reduce.
+The bias and the residual of proj and fc2 enter on mp rank 0 only, so the
+sum over the ranks is h + proj + b. The same launches as unsplit, at the
+split widths (no kernel of its own).
 """
 
 from __future__ import annotations
@@ -35,6 +45,7 @@ from typing import Dict, Mapping, Optional, Sequence
 import torch
 import torch.nn.functional as F
 
+from ..parallel.sharding import TensorParallel, active, all_reduce_sum
 from . import cuda_lib
 
 COUNTER = "temporal_stack"
@@ -83,10 +94,13 @@ def stack_temporal_params(state: Mapping[str, torch.Tensor], num_blocks: int,
 
     q/k/v are concatenated into one (C, 3C) matrix per block; matrices are
     (in, out); missing biases become zeros. Each matrix's TF32 halves are
-    split here, from these weights (`add_tf32_halves`).
+    split here, from these weights (`add_tf32_halves`). From an mp rank's
+    shard of the weights (tensor parallelism) the matrix is (C, 3·C/mp):
+    the rank's q, k and v shards side by side, never a third of the whole
+    fused matrix.
     """
     first = state[f"{prefix}1.attn.wq.weight"]
-    c = first.shape[0]
+    c_local, c = first.shape  # the rank's q width (C unsplit), the model width
 
     def get(i, key, n=None):
         full = f"{prefix}{i}.{key}"
@@ -102,7 +116,7 @@ def stack_temporal_params(state: Mapping[str, torch.Tensor], num_blocks: int,
         ln1_b=st(lambda i: get(i, "norm1.bias")),
         wqkv=st(lambda i: torch.cat([get(i, f"attn.{w}.weight").t()
                                      for w in ("wq", "wk", "wv")], dim=1)),
-        bqkv=st(lambda i: torch.cat([get(i, f"attn.{w}.bias", c)
+        bqkv=st(lambda i: torch.cat([get(i, f"attn.{w}.bias", c_local)
                                      for w in ("wq", "wk", "wv")])),
         wp=st(lambda i: get(i, "attn.proj.weight").t()),
         bp=st(lambda i: get(i, "attn.proj.bias", c)),
@@ -136,7 +150,8 @@ def temporal_stack_plain(x: torch.Tensor, ops: Dict,
                          key_mask: Optional[torch.Tensor] = None, *,
                          num_heads: int, first_masked_blocks: int = 0,
                          droppath: Optional[torch.Tensor] = None,
-                         relu_masks: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
+                         relu_masks: Optional[Sequence[torch.Tensor]] = None,
+                         tp: Optional[TensorParallel] = None) -> torch.Tensor:
     """(B, N, C) → (B, N, C): the temporal blocks in plain PyTorch.
 
     droppath: (L, 2, B) per-window stochastic-depth scales of each block's
@@ -145,15 +160,20 @@ def temporal_stack_plain(x: torch.Tensor, ops: Dict,
     decisions (where fc1's output passes). A comparison of gradients hands
     it the kernel forward's decisions, so that a pre-activation within
     rounding of 0 takes the same side of the kink in both.
+    tp: `ops` are an mp rank's operands (module docstring); the proj and fc2
+    partials are summed over mp before their replicated biases are added.
     """
     c = x.shape[-1]
+    tp = active(tp)
+    heads = num_heads if tp is None else num_heads // tp.size
+    reduce = (lambda t: t) if tp is None else (lambda t: all_reduce_sum(tp, t))
     km = None if key_mask is None else key_mask.float()
     for blk in range(ops["ln1_g"].shape[0]):
         y = F.layer_norm(x, (c,), ops["ln1_g"][blk], ops["ln1_b"][blk], 1e-5)
         qkv = y @ ops["wqkv"][blk] + ops["bqkv"][blk]
         ctx = window_attention_plain(qkv, km if blk < first_masked_blocks else None,
-                                     num_heads)
-        proj = ctx @ ops["wp"][blk] + ops["bp"][blk]
+                                     heads)
+        proj = reduce(ctx @ ops["wp"][blk]) + ops["bp"][blk]
         if droppath is not None:
             proj = proj * droppath[blk, 0][:, None, None]
         x = x + proj
@@ -163,7 +183,7 @@ def temporal_stack_plain(x: torch.Tensor, ops: Dict,
             z = torch.relu(z)
         else:
             z = z * relu_masks[blk].reshape(z.shape).to(z.dtype)
-        z = z @ ops["w2"][blk] + ops["b2"][blk]
+        z = reduce(z @ ops["w2"][blk]) + ops["b2"][blk]
         if droppath is not None:
             z = z * droppath[blk, 1][:, None, None]
         x = x + z
@@ -245,17 +265,43 @@ def attention_sublayer(x: torch.Tensor, y: torch.Tensor, wqkv, bqkv, wp, bp, *,
     return gemm(ctx, wp, bp, residual=x, counter=counter)
 
 
+def split_gemm(a: torch.Tensor, w_tc: torch.Tensor, bias: torch.Tensor,
+               residual: torch.Tensor, tp: TensorParallel, *, counter: str) -> torch.Tensor:
+    """residual + a @ w + bias summed over the mp ranks: each rank's `gemm` of
+    its rows of w is a partial sum, the bias and the residual enter on mp
+    rank 0 only, and one all-reduce adds the partials."""
+    first = tp.rank == 0
+    part = gemm(a, w_tc, bias if first else None, residual=residual if first else None,
+                counter=counter)
+    return all_reduce_sum(tp, part)
+
+
+def split_attention_sublayer(x: torch.Tensor, y: torch.Tensor, wqkv, bqkv, wp, bp, *,
+                             key_mask, windows: int, n: int, num_heads: int,
+                             counter: str, tp: TensorParallel) -> torch.Tensor:
+    """`attention_sublayer` split over mp: the rank's qkv (rows, 3·C/mp), its
+    num_heads/mp heads, its proj rows as a partial, the all-reduce."""
+    qkv = gemm(y, wqkv, bqkv, counter=counter)
+    ctx = window_attention(qkv, key_mask, windows=windows, n=n,
+                           num_heads=num_heads // tp.size, counter=counter)
+    return split_gemm(ctx, wp, bp, x, tp, counter=counter)
+
+
 def temporal_stack(x: torch.Tensor, ops: Dict,
                    key_mask: Optional[torch.Tensor] = None, *, num_heads: int,
-                   first_masked_blocks: int = 0) -> torch.Tensor:
+                   first_masked_blocks: int = 0,
+                   tp: Optional[TensorParallel] = None) -> torch.Tensor:
     """(B, N, C) → (B, N, C). CPU tensor: plain version; CUDA tensor: K2.
 
     key_mask: (B, N), 1 = blocked key, applied in the first
-    `first_masked_blocks` blocks.
+    `first_masked_blocks` blocks. tp: `ops` are an mp rank's operands, and
+    each block runs split over mp (module docstring); every mp rank returns
+    the whole result.
     """
+    tp = active(tp)
     if x.device.type == "cpu":
         return temporal_stack_plain(x, ops, key_mask, num_heads=num_heads,
-                                    first_masked_blocks=first_masked_blocks)
+                                    first_masked_blocks=first_masked_blocks, tp=tp)
     b, n, c = x.shape
     if c % num_heads != 0:
         raise ValueError(f"C={c} does not split into {num_heads} heads")
@@ -266,13 +312,19 @@ def temporal_stack(x: torch.Tensor, ops: Dict,
     cuda_lib.check_cuda("x", h)
     for blk in range(ops["ln1_g"].shape[0]):
         y = layernorm(h, ops["ln1_g"][blk], ops["ln1_b"][blk], 1e-5, counter=COUNTER)
-        h = attention_sublayer(h, y, ops["wqkv_tc"][blk], ops["bqkv"][blk],
-                               ops["wp_tc"][blk], ops["bp"][blk],
-                               key_mask=km if blk < first_masked_blocks else None,
-                               windows=b, n=n, num_heads=num_heads, counter=COUNTER)
+        attn = dict(key_mask=km if blk < first_masked_blocks else None, windows=b, n=n,
+                    num_heads=num_heads, counter=COUNTER)
+        weights = (ops["wqkv_tc"][blk], ops["bqkv"][blk], ops["wp_tc"][blk], ops["bp"][blk])
+        if tp is None:
+            h = attention_sublayer(h, y, *weights, **attn)
+        else:
+            h = split_attention_sublayer(h, y, *weights, tp=tp, **attn)
         z = layernorm(h, ops["ln2_g"][blk], ops["ln2_b"][blk], 1e-5, counter=COUNTER)
         z = gemm(z, ops["w1_tc"][blk], ops["b1"][blk], relu=True, counter=COUNTER)
-        h = gemm(z, ops["w2_tc"][blk], ops["b2"][blk], residual=h, out=h, counter=COUNTER)
+        if tp is None:
+            h = gemm(z, ops["w2_tc"][blk], ops["b2"][blk], residual=h, out=h, counter=COUNTER)
+        else:
+            h = split_gemm(z, ops["w2_tc"][blk], ops["b2"][blk], h, tp, counter=COUNTER)
     return h.reshape(b, n, c)
 
 

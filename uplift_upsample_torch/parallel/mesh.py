@@ -14,6 +14,13 @@ flattened all-reduce before the optimizer (`all_reduce_sum_`). NCCL on CUDA,
 gloo on the CPU. NCCL refuses two ranks on one card; a caller that asks for
 gloo may put several ranks on one card, and then the collectives on CUDA
 tensors go through the host.
+
+`init_mesh(dp, mp)` lays the ranks out as the JAX package's
+`np.array(devices).reshape(dp, mp)`: rank r has dp index r // mp and mp
+index r % mp. Its `Mesh` is a `DataParallel` over the rank's dp group (the
+gradient all-reduce and the batch rows follow the dp index) that also
+carries the mp group as a `sharding.TensorParallel` (`tp`, None when mp is
+1: then it is plain data parallelism over every rank).
 """
 
 from __future__ import annotations
@@ -25,6 +32,8 @@ from typing import Iterator, Optional, Sequence
 
 import torch
 import torch.distributed as dist
+
+from .sharding import TensorParallel
 
 
 @dataclasses.dataclass
@@ -47,6 +56,30 @@ class DataParallel:
 
     def close(self) -> None:
         dist.destroy_process_group()
+
+
+@dataclasses.dataclass
+class Mesh(DataParallel):
+    """One rank of a dp × mp layout (`init_mesh`). As a DataParallel, `rank`
+    and `world` are its dp index and the dp size, `group` and `host_group`
+    its dp groups. `global_rank` / `global_world` are its place in the
+    launch, `tp` its mp group (None when mp is 1), `world_host_group` a gloo
+    group over every rank (`barrier` waits for all of them)."""
+    global_rank: int = 0
+    global_world: int = 1
+    tp: Optional[TensorParallel] = None
+    world_group: Optional["dist.ProcessGroup"] = None
+    world_host_group: Optional["dist.ProcessGroup"] = None
+
+    def barrier(self) -> None:
+        dist.barrier(group=self.world_host_group)
+
+    def data_parallel_world(self) -> DataParallel:
+        """Data parallelism over every rank of the launch (the JAX dry run's
+        1-D dp mesh over all devices)."""
+        return DataParallel(rank=self.global_rank, world=self.global_world,
+                            device=self.device, backend=self.backend,
+                            group=self.world_group, host_group=self.world_host_group)
 
 
 def launch_world() -> int:
@@ -111,6 +144,39 @@ def init_data_parallel(device="cuda", backend: Optional[str] = None,
     host_group = group if backend == "gloo" else dist.new_group(backend="gloo")
     return DataParallel(rank=rank, world=world, device=device, backend=backend,
                         group=group, host_group=host_group)
+
+
+def init_mesh(dp: int, mp: int, device="cuda", backend: Optional[str] = None,
+              init_method: str = "env://") -> Mesh:
+    """Join the launch (`init_data_parallel`) as one rank of a dp × mp
+    layout: rank r has dp index r // mp and mp index r % mp. Every rank
+    creates every group, in the same order, as torch.distributed requires.
+    With mp = 1 the dp group is the default group, as `init_data_parallel`'s."""
+    base = init_data_parallel(device, backend=backend, init_method=init_method)
+    if dp * mp != base.world:
+        base.close()
+        raise ValueError(f"a {dp} x {mp} mesh needs {dp * mp} ranks; this launch has "
+                         f"{base.world}")
+    dp_index, mp_index = divmod(base.rank, mp)
+    if mp == 1:
+        dp_group, dp_host, tp = base.group, base.host_group, None
+    else:
+        dp_group = dp_host = mp_group = None
+        for j in range(mp):  # the dp groups: one per mp index
+            ranks = [i * mp + j for i in range(dp)]
+            g = dist.new_group(ranks)
+            h = g if base.backend == "gloo" else dist.new_group(ranks, backend="gloo")
+            if j == mp_index:
+                dp_group, dp_host = g, h
+        for i in range(dp):  # the mp groups: one per dp index
+            g = dist.new_group([i * mp + j for j in range(mp)])
+            if i == dp_index:
+                mp_group = g
+        tp = TensorParallel(rank=mp_index, size=mp, backend=base.backend, group=mp_group)
+    return Mesh(rank=dp_index, world=dp, device=base.device, backend=base.backend,
+                group=dp_group, host_group=dp_host, global_rank=base.rank,
+                global_world=base.world, tp=tp, world_group=base.group,
+                world_host_group=base.host_group)
 
 
 def _flat(tensors: Sequence[torch.Tensor]) -> torch.Tensor:

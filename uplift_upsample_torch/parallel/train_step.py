@@ -46,6 +46,20 @@ batch from the step's generator and keep the rank's frames or windows. The
 keyframe budget is per rank, from the local batch; an overflow on one rank
 poisons every rank through the summed gradient.
 
+Tensor parallel (`tp`, mp > 1; the model built with the same `tp`, and `dp`
+then a `mesh.Mesh` whose rank is the dp index): the model's blocks hold the
+rank's shards. The whole-block stages read whole weights, so the spatial
+and temporal stacks (K1/K4 and K5, or their plain versions) and K6 run on
+their blocks' weights gathered once per step (`sharding.gather_params_tp`):
+every mp peer computes the same full result, which is replicated compute
+over mp, not TP (ROADMAP C). Strided blocks from 1 (2 with K6) and the
+heads run split. The loss is over the global batch; the flat gradient of
+the rank's local parameters is summed over the dp group only; Adam, AdamW
+and the EMA act on the shards (every update is elementwise). Replicated
+parameters stay bit-identical over the mp peers because their gradients
+come from identical inputs: the droppath draws and the keyframe budget
+follow the dp index, so mp peers drop the same rows.
+
 Not ported (NotImplementedError): OUTPUT_BN, dropout, attention dropout and
 token masking in training. The port trains in fp32 (TF32 off);
 TRAIN_MATMUL_PRECISION is not read.
@@ -74,6 +88,7 @@ from ..ops.temporal import stack_temporal_params, temporal_stack_plain
 from ..ops.temporal_train import temporal_stack_train
 from ..utils.schedules import scheduler_by_name
 from .mesh import DataParallel, all_reduce_sum_
+from .sharding import TensorParallel, check_model_tp, gather_params_tp
 
 _F32 = torch.float32
 
@@ -242,14 +257,17 @@ def prepare_batch(tensors, dataset_name: str):
 
 
 def make_loss_fn(model, config: UpliftUpsampleConfig, dataset_name: str = "h36m", *,
-                 kernels: bool = True, dp: Optional[DataParallel] = None):
+                 kernels: bool = True, dp: Optional[DataParallel] = None,
+                 tp: Optional[TensorParallel] = None):
     """loss_fn((seq3d, seq2d | cam18, stride_mask), generator) → scalar loss
     (with graph); AMASS batches carry the camera in place of the 2D poses.
     `generator` draws the stochastic depth, the model's DropPath included.
     With `dp` the batch is the rank's rows of the global batch and the loss
-    is their share of the global loss (module docstring)."""
+    is their share of the global loss; with `tp` the stacks read gathered
+    weights (module docstring)."""
     if dataset_name not in ("h36m", "amass"):
         raise ValueError(f"unknown dataset {dataset_name!r}")
+    tp = check_model_tp(model, tp)
     for key in ("DROP_RATE", "ATTENTION_DROP_RATE", "TOKEN_MASK_RATE"):
         if getattr(config, key, 0):
             raise NotImplementedError(f"training with {key} > 0 is not ported")
@@ -272,6 +290,13 @@ def make_loss_fn(model, config: UpliftUpsampleConfig, dataset_name: str = "h36m"
     if fused_strided:
         # top·i/(depth-1) at i = 0: K6 has no stochastic depth to apply
         assert model.strided_temporal_block_1.drop_path.rate == 0.0
+    whole = ("spatial_block_", "temporal_block_") + (
+        ("strided_temporal_block_1.",) if fused_strided else ())
+    if tp is not None and tp.rank == 0 and (dp is None or dp.rank == 0):
+        print(f"tensor parallel, mp={tp.size}: the spatial and temporal stacks"
+              f"{' and strided block 1' if fused_strided else ''} run on weights gathered "
+              f"once per step (replicated compute over mp); strided blocks "
+              f"{2 if fused_strided else 1}+ and the heads run split", flush=True)
 
     def spatial(x, ops, scales):
         if fused_spatial:
@@ -296,6 +321,9 @@ def make_loss_fn(model, config: UpliftUpsampleConfig, dataset_name: str = "h36m"
 
     def apply_model(x, stride_mask, generator):
         params = dict(model.named_parameters())
+        if tp is not None:
+            params.update(gather_params_tp(
+                {k: v for k, v in params.items() if k.startswith(whole)}, tp))
         bb, nn_, pp, cc = x.shape
         frames = bb * nn_
         if model.spatial_depth > 0:
@@ -392,7 +420,7 @@ def batch_to_device(batch, device) -> Tuple[torch.Tensor, torch.Tensor, torch.Te
 def make_train_step(model, opt: KerasAdam, config: UpliftUpsampleConfig, *,
                     dataset_name: str = "h36m", device="cuda", kernels: bool = True,
                     rng_seed: Optional[int] = None, device_feed=None,
-                    dp: Optional[DataParallel] = None):
+                    dp: Optional[DataParallel] = None, tp: Optional[TensorParallel] = None):
     """step(state, batch) → (state, loss): forward, backward, the optimizer
     update, the EMA update; state is updated in place and returned.
 
@@ -401,10 +429,12 @@ def make_train_step(model, opt: KerasAdam, config: UpliftUpsampleConfig, *,
     on the card from its resident store. rng_seed defaults to
     config.SHUFFLE_SEED. With `dp` the batch is the rank's rows of the
     global batch; the gradient and the loss are summed over the ranks in one
-    all-reduce, and the loss returned is the global one.
+    all-reduce, and the loss returned is the global one. With `tp` (the
+    model's own; `dp` a `mesh.Mesh` or None) the gradient of the rank's
+    local parameters is summed over the dp group only (module docstring).
     """
     device = resolve_device(device)
-    loss_fn = make_loss_fn(model, config, dataset_name, kernels=kernels, dp=dp)
+    loss_fn = make_loss_fn(model, config, dataset_name, kernels=kernels, dp=dp, tp=tp)
     seed = config.SHUFFLE_SEED if rng_seed is None else rng_seed
     params = dict(model.named_parameters())
     ema_enabled = bool(config.EMA_ENABLED)
@@ -442,7 +472,8 @@ def make_train_step(model, opt: KerasAdam, config: UpliftUpsampleConfig, *,
 
 
 def make_val_step(model, config: UpliftUpsampleConfig, dataset_name: str = "h36m", *,
-                  device="cuda", device_feed=None, dp: Optional[DataParallel] = None):
+                  device="cuda", device_feed=None, dp: Optional[DataParallel] = None,
+                  tp: Optional[TensorParallel] = None):
     """val_step(params, batch) → (pred_central, central_gt, loss), on the device.
 
     The plain model in eval mode, as the JAX step applies the flax model
@@ -453,9 +484,11 @@ def make_val_step(model, config: UpliftUpsampleConfig, dataset_name: str = "h36m
     the flipped input's, unflipped. With `device_feed`, batches are its plans.
     With `dp` the batch is the rank's rows of the global batch; the loss is
     summed over the ranks and the predictions and ground truth gathered, so
-    every rank returns the global batch's.
+    every rank returns the global batch's. With `tp` (the model's own) the
+    model runs split over mp and `params` are the rank's shards.
     """
     device = resolve_device(device)
+    check_model_tp(model, tp)
     root = config.ROOT_KEYTPOINT
     mid = config.SEQUENCE_LENGTH // 2
     b, n, k = config.BATCH_SIZE, config.SEQUENCE_LENGTH, config.NUM_KEYPOINTS
