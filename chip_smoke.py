@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port's serving, training, eval, CLI, data- and tensor-parallel paths on one card.
+"""Smoke run of the PyTorch port's serving, training, eval, CLI, data- and tensor-parallel paths and the bf16 eval rung on one card.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -130,7 +130,25 @@ Phases (one line each; any failure ends the run with a non-zero exit):
      uplift_upsample_torch.tools.dryrun_multichip --devices 4` (dp 2 x mp 2,
      4 gloo ranks on the card): exit 0 with MULTICHIP_CORE_OK, each stage's
      wall time or its budget skip; (d) the phase's wall time;
- 11. one JSON line of per-kernel numbers, the card line again, and the last
+ 11. the bf16 eval rung (EVAL_MATMUL_PRECISION "default"), h36m_351 full
+     width: (a) each bf16 instance (K1 at 72,704 frames; K2 over four blocks
+     and over one, its attention core and its four GEMM pieces at 1,024
+     windows; K3 at (0, 0) and at h36m_81's (1, 1); the strided conv; the
+     s2t kernel) against its plain version at the same rung: its mean and
+     largest distance to the rung with exact sums (the plain version in
+     float64) at most 2x the fp32 plain version's, and its mean gap to the
+     plain version at most 0.25 x the rung's mean drift from "high" (over
+     K2's four blocks reported, not held: the bf16 rounding flips that
+     different sum orders cause cascade there), each timed beside its
+     "high" instance, the plain version and one PyTorch call on bf16
+     tensors; (b) predict (3 x 3,000 frames, flip-TTA) at "default" against
+     "high" with its launches (bf16 instances only), the tiled route's s2t
+     launch, and run_eval per mask stride on phase 5's data against phase
+     5's metrics (every metric within 1 %); (c) `python -m
+     uplift_upsample_torch.tools.check_parity --assert-bounds` exits 0;
+     (d) the bench CLI at `--precision default` exits 0; (e) K4's output
+     bit for bit against its build before the bf16 mode;
+ 12. one JSON line of per-kernel numbers, the card line again, and the last
      line `{"ok": true, "device": {...}}`.
 
 It needs a CUDA card and the repository checkout around it; without either it
@@ -163,11 +181,13 @@ CLI_EPOCHS, CLI_STEPS, CLI_VAL = 2, 8, 2048  # the training CLI phase
 DP_STEPS, DP_RANKS = 3, 2    # the data-parallel phase: steps per run, gloo ranks on the card
 AMASS_STEPS, AMASS_VAL = 4, 1024
 
-# H100 SXM peaks (NVIDIA data sheet): fp32 on CUDA cores, dense TF32 on the
-# tensor cores (the 3xTF32 kernels count three TF32 products per fp32 one),
-# and HBM3 bandwidth; its L2 cache.
+# H100 SXM peaks (NVIDIA data sheet): fp32 on CUDA cores, dense TF32 and
+# bf16 on the tensor cores (the 3xTF32 kernels count three TF32 products per
+# fp32 one; the bf16 rung's products count at the bf16 peak), and HBM3
+# bandwidth; its L2 cache.
 PEAK_FP32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
 L2_BYTES = 50 * 2**20
 F32 = 4
@@ -185,11 +205,13 @@ def card_line() -> str:
 
 
 def bound_ms(flops: float, nbytes: float, peak_flops: float = PEAK_FP32_FLOPS,
-             tc_flops: float = 0.0):
+             tc_flops: float = 0.0, bf16_flops: float = 0.0):
     """(least ms, what bounds it): `flops` at `peak_flops` plus `tc_flops`, the
     fp32 operations run in 3xTF32 on the tensor cores (three TF32 products
-    each), at the TF32 peak; against the bytes at the HBM rate."""
-    t_ops = (flops / peak_flops + 3 * tc_flops / PEAK_TF32_FLOPS) * 1e3
+    each), at the TF32 peak, plus `bf16_flops`, the bf16 rung's products, at
+    the dense bf16 peak; against the bytes at the HBM rate."""
+    t_ops = (flops / peak_flops + 3 * tc_flops / PEAK_TF32_FLOPS
+             + bf16_flops / PEAK_BF16_FLOPS) * 1e3
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -762,7 +784,8 @@ def eval_phase(args, torch, np, rng, failed, tmp):
     for r in default:
         total.update(r["counts"])
     return (dict(total), next(r for r in runs if r.get("label") == "b")["counts"],
-            (p3, p2, samples, {r["stride"]: r["wall"] for r in default}))
+            (p3, p2, samples, {r["stride"]: r["wall"] for r in default},
+             {r["stride"]: r["result"] for r in default}))
 
 
 class TimedLines:
@@ -968,7 +991,7 @@ def routes_phase(args, torch, np, rng, failed, record, alias):
     from uplift_upsample_torch.ops.strided import (output_length, strided_block1,
                                                    strided_block1_plain)
     from uplift_upsample_torch.ops.temporal import (temporal_block, temporal_stack_apply,
-                                                    temporal_stack_plain)
+                                                    temporal_stack_plain, tf32_halves)
     from uplift_upsample_torch.utils.dedup import dedup_rows
 
     dev = torch.device("cuda")
@@ -1021,7 +1044,9 @@ def routes_phase(args, torch, np, rng, failed, record, alias):
            library_ms=time_ms(torch, s2t_lib, 10), phase="route tiled",
            f64=f64_check(torch, got, ref, ref64), peak_flops=PEAK_TF32_FLOPS,
            extra=dict(addmm_ms=time_ms(
-               torch, lambda: torch.addmm(s2t["bias"], sp2, s2t["w"]), 10)))
+               torch, lambda: torch.addmm(s2t["bias"], sp2, s2t["w"]), 10),
+               # W split on every call, as the wrapper did before s2t_params split it once
+               with_split_ms=time_ms(torch, lambda: (tf32_halves(s2t["w"]), s2t_fn()), 10)))
     del sp, sp2, sm3, got, ref, ref64
 
     # Row 9: K2 over one block with a key mask; temporal_stack_apply, block by
@@ -2125,6 +2150,346 @@ def tp_phase(args, torch, np, rng, failed) -> None:
     log(f"phase 10 (d) wall {time.perf_counter() - t_phase:.1f} s ({card})")
 
 
+# ---- phase 11: the bf16 eval rung -----------------------------------------------
+
+BF16_DRIFT_FRAC = 0.25  # mean |kernel - plain| over the rung's mean drift, at most
+
+
+def rung_checks(torch, got, plain, plain_high, rung64, mean_frac=BF16_DRIFT_FRAC):
+    """A bf16 instance against its plain version at the same rung: (max
+    |got - plain|, the bars' text, ok), and the numbers. Bars: the distance
+    to the rung with exact sums (`rung64`, the plain version in float64),
+    mean and largest, at most 2x the fp32 plain version's + 1e-6 of the
+    scale; and mean |got - plain| at most `mean_frac` x the rung's mean drift
+    |plain - plain_high| (None: reported, not held). Both round the same
+    operands; their sum orders differ, which flips a later bf16 rounding now
+    and then, so the largest gap is held through rung64 only."""
+    got, plain, plain_high = (t.double() for t in (got, plain, plain_high))
+    err, err_plain = (got - rung64).abs(), (plain - rung64).abs()
+    slack = 1e-6 * float(rung64.abs().max())
+    gap, drift = (got - plain).abs(), (plain - plain_high).abs()
+    ok = (float(err.mean()) <= 2 * float(err_plain.mean()) + slack
+          and float(err.max()) <= 2 * float(err_plain.max()) + slack
+          and bool(torch.isfinite(got).all()))
+    if mean_frac is not None:
+        ok = ok and float(gap.mean()) <= mean_frac * float(drift.mean())
+    nums = dict(rung64_mean=float(err.mean()), plain_rung64_mean=float(err_plain.mean()),
+                rung64_max=float(err.max()), plain_rung64_max=float(err_plain.max()),
+                gap_mean_over_drift=float(gap.mean() / drift.mean()),
+                gap_max_over_drift=float(gap.max() / drift.max()))
+    bar = "rung64 2x plain" + ("" if mean_frac is None else f", mean <= {mean_frac} drift")
+    return (float(gap.max()), bar, ok), nums
+
+
+def bf16_phase(args, torch, np, rng, failed, record, eval_data):
+    """Phase 11, the bf16 eval rung (EVAL_MATMUL_PRECISION "default") at
+    h36m_351 full width, seed --seed: (a) each bf16 instance against its
+    plain version (`rung_checks`) at the main path's shapes, timed beside its
+    "high" instance; (b) predict (3 x 3,000 frames, flip-TTA) and the tiled
+    route with their launches, and run_eval per mask stride on phase 5's
+    data, each against "high"; (c) the drift matrix; (d) the bench CLI at
+    --precision default; (e) K4 bit for bit against its build before the
+    bf16 mode. Returns the launch counts by path."""
+    import torch.nn.functional as F
+
+    import uplift_upsample_torch.eval as eval_mod
+    from uplift_upsample_torch.configs import get_config
+    from uplift_upsample_torch.models import build_uplift_upsample_transformer
+    from uplift_upsample_torch.models.bench_forward import bench_forward, prepare_fused_params
+    from uplift_upsample_torch.ops import cuda_lib
+    from uplift_upsample_torch.ops.s2t import s2t_prologue, s2t_prologue_plain
+    from uplift_upsample_torch.ops.spatial import spatial_stack, spatial_stack_plain
+    from uplift_upsample_torch.ops.strided import (output_length, strided_block1,
+                                                   strided_block1_plain, strided_conv,
+                                                   strided_conv_plain)
+    from uplift_upsample_torch.ops.temporal import (gemm, temporal_stack, temporal_stack_plain,
+                                                    window_attention, window_attention_plain)
+    from uplift_upsample_torch.precision import mm
+    from uplift_upsample_torch.predict import make_predict_step, predict_sequence
+
+    # the gpu test's K4 case, imported from its directory (an installed
+    # package may own the name "tests")
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from test_torch_precision_kernels import K4_DIGEST, _k4_outputs, k4_digest
+
+    dev = torch.device("cuda")
+    f32, f64 = torch.float32, torch.float64
+    counts = {}
+
+    def rand(*shape, scale=0.5):
+        return torch.from_numpy((rng.normal(size=shape) * scale).astype(np.float32)).to(dev)
+
+    def cast(value, dtype):
+        if isinstance(value, dict):
+            return {k: cast(v, dtype) for k, v in value.items()}
+        return value.to(dtype) if torch.is_tensor(value) and value.is_floating_point() else value
+
+    def stride_mask(b, n_, ms):
+        phase = rng.integers(0, ms, size=(b, 1))
+        return torch.from_numpy((np.arange(n_)[None] + phase) % ms == 0).to(dev)
+
+    def case(name, replaces, source, kernel, plain, counter, bf16_flops, nbytes, flops=0.0,
+             library=None, mean_frac=BF16_DRIFT_FRAC, listed=True, phase="predict bf16",
+             extra=None):
+        """kernel(rung) against plain(rung, dtype), timed beside kernel("high")."""
+        got = kernel("default")
+        check, nums = rung_checks(torch, got, plain("default", f32), plain("high", f32),
+                                  plain("default", f64), mean_frac)
+        ms = time_ms(torch, lambda: kernel("default"), 10)
+        high_ms = time_ms(torch, lambda: kernel("high"), 10)
+        record(name, source, replaces, check, ms, time_ms(torch, lambda: plain("default", f32), 3),
+               flops, nbytes, library_ms=None if library is None else time_ms(torch, library, 10),
+               counter=counter, phase=phase, listed=listed, stage="phase 11",
+               bf16_flops=bf16_flops, extra=dict(high_ms=high_ms, **nums, **(extra or {})))
+        torch.cuda.empty_cache()
+
+    config = get_config("h36m_351")
+    config.MASK_STRIDE = config.MASK_STRIDE[0]
+    model = build_uplift_upsample_transformer(config, device="cuda", seed=args.seed)
+    fp = prepare_fused_params(model, "default")
+    heads, fmb = model.num_heads, model.first_strided_token_attention_layer
+    windows, n = 2 * config.BATCH_SIZE, config.SEQUENCE_LENGTH
+    c, hid, p, cs = (config.TEMPORAL_EMBED_DIM, int(config.TEMPORAL_EMBED_DIM * config.MLP_RATIO),
+                     config.NUM_KEYPOINTS, config.SPATIAL_EMBED_DIM)
+    rows, frames = windows * n, windows * n
+    plane_bytes = lambda ops: sum(v.numel() for k, v in ops.items()
+                                  if k.endswith("_bf") or not (k.endswith("_tc") or "_tc_" in k
+                                                               or f"{k}_bf" in ops)) * F32
+
+    # (a) each bf16 instance against its plain version
+    x_sp, sp_ops = rand(frames, p, 2), fp["spatial"]
+    dense_frame = model.spatial_depth * (2 * p * cs * cs * 4 + 2 * p * cs * 2 * cs * 2)
+    case("spatial_stack_bf16", "uplift_upsample_tpu/ops/pallas_spatial.py:398",
+         "uplift_upsample_torch/csrc/spatial.cu",
+         lambda r: spatial_stack(x_sp, sp_ops, num_heads=heads, packed=fp["spatial_packed"],
+                                 precision=r),
+         lambda r, d: spatial_stack_plain(x_sp.to(d), cast(sp_ops, d), num_heads=heads,
+                                          precision=r),
+         "spatial_stack_bf16", frames * (dense_frame + p * 2 * cs * 2),
+         (x_sp.numel() + frames * p * cs + fp["spatial_packed"].numel()) * F32,
+         flops=frames * model.spatial_depth * 4 * p * p * cs)  # the attention: fp32, CUDA cores
+    del x_sp
+    x_tm = rand(windows, n, c)
+    km = 1.0 - stride_mask(windows, n, 10).float()
+    tm_ops = fp["temporal"]
+    block_flops = rows * 2 * c * (3 * c + c + 2 * hid) + windows * 4 * n * n * c
+    for blocks, mean_frac in ((4, None), (1, BF16_DRIFT_FRAC)):
+        ops_b = {k: v[:blocks] for k, v in tm_ops.items()}
+        kw = dict(num_heads=heads, first_masked_blocks=fmb)
+        case("temporal_stack_bf16" + ("" if blocks == 4 else "_one_block"),
+             "uplift_upsample_tpu/ops/pallas_temporal_v3.py:343",
+             "uplift_upsample_torch/csrc/temporal.cu",
+             lambda r, o=ops_b: temporal_stack(x_tm, o, km, precision=r, **kw),
+             lambda r, d, o=ops_b: temporal_stack_plain(x_tm.to(d), cast(o, d), km.to(d),
+                                                        precision=r, **kw),
+             "temporal_stack", blocks * block_flops,
+             (2 * x_tm.numel() + km.numel()) * F32 + plane_bytes(ops_b), mean_frac=mean_frac,
+             listed=blocks == 4)
+    qkv = rand(rows, 3 * c, scale=1.0)
+    q, k, v = (t.reshape(windows, n, heads, c // heads).transpose(1, 2).to(torch.bfloat16)
+               for t in qkv.reshape(windows, n, 3 * c).split(c, dim=-1))
+    mask_bf = (km * -1e9)[:, None, None, :].to(torch.bfloat16)
+    case("window_attention_bf16", "uplift_upsample_tpu/ops/pallas_temporal_v3.py:248",
+         "uplift_upsample_torch/csrc/attention.cuh",
+         lambda r: window_attention(qkv, km, windows=windows, n=n, num_heads=heads,
+                                    counter="probe", precision=r),
+         lambda r, d: window_attention_plain(qkv.reshape(windows, n, 3 * c).to(d), km.to(d),
+                                             heads, r).reshape(rows, c),
+         "window_attention_bf16", windows * 4 * n * n * c,
+         (qkv.numel() + km.numel() + rows * c) * F32,
+         library=lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask_bf))
+    del qkv, q, k, v
+    v3 = "uplift_upsample_tpu/ops/pallas_temporal_v3.py"
+    for name, line, wname, bname, k_in, relu, residual in (
+            ("gemm_bf16", 174, "wqkv", "bqkv", c, False, False),
+            ("gemm_bf16_proj", 260, "wp", "bp", c, False, True),
+            ("gemm_bf16_fc1", 264, "w1", "b1", c, True, False),
+            ("gemm_bf16_fc2", 270, "w2", "b2", hid, False, True)):
+        a = torch.relu(rand(rows, k_in)) if wname == "w2" else rand(rows, k_in)
+        w, bias = tm_ops[wname][0], tm_ops[bname][0]
+        res = rand(rows, w.shape[1]) if residual else None
+        planes = {"default": tm_ops[wname + "_bf"][0], "high": tm_ops[wname + "_tc"][0]}
+        act = torch.relu if relu else (lambda t: t)
+        a_bf, w_bf = a.to(torch.bfloat16), w.to(torch.bfloat16)
+        case(name, f"{v3}:{line}", "uplift_upsample_torch/csrc/gemm_tc.cuh",
+             lambda r: gemm(a, planes[r], bias, relu=relu, residual=res, counter="probe",
+                            precision=r),
+             lambda r, d: act(mm(a.to(d), w.to(d), r) + bias.to(d)) + (
+                 0 if res is None else res.to(d)),
+             "gemm_bf16", 2 * rows * k_in * w.shape[1],
+             (a.numel() + w.numel() + w.shape[1] + rows * w.shape[1] * (2 if residual else 1))
+             * F32, library=lambda: torch.matmul(a_bf, w_bf))  # bf16 in, bf16 out
+        del a, res, a_bf, w_bf
+
+    def strided_case(name, model_, fp_, x_, listed):
+        s0, pads = model_.strides[0], model_.paddings[0]
+        kw = dict(num_heads=heads, stride=s0, paddings=pads)
+        b_, n_, _ = x_.shape
+        n_out = output_length(n_, s0, pads)
+        case(name, "uplift_upsample_tpu/ops/pallas_strided.py:231",
+             "uplift_upsample_torch/csrc/strided.cu",
+             lambda r: strided_block1(x_, fp_["strided"], precision=r, **kw),
+             lambda r, d: strided_block1_plain(x_.to(d), cast(fp_["strided"], d), precision=r,
+                                               **kw),
+             "strided_block1", b_ * n_ * 2 * c * (3 * c + c + hid) + b_ * 4 * n_ * n_ * c
+             + b_ * n_out * 2 * 3 * hid * c,
+             (x_.numel() + b_ * n_out * c) * F32 + plane_bytes(fp_["strided"]), listed=listed)
+
+    strided_case("strided_block1_bf16", model, fp, x_tm, True)
+    config81 = get_config("h36m_81")
+    config81.MASK_STRIDE = config81.MASK_STRIDE[0]
+    model81 = build_uplift_upsample_transformer(config81, device="cuda", seed=args.seed)
+    strided_case("strided_block1_bf16_h36m_81", model81, prepare_fused_params(model81, "default"),
+                 rand(2 * config81.BATCH_SIZE, config81.SEQUENCE_LENGTH, c), False)
+    del model81
+    st_ops, s0 = fp["strided"], model.strides[0]
+    h1, x_res = torch.relu(rand(windows, n, hid)), rand(windows, n, c)
+    n_out = output_length(n, s0, (0, 0))
+    h1t = h1.transpose(1, 2).contiguous().to(torch.bfloat16)
+    wt = st_ops["wc"].reshape(3, hid, c).permute(2, 1, 0).contiguous().to(torch.bfloat16)
+    res_rows = x_res[:, 1: 2 + s0 * (n_out - 1): s0].to(torch.bfloat16)
+    bc_bf = st_ops["bc"].to(torch.bfloat16)
+    case("strided_conv_bf16", "uplift_upsample_tpu/ops/pallas_strided.py:231",
+         "uplift_upsample_torch/csrc/strided.cu",
+         lambda r: strided_conv(h1, x_res, st_ops, stride=s0, paddings=(0, 0), counter="probe",
+                                precision=r),
+         lambda r, d: strided_conv_plain(h1.to(d), x_res.to(d), st_ops["wc"].to(d),
+                                         st_ops["bc"].to(d), stride=s0, paddings=(0, 0),
+                                         precision=r),
+         "strided_conv_bf16", 2 * windows * n_out * 3 * hid * c,
+         (h1.numel() + 2 * windows * n_out * c + 3 * hid * c + c) * F32,
+         library=lambda: res_rows + F.conv1d(h1t, wt, bc_bf, stride=s0).transpose(1, 2))
+    del h1, x_res, h1t, wt, res_rows
+    kk = p * cs
+    sp, sm = rand(windows, n, kk, scale=1.0), stride_mask(windows, n, 10)
+    s2t = fp["s2t"]
+    sp_bf, w_bf, b_bf = (t.to(torch.bfloat16) for t in (sp.reshape(rows, kk), s2t["w"],
+                                                         s2t["bias"]))
+    tok_bf, pe_bf = s2t["token"].to(torch.bfloat16), s2t["pe"].to(torch.bfloat16)
+    case("s2t_prologue_bf16", "uplift_upsample_tpu/ops/pallas_temporal_v3.py:518",
+         "uplift_upsample_torch/csrc/s2t.cu",
+         lambda r: s2t_prologue(sp, s2t, sm, precision=r),
+         lambda r, d: s2t_prologue_plain(sp.to(d), cast(s2t, d), sm, precision=r),
+         "s2t_prologue_bf16", 2 * rows * kk * c,
+         (sp.numel() + rows * c + sm.numel() + kk * c + 2 * c + n * c) * F32,
+         phase="route tiled bf16",
+         library=lambda: torch.where(sm[..., None], torch.addmm(b_bf, sp_bf, w_bf).reshape(
+             windows, n, c), tok_bf) + pe_bf)
+    del sp, sp_bf, w_bf, x_tm
+    torch.cuda.empty_cache()
+
+    # (b) predict, the tiled route and the eval at "default" against "high"
+    seqs = []
+    for _ in range(SEQUENCES):
+        walk = np.cumsum(rng.normal(size=(FRAMES, p, 2)) * 0.01, axis=0)
+        seqs.append((walk + rng.normal(size=(1, p, 2)) * 0.3).astype(np.float32))
+    total = sum(len(s_) for s_ in seqs)
+    config_def = config.copy()
+    config_def.EVAL_MATMUL_PRECISION = "default"
+    preds, walls = {}, {}
+    for rung, cfg in (("high", config), ("default", config_def)):
+        step = make_predict_step(model, cfg, flip_tta=True)
+        predict_sequence(model, cfg, seqs[0][:400], step=step)  # warm the allocator
+        torch.cuda.synchronize()
+        cuda_lib.reset_launches()
+        t0 = time.perf_counter()
+        preds[rung] = [predict_sequence(model, cfg, s_, step=step) for s_ in seqs]
+        torch.cuda.synchronize()
+        walls[rung] = time.perf_counter() - t0
+        counts["predict " + rung] = dict(cuda_lib.LAUNCHES)
+    counts["predict bf16"] = counts.pop("predict default")
+    gap = max(float(np.abs(a - b).max()) for a, b in zip(preds["default"], preds["high"]))
+    mean_gap = float(np.mean([np.abs(a - b).mean() for a, b in zip(preds["default"],
+                                                                     preds["high"])]))
+    scale = max(float(np.abs(b).max()) for b in preds["high"])
+    finite = all(np.isfinite(a).all() and a.shape == (len(s_), p, 3)
+                 for a, s_ in zip(preds["default"], seqs))
+    seen = counts["predict bf16"]
+    log(f"phase 11 predict: {SEQUENCES} x {FRAMES} frames, flip-TTA: default "
+        f"{total / walls['default']:.1f} frames/s, high {total / walls['high']:.1f} frames/s; "
+        f"|default - high| mean {mean_gap:.4e} max {gap:.4e} (output scale {scale:.3f}); "
+        f"launches {seen}")
+    wanted = ("spatial_stack_bf16", "gemm_bf16", "window_attention_bf16", "strided_conv_bf16")
+    if not finite:
+        failed.append("bf16_predict_not_finite")
+    for key in wanted:
+        if seen.get(key, 0) == 0 or seen.get(key.replace("_bf16", "_f32"), 0) != 0:
+            failed.append(f"bf16_predict_launches_{key}")
+    xb = rand(windows, n, p, 2, scale=0.3)
+    smb = stride_mask(windows, n, 10)
+    torch.cuda.synchronize()
+    cuda_lib.reset_launches()
+    tiled = bench_forward(model, xb * smb[..., None, None], smb, fp, precision="default",
+                          temporal_attn="banded", fuse_s2t=True)
+    torch.cuda.synchronize()
+    counts["route tiled bf16"] = dict(cuda_lib.LAUNCHES)
+    log(f"phase 11 tiled route at default: launches {counts['route tiled bf16']}")
+    if (counts["route tiled bf16"].get("s2t_prologue_bf16", 0) != 1
+            or not bool(torch.isfinite(tiled).all())):
+        failed.append("bf16_tiled_route")
+    del xb, smb, tiled
+    p3, p2, samples, walls_high, results_high = eval_data
+    data = dict(dataset_name="h36m", dataset_path=p3, dataset2d_path=p2, test_subset="test",
+                action_wise=False, verbose=False)
+    econfig = get_config("h36m_351")
+    econfig.EVAL_MATMUL_PRECISION = "default"
+    walls_def, real_run_eval = {}, eval_mod.run_eval
+
+    def timed(cfg, *a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            out = real_run_eval(cfg, *a, **kw)
+        walls_def[cfg.MASK_STRIDE] = time.perf_counter() - t0
+        return out
+
+    eval_mod.run_eval = timed
+    try:
+        results = eval_mod.run_eval_multi_mask_stride(econfig, model=model, **data)
+    finally:
+        eval_mod.run_eval = real_run_eval
+    for stride, res in results.items():
+        got, ref = eval_metrics(res), eval_metrics(results_high[stride])
+        mpjpe_gap = abs(got["all/frame/mpjpe"] - ref["all/frame/mpjpe"])
+        worst = max(abs(got[key] - ref[key]) / abs(ref[key]) for key in ref)
+        ok = all(np.isfinite(v_) for v_ in got.values()) and worst <= 0.01
+        log(f"phase 11 eval MASK_STRIDE {stride} at default: MPJPE {got['all/frame/mpjpe']:.3f} "
+            f"against high {ref['all/frame/mpjpe']:.3f} mm (gap {mpjpe_gap:.4f} mm; the largest "
+            f"relative gap over {len(ref)} metrics {worst:.3e}, bar 0.01) "
+            f"{'ok' if ok else 'FAILED'}; wall {walls_def[stride]:.3f} s = "
+            f"{samples / walls_def[stride]:.1f} protocol frames/s (high: "
+            f"{samples / walls_high[stride]:.1f})")
+        if not ok:
+            failed.append(f"bf16_eval_{stride}")
+    del model
+    torch.cuda.empty_cache()
+
+    # (c) the drift matrix, (d) the bench CLI at --precision default
+    rc, lines, wall = run_cli([sys.executable, "-m", "uplift_upsample_torch.tools.check_parity",
+                               "--assert-bounds"], timeout=300)
+    for line in lines:
+        log(f"phase 11 check_parity: {line}")
+    log(f"phase 11 check_parity: exit {rc} after {wall:.1f} s")
+    if rc != 0:
+        failed.append("bf16_drift_matrix")
+    rc, lines, wall = run_cli([sys.executable, "-m", "uplift_upsample_torch.bench", "--iters",
+                               "8", "--precision", "default"], timeout=300)
+    result = next((ln for ln in reversed(lines) if ln.startswith("{")), "")  # the JSON line
+    log(f"phase 11 bench --precision default: exit {rc} after {wall:.1f} s; line: {result}")
+    if rc != 0 or '"precision_rung": "default"' not in result or "provisional" in result:
+        failed.append("bf16_bench_cli")
+
+    # (e) K4 (spatial_common.cuh is shared with K1's bf16 instance)
+    first, second = _k4_outputs(), _k4_outputs()
+    same = all(torch.equal(a, b) for a, b in zip(first, second))
+    digest = k4_digest(first)
+    log(f"phase 11 K4: bit-identical on repeat {'yes' if same else 'NO'}; digest {digest} "
+        f"{'equals' if digest == K4_DIGEST else 'DIFFERS FROM'} its build before the bf16 mode")
+    if not same or digest != K4_DIGEST:
+        failed.append("k4_changed")
+    return counts
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2220,7 +2585,7 @@ def main(argv=None) -> int:
     def record(name, source, replaces, check, ms, plain_ms, flops, nbytes,
                library_ms=None, counter=None, phase="predict", listed=True,
                stage="phase 2", f64=None, peak_flops=PEAK_FP32_FLOPS, extra=None,
-               tc_flops=0.0):
+               tc_flops=0.0, bf16_flops=0.0):
         """One kernel line. `check` is out_check's or grad_check's result;
         `launches` is read later from the `phase` run's count of `counter`.
         `f64` is f64_check's result for the 3xTF32 kernels (both errors go
@@ -2228,8 +2593,8 @@ def main(argv=None) -> int:
         `peak_flops` and `tc_flops` (fp32 products run in 3xTF32 on the
         tensor cores) at the TF32 peak."""
         err, tol, ok = check
-        b_ms, b_by = bound_ms(flops, nbytes, peak_flops, tc_flops)
-        flops = flops + 3 * tc_flops  # the operations issued, for the log line
+        b_ms, b_by = bound_ms(flops, nbytes, peak_flops, tc_flops, bf16_flops)
+        flops = flops + 3 * tc_flops + bf16_flops  # the operations issued, for the log line
         entry = dict(name=name, route="cuda", source=source, replaces=replaces,
                      launches=0, counter=counter or name, phase=phase, max_abs_err=err,
                      ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
@@ -2245,7 +2610,7 @@ def main(argv=None) -> int:
         if not ok:
             failed.append(name)
         lib = "null" if library_ms is None else f"{library_ms:.4f}"
-        more = "".join(f" {key} {val:.4f}" for key, val in (extra or {}).items())
+        more = "".join(f" {key} {val:.4g}" for key, val in (extra or {}).items())
         log(f"{stage} {name}: max_abs_err {err:.3e} (limit {tol}) "
             f"{'ok' if ok else 'FAILED'}{f64_text}; ms {ms:.4f} plain_ms {plain_ms:.4f} "
             f"library_ms {lib}{more} bound_ms {b_ms:.4f} ({b_by}; {flops / 1e9:.2f} GFLOP, "
@@ -2929,23 +3294,27 @@ def main(argv=None) -> int:
     # ---- phase 8: data parallel ----------------------------------------------
     starts.append(("8", time.perf_counter()))
     dp_phase(args, torch, np, rng, failed)
-    counts_by_phase = {"predict": counts, "train": train_counts, "eval": eval_counts,
-                       "eval_pallas": pallas_counts, "train_cli": cli_counts,
-                       **route_counts}
-    for r in results.values():
-        r["launches"] = counts_by_phase[r.pop("phase")].get(r.pop("counter"), 0)
 
     # ---- phase 9: the native gather, npz weights, profiling -------------------
     starts.append(("9", time.perf_counter()))
     tools_phase(args, torch, np, rng, failed, eval_data, data_dir.name)
-    data_dir.cleanup()
 
     # ---- phase 10: tensor parallel ------------------------------------------
     starts.append(("10", time.perf_counter()))
     tp_phase(args, torch, np, rng, failed)
 
-    # ---- phase 11: report ----------------------------------------------------
+    # ---- phase 11: the bf16 eval rung ---------------------------------------
     starts.append(("11", time.perf_counter()))
+    bf16_counts = bf16_phase(args, torch, np, rng, failed, record, eval_data)
+    data_dir.cleanup()
+    counts_by_phase = {"predict": counts, "train": train_counts, "eval": eval_counts,
+                       "eval_pallas": pallas_counts, "train_cli": cli_counts,
+                       **route_counts, **bf16_counts}
+    for r in results.values():
+        r["launches"] = counts_by_phase[r.pop("phase")].get(r.pop("counter"), 0)
+
+    # ---- phase 12: report ----------------------------------------------------
+    starts.append(("12", time.perf_counter()))
     log("phase wall times: " + ", ".join(
         f"{name} {t1 - t0_:.1f} s" for (name, t0_), (_, t1) in zip(starts, starts[1:])))
     if failed:

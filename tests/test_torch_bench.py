@@ -90,9 +90,11 @@ def test_bench_train_json_line(monkeypatch, capsys):
 
 
 def test_bench_refuses_what_is_not_ported(monkeypatch, capsys):
+    """The bf16 matmul rung runs (tests/test_torch_precision.py), but not
+    with the packed attention op (ROADMAP A8); bf16 activations raise."""
     monkeypatch.setenv("BENCH_BUDGET_S", "0")
-    with pytest.raises(NotImplementedError, match="default"):
-        bench.main(["--device", "cpu", "--precision", "default"])
+    with pytest.raises(NotImplementedError, match="A8"):
+        bench.main(["--device", "cpu", "--precision", "default", "--pallas"])
     with pytest.raises(ValueError, match="COMPUTE_DTYPE"):
         bench.main(["--device", "cpu", "--dtype", "bfloat16", "--batch", "2"])
     assert capsys.readouterr().out == ""

@@ -31,7 +31,8 @@ import torch
 from uplift_upsample_torch.config import UpliftUpsampleConfig
 from uplift_upsample_torch.models import build_uplift_upsample_transformer
 from uplift_upsample_torch.ops import cuda_lib
-from uplift_upsample_torch.ops.s2t import s2t_prologue, s2t_prologue_plain
+from uplift_upsample_torch.ops.s2t import (add_s2t_operands, s2t_prologue,
+                                          s2t_prologue_plain)
 from uplift_upsample_torch.ops.spatial import spatial_stack_apply, stack_spatial_params
 from uplift_upsample_torch.ops.strided import (output_length, stack_strided_block1_params,
                                                strided_block1)
@@ -459,7 +460,7 @@ def test_s2t_kernel_matches_plain(masked, b):
     rng = np.random.default_rng(7)
     n, k, c = 71, 544, 384
     t = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(dev)
-    ops = dict(w=t(k, c) * 0.05, bias=t(c), token=t(c), pe=t(n, c))
+    ops = add_s2t_operands(dict(w=t(k, c) * 0.05, bias=t(c), token=t(c), pe=t(n, c)))
     sp = t(b, n, k)
     sm = torch.from_numpy(rng.uniform(size=(b, n)) < 0.5).to(dev) if masked else None
     cuda_lib.reset_launches()

@@ -157,8 +157,10 @@ def test_eval_packed_upload_matches_unpacked():
 
 def test_eval_cli_with_pallas_flag():
     """The CLI on the CPU: --pallas routes every attention layer through the
-    packed attention op's plain version, for the same metrics; the TPU's
-    bf16 rungs raise."""
+    packed attention op's plain version, for the same metrics; `--bf16`
+    (bf16 activations) raises; EVAL_MATMUL_PRECISION "default", the
+    one-pass bf16 matmul rung, is read: its metrics move off the fp32 run's,
+    by less than 0.2 % (5e-4 measured on this fixture model)."""
     args = ["--weights", SMALL_H5, "--config", SMALL_CONFIG, "--dataset",
             DATA["dataset_path"], "--dataset_2d", DATA["dataset2d_path"],
             "--forced_mask_stride", "10", "--device", "cpu"]
@@ -168,8 +170,13 @@ def test_eval_cli_with_pallas_flag():
     _assert_same(plain, pallas, "--pallas", atol=1e-3, rtol=1e-5)
     with pytest.raises(ValueError, match="float32"):
         main(args + ["--bf16"])
-    with pytest.raises(NotImplementedError, match="bf16"):
-        _run(_config(5, EVAL_MATMUL_PRECISION="default"))
+    high = _run(_config(5))
+    default = _run(_config(5, EVAL_MATMUL_PRECISION="default"))
+    for section in (0, 1):
+        for metric, value in high[section][0].items():
+            gap = abs(default[section][0][metric] - value)
+            assert gap <= 2e-3 * value, (section, metric, gap)
+        assert abs(default[section][0]["mpjpe"] - high[section][0]["mpjpe"]) > 1e-3
 
 
 def test_sparse_rows_to_compute():

@@ -94,16 +94,25 @@ def test_test_step_full_matches_plain_model(tta_batched):
 @pytest.mark.parametrize("precision", ["default", "high"])
 def test_predict_step_reads_eval_precision(precision):
     """make_predict_step hands EVAL_MATMUL_PRECISION to make_test_step, as the
-    eval CLI does: the TPU's bf16 rung "default" raises, "high" builds."""
+    eval CLI does: "default", the one-pass bf16 rung, moves the output off
+    the fp32 one ("high"), which matches `precision` omitted bit for bit."""
+    from uplift_upsample_torch.eval import make_test_step
     from uplift_upsample_torch.predict import make_predict_step
 
     config = _flagship_small(EVAL_MATMUL_PRECISION=precision)
     model = build_uplift_upsample_transformer(config, device="cpu", seed=0)
+    rng = np.random.default_rng(0)
+    n = config.SEQUENCE_LENGTH
+    x = torch.from_numpy((rng.normal(size=(2, n, 17, 2)) * 0.3).astype(np.float32))
+    sm = torch.from_numpy((np.arange(n) % 5 == 0)[None].repeat(2, axis=0))
+    _, got = make_predict_step(model, config)(x, sm)
+    _, fp32 = make_test_step(model, flip_tta=True,
+                             flip_lr_indices=config.AUGM_FLIP_KEYPOINT_ORDER)(x, sm)
     if precision == "default":
-        with pytest.raises(NotImplementedError, match="EVAL_MATMUL_PRECISION"):
-            make_predict_step(model, config)
+        gap = float((got - fp32).abs().max())
+        assert 0 < gap <= 0.05 * float(fp32.abs().max()), gap
     else:
-        assert callable(make_predict_step(model, config))
+        assert torch.equal(got, fp32)
 
 
 def _small_models():

@@ -9,6 +9,8 @@ plain PyTorch version instead, which the CPU tests use.
 
 Layout:
   config, configs — layered config system and the bundled configurations (copied)
+  precision       — the matmul rungs: "high"/"highest" (fp32-level) and "default",
+                    the TPU's one-pass bf16 dot, with the context the plain modules read
   models/         — UpliftUpsampleTransformer (nn.Module), its primitives, the fused eval forward
   ops/            — attention; the spatial (K1), temporal (K2) and strided-block-1 (K3)
                     kernels; the spatial backward (K4), the temporal stack (K5) and

@@ -30,8 +30,9 @@ watchdog that prints the best provisional result as the JSON line before the
 budget runs out.
 
 Prints ONE JSON line on stdout; progress and a summary line on stderr.
---precision default (the TPU's one-pass bf16 rung) and --dtype bfloat16
-raise: the port runs fp32. --eval-wpt, --spatial-block-f,
+--precision default runs the eval step on the one-pass bf16 rung (the
+kernels' bf16 instances, `precision.py`); --dtype bfloat16 (bf16
+activations) raises. --eval-wpt, --spatial-block-f,
 --train-spatial-attn and --train-wpt are TPU kernel tilings and
 --train-precision a TPU rung: they are read and logged, and change nothing.
 """
@@ -362,7 +363,7 @@ def parse_args(argv=None):
     parser.add_argument("--precision", default="high",
                         choices=["default", "high", "highest"],
                         help="matmul precision rung: 'high' and 'highest' both run "
-                             "fp32; 'default' (the TPU's one-pass bf16) raises")
+                             "fp32-level products; 'default' the one-pass bf16 rung")
     parser.add_argument("--train", action="store_true",
                         help="measure the training step (forward, backward, AdamW) "
                              "instead of the eval forward")
@@ -414,10 +415,10 @@ def main(argv=None) -> None:
     args = parse_args(argv)
     import torch
 
-    from .eval import check_precision
+    from .precision import check_rung
     from .models.build import resolve_device
 
-    check_precision(args.precision)
+    check_rung(args.precision, use_pallas=args.pallas)
     dev = resolve_device(args.device)
     bench = Bench(float(os.environ.get("BENCH_BUDGET_S", "540")))
     bench.start_watchdog()

@@ -46,6 +46,12 @@
 //    such a row.
 //  - The context is normalised by the row sum as it leaves the registers;
 //    only the real query rows and the D real columns are written.
+//  - The bf16 mode (BF16, the one-pass bf16 rung; K2's and K3's
+//    `window_attention_bf16`): q and k rounded to bf16 as they are loaded
+//    (the scale applied to the logits after the product, as the TPU's
+//    DEFAULT dot on q and k computes them), and P·V on the probabilities
+//    normalised first, then rounded, with v rounded: one TF32 product per
+//    pair of rounded operands (tf32.cuh), fp32 sums.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -102,12 +108,27 @@ constexpr int attn_min_blocks(int warps) {
 }
 
 // Q·Kᵀ over the 8 columns kk of D: the warp's 16 query rows (qw) against
-// every 8-key step, into the logit fragments s (3xTF32).
-template <int NT>
+// every 8-key step, into the logit fragments s (3xTF32; BF16: one pass on
+// the operands rounded to bf16).
+template <int NT, bool BF16>
 __device__ __forceinline__ void qk_step(float (&s)[NT][4], const float* qw, const float* ks,
                                         int pq, int kk, int nt, int g, int t) {
   const float2 qa = *reinterpret_cast<const float2*>(qw + g * pq + 8 * kk + 2 * t);
   const float2 qb = *reinterpret_cast<const float2*>(qw + (g + 8) * pq + 8 * kk + 2 * t);
+  if constexpr (BF16) {
+    const uint32_t ab[4] = {bf16_round(qa.x), bf16_round(qb.x), bf16_round(qa.y),
+                            bf16_round(qb.y)};
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      if (j < nt) {
+        const float2 kv =
+            *reinterpret_cast<const float2*>(ks + (8 * j + g) * pq + 8 * kk + 2 * t);
+        const uint32_t bb[2] = {bf16_round(kv.x), bf16_round(kv.y)};
+        mma_tf32(s[j], ab, bb);
+      }
+    }
+    return;
+  }
   uint32_t ab[4], as[4];
   tf32_split(qa.x, ab[0], as[0]);
   tf32_split(qb.x, ab[1], as[1]);
@@ -127,8 +148,9 @@ __device__ __forceinline__ void qk_step(float (&s)[NT][4], const float* qw, cons
 
 // NT: the most 8-key steps the instantiation holds in registers (S <= 8·NT,
 // so at most (NT+1)/2 warps); CW: 8-column steps of D per pass of P·V (the
-// context accumulators in registers), D <= 8·CW in one pass.
-template <int NT, int CW>
+// context accumulators in registers), D <= 8·CW in one pass; BF16: the bf16
+// mode (the note at the top).
+template <int NT, int CW, bool BF16>
 __global__ void __launch_bounds__((NT + 1) / 2 * 32, attn_min_blocks((NT + 1) / 2))
 head_attention_tc_kernel(const float* __restrict__ q_base, const float* __restrict__ k_base,
                          const float* __restrict__ v_base, int row_stride,
@@ -170,9 +192,9 @@ head_attention_tc_kernel(const float* __restrict__ q_base, const float* __restri
 #pragma unroll
   for (int kk = 0; kk < CW; ++kk) {
     if (kk >= dk) break;
-    qk_step(s, qw, ks, pq, kk, nt, g, t);
+    qk_step<NT, BF16>(s, qw, ks, pq, kk, nt, g, t);
   }
-  for (int kk = CW; kk < dk; ++kk) qk_step(s, qw, ks, pq, kk, nt, g, t);
+  for (int kk = CW; kk < dk; ++kk) qk_step<NT, BF16>(s, qw, ks, pq, kk, nt, g, t);
 
   // softmax over each row in registers: a row's 8·nt keys sit in one quad
   float mx0 = -INFINITY, mx1 = -INFINITY;
@@ -224,7 +246,21 @@ head_attention_tc_kernel(const float* __restrict__ q_base, const float* __restri
     for (int cc = 0; cc < CW; ++cc) o[cc][0] = o[cc][1] = o[cc][2] = o[cc][3] = 0.f;
 #pragma unroll
     for (int j = 0; j < NT; ++j) {
-      if (j < nt) {
+      if constexpr (BF16) {
+        if (j < nt) {
+          // the probabilities normalised, then rounded (P's own fragment, below)
+          const uint32_t ab[4] = {bf16_round(s[j][0] * inv0), bf16_round(s[j][2] * inv1),
+                                  bf16_round(s[j][1] * inv0), bf16_round(s[j][3] * inv1)};
+          const float* vj = vs + (8 * j + 2 * t) * pv + 8 * c0 + g;
+#pragma unroll
+          for (int cc = 0; cc < CW; ++cc) {
+            if (c0 + cc < dk) {
+              const uint32_t bb[2] = {bf16_round(vj[8 * cc]), bf16_round(vj[pv + 8 * cc])};
+              mma_tf32(o[cc], ab, bb);
+            }
+          }
+        }
+      } else if (j < nt) {
         // A column t is key 2t, column t+4 key 2t+1: P's own fragment
         uint32_t ab[4], as[4];
         tf32_split(s[j][0], ab[0], as[0]);
@@ -243,29 +279,30 @@ head_attention_tc_kernel(const float* __restrict__ q_base, const float* __restri
         }
       }
     }
+    const float f0 = BF16 ? 1.f : inv0, f1 = BF16 ? 1.f : inv1;  // BF16: P normalised
 #pragma unroll
     for (int cc = 0; cc < CW; ++cc) {
       const int col = 8 * (c0 + cc) + 2 * t;
       if (c0 + cc < dk) {
         if (row0 < n) {
-          if (col < d) out0[col] = o[cc][0] * inv0;
-          if (col + 1 < d) out0[col + 1] = o[cc][1] * inv0;
+          if (col < d) out0[col] = o[cc][0] * f0;
+          if (col + 1 < d) out0[col + 1] = o[cc][1] * f0;
         }
         if (row1 < n) {
-          if (col < d) out1[col] = o[cc][2] * inv1;
-          if (col + 1 < d) out1[col + 1] = o[cc][3] * inv1;
+          if (col < d) out1[col] = o[cc][2] * f1;
+          if (col + 1 < d) out1[col + 1] = o[cc][3] * f1;
         }
       }
     }
   }
 }
 
-template <int NT, int CW>
+template <int NT, int CW, bool BF16>
 cudaError_t launch_head_attention_tc(const float* q, const float* k, const float* v,
                                      int row_stride, const float* key_mask, float* out,
                                      int seqs, int n, int c, int heads, size_t smem,
                                      int threads, bool vec, cudaStream_t stream) {
-  auto kernel = head_attention_tc_kernel<NT, CW>;
+  auto kernel = head_attention_tc_kernel<NT, CW, BF16>;
   if (smem > 48 * 1024) {
     int dev = 0, optin = 0;
     cudaGetDevice(&dev);
@@ -281,16 +318,16 @@ cudaError_t launch_head_attention_tc(const float* q, const float* k, const float
   return cudaGetLastError();
 }
 
-template <int CW>
+template <int CW, bool BF16>
 cudaError_t launch_head_attention_nt(const float* q, const float* k, const float* v,
                                      int row_stride, const float* key_mask, float* out,
                                      int seqs, int n, int c, int heads, size_t smem,
                                      int threads, bool vec, cudaStream_t stream) {
   const int nt = (n + 7) / 8;
-#define UU_ATTN_CASE(NT_)                                                             \
-  if (nt <= NT_)                                                                      \
-    return launch_head_attention_tc<NT_, CW>(q, k, v, row_stride, key_mask, out, seqs, \
-                                             n, c, heads, smem, threads, vec, stream);
+#define UU_ATTN_CASE(NT_)                                                                   \
+  if (nt <= NT_)                                                                            \
+    return launch_head_attention_tc<NT_, CW, BF16>(q, k, v, row_stride, key_mask, out, seqs, \
+                                                   n, c, heads, smem, threads, vec, stream);
   UU_ATTN_CASE(3)
   UU_ATTN_CASE(6)
   UU_ATTN_CASE(9)
@@ -300,8 +337,9 @@ cudaError_t launch_head_attention_nt(const float* q, const float* k, const float
   return cudaErrorInvalidValue;
 }
 
-// Attention on `seqs` sequences of n <= 128 tokens; returns the launch's error
-// (shared memory above 48 KB is opted into first).
+// Attention on `seqs` sequences of n <= 128 tokens (BF16: the bf16 mode);
+// returns the launch's error (shared memory above 48 KB is opted into first).
+template <bool BF16 = false>
 inline cudaError_t launch_head_attention(const float* q, const float* k, const float* v,
                                          int row_stride, const float* key_mask, float* out,
                                          int seqs, int n, int c, int heads,
@@ -316,16 +354,16 @@ inline cudaError_t launch_head_attention(const float* q, const float* k, const f
   const bool vec = aligned(q) && aligned(k) && aligned(v) && row_stride % 4 == 0 && d % 4 == 0;
   const int threads = warps * 32;
   if (dk <= 2)
-    return launch_head_attention_nt<2>(q, k, v, row_stride, key_mask, out, seqs, n, c, heads,
-                                       smem, threads, vec, stream);
+    return launch_head_attention_nt<2, BF16>(q, k, v, row_stride, key_mask, out, seqs, n, c,
+                                             heads, smem, threads, vec, stream);
   if (dk <= 4)
-    return launch_head_attention_nt<4>(q, k, v, row_stride, key_mask, out, seqs, n, c, heads,
-                                       smem, threads, vec, stream);
+    return launch_head_attention_nt<4, BF16>(q, k, v, row_stride, key_mask, out, seqs, n, c,
+                                             heads, smem, threads, vec, stream);
   if (dk <= 6)
-    return launch_head_attention_nt<6>(q, k, v, row_stride, key_mask, out, seqs, n, c, heads,
-                                       smem, threads, vec, stream);
-  return launch_head_attention_nt<8>(q, k, v, row_stride, key_mask, out, seqs, n, c, heads,
-                                     smem, threads, vec, stream);
+    return launch_head_attention_nt<6, BF16>(q, k, v, row_stride, key_mask, out, seqs, n, c,
+                                             heads, smem, threads, vec, stream);
+  return launch_head_attention_nt<8, BF16>(q, k, v, row_stride, key_mask, out, seqs, n, c,
+                                           heads, smem, threads, vec, stream);
 }
 
 }  // namespace uu

@@ -16,6 +16,13 @@
 //    qkv product (72,704 x 384 -> 1,152) is 3 x 64.3 GFLOP, 0.390 ms at the
 //    495 TFLOP/s dense TF32 peak, against 0.133 ms for its 447 MB.
 //
+//    The bf16 mode (kBf16, the one-pass bf16 rung; `launch_gemm_tc<true>`):
+//    B is W's bf16-rounded plane (n, k) in place of the halves, A is rounded
+//    to bf16 (tf32.cuh bf16_round) as it leaves shared memory, and each
+//    8-deep step is one wgmma on the plane instead of three; the producer
+//    loads no small half. A simple instance: one TF32 pass on operands that
+//    bf16 holds exactly, so the stages keep fp32 tiles at TF32's rate.
+//
 //    Design: persistent, one block per SM walking 128 x 128 output tiles in
 //    order, n fastest (the blocks running together share A tiles, so A
 //    comes from device memory about once), 384 threads:
@@ -181,10 +188,11 @@ struct TmaA {
 };
 
 // map_w holds W's big half in rows [0, n) and its small half in rows
-// [w_small, w_small + n); A comes through map_a (ASrc = TmaA) or through the
-// gather `a_at` (ASrc::kGather: `row(r)` once per tile row, `at(row, k)` a
-// pointer to A[r, k..k+3] or nullptr for zeros).
-template <class Epilogue, class ASrc>
+// [w_small, w_small + n) (kBf16: the bf16 plane in rows [0, n), no small
+// half); A comes through map_a (ASrc = TmaA) or through the gather `a_at`
+// (ASrc::kGather: `row(r)` once per tile row, `at(row, k)` a pointer to
+// A[r, k..k+3] or nullptr for zeros).
+template <class Epilogue, class ASrc, bool kBf16>
 __global__ void __launch_bounds__(TC_THREADS, 1)
 gemm_tc_kernel(const __grid_constant__ CUtensorMap map_a,
                const __grid_constant__ CUtensorMap map_w, int m, int n, int k, int w_small,
@@ -222,10 +230,12 @@ gemm_tc_kernel(const __grid_constant__ CUtensorMap map_a,
             const uint32_t round = it / TC_STAGES;
             if (round > 0) mbar_wait(empty + 8 * s, (round - 1) & 1);
             const uint32_t st = base + s * TC_STAGE_BYTES;
-            mbar_expect_tx(full + 8 * s, TC_STAGE_BYTES);
+            mbar_expect_tx(full + 8 * s, kBf16 ? 2 * TC_TILE_BYTES : TC_STAGE_BYTES);
             tma_load_2d(st, &map_a, kt * TC_BK, m0, full + 8 * s);
             tma_load_2d(st + TC_TILE_BYTES, &map_w, kt * TC_BK, n0, full + 8 * s);
-            tma_load_2d(st + 2 * TC_TILE_BYTES, &map_w, kt * TC_BK, w_small + n0, full + 8 * s);
+            if constexpr (!kBf16)
+              tma_load_2d(st + 2 * TC_TILE_BYTES, &map_w, kt * TC_BK, w_small + n0,
+                          full + 8 * s);
           }
         }
       }
@@ -245,9 +255,11 @@ gemm_tc_kernel(const __grid_constant__ CUtensorMap map_a,
           if (round > 0) mbar_wait(empty + 8 * s, (round - 1) & 1);
           const uint32_t st = base + s * TC_STAGE_BYTES;
           if (p == 0) {
-            mbar_expect_tx(full + 8 * s, 2 * TC_TILE_BYTES);
+            mbar_expect_tx(full + 8 * s, kBf16 ? TC_TILE_BYTES : 2 * TC_TILE_BYTES);
             tma_load_2d(st + TC_TILE_BYTES, &map_w, kt * TC_BK, n0, full + 8 * s);
-            tma_load_2d(st + 2 * TC_TILE_BYTES, &map_w, kt * TC_BK, w_small + n0, full + 8 * s);
+            if constexpr (!kBf16)
+              tma_load_2d(st + 2 * TC_TILE_BYTES, &map_w, kt * TC_BK, w_small + n0,
+                          full + 8 * s);
           }
           float* at = tiles + s * (TC_STAGE_BYTES / 4);
           const int kk = kt * TC_BK + 4 * q;
@@ -284,14 +296,21 @@ gemm_tc_kernel(const __grid_constant__ CUtensorMap map_a,
       // A fragment of step j: (r, 8j+t), (r+8, 8j+t), (r, 8j+t+4), (r+8, 8j+t+4);
       // element (row, col) of the swizzled tile sits at
       // row*32 + ((col/4) ^ (row%8))*4 + col%4
-      uint32_t a_big[4][4], a_small[4][4];
+      uint32_t a_big[4][4], a_small[kBf16 ? 1 : 4][4];
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int lo = ((2 * j) ^ g) * 4 + t, hi = ((2 * j + 1) ^ g) * 4 + t;
-        tf32_split(at[r * 32 + lo], a_big[j][0], a_small[j][0]);
-        tf32_split(at[(r + 8) * 32 + lo], a_big[j][1], a_small[j][1]);
-        tf32_split(at[r * 32 + hi], a_big[j][2], a_small[j][2]);
-        tf32_split(at[(r + 8) * 32 + hi], a_big[j][3], a_small[j][3]);
+        if constexpr (kBf16) {
+          a_big[j][0] = bf16_round(at[r * 32 + lo]);
+          a_big[j][1] = bf16_round(at[(r + 8) * 32 + lo]);
+          a_big[j][2] = bf16_round(at[r * 32 + hi]);
+          a_big[j][3] = bf16_round(at[(r + 8) * 32 + hi]);
+        } else {
+          tf32_split(at[r * 32 + lo], a_big[j][0], a_small[j][0]);
+          tf32_split(at[(r + 8) * 32 + lo], a_big[j][1], a_small[j][1]);
+          tf32_split(at[r * 32 + hi], a_big[j][2], a_small[j][2]);
+          tf32_split(at[(r + 8) * 32 + hi], a_big[j][3], a_small[j][3]);
+        }
       }
       // The tensor cores add each product into their accumulator rounding
       // toward zero, an error that grows with the number of adds into one
@@ -307,8 +326,10 @@ gemm_tc_kernel(const __grid_constant__ CUtensorMap map_a,
         asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          wgmma_m64n64k8_tf32(part, a_small[j], desc_big + half + 2 * j);
-          wgmma_m64n64k8_tf32(part, a_big[j], desc_small + half + 2 * j);
+          if constexpr (!kBf16) {
+            wgmma_m64n64k8_tf32(part, a_small[j], desc_big + half + 2 * j);
+            wgmma_m64n64k8_tf32(part, a_big[j], desc_small + half + 2 * j);
+          }
           wgmma_m64n64k8_tf32(part, a_big[j], desc_big + half + 2 * j);
         }
         asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
@@ -410,7 +431,7 @@ inline int sm_count() {
   return count;
 }
 
-template <class Epilogue, class ASrc>
+template <bool kBf16, class Epilogue, class ASrc>
 inline cudaError_t launch_tc(const CUtensorMap& map_a, ASrc a_at, const float* halves,
                              int w_small, int m, int n, int k, Epilogue epi,
                              cudaStream_t stream) {
@@ -421,8 +442,9 @@ inline cudaError_t launch_tc(const CUtensorMap& map_a, ASrc a_at, const float* h
   const int sms = sm_count();
   if (tiles > (1LL << 30) || sms <= 0) return cudaErrorInvalidValue;
   CUtensorMap map_w;
-  if (!make_tile_map(&map_w, halves, w_small + n, k, TC_BN)) return cudaErrorInvalidValue;
-  auto kernel = gemm_tc_kernel<Epilogue, ASrc>;
+  if (!make_tile_map(&map_w, halves, kBf16 ? n : w_small + n, k, TC_BN))
+    return cudaErrorInvalidValue;
+  auto kernel = gemm_tc_kernel<Epilogue, ASrc, kBf16>;
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, TC_SMEM_BYTES);
   if (err != cudaSuccess) return err;
@@ -434,26 +456,28 @@ inline cudaError_t launch_tc(const CUtensorMap& map_a, ASrc a_at, const float* h
 
 // out = epi(A · B) with A (m, k) row-major and halves (2, n, k) from
 // launch_tf32_halves; or, with w_small > 0, a slice of n rows of larger
-// halves whose small half starts w_small rows after `halves`. TMA needs
-// 16-byte aligned rows: k % 4 == 0 and 16-byte aligned pointers.
-template <class Epilogue>
+// halves whose small half starts w_small rows after `halves`. kBf16: the
+// bf16 mode, `halves` W's bf16-rounded plane (n, k). TMA needs 16-byte
+// aligned rows: k % 4 == 0 and 16-byte aligned pointers.
+template <bool kBf16 = false, class Epilogue>
 inline cudaError_t launch_gemm_tc(const float* a, const float* halves, int m, int n, int k,
                                   Epilogue epi, cudaStream_t stream, int w_small = 0) {
   if (m <= 0 || k <= 0 || k % 4 != 0 || reinterpret_cast<uintptr_t>(a) % 16)
     return cudaErrorInvalidValue;
   CUtensorMap map_a;
   if (!make_tile_map(&map_a, a, m, k, TC_BM)) return cudaErrorInvalidValue;
-  return launch_tc(map_a, TmaA{}, halves, w_small > 0 ? w_small : n, m, n, k, epi, stream);
+  return launch_tc<kBf16>(map_a, TmaA{}, halves, w_small > 0 ? w_small : n, m, n, k, epi,
+                          stream);
 }
 
 // out = epi(A · B) with A (m, k) read through the gather `a_at` (a ConvTaps,
-// conv_taps.cuh) and halves (2, n, k).
-template <class Epilogue, class Gather>
+// conv_taps.cuh) and halves (2, n, k) (kBf16: the bf16 plane (n, k)).
+template <bool kBf16 = false, class Epilogue, class Gather>
 inline cudaError_t launch_gemm_tc_gather(Gather a_at, const float* halves, int m, int n, int k,
                                          Epilogue epi, cudaStream_t stream) {
   CUtensorMap unused;
   memset(&unused, 0, sizeof(unused));
-  return launch_tc(unused, a_at, halves, n, m, n, k, epi, stream);
+  return launch_tc<kBf16>(unused, a_at, halves, n, m, n, k, epi, stream);
 }
 
 constexpr int AB_BM = 128, AB_BN = 128, AB_BK = 32, AB_STAGES = 3;

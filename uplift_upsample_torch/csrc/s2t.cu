@@ -18,8 +18,10 @@
 // registers, W's halves from shared memory), with an epilogue that applies
 // the bias, the token select and the PE as each output element leaves the
 // accumulator registers, so the Dense's output is written once and never
-// read back. W's halves come from `tf32_halves_f32` (temporal.cu), a launch
-// of its own.
+// read back. W's halves come from `tf32_halves_f32` (temporal.cu), split
+// once when the operands are prepared (ops/s2t.py s2t_params). The bf16 rung
+// (`s2t_prologue_bf16`): gemm_tc.cuh's bf16 mode on W's bf16-rounded plane,
+// the same epilogue.
 
 #include <cuda_runtime.h>
 
@@ -57,4 +59,15 @@ extern "C" int s2t_prologue_f32(const float* sp, const float* split, const float
   return uu::launch_gemm_tc(sp, split, rows, c, k,
                             BiasTokenPe{bias, mask, token, pe, out, c, pe_rows},
                             (cudaStream_t)stream);
+}
+
+// The bf16 rung: plane (c, k), w's bf16-rounded plane transposed.
+extern "C" int s2t_prologue_bf16(const float* sp, const float* plane, const float* bias,
+                                 const float* mask, const float* token, const float* pe,
+                                 float* out, int rows, int c, int k, int pe_rows,
+                                 void* stream) {
+  if (pe_rows <= 0 || (mask && !token)) return cudaErrorInvalidValue;
+  return uu::launch_gemm_tc<true>(sp, plane, rows, c, k,
+                                  BiasTokenPe{bias, mask, token, pe, out, c, pe_rows},
+                                  (cudaStream_t)stream);
 }

@@ -57,6 +57,15 @@
 //
 // Output rows are (F, 17*C), p-major: the (B, N, P*C) layout the s2t Dense
 // reads, so no transpose follows.
+//
+// The bf16 rung (`spatial_stack_bf16`, the TPU's one-pass DEFAULT dots): the
+// same kernel with BF16, the staged weights rounded to bf16 instead of split,
+// every dense product's A rounded as it is read, one TF32 product per pair
+// (spatial_common.cuh); the embedding's two operands rounded on the CUDA
+// cores; the 17-token attention, the LayerNorms and the gelu stay fp32, as
+// the TPU computes its attention on the vector unit. Bound at 72,704 frames:
+// the dense products at the 989 TFLOP/s dense bf16 peak, 0.033 ms, under
+// the CUDA cores' 0.16 ms.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -101,7 +110,7 @@ __device__ __forceinline__ int vec_src(int i) {
                            : L::B2);
 }
 
-template <int C>
+template <int C, bool BF16>
 __global__ void __launch_bounds__(GROUPS * THREADS, 1)
 spatial_stack_tc_kernel(const float* __restrict__ x, const float* __restrict__ w,
                         const float* __restrict__ scales, float* __restrict__ out, int frames,
@@ -135,7 +144,9 @@ spatial_stack_tc_kernel(const float* __restrict__ x, const float* __restrict__ w
     const int r = sp::ln_row();  // this lane's row of the LayerNorms and the embedding
     if (nf > 0) {  // embedding + PE (0 on padded rows)
       const float* xr = x + ((size_t)f0 * P + r) * 2;  // any float offset: two loads
-      const float x0 = r < real ? xr[0] : 0.f, x1 = r < real ? xr[1] : 0.f;
+      // BF16: the embedding's operands rounded (its products exact, one rounding)
+      const auto op = [](float v) { return BF16 ? uu::bf16_roundf(v) : v; };
+      const float x0 = r < real ? op(xr[0]) : 0.f, x1 = r < real ? op(xr[1]) : 0.f;
       const float* pe = w + L::PE + (r % P) * C;
 #pragma unroll
       for (int i = 0; i < C / 8; ++i) {
@@ -143,7 +154,8 @@ spatial_stack_tc_kernel(const float* __restrict__ x, const float* __restrict__ w
         float e[4];
 #pragma unroll
         for (int u = 0; u < 4; ++u)
-          e[u] = r < real ? fmaf(x0, w[L::EMB_W + c + u], fmaf(x1, w[L::EMB_W + C + c + u], 0.f))
+          e[u] = r < real ? fmaf(x0, op(w[L::EMB_W + c + u]),
+                                 fmaf(x1, op(w[L::EMB_W + C + c + u]), 0.f))
                                 + w[L::EMB_B + c + u] + pe[c + u]
                           : 0.f;
         *reinterpret_cast<float4*>(X + r * PC + c) = make_float4(e[0], e[1], e[2], e[3]);
@@ -156,7 +168,7 @@ spatial_stack_tc_kernel(const float* __restrict__ x, const float* __restrict__ w
         bwts.load(bw, threadIdx.x);  // in flight while the barrier waits
         const float vec = threadIdx.x < S::VEC ? bw[vec_src<C>(threadIdx.x)] : 0.f;
         __syncthreads();             // both groups done with the last block's weights
-        bwts.store(W);
+        bwts.template store<BF16>(W);
         if (threadIdx.x < S::VEC) V[threadIdx.x] = vec;
         __syncthreads();
       }
@@ -180,7 +192,7 @@ spatial_stack_tc_kernel(const float* __restrict__ x, const float* __restrict__ w
       sp::ln_stats<C>(X, mu, rs, 1e-5f);
       __syncwarp();
       // rows_gemm<K, N, false>: one running sum per output (K <= 64)
-      sp::rows_gemm<C, 3 * C, false>(
+      sp::rows_gemm<C, 3 * C, false, BF16>(
           ln_at(S::LN1_G, S::LN1_B), b_at(0, T::W3), T::WEIGHTS,
           [&](int row, int n, float v) {
             QKV[row * P3 + n] = v + V[S::BQKV + n];
@@ -190,7 +202,7 @@ spatial_stack_tc_kernel(const float* __restrict__ x, const float* __restrict__ w
       group_sync();
       sp::attention_fwd<C>(QKV, QKV, P3, nf, scale);
       group_sync();
-      sp::rows_gemm<C, C, false>(qkv_at, b_at(T::OFF_WP, T::WC), T::WEIGHTS,
+      sp::rows_gemm<C, C, false, BF16>(qkv_at, b_at(T::OFF_WP, T::WC), T::WEIGHTS,
                                  [&](int row, int n, float v) {
                                    X[row * PC + n] += fac[row] * (v + V[S::BP + n]);
                                    return 0.f;
@@ -199,7 +211,7 @@ spatial_stack_tc_kernel(const float* __restrict__ x, const float* __restrict__ w
       __syncwarp();
       sp::ln_stats<C>(X, mu, rs, 1e-5f);
       __syncwarp();
-      sp::rows_gemm<C, 2 * C, false>(ln_at(S::LN2_G, S::LN2_B), b_at(T::OFF_W1, T::WH),
+      sp::rows_gemm<C, 2 * C, false, BF16>(ln_at(S::LN2_G, S::LN2_B), b_at(T::OFF_W1, T::WH),
                                      T::WEIGHTS,
                                      [&](int row, int n, float v) {
                                        QKV[row * P3 + n] = sp::gelu(v + V[S::B1 + n]);
@@ -207,7 +219,7 @@ spatial_stack_tc_kernel(const float* __restrict__ x, const float* __restrict__ w
                                      },
                                      nullptr);
       __syncwarp();
-      sp::rows_gemm<2 * C, C, false>(qkv_at, b_at(T::OFF_W2, T::WC), T::WEIGHTS,
+      sp::rows_gemm<2 * C, C, false, BF16>(qkv_at, b_at(T::OFF_W2, T::WC), T::WEIGHTS,
                                      [&](int row, int n, float v) {
                                        X[row * PC + n] += fac[R + row] * (v + V[S::B2 + n]);
                                        return 0.f;
@@ -235,7 +247,7 @@ spatial_stack_tc_kernel(const float* __restrict__ x, const float* __restrict__ w
   }
 }
 
-template <int C>
+template <int C, bool BF16>
 cudaError_t launch(const float* x, const float* params, const float* scales, float* out,
                    int frames, int blocks, cudaStream_t stream) {
   const size_t smem = Smem<C>::BYTES;
@@ -247,15 +259,26 @@ cudaError_t launch(const float* x, const float* params, const float* scales, flo
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
   if (smem > (size_t)optin) return cudaErrorInvalidValue;
-  err = cudaFuncSetAttribute(spatial_stack_tc_kernel<C>,
+  err = cudaFuncSetAttribute(spatial_stack_tc_kernel<C, BF16>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const int tiles = (frames + TF - 1) / TF;
   const int units = (tiles + GROUPS - 1) / GROUPS;  // a thread block's tiles at a time
   const int grid = units < sms ? units : sms;
-  spatial_stack_tc_kernel<C><<<grid, GROUPS * THREADS, smem, stream>>>(
+  spatial_stack_tc_kernel<C, BF16><<<grid, GROUPS * THREADS, smem, stream>>>(
       x, params, scales, out, frames, blocks);
   return cudaGetLastError();
+}
+
+template <bool BF16>
+int stack(const float* x, const float* params, const float* scales, float* out, int frames,
+          int c, int depth, int blocks, void* stream) {
+  if (frames <= 0 || blocks < 0 || depth != 4) return cudaErrorInvalidValue;
+  if (c == 32)
+    return launch<32, BF16>(x, params, scales, out, frames, blocks, (cudaStream_t)stream);
+  if (c == 16)
+    return launch<16, BF16>(x, params, scales, out, frames, blocks, (cudaStream_t)stream);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -265,10 +288,12 @@ cudaError_t launch(const float* x, const float* params, const float* scales, flo
 extern "C" int spatial_stack_f32(const float* x, const float* params, const float* scales,
                                  float* out, int frames, int c, int depth, int blocks,
                                  void* stream) {
-  if (frames <= 0 || blocks < 0 || depth != 4) return cudaErrorInvalidValue;
-  if (c == 32)
-    return launch<32>(x, params, scales, out, frames, blocks, (cudaStream_t)stream);
-  if (c == 16)
-    return launch<16>(x, params, scales, out, frames, blocks, (cudaStream_t)stream);
-  return cudaErrorInvalidValue;
+  return stack<false>(x, params, scales, out, frames, c, depth, blocks, stream);
+}
+
+// The bf16 rung: the same operands, the products on bf16-rounded operands.
+extern "C" int spatial_stack_bf16(const float* x, const float* params, const float* scales,
+                                  float* out, int frames, int c, int depth, int blocks,
+                                  void* stream) {
+  return stack<true>(x, params, scales, out, frames, c, depth, blocks, stream);
 }

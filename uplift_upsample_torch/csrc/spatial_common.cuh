@@ -14,6 +14,11 @@
 // ln2_g, ln2_b, w1 (C, 2C), b1 (2C), w2 (2C, C), b2; then norm_g, norm_b.
 // Every matrix is (in, out) row-major, the flax Dense layout. K4 writes its
 // parameter gradients in the same layout.
+//
+// The bf16 mode (rows_gemm's and BlockWeights::store's BF16, K1's bf16
+// instance only; K4 compiles without it): the staged weights are rounded to
+// bf16 instead of split, A is rounded as rows_gemm reads it, and each pair
+// of rounded operands takes one TF32 product (tf32.cuh), fp32 sums.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -67,9 +72,12 @@ __device__ __forceinline__ float gelu(float v) {
 // three products go into a fresh partial that joins the fp32 accumulators
 // with a rounded add (the tensor cores round toward zero as they accumulate);
 // else one running sum per output in the tensor cores, which meets the
-// float64 criterion for K <= 64 (tests/test_torch_spatial_tc.py).
-template <int K, int N, bool FRESH = true, class A, class B, class Epi>
+// float64 criterion for K <= 64 (tests/test_torch_spatial_tc.py). BF16 (K1's
+// running sums only): A rounded to bf16, b_at a staged weight already rounded
+// (no small half), one TF32 product per pair.
+template <int K, int N, bool FRESH = true, bool BF16 = false, class A, class B, class Epi>
 __device__ __forceinline__ void rows_gemm(A a_at, B b_at, int small, Epi epi, float* rsum) {
+  static_assert(!(BF16 && FRESH), "the bf16 mode keeps one running sum per output");
   constexpr int NJ = N / 8;
   const int warp = threadIdx.x / 32 % WARPS, lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
   const int r0 = 16 * warp + g, r1 = r0 + 8;
@@ -78,6 +86,19 @@ __device__ __forceinline__ void rows_gemm(A a_at, B b_at, int small, Epi epi, fl
   for (int j = 0; j < NJ; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
 #pragma unroll
   for (int kk = 0; kk < K / 8; ++kk) {
+    if constexpr (BF16) {
+      const uint32_t ab[4] = {uu::bf16_round(a_at(r0, 8 * kk + t)),
+                              uu::bf16_round(a_at(r1, 8 * kk + t)),
+                              uu::bf16_round(a_at(r0, 8 * kk + t + 4)),
+                              uu::bf16_round(a_at(r1, 8 * kk + t + 4))};
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const uint32_t bb[2] = {__float_as_uint(*b_at(8 * kk + t, 8 * j + g)),
+                                __float_as_uint(*b_at(8 * kk + t + 4, 8 * j + g))};
+        uu::mma_tf32(acc[j], ab, bb);
+      }
+      continue;
+    }
     uint32_t ab[4], as[4];
     uu::tf32_split(a_at(r0, 8 * kk + t), ab[0], as[0]);
     uu::tf32_split(a_at(r1, 8 * kk + t), ab[1], as[1]);
@@ -227,8 +248,9 @@ __device__ __forceinline__ void attention_fwd(const float* qkv, float* ctx, int 
 // One block's six matrices (wq, wk, wv, wp: C x C; w1: C x 2C; w2: 2C x C;
 // 2C^2 float4s) into shared memory at Pitch<C>'s layout, by NT threads:
 // load() issues every global load into registers, store() splits them into
-// TF32 halves, the big at dst, the small WEIGHTS floats further. Between the
-// two a caller may wait at a barrier.
+// TF32 halves, the big at dst, the small WEIGHTS floats further (BF16: rounds
+// them to bf16 at dst, no small half). Between the two a caller may wait at
+// a barrier.
 template <int C, int NT>
 struct BlockWeights {
   using L = Layout<C>;
@@ -262,9 +284,16 @@ struct BlockWeights {
     }
   }
 
+  template <bool BF16 = false>
   __device__ __forceinline__ void store(float* dst) const {
 #pragma unroll
     for (int k = 0; k < NV; ++k) {
+      if constexpr (BF16) {
+        *reinterpret_cast<uint4*>(dst + off[k]) =
+            make_uint4(uu::bf16_round(v[k].x), uu::bf16_round(v[k].y), uu::bf16_round(v[k].z),
+                       uu::bf16_round(v[k].w));
+        continue;
+      }
       uint32_t b[4], s[4];
       uu::tf32_split(v[k].x, b[0], s[0]);
       uu::tf32_split(v[k].y, b[1], s[1]);

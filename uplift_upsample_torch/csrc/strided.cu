@@ -20,7 +20,9 @@
 // matrix T gathered from h1 by the producer warpgroup (conv_taps.cuh:
 // cp.async, zero-fill for taps outside the window), so neither T, the padded
 // h1 nor the unselected rows are ever written. Wc's TF32 halves are split
-// once, with the block's dense matrices (ops/strided.py).
+// once, with the block's dense matrices (ops/strided.py). The bf16 rung
+// (`strided_conv_bf16`): the same kernel's bf16 mode, T rounded to bf16 as
+// it leaves shared memory, one TF32 pass on Wc's bf16-rounded plane.
 
 #include <cuda_runtime.h>
 
@@ -41,6 +43,20 @@ struct ConvResidual {
   }
 };
 
+template <bool kBf16>
+int conv(const float* h1, const float* x, const float* halves, const float* bias, float* out,
+         int windows, int n, int hidden, int c, int stride, int p0, int n_out, void* stream) {
+  if (windows <= 0 || n_out <= 0 || stride <= 0 || p0 < 0 || p0 > 1 || hidden <= 0 ||
+      hidden % 4 || reinterpret_cast<uintptr_t>(h1) % 16)
+    return cudaErrorInvalidValue;
+  const int res_off = p0 == 0 ? 1 : 0;
+  if (stride * (n_out - 1) + res_off >= n) return cudaErrorInvalidValue;
+  return uu::launch_gemm_tc_gather<kBf16>(
+      uu::ConvTaps{h1, windows, n, hidden, n_out, stride, p0}, halves, windows * n_out, c,
+      3 * hidden, ConvResidual{x, bias, out, n, c, n_out, stride, res_off},
+      (cudaStream_t)stream);
+}
+
 }  // namespace
 
 // halves (2, c, 3 * hidden): the TF32 halves of Wc transposed (tf32_halves_f32
@@ -49,13 +65,15 @@ extern "C" int strided_conv_f32(const float* h1, const float* x, const float* ha
                                 const float* bias, float* out, int windows, int n,
                                 int hidden, int c, int stride, int p0, int n_out,
                                 void* stream) {
-  if (windows <= 0 || n_out <= 0 || stride <= 0 || p0 < 0 || p0 > 1 || hidden <= 0 ||
-      hidden % 4 || reinterpret_cast<uintptr_t>(h1) % 16)
-    return cudaErrorInvalidValue;
-  const int res_off = p0 == 0 ? 1 : 0;
-  if (stride * (n_out - 1) + res_off >= n) return cudaErrorInvalidValue;
-  return uu::launch_gemm_tc_gather(uu::ConvTaps{h1, windows, n, hidden, n_out, stride, p0},
-                                   halves, windows * n_out, c, 3 * hidden,
-                                   ConvResidual{x, bias, out, n, c, n_out, stride, res_off},
-                                   (cudaStream_t)stream);
+  return conv<false>(h1, x, halves, bias, out, windows, n, hidden, c, stride, p0, n_out,
+                     stream);
+}
+
+// The bf16 rung: plane (c, 3 * hidden), Wc's bf16-rounded plane transposed.
+extern "C" int strided_conv_bf16(const float* h1, const float* x, const float* plane,
+                                 const float* bias, float* out, int windows, int n,
+                                 int hidden, int c, int stride, int p0, int n_out,
+                                 void* stream) {
+  return conv<true>(h1, x, plane, bias, out, windows, n, hidden, c, stride, p0, n_out,
+                    stream);
 }

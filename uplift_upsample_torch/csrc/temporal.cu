@@ -20,6 +20,13 @@
 // block-diagonal window mask (the TPU kernel's Mosaic workarounds): each
 // attention thread block owns one (window, head) and attends only inside it
 // (attention.cuh, shared with row 11's packed attention).
+//
+// The bf16 rung (the TPU's one-pass DEFAULT dots): `gemm_bf16` and
+// `window_attention_bf16` launch the same kernels' bf16 instances (operands
+// rounded to bf16, one TF32 pass, fp32 sums; gemm_tc.cuh, attention.cuh),
+// the GEMM on W's bf16-rounded plane; the LayerNorm is the same fp32 kernel.
+// Bound at 1,024 windows: ~0.17 TFLOP per block at the 989 TFLOP/s dense
+// bf16 peak, 0.18 ms; this simple instance runs one TF32 pass (495 TFLOP/s).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -71,6 +78,15 @@ extern "C" int gemm_f32(const float* a, const float* halves, const float* bias,
                             (cudaStream_t)stream);
 }
 
+// gemm_f32 on the bf16 rung: plane (n, k), w's bf16-rounded plane transposed.
+extern "C" int gemm_bf16(const float* a, const float* plane, const float* bias,
+                         const float* residual, float* out, int m, int n, int k,
+                         int relu, void* stream) {
+  return uu::launch_gemm_tc<true>(a, plane, m, n, k,
+                                  uu::BiasActResidual{bias, residual, out, n, relu},
+                                  (cudaStream_t)stream);
+}
+
 // w (batch, k, n) row-major -> halves (batch, 2, n, k) with transpose (for
 // x . w), else (batch, 2, k, n) (for dy . w^T): [0] = tf32(w), [1] = w - [0].
 extern "C" int tf32_halves_f32(const float* w, float* halves, int batch, int k, int n,
@@ -92,4 +108,10 @@ extern "C" int window_attention_f32(const float* qkv, const float* key_mask, flo
                                     int windows, int n, int c, int heads, void* stream) {
   return uu::launch_head_attention(qkv, qkv + c, qkv + 2 * c, 3 * c, key_mask, out, windows,
                                    n, c, heads, (cudaStream_t)stream);
+}
+
+extern "C" int window_attention_bf16(const float* qkv, const float* key_mask, float* out,
+                                     int windows, int n, int c, int heads, void* stream) {
+  return uu::launch_head_attention<true>(qkv, qkv + c, qkv + 2 * c, 3 * c, key_mask, out,
+                                         windows, n, c, heads, (cudaStream_t)stream);
 }

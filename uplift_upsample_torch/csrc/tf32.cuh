@@ -8,6 +8,12 @@
 // where one TF32 pass keeps 10 bits. Shared by the window attention
 // (attention.cuh, mma.sync) and the tensor-core GEMMs (gemm_tc.cuh: wgmma
 // for A·B, mma.sync for the backward's Xᵀ·dY).
+//
+// The bf16 mode (the TPU's one-pass DEFAULT precision, a compile-time
+// choice of each kernel that takes it): each operand rounded to bf16
+// (bf16_round) is a TF32 operand with its low bits zero, so one TF32
+// product per pair computes the rounded operands' product exactly, summed
+// in fp32.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -33,6 +39,16 @@ __device__ __forceinline__ void tf32_split(float x, uint32_t& big, uint32_t& sma
   big = tf32_round(x);
   small = __float_as_uint(x - __uint_as_float(big));
 }
+
+// x rounded to bf16 (to nearest, ties to even: cvt.rn.bf16.f32), widened
+// back to 32 bits: the bits of an exact TF32 operand.
+__device__ __forceinline__ uint32_t bf16_round(float x) {
+  unsigned short h;
+  asm("cvt.rn.bf16.f32 %0, %1;\n" : "=h"(h) : "f"(x));
+  return static_cast<uint32_t>(h) << 16;
+}
+
+__device__ __forceinline__ float bf16_roundf(float x) { return __uint_as_float(bf16_round(x)); }
 
 // 16 bytes from global to shared memory, asynchronously; src_bytes 0 fills
 // dst with zeros (the ragged edge of a tile).

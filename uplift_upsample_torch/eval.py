@@ -14,7 +14,10 @@ CLI:
 
 On the card (the default) the step runs the kernel path: K1 on the unique
 frames, the s2t Dense, K2, K3 and the plain tail (with `--pallas`, the tail's
-attention through row 11). `--device cpu` runs the plain model. `--weights`
+attention through row 11). `--device cpu` runs the plain model.
+EVAL_MATMUL_PRECISION "default" (the TPU's one-pass bf16 rung) runs the
+kernels' bf16 instances and the plain products on bf16-rounded operands
+(`precision.py`); "high" and "highest" run fp32-level products. `--weights`
 takes a Keras `.h5` (needs h5py) or the npz of `tools/convert_weights.py`.
 
 Data parallel, one process per card (rank 0 prints the results):
@@ -45,6 +48,7 @@ from .models import build_uplift_upsample_transformer
 from .parallel.mesh import (broadcast_params_, check_data_parallel_devices,
                             init_data_parallel, launch_world, rank0_stdout)
 from .parallel.sharding import check_model_tp, gather_params_tp
+from .precision import check_rung, matmul_precision
 from .utils.dedup import dedup_rows
 from .utils.eval_protocol import compute_and_log_metrics, interpolate_between_keyframes
 from .utils.time_format import format_time
@@ -72,19 +76,6 @@ def resolve_temporal_wpt(wpt, num_frames: int) -> int:
     return 4
 
 
-def check_precision(precision: str) -> None:
-    """EVAL_MATMUL_PRECISION: "high" and "highest" both run fp32 with TF32
-    off (set where the package initialises); the TPU's one-pass bf16 rung
-    "default" is not ported."""
-    if precision == "default":
-        raise NotImplementedError(
-            "EVAL_MATMUL_PRECISION 'default' (the TPU's bf16 rung) is not ported: "
-            "the port evaluates in fp32 ('high' or 'highest')")
-    if precision not in ("high", "highest"):
-        raise ValueError(f"EVAL_MATMUL_PRECISION {precision!r}: expected "
-                         f"'default', 'high' or 'highest'")
-
-
 def make_test_step(model, flip_tta: bool, flip_lr_indices, fused: str = "none",
                    precision: str = "high", max_keyframes: int = None,
                    assume_dense_mask: bool = False, shared_spatial: bool = False,
@@ -100,7 +91,10 @@ def make_test_step(model, flip_tta: bool, flip_lr_indices, fused: str = "none",
         (`spatial_input` splice).
       - "none": the plain model.
     On CPU tensors the kernels' plain versions run. `precision` is checked by
-    `check_precision`; both fp32 rungs run the same code.
+    `precision.check_rung`: "high" (TF32 off, set where the package
+    initialises) and "highest" run the same code; "default" the bf16 rung,
+    the step inside `precision.matmul_precision("default")` and the kernels'
+    bf16 instances (their plain versions on the CPU).
     `max_keyframes`, `assume_dense_mask`, `strided_sel`: see `bench_forward`
     ("full" path). `temporal_wpt` (EVAL_TEMPORAL_WPT) is resolved by
     `resolve_temporal_wpt` and handed on; it changes no launch.
@@ -129,7 +123,7 @@ def make_test_step(model, flip_tta: bool, flip_lr_indices, fused: str = "none",
     runs the model's split modules, "full" K1 on gathered spatial weights,
     K2 and K3 split over mp and the split tail (`bench_forward`).
     """
-    check_precision(precision)
+    check_rung(precision, use_pallas=model.use_pallas, tp=model.tp)
     check_model_tp(model, tp)
     device = next(model.parameters()).device
     flip_idx = torch.as_tensor(np.asarray(flip_lr_indices, dtype=np.int64),
@@ -148,9 +142,9 @@ def make_test_step(model, flip_tta: bool, flip_lr_indices, fused: str = "none",
     if fused == "full" and model.spatial_depth > 0 and model.temporal_depth > 0:
         from .models.bench_forward import (bench_forward, prepare_fused_params,
                                            shared_spatial_forward)
-        fused_params = prepare_fused_params(model)
+        fused_params = prepare_fused_params(model, precision)
         route = dict(temporal_wpt=resolve_temporal_wpt(temporal_wpt, model.num_frames),
-                     strided_sel=strided_sel)
+                     strided_sel=strided_sel, precision=precision)
         if shared_spatial:
             def forward(unique2d, win_idx, stride_mask):
                 return None, shared_spatial_forward(
@@ -172,7 +166,8 @@ def make_test_step(model, flip_tta: bool, flip_lr_indices, fused: str = "none",
 
         def forward(keypoints2d, stride_mask):
             sp = spatial_stack_apply(sp_ops, masked(keypoints2d, stride_mask),
-                                     num_heads=model.num_heads, packed=sp_packed)
+                                     num_heads=model.num_heads, packed=sp_packed,
+                                     precision=precision)
             return model(sp, stride_mask, spatial_input=True)
     elif shared_spatial:
         # The plain shared path through the model's s2t splices
@@ -212,6 +207,7 @@ def make_test_step(model, flip_tta: bool, flip_lr_indices, fused: str = "none",
                 (None if seq is None else seq[b:], central[b:]))
 
     @torch.inference_mode()
+    @matmul_precision(precision)
     def step(keypoints2d, stride_mask):
         if flip_tta and tta_batched:
             both = torch.cat([keypoints2d, flip_in(keypoints2d)], dim=0)
@@ -223,6 +219,7 @@ def make_test_step(model, flip_tta: bool, flip_lr_indices, fused: str = "none",
         return pred
 
     @torch.inference_mode()
+    @matmul_precision(precision)
     def step_shared(unique2d, win_idx, stride_mask):
         if flip_tta and tta_batched:
             # [uniques; flipped uniques] through one spatial pass,
@@ -680,7 +677,8 @@ def main(argv=None):
                         action="store_true")
     parser.set_defaults(disable_learned_upsampling=False)
     parser.add_argument("--bf16", action="store_true",
-                        help="bfloat16 compute (not ported: raises)")
+                        help="bfloat16 activations, COMPUTE_DTYPE (not ported: raises; "
+                             "the bf16 matmul rung is EVAL_MATMUL_PRECISION 'default')")
     parser.add_argument("--pallas", action="store_true",
                         help="the packed attention kernel in every attention layer "
                              "(USE_PALLAS_ATTENTION)")

@@ -24,8 +24,16 @@ With `use_pallas` the tail's attention runs the packed attention op (row 11).
 
 `temporal_wpt` is the TPU temporal kernel's windows per tile: the port's
 kernels lay windows out as rows, so it is accepted and changes no launch.
-The TPU's dot-precision keywords have no counterpart: the port is fp32
-(`eval.check_precision`).
+
+`precision` is the matmul rung (`precision.py`; the TPU's spatial and
+temporal precisions, which the JAX eval step sets alike): "high" and
+"highest" run the 3xTF32 kernels and the fp32 tail; "default", the one-pass
+bf16 rung, runs the bf16 instances of K1, K2, K3 and the s2t kernel (K1's
+17-token attention stays fp32, as on the TPU) and the plain products (the
+s2t Dense, the tail) under `precision.matmul_precision("default")`, which
+rounds their operands too. It needs `prepare_fused_params(model, "default")`
+(the weights' bf16 planes), runs unsplit only (mp > 1 raises), and not with
+`use_pallas` (row 11 has no bf16 rung: ROADMAP A8).
 
 Under tensor parallelism (the model built with `tp`, mp > 1) the default
 route runs K2 and K3 split over the mp ranks on the rank's operands
@@ -51,9 +59,12 @@ import torch
 from ..ops.s2t import s2t_params, s2t_prologue
 from ..ops.spatial import (pack_spatial_params, spatial_stack, spatial_stack_apply,
                            stack_spatial_params)
+from ..ops.strided import DENSE as STRIDED_DENSE
 from ..ops.strided import stack_strided_block1_params, strided_block1
 from ..ops.temporal import stack_temporal_params, temporal_stack
+from ..ops.temporal import add_bf16_planes
 from ..parallel.sharding import gather_params_tp
+from ..precision import BF16, check_rung, current, matmul_precision
 from .uplift_upsample import UpliftUpsampleTransformer
 
 TEMPORAL_IMPLS = ("v3", "v2")
@@ -89,10 +100,12 @@ def check_tp_route(model: UpliftUpsampleTransformer, temporal_impl: str = "v3",
             f"(mp > 1): only the default route is (ROADMAP A6, rows 4-7, 9, 10)")
 
 
-def prepare_fused_params(model: UpliftUpsampleTransformer) -> Dict:
+def prepare_fused_params(model: UpliftUpsampleTransformer, precision: str = "high") -> Dict:
     """The kernels' operands, stacked once from the model's weights: under
     mp > 1 K2's and K3's from the rank's shards, K1's from the spatial
-    weights gathered whole."""
+    weights gathered whole. On the bf16 rung (`precision` "default") also
+    the dense weights' bf16 planes (K1 rounds its own as it stages them)."""
+    bf16 = check_rung(precision, model.use_pallas, model.tp) == BF16
     state = {k: v.detach() for k, v in model.state_dict().items()}
     whole = gather_params_tp(state, model.tp)
     ops = dict(
@@ -100,8 +113,12 @@ def prepare_fused_params(model: UpliftUpsampleTransformer) -> Dict:
         temporal=stack_temporal_params(state, model.temporal_depth),
         strided=(stack_strided_block1_params(state)
                  if can_fuse_strided(model) else None),
-        s2t=s2t_params(model),
+        s2t=s2t_params(model, precision),
     )
+    if bf16:
+        ops["temporal"] = add_bf16_planes(ops["temporal"])
+        if ops["strided"] is not None:
+            ops["strided"] = add_bf16_planes(ops["strided"], STRIDED_DENSE)
     ops["spatial_packed"] = pack_spatial_params(ops["spatial"])
     return ops
 
@@ -112,7 +129,8 @@ def bench_forward(model: UpliftUpsampleTransformer, x2d_masked: torch.Tensor,
                   max_keyframes: Optional[int] = None,
                   assume_dense_mask: bool = False, *, temporal_impl: str = "v3",
                   temporal_wpt: int = 4, temporal_attn: str = "full",
-                  fuse_s2t: bool = False, strided_sel: bool = False) -> torch.Tensor:
+                  fuse_s2t: bool = False, strided_sel: bool = False,
+                  precision: Optional[str] = None) -> torch.Tensor:
     """Central-frame output (B, 17, 3) of the fused eval path.
 
     x2d_masked: (B, N, 17, 2) already masked at non-keyframes;
@@ -126,12 +144,22 @@ def bench_forward(model: UpliftUpsampleTransformer, x2d_masked: torch.Tensor,
     assume_dense_mask: the caller promises stride_mask is all-ones, so K2
     runs without the first-block key mask (inert for all-real windows).
     temporal_impl, temporal_wpt, temporal_attn, fuse_s2t, strided_sel: the
-    routes of the module docstring.
+    routes of the module docstring. precision: the matmul rung (module
+    docstring); None takes the current `matmul_precision` context's.
     """
     del temporal_wpt, strided_sel  # the same launches on every value
     check_tp_route(model, temporal_impl, temporal_attn, fuse_s2t)
+    rung = check_rung(current() if precision is None else precision, model.use_pallas, model.tp)
     if fused_params is None:
-        fused_params = prepare_fused_params(model)
+        fused_params = prepare_fused_params(model, rung)
+    with matmul_precision(rung):
+        return _bench_forward(model, x2d_masked, stride_mask, fused_params, max_keyframes,
+                              assume_dense_mask, temporal_impl, temporal_attn, fuse_s2t)
+
+
+def _bench_forward(model, x2d_masked, stride_mask, fused_params, max_keyframes,
+                   assume_dense_mask, temporal_impl, temporal_attn, fuse_s2t):
+    """`bench_forward` inside its rung's `matmul_precision` context."""
     fuse_strided = can_fuse_strided(model, temporal_impl, temporal_attn)
     if (fuse_s2t and fuse_strided and temporal_attn == "banded"
             and model.spatial_depth > 0):
@@ -164,7 +192,8 @@ def shared_spatial_forward(model: UpliftUpsampleTransformer, unique2d: torch.Ten
                            assume_dense_mask: bool = False, *,
                            temporal_impl: str = "v3", temporal_wpt: int = 4,
                            temporal_attn: str = "full",
-                           strided_sel: bool = False) -> torch.Tensor:
+                           strided_sel: bool = False,
+                           precision: Optional[str] = None) -> torch.Tensor:
     """Fused eval forward with a cross-window SHARED spatial stage.
 
     In the window-sparse eval protocol consecutive computed windows overlap
@@ -180,23 +209,28 @@ def shared_spatial_forward(model: UpliftUpsampleTransformer, unique2d: torch.Ten
       and never indexed.
     win_idx: (B, N) integer — each window token's row in unique2d.
     stride_mask: (B, N) — 1/True on real-input frames.
+    precision: the matmul rung, as in `bench_forward`.
     """
     del temporal_wpt, strided_sel  # the same launches on every value
     check_tp_route(model, temporal_impl, temporal_attn)
+    rung = check_rung(current() if precision is None else precision, model.use_pallas, model.tp)
     if fused_params is None:
-        fused_params = prepare_fused_params(model)
+        fused_params = prepare_fused_params(model, rung)
     fuse_strided = can_fuse_strided(model, temporal_impl, temporal_attn)
-    sp = spatial_stack(unique2d.contiguous(), fused_params["spatial"],
-                       num_heads=model.num_heads,
-                       packed=fused_params["spatial_packed"])      # (U, P·C)
-    y_u = model.spatial_to_temporal_fc(sp)                         # (U, C)
-    return _post_s2t(model, y_u[win_idx], stride_mask, fused_params, assume_dense_mask,
-                     fuse_strided)
+    with matmul_precision(rung):
+        sp = spatial_stack(unique2d.contiguous(), fused_params["spatial"],
+                           num_heads=model.num_heads,
+                           packed=fused_params["spatial_packed"], precision=rung)  # (U, P·C)
+        y_u = model.spatial_to_temporal_fc(sp)                     # (U, C)
+        return _post_s2t(model, y_u[win_idx], stride_mask, fused_params, assume_dense_mask,
+                         fuse_strided)
 
 
 def _spatial(model, x2d, fused_params):
+    """K1 at the current context's rung."""
     return spatial_stack_apply(fused_params["spatial"], x2d, num_heads=model.num_heads,
-                               packed=fused_params["spatial_packed"])  # (B, N, P·C)
+                               packed=fused_params["spatial_packed"],
+                               precision=current())  # (B, N, P·C)
 
 
 def _tiled_forward(model: UpliftUpsampleTransformer, x2d_masked: torch.Tensor,
@@ -207,7 +241,8 @@ def _tiled_forward(model: UpliftUpsampleTransformer, x2d_masked: torch.Tensor,
     s2t prologue kernel, K2 with the key mask, K3 and the tail (row 5 with
     its banded-selection epilogue)."""
     sm = stride_mask if model.has_strided_input else None
-    y = s2t_prologue(_spatial(model, x2d_masked, fused_params), fused_params["s2t"], sm)
+    y = s2t_prologue(_spatial(model, x2d_masked, fused_params), fused_params["s2t"], sm,
+                     precision=current())
     key_mask = None if sm is None else 1.0 - sm.to(torch.float32)
     return _temporal_and_tail(model, y, stride_mask, key_mask, fused_params, True)
 
@@ -231,15 +266,19 @@ def _post_s2t(model: UpliftUpsampleTransformer, y: torch.Tensor,
 
 def _temporal_and_tail(model, y, stride_mask, key_mask, fused_params,
                        fuse_strided: bool) -> torch.Tensor:
-    """K2, then K3 when `fuse_strided`, then the rest of the model."""
+    """K2, then K3 when `fuse_strided`, then the rest of the model, at the
+    current context's rung."""
     fmb = (model.first_strided_token_attention_layer
            if model.has_strided_input else 0)
+    rung = current()
     y = temporal_stack(y, fused_params["temporal"], key_mask,
-                       num_heads=model.num_heads, first_masked_blocks=fmb, tp=model.tp)
+                       num_heads=model.num_heads, first_masked_blocks=fmb, tp=model.tp,
+                       precision=rung)
     entry = 0
     if fuse_strided:
         y = strided_block1(y, fused_params["strided"], num_heads=model.num_heads,
-                           stride=model.strides[0], paddings=model.paddings[0], tp=model.tp)
+                           stride=model.strides[0], paddings=model.paddings[0], tp=model.tp,
+                           precision=rung)
         entry = 1
     _, central = model(y, stride_mask, temporal_input=True, strided_entry=entry)
     return central

@@ -16,6 +16,11 @@ Numeric parity targets (reference `vision_transformer.py`, strided variants in
   - DropPath (stochastic depth) drops whole samples with probability rate and
     scales the kept ones by 1/keep in training (`model.train()`); it is the
     identity under `model.eval()`.
+  - Products follow the matmul precision context (`precision.py`): the Dense
+    layers (`Dense`), the strided conv (`StridedConv1d`) and the attention's
+    two products round their operands to bf16 on the "default" rung and run
+    as nn.Linear / nn.Conv1d / fp32 matmuls on the others. The packed
+    attention op has no bf16 rung and raises there (ROADMAP A8).
 
 Tensor parallelism (`tp`, a `parallel.sharding.TensorParallel` with size >
 1): MultiHeadAttention, Mlp and StridedMlp hold their mp rank's shard (the
@@ -44,6 +49,7 @@ from torch import nn
 from ..ops.attention import scaled_dot_product_attention
 from ..ops.packed_attention import MAX_SEQ, packed_multihead_attention
 from ..parallel.sharding import TensorParallel, active, copy_to_tp, reduce_from_tp
+from ..precision import BF16, current, round_bf16
 
 # flax's truncated_normal(stddev) samples N(0, 1) truncated to [-2, 2] and
 # divides by this constant (the std of that truncated law), so the draw has
@@ -67,10 +73,28 @@ def pe_init_(t: torch.Tensor, generator: Optional[torch.Generator],
                           generator=generator)
 
 
+class Dense(nn.Linear):
+    """nn.Linear whose product follows the matmul precision context."""
+
+    def forward(self, x):
+        if current() == BF16:
+            return F.linear(round_bf16(x), round_bf16(self.weight), self.bias)
+        return super().forward(x)
+
+
+class StridedConv1d(nn.Conv1d):
+    """nn.Conv1d (VALID) whose products follow the matmul precision context."""
+
+    def forward(self, x):
+        if current() == BF16:
+            return F.conv1d(round_bf16(x), round_bf16(self.weight), self.bias, self.stride)
+        return super().forward(x)
+
+
 def dense(in_features: int, out_features: int, bias: bool = True,
           generator: Optional[torch.Generator] = None) -> nn.Linear:
-    """nn.Linear with the flax Dense init (glorot-uniform kernel, zero bias)."""
-    layer = nn.Linear(in_features, out_features, bias=bias)
+    """A Dense with the flax Dense init (glorot-uniform kernel, zero bias)."""
+    layer = Dense(in_features, out_features, bias=bias)
     glorot_uniform_(layer.weight, in_features, out_features, generator)
     if bias:
         nn.init.zeros_(layer.bias)
@@ -170,6 +194,10 @@ class MultiHeadAttention(nn.Module):
                 raise NotImplementedError(
                     "USE_PALLAS_ATTENTION in training is not ported (the packed "
                     "attention op has no backward)")
+            if current() == BF16:
+                raise NotImplementedError(
+                    "USE_PALLAS_ATTENTION on the bf16 rung (matmul precision 'default') "
+                    "is not ported: the packed attention op runs fp32 only (ROADMAP A8)")
             key_mask = None if mask is None else mask[:, 0, 0, :].expand(b, s)
             out = packed_multihead_attention(self.wq(x), self.wk(x), self.wv(x),
                                              key_mask, num_heads=self.num_heads)
@@ -234,7 +262,7 @@ class StridedMlp(nn.Module):
         self.pad = resolve_padding(padding, kernel_size)
         self.stride = stride
         self.fc1 = dense(in_features, local, generator=generator)
-        self.fc2 = nn.Conv1d(local, out_features, kernel_size, stride=stride)
+        self.fc2 = StridedConv1d(local, out_features, kernel_size, stride=stride)
         glorot_uniform_(self.fc2.weight, local * kernel_size,
                         out_features * kernel_size, generator)
         nn.init.zeros_(self.fc2.bias)

@@ -188,7 +188,7 @@ class UpliftUpsampleTransformer(nn.Module):
         b, n = x.shape[:2]
         if not (spatial_input or s2t_input):
             assert x.shape[2] == p and (n == self.num_frames or s2t_output), x.shape
-        x = x.float()
+        x = x.to(self.temporal_pe.dtype)  # float32, or float64 for a float64 model
 
         # ---- spatial transformer over joints (frame-independent) ----------
         if spatial_input or s2t_input:

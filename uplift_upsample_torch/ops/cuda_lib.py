@@ -19,6 +19,11 @@ nothing else does. K6 ("strided_train_fwd", "strided_train_bwd") counts
 calls: its wrappers name their counter on the last launch of a call only,
 so each forward and each backward adds one (its other launches count per
 C entry).
+
+The one-pass bf16 rung (EVAL_MATMUL_PRECISION "default") launches its own C
+entries, each the bf16 instance of a kernel above under the same wrapper
+counter: "spatial_stack_bf16" (K1), "gemm_bf16" and "window_attention_bf16"
+(K2, K3), "strided_conv_bf16" (K3), "s2t_prologue_bf16".
 """
 
 from __future__ import annotations
@@ -47,14 +52,16 @@ LAUNCHES: Dict[str, int] = collections.Counter()
 
 # C signatures: "p" = pointer or stream (c_void_p), "i" = int, "f" = float.
 _SIGNATURES = {
-    "spatial": {"spatial_stack_f32": "ppppiiiip"},
+    "spatial": {"spatial_stack_f32": "ppppiiiip", "spatial_stack_bf16": "ppppiiiip"},
     "temporal": {
         "gemm_f32": "pppppiiiip",
+        "gemm_bf16": "pppppiiiip",
         "tf32_halves_f32": "ppiiiip",
         "layernorm_f32": "ppppppiiifp",
         "window_attention_f32": "pppiiiip",
+        "window_attention_bf16": "pppiiiip",
     },
-    "strided": {"strided_conv_f32": "pppppiiiiiiip"},
+    "strided": {"strided_conv_f32": "pppppiiiiiiip", "strided_conv_bf16": "pppppiiiiiiip"},
     "spatial_bwd": {
         "spatial_bwd_workers": "iiii",
         "spatial_bwd_scratch_floats": "ii",
@@ -77,7 +84,7 @@ _SIGNATURES = {
         "strided_dwc_f32": "pppiiiiiiiip",
         "crop_residual_add_f32": "ppiiiiiip",
     },
-    "s2t": {"s2t_prologue_f32": "pppppppiiiip"},
+    "s2t": {"s2t_prologue_f32": "pppppppiiiip", "s2t_prologue_bf16": "pppppppiiiip"},
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 

@@ -18,6 +18,12 @@ Unlike the TPU kernel's (P, C, F) frames-on-lanes layout, frames are rows
 here: (F, 17, 2) in, (F, 17·C) out in p-major order, which is the
 (B, N, P·C) layout the s2t Dense reads.
 
+Precision (`precision.py`): `precision="high"` or "highest" runs the
+3xTF32 instance (fp32-level products); "default", the TPU's one-pass bf16
+rung, runs K1's bf16 instance (`spatial_stack_bf16`): the embedding's and
+the dense layers' operands rounded to bf16, fp32 sums; the 17-token
+attention stays fp32, as on the TPU's vector unit.
+
 K1 is also the counterpart of `pallas_spatial.fused_spatial_stack_tiled`
 (row 4 of the kernel table in PERF.md), which does the same per-frame math
 on window-padded (n_tiles, P·C, wpt·72) tiles for the tiled eval pipeline:
@@ -33,6 +39,7 @@ from typing import Dict, Mapping, Optional, Sequence
 import torch
 import torch.nn.functional as F
 
+from ..precision import BF16, check_rung, mm
 from . import cuda_lib
 
 COUNTER = "spatial_stack"
@@ -136,29 +143,33 @@ def make_droppath_scales(generator: Optional[torch.Generator], rates: Sequence[f
 
 
 def spatial_stack_plain(x: torch.Tensor, ops: Dict, *, num_heads: int,
-                        droppath_scales: Optional[torch.Tensor] = None) -> torch.Tensor:
+                        droppath_scales: Optional[torch.Tensor] = None,
+                        precision: str = "high") -> torch.Tensor:
     """(F, P, 2) keypoints → (F, P·C): the spatial stage in plain PyTorch.
 
     droppath_scales: (2L, F) per-frame factors of the blocks' branches, or None.
+    precision: the rung of the embedding's and the dense layers' products;
+    the 17-token attention stays fp32 on every rung (as K1 computes it).
     """
     f, p, _ = x.shape
     c = ops["pe"].shape[1]
     d = c // num_heads
-    h = x @ ops["emb_w"] + ops["emb_b"] + ops["pe"]
+    rung = check_rung(precision)
+    h = mm(x, ops["emb_w"], rung) + ops["emb_b"] + ops["pe"]
     for blk in range(ops["ln1_g"].shape[0]):
         g = {name: ops[name][blk] for name in _PACK_ORDER}
         y = F.layer_norm(h, (c,), g["ln1_g"], g["ln1_b"], 1e-5)
-        q, k, v = ((y @ g[f"w{n}"] + g[f"b{n}"]).reshape(f, p, num_heads, d)
+        q, k, v = ((mm(y, g[f"w{n}"], rung) + g[f"b{n}"]).reshape(f, p, num_heads, d)
                    .transpose(1, 2) for n in "qkv")
         att = torch.softmax(q @ k.transpose(-1, -2) * (1.0 / d ** 0.5), dim=-1)
         ctx = (att @ v).transpose(1, 2).reshape(f, p, c)
-        proj = ctx @ g["wp"] + g["bp"]
+        proj = mm(ctx, g["wp"], rung) + g["bp"]
         if droppath_scales is not None:
             proj = proj * droppath_scales[2 * blk][:, None, None]
         h = h + proj
         z = F.layer_norm(h, (c,), g["ln2_g"], g["ln2_b"], 1e-5)
-        z = F.gelu(z @ g["w1"] + g["b1"], approximate="none")
-        z = z @ g["w2"] + g["b2"]
+        z = F.gelu(mm(z, g["w1"], rung) + g["b1"], approximate="none")
+        z = mm(z, g["w2"], rung) + g["b2"]
         if droppath_scales is not None:
             z = z * droppath_scales[2 * blk + 1][:, None, None]
         h = h + z
@@ -192,23 +203,27 @@ def check_kernel_shapes(x: torch.Tensor, ops: Dict, num_heads: int,
 
 def spatial_stack(x: torch.Tensor, ops: Dict, *, num_heads: int,
                   packed: torch.Tensor = None,
-                  droppath_scales: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  droppath_scales: Optional[torch.Tensor] = None,
+                  precision: str = "high") -> torch.Tensor:
     """(F, 17, 2) → (F, 17·C). CPU tensor: plain version; CUDA tensor: K1.
 
     `packed` is `pack_spatial_params(ops)` on the same device, built here if
     not given (callers that run many batches pack once). `droppath_scales`
-    (2L, F) as in `spatial_stack_plain`.
+    (2L, F) as in `spatial_stack_plain`. `precision` "default" launches the
+    bf16 instance (`spatial_stack_bf16`, the same packed weights, rounded as
+    K1 stages them), "high" and "highest" the 3xTF32 one.
     """
     if x.device.type == "cpu":
         return spatial_stack_plain(x, ops, num_heads=num_heads,
-                                   droppath_scales=droppath_scales)
+                                   droppath_scales=droppath_scales, precision=precision)
+    entry = "spatial_stack_bf16" if check_rung(precision) == BF16 else "spatial_stack_f32"
     packed = check_kernel_shapes(x, ops, num_heads, packed, droppath_scales)
     f, p, _ = x.shape
     c = ops["pe"].shape[1]
     out = torch.empty((f, p * c), dtype=torch.float32, device=x.device)
     if f == 0:
         return out
-    cuda_lib.launch("spatial", "spatial_stack_f32", COUNTER, x, packed, droppath_scales,
+    cuda_lib.launch("spatial", entry, COUNTER, x, packed, droppath_scales,
                     out, f, c, c // num_heads, ops["ln1_g"].shape[0])
     return out
 
@@ -255,13 +270,13 @@ def spatial_stack_train(x: torch.Tensor, ops: Dict, droppath_scales: torch.Tenso
 
 
 def spatial_stack_apply(ops: Dict, x2d: torch.Tensor, *, num_heads: int,
-                        packed: torch.Tensor = None) -> torch.Tensor:
+                        packed: torch.Tensor = None, precision: str = "high") -> torch.Tensor:
     """(B, N, P, 2) masked keypoints → (B, N, P·C) spatial output.
 
     Drop-in replacement for the model's spatial stage + reshape (before the
-    spatial_to_temporal Dense), eval mode.
+    spatial_to_temporal Dense), eval mode, at the rung `precision`.
     """
     b, n, p, c_in = x2d.shape
     y = spatial_stack(x2d.reshape(b * n, p, c_in).contiguous(), ops,
-                      num_heads=num_heads, packed=packed)
+                      num_heads=num_heads, packed=packed, precision=precision)
     return y.reshape(b, n, -1)

@@ -29,6 +29,12 @@ Mosaic layouts:
     returns the pre-selection (B, N_pad, C) and every caller keeps only the
     rows s0·t; `strided_block1` returns only those rows, (B, n_out, C).
 
+Precision (`precision.py`): "default", the TPU's one-pass bf16 rung, runs
+the bf16 instances of K2's GEMM and attention and `strided_conv_bf16` (T
+rounded to bf16 as it leaves shared memory, one TF32 pass on Wc's bf16
+plane "wc_bf"); the planes come from `temporal.add_bf16_planes` (DENSE).
+"high" and "highest" run the 3xTF32 kernels. Not split over mp.
+
 Split over mp (`tp`: the operands stacked from an mp rank's shard of the
 weights), the block runs as K2's split blocks do (`temporal.py`) and ends in
 the conv over the rank's hidden channels as a partial sum, then an
@@ -45,9 +51,10 @@ import torch
 import torch.nn.functional as F
 
 from ..parallel.sharding import TensorParallel, active, all_reduce_sum
+from ..precision import BF16, check_rung, mm
 from . import cuda_lib
-from .temporal import (add_tf32_halves, attention_sublayer, gemm, layernorm,
-                       split_attention_sublayer, window_attention_plain)
+from .temporal import (add_tf32_halves, attention_sublayer, check_bf16_planes, gemm,
+                       layernorm, split_attention_sublayer, window_attention_plain)
 
 COUNTER = "strided_block1"
 DENSE = ("wqkv", "wp", "w1", "wc")  # the block's (in, out) matrices on the tensor cores
@@ -93,27 +100,33 @@ def conv_scatter_plain(dtaps: torch.Tensor, n: int, stride: int,
 
 
 def strided_conv_plain(h1: torch.Tensor, x: torch.Tensor, wc: torch.Tensor, bc: torch.Tensor,
-                       *, stride: int, paddings: Tuple[int, int]) -> torch.Tensor:
+                       *, stride: int, paddings: Tuple[int, int],
+                       precision: str = "high") -> torch.Tensor:
     """The block's conv with its residual, (B, n, hidden) and (B, n, C) →
-    (B, n_out, C): x[:, s0·t + (p0 == 0)] + bc + Σ_j h1[:, s0·t + j - p0] · W_j."""
+    (B, n_out, C): x[:, s0·t + (p0 == 0)] + bc + Σ_j h1[:, s0·t + j - p0] · W_j,
+    the products at the rung `precision`."""
     _, n, hidden = h1.shape
     p0, p1 = paddings
     n_out = output_length(n, stride, paddings)
     h1 = F.pad(h1, (0, 0, p0, p1))  # zero taps outside the window
     last = stride * (n_out - 1) + 1
     taps = torch.cat([h1[:, j: j + last: stride] for j in range(3)], dim=-1)
-    conv = taps @ wc.reshape(3 * hidden, -1) + bc
+    conv = mm(taps, wc.reshape(3 * hidden, -1), check_rung(precision)) + bc
     off = 1 if p0 == 0 else 0
     return x[:, off: off + last: stride] + conv
 
 
 def strided_conv(h1: torch.Tensor, x: torch.Tensor, ops: Dict, *, stride: int,
-                 paddings: Tuple[int, int], counter: Optional[str] = COUNTER) -> torch.Tensor:
+                 paddings: Tuple[int, int], counter: Optional[str] = COUNTER,
+                 precision: str = "high") -> torch.Tensor:
     """`strided_conv_plain` on a CPU tensor; on a CUDA tensor one launch of
     `strided_conv_f32` (T · Wc on the tensor cores in 3xTF32, T gathered from
-    h1 as it is read, Wc's halves "wc_tc"), counted for `counter`."""
+    h1 as it is read, Wc's halves "wc_tc") or, with `precision` "default",
+    of `strided_conv_bf16` (Wc's bf16 plane "wc_bf"), counted for `counter`."""
+    bf16 = check_rung(precision) == BF16
     if h1.device.type == "cpu":
-        return strided_conv_plain(h1, x, ops["wc"], ops["bc"], stride=stride, paddings=paddings)
+        return strided_conv_plain(h1, x, ops["wc"], ops["bc"], stride=stride, paddings=paddings,
+                                  precision=precision)
     b, n, hidden = h1.shape
     c = x.shape[-1]
     n_out = output_length(n, stride, paddings)
@@ -121,11 +134,13 @@ def strided_conv(h1: torch.Tensor, x: torch.Tensor, ops: Dict, *, stride: int,
     x = x.reshape(b * n, c).contiguous()
     cuda_lib.check_cuda("h1", h1)
     cuda_lib.check_cuda("x", x, device=h1.device)
-    cuda_lib.check_cuda("wc_tc", ops["wc_tc"], shape=(2, c, 3 * hidden), device=h1.device)
+    w = ops["wc_bf"] if bf16 else ops["wc_tc"]
+    cuda_lib.check_cuda("wc_bf" if bf16 else "wc_tc", w,
+                        shape=(c, 3 * hidden) if bf16 else (2, c, 3 * hidden), device=h1.device)
     cuda_lib.check_cuda("bc", ops["bc"], shape=(c,), device=h1.device)
     out = torch.empty((b * n_out, c), dtype=torch.float32, device=h1.device)
-    cuda_lib.launch("strided", "strided_conv_f32", counter, h1, x, ops["wc_tc"], ops["bc"],
-                    out, b, n, hidden, c, stride, int(paddings[0]), n_out)
+    cuda_lib.launch("strided", "strided_conv_bf16" if bf16 else "strided_conv_f32", counter,
+                    h1, x, w, ops["bc"], out, b, n, hidden, c, stride, int(paddings[0]), n_out)
     return out.reshape(b, n_out, c)
 
 
@@ -169,44 +184,53 @@ def stack_strided_block1_params(state: Mapping[str, torch.Tensor],
 def strided_block1_plain(x: torch.Tensor, ops: Dict, *, num_heads: int,
                          stride: int, paddings: Tuple[int, int],
                          relu_mask: Optional[torch.Tensor] = None,
-                         tp: Optional[TensorParallel] = None) -> torch.Tensor:
+                         tp: Optional[TensorParallel] = None,
+                         precision: str = "high") -> torch.Tensor:
     """(B, N, C) → (B, n_out, C): strided block 1 in plain PyTorch.
 
     relu_mask (B·N, hidden) booleans replace fc1's relu decisions (a gradient
     comparison hands it a kernel forward's, as `temporal_stack_plain` takes
     K5's). tp: `ops` are an mp rank's operands; the proj and conv partials
-    are summed over mp before their replicated biases are added."""
+    are summed over mp before their replicated biases are added.
+    precision: the rung of every product, the conv's too."""
     c = x.shape[-1]
     tp = active(tp)
+    rung = check_rung(precision)
     heads = num_heads if tp is None else num_heads // tp.size
     reduce = (lambda t: t) if tp is None else (lambda t: all_reduce_sum(tp, t))
     x = x + ops["pe"]
     y = F.layer_norm(x, (c,), ops["ln1_g"], ops["ln1_b"], 1e-5)
-    ctx = window_attention_plain(y @ ops["wqkv"] + ops["bqkv"], None, heads)
-    x = x + (reduce(ctx @ ops["wp"]) + ops["bp"])
+    ctx = window_attention_plain(mm(y, ops["wqkv"], rung) + ops["bqkv"], None, heads, rung)
+    x = x + (reduce(mm(ctx, ops["wp"], rung)) + ops["bp"])
     z = F.layer_norm(x, (c,), ops["ln2_g"], ops["ln2_b"], 1e-5)
-    h1 = z @ ops["w1"] + ops["b1"]
+    h1 = mm(z, ops["w1"], rung) + ops["b1"]
     h1 = torch.relu(h1) if relu_mask is None else h1 * relu_mask.reshape(h1.shape).to(h1.dtype)
     bc = ops["bc"]
     if tp is not None and tp.rank != 0:  # the crop residual and bc enter on mp rank 0 only
         x, bc = torch.zeros_like(x), torch.zeros_like(bc)
     return reduce(strided_conv_plain(h1, x, ops["wc"], bc, stride=stride,
-                                     paddings=tuple(paddings)))
+                                     paddings=tuple(paddings), precision=rung))
 
 
 def strided_block1(x: torch.Tensor, ops: Dict, *, num_heads: int, stride: int,
                    paddings: Tuple[int, int],
-                   tp: Optional[TensorParallel] = None) -> torch.Tensor:
+                   tp: Optional[TensorParallel] = None,
+                   precision: str = "high") -> torch.Tensor:
     """(B, N, C) → (B, n_out, C). CPU tensor: plain version; CUDA tensor: K3.
     tp: `ops` are an mp rank's operands and the block runs split over mp
-    (module docstring); every mp rank returns the whole result."""
+    (module docstring); every mp rank returns the whole result. precision:
+    the rung (module docstring)."""
     p0, p1 = (int(paddings[0]), int(paddings[1]))
     tp = active(tp)
     if not (0 <= p0 <= 1 and 0 <= p1 <= 1):
         raise ValueError(f"strided block 1 takes paddings in {{0, 1}}, got {paddings}")
     if x.device.type == "cpu":
         return strided_block1_plain(x, ops, num_heads=num_heads, stride=stride,
-                                    paddings=(p0, p1), tp=tp)
+                                    paddings=(p0, p1), tp=tp, precision=precision)
+    bf16 = check_rung(precision, tp=tp) == BF16
+    if bf16:
+        check_bf16_planes(ops, DENSE)
+    w = "_bf" if bf16 else "_tc"
     b, n, c = x.shape
     n_out = output_length(n, stride, (p0, p1))
     if n_out < 1:
@@ -216,17 +240,17 @@ def strided_block1(x: torch.Tensor, ops: Dict, *, num_heads: int, stride: int,
     cuda_lib.check_cuda("pe", ops["pe"], shape=(n, c), device=x.device)
     h, y = layernorm(h, ops["ln1_g"], ops["ln1_b"], 1e-5, pe=ops["pe"],
                      counter=COUNTER)
-    weights = (ops["wqkv_tc"], ops["bqkv"], ops["wp_tc"], ops["bp"])
+    weights = (ops["wqkv" + w], ops["bqkv"], ops["wp" + w], ops["bp"])
     attn = dict(key_mask=None, windows=b, n=n, num_heads=num_heads, counter=COUNTER)
     if tp is None:
-        h = attention_sublayer(h, y, *weights, **attn)
+        h = attention_sublayer(h, y, *weights, precision=precision, **attn)
     else:
         h = split_attention_sublayer(h, y, *weights, tp=tp, **attn)
     z = layernorm(h, ops["ln2_g"], ops["ln2_b"], 1e-5, counter=COUNTER)
-    h1 = gemm(z, ops["w1_tc"], ops["b1"], relu=True, counter=COUNTER)
+    h1 = gemm(z, ops["w1" + w], ops["b1"], relu=True, counter=COUNTER, precision=precision)
     if tp is None:
         return strided_conv(h1.reshape(b, n, -1), h.reshape(b, n, c), ops, stride=stride,
-                            paddings=(p0, p1))
+                            paddings=(p0, p1), precision=precision)
     if tp.rank != 0:  # the crop residual and bc enter on mp rank 0 only
         h, ops = torch.zeros_like(h), dict(ops, bc=torch.zeros_like(ops["bc"]))
     part = strided_conv(h1.reshape(b, n, -1), h.reshape(b, n, c), ops, stride=stride,

@@ -26,6 +26,14 @@ weight matrix as its two TF32 halves, which `stack_temporal_params` (and
 `strided.stack_strided_block1_params`) split when they stack the operands:
 once for serving, anew from each step's weights in training.
 
+Precision (`precision.py`): "high" and "highest" run the 3xTF32 GEMM and
+attention (`gemm_f32`, `window_attention_f32`); "default", the TPU's
+one-pass bf16 rung, their bf16 instances (`gemm_bf16`: A rounded to bf16 as
+it leaves shared memory, one TF32 pass per 8-deep step on W's bf16-rounded
+plane "<w>_bf" from `add_bf16_planes`; `window_attention_bf16`: q, k, the
+normalised probabilities and v rounded, fp32 sums). The LayerNorms are fp32
+on every rung. The plain versions take the same `precision=`.
+
 Split over mp (`tp`, tensor parallelism: the operands stacked from an mp
 rank's shard of the weights, `parallel/sharding.py`), each block runs per
 rank: LN1 at full width; qkv into the rank's (rows, 3·C/mp), its q, k and v
@@ -46,6 +54,7 @@ import torch
 import torch.nn.functional as F
 
 from ..parallel.sharding import TensorParallel, active, all_reduce_sum
+from ..precision import BF16, check_rung, mm, round_bf16
 from . import cuda_lib
 
 COUNTER = "temporal_stack"
@@ -86,6 +95,18 @@ def add_tf32_halves(ops: Dict, names: Sequence[str] = DENSE) -> Dict:
         out[f"{name}_tc"] = tf32_halves(ops[name], transpose=True)
         out[f"{name}_tc_dx"] = tf32_halves(ops[name], transpose=False)
     return out
+
+
+def bf16_plane(w: torch.Tensor) -> torch.Tensor:
+    """(…, K, N) → (…, N, K): w rounded to bf16 (to nearest, even), kept in
+    fp32 and transposed, the operand the bf16 GEMM (`gemm_bf16`) reads."""
+    return round_bf16(w.detach().float()).transpose(-1, -2).contiguous()
+
+
+def add_bf16_planes(ops: Dict, names: Sequence[str] = DENSE) -> Dict:
+    """`ops` with each named matrix's bf16 plane beside it, "<name>_bf": the
+    weights of the bf16 rung, prepared once (`models/bench_forward.prepare_fused_params`)."""
+    return {**ops, **{f"{name}_bf": bf16_plane(ops[name]) for name in names}}
 
 
 def stack_temporal_params(state: Mapping[str, torch.Tensor], num_blocks: int,
@@ -132,17 +153,20 @@ def stack_temporal_params(state: Mapping[str, torch.Tensor], num_blocks: int,
 # -- plain versions -----------------------------------------------------------
 
 def window_attention_plain(qkv: torch.Tensor, key_mask: Optional[torch.Tensor],
-                           num_heads: int) -> torch.Tensor:
-    """(B, N, 3C) packed q|k|v → (B, N, C) context; key_mask (B, N), 1 = blocked."""
+                           num_heads: int, precision: str = "high") -> torch.Tensor:
+    """(B, N, 3C) packed q|k|v → (B, N, C) context; key_mask (B, N), 1 = blocked.
+    On the bf16 rung q and k are rounded as they are (the logits scaled after
+    the product) and the normalised probabilities and v for P·V."""
     b, n, c3 = qkv.shape
     c = c3 // 3
     d = c // num_heads
+    rung = check_rung(precision)
     q, k, v = (t.reshape(b, n, num_heads, d).transpose(1, 2)
                for t in qkv.split(c, dim=-1))
-    logits = q @ k.transpose(-1, -2) * (1.0 / d ** 0.5)
+    logits = mm(q, k.transpose(-1, -2), rung) * (1.0 / d ** 0.5)
     if key_mask is not None:
         logits = logits + key_mask[:, None, None, :] * -1e9
-    ctx = torch.softmax(logits, dim=-1) @ v
+    ctx = mm(torch.softmax(logits, dim=-1), v, rung)
     return ctx.transpose(1, 2).reshape(b, n, c)
 
 
@@ -151,7 +175,8 @@ def temporal_stack_plain(x: torch.Tensor, ops: Dict,
                          num_heads: int, first_masked_blocks: int = 0,
                          droppath: Optional[torch.Tensor] = None,
                          relu_masks: Optional[Sequence[torch.Tensor]] = None,
-                         tp: Optional[TensorParallel] = None) -> torch.Tensor:
+                         tp: Optional[TensorParallel] = None,
+                         precision: str = "high") -> torch.Tensor:
     """(B, N, C) → (B, N, C): the temporal blocks in plain PyTorch.
 
     droppath: (L, 2, B) per-window stochastic-depth scales of each block's
@@ -162,28 +187,30 @@ def temporal_stack_plain(x: torch.Tensor, ops: Dict,
     rounding of 0 takes the same side of the kink in both.
     tp: `ops` are an mp rank's operands (module docstring); the proj and fc2
     partials are summed over mp before their replicated biases are added.
+    precision: the rung of every product (module docstring).
     """
     c = x.shape[-1]
     tp = active(tp)
+    rung = check_rung(precision)
     heads = num_heads if tp is None else num_heads // tp.size
     reduce = (lambda t: t) if tp is None else (lambda t: all_reduce_sum(tp, t))
     km = None if key_mask is None else key_mask.float()
     for blk in range(ops["ln1_g"].shape[0]):
         y = F.layer_norm(x, (c,), ops["ln1_g"][blk], ops["ln1_b"][blk], 1e-5)
-        qkv = y @ ops["wqkv"][blk] + ops["bqkv"][blk]
+        qkv = mm(y, ops["wqkv"][blk], rung) + ops["bqkv"][blk]
         ctx = window_attention_plain(qkv, km if blk < first_masked_blocks else None,
-                                     heads)
-        proj = reduce(ctx @ ops["wp"][blk]) + ops["bp"][blk]
+                                     heads, rung)
+        proj = reduce(mm(ctx, ops["wp"][blk], rung)) + ops["bp"][blk]
         if droppath is not None:
             proj = proj * droppath[blk, 0][:, None, None]
         x = x + proj
         z = F.layer_norm(x, (c,), ops["ln2_g"][blk], ops["ln2_b"][blk], 1e-5)
-        z = z @ ops["w1"][blk] + ops["b1"][blk]
+        z = mm(z, ops["w1"][blk], rung) + ops["b1"][blk]
         if relu_masks is None:
             z = torch.relu(z)
         else:
             z = z * relu_masks[blk].reshape(z.shape).to(z.dtype)
-        z = reduce(z @ ops["w2"][blk]) + ops["b2"][blk]
+        z = reduce(mm(z, ops["w2"][blk], rung)) + ops["b2"][blk]
         if droppath is not None:
             z = z * droppath[blk, 1][:, None, None]
         x = x + z
@@ -194,25 +221,29 @@ def temporal_stack_plain(x: torch.Tensor, ops: Dict,
 
 def gemm(a: torch.Tensor, w_tc: torch.Tensor, bias: Optional[torch.Tensor], *,
          counter: Optional[str], residual: Optional[torch.Tensor] = None,
-         relu: bool = False, out: Optional[torch.Tensor] = None) -> torch.Tensor:
+         relu: bool = False, out: Optional[torch.Tensor] = None,
+         precision: str = "high") -> torch.Tensor:
     """act(a @ w + bias) + residual on the card; a (M, K) row-major, w_tc
-    (2, N, K) the TF32 halves of w (K, N) (`tf32_halves`). `out` may be
-    `residual`, never `a`."""
+    (2, N, K) the TF32 halves of w (K, N) (`tf32_halves`), or on the bf16
+    rung (`precision` "default") its bf16 plane (N, K) (`bf16_plane`).
+    `out` may be `residual`, never `a`."""
+    bf16 = check_rung(precision) == BF16
     m, k = a.shape
-    n = w_tc.shape[1]
+    n = w_tc.shape[-2]
     if k % 4:
         raise ValueError(f"the tensor-core GEMM loads rows of 16 bytes: K={k} is not a "
                          "multiple of 4")
     cuda_lib.check_cuda("a", a)
-    cuda_lib.check_cuda("w_tc", w_tc, shape=(2, n, k), device=a.device)
+    cuda_lib.check_cuda("w_bf" if bf16 else "w_tc", w_tc, shape=(n, k) if bf16 else (2, n, k),
+                        device=a.device)
     if bias is not None:
         cuda_lib.check_cuda("bias", bias, shape=(n,), device=a.device)
     if residual is not None:
         cuda_lib.check_cuda("residual", residual, shape=(m, n), device=a.device)
     if out is None:
         out = torch.empty((m, n), dtype=torch.float32, device=a.device)
-    cuda_lib.launch("temporal", "gemm_f32", counter, a, w_tc, bias, residual, out,
-                    m, n, k, int(relu))
+    cuda_lib.launch("temporal", "gemm_bf16" if bf16 else "gemm_f32", counter, a, w_tc, bias,
+                    residual, out, m, n, k, int(relu))
     return out
 
 
@@ -241,28 +272,29 @@ def layernorm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, eps: flo
 
 def window_attention(qkv: torch.Tensor, key_mask: Optional[torch.Tensor], *,
                      windows: int, n: int, num_heads: int,
-                     counter: Optional[str]) -> torch.Tensor:
-    """(windows·n, 3C) → (windows·n, C) attention inside each window, on the card."""
+                     counter: Optional[str], precision: str = "high") -> torch.Tensor:
+    """(windows·n, 3C) → (windows·n, C) attention inside each window, on the
+    card; `precision` "default" launches the bf16 instance."""
     rows, c3 = qkv.shape
     c = c3 // 3
     cuda_lib.check_cuda("qkv", qkv, shape=(windows * n, c3))
     if key_mask is not None:
         cuda_lib.check_cuda("key_mask", key_mask, shape=(windows, n), device=qkv.device)
     out = torch.empty((rows, c), dtype=torch.float32, device=qkv.device)
-    cuda_lib.launch("temporal", "window_attention_f32", counter, qkv, key_mask,
-                    out, windows, n, c, num_heads)
+    entry = "window_attention_bf16" if check_rung(precision) == BF16 else "window_attention_f32"
+    cuda_lib.launch("temporal", entry, counter, qkv, key_mask, out, windows, n, c, num_heads)
     return out
 
 
 def attention_sublayer(x: torch.Tensor, y: torch.Tensor, wqkv, bqkv, wp, bp, *,
                        key_mask, windows: int, n: int, num_heads: int,
-                       counter: str) -> torch.Tensor:
+                       counter: str, precision: str = "high") -> torch.Tensor:
     """x + proj(attention(qkv(y))) on the card, y being LN(x): three launches
-    (wqkv, wp: TF32 halves)."""
-    qkv = gemm(y, wqkv, bqkv, counter=counter)
+    (wqkv, wp: TF32 halves, or bf16 planes on the bf16 rung)."""
+    qkv = gemm(y, wqkv, bqkv, counter=counter, precision=precision)
     ctx = window_attention(qkv, key_mask, windows=windows, n=n,
-                           num_heads=num_heads, counter=counter)
-    return gemm(ctx, wp, bp, residual=x, counter=counter)
+                           num_heads=num_heads, counter=counter, precision=precision)
+    return gemm(ctx, wp, bp, residual=x, counter=counter, precision=precision)
 
 
 def split_gemm(a: torch.Tensor, w_tc: torch.Tensor, bias: torch.Tensor,
@@ -287,21 +319,36 @@ def split_attention_sublayer(x: torch.Tensor, y: torch.Tensor, wqkv, bqkv, wp, b
     return split_gemm(ctx, wp, bp, x, tp, counter=counter)
 
 
+def check_bf16_planes(ops: Dict, names: Sequence[str]) -> None:
+    """Raise unless the named matrices' bf16 planes are prepared (`add_bf16_planes`)."""
+    missing = [f"{name}_bf" for name in names if f"{name}_bf" not in ops]
+    if missing:
+        raise ValueError(f"the bf16 rung reads the weights' bf16 planes {missing}: "
+                         "prepare them with add_bf16_planes")
+
+
 def temporal_stack(x: torch.Tensor, ops: Dict,
                    key_mask: Optional[torch.Tensor] = None, *, num_heads: int,
                    first_masked_blocks: int = 0,
-                   tp: Optional[TensorParallel] = None) -> torch.Tensor:
+                   tp: Optional[TensorParallel] = None,
+                   precision: str = "high") -> torch.Tensor:
     """(B, N, C) → (B, N, C). CPU tensor: plain version; CUDA tensor: K2.
 
     key_mask: (B, N), 1 = blocked key, applied in the first
     `first_masked_blocks` blocks. tp: `ops` are an mp rank's operands, and
     each block runs split over mp (module docstring); every mp rank returns
-    the whole result.
+    the whole result. precision: the rung (module docstring); "default"
+    reads the bf16 planes and is not split over mp.
     """
     tp = active(tp)
     if x.device.type == "cpu":
         return temporal_stack_plain(x, ops, key_mask, num_heads=num_heads,
-                                    first_masked_blocks=first_masked_blocks, tp=tp)
+                                    first_masked_blocks=first_masked_blocks, tp=tp,
+                                    precision=precision)
+    bf16 = check_rung(precision, tp=tp) == BF16
+    if bf16:
+        check_bf16_planes(ops, DENSE)
+    w = "_bf" if bf16 else "_tc"
     b, n, c = x.shape
     if c % num_heads != 0:
         raise ValueError(f"C={c} does not split into {num_heads} heads")
@@ -314,37 +361,42 @@ def temporal_stack(x: torch.Tensor, ops: Dict,
         y = layernorm(h, ops["ln1_g"][blk], ops["ln1_b"][blk], 1e-5, counter=COUNTER)
         attn = dict(key_mask=km if blk < first_masked_blocks else None, windows=b, n=n,
                     num_heads=num_heads, counter=COUNTER)
-        weights = (ops["wqkv_tc"][blk], ops["bqkv"][blk], ops["wp_tc"][blk], ops["bp"][blk])
+        weights = (ops["wqkv" + w][blk], ops["bqkv"][blk], ops["wp" + w][blk], ops["bp"][blk])
         if tp is None:
-            h = attention_sublayer(h, y, *weights, **attn)
+            h = attention_sublayer(h, y, *weights, precision=precision, **attn)
         else:
             h = split_attention_sublayer(h, y, *weights, tp=tp, **attn)
         z = layernorm(h, ops["ln2_g"][blk], ops["ln2_b"][blk], 1e-5, counter=COUNTER)
-        z = gemm(z, ops["w1_tc"][blk], ops["b1"][blk], relu=True, counter=COUNTER)
+        z = gemm(z, ops["w1" + w][blk], ops["b1"][blk], relu=True, counter=COUNTER,
+                 precision=precision)
         if tp is None:
-            h = gemm(z, ops["w2_tc"][blk], ops["b2"][blk], residual=h, out=h, counter=COUNTER)
+            h = gemm(z, ops["w2" + w][blk], ops["b2"][blk], residual=h, out=h, counter=COUNTER,
+                     precision=precision)
         else:
             h = split_gemm(z, ops["w2_tc"][blk], ops["b2"][blk], h, tp, counter=COUNTER)
     return h.reshape(b, n, c)
 
 
 def temporal_block(x: torch.Tensor, block_ops: Dict,
-                   key_mask: Optional[torch.Tensor] = None, *, num_heads: int) -> torch.Tensor:
+                   key_mask: Optional[torch.Tensor] = None, *, num_heads: int,
+                   precision: str = "high") -> torch.Tensor:
     """One temporal block, (B, N, C) → (B, N, C) (row 9,
     `pallas_temporal.fused_temporal_block`): K2 over the one block of
     `block_ops` (stacked operands of one block), the key mask (B, N), 1 =
     blocked, applied when given."""
     return temporal_stack(x, block_ops, key_mask, num_heads=num_heads,
-                          first_masked_blocks=0 if key_mask is None else 1)
+                          first_masked_blocks=0 if key_mask is None else 1,
+                          precision=precision)
 
 
 def temporal_stack_apply(ops: Dict, x: torch.Tensor, key_mask: Optional[torch.Tensor], *,
-                         num_heads: int, first_masked_blocks: int = 0) -> torch.Tensor:
+                         num_heads: int, first_masked_blocks: int = 0,
+                         precision: str = "high") -> torch.Tensor:
     """The temporal stack block by block (`pallas_temporal.temporal_stack_apply`):
     `temporal_block` per block of the stacked `ops`, the key mask on the first
     `first_masked_blocks` blocks."""
     for blk in range(ops["ln1_g"].shape[0]):
         x = temporal_block(x, {k: v[blk:blk + 1] for k, v in ops.items()},
                            key_mask if blk < first_masked_blocks else None,
-                           num_heads=num_heads)
+                           num_heads=num_heads, precision=precision)
     return x

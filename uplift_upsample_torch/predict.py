@@ -37,7 +37,8 @@ from .utils.weights_npz import load_weights
 def make_predict_step(model, config: UpliftUpsampleConfig, flip_tta: bool = True):
     """ONE step for all sequences of a run. On CUDA it takes the kernel path
     (K1-K3 + plain tail); on the CPU the plain model, as the JAX package does
-    off the TPU. EVAL_MATMUL_PRECISION is checked as the eval CLI checks it."""
+    off the TPU. EVAL_MATMUL_PRECISION is read as the eval CLI reads it
+    ("default": the one-pass bf16 rung)."""
     on_card = next(model.parameters()).device.type == "cuda"
     return make_test_step(
         model, flip_tta=flip_tta, flip_lr_indices=config.AUGM_FLIP_KEYPOINT_ORDER,

@@ -1,2 +1,3 @@
-"""Command-line tools of the port: checkpoint conversion and the full-scale eval
-rehearsal (`python -m uplift_upsample_torch.tools.<name>`)."""
+"""Command-line tools of the port: checkpoint conversion, the full-scale eval
+rehearsal, the multi-rank dry run, and the matmul-precision drift simulator
+and drift matrix (`python -m uplift_upsample_torch.tools.<name>`)."""
