@@ -79,7 +79,7 @@ def test_bench_eval_json_line(monkeypatch, capsys, argv, s_in, shared):
 
 def test_bench_train_json_line(monkeypatch, capsys):
     result, err = _run(monkeypatch, capsys, "--train", "--batch", "2",
-                       "--no-train-fused-temporal")
+                       "--no-train-fused-temporal", "--train-precision", "high")
     assert set(result) == _jax_bench_keys()["train"]
     assert result["metric"] == "train_windows_per_sec_per_chip_n351"
     assert result["unit"] == "windows/s" and result["value"] > 0

@@ -164,7 +164,7 @@ def test_training_path_splits_halves_from_each_steps_weights(monkeypatch):
         PADDINGS=[[0, 0], [0, 0]], NUM_HEADS=4, BATCH_SIZE=4, MASK_STRIDE=3,
         FIRST_STRIDED_TOKEN_ATTENTION_LAYER=1, DROP_PATH_RATE=[0.0, 0.0, 0.0],
         ROOT_KEYTPOINT=0, TRAIN_FUSED_SPATIAL=True, TRAIN_FUSED_TEMPORAL=True,
-        TRAIN_FUSED_STRIDED=True, EMA_ENABLED=False))
+        TRAIN_FUSED_STRIDED=True, EMA_ENABLED=False, TRAIN_MATMUL_PRECISION="high"))
     model = build_uplift_upsample_transformer(config, device="cpu", seed=1)
     assert ts.fused_stages(model, config, True) == (True, True, True)
     seen = {"temporal": [], "strided": []}

@@ -53,6 +53,7 @@ def _tiny(**over):
         "EMA_ENABLED": True, "EMA_DECAY": 0.999,
         "STRIDE_MASK_RAND_SHIFT": True, "IN_BATCH_AUGMENT": True,
         "DATASET_VAL_3D_SUBSAMPLE_STEP": 10,
+        "TRAIN_MATMUL_PRECISION": "high",  # the fp32 rung, as the JAX step on the CPU
     }, **over))
     config.AUGM_FLIP_KEYPOINT_ORDER = H36MOrder17P.flip_lr_indices()
     return config

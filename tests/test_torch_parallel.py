@@ -54,6 +54,7 @@ def _tiny(**over):
         "PADDINGS": [[0, 0], [0, 0]], "NUM_HEADS": 4, "MASK_STRIDE": [5, 10, 20],
         "FIRST_STRIDED_TOKEN_ATTENTION_LAYER": 1, "BATCH_SIZE": 16,
         "DROP_PATH_RATE": 0.0, "DROP_RATE": 0.0, "TOKEN_MASK_RATE": 0.0,
+        "TRAIN_MATMUL_PRECISION": "high",  # the fp32 rung, as the JAX step on the CPU
         "OPTIMIZER": "AdamW", "OPTIMIZER_PARAMS": {}, "WEIGHT_DECAY": 4e-6,
         "EMA_ENABLED": True, "EMA_DECAY": 0.999,
         "SCHEDULE": "ExponentialDecay",

@@ -17,16 +17,29 @@ init, `params_from_jax`), six windows of 27 frames from a numpy seed:
       fp32 ulp flips a later bf16 rounding now and then, and each flip moves
       an operand by a bf16 ulp. Measured here: mean |torch - JAX| 0.25 x
       the mean drift and 0.48 x its max for the bf16 map; 0.0011 x the
-      bf16 drift for bf16x3. Bounds: 0.4 / 0.75 and 0.01;
+      bf16 drift for bf16x3. Bounds: 0.4 / 0.75 and 0.01; the map with the
+      spatial sites bf16x3 within its drift (measured 0.65 / 0.76);
   (b) the port's `make_test_step(fused="full", precision="default")` (the
       kernels' plain versions) against the JAX sim with every site bf16
       but the spatial attention (fp32 in K1, as on the TPU's vector unit):
       measured 0.42 / 0.49 of the drift, bounds 0.6 / 0.75, and closer to
-      that map than to the all-bf16 one (0.49 x: bound 0.75 x);
+      that map than to the all-bf16 one (0.49 x: bound 0.75 x); the
+      "spatial" route (K1 at "high" whatever the rung, as the JAX step runs
+      it) against the map with the `sp_*` sites bf16x3 and every other site
+      bf16 (measured 0.66 / 0.62 of the drift), and closer to it than to the
+      fused map (0.70 x: bound 0.75 x) (C4); the drift matrix's `fused_high`
+      (the JAX tool's `fused_high3`) within that map and not at fp32 (C5).
+      That map's bf16x3 spatial sites leave ~2^-17 of each product where
+      K1 at "high" is fp32-level, enough to flip ~1 % of the s2t Dense's
+      bf16 roundings: the port's simulator and the JAX one, both at that
+      map, part by 0.65 / 0.76 of its drift (test (a)), so these two hold
+      a mean bound of 0.75 (largest 0.75 as everywhere);
   (c) `fused="none"` against the all-bf16 map (measured 0.26 / 0.48, the
       same bounds, and closer to it than to the fused map);
   (d) the shared-spatial step at "default" against the per-window step;
-  (e) "high" and "highest" give the same bits as `precision` omitted;
+  (e) "high" and "highest" give the same bits as `precision` omitted, and
+      "highest" on the fused "full" route runs the plain model, bit for bit
+      (C6);
   (f) what stays unported raises: `--bf16`, COMPUTE_DTYPE and
       SPATIAL_COMPUTE_DTYPE bfloat16, USE_PALLAS_ATTENTION and mp > 1 on the
       bf16 rung;
@@ -62,6 +75,8 @@ OVERRIDES = {
     "DROP_PATH_RATE": [0.1, 0.1, 0.0],
 }
 ALL_BF16 = {s: "bf16" for s in tsim.SITES}
+# K1 at "high" (bf16x3 on the TPU), everything from the s2t Dense on bf16
+SP_BF16X3 = {s: ("bf16x3" if s.startswith("sp_") else "bf16") for s in tsim.SITES}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -113,7 +128,7 @@ def case():
 
     sims = {"f32": jax_sim({}), "bf16": jax_sim(ALL_BF16),
             "fused": jax_sim(tsim.FUSED_DEFAULT), "bf16x3": jax_sim(
-                {s: "bf16x3" for s in tsim.SITES})}
+                {s: "bf16x3" for s in tsim.SITES}), "sp_bf16x3": jax_sim(SP_BF16X3)}
     return dict(config=config, model=model, x=torch.from_numpy(x), sm=torch.from_numpy(sm),
                 cfg=cfg, sims=sims)
 
@@ -166,19 +181,72 @@ def test_torch_sim_matches_jax_sim(case):
     _within(run(ALL_BF16), sims["bf16"], sims["f32"], 0.4, 0.75)
     x3_gap = _gap(run({s: "bf16x3" for s in tsim.SITES}), sims["bf16x3"])[1]
     assert x3_gap <= 0.01 * _gap(sims["bf16"], sims["f32"])[1], x3_gap
+    # the map with the spatial sites bf16x3 (the "spatial" route's): its
+    # ~2^-17 per spatial product flips ~1 % of the s2t Dense's roundings,
+    # so the two simulators part by more there (0.65 / 0.76 of its drift),
+    # as far as the port's "spatial" step from the JAX map (test (b))
+    (g_mean, g_max), (d_mean, d_max) = (_gap(run(SP_BF16X3), sims["sp_bf16x3"]),
+                                        _gap(sims["sp_bf16x3"], sims["f32"]))
+    print(f"sp_bf16x3 map: torch sim vs JAX sim {g_mean / d_mean:.2f} / {g_max / d_max:.2f} "
+          "of the drift")
+    assert g_mean <= d_mean and g_max <= d_max, (g_mean / d_mean, g_max / d_max)
 
 
-@pytest.mark.parametrize("fused,site_map,other", [("full", "fused", "bf16"),
-                                                   ("spatial", "fused", "bf16"),
-                                                   ("none", "bf16", "fused")])
-def test_step_at_default_matches_the_jax_sim(case, fused, site_map, other):
+@pytest.mark.parametrize("fused,site_map,other,mean_frac", [
+    ("full", "fused", "bf16", 0.6), ("spatial", "sp_bf16x3", "fused", 0.75),
+    ("none", "bf16", "fused", 0.6)])
+def test_step_at_default_matches_the_jax_sim(case, fused, site_map, other, mean_frac):
     """(b), (c): the kernel path's plain versions (K1's spatial attention
-    fp32) follow the fused map, the plain model (every product rounded) the
-    all-bf16 map, each closer to its own map than to the other."""
+    fp32) follow the fused map, the "spatial" route (K1 at "high") the map
+    with the spatial sites bf16x3, the plain model (every product rounded)
+    the all-bf16 map, each closer to its own map than to the other."""
     _, got = _step(case, fused, "default")(case["x"], case["sm"])
     sims = case["sims"]
-    _within(got, sims[site_map], sims["f32"], 0.6, 0.75)
+    (g_mean, g_max), (d_mean, d_max) = _gap(got, sims[site_map]), _gap(sims[site_map],
+                                                                      sims["f32"])
+    print(f"{fused} step vs the {site_map} map: {g_mean / d_mean:.2f} / {g_max / d_max:.2f} "
+          "of the drift")
+    _within(got, sims[site_map], sims["f32"], mean_frac, 0.75)
     assert _gap(got, sims[site_map])[0] <= 0.75 * _gap(got, sims[other])[0]
+
+
+def _float64_truth(case):
+    import copy
+    model = copy.deepcopy(case["model"]).double()
+    with torch.inference_mode():
+        return model(case["x"].double(), case["sm"])[1].numpy()
+
+
+def test_fused_high_is_the_jax_fused_high3(case):
+    """(C5): the drift matrix's `fused_high` is K1 at "high" and a bf16 tail:
+    within the `sp_*` = bf16x3 map, closer to it than to the fused map, and
+    not within 0.5 milli-units of the float64 truth; `fused_default` (K1 at
+    "default") follows the fused map."""
+    sims = case["sims"]
+    high = check_parity.run_variant("fused_high", case["model"], case["x"], case["sm"])
+    _within(high, sims["sp_bf16x3"], sims["f32"], 0.75, 0.75)
+    assert _gap(high, sims["sp_bf16x3"])[0] <= 0.75 * _gap(high, sims["fused"])[0]
+    assert check_parity.drift_mm(high.numpy(), _float64_truth(case))[0] > 0.5
+    default = check_parity.run_variant("fused_default", case["model"], case["x"], case["sm"])
+    _within(default, sims["fused"], sims["f32"], 0.6, 0.75)
+
+
+def test_highest_full_runs_the_plain_model(case):
+    """(C6): at "highest" the fused "full" route is the plain model, as the
+    JAX step switches it to "none": the same bits, per window and shared."""
+    kw = dict(flip_tta=True, flip_lr_indices=case["config"].AUGM_FLIP_KEYPOINT_ORDER,
+              precision="highest")
+    full = make_test_step(case["model"], fused="full", **kw)(case["x"], case["sm"])
+    none = make_test_step(case["model"], fused="none", **kw)(case["x"], case["sm"])
+    assert torch.equal(full[1], none[1]) and torch.equal(full[0], none[0])
+    x, sm = case["x"], case["sm"]
+    b, n = sm.shape
+    uniq, inv = dedup_rows(x.numpy().reshape(b * n, -1))
+    uq = torch.from_numpy(uniq.reshape(-1, 17, 2).copy())
+    idx = torch.from_numpy(inv.reshape(b, n).astype(np.int64))
+    shared = [make_test_step(case["model"], fused=f, shared_spatial=True, **kw)(uq, idx, sm)[1]
+              for f in ("full", "none")]
+    assert torch.equal(*shared)
 
 
 def test_shared_step_at_default_matches_per_window(case):
@@ -198,15 +266,18 @@ def test_shared_step_at_default_matches_per_window(case):
 @pytest.mark.parametrize("fused", ["full", "spatial", "none"])
 def test_fp32_rungs_unchanged(case, fused):
     """(e): "high" and "highest" run the code that `precision` omitted runs,
-    bit for bit, on every path."""
-    omitted = make_test_step(case["model"], flip_tta=True,
-                             flip_lr_indices=case["config"].AUGM_FLIP_KEYPOINT_ORDER,
-                             fused=fused)(case["x"], case["sm"])[1]
+    bit for bit, on every path; "highest" on "full" the plain model's (C6)."""
+    def omitted(path):
+        return make_test_step(case["model"], flip_tta=True,
+                              flip_lr_indices=case["config"].AUGM_FLIP_KEYPOINT_ORDER,
+                              fused=path)(case["x"], case["sm"])[1]
+
     for rung in ("high", "highest"):
         got = make_test_step(case["model"], flip_tta=True,
                              flip_lr_indices=case["config"].AUGM_FLIP_KEYPOINT_ORDER,
                              fused=fused, precision=rung)(case["x"], case["sm"])[1]
-        assert torch.equal(got, omitted), rung
+        path = "none" if (fused, rung) == ("full", "highest") else fused
+        assert torch.equal(got, omitted(path)), rung
 
 
 def test_what_is_not_ported_still_raises():

@@ -43,6 +43,9 @@ _SMALL = {
     "FIRST_STRIDED_TOKEN_ATTENTION_LAYER": 1,
     "DROP_PATH_RATE": [0.0, 0.0, 0.0], "MASK_STRIDE": 3,
     "ROOT_KEYTPOINT": 0, "LOSS_WEIGHT_CENTER": 1.0, "LOSS_WEIGHT_SEQUENCE": 2.0,
+    # the fp32 rung: the TF fixtures and the JAX step on the CPU compute fp32
+    # (the class default "default" is the one-pass bf16 rung)
+    "TRAIN_MATMUL_PRECISION": "high",
 }
 
 

@@ -31,10 +31,12 @@ budget runs out.
 
 Prints ONE JSON line on stdout; progress and a summary line on stderr.
 --precision default runs the eval step on the one-pass bf16 rung (the
-kernels' bf16 instances, `precision.py`); --dtype bfloat16 (bf16
-activations) raises. --eval-wpt, --spatial-block-f,
---train-spatial-attn and --train-wpt are TPU kernel tilings and
---train-precision a TPU rung: they are read and logged, and change nothing.
+kernels' bf16 instances, `precision.py`); --train-precision puts the
+training rung (TRAIN_MATMUL_PRECISION: "default", "mixed", "high",
+"highest") into the train step's config, as the JAX bench does; --dtype
+bfloat16 (bf16 activations) raises. --eval-wpt, --spatial-block-f,
+--train-spatial-attn and --train-wpt are TPU kernel tilings: they are read
+and logged, and change nothing.
 """
 
 from __future__ import annotations
@@ -163,6 +165,7 @@ def bench_train(args, bench: Bench, torch, dev):
                             "decay_rate": 0.99, "staircase": True},
         "TRAIN_FUSED_SPATIAL": args.train_fused,
         "TRAIN_FUSED_TEMPORAL": args.train_fused_temporal,
+        "TRAIN_MATMUL_PRECISION": args.train_precision,
     })
     bench.progress("building model + optimizer state")
     model = build_uplift_upsample_transformer(config, device=dev, seed=0)
@@ -220,8 +223,8 @@ def bench_train(args, bench: Bench, torch, dev):
     emit(result)
     print(f"# train device={device_name(torch, dev)} batch={args.batch} "
           f"dataset={args.train_dataset} ms/step={per_step * 1e3:.1f} "
-          f"fused={args.train_fused} fused_temporal={args.train_fused_temporal}",
-          file=sys.stderr)
+          f"fused={args.train_fused} fused_temporal={args.train_fused_temporal} "
+          f"precision={args.train_precision}", file=sys.stderr)
 
 
 def bench_eval(args, bench: Bench, torch, dev):
@@ -384,8 +387,8 @@ def parse_args(argv=None):
                         help="a TPU kernel tiling: logged, not used")
     parser.add_argument("--train-precision", default="default",
                         choices=["mixed", "default", "high", "highest"],
-                        help="a TPU training rung: logged, not used (the port trains "
-                             "in fp32)")
+                        help="with --train: TRAIN_MATMUL_PRECISION, the training rung "
+                             "(precision.train_rungs)")
     parser.add_argument("--eval-wpt", default=None,
                         help="EVAL_TEMPORAL_WPT, a TPU kernel tiling: resolved and "
                              "logged, changes no launch")
@@ -428,8 +431,7 @@ def main(argv=None) -> None:
         print(f"# read, not used by the port: --eval-wpt={args.eval_wpt} "
               f"--spatial-block-f={args.spatial_block_f} "
               f"--train-spatial-attn={args.train_spatial_attn} "
-              f"--train-wpt={args.train_wpt} (TPU kernel tilings); "
-              f"--train-precision={args.train_precision} (the port trains in fp32)",
+              f"--train-wpt={args.train_wpt} (TPU kernel tilings)",
               file=sys.stderr, flush=True)
         if args.train:
             bench_train(args, bench, torch, dev)

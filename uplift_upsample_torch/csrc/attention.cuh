@@ -52,6 +52,10 @@
 //    DEFAULT dot on q and k computes them), and P·V on the probabilities
 //    normalised first, then rounded, with v rounded: one TF32 product per
 //    pair of rounded operands (tf32.cuh), fp32 sums.
+//  - Its training variant (QS, K5's and K6's `window_attention_train_bf16`,
+//    temporal_bwd.cu): q multiplied by 1/sqrt(D) before it is rounded, the
+//    logits then only carry log2(e), as the TPU's training kernel scales q
+//    before its DEFAULT dot (pallas_temporal_bwd.py:420-426).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -109,15 +113,15 @@ constexpr int attn_min_blocks(int warps) {
 
 // Q·Kᵀ over the 8 columns kk of D: the warp's 16 query rows (qw) against
 // every 8-key step, into the logit fragments s (3xTF32; BF16: one pass on
-// the operands rounded to bf16).
-template <int NT, bool BF16>
+// the operands rounded to bf16; QS: q multiplied by qmul before rounding).
+template <int NT, bool BF16, bool QS = false>
 __device__ __forceinline__ void qk_step(float (&s)[NT][4], const float* qw, const float* ks,
-                                        int pq, int kk, int nt, int g, int t) {
+                                        int pq, int kk, int nt, int g, int t, float qmul = 1.f) {
   const float2 qa = *reinterpret_cast<const float2*>(qw + g * pq + 8 * kk + 2 * t);
   const float2 qb = *reinterpret_cast<const float2*>(qw + (g + 8) * pq + 8 * kk + 2 * t);
   if constexpr (BF16) {
-    const uint32_t ab[4] = {bf16_round(qa.x), bf16_round(qb.x), bf16_round(qa.y),
-                            bf16_round(qb.y)};
+    const auto q = [&](float v) { return bf16_round(QS ? v * qmul : v); };
+    const uint32_t ab[4] = {q(qa.x), q(qb.x), q(qa.y), q(qb.y)};
 #pragma unroll
     for (int j = 0; j < NT; ++j) {
       if (j < nt) {
@@ -149,13 +153,15 @@ __device__ __forceinline__ void qk_step(float (&s)[NT][4], const float* qw, cons
 // NT: the most 8-key steps the instantiation holds in registers (S <= 8·NT,
 // so at most (NT+1)/2 warps); CW: 8-column steps of D per pass of P·V (the
 // context accumulators in registers), D <= 8·CW in one pass; BF16: the bf16
-// mode (the note at the top).
-template <int NT, int CW, bool BF16>
+// mode, QS its training variant (the note at the top: `scale` is then q's
+// factor 1/sqrt(D), and the logits take log2(e) alone).
+template <int NT, int CW, bool BF16, bool QS = false>
 __global__ void __launch_bounds__((NT + 1) / 2 * 32, attn_min_blocks((NT + 1) / 2))
 head_attention_tc_kernel(const float* __restrict__ q_base, const float* __restrict__ k_base,
                          const float* __restrict__ v_base, int row_stride,
                          const float* __restrict__ key_mask, float* __restrict__ out,
                          int n, int c, int heads, float scale, bool vec) {
+  static_assert(BF16 || !QS, "q's rounding after its scale is a bf16 mode");
   extern __shared__ float4 attn_smem[];  // 16-byte aligned for cp.async
   float* sm = reinterpret_cast<float*>(attn_smem);
   const int d = c / heads, dp = (d + 7) & ~7, dk = dp / 8;
@@ -192,20 +198,21 @@ head_attention_tc_kernel(const float* __restrict__ q_base, const float* __restri
 #pragma unroll
   for (int kk = 0; kk < CW; ++kk) {
     if (kk >= dk) break;
-    qk_step<NT, BF16>(s, qw, ks, pq, kk, nt, g, t);
+    qk_step<NT, BF16, QS>(s, qw, ks, pq, kk, nt, g, t, scale);
   }
-  for (int kk = CW; kk < dk; ++kk) qk_step<NT, BF16>(s, qw, ks, pq, kk, nt, g, t);
+  for (int kk = CW; kk < dk; ++kk) qk_step<NT, BF16, QS>(s, qw, ks, pq, kk, nt, g, t, scale);
 
   // softmax over each row in registers: a row's 8·nt keys sit in one quad
+  const float ls = QS ? ATTN_LOG2E : scale;  // QS: the scale is in q already
   float mx0 = -INFINITY, mx1 = -INFINITY;
 #pragma unroll
   for (int j = 0; j < NT; ++j) {
     if (j < nt) {
       const float m0 = mk[8 * j + 2 * t], m1 = mk[8 * j + 2 * t + 1];
-      s[j][0] = s[j][0] * scale + m0;
-      s[j][1] = s[j][1] * scale + m1;
-      s[j][2] = s[j][2] * scale + m0;
-      s[j][3] = s[j][3] * scale + m1;
+      s[j][0] = s[j][0] * ls + m0;
+      s[j][1] = s[j][1] * ls + m1;
+      s[j][2] = s[j][2] * ls + m0;
+      s[j][3] = s[j][3] * ls + m1;
       mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
       mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
     }
@@ -297,12 +304,12 @@ head_attention_tc_kernel(const float* __restrict__ q_base, const float* __restri
   }
 }
 
-template <int NT, int CW, bool BF16>
+template <int NT, int CW, bool BF16, bool QS>
 cudaError_t launch_head_attention_tc(const float* q, const float* k, const float* v,
                                      int row_stride, const float* key_mask, float* out,
                                      int seqs, int n, int c, int heads, size_t smem,
                                      int threads, bool vec, cudaStream_t stream) {
-  auto kernel = head_attention_tc_kernel<NT, CW, BF16>;
+  auto kernel = head_attention_tc_kernel<NT, CW, BF16, QS>;
   if (smem > 48 * 1024) {
     int dev = 0, optin = 0;
     cudaGetDevice(&dev);
@@ -312,13 +319,16 @@ cudaError_t launch_head_attention_tc(const float* q, const float* k, const float
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
+  // QS: q's factor, fp32(1/sqrt(D)) rounded once from double as the TPU
+  // kernel's np.float32 constant
+  const float scale = QS ? (float)(1.0 / sqrt((double)(c / heads)))
+                         : ATTN_LOG2E / sqrtf((float)(c / heads));
   kernel<<<(unsigned)seqs * heads, threads, smem, stream>>>(
-      q, k, v, row_stride, key_mask, out, n, c, heads,
-      ATTN_LOG2E / sqrtf((float)(c / heads)), vec);
+      q, k, v, row_stride, key_mask, out, n, c, heads, scale, vec);
   return cudaGetLastError();
 }
 
-template <int CW, bool BF16>
+template <int CW, bool BF16, bool QS>
 cudaError_t launch_head_attention_nt(const float* q, const float* k, const float* v,
                                      int row_stride, const float* key_mask, float* out,
                                      int seqs, int n, int c, int heads, size_t smem,
@@ -326,8 +336,9 @@ cudaError_t launch_head_attention_nt(const float* q, const float* k, const float
   const int nt = (n + 7) / 8;
 #define UU_ATTN_CASE(NT_)                                                                   \
   if (nt <= NT_)                                                                            \
-    return launch_head_attention_tc<NT_, CW, BF16>(q, k, v, row_stride, key_mask, out, seqs, \
-                                                   n, c, heads, smem, threads, vec, stream);
+    return launch_head_attention_tc<NT_, CW, BF16, QS>(q, k, v, row_stride, key_mask, out,  \
+                                                       seqs, n, c, heads, smem, threads, vec, \
+                                                       stream);
   UU_ATTN_CASE(3)
   UU_ATTN_CASE(6)
   UU_ATTN_CASE(9)
@@ -337,9 +348,10 @@ cudaError_t launch_head_attention_nt(const float* q, const float* k, const float
   return cudaErrorInvalidValue;
 }
 
-// Attention on `seqs` sequences of n <= 128 tokens (BF16: the bf16 mode);
-// returns the launch's error (shared memory above 48 KB is opted into first).
-template <bool BF16 = false>
+// Attention on `seqs` sequences of n <= 128 tokens (BF16: the bf16 mode, QS
+// its training variant); returns the launch's error (shared memory above
+// 48 KB is opted into first).
+template <bool BF16 = false, bool QS = false>
 inline cudaError_t launch_head_attention(const float* q, const float* k, const float* v,
                                          int row_stride, const float* key_mask, float* out,
                                          int seqs, int n, int c, int heads,
@@ -354,15 +366,15 @@ inline cudaError_t launch_head_attention(const float* q, const float* k, const f
   const bool vec = aligned(q) && aligned(k) && aligned(v) && row_stride % 4 == 0 && d % 4 == 0;
   const int threads = warps * 32;
   if (dk <= 2)
-    return launch_head_attention_nt<2, BF16>(q, k, v, row_stride, key_mask, out, seqs, n, c,
+    return launch_head_attention_nt<2, BF16, QS>(q, k, v, row_stride, key_mask, out, seqs, n, c,
                                              heads, smem, threads, vec, stream);
   if (dk <= 4)
-    return launch_head_attention_nt<4, BF16>(q, k, v, row_stride, key_mask, out, seqs, n, c,
+    return launch_head_attention_nt<4, BF16, QS>(q, k, v, row_stride, key_mask, out, seqs, n, c,
                                              heads, smem, threads, vec, stream);
   if (dk <= 6)
-    return launch_head_attention_nt<6, BF16>(q, k, v, row_stride, key_mask, out, seqs, n, c,
+    return launch_head_attention_nt<6, BF16, QS>(q, k, v, row_stride, key_mask, out, seqs, n, c,
                                              heads, smem, threads, vec, stream);
-  return launch_head_attention_nt<8, BF16>(q, k, v, row_stride, key_mask, out, seqs, n, c,
+  return launch_head_attention_nt<8, BF16, QS>(q, k, v, row_stride, key_mask, out, seqs, n, c,
                                            heads, smem, threads, vec, stream);
 }
 

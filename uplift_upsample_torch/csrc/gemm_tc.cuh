@@ -21,7 +21,10 @@
 //    to bf16 (tf32.cuh bf16_round) as it leaves shared memory, and each
 //    8-deep step is one wgmma on the plane instead of three; the producer
 //    loads no small half. A simple instance: one TF32 pass on operands that
-//    bf16 holds exactly, so the stages keep fp32 tiles at TF32's rate.
+//    bf16 holds exactly, so the stages keep fp32 tiles at TF32's rate. With
+//    A read as TmaAScaled (the backward's dX in training) each row of A is
+//    multiplied by its factor before the rounding, as the TPU rounds the
+//    droppath-scaled gradient (`launch_gemm_tc_scaled`).
 //
 //    Design: persistent, one block per SM walking 128 x 128 output tiles in
 //    order, n fastest (the blocks running together share A tiles, so A
@@ -76,7 +79,9 @@
 //    sum cost ~15x the plain version's error). Two blocks per SM; the caller
 //    picks the split count for about one wave (ops/temporal_train.py). X is
 //    read through a functor, so the conv's dWc = Tᵀ·g gathers its taps
-//    (conv_taps.cuh) the way the dense dW reads a matrix.
+//    (conv_taps.cuh) the way the dense dW reads a matrix. The bf16 mode
+//    (kBf16): X and s ⊙ dY rounded to bf16 as they leave shared memory, one
+//    TF32 product per 8-deep step into the fresh partial.
 #pragma once
 
 
@@ -187,6 +192,27 @@ struct TmaA {
   static constexpr bool kGather = false;
 };
 
+// A read by TMA through map_a, each row r multiplied by scale[r /
+// rows_per_scale] (1 without a scale) as it leaves shared memory; the bf16
+// mode only.
+struct TmaAScaled {
+  static constexpr bool kGather = false;
+  const float* scale;
+  int rows_per_scale;
+  __device__ __forceinline__ float factor(int row, int m) const {
+    return scale && row < m ? scale[row / rows_per_scale] : 1.f;
+  }
+};
+
+template <class ASrc>
+struct RowScaled {
+  static constexpr bool value = false;
+};
+template <>
+struct RowScaled<TmaAScaled> {
+  static constexpr bool value = true;
+};
+
 // map_w holds W's big half in rows [0, n) and its small half in rows
 // [w_small, w_small + n) (kBf16: the bf16 plane in rows [0, n), no small
 // half); A comes through map_a (ASrc = TmaA) or through the gather `a_at`
@@ -277,12 +303,18 @@ gemm_tc_kernel(const __grid_constant__ CUtensorMap map_a,
   }
 
   // consumers: warpgroup cw owns rows 64cw..64cw+63 of each tile
+  static_assert(kBf16 || !RowScaled<ASrc>::value, "A's row factors are a bf16-mode input");
   const int cw = threadIdx.x / 128 - 1, tid = threadIdx.x % 128;
   const int warp = tid / 32, lane = tid % 32, g = lane >> 2, t = lane & 3;
   const int r = cw * 64 + warp * 16 + g;  // this thread's rows r and r + 8 (r % 8 == g)
   uint32_t it = 0;
   for (int tile = blockIdx.x; tile < tile_count; tile += gridDim.x) {
     const int n0 = (tile % tiles_n) * TC_BN, m0 = (tile / tiles_n) * TC_BM;
+    float fr0 = 1.f, fr1 = 1.f;  // the rows' factors (TmaAScaled)
+    if constexpr (RowScaled<ASrc>::value) {
+      fr0 = a_at.factor(m0 + r, m);
+      fr1 = a_at.factor(m0 + r + 8, m);
+    }
     float acc[64];
 #pragma unroll
     for (int i = 0; i < 64; ++i) acc[i] = 0.f;
@@ -300,7 +332,12 @@ gemm_tc_kernel(const __grid_constant__ CUtensorMap map_a,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int lo = ((2 * j) ^ g) * 4 + t, hi = ((2 * j + 1) ^ g) * 4 + t;
-        if constexpr (kBf16) {
+        if constexpr (kBf16 && RowScaled<ASrc>::value) {
+          a_big[j][0] = bf16_round(at[r * 32 + lo] * fr0);
+          a_big[j][1] = bf16_round(at[(r + 8) * 32 + lo] * fr1);
+          a_big[j][2] = bf16_round(at[r * 32 + hi] * fr0);
+          a_big[j][3] = bf16_round(at[(r + 8) * 32 + hi] * fr1);
+        } else if constexpr (kBf16) {
           a_big[j][0] = bf16_round(at[r * 32 + lo]);
           a_big[j][1] = bf16_round(at[(r + 8) * 32 + lo]);
           a_big[j][2] = bf16_round(at[r * 32 + hi]);
@@ -470,6 +507,21 @@ inline cudaError_t launch_gemm_tc(const float* a, const float* halves, int m, in
                           stream);
 }
 
+// launch_gemm_tc<true> with row r of A multiplied by scale[r / rows_per_scale]
+// (scale may be null: 1) before its rounding to bf16.
+template <class Epilogue>
+inline cudaError_t launch_gemm_tc_scaled(const float* a, const float* plane, int m, int n,
+                                         int k, const float* scale, int rows_per_scale,
+                                         Epilogue epi, cudaStream_t stream) {
+  if (m <= 0 || k <= 0 || k % 4 != 0 || reinterpret_cast<uintptr_t>(a) % 16 ||
+      (scale && rows_per_scale <= 0))
+    return cudaErrorInvalidValue;
+  CUtensorMap map_a;
+  if (!make_tile_map(&map_a, a, m, k, TC_BM)) return cudaErrorInvalidValue;
+  return launch_tc<true>(map_a, TmaAScaled{scale, rows_per_scale}, plane, n, m, n, k, epi,
+                         stream);
+}
+
 // out = epi(A · B) with A (m, k) read through the gather `a_at` (a ConvTaps,
 // conv_taps.cuh) and halves (2, n, k) (kBf16: the bf16 plane (n, k)).
 template <bool kBf16 = false, class Epilogue, class Gather>
@@ -498,7 +550,7 @@ struct DenseRows {
 
 // x_at(row, col): a pointer to X[row, col..col+3], or nullptr where X is
 // zero (DenseRows, or the conv's taps: ConvTaps, conv_taps.cuh).
-template <class XSrc>
+template <class XSrc, bool kBf16>
 __global__ void __launch_bounds__(AB_THREADS, 2)
 gemm_atb_kernel(XSrc x_at, const float* __restrict__ dy,
                 const float* __restrict__ scale, int rows_per_scale, float* __restrict__ part,
@@ -559,6 +611,31 @@ gemm_atb_kernel(XSrc x_at, const float* __restrict__ dy,
     for (int k8 = 0; k8 < AB_BK / 8; ++k8) {
       const int lo = k8 * 8 + t, hi = lo + 4;  // the fragments' rows of X and dY
       const float s_lo = sc[lo], s_hi = sc[hi];
+      if constexpr (kBf16) {  // one product of the rounded operands a step
+        uint32_t b_r[4][2];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int col = wn * 32 + j * 8 + g;
+          b_r[j][0] = bf16_round(ys[lo * AB_LD + col] * s_lo);
+          b_r[j][1] = bf16_round(ys[hi * AB_LD + col] * s_hi);
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int row = wm * 64 + i * 16 + g;
+          const uint32_t a_r[4] = {bf16_round(xs[lo * AB_LD + row]),
+                                   bf16_round(xs[lo * AB_LD + row + 8]),
+                                   bf16_round(xs[hi * AB_LD + row]),
+                                   bf16_round(xs[hi * AB_LD + row + 8])};
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            float part[4] = {0.f, 0.f, 0.f, 0.f};
+            mma_tf32(part, a_r, b_r[j]);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[i][j][e] += part[e];
+          }
+        }
+        continue;
+      }
       uint32_t b_big[4][2], b_small[4][2];
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
@@ -610,8 +687,9 @@ gemm_atb_kernel(XSrc x_at, const float* __restrict__ dy,
 // part (splits, m, n): chunk z of Xᵀ · (dY * scale[row / rows_per_scale])
 // over rows [z·k_split, (z+1)·k_split), k_split a multiple of 32; X (rows,
 // m) through x_at (DenseRows, 16-byte aligned, or the conv's ConvTaps), dY
-// (rows, n) row-major, 16-byte aligned; m and n multiples of 4.
-template <class XSrc>
+// (rows, n) row-major, 16-byte aligned; m and n multiples of 4. kBf16: the
+// bf16 mode (X and the scaled dY rounded to bf16).
+template <bool kBf16 = false, class XSrc>
 inline cudaError_t launch_gemm_atb(XSrc x_at, const float* dy, const float* scale,
                                    int rows_per_scale, float* part, int m, int n, int rows,
                                    int splits, cudaStream_t stream) {
@@ -622,11 +700,12 @@ inline cudaError_t launch_gemm_atb(XSrc x_at, const float* dy, const float* scal
   int k_split = (rows + splits - 1) / splits;
   k_split = (k_split + AB_BK - 1) / AB_BK * AB_BK;
   const cudaError_t err = cudaFuncSetAttribute(
-      gemm_atb_kernel<XSrc>, cudaFuncAttributeMaxDynamicSharedMemorySize, AB_SMEM_BYTES);
+      gemm_atb_kernel<XSrc, kBf16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      AB_SMEM_BYTES);
   if (err != cudaSuccess) return err;
   const dim3 grid((n + AB_BN - 1) / AB_BN, (m + AB_BM - 1) / AB_BM, splits);
-  gemm_atb_kernel<<<grid, AB_THREADS, AB_SMEM_BYTES, stream>>>(x_at, dy, scale, rows_per_scale,
-                                                               part, m, n, rows, k_split);
+  gemm_atb_kernel<XSrc, kBf16><<<grid, AB_THREADS, AB_SMEM_BYTES, stream>>>(
+      x_at, dy, scale, rows_per_scale, part, m, n, rows, k_split);
   return cudaGetLastError();
 }
 

@@ -69,6 +69,27 @@
 //  - Padded rows (the 9 after 119, and the frames after F in the last tile)
 //    carry a row factor of 0 into every gradient sum, and the gradient
 //    flowing down the residual stream is kept 0 there.
+//
+// The bf16 rung (`spatial_bwd_bf16`, TRAIN_MATMUL_PRECISION "default"; the
+// JAX kernel's fwd_dot / grad_dot at DEFAULT, pallas_spatial_bwd.py:42-95):
+// the same kernel with BF16. The weights are staged rounded to bf16 (no
+// small half), and every product takes bf16-rounded operands, one TF32
+// product per pair with fp32 sums:
+//  - the forward replay and the recompute run as K1's bf16 instance does
+//    (one running sum per output, A rounded as it is read, the embedding's
+//    operands rounded), so the activations it replays are K1's; the
+//    backward's LN2 takes the replay's statistics (ln_stats), so the
+//    rounded operands it recomputes are the replay's too;
+//  - dX = round(s . dY) . round(W)^T: the droppath factor multiplies dY
+//    before the rounding (1/keep is no power of two), where the 3xTF32
+//    instance scales the product; dW = round(X)^T . round(s . dY); the
+//    embedding's dW and dx round x, dY and emb_w;
+//  - the scale gradients need sum(dY . branch) with the branch's product on
+//    rounded operands: sum(round(X) . (dY . round(W)^T)), its dY . W^T at
+//    fp32 level from the 3xTF32 routine on the rounded plane (a second
+//    product of fc2's and proj's backward).
+// The 17-token attention, the LayerNorms, the gelu and every sum stay fp32,
+// as in K1's bf16 instance (the TPU computes that attention on the VPU).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -90,6 +111,18 @@ using sp::WARPS;
 
 constexpr float INV_SQRT2 = 0.70710678118654752f;
 constexpr float INV_SQRT_2PI = 0.39894228040143268f;
+
+// x as an operand of a tensor-core product: TF32 halves, or rounded to bf16
+// with no small half (BF16).
+template <bool BF16>
+__device__ __forceinline__ void split(float x, uint32_t& big, uint32_t& small) {
+  if constexpr (BF16) {
+    big = uu::bf16_round(x);
+    small = 0u;
+  } else {
+    uu::tf32_split(x, big, small);
+  }
+}
 
 // gelu(h) = h * Phi(h) and its derivative Phi(h) + h * phi(h), one erff.
 __device__ __forceinline__ float gelu_and_grad(float h, float* grad) {
@@ -118,7 +151,8 @@ struct Tile : sp::Pitch<C> {
 // which share X's fragments, spread over the warps. The warps of the first
 // m16 tile also add the bias gradient, *bias(o) += sum over r of dy(r, o) *
 // f[r], from the same values (per lane in row order, then over the quad).
-template <int CIN, int N, class X, class Y, class Out, class Bias>
+// BF16: x and dy * f rounded to bf16, one TF32 product a step.
+template <int CIN, int N, bool BF16 = false, class X, class Y, class Out, class Bias>
 __device__ __forceinline__ void tile_dw(X x_at, Y dy_at, const float* f, Out out, Bias bias) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
   constexpr int NP = N / 16, PAIRS = CIN / 16 * NP;  // two n8 tiles beside each other
@@ -139,20 +173,23 @@ __device__ __forceinline__ void tile_dw(X x_at, Y dy_at, const float* f, Out out
     for (int s = 0; s < R / 8; ++s) {
       const int ra = 8 * s + 2 * t, rb = ra + 1;  // A column t <-> row ra, t+4 <-> rb
       uint32_t ab[4], as[4];
-      uu::tf32_split(x_at(ra, i), ab[0], as[0]);
-      uu::tf32_split(x_at(ra, i + 8), ab[1], as[1]);
-      uu::tf32_split(x_at(rb, i), ab[2], as[2]);
-      uu::tf32_split(x_at(rb, i + 8), ab[3], as[3]);
+      split<BF16>(x_at(ra, i), ab[0], as[0]);
+      split<BF16>(x_at(ra, i + 8), ab[1], as[1]);
+      split<BF16>(x_at(rb, i), ab[2], as[2]);
+      split<BF16>(x_at(rb, i + 8), ab[3], as[3]);
       const float fa = f[ra], fb = f[rb];
 #pragma unroll
       for (int u = 0; u < 2; ++u) {
         const float ya = dy_at(ra, o0 + 8 * u) * fa, yb = dy_at(rb, o0 + 8 * u) * fb;
         bsum[u] += ya + yb;
         uint32_t bb[2], bs[2];
-        uu::tf32_split(ya, bb[0], bs[0]);
-        uu::tf32_split(yb, bb[1], bs[1]);
+        split<BF16>(ya, bb[0], bs[0]);
+        split<BF16>(yb, bb[1], bs[1]);
         float part[4] = {0.f, 0.f, 0.f, 0.f};
-        uu::mma_3xtf32(part, ab, as, bb, bs);
+        if constexpr (BF16)
+          uu::mma_tf32(part, ab, bb);
+        else
+          uu::mma_3xtf32(part, ab, as, bb, bs);
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[u][e] += part[e];
       }
@@ -379,7 +416,7 @@ __host__ __device__ constexpr int small_floats(int blocks) {
   return Layout<C>::BLOCKS + 2 * C + 11 * C * blocks;
 }
 
-template <int C>
+template <int C, bool BF16>
 __global__ void __launch_bounds__(THREADS, 1)
 spatial_bwd_tc_kernel(const float* __restrict__ x, const float* __restrict__ gout,
                       const float* __restrict__ scales, const float* __restrict__ w,
@@ -465,7 +502,7 @@ spatial_bwd_tc_kernel(const float* __restrict__ x, const float* __restrict__ gou
   auto stage = [&](int blk, int f0) {
     sp::BlockWeights<C, THREADS> bwts;
     bwts.load(w + L::BLOCKS + blk * L::BLOCK, threadIdx.x);
-    bwts.store(WQKV);
+    bwts.template store<BF16>(WQKV);  // BF16: rounded, the small halves stay 0
     for (int r = threadIdx.x; r < R; r += THREADS) {
       const bool on = rowf[r] > 0.f;
       s1r[r] = on ? scales[(size_t)(2 * blk) * frames + f0 + r / P] : 0.f;
@@ -495,8 +532,9 @@ spatial_bwd_tc_kernel(const float* __restrict__ x, const float* __restrict__ gou
     sp::ln_stats<C>(XS, mu1, rs1, 1e-5f);
     __syncthreads();
     if (replay) {  // the replay: the attention, its context kept in the scratch
-      sp::rows_gemm<C, C3>(ln1_at(XS, bw), [&](int k, int n) { return WQKV + k * T::W3 + n; },
-                           T::WEIGHTS,
+      sp::rows_gemm<C, C3, !BF16, BF16>(ln1_at(XS, bw),
+                                        [&](int k, int n) { return WQKV + k * T::W3 + n; },
+                                        T::WEIGHTS,
                            [&](int r, int n, float v) {
                              QKV_A[r * P3 + n] = v + qkv_bias(bw, n);
                              return 0.f;
@@ -507,7 +545,7 @@ spatial_bwd_tc_kernel(const float* __restrict__ x, const float* __restrict__ gou
       __syncthreads();
       save(ctxg + (size_t)blk * R * C, CTX);
     }  // the backward: CTX restored from the replay's context by the caller
-    sp::rows_gemm<C, C>([&](int r, int k) { return CTX[r * PC + k]; },
+    sp::rows_gemm<C, C, !BF16, BF16>([&](int r, int k) { return CTX[r * PC + k]; },
                         [&](int k, int n) { return WP + k * T::WC + n; }, T::WEIGHTS,
                         [&](int r, int n, float v) {
                           XS[r * PC + n] += s1r[r] * (v + bw[L::BP + n]);
@@ -519,7 +557,7 @@ spatial_bwd_tc_kernel(const float* __restrict__ x, const float* __restrict__ gou
     if (replay) {  // the replay: X2 stays, the residual of fc2
       sp::ln_stats<C>(XS, mu2, rs2, 1e-5f);
       __syncthreads();
-      sp::rows_gemm<C, HID>(
+      sp::rows_gemm<C, HID, !BF16, BF16>(
           [&](int r, int k) {
             return (XS[r * PC + k] - mu2[r]) * rs2[r] * bw[L::LN2_G + k] + bw[L::LN2_B + k];
           },
@@ -530,9 +568,17 @@ spatial_bwd_tc_kernel(const float* __restrict__ x, const float* __restrict__ gou
           },
           nullptr);
     } else {  // the backward: X2 normalised in place (xhat2), read by fc1, dW1, LN2'
-      ln_normalize<C>(XS, rs2, 1e-5f);
+      if constexpr (BF16) {
+        // the replay's statistics: LN2's output, rounded for fc1 and dW1, is
+        // then the replay's, as the plain version's backward reads its forward's
+        sp::ln_stats<C>(XS, mu2, rs2, 1e-5f);
+        __syncthreads();
+        normalize(mu2, rs2);
+      } else {
+        ln_normalize<C>(XS, rs2, 1e-5f);
+      }
       __syncthreads();
-      sp::rows_gemm<C, HID>(
+      sp::rows_gemm<C, HID, !BF16, BF16>(
           [&](int r, int k) { return XS[r * PC + k] * bw[L::LN2_G + k] + bw[L::LN2_B + k]; },
           w1_at, T::WEIGHTS,
           [&](int r, int n, float v) {
@@ -562,10 +608,12 @@ spatial_bwd_tc_kernel(const float* __restrict__ x, const float* __restrict__ gou
     const float* xin = x + (size_t)f0 * P * 2;
     // ---- embedding + PE, the forward replay, checkpoints ---------------------
     for (int r = threadIdx.x; r < R; r += THREADS) rowf[r] = r < real ? 1.f : 0.f;
+    // BF16: the embedding's operands rounded, as K1's bf16 instance does
+    const auto op = [](float v) { return BF16 ? uu::bf16_roundf(v) : v; };
     for (int e = threadIdx.x; e < R * C; e += THREADS) {
       const int r = e / C, c = e % C;
-      XS[r * PC + c] = r < real ? fmaf(xin[2 * r], w[L::EMB_W + c],
-                                       fmaf(xin[2 * r + 1], w[L::EMB_W + C + c], 0.f)) +
+      XS[r * PC + c] = r < real ? fmaf(op(xin[2 * r]), op(w[L::EMB_W + c]),
+                                       fmaf(op(xin[2 * r + 1]), op(w[L::EMB_W + C + c]), 0.f)) +
                                       w[L::EMB_B + c] + w[L::PE + (r % P) * C + c]
                                 : 0.f;
     }
@@ -583,7 +631,7 @@ spatial_bwd_tc_kernel(const float* __restrict__ x, const float* __restrict__ gou
       stage(blk, f0);
       __syncthreads();
       front(blk, nf, true);
-      sp::rows_gemm<HID, C>([&](int r, int k) { return H1[r * PH + k]; },
+      sp::rows_gemm<HID, C, !BF16, BF16>([&](int r, int k) { return H1[r * PH + k]; },
                             [&](int k, int n) { return W2 + k * T::WC + n; }, T::WEIGHTS,
                             [&](int r, int n, float v) {
                               XS[r * PC + n] += s2r[r] * (v + bw[L::B2 + n]);
@@ -616,29 +664,51 @@ spatial_bwd_tc_kernel(const float* __restrict__ x, const float* __restrict__ gou
       front(blk, nf, false);
 
       // MLP branch: out = X2 + s2 * (gelu(H1) . W2 + b2)
-      sp::rows_gemm<C, HID>([&](int r, int k) { return DD[r * PC + k]; },
-                            [&](int k, int n) { return W2 + n * T::WC + k; }, T::WEIGHTS,
-                            [&](int r, int n, float u) {
-                              float grad;
-                              const float a = gelu_and_grad(H1[r * PH + n], &grad);
-                              H1[r * PH + n] = a;  // gelu(H1) from here on
-                              DH1[r * PH + n] = s2r[r] * u * grad;
-                              return a * u;
-                            },
-                            rsum);
+      const auto w2t_at = [&](int k, int n) { return W2 + n * T::WC + k; };
+      if constexpr (BF16) {
+        // u = dY . round(W2)^T at fp32 level (the plane's small halves are
+        // 0) for the scale gradient over fc2's rounded operand, then dH1
+        // from round(s2 . dY)
+        sp::rows_gemm<C, HID>([&](int r, int k) { return DD[r * PC + k]; }, w2t_at, T::WEIGHTS,
+                              [&](int r, int n, float u) {
+                                float grad;
+                                const float a = gelu_and_grad(H1[r * PH + n], &grad);
+                                H1[r * PH + n] = a;  // gelu(H1) from here on
+                                DH1[r * PH + n] = grad;
+                                return uu::bf16_roundf(a) * u;
+                              },
+                              rsum);
+        sp::rows_gemm<C, HID, false, true>(
+            [&](int r, int k) { return DD[r * PC + k] * s2r[r]; }, w2t_at, T::WEIGHTS,
+            [&](int r, int n, float v) {
+              DH1[r * PH + n] *= v;
+              return 0.f;
+            },
+            nullptr);
+      } else {
+        sp::rows_gemm<C, HID>([&](int r, int k) { return DD[r * PC + k]; }, w2t_at, T::WEIGHTS,
+                              [&](int r, int n, float u) {
+                                float grad;
+                                const float a = gelu_and_grad(H1[r * PH + n], &grad);
+                                H1[r * PH + n] = a;  // gelu(H1) from here on
+                                DH1[r * PH + n] = s2r[r] * u * grad;
+                                return a * u;
+                              },
+                              rsum);
+      }
       __syncthreads();
       frame_rows(DD, bw + L::B2, 2 * blk + 1);
-      tile_dw<HID, C>([&](int r, int i) { return H1[r * PH + i]; },
-                      [&](int r, int o) { return DD[r * PC + o]; }, s2r,
-                      [&](int i, int o) { return gb + L::W2 + i * C + o; },
-                      [&](int o) { return sgb + 10 * C + o; });
-      tile_dw<C, HID>(
+      tile_dw<HID, C, BF16>([&](int r, int i) { return H1[r * PH + i]; },
+                            [&](int r, int o) { return DD[r * PC + o]; }, s2r,
+                            [&](int i, int o) { return gb + L::W2 + i * C + o; },
+                            [&](int o) { return sgb + 10 * C + o; });
+      tile_dw<C, HID, BF16>(
           [&](int r, int i) { return XS[r * PC + i] * bw[L::LN2_G + i] + bw[L::LN2_B + i]; },
           [&](int r, int o) { return DH1[r * PH + o]; }, rowf,
           [&](int i, int o) { return gb + L::W1 + i * HID + o; },
           [&](int o) { return sgb + 8 * C + o; });
       __syncthreads();  // dZ goes over gelu(H1)
-      sp::rows_gemm<HID, C>([&](int r, int k) { return DH1[r * PH + k]; },
+      sp::rows_gemm<HID, C, !BF16, BF16>([&](int r, int k) { return DH1[r * PH + k]; },
                             [&](int k, int n) { return W1 + n * T::WH + k; }, T::WEIGHTS,
                             [&](int r, int n, float v) {
                               DZ[r * PC + n] = v;
@@ -652,24 +722,40 @@ spatial_bwd_tc_kernel(const float* __restrict__ x, const float* __restrict__ gou
       // attention branch: X2 = x0 + s1 * (CTX . Wp + bp); x0 comes back
       // while dWp and dCTX run
       restore(XS, ck + (size_t)blk * R * C);
-      tile_dw<C, C>([&](int r, int i) { return CTX[r * PC + i]; },
-                    [&](int r, int o) { return DD[r * PC + o]; }, s1r,
-                    [&](int i, int o) { return gb + L::WP + i * C + o; },
-                    [&](int o) { return sgb + 5 * C + o; });
+      tile_dw<C, C, BF16>([&](int r, int i) { return CTX[r * PC + i]; },
+                          [&](int r, int o) { return DD[r * PC + o]; }, s1r,
+                          [&](int i, int o) { return gb + L::WP + i * C + o; },
+                          [&](int o) { return sgb + 5 * C + o; });
       __syncthreads();  // dCTX goes over CTX
-      sp::rows_gemm<C, C>([&](int r, int k) { return DD[r * PC + k]; },
-                          [&](int k, int n) { return WP + n * T::WC + k; }, T::WEIGHTS,
-                          [&](int r, int n, float u) {
-                            const float ctx = CTX[r * PC + n];
-                            CTX[r * PC + n] = s1r[r] * u;  // dCTX
-                            return ctx * u;
-                          },
-                          rsum);
+      const auto wpt_at = [&](int k, int n) { return WP + n * T::WC + k; };
+      if constexpr (BF16) {  // as fc2's: the scale gradient, then round(s1 . dY) . round(Wp)^T
+        sp::rows_gemm<C, C>([&](int r, int k) { return DD[r * PC + k]; }, wpt_at, T::WEIGHTS,
+                            [&](int r, int n, float u) {
+                              return uu::bf16_roundf(CTX[r * PC + n]) * u;
+                            },
+                            rsum);
+        sp::rows_gemm<C, C, false, true>(
+            [&](int r, int k) { return DD[r * PC + k] * s1r[r]; }, wpt_at, T::WEIGHTS,
+            [&](int r, int n, float v) {
+              CTX[r * PC + n] = v;  // dCTX
+              return 0.f;
+            },
+            nullptr);
+      } else {
+        sp::rows_gemm<C, C>([&](int r, int k) { return DD[r * PC + k]; }, wpt_at, T::WEIGHTS,
+                            [&](int r, int n, float u) {
+                              const float ctx = CTX[r * PC + n];
+                              CTX[r * PC + n] = s1r[r] * u;  // dCTX
+                              return ctx * u;
+                            },
+                            rsum);
+      }
       __syncthreads();
       frame_rows(DD, bw + L::BP, 2 * blk);
       wait_copies();
       __syncthreads();
-      sp::rows_gemm<C, C3>(ln1_at(XS, bw), [&](int k, int n) { return WQKV + k * T::W3 + n; },
+      sp::rows_gemm<C, C3, !BF16, BF16>(ln1_at(XS, bw),
+                                        [&](int k, int n) { return WQKV + k * T::W3 + n; },
                            T::WEIGHTS,
                            [&](int r, int n, float v) {
                              QKV_C[r * P3 + n] = v + qkv_bias(bw, n);
@@ -680,7 +766,7 @@ spatial_bwd_tc_kernel(const float* __restrict__ x, const float* __restrict__ gou
       normalize(mu1, rs1);  // xhat1, beside the attention's backward (no barrier)
       attention_bwd<C>(QKV_C, CTX, DQ, ST, nf, scale);
       __syncthreads();
-      tile_dw<C, C3>(
+      tile_dw<C, C3, BF16>(
           [&](int r, int i) { return XS[r * PC + i] * bw[L::LN1_G + i] + bw[L::LN1_B + i]; },
           dqkv, rowf,
           [&](int i, int o) {
@@ -689,7 +775,8 @@ spatial_bwd_tc_kernel(const float* __restrict__ x, const float* __restrict__ gou
           },
           [&](int o) { return sgb + 2 * C + o; });
       __syncthreads();  // dY goes over dq
-      sp::rows_gemm<C3, C>(dqkv, [&](int k, int n) { return WQKV + n * T::W3 + k; }, T::WEIGHTS,
+      sp::rows_gemm<C3, C, !BF16, BF16>(dqkv, [&](int k, int n) { return WQKV + n * T::W3 + k; },
+                                        T::WEIGHTS,
                            [&](int r, int n, float v) {
                              DY[r * PC + n] = v;
                              return 0.f;
@@ -710,14 +797,14 @@ spatial_bwd_tc_kernel(const float* __restrict__ x, const float* __restrict__ gou
                [&](int c) { return SG + L::EMB_B + c; }, red);
     colsum_add(2 * C,
                [&](int r, int c) {
-                 return r < real ? xin[2 * r + c / C] * DD[r * PC + c % C] : 0.f;
+                 return r < real ? op(xin[2 * r + c / C]) * op(DD[r * PC + c % C]) : 0.f;
                },
                [&](int c) { return SG + L::EMB_W + c; }, red);
     for (int r = threadIdx.x; r < real; r += THREADS) {
       float d0 = 0.f, d1 = 0.f;
       for (int c = 0; c < C; ++c) {
-        d0 = fmaf(DD[r * PC + c], w[L::EMB_W + c], d0);
-        d1 = fmaf(DD[r * PC + c], w[L::EMB_W + C + c], d1);
+        d0 = fmaf(op(DD[r * PC + c]), op(w[L::EMB_W + c]), d0);
+        d1 = fmaf(op(DD[r * PC + c]), op(w[L::EMB_W + C + c]), d1);
       }
       __stcs(dx + ((size_t)f0 * P + r) * 2, d0);  // streamed: read by no one here
       __stcs(dx + ((size_t)f0 * P + r) * 2 + 1, d1);
@@ -743,7 +830,7 @@ spatial_bwd_tc_kernel(const float* __restrict__ x, const float* __restrict__ gou
   }
 }
 
-template <int C>
+template <int C, bool BF16>
 cudaError_t launch(const float* x, const float* g, const float* scales, const float* params,
                    float* dx, float* ddp, float* partial, float* scratch, int frames,
                    int blocks, int workers, cudaStream_t stream) {
@@ -755,10 +842,10 @@ cudaError_t launch(const float* x, const float* g, const float* scales, const fl
     err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return err;
   if (smem > (size_t)optin) return cudaErrorInvalidValue;
-  err = cudaFuncSetAttribute(spatial_bwd_tc_kernel<C>,
+  err = cudaFuncSetAttribute(spatial_bwd_tc_kernel<C, BF16>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  spatial_bwd_tc_kernel<C><<<workers, THREADS, smem, stream>>>(
+  spatial_bwd_tc_kernel<C, BF16><<<workers, THREADS, smem, stream>>>(
       x, g, scales, params, dx, ddp, partial, scratch, frames, blocks,
       Layout<C>::params(blocks));
   return cudaGetLastError();
@@ -783,6 +870,24 @@ extern "C" int spatial_bwd_workers(int c, int depth, int blocks, int frames) {
 // Floats of checkpoint scratch spatial_bwd_f32 needs per gradient row.
 extern "C" int spatial_bwd_scratch_floats(int c, int blocks) { return (2 * blocks + 1) * R * c; }
 
+namespace {
+
+template <bool BF16>
+int bwd_entry(const float* x, const float* g, const float* scales, const float* params,
+              float* dx, float* ddp, float* partial, float* scratch, int frames, int c,
+              int depth, int blocks, int workers, void* stream) {
+  if (frames <= 0 || blocks < 0 || depth != 4 || workers <= 0) return cudaErrorInvalidValue;
+  if (c == 32)
+    return launch<32, BF16>(x, g, scales, params, dx, ddp, partial, scratch, frames, blocks,
+                            workers, (cudaStream_t)stream);
+  if (c == 16)
+    return launch<16, BF16>(x, g, scales, params, dx, ddp, partial, scratch, frames, blocks,
+                            workers, (cudaStream_t)stream);
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace
+
 // x (frames, 17, 2), g (frames, 17*c), scales (2*blocks, frames), params packed;
 // out: dx (frames, 17, 2), ddp (2*blocks, frames), partial (workers, n_params);
 // scratch (workers, spatial_bwd_scratch_floats) checkpoints.
@@ -790,14 +895,17 @@ extern "C" int spatial_bwd_f32(const float* x, const float* g, const float* scal
                                const float* params, float* dx, float* ddp, float* partial,
                                float* scratch, int frames, int c, int depth, int blocks,
                                int workers, void* stream) {
-  if (frames <= 0 || blocks < 0 || depth != 4 || workers <= 0) return cudaErrorInvalidValue;
-  if (c == 32)
-    return launch<32>(x, g, scales, params, dx, ddp, partial, scratch, frames, blocks, workers,
-                      (cudaStream_t)stream);
-  if (c == 16)
-    return launch<16>(x, g, scales, params, dx, ddp, partial, scratch, frames, blocks, workers,
-                      (cudaStream_t)stream);
-  return cudaErrorInvalidValue;
+  return bwd_entry<false>(x, g, scales, params, dx, ddp, partial, scratch, frames, c, depth,
+                          blocks, workers, stream);
+}
+
+// The bf16 rung (the note at the top): the same operands and outputs.
+extern "C" int spatial_bwd_bf16(const float* x, const float* g, const float* scales,
+                                const float* params, float* dx, float* ddp, float* partial,
+                                float* scratch, int frames, int c, int depth, int blocks,
+                                int workers, void* stream) {
+  return bwd_entry<true>(x, g, scales, params, dx, ddp, partial, scratch, frames, c, depth,
+                         blocks, workers, stream);
 }
 
 // out[c] = sum over r (in order) of part[r, c].

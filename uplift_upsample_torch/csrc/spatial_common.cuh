@@ -15,10 +15,10 @@
 // Every matrix is (in, out) row-major, the flax Dense layout. K4 writes its
 // parameter gradients in the same layout.
 //
-// The bf16 mode (rows_gemm's and BlockWeights::store's BF16, K1's bf16
-// instance only; K4 compiles without it): the staged weights are rounded to
-// bf16 instead of split, A is rounded as rows_gemm reads it, and each pair
-// of rounded operands takes one TF32 product (tf32.cuh), fp32 sums.
+// The bf16 mode (rows_gemm's and BlockWeights::store's BF16: K1's and K4's
+// bf16 instances): the staged weights are rounded to bf16 instead of split,
+// A is rounded as rows_gemm reads it, and each pair of rounded operands
+// takes one TF32 product (tf32.cuh), fp32 sums.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -72,9 +72,9 @@ __device__ __forceinline__ float gelu(float v) {
 // three products go into a fresh partial that joins the fp32 accumulators
 // with a rounded add (the tensor cores round toward zero as they accumulate);
 // else one running sum per output in the tensor cores, which meets the
-// float64 criterion for K <= 64 (tests/test_torch_spatial_tc.py). BF16 (K1's
-// running sums only): A rounded to bf16, b_at a staged weight already rounded
-// (no small half), one TF32 product per pair.
+// float64 criterion for K <= 64 (tests/test_torch_spatial_tc.py). BF16 (the
+// running sums only: K1's and K4's bf16 instances): A rounded to bf16, b_at a
+// staged weight already rounded (no small half), one TF32 product per pair.
 template <int K, int N, bool FRESH = true, bool BF16 = false, class A, class B, class Epi>
 __device__ __forceinline__ void rows_gemm(A a_at, B b_at, int small, Epi epi, float* rsum) {
   static_assert(!(BF16 && FRESH), "the bf16 mode keeps one running sum per output");

@@ -33,6 +33,16 @@
 // its slice; here only the selected rows are read and written. No float
 // atomics anywhere, so a second backward gives the same bits.
 //
+// The bf16 rung (TRAIN_MATMUL_PRECISION "default" and "mixed";
+// pallas_strided_bwd.py at DEFAULT): strided_dh1_bf16 (g and Wc's
+// bf16-rounded plane as stored, one TF32 pass: gemm_tc.cuh kBf16),
+// strided_dwc_bf16 (the taps and g rounded: gemm_atb_kernel kBf16) and
+// sum_rows_bf16, the PE's gradient as the sum over windows of the input
+// gradient rounded to bf16 (the TPU kernel takes it with a DEFAULT dot
+// against a one-hot matrix, pallas_strided_bwd.py:152). The TPU's conv is
+// three tap dots summed in fp32; one product over 3*hidden on the same
+// rounded operands is the same sum in another order.
+//
 // What bounds it: the GEMMs, operations. At 512 windows the backward's dense
 // and conv products are ~0.17 TFLOP (each of the conv's two 20.8 GFLOP, 0.126
 // ms in 3xTF32 at the 495 TFLOP/s TF32 peak); its attention backward runs on
@@ -73,6 +83,16 @@ __global__ void crop_residual_add_kernel(const float* __restrict__ g, float* __r
   dx2[((size_t)b * n + stride * t + res_off) * c + col] += g[i];
 }
 
+// out[c] = sum over r (in order) of part[r, c] rounded to bf16.
+__global__ void sum_rows_bf16_kernel(const float* __restrict__ part, float* __restrict__ out,
+                                     int rows, int cols) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= cols) return;
+  float s = 0.f;
+  for (int r = 0; r < rows; ++r) s += uu::bf16_roundf(part[(size_t)r * cols + c]);
+  out[c] = s;
+}
+
 bool geometry_ok(int windows, int n, int hidden, int c, int stride, int p0, int n_out) {
   if (windows <= 0 || n <= 0 || hidden <= 0 || c <= 0 || stride <= 0 || n_out <= 0 ||
       hidden % 4 || c % 4)
@@ -87,9 +107,11 @@ bool geometry_ok(int windows, int n, int hidden, int c, int stride, int p0, int 
 // of g (windows*n_out, c) times W_j^T, placed at the h1 row each tap read.
 // halves (2, 3*hidden, c): Wc's TF32 halves as stored (tf32_halves_f32 without
 // the transpose); dh1 must not alias h1.
-extern "C" int strided_dh1_f32(const float* g, const float* halves, const float* h1,
-                               float* dh1, int windows, int n, int hidden, int c, int stride,
-                               int p0, int n_out, void* stream) {
+namespace {
+
+template <bool kBf16>
+int dh1_entry(const float* g, const float* w, const float* h1, float* dh1, int windows, int n,
+              int hidden, int c, int stride, int p0, int n_out, void* stream) {
   if (!geometry_ok(windows, n, hidden, c, stride, p0, n_out) || dh1 == h1)
     return cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
@@ -98,15 +120,44 @@ extern "C" int strided_dh1_f32(const float* g, const float* halves, const float*
   if (err != cudaSuccess) return err;
   const int m = windows * n_out;
   if (stride >= 3)
-    return uu::launch_gemm_tc(g, halves, m, 3 * hidden, c,
-                              TapScatter{h1, dh1, n, n_out, hidden, stride, p0, 0, 0}, s);
-  for (int j = 0; j < 3; ++j) {  // tap j: rows j*hidden.. of each half
-    err = uu::launch_gemm_tc(g, halves + (size_t)j * hidden * c, m, hidden, c,
-                             TapScatter{h1, dh1, n, n_out, hidden, stride, p0, j, 1}, s,
-                             3 * hidden);
+    return uu::launch_gemm_tc<kBf16>(g, w, m, 3 * hidden, c,
+                                     TapScatter{h1, dh1, n, n_out, hidden, stride, p0, 0, 0},
+                                     s);
+  for (int j = 0; j < 3; ++j) {  // tap j: rows j*hidden.. of each half (kBf16: of the plane)
+    err = uu::launch_gemm_tc<kBf16>(g, w + (size_t)j * hidden * c, m, hidden, c,
+                                    TapScatter{h1, dh1, n, n_out, hidden, stride, p0, j, 1}, s,
+                                    3 * hidden);
     if (err != cudaSuccess) return err;
   }
   return cudaSuccess;
+}
+
+template <bool kBf16>
+int dwc_entry(const float* h1, const float* g, float* part, int windows, int n, int hidden,
+              int c, int stride, int p0, int n_out, int splits, void* stream) {
+  if (!geometry_ok(windows, n, hidden, c, stride, p0, n_out) ||
+      reinterpret_cast<uintptr_t>(h1) % 16)
+    return cudaErrorInvalidValue;
+  return uu::launch_gemm_atb<kBf16>(uu::ConvTaps{h1, windows, n, hidden, n_out, stride, p0}, g,
+                                    nullptr, 1, part, 3 * hidden, c, windows * n_out, splits,
+                                    (cudaStream_t)stream);
+}
+
+}  // namespace
+
+extern "C" int strided_dh1_f32(const float* g, const float* halves, const float* h1,
+                               float* dh1, int windows, int n, int hidden, int c, int stride,
+                               int p0, int n_out, void* stream) {
+  return dh1_entry<false>(g, halves, h1, dh1, windows, n, hidden, c, stride, p0, n_out,
+                          stream);
+}
+
+// strided_dh1_f32 on the bf16 rung: plane (3*hidden, c), Wc rounded to bf16
+// as stored; g rounded as it is read.
+extern "C" int strided_dh1_bf16(const float* g, const float* plane, const float* h1,
+                                float* dh1, int windows, int n, int hidden, int c, int stride,
+                                int p0, int n_out, void* stream) {
+  return dh1_entry<true>(g, plane, h1, dh1, windows, n, hidden, c, stride, p0, n_out, stream);
 }
 
 // part (splits, 3*hidden, c): chunk z of dWc = T^T . g over the selected rows;
@@ -114,12 +165,24 @@ extern "C" int strided_dh1_f32(const float* g, const float* halves, const float*
 extern "C" int strided_dwc_f32(const float* h1, const float* g, float* part, int windows,
                                int n, int hidden, int c, int stride, int p0, int n_out,
                                int splits, void* stream) {
-  if (!geometry_ok(windows, n, hidden, c, stride, p0, n_out) ||
-      reinterpret_cast<uintptr_t>(h1) % 16)
-    return cudaErrorInvalidValue;
-  return uu::launch_gemm_atb(uu::ConvTaps{h1, windows, n, hidden, n_out, stride, p0}, g,
-                             nullptr, 1, part, 3 * hidden, c, windows * n_out, splits,
-                             (cudaStream_t)stream);
+  return dwc_entry<false>(h1, g, part, windows, n, hidden, c, stride, p0, n_out, splits,
+                          stream);
+}
+
+// strided_dwc_f32 on the bf16 rung: the taps and g rounded to bf16.
+extern "C" int strided_dwc_bf16(const float* h1, const float* g, float* part, int windows,
+                                int n, int hidden, int c, int stride, int p0, int n_out,
+                                int splits, void* stream) {
+  return dwc_entry<true>(h1, g, part, windows, n, hidden, c, stride, p0, n_out, splits, stream);
+}
+
+// out[c] = sum over r (in order) of part[r, c] rounded to bf16: K6's PE
+// gradient on the bf16 rung (part the input gradient, one row per window).
+extern "C" int sum_rows_bf16(const float* part, float* out, int rows, int cols, void* stream) {
+  if (rows <= 0 || cols <= 0) return cudaErrorInvalidValue;
+  sum_rows_bf16_kernel<<<(cols + 255) / 256, 256, 0, (cudaStream_t)stream>>>(part, out, rows,
+                                                                            cols);
+  return cudaGetLastError();
 }
 
 // dx2[b, stride*t + res_off] += g[b, t] for the n_out selected rows t.

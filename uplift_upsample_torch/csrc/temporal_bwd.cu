@@ -35,6 +35,25 @@
 // W's halves split once per step when the operands are stacked (dX reads W
 // as stored, which is the K-major layout wgmma wants); dW = X^T . dY, whose
 // operands are both MN-major, on mma.sync (gemm_atb_kernel).
+//
+// The bf16 rung (TRAIN_MATMUL_PRECISION "default" and "mixed";
+// pallas_temporal_bwd.py at DEFAULT, where every dot rounds both operands):
+// each product's bf16 instance, one TF32 pass on bf16-rounded operands with
+// fp32 sums (tf32.cuh), reading W's bf16 plane for the dense layers:
+//   gemm_branch_bf16  the forward's scaled branch (gemm_tc.cuh kBf16)
+//   window_attention_train_bf16  the forward's attention (attention.cuh QS:
+//                     q·1/sqrt(D) rounded, as the training kernel scales q
+//                     before its dot; K2's eval instance rounds q unscaled)
+//   gemm_dx_bf16      dY scaled by its droppath factor, then rounded
+//                     (TmaAScaled: the factor 1/keep is no power of two, so
+//                     scaling after the product would round another value)
+//   gemm_dw_bf16      X and s . dY rounded (gemm_atb_kernel kBf16)
+//   window_attention_bwd_bf16  S = round(q/sqrt(D)) . round(k), dP =
+//                     round(dO) . round(v), dq = round(dS) . round(k) then
+//                     1/sqrt(D), dk = round(dS)^T . round(q/sqrt(D)), dv =
+//                     round(P)^T . round(dO) (pallas_temporal_bwd.py:510-521)
+// LayerNorm, softmax, relu, biases, scales, residuals and sums stay fp32;
+// every 3xTF32 instance compiles as before.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -229,41 +248,60 @@ window_dot_kernel(const float* __restrict__ a, const float* __restrict__ b,
 //    zero as they accumulate (tests/test_torch_attention_bwd_tc.py emulates
 //    the order). Each output element has one writer, no atomics: repeated
 //    runs agree bit for bit.
+//  - The bf16 mode (BF16): q is multiplied by 1/sqrt(D) once staged; every
+//    operand is rounded to bf16 where the 3xTF32 instance splits it (split
+//    below: q, k, v and dO as they are read, P and dS from the registers or
+//    from P^T and dS^T), one TF32 product per step into the fresh partial;
+//    the logits then take log2(e) alone and dk no 1/sqrt(D).
+template <bool BF16>
+__device__ __forceinline__ void split(float x, uint32_t& big, uint32_t& small) {
+  if constexpr (BF16) {
+    big = uu::bf16_round(x);
+    small = 0u;
+  } else {
+    uu::tf32_split(x, big, small);
+  }
+}
+
+template <bool BF16 = false>
 __device__ __forceinline__ void add_part(float (&acc)[4], const uint32_t (&ab)[4],
                                          const uint32_t (&as)[4], const uint32_t (&bb)[2],
                                          const uint32_t (&bs)[2]) {
   float part[4] = {0.f, 0.f, 0.f, 0.f};
-  uu::mma_3xtf32(part, ab, as, bb, bs);
+  if constexpr (BF16)
+    uu::mma_tf32(part, ab, bb);
+  else
+    uu::mma_3xtf32(part, ab, as, bb, bs);
 #pragma unroll
   for (int e = 0; e < 4; ++e) acc[e] += part[e];
 }
 
 // acc[j] += a . b^T for the warp's 16 rows of a (at aw) against rows
 // 8j..8j+7 of b, over the dk 8-column steps of D; both with pitch p.
-template <int NT>
+template <int NT, bool BF16>
 __device__ __forceinline__ void rows_dot(float (&acc)[NT][4], const float* aw, const float* b,
                                          int p, int dk, int nt, int g, int t) {
   for (int kk = 0; kk < dk; ++kk) {
     const float* a0 = aw + g * p + 8 * kk + t;
     uint32_t ab[4], as[4];
-    uu::tf32_split(a0[0], ab[0], as[0]);
-    uu::tf32_split(a0[8 * p], ab[1], as[1]);
-    uu::tf32_split(a0[4], ab[2], as[2]);
-    uu::tf32_split(a0[8 * p + 4], ab[3], as[3]);
+    split<BF16>(a0[0], ab[0], as[0]);
+    split<BF16>(a0[8 * p], ab[1], as[1]);
+    split<BF16>(a0[4], ab[2], as[2]);
+    split<BF16>(a0[8 * p + 4], ab[3], as[3]);
 #pragma unroll
     for (int j = 0; j < NT; ++j) {
       if (j < nt) {
         const float* b0 = b + (8 * j + g) * p + 8 * kk + t;
         uint32_t bb[2], bs[2];
-        uu::tf32_split(b0[0], bb[0], bs[0]);
-        uu::tf32_split(b0[4], bb[1], bs[1]);
-        add_part(acc[j], ab, as, bb, bs);
+        split<BF16>(b0[0], bb[0], bs[0]);
+        split<BF16>(b0[4], bb[1], bs[1]);
+        add_part<BF16>(acc[j], ab, as, bb, bs);
       }
     }
   }
 }
 
-template <int NT, int CW>
+template <int NT, int CW, bool BF16>
 __global__ void __launch_bounds__((NT + 1) / 2 * 32, NT <= 9 ? 2 : 1)
 window_attention_bwd_tc_kernel(const float* __restrict__ qkv, const float* __restrict__ dctx,
                                const float* __restrict__ key_mask, float* __restrict__ dqkv,
@@ -294,6 +332,10 @@ window_attention_bwd_tc_kernel(const float* __restrict__ qkv, const float* __res
                    : key_mask ? key_mask[(size_t)win * n + j] * (-1e9f * uu::ATTN_LOG2E) : 0.f;
   asm volatile("cp.async.wait_group 1;\n" ::: "memory");
   __syncthreads();
+  if constexpr (BF16) {  // q / sqrt(D), the operand the TPU rounds
+    for (int i = threadIdx.x; i < nq * p; i += blockDim.x) qs[i] *= scale;
+    __syncthreads();
+  }
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane >> 2, t = lane & 3;
@@ -303,8 +345,8 @@ window_attention_bwd_tc_kernel(const float* __restrict__ qkv, const float* __res
   for (int j = 0; j < NT; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) s[j][e] = ds[j][e] = 0.f;
-  rows_dot<NT>(s, qs + warp * 16 * p, ks, p, dk, nt, g, t);
-  const float sl = scale * uu::ATTN_LOG2E;
+  rows_dot<NT, BF16>(s, qs + warp * 16 * p, ks, p, dk, nt, g, t);
+  const float sl = BF16 ? uu::ATTN_LOG2E : scale * uu::ATTN_LOG2E;
   float mx0 = -INFINITY, mx1 = -INFINITY;
 #pragma unroll
   for (int j = 0; j < NT; ++j) {
@@ -350,7 +392,7 @@ window_attention_bwd_tc_kernel(const float* __restrict__ qkv, const float* __res
   }
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
   __syncthreads();
-  rows_dot<NT>(ds, gs + warp * 16 * p, vs, p, dk, nt, g, t);
+  rows_dot<NT, BF16>(ds, gs + warp * 16 * p, vs, p, dk, nt, g, t);
   float rs0 = 0.f, rs1 = 0.f;
 #pragma unroll
   for (int j = 0; j < NT; ++j) {
@@ -384,18 +426,18 @@ window_attention_bwd_tc_kernel(const float* __restrict__ qkv, const float* __res
     for (int j = 0; j < NT; ++j) {
       if (j < nt) {
         uint32_t ab[4], as[4];  // A column t is key 2t, column t+4 key 2t+1
-        uu::tf32_split(ds[j][0], ab[0], as[0]);
-        uu::tf32_split(ds[j][2], ab[1], as[1]);
-        uu::tf32_split(ds[j][1], ab[2], as[2]);
-        uu::tf32_split(ds[j][3], ab[3], as[3]);
+        split<BF16>(ds[j][0], ab[0], as[0]);
+        split<BF16>(ds[j][2], ab[1], as[1]);
+        split<BF16>(ds[j][1], ab[2], as[2]);
+        split<BF16>(ds[j][3], ab[3], as[3]);
         const float* kj = ks + (8 * j + 2 * t) * p + 8 * c0 + g;
 #pragma unroll
         for (int cc = 0; cc < CW; ++cc) {
           if (c0 + cc < dk) {
             uint32_t bb[2], bs[2];
-            uu::tf32_split(kj[8 * cc], bb[0], bs[0]);
-            uu::tf32_split(kj[p + 8 * cc], bb[1], bs[1]);
-            add_part(o[cc], ab, as, bb, bs);
+            split<BF16>(kj[8 * cc], bb[0], bs[0]);
+            split<BF16>(kj[p + 8 * cc], bb[1], bs[1]);
+            add_part<BF16>(o[cc], ab, as, bb, bs);
           }
         }
       }
@@ -443,6 +485,7 @@ window_attention_bwd_tc_kernel(const float* __restrict__ qkv, const float* __res
   const int key0 = warp * 16 + g, key1 = key0 + 8;
   float* dk0 = dqkv + ((size_t)win * n + key0) * 3 * c + c + (size_t)h * d;
   float* dk1 = dk0 + (size_t)8 * 3 * c;
+  const float kscale = BF16 ? 1.f : scale;  // BF16: q carries 1/sqrt(D) already
   for (int c0 = 0; c0 < dk; c0 += CW) {
     float ok[CW][4], ov[CW][4];
 #pragma unroll
@@ -459,26 +502,26 @@ window_attention_bwd_tc_kernel(const float* __restrict__ qkv, const float* __res
         const float2 s0 = *reinterpret_cast<const float2*>(dst + a_off);
         const float2 s1 = *reinterpret_cast<const float2*>(dst + a_off + 8 * pp);
         uint32_t pb[4], ps[4], sb[4], ss[4];
-        uu::tf32_split(p0.x, pb[0], ps[0]);
-        uu::tf32_split(p1.x, pb[1], ps[1]);
-        uu::tf32_split(p0.y, pb[2], ps[2]);
-        uu::tf32_split(p1.y, pb[3], ps[3]);
-        uu::tf32_split(s0.x, sb[0], ss[0]);
-        uu::tf32_split(s1.x, sb[1], ss[1]);
-        uu::tf32_split(s0.y, sb[2], ss[2]);
-        uu::tf32_split(s1.y, sb[3], ss[3]);
+        split<BF16>(p0.x, pb[0], ps[0]);
+        split<BF16>(p1.x, pb[1], ps[1]);
+        split<BF16>(p0.y, pb[2], ps[2]);
+        split<BF16>(p1.y, pb[3], ps[3]);
+        split<BF16>(s0.x, sb[0], ss[0]);
+        split<BF16>(s1.x, sb[1], ss[1]);
+        split<BF16>(s0.y, sb[2], ss[2]);
+        split<BF16>(s1.y, sb[3], ss[3]);
         const float* gi = gs + (8 * i + 2 * t) * p + 8 * c0 + g;
         const float* qi = qs + (8 * i + 2 * t) * p + 8 * c0 + g;
 #pragma unroll
         for (int cc = 0; cc < CW; ++cc) {
           if (c0 + cc < dk) {
             uint32_t bb[2], bs[2];
-            uu::tf32_split(gi[8 * cc], bb[0], bs[0]);
-            uu::tf32_split(gi[p + 8 * cc], bb[1], bs[1]);
-            add_part(ov[cc], pb, ps, bb, bs);
-            uu::tf32_split(qi[8 * cc], bb[0], bs[0]);
-            uu::tf32_split(qi[p + 8 * cc], bb[1], bs[1]);
-            add_part(ok[cc], sb, ss, bb, bs);
+            split<BF16>(gi[8 * cc], bb[0], bs[0]);
+            split<BF16>(gi[p + 8 * cc], bb[1], bs[1]);
+            add_part<BF16>(ov[cc], pb, ps, bb, bs);
+            split<BF16>(qi[8 * cc], bb[0], bs[0]);
+            split<BF16>(qi[p + 8 * cc], bb[1], bs[1]);
+            add_part<BF16>(ok[cc], sb, ss, bb, bs);
           }
         }
       }
@@ -489,19 +532,19 @@ window_attention_bwd_tc_kernel(const float* __restrict__ qkv, const float* __res
       if (c0 + cc < dk) {
         // dk at column c + h*d + col of the row, dv C further
         if (key0 < n && col < d) {
-          dk0[col] = ok[cc][0] * scale;
+          dk0[col] = ok[cc][0] * kscale;
           dk0[c + col] = ov[cc][0];
         }
         if (key0 < n && col + 1 < d) {
-          dk0[col + 1] = ok[cc][1] * scale;
+          dk0[col + 1] = ok[cc][1] * kscale;
           dk0[c + col + 1] = ov[cc][1];
         }
         if (key1 < n && col < d) {
-          dk1[col] = ok[cc][2] * scale;
+          dk1[col] = ok[cc][2] * kscale;
           dk1[c + col] = ov[cc][2];
         }
         if (key1 < n && col + 1 < d) {
-          dk1[col + 1] = ok[cc][3] * scale;
+          dk1[col + 1] = ok[cc][3] * kscale;
           dk1[c + col + 1] = ov[cc][3];
         }
       }
@@ -509,11 +552,11 @@ window_attention_bwd_tc_kernel(const float* __restrict__ qkv, const float* __res
   }
 }
 
-template <int NT, int CW>
+template <int NT, int CW, bool BF16>
 cudaError_t launch_attention_bwd_tc(const float* qkv, const float* dctx, const float* key_mask,
                                     float* dqkv, int windows, int n, int c, int heads,
                                     size_t smem, int threads, bool vec, cudaStream_t stream) {
-  auto kernel = window_attention_bwd_tc_kernel<NT, CW>;
+  auto kernel = window_attention_bwd_tc_kernel<NT, CW, BF16>;
   if (smem > 48 * 1024) {
     int dev = 0, optin = 0;
     cudaGetDevice(&dev);
@@ -523,20 +566,24 @@ cudaError_t launch_attention_bwd_tc(const float* qkv, const float* dctx, const f
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
+  // BF16: fp32(1/sqrt(D)) rounded once from double, as the TPU kernel's
+  // np.float32 constant and the forward's (attention.cuh QS)
+  const float scale = BF16 ? (float)(1.0 / sqrt((double)(c / heads)))
+                           : 1.f / sqrtf((float)(c / heads));
   kernel<<<(unsigned)windows * heads, threads, smem, stream>>>(
-      qkv, dctx, key_mask, dqkv, n, c, heads, 1.f / sqrtf((float)(c / heads)), vec);
+      qkv, dctx, key_mask, dqkv, n, c, heads, scale, vec);
   return cudaGetLastError();
 }
 
-template <int CW>
+template <int CW, bool BF16>
 cudaError_t launch_attention_bwd_nt(const float* qkv, const float* dctx, const float* key_mask,
                                     float* dqkv, int windows, int n, int c, int heads,
                                     size_t smem, int threads, bool vec, cudaStream_t stream) {
   const int nt = (n + 7) / 8;
 #define UU_ATTN_BWD_CASE(NT_)                                                            \
   if (nt <= NT_)                                                                         \
-    return launch_attention_bwd_tc<NT_, CW>(qkv, dctx, key_mask, dqkv, windows, n, c, \
-                                            heads, smem, threads, vec, stream);
+    return launch_attention_bwd_tc<NT_, CW, BF16>(qkv, dctx, key_mask, dqkv, windows, n, c, \
+                                                  heads, smem, threads, vec, stream);
   UU_ATTN_BWD_CASE(3)
   UU_ATTN_BWD_CASE(6)
   UU_ATTN_BWD_CASE(9)
@@ -563,6 +610,19 @@ extern "C" int gemm_branch_f32(const float* a, const float* halves, const float*
       (cudaStream_t)stream);
 }
 
+// gemm_branch_f32 on the bf16 rung: plane (n, k), w's bf16-rounded plane
+// transposed.
+extern "C" int gemm_branch_bf16(const float* a, const float* plane, const float* bias,
+                                const float* scale, int rows_per_scale, const float* residual,
+                                float* branch, float* out, int m, int n, int k, int relu,
+                                void* stream) {
+  if (scale && rows_per_scale <= 0) return cudaErrorInvalidValue;
+  return uu::launch_gemm_tc<true>(
+      a, plane, m, n, k,
+      ScaledBranch{bias, scale, rows_per_scale, residual, branch, out, n, relu},
+      (cudaStream_t)stream);
+}
+
 // out (m, n) = ((a * scale[row / rows_per_scale]) . w^T), zeroed where
 // mask <= 0; a (m, k) row-major, k % 4 == 0; halves (2, n, k): the TF32
 // halves of w (n, k), the forward's (in, out) kernel, as stored.
@@ -575,6 +635,16 @@ extern "C" int gemm_dx_f32(const float* a, const float* scale, int rows_per_scal
                             (cudaStream_t)stream);
 }
 
+// gemm_dx_f32 on the bf16 rung: plane (n, k), w's bf16-rounded plane as
+// stored; a * scale rounded to bf16 (the factor applied before the rounding).
+extern "C" int gemm_dx_bf16(const float* a, const float* scale, int rows_per_scale,
+                            const float* plane, const float* mask, float* out, int m, int n,
+                            int k, void* stream) {
+  return uu::launch_gemm_tc_scaled(a, plane, m, n, k, scale, rows_per_scale,
+                                   ScaledMaskStore{nullptr, 1, mask, out, n},
+                                   (cudaStream_t)stream);
+}
+
 // part (splits, m, n): chunk z of x^T . (dy * scale[row / rows_per_scale])
 // over rows; x (rows, m), dy (rows, n), m and n multiples of 4. sum_rows_f32
 // over the splits finishes it.
@@ -584,6 +654,15 @@ extern "C" int gemm_dw_f32(const float* x, const float* dy, const float* scale,
   if (reinterpret_cast<uintptr_t>(x) % 16) return cudaErrorInvalidValue;
   return uu::launch_gemm_atb(uu::DenseRows{x, m}, dy, scale, rows_per_scale, part, m, n, rows,
                              splits, (cudaStream_t)stream);
+}
+
+// gemm_dw_f32 on the bf16 rung: x and dy * scale rounded to bf16.
+extern "C" int gemm_dw_bf16(const float* x, const float* dy, const float* scale,
+                            int rows_per_scale, float* part, int m, int n, int rows,
+                            int splits, void* stream) {
+  if (reinterpret_cast<uintptr_t>(x) % 16) return cudaErrorInvalidValue;
+  return uu::launch_gemm_atb<true>(uu::DenseRows{x, m}, dy, scale, rows_per_scale, part, m, n,
+                                   rows, splits, (cudaStream_t)stream);
 }
 
 // part (ceil(rows / 256), cols): column sums of x * scale[row / rows_per_scale]
@@ -618,11 +697,11 @@ extern "C" int window_dot_f32(const float* a, const float* b, float* out, int wi
   return cudaGetLastError();
 }
 
-// dqkv (windows*n, 3c) from qkv (windows*n, 3c) and dctx (windows*n, c);
-// key_mask (windows, n), 1 = blocked, or null; n <= uu::ATTN_MAX_SEQ.
-extern "C" int window_attention_bwd_f32(const float* qkv, const float* dctx,
-                                        const float* key_mask, float* dqkv, int windows, int n,
-                                        int c, int heads, void* stream) {
+namespace {
+
+template <bool BF16>
+int attention_bwd_entry(const float* qkv, const float* dctx, const float* key_mask, float* dqkv,
+                        int windows, int n, int c, int heads, void* stream) {
   if (windows <= 0 || n <= 0 || n > uu::ATTN_MAX_SEQ || heads <= 0 || c % heads != 0)
     return cudaErrorInvalidValue;
   const int d = c / heads, dp = (d + 7) & ~7, dk = dp / 8;
@@ -635,16 +714,42 @@ extern "C" int window_attention_bwd_f32(const float* qkv, const float* dctx,
   const int threads = warps * 32;
   cudaStream_t st = (cudaStream_t)stream;
   if (dk <= 2)
-    return launch_attention_bwd_nt<2>(qkv, dctx, key_mask, dqkv, windows, n, c, heads, smem,
-                                      threads, vec, st);
+    return launch_attention_bwd_nt<2, BF16>(qkv, dctx, key_mask, dqkv, windows, n, c, heads,
+                                            smem, threads, vec, st);
   if (dk <= 4)
-    return launch_attention_bwd_nt<4>(qkv, dctx, key_mask, dqkv, windows, n, c, heads, smem,
-                                      threads, vec, st);
+    return launch_attention_bwd_nt<4, BF16>(qkv, dctx, key_mask, dqkv, windows, n, c, heads,
+                                            smem, threads, vec, st);
   if (dk <= 6)
-    return launch_attention_bwd_nt<6>(qkv, dctx, key_mask, dqkv, windows, n, c, heads, smem,
-                                      threads, vec, st);
-  return launch_attention_bwd_nt<8>(qkv, dctx, key_mask, dqkv, windows, n, c, heads, smem,
-                                    threads, vec, st);
+    return launch_attention_bwd_nt<6, BF16>(qkv, dctx, key_mask, dqkv, windows, n, c, heads,
+                                            smem, threads, vec, st);
+  return launch_attention_bwd_nt<8, BF16>(qkv, dctx, key_mask, dqkv, windows, n, c, heads,
+                                          smem, threads, vec, st);
+}
+
+}  // namespace
+
+// dqkv (windows*n, 3c) from qkv (windows*n, 3c) and dctx (windows*n, c);
+// key_mask (windows, n), 1 = blocked, or null; n <= uu::ATTN_MAX_SEQ.
+extern "C" int window_attention_bwd_f32(const float* qkv, const float* dctx,
+                                        const float* key_mask, float* dqkv, int windows, int n,
+                                        int c, int heads, void* stream) {
+  return attention_bwd_entry<false>(qkv, dctx, key_mask, dqkv, windows, n, c, heads, stream);
+}
+
+// window_attention_bwd_f32 on the bf16 rung (the note at the top).
+extern "C" int window_attention_bwd_bf16(const float* qkv, const float* dctx,
+                                         const float* key_mask, float* dqkv, int windows,
+                                         int n, int c, int heads, void* stream) {
+  return attention_bwd_entry<true>(qkv, dctx, key_mask, dqkv, windows, n, c, heads, stream);
+}
+
+// K5's and K6's forward window attention on the bf16 rung: q scaled by
+// 1/sqrt(D), then rounded (attention.cuh QS); qkv (windows*n, 3c).
+extern "C" int window_attention_train_bf16(const float* qkv, const float* key_mask, float* out,
+                                           int windows, int n, int c, int heads,
+                                           void* stream) {
+  return uu::launch_head_attention<true, true>(qkv, qkv + c, qkv + 2 * c, 3 * c, key_mask, out,
+                                               windows, n, c, heads, (cudaStream_t)stream);
 }
 
 // out[c] = sum over r (in order) of part[r, c].

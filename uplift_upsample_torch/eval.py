@@ -87,9 +87,11 @@ def make_test_step(model, flip_tta: bool, flip_lr_indices, fused: str = "none",
       - "full": the kernel path of `models.bench_forward` (K1 spatial stack,
         s2t Dense, K2 temporal stack, K3 strided block 1, plain tail). Central
         prediction only. Needs a spatial and a temporal stack.
-      - "spatial": K1, then the model from the s2t Dense on
-        (`spatial_input` splice).
+      - "spatial": K1 at "high" whatever the rung (as the JAX step runs
+        it), then the model from the s2t Dense on (`spatial_input` splice)
+        at the rung.
       - "none": the plain model.
+    At "highest", "full" runs "none" (the JAX step's switch).
     On CPU tensors the kernels' plain versions run. `precision` is checked by
     `precision.check_rung`: "high" (TF32 off, set where the package
     initialises) and "highest" run the same code; "default" the bf16 rung,
@@ -125,6 +127,10 @@ def make_test_step(model, flip_tta: bool, flip_lr_indices, fused: str = "none",
     """
     check_rung(precision, use_pallas=model.use_pallas, tp=model.tp)
     check_model_tp(model, tp)
+    if precision == "highest" and fused == "full":
+        # the strictest rung runs the plain model, as the JAX step switches
+        # "full" to "none" there (uplift_upsample_tpu/eval.py:105-109)
+        fused = "none"
     device = next(model.parameters()).device
     flip_idx = torch.as_tensor(np.asarray(flip_lr_indices, dtype=np.int64),
                                device=device)
@@ -165,9 +171,11 @@ def make_test_step(model, flip_tta: bool, flip_lr_indices, fused: str = "none",
         sp_packed = pack_spatial_params(sp_ops)
 
         def forward(keypoints2d, stride_mask):
+            # K1 at "high" on every rung (the JAX step's kernel_precision,
+            # HIGH3); the model from the s2t Dense on follows the rung
             sp = spatial_stack_apply(sp_ops, masked(keypoints2d, stride_mask),
                                      num_heads=model.num_heads, packed=sp_packed,
-                                     precision=precision)
+                                     precision="high")
             return model(sp, stride_mask, spatial_input=True)
     elif shared_spatial:
         # The plain shared path through the model's s2t splices

@@ -49,7 +49,7 @@ from torch import nn
 from ..ops.attention import scaled_dot_product_attention
 from ..ops.packed_attention import MAX_SEQ, packed_multihead_attention
 from ..parallel.sharding import TensorParallel, active, copy_to_tp, reduce_from_tp
-from ..precision import BF16, current, round_bf16
+from ..precision import BF16, current, rung_conv1d, rung_linear
 
 # flax's truncated_normal(stddev) samples N(0, 1) truncated to [-2, 2] and
 # divides by this constant (the std of that truncated law), so the draw has
@@ -77,18 +77,14 @@ class Dense(nn.Linear):
     """nn.Linear whose product follows the matmul precision context."""
 
     def forward(self, x):
-        if current() == BF16:
-            return F.linear(round_bf16(x), round_bf16(self.weight), self.bias)
-        return super().forward(x)
+        return rung_linear(x, self.weight, self.bias)
 
 
 class StridedConv1d(nn.Conv1d):
     """nn.Conv1d (VALID) whose products follow the matmul precision context."""
 
     def forward(self, x):
-        if current() == BF16:
-            return F.conv1d(round_bf16(x), round_bf16(self.weight), self.bias, self.stride)
-        return super().forward(x)
+        return rung_conv1d(x, self.weight, self.bias, self.stride[0])
 
 
 def dense(in_features: int, out_features: int, bias: bool = True,
@@ -156,7 +152,7 @@ class Mlp(nn.Module):
         if self.tp is None:
             return self.fc2(self.activation(self.fc1(x)))
         h = self.activation(self.fc1(copy_to_tp(x, self.tp)))
-        return reduce_from_tp(F.linear(h, self.fc2.weight), self.tp) + self.fc2.bias
+        return reduce_from_tp(rung_linear(h, self.fc2.weight), self.tp) + self.fc2.bias
 
 
 class MultiHeadAttention(nn.Module):
@@ -211,7 +207,7 @@ class MultiHeadAttention(nn.Module):
         out = out.transpose(1, 2).reshape(b, s, self.dim)
         if self.tp is None:
             return self.proj(out), weights
-        return reduce_from_tp(F.linear(out, self.proj.weight), self.tp) + self.proj.bias, weights
+        return reduce_from_tp(rung_linear(out, self.proj.weight), self.tp) + self.proj.bias, weights
 
 
 class TransformerBlock(nn.Module):
@@ -275,7 +271,7 @@ class StridedMlp(nn.Module):
         x = F.pad(x.transpose(1, 2), self.pad)  # explicit zero pad, then VALID
         if self.tp is None:
             return self.fc2(x).transpose(1, 2)
-        part = F.conv1d(x, self.fc2.weight, None, stride=self.stride)
+        part = rung_conv1d(x, self.fc2.weight, None, self.stride)
         return (reduce_from_tp(part, self.tp) + self.fc2.bias[:, None]).transpose(1, 2)
 
 

@@ -20,10 +20,14 @@ calls: its wrappers name their counter on the last launch of a call only,
 so each forward and each backward adds one (its other launches count per
 C entry).
 
-The one-pass bf16 rung (EVAL_MATMUL_PRECISION "default") launches its own C
-entries, each the bf16 instance of a kernel above under the same wrapper
-counter: "spatial_stack_bf16" (K1), "gemm_bf16" and "window_attention_bf16"
-(K2, K3), "strided_conv_bf16" (K3), "s2t_prologue_bf16".
+The one-pass bf16 rung (EVAL_MATMUL_PRECISION "default", and the training
+rungs "default" and "mixed") launches its own C entries, each the bf16
+instance of a kernel above under the same wrapper counter:
+"spatial_stack_bf16" (K1), "gemm_bf16" and "window_attention_bf16" (K2,
+K3), "strided_conv_bf16" (K3), "s2t_prologue_bf16"; in training
+"spatial_bwd_bf16" (K4), "gemm_branch_bf16", "window_attention_train_bf16",
+"gemm_dx_bf16", "gemm_dw_bf16", "window_attention_bwd_bf16" (K5, K6) and
+"strided_dh1_bf16", "strided_dwc_bf16", "sum_rows_bf16" (K6).
 """
 
 from __future__ import annotations
@@ -66,22 +70,31 @@ _SIGNATURES = {
         "spatial_bwd_workers": "iiii",
         "spatial_bwd_scratch_floats": "ii",
         "spatial_bwd_f32": "ppppppppiiiiip",
+        "spatial_bwd_bf16": "ppppppppiiiiip",
         "sum_rows_f32": "ppiip",
     },
     "temporal_bwd": {
         "gemm_branch_f32": "ppppipppiiiip",
+        "gemm_branch_bf16": "ppppipppiiiip",
         "gemm_dx_f32": "ppipppiiip",
+        "gemm_dx_bf16": "ppipppiiip",
         "gemm_dw_f32": "pppipiiiip",
+        "gemm_dw_bf16": "pppipiiiip",
         "colsum_f32": "ppipiip",
         "layernorm_bwd_f32": "ppppppiifip",
         "window_dot_f32": "pppiiip",
         "window_attention_bwd_f32": "ppppiiiip",
+        "window_attention_bwd_bf16": "ppppiiiip",
+        "window_attention_train_bf16": "pppiiiip",
         "sum_rows_f32": "ppiip",
     },
     "attention": {"packed_attention_f32": "pppppiiiip"},
     "strided_bwd": {
         "strided_dh1_f32": "ppppiiiiiiip",
+        "strided_dh1_bf16": "ppppiiiiiiip",
         "strided_dwc_f32": "pppiiiiiiiip",
+        "strided_dwc_bf16": "pppiiiiiiiip",
+        "sum_rows_bf16": "ppiip",
         "crop_residual_add_f32": "ppiiiiiip",
     },
     "s2t": {"s2t_prologue_f32": "pppppppiiiip", "s2t_prologue_bf16": "pppppppiiiip"},

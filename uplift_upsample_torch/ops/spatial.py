@@ -10,7 +10,8 @@ Training (counterpart of `pallas_spatial.fused_spatial_train`): optional
 stochastic-depth scales (2L, F) multiply block l's attention and MLP
 branches by rows 2l and 2l+1 (`make_droppath_scales`). `spatial_stack_train`
 is differentiable: on a CUDA tensor it is `SpatialStackTrain`, whose forward
-is K1 and whose backward is K4 (`ops/spatial_bwd.py`); on a CPU tensor it is
+is K1 and whose backward is K4 (`ops/spatial_bwd.py`), each at the train
+step's spatial rung (bf16 instances at "default"); on a CPU tensor it is
 the plain version under autograd. Gradients reach the stacked operands, and
 through `stack_spatial_params` the module's parameters.
 
@@ -144,13 +145,15 @@ def make_droppath_scales(generator: Optional[torch.Generator], rates: Sequence[f
 
 def spatial_stack_plain(x: torch.Tensor, ops: Dict, *, num_heads: int,
                         droppath_scales: Optional[torch.Tensor] = None,
-                        precision: str = "high") -> torch.Tensor:
+                        precision: str = "high",
+                        attention_precision: str = "highest") -> torch.Tensor:
     """(F, P, 2) keypoints → (F, P·C): the spatial stage in plain PyTorch.
 
     droppath_scales: (2L, F) per-frame factors of the blocks' branches, or None.
     precision: the rung of the embedding's and the dense layers' products;
-    the 17-token attention stays fp32 on every rung (as K1 computes it).
-    """
+    the 17-token attention stays fp32 (as K1 computes it) unless
+    `attention_precision` says otherwise (the model's own attention on the
+    bf16 rung: the train step's plain spatial stage)."""
     f, p, _ = x.shape
     c = ops["pe"].shape[1]
     d = c // num_heads
@@ -161,8 +164,9 @@ def spatial_stack_plain(x: torch.Tensor, ops: Dict, *, num_heads: int,
         y = F.layer_norm(h, (c,), g["ln1_g"], g["ln1_b"], 1e-5)
         q, k, v = ((mm(y, g[f"w{n}"], rung) + g[f"b{n}"]).reshape(f, p, num_heads, d)
                    .transpose(1, 2) for n in "qkv")
-        att = torch.softmax(q @ k.transpose(-1, -2) * (1.0 / d ** 0.5), dim=-1)
-        ctx = (att @ v).transpose(1, 2).reshape(f, p, c)
+        att = torch.softmax(mm(q, k.transpose(-1, -2), attention_precision)
+                            * (1.0 / d ** 0.5), dim=-1)
+        ctx = mm(att, v, attention_precision).transpose(1, 2).reshape(f, p, c)
         proj = mm(ctx, g["wp"], rung) + g["bp"]
         if droppath_scales is not None:
             proj = proj * droppath_scales[2 * blk][:, None, None]
@@ -231,18 +235,19 @@ def spatial_stack(x: torch.Tensor, ops: Dict, *, num_heads: int,
 class SpatialStackTrain(torch.autograd.Function):
     """K1 forward, K4 backward (counterpart of `fused_spatial_train`).
 
-    apply(x, droppath_scales, num_heads, *operands in PARAM_ORDER); returns
-    gradients for x, the scales and every operand.
+    apply(x, droppath_scales, num_heads, precision, *operands in PARAM_ORDER);
+    returns gradients for x, the scales and every operand. `precision`
+    "default" runs K1's and K4's bf16 instances.
     """
 
     @staticmethod
-    def forward(ctx, x, scales, num_heads, *leaves):
+    def forward(ctx, x, scales, num_heads, precision, *leaves):
         ops = dict(zip(PARAM_ORDER, leaves))
         packed = pack_spatial_params(ops)
         out = spatial_stack(x, ops, num_heads=num_heads, packed=packed,
-                            droppath_scales=scales)
+                            droppath_scales=scales, precision=precision)
         ctx.save_for_backward(x, scales, packed, *leaves)
-        ctx.num_heads = num_heads
+        ctx.num_heads, ctx.precision = num_heads, precision
         return out
 
     @staticmethod
@@ -251,21 +256,24 @@ class SpatialStackTrain(torch.autograd.Function):
         x, scales, packed, *leaves = ctx.saved_tensors
         dparams, dx, ddp = spatial_stack_bwd(x, dict(zip(PARAM_ORDER, leaves)), scales,
                                              g.contiguous(), num_heads=ctx.num_heads,
-                                             packed=packed)
-        return (dx, ddp, None, *[dparams[name] for name in PARAM_ORDER])
+                                             packed=packed, precision=ctx.precision)
+        return (dx, ddp, None, None, *[dparams[name] for name in PARAM_ORDER])
 
 
 def spatial_stack_train(x: torch.Tensor, ops: Dict, droppath_scales: torch.Tensor, *,
-                        num_heads: int) -> torch.Tensor:
+                        num_heads: int, precision: str = "high") -> torch.Tensor:
     """Differentiable (F, 17, 2) → (F, 17·C) with stochastic depth.
 
-    CPU tensor: the plain version under autograd; CUDA tensor: K1 forward and
-    K4 backward (`SpatialStackTrain`).
+    CPU tensor: the plain version under autograd (on the bf16 rung its
+    products' backward rounds their operands too, `precision.Bf16Matmul`,
+    as K4 does); CUDA tensor: K1 forward and K4 backward
+    (`SpatialStackTrain`), at the rung `precision`.
     """
     if x.device.type == "cpu":
         return spatial_stack_plain(x, ops, num_heads=num_heads,
-                                   droppath_scales=droppath_scales)
+                                   droppath_scales=droppath_scales, precision=precision)
     return SpatialStackTrain.apply(x, droppath_scales.float().contiguous(), num_heads,
+                                   check_rung(precision),
                                    *[ops[name] for name in PARAM_ORDER])
 
 

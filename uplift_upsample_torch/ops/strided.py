@@ -51,9 +51,9 @@ import torch
 import torch.nn.functional as F
 
 from ..parallel.sharding import TensorParallel, active, all_reduce_sum
-from ..precision import BF16, check_rung, mm
+from ..precision import BF16, check_rung, mm, round_bf16
 from . import cuda_lib
-from .temporal import (add_tf32_halves, attention_sublayer, check_bf16_planes, gemm,
+from .temporal import (add_weight_operands, attention_sublayer, check_bf16_planes, gemm,
                        layernorm, split_attention_sublayer, window_attention_plain)
 
 COUNTER = "strided_block1"
@@ -146,13 +146,15 @@ def strided_conv(h1: torch.Tensor, x: torch.Tensor, ops: Dict, *, stride: int,
 
 def stack_strided_block1_params(state: Mapping[str, torch.Tensor],
                                 name: str = "strided_temporal_block_1",
-                                pe_name: str = "strided_temporal_pe_1") -> Dict:
+                                pe_name: str = "strided_temporal_pe_1",
+                                precision: str = "high") -> Dict:
     """Model state_dict → strided block 1's operands.
 
     Matrices are (in, out); the conv kernel is (3·hidden, C), the flax
     (3, hidden, C) kernel flattened; biases absent with qkv_bias off become
     zeros (as `pallas_strided.stack_strided_block1_params` does). The dense
-    matrices' TF32 halves are split here (`temporal.add_tf32_halves`). From
+    matrices' TF32 halves are split here (`temporal.add_tf32_halves`; at
+    `precision` "default" their bf16 planes, `add_weight_operands`). From
     an mp rank's shard: wqkv is (C, 3·C/mp), its q, k and v shards side by
     side, and wc (3·hidden/mp, C), its hidden shard within every tap.
     """
@@ -178,29 +180,50 @@ def stack_strided_block1_params(state: Mapping[str, torch.Tensor],
         wc=conv.permute(2, 1, 0).reshape(-1, conv.shape[0]),
         bc=get("mlp.fc2.bias", c),
     )
-    return add_tf32_halves({k: v.float().contiguous() for k, v in ops.items()}, DENSE)
+    return add_weight_operands({k: v.float().contiguous() for k, v in ops.items()}, DENSE,
+                               precision)
+
+
+class _RoundGrad(torch.autograd.Function):
+    """The identity, whose backward rounds the gradient to bf16."""
+
+    @staticmethod
+    def forward(ctx, t):
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return round_bf16(g)
 
 
 def strided_block1_plain(x: torch.Tensor, ops: Dict, *, num_heads: int,
                          stride: int, paddings: Tuple[int, int],
                          relu_mask: Optional[torch.Tensor] = None,
                          tp: Optional[TensorParallel] = None,
-                         precision: str = "high") -> torch.Tensor:
+                         precision: str = "high", train: bool = False) -> torch.Tensor:
     """(B, N, C) → (B, n_out, C): strided block 1 in plain PyTorch.
 
     relu_mask (B·N, hidden) booleans replace fc1's relu decisions (a gradient
     comparison hands it a kernel forward's, as `temporal_stack_plain` takes
     K5's). tp: `ops` are an mp rank's operands; the proj and conv partials
     are summed over mp before their replicated biases are added.
-    precision: the rung of every product, the conv's too."""
+    precision: the rung of every product, the conv's too. `train`: the
+    training kernel's (K6) function on the bf16 rung: q scaled before its
+    rounding (`window_attention_plain`), and the PE's gradient the sum of
+    the bf16-rounded input gradient over windows (a DEFAULT dot with a
+    one-hot matrix in `pallas_strided_bwd.py:152`)."""
     c = x.shape[-1]
     tp = active(tp)
     rung = check_rung(precision)
     heads = num_heads if tp is None else num_heads // tp.size
     reduce = (lambda t: t) if tp is None else (lambda t: all_reduce_sum(tp, t))
-    x = x + ops["pe"]
+    if train and rung == BF16:
+        x = x + _RoundGrad.apply(ops["pe"].expand_as(x))
+    else:
+        x = x + ops["pe"]
     y = F.layer_norm(x, (c,), ops["ln1_g"], ops["ln1_b"], 1e-5)
-    ctx = window_attention_plain(mm(y, ops["wqkv"], rung) + ops["bqkv"], None, heads, rung)
+    ctx = window_attention_plain(mm(y, ops["wqkv"], rung) + ops["bqkv"], None, heads, rung,
+                                 train)
     x = x + (reduce(mm(ctx, ops["wp"], rung)) + ops["bp"])
     z = F.layer_norm(x, (c,), ops["ln2_g"], ops["ln2_b"], 1e-5)
     h1 = mm(z, ops["w1"], rung) + ops["b1"]

@@ -97,25 +97,49 @@ def add_tf32_halves(ops: Dict, names: Sequence[str] = DENSE) -> Dict:
     return out
 
 
-def bf16_plane(w: torch.Tensor) -> torch.Tensor:
-    """(…, K, N) → (…, N, K): w rounded to bf16 (to nearest, even), kept in
-    fp32 and transposed, the operand the bf16 GEMM (`gemm_bf16`) reads."""
-    return round_bf16(w.detach().float()).transpose(-1, -2).contiguous()
+def bf16_plane(w: torch.Tensor, transpose: bool = True) -> torch.Tensor:
+    """(…, K, N) → (…, N, K) with `transpose`, else (…, K, N): w rounded to
+    bf16 (to nearest, even), kept in fp32, the operand the bf16 GEMM reads
+    (`gemm_bf16` transposed; the backward's `gemm_dx` as stored)."""
+    plane = round_bf16(w.detach().float())
+    return (plane.transpose(-1, -2) if transpose else plane).contiguous()
 
 
-def add_bf16_planes(ops: Dict, names: Sequence[str] = DENSE) -> Dict:
+def add_bf16_planes(ops: Dict, names: Sequence[str] = DENSE, dx: bool = False) -> Dict:
     """`ops` with each named matrix's bf16 plane beside it, "<name>_bf": the
-    weights of the bf16 rung, prepared once (`models/bench_forward.prepare_fused_params`)."""
-    return {**ops, **{f"{name}_bf": bf16_plane(ops[name]) for name in names}}
+    weights of the bf16 rung, prepared once (`models/bench_forward.prepare_fused_params`);
+    with `dx` also "<name>_bf_dx", the plane as stored, for dy @ wᵀ (training)."""
+    out = {**ops, **{f"{name}_bf": bf16_plane(ops[name]) for name in names}}
+    if dx:
+        out.update({f"{name}_bf_dx": bf16_plane(ops[name], transpose=False) for name in names})
+    return out
+
+
+def add_weight_operands(ops: Dict, names: Sequence[str], precision: str) -> Dict:
+    """`ops` with what the kernels read of each named matrix at the rung: the
+    TF32 halves (`add_tf32_halves`) at "high" and "highest", both bf16 planes
+    (`add_bf16_planes(dx=True)`) at "default"."""
+    if check_rung(precision) == BF16:
+        return add_bf16_planes(ops, names, dx=True)
+    return add_tf32_halves(ops, names)
+
+
+def weight_keys(names: Sequence[str], precision: str) -> list:
+    """The keys `add_weight_operands` adds for `names` at the rung, in a
+    fixed order: each matrix's TF32 halves "<w>_tc", "<w>_tc_dx", or on the
+    bf16 rung its planes "<w>_bf", "<w>_bf_dx"."""
+    kinds = ("_bf", "_bf_dx") if check_rung(precision) == BF16 else ("_tc", "_tc_dx")
+    return [f"{name}{kind}" for kind in kinds for name in names]
 
 
 def stack_temporal_params(state: Mapping[str, torch.Tensor], num_blocks: int,
-                          prefix: str = "temporal_block_") -> Dict:
+                          prefix: str = "temporal_block_", precision: str = "high") -> Dict:
     """Model state_dict → the temporal blocks' operands, stacked over blocks.
 
     q/k/v are concatenated into one (C, 3C) matrix per block; matrices are
     (in, out); missing biases become zeros. Each matrix's TF32 halves are
-    split here, from these weights (`add_tf32_halves`). From an mp rank's
+    split here, from these weights (`add_tf32_halves`), or at `precision`
+    "default" its bf16 planes (`add_weight_operands`). From an mp rank's
     shard of the weights (tensor parallelism) the matrix is (C, 3·C/mp):
     the rank's q, k and v shards side by side, never a third of the whole
     fused matrix.
@@ -132,7 +156,7 @@ def stack_temporal_params(state: Mapping[str, torch.Tensor], num_blocks: int,
     def st(fn):
         return torch.stack([fn(i) for i in range(1, num_blocks + 1)]).float().contiguous()
 
-    return add_tf32_halves(dict(
+    return add_weight_operands(dict(
         ln1_g=st(lambda i: get(i, "norm1.weight")),
         ln1_b=st(lambda i: get(i, "norm1.bias")),
         wqkv=st(lambda i: torch.cat([get(i, f"attn.{w}.weight").t()
@@ -147,23 +171,29 @@ def stack_temporal_params(state: Mapping[str, torch.Tensor], num_blocks: int,
         b1=st(lambda i: get(i, "mlp.fc1.bias")),
         w2=st(lambda i: get(i, "mlp.fc2.weight").t()),
         b2=st(lambda i: get(i, "mlp.fc2.bias")),
-    ))
+    ), DENSE, precision)
 
 
 # -- plain versions -----------------------------------------------------------
 
 def window_attention_plain(qkv: torch.Tensor, key_mask: Optional[torch.Tensor],
-                           num_heads: int, precision: str = "high") -> torch.Tensor:
+                           num_heads: int, precision: str = "high",
+                           train: bool = False) -> torch.Tensor:
     """(B, N, 3C) packed q|k|v → (B, N, C) context; key_mask (B, N), 1 = blocked.
     On the bf16 rung q and k are rounded as they are (the logits scaled after
-    the product) and the normalised probabilities and v for P·V."""
+    the product) and the normalised probabilities and v for P·V; with `train`
+    (the training kernels K5 and K6, `pallas_temporal_bwd.py:420-426`) q is
+    scaled by 1/sqrt(D) first and rounded so."""
     b, n, c3 = qkv.shape
     c = c3 // 3
     d = c // num_heads
     rung = check_rung(precision)
     q, k, v = (t.reshape(b, n, num_heads, d).transpose(1, 2)
                for t in qkv.split(c, dim=-1))
-    logits = mm(q, k.transpose(-1, -2), rung) * (1.0 / d ** 0.5)
+    if train and rung == BF16:
+        logits = mm(q * (1.0 / d ** 0.5), k.transpose(-1, -2), rung)
+    else:
+        logits = mm(q, k.transpose(-1, -2), rung) * (1.0 / d ** 0.5)
     if key_mask is not None:
         logits = logits + key_mask[:, None, None, :] * -1e9
     ctx = mm(torch.softmax(logits, dim=-1), v, rung)
@@ -176,7 +206,7 @@ def temporal_stack_plain(x: torch.Tensor, ops: Dict,
                          droppath: Optional[torch.Tensor] = None,
                          relu_masks: Optional[Sequence[torch.Tensor]] = None,
                          tp: Optional[TensorParallel] = None,
-                         precision: str = "high") -> torch.Tensor:
+                         precision: str = "high", train: bool = False) -> torch.Tensor:
     """(B, N, C) → (B, N, C): the temporal blocks in plain PyTorch.
 
     droppath: (L, 2, B) per-window stochastic-depth scales of each block's
@@ -187,7 +217,8 @@ def temporal_stack_plain(x: torch.Tensor, ops: Dict,
     rounding of 0 takes the same side of the kink in both.
     tp: `ops` are an mp rank's operands (module docstring); the proj and fc2
     partials are summed over mp before their replicated biases are added.
-    precision: the rung of every product (module docstring).
+    precision: the rung of every product (module docstring); `train`: the
+    training kernel's attention (`window_attention_plain`).
     """
     c = x.shape[-1]
     tp = active(tp)
@@ -199,7 +230,7 @@ def temporal_stack_plain(x: torch.Tensor, ops: Dict,
         y = F.layer_norm(x, (c,), ops["ln1_g"][blk], ops["ln1_b"][blk], 1e-5)
         qkv = mm(y, ops["wqkv"][blk], rung) + ops["bqkv"][blk]
         ctx = window_attention_plain(qkv, km if blk < first_masked_blocks else None,
-                                     heads, rung)
+                                     heads, rung, train)
         proj = reduce(mm(ctx, ops["wp"][blk], rung)) + ops["bp"][blk]
         if droppath is not None:
             proj = proj * droppath[blk, 0][:, None, None]

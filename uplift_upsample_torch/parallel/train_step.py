@@ -60,9 +60,24 @@ parameters stay bit-identical over the mp peers because their gradients
 come from identical inputs: the droppath draws and the keyframe budget
 follow the dp index, so mp peers drop the same rows.
 
+Matmul precision (TRAIN_MATMUL_PRECISION, `precision.train_rungs`; the
+JAX step's `sp_train_prec` / `tm_train_prec`, `train_step.py:213-224`):
+  "default" (the class default): every stage on the one-pass bf16 rung: K1
+            and K4, K5 and K6 through their bf16 instances, the plain
+            products (the s2t Dense, head1, the tail, any stage that runs
+            plain) under `matmul_precision("default")`, whose backward
+            rounds its products' operands too (`precision.Bf16Matmul`);
+  "mixed":  the spatial kernels at "highest" (3xTF32), the rest bf16;
+  "high", "highest": fp32-level products everywhere (3xTF32 kernels, TF32
+            off in the plain products).
+The JAX step opens no precision context, so on the TPU its XLA products run
+one bf16 pass at every rung; the port follows it at "default" and "mixed"
+and keeps fp32 at "high" and "highest", the function the JAX step computes
+on the CPU (ROADMAP, departures). The val step runs fp32 at every rung.
+Another value raises ValueError.
+
 Not ported (NotImplementedError): OUTPUT_BN, dropout, attention dropout and
-token masking in training. The port trains in fp32 (TF32 off);
-TRAIN_MATMUL_PRECISION is not read.
+token masking in training.
 """
 
 from __future__ import annotations
@@ -86,6 +101,7 @@ from ..ops.strided import stack_strided_block1_params
 from ..ops.strided_train import strided_block1_train
 from ..ops.temporal import stack_temporal_params, temporal_stack_plain
 from ..ops.temporal_train import temporal_stack_train
+from ..precision import matmul_precision, train_rungs
 from ..utils.schedules import scheduler_by_name
 from .mesh import DataParallel, all_reduce_sum_
 from .sharding import TensorParallel, check_model_tp, gather_params_tp
@@ -273,6 +289,8 @@ def make_loss_fn(model, config: UpliftUpsampleConfig, dataset_name: str = "h36m"
             raise NotImplementedError(f"training with {key} > 0 is not ported")
     if config.OUTPUT_BN:
         raise NotImplementedError("training with OUTPUT_BN is not ported")
+    sp_rung, tm_rung, plain_rung = train_rungs(
+        getattr(config, "TRAIN_MATMUL_PRECISION", "default") or "default")
     root = config.ROOT_KEYTPOINT
     mid = config.SEQUENCE_LENGTH // 2
     b, n, k = config.BATCH_SIZE, config.SEQUENCE_LENGTH, config.NUM_KEYPOINTS
@@ -300,15 +318,17 @@ def make_loss_fn(model, config: UpliftUpsampleConfig, dataset_name: str = "h36m"
 
     def spatial(x, ops, scales):
         if fused_spatial:
-            return spatial_stack_train(x, ops, scales, num_heads=heads)
-        return spatial_stack_plain(x, ops, num_heads=heads, droppath_scales=scales)
+            return spatial_stack_train(x, ops, scales, num_heads=heads, precision=sp_rung)
+        return spatial_stack_plain(x, ops, num_heads=heads, droppath_scales=scales,
+                                   precision=plain_rung, attention_precision=plain_rung)
 
     def temporal(y, ops, key_mask, scales):
         if fused_temporal:
             return temporal_stack_train(y, ops, key_mask, scales, num_heads=heads,
-                                        first_masked_blocks=fmb)
+                                        first_masked_blocks=fmb, precision=tm_rung)
         return temporal_stack_plain(y, ops, key_mask, num_heads=heads,
-                                    first_masked_blocks=fmb, droppath=scales)
+                                    first_masked_blocks=fmb, droppath=scales,
+                                    precision=plain_rung)
 
     def draws(generator, rates, per_window, bb):
         """Stochastic-depth scales (2L, bb·per_window): under dp the rank's
@@ -319,6 +339,7 @@ def make_loss_fn(model, config: UpliftUpsampleConfig, dataset_name: str = "h36m"
         full = make_droppath_scales(generator, rates, b * per_window)
         return full[:, rows.start * per_window:rows.stop * per_window]
 
+    @matmul_precision(plain_rung)
     def apply_model(x, stride_mask, generator):
         params = dict(model.named_parameters())
         if tp is not None:
@@ -356,12 +377,14 @@ def make_loss_fn(model, config: UpliftUpsampleConfig, dataset_name: str = "h36m"
         if model.temporal_depth > 0:
             scales_t = draws(generator, rates_t, 1, bb).reshape(
                 model.temporal_depth, 2, bb).to(x.device)
-            y = temporal(y, stack_temporal_params(params, model.temporal_depth),
-                         key_mask, scales_t)
+            y = temporal(y, stack_temporal_params(
+                params, model.temporal_depth,
+                precision=tm_rung if fused_temporal else plain_rung), key_mask, scales_t)
         if fused_strided:
             full = model.temporal_fc(y).reshape(bb, nn_, model.num_keypoints, 3)
-            y2 = strided_block1_train(y, stack_strided_block1_params(params), num_heads=heads,
-                                      stride=model.strides[0], paddings=model.paddings[0])
+            y2 = strided_block1_train(y, stack_strided_block1_params(params, precision=tm_rung),
+                                      num_heads=heads, stride=model.strides[0],
+                                      paddings=model.paddings[0], precision=tm_rung)
             _, central = model(y2, stride_mask, temporal_input=True, strided_entry=1)
             return full, central
         return model(y, stride_mask, temporal_input=True)

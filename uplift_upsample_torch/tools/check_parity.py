@@ -15,7 +15,10 @@ Variants (the port's names for the JAX tool's):
                     (max_keyframes 15, the fixture's %5 mask)
   shared_<r>        the shared-spatial eval step (host dedup, K1 per unique frame)
   xla_<r>           the plain model on the card under `matmul_precision(r)`
-  fused_<r>         K1 at r, then the plain model from the s2t Dense at r
+  fused_<r>         K1 at r ("high": the JAX tool's fused_high3), then the
+                    plain model from the s2t Dense at "default", as the JAX
+                    tool's XLA tail runs with no precision context on the
+                    TPU; built directly with `spatial_stack_apply`
   h81_<variant>     the h36m_81 geometry (padded strided block 1) against its
                     own truth
 with r "high" or "default" ("highest" too for xla_).
@@ -51,7 +54,8 @@ VARIANTS = ("rung_high", "rung_default", "rung_high_kf", "rung_default_kf",
             "fused_default", "fused_high", "h81_shared_high", "h81_shared_default")
 
 # The JAX tool's bounds (random weights, output scale ~4.6), in milli-units;
-# its "fused_high3" is the port's "fused_high".
+# its "fused_high3" (the spatial kernel at HIGH3, then a bf16 tail) is the
+# port's "fused_high".
 ASSERT_BOUNDS = {
     "rung_high": 0.5,
     "rung_high_kf": 0.5,
@@ -131,6 +135,8 @@ def run_variant(name, model, x, sm):
     from ..eval import make_test_step
 
     kind, rung = name.split("_", 1)
+    if kind == "fused":
+        return fused_variant(rung, model, x, sm)
     max_kf = None
     if rung.endswith("_kf"):
         rung, max_kf = rung[:-3], 15
@@ -147,6 +153,21 @@ def run_variant(name, model, x, sm):
     uq[:len(uniq)] = uniq.reshape(-1, 17, 2)
     idx = torch.from_numpy(inv.reshape(b, n).astype(np.int64)).to(x.device)
     return step(torch.from_numpy(uq).to(x.device), idx, sm)[1]
+
+
+def fused_variant(rung, model, x, sm):
+    """K1 at `rung`, then the model from the s2t Dense under
+    `matmul_precision("default")` (the JAX tool's `fused_<r>`: the spatial
+    kernel at its precision, then the XLA tail at the TPU's DEFAULT)."""
+    from ..ops.spatial import pack_spatial_params, spatial_stack_apply, stack_spatial_params
+    from ..precision import matmul_precision
+
+    ops = stack_spatial_params({k: v.detach() for k, v in model.state_dict().items()},
+                               model.spatial_depth)
+    with torch.inference_mode(), matmul_precision("default"):
+        sp = spatial_stack_apply(ops, x, num_heads=model.num_heads,
+                                 packed=pack_spatial_params(ops), precision=rung)
+        return model(sp, sm, spatial_input=True)[1]
 
 
 def drift_mm(got, truth):

@@ -67,7 +67,11 @@ def dry_config(name: str, batch: int):
               "FIRST_STRIDED_TOKEN_ATTENTION_LAYER": 1, "BATCH_SIZE": batch,
               "OPTIMIZER": "AdamW", "OPTIMIZER_PARAMS": {}, "WEIGHT_DECAY": 4e-6,
               "EMA_ENABLED": True, "EMA_DECAY": 0.999, "EVAL_FLIP": True,
-              "SCHEDULE": "ExponentialDecay"}
+              "SCHEDULE": "ExponentialDecay",
+              # the fp32 training rung: the JAX dry run on the CPU computes fp32
+              # at every rung (XLA:CPU ignores DEFAULT), and its checks hold the
+              # split steps to one process at fp32 tolerances
+              "TRAIN_MATMUL_PRECISION": "high"}
     geometry = {
         "h36m_351": {"SEQUENCE_LENGTH": 71, "SPATIAL_EMBED_DIM": 32,
                      "TEMPORAL_EMBED_DIM": 384, "SPATIAL_TRANSFORMER_BLOCKS": 4,
