@@ -164,7 +164,31 @@ Phases (one line each; any failure ends the run with a non-zero exit):
      one epoch of the training CLI at the class default rung (K6 on) and
      `bench --train --train-precision default`. Phases 2 and 4-10 pin
      "high", the training they checked before the rung was read;
- 13. one JSON line of per-kernel numbers, the card line again, and the last
+ 13. the bf16 serving slice (bf16 activations, row 11 on the bf16 rung and
+     on bf16 operands, the bf16 rung under mp > 1), h36m_351 full width:
+     (a) C7, the eval attention on folded q (1/sqrt(D) in q's weights, as
+     the TPU's eval kernels take it) against its plain version at the
+     float64-sum rung bar (mean 2x, largest 4x), phase 11's K2 and K3 held
+     to that bar, and phase 11's drift matrix: rung_default within [0.75,
+     1.33]x the simulator on the folded map, the unfolded map's ratio beside
+     it; (b) row 11 at the bf16 rung and (c) on bf16 tensors at "high" (one
+     bf16 unit of the plain version) and "default" (the rung bar, its
+     largest taken off the P that lie at a bf16 rounding tie, plus one bf16
+     unit of each such P times |v|, and the mean gap within 0.25 of the
+     rung's drift), at its four shapes (72,704 x 17 x 32; 1,024 x 71 with a
+     key mask, x 23, x 3 x 384), each timed beside "high" and SDPA on bf16,
+     bit-identical on repeat; then the flip witness at strided block 3's
+     shape on eight more seeds: the kernel, the plain version and the plain
+     version with the kernels' base-2 softmax, each output past the 4x bar
+     at a tie and within its allowance; (d) the eval CLI (`main` in
+     process) with --bf16, --pallas and both at EVAL_MATMUL_PRECISION
+     "high" and "default" on phase 5's data at MASK_STRIDE 10 (every
+     metric within 1 % of phase 5's float32 "high"), and the bench CLI at
+     --dtype bfloat16 and --pallas --precision default; (e) K2 and K3 at "default" split over two gloo ranks on the card
+     against one process (their distance to the rung with float64 sums
+     within 2x / 4x of one process's, mean / largest), the split bf16
+     launches timed beside full width;
+ 14. one JSON line of per-kernel numbers, the card line again, and the last
      line `{"ok": true, "device": {...}}`.
 
 It needs a CUDA card and the repository checkout around it; without either it
@@ -1937,18 +1961,21 @@ def tp_rank(rank, world, store, seed, data, out_dir):
     mesh.close()
 
 
-def tp_launch_times(torch, rand, model, fp, windows, n):
+def tp_launch_times(torch, rand, model, fp, windows, n, precision="high"):
     """(name, split ms, full-width ms) of each launch of K2's and K3's blocks
     at mp rank 0's widths beside the same launch at full width, on `windows`
     windows, from the rank's operands (`shard_params_tp`), in this process
-    with nothing else on the card."""
+    with nothing else on the card; `precision` "default" times the bf16
+    instances (`fp` then holds the bf16 planes)."""
     from uplift_upsample_torch.ops.strided import stack_strided_block1_params, strided_conv
     from uplift_upsample_torch.ops.temporal import gemm, stack_temporal_params, window_attention
     from uplift_upsample_torch.parallel.sharding import shard_params_tp
 
     local = shard_params_tp({k: v.detach() for k, v in model.state_dict().items()}, 0, 2)
-    lt, ls = stack_temporal_params(local, model.temporal_depth), stack_strided_block1_params(local)
+    lt = stack_temporal_params(local, model.temporal_depth, precision=precision)
+    ls = stack_strided_block1_params(local, precision=precision)
     ft, fs = fp["temporal"], fp["strided"]
+    plane = "_bf" if precision == "default" else "_tc"
     rows, c, heads = windows * n, model.temporal_d_model, model.num_heads
     x, mask = rand(rows, c), (torch.rand((windows, n), device="cuda") < 0.5).float()
     out = []
@@ -1958,8 +1985,10 @@ def tp_launch_times(torch, rand, model, fp, windows, n):
 
     def product(name, w, b, **kw):  # mp rank 0's epilogue: the bias (and the residual)
         a_l, a_f = rand(rows, lt[w].shape[1]), rand(rows, ft[w].shape[1])
-        pair(name, lambda: gemm(a_l, lt[f"{w}_tc"][0], lt[b][0], counter=None, **kw),
-             lambda: gemm(a_f, ft[f"{w}_tc"][0], ft[b][0], counter=None, **kw))
+        pair(name, lambda: gemm(a_l, lt[w + plane][0], lt[b][0], counter=None,
+                                precision=precision, **kw),
+             lambda: gemm(a_f, ft[w + plane][0], ft[b][0], counter=None, precision=precision,
+                          **kw))
 
     product("qkv", "wqkv", "bqkv")
     product("proj (+ bp + h)", "wp", "bp", residual=x)
@@ -1967,12 +1996,14 @@ def tp_launch_times(torch, rand, model, fp, windows, n):
     product("fc2 (+ b2 + h)", "w2", "b2", residual=x)
     qkv_l, qkv_f = rand(rows, 3 * c // 2), rand(rows, 3 * c)
     pair("attention", lambda: window_attention(qkv_l, mask, windows=windows, n=n,
-                                               num_heads=heads // 2, counter=None),
+                                               num_heads=heads // 2, counter=None,
+                                               precision=precision),
          lambda: window_attention(qkv_f, mask, windows=windows, n=n, num_heads=heads,
-                                  counter=None))
+                                  counter=None, precision=precision))
     h1_l, h1_f = (torch.relu(rand(windows, n, ops["w1"].shape[1])) for ops in (ls, fs))
     xs = rand(windows, n, c)
-    kw = dict(stride=model.strides[0], paddings=model.paddings[0], counter=None)
+    kw = dict(stride=model.strides[0], paddings=model.paddings[0], counter=None,
+              precision=precision)
     pair("conv (+ bc + crop)", lambda: strided_conv(h1_l, xs, ls, **kw),
          lambda: strided_conv(h1_f, xs, fs, **kw))
     return out
@@ -2169,6 +2200,7 @@ def tp_phase(args, torch, np, rng, failed) -> None:
 # ---- phase 11: the bf16 eval rung -----------------------------------------------
 
 BF16_DRIFT_FRAC = 0.25  # mean |kernel - plain| over the rung's mean drift, at most
+PARITY = {}  # the drift matrix's rung_default line (phase 11), which phase 13 reports
 
 
 def rung_checks(torch, got, plain, plain_high, rung64, mean_frac=BF16_DRIFT_FRAC,
@@ -2488,6 +2520,8 @@ def bf16_phase(args, torch, np, rng, failed, record, eval_data):
                                "--assert-bounds"], timeout=300)
     for line in lines:
         log(f"phase 11 check_parity: {line}")
+        if line.startswith("{") and '"rung_default"' in line:
+            PARITY.update(json.loads(line))
     log(f"phase 11 check_parity: exit {rc} after {wall:.1f} s")
     if rc != 0:
         failed.append("bf16_drift_matrix")
@@ -2984,6 +3018,478 @@ def train_rungs_phase(args, torch, np, rng, failed, record):
     return counts
 
 
+# ---- phase 13: the bf16 serving slice -----------------------------------------
+
+SERVE_BF16_SHAPES = (  # row 11 at its four h36m_351 shapes (eval's 1,024-window calls)
+    ("spatial", 72704, 17, 32, False), ("temporal_mask", 1024, 71, 384, True),
+    ("strided2", 1024, 23, 384, False), ("strided3", 1024, 3, 384, False))
+TRAIN_RUNG_BAR = 4.0  # PR 16's bar: largest distance to the float64-sum rung within 4x
+ROW11_SHORT_FLOATS = 1536  # packed_attention.cuh's SHORT_MAX_FLOATS: S·C beyond, tensor cores
+
+
+LOG2E = 1.4426950408889634  # attention.cuh's ATTN_LOG2E
+
+
+def row11_base2_plain(torch, q, k, v, mask, heads):
+    """Row 11's plain version at the bf16 rung with the kernels' base-2
+    softmax: log2(e)/sqrt(D) and the mask's -1e9·log2(e) in one FMA, exp2,
+    then times 1/sum; P and v rounded to bf16 before P·V. A second plain
+    version whose P differs from the first by fp32 units: the witness of
+    which roundings of P flip."""
+    from uplift_upsample_torch.ops.packed_attention import SMALL_DEPTH
+    from uplift_upsample_torch.precision import round_bf16
+
+    f, s, c = q.shape
+    d = c // heads
+    split = lambda t: t.float().reshape(f, s, heads, d).transpose(1, 2)
+    qh, kh, vh = split(q), split(k), split(v)
+    if d > SMALL_DEPTH:
+        qh, kh = round_bf16(qh), round_bf16(kh)
+    lg = qh @ kh.transpose(-1, -2) * (LOG2E / math.sqrt(d))
+    if mask is not None:
+        lg = lg + mask.float()[:, None, None, :] * (-1e9 * LOG2E)
+    p = torch.exp2(lg - lg.amax(dim=-1, keepdim=True))
+    p = p * (1.0 / p.sum(dim=-1, keepdim=True))
+    return (round_bf16(p) @ round_bf16(vh)).transpose(1, 2).reshape(f, s, c)
+
+
+def row11_checks(torch, got, plain, plain_high, rung64, allowance):
+    """Row 11 on the bf16 rung against its plain version, by PR 16's bar:
+    the mean distance to the rung with float64 sums within 2x the plain
+    version's, and the largest within 4x the plain version's, both + 1e-6
+    of the scale; and the mean gap to the plain version within
+    BF16_DRIFT_FRAC of the rung's mean drift from "high", which tells an
+    output rounded to bf16 (bf16 tensors) from one that skipped the rung's
+    roundings before it. Where a P lies at a bf16 rounding tie
+    (`packed_attention.bf16_flip_allowance`), the kernel's base-2 softmax
+    and the plain version's expf round it either way: there an output may
+    also move by the flips' allowance. The plain version's largest is taken
+    off the ties, so a flip of its own does not widen the bar."""
+    _, nums = rung_checks(torch, got, plain, plain_high, rung64, mean_frac=None,
+                          largest=TRAIN_RUNG_BAR)
+    err = (got.double() - rung64).abs()
+    err_plain = (plain.double() - rung64).abs()
+    slack = 1e-6 * float(rung64.abs().max())
+    off = allowance == 0
+    largest_plain = float(err_plain[off].max()) if bool(off.any()) else 0.0
+    bar = TRAIN_RUNG_BAR * largest_plain + slack
+    ok = (nums["rung64_mean"] <= 2 * nums["plain_rung64_mean"] + slack
+          and nums["gap_mean_over_drift"] <= BF16_DRIFT_FRAC
+          and bool((err <= bar + allowance).all()) and bool(torch.isfinite(got).all()))
+    past, past_plain = err > bar, err_plain > bar
+    nums.update(tie_share=float((~off).double().mean()),
+                rung64_max_off_tie=float(err[off].max()) if bool(off.any()) else 0.0,
+                plain_rung64_max_off_tie=largest_plain,
+                past_4x=int(past.sum()), past_4x_plain=int(past_plain.sum()),
+                past_4x_at_tie=int((past & ~off).sum()))
+    return ((float((got.double() - plain.double()).abs().max()),
+             "rung64 mean 2x plain, largest 4x plain off the P ties + the ties' flips, "
+             "mean gap <= 0.25 drift", ok),
+            nums)
+
+
+def row11_flip_witness(torch, np, dev, shape, heads, seeds):
+    """Strided block 3's shape at the bf16 rung on `seeds`: for the kernel,
+    the plain version (expf) and the base-2 plain version, the largest
+    distance to the float64-sum rung and how many outputs lie past 4x the
+    plain version's largest off the ties (each a flipped P rounding), and
+    how many of those lie at a tie within its allowance. Returns
+    (lines, ok): ok when every output past the bar is at a tie and within
+    its allowance, for all three."""
+    from uplift_upsample_torch.ops.packed_attention import (bf16_flip_allowance,
+                                                            packed_attention_plain,
+                                                            packed_multihead_attention)
+    f_, s_, c_ = shape
+    lines, ok = [], True
+    for seed in seeds:
+        g = np.random.default_rng(seed)
+        q, k, v = (torch.from_numpy(g.normal(size=(f_, s_, c_)).astype(np.float32)).to(dev)
+                   for _ in range(3))
+        rung64 = packed_attention_plain(q.double(), k.double(), v.double(), num_heads=heads,
+                                        precision="default")
+        allowance = bf16_flip_allowance(q, k, v, num_heads=heads)
+        outs = dict(kernel=packed_multihead_attention(q, k, v, num_heads=heads,
+                                                      precision="default"),
+                    plain=packed_attention_plain(q, k, v, num_heads=heads, precision="default"),
+                    base2=row11_base2_plain(torch, q, k, v, None, heads))
+        errs = {name: (o.double() - rung64).abs() for name, o in outs.items()}
+        off = allowance == 0
+        bar = TRAIN_RUNG_BAR * float(errs["plain"][off].max()) + 1e-6 * float(
+            rung64.abs().max())
+        parts = []
+        for name, e in errs.items():
+            past = e > bar
+            explained = bool((e[past] <= bar + allowance[past]).all()) and bool(
+                (past & off).sum() == 0)
+            ok = ok and explained
+            parts.append(f"{name} largest {float(e.max()):.3e}, {int(past.sum())} past the "
+                         f"bar{'' if explained else ' (NOT at a tie)'}")
+        lines.append(f"seed {seed}: bar {bar:.3e} (4x the plain's largest off the ties; "
+                     f"{float((~off).double().mean()):.4f} of outputs at a tie); "
+                     + "; ".join(parts))
+    return lines, ok
+
+
+def tp_bf16_rank(rank, world, store, seed, data, out_dir):
+    """Phase 13 (e) as mp rank `rank` of `world` gloo ranks on the one card:
+    K2 and K3 split over the ranks at "default" (their bf16 launches at the
+    split widths) on `data`'s input; saves the outputs, launch counts and the
+    split pass's ms to out_dir/rank<r>.pt."""
+    import torch
+
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
+                      LOCAL_WORLD_SIZE=str(world))
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))  # the ranks share the host
+    from uplift_upsample_torch.configs import get_config
+    from uplift_upsample_torch.models import build_uplift_upsample_transformer
+    from uplift_upsample_torch.models.bench_forward import prepare_fused_params
+    from uplift_upsample_torch.ops import cuda_lib
+    from uplift_upsample_torch.ops.strided import strided_block1
+    from uplift_upsample_torch.ops.temporal import temporal_stack
+    from uplift_upsample_torch.parallel.mesh import init_mesh
+
+    mesh = init_mesh(1, world, device="cuda", backend="gloo", init_method=store)
+    tp, dev = mesh.tp, mesh.device
+    model = build_uplift_upsample_transformer(get_config("h36m_351"), device=dev, seed=seed,
+                                              tp=tp)
+    fp = prepare_fused_params(model, "default")
+    y, key_mask = (t.to(dev) for t in data)
+    kw = dict(num_heads=model.num_heads, tp=tp, precision="default")
+
+    def split_pass():
+        t = temporal_stack(y, fp["temporal"], key_mask, first_masked_blocks=1, **kw)
+        return strided_block1(t, fp["strided"], stride=model.strides[0],
+                              paddings=model.paddings[0], **kw)
+
+    torch.cuda.synchronize()
+    cuda_lib.reset_launches()
+    out = split_pass()
+    torch.cuda.synchronize()
+    torch.save(dict(out=out.cpu(), counts=dict(cuda_lib.LAUNCHES),
+                    ms=time_ms(torch, split_pass, 3)), os.path.join(out_dir, f"rank{rank}.pt"))
+    mesh.close()
+
+
+def bf16_serving_phase(args, torch, np, rng, failed, record, results, eval_data, weights):
+    """Phase 13, the bf16 serving slice at h36m_351 full width, seed --seed:
+    (a) C7, K2's and K3's folded q: the eval attention on folded q against
+    its plain version, phase 11's K2 and K3 at "default" held to PR 16's bar
+    (largest within 4x), and phase 11's drift matrix on the folded map
+    beside the unfolded one; (b) row 11 at the bf16 rung and (c) on bf16
+    operands at "high" and "default", at its four shapes, each timed beside
+    "high" and SDPA on bf16 tensors (`row11_checks`), and the flip witness
+    (`row11_flip_witness`); (d) the eval CLI (`main`, in process)
+    with --bf16, --pallas and both at EVAL_MATMUL_PRECISION "default" and
+    "high" on phase 5's data against phase 5's float32 metrics (every metric
+    within 1 %), and the bench CLI at --dtype bfloat16 and at --pallas
+    --precision default; (e) K2 and K3 at "default" split over 2 gloo ranks
+    on the card against one process, and the split launches timed beside
+    full width. Returns the launch counts by path."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+    import torch.nn.functional as F
+
+    from uplift_upsample_torch.configs import dump_json, get_config
+    from uplift_upsample_torch.eval import main as eval_main
+    from uplift_upsample_torch.models import build_uplift_upsample_transformer
+    from uplift_upsample_torch.models.bench_forward import prepare_fused_params
+    from uplift_upsample_torch.ops import cuda_lib
+    from uplift_upsample_torch.ops.packed_attention import (bf16_flip_allowance,
+                                                            packed_attention_plain,
+                                                            packed_multihead_attention)
+    from uplift_upsample_torch.ops.strided import strided_block1, strided_block1_plain
+    from uplift_upsample_torch.ops.temporal import (temporal_stack, temporal_stack_plain,
+                                                    window_attention, window_attention_plain)
+
+    t_phase = time.perf_counter()
+    card = card_line()
+    dev = torch.device("cuda")
+    f32, f64, bf16 = torch.float32, torch.float64, torch.bfloat16
+    counts = {}
+    log(f"phase 13 card: {card}")
+
+    def rand(*shape, scale=0.5):
+        return torch.from_numpy((rng.normal(size=shape) * scale).astype(np.float32)).to(dev)
+
+    config = get_config("h36m_351")
+    heads, n, c = config.NUM_HEADS, config.SEQUENCE_LENGTH, config.TEMPORAL_EMBED_DIM
+    windows = 2 * config.BATCH_SIZE
+
+    # (a) C7: the eval attention on folded q (K2's and K3's `q_folded`)
+    qkv = rand(windows * n, 3 * c, scale=1.0)
+    km = (torch.rand((windows, n), device=dev) < 0.5).float()
+    kern = lambda r: window_attention(qkv, km, windows=windows, n=n, num_heads=heads,
+                                      counter="probe", precision=r, q_folded=True)
+    plain = lambda r, d: window_attention_plain(qkv.reshape(windows, n, 3 * c).to(d), km.to(d),
+                                                heads, r, q_folded=True).reshape(-1, c)
+    got = kern("default")
+    check, nums = rung_checks(torch, got, plain("default", f32), plain("high", f32),
+                              plain("default", f64), mean_frac=None, largest=TRAIN_RUNG_BAR)
+    qh, kh, vh = (t.reshape(windows, n, heads, c // heads).transpose(1, 2).to(bf16)
+                  for t in qkv.reshape(windows, n, 3 * c).split(c, dim=-1))
+    mask_bf = (km * -1e9)[:, None, None, :].to(bf16)
+    record("window_attention_bf16_folded", "uplift_upsample_torch/csrc/attention.cuh",
+           "uplift_upsample_tpu/ops/pallas_temporal_v3.py:248", check,
+           time_ms(torch, lambda: kern("default"), 10),
+           time_ms(torch, lambda: plain("default", f32), 3), 0,
+           (qkv.numel() + km.numel() + windows * n * c) * F32,
+           library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+               qh, kh, vh, attn_mask=mask_bf, scale=1.0), 10),
+           counter="window_attention_bf16", phase="predict bf16", stage="phase 13 (a)",
+           bf16_flops=windows * 4 * n * n * c,
+           extra=dict(high_ms=time_ms(torch, lambda: kern("high"), 10), **nums))
+    del qkv, km, qh, kh, vh, mask_bf, got
+    for name in ("temporal_stack_bf16", "strided_block1_bf16"):
+        r = results.get(name, {})
+        ok = (bool(r) and r["rung64_mean"] <= 2 * r["plain_rung64_mean"] + 1e-30
+              and r["rung64_max"] <= TRAIN_RUNG_BAR * r["plain_rung64_max"] + 1e-30)
+        log(f"phase 13 (a) {name} (phase 11, folded q): to the float64-sum rung mean "
+            f"{r.get('rung64_mean', float('nan')):.3e} (plain {r.get('plain_rung64_mean', 0):.3e}), "
+            f"largest {r.get('rung64_max', float('nan')):.3e} (plain "
+            f"{r.get('plain_rung64_max', 0):.3e}); PR 16's bar (2x, 4x) {'ok' if ok else 'FAILED'}")
+        if not ok:
+            failed.append(f"c7_{name}")
+    if PARITY:
+        lo, hi = 0.75, 1.33
+        ratio, unfolded = PARITY.get("sim_ratio", float("nan")), PARITY.get("sim_unfolded_ratio",
+                                                                           float("nan"))
+        ok = lo <= ratio <= hi
+        log(f"phase 13 (a) drift matrix (phase 11): rung_default {PARITY['mean_mm']:.4f} "
+            f"milli-units mean, {ratio:.4f}x the simulator's on the folded map "
+            f"({PARITY.get('sim_mean_mm', float('nan')):.4f}; bar [{lo}, {hi}]) "
+            f"{'ok' if ok else 'FAILED'}; beside it the unfolded map "
+            f"{PARITY.get('sim_unfolded_mean_mm', float('nan')):.4f}, {unfolded:.4f}x ({card})")
+        if not ok:
+            failed.append("c7_drift_matrix")
+    else:
+        log("phase 13 (a) drift matrix: no rung_default line from phase 11 FAILED")
+        failed.append("c7_drift_matrix")
+    torch.cuda.empty_cache()
+
+    # (b), (c) row 11 on the bf16 rung and on bf16 operands
+    t0 = time.perf_counter()
+    for tag, f_, s_, c_, masked in SERVE_BF16_SHAPES:
+        q, k, v = (rand(f_, s_, c_, scale=1.0) for _ in range(3))
+        mask = (torch.rand((f_, s_), device=dev) < 0.3).float() if masked else None
+        d_a = c_ // heads
+        split = lambda t: t.reshape(f_, s_, heads, d_a).transpose(1, 2)
+        qb, kb, vb = (t.to(bf16) for t in (q, k, v))
+        add_mask = None if mask is None else (mask * -1e9)[:, None, None, :].to(bf16)
+        sdpa = lambda: F.scaled_dot_product_attention(split(qb), split(kb), split(vb),
+                                                      attn_mask=add_mask)
+        try:
+            sdpa_ms = time_ms(torch, sdpa, 10)
+        except RuntimeError as e:  # a grid over frames x heads past the launch limit
+            from torch.nn.attention import SDPBackend, sdpa_kernel
+            log(f"phase 13 (b) SDPA on bf16 at {tag}: {str(e).splitlines()[0]}; timed on "
+                "its math backend")
+            with sdpa_kernel([SDPBackend.MATH]):
+                sdpa_ms = time_ms(torch, sdpa, 10)
+        pairs = 2 * f_ * s_ * s_ * c_  # one of the two products
+        logit = dict(flops=pairs) if d_a <= 8 else dict(bf16_flops=pairs)  # fp32 FMAs at D <= 8
+        # at "high": the short kernels' FMAs on the CUDA cores, else 3xTF32 on the tensor cores
+        high_ops = dict(flops=2 * pairs) if s_ * c_ <= ROW11_SHORT_FLOATS else dict(
+            tc_flops=2 * pairs)
+        mask_bytes = 0 if mask is None else mask.numel() * F32
+        for name, tensors, rungs, entry in (
+                ("packed_attention_bf16", (q, k, v), ("default",), "packed_attention_bf16"),
+                ("packed_attention_bf16io", (qb, kb, vb), ("high",), "packed_attention_bf16io"),
+                ("packed_attention_bf16io_bf16", (qb, kb, vb), ("default",),
+                 "packed_attention_bf16io_bf16")):
+            rung = rungs[0]
+            elem = tensors[0].element_size()
+            kern = lambda r, t=tensors: packed_multihead_attention(*t, mask, num_heads=heads,
+                                                                   precision=r)
+            plain = lambda r, d, t=tensors: packed_attention_plain(
+                *(x.to(d) for x in t), mask, num_heads=heads, precision=r)
+            got = kern(rung)
+            same = torch.equal(kern(rung), got)
+            ref = packed_attention_plain(*tensors, mask, num_heads=heads, precision=rung)
+            if rung == "high":  # fp32-level sums, rounded to bf16 as they are stored
+                diff = (got.float() - ref.float()).abs()
+                ok = bool((diff <= 2.0 ** -7 * ref.float().abs() + 1e-6).all())
+                check, nums = (float(diff.max()), "one bf16 unit of the plain version", ok), {}
+                ops = high_ops
+            else:
+                check, nums = row11_checks(torch, got, ref, plain("high", ref.dtype),
+                                           plain("default", f64),
+                                           bf16_flip_allowance(*tensors, mask, num_heads=heads))
+                ops = dict(logit, bf16_flops=pairs + logit.get("bf16_flops", 0))
+            if not same:
+                failed.append(f"{name}_{tag}_not_deterministic")
+            record(f"{name}_{tag}", "uplift_upsample_torch/csrc/attention_bf16.cu",
+                   "uplift_upsample_tpu/ops/pallas_attention.py:75", check,
+                   time_ms(torch, lambda: kern(rung), 10),
+                   time_ms(torch, lambda: plain(rung, tensors[0].dtype), 3),
+                   ops.get("flops", 0.0), 4 * q.numel() * elem + mask_bytes,
+                   library_ms=sdpa_ms, counter=entry, tc_flops=ops.get("tc_flops", 0.0),
+                   phase=f"eval {'bf16 ' if elem == 2 else ''}pallas {rung}",
+                   stage=f"phase 13 ({'c' if elem == 2 else 'b'})",
+                   bf16_flops=ops.get("bf16_flops", 0.0),
+                   extra=dict(high_ms=time_ms(torch, lambda: packed_multihead_attention(
+                       q, k, v, mask, num_heads=heads), 10), bit_identical=float(same), **nums))
+        del q, k, v, qb, kb, vb, mask, add_mask
+        torch.cuda.empty_cache()
+    lines, ok = row11_flip_witness(torch, np, dev, SERVE_BF16_SHAPES[-1][1:4], heads,
+                                   [args.seed + i for i in range(1, 9)])
+    for line in lines:
+        log(f"phase 13 (b) flip witness, strided3 at \"default\", {line}")
+    log(f"phase 13 (b) flip witness: every output past PR 16's 4x at a P tie, within its "
+        f"flips' allowance: {'yes' if ok else 'NO'} ({card})")
+    if not ok:
+        failed.append("row11_flip_witness")
+    log(f"phase 13 (b)+(c) wall {time.perf_counter() - t0:.1f} s ({card})")
+
+    # (d) the eval CLI with --bf16, --pallas and both, at "default" and "high"
+    t0 = time.perf_counter()
+    p3, p2, _, _, results_high = eval_data
+    ref = eval_metrics(results_high[10])
+    tmp = tempfile.mkdtemp()
+    cfgs = {}
+    for rung in ("high", "default"):
+        cfgs[rung] = os.path.join(tmp, f"h36m_351_{rung}.json")
+        dump_json("h36m_351", cfgs[rung])
+        with open(cfgs[rung]) as fh:
+            values = json.load(fh)
+        values["EVAL_MATMUL_PRECISION"] = rung
+        with open(cfgs[rung], "w") as fh:
+            json.dump(values, fh)
+    for flags in (["--bf16"], ["--pallas"], ["--bf16", "--pallas"]):
+        for rung in ("high", "default"):
+            label = f"eval {' '.join(f[2:] for f in flags)} {rung}"
+            torch.cuda.synchronize()
+            cuda_lib.reset_launches()
+            t1 = time.perf_counter()
+            try:
+                with contextlib.redirect_stdout(io.StringIO()):
+                    res = eval_main(["--weights", weights, "--config", cfgs[rung], "--dataset",
+                                     p3, "--dataset_2d", p2, "--forced_mask_stride", "10",
+                                     *flags])[10]
+            except Exception as e:  # the case fails; the phase goes on
+                log(f"phase 13 (d) {label}: FAILED: {type(e).__name__}: {e}")
+                failed.append(f"serve_{label}")
+                continue
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+            counts[label] = dict(cuda_lib.LAUNCHES)
+            got = eval_metrics(res)
+            common = [key for key in ref if key in got]
+            worst = max(abs(got[key] - ref[key]) / abs(ref[key]) for key in common)
+            ok = bool(common) and all(np.isfinite(got[key]) for key in got) and worst <= 0.01
+            shown = {key: counts[label].get(key, 0) for key in (
+                "spatial_stack", "temporal_stack", "strided_block1", "packed_attention",
+                "packed_attention_f32", "packed_attention_bf16", "packed_attention_bf16io",
+                "packed_attention_bf16io_bf16", "gemm_bf16", "gemm_f32")}
+            log(f"phase 13 (d) python -m uplift_upsample_torch.eval {' '.join(flags)} at "
+                f"EVAL_MATMUL_PRECISION {rung}, MASK_STRIDE 10: MPJPE "
+                f"{got['all/frame/mpjpe']:.3f} against {ref['all/frame/mpjpe']:.3f} mm at float32 "
+                f"\"high\" (phase 5); the largest relative gap over {len(common)} metrics "
+                f"{worst:.3e} (bar 0.01) {'ok' if ok else 'FAILED'}; wall {wall:.3f} s; "
+                f"launches {shown}")
+            if not ok:
+                failed.append(f"serve_{label}")
+    for cmd in (["--dtype", "bfloat16"], ["--pallas", "--precision", "default"]):
+        rc, lines, wall = run_cli([sys.executable, "-m", "uplift_upsample_torch.bench", "--iters",
+                                   "8", *cmd], timeout=300)
+        result = next((ln for ln in reversed(lines) if ln.startswith("{")), "")
+        summary = next((ln for ln in lines if ln.startswith("# device=")), "")
+        log(f"phase 13 (d) bench {' '.join(cmd)}: exit {rc} after {wall:.1f} s; {summary}")
+        log(f"phase 13 (d) bench {' '.join(cmd)} line: {result}")
+        if rc != 0 or not result or "provisional" in result:
+            failed.append(f"serve_bench_{'_'.join(cmd)}")
+    log(f"phase 13 (d) wall {time.perf_counter() - t0:.1f} s ({card})")
+
+    # (e) the bf16 rung under mp = 2, K2 and K3 split over 2 gloo ranks
+    t0 = time.perf_counter()
+    model = build_uplift_upsample_transformer(config, device="cuda", seed=args.seed)
+    fp = prepare_fused_params(model, "default")
+    y = rand(TP_WINDOWS, n, c)
+    sm_e = (np.arange(n)[None] + rng.integers(0, 5, size=(TP_WINDOWS, 1))) % 5 == 0
+    key_mask = torch.from_numpy(1.0 - sm_e.astype(np.float32)).cuda()
+
+    def one_process(rung):
+        kw = dict(num_heads=heads, precision=rung)
+        t = temporal_stack(y, fp["temporal"], key_mask, first_masked_blocks=1, **kw)
+        return strided_block1(t, fp["strided"], stride=model.strides[0],
+                              paddings=model.paddings[0], **kw)
+
+    ref_default, ref_high = one_process("default"), one_process("high")
+    unsplit_ms = time_ms(torch, lambda: one_process("default"), 3)
+    ops64 = {key: {k_: v.double() if torch.is_tensor(v) and v.is_floating_point() else v
+                   for k_, v in fp[key].items()} for key in ("temporal", "strided")}
+    t64 = temporal_stack_plain(y.double(), ops64["temporal"], key_mask.double(),
+                               num_heads=heads, first_masked_blocks=1, precision="default")
+    rung64 = strided_block1_plain(t64, ops64["strided"], num_heads=heads,
+                                  stride=model.strides[0], paddings=model.paddings[0],
+                                  precision="default").cpu()
+    del ops64, t64
+    launches = tp_launch_times(torch, rand, model, fp, 1024, n, precision="default")
+    log(f"phase 13 (e) bf16 launches at mp rank 0's widths beside full width, 1024 windows "
+        f"({card}): " + "; ".join(f"{name} {a:.4f} ms vs {b:.4f}" for name, a, b in launches))
+    del model, fp
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp_e:
+        ctx = mp.start_processes(tp_bf16_rank, nprocs=TP_RANKS, join=False,
+                                 start_method="spawn",
+                                 args=(TP_RANKS, f"file://{tmp_e}/store", args.seed,
+                                       (y.cpu(), key_mask.cpu()), tmp_e))
+        try:
+            while not ctx.join(timeout=5.0):
+                if time.perf_counter() - t0 > 240:
+                    raise TimeoutError(f"{TP_RANKS} ranks still running after 240 s")
+            ranks = [torch.load(os.path.join(tmp_e, f"rank{r}.pt"), weights_only=False)
+                     for r in range(TP_RANKS)]
+        except Exception as e:  # the check fails; no rank's result is used
+            log(f"phase 13 (e): the {TP_RANKS} ranks FAILED: {type(e).__name__}: {e}")
+            failed.append("serve_tp_bf16_ranks")
+            ranks = None
+        finally:
+            for proc in ctx.processes:
+                if proc.is_alive():
+                    proc.kill()
+                    proc.join(10)
+    if ranks is not None:
+        drift = (ref_default - ref_high).abs().cpu().double()
+        gaps = [(r["out"].double() - ref_default.cpu().double()).abs() for r in ranks]
+        mean_frac = max(float(g.mean() / drift.mean()) for g in gaps)
+        max_frac = max(float(g.max() / drift.max()) for g in gaps)
+        # the one-process kernels' distance to the rung with float64 sums, and the split's
+        one = (ref_default.cpu().double() - rung64).abs()
+        split = [(r["out"].double() - rung64).abs() for r in ranks]
+        slack = 1e-6 * float(rung64.abs().max())
+        held = all(float(e.mean()) <= 2 * float(one.mean()) + slack
+                   and float(e.max()) <= TRAIN_RUNG_BAR * float(one.max()) + slack for e in split)
+        want = ("gemm_bf16", "window_attention_bf16", "strided_conv_bf16")
+        launched = all(r["counts"].get(key, 0) > 0 and r["counts"].get(
+            key.replace("_bf16", "_f32"), 0) == 0 for r in ranks for key in want)
+        ok = held and launched
+        log(f"phase 13 (e) K2 ({config.TEMPORAL_TRANSFORMER_BLOCKS} blocks, key mask in block 1) "
+            f"and K3 at \"default\" split over {TP_RANKS} gloo ranks on one card, {TP_WINDOWS} "
+            f"windows: to the rung with float64 sums mean "
+            + ", ".join(f"{float(e.mean()):.3e}" for e in split)
+            + f", largest " + ", ".join(f"{float(e.max()):.3e}" for e in split)
+            + f" against one process's {float(one.mean()):.3e} / {float(one.max()):.3e} (bar 2x "
+            f"/ {TRAIN_RUNG_BAR}x); the gap to one process {mean_frac:.4f} (mean) / "
+            f"{max_frac:.4f} (largest) of the rung's drift from \"high\" (reported: two bf16 "
+            f"computations of the five blocks that sum in another order); launches per rank "
+            + "; ".join(str({key: r["counts"].get(key, 0) for key in want + (
+                "temporal_stack", "strided_block1")}) for r in ranks)
+            + "; split pass ms per rank (all-reduces through the host) "
+            + ", ".join(f"{r['ms']:.3f}" for r in ranks)
+            + f", one process {unsplit_ms:.3f} ({card}); {'ok' if ok else 'FAILED'}")
+        if not ok:
+            failed.append("serve_tp_bf16")
+    log(f"phase 13 (e) wall {time.perf_counter() - t0:.1f} s; phase 13 wall "
+        f"{time.perf_counter() - t_phase:.1f} s ({card})")
+    for label, entry in (("eval pallas default", "packed_attention_bf16"),
+                         ("eval bf16 pallas high", "packed_attention_bf16io"),
+                         ("eval bf16 pallas default", "packed_attention_bf16io_bf16")):
+        if counts.get(label, {}).get(entry, 0) == 0:
+            failed.append(f"no_launch_{entry}")
+    return counts
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -3015,9 +3521,9 @@ def main(argv=None) -> int:
                                                    spatial_stack_apply, spatial_stack_plain)
     from uplift_upsample_torch.ops.spatial_bwd import (spatial_stack_bwd,
                                                        spatial_stack_bwd_plain)
-    from uplift_upsample_torch.ops.strided import (output_length, strided_block1,
-                                                   strided_block1_plain, strided_conv,
-                                                   strided_conv_plain)
+    from uplift_upsample_torch.ops.strided import (output_length, stack_strided_block1_params,
+                                                   strided_block1, strided_block1_plain,
+                                                   strided_conv, strided_conv_plain)
     from uplift_upsample_torch.ops.strided_train import (conv_dh1, conv_dh1_plain, conv_dwc,
                                                          conv_dwc_plain, saved_relu_mask,
                                                          strided_block1_bwd_plain,
@@ -3025,7 +3531,7 @@ def main(argv=None) -> int:
                                                          strided_train_bwd,
                                                          strided_train_fwd)
     from uplift_upsample_torch.ops.temporal import (gemm, layernorm,
-                                                    temporal_stack,
+                                                    stack_temporal_params, temporal_stack,
                                                     temporal_stack_plain,
                                                     window_attention,
                                                     window_attention_plain)
@@ -3428,7 +3934,10 @@ def main(argv=None) -> int:
     del got, ref, dpk, dxk, ddk, dpp, dxp, ddpp, pairs, dp64, dx64, dd64
     torch.cuda.empty_cache()
 
-    tm_ops_t = tfp["temporal"]
+    # the train step's operands: q unscaled (the eval's fold is not the
+    # training kernels', `pallas_strided.py:43-46`)
+    tstate = {key: v.detach() for key, v in tmodel.state_dict().items()}
+    tm_ops_t = stack_temporal_params(tstate, tmodel.temporal_depth)
     fmb_t = tmodel.first_strided_token_attention_layer
 
     def key_mask(b_, n_):
@@ -3626,7 +4135,7 @@ def main(argv=None) -> int:
 
     # K6: strided block 1 in training on the temporal stack's output at the
     # train step's shapes (512 x 71 x 384, s0 = 3), forward and backward.
-    st_ops, s0 = tfp["strided"], tmodel.strides[0]
+    st_ops, s0 = stack_strided_block1_params(tstate), tmodel.strides[0]
     n_out_t = output_length(nt, s0, (0, 0))
     kw6 = dict(num_heads=heads, stride=s0, paddings=(0, 0))
     cot6 = rand(bt, n_out_t, c, scale=1.0)
@@ -3800,19 +4309,24 @@ def main(argv=None) -> int:
     # ---- phase 11: the bf16 eval rung ---------------------------------------
     starts.append(("11", time.perf_counter()))
     bf16_counts = bf16_phase(args, torch, np, rng, failed, record, eval_data)
-    data_dir.cleanup()
 
     # ---- phase 12: the training rungs ----------------------------------------
     starts.append(("12", time.perf_counter()))
     rung_counts = train_rungs_phase(args, torch, np, rng, failed, record)
+
+    # ---- phase 13: the bf16 serving slice ------------------------------------
+    starts.append(("13", time.perf_counter()))
+    serve_counts = bf16_serving_phase(args, torch, np, rng, failed, record, results, eval_data,
+                                      os.path.join(data_dir.name, "h36m_351.npz"))
+    data_dir.cleanup()
     counts_by_phase = {"predict": counts, "train": train_counts, "eval": eval_counts,
                        "eval_pallas": pallas_counts, "train_cli": cli_counts,
-                       **route_counts, **bf16_counts, **rung_counts}
+                       **route_counts, **bf16_counts, **rung_counts, **serve_counts}
     for r in results.values():
         r["launches"] = counts_by_phase[r.pop("phase")].get(r.pop("counter"), 0)
 
-    # ---- phase 13: report ----------------------------------------------------
-    starts.append(("13", time.perf_counter()))
+    # ---- phase 14: report ----------------------------------------------------
+    starts.append(("14", time.perf_counter()))
     log("phase wall times: " + ", ".join(
         f"{name} {t1 - t0_:.1f} s" for (name, t0_), (_, t1) in zip(starts, starts[1:])))
     if failed:

@@ -187,8 +187,8 @@ K1 = {
                      "      if (blk == 0) {  // stage this block's weights")],
 }
 # row 11's short kernels without their arithmetic, and without their loads
-_TASK_CALL = "      task_attend<D>(qc, kh, kh + gf, mk, s, c, o);\n"
-_LANE_CALL = "      lane_attend<NV, SMAX>(qr, kr, vr, mk, s, lph, scale2, o);\n"
+_TASK_CALL = "      task_attend<D, BF16>(qc, kh, kh + gf, mk, s, c, o);\n"
+_LANE_CALL = "      lane_attend<NV, SMAX, BF16>(qr, kr, vr, mk, s, lph, scale2, o);\n"
 _ADD3 = "make_float4({a}.x + {b}.x + {c}.x, {a}.y + {b}.y + {c}.y, {a}.z + {b}.z + {c}.z, " \
         "{a}.w + {b}.w + {c}.w)"
 _BULK = ("    mbar_expect_tx(bar, 2 * bytes);\n"
@@ -197,24 +197,24 @@ _BULK = ("    mbar_expect_tx(bar, 2 * bytes);\n"
 SHORT = {
     "kernel": [],
     "copies only": [
-        ("attention.cu", _TASK_CALL,
+        ("packed_attention.cuh", _TASK_CALL,
          "      for (int u = 0; u < D / 4; ++u) o[u] = "
          + _ADD3.format(a="qc[u]", b="(*reinterpret_cast<const float4*>(kh + 4 * u))",
                         c="(*reinterpret_cast<const float4*>(kh + gf + 4 * u))") + ";\n"),
-        ("attention.cu", _LANE_CALL,
+        ("packed_attention.cuh", _LANE_CALL,
          "      for (int u = 0; u < NV; ++u) {\n        o[u] = qr[u];\n"
          "        for (int j = 0; j < SMAX; ++j)\n          if (j < s) o[u] = "
          + _ADD3.format(a="o[u]", b="kr[j][u]", c="vr[j][u]") + ";\n      }\n")],
     "compute only": [
-        ("attention.cu", "  return __ldg(reinterpret_cast<const float4*>(p));\n",
+        ("packed_attention.cuh", "  return __ldg(reinterpret_cast<const float4*>(p));\n",
          "  const float a = (float)((size_t)p % 4096) * 1e-4f;\n"
          "  return make_float4(a, a, a, a);\n"),
-        ("attention.cu", _BULK,
+        ("packed_attention.cuh", _BULK,
          '    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\\n" :: "r"(bar) : '
          '"memory");\n')],
-    "3 blocks per SM": [("attention.cu", "constexpr int TASK_BLOCKS = 2;",
+    "3 blocks per SM": [("packed_attention.cuh", "constexpr int TASK_BLOCKS = 2;",
                          "constexpr int TASK_BLOCKS = 3;")],
-    "1 block per SM": [("attention.cu", "constexpr int TASK_BLOCKS = 2;",
+    "1 block per SM": [("packed_attention.cuh", "constexpr int TASK_BLOCKS = 2;",
                         "constexpr int TASK_BLOCKS = 1;")],
 }
 # the probes --only selects; "dense" is the attention, GEMM, dW and conv groups

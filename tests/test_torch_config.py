@@ -40,11 +40,16 @@ def test_fixture_config_loads():
 
 def test_model_kwargs_match_jax_build():
     """The port's config → model mapping agrees with the JAX factory on every
-    bundled config (dtype and dropout fields excepted: the port is fp32 and
-    eval-only)."""
+    bundled config (dropout fields excepted: the port's training raises on
+    them). The compute dtypes map onto the JAX ones: None is the parameters'
+    float32, torch.bfloat16 jnp.bfloat16."""
+    import jax.numpy as jnp
     from uplift_upsample_tpu.models import build_uplift_upsample_transformer as jax_build
 
     from uplift_upsample_torch.models.build import model_kwargs
+
+    def jax_dtype(value):
+        return None if value is None else jnp.dtype(str(value).removeprefix("torch."))
 
     for name in CONFIGS:
         config = get_config(name)
@@ -52,4 +57,9 @@ def test_model_kwargs_match_jax_build():
             config.MASK_STRIDE = config.MASK_STRIDE[0]
         ref = jax_build(config)
         for key, value in model_kwargs(config).items():
-            assert getattr(ref, key) == value, (name, key)
+            if key == "dtype":
+                assert jnp.dtype(ref.dtype) == (jax_dtype(value) or jnp.float32), (name, key)
+            elif key == "spatial_dtype":
+                assert ref.spatial_dtype == jax_dtype(value), (name, key)
+            else:
+                assert getattr(ref, key) == value, (name, key)

@@ -148,21 +148,35 @@ def test_h36m_351_param_count_and_init():
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32", None])
 def test_spatial_compute_dtype_float32_only(dtype):
-    """SPATIAL_COMPUTE_DTYPE is read: the JAX package runs the spatial stage
-    in it (`spatial_dtype`); the port runs float32 only, so any other value
-    raises as COMPUTE_DTYPE's does instead of running float32 silently."""
+    """SPATIAL_COMPUTE_DTYPE is read (C2): the JAX package runs the spatial
+    stage in it (`spatial_dtype`). The port raised for bfloat16 until bf16
+    activations were ported; now "bfloat16" runs the spatial stage's Dense
+    layers on bf16 tensors (the rest of the model at COMPUTE_DTYPE float32),
+    and float32 or None keep the whole model float32, bit for bit as one
+    built without the key. Parameters stay float32 either way."""
     from uplift_upsample_torch.config import UpliftUpsampleConfig
     from uplift_upsample_torch.models import build_uplift_upsample_transformer
 
-    config = UpliftUpsampleConfig()
-    config.update_from({"SEQUENCE_LENGTH": 9, "SPATIAL_EMBED_DIM": 16,
-                        "TEMPORAL_EMBED_DIM": 32, "SPATIAL_TRANSFORMER_BLOCKS": 1,
-                        "TEMPORAL_TRANSFORMER_BLOCKS": 1, "STRIDES": [3, 3],
-                        "PADDINGS": [[0, 0], [0, 0]], "NUM_HEADS": 4,
-                        "DROP_PATH_RATE": 0.0, "SPATIAL_COMPUTE_DTYPE": dtype})
+    def build(value):
+        config = UpliftUpsampleConfig()
+        config.update_from({"SEQUENCE_LENGTH": 9, "SPATIAL_EMBED_DIM": 16,
+                            "TEMPORAL_EMBED_DIM": 32, "SPATIAL_TRANSFORMER_BLOCKS": 1,
+                            "TEMPORAL_TRANSFORMER_BLOCKS": 1, "STRIDES": [3, 3],
+                            "PADDINGS": [[0, 0], [0, 0]], "NUM_HEADS": 4,
+                            "DROP_PATH_RATE": 0.0, "SPATIAL_COMPUTE_DTYPE": value})
+        return build_uplift_upsample_transformer(config, device="cpu", seed=0)
+
+    model, plain = build(dtype), build(None)
+    assert next(model.parameters()).dtype == torch.float32
+    x = torch.from_numpy(np.random.default_rng(0).normal(size=(2, 9, 17, 2))
+                         .astype(np.float32))
+    with torch.inference_mode():
+        got, want = model(x)[1], plain(x)[1]
+    assert got.dtype == torch.float32
     if dtype == "bfloat16":
-        with pytest.raises(ValueError, match="SPATIAL_COMPUTE_DTYPE"):
-            build_uplift_upsample_transformer(config, device="cpu", seed=0)
+        assert model.spatial_dtype == torch.bfloat16 and model.dtype is None
+        assert model.spatial_block_1.mlp.fc1.dtype == torch.bfloat16
+        assert model.temporal_block_1.mlp.fc1.dtype is None
+        assert not torch.equal(got, want)
     else:
-        model = build_uplift_upsample_transformer(config, device="cpu", seed=0)
-        assert next(model.parameters()).dtype == torch.float32
+        assert model.spatial_dtype is None and torch.equal(got, want)

@@ -133,9 +133,10 @@ def test_config_flag_reaches_packed_attention(monkeypatch):
 
     calls = []
 
-    def counting(q, k, v, mask=None, *, num_heads):
+    def counting(q, k, v, mask=None, *, num_heads, precision="high"):
         calls.append((tuple(q.shape), None if mask is None else tuple(mask.shape)))
-        return packed_multihead_attention(q, k, v, mask, num_heads=num_heads)
+        return packed_multihead_attention(q, k, v, mask, num_heads=num_heads,
+                                          precision=precision)
 
     monkeypatch.setattr(primitives, "packed_multihead_attention", counting)
     config = resolve_config(os.path.join(FIXTURE_DIR, "eval_small_config.json"))

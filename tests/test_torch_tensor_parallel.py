@@ -13,7 +13,8 @@ against one process and the JAX package's TP mesh (tests/test_parallel.py):
     replicated parameters bit-identical over the mp peers;
   - `make_test_step(tp=)`, fused "none" and "full", shared-spatial and
     dense, with flip-TTA, at mp = 2 and 2 × 2 against the dp step over
-    every rank at 1e-4, shared-spatial also against the JAX TP step;
+    every rank at 1e-4, shared-spatial also against the JAX TP step; at
+    mp = 2 on the bf16 rung against one process within the rung's bar;
   - the dry run's resume (`tools/dryrun_multichip.py`) within 1e-6;
   - the dry-run tool at `--device cpu --config tiny --devices 4`: exit 0,
     MULTICHIP_CORE_OK and 9/9 stages; without a card and without
@@ -269,6 +270,44 @@ def test_tp_eval_step_matches_dp_step_and_jax(tmp_path, dp, mp):
                 np.testing.assert_allclose(tp_out[0], dp_out[0], atol=1e-4, err_msg=case)
         np.testing.assert_allclose(got["none_shared"]["tp"][1], np.asarray(j_central),
                                    atol=1e-4)
+
+
+def test_tp_eval_step_at_the_bf16_rung(tmp_path):
+    """The bf16 rung (EVAL_MATMUL_PRECISION "default") split over mp = 2:
+    make_test_step(tp=) with flip-TTA, fused "none" (the split modules,
+    every product rounded) and "full" (K2 and K3 split: the plain versions
+    of their bf16 launches at the split widths), dense and shared-spatial,
+    against one process at "default". The split sums the proj, fc2 and conv
+    partials over mp before their biases, which reorders fp32 sums and flips
+    a later bf16 rounding now and then, so the bar is the rung's: the mean
+    gap within 0.25 of the rung's mean drift from "high" and the largest
+    within 0.75 of its largest (measured 0.015 / 0.18 for "full"; "none"
+    gave the one-process bits at this tiny width)."""
+    from uplift_upsample_torch.eval import make_test_step
+
+    config = _tiny()
+    model = build_uplift_upsample_transformer(config, device="cpu", seed=0)
+    state = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    dense, shared = _eval_inputs(config)
+    flip = config.AUGM_FLIP_KEYPOINT_ORDER
+    cases, ref = {}, {}
+    for fused in ("none", "full"):
+        for name, inputs in (("dense", dense), ("shared", shared)):
+            kwargs = dict(flip_tta=True, flip_lr_indices=flip, fused=fused,
+                          shared_spatial=name == "shared")
+            cases[f"{fused}_{name}"] = (dict(kwargs, precision="default"), inputs)
+            ref[f"{fused}_{name}"] = [make_test_step(model, precision=rung, **kwargs)(
+                *(torch.from_numpy(a) for a in inputs))[1].numpy() for rung in ("default", "high")]
+    ranks = _spawn(eval_steps, tmp_path, 1, 2, config.to_dict(), _save_init(tmp_path, state),
+                   cases)
+    for got in ranks:
+        for case, (default, high) in ref.items():
+            gap, drift = np.abs(got[case]["tp"][1] - default), np.abs(default - high)
+            assert drift.mean() > 0, case
+            print(f"{case}: {gap.mean() / drift.mean():.4f} / {gap.max() / drift.max():.4f} "
+                  "of the rung's drift")
+            assert gap.mean() <= 0.25 * drift.mean() and gap.max() <= 0.75 * drift.max(), (
+                case, gap.mean() / drift.mean(), gap.max() / drift.max())
 
 
 def test_tp_resume_matches_in_memory(tmp_path):

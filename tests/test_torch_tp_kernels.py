@@ -8,8 +8,10 @@ bytes into a row of 576 floats), and the conv over 384 hidden channels with
 zeros in place of the residual and bc on ranks other than 0.
 
 `gpu` tests: each launch against its plain version and float64, and
-bit-identical on repeat. They decide inside the test whether there is a
-card and skip without one. JAX is not imported here:
+bit-identical on repeat; each launch's bf16 instance at mp rank 0's widths
+(the bf16 rung under mp > 1) against its plain version at "default" within
+the rung's drift. They decide inside the test whether there is a card and
+skip without one. JAX is not imported here:
 
     python -m pytest --noconftest -m gpu tests/test_torch_tp_kernels.py
 """
@@ -150,3 +152,62 @@ def test_split_conv(windows, first):
                                ops["bc"].double(), **kw)
     ok, err, err_plain = _f64_ok(got, ref, ref64)
     assert ok, (err, err_plain)
+
+
+def _within_drift(got, ref, high):
+    """The bf16 rung's bar for one launch: the mean gap to the plain version
+    within 0.25 of the rung's mean drift from "high" (chip_smoke phase 11's
+    BF16_DRIFT_FRAC) and the largest within the rung's largest drift."""
+    gap, drift = (got - ref).abs(), (ref - high).abs()
+    return (float(gap.mean()) <= 0.25 * float(drift.mean())
+            and float(gap.max()) <= float(drift.max())), float(gap.mean() / drift.mean())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("part", ["qkv", "proj", "fc1", "fc2", "attention", "conv"])
+def test_bf16_launches_at_split_widths(part):
+    """The bf16 rung under mp = 2 (A4): each of K2's and K3's launches at mp
+    rank 0's widths on the bf16 planes (`gemm_bf16`, `window_attention_bf16`
+    on folded q, `strided_conv_bf16`) against its plain version at
+    "default", 1,024 windows, and bit-identical on repeat."""
+    from uplift_upsample_torch.ops.temporal import bf16_plane
+    from uplift_upsample_torch.precision import mm
+
+    _card()
+    rng = np.random.default_rng(len(part))
+    windows, m, c = 1024, 1024 * N_TOKENS, 192
+    if part == "attention":
+        qkv = _rand(rng, m, 3 * c)
+        km = (torch.rand((windows, N_TOKENS), device="cuda") < 0.6).float()
+        run = lambda r: window_attention(qkv, km, windows=windows, n=N_TOKENS, num_heads=4,
+                                         counter="test", precision=r, q_folded=True)
+        plain = lambda r: window_attention_plain(qkv.reshape(windows, N_TOKENS, 3 * c), km, 4,
+                                                 r, q_folded=True).reshape(-1, c)
+        entry = "window_attention_bf16"
+    elif part == "conv":
+        h1, x = torch.relu(_rand(rng, windows, N_TOKENS, 384)), _rand(rng, windows, N_TOKENS, 384)
+        ops = dict(wc=_rand(rng, 3 * 384, 384, scale=0.03), bc=_rand(rng, 384, scale=0.1))
+        ops["wc_bf"] = bf16_plane(ops["wc"])
+        kw = dict(stride=3, paddings=(0, 0))
+        run = lambda r: strided_conv(h1, x, ops, counter="test", precision=r, **kw)
+        plain = lambda r: strided_conv_plain(h1, x, ops["wc"], ops["bc"], precision=r, **kw)
+        entry = "strided_conv_bf16"
+    else:
+        k, n, bias, residual, relu = {"qkv": GEMMS[0], "proj": GEMMS[1], "fc1": GEMMS[3],
+                                      "fc2": GEMMS[4]}[part]
+        a, w = _rand(rng, m, k), _rand(rng, k, n, scale=0.05)
+        b, res = _rand(rng, n, scale=0.1), (_rand(rng, m, n) if residual else None)
+        a = torch.relu(a) if part == "fc2" else a
+        run = lambda r: gemm(a, bf16_plane(w), b, residual=res, relu=relu, counter="test",
+                             precision=r)
+
+        def plain(r):
+            y = mm(a, w, r) + b
+            return (torch.relu(y) if relu else y) + (0 if res is None else res)
+        entry = "gemm_bf16"
+    cuda_lib.reset_launches()
+    got, again = run("default"), run("default")
+    torch.cuda.synchronize()
+    assert cuda_lib.LAUNCHES[entry] == 2 and torch.equal(got, again)
+    ok, frac = _within_drift(got, plain("default"), plain("high"))
+    assert ok, frac

@@ -34,7 +34,9 @@ Prints ONE JSON line on stdout; progress and a summary line on stderr.
 kernels' bf16 instances, `precision.py`); --train-precision puts the
 training rung (TRAIN_MATMUL_PRECISION: "default", "mixed", "high",
 "highest") into the train step's config, as the JAX bench does; --dtype
-bfloat16 (bf16 activations) raises. --eval-wpt, --spatial-block-f,
+bfloat16 (COMPUTE_DTYPE: bf16 activations) runs the eval step's model at
+bf16 (the fused kernels keep fp32 operands, the tail runs bf16) and raises
+with --train (ROADMAP A10). --eval-wpt, --spatial-block-f,
 --train-spatial-attn and --train-wpt are TPU kernel tilings: they are read
 and logged, and change nothing.
 """
@@ -166,6 +168,7 @@ def bench_train(args, bench: Bench, torch, dev):
         "TRAIN_FUSED_SPATIAL": args.train_fused,
         "TRAIN_FUSED_TEMPORAL": args.train_fused_temporal,
         "TRAIN_MATMUL_PRECISION": args.train_precision,
+        "COMPUTE_DTYPE": args.dtype,  # bfloat16 raises in the step (ROADMAP A10)
     })
     bench.progress("building model + optimizer state")
     model = build_uplift_upsample_transformer(config, device=dev, seed=0)
@@ -355,8 +358,9 @@ def parse_args(argv=None):
     parser.add_argument("--batch", type=int, default=None,
                         help="batch size (default: 2048 eval / 512 train)")
     parser.add_argument("--iters", type=int, default=32)
-    parser.add_argument("--dtype", default="float32",
-                        help="float32; bfloat16 is not ported (raises)")
+    parser.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"],
+                        help="COMPUTE_DTYPE of the eval step's model; bfloat16 with "
+                             "--train raises (ROADMAP A10)")
     parser.add_argument("--flip-tta", action="store_true")
     parser.add_argument("--pallas", action="store_true",
                         help="USE_PALLAS_ATTENTION: the packed attention kernel in the "
@@ -421,7 +425,7 @@ def main(argv=None) -> None:
     from .precision import check_rung
     from .models.build import resolve_device
 
-    check_rung(args.precision, use_pallas=args.pallas)
+    check_rung(args.precision)
     dev = resolve_device(args.device)
     bench = Bench(float(os.environ.get("BENCH_BUDGET_S", "540")))
     bench.start_watchdog()

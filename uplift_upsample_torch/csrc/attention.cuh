@@ -11,7 +11,10 @@
 // q, k and v are read through base pointers and one row stride, so the same
 // kernel serves K2's packed q|k|v rows (k = q + C, v = q + 2C, stride 3C) and
 // row 11's three (F, S, C) tensors (stride C). The output is (F, S, C). Any
-// S <= 128 and any head depth D whose tiles fit in shared memory.
+// S <= 128 and any head depth D whose tiles fit in shared memory. Row 11
+// also takes bf16 tensors (T = __nv_bfloat16, COMPUTE_DTYPE bfloat16): they
+// are widened to fp32 as they are staged and the context is rounded to bf16
+// as it is stored; everything between is the fp32 kernel.
 //
 // What bounds it: bytes. At 1,024 windows x 71 tokens x 384 channels a call
 // reads q, k and v and writes the context, 447 MB (0.133 ms at 3.35 TB/s);
@@ -46,18 +49,23 @@
 //    such a row.
 //  - The context is normalised by the row sum as it leaves the registers;
 //    only the real query rows and the D real columns are written.
+//  - The logits' factor `scale` (base 2) is the caller's: log2(e)/sqrt(D),
+//    or log2(e) alone where q's columns of the qkv weights carry 1/sqrt(D)
+//    already (K2's and K3's operands, folded as the TPU's eval kernels fold
+//    them: `_transposed_operands(q_scale=)`, pallas_temporal_v3.py:319-322).
 //  - The bf16 mode (BF16, the one-pass bf16 rung; K2's and K3's
-//    `window_attention_bf16`): q and k rounded to bf16 as they are loaded
-//    (the scale applied to the logits after the product, as the TPU's
-//    DEFAULT dot on q and k computes them), and P·V on the probabilities
-//    normalised first, then rounded, with v rounded: one TF32 product per
-//    pair of rounded operands (tf32.cuh), fp32 sums.
+//    `window_attention_bf16`, row 11's `packed_attention_bf16`): q and k
+//    rounded to bf16 as they are loaded (the logits' factor after the
+//    product, as the TPU's DEFAULT dot on q and k computes them), and P·V on
+//    the probabilities normalised first, then rounded, with v rounded: one
+//    TF32 product per pair of rounded operands (tf32.cuh), fp32 sums.
 //  - Its training variant (QS, K5's and K6's `window_attention_train_bf16`,
 //    temporal_bwd.cu): q multiplied by 1/sqrt(D) before it is rounded, the
 //    logits then only carry log2(e), as the TPU's training kernel scales q
 //    before its DEFAULT dot (pallas_temporal_bwd.py:420-426).
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -103,6 +111,37 @@ __device__ __forceinline__ void stage_head(float* dst, int pitch, const float* s
     else
       cp_async4(dst + r * pitch + e, s, in ? 4 : 0);
   }
+}
+
+// stage_head for bf16 tensors: loaded through registers (4 values, 8 bytes,
+// at a time with `vec`), widened to fp32 in the same tile layout.
+__device__ __forceinline__ void stage_head(float* dst, int pitch, const __nv_bfloat16* src,
+                                           int row_stride, int rows, int real, int d,
+                                           int dp, bool vec) {
+  const int step = vec ? 4 : 1;
+  const int chunks = dp / step;
+  for (int i = threadIdx.x; i < rows * chunks; i += blockDim.x) {
+    const int r = i / chunks, e = (i % chunks) * step;
+    const bool in = r < real && e < d;
+    const __nv_bfloat16* s = src + (size_t)r * row_stride + e;
+    if (vec) {
+      float4 f = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (in) {
+        const uint2 raw = __ldg(reinterpret_cast<const uint2*>(s));
+        f = make_float4(__uint_as_float(raw.x << 16), __uint_as_float(raw.x & 0xffff0000u),
+                        __uint_as_float(raw.y << 16), __uint_as_float(raw.y & 0xffff0000u));
+      }
+      *reinterpret_cast<float4*>(dst + r * pitch + e) = f;
+    } else {
+      dst[r * pitch + e] = in ? __bfloat162float(*s) : 0.f;
+    }
+  }
+}
+
+// One context value into the output tensor: as it is, or rounded to bf16.
+__device__ __forceinline__ void store_out(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_out(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
 }
 
 // Warps per SM the register budget is sized for (see the note at the top).
@@ -154,12 +193,15 @@ __device__ __forceinline__ void qk_step(float (&s)[NT][4], const float* qw, cons
 // so at most (NT+1)/2 warps); CW: 8-column steps of D per pass of P·V (the
 // context accumulators in registers), D <= 8·CW in one pass; BF16: the bf16
 // mode, QS its training variant (the note at the top: `scale` is then q's
-// factor 1/sqrt(D), and the logits take log2(e) alone).
-template <int NT, int CW, bool BF16, bool QS = false>
+// factor 1/sqrt(D), and the logits take log2(e) alone); T: the tensors'
+// type, float or __nv_bfloat16 (row 11's bf16 operands); RQK false keeps
+// Q·Kᵀ at 3xTF32 in the bf16 mode (row 11 at head depth <= 8, whose TPU
+// logits are fp32 FMAs), P·V still one pass on rounded operands.
+template <int NT, int CW, bool BF16, bool QS = false, typename T = float, bool RQK = true>
 __global__ void __launch_bounds__((NT + 1) / 2 * 32, attn_min_blocks((NT + 1) / 2))
-head_attention_tc_kernel(const float* __restrict__ q_base, const float* __restrict__ k_base,
-                         const float* __restrict__ v_base, int row_stride,
-                         const float* __restrict__ key_mask, float* __restrict__ out,
+head_attention_tc_kernel(const T* __restrict__ q_base, const T* __restrict__ k_base,
+                         const T* __restrict__ v_base, int row_stride,
+                         const float* __restrict__ key_mask, T* __restrict__ out,
                          int n, int c, int heads, float scale, bool vec) {
   static_assert(BF16 || !QS, "q's rounding after its scale is a bf16 mode");
   extern __shared__ float4 attn_smem[];  // 16-byte aligned for cp.async
@@ -198,9 +240,10 @@ head_attention_tc_kernel(const float* __restrict__ q_base, const float* __restri
 #pragma unroll
   for (int kk = 0; kk < CW; ++kk) {
     if (kk >= dk) break;
-    qk_step<NT, BF16, QS>(s, qw, ks, pq, kk, nt, g, t, scale);
+    qk_step<NT, BF16 && RQK, QS>(s, qw, ks, pq, kk, nt, g, t, scale);
   }
-  for (int kk = CW; kk < dk; ++kk) qk_step<NT, BF16, QS>(s, qw, ks, pq, kk, nt, g, t, scale);
+  for (int kk = CW; kk < dk; ++kk)
+    qk_step<NT, BF16 && RQK, QS>(s, qw, ks, pq, kk, nt, g, t, scale);
 
   // softmax over each row in registers: a row's 8·nt keys sit in one quad
   const float ls = QS ? ATTN_LOG2E : scale;  // QS: the scale is in q already
@@ -245,8 +288,8 @@ head_attention_tc_kernel(const float* __restrict__ q_base, const float* __restri
 
   // context = P·V, 8·CW columns of D per pass
   const int row0 = warp * 16 + g, row1 = row0 + 8;
-  float* out0 = out + ((size_t)seq * n + row0) * c + (size_t)h * d;
-  float* out1 = out0 + (size_t)8 * c;
+  T* out0 = out + ((size_t)seq * n + row0) * c + (size_t)h * d;
+  T* out1 = out0 + (size_t)8 * c;
   for (int c0 = 0; c0 < dk; c0 += CW) {
     float o[CW][4];
 #pragma unroll
@@ -292,24 +335,24 @@ head_attention_tc_kernel(const float* __restrict__ q_base, const float* __restri
       const int col = 8 * (c0 + cc) + 2 * t;
       if (c0 + cc < dk) {
         if (row0 < n) {
-          if (col < d) out0[col] = o[cc][0] * f0;
-          if (col + 1 < d) out0[col + 1] = o[cc][1] * f0;
+          if (col < d) store_out(out0 + col, o[cc][0] * f0);
+          if (col + 1 < d) store_out(out0 + col + 1, o[cc][1] * f0);
         }
         if (row1 < n) {
-          if (col < d) out1[col] = o[cc][2] * f1;
-          if (col + 1 < d) out1[col + 1] = o[cc][3] * f1;
+          if (col < d) store_out(out1 + col, o[cc][2] * f1);
+          if (col + 1 < d) store_out(out1 + col + 1, o[cc][3] * f1);
         }
       }
     }
   }
 }
 
-template <int NT, int CW, bool BF16, bool QS>
-cudaError_t launch_head_attention_tc(const float* q, const float* k, const float* v,
-                                     int row_stride, const float* key_mask, float* out,
-                                     int seqs, int n, int c, int heads, size_t smem,
-                                     int threads, bool vec, cudaStream_t stream) {
-  auto kernel = head_attention_tc_kernel<NT, CW, BF16, QS>;
+template <int NT, int CW, bool BF16, bool QS, typename T, bool RQK>
+cudaError_t launch_head_attention_tc(const T* q, const T* k, const T* v, int row_stride,
+                                     const float* key_mask, T* out, int seqs, int n, int c,
+                                     int heads, float scale, size_t smem, int threads,
+                                     bool vec, cudaStream_t stream) {
+  auto kernel = head_attention_tc_kernel<NT, CW, BF16, QS, T, RQK>;
   if (smem > 48 * 1024) {
     int dev = 0, optin = 0;
     cudaGetDevice(&dev);
@@ -319,26 +362,22 @@ cudaError_t launch_head_attention_tc(const float* q, const float* k, const float
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
-  // QS: q's factor, fp32(1/sqrt(D)) rounded once from double as the TPU
-  // kernel's np.float32 constant
-  const float scale = QS ? (float)(1.0 / sqrt((double)(c / heads)))
-                         : ATTN_LOG2E / sqrtf((float)(c / heads));
   kernel<<<(unsigned)seqs * heads, threads, smem, stream>>>(
       q, k, v, row_stride, key_mask, out, n, c, heads, scale, vec);
   return cudaGetLastError();
 }
 
-template <int CW, bool BF16, bool QS>
-cudaError_t launch_head_attention_nt(const float* q, const float* k, const float* v,
-                                     int row_stride, const float* key_mask, float* out,
-                                     int seqs, int n, int c, int heads, size_t smem,
-                                     int threads, bool vec, cudaStream_t stream) {
+template <int CW, bool BF16, bool QS, typename T, bool RQK = true>
+cudaError_t launch_head_attention_nt(const T* q, const T* k, const T* v, int row_stride,
+                                     const float* key_mask, T* out, int seqs, int n, int c,
+                                     int heads, float scale, size_t smem, int threads,
+                                     bool vec, cudaStream_t stream) {
   const int nt = (n + 7) / 8;
-#define UU_ATTN_CASE(NT_)                                                                   \
-  if (nt <= NT_)                                                                            \
-    return launch_head_attention_tc<NT_, CW, BF16, QS>(q, k, v, row_stride, key_mask, out,  \
-                                                       seqs, n, c, heads, smem, threads, vec, \
-                                                       stream);
+#define UU_ATTN_CASE(NT_)                                                                 \
+  if (nt <= NT_)                                                                          \
+    return launch_head_attention_tc<NT_, CW, BF16, QS, T, RQK>(                           \
+        q, k, v, row_stride, key_mask, out, seqs, n, c, heads, scale, smem, threads, vec, \
+        stream);
   UU_ATTN_CASE(3)
   UU_ATTN_CASE(6)
   UU_ATTN_CASE(9)
@@ -348,34 +387,47 @@ cudaError_t launch_head_attention_nt(const float* q, const float* k, const float
   return cudaErrorInvalidValue;
 }
 
+// The logits' factor in base 2 for head depth d, q unscaled: log2(e)/sqrt(d)
+// (row 11, K5's and K6's forward at fp32). With q's 1/sqrt(d) folded into
+// the weights (K2, K3) it is ATTN_LOG2E alone.
+inline float attn_scale2(int d) { return ATTN_LOG2E / sqrtf((float)d); }
+
 // Attention on `seqs` sequences of n <= 128 tokens (BF16: the bf16 mode, QS
-// its training variant); returns the launch's error (shared memory above
-// 48 KB is opted into first).
-template <bool BF16 = false, bool QS = false>
-inline cudaError_t launch_head_attention(const float* q, const float* k, const float* v,
-                                         int row_stride, const float* key_mask, float* out,
-                                         int seqs, int n, int c, int heads,
-                                         cudaStream_t stream) {
+// its training variant; T: the tensors' type; RQK false: the bf16 mode keeps
+// Q·Kᵀ at 3xTF32, for head depths <= 8 only, as row 11 picks it). `scale` is
+// the logits' factor in base 2 (attn_scale2, or ATTN_LOG2E on folded q);
+// with QS, q's factor fp32(1/sqrt(D)) (the logits then take ATTN_LOG2E).
+// Returns the launch's error (shared memory above 48 KB is opted into first).
+template <bool BF16 = false, bool QS = false, typename T = float, bool RQK = true>
+inline cudaError_t launch_head_attention(const T* q, const T* k, const T* v, int row_stride,
+                                         const float* key_mask, T* out, int seqs, int n,
+                                         int c, int heads, float scale, cudaStream_t stream) {
   if (seqs <= 0 || n <= 0 || n > ATTN_MAX_SEQ || heads <= 0 || c % heads != 0)
     return cudaErrorInvalidValue;
   const int d = c / heads, dp = (d + 7) & ~7, dk = dp / 8;
   const int warps = (n + 15) / 16, nk = (n + 7) & ~7;
   const size_t smem = sizeof(float) * ((size_t)(16 * warps + nk) * attn_qk_pitch(dp) +
                                        (size_t)nk * attn_v_pitch(dp) + nk);
-  const auto aligned = [](const float* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+  const auto aligned = [](const T* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
   const bool vec = aligned(q) && aligned(k) && aligned(v) && row_stride % 4 == 0 && d % 4 == 0;
   const int threads = warps * 32;
-  if (dk <= 2)
-    return launch_head_attention_nt<2, BF16, QS>(q, k, v, row_stride, key_mask, out, seqs, n, c,
-                                             heads, smem, threads, vec, stream);
-  if (dk <= 4)
-    return launch_head_attention_nt<4, BF16, QS>(q, k, v, row_stride, key_mask, out, seqs, n, c,
-                                             heads, smem, threads, vec, stream);
-  if (dk <= 6)
-    return launch_head_attention_nt<6, BF16, QS>(q, k, v, row_stride, key_mask, out, seqs, n, c,
-                                             heads, smem, threads, vec, stream);
-  return launch_head_attention_nt<8, BF16, QS>(q, k, v, row_stride, key_mask, out, seqs, n, c,
-                                           heads, smem, threads, vec, stream);
+  if constexpr (!RQK) {
+    static_assert(BF16, "Q·Kᵀ unrounded is a choice of the bf16 mode");
+    if (dk > 1) return cudaErrorInvalidValue;  // one 8-column step of D: CW 2 holds it
+    return launch_head_attention_nt<2, BF16, QS, T, false>(q, k, v, row_stride, key_mask, out,
+                                                           seqs, n, c, heads, scale, smem,
+                                                           threads, vec, stream);
+  } else {
+#define UU_ATTN_CW(CW_)                                                                       \
+  return launch_head_attention_nt<CW_, BF16, QS, T>(q, k, v, row_stride, key_mask, out, seqs, \
+                                                    n, c, heads, scale, smem, threads, vec,   \
+                                                    stream);
+    if (dk <= 2) UU_ATTN_CW(2)
+    if (dk <= 4) UU_ATTN_CW(4)
+    if (dk <= 6) UU_ATTN_CW(6)
+    UU_ATTN_CW(8)
+#undef UU_ATTN_CW
+  }
 }
 
 }  // namespace uu

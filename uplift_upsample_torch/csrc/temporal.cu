@@ -25,6 +25,9 @@
 // `window_attention_bf16` launch the same kernels' bf16 instances (operands
 // rounded to bf16, one TF32 pass, fp32 sums; gemm_tc.cuh, attention.cuh),
 // the GEMM on W's bf16-rounded plane; the LayerNorm is the same fp32 kernel.
+// On every rung the eval's operands carry 1/sqrt(D) in q's columns of wqkv
+// and bqkv, as the TPU's eval kernels fold it, so the attention rounds
+// q·1/sqrt(D) and scales nothing after its product (`q_folded`).
 // Bound at 1,024 windows: ~0.17 TFLOP per block at the 989 TFLOP/s dense
 // bf16 peak, 0.18 ms; this simple instance runs one TF32 pass (495 TFLOP/s).
 
@@ -104,14 +107,27 @@ extern "C" int layernorm_f32(const float* x, const float* pe, const float* gamma
   return cudaGetLastError();
 }
 
+// The window attention of K2 and K3 (K5's and K6's forward at fp32 too);
+// qkv (windows*n, 3c). `q_folded`: q's columns of the qkv weights carry
+// fp32(1/sqrt(D)) (the eval's operands, as the TPU's eval kernels fold it:
+// pallas_temporal_v3.py:319-322, pallas_strided.py:40-70), so the logits
+// take no further factor; 0: q unscaled, the logits scaled after the product.
 extern "C" int window_attention_f32(const float* qkv, const float* key_mask, float* out,
-                                    int windows, int n, int c, int heads, void* stream) {
+                                    int windows, int n, int c, int heads, int q_folded,
+                                    void* stream) {
   return uu::launch_head_attention(qkv, qkv + c, qkv + 2 * c, 3 * c, key_mask, out, windows,
-                                   n, c, heads, (cudaStream_t)stream);
+                                   n, c, heads,
+                                   q_folded ? uu::ATTN_LOG2E : uu::attn_scale2(c / heads),
+                                   (cudaStream_t)stream);
 }
 
+// window_attention_f32 on the bf16 rung: on folded q, bf16(q·s)·bf16(k), the
+// v3 kernel's DEFAULT dot.
 extern "C" int window_attention_bf16(const float* qkv, const float* key_mask, float* out,
-                                     int windows, int n, int c, int heads, void* stream) {
+                                     int windows, int n, int c, int heads, int q_folded,
+                                     void* stream) {
   return uu::launch_head_attention<true>(qkv, qkv + c, qkv + 2 * c, 3 * c, key_mask, out,
-                                         windows, n, c, heads, (cudaStream_t)stream);
+                                         windows, n, c, heads,
+                                         q_folded ? uu::ATTN_LOG2E : uu::attn_scale2(c / heads),
+                                         (cudaStream_t)stream);
 }

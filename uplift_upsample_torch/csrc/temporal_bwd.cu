@@ -748,8 +748,12 @@ extern "C" int window_attention_bwd_bf16(const float* qkv, const float* dctx,
 extern "C" int window_attention_train_bf16(const float* qkv, const float* key_mask, float* out,
                                            int windows, int n, int c, int heads,
                                            void* stream) {
+  // q's factor fp32(1/sqrt(D)), rounded once from double as the TPU
+  // kernel's np.float32 constant
   return uu::launch_head_attention<true, true>(qkv, qkv + c, qkv + 2 * c, 3 * c, key_mask, out,
-                                               windows, n, c, heads, (cudaStream_t)stream);
+                                               windows, n, c, heads,
+                                               (float)(1.0 / sqrt((double)(c / heads))),
+                                               (cudaStream_t)stream);
 }
 
 // out[c] = sum over r (in order) of part[r, c].

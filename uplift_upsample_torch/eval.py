@@ -10,15 +10,18 @@ reads are computed; the shared spatial stage runs K1 once per unique frame.
 CLI:
     python -m uplift_upsample_torch.eval --weights w.h5 --config h36m_351 \\
         --dataset data_3d_h36m.npz --dataset_2d data_2d_h36m_cpn_ft_h36m_dbb.npz \\
-        [--pallas] [--device cuda|cpu]
+        [--pallas] [--bf16] [--device cuda|cpu]
 
 On the card (the default) the step runs the kernel path: K1 on the unique
 frames, the s2t Dense, K2, K3 and the plain tail (with `--pallas`, the tail's
 attention through row 11). `--device cpu` runs the plain model.
 EVAL_MATMUL_PRECISION "default" (the TPU's one-pass bf16 rung) runs the
 kernels' bf16 instances and the plain products on bf16-rounded operands
-(`precision.py`); "high" and "highest" run fp32-level products. `--weights`
-takes a Keras `.h5` (needs h5py) or the npz of `tools/convert_weights.py`.
+(`precision.py`); "high" and "highest" run fp32-level products. `--bf16`
+(COMPUTE_DTYPE bfloat16) runs the model's layers on bf16 activations, as the
+JAX model's `dtype` does (on the card the kernels keep fp32 operands and
+the tail runs bf16). `--weights` takes a Keras `.h5` (needs h5py) or the
+npz of `tools/convert_weights.py`.
 
 Data parallel, one process per card (rank 0 prints the results):
     torchrun --nproc-per-node N -m uplift_upsample_torch.eval ...
@@ -125,7 +128,7 @@ def make_test_step(model, flip_tta: bool, flip_lr_indices, fused: str = "none",
     runs the model's split modules, "full" K1 on gathered spatial weights,
     K2 and K3 split over mp and the split tail (`bench_forward`).
     """
-    check_rung(precision, use_pallas=model.use_pallas, tp=model.tp)
+    check_rung(precision)
     check_model_tp(model, tp)
     if precision == "highest" and fused == "full":
         # the strictest rung runs the plain model, as the JAX step switches
@@ -295,7 +298,7 @@ def scatter_parts(pred_parts, num_examples: int, num_keypoints: int) -> np.ndarr
     counts = [len(positions) for _, positions in pred_parts]
     for (rows, _), count in zip(pred_parts, counts):
         assert rows.shape[0] == count, (rows.shape, count)
-    all_pred = torch.cat([rows for rows, _ in pred_parts]).cpu().numpy()
+    all_pred = torch.cat([rows for rows, _ in pred_parts]).float().cpu().numpy()
     assert all_pred.shape[0] == sum(counts), (all_pred.shape, sum(counts))
     start = 0
     for (_, positions), count in zip(pred_parts, counts):
@@ -685,8 +688,8 @@ def main(argv=None):
                         action="store_true")
     parser.set_defaults(disable_learned_upsampling=False)
     parser.add_argument("--bf16", action="store_true",
-                        help="bfloat16 activations, COMPUTE_DTYPE (not ported: raises; "
-                             "the bf16 matmul rung is EVAL_MATMUL_PRECISION 'default')")
+                        help="bfloat16 activations (COMPUTE_DTYPE); the bf16 matmul rung "
+                             "is EVAL_MATMUL_PRECISION 'default'")
     parser.add_argument("--pallas", action="store_true",
                         help="the packed attention kernel in every attention layer "
                              "(USE_PALLAS_ATTENTION)")

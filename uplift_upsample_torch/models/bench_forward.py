@@ -32,8 +32,21 @@ bf16 rung, runs the bf16 instances of K1, K2, K3 and the s2t kernel (K1's
 17-token attention stays fp32, as on the TPU) and the plain products (the
 s2t Dense, the tail) under `precision.matmul_precision("default")`, which
 rounds their operands too. It needs `prepare_fused_params(model, "default")`
-(the weights' bf16 planes), runs unsplit only (mp > 1 raises), and not with
-`use_pallas` (row 11 has no bf16 rung: ROADMAP A8).
+(the weights' bf16 planes); split over mp > 1 K2 and K3 launch their bf16
+instances at the split widths, and with `use_pallas` the tail's attention
+takes row 11's bf16 instances.
+
+K2's and K3's operands carry 1/sqrt(D) in q's columns of the qkv weights and
+biases on every rung (`prepare_fused_params`), as the JAX eval kernels fold
+it (`_transposed_operands(q_scale=)`, `stack_strided_block1_params(
+fold_q_scale=True)`).
+
+A model at COMPUTE_DTYPE bfloat16 (`model.dtype`) keeps the kernels' fp32
+operands, as the JAX routes do (`weights_dtype=jnp.float32`): K1, the s2t
+product (fp32 at the rung: the JAX route's `sp @ kernel + bias` on the fp32
+parameters), the token and PE, K2 and K3 run as at float32, and the tail
+(`model(..., temporal_input=True)`) casts to bf16 and runs the model's bf16
+modules (with `use_pallas`, row 11 on bf16 tensors).
 
 Under tensor parallelism (the model built with `tp`, mp > 1) the default
 route runs K2 and K3 split over the mp ranks on the rank's operands
@@ -61,10 +74,9 @@ from ..ops.spatial import (pack_spatial_params, spatial_stack, spatial_stack_app
                            stack_spatial_params)
 from ..ops.strided import DENSE as STRIDED_DENSE
 from ..ops.strided import stack_strided_block1_params, strided_block1
-from ..ops.temporal import stack_temporal_params, temporal_stack
-from ..ops.temporal import add_bf16_planes
+from ..ops.temporal import add_bf16_planes, folded_q_scale, stack_temporal_params, temporal_stack
 from ..parallel.sharding import gather_params_tp
-from ..precision import BF16, check_rung, current, matmul_precision
+from ..precision import BF16, check_rung, current, matmul_precision, rung_linear
 from .uplift_upsample import UpliftUpsampleTransformer
 
 TEMPORAL_IMPLS = ("v3", "v2")
@@ -103,15 +115,18 @@ def check_tp_route(model: UpliftUpsampleTransformer, temporal_impl: str = "v3",
 def prepare_fused_params(model: UpliftUpsampleTransformer, precision: str = "high") -> Dict:
     """The kernels' operands, stacked once from the model's weights: under
     mp > 1 K2's and K3's from the rank's shards, K1's from the spatial
-    weights gathered whole. On the bf16 rung (`precision` "default") also
-    the dense weights' bf16 planes (K1 rounds its own as it stages them)."""
-    bf16 = check_rung(precision, model.use_pallas, model.tp) == BF16
+    weights gathered whole; K2's and K3's with 1/sqrt(D) folded into q's
+    columns (the eval kernels' operands). On the bf16 rung (`precision`
+    "default") also the dense weights' bf16 planes (K1 rounds its own as
+    it stages them)."""
+    bf16 = check_rung(precision) == BF16
     state = {k: v.detach() for k, v in model.state_dict().items()}
     whole = gather_params_tp(state, model.tp)
+    q_scale = folded_q_scale(model.temporal_d_model, model.num_heads)
     ops = dict(
         spatial=stack_spatial_params(whole, model.spatial_depth),
-        temporal=stack_temporal_params(state, model.temporal_depth),
-        strided=(stack_strided_block1_params(state)
+        temporal=stack_temporal_params(state, model.temporal_depth, q_scale=q_scale),
+        strided=(stack_strided_block1_params(state, q_scale=q_scale)
                  if can_fuse_strided(model) else None),
         s2t=s2t_params(model, precision),
     )
@@ -149,7 +164,7 @@ def bench_forward(model: UpliftUpsampleTransformer, x2d_masked: torch.Tensor,
     """
     del temporal_wpt, strided_sel  # the same launches on every value
     check_tp_route(model, temporal_impl, temporal_attn, fuse_s2t)
-    rung = check_rung(current() if precision is None else precision, model.use_pallas, model.tp)
+    rung = check_rung(current() if precision is None else precision)
     if fused_params is None:
         fused_params = prepare_fused_params(model, rung)
     with matmul_precision(rung):
@@ -175,13 +190,13 @@ def _bench_forward(model, x2d_masked, stride_mask, fused_params, max_keyframes,
                               dim=1)[:, :max_keyframes]              # (B, KF)
         xg = torch.gather(x2d_masked, 1, order[:, :, None, None].expand(
             -1, -1, *x2d_masked.shape[2:]))
-        y = model.spatial_to_temporal_fc(_spatial(model, xg, fused_params))
+        y = _s2t(model, _spatial(model, xg, fused_params))
         # inverse gather: frame t ← its keyframe rank (masked frames point at
         # an arbitrary real row; the token substitution replaces them)
         inv = (torch.cumsum(smb.to(torch.int64), dim=1) - 1).clamp(min=0)
         y = torch.gather(y, 1, inv[:, :, None].expand(-1, -1, y.shape[-1]))
     else:
-        y = model.spatial_to_temporal_fc(_spatial(model, x2d_masked, fused_params))
+        y = _s2t(model, _spatial(model, x2d_masked, fused_params))
     return _post_s2t(model, y, stride_mask, fused_params, assume_dense_mask, fuse_strided)
 
 
@@ -213,7 +228,7 @@ def shared_spatial_forward(model: UpliftUpsampleTransformer, unique2d: torch.Ten
     """
     del temporal_wpt, strided_sel  # the same launches on every value
     check_tp_route(model, temporal_impl, temporal_attn)
-    rung = check_rung(current() if precision is None else precision, model.use_pallas, model.tp)
+    rung = check_rung(current() if precision is None else precision)
     if fused_params is None:
         fused_params = prepare_fused_params(model, rung)
     fuse_strided = can_fuse_strided(model, temporal_impl, temporal_attn)
@@ -221,9 +236,16 @@ def shared_spatial_forward(model: UpliftUpsampleTransformer, unique2d: torch.Ten
         sp = spatial_stack(unique2d.contiguous(), fused_params["spatial"],
                            num_heads=model.num_heads,
                            packed=fused_params["spatial_packed"], precision=rung)  # (U, P·C)
-        y_u = model.spatial_to_temporal_fc(sp)                     # (U, C)
+        y_u = _s2t(model, sp)                                      # (U, C)
         return _post_s2t(model, y_u[win_idx], stride_mask, fused_params, assume_dense_mask,
                          fuse_strided)
+
+
+def _s2t(model, sp):
+    """The s2t Dense on K1's output, fp32 at the current rung whatever the
+    model's dtype (the JAX routes' `sp @ fc["kernel"] + fc["bias"]`)."""
+    fc = model.spatial_to_temporal_fc
+    return rung_linear(sp, fc.weight, fc.bias)
 
 
 def _spatial(model, x2d, fused_params):

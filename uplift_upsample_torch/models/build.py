@@ -34,14 +34,33 @@ def config_has_strided_input(config: UpliftUpsampleConfig) -> bool:
     return True
 
 
+COMPUTE_DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
+
+
+def compute_dtypes(config: UpliftUpsampleConfig):
+    """(dtype, spatial_dtype) of COMPUTE_DTYPE and SPATIAL_COMPUTE_DTYPE, as
+    the JAX builder reads them (`uplift_upsample_tpu/models/build.py:26,50-52`):
+    None for float32 (the parameters' dtype), torch.bfloat16; the spatial
+    one None when unset (the model's), torch.float32 when float32 is asked
+    for under a bf16 model."""
+    def read(key, value):
+        if value not in COMPUTE_DTYPES:
+            raise ValueError(f"{key} {value!r}: expected one of {sorted(COMPUTE_DTYPES)}")
+        return COMPUTE_DTYPES[value]
+
+    dtype = read("COMPUTE_DTYPE", getattr(config, "COMPUTE_DTYPE", "float32") or "float32")
+    spatial = getattr(config, "SPATIAL_COMPUTE_DTYPE", None)
+    if spatial is None:
+        return dtype, None
+    spatial_dtype = read("SPATIAL_COMPUTE_DTYPE", spatial)
+    if spatial_dtype is None and dtype is not None:
+        spatial_dtype = torch.float32
+    return dtype, spatial_dtype
+
+
 def model_kwargs(config: UpliftUpsampleConfig) -> dict:
     """The model's constructor arguments from a config."""
-    dtype = getattr(config, "COMPUTE_DTYPE", "float32")
-    if dtype != "float32":
-        raise ValueError(f"COMPUTE_DTYPE {dtype!r}: the port runs float32 only")
-    spatial_dtype = getattr(config, "SPATIAL_COMPUTE_DTYPE", None)
-    if spatial_dtype not in (None, "float32"):
-        raise ValueError(f"SPATIAL_COMPUTE_DTYPE {spatial_dtype!r}: the port runs float32 only")
+    dtype, spatial_dtype = compute_dtypes(config)
     return dict(
         full_output=not config.USE_REFINE,
         num_frames=config.SEQUENCE_LENGTH,
@@ -63,6 +82,8 @@ def model_kwargs(config: UpliftUpsampleConfig) -> dict:
         token_mask_rate=config.TOKEN_MASK_RATE,
         learnable_masked_token=config.LEARNABLE_MASKED_TOKEN,
         use_pallas=bool(getattr(config, "USE_PALLAS_ATTENTION", False)),
+        dtype=dtype,
+        spatial_dtype=spatial_dtype,
     )
 
 

@@ -19,8 +19,17 @@ Numeric parity targets (reference `vision_transformer.py`, strided variants in
   - Products follow the matmul precision context (`precision.py`): the Dense
     layers (`Dense`), the strided conv (`StridedConv1d`) and the attention's
     two products round their operands to bf16 on the "default" rung and run
-    as nn.Linear / nn.Conv1d / fp32 matmuls on the others. The packed
-    attention op has no bf16 rung and raises there (ROADMAP A8).
+    as nn.Linear / nn.Conv1d / fp32 matmuls on the others; the packed
+    attention op takes the context's rung (row 11's bf16 instances).
+  - `dtype` (COMPUTE_DTYPE, SPATIAL_COMPUTE_DTYPE; flax's `dtype=` of the
+    JAX modules): None computes in the parameters' dtype at the context's
+    rung. torch.bfloat16 casts each Dense's and the conv's input, weights and
+    bias to bf16 (a bf16 output: `F.linear` / `F.conv1d` on bf16 tensors, as
+    flax's Dense(dtype=bfloat16) on the TPU, whatever the rung); LayerNorm
+    takes its statistics in fp32 and returns `dtype`; the attention's logits
+    and softmax are fp32, the probabilities rounded to bf16 for P·V and the
+    context bf16 (`ops/attention.py`). Parameters stay fp32. Training at a
+    dtype other than the parameters' raises (`parallel/train_step.py`).
 
 Tensor parallelism (`tp`, a `parallel.sharding.TensorParallel` with size >
 1): MultiHeadAttention, Mlp and StridedMlp hold their mp rank's shard (the
@@ -49,7 +58,7 @@ from torch import nn
 from ..ops.attention import scaled_dot_product_attention
 from ..ops.packed_attention import MAX_SEQ, packed_multihead_attention
 from ..parallel.sharding import TensorParallel, active, copy_to_tp, reduce_from_tp
-from ..precision import BF16, current, rung_conv1d, rung_linear
+from ..precision import current, rung_conv1d, rung_linear
 
 # flax's truncated_normal(stddev) samples N(0, 1) truncated to [-2, 2] and
 # divides by this constant (the std of that truncated law), so the draw has
@@ -73,18 +82,80 @@ def pe_init_(t: torch.Tensor, generator: Optional[torch.Generator],
                           generator=generator)
 
 
+def _cast(t: Optional[torch.Tensor], dtype: Optional[torch.dtype]):
+    return t if t is None or dtype is None else t.to(dtype)
+
+
+def _add_bias(y: torch.Tensor, bias: Optional[torch.Tensor], dtype) -> torch.Tensor:
+    """flax's `y += bias` after the product, in the product's dtype (a second
+    rounding on bf16 tensors)."""
+    return y if bias is None else y + bias.to(dtype)
+
+
+def linear(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor] = None,
+           dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """flax's Dense(dtype=`dtype`), weight (out, in): for bf16 the product of
+    bf16 tensors (input and weight cast; fp32 sums, a bf16 output), then the
+    bias added in bf16; otherwise at the matmul precision context's rung, x
+    cast to `dtype` first."""
+    if dtype == torch.bfloat16:
+        return _add_bias(F.linear(x.to(dtype), weight.to(dtype)), bias, dtype)
+    return rung_linear(_cast(x, dtype), weight, bias)
+
+
 class Dense(nn.Linear):
-    """nn.Linear whose product follows the matmul precision context."""
+    """nn.Linear whose product follows the matmul precision context, or
+    runs on `dtype` tensors (`linear`)."""
+
+    dtype: Optional[torch.dtype] = None
 
     def forward(self, x):
-        return rung_linear(x, self.weight, self.bias)
+        return linear(x, self.weight, self.bias, self.dtype)
 
 
 class StridedConv1d(nn.Conv1d):
-    """nn.Conv1d (VALID) whose products follow the matmul precision context."""
+    """nn.Conv1d (VALID) whose products follow the matmul precision context,
+    or run on bf16 tensors at `dtype` bfloat16."""
+
+    dtype: Optional[torch.dtype] = None
 
     def forward(self, x):
-        return rung_conv1d(x, self.weight, self.bias, self.stride[0])
+        return conv1d(x, self.weight, self.bias, self.stride[0], self.dtype)
+
+
+def conv1d(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor], stride: int,
+           dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """The VALID conv as `linear` takes its product: on bf16 tensors at bf16,
+    the bias added after it."""
+    if dtype == torch.bfloat16:
+        y = F.conv1d(x.to(dtype), weight.to(dtype), None, stride)
+        return y if bias is None else y + bias.to(dtype)[:, None]
+    return rung_conv1d(_cast(x, dtype), weight, bias, stride)
+
+
+class LayerNorm(nn.LayerNorm):
+    """nn.LayerNorm; with `dtype`, flax's LayerNorm(dtype=...): the input
+    widened to fp32, its statistics as flax takes them (E[x²] - E[x]², the
+    fast variance, clipped at 0), (x - mean) · (rsqrt(var + eps) · scale) +
+    bias in fp32, the output in `dtype`."""
+
+    dtype: Optional[torch.dtype] = None
+
+    def forward(self, x):
+        if self.dtype is None:
+            return super().forward(x)
+        x = x.float()
+        mean = x.mean(-1, keepdim=True)
+        var = ((x * x).mean(-1, keepdim=True) - mean * mean).clamp(min=0.0)
+        y = (x - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
+        return y.to(self.dtype)
+
+
+def set_dtype(module: nn.Module, dtype: Optional[torch.dtype]) -> None:
+    """`dtype` on every Dense, conv and LayerNorm under `module`."""
+    for m in module.modules():
+        if isinstance(m, (Dense, StridedConv1d, LayerNorm)):
+            m.dtype = dtype
 
 
 def dense(in_features: int, out_features: int, bias: bool = True,
@@ -98,6 +169,11 @@ def dense(in_features: int, out_features: int, bias: bool = True,
 
 
 def gelu_exact(x: torch.Tensor) -> torch.Tensor:
+    """The exact GELU; on bf16 tensors jax.nn.gelu's bf16 arithmetic,
+    0.5·x·erfc(-x·bf16(sqrt(0.5))), each operation rounded to bf16."""
+    if x.dtype == torch.bfloat16:
+        half = torch.tensor(0.5 ** 0.5, dtype=torch.bfloat16)
+        return 0.5 * x * torch.erfc(-x * half)
     return F.gelu(x, approximate="none")
 
 
@@ -152,7 +228,8 @@ class Mlp(nn.Module):
         if self.tp is None:
             return self.fc2(self.activation(self.fc1(x)))
         h = self.activation(self.fc1(copy_to_tp(x, self.tp)))
-        return reduce_from_tp(rung_linear(h, self.fc2.weight), self.tp) + self.fc2.bias
+        part = linear(h, self.fc2.weight, None, self.fc2.dtype)
+        return reduce_from_tp(part, self.tp) + self.fc2.bias.to(part.dtype)
 
 
 class MultiHeadAttention(nn.Module):
@@ -165,7 +242,7 @@ class MultiHeadAttention(nn.Module):
         if self.tp is not None and use_pallas:
             raise NotImplementedError(
                 "USE_PALLAS_ATTENTION under tensor parallelism (mp > 1) is not ported: "
-                "row 11 has no split (ROADMAP A6)")
+                "row 11 has no split (ROADMAP A7)")
         mp = _mp(tp)
         self.dim = dim // mp                 # the rank's heads × the head depth
         self.num_heads = num_heads // mp
@@ -190,13 +267,10 @@ class MultiHeadAttention(nn.Module):
                 raise NotImplementedError(
                     "USE_PALLAS_ATTENTION in training is not ported (the packed "
                     "attention op has no backward)")
-            if current() == BF16:
-                raise NotImplementedError(
-                    "USE_PALLAS_ATTENTION on the bf16 rung (matmul precision 'default') "
-                    "is not ported: the packed attention op runs fp32 only (ROADMAP A8)")
             key_mask = None if mask is None else mask[:, 0, 0, :].expand(b, s)
             out = packed_multihead_attention(self.wq(x), self.wk(x), self.wv(x),
-                                             key_mask, num_heads=self.num_heads)
+                                             key_mask, num_heads=self.num_heads,
+                                             precision=current())
             return self.proj(out), None
 
         def split(t):
@@ -207,7 +281,8 @@ class MultiHeadAttention(nn.Module):
         out = out.transpose(1, 2).reshape(b, s, self.dim)
         if self.tp is None:
             return self.proj(out), weights
-        return reduce_from_tp(rung_linear(out, self.proj.weight), self.tp) + self.proj.bias, weights
+        part = linear(out, self.proj.weight, None, self.proj.dtype)
+        return reduce_from_tp(part, self.tp) + self.proj.bias.to(part.dtype), weights
 
 
 class TransformerBlock(nn.Module):
@@ -218,10 +293,10 @@ class TransformerBlock(nn.Module):
                  activation: Callable = gelu_exact, use_pallas: bool = False,
                  generator=None, tp: Optional[TensorParallel] = None):
         super().__init__()
-        self.norm1 = nn.LayerNorm(dim, eps=1e-5)
+        self.norm1 = LayerNorm(dim, eps=1e-5)
         self.attn = MultiHeadAttention(dim, num_heads=num_heads, qkv_bias=qkv_bias,
                                        use_pallas=use_pallas, generator=generator, tp=tp)
-        self.norm2 = nn.LayerNorm(dim, eps=1e-5)
+        self.norm2 = LayerNorm(dim, eps=1e-5)
         self.mlp = Mlp(dim, dim, hidden_features=int(dim * mlp_ratio),
                        activation=activation, generator=generator, tp=tp)
         self.drop_path = DropPath(drop_path_rate)
@@ -271,8 +346,9 @@ class StridedMlp(nn.Module):
         x = F.pad(x.transpose(1, 2), self.pad)  # explicit zero pad, then VALID
         if self.tp is None:
             return self.fc2(x).transpose(1, 2)
-        part = rung_conv1d(x, self.fc2.weight, None, self.stride)
-        return (reduce_from_tp(part, self.tp) + self.fc2.bias[:, None]).transpose(1, 2)
+        part = conv1d(x, self.fc2.weight, None, self.stride, self.fc2.dtype)
+        return (reduce_from_tp(part, self.tp)
+                + self.fc2.bias.to(part.dtype)[:, None]).transpose(1, 2)
 
 
 class StridedTransformerBlock(nn.Module):
@@ -290,10 +366,10 @@ class StridedTransformerBlock(nn.Module):
         super().__init__()
         self.stride = stride
         self.pad = resolve_padding(padding, kernel_size)
-        self.norm1 = nn.LayerNorm(dim, eps=1e-5)
+        self.norm1 = LayerNorm(dim, eps=1e-5)
         self.attn = MultiHeadAttention(dim, num_heads=num_heads, qkv_bias=qkv_bias,
                                        use_pallas=use_pallas, generator=generator, tp=tp)
-        self.norm2 = nn.LayerNorm(dim, eps=1e-5)
+        self.norm2 = LayerNorm(dim, eps=1e-5)
         self.mlp = StridedMlp(dim, dim, hidden_features=int(dim * mlp_ratio),
                               activation=activation, kernel_size=kernel_size,
                               stride=stride, padding=padding,

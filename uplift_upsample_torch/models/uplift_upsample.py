@@ -23,6 +23,15 @@ ported and raise NotImplementedError. Sub-modules carry the flax names
 (`spatial_block_1`, `temporal_pe`, ...), so state_dict keys map one to one
 onto the JAX package's parameter paths.
 
+`dtype` and `spatial_dtype` (COMPUTE_DTYPE, SPATIAL_COMPUTE_DTYPE; the JAX
+model's `dtype` and `spatial_dtype`, `uplift_upsample.py:125-265`): None
+computes in the parameters' dtype; torch.bfloat16 casts the input to
+`dtype`, runs the spatial stage at `spatial_dtype` (default `dtype`) with
+its PE cast, `spatial_norm` and everything after at `dtype` (the PEs and
+tokens cast; Dense and conv products on bf16 tensors, LayerNorm statistics
+in fp32: `primitives.py`), and returns bf16 outputs. The parameters stay
+fp32. Stride masks and attention masks stay fp32.
+
 With `tp` (tensor parallelism, mp > 1) every block holds its mp rank's shard
 of the attention and MLP weights (`primitives.py`); the embedding, the PEs
 and tokens, the LayerNorms, the s2t Dense and the heads are replicated. mp
@@ -39,8 +48,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..parallel.sharding import TensorParallel, active, check_divides
-from .primitives import (StridedTransformerBlock, TransformerBlock, dense,
-                         gelu_exact, pe_init_)
+from .primitives import (LayerNorm, StridedTransformerBlock, TransformerBlock, dense,
+                         gelu_exact, pe_init_, set_dtype)
 
 
 def strided_sequence_lengths(num_frames: int, strides, paddings) -> list:
@@ -68,6 +77,8 @@ class UpliftUpsampleTransformer(nn.Module):
                  token_mask_rate: float = 0.0,
                  learnable_masked_token: bool = False,
                  use_pallas: bool = False,
+                 dtype: Optional[torch.dtype] = None,
+                 spatial_dtype: Optional[torch.dtype] = None,
                  generator: Optional[torch.Generator] = None,
                  tp: Optional[TensorParallel] = None):
         super().__init__()
@@ -95,6 +106,8 @@ class UpliftUpsampleTransformer(nn.Module):
         self.token_mask_rate = token_mask_rate
         self.learnable_masked_token = learnable_masked_token
         self.use_pallas = use_pallas
+        self.dtype = dtype
+        self.spatial_dtype = dtype if spatial_dtype is None else spatial_dtype
         g = generator
         p, cs, ct = num_keypoints, spatial_d_model, temporal_d_model
 
@@ -114,7 +127,7 @@ class UpliftUpsampleTransformer(nn.Module):
                     cs, num_heads, mlp_ratio=mlp_ratio, qkv_bias=qkv_bias,
                     drop_path_rate=rate, activation=gelu_exact,
                     use_pallas=use_pallas, generator=g, tp=tp))
-            self.spatial_norm = nn.LayerNorm(cs, eps=1e-6)
+            self.spatial_norm = LayerNorm(cs, eps=1e-6)
             s2t_in = p * cs
         else:
             s2t_in = p * 2
@@ -156,6 +169,17 @@ class UpliftUpsampleTransformer(nn.Module):
         if output_bn:
             self.strided_temporal_norm = nn.BatchNorm1d(ct, eps=1e-5)
         self.strided_temporal_fc = dense(ct, out_dim, generator=g)
+        set_dtype(self, dtype)
+        if spatial_depth > 0:
+            spatial = [self.keypoint_embedding] + [self.block("spatial", i)
+                                                   for i in range(1, spatial_depth + 1)]
+            for module in spatial:
+                set_dtype(module, self.spatial_dtype)
+
+    def _cast(self, t: torch.Tensor, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        """t in `dtype` (default the model's `dtype`); None: the parameters'."""
+        dtype = dtype or self.dtype
+        return t.to(self.temporal_pe.dtype if dtype is None else dtype)
 
     def block(self, name: str, i: int) -> nn.Module:
         """Block i (1-based) of a stage: "spatial", "temporal" or "strided_temporal"."""
@@ -184,11 +208,11 @@ class UpliftUpsampleTransformer(nn.Module):
             raise NotImplementedError(
                 "training with OUTPUT_BN or TOKEN_MASK_RATE > 0 is not ported")
         if temporal_input:
-            return self._heads_and_strided(x, stride_mask, strided_entry)
+            return self._heads_and_strided(self._cast(x), stride_mask, strided_entry)
         b, n = x.shape[:2]
         if not (spatial_input or s2t_input):
             assert x.shape[2] == p and (n == self.num_frames or s2t_output), x.shape
-        x = x.to(self.temporal_pe.dtype)  # float32, or float64 for a float64 model
+        x = self._cast(x)  # `dtype`; float32, or float64 for a float64 model
 
         # ---- spatial transformer over joints (frame-independent) ----------
         if spatial_input or s2t_input:
@@ -196,11 +220,12 @@ class UpliftUpsampleTransformer(nn.Module):
         elif self.spatial_depth == 0:
             x = x.reshape(b, n, p * x.shape[-1])
         else:
-            x = x.reshape(b * n, p, x.shape[-1])
-            x = self.keypoint_embedding(x) + self.spatial_pe
+            sdtype = self.spatial_dtype
+            x = self._cast(x.reshape(b * n, p, x.shape[-1]), sdtype)
+            x = self.keypoint_embedding(x) + self._cast(self.spatial_pe, sdtype)
             for i in range(1, self.spatial_depth + 1):
                 x, _ = self.block("spatial", i)(x)
-            x = self.spatial_norm(x).reshape(b, n, p * self.spatial_d_model)
+            x = self.spatial_norm(self._cast(x)).reshape(b, n, p * self.spatial_d_model)
         if not s2t_input:
             x = self.spatial_to_temporal_fc(x)
         if s2t_output:
@@ -209,8 +234,8 @@ class UpliftUpsampleTransformer(nn.Module):
         # ---- temporal transformer over frames -----------------------------
         if self.has_strided_input:
             sm = stride_mask.to(x.dtype)[..., None]
-            x = sm * x + (1.0 - sm) * self.strided_input_token
-        x = x + self.temporal_pe
+            x = sm * x + (1.0 - sm) * self._cast(self.strided_input_token)
+        x = x + self._cast(self.temporal_pe)
         for i in range(1, self.temporal_depth + 1):
             attn_mask = None
             if (self.has_strided_input
@@ -223,9 +248,9 @@ class UpliftUpsampleTransformer(nn.Module):
     def _bn(self, name, h):
         bn = getattr(self, name)
         shape = h.shape
-        return F.batch_norm(h.reshape(-1, shape[-1]), bn.running_mean,
+        return F.batch_norm(h.reshape(-1, shape[-1]).to(bn.running_mean.dtype), bn.running_mean,
                             bn.running_var, bn.weight, bn.bias, training=False,
-                            eps=bn.eps).reshape(shape)
+                            eps=bn.eps).reshape(shape).to(h.dtype)
 
     def _heads_and_strided(self, x, stride_mask, strided_entry: int):
         """head1 + strided stack + head2 (the post-temporal tail)."""
@@ -244,7 +269,7 @@ class UpliftUpsampleTransformer(nn.Module):
                     # Deferred upsampling-token attention (no temporal blocks)
                     attn_mask = (1.0 - stride_mask.float())[:, None, None, :]
                 x, _ = self.block("strided_temporal", i + 1)(
-                    x, pos_encoding=getattr(self, f"strided_temporal_pe_{i + 1}"),
+                    x, pos_encoding=self._cast(getattr(self, f"strided_temporal_pe_{i + 1}")),
                     mask=attn_mask)
             central = x
         else:

@@ -27,7 +27,11 @@ instance of a kernel above under the same wrapper counter:
 K3), "strided_conv_bf16" (K3), "s2t_prologue_bf16"; in training
 "spatial_bwd_bf16" (K4), "gemm_branch_bf16", "window_attention_train_bf16",
 "gemm_dx_bf16", "gemm_dw_bf16", "window_attention_bwd_bf16" (K5, K6) and
-"strided_dh1_bf16", "strided_dwc_bf16", "sum_rows_bf16" (K6).
+"strided_dh1_bf16", "strided_dwc_bf16", "sum_rows_bf16" (K6). Row 11
+("packed_attention") also takes bf16 tensors (COMPUTE_DTYPE bfloat16):
+"packed_attention_bf16" is its bf16 rung on fp32 tensors,
+"packed_attention_bf16io" and "packed_attention_bf16io_bf16" its fp32-level
+and bf16-rung instances on bf16 tensors (`csrc/attention_bf16.cu`).
 """
 
 from __future__ import annotations
@@ -48,7 +52,7 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 SOURCES = ("spatial", "temporal", "strided", "spatial_bwd", "temporal_bwd", "attention",
-           "strided_bwd", "s2t")
+           "attention_bf16", "strided_bwd", "s2t")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
@@ -62,8 +66,8 @@ _SIGNATURES = {
         "gemm_bf16": "pppppiiiip",
         "tf32_halves_f32": "ppiiiip",
         "layernorm_f32": "ppppppiiifp",
-        "window_attention_f32": "pppiiiip",
-        "window_attention_bf16": "pppiiiip",
+        "window_attention_f32": "pppiiiiip",
+        "window_attention_bf16": "pppiiiiip",
     },
     "strided": {"strided_conv_f32": "pppppiiiiiiip", "strided_conv_bf16": "pppppiiiiiiip"},
     "spatial_bwd": {
@@ -89,6 +93,9 @@ _SIGNATURES = {
         "sum_rows_f32": "ppiip",
     },
     "attention": {"packed_attention_f32": "pppppiiiip"},
+    "attention_bf16": {"packed_attention_bf16": "pppppiiiip",
+                       "packed_attention_bf16io": "pppppiiiip",
+                       "packed_attention_bf16io_bf16": "pppppiiiip"},
     "strided_bwd": {
         "strided_dh1_f32": "ppppiiiiiiip",
         "strided_dh1_bf16": "ppppiiiiiiip",
@@ -192,14 +199,15 @@ def launch(lib_name: str, fn: str, counter: Optional[str], *args) -> None:
     LAUNCHES[fn] += 1
 
 
-def check_cuda(name: str, t: torch.Tensor, shape=None, device=None) -> None:
-    """Raise unless `t` is a contiguous float32 CUDA tensor of `shape`."""
+def check_cuda(name: str, t: torch.Tensor, shape=None, device=None,
+               dtype: torch.dtype = torch.float32) -> None:
+    """Raise unless `t` is a contiguous CUDA tensor of `dtype` and `shape`."""
     if t.device.type != "cuda":
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
     if device is not None and t.device != device:
         raise ValueError(f"{name}: on {t.device}, expected {device}")
-    if t.dtype != torch.float32:
-        raise ValueError(f"{name}: expected float32, got {t.dtype}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
     if shape is not None and tuple(t.shape) != tuple(shape):

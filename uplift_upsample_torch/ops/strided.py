@@ -33,7 +33,11 @@ Precision (`precision.py`): "default", the TPU's one-pass bf16 rung, runs
 the bf16 instances of K2's GEMM and attention and `strided_conv_bf16` (T
 rounded to bf16 as it leaves shared memory, one TF32 pass on Wc's bf16
 plane "wc_bf"); the planes come from `temporal.add_bf16_planes` (DENSE).
-"high" and "highest" run the 3xTF32 kernels. Not split over mp.
+"high" and "highest" run the 3xTF32 kernels. The eval's operands fold
+1/sqrt(D) into q's columns (`stack_strided_block1_params(q_scale=)`, as
+`pallas_strided.stack_strided_block1_params(fold_q_scale=True)`), and the
+attention then scales nothing after q·kᵀ (`temporal.py`); K6, the training
+kernel, keeps q unscaled.
 
 Split over mp (`tp`: the operands stacked from an mp rank's shard of the
 weights), the block runs as K2's split blocks do (`temporal.py`) and ends in
@@ -53,8 +57,8 @@ import torch.nn.functional as F
 from ..parallel.sharding import TensorParallel, active, all_reduce_sum
 from ..precision import BF16, check_rung, mm, round_bf16
 from . import cuda_lib
-from .temporal import (add_weight_operands, attention_sublayer, check_bf16_planes, gemm,
-                       layernorm, split_attention_sublayer, window_attention_plain)
+from .temporal import (add_weight_operands, attention_sublayer, check_bf16_planes, fold_q,
+                       gemm, layernorm, split_attention_sublayer, window_attention_plain)
 
 COUNTER = "strided_block1"
 DENSE = ("wqkv", "wp", "w1", "wc")  # the block's (in, out) matrices on the tensor cores
@@ -147,7 +151,8 @@ def strided_conv(h1: torch.Tensor, x: torch.Tensor, ops: Dict, *, stride: int,
 def stack_strided_block1_params(state: Mapping[str, torch.Tensor],
                                 name: str = "strided_temporal_block_1",
                                 pe_name: str = "strided_temporal_pe_1",
-                                precision: str = "high") -> Dict:
+                                precision: str = "high",
+                                q_scale: Optional[float] = None) -> Dict:
     """Model state_dict → strided block 1's operands.
 
     Matrices are (in, out); the conv kernel is (3·hidden, C), the flax
@@ -157,6 +162,9 @@ def stack_strided_block1_params(state: Mapping[str, torch.Tensor],
     `precision` "default" their bf16 planes, `add_weight_operands`). From
     an mp rank's shard: wqkv is (C, 3·C/mp), its q, k and v shards side by
     side, and wc (3·hidden/mp, C), its hidden shard within every tap.
+    `q_scale` (the eval's K3: `temporal.folded_q_scale`) is folded into q's
+    columns and bias first and kept as "q_scale" (1,), the mark of folded
+    operands.
     """
     pe = state[pe_name]
     c = pe.shape[1]
@@ -180,8 +188,11 @@ def stack_strided_block1_params(state: Mapping[str, torch.Tensor],
         wc=conv.permute(2, 1, 0).reshape(-1, conv.shape[0]),
         bc=get("mlp.fc2.bias", c),
     )
-    return add_weight_operands({k: v.float().contiguous() for k, v in ops.items()}, DENSE,
-                               precision)
+    ops = {k: v.float().contiguous() for k, v in ops.items()}
+    if q_scale is not None:
+        ops["wqkv"], ops["bqkv"] = fold_q(ops["wqkv"], ops["bqkv"], c_local, q_scale)
+        ops["q_scale"] = torch.full((1,), q_scale, dtype=torch.float32, device=pe.device)
+    return add_weight_operands(ops, DENSE, precision)
 
 
 class _RoundGrad(torch.autograd.Function):
@@ -207,7 +218,8 @@ def strided_block1_plain(x: torch.Tensor, ops: Dict, *, num_heads: int,
     comparison hands it a kernel forward's, as `temporal_stack_plain` takes
     K5's). tp: `ops` are an mp rank's operands; the proj and conv partials
     are summed over mp before their replicated biases are added.
-    precision: the rung of every product, the conv's too. `train`: the
+    precision: the rung of every product, the conv's too; folded operands
+    ("q_scale") scale no logits. `train`: the
     training kernel's (K6) function on the bf16 rung: q scaled before its
     rounding (`window_attention_plain`), and the PE's gradient the sum of
     the bf16-rounded input gradient over windows (a DEFAULT dot with a
@@ -223,7 +235,7 @@ def strided_block1_plain(x: torch.Tensor, ops: Dict, *, num_heads: int,
         x = x + ops["pe"]
     y = F.layer_norm(x, (c,), ops["ln1_g"], ops["ln1_b"], 1e-5)
     ctx = window_attention_plain(mm(y, ops["wqkv"], rung) + ops["bqkv"], None, heads, rung,
-                                 train)
+                                 train, "q_scale" in ops)
     x = x + (reduce(mm(ctx, ops["wp"], rung)) + ops["bp"])
     z = F.layer_norm(x, (c,), ops["ln2_g"], ops["ln2_b"], 1e-5)
     h1 = mm(z, ops["w1"], rung) + ops["b1"]
@@ -250,7 +262,7 @@ def strided_block1(x: torch.Tensor, ops: Dict, *, num_heads: int, stride: int,
     if x.device.type == "cpu":
         return strided_block1_plain(x, ops, num_heads=num_heads, stride=stride,
                                     paddings=(p0, p1), tp=tp, precision=precision)
-    bf16 = check_rung(precision, tp=tp) == BF16
+    bf16 = check_rung(precision) == BF16
     if bf16:
         check_bf16_planes(ops, DENSE)
     w = "_bf" if bf16 else "_tc"
@@ -264,9 +276,10 @@ def strided_block1(x: torch.Tensor, ops: Dict, *, num_heads: int, stride: int,
     h, y = layernorm(h, ops["ln1_g"], ops["ln1_b"], 1e-5, pe=ops["pe"],
                      counter=COUNTER)
     weights = (ops["wqkv" + w], ops["bqkv"], ops["wp" + w], ops["bp"])
-    attn = dict(key_mask=None, windows=b, n=n, num_heads=num_heads, counter=COUNTER)
+    attn = dict(key_mask=None, windows=b, n=n, num_heads=num_heads, counter=COUNTER,
+                precision=precision, q_folded="q_scale" in ops)
     if tp is None:
-        h = attention_sublayer(h, y, *weights, precision=precision, **attn)
+        h = attention_sublayer(h, y, *weights, **attn)
     else:
         h = split_attention_sublayer(h, y, *weights, tp=tp, **attn)
     z = layernorm(h, ops["ln2_g"], ops["ln2_b"], 1e-5, counter=COUNTER)
@@ -277,5 +290,5 @@ def strided_block1(x: torch.Tensor, ops: Dict, *, num_heads: int, stride: int,
     if tp.rank != 0:  # the crop residual and bc enter on mp rank 0 only
         h, ops = torch.zeros_like(h), dict(ops, bc=torch.zeros_like(ops["bc"]))
     part = strided_conv(h1.reshape(b, n, -1), h.reshape(b, n, c), ops, stride=stride,
-                        paddings=(p0, p1))
+                        paddings=(p0, p1), precision=precision)
     return all_reduce_sum(tp, part)

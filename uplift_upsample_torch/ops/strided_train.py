@@ -45,7 +45,7 @@ from ..precision import BF16, check_rung, mm
 from . import cuda_lib
 from .strided import (DENSE, conv_scatter_plain, conv_taps_plain, output_length,
                       strided_block1_plain, strided_conv)
-from .temporal import gemm, layernorm, weight_keys
+from .temporal import check_unfolded, gemm, layernorm, weight_keys
 from .temporal_train import (_sum_rows, colsum, dw_splits, gemm_dw, gemm_dx, layernorm_bwd,
                              window_attention_bwd, window_attention_train)
 
@@ -271,6 +271,7 @@ def strided_block1_train(x: torch.Tensor, ops: Dict, *, num_heads: int, stride: 
                          paddings=(0, 0), precision: str = "high") -> torch.Tensor:
     """Differentiable (B, S, C) → (B, n_out, C) at the rung. CPU tensor: the
     plain version under autograd; CUDA tensor: K6."""
+    check_unfolded(ops)
     if x.device.type == "cpu":
         return strided_block1_train_plain(x, ops, num_heads=num_heads, stride=stride,
                                           paddings=paddings, precision=precision)

@@ -19,6 +19,15 @@ in PERF.md):
     `pallas_temporal.temporal_stack_apply`; here `temporal_block` and
     `temporal_stack_apply`, K2 over one block at a time.
 
+The eval kernels fold the attention's 1/sqrt(D) into the q columns of the
+qkv weights and biases, as the TPU's do (`_transposed_operands(q_scale=)`,
+`pallas_temporal_v3.py:319-322`): `stack_temporal_params(q_scale=)` folds
+fp32(1/sqrt(D)) (`folded_q_scale`) and records it as the operand
+"q_scale", and K2 and its plain version then scale nothing after q·kᵀ. On
+the bf16 rung that rounds q·1/sqrt(D), where scaling after the product
+would round q (ROADMAP C7); at fp32 the two differ by rounding. The training
+kernels (K5, K6) keep q unscaled (`pallas_strided.py:43-46`).
+
 The GEMM, LayerNorm and window-attention wrappers below are shared with K3
 (`ops/strided.py`); each counts its launches for the K it runs for. The GEMM
 runs on the tensor cores in 3xTF32 (`csrc/gemm_tc.cuh`) and reads each
@@ -132,8 +141,33 @@ def weight_keys(names: Sequence[str], precision: str) -> list:
     return [f"{name}{kind}" for kind in kinds for name in names]
 
 
+def folded_q_scale(c: int, num_heads: int) -> float:
+    """1/sqrt(D) as the TPU's eval kernels take it (`1.0 / np.sqrt(c //
+    num_heads)`, a double that the fold rounds to fp32)."""
+    return 1.0 / math.sqrt(c // num_heads)
+
+
+def fold_q(w: torch.Tensor, b: torch.Tensor, c_q: int, q_scale: float):
+    """(…, K, 3·c_q) weights and (…, 3·c_q) biases with the first c_q
+    columns (q's) multiplied by fp32(q_scale) in fp32, as
+    `_transposed_operands` and `pallas_strided.stack_strided_block1_params`
+    fold it."""
+    s = torch.tensor(q_scale, dtype=torch.float32, device=w.device)
+    return (torch.cat([w[..., :c_q] * s, w[..., c_q:]], dim=-1),
+            torch.cat([b[..., :c_q] * s, b[..., c_q:]], dim=-1))
+
+
+def check_unfolded(ops: Dict) -> None:
+    """Raise if `ops` fold 1/sqrt(D) into q (the eval's operands): the
+    training kernels and their plain versions take q unscaled."""
+    if "q_scale" in ops:
+        raise ValueError("the training kernels take q unscaled; these operands fold "
+                         "1/sqrt(D) into q (stack_temporal_params(q_scale=), the eval's)")
+
+
 def stack_temporal_params(state: Mapping[str, torch.Tensor], num_blocks: int,
-                          prefix: str = "temporal_block_", precision: str = "high") -> Dict:
+                          prefix: str = "temporal_block_", precision: str = "high",
+                          q_scale: Optional[float] = None) -> Dict:
     """Model state_dict → the temporal blocks' operands, stacked over blocks.
 
     q/k/v are concatenated into one (C, 3C) matrix per block; matrices are
@@ -142,7 +176,9 @@ def stack_temporal_params(state: Mapping[str, torch.Tensor], num_blocks: int,
     "default" its bf16 planes (`add_weight_operands`). From an mp rank's
     shard of the weights (tensor parallelism) the matrix is (C, 3·C/mp):
     the rank's q, k and v shards side by side, never a third of the whole
-    fused matrix.
+    fused matrix. `q_scale` (the eval's K2: `folded_q_scale`) is folded into
+    q's columns and biases before the halves or planes are taken, and kept
+    as "q_scale" (L,), the mark of folded operands.
     """
     first = state[f"{prefix}1.attn.wq.weight"]
     c_local, c = first.shape  # the rank's q width (C unsplit), the model width
@@ -156,13 +192,19 @@ def stack_temporal_params(state: Mapping[str, torch.Tensor], num_blocks: int,
     def st(fn):
         return torch.stack([fn(i) for i in range(1, num_blocks + 1)]).float().contiguous()
 
+    wqkv = st(lambda i: torch.cat([get(i, f"attn.{w}.weight").t()
+                                   for w in ("wq", "wk", "wv")], dim=1))
+    bqkv = st(lambda i: torch.cat([get(i, f"attn.{w}.bias", c_local)
+                                   for w in ("wq", "wk", "wv")]))
+    folded = {}
+    if q_scale is not None:
+        wqkv, bqkv = fold_q(wqkv, bqkv, c_local, q_scale)
+        folded = dict(q_scale=torch.full((num_blocks,), q_scale, dtype=torch.float32,
+                                         device=wqkv.device))
     return add_weight_operands(dict(
         ln1_g=st(lambda i: get(i, "norm1.weight")),
         ln1_b=st(lambda i: get(i, "norm1.bias")),
-        wqkv=st(lambda i: torch.cat([get(i, f"attn.{w}.weight").t()
-                                     for w in ("wq", "wk", "wv")], dim=1)),
-        bqkv=st(lambda i: torch.cat([get(i, f"attn.{w}.bias", c_local)
-                                     for w in ("wq", "wk", "wv")])),
+        wqkv=wqkv, bqkv=bqkv, **folded,
         wp=st(lambda i: get(i, "attn.proj.weight").t()),
         bp=st(lambda i: get(i, "attn.proj.bias", c)),
         ln2_g=st(lambda i: get(i, "norm2.weight")),
@@ -178,19 +220,23 @@ def stack_temporal_params(state: Mapping[str, torch.Tensor], num_blocks: int,
 
 def window_attention_plain(qkv: torch.Tensor, key_mask: Optional[torch.Tensor],
                            num_heads: int, precision: str = "high",
-                           train: bool = False) -> torch.Tensor:
+                           train: bool = False, q_folded: bool = False) -> torch.Tensor:
     """(B, N, 3C) packed q|k|v → (B, N, C) context; key_mask (B, N), 1 = blocked.
     On the bf16 rung q and k are rounded as they are (the logits scaled after
     the product) and the normalised probabilities and v for P·V; with `train`
     (the training kernels K5 and K6, `pallas_temporal_bwd.py:420-426`) q is
-    scaled by 1/sqrt(D) first and rounded so."""
+    scaled by 1/sqrt(D) first and rounded so. `q_folded`: q carries
+    1/sqrt(D) already (the eval's folded operands, `stack_temporal_params(
+    q_scale=)`), so the logits take no factor after the product."""
     b, n, c3 = qkv.shape
     c = c3 // 3
     d = c // num_heads
     rung = check_rung(precision)
     q, k, v = (t.reshape(b, n, num_heads, d).transpose(1, 2)
                for t in qkv.split(c, dim=-1))
-    if train and rung == BF16:
+    if q_folded:
+        logits = mm(q, k.transpose(-1, -2), rung)
+    elif train and rung == BF16:
         logits = mm(q * (1.0 / d ** 0.5), k.transpose(-1, -2), rung)
     else:
         logits = mm(q, k.transpose(-1, -2), rung) * (1.0 / d ** 0.5)
@@ -218,9 +264,11 @@ def temporal_stack_plain(x: torch.Tensor, ops: Dict,
     tp: `ops` are an mp rank's operands (module docstring); the proj and fc2
     partials are summed over mp before their replicated biases are added.
     precision: the rung of every product (module docstring); `train`: the
-    training kernel's attention (`window_attention_plain`).
+    training kernel's attention (`window_attention_plain`). Operands with
+    "q_scale" (folded, module docstring) scale no logits.
     """
     c = x.shape[-1]
+    q_folded = "q_scale" in ops
     tp = active(tp)
     rung = check_rung(precision)
     heads = num_heads if tp is None else num_heads // tp.size
@@ -230,7 +278,7 @@ def temporal_stack_plain(x: torch.Tensor, ops: Dict,
         y = F.layer_norm(x, (c,), ops["ln1_g"][blk], ops["ln1_b"][blk], 1e-5)
         qkv = mm(y, ops["wqkv"][blk], rung) + ops["bqkv"][blk]
         ctx = window_attention_plain(qkv, km if blk < first_masked_blocks else None,
-                                     heads, rung, train)
+                                     heads, rung, train, q_folded)
         proj = reduce(mm(ctx, ops["wp"][blk], rung)) + ops["bp"][blk]
         if droppath is not None:
             proj = proj * droppath[blk, 0][:, None, None]
@@ -303,9 +351,11 @@ def layernorm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, eps: flo
 
 def window_attention(qkv: torch.Tensor, key_mask: Optional[torch.Tensor], *,
                      windows: int, n: int, num_heads: int,
-                     counter: Optional[str], precision: str = "high") -> torch.Tensor:
+                     counter: Optional[str], precision: str = "high",
+                     q_folded: bool = False) -> torch.Tensor:
     """(windows·n, 3C) → (windows·n, C) attention inside each window, on the
-    card; `precision` "default" launches the bf16 instance."""
+    card; `precision` "default" launches the bf16 instance. `q_folded`: q
+    carries 1/sqrt(D) (`window_attention_plain`)."""
     rows, c3 = qkv.shape
     c = c3 // 3
     cuda_lib.check_cuda("qkv", qkv, shape=(windows * n, c3))
@@ -313,41 +363,46 @@ def window_attention(qkv: torch.Tensor, key_mask: Optional[torch.Tensor], *,
         cuda_lib.check_cuda("key_mask", key_mask, shape=(windows, n), device=qkv.device)
     out = torch.empty((rows, c), dtype=torch.float32, device=qkv.device)
     entry = "window_attention_bf16" if check_rung(precision) == BF16 else "window_attention_f32"
-    cuda_lib.launch("temporal", entry, counter, qkv, key_mask, out, windows, n, c, num_heads)
+    cuda_lib.launch("temporal", entry, counter, qkv, key_mask, out, windows, n, c, num_heads,
+                    int(q_folded))
     return out
 
 
 def attention_sublayer(x: torch.Tensor, y: torch.Tensor, wqkv, bqkv, wp, bp, *,
                        key_mask, windows: int, n: int, num_heads: int,
-                       counter: str, precision: str = "high") -> torch.Tensor:
+                       counter: str, precision: str = "high",
+                       q_folded: bool = False) -> torch.Tensor:
     """x + proj(attention(qkv(y))) on the card, y being LN(x): three launches
     (wqkv, wp: TF32 halves, or bf16 planes on the bf16 rung)."""
     qkv = gemm(y, wqkv, bqkv, counter=counter, precision=precision)
-    ctx = window_attention(qkv, key_mask, windows=windows, n=n,
-                           num_heads=num_heads, counter=counter, precision=precision)
+    ctx = window_attention(qkv, key_mask, windows=windows, n=n, num_heads=num_heads,
+                           counter=counter, precision=precision, q_folded=q_folded)
     return gemm(ctx, wp, bp, residual=x, counter=counter, precision=precision)
 
 
 def split_gemm(a: torch.Tensor, w_tc: torch.Tensor, bias: torch.Tensor,
-               residual: torch.Tensor, tp: TensorParallel, *, counter: str) -> torch.Tensor:
+               residual: torch.Tensor, tp: TensorParallel, *, counter: str,
+               precision: str = "high") -> torch.Tensor:
     """residual + a @ w + bias summed over the mp ranks: each rank's `gemm` of
     its rows of w is a partial sum, the bias and the residual enter on mp
     rank 0 only, and one all-reduce adds the partials."""
     first = tp.rank == 0
     part = gemm(a, w_tc, bias if first else None, residual=residual if first else None,
-                counter=counter)
+                counter=counter, precision=precision)
     return all_reduce_sum(tp, part)
 
 
 def split_attention_sublayer(x: torch.Tensor, y: torch.Tensor, wqkv, bqkv, wp, bp, *,
                              key_mask, windows: int, n: int, num_heads: int,
-                             counter: str, tp: TensorParallel) -> torch.Tensor:
+                             counter: str, tp: TensorParallel, precision: str = "high",
+                             q_folded: bool = False) -> torch.Tensor:
     """`attention_sublayer` split over mp: the rank's qkv (rows, 3·C/mp), its
     num_heads/mp heads, its proj rows as a partial, the all-reduce."""
-    qkv = gemm(y, wqkv, bqkv, counter=counter)
+    qkv = gemm(y, wqkv, bqkv, counter=counter, precision=precision)
     ctx = window_attention(qkv, key_mask, windows=windows, n=n,
-                           num_heads=num_heads // tp.size, counter=counter)
-    return split_gemm(ctx, wp, bp, x, tp, counter=counter)
+                           num_heads=num_heads // tp.size, counter=counter,
+                           precision=precision, q_folded=q_folded)
+    return split_gemm(ctx, wp, bp, x, tp, counter=counter, precision=precision)
 
 
 def check_bf16_planes(ops: Dict, names: Sequence[str]) -> None:
@@ -369,14 +424,15 @@ def temporal_stack(x: torch.Tensor, ops: Dict,
     `first_masked_blocks` blocks. tp: `ops` are an mp rank's operands, and
     each block runs split over mp (module docstring); every mp rank returns
     the whole result. precision: the rung (module docstring); "default"
-    reads the bf16 planes and is not split over mp.
+    reads the bf16 planes, split or not. Folded operands ("q_scale") scale
+    no logits.
     """
     tp = active(tp)
     if x.device.type == "cpu":
         return temporal_stack_plain(x, ops, key_mask, num_heads=num_heads,
                                     first_masked_blocks=first_masked_blocks, tp=tp,
                                     precision=precision)
-    bf16 = check_rung(precision, tp=tp) == BF16
+    bf16 = check_rung(precision) == BF16
     if bf16:
         check_bf16_planes(ops, DENSE)
     w = "_bf" if bf16 else "_tc"
@@ -391,10 +447,11 @@ def temporal_stack(x: torch.Tensor, ops: Dict,
     for blk in range(ops["ln1_g"].shape[0]):
         y = layernorm(h, ops["ln1_g"][blk], ops["ln1_b"][blk], 1e-5, counter=COUNTER)
         attn = dict(key_mask=km if blk < first_masked_blocks else None, windows=b, n=n,
-                    num_heads=num_heads, counter=COUNTER)
+                    num_heads=num_heads, counter=COUNTER, precision=precision,
+                    q_folded="q_scale" in ops)
         weights = (ops["wqkv" + w][blk], ops["bqkv"][blk], ops["wp" + w][blk], ops["bp"][blk])
         if tp is None:
-            h = attention_sublayer(h, y, *weights, precision=precision, **attn)
+            h = attention_sublayer(h, y, *weights, **attn)
         else:
             h = split_attention_sublayer(h, y, *weights, tp=tp, **attn)
         z = layernorm(h, ops["ln2_g"][blk], ops["ln2_b"][blk], 1e-5, counter=COUNTER)
@@ -404,7 +461,8 @@ def temporal_stack(x: torch.Tensor, ops: Dict,
             h = gemm(z, ops["w2" + w][blk], ops["b2"][blk], residual=h, out=h, counter=COUNTER,
                      precision=precision)
         else:
-            h = split_gemm(z, ops["w2_tc"][blk], ops["b2"][blk], h, tp, counter=COUNTER)
+            h = split_gemm(z, ops["w2" + w][blk], ops["b2"][blk], h, tp, counter=COUNTER,
+                           precision=precision)
     return h.reshape(b, n, c)
 
 

@@ -46,8 +46,8 @@ import torch
 
 from ..precision import BF16, check_rung
 from . import cuda_lib
-from .temporal import (DENSE, gemm, layernorm, temporal_stack_plain, weight_keys,
-                       window_attention, window_attention_plain)
+from .temporal import (DENSE, check_unfolded, gemm, layernorm, temporal_stack_plain,
+                       weight_keys, window_attention, window_attention_plain)
 
 COUNTER_FWD = "temporal_train_fwd"
 COUNTER_BWD = "temporal_train_bwd"
@@ -356,6 +356,7 @@ def temporal_stack_train(x: torch.Tensor, ops: Dict, key_mask: Optional[torch.Te
     CPU tensor: the plain version under autograd; CUDA tensor: K5.
     key_mask: (B, S), 1 = blocked key, in the first `first_masked_blocks` blocks.
     """
+    check_unfolded(ops)
     if x.device.type == "cpu":
         return temporal_stack_plain(x, ops, key_mask, num_heads=num_heads,
                                     first_masked_blocks=first_masked_blocks,

@@ -77,7 +77,9 @@ on the CPU (ROADMAP, departures). The val step runs fp32 at every rung.
 Another value raises ValueError.
 
 Not ported (NotImplementedError): OUTPUT_BN, dropout, attention dropout and
-token masking in training.
+token masking in training, and a model at COMPUTE_DTYPE or
+SPATIAL_COMPUTE_DTYPE other than float32 (bf16 activations serve only:
+ROADMAP A10).
 """
 
 from __future__ import annotations
@@ -289,6 +291,10 @@ def make_loss_fn(model, config: UpliftUpsampleConfig, dataset_name: str = "h36m"
             raise NotImplementedError(f"training with {key} > 0 is not ported")
     if config.OUTPUT_BN:
         raise NotImplementedError("training with OUTPUT_BN is not ported")
+    if model.dtype is not None or model.spatial_dtype is not None:
+        raise NotImplementedError(
+            "training at COMPUTE_DTYPE / SPATIAL_COMPUTE_DTYPE bfloat16 is not ported: bf16 "
+            "activations run in eval, predict and the bench's eval measure (ROADMAP A10)")
     sp_rung, tm_rung, plain_rung = train_rungs(
         getattr(config, "TRAIN_MATMUL_PRECISION", "default") or "default")
     root = config.ROOT_KEYTPOINT

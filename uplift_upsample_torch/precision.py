@@ -50,21 +50,13 @@ _RUNG: contextvars.ContextVar = contextvars.ContextVar("matmul_precision",
                                                        default="highest")
 
 
-def check_rung(rung: str, use_pallas: bool = False, tp=None) -> str:
-    """`rung`, checked (EVAL_MATMUL_PRECISION): one of RUNGS; the bf16 rung
-    neither with USE_PALLAS_ATTENTION (row 11 runs fp32 only: ROADMAP A8)
-    nor split over mp > 1 (`tp`, ROADMAP C)."""
+def check_rung(rung: str) -> str:
+    """`rung`, checked (EVAL_MATMUL_PRECISION): one of RUNGS. Every rung runs
+    with USE_PALLAS_ATTENTION (row 11's bf16 instances) and split over
+    mp > 1 (K2's and K3's bf16 launches at the split widths)."""
     if rung not in RUNGS:
         raise ValueError(f"matmul precision (EVAL_MATMUL_PRECISION) {rung!r}: "
                          f"expected one of {RUNGS}")
-    if rung == BF16 and use_pallas:
-        raise NotImplementedError(
-            "matmul precision 'default' with USE_PALLAS_ATTENTION is not ported: the "
-            "packed attention op (row 11) runs fp32 only (ROADMAP A8)")
-    if rung == BF16 and tp is not None and tp.size > 1:
-        raise NotImplementedError(
-            "matmul precision 'default' is not split for tensor parallelism (mp > 1): "
-            "ROADMAP C")
     return rung
 
 

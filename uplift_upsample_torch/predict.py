@@ -99,7 +99,7 @@ def predict_sequence(model, config: UpliftUpsampleConfig,
         centrals.append(central[: len(sel)])
     # one device→host copy for the whole sequence
     pred = np.zeros((n_rows, k, 3), np.float64)
-    pred[compute] = torch.cat(centrals).cpu().numpy().astype(np.float64)
+    pred[compute] = torch.cat(centrals).float().cpu().numpy().astype(np.float64)
 
     if interp:
         pred, _ = interpolate_between_keyframes(

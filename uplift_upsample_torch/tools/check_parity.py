@@ -27,9 +27,11 @@ Reported per variant: mean and max per-joint distance to the truth in
 milli-units ("mm" once outputs are metres). With --assert-bounds the JAX
 tool's on-chip bounds (ASSERT_BOUNDS) are held, and rung_default's drift must
 lie within SIM_RATIO of the CPU simulator's (`tools/sim_drift.py`, every
-site bf16 but the spatial attention) on the same weights and inputs: the
-rung computes the TPU's one-pass bf16 function, not merely something near
-fp32. Exit 1 if any bound fails.
+site bf16 but the spatial attention, q's scale folded into K2's and K3's
+weights as the eval kernels fold it: `FUSED_FOLDED`) on the same weights
+and inputs: the rung computes the TPU's one-pass bf16 function, not merely
+something near fp32. The ratio to the unfolded map (the JAX simulator's
+own, `FUSED_DEFAULT`) is printed beside it. Exit 1 if any bound fails.
 
 Usage: python -m uplift_upsample_torch.tools.check_parity [--batch 64]
            [--variants a,b,...] [--assert-bounds] [--seed 0] [--device cuda|cpu]
@@ -77,8 +79,9 @@ batch, geometry, seed = int(sys.argv[3]), sys.argv[4], int(sys.argv[5])
 model, x, sm = build_model_and_inputs(batch, geometry, seed=seed, device="cpu")
 out = {}
 if geometry == "h36m_351":  # the simulator's geometry: the bf16 rung's CPU oracle
-    out["sim_default"] = sim_drift.run(sim_drift.params_tree(model), x, sm,
-                                       sim_drift.sim_config(model), sim_drift.FUSED_DEFAULT)
+    params, cfg = sim_drift.params_tree(model), sim_drift.sim_config(model)
+    out["sim_default"] = sim_drift.run(params, x, sm, cfg, sim_drift.FUSED_FOLDED)
+    out["sim_unfolded"] = sim_drift.run(params, x, sm, cfg, sim_drift.FUSED_DEFAULT)
 with torch.inference_mode():
     _, central = model.double()(x.double(), sm)
 out["central"] = central.numpy()
@@ -209,8 +212,10 @@ def main(argv=None) -> int:
                 rec.update(bound_mm=ASSERT_BOUNDS[name], ok=mean_mm <= ASSERT_BOUNDS[name])
             if name == "rung_default" and "sim_default" in truth:
                 sim_mean, _ = drift_mm(truth["sim_default"], truth["central"])
+                unfolded, _ = drift_mm(truth["sim_unfolded"], truth["central"])
                 ratio = mean_mm / sim_mean
-                rec.update(sim_mean_mm=sim_mean, sim_ratio=ratio)
+                rec.update(sim_mean_mm=sim_mean, sim_ratio=ratio, sim_unfolded_mean_mm=unfolded,
+                           sim_unfolded_ratio=mean_mm / unfolded)
                 if args.assert_bounds:
                     rec.update(sim_ratio_bounds=list(SIM_RATIO),
                                ok=rec.get("ok", True)

@@ -20,6 +20,16 @@ Sites (matching the kernel structure):
   st_qkv st_attn st_proj st_mlp          strided block 1 (K3)
   tail                                   strided blocks 2+, head2 (plain)
 
+A qkv site's mode may end in "+fold" ("bf16+fold"): q's columns of the
+block's weights and its bias are multiplied by fp32(1/sqrt(D)) before the
+product and the logits take no factor after it, the operands of the TPU's
+eval kernels (`pallas_temporal_v3._transposed_operands(q_scale=)`,
+`pallas_strided.stack_strided_block1_params(fold_q_scale=True)`). On the
+bf16 rung that rounds q·1/sqrt(D) where the unfolded map rounds q; the
+port's K2 and K3 fold (ROADMAP C7), so FUSED_FOLDED ("tm_qkv" and "st_qkv"
+folded) is the function the card computes, FUSED_DEFAULT the JAX
+simulator's own map.
+
 Usage:
   python -m uplift_upsample_torch.tools.sim_drift --mode validate   # sim vs the model, f32
   python -m uplift_upsample_torch.tools.sim_drift --mode ladder     # per-site table
@@ -52,6 +62,9 @@ SITES = ["sp_emb", "sp_qkv", "sp_attn", "sp_proj", "sp_mlp", "s2t",
 # The port's bf16 rung on the fused path: every site rounds but the spatial
 # attention (`sp_attn`, fp32 inside K1).
 FUSED_DEFAULT = {s: ("f32" if s == "sp_attn" else "bf16") for s in SITES}
+FOLD = "+fold"
+# ... with q's scale folded into K2's and K3's weights, as the kernels take it
+FUSED_FOLDED = {**FUSED_DEFAULT, "tm_qkv": "bf16" + FOLD, "st_qkv": "bf16" + FOLD}
 
 
 def _bf16(a):
@@ -62,7 +75,7 @@ def make_sdot(prec_map):
     """site-keyed matmul: f32 accumulate, operands per the site's mode."""
 
     def sdot(a, b, site):
-        mode = prec_map[site]
+        mode = prec_map[site].removesuffix(FOLD)
         if mode == "f32":
             return torch.matmul(a, b)
         if mode == "bf16":
@@ -98,17 +111,24 @@ def _ln(x, scale, bias, eps):
     return (x - mu) / torch.sqrt(var + eps) * scale + bias
 
 
-def _attention(sdot, y, blk, num_heads, site_qkv, site_attn, key_mask=None):
-    """Pre-LN MHA on y (B, S, C) with separate wq/wk/wv (flax param layout)."""
+def _attention(sdot, y, blk, num_heads, site_qkv, site_attn, key_mask=None, fold=False):
+    """Pre-LN MHA on y (B, S, C) with separate wq/wk/wv (flax param layout);
+    `fold`: 1/sqrt(D) folded into wq and its bias (the "+fold" modes)."""
     b, s, c = y.shape
     depth = c // num_heads
     a = blk["attn"]
-    q = sdot(y, a["wq"]["kernel"], site_qkv) + a["wq"]["bias"]
+    wq, bq = a["wq"]["kernel"], a["wq"]["bias"]
+    if fold:
+        qs = torch.tensor(1.0 / np.sqrt(depth), dtype=torch.float32, device=wq.device)
+        wq, bq = wq * qs, bq * qs
+    q = sdot(y, wq, site_qkv) + bq
     k = sdot(y, a["wk"]["kernel"], site_qkv) + a["wk"]["bias"]
     v = sdot(y, a["wv"]["kernel"], site_qkv) + a["wv"]["bias"]
     split = lambda t: t.reshape(b, s, num_heads, depth).permute(0, 2, 1, 3)
     q, k, v = split(q), split(k), split(v)
-    logits = sdot(q, k.permute(0, 1, 3, 2), site_attn) / np.sqrt(depth)
+    logits = sdot(q, k.permute(0, 1, 3, 2), site_attn)
+    if not fold:
+        logits = logits / np.sqrt(depth)
     if key_mask is not None:  # (B, S), 1 = blocked key
         logits = logits + key_mask[:, None, None, :] * -1e9
     w = torch.softmax(logits, dim=-1)
@@ -154,7 +174,8 @@ def sim_forward(params, x2d, stride_mask, prec_map, cfg):
         blk = params[f"temporal_block_{i + 1}"]
         km = inv_mask if i < cfg["first_masked_blocks"] else None
         y = _ln(x, blk["norm1"]["scale"], blk["norm1"]["bias"], 1e-5)
-        ctx = _attention(sdot, y, blk, heads, "tm_qkv", "tm_attn", key_mask=km)
+        ctx = _attention(sdot, y, blk, heads, "tm_qkv", "tm_attn", key_mask=km,
+                         fold=prec_map["tm_qkv"].endswith(FOLD))
         x = x + sdot(ctx, blk["attn"]["proj"]["kernel"], "tm_proj") \
             + blk["attn"]["proj"]["bias"]
         z = _ln(x, blk["norm2"]["scale"], blk["norm2"]["bias"], 1e-5)
@@ -174,7 +195,7 @@ def sim_forward(params, x2d, stride_mask, prec_map, cfg):
                             else ("tail", "tail", "tail", "tail"))
         x = x + params[f"strided_temporal_pe_{i + 1}"]
         y = _ln(x, blk["norm1"]["scale"], blk["norm1"]["bias"], 1e-5)
-        ctx = _attention(sdot, y, blk, heads, sq, sa)
+        ctx = _attention(sdot, y, blk, heads, sq, sa, fold=prec_map[sq].endswith(FOLD))
         x = x + sdot(ctx, blk["attn"]["proj"]["kernel"], sp_) \
             + blk["attn"]["proj"]["bias"]
         z = _ln(x, blk["norm2"]["scale"], blk["norm2"]["bias"], 1e-5)
@@ -242,7 +263,8 @@ def main(argv=None):
                     choices=["validate", "ladder", "greedy", "config"])
     ap.add_argument("--sites", default="",
                     help="config mode: comma list "
-                         "site=f32|bf16|bf16x3|bf16x2w|bf16x2a; "
+                         "site=f32|bf16|bf16x3|bf16x2w|bf16x2a, a qkv site's mode "
+                         "with '+fold' (q's scale folded into its weights); "
                          "'all=<mode>' sets every site")
     ap.add_argument("--target", type=float, default=0.5,
                     help="greedy mode: target mean drift (mm at fixture scale)")
