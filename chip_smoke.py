@@ -188,7 +188,14 @@ Phases (one line each; any failure ends the run with a non-zero exit):
      against one process (their distance to the rung with float64 sums
      within 2x / 4x of one process's, mean / largest), the split bf16
      launches timed beside full width;
- 14. one JSON line of per-kernel numbers, the card line again, and the last
+ 14. every caller of the tensor-core GEMM (`gemm_tc_kernel`: K2's four
+     products at serving, K5's scaled branch and dX, the conv at h36m_351's
+     and h36m_81's geometries, dH1 at strides 3 and 2, s2t; 3xTF32 and
+     bf16; `uplift_upsample_torch/tools/gemm_digests.py`) at its main path's
+     shape: its outputs' sha256 equal to the build before the pipelined
+     kernel (`GEMM_DIGESTS`) and on a second call, its time beside that
+     build's (`PARENT_MS`);
+ 15. one JSON line of per-kernel numbers, the card line again, and the last
      line `{"ok": true, "device": {...}}`.
 
 It needs a CUDA card and the repository checkout around it; without either it
@@ -4325,8 +4332,17 @@ def main(argv=None) -> int:
     for r in results.values():
         r["launches"] = counts_by_phase[r.pop("phase")].get(r.pop("counter"), 0)
 
-    # ---- phase 14: report ----------------------------------------------------
+    # ---- phase 14: every caller of gemm_tc_kernel against the parent's bits --
     starts.append(("14", time.perf_counter()))
+    from uplift_upsample_torch.tools import gemm_digests
+    bad = gemm_digests.check(gemm_digests.port_libs(),  # seed 0: GEMM_DIGESTS' inputs
+                             log=lambda s: log(f"phase 14 {s}"))
+    log(f"phase 14 card: {card_line()}")
+    if bad:
+        failed.append(f"gemm_digests {bad}")
+
+    # ---- phase 15: report ----------------------------------------------------
+    starts.append(("15", time.perf_counter()))
     log("phase wall times: " + ", ".join(
         f"{name} {t1 - t0_:.1f} s" for (name, t0_), (_, t1) in zip(starts, starts[1:])))
     if failed:

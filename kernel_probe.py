@@ -17,9 +17,10 @@ Builds patched copies of `csrc/` under `uplift_upsample_torch/_build/probe/`
   other two);
 - the dense-layer GEMM (`temporal.cu`'s gemm_f32 at K2's qkv product,
   72,704 x 384 -> 1,152, beside addmm): the kernel; "products only" (no TMA
-  loads: the producer only signals the stages); "copies only" (no wgmma);
-  "no epilogue" (nothing read or written in device memory); "no splits"
-  and "one pass, no splits" as above;
+  loads: the loader only signals the stages); "copies only" (no wgmma);
+  "no epilogue" (the epilogue warps read and write nothing; the consumers
+  still stage their sums); "no splits", "one pass, no splits" as above;
+  "no register split" (no setmaxnreg: every warpgroup at the launch's 168);
 - the dW product (`temporal_bwd.cu`'s gemm_dw_f32 at the qkv weight's
   384 x 1,152 over 36,352 rows, split as ops/temporal_train.dw_splits cuts
   it, beside torch.mm): the kernel; "products only" (no cp.async copies);
@@ -28,12 +29,17 @@ Builds patched copies of `csrc/` under `uplift_upsample_torch/_build/probe/`
   windows x 23 selected rows, K = 3 x 768 -> 384, its taps gathered from h1,
   beside F.conv1d + the residual add): the kernel; "dense A" (gemm_f32 on
   the taps matrix written out, read by TMA: the same products without the
-  gather); "no gathered copies" (the producer threads issue no cp.async);
-  "no products" (no wgmma); "no epilogue"; "no splits"; "registers 56/224"
-  (setmaxnreg: the producer warpgroup gives registers to the consumers);
+  gather); "no gathered copies" (the loader threads issue no cp.async);
+  "no products" (no wgmma); "no epilogue"; "no splits"; "no register
+  split";
 - the conv's dH1 (`strided_bwd.cu`'s strided_dh1_f32 at the train step,
   11,776 rows x 384 -> 3 x 768, beside convolution_backward's input
-  gradient): the kernel; "no epilogue"; "registers 56/224".
+  gradient): the kernel; "no epilogue"; "no register split";
+- with `--parent DIR` (a copy of an earlier `csrc/`) every caller of
+  gemm_tc_kernel, 3xTF32 and bf16 (`uplift_upsample_torch/tools/
+  gemm_digests.py`), from this checkout's build and DIR's, timed in turn
+  (parent, kernel, kernel, parent) with both builds' output digests: the
+  A/B of a redesign of that kernel.
 - K5's window-attention backward (`temporal_bwd.cu`'s
   window_attention_bwd_f32 at the train step, 512 windows x 71 tokens x
   384, 8 heads, a key mask, beside SDPA's backward): the kernel; "no
@@ -72,7 +78,7 @@ Builds patched copies of `csrc/` under `uplift_upsample_torch/_build/probe/`
   host in it; ptxas's registers and spills of every variant first.
 
 `--only` runs a subset: "dense" is the attention, GEMM, dW, conv and dH1
-groups.
+groups (and the GEMM A/B with `--parent`).
 
 Each prints one line. The patched versions compute nothing meaningful; only
 each kernel as it is is checked against its plain version. Needs a CUDA card
@@ -104,41 +110,42 @@ ATTENTION = {
     "no splits": NO_SPLITS,
     "one pass, no splits": NO_SPLITS + ONE_MMA,
 }
-_TMA = ("            mbar_expect_tx(full + 8 * s, TC_STAGE_BYTES);\n"
-        "            tma_load_2d(st, &map_a, kt * TC_BK, m0, full + 8 * s);\n"
-        "            tma_load_2d(st + TC_TILE_BYTES, &map_w, kt * TC_BK, n0, full + 8 * s);\n"
-        "            tma_load_2d(st + 2 * TC_TILE_BYTES, &map_w, kt * TC_BK, w_small + n0,"
-        " full + 8 * s);\n")
-_SMALL_WGMMA = ("          wgmma_m64n64k8_tf32(part, a_small[j], desc_big + half + 2 * j);\n"
-                "          wgmma_m64n64k8_tf32(part, a_big[j], desc_small + half + 2 * j);\n")
-_BIG_WGMMA = "          wgmma_m64n64k8_tf32(part, a_big[j], desc_big + half + 2 * j);\n"
+_TMA = ("              mbar_expect_tx(full + 8 * s, kBf16 ? 2 * TC_TILE_BYTES : TC_STAGE_BYTES);\n"
+        "              tma_load_2d(st, &map_a, kt * TC_BK, m0, full + 8 * s);\n"
+        "              tma_load_2d(st + TC_TILE_BYTES, &map_w, kt * TC_BK, n0, full + 8 * s);\n"
+        "              if constexpr (!kBf16)\n"
+        "                tma_load_2d(st + 2 * TC_TILE_BYTES, &map_w, kt * TC_BK, w_small + n0,\n"
+        "                            full + 8 * s);\n")
+_SMALL_WGMMA = ("      wgmma_m64n64k8_tf32(d, f.small[j], desc_big + 2 * j);\n"
+                "      wgmma_m64n64k8_tf32(d, f.big[j], desc_small + 2 * j);\n")
+_BIG_WGMMA = "    wgmma_m64n64k8_tf32(d, f.big[j], desc_big + 2 * j);\n"
+_ROWS = "        const int rows = min(TC_BM, m - m0);\n"
+# the register split (setmaxnreg) of the loader / epilogue and consumer warpgroups
+_SETMAXNREG = '    asm volatile("setmaxnreg.{}.sync.aligned.u32 %0;\\n" :: "n"(R::k{}Regs));\n'
+REGS = [("gemm_tc.cuh", _SETMAXNREG.format("dec", "Loader"), ""),
+        ("gemm_tc.cuh", "  " + _SETMAXNREG.format("inc", "Consumer")[4:], "")]
 GEMM = {
     "kernel": [],
-    "products only": [("gemm_tc.cuh", _TMA, "            mbar_arrive(full + 8 * s);\n")],
-    "copies only": [("gemm_tc.cuh", _SMALL_WGMMA + _BIG_WGMMA, "")],
-    "no epilogue": [("gemm_tc.cuh", "    const int row0 = m0 + r, row1 = row0 + 8;",
-                     "    const int row0 = m0 + r + (k > 0 ? m : 0), row1 = row0 + 8;")],
+    "products only": [("gemm_tc.cuh", _TMA, "              mbar_arrive(full + 8 * s);\n")],
+    "copies only": [("gemm_tc.cuh", _SMALL_WGMMA, ""), ("gemm_tc.cuh", _BIG_WGMMA, "")],
+    "no epilogue": [("gemm_tc.cuh", _ROWS, "        const int rows = k > 0 ? 0 : TC_BM;\n")],
     "no splits": NO_SPLITS,
     "one pass, no splits": NO_SPLITS + [("gemm_tc.cuh", _SMALL_WGMMA, "")],
+    "no register split": REGS,
 }
+_GATHER = "              cp_async16(at + r * 32 + (q ^ (r % 8)) * 4,"
 _CP = "      cp_async16({t}s + kk * AB_LD + c4,"
-_GATHER = "            cp_async16(at + r * 32 + (q ^ (r % 8)) * 4,"
-_PROD = "  if (threadIdx.x < 128) {  // producer warpgroup\n"
-_CONS = "  // consumers: warpgroup cw owns rows 64cw..64cw+63 of each tile\n"
-# registers moved from the producer warpgroup to the consumers (setmaxnreg)
-_SETMAXNREG = '{}asm volatile("setmaxnreg.{}.sync.aligned.u32 {};\\n");\n'
-REGS = [("gemm_tc.cuh", _PROD, _PROD + _SETMAXNREG.format("    ", "dec", 56)),
-        ("gemm_tc.cuh", _CONS, _CONS + _SETMAXNREG.format("  ", "inc", 224))]
 NO_EPILOGUE = GEMM["no epilogue"]
 CONV = {
     "kernel": [],
-    "no gathered copies": [("gemm_tc.cuh", _GATHER, "            if (k < 0) " + _GATHER[12:])],
-    "no products": [("gemm_tc.cuh", _SMALL_WGMMA + _BIG_WGMMA, "")],
-    "no epilogue": NO_EPILOGUE,
+    "no gathered copies": [("gemm_tc.cuh", _GATHER, "              if (k < 0) " + _GATHER[14:])],
+    "no products": [("gemm_tc.cuh", _SMALL_WGMMA, ""), ("gemm_tc.cuh", _BIG_WGMMA, "")],
+    "no epilogue": [("gemm_tc.cuh", "      const int row0 = m0 + r, row1 = row0 + 8;",
+                     "      const int row0 = m0 + r + (k > 0 ? m : 0), row1 = row0 + 8;")],
     "no splits": NO_SPLITS,
-    "registers 56/224": REGS,
+    "no register split": REGS,
 }
-DH1 = {"kernel": [], "no epilogue": NO_EPILOGUE, "registers 56/224": REGS}
+DH1 = {"kernel": [], "no epilogue": NO_EPILOGUE, "no register split": REGS}
 _SINK = "if ({} == 1.2345e-30f) "  # a store the compiler cannot drop, never taken
 ATTN_BWD = {
     "kernel": [],
@@ -146,8 +153,8 @@ ATTN_BWD = {
     "no splits": NO_SPLITS,
     "no gradient writes": [("temporal_bwd.cu", f"({r} < n)", f"({r} < n - 4096)")
                            for r in ("row0", "row1")]
-                          + [("temporal_bwd.cu", f"{r} < n &&", f"{r} < n - 4096 &&")
-                             for r in ("key0", "key1")],
+                          + [("temporal_bwd.cu", f"{r} < n && {c} < d", f"{r} < n - 4096 && {c} < d")
+                             for r in ("key0", "key1") for c in ("col", "col + 1")],
 }
 _MMA = "      uu::mma_3xtf32(part, ab, as, bb, bs);\n"
 # rows_gemm's products (spatial_common.cuh): a running sum, fresh partials
@@ -179,7 +186,10 @@ K1 = {
     **K1_AB,
     "no products": [("spatial_common.cuh", _RUNNING, ""), ("spatial_common.cuh", _FRESH, "")],
     "no attention": [("spatial.cu", "      sp::attention_fwd<C>(QKV, QKV, P3, nf, scale);\n", "")],
-    "no LayerNorm statistics": [("spatial.cu", "      sp::ln_stats<C>(X, mu, rs, 1e-5f);\n", "")],
+    "no LayerNorm statistics": [
+        ("spatial.cu", "P3 + k]; };\n      sp::ln_stats<C>(X, mu, rs, 1e-5f);\n", "P3 + k]; };\n"),
+        ("spatial.cu", "nullptr);\n      __syncwarp();\n      sp::ln_stats<C>(X, mu, rs, 1e-5f);\n",
+         "nullptr);\n      __syncwarp();\n")],
     "no gelu": [("spatial.cu", "sp::gelu(v + V[S::B1 + n])", "(v + V[S::B1 + n])")],
     "no splits": NO_SPLITS,
     "one pass, no splits": NO_SPLITS + ONE_MMA,
@@ -240,8 +250,8 @@ def start_build(cuda_lib, tag, source, reps, csrc=None):
     for fname, old, new in reps:
         path = out / fname
         text = path.read_text()
-        if old not in text:
-            raise RuntimeError(f"probe patch {old!r} no longer matches {fname}")
+        if text.count(old) != 1:
+            raise RuntimeError(f"probe patch {old!r} does not match {fname} exactly once")
         path.write_text(text.replace(old, new))
     lib = out / f"lib{source}.so"
     proc = subprocess.Popen([cuda_lib._nvcc(), *cuda_lib.NVCC_FLAGS, "-Xptxas", "-v", "-o",
@@ -265,7 +275,8 @@ def main(argv=None) -> int:
                         help=f"a comma-separated subset of {','.join(PROBES)}")
     parser.add_argument("--parent", default=None,
                         help="a copy of an earlier csrc/: 'short' times its "
-                             "packed_attention_f32 beside the kernels")
+                             "packed_attention_f32 beside the kernels, 'dense' every "
+                             "caller of gemm_tc_kernel")
     args = parser.parse_args(argv)
     import torch
     import torch.nn.functional as F
@@ -312,6 +323,8 @@ def main(argv=None) -> int:
 
     if "dense" in only:
         probe_dense(torch, F, builds, rand, rng, dev, stream)
+        if args.parent:
+            probe_gemm_parent(args.parent, args.seed)
     if "attn_bwd" in only:
         probe_attention_bwd(torch, F, builds, rand, rng, dev, stream)
     if "k4" in only:
@@ -456,6 +469,25 @@ def probe_dense(torch, F, builds, rand, rng, dev, stream):
               flush=True)
     del h1, g, dh1, g_t, h1t
     torch.cuda.empty_cache()
+
+
+def probe_gemm_parent(parent, seed):
+    """Every caller of gemm_tc_kernel (tools/gemm_digests.py: K2's four
+    products, the scaled branch, dX, the conv at two geometries, dH1 at two
+    strides, s2t; 3xTF32 and bf16) from this checkout's build and from
+    `parent`'s, timed in turn (parent, kernel, kernel, parent; 3 rounds of 10
+    launches), with both builds' digests."""
+    from pathlib import Path
+
+    from uplift_upsample_torch.ops import cuda_lib
+    from uplift_upsample_torch.tools import gemm_digests
+
+    libs = gemm_digests.build_libs(Path(parent).resolve(), cuda_lib.BUILD_DIR / "probe" /
+                                   "gemm_parent")
+    failed = gemm_digests.check(gemm_digests.port_libs(), libs, seed, rounds=3,
+                                log=lambda s: print(f"probe {s}", flush=True))
+    if failed:
+        raise RuntimeError(f"gemm callers differ from the parent's bits: {failed}")
 
 
 def probe_attention_bwd(torch, F, builds, rand, rng, dev, stream):

@@ -205,6 +205,31 @@ def test_training_path_splits_halves_from_each_steps_weights(monkeypatch):
             assert not torch.equal(calls[0][f"{name}_tc_dx"], calls[1][f"{name}_tc_dx"])
 
 
+def test_gemm_digest_cases_fit_the_c_entries(monkeypatch):
+    """Each case of `tools/gemm_digests.py` (every caller of gemm_tc_kernel,
+    3xTF32 and bf16) passes its C entry as many arguments as `cuda_lib`
+    binds (the stream appended), W as that entry reads it (the TF32 halves
+    (2, N, K) or the bf16 plane (N, K)), and has a recorded digest and a
+    recorded parent time; at a cut size on the CPU."""
+    from uplift_upsample_torch.tools import gemm_digests as gd
+    monkeypatch.setattr(gd, "SERVING", 3 * 71)
+    monkeypatch.setattr(gd, "TRAIN", 2 * 71)
+    monkeypatch.setattr(gd, "CONV_WINDOWS", (3, 2))
+    monkeypatch.setattr(gd, "DH1_WINDOWS", 2)
+    cases = gd.all_cases(0, torch.device("cpu"))
+    assert len(cases) == 22 and len({c.name for c in cases}) == 22
+    assert {c.name for c in cases} == set(gd.GEMM_DIGESTS) == set(gd.PARENT_MS)
+    for case in cases:
+        sig = cuda_lib._SIGNATURES[case.lib][case.fn]
+        assert len(case.args) + 1 == len(sig), case.name
+        for a, kind in zip(case.args, sig):
+            assert (kind == "p") == (a is None or torch.is_tensor(a)), (case.name, kind)
+        w = case.args[3] if case.fn.startswith("gemm_dx") else \
+            case.args[2] if case.fn.startswith("strided_conv") else case.args[1]
+        assert w.dim() == (2 if case.fn.endswith("_bf16") else 3), case.name
+        assert all(t.dtype == torch.float32 for t in case.outputs)
+
+
 # -- the card -------------------------------------------------------------------
 
 def _card():
@@ -364,3 +389,138 @@ def test_tf32_halves_kernel_matches_plain():
     for transpose in (True, False):
         got = tf32_halves(w, transpose=transpose)
         assert torch.equal(got.cpu(), tf32_halves_plain(w.cpu(), transpose=transpose))
+
+
+# -- the pipelined kernel: its schedule's edges and the parent's bits -----------
+
+def _tiles(t):
+    """Rows giving t 128 x 128 tiles at n = 128, the last one partial (one
+    block per SM walks them: 131, 132, 133 and 265 leave SMs a tile more than
+    others, or none)."""
+    return 91 if t == 1 else 128 * t - 37
+
+
+EDGES = ([(_tiles(t), 128) for t in (1, 131, 132, 133, 2 * 132 + 1)]
+         + [(m, 384) for m in (1, 64, 65, 127, 129)]
+         + [(1031, n) for n in (8, 120, 384, 1152, 2304)])
+
+
+def _bf16_round(x):
+    return x.to(torch.bfloat16).to(x.dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("m,n", EDGES)
+def test_schedule_edges(m, n, bf16):
+    """`gemm_f32` / `gemm_bf16` (bias, relu, a residual) at tile counts and
+    at m and n around the tile edges: against the plain version (at bf16 on
+    the rounded operands) and float64, and bit-identical on repeat."""
+    _card()
+    rng = np.random.default_rng(m * 31 + n)
+    k = 384
+    a, w, bias = _rand(rng, m, k), _rand(rng, k, n, scale=0.05), _rand(rng, n, scale=0.1)
+    res = _rand(rng, m, n)
+    if bf16:
+        from uplift_upsample_torch.ops.temporal import bf16_plane
+        w_op, a_r, w_r = bf16_plane(w), _bf16_round(a), _bf16_round(w)
+    else:
+        w_op, a_r, w_r = tf32_halves(w), a, w
+    precision = "default" if bf16 else "high"
+    got = gemm(a, w_op, bias, residual=res, relu=True, precision=precision, counter=None)
+    again = gemm(a, w_op, bias, residual=res, relu=True, precision=precision, counter=None)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    ref = torch.relu(a_r @ w_r + bias) + res
+    assert _close(got, ref)
+    ref64 = torch.relu(a_r.double() @ w_r.double() + bias.double()) + res.double()
+    ok, err, err_plain = _f64_card(got, ref, ref64)
+    assert ok, (err, err_plain)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bf16", [False, True])
+def test_aliased_residual_schedule(bf16):
+    """fc2's sublayer, `out` = `residual`, over 265 tiles: the epilogue
+    threads read each residual element before they write it."""
+    _card()
+    rng = np.random.default_rng(265)
+    m, k, n = _tiles(265), 768, 128
+    a, w, bias, h = _rand(rng, m, k), _rand(rng, k, n, scale=0.05), _rand(rng, n), _rand(rng, m, n)
+    from uplift_upsample_torch.ops.temporal import bf16_plane
+    w_op = bf16_plane(w) if bf16 else tf32_halves(w)
+    a_r, w_r = (_bf16_round(a), _bf16_round(w)) if bf16 else (a, w)
+    ref = a_r @ w_r + bias + h
+    out = gemm(a, w_op, bias, residual=h, out=h, precision="default" if bf16 else "high",
+               counter=None)
+    torch.cuda.synchronize()
+    assert out.data_ptr() == h.data_ptr() and _close(h, ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [129, 2 * 132 * 128 + 1])
+def test_bf16_row_scale(m):
+    """`gemm_dx_bf16` (TmaAScaled: each row of dY times its factor before its
+    bf16 rounding) with a relu mask, against the plain version on the rounded
+    operands and float64, bit-identical on repeat."""
+    _card()
+    rng = np.random.default_rng(m)
+    k, n, per = 384, 768, 71
+    dy, w = _rand(rng, m, k, scale=1.0), _rand(rng, n, k, scale=0.05)
+    scale = torch.tensor(np.where(rng.uniform(size=-(-m // per)) < 0.9, 1 / 0.9, 0.0),
+                         dtype=torch.float32, device="cuda")
+    mask = torch.relu(_rand(rng, m, n))
+    from uplift_upsample_torch.ops.temporal import bf16_plane
+    plane = bf16_plane(w, transpose=False)
+    got = gemm_dx(dy, scale, per, plane, mask=mask, counter=None, precision="default")
+    again = gemm_dx(dy, scale, per, plane, mask=mask, counter=None, precision="default")
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    a_r = _bf16_round(dy * scale.repeat_interleave(per)[:m, None])
+    keep = (mask > 0).float()
+    ref = a_r @ plane.t() * keep
+    assert _grad_close(got, ref)
+    ok, err, err_plain = _f64_card(got, ref, a_r.double() @ plane.double().t() * keep.double())
+    assert ok, (err, err_plain)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("stride", [3, 2])
+@pytest.mark.parametrize("windows", [7, 1031])
+def test_gathered_a_schedule(stride, windows):
+    """The conv's gathered A (the loader threads' row table and cp.async) at
+    strides 3 and 2, from one tile to a few waves: against the plain conv and
+    float64, bit-identical on repeat."""
+    from uplift_upsample_torch.ops.strided import strided_conv, strided_conv_plain
+    from uplift_upsample_torch.ops.temporal import add_tf32_halves
+    _card()
+    rng = np.random.default_rng(windows + stride)
+    n, c, hidden = 71, 384, 768
+    h1, x = torch.relu(_rand(rng, windows, n, hidden)), _rand(rng, windows, n, c)
+    ops = add_tf32_halves(dict(wc=_rand(rng, 3 * hidden, c, scale=0.03),
+                               bc=_rand(rng, c, scale=0.1)), ("wc",))
+    kw = dict(stride=stride, paddings=(0, 0))
+    got, again = strided_conv(h1, x, ops, counter=None, **kw), strided_conv(h1, x, ops, counter=None, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    ref = strided_conv_plain(h1, x, ops["wc"], ops["bc"], **kw)
+    assert _close(got, ref)
+    ref64 = strided_conv_plain(h1.double(), x.double(), ops["wc"].double(), ops["bc"].double(),
+                               **kw)
+    ok, err, err_plain = _f64_card(got, ref, ref64)
+    assert ok, (err, err_plain)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bf16", [False, True])
+def test_gemm_digests_equal_the_parent_build(bf16):
+    """Every caller of gemm_tc_kernel (`tools/gemm_digests.py`) at its main
+    path's shape gives the bits of the build before the pipelined kernel
+    (`GEMM_DIGESTS`), and the same bits on a second call."""
+    from uplift_upsample_torch.tools import gemm_digests as gd
+    dev = _card()
+    libs = gd.port_libs()
+    for case in gd.cases(0, bf16, dev):
+        first, again = gd.digest(libs, case), gd.digest(libs, case)
+        assert first == again, case.name
+        assert first == gd.GEMM_DIGESTS[case.name], case.name

@@ -8,7 +8,8 @@
 //    two TF32 halves of an (n, k) K-major matrix in one (2, n, k) buffer
 //    (`launch_tf32_halves`): for x·W with W (k, n) the halves of Wᵀ, for the
 //    backward's dX = dY·Wᵀ the halves of W as it is stored. The epilogue is
-//    a functor `epi(r, c, v)` called once per output element. A comes by
+//    a functor (`BiasActResidual` below says what it provides) that writes
+//    each output element from its sum. A comes by
 //    TMA (`launch_gemm_tc`) or, for the conv's taps, gathered row by row
 //    (`launch_gemm_tc_gather`).
 //
@@ -19,7 +20,7 @@
 //    The bf16 mode (kBf16, the one-pass bf16 rung; `launch_gemm_tc<true>`):
 //    B is W's bf16-rounded plane (n, k) in place of the halves, A is rounded
 //    to bf16 (tf32.cuh bf16_round) as it leaves shared memory, and each
-//    8-deep step is one wgmma on the plane instead of three; the producer
+//    8-deep step is one wgmma on the plane instead of three; the loader
 //    loads no small half. A simple instance: one TF32 pass on operands that
 //    bf16 holds exactly, so the stages keep fp32 tiles at TF32's rate. With
 //    A read as TmaAScaled (the backward's dX in training) each row of A is
@@ -28,36 +29,49 @@
 //
 //    Design: persistent, one block per SM walking 128 x 128 output tiles in
 //    order, n fastest (the blocks running together share A tiles, so A
-//    comes from device memory about once), 384 threads:
-//     - warpgroup 0 is the producer: one thread keeps a ring of 4
-//       shared-memory stages filled with TMA loads (A 128 x 32, W_big and
-//       W_small 128 x 32, 128-byte swizzle), each stage guarded by a full
-//       and an empty mbarrier. It runs on into the next tile's loads while
-//       the consumers finish the current one: with K = 384-1,152 a tile is
-//       only 12-36 stages deep, and a block per tile would refill the ring
-//       and leave TMA idle through every epilogue. A gathered A (TMA takes
-//       no row list) is fetched by all 128 producer threads instead, with
+//    comes from device memory about once), 384 threads; warpgroup 0 gives
+//    registers to the two consumer warpgroups (setmaxnreg: 56 and 224 a
+//    thread, the launch's 168 on average; 72 and 216 with a gathered A):
+//     - the loaders: one thread keeps a ring of 3 shared-memory stages
+//       filled with TMA loads (A 128 x 32, W_big and W_small 128 x 32,
+//       128-byte swizzle), each stage guarded by a full and an empty
+//       mbarrier. It runs on into the next tile's loads while the consumers
+//       finish the current one: with K = 384-1,152 a tile is only 12-36
+//       stages deep. A gathered A (TMA takes no row list) is fetched by all
+//       128 threads of warpgroup 0 into a ring of 4 stages instead, with
 //       cp.async in 16-byte pieces written where the swizzle puts them,
 //       zero-filled where the gather says so; each thread's copies arrive
-//       on the stage's full mbarrier as they land (cp.async.mbarrier.arrive),
-//       beside the TMA bytes of W;
-//     - warpgroups 1 and 2 are consumers, 64 rows each: per 32-deep stage a
-//       thread loads its A fragments from shared memory and splits them into
-//       TF32 halves in registers; per 64-column half of the tile it issues
-//       wgmma.m64n64k8 three times per 8-deep step (A_small·W_big,
-//       A_big·W_small, A_big·W_big, B read from shared memory through
-//       descriptors) into a fresh partial, then adds the partial to its fp32
-//       accumulators. The tensor cores round toward zero as they accumulate:
-//       with every product of K = 768 added into one sum that came to ~10x
-//       the fp32 plain version's error on the card, and a partial per stage
-//       brings it back to fp32's level;
-//     - the epilogue runs from the accumulator registers: only rows < m and
-//       columns < n are written. TMA fills rows and columns past the ends
-//       of A with zeros. Each output element is read (a residual may alias
-//       out) and written by one thread; A must not alias out. It does not
-//       overlap the tensor cores' work (~0.3 of the qkv product's 0.86 ms,
-//       kernel_probe.py); passing it through shared memory for 128-byte
-//       stores was tried and was slower with a residual (spills).
+//       on the stage's full mbarrier as they land
+//       (cp.async.mbarrier.arrive), beside the TMA bytes of W;
+//     - the consumers, 64 rows each: per 32-deep stage a thread loads its A
+//       fragments from shared memory and splits them into TF32 halves in
+//       registers; per 64-column half of the tile it issues wgmma.m64n64k8
+//       three times per 8-deep step (A_small·W_big, A_big·W_small,
+//       A_big·W_big, B read from shared memory through descriptors) into a
+//       fresh partial, then adds the partial to its fp32 accumulators. The
+//       tensor cores round toward zero as they accumulate: with every
+//       product of K = 768 added into one sum that came to ~10x the fp32
+//       plain version's error on the card, and a partial per stage brings it
+//       back to fp32's level. Both halves' products are in flight together
+//       (wgmma.wait_group 1, then 0), the next stage's A is read under them
+//       (A by TMA), and a stage is released as soon as its second half
+//       retires (`mainloop`). With A by TMA the consumers then write their
+//       sums to a staging tile in shared memory and go on to the next tile;
+//       with a gathered A they pass them through the epilogue themselves,
+//       two columns at a time (8-byte loads and stores);
+//     - the epilogue (A by TMA: warps 1-3 of warpgroup 0): it reads a staged
+//       tile and passes it through the epilogue functor, 4 columns a thread
+//       (16-byte loads and stores, a few rows' loads in flight), while the
+//       consumers run the next tile's products. Run from the consumers'
+//       registers after the last stage, as the kernel did before this
+//       pipeline, it took ~0.34 of qkv's 0.87 ms (kernel_probe.py, NVIDIA
+//       H100 80GB HBM3, 700 W).
+//    Only rows < m and columns < n are written; TMA fills rows and columns
+//    past the ends of A with zeros. Each output element is read (a residual
+//    may alias out) and written by one thread; A must not alias out. Every
+//    output's sum is the one the kernel took before the pipeline (the same
+//    partials, added in stage order), so its outputs are the same bits
+//    (uplift_upsample_torch/tools/gemm_digests.py, GEMM_DIGESTS).
 //
 // 2. gemm_atb_kernel: part[z] = Xᵀ · (s ⊙ dY) over chunk z of the rows, X
 //    (rows, m) and dY (rows, n) row-major: the backward's dW, split over the
@@ -94,15 +108,43 @@
 
 namespace uu {
 
-constexpr int TC_BM = 128, TC_BN = 128, TC_BK = 32, TC_STAGES = 4;
-constexpr int TC_THREADS = 384;                               // producer + 2 consumers
-constexpr int TC_TILE_BYTES = TC_BM * TC_BK * 4;              // 16 KB, = TC_BN x TC_BK
-constexpr int TC_STAGE_BYTES = 3 * TC_TILE_BYTES;             // A, W_big, W_small
-constexpr int TC_SMEM_BYTES = TC_STAGES * TC_STAGE_BYTES + 1024 + 2 * TC_STAGES * 8;
+constexpr int TC_BM = 128, TC_BN = 128, TC_BK = 32;
+constexpr int TC_THREADS = 384;                    // warpgroup 0, then two consumers
+constexpr int TC_TILE_BYTES = TC_BM * TC_BK * 4;   // 16 KB, = TC_BN x TC_BK
+constexpr int TC_STAGE_BYTES = 3 * TC_TILE_BYTES;  // A, W_big, W_small
+constexpr int TC_LDS = TC_BN + 8;                  // floats per staged output row
+constexpr int TC_OUT_BYTES = TC_BM * TC_LDS * 4;   // one tile's sums, 68 KB
+
+// Warpgroup 0's roles and the shared memory by A's source: with A by TMA,
+// warp 0 loads (one thread) and warps 1-3 run the epilogue from a staging
+// tile, beside a ring of 3 stages; a gathered A takes all 128 threads to
+// load (each keeps its 8 rows' offsets), a ring of 4 stages, and the
+// consumers write their tiles themselves. Registers per thread after
+// setmaxnreg: warpgroup 0's and the consumers', 128 x 56 + 256 x 224 (or
+// 128 x 72 + 256 x 216) = 384 x 168, the launch's own (__launch_bounds__).
+template <bool kGather>
+struct TcRoles {
+  static constexpr int kStages = kGather ? 4 : 3;
+  static constexpr int kLoaderRegs = kGather ? 72 : 56, kConsumerRegs = kGather ? 216 : 224;
+  static constexpr int kLoaders = kGather ? 128 : 32;
+  static constexpr int kEpilogue = 128 - kLoaders;  // epilogue threads
+  static constexpr int kSmem =
+      kStages * TC_STAGE_BYTES + (kGather ? 0 : TC_OUT_BYTES) + (2 * kStages + 2) * 8 + 1024;
+};
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
+
+__host__ __device__ __forceinline__ bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ void st4(float* p, float4 v) { *reinterpret_cast<float4*>(p) = v; }
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
@@ -170,6 +212,27 @@ __device__ __forceinline__ void wgmma_m64n64k8_tf32(float (&d)[32], const uint32
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
+// Keeps the compiler from moving reads or writes of x across the wgmma
+// issues and waits around it (the tensor cores write x asynchronously).
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&x)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(x[i])::"memory");
+}
+
+// An epilogue functor E writes one output tile's elements from their sums v:
+//   operator()(r, c, v)              one element;
+//   quads() (host)                   whether 4 columns at a time may be taken
+//                                    (n % 4 == 0, 16-byte aligned pointers);
+//   Ld load4(r, c), store4(r, c, v4, ld)
+//                                    columns c..c+3 (c % 4 == 0) of row r: what
+//                                    they read, then what they write, each
+//                                    element exactly as operator() computes it.
+// The epilogue threads load a few rows' Ld before storing any, so their reads
+// are in flight together. With a gathered A (ConvResidual) the consumers
+// write their tiles themselves: quads() and pair(r, c, v0, v1), columns c
+// and c + 1 of row r, take the place of Ld, load4 and store4.
+//
 // out[r, c] = act(v + bias[c]) + residual[r, c]; bias and residual optional.
 // residual may alias out: each element is read and written by one thread.
 struct BiasActResidual {
@@ -178,12 +241,27 @@ struct BiasActResidual {
   float* out;
   int n;
   int relu;
-  __device__ __forceinline__ void operator()(int r, int c, float v) const {
+  __device__ __forceinline__ float value(int c, float v, float res) const {
     if (bias) v += bias[c];
     if (relu) v = fmaxf(v, 0.f);
+    if (residual) v += res;
+    return v;
+  }
+  __device__ __forceinline__ void operator()(int r, int c, float v) const {
     const size_t o = (size_t)r * n + c;
-    if (residual) v += residual[o];
-    out[o] = v;
+    out[o] = value(c, v, residual ? residual[o] : 0.f);
+  }
+  bool quads() const { return n % 4 == 0 && aligned16(residual) && aligned16(out); }
+  struct Ld {
+    float4 res;
+  };
+  __device__ __forceinline__ Ld load4(int r, int c) const {
+    return {residual ? ld4(residual + (size_t)r * n + c) : make_float4(0.f, 0.f, 0.f, 0.f)};
+  }
+  __device__ __forceinline__ void store4(int r, int c, float4 v, const Ld& l) const {
+    st4(out + (size_t)r * n + c,
+        make_float4(value(c, v.x, l.res.x), value(c + 1, v.y, l.res.y),
+                    value(c + 2, v.z, l.res.z), value(c + 3, v.w, l.res.w)));
   }
 };
 
@@ -213,102 +291,284 @@ struct RowScaled<TmaAScaled> {
   static constexpr bool value = true;
 };
 
+// A consumer thread's A fragments of one 32-deep stage, split into TF32
+// halves (kBf16: rounded to bf16, no small half). Step j's fragment:
+// (r, 8j+t), (r+8, 8j+t), (r, 8j+t+4), (r+8, 8j+t+4).
+template <bool kBf16>
+struct AFrag {
+  uint32_t big[4][4], small[kBf16 ? 1 : 4][4];
+};
+
+// The thread's 16 values of A in stage tile `at`, in fragment order;
+// element (row, col) of the swizzled tile sits at
+// row*32 + ((col/4) ^ (row%8))*4 + col%4.
+__device__ __forceinline__ void load_a(float (&x)[16], const float* at, int r, int g, int t) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int lo = ((2 * j) ^ g) * 4 + t, hi = ((2 * j + 1) ^ g) * 4 + t;
+    x[4 * j] = at[r * 32 + lo];
+    x[4 * j + 1] = at[(r + 8) * 32 + lo];
+    x[4 * j + 2] = at[r * 32 + hi];
+    x[4 * j + 3] = at[(r + 8) * 32 + hi];
+  }
+}
+
+// The fragments of x: its TF32 halves, or in the bf16 mode x rounded to
+// bf16, rows r and r + 8 first times their factors fr0, fr1 (kScaled).
+template <bool kBf16, bool kScaled>
+__device__ __forceinline__ void make_frag(AFrag<kBf16>& f, const float (&x)[16], float fr0,
+                                          float fr1) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if constexpr (kBf16)
+        f.big[j][e] = bf16_round(kScaled ? x[4 * j + e] * (e % 2 ? fr1 : fr0) : x[4 * j + e]);
+      else
+        tf32_split(x[4 * j + e], f.big[j][e], f.small[j][e]);
+    }
+}
+
+// One 64-column half's products of a stage into the partial d: per 8-deep
+// step A_small·W_big, A_big·W_small, A_big·W_big (kBf16: the one product),
+// issued as a wgmma group and not waited for.
+template <bool kBf16>
+__device__ __forceinline__ void issue_half(float (&d)[32], const AFrag<kBf16>& f,
+                                           uint64_t desc_big, uint64_t desc_small) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) d[i] = 0.f;
+  fence_regs(d);
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    if constexpr (!kBf16) {
+      wgmma_m64n64k8_tf32(d, f.small[j], desc_big + 2 * j);
+      wgmma_m64n64k8_tf32(d, f.big[j], desc_small + 2 * j);
+    }
+    wgmma_m64n64k8_tf32(d, f.big[j], desc_big + 2 * j);
+  }
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// Waits until at most `kLeft` wgmma groups are in flight, then adds the
+// retired partial d into acc[kOff..kOff+31] with rounded fp32 adds.
+template <int kLeft, int kOff>
+__device__ __forceinline__ void retire_into(float (&acc)[64], float (&d)[32]) {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(kLeft) : "memory");
+  fence_regs(d);
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[kOff + i] += d[i];
+}
+
+template <int kStages>
+__device__ __forceinline__ const float* stage_at(const float* tiles, uint32_t i) {
+  return tiles + (i % kStages) * (TC_STAGE_BYTES / 4);
+}
+
+// The descriptor of stage i's W_big tile (which = 0) or W_small tile (1);
+// + kHalf: its second 64 columns.
+template <int kStages>
+__device__ __forceinline__ uint64_t w_desc(uint32_t base, uint32_t i, int which) {
+  return sw128_desc(base + (i % kStages) * TC_STAGE_BYTES + (1 + which) * TC_TILE_BYTES);
+}
+constexpr uint64_t kHalf = 64 * TC_BK * 4 >> 4;  // W's rows 64.. of a stage tile
+
+// Stage i's shared memory may be refilled: one arrival per consumer warp.
+template <int kStages>
+__device__ __forceinline__ void release(uint32_t empty, uint32_t i) {
+  __syncwarp();
+  if (threadIdx.x % 32 == 0) mbar_arrive(empty + 8 * (i % kStages));
+}
+
+// A consumer's products of one tile into acc, over the ring of kStages
+// stages from stage `it` on. The tensor cores add each product into their
+// accumulator rounding toward zero, an error that grows with the number of
+// adds into one sum (~1e-5 relative over K = 768 where the fp32 plain
+// version keeps ~1e-6). So each 32-deep stage sums into a fresh partial per
+// 64-column half (32 registers), which then joins acc with a rounded fp32
+// add, stage by stage. The two halves' groups are in flight together, and
+// a stage is released once its second half retires. With A by TMA
+// (kAhead) the next stage's A is read from shared memory under the current
+// stage's products, and split (or rounded) once they retire: a second
+// buffer of fragments, to issue stage kt+1 before stage kt retires, does
+// not fit in 224 registers beside the partials (3xTF32 spilled; the bf16
+// mode ran 1.3x slower, ptxas serializing its wgmma; NVIDIA H100 80GB HBM3,
+// 700 W). A gathered A is slow to arrive: there the consumers release each
+// stage before they wait for the next, so the loaders keep every stage but
+// one in flight.
+template <bool kBf16, bool kScaled, bool kAhead, int kStages>
+__device__ __forceinline__ void mainloop(float (&acc)[64], int ktiles, uint32_t it,
+                                         uint32_t base, const float* tiles, uint32_t full,
+                                         uint32_t empty, int r, int g, int t, float fr0,
+                                         float fr1) {
+  float p0[32], p1[32], x[16];
+  mbar_wait(full + 8 * (it % kStages), (it / kStages) & 1);
+  load_a(x, stage_at<kStages>(tiles, it), r, g, t);
+  for (int kt = 0; kt < ktiles; ++kt) {
+    AFrag<kBf16> f;
+    make_frag<kBf16, kScaled>(f, x, fr0, fr1);
+    const uint64_t db = w_desc<kStages>(base, it + kt, 0);
+    const uint64_t ds = w_desc<kStages>(base, it + kt, 1);
+    issue_half<kBf16>(p0, f, db, ds);
+    issue_half<kBf16>(p1, f, db + kHalf, ds + kHalf);
+    const uint32_t next = it + kt + 1;
+    if (kAhead && kt + 1 < ktiles) {
+      mbar_wait(full + 8 * (next % kStages), (next / kStages) & 1);
+      load_a(x, stage_at<kStages>(tiles, next), r, g, t);
+    }
+    retire_into<1, 0>(acc, p0);
+    retire_into<0, 32>(acc, p1);
+    release<kStages>(empty, it + kt);
+    if (!kAhead && kt + 1 < ktiles) {
+      mbar_wait(full + 8 * (next % kStages), (next / kStages) & 1);
+      load_a(x, stage_at<kStages>(tiles, next), r, g, t);
+    }
+  }
+}
+
 // map_w holds W's big half in rows [0, n) and its small half in rows
 // [w_small, w_small + n) (kBf16: the bf16 plane in rows [0, n), no small
 // half); A comes through map_a (ASrc = TmaA) or through the gather `a_at`
 // (ASrc::kGather: `row(r)` once per tile row, `at(row, k)` a pointer to
-// A[r, k..k+3] or nullptr for zeros).
+// A[r, k..k+3] or nullptr for zeros). `quads`: epi.quads() on the host.
 template <class Epilogue, class ASrc, bool kBf16>
 __global__ void __launch_bounds__(TC_THREADS, 1)
 gemm_tc_kernel(const __grid_constant__ CUtensorMap map_a,
                const __grid_constant__ CUtensorMap map_w, int m, int n, int k, int w_small,
-               ASrc a_at, Epilogue epi) {
+               ASrc a_at, Epilogue epi, int quads) {
+  typedef TcRoles<ASrc::kGather> R;
+  constexpr int S = R::kStages;
   extern __shared__ float4 tc_smem[];
   unsigned char* smem_raw = reinterpret_cast<unsigned char*>(tc_smem);
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t base = (raw + 1023) & ~1023u;  // 128-byte swizzle wants 1,024 alignment
   float* tiles = reinterpret_cast<float*>(smem_raw + (base - raw));
-  const uint32_t full = base + TC_STAGES * TC_STAGE_BYTES;  // TC_STAGES mbarriers
-  const uint32_t empty = full + TC_STAGES * 8;              // TC_STAGES mbarriers
+  float* outs = tiles + S * TC_STAGE_BYTES / 4;  // the staged sums (A by TMA)
+  const uint32_t full = base + S * TC_STAGE_BYTES + (ASrc::kGather ? 0 : TC_OUT_BYTES);
+  const uint32_t empty = full + S * 8;           // S mbarriers each
+  const uint32_t staged = empty + S * 8;         // a tile's sums are in `outs`
+  const uint32_t drained = staged + 8;           // the epilogue is done with them
   const int ktiles = (k + TC_BK - 1) / TC_BK;
   const int tiles_n = (n + TC_BN - 1) / TC_BN;
   const int tile_count = tiles_n * ((m + TC_BM - 1) / TC_BM);
 
   if (threadIdx.x == 0) {
-    for (int s = 0; s < TC_STAGES; ++s) {
-      mbar_init(full + 8 * s, ASrc::kGather ? 1 + 128 : 1);  // + each gathering thread
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full + 8 * s, ASrc::kGather ? 1 + R::kLoaders : 1);  // + each gathering thread
       mbar_init(empty + 8 * s, 8);  // one arrival per consumer warp
     }
+    mbar_init(staged, 256);                              // every consumer thread
+    mbar_init(drained, R::kEpilogue ? R::kEpilogue : 1);  // every epilogue thread
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  // Both sides count the stages they have used, `it`, across tiles: stage
-  // it % TC_STAGES, in its (it / TC_STAGES)-th round.
-  if (threadIdx.x < 128) {  // producer warpgroup
-    if constexpr (!ASrc::kGather) {  // one thread issues every load
-      if (threadIdx.x == 0) {
+  // Loaders and consumers count the stages they have used, `it`, across
+  // tiles: stage it % S, in its (it / S)-th round. Consumers and epilogue
+  // count tiles, `lt`: the sums of the block's lt-th tile pass through
+  // `outs` in phase lt of `staged` and `drained`.
+  if (threadIdx.x < 128) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(R::kLoaderRegs));
+    if (threadIdx.x < R::kLoaders) {
+      if constexpr (!ASrc::kGather) {  // one thread issues every load
+        if (threadIdx.x == 0) {
+          uint32_t it = 0;
+          for (int tile = blockIdx.x; tile < tile_count; tile += gridDim.x) {
+            const int n0 = (tile % tiles_n) * TC_BN, m0 = (tile / tiles_n) * TC_BM;
+            for (int kt = 0; kt < ktiles; ++kt, ++it) {
+              const int s = it % S;
+              const uint32_t round = it / S;
+              if (round > 0) mbar_wait(empty + 8 * s, (round - 1) & 1);
+              const uint32_t st = base + s * TC_STAGE_BYTES;
+              mbar_expect_tx(full + 8 * s, kBf16 ? 2 * TC_TILE_BYTES : TC_STAGE_BYTES);
+              tma_load_2d(st, &map_a, kt * TC_BK, m0, full + 8 * s);
+              tma_load_2d(st + TC_TILE_BYTES, &map_w, kt * TC_BK, n0, full + 8 * s);
+              if constexpr (!kBf16)
+                tma_load_2d(st + 2 * TC_TILE_BYTES, &map_w, kt * TC_BK, w_small + n0,
+                            full + 8 * s);
+            }
+          }
+        }
+      } else {
+        // Thread p copies 16-byte piece q = p % 8 of the tile rows p / 8 + 16i;
+        // in the 128-byte swizzle piece q of row r sits at piece q ^ (r % 8).
+        const int p = threadIdx.x, q = p % 8, r0 = p / 8;
         uint32_t it = 0;
         for (int tile = blockIdx.x; tile < tile_count; tile += gridDim.x) {
           const int n0 = (tile % tiles_n) * TC_BN, m0 = (tile / tiles_n) * TC_BM;
+          typename ASrc::Row rows[TC_BM / 16];
+#pragma unroll
+          for (int i = 0; i < TC_BM / 16; ++i) rows[i] = a_at.row(m0 + r0 + 16 * i);
           for (int kt = 0; kt < ktiles; ++kt, ++it) {
-            const int s = it % TC_STAGES;
-            const uint32_t round = it / TC_STAGES;
+            const int s = it % S;
+            const uint32_t round = it / S;
             if (round > 0) mbar_wait(empty + 8 * s, (round - 1) & 1);
             const uint32_t st = base + s * TC_STAGE_BYTES;
-            mbar_expect_tx(full + 8 * s, kBf16 ? 2 * TC_TILE_BYTES : TC_STAGE_BYTES);
-            tma_load_2d(st, &map_a, kt * TC_BK, m0, full + 8 * s);
-            tma_load_2d(st + TC_TILE_BYTES, &map_w, kt * TC_BK, n0, full + 8 * s);
-            if constexpr (!kBf16)
-              tma_load_2d(st + 2 * TC_TILE_BYTES, &map_w, kt * TC_BK, w_small + n0,
-                          full + 8 * s);
+            if (p == 0) {
+              mbar_expect_tx(full + 8 * s, kBf16 ? TC_TILE_BYTES : 2 * TC_TILE_BYTES);
+              tma_load_2d(st + TC_TILE_BYTES, &map_w, kt * TC_BK, n0, full + 8 * s);
+              if constexpr (!kBf16)
+                tma_load_2d(st + 2 * TC_TILE_BYTES, &map_w, kt * TC_BK, w_small + n0,
+                            full + 8 * s);
+            }
+            float* at = tiles + s * (TC_STAGE_BYTES / 4);
+            const int kk = kt * TC_BK + 4 * q;
+#pragma unroll
+            for (int i = 0; i < TC_BM / 16; ++i) {
+              const int r = r0 + 16 * i;
+              const float* src = kk < k ? a_at.at(rows[i], kk) : nullptr;
+              cp_async16(at + r * 32 + (q ^ (r % 8)) * 4, src ? src : a_at.h1, src ? 16 : 0);
+            }
+            cp_async_mbar_arrive(full + 8 * s);
           }
         }
       }
-    } else {
-      // Thread p copies 16-byte piece q = p % 8 of the tile rows p / 8 + 16i;
-      // in the 128-byte swizzle piece q of row r sits at piece q ^ (r % 8).
-      const int p = threadIdx.x, q = p % 8, r0 = p / 8;
-      uint32_t it = 0;
-      for (int tile = blockIdx.x; tile < tile_count; tile += gridDim.x) {
+    } else if constexpr (!ASrc::kGather) {
+      // The epilogue: each tile's sums from `outs` through epi, while the
+      // consumers run the next tile's products. Warp e2 takes rows e2,
+      // e2 + kWarps, ...; a lane 4 columns (or every 32nd column without quads).
+      constexpr int kWarps = R::kEpilogue / 32;
+      constexpr int kRows = sizeof(typename Epilogue::Ld) <= 16 ? 4 : 2;  // loads in flight
+      const int e = threadIdx.x - R::kLoaders, e2 = e / 32, lane = e % 32;
+      uint32_t lt = 0;
+      for (int tile = blockIdx.x; tile < tile_count; tile += gridDim.x, ++lt) {
         const int n0 = (tile % tiles_n) * TC_BN, m0 = (tile / tiles_n) * TC_BM;
-        typename ASrc::Row rows[TC_BM / 16];
+        const int rows = min(TC_BM, m - m0);
+        mbar_wait(staged, lt & 1);
+        if (quads) {
+          const int c = n0 + 4 * lane;  // n % 4 == 0: c + 3 < n with it
+          if (c < n) {
+            for (int i0 = e2; i0 < rows; i0 += kWarps * kRows) {
+              typename Epilogue::Ld ld[kRows];
 #pragma unroll
-        for (int i = 0; i < TC_BM / 16; ++i) rows[i] = a_at.row(m0 + r0 + 16 * i);
-        for (int kt = 0; kt < ktiles; ++kt, ++it) {
-          const int s = it % TC_STAGES;
-          const uint32_t round = it / TC_STAGES;
-          if (round > 0) mbar_wait(empty + 8 * s, (round - 1) & 1);
-          const uint32_t st = base + s * TC_STAGE_BYTES;
-          if (p == 0) {
-            mbar_expect_tx(full + 8 * s, kBf16 ? TC_TILE_BYTES : 2 * TC_TILE_BYTES);
-            tma_load_2d(st + TC_TILE_BYTES, &map_w, kt * TC_BK, n0, full + 8 * s);
-            if constexpr (!kBf16)
-              tma_load_2d(st + 2 * TC_TILE_BYTES, &map_w, kt * TC_BK, w_small + n0,
-                          full + 8 * s);
-          }
-          float* at = tiles + s * (TC_STAGE_BYTES / 4);
-          const int kk = kt * TC_BK + 4 * q;
+              for (int u = 0; u < kRows; ++u)
+                if (i0 + kWarps * u < rows) ld[u] = epi.load4(m0 + i0 + kWarps * u, c);
 #pragma unroll
-          for (int i = 0; i < TC_BM / 16; ++i) {
-            const int r = r0 + 16 * i;
-            const float* src = kk < k ? a_at.at(rows[i], kk) : nullptr;
-            cp_async16(at + r * 32 + (q ^ (r % 8)) * 4, src ? src : a_at.h1, src ? 16 : 0);
+              for (int u = 0; u < kRows; ++u) {
+                const int i = i0 + kWarps * u;
+                if (i < rows) epi.store4(m0 + i, c, ld4(outs + i * TC_LDS + 4 * lane), ld[u]);
+              }
+            }
           }
-          cp_async_mbar_arrive(full + 8 * s);
+        } else {
+          for (int i = e2; i < rows; i += kWarps)
+            for (int j = lane; j < TC_BN && n0 + j < n; j += 32)
+              epi(m0 + i, n0 + j, outs[i * TC_LDS + j]);
         }
+        mbar_arrive(drained);
       }
     }
     return;
   }
 
   // consumers: warpgroup cw owns rows 64cw..64cw+63 of each tile
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(R::kConsumerRegs));
   static_assert(kBf16 || !RowScaled<ASrc>::value, "A's row factors are a bf16-mode input");
   const int cw = threadIdx.x / 128 - 1, tid = threadIdx.x % 128;
   const int warp = tid / 32, lane = tid % 32, g = lane >> 2, t = lane & 3;
   const int r = cw * 64 + warp * 16 + g;  // this thread's rows r and r + 8 (r % 8 == g)
-  uint32_t it = 0;
-  for (int tile = blockIdx.x; tile < tile_count; tile += gridDim.x) {
+  uint32_t it = 0, lt = 0;
+  for (int tile = blockIdx.x; tile < tile_count; tile += gridDim.x, ++lt) {
     const int n0 = (tile % tiles_n) * TC_BN, m0 = (tile / tiles_n) * TC_BM;
     float fr0 = 1.f, fr1 = 1.f;  // the rows' factors (TmaAScaled)
     if constexpr (RowScaled<ASrc>::value) {
@@ -318,79 +578,44 @@ gemm_tc_kernel(const __grid_constant__ CUtensorMap map_a,
     float acc[64];
 #pragma unroll
     for (int i = 0; i < 64; ++i) acc[i] = 0.f;
-
-    for (int kt = 0; kt < ktiles; ++kt, ++it) {
-      const int s = it % TC_STAGES;
-      mbar_wait(full + 8 * s, (it / TC_STAGES) & 1);
-      const float* at = tiles + s * (TC_STAGE_BYTES / 4);
-      const uint32_t wb = base + s * TC_STAGE_BYTES + TC_TILE_BYTES;
-      const uint64_t desc_big = sw128_desc(wb), desc_small = sw128_desc(wb + TC_TILE_BYTES);
-      // A fragment of step j: (r, 8j+t), (r+8, 8j+t), (r, 8j+t+4), (r+8, 8j+t+4);
-      // element (row, col) of the swizzled tile sits at
-      // row*32 + ((col/4) ^ (row%8))*4 + col%4
-      uint32_t a_big[4][4], a_small[kBf16 ? 1 : 4][4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int lo = ((2 * j) ^ g) * 4 + t, hi = ((2 * j + 1) ^ g) * 4 + t;
-        if constexpr (kBf16 && RowScaled<ASrc>::value) {
-          a_big[j][0] = bf16_round(at[r * 32 + lo] * fr0);
-          a_big[j][1] = bf16_round(at[(r + 8) * 32 + lo] * fr1);
-          a_big[j][2] = bf16_round(at[r * 32 + hi] * fr0);
-          a_big[j][3] = bf16_round(at[(r + 8) * 32 + hi] * fr1);
-        } else if constexpr (kBf16) {
-          a_big[j][0] = bf16_round(at[r * 32 + lo]);
-          a_big[j][1] = bf16_round(at[(r + 8) * 32 + lo]);
-          a_big[j][2] = bf16_round(at[r * 32 + hi]);
-          a_big[j][3] = bf16_round(at[(r + 8) * 32 + hi]);
-        } else {
-          tf32_split(at[r * 32 + lo], a_big[j][0], a_small[j][0]);
-          tf32_split(at[(r + 8) * 32 + lo], a_big[j][1], a_small[j][1]);
-          tf32_split(at[r * 32 + hi], a_big[j][2], a_small[j][2]);
-          tf32_split(at[(r + 8) * 32 + hi], a_big[j][3], a_small[j][3]);
-        }
-      }
-      // The tensor cores add each product into their accumulator rounding
-      // toward zero, an error that grows with the number of adds into one
-      // sum (~1e-5 relative over K = 768 where the fp32 plain version keeps
-      // ~1e-6). So each 32-deep stage sums into a fresh partial, per 64-column
-      // half (32 registers), which then joins acc with a rounded fp32 add.
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        float part[32];
-#pragma unroll
-        for (int i = 0; i < 32; ++i) part[i] = 0.f;
-        const uint64_t half = h * (64 * TC_BK * 4 >> 4);  // W's rows 64h.. of the tile
-        asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          if constexpr (!kBf16) {
-            wgmma_m64n64k8_tf32(part, a_small[j], desc_big + half + 2 * j);
-            wgmma_m64n64k8_tf32(part, a_big[j], desc_small + half + 2 * j);
-          }
-          wgmma_m64n64k8_tf32(part, a_big[j], desc_big + half + 2 * j);
-        }
-        asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-        asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-#pragma unroll
-        for (int i = 0; i < 32; ++i) acc[32 * h + i] += part[i];
-      }
-      __syncwarp();
-      if (lane == 0) mbar_arrive(empty + 8 * s);
-    }
+    mainloop<kBf16, RowScaled<ASrc>::value, !ASrc::kGather, S>(acc, ktiles, it, base, tiles,
+                                                                full, empty, r, g, t, fr0, fr1);
+    it += ktiles;
 
     // accumulator i: column 8(i/4) + 2t + (i%2), row r + 8((i/2)%2)
-    const int row0 = m0 + r, row1 = row0 + 8;
+    if constexpr (ASrc::kGather) {
+      // the gather takes warpgroup 0: the consumers write their tile, two
+      // columns at a time with quads (epi.pair)
+      const int row0 = m0 + r, row1 = row0 + 8;
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      const int col = n0 + 8 * j + 2 * t;
-      if (row0 < m) {
-        if (col < n) epi(row0, col, acc[4 * j]);
-        if (col + 1 < n) epi(row0, col + 1, acc[4 * j + 1]);
+      for (int j = 0; j < 16; ++j) {
+        const int col = n0 + 8 * j + 2 * t;
+        if (quads) {  // n % 4 == 0: col + 1 < n with col
+          if (col < n && row0 < m) epi.pair(row0, col, acc[4 * j], acc[4 * j + 1]);
+          if (col < n && row1 < m) epi.pair(row1, col, acc[4 * j + 2], acc[4 * j + 3]);
+          continue;
+        }
+        if (row0 < m) {
+          if (col < n) epi(row0, col, acc[4 * j]);
+          if (col + 1 < n) epi(row0, col + 1, acc[4 * j + 1]);
+        }
+        if (row1 < m) {
+          if (col < n) epi(row1, col, acc[4 * j + 2]);
+          if (col + 1 < n) epi(row1, col + 1, acc[4 * j + 3]);
+        }
       }
-      if (row1 < m) {
-        if (col < n) epi(row1, col, acc[4 * j + 2]);
-        if (col + 1 < n) epi(row1, col + 1, acc[4 * j + 3]);
+    } else {
+      // stage the sums for the epilogue warps once they are done with the
+      // last tile's, and go on to the next tile
+      if (lt > 0) mbar_wait(drained, (lt - 1) & 1);
+      float* so = outs + r * TC_LDS + 2 * t;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        *reinterpret_cast<float2*>(so + 8 * j) = make_float2(acc[4 * j], acc[4 * j + 1]);
+        *reinterpret_cast<float2*>(so + 8 * TC_LDS + 8 * j) =
+            make_float2(acc[4 * j + 2], acc[4 * j + 3]);
       }
+      mbar_arrive(staged);
     }
   }
 }
@@ -482,12 +707,13 @@ inline cudaError_t launch_tc(const CUtensorMap& map_a, ASrc a_at, const float* h
   if (!make_tile_map(&map_w, halves, kBf16 ? n : w_small + n, k, TC_BN))
     return cudaErrorInvalidValue;
   auto kernel = gemm_tc_kernel<Epilogue, ASrc, kBf16>;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, TC_SMEM_BYTES);
+  constexpr int smem = TcRoles<ASrc::kGather>::kSmem;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const int grid = tiles < sms ? (int)tiles : sms;
-  kernel<<<grid, TC_THREADS, TC_SMEM_BYTES, stream>>>(map_a, map_w, m, n, k, w_small, a_at,
-                                                      epi);
+  kernel<<<grid, TC_THREADS, smem, stream>>>(map_a, map_w, m, n, k, w_small, a_at, epi,
+                                             epi.quads() ? 1 : 0);
   return cudaGetLastError();
 }
 

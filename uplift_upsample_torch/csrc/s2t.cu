@@ -36,13 +36,27 @@ struct BiasTokenPe {
   const float* pe;     // (pe_rows, c)
   float* out;          // (rows, c)
   int c, pe_rows;
-  __device__ __forceinline__ void operator()(int r, int col, float v) const {
+  __device__ __forceinline__ float value(int col, float v, float m, float pe_v) const {
     v += bias[col];
-    if (mask) {
-      const float m = mask[r];
-      v = m * v + (1.f - m) * token[col];
-    }
-    out[(size_t)r * c + col] = v + pe[(size_t)(r % pe_rows) * c + col];
+    if (mask) v = m * v + (1.f - m) * token[col];
+    return v + pe_v;
+  }
+  __device__ __forceinline__ void operator()(int r, int col, float v) const {
+    out[(size_t)r * c + col] =
+        value(col, v, mask ? mask[r] : 0.f, pe[(size_t)(r % pe_rows) * c + col]);
+  }
+  bool quads() const { return c % 4 == 0 && uu::aligned16(pe) && uu::aligned16(out); }
+  struct Ld {
+    float4 pe;
+    float m;
+  };
+  __device__ __forceinline__ Ld load4(int r, int col) const {
+    return {uu::ld4(pe + (size_t)(r % pe_rows) * c + col), mask ? mask[r] : 0.f};
+  }
+  __device__ __forceinline__ void store4(int r, int col, float4 v, const Ld& l) const {
+    uu::st4(out + (size_t)r * c + col,
+            make_float4(value(col, v.x, l.m, l.pe.x), value(col + 1, v.y, l.m, l.pe.y),
+                        value(col + 2, v.z, l.m, l.pe.z), value(col + 3, v.w, l.m, l.pe.w)));
   }
 };
 

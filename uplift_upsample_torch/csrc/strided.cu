@@ -41,6 +41,15 @@ struct ConvResidual {
     out[(size_t)r * c + col] =
         x[((size_t)b * n + stride * t + res_off) * c + col] + (v + bias[col]);
   }
+  // columns col and col + 1 (col even) of row r, with 8-byte loads and stores
+  bool quads() const { return c % 4 == 0 && uu::aligned16(x) && uu::aligned16(out); }
+  __device__ __forceinline__ void pair(int r, int col, float v0, float v1) const {
+    const int b = r / n_out, t = r - b * n_out;
+    const float2 xv =
+        *reinterpret_cast<const float2*>(x + ((size_t)b * n + stride * t + res_off) * c + col);
+    *reinterpret_cast<float2*>(out + (size_t)r * c + col) =
+        make_float2(xv.x + (v0 + bias[col]), xv.y + (v1 + bias[col + 1]));
+  }
 };
 
 template <bool kBf16>

@@ -62,13 +62,39 @@ struct TapScatter {
   const float* h1;  // the forward's relu output: the mask
   float* out;       // (windows * n, hidden)
   int n, n_out, hidden, stride, p0, tap0, accumulate;
-  __device__ __forceinline__ void operator()(int r, int col, float v) const {
+  // out's offset of column col of selected row r, or -1 where the tap falls
+  // outside the window
+  __device__ __forceinline__ long long offset(int r, int col) const {
     const int b = r / n_out, t = r - b * n_out;
     const int j = col / hidden;
     const int src = stride * t + tap0 + j - p0;
-    if (src < 0 || src >= n) return;
-    const size_t o = ((size_t)b * n + src) * hidden + (col - j * hidden);
+    if (src < 0 || src >= n) return -1;
+    return ((long long)b * n + src) * hidden + (col - j * hidden);
+  }
+  __device__ __forceinline__ void operator()(int r, int col, float v) const {
+    const long long o = offset(r, col);
+    if (o < 0) return;
     out[o] = h1[o] > 0.f ? (accumulate ? out[o] + v : v) : 0.f;
+  }
+  // 4 columns of one tap (hidden % 4 == 0)
+  bool quads() const { return hidden % 4 == 0 && uu::aligned16(h1) && uu::aligned16(out); }
+  struct Ld {
+    float4 h, old;
+  };
+  __device__ __forceinline__ Ld load4(int r, int col) const {
+    const long long o = offset(r, col);
+    const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (o < 0) return {zero, zero};
+    return {uu::ld4(h1 + o), accumulate ? uu::ld4(out + o) : zero};
+  }
+  __device__ __forceinline__ void store4(int r, int col, float4 v, const Ld& l) const {
+    const long long o = offset(r, col);
+    if (o < 0) return;
+    auto one = [&](float h, float old, float x) {
+      return h > 0.f ? (accumulate ? old + x : x) : 0.f;
+    };
+    uu::st4(out + o, make_float4(one(l.h.x, l.old.x, v.x), one(l.h.y, l.old.y, v.y),
+                                 one(l.h.z, l.old.z, v.z), one(l.h.w, l.old.w, v.w)));
   }
 };
 

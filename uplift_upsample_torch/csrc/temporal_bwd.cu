@@ -76,13 +76,38 @@ struct ScaledBranch {
   float* out;
   int n;
   int relu;
-  __device__ __forceinline__ void operator()(int r, int c, float v) const {
+  __device__ __forceinline__ float pre(int c, float v) const {
     if (bias) v += bias[c];
     if (relu) v = fmaxf(v, 0.f);
+    return v;
+  }
+  __device__ __forceinline__ float post(float v, float f, float res) const {
+    v *= f;
+    return residual ? res + v : v;
+  }
+  __device__ __forceinline__ void operator()(int r, int c, float v) const {
     const size_t o = (size_t)r * n + c;
+    v = pre(c, v);
     if (branch) branch[o] = v;
-    v *= uu::row_factor(scale, rows_per_scale, r);
-    out[o] = residual ? residual[o] + v : v;
+    out[o] = post(v, uu::row_factor(scale, rows_per_scale, r), residual ? residual[o] : 0.f);
+  }
+  bool quads() const {
+    return n % 4 == 0 && uu::aligned16(residual) && uu::aligned16(branch) &&
+           uu::aligned16(out);
+  }
+  struct Ld {
+    float4 res;
+  };
+  __device__ __forceinline__ Ld load4(int r, int c) const {
+    return {residual ? uu::ld4(residual + (size_t)r * n + c) : make_float4(0.f, 0.f, 0.f, 0.f)};
+  }
+  __device__ __forceinline__ void store4(int r, int c, float4 v, const Ld& l) const {
+    const size_t o = (size_t)r * n + c;
+    const float4 b = make_float4(pre(c, v.x), pre(c + 1, v.y), pre(c + 2, v.z), pre(c + 3, v.w));
+    if (branch) uu::st4(branch + o, b);
+    const float f = uu::row_factor(scale, rows_per_scale, r);
+    uu::st4(out + o, make_float4(post(b.x, f, l.res.x), post(b.y, f, l.res.y),
+                                 post(b.z, f, l.res.z), post(b.w, f, l.res.w)));
   }
 };
 
@@ -95,9 +120,24 @@ struct ScaledMaskStore {
   const float* mask;
   float* out;
   int n;
+  __device__ __forceinline__ float value(float v, float f, float mk) const {
+    return (mask && !(mk > 0.f)) ? 0.f : v * f;
+  }
   __device__ __forceinline__ void operator()(int r, int c, float v) const {
     const size_t o = (size_t)r * n + c;
-    out[o] = (mask && !(mask[o] > 0.f)) ? 0.f : v * uu::row_factor(scale, rows_per_scale, r);
+    out[o] = value(v, uu::row_factor(scale, rows_per_scale, r), mask ? mask[o] : 0.f);
+  }
+  bool quads() const { return n % 4 == 0 && uu::aligned16(mask) && uu::aligned16(out); }
+  struct Ld {
+    float4 mk;
+  };
+  __device__ __forceinline__ Ld load4(int r, int c) const {
+    return {mask ? uu::ld4(mask + (size_t)r * n + c) : make_float4(0.f, 0.f, 0.f, 0.f)};
+  }
+  __device__ __forceinline__ void store4(int r, int c, float4 v, const Ld& l) const {
+    const float f = uu::row_factor(scale, rows_per_scale, r);
+    uu::st4(out + (size_t)r * n + c, make_float4(value(v.x, f, l.mk.x), value(v.y, f, l.mk.y),
+                                                 value(v.z, f, l.mk.z), value(v.w, f, l.mk.w)));
   }
 };
 

@@ -1,0 +1,354 @@
+"""Digests and times of every caller of the tensor-core GEMM (`csrc/gemm_tc.cuh`).
+
+    python -m uplift_upsample_torch.tools.gemm_digests [--parent DIR] [--seed 0]
+                                                      [--rounds 3]
+
+`gemm_tc_kernel` serves eleven C entries, each in 3xTF32 and in the bf16
+mode: K2's four dense products at serving (`gemm_f32`: qkv, proj + residual,
+fc1 + relu, fc2 + a residual that aliases the output; 1,024 windows x 71),
+K5's scaled branch (`gemm_branch_f32`) and dX with its row scale and relu
+mask (`gemm_dx_f32`; the bf16 mode scales A's rows before their rounding)
+at the train step's 512 windows x 71, the strided conv with its taps
+gathered from h1 at h36m_351's stride 3, paddings (0, 0), 1,024 windows, and
+at h36m_81's stride 4, paddings (1, 1), 512 windows (`strided_conv_f32`),
+its dH1 at stride 3 (one launch) and stride 2 (a launch per tap, each on a
+slice of the weights: `w_small`), and the s2t prologue (`s2t_prologue_f32`,
+72,704 x 544 -> 384 with the stride mask). Each case's inputs come from
+numpy with a fixed seed; the weights' TF32 halves and bf16 planes are made
+on the host (`tf32_halves_plain`, `round_bf16`), so they do not depend on
+the build under test.
+
+A case's digest is the sha256 of its outputs' bytes. `GEMM_DIGESTS` holds
+the digests of the build before the pipelined kernel (NVIDIA H100 80GB
+HBM3, nvcc 12.9, sm_90a): a redesign that keeps every output's sum in the
+same order gives the same bits. `PARENT_MS` holds that build's time of each
+case on the same card at 700 W (CUDA events, 10 launches after 2).
+
+Prints one line per case (digest, equal to `GEMM_DIGESTS` or not, a second
+call bit-identical or not, ms) and, with `--parent DIR` (a copy of an
+earlier `csrc/`), the parent build's digest and time beside them, taken in
+turn (parent, kernel, kernel, parent) for `--rounds` rounds. Exit 1 if a
+digest differs or a repeat is not bit-identical. Needs a CUDA card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import hashlib
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+from typing import Callable, Dict, List, NamedTuple
+
+import numpy as np
+import torch
+
+# sha256 of each case's outputs from the build before the pipelined kernel
+# (NVIDIA H100 80GB HBM3, nvcc 12.9, sm_90a)
+GEMM_DIGESTS: Dict[str, str] = {
+    "gemm qkv":
+        "911fbd98f40bd03ab3392aebbcb3d36d24d40aa75eaa859707ff1698ee4c7d33",
+    "gemm proj":
+        "e879be4ebce71a8e9217bea6f3cb0407177e3e80baf8d1a7064a4ebc723027fb",
+    "gemm fc1":
+        "bbd4e15d7a374e3597207be49dc1445b9a184815e8e6159100ecb0d83441326e",
+    "gemm fc2":
+        "48f4a34b9371ed598dcc21e6e8f8acb2b52c874b5ea68c3bba6b17ef9d9dbb8a",
+    "branch fc2":
+        "cdd9e68b19680b5c2955c9b8fc21f28c200be331a63f03adf0e657343a977677",
+    "dx fc2":
+        "2a2b19900cb7cac66d2d152187eb392862515ba5167387e2866e2de14260eeb9",
+    "conv 351":
+        "80afc29c424e546975ad6eab6cfe1574d61aee2ce8b3de0862fcb53799d8f058",
+    "conv 81":
+        "2bd30c9de2b42b53920effb33c2f16312261a066d541ffd24525054985375b5c",
+    "dh1 s3":
+        "874c23288bfb1898c1a38e8b697819159e8c81f4d578432fb1800f4e559daaf3",
+    "dh1 s2":
+        "30b16395efb0d8109532ab1ed218992dc6f0f9dc9e76bbce48047f8a555c645d",
+    "s2t":
+        "96e50ab69b1312f7d6c4bcd0197aaa323a2a4f76b86b4ee931cd2636a4c260a4",
+    "gemm qkv_bf16":
+        "ba2ce4b9df2c236373b11f0af5499db68f3947df16b192c30ee486aa76ea0d87",
+    "gemm proj_bf16":
+        "82a466b789601f640b66e1dfc1e6c98ae351164a995ad53294449bd902e21ed2",
+    "gemm fc1_bf16":
+        "e5fe660dda1e247f29854b63e2a8ca93de801e54609870c33db33948abce29c4",
+    "gemm fc2_bf16":
+        "c0933307944feccca1e0273ce1dd7bf57db8fbec01d54279cc6d4c0ec7509884",
+    "branch fc2_bf16":
+        "153eb95b6a7ec18716480909fb0d3acdb89d25ece750ba066de81efd0aee1314",
+    "dx fc2_bf16":
+        "6926b34e1ce76c64ffe8e2e91af89051fdeaa17db03c77837d90046df552c101",
+    "conv 351_bf16":
+        "c7f8f07e74311e8e2699ac87f794198c7657e1a6471d4f2a4e17fc3b701e82bc",
+    "conv 81_bf16":
+        "9b92a886fe130a1446c2f81fc122ab7c4e99d924f61086a7ece5076aac7da422",
+    "dh1 s3_bf16":
+        "e9e01a3677176f9523ebb7ef51c98820a000ea65e7f323cb23ff02f4911ba1e3",
+    "dh1 s2_bf16":
+        "d996f7a94c7af36c77cf5edb7e088cad41853ce276d339f6be45c7e6eca240f5",
+    "s2t_bf16":
+        "2c0a52553747cf21a9ab890cc9952a23b6a86c4d6f18a2b5cb382134a69e9136",
+}
+
+# that build's ms per case (CUDA events), NVIDIA H100 80GB HBM3, 700.00 W
+PARENT_MS: Dict[str, float] = {
+    "gemm qkv": 0.8605,
+    "gemm proj": 0.3928,
+    "gemm fc1": 0.5513,
+    "gemm fc2": 0.5467,
+    "branch fc2": 0.4033,
+    "dx fc2": 0.5392,
+    "conv 351": 0.7261,
+    "conv 81": 0.1518,
+    "dh1 s3": 0.6066,
+    "dh1 s2": 1.3113,
+    "s2t": 0.4653,
+    "gemm qkv_bf16": 0.674,
+    "gemm proj_bf16": 0.3243,
+    "gemm fc1_bf16": 0.4258,
+    "gemm fc2_bf16": 0.4142,
+    "branch fc2_bf16": 0.3285,
+    "dx fc2_bf16": 0.3655,
+    "conv 351_bf16": 0.6318,
+    "conv 81_bf16": 0.1419,
+    "dh1 s3_bf16": 0.5003,
+    "dh1 s2_bf16": 1.1473,
+    "s2t_bf16": 0.3505,
+}
+
+LIBS = ("temporal", "temporal_bwd", "strided", "strided_bwd", "s2t")
+SERVING, TRAIN = 1024 * 71, 512 * 71  # rows: serving's 1,024 windows, training's 512
+CONV_WINDOWS = (1024, 512)            # the conv at h36m_351's and h36m_81's geometry
+DH1_WINDOWS = 512
+C, HID = 384, 768
+
+
+class Case(NamedTuple):
+    name: str
+    lib: str
+    fn: str
+    args: list          # tensors, ints and None, in the C entry's order (the stream appended)
+    outputs: list       # tensors hashed after the launch
+    reset: Callable     # restores inputs a launch overwrites (the aliased residual)
+
+
+def _halves(w: np.ndarray, bf16: bool, transpose: bool = True) -> torch.Tensor:
+    """What the kernels read of W (K, N): its TF32 halves (2, N, K), or at
+    bf16 its bf16-rounded plane (N, K); `transpose` False keeps W as stored."""
+    from ..ops.temporal import tf32_halves_plain
+    from ..precision import round_bf16
+    t = torch.from_numpy(w)
+    if bf16:
+        plane = round_bf16(t)
+        return (plane.t() if transpose else plane).contiguous()
+    return tf32_halves_plain(t, transpose=transpose)
+
+
+def cases(seed: int, bf16: bool, dev) -> List[Case]:
+    """Every caller's case (names end in "_bf16" in the bf16 mode)."""
+    rng = np.random.default_rng(seed + (1000 if bf16 else 0))
+
+    def rand(*shape, scale=0.5):
+        return (rng.standard_normal(shape, dtype=np.float32) * np.float32(scale))
+
+    def cuda(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    def w_of(k, n, transpose=True):
+        return _halves(rand(k, n, scale=0.05), bf16, transpose).to(dev)
+
+    sfx = "_bf16" if bf16 else "_f32"
+    out: List[Case] = []
+    none = lambda: None
+    m = SERVING
+    for name, k, n, relu, residual in (("qkv", C, 3 * C, 0, None), ("proj", C, C, 0, "res"),
+                                       ("fc1", C, HID, 1, None), ("fc2", HID, C, 0, "alias")):
+        a, w, bias = cuda(rand(m, k)), w_of(k, n), cuda(rand(n, scale=0.1))
+        o = torch.empty((m, n), device=dev)
+        res, reset = None, none
+        if residual == "res":
+            res = cuda(rand(m, n))
+        elif residual == "alias":  # the fc2 sublayer: gemm(..., residual=h, out=h)
+            h0 = cuda(rand(m, n))
+            res, reset = o, (lambda o=o, h0=h0: o.copy_(h0))
+        out.append(Case(f"gemm {name}" + "_bf16" * bf16, "temporal", "gemm" + sfx,
+                        [a, w, bias, res, o, m, n, k, relu], [o], reset))
+
+    m, per = TRAIN, 71
+    scale = cuda(np.where(rng.uniform(size=m // per) < 0.9, 1 / 0.9, 0.0).astype(np.float32))
+    a, w, bias, res = cuda(rand(m, HID)), w_of(HID, C), cuda(rand(C, scale=0.1)), cuda(rand(m, C))
+    branch, o = torch.empty((m, C), device=dev), torch.empty((m, C), device=dev)
+    out.append(Case("branch fc2" + "_bf16" * bf16, "temporal_bwd", "gemm_branch" + sfx,
+                    [a, w, bias, scale, per, res, branch, o, m, C, HID, 0], [branch, o], none))
+    # dX of fc2: (s · g) · w2ᵀ with w2 (HID, C) as stored, relu mask of h1
+    g, w2 = cuda(rand(m, C, scale=1.0)), w_of(HID, C, transpose=False)
+    mask, o = cuda(np.maximum(rand(m, HID), 0)), torch.empty((m, HID), device=dev)
+    out.append(Case("dx fc2" + "_bf16" * bf16, "temporal_bwd", "gemm_dx" + sfx,
+                    [g, scale, per, w2, mask, o, m, HID, C], [o], none))
+
+    for label, b, n, stride, p0 in (("351", CONV_WINDOWS[0], 71, 3, 0),
+                                    ("81", CONV_WINDOWS[1], 41, 4, 1)):
+        n_out = (n + 2 * p0 - 3) // stride + 1
+        h1, x = cuda(np.maximum(rand(b * n, HID), 0)), cuda(rand(b * n, C))
+        wc, bc = w_of(3 * HID, C), cuda(rand(C, scale=0.1))
+        o = torch.empty((b * n_out, C), device=dev)
+        out.append(Case(f"conv {label}" + "_bf16" * bf16, "strided", "strided_conv" + sfx,
+                        [h1, x, wc, bc, o, b, n, HID, C, stride, p0, n_out], [o], none))
+    b, n = DH1_WINDOWS, 71
+    for stride in (3, 2):
+        n_out = (n - 3) // stride + 1
+        g, h1 = cuda(rand(b * n_out, C, scale=1.0)), cuda(np.maximum(rand(b * n, HID), 0))
+        wc = w_of(3 * HID, C, transpose=False)
+        o = torch.empty((b * n, HID), device=dev)
+        out.append(Case(f"dh1 s{stride}" + "_bf16" * bf16, "strided_bwd", "strided_dh1" + sfx,
+                        [g, wc, h1, o, b, n, HID, C, stride, 0, n_out], [o], none))
+
+    m, k, pe_rows = SERVING, 17 * 32, 71
+    sp, w, bias = cuda(rand(m, k)), w_of(k, C), cuda(rand(C, scale=0.1))
+    smask = cuda((rng.uniform(size=m) < 0.3).astype(np.float32))
+    token, pe = cuda(rand(C)), cuda(rand(pe_rows, C))
+    o = torch.empty((m, C), device=dev)
+    out.append(Case("s2t" + "_bf16" * bf16, "s2t", "s2t_prologue" + sfx,
+                    [sp, w, bias, smask, token, pe, o, m, C, k, pe_rows], [o], none))
+    return out
+
+
+def all_cases(seed: int, dev) -> List[Case]:
+    return cases(seed, False, dev) + cases(seed, True, dev)
+
+
+def port_libs() -> Dict[str, ctypes.CDLL]:
+    """The checkout's own builds (`ops/cuda_lib.py`)."""
+    from ..ops import cuda_lib
+    return {name: cuda_lib.library(name) for name in LIBS}
+
+
+def build_libs(csrc: Path, out_dir: Path) -> Dict[str, ctypes.CDLL]:
+    """LIBS built from another `csrc/` into out_dir (all nvcc at once), bound
+    with the port's C signatures."""
+    from ..ops import cuda_lib
+    shutil.rmtree(out_dir, ignore_errors=True)
+    shutil.copytree(csrc, out_dir)
+    procs = {name: subprocess.Popen([cuda_lib._nvcc(), *cuda_lib.NVCC_FLAGS, "-o",
+                                     str(out_dir / f"lib{name}.so"), str(out_dir / f"{name}.cu")],
+                                    stderr=subprocess.PIPE, text=True) for name in LIBS}
+    libs = {}
+    for name, proc in procs.items():
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"parent build of {name}.cu failed:\n{err}")
+        lib = ctypes.CDLL(str(out_dir / f"lib{name}.so"))
+        for fn, sig in cuda_lib._SIGNATURES[name].items():
+            f = getattr(lib, fn)
+            f.argtypes = [cuda_lib._CTYPES[ch] for ch in sig]
+            f.restype = ctypes.c_int
+        libs[name] = lib
+    return libs
+
+
+def launcher(libs: Dict[str, ctypes.CDLL], case: Case) -> Callable[[], None]:
+    """One launch of the case's C entry from `libs`; raises on a launch error."""
+    fn = getattr(libs[case.lib], case.fn)
+    cargs = [ctypes.c_void_p(a.data_ptr()) if isinstance(a, torch.Tensor)
+             else ctypes.c_void_p(0) if a is None else a for a in case.args]
+
+    def call():
+        err = fn(*cargs, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+        if err != 0:
+            raise RuntimeError(f"{case.fn}: CUDA error {err} at launch")
+    return call
+
+
+def digest(libs: Dict[str, ctypes.CDLL], case: Case) -> str:
+    """The case's outputs' sha256 after one launch from its reset inputs."""
+    case.reset()
+    launcher(libs, case)()
+    torch.cuda.synchronize()
+    h = hashlib.sha256()
+    for t in case.outputs:
+        h.update(t.cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def time_ms(call: Callable[[], None], iters: int = 10, warmup: int = 2) -> float:
+    for _ in range(warmup):
+        call()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        call()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def check(libs, parent_libs=None, seed: int = 0, rounds: int = 3, log=print) -> List[str]:
+    """Every case: its digest against GEMM_DIGESTS, a second call bit for
+    bit, its time beside PARENT_MS (and beside the parent build's digest and
+    time, taken in turn, with `parent_libs`); returns the failed cases."""
+    failed = []
+    for case in all_cases(seed, torch.device("cuda")):
+        first = digest(libs, case)
+        again = digest(libs, case)
+        want = GEMM_DIGESTS.get(case.name)
+        line = (f"gemm_digests {case.name} ({case.fn}): {first} "
+                f"{'no recorded digest' if want is None else 'equals GEMM_DIGESTS' if first == want else 'DIFFERS FROM GEMM_DIGESTS'}"
+                f", repeat {'bit-identical' if again == first else 'DIFFERS'}")
+        if (want is not None and first != want) or again != first:
+            failed.append(case.name)
+        call = launcher(libs, case)
+        if parent_libs is None:
+            ms = min(time_ms(call) for _ in range(rounds))
+            line += f"; ms {ms:.4f}"
+        else:
+            parent_first = digest(parent_libs, case)
+            pcall = launcher(parent_libs, case)
+            mine, theirs = [], []
+            for _ in range(rounds):
+                theirs.append(time_ms(pcall))
+                mine.append(time_ms(call))
+                mine.append(time_ms(call))
+                theirs.append(time_ms(pcall))
+            ms = min(mine)
+            line += (f"; parent build {parent_first} "
+                     f"({'same bits' if parent_first == first else 'OTHER BITS'}); ms "
+                     f"{ms:.4f} against the parent's {min(theirs):.4f} in turn "
+                     f"({ms / min(theirs):.3f}x)")
+            if parent_first != first:
+                failed.append(case.name + " vs parent")
+        if case.name in PARENT_MS:
+            line += f"; recorded parent {PARENT_MS[case.name]:.4f} ({ms / PARENT_MS[case.name]:.3f}x)"
+        log(line)
+        del case, call
+    torch.cuda.empty_cache()
+    return failed
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--rounds", type=int, default=3)
+    parser.add_argument("--parent", default=None, help="a copy of an earlier csrc/")
+    args = parser.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("gemm_digests: no CUDA device; this run needs a card", file=sys.stderr)
+        return 2
+    from ..ops import cuda_lib
+    parent = None
+    if args.parent:
+        parent = build_libs(Path(args.parent).resolve(), cuda_lib.BUILD_DIR / "parent_gemm")
+    failed = check(port_libs(), parent, args.seed, args.rounds,
+                   log=lambda s: print(s, flush=True))
+    if failed:
+        print(f"gemm_digests: FAILED {failed}", flush=True)
+        return 1
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
