@@ -155,7 +155,9 @@ Phases (one line each; any failure ends the run with a non-zero exit):
      keyframes, K5 forward and backward over four blocks and over one (row
      14), its attention backward (beside SDPA's backward on bf16), its
      forward attention, scaled branch, dX and dW pieces (beside torch.matmul
-     on bf16 tensors), K6 forward and backward and its conv's dH1 and dWc,
+     on bf16 tensors; dW also beside the same function from the same fp32
+     inputs, casts and row scale timed), K6 forward and backward and its
+     conv's dH1 and dWc (dWc also from h1 itself, the gather timed),
      each timed beside its "high" instance; (b) `make_train_step` at
      "high", "highest", "mixed" and "default" (and "default" with K6), 8
      steps after 2 on the same batches: card ms, windows/s, the bf16 or
@@ -188,13 +190,15 @@ Phases (one line each; any failure ends the run with a non-zero exit):
      against one process (their distance to the rung with float64 sums
      within 2x / 4x of one process's, mean / largest), the split bf16
      launches timed beside full width;
- 14. every caller of the tensor-core GEMM (`gemm_tc_kernel`: K2's four
+ 14. every caller of the tensor-core GEMMs (`gemm_tc_kernel`: K2's four
      products at serving, K5's scaled branch and dX, the conv at h36m_351's
-     and h36m_81's geometries, dH1 at strides 3 and 2, s2t; 3xTF32 and
-     bf16; `uplift_upsample_torch/tools/gemm_digests.py`) at its main path's
-     shape: its outputs' sha256 equal to the build before the pipelined
-     kernel (`GEMM_DIGESTS`) and on a second call, its time beside that
-     build's (`PARENT_MS`);
+     and h36m_81's geometries, dH1 at strides 3 and 2, s2t; `gemm_atb_kernel`:
+     K5's four dW at the train step, K6's dWc at h36m_351's and h36m_81's
+     geometries; 3xTF32 and bf16; `uplift_upsample_torch/tools/
+     gemm_digests.py`) at its main path's shape: its outputs' sha256 equal to
+     the recorded bits (`GEMM_DIGESTS`: the build before the pipelined
+     kernel; `DW_DIGESTS`) and on a second call, its time beside the build
+     before its kernel's redesign (`PARENT_MS`);
  15. one JSON line of per-kernel numbers, the card line again, and the last
      line `{"ok": true, "device": {...}}`.
 
@@ -2652,9 +2656,13 @@ def train_rungs_phase(args, torch, np, rng, failed, record):
                 for n_, t in zip(names, tensors)]
 
     def case(name, replaces, source, kernel, plain, counter, bf16_flops, nbytes, flops=0.0,
-             library=None, phase="train default", listed=True, reps=5):
+             library=None, phase="train default", listed=True, reps=5, library_pre=None):
         """kernel(rung) and plain(rung, dtype) return lists of outputs; each
-        output held to `rung_checks`' 2x bar; timed beside kernel("high")."""
+        output held to `rung_checks`' 2x bar; timed beside kernel("high").
+        `library`: one PyTorch computation of the same function from the same
+        inputs (`library_ms`); `library_pre`: a bf16 product on operands
+        rounded (scaled, gathered) outside the timing
+        (`library_prerounded_ms`)."""
         got = kernel("default")
         p32, p_high, p64 = plain("default", f32), plain("high", f32), plain("default", f64)
         ok, worst, err = True, {}, 0.0
@@ -2679,7 +2687,9 @@ def train_rungs_phase(args, torch, np, rng, failed, record):
                bf16_flops=bf16_flops,
                extra=dict(high_ms=high_ms, outputs=len(worst["rung64_mean"]),
                           worst_rung64_mean_over_plain=ratio,
-                          worst_rung64_max_over_plain=ratio_max))
+                          worst_rung64_max_over_plain=ratio_max,
+                          **({} if library_pre is None else
+                             dict(library_prerounded_ms=time_ms(torch, library_pre, 10)))))
         torch.cuda.empty_cache()
 
     config = fp32_train_config(get_config)  # mask strides [5, 10, 20], B=512, droppath
@@ -2828,11 +2838,32 @@ def train_rungs_phase(args, torch, np, rng, failed, record):
          "gemm_dx_bf16", 2 * rows * hid * c, mm_bytes,
          library=lambda: torch.matmul(g_bf, w_bf.t()))
     dw_out = torch.empty((hid, c), dtype=f32, device=dev)
+    s2_rows = s2.repeat_interleave(n)[:, None]
     case("gemm_dw_bf16", f"{src}:493", "uplift_upsample_torch/csrc/gemm_tc.cuh",
          lambda r: (gemm_dw(h1, g, s2, n, dw_out, precision=r), [dw_out.clone()])[1],
          lambda r, d: [mm(h1.t().to(d), sg.to(d), r)],
-         "gemm_dw_bf16", 2 * rows * hid * c, mm_bytes,
-         library=lambda: torch.matmul(a_bf.t(), g_bf))
+         "gemm_dw_bf16", 2 * rows * hid * c, (rows * (hid + c) + hid * c + bt) * F32,
+         library=lambda: torch.matmul(h1.to(torch.bfloat16).t(),
+                                      (g * s2_rows).to(torch.bfloat16)).float(),
+         library_pre=lambda: torch.matmul(a_bf.t(), g_bf))
+    # K5's other three dW at the rung (checked and timed, not listed: the same
+    # entry): qkv (y, dqkv), proj (ctx, dx2 scaled), fc1 (z, dh1)
+    for label, xw, nw, scaled in (("qkv", c, 3 * c, False), ("proj", c, c, True),
+                                  ("fc1", c, hid, False)):
+        xd, gd = rand(rows, xw), rand(rows, nw, scale=1.0)
+        sd = s2 if scaled else None
+        gsd = gd * s2_rows if scaled else gd
+        xd_bf, gsd_bf = xd.to(torch.bfloat16), gsd.to(torch.bfloat16)
+        dwd = torch.empty((xw, nw), dtype=f32, device=dev)
+        case(f"gemm_dw_bf16_{label}", f"{src}:493", "uplift_upsample_torch/csrc/gemm_tc.cuh",
+             lambda r: (gemm_dw(xd, gd, sd, n, dwd, precision=r), [dwd.clone()])[1],
+             lambda r, d: [mm(xd.t().to(d), gsd.to(d), r)],
+             "gemm_dw_bf16", 2 * rows * xw * nw, (rows * (xw + nw) + xw * nw) * F32,
+             library=lambda: torch.matmul(
+                 xd.to(torch.bfloat16).t(),
+                 (gd * s2_rows if scaled else gd).to(torch.bfloat16)).float(),
+             library_pre=lambda: torch.matmul(xd_bf.t(), gsd_bf), listed=False)
+        del xd, gd, gsd, xd_bf, gsd_bf, dwd
     del h1, g, res, sg, a_bf, w_bf, g_bf, o1, tm, x, cot
     torch.cuda.empty_cache()
 
@@ -2887,7 +2918,10 @@ def train_rungs_phase(args, torch, np, rng, failed, record):
          lambda r, d: [conv_dwc_plain(h1s.to(d), gs.to(d), precision=r, **ckw)],
          "strided_dwc_bf16", 2 * bt * n_out * 3 * hid * c,
          (gs.numel() + h1s.numel() + wc.numel()) * F32, phase="train default K6",
-         library=lambda: torch.matmul(taps_bf.t(), gsb))
+         library=lambda: torch.matmul(
+             conv_taps_plain(h1s.to(torch.bfloat16), s0, pads).reshape(-1, 3 * hid).t(),
+             gs.reshape(-1, c).to(torch.bfloat16)).float(),
+         library_pre=lambda: torch.matmul(taps_bf.t(), gsb))
     del st, xs, gs, ssaved, h1s, wc_bf, gsb, taps_bf, model, state
     torch.cuda.empty_cache()
     log(f"phase 12 (a) wall {time.perf_counter() - t_phase:.1f} s")
@@ -4086,8 +4120,10 @@ def main(argv=None) -> int:
                grad_check(torch, [(got, ref)]), time_ms(torch, dw_fn, 10),
                time_ms(torch, dw_plain, 10), 0,
                (x_.numel() + dy_.numel() + got.numel() + (bt if scaled else 0)) * F32,
-               library_ms=time_ms(torch, lambda: torch.mm(x_.t(), dy_), 10),
+               library_ms=time_ms(torch, lambda: torch.mm(x_.t(), dy_ * rs_ if scaled else dy_),
+                                  10),
                counter="gemm_dw_f32", phase="train", f64=f64_check(torch, got, ref, ref64),
+               extra=dict(library_unscaled_ms=time_ms(torch, lambda: torch.mm(x_.t(), dy_), 10)),
                tc_flops=2 * rows_t * x_w * k_)
         del dy_, mask_, x_, got, ref, ref64
     torch.cuda.empty_cache()
@@ -4216,8 +4252,12 @@ def main(argv=None) -> int:
            "uplift_upsample_tpu/ops/pallas_strided_bwd.py:266", grad_check(torch, [(got, ref)]),
            time_ms(torch, dwc_fn, 10), time_ms(torch, dwc_plain, 5), 0,
            (h1_.numel() + g_.numel() + got.numel()) * F32,
-           library_ms=time_ms(torch, lambda: conv_bwd([False, True, False]), 10),
+           library_ms=time_ms(torch, lambda: torch.ops.aten.convolution_backward(
+               g_.transpose(1, 2).contiguous(), h1_.transpose(1, 2).contiguous(), lib["wt"],
+               None, [s0], [0], [1], False, [0], 1, [False, True, False]), 10),
            counter="strided_dwc_f32", phase="train_cli", f64=f64_check(torch, got, ref, ref64),
+           extra=dict(library_pretransposed_ms=time_ms(
+               torch, lambda: conv_bwd([False, True, False]), 10)),
            tc_flops=2 * m_ * 3 * hid * c)
     del h1_, g_, g_t, lib, got, ref, ref64, dwc_out, tfp, tmodel, st_ops
     torch.cuda.empty_cache()
@@ -4332,7 +4372,7 @@ def main(argv=None) -> int:
     for r in results.values():
         r["launches"] = counts_by_phase[r.pop("phase")].get(r.pop("counter"), 0)
 
-    # ---- phase 14: every caller of gemm_tc_kernel against the parent's bits --
+    # ---- phase 14: every caller of both GEMM kernels against recorded bits ---
     starts.append(("14", time.perf_counter()))
     from uplift_upsample_torch.tools import gemm_digests
     bad = gemm_digests.check(gemm_digests.port_libs(),  # seed 0: GEMM_DIGESTS' inputs

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """What bounds the hand-written kernels on the card (csrc/).
 
-    python3 kernel_probe.py [--seed 0] [--only dense,attn_bwd,k4,k1,short]
+    python3 kernel_probe.py [--seed 0] [--only dense,dw,attn_bwd,k4,k1,short]
                             [--parent DIR]
 
 Builds patched copies of `csrc/` under `uplift_upsample_torch/_build/probe/`
@@ -21,10 +21,17 @@ Builds patched copies of `csrc/` under `uplift_upsample_torch/_build/probe/`
   "no epilogue" (the epilogue warps read and write nothing; the consumers
   still stage their sums); "no splits", "one pass, no splits" as above;
   "no register split" (no setmaxnreg: every warpgroup at the launch's 168);
-- the dW product (`temporal_bwd.cu`'s gemm_dw_f32 at the qkv weight's
-  384 x 1,152 over 36,352 rows, split as ops/temporal_train.dw_splits cuts
-  it, beside torch.mm): the kernel; "products only" (no cp.async copies);
-  "copies only" (no mma.sync); "no splits"; "one pass, no splits";
+- the dW product (`gemm_tc.cuh`'s gemm_atb_kernel) as `temporal_bwd.cu`'s
+  gemm_dw_f32 at the qkv weight's 384 x 1,152 over 36,352 rows and
+  gemm_dw_bf16 at fc2's 768 x 384 with the per-window row scale, and as
+  `strided_bwd.cu`'s strided_dwc_bf16 and strided_dwc_f32 (K6's dWc, the
+  taps gathered from h1) at 512 windows x 23 rows, (3 x 768) x 384, each
+  split as ops/temporal_train.dw_splits cuts it, beside torch.mm on the
+  same fp32 operands: the kernel; "products only" (no TMA loads or
+  gathers: the loader only arrives); "copies only" (no wgmma); "no
+  converter" (the consumers write no operand buffer: no transpose and TF32
+  split of dY, or no bf16 rounding); 3xTF32 also "no splits" and "one
+  pass, no splits";
 - the conv forward (`strided.cu`'s strided_conv_f32 at serving, 1,024
   windows x 23 selected rows, K = 3 x 768 -> 384, its taps gathered from h1,
   beside F.conv1d + the residual add): the kernel; "dense A" (gemm_f32 on
@@ -36,10 +43,10 @@ Builds patched copies of `csrc/` under `uplift_upsample_torch/_build/probe/`
   11,776 rows x 384 -> 3 x 768, beside convolution_backward's input
   gradient): the kernel; "no epilogue"; "no register split";
 - with `--parent DIR` (a copy of an earlier `csrc/`) every caller of
-  gemm_tc_kernel, 3xTF32 and bf16 (`uplift_upsample_torch/tools/
-  gemm_digests.py`), from this checkout's build and DIR's, timed in turn
-  (parent, kernel, kernel, parent) with both builds' output digests: the
-  A/B of a redesign of that kernel.
+  gemm_tc_kernel and gemm_atb_kernel, 3xTF32 and bf16 (`uplift_upsample_
+  torch/tools/gemm_digests.py`), from this checkout's build and DIR's,
+  timed in turn (parent, kernel, kernel, parent) with both builds' output
+  digests: the A/B of a redesign of either kernel.
 - K5's window-attention backward (`temporal_bwd.cu`'s
   window_attention_bwd_f32 at the train step, 512 windows x 71 tokens x
   384, 8 heads, a key mask, beside SDPA's backward): the kernel; "no
@@ -78,7 +85,8 @@ Builds patched copies of `csrc/` under `uplift_upsample_torch/_build/probe/`
   host in it; ptxas's registers and spills of every variant first.
 
 `--only` runs a subset: "dense" is the attention, GEMM, dW, conv and dH1
-groups (and the GEMM A/B with `--parent`).
+groups (and the A/B of every GEMM caller with `--parent`), "dw" the dW
+groups alone (and the A/B).
 
 Each prints one line. The patched versions compute nothing meaningful; only
 each kernel as it is is checked against its plain version. Needs a CUDA card
@@ -227,17 +235,52 @@ SHORT = {
     "1 block per SM": [("packed_attention.cuh", "constexpr int TASK_BLOCKS = 2;",
                         "constexpr int TASK_BLOCKS = 1;")],
 }
-# the probes --only selects; "dense" is the attention, GEMM, dW and conv groups
-PROBES = ("dense", "attn_bwd", "k4", "k1", "short")
+# the probes --only selects; "dense" is the attention, GEMM, dW and conv
+# groups, "dw" the dW groups alone
+PROBES = ("dense", "dw", "attn_bwd", "k4", "k1", "short")
+DW_GROUPS = ("dw", "dw_bf16", "dwc")
+# gemm_atb_kernel (the dW product) without its parts: the loader's TMA
+# loads and gathers, the products, the consumers' operand buffers, the splits
+_DW_TMA = "      if (threadIdx.x == 0) {\n        mbar_expect_tx("
+_DW_GATHER = "        ab_gather_rows(x_at, k0, k_end, m0, m, taps, xs_of(s), full + 8 * s);\n"
+_DW_COPIES = [("gemm_tc.cuh", _DW_TMA, "      if (threadIdx.x == 0) mbar_arrive(full + 8 * s);\n"
+               "      if (threadIdx.x == 0 && n < 0) {\n        mbar_expect_tx("),
+              ("gemm_tc.cuh", _DW_GATHER, "        cp_async_mbar_arrive(full + 8 * s);\n")]
+_DW_3X = ("            if (j == 0)\n"
+          "              wgmma_m64n64k8_tf32_first(p[h], fsm[jj], db + off);\n"
+          "            else\n"
+          "              wgmma_m64n64k8_tf32(p[h], fsm[jj], db + off);\n"
+          "            wgmma_m64n64k8_tf32(p[h], fb[jj], ds + off);\n"
+          "            wgmma_m64n64k8_tf32(p[h], fb[jj], db + off);\n")
+_DW_BF16 = ("        wgmma_m64n64k16_bf16_mn(p[h], da, dbh, 0);\n"
+            "        wgmma_m64n64k16_bf16_mn(p[h], da + (2048 >> 4), dbh + (2048 >> 4), 1);\n")
+_DW_SPLIT = "          tf32_split(k < valid ? e4[e] * f_lane : 0.f, big[at], small[at]);"
+_DW_ROUND = ["        *reinterpret_cast<uint2*>(ops + off) =",
+             "        *reinterpret_cast<uint2*>(ops + AB_BK * AB_BM * 2 + off) ="]
 DW = {
     "kernel": [],
-    "products only": [("gemm_tc.cuh", _CP.format(t=t), "      if (m < 0) " + _CP.format(t=t)[6:])
-                      for t in "xy"],
-    "copies only": [("gemm_tc.cuh", "          mma_3xtf32(part, a_big, a_small, b_big[j], "
-                     "b_small[j]);\n", "")],
+    "products only": _DW_COPIES,
+    "copies only": [("gemm_tc.cuh", _DW_3X, "")],
+    "no converter": [("gemm_tc.cuh", _DW_SPLIT, "if (n < 0) " + _DW_SPLIT.strip())],
     "no splits": NO_SPLITS,
-    "one pass, no splits": NO_SPLITS + ONE_MMA,
+    "one pass, no splits": NO_SPLITS + [
+        ("gemm_tc.cuh", _DW_3X,
+         "            if (j == 0)\n"
+         "              wgmma_m64n64k8_tf32_first(p[h], fb[jj], db + off);\n"
+         "            else\n"
+         "              wgmma_m64n64k8_tf32(p[h], fb[jj], db + off);\n")],
 }
+# the bf16 mode: the same parts (no splits there: the converters round)
+DW_BF16 = {
+    "kernel": [],
+    "products only": _DW_COPIES,
+    "copies only": [("gemm_tc.cuh", _DW_BF16, "")],
+    "no converter": [("gemm_tc.cuh", a, "if (n < 0) " + a.strip()) for a in _DW_ROUND],
+}
+# strided_bwd.cu's dWc, both modes' parts taken out together
+DWC = {"kernel": [], "products only": _DW_COPIES,
+       "copies only": DW["copies only"] + DW_BF16["copies only"],
+       "no converter": DW["no converter"] + DW_BF16["no converter"]}
 
 
 def start_build(cuda_lib, tag, source, reps, csrc=None):
@@ -296,12 +339,15 @@ def main(argv=None) -> int:
     builds = {}
     for group, source, variants in (("attention", "attention", ATTENTION),
                                     ("gemm", "temporal", GEMM), ("dw", "temporal_bwd", DW),
+                                    ("dw_bf16", "temporal_bwd", DW_BF16),
+                                    ("dwc", "strided_bwd", DWC),
                                     ("conv", "strided", CONV), ("dh1", "strided_bwd", DH1),
                                     ("attn_bwd", "temporal_bwd", ATTN_BWD),
                                     ("k4", "spatial_bwd", K4), ("k1", "spatial", K1),
                                     ("short", "attention", SHORT)):
-        probe = group if group in PROBES else "dense"
-        for name, reps in variants.items() if probe in only else ():
+        probes = ({group} if group in PROBES else
+                  {"dense", "dw"} if group in DW_GROUPS else {"dense"})
+        for name, reps in variants.items() if probes & only else ():
             builds[group, name] = start_build(cuda_lib, f"{group} {name}", source, reps)
     if "short" in only and args.parent:
         builds["short", "parent"] = start_build(cuda_lib, "short parent", "attention", [],
@@ -310,8 +356,10 @@ def main(argv=None) -> int:
         _, report = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"probe build {key} failed:\n{report}")
-        # registers and spills of each K1 accumulation and each short variant
-        if (key[0] == "k1" and key[1] in K1_AB) or key[0] == "short":
+        # registers and spills of each K1 accumulation, each short variant and
+        # each dW kernel as it is
+        if ((key[0] == "k1" and key[1] in K1_AB) or key[0] == "short"
+                or (key[0] in DW_GROUPS and key[1] == "kernel")):
             for kernel, line in ptxas_report(report):
                 print(f"ptxas {key[0]} {key[1]}, {kernel}: {line}", flush=True)
 
@@ -323,8 +371,10 @@ def main(argv=None) -> int:
 
     if "dense" in only:
         probe_dense(torch, F, builds, rand, rng, dev, stream)
-        if args.parent:
-            probe_gemm_parent(args.parent, args.seed)
+    elif "dw" in only:
+        probe_dw(torch, builds, rand, rng, dev, stream)
+    if args.parent and only & {"dense", "dw"}:
+        probe_gemm_parent(args.parent, args.seed)
     if "attn_bwd" in only:
         probe_attention_bwd(torch, F, builds, rand, rng, dev, stream)
     if "k4" in only:
@@ -337,14 +387,13 @@ def main(argv=None) -> int:
 
 
 def probe_dense(torch, F, builds, rand, rng, dev, stream):
-    """The attention (row 11's shapes), the dense-layer GEMM, dW, the conv
-    forward and its dH1, each beside its PyTorch call."""
+    """The attention (row 11's shapes), the dense-layer GEMM, dW and dWc, the
+    conv forward and its dH1, each beside its PyTorch call."""
     from chip_smoke import time_ms
     from uplift_upsample_torch.ops.packed_attention import packed_attention_plain
     from uplift_upsample_torch.ops.strided import conv_taps_plain, strided_conv_plain
     from uplift_upsample_torch.ops.strided_train import conv_dh1_plain
     from uplift_upsample_torch.ops.temporal import tf32_halves
-    from uplift_upsample_torch.ops.temporal_train import dw_splits
 
     heads, c = 8, 384
     cases = []
@@ -394,26 +443,7 @@ def probe_dense(torch, F, builds, rand, rng, dev, stream):
               f"(addmm {addmm:.4f})", flush=True)
     del a, out
 
-    rows, mw = 512 * 71, c
-    x, dy = rand(rows, mw), rand(rows, n, scale=1.0)
-    splits = dw_splits(rows, mw, n)
-    part = torch.empty((splits, mw, n), device=dev)
-    mm = time_ms(torch, lambda: torch.mm(x.t(), dy), 20)
-    for name in DW:
-        fn = bind(builds["dw", name][1], "gemm_dw_f32", 3, 1)
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p] + \
-            [ctypes.c_int] * 4 + [ctypes.c_void_p]
-        call = lambda: fn(x.data_ptr(), dy.data_ptr(), None, 1, part.data_ptr(), mw, n, rows,
-                          splits, stream())
-        if call() != 0:
-            raise RuntimeError(f"dw {name}: launch failed")
-        torch.cuda.synchronize()
-        err = ""
-        if name == "kernel":
-            err = f" max_abs_err {float((part.sum(0) - x.t() @ dy).abs().max()):.3e};"
-        print(f"probe dw {name}: {mw} x {n} over {rows} rows in {splits} chunks (partials "
-              f"only):{err} ms {time_ms(torch, call, 20):.4f} (torch.mm {mm:.4f})", flush=True)
-    del x, dy, part
+    probe_dw(torch, builds, rand, rng, dev, stream)
 
     b, n, hid, s0 = 1024, 71, 2 * c, 3
     n_out = (n - 3) // s0 + 1
@@ -468,6 +498,80 @@ def probe_dense(torch, F, builds, rand, rng, dev, stream):
               f"{time_ms(torch, call, 20):.4f} (convolution_backward, input {lib:.4f})",
               flush=True)
     del h1, g, dh1, g_t, h1t
+    torch.cuda.empty_cache()
+
+
+def probe_dw(torch, builds, rand, rng, dev, stream):
+    """gemm_atb_kernel's variants: dW in 3xTF32 at qkv (384 x 1,152 over
+    36,352 rows), in bf16 at fc2 (768 x 384, the per-window row scale), and
+    dWc (strided_bwd.cu, the taps gathered from h1) at the train step's 512
+    windows x 23 rows, K6's (3 x 768) x 384, in both modes; each beside
+    torch.mm on the same fp32 operands (the scale applied, the taps written
+    out) and, as it is, against float64 on the operands it reads."""
+    from chip_smoke import time_ms
+    from uplift_upsample_torch.ops.strided import conv_taps_plain
+    from uplift_upsample_torch.ops.temporal_train import dw_splits
+
+    c = 384
+    rows, per = 512 * 71, 71
+    scale = torch.from_numpy(np.where(rng.uniform(size=512) < 0.9, 1 / 0.9, 0.0)
+                             .astype(np.float32)).to(dev)
+    sig = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 4 + \
+        [ctypes.c_void_p]
+    for group, entry, mw, nw, scaled in (("dw", "gemm_dw_f32", c, 3 * c, False),
+                                         ("dw_bf16", "gemm_dw_bf16", 2 * c, c, True)):
+        x, dy = rand(rows, mw), rand(rows, nw, scale=1.0)
+        sc = scale if scaled else None
+        dys = dy * scale.repeat_interleave(per)[:, None] if scaled else dy
+        if group == "dw_bf16":
+            ref = x.bfloat16().double().t() @ dys.bfloat16().double()
+        else:
+            ref = x.double().t() @ dys.double()
+        splits = dw_splits(rows, mw, nw)
+        part = torch.empty((splits, mw, nw), device=dev)
+        mm = time_ms(torch, lambda: torch.mm(x.t(), dys), 20)
+        for name in DW if group == "dw" else DW_BF16:
+            fn = bind(builds[group, name][1], entry, 3, 1)
+            fn.argtypes = sig
+            call = lambda: fn(x.data_ptr(), dy.data_ptr(), None if sc is None else sc.data_ptr(),
+                              per, part.data_ptr(), mw, nw, rows, splits, stream())
+            if call() != 0:
+                raise RuntimeError(f"{group} {name}: launch failed")
+            torch.cuda.synchronize()
+            err = ""
+            if name == "kernel":
+                gap = float((part.sum(0).double() - ref).abs().max())
+                err = f" max_abs_err vs float64 {gap:.3e};"
+            print(f"probe {group} {name}: {entry} {mw} x {nw} over {rows} rows in {splits} chunks"
+                  f" (partials only), row scale {scaled}:{err} ms "
+                  f"{time_ms(torch, call, 20):.4f} (torch.mm, scaled dY {mm:.4f})", flush=True)
+        del x, dy, dys, part, ref
+
+    b, n_t, hid, s0 = 512, 71, 2 * c, 3
+    n_out = (n_t - 3) // s0 + 1
+    h1, g = torch.relu(rand(b, n_t, hid)), rand(b * n_out, c, scale=1.0)
+    taps = conv_taps_plain(h1, s0, (0, 0)).reshape(-1, 3 * hid)
+    splits = dw_splits(b * n_out, 3 * hid, c)
+    part = torch.empty((splits, 3 * hid, c), device=dev)
+    mm = time_ms(torch, lambda: torch.mm(taps.t(), g), 20)
+    for entry in ("strided_dwc_bf16", "strided_dwc_f32"):
+        ref = (taps.bfloat16().double().t() @ g.bfloat16().double() if entry.endswith("bf16")
+               else taps.double().t() @ g.double())
+        for name in DWC:
+            fn = bind(builds["dwc", name][1], entry, 3, 8)
+            call = lambda: fn(h1.data_ptr(), g.data_ptr(), part.data_ptr(), b, n_t, hid, c, s0,
+                              0, n_out, splits, stream())
+            if call() != 0:
+                raise RuntimeError(f"dwc {name}: launch failed")
+            torch.cuda.synchronize()
+            err = ""
+            if name == "kernel":
+                gap = float((part.sum(0).double() - ref).abs().max())
+                err = f" max_abs_err vs float64 {gap:.3e};"
+            print(f"probe dwc {name}: {entry} {3 * hid} x {c} over {b * n_out} gathered rows in "
+                  f"{splits} chunks (partials only):{err} ms {time_ms(torch, call, 20):.4f} "
+                  f"(torch.mm on the taps {mm:.4f})", flush=True)
+    del h1, g, taps, part
     torch.cuda.empty_cache()
 
 

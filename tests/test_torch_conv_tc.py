@@ -16,8 +16,10 @@ held to the float64 criterion the card holds them to.
 
 `gpu` tests: each launch against its plain version and float64 at the
 geometries of `tests/test_torch_strided_train.py` with odd window counts,
-the backward bit-identical on repeat. JAX is not imported here, so the file
-also runs where JAX is not installed (the card's machine):
+the backward bit-identical on repeat; dWc in both modes (gemm_atb_kernel's
+gathered X) at strides 3, 2, 4 and 1 and a tap width that splits a tile.
+JAX is not imported here, so the file also runs where JAX is not installed
+(the card's machine):
 
     python -m pytest --noconftest -m gpu tests/test_torch_conv_tc.py
 """
@@ -26,7 +28,7 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_gemm_tc import _emulate_3xtf32, _f64_ok
+from test_torch_gemm_tc import _emulate_3xtf32, _f64_ok, _rung_bar
 from uplift_upsample_torch.ops import cuda_lib
 from uplift_upsample_torch.ops.strided import (DENSE, conv_scatter_plain, conv_tap_rows,
                                                conv_taps_plain, output_length, strided_conv,
@@ -135,15 +137,15 @@ def test_scatter_and_plain_pieces_match_autograd(stride, pads):
 @pytest.mark.parametrize("k,promote,rows_split,taps", [
     (3 * 768, 4, False, True),    # the forward T · Wc: a partial per 32-deep stage
     (384, 4, False, False),       # dH1 = g · Wcᵀ: the same kernel over C
-    (512 * 23, 1, True, True),    # dWc = Tᵀ · g over the train step's 11,776 rows
+    (512 * 23, 4, True, True),    # dWc = Tᵀ · g over the train step's 11,776 rows
 ])
 def test_3xtf32_emulation_meets_float64_criterion_at_conv_depths(k, promote, rows_split, taps):
     """The float64 criterion holds for the kernels' arithmetic at the conv's
     depths: gemm_tc_kernel's fresh partial per 32-deep stage over K = 2,304
-    (the forward, 72 stages) and K = 384 (dH1), gemm_atb_kernel's partial per
-    8-deep step over the 11,776 selected rows of the train step, split as
-    `dw_splits` cuts dWc (3·768 x 384). The deepest sums would miss it with
-    one running sum."""
+    (the forward, 72 stages) and K = 384 (dH1), and gemm_atb_kernel's partial
+    per 32-deep stage over the 11,776 selected rows of the train step, split
+    as `dw_splits` cuts dWc (3·768 x 384). The deepest sums would miss it
+    with one running sum."""
     rng = np.random.default_rng(k)
     a = rng.normal(size=(16, k)).astype(np.float32)
     if taps:  # T is relu'd h1
@@ -252,3 +254,39 @@ def test_conv_backward_matches_plain(b, n, c, hidden, stride, pads):
         assert _grad_close(got, plain)
         ok, err, err_plain = _f64(got, plain, ref64)
         assert ok, (err, err_plain)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("windows", [1, 33, 511])
+@pytest.mark.parametrize("stride,pads,hidden", [(3, (0, 0), 768), (2, (0, 0), 768),
+                                                (4, (1, 1), 768), (1, (1, 1), 768),
+                                                (3, (0, 0), 100)])
+def test_dwc_matches_plain(stride, pads, hidden, windows, bf16):
+    """dWc (`strided_dwc_f32` / `strided_dwc_bf16`: gemm_atb_kernel with the
+    taps gathered from h1, a run of a row per tap) at strides 3, 2, 4 and 1,
+    paddings (0, 0) and (1, 1), odd window counts, and a tap width (100)
+    that splits a 128-column tile: 3xTF32 to the grad bar and float64, bf16
+    to the training rungs' float64-sum bar on the rounded operands; one launch a
+    call, bit-identical on repeat."""
+    n, c = 71, 384
+    h1, _, g, _ = _card_operands(windows, n, c, hidden, stride, pads)
+    kw = dict(stride=stride, paddings=pads)
+    rung = "default" if bf16 else "high"
+    entry = "strided_dwc_bf16" if bf16 else "strided_dwc_f32"
+    cuda_lib.reset_launches()
+    got = conv_dwc(h1, g, torch.empty(3 * hidden, c, device=h1.device), precision=rung,
+                   **kw).clone()
+    again = conv_dwc(h1, g, torch.empty(3 * hidden, c, device=h1.device), precision=rung, **kw)
+    torch.cuda.synchronize()
+    assert cuda_lib.LAUNCHES[entry] == 2 and torch.equal(got, again)
+    plain = conv_dwc_plain(h1, g, precision=rung, **kw)
+    if bf16:
+        rung64 = conv_dwc_plain(h1.double(), g.double(), precision=rung, **kw)
+        ok, err, err_plain = _rung_bar(got.double().cpu().numpy(),
+                                       plain.double().cpu().numpy(), rung64.cpu().numpy())
+        assert ok, (err, err_plain)
+        return
+    assert _grad_close(got, plain)
+    ok, err, err_plain = _f64(got, plain, conv_dwc_plain(h1.double(), g.double(), **kw))
+    assert ok, (err, err_plain)

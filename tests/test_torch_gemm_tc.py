@@ -3,13 +3,15 @@
 K2, K3, K5 and K6 run every dense-layer product on the tensor cores: the
 forward's (`gemm_f32`, `gemm_branch_f32`) and the backward's dX
 (`gemm_dx_f32`) on TMA + wgmma from W's TF32 halves, the backward's dW
-(`gemm_dw_f32`) on mma.sync, split over the rows.
+(`gemm_dw_f32`, `gemm_dw_bf16`: gemm_atb_kernel) on wgmma too, split over
+the rows.
 
 CPU tests: the plain TF32 split (the halves the kernels read, the same
 integer rounding as `csrc/tf32.cuh`); a float64 emulation of the kernels'
-three-product sums held to the float64 criterion the card holds them to; and
-the stale-halves guard: on the training path the halves are split anew from
-each step's weights.
+three-product sums held to the float64 criterion the card holds them to (and
+of the bf16 dW's k16 sums held to the rung bar); a mirror of gemm_atb_kernel's
+walk over tiles, row chunks and tap runs; and the stale-halves guard: on the
+training path the halves are split anew from each step's weights.
 
 `gpu` tests: each launch against its plain version at the main paths'
 (K, N), at odd row counts, and against float64. They decide inside the test
@@ -113,27 +115,84 @@ def _emulate_3xtf32(a, b, k_split, promote):
     return total
 
 
-@pytest.mark.parametrize("k,n,dw", [(768, 384, False), (TRAIN_ROWS, 1152, True)])
+def _bf16(x: np.ndarray) -> np.ndarray:
+    """x rounded to bf16 (to nearest, ties to even), as float32."""
+    return torch.from_numpy(np.ascontiguousarray(x, np.float32)).bfloat16().float().numpy()
+
+
+def _emulate_bf16(a, b, k_split, promote):
+    """a (M, K) · b (K, N) as gemm_atb_kernel's bf16 mode computes it on
+    bf16-rounded operands: per 16-deep step one product, added by the tensor
+    cores into a partial rounding toward zero; every `promote` steps (None:
+    never) the partial joins an fp32 accumulator with a rounded add; chunks
+    of k_split rows summed in a fixed order."""
+    a, b = a.astype(np.float64), b.astype(np.float64)
+    k = a.shape[1]
+    total = np.zeros((a.shape[0], b.shape[1]), np.float32)
+    for k0 in range(0, k, k_split):
+        acc = np.zeros_like(total)
+        part, steps = np.zeros_like(total), 0
+        for s in range(k0, min(k, k0 + k_split), 16):
+            sl = slice(s, min(s + 16, k, k0 + k_split))
+            part = _round_toward_zero(part + a[:, sl] @ b[sl])
+            steps += 1
+            if promote and steps % promote == 0:
+                acc, part = acc + part, np.zeros_like(total)
+        total = total + (acc + part if promote else part)
+    return total
+
+
+def _rung_bar(got64, plain64, rung64):
+    """The training rungs' float64-sum bar: the mean distance to the rung with
+    float64 sums within 2x the fp32 plain version's, the largest within 4x,
+    + 1e-6 of the scale."""
+    err, err_plain = np.abs(got64 - rung64), np.abs(plain64 - rung64)
+    slack = 1e-6 * float(np.abs(rung64).max())
+    return (err.mean() <= 2 * err_plain.mean() + slack
+            and err.max() <= 4 * err_plain.max() + slack), err.mean(), err_plain.mean()
+
+
+@pytest.mark.parametrize("k,n,dw", [(768, 384, False), (TRAIN_ROWS, 1152, True),
+                                    (512 * 23, 384, "dwc"), (TRAIN_ROWS, 1152, "bf16"),
+                                    (TRAIN_ROWS, 384, "bf16 fc2"), (512 * 23, 384, "dwc bf16")])
 def test_3xtf32_emulation_meets_float64_criterion(k, n, dw):
     """The float64 criterion holds for the kernels' arithmetic at fc2's K = 768
     (gemm_tc_kernel: a fresh partial per 32-deep stage) and at dW's K = 36,352
-    rows (gemm_atb_kernel: a partial per 8-deep step; split-K as `dw_splits`
-    cuts the rows, the per-window row scale on dY). One running sum, rounded
-    toward zero by the tensor cores at every add, would miss it, and so
-    would one TF32 pass."""
+    rows and dWc's 11,776 (gemm_atb_kernel: a fresh partial per 32-deep
+    stage too; split-K as `dw_splits` cuts the rows, the per-window row
+    scale on dY).
+    One running sum, rounded toward zero by the tensor cores at every add,
+    would miss it, and so would one TF32 pass. The bf16 mode (on the rounded
+    operands: a partial per 32-deep stage of two k16 products, over the same
+    chunks, qkv's and fc2's at 36,352 rows, dWc's at 11,776) meets the training
+    rungs' float64-sum bar, which one running sum misses."""
     rng = np.random.default_rng(k)
     m, cols = 16, 16  # a corner of the output; every K is whole
     a = rng.normal(size=(m, k)).astype(np.float32)
     b = rng.normal(size=(k, cols)).astype(np.float32)
     k_split, promote = k, 4
-    if dw:  # a = Xᵀ, b = dY scaled per window of 71 rows (0 or 1/0.9 at keep 0.9)
-        keep = rng.uniform(size=k // 71) < 0.9
-        scale = np.repeat(np.where(keep, 1 / 0.9, 0.0), 71).astype(np.float32)
-        b = (b * scale[:, None]).astype(np.float32)
-        splits = dw_splits(k, 384, n)
+    if dw:  # a = Xᵀ, b = dY, scaled per window of 71 rows (0 or 1/0.9 at keep 0.9)
+        wm = 2304 if "dwc" in str(dw) else 768 if "fc2" in str(dw) else 384
+        if "dwc" in str(dw):  # T is relu'd h1, g unscaled
+            a = np.maximum(a, 0)
+        else:
+            keep = rng.uniform(size=k // 71) < 0.9
+            scale = np.repeat(np.where(keep, 1 / 0.9, 0.0), 71).astype(np.float32)
+            b = (b * scale[:, None]).astype(np.float32)
+        splits = dw_splits(k, wm, n)
         k_split = -(-k // splits)
-        k_split, promote = -(-k_split // 32) * 32, 1
+        k_split = -(-k_split // 32) * 32
         assert splits > 1
+    if "bf16" in str(dw):
+        a, b = _bf16(a), _bf16(b)
+        rung64 = a.astype(np.float64) @ b.astype(np.float64)
+        plain = (torch.from_numpy(a) @ torch.from_numpy(b)).numpy().astype(np.float64)
+        ok, err, err_plain = _rung_bar(_emulate_bf16(a, b, k_split, 2).astype(np.float64),
+                                       plain, rung64)
+        assert ok, (err, err_plain)
+        one_sum = _emulate_bf16(a, b, k_split, None).astype(np.float64)
+        assert not _rung_bar(one_sum, plain, rung64)[0]
+        return
     ref64 = a.astype(np.float64) @ b.astype(np.float64)
     plain = (torch.from_numpy(a) @ torch.from_numpy(b)).numpy().astype(np.float64)
     got = _emulate_3xtf32(a, b, k_split, promote).astype(np.float64)
@@ -143,6 +202,77 @@ def test_3xtf32_emulation_meets_float64_criterion(k, n, dw):
     assert not _f64_ok(one_sum, plain, ref64)[0]
     one_pass = _split(a)[0] @ _split(b)[0]
     assert not _f64_ok(one_pass, plain, ref64)[0]
+
+
+def _atb_walk(m, n, rows, splits, run_end=None):
+    """gemm_atb_kernel's walk as `launch_gemm_atb` and the kernel cut it: a
+    block per (n tile, m tile, chunk) of 128 x 128 outputs and k_split rows
+    (a multiple of 32), 32 rows a stage, loader lane l on row k0 + l; its X
+    row's columns [m0, m_end) in runs (`run_end`: ConvTaps' runs of one tap;
+    None: DenseRows, one run). Yields (chunk, m0, n0, row, runs) per row a
+    loader lane copies, and (chunk, m0, n0, row, None) per lane that
+    zero-fills."""
+    k_split = -(-rows // splits)
+    k_split = -(-k_split // 32) * 32
+    for z in range(splits):
+        k_begin = z * k_split
+        k_end = min(rows, k_begin + k_split)
+        ktiles = -(-(k_end - k_begin) // 32) if k_end > k_begin else 0
+        for m0 in range(0, m, 128):
+            for n0 in range(0, n, 128):
+                m_end = min(m0 + 128, m)
+                for it in range(ktiles):
+                    for lane in range(32):
+                        gk = k_begin + 32 * it + lane
+                        if gk >= k_end:
+                            yield z, m0, n0, gk, None
+                            continue
+                        runs, c = [], m0
+                        while c < m_end:
+                            e = run_end(c, m_end) if run_end else m_end
+                            runs.append((c, e))
+                            c = e
+                        yield z, m0, n0, gk, runs
+
+
+@pytest.mark.parametrize("m,n,rows,hidden", [
+    (384, 1152, TRAIN_ROWS, None), (384, 384, TRAIN_ROWS, None), (384, 768, TRAIN_ROWS, None),
+    (768, 384, TRAIN_ROWS, None), (4, 4, 1, None), (124, 132, 31, None), (132, 124, 33, None),
+    (2304, 4, 71, None), (4, 2304, 257, None), (132, 1152, 8193, None),
+    (3 * 768, 384, 512 * 23, 768), (3 * 256, 128, 7 * 11, 256), (3 * 100, 384, 5 * 13, 100),
+])
+def test_atb_walk_covers_every_tile_and_row_once(m, n, rows, hidden):
+    """The mirror of gemm_atb_kernel's walk at the train step's dW and dWc
+    shapes and at edges (m, n not multiples of 128, rows under a stage, a
+    tap width that is not a multiple of 128): every output tile meets every
+    row exactly once, in one chunk; rows past a chunk only pad its last
+    stage; each tile row's columns [m0, m_end) are copied in runs that cover
+    them once, each run within one tap."""
+    splits = dw_splits(rows, m, n)
+    run_end = None
+    if hidden:
+        run_end = lambda c, end: min(end, (c // hidden + 1) * hidden)  # noqa: E731
+    seen, chunks, pads = {}, {}, {}
+    for z, m0, n0, gk, runs in _atb_walk(m, n, rows, splits, run_end):
+        if runs is None:  # zero-filled: past the chunk, in its last stage
+            pads[z, m0, n0] = pads.get((z, m0, n0), 0) + 1
+            assert pads[z, m0, n0] < 32
+            continue
+        key = (m0, n0, gk)
+        assert key not in seen, key
+        seen[key] = z
+        chunks.setdefault(gk, z)
+        assert chunks[gk] == z  # a row lies in one chunk, for every tile
+        cols = [c for a, e in runs for c in range(a, e)]
+        assert cols == list(range(m0, min(m0 + 128, m)))
+        for a, e in runs:
+            assert (e - a) % 4 == 0 and (a - m0) % 4 == 0  # 16-byte bulk copies
+            if hidden:
+                assert a // hidden == (e - 1) // hidden
+    tiles = -(-m // 128) * -(-n // 128)
+    assert len(seen) == tiles * rows
+    assert sorted(chunks) == list(range(rows))
+    assert max(chunks.values()) <= splits - 1
 
 
 def test_training_path_splits_halves_from_each_steps_weights(monkeypatch):
@@ -206,27 +336,44 @@ def test_training_path_splits_halves_from_each_steps_weights(monkeypatch):
 
 
 def test_gemm_digest_cases_fit_the_c_entries(monkeypatch):
-    """Each case of `tools/gemm_digests.py` (every caller of gemm_tc_kernel,
-    3xTF32 and bf16) passes its C entry as many arguments as `cuda_lib`
-    binds (the stream appended), W as that entry reads it (the TF32 halves
-    (2, N, K) or the bf16 plane (N, K)), and has a recorded digest and a
-    recorded parent time; at a cut size on the CPU."""
+    """Each case of `tools/gemm_digests.py` (every caller of gemm_tc_kernel
+    and of gemm_atb_kernel, 3xTF32 and bf16) passes its C entries as many
+    arguments as `cuda_lib` binds (the stream appended), W as that entry
+    reads it (the TF32 halves (2, N, K) or the bf16 plane (N, K)), and has a
+    recorded digest and a recorded parent time; a dW case sums the partials
+    it launched into (`dw_splits` of them) with `sum_rows_f32`; at a cut
+    size on the CPU."""
     from uplift_upsample_torch.tools import gemm_digests as gd
     monkeypatch.setattr(gd, "SERVING", 3 * 71)
     monkeypatch.setattr(gd, "TRAIN", 2 * 71)
     monkeypatch.setattr(gd, "CONV_WINDOWS", (3, 2))
     monkeypatch.setattr(gd, "DH1_WINDOWS", 2)
+    monkeypatch.setattr(gd, "DWC_WINDOWS", (3, 2))
     cases = gd.all_cases(0, torch.device("cpu"))
-    assert len(cases) == 22 and len({c.name for c in cases}) == 22
-    assert {c.name for c in cases} == set(gd.GEMM_DIGESTS) == set(gd.PARENT_MS)
+    assert len(cases) == 34 and len({c.name for c in cases}) == 34
+    gemm_cases = {c.name for c in cases if not c.then}
+    assert gemm_cases == set(gd.GEMM_DIGESTS)
+    assert {c.name for c in cases} - gemm_cases == set(gd.DW_DIGESTS)
+    assert {c.name for c in cases} == set(gd.DIGESTS) == set(gd.PARENT_MS)
     for case in cases:
-        sig = cuda_lib._SIGNATURES[case.lib][case.fn]
-        assert len(case.args) + 1 == len(sig), case.name
-        for a, kind in zip(case.args, sig):
-            assert (kind == "p") == (a is None or torch.is_tensor(a)), (case.name, kind)
-        w = case.args[3] if case.fn.startswith("gemm_dx") else \
-            case.args[2] if case.fn.startswith("strided_conv") else case.args[1]
-        assert w.dim() == (2 if case.fn.endswith("_bf16") else 3), case.name
+        for lib, fn, args in ((case.lib, case.fn, case.args),) + case.then:
+            sig = cuda_lib._SIGNATURES[lib][fn]
+            assert len(args) + 1 == len(sig), (case.name, fn)
+            for a, kind in zip(args, sig):
+                assert (kind == "p") == (a is None or torch.is_tensor(a)), (case.name, kind)
+        if case.then:  # gemm_dw / strided_dwc into partials, then their sum
+            part = case.args[4] if case.fn.startswith("gemm_dw") else case.args[2]
+            rows = case.args[7] if case.fn.startswith("gemm_dw") else \
+                case.args[3] * case.args[9]
+            m, n = part.shape[1:]
+            assert part.shape[0] == case.args[-1] == dw_splits(rows, m, n), case.name
+            (lib, fn, args), = case.then
+            assert fn == "sum_rows_f32" and args[0] is part and args[1] is case.outputs[0]
+            assert args[2:] == [part.shape[0], m * n] and case.outputs[0].shape == (m, n)
+        else:
+            w = case.args[3] if case.fn.startswith("gemm_dx") else \
+                case.args[2] if case.fn.startswith("strided_conv") else case.args[1]
+            assert w.dim() == (2 if case.fn.endswith("_bf16") else 3), case.name
         assert all(t.dtype == torch.float32 for t in case.outputs)
 
 
@@ -353,26 +500,52 @@ def test_gemm_dx_matches_plain(m, k, n, scaled, masked):
     assert ok, (err, err_plain)
 
 
+# gemm_dw's (m, n, rows, per-window row scale): the train step's products and
+# dWc's width at its 36,352 rows, then every pair of widths around the tile
+# edges at row counts under, at and past a stage and a window
+_DW_WIDTHS = (4, 124, 132, 384, 768, 1152, 2304)
+DW_CASES = ([(m, n, TRAIN_ROWS, scaled) for m, n in
+             ((768, 384), (384, 768), (384, 384), (384, 1152), (2304, 384))
+             for scaled in (False, True)]
+            + [(m, n, (1, 31, 33, 71)[i % 4], i % 3 != 0) for i, (m, n) in
+               enumerate((m, n) for m in _DW_WIDTHS for n in _DW_WIDTHS)])
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("m,n", [(768, 384), (384, 768), (384, 384), (384, 1152)])
-def test_gemm_dw_matches_plain(m, n):
-    """`gemm_dw_f32` + the fixed-order sum: xᵀ @ (s · dy) over the train step's
-    36,352 rows with a per-window row scale, to the grad bar and float64, and
-    bit-identical on repeat (no float atomics)."""
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("m,n,rows,scaled", DW_CASES)
+def test_gemm_dw_matches_plain(m, n, rows, scaled, bf16):
+    """`gemm_dw_f32` / `gemm_dw_bf16` + the fixed-order sum: xᵀ @ (s · dy),
+    s a per-window row scale or none. 3xTF32: to the grad bar and float64;
+    bf16: on the rounded operands, to the training rungs' float64-sum bar. Both
+    bit-identical on repeat (no float atomics), one launch a call."""
     _card()
-    rng = np.random.default_rng(m * 7 + n)
-    rows, per = TRAIN_ROWS, 71
+    rng = np.random.default_rng(m * 7 + n + rows)
+    per = 71
     x, dy = _rand(rng, rows, m), _rand(rng, rows, n, scale=1.0)
-    scale = torch.tensor(np.where(rng.uniform(size=rows // per) < 0.9, 1 / 0.9, 0.0),
-                         dtype=torch.float32, device="cuda")
+    scale, rs = None, torch.ones(rows, 1, device="cuda")
+    if scaled:
+        scale = torch.tensor(np.where(rng.uniform(size=-(-rows // per)) < 0.9, 1 / 0.9, 0.0),
+                             dtype=torch.float32, device="cuda")
+        rs = scale.repeat_interleave(per)[:rows, None]
     out = torch.empty((m, n), device="cuda")
+    entry = "gemm_dw_bf16" if bf16 else "gemm_dw_f32"
+    precision = "default" if bf16 else "high"
     cuda_lib.reset_launches()
-    gemm_dw(x, dy, scale, per, out, counter="test")
+    gemm_dw(x, dy, scale, per, out, counter="test", precision=precision)
     first = out.clone()
-    gemm_dw(x, dy, scale, per, out, counter="test")
+    gemm_dw(x, dy, scale, per, out, counter="test", precision=precision)
     torch.cuda.synchronize()
-    assert cuda_lib.LAUNCHES["gemm_dw_f32"] == 2 and torch.equal(first, out)
-    dys = dy * scale.repeat_interleave(per)[:, None]
+    assert cuda_lib.LAUNCHES[entry] == 2 and torch.equal(first, out)
+    dys = dy * rs
+    if bf16:
+        xr, dyr = _bf16_round(x), _bf16_round(dys)
+        rung64 = xr.double().t() @ dyr.double()
+        ok, err, err_plain = _rung_bar(out.double().cpu().numpy(),
+                                       (xr.t() @ dyr).double().cpu().numpy(),
+                                       rung64.cpu().numpy())
+        assert ok, (err, err_plain)
+        return
     ref = x.t() @ dys
     assert _grad_close(out, ref)
     ok, err, err_plain = _f64_card(out, ref, x.double().t() @ dys.double())
@@ -514,13 +687,14 @@ def test_gathered_a_schedule(stride, windows):
 @pytest.mark.gpu
 @pytest.mark.parametrize("bf16", [False, True])
 def test_gemm_digests_equal_the_parent_build(bf16):
-    """Every caller of gemm_tc_kernel (`tools/gemm_digests.py`) at its main
-    path's shape gives the bits of the build before the pipelined kernel
-    (`GEMM_DIGESTS`), and the same bits on a second call."""
+    """Every caller of gemm_tc_kernel and gemm_atb_kernel (`tools/gemm_digests.py`)
+    at its main path's shape gives its recorded bits (`GEMM_DIGESTS`: the
+    build before the pipelined kernel; `DW_DIGESTS`), and the same bits on a
+    second call."""
     from uplift_upsample_torch.tools import gemm_digests as gd
     dev = _card()
     libs = gd.port_libs()
-    for case in gd.cases(0, bf16, dev):
+    for case in gd.cases(0, bf16, dev) + gd.dw_cases(0, bf16, dev):
         first, again = gd.digest(libs, case), gd.digest(libs, case)
         assert first == again, case.name
-        assert first == gd.GEMM_DIGESTS[case.name], case.name
+        assert first == gd.DIGESTS[case.name], case.name

@@ -30,7 +30,8 @@ moves the q bias gradient's largest by 1.64x where K4 sits at 3.57x
 the kernel forward's relu decisions, as the 3xTF32 tests do. The
 3xTF32 instances keep their bits: K4's outputs and K5's backward outputs on
 seeded inputs equal the digests of their builds before the bf16 modes
-(`K4_DIGEST`, `K5_BWD_DIGEST`, the same card type and toolkit).
+(`K4_DIGEST`; `K5_BWD_DIGEST`, re-taken when dW moved to wgmma; the same
+card type and toolkit).
 
 JAX is not imported, so the file also runs on the card's machine:
 
@@ -66,9 +67,12 @@ except ImportError:  # pragma: no cover
     from test_torch_precision_kernels import K4_DIGEST, _k4_outputs, k4_digest, rung_checks
     from test_torch_spatial_bwd_tc import _spatial_case
 
-# sha256 of K5's backward outputs at `_k5_bwd_outputs`' inputs, from the build
-# before the bf16 modes (NVIDIA H100 80GB HBM3, nvcc 12.9, sm_90a).
-K5_BWD_DIGEST = "f864985ffdcf8d7a7034942ff9ba2d3299f1a32965729176ff788d3158a6cd05"
+# sha256 of K5's backward outputs at `_k5_bwd_outputs`' inputs (NVIDIA H100
+# 80GB HBM3, nvcc 12.9, sm_90a), re-taken when dW moved to wgmma with a fresh
+# partial per 32-deep stage (gemm_atb_kernel; every float64 check and grad bar
+# of dW and dWc held); the mma.sync dW's, a partial per 8-deep step, was
+# f864985ffdcf8d7a7034942ff9ba2d3299f1a32965729176ff788d3158a6cd05.
+K5_BWD_DIGEST = "54a482ad1ee5895e549c8ee7bd2a6d49c621cdc10f30a0e8bb2ed00d0bdfe3e2"
 
 
 def _card():

@@ -40,6 +40,12 @@ struct ConvTaps {
   __device__ __forceinline__ const float* operator()(int r, int k) const {
     return at(row(r), k);
   }
+
+  // at(row, k) where k's tap (k / hidden) is known: dWc's loader walks a
+  // row's columns in order and counts the taps it crosses.
+  __device__ __forceinline__ const float* at(Row row, int k, int tap) const {
+    return (unsigned)(row.first + tap) < (unsigned)n ? h1 + row.off + k : nullptr;
+  }
 };
 
 }  // namespace uu

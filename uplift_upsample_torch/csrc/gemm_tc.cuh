@@ -74,30 +74,55 @@
 //    (uplift_upsample_torch/tools/gemm_digests.py, GEMM_DIGESTS).
 //
 // 2. gemm_atb_kernel: part[z] = Xᵀ · (s ⊙ dY) over chunk z of the rows, X
-//    (rows, m) and dY (rows, n) row-major: the backward's dW, split over the
-//    rows (36,352 at the train step) into partials that launch_sum_rows
-//    (gemm.cuh) adds in a fixed order, so repeated runs agree bit for bit.
+//    (rows, m) and dY (rows, n) row-major: the backward's dW (K5: qkv, proj,
+//    fc1, fc2; K6's dWc = Tᵀ·g with X the conv's taps, gathered from h1:
+//    conv_taps.cuh), split over the rows (36,352 at the train step) into
+//    partials that launch_sum_rows (gemm.cuh) adds in a fixed order, so
+//    repeated runs agree bit for bit.
 //
-//    Bound: operations, as above (3 x 85.8 GFLOP per temporal block at the
-//    train step, 0.52 ms at the TF32 peak, against 0.20 ms for its 670 MB).
+//    Bound: operations in 3xTF32 (3 x 85.8 GFLOP per temporal block at the
+//    train step, 0.52 ms at the TF32 peak, against 0.20 ms for its 670 MB);
+//    bytes in the bf16 mode (the fp32 operands read once: fc2 0.050 ms, its
+//    products 0.017 ms at the bf16 peak).
 //
-//    Design: both operands are MN-major here, and TF32 wgmma reads 32-bit
-//    operands from shared memory only K-major, so this kernel runs
-//    mma.sync.m16n8k8 (as attention.cuh does) with both fragments read from
-//    shared memory by the threads: 128 x 128 x 32 tiles in a 3-stage
-//    cp.async ring, 8 warps of 64 x 32, rows padded by 8 floats so each
-//    fragment read hits 32 banks; dY's row scale is applied as its values
-//    leave shared memory, before the split. Each 8-deep step's three
-//    products go into a fresh partial that joins the accumulators with a
-//    rounded add (over 36,352 rows the toward-zero rounding of one running
-//    sum cost ~15x the plain version's error). Two blocks per SM; the caller
-//    picks the split count for about one wave (ops/temporal_train.py). X is
-//    read through a functor, so the conv's dWc = Tᵀ·g gathers its taps
-//    (conv_taps.cuh) the way the dense dW reads a matrix. The bf16 mode
-//    (kBf16): X and s ⊙ dY rounded to bf16 as they leave shared memory, one
-//    TF32 product per 8-deep step into the fresh partial.
+//    Design: both operands are MN-major (m or n contiguous, k = the rows
+//    strided). One 128 x 128 output tile and one row chunk per block, 384
+//    threads, one block per SM, 32 rows a stage:
+//     - the loader (thread 0) fills a ring of 5 stages of rows: dY's, and X's
+//       for the dense dW, by TMA in boxes of 32 rows x 32 columns (128-byte
+//       swizzle; rows and columns past the ends read as zeros); the taps of
+//       dWc gathered from h1 by warpgroup 0's 128 threads, eight to a
+//       128-byte row, with cp.async 16 bytes at a time into the same layout
+//       (zeros where a tap reads none);
+//     - the consumers (two warpgroups, 64 rows of the tile each, in two
+//       64-column halves) run stage it's products while they write stage
+//       it + 1's operand buffer (of two) from its rows, each warpgroup its
+//       share, and release the rows at once; a barrier of the two ends each
+//       stage. bf16 mode: X and s ⊙ dY rounded to bf16 (bf16_round's
+//       rounding, two at a time) into two MN-major tiles with the 128-byte
+//       swizzle, which bf16 wgmma reads through its transpose bits; per
+//       stage and half two wgmma.m64n64k16 into a fresh partial. 3xTF32:
+//       TF32 wgmma reads a 32-bit operand from shared memory only K-major,
+//       so s ⊙ dY is transposed, split and written as big and small halves
+//       K-major (128-byte swizzle) as gemm_tc_kernel's W tiles; Xᵀ is the
+//       register operand, read from the rows and split in registers; per
+//       stage and half wgmma.m64n64k8 three times per 8-deep step
+//       (small·big, big·small, big·big: mma_3xtf32's order) into a fresh
+//       partial. Both halves are in flight together; a partial joins the
+//       fp32 accumulators with a rounded add once it retires. Rows past the
+//       chunk reach the products as zeros. The tensor cores round toward
+//       zero as they accumulate: over 36,352 rows one running sum cost ~15x
+//       the plain version's error (tests/test_torch_gemm_tc.py emulates both
+//       modes' sums against float64).
+//    What was tried first (kernel_probe.py, NVIDIA H100 80GB HBM3, 700 W):
+//    rows by bulk copies (cp.async.bulk, a 512-byte row a lane): without
+//    products the kernel took 0.67 ms at qkv, as long as the mma.sync
+//    kernel it replaces; a partial per 8-deep step, as that kernel took,
+//    kept its bits but left the products waiting on one another (0.52 ms at
+//    qkv without the copies); three converter warps writing the operand
+//    tiles bound the kernel (3xTF32 qkv 0.67 ms, 0.32 without them).
+//    The caller picks the split count (ops/temporal_train.py dw_splits).
 #pragma once
-
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -758,181 +783,411 @@ inline cudaError_t launch_gemm_tc_gather(Gather a_at, const float* halves, int m
   return launch_tc<kBf16>(unused, a_at, halves, n, m, n, k, epi, stream);
 }
 
-constexpr int AB_BM = 128, AB_BN = 128, AB_BK = 32, AB_STAGES = 3;
-constexpr int AB_THREADS = 256;                       // 8 warps of 64 x 32
-constexpr int AB_LD = AB_BM + 8;                      // floats per staged row (= AB_BN + 8)
-constexpr int AB_TILE = AB_BK * AB_LD;                // floats per operand per stage
-constexpr int AB_STAGE = 2 * AB_TILE + AB_BK;         // X, dY, the rows' scales
-constexpr int AB_SMEM_BYTES = AB_STAGES * AB_STAGE * 4;
+// ---- gemm_atb_kernel -------------------------------------------------------
 
-// X (rows, m) row-major, read as x_at(row, col): a pointer to X[row, col..col+3].
-struct DenseRows {
-  const float* x;
-  int m;
-  __device__ __forceinline__ const float* operator()(int r, int c) const {
-    return x + (size_t)r * m + c;
-  }
+constexpr int AB_BM = 128, AB_BN = 128, AB_BK = 32;
+constexpr int AB_THREADS = 384;  // warpgroup 0 (thread 0 loads, all 128 gather), two consumers
+// 128 x 40 + 256 x 232 = 384 x 168, the launch's own: setmaxnreg.inc waits for
+// registers that warpgroup 0 gives back, so the split cannot exceed it
+constexpr int AB_LOADER_REGS = 40, AB_CONSUMER_REGS = 232;
+constexpr int AB_ROWS_BYTES = AB_BK * AB_BM * 4;  // a stage's 32 rows of X's (or dY's) 128 columns
+constexpr int AB_STAGES = 5;                       // the ring of rows
+
+// Shared memory: two operand buffers that the wgmma read, then a ring of
+// AB_STAGES stages of the 32 rows of X and of dY as they came from device
+// memory. The rows: four boxes of 32 columns, 4,096 bytes apart, each 32
+// rows (k) of 128 bytes with the 128-byte swizzle (float (k, c) of a box at
+// k·32 + ((c/4) ^ (k%8))·4 + c%4), as TMA writes them. An operand buffer:
+//   3xTF32: (s ⊙ dY)ᵀ's TF32 halves, big then small, each 128 n-rows x 32 k
+//           K-major with the 128-byte swizzle (element (n, k) at float
+//           n·32 + ((k/4) ^ (n%8))·4 + k%4), as gemm_tc_kernel's W tiles;
+//   bf16:   Xᵀ then s ⊙ dY rounded to bf16, each 128 (m or n) x 32 k
+//           MN-major with the 128-byte swizzle: two atoms of 64 columns, an
+//           atom 32 rows (k) of 128 bytes, 16-byte chunk c of row k at
+//           chunk c ^ (k%8).
+template <bool kBf16>
+struct AbLayout {
+  static constexpr int kOps = kBf16 ? 2 * AB_BK * AB_BM * 2 : 2 * AB_BK * AB_BN * 4;
+  static constexpr int kRows = 2 * AB_ROWS_BYTES;  // a stage: X's rows, then dY's
+  static constexpr int kSmem = 2 * kOps + AB_STAGES * kRows + 2 * AB_STAGES * 8 + 1024;
 };
 
-// x_at(row, col): a pointer to X[row, col..col+3], or nullptr where X is
-// zero (DenseRows, or the conv's taps: ConvTaps, conv_taps.cuh).
+// Float (k, c) of a stage's rows: box c/32, row k, swizzled 16-byte chunk.
+__device__ __forceinline__ int ab_at(int k, int c) {
+  return (c / 32) * 1024 + k * 32 + ((c % 32) ^ ((k % 8) * 4));  // chunk ^ (k % 8), in floats
+}
+
+// X (rows, m) row-major, loaded by TMA (gemm_atb_kernel's map_x).
+struct DenseRows {
+  static constexpr bool kGather = false;
+};
+
+// mbar_wait that traps instead of spinning forever if a phase never completes.
+__device__ __forceinline__ void mbar_wait_or_trap(uint32_t bar, uint32_t parity) {
+  for (uint32_t spins = 0;; ++spins) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    if (done) return;
+    if (spins == (1u << 24)) __trap();
+  }
+}
+
+// wgmma descriptor of one 64-column atom of an MN-major bf16 tile with the
+// 128-byte swizzle: 8-row (k) groups 1,024 bytes apart (the stride byte
+// offset). The leading byte offset, the atom stride, is never read: the
+// operand spans one atom along m or n. A step of 16 along k adds 2,048
+// bytes (128 in the address field).
+__device__ __forceinline__ uint64_t mn_sw128_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(1024 >> 4) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+// d (64 x 64) = a (64 x 8, registers) · b (8 x 64, shared memory), d's old
+// values unread: a partial's first product, with d write-only, so its
+// registers are free between the partial's add and the next partial
+__device__ __forceinline__ void wgmma_m64n64k8_tf32_first(float (&d)[32], const uint32_t (&a)[4],
+                                                          uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]), "=f"(d[6]),
+        "=f"(d[7]), "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]),
+        "=f"(d[14]), "=f"(d[15]), "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]), "=f"(d[20]),
+        "=f"(d[21]), "=f"(d[22]), "=f"(d[23]), "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]),
+        "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(0));
+}
+
+// d (64 x 64) = a (64 x 16) · b (16 x 64), both bf16 MN-major in shared
+// memory (the transpose bits), plus d when `acc`
+__device__ __forceinline__ void wgmma_m64n64k16_bf16_mn(float (&d)[32], uint64_t desc_a,
+                                                        uint64_t desc_b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(acc));
+}
+
+// Two fp32 values rounded to bf16 (to nearest, ties to even, as bf16_round)
+// and packed, lo in the low half.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  uint32_t r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+
+// Warpgroup 0's share of a stage's gathered X rows (ConvTaps): thread p
+// copies 16-byte piece p % 8 of box b of rows p / 8 and p / 8 + 16 (eight
+// threads a 128-byte box row: coalesced reads, conflict-free writes) with
+// cp.async, zeros where a tap reads none, past m or past the chunk; `taps`
+// holds the tap of its column in each box. One arrival on `full` once they
+// land.
+template <class XSrc>
+__device__ __forceinline__ void ab_gather_rows(const XSrc& x_at, int k0, int k_end, int m0,
+                                               int m, const int (&taps)[4], float* xs,
+                                               uint32_t full) {
+  const int p = threadIdx.x, qb = p % 8;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int k = p / 8 + 16 * i, gk = k0 + k;
+    const typename XSrc::Row row = x_at.row(gk);
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      const int c = m0 + 32 * b + 4 * qb;
+      const float* src = gk < k_end && c < m ? x_at.at(row, c, taps[b]) : nullptr;
+      cp_async16(xs + ab_at(k, 32 * b + 4 * qb), src ? src : x_at.h1, src ? 16 : 0);
+    }
+  }
+  cp_async_mbar_arrive(full);
+}
+
+// The two consumer warpgroups' barrier (named barrier 1): a stage's operand
+// buffer is whole, and the products that read the other buffer retired.
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
+}
+
+// part[z] (m, n) = Xᵀ · (s ⊙ dY) over rows [z·k_split, (z+1)·k_split): one
+// 128 x 128 output tile and one row chunk per block. X by TMA through map_x
+// (DenseRows) or gathered from h1 (ConvTaps, conv_taps.cuh: zero where a tap
+// reads none); dY by TMA through map_y. Rows past the chunk reach the
+// products as zeros; columns past m or n are never written.
 template <class XSrc, bool kBf16>
-__global__ void __launch_bounds__(AB_THREADS, 2)
-gemm_atb_kernel(XSrc x_at, const float* __restrict__ dy,
+__global__ void __launch_bounds__(AB_THREADS, 1)
+gemm_atb_kernel(const __grid_constant__ CUtensorMap map_x,
+                const __grid_constant__ CUtensorMap map_y, XSrc x_at,
                 const float* __restrict__ scale, int rows_per_scale, float* __restrict__ part,
                 int m, int n, int rows, int k_split) {
+  typedef AbLayout<kBf16> L;
+  constexpr int S = AB_STAGES;
   extern __shared__ float4 ab_smem[];
-  float* sm = reinterpret_cast<float*>(ab_smem);
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane >> 2, t = lane & 3;
-  const int wm = warp / 4, wn = warp % 4;  // the warp's rows wm*64.., columns wn*32..
+  unsigned char* smem_raw = reinterpret_cast<unsigned char*>(ab_smem);
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;  // the swizzled tiles want 1,024 alignment
+  unsigned char* ops_smem = smem_raw + (base - raw);  // the two operand buffers
+  unsigned char* rows_smem = ops_smem + 2 * L::kOps;  // the ring of rows
+  const uint32_t full = base + 2 * L::kOps + S * L::kRows;  // S mbarriers each: rows landed,
+  const uint32_t empty = full + S * 8;                      // rows read
   const int m0 = blockIdx.y * AB_BM, n0 = blockIdx.x * AB_BN;
   const int k_begin = blockIdx.z * k_split;
   const int k_end = min(rows, k_begin + k_split);
   const int ktiles = k_end > k_begin ? (k_end - k_begin + AB_BK - 1) / AB_BK : 0;
+  auto xs_of = [&](int s) { return reinterpret_cast<float*>(rows_smem + s * L::kRows); };
 
-  // stage kt: 32 rows of X's and dY's column slices, 16 bytes a copy;
-  // rows past the chunk and columns past m or n are zero-filled
-  auto load = [&](int kt) {
-    float* xs = sm + (kt % AB_STAGES) * AB_STAGE;
-    float* ys = xs + AB_TILE;
-    const int k0 = k_begin + kt * AB_BK;
-#pragma unroll
-    for (int i = 0; i < (AB_BK * AB_BM / 4) / AB_THREADS; ++i) {
-      const int idx = tid + i * AB_THREADS;
-      const int kk = idx / (AB_BM / 4), c4 = (idx % (AB_BM / 4)) * 4;
-      const int gk = k0 + kk;
-      const bool vy = gk < k_end && n0 + c4 < n;
-      const float* xp = gk < k_end && m0 + c4 < m ? x_at(gk, m0 + c4) : nullptr;
-      cp_async16(xs + kk * AB_LD + c4, xp ? xp : dy, xp ? 16 : 0);
-      cp_async16(ys + kk * AB_LD + c4, vy ? dy + (size_t)gk * n + n0 + c4 : dy, vy ? 16 : 0);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full + 8 * s, XSrc::kGather ? 129 : 1);  // + each gathering thread
+      mbar_init(empty + 8 * s, 8);  // one arrival per consumer warp
     }
-    if (tid < AB_BK) {
-      const int gk = k0 + tid;
-      ys[AB_TILE + tid] = gk >= k_end ? 0.f : scale ? scale[gk / rows_per_scale] : 1.f;
-    }
-  };
-
-  float acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-#pragma unroll
-  for (int s = 0; s < AB_STAGES - 1; ++s) {
-    if (s < ktiles) load(s);
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  for (int kt = 0; kt < ktiles; ++kt) {
-    asm volatile("cp.async.wait_group %0;\n" :: "n"(AB_STAGES - 2) : "memory");
-    __syncthreads();  // stage kt landed; every warp is done with stage kt - 1
-    if (kt + AB_STAGES - 1 < ktiles) load(kt + AB_STAGES - 1);
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
-    const float* xs = sm + (kt % AB_STAGES) * AB_STAGE;
-    const float* ys = xs + AB_TILE;
-    const float* sc = ys + AB_TILE;
-#pragma unroll
-    for (int k8 = 0; k8 < AB_BK / 8; ++k8) {
-      const int lo = k8 * 8 + t, hi = lo + 4;  // the fragments' rows of X and dY
-      const float s_lo = sc[lo], s_hi = sc[hi];
-      if constexpr (kBf16) {  // one product of the rounded operands a step
-        uint32_t b_r[4][2];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int col = wn * 32 + j * 8 + g;
-          b_r[j][0] = bf16_round(ys[lo * AB_LD + col] * s_lo);
-          b_r[j][1] = bf16_round(ys[hi * AB_LD + col] * s_hi);
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int row = wm * 64 + i * 16 + g;
-          const uint32_t a_r[4] = {bf16_round(xs[lo * AB_LD + row]),
-                                   bf16_round(xs[lo * AB_LD + row + 8]),
-                                   bf16_round(xs[hi * AB_LD + row]),
-                                   bf16_round(xs[hi * AB_LD + row + 8])};
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            float part[4] = {0.f, 0.f, 0.f, 0.f};
-            mma_tf32(part, a_r, b_r[j]);
-#pragma unroll
-            for (int e = 0; e < 4; ++e) acc[i][j][e] += part[e];
-          }
-        }
-        continue;
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(AB_LOADER_REGS));
+    if (!XSrc::kGather && threadIdx.x > 0) return;
+    // the loader: thread 0 issues TMA boxes of 32 rows x 32 columns; with a
+    // gathered X all 128 threads copy its rows
+    int taps[4] = {0, 0, 0, 0};  // the tap of each box's column (ConvTaps)
+    if constexpr (XSrc::kGather)
+      for (int b = 0; b < 4; ++b) taps[b] = (m0 + 32 * b + 4 * (threadIdx.x % 8)) / x_at.hidden;
+    for (int it = 0; it < ktiles; ++it) {
+      const int s = it % S;
+      if (it >= S) mbar_wait_or_trap(empty + 8 * s, (it / S - 1) & 1);
+      const int k0 = k_begin + it * AB_BK;
+      const uint32_t xs = smem_addr(xs_of(s)), ys = xs + AB_ROWS_BYTES;
+      if (threadIdx.x == 0) {
+        mbar_expect_tx(full + 8 * s, XSrc::kGather ? AB_ROWS_BYTES : 2 * AB_ROWS_BYTES);
+        for (int b = 0; b < AB_BN / 32; ++b)
+          tma_load_2d(ys + b * 4096, &map_y, n0 + 32 * b, k0, full + 8 * s);
+        if constexpr (!XSrc::kGather)
+          for (int b = 0; b < AB_BM / 32; ++b)
+            tma_load_2d(xs + b * 4096, &map_x, m0 + 32 * b, k0, full + 8 * s);
       }
-      uint32_t b_big[4][2], b_small[4][2];
+      if constexpr (XSrc::kGather)
+        ab_gather_rows(x_at, k0, k_end, m0, m, taps, xs_of(s), full + 8 * s);
+    }
+    return;
+  }
+
+  // consumers: warpgroup cw owns rows 64cw..64cw+63 of the tile (X's columns),
+  // as two 64-column halves. Stage it's products (into fresh partials, which
+  // join the fp32 accumulators with a rounded add once they retire) run while
+  // both warpgroups write stage it + 1's operand buffer from its rows, each
+  // its share, and release the rows; a barrier of the two ends each stage.
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(AB_CONSUMER_REGS));
+  const int cw = threadIdx.x / 128 - 1, tid = threadIdx.x % 128;
+  const int warp = tid / 32, lane = tid % 32, g = lane >> 2, t = lane & 3;
+  const int r = cw * 64 + warp * 16 + g;  // this thread's rows r and r + 8 of the tile
+  float acc[64], p[2][32];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = wn * 32 + j * 8 + g;
-        tf32_split(ys[lo * AB_LD + col] * s_lo, b_big[j][0], b_small[j][0]);
-        tf32_split(ys[hi * AB_LD + col] * s_hi, b_big[j][1], b_small[j][1]);
-      }
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+
+  // Stage it's rows into operand buffer it % 2, rows past the chunk as zeros,
+  // dY's rows times their factors; bf16: then the rows are released (3xTF32:
+  // once this thread's Xᵀ fragments are read from them).
+  auto convert = [&](int it) {
+    const int s = it % S, k0 = k_begin + it * AB_BK, valid = k_end - k0;
+    const float f_lane = scale && lane < valid ? scale[(k0 + lane) / rows_per_scale] : 1.f;
+    mbar_wait_or_trap(full + 8 * s, (it / S) & 1);
+    const float* xs = xs_of(s);
+    const float* ys = xs + AB_ROWS_BYTES / 4;
+    unsigned char* ops = ops_smem + (it % 2) * L::kOps;
+    if constexpr (kBf16) {
+      // this warpgroup's 64 columns of X (into Xᵀ's atom cw) and of dY (into
+      // s ⊙ dY's atom cw): thread tid takes columns 64cw + 4(tid % 16).. of
+      // rows tid / 16 + 8i
+      const int q = tid % 16, col = 64 * cw + 4 * q;
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        const int row = wm * 64 + i * 16 + g;
-        uint32_t a_big[4], a_small[4];
-        tf32_split(xs[lo * AB_LD + row], a_big[0], a_small[0]);
-        tf32_split(xs[lo * AB_LD + row + 8], a_big[1], a_small[1]);
-        tf32_split(xs[hi * AB_LD + row], a_big[2], a_small[2]);
-        tf32_split(xs[hi * AB_LD + row + 8], a_big[3], a_small[3]);
-        // each 8-deep step's three products into a fresh partial, added to
-        // acc rounded (the tensor cores round toward zero: see gemm_tc_kernel)
+        const int k = tid / 16 + 8 * i;
+        const float f = __shfl_sync(0xffffffffu, f_lane, k);
+        float4 vx = ld4(xs + ab_at(k, col)), vy = ld4(ys + ab_at(k, col));
+        if (scale) vy = make_float4(vy.x * f, vy.y * f, vy.z * f, vy.w * f);
+        if (k >= valid) vx = vy = make_float4(0.f, 0.f, 0.f, 0.f);
+        const int off = cw * (AB_BK * 128) + k * 128 + (((q / 2) ^ (k % 8)) * 16) + (q % 2) * 8;
+        *reinterpret_cast<uint2*>(ops + off) = make_uint2(pack_bf16(vx.x, vx.y),
+                                                          pack_bf16(vx.z, vx.w));
+        *reinterpret_cast<uint2*>(ops + AB_BK * AB_BM * 2 + off) =
+            make_uint2(pack_bf16(vy.x, vy.y), pack_bf16(vy.z, vy.w));
+      }
+    } else {
+      // lane k transposes dY's row k, times its factor, into the K-major
+      // halves: this warp's n-quads 16cw + 4warp + u of the row to rows
+      // 4q..4q+3 of both tiles
+      const int k = lane;
+      uint32_t* big = reinterpret_cast<uint32_t*>(ops);
+      uint32_t* small = big + AB_BN * AB_BK;
+#pragma unroll 2  // fully unrolled it spilled
+      for (int u = 0; u < 4; ++u) {
+        const int q = 16 * cw + 4 * warp + u;
+        const float4 v = ld4(ys + ab_at(k, 4 * q));
+        const float e4[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          float part[4] = {0.f, 0.f, 0.f, 0.f};
-          mma_3xtf32(part, a_big, a_small, b_big[j], b_small[j]);
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[i][j][e] += part[e];
+        for (int e = 0; e < 4; ++e) {
+          const int nn = 4 * q + e;
+          const int at = nn * AB_BK + (k ^ ((nn % 8) * 4));  // chunk k/4 ^ (nn % 8)
+          tf32_split(k < valid ? e4[e] * f_lane : 0.f, big[at], small[at]);
         }
       }
     }
-  }
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    if constexpr (kBf16) release<S>(empty, s);  // 3xTF32: X's rows are read next
+  };
 
-  // accumulator e of (i, j): row wm*64 + 16i + g + 8(e/2), column wn*32 + 8j + 2t + e%2
+  if (ktiles > 0) {
+    convert(0);
+    consumers_sync();
+  }
+  for (int it = 0; it < ktiles; ++it) {
+    const uint32_t ops = base + (it % 2) * L::kOps;
+    if constexpr (kBf16) {
+      const uint64_t da = mn_sw128_desc(ops + cw * (AB_BK * 128));
+      const uint64_t db = mn_sw128_desc(ops + AB_BK * AB_BM * 2);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+        const uint64_t dbh = db + h * (AB_BK * 128 >> 4);
+        wgmma_m64n64k16_bf16_mn(p[h], da, dbh, 0);
+        wgmma_m64n64k16_bf16_mn(p[h], da + (2048 >> 4), dbh + (2048 >> 4), 1);
+        asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      }
+    } else {
+      // Xᵀ's fragments of steps j0, j0 + 1 (step j: (r, 8j+t), (r+8, 8j+t),
+      // (r, 8j+t+4), (r+8, 8j+t+4)) split into TF32 halves, then their
+      // products for both halves; the stage in two such passes, the second
+      // once the first's retired (two steps' fragments in registers, not four)
+      const float* xs = xs_of(it % S);
+      const int valid = k_end - k_begin - it * AB_BK;
+      const uint64_t db = sw128_desc(ops);
+      const uint64_t ds = db + (AB_BN * AB_BK * 4 >> 4);
+      uint32_t fb[2][4], fsm[2][4];
+#pragma unroll
+      for (int j0 = 0; j0 < 4; j0 += 2) {
+        if (j0 > 0) asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+          const int k_lo = 8 * (j0 + jj) + t, k_hi = k_lo + 4;
+          const float x4[4] = {k_lo < valid ? xs[ab_at(k_lo, r)] : 0.f,
+                               k_lo < valid ? xs[ab_at(k_lo, r + 8)] : 0.f,
+                               k_hi < valid ? xs[ab_at(k_hi, r)] : 0.f,
+                               k_hi < valid ? xs[ab_at(k_hi, r + 8)] : 0.f};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) tf32_split(x4[e], fb[jj][e], fsm[jj][e]);
+        }
+        if (j0 > 0) release<S>(empty, it % S);  // X's rows read
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+          for (int jj = 0; jj < 2; ++jj) {
+            const int j = j0 + jj;
+            const uint64_t off = 2 * j + h * kHalf;  // 8 deep: 32 bytes; 64 rows of n: kHalf
+            if (j == 0)
+              wgmma_m64n64k8_tf32_first(p[h], fsm[jj], db + off);
+            else
+              wgmma_m64n64k8_tf32(p[h], fsm[jj], db + off);
+            wgmma_m64n64k8_tf32(p[h], fb[jj], ds + off);
+            wgmma_m64n64k8_tf32(p[h], fb[jj], db + off);
+          }
+          asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+        }
+      }
+    }
+    // the next stage's operands under the products: bf16 under both halves;
+    // 3xTF32 under the second, once the first's partial has joined acc
+    // (under both, its transposition spilled at 232 registers)
+    if (kBf16 && it + 1 < ktiles) convert(it + 1);
+    asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+    fence_regs(p[0]);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] += p[0][i];
+    if (!kBf16 && it + 1 < ktiles) convert(it + 1);
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    fence_regs(p[1]);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[32 + i] += p[1][i];
+    consumers_sync();
+  }
+
+  // accumulator 32h + i: column 64h + 8(i/4) + 2t + (i%2), row r + 8((i/2)%2)
   float* out = part + (size_t)blockIdx.z * m * n;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = m0 + wm * 64 + i * 16 + g;
+  for (int h = 0; h < 2; ++h)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = n0 + wn * 32 + j * 8 + 2 * t;
-      if (col >= n) continue;  // n is even: col + 1 < n with it
+    for (int j = 0; j < 8; ++j) {
+      const int col = n0 + 64 * h + 8 * j + 2 * t, row = m0 + r;
+      if (col >= n) continue;  // n % 4 == 0: col + 1 < n with it
+      const float* a = acc + 32 * h + 4 * j;
       if (row < m)
-        *reinterpret_cast<float2*>(out + (size_t)row * n + col) =
-            make_float2(acc[i][j][0], acc[i][j][1]);
+        *reinterpret_cast<float2*>(out + (size_t)row * n + col) = make_float2(a[0], a[1]);
       if (row + 8 < m)
-        *reinterpret_cast<float2*>(out + (size_t)(row + 8) * n + col) =
-            make_float2(acc[i][j][2], acc[i][j][3]);
+        *reinterpret_cast<float2*>(out + (size_t)(row + 8) * n + col) = make_float2(a[2], a[3]);
     }
-  }
 }
 
 // part (splits, m, n): chunk z of Xᵀ · (dY * scale[row / rows_per_scale])
 // over rows [z·k_split, (z+1)·k_split), k_split a multiple of 32; X (rows,
-// m) through x_at (DenseRows, 16-byte aligned, or the conv's ConvTaps), dY
-// (rows, n) row-major, 16-byte aligned; m and n multiples of 4. kBf16: the
-// bf16 mode (X and the scaled dY rounded to bf16).
-template <bool kBf16 = false, class XSrc>
-inline cudaError_t launch_gemm_atb(XSrc x_at, const float* dy, const float* scale,
-                                   int rows_per_scale, float* part, int m, int n, int rows,
-                                   int splits, cudaStream_t stream) {
+// m) row-major (x, DenseRows) or the conv's taps (ConvTaps, x_at), dY (rows,
+// n) row-major; both 16-byte aligned with m and n multiples of 4 (TMA's
+// 16-byte rows). kBf16: the bf16 mode (X and the scaled dY rounded to bf16).
+template <bool kBf16, class XSrc>
+inline cudaError_t launch_atb(const float* x, XSrc x_at, const float* dy, const float* scale,
+                              int rows_per_scale, float* part, int m, int n, int rows,
+                              int splits, cudaStream_t stream) {
   if (m <= 0 || n <= 0 || rows <= 0 || splits <= 0 || splits > 65535 || m % 4 || n % 4 ||
-      (scale && rows_per_scale <= 0) || reinterpret_cast<uintptr_t>(dy) % 16)
+      (scale && rows_per_scale <= 0) || !aligned16(dy) || !aligned16(x))
     return cudaErrorInvalidValue;
   if ((m + AB_BM - 1) / AB_BM > 65535) return cudaErrorInvalidValue;
   int k_split = (rows + splits - 1) / splits;
   k_split = (k_split + AB_BK - 1) / AB_BK * AB_BK;
-  const cudaError_t err = cudaFuncSetAttribute(
-      gemm_atb_kernel<XSrc, kBf16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      AB_SMEM_BYTES);
+  CUtensorMap map_x, map_y;
+  memset(&map_x, 0, sizeof(map_x));
+  if (!make_tile_map(&map_y, dy, rows, n, AB_BK) ||
+      (!XSrc::kGather && !make_tile_map(&map_x, x, rows, m, AB_BK)))
+    return cudaErrorInvalidValue;
+  auto kernel = gemm_atb_kernel<XSrc, kBf16>;
+  constexpr int smem = AbLayout<kBf16>::kSmem;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((n + AB_BN - 1) / AB_BN, (m + AB_BM - 1) / AB_BM, splits);
-  gemm_atb_kernel<XSrc, kBf16><<<grid, AB_THREADS, AB_SMEM_BYTES, stream>>>(
-      x_at, dy, scale, rows_per_scale, part, m, n, rows, k_split);
+  kernel<<<grid, AB_THREADS, smem, stream>>>(map_x, map_y, x_at, scale, rows_per_scale, part, m,
+                                             n, rows, k_split);
   return cudaGetLastError();
+}
+
+// X (rows, m) row-major.
+template <bool kBf16 = false>
+inline cudaError_t launch_gemm_atb(const float* x, const float* dy, const float* scale,
+                                   int rows_per_scale, float* part, int m, int n, int rows,
+                                   int splits, cudaStream_t stream) {
+  return launch_atb<kBf16>(x, DenseRows{}, dy, scale, rows_per_scale, part, m, n, rows, splits,
+                           stream);
+}
+
+// X the conv's taps gathered from h1 (ConvTaps).
+template <bool kBf16 = false, class Gather>
+inline cudaError_t launch_gemm_atb_gather(Gather x_at, const float* dy, const float* scale,
+                                          int rows_per_scale, float* part, int m, int n,
+                                          int rows, int splits, cudaStream_t stream) {
+  return launch_atb<kBf16>(x_at.h1, x_at, dy, scale, rows_per_scale, part, m, n, rows, splits,
+                           stream);
 }
 
 }  // namespace uu

@@ -25,7 +25,7 @@
 //                     per tap in tap order, each adding into what the one
 //                     before wrote, so rows several taps read sum in a fixed
 //                     order. Rows no tap reads stay 0.
-//   strided_dwc_f32   dWc = T^T . g: gemm_atb_kernel (mma.sync) with X
+//   strided_dwc_f32   dWc = T^T . g: gemm_atb_kernel (wgmma) with X
 //                     gathered from h1, split over the selected rows into
 //                     partials that sum_rows_f32 adds in a fixed order.
 //   crop_residual_add_f32  the residual: dx2[s0*t + (p0 == 0)] += g[t].
@@ -164,9 +164,10 @@ int dwc_entry(const float* h1, const float* g, float* part, int windows, int n, 
   if (!geometry_ok(windows, n, hidden, c, stride, p0, n_out) ||
       reinterpret_cast<uintptr_t>(h1) % 16)
     return cudaErrorInvalidValue;
-  return uu::launch_gemm_atb<kBf16>(uu::ConvTaps{h1, windows, n, hidden, n_out, stride, p0}, g,
-                                    nullptr, 1, part, 3 * hidden, c, windows * n_out, splits,
-                                    (cudaStream_t)stream);
+  return uu::launch_gemm_atb_gather<kBf16>(uu::ConvTaps{h1, windows, n, hidden, n_out, stride,
+                                                      p0},
+                                           g, nullptr, 1, part, 3 * hidden, c, windows * n_out,
+                                           splits, (cudaStream_t)stream);
 }
 
 }  // namespace

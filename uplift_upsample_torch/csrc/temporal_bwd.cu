@@ -34,12 +34,14 @@
 // error): the forward's and dX on the persistent TMA + wgmma kernel, with
 // W's halves split once per step when the operands are stacked (dX reads W
 // as stored, which is the K-major layout wgmma wants); dW = X^T . dY, whose
-// operands are both MN-major, on mma.sync (gemm_atb_kernel).
+// operands are both MN-major, on wgmma too (gemm_atb_kernel: bulk copies of
+// the rows, converter warps writing the operand tiles the tensor cores read).
 //
 // The bf16 rung (TRAIN_MATMUL_PRECISION "default" and "mixed";
 // pallas_temporal_bwd.py at DEFAULT, where every dot rounds both operands):
 // each product's bf16 instance, one TF32 pass on bf16-rounded operands with
-// fp32 sums (tf32.cuh), reading W's bf16 plane for the dense layers:
+// fp32 sums (tf32.cuh; dW native bf16 wgmma), reading W's bf16 plane for the
+// dense layers:
 //   gemm_branch_bf16  the forward's scaled branch (gemm_tc.cuh kBf16)
 //   window_attention_train_bf16  the forward's attention (attention.cuh QS:
 //                     q·1/sqrt(D) rounded, as the training kernel scales q
@@ -691,18 +693,16 @@ extern "C" int gemm_dx_bf16(const float* a, const float* scale, int rows_per_sca
 extern "C" int gemm_dw_f32(const float* x, const float* dy, const float* scale,
                            int rows_per_scale, float* part, int m, int n, int rows,
                            int splits, void* stream) {
-  if (reinterpret_cast<uintptr_t>(x) % 16) return cudaErrorInvalidValue;
-  return uu::launch_gemm_atb(uu::DenseRows{x, m}, dy, scale, rows_per_scale, part, m, n, rows,
-                             splits, (cudaStream_t)stream);
+  return uu::launch_gemm_atb(x, dy, scale, rows_per_scale, part, m, n, rows, splits,
+                             (cudaStream_t)stream);
 }
 
 // gemm_dw_f32 on the bf16 rung: x and dy * scale rounded to bf16.
 extern "C" int gemm_dw_bf16(const float* x, const float* dy, const float* scale,
                             int rows_per_scale, float* part, int m, int n, int rows,
                             int splits, void* stream) {
-  if (reinterpret_cast<uintptr_t>(x) % 16) return cudaErrorInvalidValue;
-  return uu::launch_gemm_atb<true>(uu::DenseRows{x, m}, dy, scale, rows_per_scale, part, m, n,
-                                   rows, splits, (cudaStream_t)stream);
+  return uu::launch_gemm_atb<true>(x, dy, scale, rows_per_scale, part, m, n, rows, splits,
+                                   (cudaStream_t)stream);
 }
 
 // part (ceil(rows / 256), cols): column sums of x * scale[row / rows_per_scale]

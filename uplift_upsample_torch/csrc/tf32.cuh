@@ -6,8 +6,7 @@
 // small enters truncated to TF32; with the dropped small·small term that
 // leaves an error of about 2^-21 of each product, near fp32's own rounding,
 // where one TF32 pass keeps 10 bits. Shared by the window attention
-// (attention.cuh, mma.sync) and the tensor-core GEMMs (gemm_tc.cuh: wgmma
-// for A·B, mma.sync for the backward's Xᵀ·dY).
+// (attention.cuh, mma.sync) and the tensor-core GEMMs (gemm_tc.cuh, wgmma).
 //
 // The bf16 mode (the TPU's one-pass DEFAULT precision, a compile-time
 // choice of each kernel that takes it): each operand rounded to bf16

@@ -16,7 +16,7 @@ tensor it is `TemporalStackTrain`:
     as `_fts_impl_bwd` does.
 Every product runs on the tensor cores in 3xTF32 (`csrc/gemm_tc.cuh`): the
 forward's and dX = dY·Wᵀ on TMA + wgmma from W's halves, dW = Xᵀ·dY on
-mma.sync, split over the rows; the window attention's backward
+wgmma too (`gemm_atb_kernel`), split over the rows; the window attention's backward
 (`window_attention_bwd`, also K6's) on mma.sync in `csrc/temporal_bwd.cu`.
 Launches count as "temporal_train_fwd" and "temporal_train_bwd".
 
@@ -29,7 +29,8 @@ for dY·Wᵀ) in place of the halves: `gemm_bf16` and `gemm_branch_bf16`
 forward; `window_attention_train_bf16`, whose logits round q·1/sqrt(D) (the
 training kernel scales q before its dot; the eval's `window_attention_bf16`
 rounds q and scales the logits); `gemm_dx_bf16` (dY scaled by the droppath
-factor, then rounded), `gemm_dw_bf16` and `window_attention_bwd_bf16`
+factor, then rounded), `gemm_dw_bf16` (bf16 wgmma on the rounded
+operands) and `window_attention_bwd_bf16`
 (dP = round(dO)·round(v), dv = round(P)ᵀ·round(dO), dq = round(dS)·round(k)
 then 1/sqrt(D), dk = round(dS)ᵀ·round(q·1/sqrt(D))). LayerNorm, softmax,
 relu, biases, the droppath scales, residuals and every sum stay fp32. On a
@@ -53,7 +54,7 @@ COUNTER_FWD = "temporal_train_fwd"
 COUNTER_BWD = "temporal_train_bwd"
 ORDER = ["ln1_g", "ln1_b", "wqkv", "bqkv", "wp", "bp", "ln2_g", "ln2_b",
          "w1", "b1", "w2", "b2"]
-_TARGET_BLOCKS = 264  # split-K dW: one wave of two blocks on each of 132 SMs
+_TARGET_BLOCKS = 264  # split-K dW: two waves of one block on each of 132 SMs
 
 
 def _empty(shape, like: torch.Tensor) -> torch.Tensor:
@@ -167,9 +168,15 @@ def gemm_dx(dy, scale, rows_per_scale, w_tc_dx, mask=None, counter=COUNTER_BWD,
 
 
 def dw_splits(rows: int, m: int, n: int) -> int:
-    """Row chunks of a split-K dW product (m, n) over `rows` on `gemm_dw_f32`'s
-    128 x 128 tiles: as many as one wave of blocks holds (two per SM), at
-    least 256 rows a chunk."""
+    """Row chunks of a split-K dW product (m, n) over `rows` on
+    `gemm_atb_kernel`'s 128 x 128 tiles, one block per SM: as many as two
+    waves hold, at least 256 rows a chunk. A block's time goes with its
+    chunk's stages, so two waves of half chunks take as long as one wave
+    where the tiles fill 132 SMs evenly, and less where they do not: at the
+    train step's 36,352 rows qkv's 27 tiles run 9 chunks of 127 stages
+    (2 x 127 = 254 stage times) against one wave's 4 of 284; fc1, fc2, proj
+    and dWc come out even. The same chunks as the mma.sync kernel's (two
+    blocks per SM, one wave)."""
     tiles = math.ceil(m / 128) * math.ceil(n / 128)
     return max(1, min(64, _TARGET_BLOCKS // tiles, rows // 256))
 

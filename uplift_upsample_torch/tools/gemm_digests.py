@@ -1,4 +1,4 @@
-"""Digests and times of every caller of the tensor-core GEMM (`csrc/gemm_tc.cuh`).
+"""Digests and times of every caller of the tensor-core GEMMs (`csrc/gemm_tc.cuh`).
 
     python -m uplift_upsample_torch.tools.gemm_digests [--parent DIR] [--seed 0]
                                                       [--rounds 3]
@@ -18,11 +18,22 @@ numpy with a fixed seed; the weights' TF32 halves and bf16 planes are made
 on the host (`tf32_halves_plain`, `round_bf16`), so they do not depend on
 the build under test.
 
+`gemm_atb_kernel` (the backward's weight gradients, split over the rows and
+summed in a fixed order) serves two more C entries, each in both modes: K5's
+dW (`gemm_dw_f32`) of qkv, proj, fc1 and fc2 at the train step's 36,352
+rows, proj's and fc2's dY with the per-window row scale as the step passes
+them, and K6's dWc (`strided_dwc_f32`, the taps gathered from h1) at
+h36m_351's stride 3, paddings (0, 0), 512 windows, and at h36m_81's stride
+4, paddings (1, 1), 256 windows. Their splits are `dw_splits`' and their
+digest is that of the summed gradient (`sum_rows_f32` after the launch).
+
 A case's digest is the sha256 of its outputs' bytes. `GEMM_DIGESTS` holds
-the digests of the build before the pipelined kernel (NVIDIA H100 80GB
-HBM3, nvcc 12.9, sm_90a): a redesign that keeps every output's sum in the
-same order gives the same bits. `PARENT_MS` holds that build's time of each
-case on the same card at 700 W (CUDA events, 10 launches after 2).
+the digests of gemm_tc_kernel's callers from the build before its pipeline
+(NVIDIA H100 80GB HBM3, nvcc 12.9, sm_90a): a redesign that keeps every
+output's sum in the same order gives the same bits. `DW_DIGESTS` holds
+those of gemm_atb_kernel's callers (see there). `PARENT_MS` holds each
+case's time in the build before that kernel's redesign, on the same card at
+700 W (CUDA events, 10 launches after 2).
 
 Prints one line per case (digest, equal to `GEMM_DIGESTS` or not, a second
 call bit-identical or not, ms) and, with `--parent DIR` (a copy of an
@@ -118,12 +129,60 @@ PARENT_MS: Dict[str, float] = {
     "dh1 s3_bf16": 0.5003,
     "dh1 s2_bf16": 1.1473,
     "s2t_bf16": 0.3505,
+    # gemm_atb_kernel's callers: the mma.sync build
+    "dw qkv": 0.6772,
+    "dw proj": 0.2275,
+    "dw fc1": 0.4447,
+    "dw fc2": 0.4484,
+    "dwc 351": 0.5665,
+    "dwc 81": 0.1482,
+    "dw qkv_bf16": 0.3962,
+    "dw proj_bf16": 0.1407,
+    "dw fc1_bf16": 0.2601,
+    "dw fc2_bf16": 0.2637,
+    "dwc 351_bf16": 0.3672,
+    "dwc 81_bf16": 0.0989,
 }
+
+# sha256 of each gemm_atb_kernel caller's summed gradient from the wgmma build
+# (NVIDIA H100 80GB HBM3, nvcc 12.9, sm_90a). Both modes' sums differ from the
+# mma.sync build's by design: a partial per 32-deep stage, not per 8-deep
+# step (3xTF32), and bf16 k16 products (bf16); `PARENT_MS` and PERF.md keep
+# that build's times and digests.
+DW_DIGESTS: Dict[str, str] = {
+    "dw qkv":
+        "aa436d8d14a3dfa39e116af772c7ac19f29ba4d427df0b2eeb920e18b3f6bf41",
+    "dw proj":
+        "4b59e726d189381b11a6298bf4b2d6b7eb71edd894985fb9514a3af766472e3f",
+    "dw fc1":
+        "90f328a0779c9358a01a4d2561d6cc87a79e526d5f0f7eeb171ba91ef83f8173",
+    "dw fc2":
+        "135303314cf04cb11691a4e7d4ff619aa6beba23a283e55862525a0ea0f72ee8",
+    "dwc 351":
+        "3c0f2796c9ea38271477ee7044db024450989121492299d305f8c37203f1cbbe",
+    "dwc 81":
+        "8f99ba97cd5a54c3cbf4df968a07d37c2510103de1be4b4f7966360222444401",
+    "dw qkv_bf16":
+        "7cbc8420891af7f4e7901cb0ba8068d6f2a8f5ecb5437fef2f728173a34f1ae4",
+    "dw proj_bf16":
+        "bc3805e23a847ad348c195d38e5da576642fe8a19fc32d61b4557d89d438ee4f",
+    "dw fc1_bf16":
+        "ee048b4b9d6a9d6a0869687f618e446ff92097dfc9e1179e07e4f87e8b6c645d",
+    "dw fc2_bf16":
+        "b3fb0e1a308b714b79a95391a9d2dc18f08aad225117efe6b306af2309a1153d",
+    "dwc 351_bf16":
+        "25724b075e4e61882188dc1966bb253bd4195da22fbd4f0b2b2d836ff4eaadf4",
+    "dwc 81_bf16":
+        "f27b8e0d677ee05032651b4c88d96711e5132d79f0536065c4a67544edbe3e44",
+}
+
+DIGESTS: Dict[str, str] = {**GEMM_DIGESTS, **DW_DIGESTS}
 
 LIBS = ("temporal", "temporal_bwd", "strided", "strided_bwd", "s2t")
 SERVING, TRAIN = 1024 * 71, 512 * 71  # rows: serving's 1,024 windows, training's 512
 CONV_WINDOWS = (1024, 512)            # the conv at h36m_351's and h36m_81's geometry
 DH1_WINDOWS = 512
+DWC_WINDOWS = (512, 256)              # dWc at h36m_351's and h36m_81's train batch
 C, HID = 384, 768
 
 
@@ -134,6 +193,7 @@ class Case(NamedTuple):
     args: list          # tensors, ints and None, in the C entry's order (the stream appended)
     outputs: list       # tensors hashed after the launch
     reset: Callable     # restores inputs a launch overwrites (the aliased residual)
+    then: tuple = ()    # (lib, fn, args) launched after it: dW's fixed-order sum
 
 
 def _halves(w: np.ndarray, bf16: bool, transpose: bool = True) -> torch.Tensor:
@@ -217,8 +277,50 @@ def cases(seed: int, bf16: bool, dev) -> List[Case]:
     return out
 
 
+def dw_cases(seed: int, bf16: bool, dev) -> List[Case]:
+    """gemm_atb_kernel's callers (names end in "_bf16" in the bf16 mode):
+    the launch into (splits, m, n) partials, then `sum_rows_f32` into dW."""
+    from ..ops.temporal_train import dw_splits
+    rng = np.random.default_rng(seed + (3000 if bf16 else 2000))
+
+    def cuda(x):
+        return torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32)).to(dev)
+
+    def summed(part, m, n):
+        out = torch.empty((m, n), device=dev)
+        return out, (("temporal_bwd", "sum_rows_f32", [part, out, part.shape[0], m * n]),)
+
+    sfx = "_bf16" if bf16 else "_f32"
+    out: List[Case] = []
+    rows, per = TRAIN, 71
+    scale = cuda(np.where(rng.uniform(size=rows // per) < 0.9, 1 / 0.9, 0.0))
+    for name, m, n, scaled in (("qkv", C, 3 * C, False), ("proj", C, C, True),
+                               ("fc1", C, HID, False), ("fc2", HID, C, True)):
+        x = cuda(rng.standard_normal((rows, m), dtype=np.float32) * np.float32(0.5))
+        dy = cuda(rng.standard_normal((rows, n), dtype=np.float32))
+        splits = dw_splits(rows, m, n)
+        part = torch.empty((splits, m, n), device=dev)
+        dw, then = summed(part, m, n)
+        out.append(Case(f"dw {name}" + "_bf16" * bf16, "temporal_bwd", "gemm_dw" + sfx,
+                        [x, dy, scale if scaled else None, per, part, m, n, rows, splits],
+                        [dw], lambda: None, then))
+    for label, b, n, stride, p0 in (("351", DWC_WINDOWS[0], 71, 3, 0),
+                                    ("81", DWC_WINDOWS[1], 41, 4, 1)):
+        n_out = (n + 2 * p0 - 3) // stride + 1
+        h1 = cuda(np.maximum(rng.standard_normal((b * n, HID), dtype=np.float32), 0) * 0.5)
+        g = cuda(rng.standard_normal((b * n_out, C), dtype=np.float32))
+        splits = dw_splits(b * n_out, 3 * HID, C)
+        part = torch.empty((splits, 3 * HID, C), device=dev)
+        dwc, then = summed(part, 3 * HID, C)
+        out.append(Case(f"dwc {label}" + "_bf16" * bf16, "strided_bwd", "strided_dwc" + sfx,
+                        [h1, g, part, b, n, HID, C, stride, p0, n_out, splits], [dwc],
+                        lambda: None, then))
+    return out
+
+
 def all_cases(seed: int, dev) -> List[Case]:
-    return cases(seed, False, dev) + cases(seed, True, dev)
+    return [case for bf16 in (False, True)
+            for case in cases(seed, bf16, dev) + dw_cases(seed, bf16, dev)]
 
 
 def port_libs() -> Dict[str, ctypes.CDLL]:
@@ -251,15 +353,20 @@ def build_libs(csrc: Path, out_dir: Path) -> Dict[str, ctypes.CDLL]:
 
 
 def launcher(libs: Dict[str, ctypes.CDLL], case: Case) -> Callable[[], None]:
-    """One launch of the case's C entry from `libs`; raises on a launch error."""
-    fn = getattr(libs[case.lib], case.fn)
-    cargs = [ctypes.c_void_p(a.data_ptr()) if isinstance(a, torch.Tensor)
-             else ctypes.c_void_p(0) if a is None else a for a in case.args]
+    """One launch of the case's C entry from `libs`, then its `then` launches;
+    raises on a launch error."""
+    steps = [(libs[case.lib], case.fn, case.args)]
+    steps += [(libs[lib], fn, args) for lib, fn, args in case.then]
+    bound = [(getattr(lib, fn), fn, [ctypes.c_void_p(a.data_ptr()) if isinstance(a, torch.Tensor)
+                                     else ctypes.c_void_p(0) if a is None else a for a in args])
+             for lib, fn, args in steps]
 
     def call():
-        err = fn(*cargs, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
-        if err != 0:
-            raise RuntimeError(f"{case.fn}: CUDA error {err} at launch")
+        stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+        for fn, name, cargs in bound:
+            err = fn(*cargs, stream)
+            if err != 0:
+                raise RuntimeError(f"{name}: CUDA error {err} at launch")
     return call
 
 
@@ -295,9 +402,9 @@ def check(libs, parent_libs=None, seed: int = 0, rounds: int = 3, log=print) -> 
     for case in all_cases(seed, torch.device("cuda")):
         first = digest(libs, case)
         again = digest(libs, case)
-        want = GEMM_DIGESTS.get(case.name)
+        want = DIGESTS.get(case.name)
         line = (f"gemm_digests {case.name} ({case.fn}): {first} "
-                f"{'no recorded digest' if want is None else 'equals GEMM_DIGESTS' if first == want else 'DIFFERS FROM GEMM_DIGESTS'}"
+                f"{'no recorded digest' if want is None else 'equals the recorded digest' if first == want else 'DIFFERS FROM THE RECORDED DIGEST'}"
                 f", repeat {'bit-identical' if again == first else 'DIFFERS'}")
         if (want is not None and first != want) or again != first:
             failed.append(case.name)
