@@ -147,7 +147,9 @@ Phases (one line each; any failure ends the run with a non-zero exit):
      5's metrics (every metric within 1 %); (c) `python -m
      uplift_upsample_torch.tools.check_parity --assert-bounds` exits 0;
      (d) the bench CLI at `--precision default` exits 0; (e) K4's output
-     bit for bit against its build before the bf16 mode;
+     at "high" bit for bit against `K4_DIGEST` (re-taken with its
+     block-major walk), K1's at both rungs against its build before that
+     walk;
  12. the training rungs (TRAIN_MATMUL_PRECISION), h36m_351 full width at
      B=512: (a) each bf16 training instance against its plain version at
      the rung (every output within 2x the fp32 plain version's distance to
@@ -2250,8 +2252,9 @@ def bf16_phase(args, torch, np, rng, failed, record, eval_data):
     "high" instance; (b) predict (3 x 3,000 frames, flip-TTA) and the tiled
     route with their launches, and run_eval per mask stride on phase 5's
     data, each against "high"; (c) the drift matrix; (d) the bench CLI at
-    --precision default; (e) K4 bit for bit against its build before the
-    bf16 mode. Returns the launch counts by path."""
+    --precision default; (e) K4 bit for bit against `K4_DIGEST`, K1 at both
+    rungs against its build before K4's block-major walk. Returns the launch
+    counts by path."""
     import torch.nn.functional as F
 
     import uplift_upsample_torch.eval as eval_mod
@@ -2272,7 +2275,8 @@ def bf16_phase(args, torch, np, rng, failed, record, eval_data):
     # the gpu test's K4 case, imported from its directory (an installed
     # package may own the name "tests")
     sys.path.insert(0, os.path.join(ROOT, "tests"))
-    from test_torch_precision_kernels import K4_DIGEST, _k4_outputs, k4_digest
+    from test_torch_precision_kernels import (K1_DIGESTS, K4_DIGEST, _k1_outputs, _k4_outputs,
+                                              k4_digest)
 
     dev = torch.device("cuda")
     f32, f64 = torch.float32, torch.float64
@@ -2548,9 +2552,19 @@ def bf16_phase(args, torch, np, rng, failed, record, eval_data):
     same = all(torch.equal(a, b) for a, b in zip(first, second))
     digest = k4_digest(first)
     log(f"phase 11 K4: bit-identical on repeat {'yes' if same else 'NO'}; digest {digest} "
-        f"{'equals' if digest == K4_DIGEST else 'DIFFERS FROM'} its build before the bf16 mode")
+        f"{'equals' if digest == K4_DIGEST else 'DIFFERS FROM'} K4_DIGEST")
     if not same or digest != K4_DIGEST:
         failed.append("k4_changed")
+    # K1 at both rungs against its build before K4's block-major walk
+    for rung, want in K1_DIGESTS.items():
+        first, second = _k1_outputs(rung), _k1_outputs(rung)
+        same = all(torch.equal(a, b) for a, b in zip(first, second))
+        digest = k4_digest(first)
+        log(f"phase 11 K1 ({rung}): bit-identical on repeat {'yes' if same else 'NO'}; digest "
+            f"{digest} {'equals' if digest == want else 'DIFFERS FROM'} its build before K4's "
+            f"block-major walk")
+        if not same or digest != want:
+            failed.append(f"k1_changed_{rung}")
     return counts
 
 

@@ -52,10 +52,16 @@ Builds patched copies of `csrc/` under `uplift_upsample_torch/_build/probe/`
   384, 8 heads, a key mask, beside SDPA's backward): the kernel; "no
   products" (no mma.sync, so no splits either); "no splits"; "no gradient
   writes" (dq, dk, dv computed, not stored);
-- K4 (`spatial_bwd.cu`'s spatial_bwd_f32 at the train step's 25,600
-  keyframes, C = 32, 4 blocks, random weights from the seed): the kernel;
-  "no products"; "no splits"; "no gradient writes" (no read-modify-write
-  of dW in the gradient rows); "no attention backward";
+- K4 (`spatial_bwd.cu`'s spatial_bwd_f32 and spatial_bwd_bf16 at the train
+  step's 25,600 keyframes, C = 32, 4 blocks, random weights from the seed;
+  3 rounds of 20 launches per variant, taken in turn): the kernel; "no
+  products"; "no splits"; "no gradient writes" (no read-modify-write of dW
+  in the gradient rows, or in shared memory on the bf16 rung); "no
+  attention backward"; "staged once" (block 0's weights only: the cost of
+  staging); "no checkpoints" (the scratch's slices neither saved nor
+  restored); with `--parent DIR` also "parent", DIR's K4 timed in turn
+  (parent, kernel, ..., kernel, parent) with both builds' digests, and K1
+  from both builds (digests, equal or not);
 - K1 (`spatial.cu`'s spatial_stack_f32, C = 32, 4 blocks, random weights
   from the seed) at serving (72,704 frames), the train step (25,600
   keyframes, droppath scales) and the eval shared step (3,072 frames): the
@@ -168,23 +174,43 @@ _MMA = "      uu::mma_3xtf32(part, ab, as, bb, bs);\n"
 # rows_gemm's products (spatial_common.cuh): a running sum, fresh partials
 _RUNNING = "        uu::mma_3xtf32(acc[j], ab, as, bb, bs);\n"
 _FRESH = "        uu::mma_3xtf32(part, ab, as, bb, bs);\n"
+_RUNNING1 = "        uu::mma_tf32(acc[j], ab, bb);\n"  # the bf16 mode's
+_MMA1 = "        uu::mma_tf32(part, ab, bb);\n"
 _DW = [("*out(i, o + 8 * u)", 0), ("*out(i, o + 8 * u + 1)", 1), ("*out(i + 8, o + 8 * u)", 2),
        ("*out(i + 8, o + 8 * u + 1)", 3)]
-_DW_STORES = "".join(f"      {ref} = old[u][{e}] + acc[u][{e}];\n" for ref, e in _DW)
-_DW_LOADS = "".join(f"      old[u][{e}] = {ref};\n" for ref, e in _DW)
+_DW_STORES = "".join(f"    {ref} = old[u][{e}] + acc[u][{e}];\n" for ref, e in _DW)
+_DW_LOADS = "".join(f"    old[u][{e}] = {ref};\n" for ref, e in _DW)
 K4 = {
     "kernel": [],
-    "no products": [("spatial_bwd.cu", _MMA, ""), ("spatial_common.cuh", _FRESH, "")],
+    "no products": [("spatial_bwd.cu", _MMA, ";\n"), ("spatial_bwd.cu", _MMA1, ";\n"),
+                    ("spatial_common.cuh", _FRESH, ""), ("spatial_common.cuh", _RUNNING, ""),
+                    ("spatial_common.cuh", _RUNNING1, "")],
     "no splits": NO_SPLITS,
     "no gradient writes": [  # dW's read-modify-writes of the gradient row
         ("spatial_bwd.cu", _DW_STORES,
-         "      " + _SINK.format("acc[u][0] + acc[u][1] + acc[u][2] + acc[u][3]")
+         "    " + _SINK.format("acc[u][0] + acc[u][1] + acc[u][2] + acc[u][3]")
          + "*out(i, o) = 0.f;\n"),
         ("spatial_bwd.cu", _DW_LOADS,
-         "      old[u][0] = old[u][1] = old[u][2] = old[u][3] = 0.f;\n")],
+         "    old[u][0] = old[u][1] = old[u][2] = old[u][3] = 0.f;\n")],
     "no attention backward": [
         ("spatial_bwd.cu", "      attention_bwd<C>(QKV_C, CTX, DQ, ST, nf, scale);\n", "")],
+    # block 0's weights only, staged at its passes: the cost of staging
+    "staged once": [("spatial_bwd.cu", "    sp::BlockWeights<C, THREADS> bwts;\n",
+                     "    if (blk == 0) {\n    sp::BlockWeights<C, THREADS> bwts;\n"),
+                    ("spatial_bwd.cu", "    bwts.template store<BF16>(WQKV);",
+                     "    bwts.template store<BF16>(WQKV);\n    }")],
+    # the checkpoints' and contexts' saves and restores through the scratch
+    "no checkpoints": [("spatial_bwd.cu", "auto save = [&](float* dst, const float* src) {\n"
+                        "    for (int e = threadIdx.x; e < R * C / 4;",
+                        "auto save = [&](float* dst, const float* src) {\n"
+                        "    for (int e = threadIdx.x; e < 0;"),
+                       ("spatial_bwd.cu", "auto restore = [&](float* dst, const float* src) {\n"
+                        "    for (int e = threadIdx.x; e < R * C / 4;",
+                        "auto restore = [&](float* dst, const float* src) {\n"
+                        "    for (int e = threadIdx.x; e < 0;")],
 }
+# the entries K4's probe times: the 3xTF32 instance ("high") and the bf16 rung
+K4_ENTRIES = (("spatial_bwd_f32", "high"), ("spatial_bwd_bf16", "default"))
 # K1: its accumulation against K4's (A/B), then without its parts
 K1_AB = {
     "kernel": [],
@@ -319,7 +345,8 @@ def main(argv=None) -> int:
     parser.add_argument("--parent", default=None,
                         help="a copy of an earlier csrc/: 'short' times its "
                              "packed_attention_f32 beside the kernels, 'dense' every "
-                             "caller of gemm_tc_kernel")
+                             "caller of gemm_tc_kernel, 'k4' its K4 in turn with this "
+                             "build's (and K1's digests from both)")
     args = parser.parse_args(argv)
     import torch
     import torch.nn.functional as F
@@ -352,6 +379,12 @@ def main(argv=None) -> int:
     if "short" in only and args.parent:
         builds["short", "parent"] = start_build(cuda_lib, "short parent", "attention", [],
                                                 csrc=os.path.abspath(args.parent))
+    if "k4" in only and args.parent:
+        builds["k4", "parent"] = start_build(cuda_lib, "k4 parent", "spatial_bwd", [],
+                                             csrc=os.path.abspath(args.parent))
+        builds["k4", "k1 kernel"] = start_build(cuda_lib, "k4 k1 kernel", "spatial", [])
+        builds["k4", "k1 parent"] = start_build(cuda_lib, "k4 k1 parent", "spatial", [],
+                                                csrc=os.path.abspath(args.parent))
     for key, (proc, _) in builds.items():
         _, report = proc.communicate()
         if proc.returncode != 0:
@@ -359,7 +392,8 @@ def main(argv=None) -> int:
         # registers and spills of each K1 accumulation, each short variant and
         # each dW kernel as it is
         if ((key[0] == "k1" and key[1] in K1_AB) or key[0] == "short"
-                or (key[0] in DW_GROUPS and key[1] == "kernel")):
+                or (key[0] in DW_GROUPS and key[1] == "kernel")
+                or (key[0] == "k4" and key[1] in ("kernel", "parent"))):
             for kernel, line in ptxas_report(report):
                 print(f"ptxas {key[0]} {key[1]}, {kernel}: {line}", flush=True)
 
@@ -626,7 +660,13 @@ def probe_attention_bwd(torch, F, builds, rand, rng, dev, stream):
 
 def probe_spatial_bwd(torch, builds, rand, seed, dev, stream):
     """K4 at the train step's keyframe budget (25,600 frames, C = 32, 4 blocks,
-    8 heads of 4), random weights from the seed."""
+    8 heads of 4), random weights from the seed, at both rungs (the 3xTF32
+    instance and the bf16 rung): every variant, 3 rounds taken in turn; with
+    a parent build (`--parent`) the rounds run parent, kernel, the variants,
+    kernel, parent, and both builds' output digests are printed (differing
+    bits are reported, not raised); then K1's outputs from both builds."""
+    import hashlib
+
     from chip_smoke import time_ms
     from uplift_upsample_torch.configs import get_config
     from uplift_upsample_torch.models import build_uplift_upsample_transformer
@@ -643,30 +683,83 @@ def probe_spatial_bwd(torch, builds, rand, seed, dev, stream):
     gen = torch.Generator().manual_seed(seed)
     rates = [config.DROP_PATH_RATE[0] * i / (blocks - 1) for i in range(blocks)]
     sc = make_droppath_scales(gen, rates, f).to(dev)
-    _, ref_dx, _ = spatial_stack_bwd_plain(x, ops, sc, g, num_heads=heads)
-    for name in K4:
-        path = builds["k4", name][1]
-        workers = bind(path, "spatial_bwd_workers", 0, 0)
-        workers.argtypes = [ctypes.c_int] * 4
-        rows = workers(c, c // heads, blocks, f)
-        scratch_floats = bind(path, "spatial_bwd_scratch_floats", 0, 0)
-        scratch_floats.argtypes = [ctypes.c_int] * 2
-        if rows <= 0:
-            raise RuntimeError(f"k4 {name}: spatial_bwd_workers returned {rows}")
-        fn = bind(path, "spatial_bwd_f32", 8, 5)
-        dx = torch.empty_like(x)
-        ddp = torch.empty((2 * blocks, f), device=dev)
-        partial = torch.empty((rows, packed.numel()), device=dev)
-        scratch = torch.empty((rows, scratch_floats(c, blocks)), device=dev)
-        call = lambda: fn(x.data_ptr(), g.data_ptr(), sc.data_ptr(), packed.data_ptr(),
-                          dx.data_ptr(), ddp.data_ptr(), partial.data_ptr(), scratch.data_ptr(),
-                          f, c, c // heads, blocks, rows, stream())
-        if call() != 0:
-            raise RuntimeError(f"k4 {name}: launch failed")
+    names = [name for name in (*K4, "parent") if ("k4", name) in builds]
+    order = ["parent", "kernel", *list(K4)[1:], "kernel", "parent"] if "parent" in names else names
+    digest = lambda ts: hashlib.sha256(b"".join(
+        t.detach().cpu().contiguous().numpy().tobytes() for t in ts)).hexdigest()[:16]
+    for entry, rung in K4_ENTRIES:
+        _, ref_dx, _ = spatial_stack_bwd_plain(x, ops, sc, g, num_heads=heads, precision=rung)
+        calls, outs = {}, {}
+        for name in names:
+            path = builds["k4", name][1]
+            workers = bind(path, "spatial_bwd_workers", 0, 0)
+            workers.argtypes = [ctypes.c_int] * 4
+            rows = workers(c, c // heads, blocks, f)
+            scratch_floats = bind(path, "spatial_bwd_scratch_floats", 0, 0)
+            scratch_floats.argtypes = [ctypes.c_int] * 4  # (c, blocks, frames, workers);
+            # a build before the block-major walk reads the first two
+            if rows <= 0:
+                raise RuntimeError(f"k4 {name}: spatial_bwd_workers returned {rows}")
+            fn = bind(path, entry, 8, 5)
+            total = bind(path, "sum_rows_f32", 2, 2)
+            dx, flat = torch.empty_like(x), torch.empty_like(packed)
+            ddp = torch.empty((2 * blocks, f), device=dev)
+            partial = torch.empty((rows, packed.numel()), device=dev)
+            scratch = torch.empty((rows, max(1, scratch_floats(c, blocks, f, rows))), device=dev)
+            calls[name] = lambda fn=fn, dx=dx, ddp=ddp, partial=partial, scratch=scratch, rows=rows: (
+                fn(x.data_ptr(), g.data_ptr(), sc.data_ptr(), packed.data_ptr(), dx.data_ptr(),
+                   ddp.data_ptr(), partial.data_ptr(), scratch.data_ptr(), f, c, c // heads,
+                   blocks, rows, stream()))
+            if calls[name]() != 0:
+                raise RuntimeError(f"k4 {name} {entry}: launch failed")
+            if total(partial.data_ptr(), flat.data_ptr(), rows, packed.numel(), stream()) != 0:
+                raise RuntimeError(f"k4 {name}: sum_rows_f32 failed")
+            outs[name] = (rows, flat, dx, ddp)
         torch.cuda.synchronize()
-        err = f" dx max_abs_err {float((dx - ref_dx).abs().max()):.3e};" if name == "kernel" else ""
-        print(f"probe k4 {name}: {f} frames, C {c}, {blocks} blocks, {rows} gradient rows:{err} "
-              f"ms {time_ms(torch, call, 5):.4f}", flush=True)
+        times = {name: [] for name in names}
+        for _ in range(3):
+            for name in order:
+                times[name].append(time_ms(torch, calls[name], 20))
+        for name in names:
+            rows, flat, dx, ddp = outs[name]
+            err = ""
+            if name in ("kernel", "parent"):
+                err = (f" dx max_abs_err {float((dx - ref_dx).abs().max()):.3e}, digest "
+                       f"{digest((flat, dx, ddp))};")
+            rounds = ", ".join(f"{t:.4f}" for t in times[name])
+            print(f"probe k4 {name}: {entry} ({rung}), {f} frames, C {c}, {blocks} blocks, "
+                  f"{rows} gradient rows:{err} ms {min(times[name]):.4f} (rounds {rounds})",
+                  flush=True)
+        if "parent" in names:
+            same = all(torch.equal(a, b) for a, b in zip(outs["kernel"][1:], outs["parent"][1:]))
+            print(f"probe k4 {entry}: outputs {'EQUAL' if same else 'differ from'} the parent "
+                  f"build's bits", flush=True)
+        del calls, outs
+        torch.cuda.empty_cache()
+    if ("k4", "k1 parent") in builds:
+        probe_k1_parent(torch, builds, ops, packed, x, sc, c, heads, blocks, dev, stream, digest)
+
+
+def probe_k1_parent(torch, builds, ops, packed, x, sc, c, heads, blocks, dev, stream, digest):
+    """K1 (spatial_stack_f32 / _bf16) from this checkout's build and the
+    parent's on the same inputs, with and without droppath scales: both
+    builds' digests, equal or not (K1 shares spatial_common.cuh with K4)."""
+    for entry in ("spatial_stack_f32", "spatial_stack_bf16"):
+        for scales in (sc, None):
+            got = {}
+            for name in ("k1 kernel", "k1 parent"):
+                fn = bind(builds["k4", name][1], entry, 4, 4)
+                out = torch.empty((x.shape[0], 17 * c), device=dev)
+                if fn(x.data_ptr(), packed.data_ptr(), None if scales is None else
+                      scales.data_ptr(), out.data_ptr(), x.shape[0], c, c // heads, blocks,
+                      stream()) != 0:
+                    raise RuntimeError(f"{name} {entry}: launch failed")
+                got[name] = out
+            torch.cuda.synchronize()
+            same = torch.equal(got["k1 kernel"], got["k1 parent"])
+            print(f"probe k4 K1 {entry}, scales {scales is not None}: digest "
+                  f"{digest([got['k1 kernel']])}, parent {digest([got['k1 parent']])}: "
+                  f"{'EQUAL' if same else 'DIFFER'}", flush=True)
 
 
 def probe_spatial(torch, builds, rand, seed, dev, stream):

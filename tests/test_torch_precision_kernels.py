@@ -23,9 +23,10 @@ by 0.3-0.6 x the largest drift in K1, K2, K3 and the attention core on
 that card, while their distance to `rung64` stays the plain version's.
 
 K4 (`csrc/spatial_bwd.cu`, which shares `csrc/spatial_common.cuh` with K1's
-bf16 instance) has no bf16 mode: its outputs on seeded inputs are
-bit-identical on repeat and to the digest its build gave before the bf16
-mode was added (`K4_DIGEST`, the same card type and toolkit).
+bf16 instance) at "high": its outputs on seeded inputs are bit-identical on
+repeat and to `K4_DIGEST` (re-taken with its block-major walk; the same card
+type and toolkit). K1 at both rungs: bit-identical to its build before that
+walk (`K1_DIGESTS`).
 
 JAX is not imported, so the file also runs on the card's machine:
 
@@ -56,9 +57,19 @@ try:  # the card's machine collects tests/ without the package's conftest
 except ImportError:  # pragma: no cover
     from test_torch_spatial_bwd_tc import _spatial_case
 
-# sha256 of K4's outputs at `_k4_outputs`' inputs, from the build before the
-# bf16 mode (NVIDIA H100 80GB HBM3, nvcc 12.9, sm_90a).
-K4_DIGEST = "09707c3aa839d1c6d932b3c9db72f9567c206f5dab18fdd0f74b540c5481c4c7"
+# sha256 of K4's outputs at `_k4_outputs`' inputs (NVIDIA H100 80GB HBM3,
+# nvcc 12.9, sm_90a), re-taken when K4 moved to its block-major walk with one
+# running sum per output for its products over K <= 64 (every float64 check
+# and grad bar held); the build before, from the bf16 mode's, gave
+# 09707c3aa839d1c6d932b3c9db72f9567c206f5dab18fdd0f74b540c5481c4c7.
+K4_DIGEST = "8f6dcfd8c4ce0670c7103d02b42c69779ef2f89e0a8b36cd42f0438ef2103f68"
+
+
+# sha256 of K1's outputs at `_k1_outputs`' inputs per rung, from the build
+# before K4's block-major redesign (NVIDIA H100 80GB HBM3, nvcc 12.9,
+# sm_90a): K1 shares csrc/spatial_common.cuh with K4.
+K1_DIGESTS = {"high": "c25a2f3d6b49bf73fedcee411e2fb41646862e946a4ed17f4fd34b65e613a7f3",
+              "default": "91c858ee1b8ecb6294c5e1512b3c5e6b14340ef15bf7f5548904d2918ae0aabd"}
 
 
 def _card():
@@ -273,7 +284,28 @@ def k4_digest(outputs) -> str:
 
 @pytest.mark.gpu
 def test_k4_unchanged_by_the_bf16_mode():
+    """K4 at "high" on seeded inputs: bit-identical on repeat and to `K4_DIGEST`."""
     _card()
     first, second = _k4_outputs(), _k4_outputs()
     assert all(torch.equal(a, b) for a, b in zip(first, second))
     assert k4_digest(first) == K4_DIGEST
+
+
+def _k1_outputs(rung):
+    """K1 on seeded inputs (1,031 frames, C = 32, 4 blocks) at `rung`, with
+    droppath scales (the training launch) and without (serving, the eval)."""
+    ops, x, scales, _, heads = _spatial_case(11, 1031, 32, 8, 4)
+    ops = {k: v.cuda() for k, v in ops.items()}
+    return [spatial_stack(x.cuda(), ops, num_heads=heads, droppath_scales=s, precision=rung)
+            for s in (scales.cuda(), None)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rung", ["high", "default"])
+def test_k1_equals_its_build_before_k4s_redesign(rung):
+    """K1 at both rungs: bit-identical on repeat and to the digest its build
+    gave before K4 moved to its block-major walk (`K1_DIGESTS`)."""
+    _card()
+    first, second = _k1_outputs(rung), _k1_outputs(rung)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    assert k4_digest(first) == K1_DIGESTS[rung]

@@ -29,8 +29,8 @@ moves the q bias gradient's largest by 1.64x where K4 sits at 3.57x
 (`test_k4_largest_distance_and_the_softmax`). The plain versions replay
 the kernel forward's relu decisions, as the 3xTF32 tests do. The
 3xTF32 instances keep their bits: K4's outputs and K5's backward outputs on
-seeded inputs equal the digests of their builds before the bf16 modes
-(`K4_DIGEST`; `K5_BWD_DIGEST`, re-taken when dW moved to wgmma; the same
+seeded inputs equal their digests (`K4_DIGEST`, re-taken with K4's
+block-major walk; `K5_BWD_DIGEST`, re-taken when dW moved to wgmma; the same
 card type and toolkit).
 
 JAX is not imported, so the file also runs on the card's machine:
@@ -164,8 +164,8 @@ def _k5_bwd_outputs():
 
 @pytest.mark.gpu
 def test_3xtf32_instances_keep_their_bits():
-    """K4 and K5's backward at "high": bit-identical on repeat and to the
-    digests of their builds before the bf16 modes."""
+    """K4 and K5's backward at "high": bit-identical on repeat and to their
+    digests (`K4_DIGEST`, `K5_BWD_DIGEST`)."""
     _card()
     first, second = _k4_outputs(), _k4_outputs()
     assert all(torch.equal(a, b) for a, b in zip(first, second))
@@ -334,7 +334,7 @@ def test_k6_bf16_matches_plain(b, n, c, hidden, stride, pads):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("f,c,heads", [(25600, 32, 8), (1031, 16, 4)])
+@pytest.mark.parametrize("f,c,heads", [(25600, 32, 8), (1031, 32, 8), (1031, 16, 4)])
 def test_k1_train_and_k4_bf16_match_plain(f, c, heads):
     """K1's training launch (`spatial_stack_bf16` with droppath scales) and
     K4's bf16 instance against the plain stack at the rung and its autograd."""

@@ -17,64 +17,81 @@
 // products each, tf32.cuh); the 17-token attention (8 heads of 4), the
 // LayerNorms and the gelu run on the CUDA cores. In practice it is bound by
 // latency, not by either peak: the products' fragment loads and splits, the
-// attention's serial chains and ~30 barriers per block and tile with 8
-// warps per SM (kernel_probe.py times it without each part).
+// attention's serial chains and the barriers with 8 warps per SM
+// (kernel_probe.py --only k4 times it without each part).
 //
 // Design (Hopper; not the TPU's frames-on-lanes tile): one thread block of 8
-// warps per SM walks tiles of TF = 7 frames. The tile, the products x.W
-// (rows_gemm), the LayerNorm statistics (two lanes per row), the forward
-// attention and the staging of a block's weights are spatial_common.cuh's,
-// which K1 runs too. A tile's 119 token rows, padded to 128, are 8 m16
-// tiles, one per warp, so every dense product has M = 128
-// rows on mma.sync.m16n8k8: warp w owns rows 16w..16w+15 of x.W and dY.W^T,
-// or pairs of (m16, n8) tiles of dW = X^T.dY, whose K is the tile's rows.
-// 16 frames (272 rows, 17 m16 tiles) would need 313 KB of row buffers, more
-// than an SM has; 8 frames (9 warps) fit but ptxas held 288 threads to 168
-// registers and spilled; 7 frames leave 255 registers to 256 threads.
-//  - Per tile: the embedding, then the forward replay block by block, each
-//    block's input (a checkpoint) and its attention context written to the
-//    thread block's slice of a scratch buffer in device memory ((2L+1) x 128
-//    x C floats, 19 MB over 132 blocks, read back with cp.async beside the
-//    weights' staging); the tile's output gradient arrives by cp.async
-//    during the replay. Then the final LayerNorm's backward and the blocks
-//    last to first: from the checkpoint and the context, proj + residual,
-//    LN2 and fc1 again, the MLP branch's backward, then the attention
-//    branch's with q|k|v recomputed (shared memory does not hold them
-//    through the MLP's backward; keeping X2 and fc1's output in the scratch
-//    as well was slower: 45 MB no longer stays in L2).
+// warps per SM walks its tiles of TF = 7 frames (tile i on block i mod the
+// grid, a static assignment) block-major: the forward replay block by
+// block over all its tiles, then the backward block by block, last to
+// first. The tile, the products x.W (rows_gemm), the LayerNorm statistics
+// (two lanes per row), the forward attention and the staging of a block's
+// weights are spatial_common.cuh's, which K1 runs too. A tile's 119 token
+// rows, padded to 128, are 8 m16 tiles, one per warp, so every dense
+// product has M = 128 rows on mma.sync.m16n8k8: warp w owns rows
+// 16w..16w+15 of x.W and dY.W^T, or pairs of (m16, n8) tiles of dW =
+// X^T.dY, whose K is the tile's rows. 16 frames (272 rows, 17 m16 tiles)
+// would need 313 KB of row buffers, more than an SM has; 8 frames (9 warps)
+// fit but ptxas held 288 threads to 168 registers and spilled; 7 frames
+// leave 255 registers to 256 threads. A second tile in flight per SM does
+// not fit either: a tile's rows take 132 KB in the attention's backward.
+// The products stay on mma.sync: on wgmma (the x.W products, B the staged
+// W^T) each product's group is waited on with nothing to overlap it, and
+// K4 ran slower; at 512 threads (two warps per m16 tile) the 128-register
+// cap spilled (kernel_probe.py --only k4; PERF.md, PR 20).
+//  - Each block's weights are staged in shared memory once per pass, not
+//    once per tile and pass (7 stagings per thread block, not 7 per tile).
+//  - The scratch in device memory holds, per tile, each block's input (the
+//    checkpoints), each block's attention context and the gradient down the
+//    residual stream between the backward's blocks: (2L + 1) slices of 128 x
+//    C (545 MB at 25,600 frames, C = 32). The next tile's slices are fetched
+//    into L2 as a tile starts and into free parts of the working region
+//    (cp.async) while its later products run, so a tile's inputs have
+//    landed when it starts.
+//  - The replay: the embedding (block 0) or the block's input, then the
+//    block's forward, its context and output into the scratch; the last
+//    block ends with the final LayerNorm's backward of the tile's output
+//    gradient. The backward per tile: from the checkpoint and the context,
+//    proj + residual, LN2 and fc1 again, the MLP branch's backward, then the
+//    attention branch's with q|k|v recomputed (shared memory does not hold
+//    them through the MLP's backward).
 //  - The LayerNorm outputs are not stored: the products normalise x0 as they
 //    load it (q|k|v), or read the normalised input kept in place (fc1, dW of
 //    fc1 and q|k|v, the LayerNorm backward). The scale gradients use
 //    sum(dY . branch) = sum(X . (dY.W^T)) + sum(dY . b), so the backward
 //    recomputes no fc2 or proj output.
-//  - Each block's weights are staged in shared memory already split into
-//    TF32 halves (2 x 38 KB), once per block and pass. Row pitches are 4 mod
-//    8 floats and the weights' 8 mod 16, so the fragment loads of x.W hit 32
-//    banks; dW takes its K rows permuted inside each 8-row step (A column t
-//    <-> row 2t, t+4 <-> 2t+1, the same for dY), which keeps those loads on
-//    32 banks too.
-//  - Each 8-deep step's three products go into a fresh partial that joins
-//    the fp32 accumulators with a rounded add (the tensor cores round
-//    toward zero as they accumulate).
-//  - Parameter gradients: each tile's dW partial (K = 128 rows) is added into
-//    the thread block's own row of a (grid, n_params) buffer, element by
-//    element by one thread (the row's slice prefetched into L2, its values
-//    loaded before the products); the bias gradients come with dW from the
-//    same fragments, the LayerNorm, embedding and PE gradients are column
-//    sums over the tile's rows in a fixed order; those small ones are kept
-//    in shared memory over the block's tiles and written to the row at the
-//    end. sum_rows_f32 adds the 132 rows in a fixed order. No float atomics:
-//    repeated runs agree bit for bit. The scale gradients are summed per
-//    frame at the end of each tile.
+//  - The staged weights are split into TF32 halves (2 x 38 KB). Row pitches
+//    are 4 mod 8 floats and the weights' 8 mod 16, so the fragment loads of
+//    x.W hit 32 banks; dW takes its K rows permuted inside each 8-row step
+//    (A column t <-> row 2t, t+4 <-> 2t+1, the same for dY), which keeps
+//    those loads on 32 banks too.
+//  - x.W and dY.W^T over K <= 64 keep one running sum per output in the
+//    tensor cores, as K1 does (the float64 criterion holds there); dY.Wqkv^T
+//    (K = 96) and dW (K = 128 rows a tile) take each 8-deep step's three
+//    products into a fresh partial that joins the fp32 accumulators with a
+//    rounded add (the tensor cores round toward zero as they accumulate).
+//  - Parameter gradients: each tile's dW partial (K = 128 rows) is added, in
+//    tile order, into the block's dW: the thread block's row of a (grid,
+//    n_params) buffer (3xTF32: its halves fill shared memory), or shared
+//    memory, written to the row once per block (BF16); each element by one
+//    thread. The bias gradients come with dW from the same fragments, the
+//    LayerNorm, embedding and PE gradients are column sums over the tile's
+//    rows in a fixed order; those small ones are kept in shared memory over
+//    the block's tiles and written to the row at the end. sum_rows_f32 adds
+//    the rows in a fixed order. No float atomics: repeated runs agree bit
+//    for bit, and every sum over tiles runs in the order a tile-major walk
+//    takes. The scale gradients are summed per frame at the end of each tile
+//    and pass.
 //  - Padded rows (the 9 after 119, and the frames after F in the last tile)
 //    carry a row factor of 0 into every gradient sum, and the gradient
 //    flowing down the residual stream is kept 0 there.
+//  - dW's (m16, n8) output tiles are dealt evenly to the warps (tile_dw).
 //
 // The bf16 rung (`spatial_bwd_bf16`, TRAIN_MATMUL_PRECISION "default"; the
 // JAX kernel's fwd_dot / grad_dot at DEFAULT, pallas_spatial_bwd.py:42-95):
 // the same kernel with BF16. The weights are staged rounded to bf16 (no
-// small half), and every product takes bf16-rounded operands, one TF32
-// product per pair with fp32 sums:
+// small half: dW is summed in that room), and every product takes
+// bf16-rounded operands, one TF32 product per pair with fp32 sums:
 //  - the forward replay and the recompute run as K1's bf16 instance does
 //    (one running sum per output, A rounded as it is read, the embedding's
 //    operands rounded), so the activations it replays are K1's; the
@@ -87,7 +104,8 @@
 //  - the scale gradients need sum(dY . branch) with the branch's product on
 //    rounded operands: sum(round(X) . (dY . round(W)^T)), its dY . W^T at
 //    fp32 level from the 3xTF32 routine on the rounded plane (a second
-//    product of fc2's and proj's backward).
+//    product of fc2's and proj's backward, which splits the rounded plane
+//    into itself and 0 as it reads it).
 // The 17-token attention, the LayerNorms, the gelu and every sum stay fp32,
 // as in K1's bf16 instance (the TPU computes that attention on the VPU).
 
@@ -132,8 +150,13 @@ __device__ __forceinline__ float gelu_and_grad(float h, float* grad) {
 }
 
 // Shared-memory layout (floats) of one thread block; the pitches are
-// spatial_common.cuh's.
-template <int C>
+// spatial_common.cuh's. The staged weights are one block's: TF32 halves
+// (3xTF32), or rounded to bf16 with no small half (BF16: the products that
+// take the rounded plane at fp32 level split it as they read it, into itself
+// and 0). BF16 also keeps DW, the block's dW summed over the thread block's
+// tiles (wq, wk, wv, wp: C x C; w1: C x 2C; w2: 2C x C); the 3xTF32
+// instance, whose halves take that room, sums dW in its gradient row.
+template <int C, bool BF16>
 struct Tile : sp::Pitch<C> {
   using Base = sp::Pitch<C>;
   using Base::C3, Base::HID, Base::P3, Base::PC, Base::PH, Base::H, Base::WEIGHTS;
@@ -142,71 +165,85 @@ struct Tile : sp::Pitch<C> {
   // G: the working region, laid out per phase (see the kernel)
   static constexpr int G_A = U + R * P3, G_B = U + 2 * R * PH, G_C = 2 * U + R * P3 + STATS;
   static constexpr int G = G_A > G_B ? (G_A > G_C ? G_A : G_C) : (G_B > G_C ? G_B : G_C);
+  // the next tile's inputs land in G while this tile runs: the replay's
+  // block input after H1; the backward's block input and residual gradient
+  // in q|k|v's region (free after dY . Wqkv^T)
+  static constexpr int NEXT_X_REPLAY = U + R * PH, NEXT_X = U, NEXT_DD = 2 * U;
+  static_assert(NEXT_X_REPLAY + U <= G && NEXT_DD + U <= U + R * P3, "prefetch regions in G");
+  static constexpr bool DW_ON_CHIP = BF16;
+  static constexpr int SMALL = BF16 ? 0 : WEIGHTS;  // the small halves, after the big
+  static constexpr int STAGED = BF16 ? WEIGHTS : 2 * WEIGHTS;
+  static constexpr int DW = DW_ON_CHIP ? 8 * C * C : 0;
+  static constexpr int DW_WP = 3 * C * C, DW_W1 = 4 * C * C, DW_W2 = 6 * C * C;
   static constexpr int ROWS = 8 * R;  // mu1, rs1, mu2, rs2, rowf, s1r, s2r, rsum
-  static constexpr int FLOATS = 2 * U + G + 2 * WEIGHTS + ROWS + 2 * THREADS;
+  static constexpr int FLOATS = 2 * U + G + STAGED + DW + ROWS + 2 * THREADS + 2 * R;
 };
 
 // *out(i, o) += sum over the tile's rows r of x(r, i) * dy(r, o) * f[r]
-// (dW = X^T . dY, CIN x N): pairs of (m16, n8) output tiles side by side,
-// which share X's fragments, spread over the warps. The warps of the first
-// m16 tile also add the bias gradient, *bias(o) += sum over r of dy(r, o) *
-// f[r], from the same values (per lane in row order, then over the quad).
+// (dW = X^T . dY, CIN x N): the (m16, n8) output tiles dealt to the warps,
+// NT side by side to a warp, which share X's fragments (split once a step
+// for all of them): qkv's 24 tiles 3 a warp, fc1's and fc2's 16 2 a warp,
+// proj's 8 one a warp. The warps of the first m16 tile also add the bias
+// gradient, *bias(o) += sum over r of dy(r, o) * f[r], from the same values
+// (per lane in row order, then over the quad).
 // BF16: x and dy * f rounded to bf16, one TF32 product a step.
 template <int CIN, int N, bool BF16 = false, class X, class Y, class Out, class Bias>
 __device__ __forceinline__ void tile_dw(X x_at, Y dy_at, const float* f, Out out, Bias bias) {
+  constexpr int N8 = N / 8, TILES = CIN / 16 * N8;
+  constexpr int NT = TILES > WARPS ? TILES / WARPS : 1;  // n8 tiles a warp
+  static_assert(TILES <= WARPS || (TILES % WARPS == 0 && N8 % NT == 0),
+                "a warp's tiles in one m16 tile");
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
-  constexpr int NP = N / 16, PAIRS = CIN / 16 * NP;  // two n8 tiles beside each other
-  for (int pair = warp; pair < PAIRS; pair += WARPS) {
-    const int i = 16 * (pair / NP) + g, o0 = 16 * (pair % NP) + g;
-    const int o = o0 - g + 2 * t;  // C fragment: rows g, g+8; columns 2t, 2t+1 (+8)
-    // the gradient row's values, loaded before the products hide their latency
-    float old[2][4], acc[2][4], bsum[2] = {0.f, 0.f};
+  const int first = warp * NT;
+  if (first >= TILES) return;
+  const int i = 16 * (first / N8) + g, n0 = 8 * (first % N8);
+  // C fragment: rows g, g+8; columns 2t, 2t+1 of n8 tile u (o0 + 8u, B's column g)
+  const int o = n0 + 2 * t, o0 = n0 + g;
+  // the gradient's values, loaded before the products hide their latency
+  float old[NT][4], acc[NT][4], bsum[NT];
 #pragma unroll
-    for (int u = 0; u < 2; ++u) {
-      old[u][0] = *out(i, o + 8 * u);
-      old[u][1] = *out(i, o + 8 * u + 1);
-      old[u][2] = *out(i + 8, o + 8 * u);
-      old[u][3] = *out(i + 8, o + 8 * u + 1);
-      acc[u][0] = acc[u][1] = acc[u][2] = acc[u][3] = 0.f;  // this tile's partial
-    }
+  for (int u = 0; u < NT; ++u) {
+    old[u][0] = *out(i, o + 8 * u);
+    old[u][1] = *out(i, o + 8 * u + 1);
+    old[u][2] = *out(i + 8, o + 8 * u);
+    old[u][3] = *out(i + 8, o + 8 * u + 1);
+    acc[u][0] = acc[u][1] = acc[u][2] = acc[u][3] = 0.f;  // this tile's partial
+    bsum[u] = 0.f;
+  }
 #pragma unroll 8
-    for (int s = 0; s < R / 8; ++s) {
-      const int ra = 8 * s + 2 * t, rb = ra + 1;  // A column t <-> row ra, t+4 <-> rb
-      uint32_t ab[4], as[4];
-      split<BF16>(x_at(ra, i), ab[0], as[0]);
-      split<BF16>(x_at(ra, i + 8), ab[1], as[1]);
-      split<BF16>(x_at(rb, i), ab[2], as[2]);
-      split<BF16>(x_at(rb, i + 8), ab[3], as[3]);
-      const float fa = f[ra], fb = f[rb];
+  for (int s = 0; s < R / 8; ++s) {
+    const int ra = 8 * s + 2 * t, rb = ra + 1;  // A column t <-> row ra, t+4 <-> rb
+    uint32_t ab[4], as[4];
+    split<BF16>(x_at(ra, i), ab[0], as[0]);
+    split<BF16>(x_at(ra, i + 8), ab[1], as[1]);
+    split<BF16>(x_at(rb, i), ab[2], as[2]);
+    split<BF16>(x_at(rb, i + 8), ab[3], as[3]);
+    const float fa = f[ra], fb = f[rb];
 #pragma unroll
-      for (int u = 0; u < 2; ++u) {
-        const float ya = dy_at(ra, o0 + 8 * u) * fa, yb = dy_at(rb, o0 + 8 * u) * fb;
-        bsum[u] += ya + yb;
-        uint32_t bb[2], bs[2];
-        split<BF16>(ya, bb[0], bs[0]);
-        split<BF16>(yb, bb[1], bs[1]);
-        float part[4] = {0.f, 0.f, 0.f, 0.f};
-        if constexpr (BF16)
-          uu::mma_tf32(part, ab, bb);
-        else
-          uu::mma_3xtf32(part, ab, as, bb, bs);
+    for (int u = 0; u < NT; ++u) {
+      const float ya = dy_at(ra, o0 + 8 * u) * fa, yb = dy_at(rb, o0 + 8 * u) * fb;
+      bsum[u] += ya + yb;
+      uint32_t bb[2], bs[2];
+      split<BF16>(ya, bb[0], bs[0]);
+      split<BF16>(yb, bb[1], bs[1]);
+      float part[4] = {0.f, 0.f, 0.f, 0.f};
+      if constexpr (BF16)
+        uu::mma_tf32(part, ab, bb);
+      else
+        uu::mma_3xtf32(part, ab, as, bb, bs);
 #pragma unroll
-        for (int e = 0; e < 4; ++e) acc[u][e] += part[e];
-      }
+      for (int e = 0; e < 4; ++e) acc[u][e] += part[e];
     }
+  }
 #pragma unroll
-    for (int u = 0; u < 2; ++u) {
-      *out(i, o + 8 * u) = old[u][0] + acc[u][0];
-      *out(i, o + 8 * u + 1) = old[u][1] + acc[u][1];
-      *out(i + 8, o + 8 * u) = old[u][2] + acc[u][2];
-      *out(i + 8, o + 8 * u + 1) = old[u][3] + acc[u][3];
-      bsum[u] += __shfl_xor_sync(0xffffffffu, bsum[u], 1);
-      bsum[u] += __shfl_xor_sync(0xffffffffu, bsum[u], 2);
-    }
-    if (pair < NP && t == 0) {
-      *bias(o0) += bsum[0];
-      *bias(o0 + 8) += bsum[1];
-    }
+  for (int u = 0; u < NT; ++u) {
+    *out(i, o + 8 * u) = old[u][0] + acc[u][0];
+    *out(i, o + 8 * u + 1) = old[u][1] + acc[u][1];
+    *out(i + 8, o + 8 * u) = old[u][2] + acc[u][2];
+    *out(i + 8, o + 8 * u + 1) = old[u][3] + acc[u][3];
+    bsum[u] += __shfl_xor_sync(0xffffffffu, bsum[u], 1);
+    bsum[u] += __shfl_xor_sync(0xffffffffu, bsum[u], 2);
+    if (first < N8 && t == 0) *bias(o0 + 8 * u) += bsum[u];
   }
 }
 
@@ -258,7 +295,7 @@ __device__ __forceinline__ void colsum_add(int ncols, V val, Out out, float* red
 // and each row's rs = 1/sqrt(var + eps), one thread per row.
 template <int C>
 __device__ __forceinline__ void ln_normalize(float* x, float* rs, float eps) {
-  constexpr int PC = Tile<C>::PC;
+  constexpr int PC = sp::Pitch<C>::PC;
   for (int r = threadIdx.x; r < R; r += THREADS) {
     float v[C];
 #pragma unroll
@@ -289,7 +326,7 @@ template <int C>
 __device__ __forceinline__ void ln_bwd(const float* xhat, const float* dy, const float* gamma,
                                        const float* rs, const float* rowf, float* out, bool add,
                                        float* g_gamma, float* g_beta, float* red) {
-  constexpr int PC = Tile<C>::PC;
+  constexpr int PC = sp::Pitch<C>::PC;
   const auto beta_val = [&](int r, int c) { return dy[r * PC + c] * rowf[r]; };
   colsum_part1(
       C, [&](int r, int c) { return dy[r * PC + c] * xhat[r * PC + c] * rowf[r]; }, red,
@@ -336,7 +373,7 @@ __device__ __forceinline__ void ln_bwd(const float* xhat, const float* dy, const
 template <int C>
 __device__ __forceinline__ void attention_bwd(float* qkv, const float* dctx, float* dq_out,
                                               float* st, int nf, float scale) {
-  using T = Tile<C>;
+  using T = sp::Pitch<C>;
   const float sl = scale * LOG2E;  // the softmax in base 2: st holds log2-sum-exp2
   const int items = nf * T::H * P;
   for (int it = threadIdx.x; it < items; it += THREADS) {
@@ -423,7 +460,7 @@ spatial_bwd_tc_kernel(const float* __restrict__ x, const float* __restrict__ gou
                       float* __restrict__ dx, float* __restrict__ ddp, float* __restrict__ partial,
                       float* __restrict__ scratch, int frames, int blocks, int n_params) {
   using L = Layout<C>;
-  using T = Tile<C>;
+  using T = Tile<C, BF16>;
   constexpr int HID = T::HID, C3 = T::C3, PC = T::PC, PH = T::PH, P3 = T::P3;
   static_assert(C % 16 == 0 && C <= 32, "C = 16 or 32: rows of C lanes, m16 tiles of C");
   extern __shared__ float4 k4_smem[];
@@ -431,11 +468,12 @@ spatial_bwd_tc_kernel(const float* __restrict__ x, const float* __restrict__ gou
   float* DD = sm;            // the gradient down the residual stream (then DX2)
   float* XS = DD + T::U;     // the block's input x0: X2 in place, then xhat2; x0, xhat1
   float* G = XS + T::U;      // the working region
-  float* WQKV = G + T::G;    // (C, 3C) q|k|v weights' big TF32 halves, pitch W3
+  float* WQKV = G + T::G;    // (C, 3C) q|k|v weights' big TF32 halves, pitch W3 (BF16: rounded)
   float* WP = WQKV + C * T::W3;
   float* W1 = WP + C * T::WC;
   float* W2 = W1 + C * T::WH;
-  float* mu1 = WQKV + 2 * T::WEIGHTS;  // the weights' small halves lie WEIGHTS after the big
+  float* DWS = WQKV + T::STAGED;  // BF16: the block's dW over this thread block's tiles
+  float* mu1 = DWS + T::DW;
   float* rs1 = mu1 + R;
   float* mu2 = rs1 + R;
   float* rs2 = mu2 + R;
@@ -444,12 +482,12 @@ spatial_bwd_tc_kernel(const float* __restrict__ x, const float* __restrict__ gou
   float* s2r = s1r + R;      // the rows' MLP-branch scale
   float* rsum = s2r + R;     // per-row sums of the scale gradients
   float* red = rsum + R;     // 2 x THREADS: column-sum chunks
+  float* RSA = red + 2 * THREADS;  // (2, R) per-row scale gradients of the block's branches
   // the small gradients (embedding, PE, LayerNorms, biases), summed here over
   // the block's tiles and written to its gradient row at the end: the
   // packed order of emb_w, emb_b, pe, then norm_g, norm_b, then per block
   // ln1_g, ln1_b, bq, bk, bv, bp, ln2_g, ln2_b, b1, b2 (small_floats)
-  float* SG = red + 2 * THREADS;
-  float* RSA = SG + small_floats<C>(blocks);  // (2L, R) per-row scale gradients
+  float* SG = RSA + 2 * R;
   float* sg_norm = SG + L::BLOCKS;
   constexpr int SB = 11 * C;  // per block: LN1 0, bq|bk|bv 2C, bp 5C, LN2 6C, b1 8C, b2 10C
   // phase layouts of G: the replay's front CTX | q|k|v, then CTX | H1; the MLP
@@ -467,16 +505,21 @@ spatial_bwd_tc_kernel(const float* __restrict__ x, const float* __restrict__ gou
   auto dqkv = [&](int r, int o) { return o < C ? DQ[r * PC + o] : QKV_C[r * P3 + o]; };
   float* DY = DQ;  // dY over dq: rows_gemm reads and writes only the warp's own rows
 
-  for (int i = threadIdx.x; i < T::FLOATS + small_floats<C>(blocks) + 2 * blocks * R;
-       i += THREADS)
-    sm[i] = 0.f;
+  for (int i = threadIdx.x; i < T::FLOATS + small_floats<C>(blocks); i += THREADS) sm[i] = 0.f;
   float* gw = partial + (size_t)blockIdx.x * n_params;
-  for (int i = threadIdx.x; i < n_params; i += THREADS) gw[i] = 0.f;
-  // scratch: each block's input (the checkpoints), then each block's CTX
-  float* ck = scratch + (size_t)blockIdx.x * (2 * blocks + 1) * R * C;
-  float* ctxg = ck + (size_t)(blocks + 1) * R * C;
+  if constexpr (!T::DW_ON_CHIP)  // dW is summed in the row: the rest is written at the end
+    for (int i = threadIdx.x; i < n_params; i += THREADS) gw[i] = 0.f;
   const float scale = 0.5f;  // 1 / sqrt(D), D = 4
   const float* norm = w + L::BLOCKS + blocks * L::BLOCK;
+  // this thread block's tiles: blockIdx.x, + gridDim.x, ... (mine of them);
+  // the scratch holds, per tile of mine, each block's input (the
+  // checkpoints), each block's attention context and the residual stream's
+  // gradient between the backward's blocks: 2L + 1 slices of R x C
+  const int tiles = (frames + TF - 1) / TF;
+  const int mine = (tiles - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
+  const int per = (tiles + gridDim.x - 1) / gridDim.x, slots = 2 * blocks + 1;
+  float* ck = scratch + (size_t)blockIdx.x * per * slots * R * C;
+  auto slot = [&](int j, int s) { return ck + ((size_t)j * slots + s) * R * C; };
   __syncthreads();
 
   // an (R, C) slice of the scratch <-> a buffer of pitch PC
@@ -496,15 +539,34 @@ spatial_bwd_tc_kernel(const float* __restrict__ x, const float* __restrict__ gou
     asm volatile("cp.async.commit_group;\n" ::: "memory");
   };
   auto wait_copies = []() { asm volatile("cp.async.wait_group 0;\n" ::: "memory"); };
-  auto store_ck = [&](int i) { save(ck + (size_t)i * R * C, XS); };
-  // block blk's weights into shared memory as TF32 halves (every load issued
-  // first, then the splits and stores), its scales per row
-  auto stage = [&](int blk, int f0) {
+  // a buffer of pitch PC copied into XS or DD (the prefetched next tile's)
+  auto take = [&](float* dst, const float* src) {
+    for (int e = threadIdx.x; e < R * C / 4; e += THREADS) {
+      const int r = e / (C / 4), c = 4 * (e % (C / 4));
+      *reinterpret_cast<float4*>(dst + r * PC + c) =
+          *reinterpret_cast<const float4*>(src + r * PC + c);
+    }
+  };
+  // slices into L2 ahead of their restores (their lines, spread over the threads)
+  auto to_l2 = [&](const float* a, const float* b, const float* c) {
+    constexpr int LINES = R * C * 4 / 128;
+    for (int i = threadIdx.x; i < 3 * LINES; i += THREADS) {
+      const float* src = i < LINES ? a : i < 2 * LINES ? b : c;
+      if (src) asm volatile("prefetch.global.L2 [%0];" ::"l"(src + (i % LINES) * 32));
+    }
+  };
+  // block blk's weights into shared memory (every load issued first, then
+  // the splits and stores), once per pass over the tiles
+  auto stage = [&](int blk) {
     sp::BlockWeights<C, THREADS> bwts;
     bwts.load(w + L::BLOCKS + blk * L::BLOCK, threadIdx.x);
-    bwts.template store<BF16>(WQKV);  // BF16: rounded, the small halves stay 0
+    bwts.template store<BF16>(WQKV);  // BF16: rounded, no small halves
+  };
+  // the tile's row factors and block blk's droppath scales per row
+  auto tile_rows = [&](int blk, int f0, int real) {
     for (int r = threadIdx.x; r < R; r += THREADS) {
-      const bool on = rowf[r] > 0.f;
+      const bool on = r < real;
+      rowf[r] = on ? 1.f : 0.f;
       s1r[r] = on ? scales[(size_t)(2 * blk) * frames + f0 + r / P] : 0.f;
       s2r[r] = on ? scales[(size_t)(2 * blk + 1) * frames + f0 + r / P] : 0.f;
     }
@@ -525,43 +587,46 @@ spatial_bwd_tc_kernel(const float* __restrict__ x, const float* __restrict__ gou
       XS[r * PC + c] = (XS[r * PC + c] - mu[r]) * rs[r];
     }
   };
-  // the block's front from x0 in XS: (the replay) q|k|v, CTX; then X2 into
-  // XS, H1 = LN2(X2) . W1 + b1 (the backward: X2 normalised in place)
-  auto front = [&](int blk, int nf, bool replay) {
+  const auto w1_at = [&](int k, int n) { return W1 + k * T::WH + n; };
+  // the block's front from x0 in XS: (the replay) q|k|v, CTX (kept in the
+  // scratch at ctx_out), then `next` (the next tile's input) on its way into
+  // G; X2 into XS, H1 = LN2(X2) . W1 + b1 (the backward: X2 normalised in
+  // place)
+  auto front = [&](int blk, int nf, bool replay, float* ctx_out, const float* next) {
     const float* bw = w + L::BLOCKS + blk * L::BLOCK;
     sp::ln_stats<C>(XS, mu1, rs1, 1e-5f);
     __syncthreads();
     if (replay) {  // the replay: the attention, its context kept in the scratch
-      sp::rows_gemm<C, C3, !BF16, BF16>(ln1_at(XS, bw),
-                                        [&](int k, int n) { return WQKV + k * T::W3 + n; },
-                                        T::WEIGHTS,
-                           [&](int r, int n, float v) {
-                             QKV_A[r * P3 + n] = v + qkv_bias(bw, n);
-                             return 0.f;
-                           },
-                           nullptr);
+      sp::rows_gemm<C, C3, false, BF16>(
+          ln1_at(XS, bw), [&](int k, int n) { return WQKV + k * T::W3 + n; }, T::SMALL,
+          [&](int r, int n, float v) {
+            QKV_A[r * P3 + n] = v + qkv_bias(bw, n);
+            return 0.f;
+          },
+          nullptr);
       __syncthreads();
       sp::attention_fwd<C>(QKV_A, CTX, PC, nf, scale);
       __syncthreads();
-      save(ctxg + (size_t)blk * R * C, CTX);
+      if (next) restore(G + T::NEXT_X_REPLAY, next);
+      save(ctx_out, CTX);
     }  // the backward: CTX restored from the replay's context by the caller
-    sp::rows_gemm<C, C, !BF16, BF16>([&](int r, int k) { return CTX[r * PC + k]; },
-                        [&](int k, int n) { return WP + k * T::WC + n; }, T::WEIGHTS,
-                        [&](int r, int n, float v) {
-                          XS[r * PC + n] += s1r[r] * (v + bw[L::BP + n]);
-                          return 0.f;
-                        },
-                        nullptr);
+    sp::rows_gemm<C, C, false, BF16>(
+        [&](int r, int k) { return CTX[r * PC + k]; },
+        [&](int k, int n) { return WP + k * T::WC + n; }, T::SMALL,
+        [&](int r, int n, float v) {
+          XS[r * PC + n] += s1r[r] * (v + bw[L::BP + n]);
+          return 0.f;
+        },
+        nullptr);
     __syncthreads();
-    const auto w1_at = [&](int k, int n) { return W1 + k * T::WH + n; };
     if (replay) {  // the replay: X2 stays, the residual of fc2
       sp::ln_stats<C>(XS, mu2, rs2, 1e-5f);
       __syncthreads();
-      sp::rows_gemm<C, HID, !BF16, BF16>(
+      sp::rows_gemm<C, HID, false, BF16>(
           [&](int r, int k) {
             return (XS[r * PC + k] - mu2[r]) * rs2[r] * bw[L::LN2_G + k] + bw[L::LN2_B + k];
           },
-          w1_at, T::WEIGHTS,
+          w1_at, T::SMALL,
           [&](int r, int n, float v) {
             H1[r * PH + n] = sp::gelu(v + bw[L::B1 + n]);
             return 0.f;
@@ -578,9 +643,9 @@ spatial_bwd_tc_kernel(const float* __restrict__ x, const float* __restrict__ gou
         ln_normalize<C>(XS, rs2, 1e-5f);
       }
       __syncthreads();
-      sp::rows_gemm<C, HID, !BF16, BF16>(
+      sp::rows_gemm<C, HID, false, BF16>(
           [&](int r, int k) { return XS[r * PC + k] * bw[L::LN2_G + k] + bw[L::LN2_B + k]; },
-          w1_at, T::WEIGHTS,
+          w1_at, T::SMALL,
           [&](int r, int n, float v) {
             H1[r * PH + n] = v + bw[L::B1 + n];
             return 0.f;
@@ -589,8 +654,9 @@ spatial_bwd_tc_kernel(const float* __restrict__ x, const float* __restrict__ gou
     }
     __syncthreads();
   };
-  // the scale gradient ddp[row, f] per row: rsum + sum_c dy[r, c] b[c] into
-  // row `row` of RSA; the frames' sums of the tile's 2L rows at its end
+  // the scale gradient per row: rsum + sum_c dy[r, c] b[c] into row `row`
+  // (0: the attention branch, 1: the MLP's) of RSA; the frames' sums of the
+  // two rows at the tile's end (ddp rows 2 blk, 2 blk + 1)
   auto frame_rows = [&](const float* dy, const float* b, int row) {
     for (int r = threadIdx.x; r < R; r += THREADS) {
       float s = rsum[r];
@@ -601,219 +667,291 @@ spatial_bwd_tc_kernel(const float* __restrict__ x, const float* __restrict__ gou
       RSA[row * R + r] = s;
     }
   };
+  // BF16: the embedding's operands rounded, as K1's bf16 instance does
+  const auto op = [](float v) { return BF16 ? uu::bf16_roundf(v) : v; };
 
-  const int tiles = (frames + TF - 1) / TF;
-  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    const int f0 = tile * TF, nf = min(TF, frames - f0), real = nf * P;
-    const float* xin = x + (size_t)f0 * P * 2;
-    // ---- embedding + PE, the forward replay, checkpoints ---------------------
-    for (int r = threadIdx.x; r < R; r += THREADS) rowf[r] = r < real ? 1.f : 0.f;
-    // BF16: the embedding's operands rounded, as K1's bf16 instance does
-    const auto op = [](float v) { return BF16 ? uu::bf16_roundf(v) : v; };
-    for (int e = threadIdx.x; e < R * C; e += THREADS) {
-      const int r = e / C, c = e % C;
-      XS[r * PC + c] = r < real ? fmaf(op(xin[2 * r]), op(w[L::EMB_W + c]),
-                                       fmaf(op(xin[2 * r + 1]), op(w[L::EMB_W + C + c]), 0.f)) +
-                                      w[L::EMB_B + c] + w[L::PE + (r % P) * C + c]
-                                : 0.f;
-    }
-    __syncthreads();
-    store_ck(0);
-    // the tile's output gradient into DD (0 on padded rows) while the replay runs
-    for (int e = threadIdx.x; e < R * C / 4; e += THREADS) {
-      const int r = e / (C / 4), c = 4 * (e % (C / 4));
-      const bool on = r < real;
-      uu::cp_async16(DD + r * PC + c, on ? gout + ((size_t)f0 * P + r) * C + c : gout, on ? 16 : 0);
-    }
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
-    for (int blk = 0; blk < blocks; ++blk) {
-      const float* bw = w + L::BLOCKS + blk * L::BLOCK;
-      stage(blk, f0);
+  // ---- the forward replay, block by block over my tiles ----------------------
+  // Block blk's weights are staged once for the pass. Per tile: its input
+  // (the embedding, or block blk - 1's output from the scratch, prefetched
+  // during the tile before), the block's forward, its context and output
+  // into the scratch; the last block ends with the final LayerNorm's
+  // backward (eps 1e-6) of the tile's output gradient.
+  for (int blk = 0; blk < blocks; ++blk) {
+    const float* bw = w + L::BLOCKS + blk * L::BLOCK;
+    const bool last = blk == blocks - 1;
+    stage(blk);
+    for (int j = 0; j < mine; ++j) {
+      const int tile = blockIdx.x + j * gridDim.x;
+      const int f0 = tile * TF, nf = min(TF, frames - f0), real = nf * P;
+      tile_rows(blk, f0, real);
+      if (blk > 0 && j + 1 < mine) to_l2(slot(j + 1, blk), nullptr, nullptr);
+      if (blk == 0) {
+        const float* xin = x + (size_t)f0 * P * 2;
+        for (int e = threadIdx.x; e < R * C; e += THREADS) {
+          const int r = e / C, c = e % C;
+          XS[r * PC + c] =
+              r < real ? fmaf(op(xin[2 * r]), op(w[L::EMB_W + c]),
+                              fmaf(op(xin[2 * r + 1]), op(w[L::EMB_W + C + c]), 0.f)) +
+                             w[L::EMB_B + c] + w[L::PE + (r % P) * C + c]
+                       : 0.f;
+        }
+        __syncthreads();
+        save(slot(j, 0), XS);
+      } else if (j == 0) {
+        restore(XS, slot(0, blk));
+        wait_copies();
+        __syncthreads();
+      } else {  // prefetched during the tile before
+        wait_copies();
+        __syncthreads();
+        take(XS, G + T::NEXT_X_REPLAY);
+        __syncthreads();
+      }
+      if (last) {  // the tile's output gradient into DD (0 on padded rows) meanwhile
+        for (int e = threadIdx.x; e < R * C / 4; e += THREADS) {
+          const int r = e / (C / 4), c = 4 * (e % (C / 4));
+          const bool on = r < real;
+          uu::cp_async16(DD + r * PC + c, on ? gout + ((size_t)f0 * P + r) * C + c : gout,
+                         on ? 16 : 0);
+        }
+        asm volatile("cp.async.commit_group;\n" ::: "memory");
+      }
+      front(blk, nf, true, slot(j, blocks + blk),
+            blk > 0 && j + 1 < mine ? slot(j + 1, blk) : nullptr);
+      sp::rows_gemm<HID, C, false, BF16>(
+          [&](int r, int k) { return H1[r * PH + k]; },
+          [&](int k, int n) { return W2 + k * T::WC + n; }, T::SMALL,
+          [&](int r, int n, float v) {
+            XS[r * PC + n] += s2r[r] * (v + bw[L::B2 + n]);
+            return 0.f;
+          },
+          nullptr);
       __syncthreads();
-      front(blk, nf, true);
-      sp::rows_gemm<HID, C, !BF16, BF16>([&](int r, int k) { return H1[r * PH + k]; },
-                            [&](int k, int n) { return W2 + k * T::WC + n; }, T::WEIGHTS,
-                            [&](int r, int n, float v) {
-                              XS[r * PC + n] += s2r[r] * (v + bw[L::B2 + n]);
-                              return 0.f;
-                            },
-                            nullptr);
+      if (!last) {
+        save(slot(j, blk + 1), XS);
+      } else {  // the final LayerNorm: DD = its backward of g, into the scratch
+        ln_normalize<C>(XS, rs2, 1e-6f);
+        wait_copies();
+        __syncthreads();
+        ln_bwd<C>(XS, DD, norm, rs2, rowf, DD, false, sg_norm, sg_norm + C, red);
+        save(slot(j, 2 * blocks), DD);
+      }
       __syncthreads();
-      store_ck(blk + 1);
     }
+  }
 
-    // ---- final LayerNorm (eps 1e-6): DD = its backward of g ------------------
-    ln_normalize<C>(XS, rs2, 1e-6f);
-    wait_copies();
-    __syncthreads();
-    ln_bwd<C>(XS, DD, norm, rs2, rowf, DD, false, sg_norm, sg_norm + C, red);
-
-    // ---- blocks, last to first ----------------------------------------------
-    for (int blk = blocks - 1; blk >= 0; --blk) {
-      const float* bw = w + L::BLOCKS + blk * L::BLOCK;
-      float* gb = gw + L::BLOCKS + blk * L::BLOCK;
-      float* sgb = sg_norm + 2 * C + blk * SB;
-      // the block's gradient row into L2 ahead of the tile_dw read-modify-writes
+  // ---- the blocks' backward, last to first, each over my tiles ---------------
+  // Per tile: the block's input, context and the residual stream's gradient
+  // (prefetched during the tile before); the gradient back into the scratch
+  // (block 0: the embedding's backward instead). dW is summed over the tiles
+  // in DWS and written to the gradient row once per block.
+  for (int blk = blocks - 1; blk >= 0; --blk) {
+    const float* bw = w + L::BLOCKS + blk * L::BLOCK;
+    float* gb = gw + L::BLOCKS + blk * L::BLOCK;
+    float* sgb = sg_norm + 2 * C + blk * SB;
+    // dW(i, o) at offset `at` of the field that starts at `row` in the
+    // gradient row, or at `on_chip` in DWS
+    const auto dw = [&](int row, int on_chip, int at) {
+      return T::DW_ON_CHIP ? DWS + on_chip + at : gb + row + at;
+    };
+    if (blk < blocks - 1) stage(blk);  // the last block's are staged from the replay
+    if constexpr (T::DW_ON_CHIP) {
+      for (int i = threadIdx.x; i < T::DW; i += THREADS) DWS[i] = 0.f;
+    } else {  // the block's gradient row into L2 ahead of tile_dw's read-modify-writes
       for (int i = 32 * threadIdx.x; i < L::BLOCK; i += 32 * THREADS)
         asm volatile("prefetch.global.L2 [%0];" ::"l"(gb + i));
-      restore(XS, ck + (size_t)blk * R * C);
-      restore(CTX, ctxg + (size_t)blk * R * C);
-      if (blk < blocks - 1) stage(blk, f0);  // the last block's are staged from the replay
-      wait_copies();
-      __syncthreads();
-      front(blk, nf, false);
+    }
+    for (int j = 0; j < mine; ++j) {
+      const int tile = blockIdx.x + j * gridDim.x;
+      const int f0 = tile * TF, nf = min(TF, frames - f0), real = nf * P;
+      tile_rows(blk, f0, real);
+      if (j + 1 < mine)
+        to_l2(slot(j + 1, blk), slot(j + 1, blocks + blk), slot(j + 1, 2 * blocks));
+      if (j == 0) {
+        restore(XS, slot(0, blk));
+        restore(CTX, slot(0, blocks + blk));
+        restore(DD, slot(0, 2 * blocks));
+        wait_copies();
+        __syncthreads();
+      } else {  // prefetched during the tile before (the context into CTX)
+        wait_copies();
+        __syncthreads();
+        take(XS, G + T::NEXT_X);
+        take(DD, G + T::NEXT_DD);
+        __syncthreads();
+      }
+      front(blk, nf, false, nullptr, nullptr);
 
       // MLP branch: out = X2 + s2 * (gelu(H1) . W2 + b2)
       const auto w2t_at = [&](int k, int n) { return W2 + n * T::WC + k; };
       if constexpr (BF16) {
-        // u = dY . round(W2)^T at fp32 level (the plane's small halves are
-        // 0) for the scale gradient over fc2's rounded operand, then dH1
-        // from round(s2 . dY)
-        sp::rows_gemm<C, HID>([&](int r, int k) { return DD[r * PC + k]; }, w2t_at, T::WEIGHTS,
-                              [&](int r, int n, float u) {
-                                float grad;
-                                const float a = gelu_and_grad(H1[r * PH + n], &grad);
-                                H1[r * PH + n] = a;  // gelu(H1) from here on
-                                DH1[r * PH + n] = grad;
-                                return uu::bf16_roundf(a) * u;
-                              },
-                              rsum);
+        // u = dY . round(W2)^T at fp32 level (the rounded weights split into
+        // themselves and 0) for the scale gradient over fc2's rounded
+        // operand, then dH1 from round(s2 . dY)
+        sp::rows_gemm<C, HID, false, false, true>(
+            [&](int r, int k) { return DD[r * PC + k]; }, w2t_at, 0,
+            [&](int r, int n, float u) {
+              float grad;
+              const float a = gelu_and_grad(H1[r * PH + n], &grad);
+              H1[r * PH + n] = a;  // gelu(H1) from here on
+              DH1[r * PH + n] = grad;
+              return uu::bf16_roundf(a) * u;
+            },
+            rsum);
         sp::rows_gemm<C, HID, false, true>(
-            [&](int r, int k) { return DD[r * PC + k] * s2r[r]; }, w2t_at, T::WEIGHTS,
+            [&](int r, int k) { return DD[r * PC + k] * s2r[r]; }, w2t_at, 0,
             [&](int r, int n, float v) {
               DH1[r * PH + n] *= v;
               return 0.f;
             },
             nullptr);
       } else {
-        sp::rows_gemm<C, HID>([&](int r, int k) { return DD[r * PC + k]; }, w2t_at, T::WEIGHTS,
-                              [&](int r, int n, float u) {
-                                float grad;
-                                const float a = gelu_and_grad(H1[r * PH + n], &grad);
-                                H1[r * PH + n] = a;  // gelu(H1) from here on
-                                DH1[r * PH + n] = s2r[r] * u * grad;
-                                return a * u;
-                              },
-                              rsum);
+        sp::rows_gemm<C, HID, false>(
+            [&](int r, int k) { return DD[r * PC + k]; }, w2t_at, T::SMALL,
+            [&](int r, int n, float u) {
+              float grad;
+              const float a = gelu_and_grad(H1[r * PH + n], &grad);
+              H1[r * PH + n] = a;  // gelu(H1) from here on
+              DH1[r * PH + n] = s2r[r] * u * grad;
+              return a * u;
+            },
+            rsum);
       }
       __syncthreads();
-      frame_rows(DD, bw + L::B2, 2 * blk + 1);
+      frame_rows(DD, bw + L::B2, 1);
       tile_dw<HID, C, BF16>([&](int r, int i) { return H1[r * PH + i]; },
                             [&](int r, int o) { return DD[r * PC + o]; }, s2r,
-                            [&](int i, int o) { return gb + L::W2 + i * C + o; },
+                            [&](int i, int o) { return dw(L::W2, T::DW_W2, i * C + o); },
                             [&](int o) { return sgb + 10 * C + o; });
       tile_dw<C, HID, BF16>(
           [&](int r, int i) { return XS[r * PC + i] * bw[L::LN2_G + i] + bw[L::LN2_B + i]; },
           [&](int r, int o) { return DH1[r * PH + o]; }, rowf,
-          [&](int i, int o) { return gb + L::W1 + i * HID + o; },
+          [&](int i, int o) { return dw(L::W1, T::DW_W1, i * HID + o); },
           [&](int o) { return sgb + 8 * C + o; });
       __syncthreads();  // dZ goes over gelu(H1)
-      sp::rows_gemm<HID, C, !BF16, BF16>([&](int r, int k) { return DH1[r * PH + k]; },
-                            [&](int k, int n) { return W1 + n * T::WH + k; }, T::WEIGHTS,
-                            [&](int r, int n, float v) {
-                              DZ[r * PC + n] = v;
-                              return 0.f;
-                            },
-                            nullptr);
+      sp::rows_gemm<HID, C, false, BF16>(
+          [&](int r, int k) { return DH1[r * PH + k]; },
+          [&](int k, int n) { return W1 + n * T::WH + k; }, T::SMALL,
+          [&](int r, int n, float v) {
+            DZ[r * PC + n] = v;
+            return 0.f;
+          },
+          nullptr);
       __syncthreads();
-      ln_bwd<C>(XS, DZ, bw + L::LN2_G, rs2, rowf, DD, true, sgb + 6 * C, sgb + 7 * C,
-                red);
+      ln_bwd<C>(XS, DZ, bw + L::LN2_G, rs2, rowf, DD, true, sgb + 6 * C, sgb + 7 * C, red);
 
       // attention branch: X2 = x0 + s1 * (CTX . Wp + bp); x0 comes back
       // while dWp and dCTX run
-      restore(XS, ck + (size_t)blk * R * C);
+      restore(XS, slot(j, blk));
       tile_dw<C, C, BF16>([&](int r, int i) { return CTX[r * PC + i]; },
                           [&](int r, int o) { return DD[r * PC + o]; }, s1r,
-                          [&](int i, int o) { return gb + L::WP + i * C + o; },
+                          [&](int i, int o) { return dw(L::WP, T::DW_WP, i * C + o); },
                           [&](int o) { return sgb + 5 * C + o; });
       __syncthreads();  // dCTX goes over CTX
       const auto wpt_at = [&](int k, int n) { return WP + n * T::WC + k; };
       if constexpr (BF16) {  // as fc2's: the scale gradient, then round(s1 . dY) . round(Wp)^T
-        sp::rows_gemm<C, C>([&](int r, int k) { return DD[r * PC + k]; }, wpt_at, T::WEIGHTS,
-                            [&](int r, int n, float u) {
-                              return uu::bf16_roundf(CTX[r * PC + n]) * u;
-                            },
-                            rsum);
+        sp::rows_gemm<C, C, false, false, true>(
+            [&](int r, int k) { return DD[r * PC + k]; }, wpt_at, 0,
+            [&](int r, int n, float u) { return uu::bf16_roundf(CTX[r * PC + n]) * u; }, rsum);
         sp::rows_gemm<C, C, false, true>(
-            [&](int r, int k) { return DD[r * PC + k] * s1r[r]; }, wpt_at, T::WEIGHTS,
+            [&](int r, int k) { return DD[r * PC + k] * s1r[r]; }, wpt_at, 0,
             [&](int r, int n, float v) {
               CTX[r * PC + n] = v;  // dCTX
               return 0.f;
             },
             nullptr);
       } else {
-        sp::rows_gemm<C, C>([&](int r, int k) { return DD[r * PC + k]; }, wpt_at, T::WEIGHTS,
-                            [&](int r, int n, float u) {
-                              const float ctx = CTX[r * PC + n];
-                              CTX[r * PC + n] = s1r[r] * u;  // dCTX
-                              return ctx * u;
-                            },
-                            rsum);
+        sp::rows_gemm<C, C, false>(
+            [&](int r, int k) { return DD[r * PC + k]; }, wpt_at, T::SMALL,
+            [&](int r, int n, float u) {
+              const float ctx = CTX[r * PC + n];
+              CTX[r * PC + n] = s1r[r] * u;  // dCTX
+              return ctx * u;
+            },
+            rsum);
       }
       __syncthreads();
-      frame_rows(DD, bw + L::BP, 2 * blk);
+      frame_rows(DD, bw + L::BP, 0);
       wait_copies();
       __syncthreads();
-      sp::rows_gemm<C, C3, !BF16, BF16>(ln1_at(XS, bw),
-                                        [&](int k, int n) { return WQKV + k * T::W3 + n; },
-                           T::WEIGHTS,
-                           [&](int r, int n, float v) {
-                             QKV_C[r * P3 + n] = v + qkv_bias(bw, n);
-                             return 0.f;
-                           },
-                           nullptr);
+      sp::rows_gemm<C, C3, false, BF16>(
+          ln1_at(XS, bw), [&](int k, int n) { return WQKV + k * T::W3 + n; }, T::SMALL,
+          [&](int r, int n, float v) {
+            QKV_C[r * P3 + n] = v + qkv_bias(bw, n);
+            return 0.f;
+          },
+          nullptr);
       __syncthreads();
       normalize(mu1, rs1);  // xhat1, beside the attention's backward (no barrier)
       attention_bwd<C>(QKV_C, CTX, DQ, ST, nf, scale);
       __syncthreads();
+      // the next tile's context into CTX (dCTX is spent) while dWqkv and dY run
+      if (j + 1 < mine) restore(CTX, slot(j + 1, blocks + blk));
       tile_dw<C, C3, BF16>(
           [&](int r, int i) { return XS[r * PC + i] * bw[L::LN1_G + i] + bw[L::LN1_B + i]; },
           dqkv, rowf,
           [&](int i, int o) {
-            const int part = o / C, oo = o % C;
-            return gb + (part == 0 ? L::WQ : part == 1 ? L::WK : L::WV) + i * C + oo;
+            const int part = o / C;  // q, k, v
+            return dw(L::WQ + part * (C * C + C), part * C * C, i * C + o % C);
           },
           [&](int o) { return sgb + 2 * C + o; });
       __syncthreads();  // dY goes over dq
-      sp::rows_gemm<C3, C, !BF16, BF16>(dqkv, [&](int k, int n) { return WQKV + n * T::W3 + k; },
-                                        T::WEIGHTS,
-                           [&](int r, int n, float v) {
-                             DY[r * PC + n] = v;
-                             return 0.f;
-                           },
-                           nullptr);
+      sp::rows_gemm<C3, C, !BF16, BF16>(
+          dqkv, [&](int k, int n) { return WQKV + n * T::W3 + k; }, T::SMALL,
+          [&](int r, int n, float v) {
+            DY[r * PC + n] = v;
+            return 0.f;
+          },
+          nullptr);
       __syncthreads();
-      ln_bwd<C>(XS, DY, bw + L::LN1_G, rs1, rowf, DD, true, sgb, sgb + C, red);
-    }
-
-    // ---- embedding + PE ------------------------------------------------------
-    for (int e = threadIdx.x; e < P * C; e += THREADS) {
-      const int p = e / C, c = e % C;
-      float s = 0.f;
-      for (int f = 0; f < nf; ++f) s += DD[(f * P + p) * PC + c];
-      SG[L::PE + e] += s;
-    }
-    colsum_add(C, [&](int r, int c) { return DD[r * PC + c]; },
-               [&](int c) { return SG + L::EMB_B + c; }, red);
-    colsum_add(2 * C,
-               [&](int r, int c) {
-                 return r < real ? op(xin[2 * r + c / C]) * op(DD[r * PC + c % C]) : 0.f;
-               },
-               [&](int c) { return SG + L::EMB_W + c; }, red);
-    for (int r = threadIdx.x; r < real; r += THREADS) {
-      float d0 = 0.f, d1 = 0.f;
-      for (int c = 0; c < C; ++c) {
-        d0 = fmaf(op(DD[r * PC + c]), op(w[L::EMB_W + c]), d0);
-        d1 = fmaf(op(DD[r * PC + c]), op(w[L::EMB_W + C + c]), d1);
+      // the next tile's input and residual gradient into q|k|v's region
+      if (j + 1 < mine) {
+        restore(G + T::NEXT_X, slot(j + 1, blk));
+        restore(G + T::NEXT_DD, slot(j + 1, 2 * blocks));
       }
-      __stcs(dx + ((size_t)f0 * P + r) * 2, d0);  // streamed: read by no one here
-      __stcs(dx + ((size_t)f0 * P + r) * 2 + 1, d1);
+      ln_bwd<C>(XS, DY, bw + L::LN1_G, rs1, rowf, DD, true, sgb, sgb + C, red);
+      for (int i = threadIdx.x; i < 2 * nf; i += THREADS) {
+        const int row = i / nf, f = i % nf;
+        float sum = 0.f;
+        for (int p = 0; p < P; ++p) sum += RSA[row * R + f * P + p];
+        __stcs(ddp + (size_t)(2 * blk + row) * frames + f0 + f, sum);
+      }
+      if (blk > 0) {
+        save(slot(j, 2 * blocks), DD);
+      } else {  // ---- embedding + PE ----------------------------------------------
+        const float* xin = x + (size_t)f0 * P * 2;
+        for (int e = threadIdx.x; e < P * C; e += THREADS) {
+          const int p = e / C, c = e % C;
+          float s = 0.f;
+          for (int f = 0; f < nf; ++f) s += DD[(f * P + p) * PC + c];
+          SG[L::PE + e] += s;
+        }
+        colsum_add(C, [&](int r, int c) { return DD[r * PC + c]; },
+                   [&](int c) { return SG + L::EMB_B + c; }, red);
+        colsum_add(2 * C,
+                   [&](int r, int c) {
+                     return r < real ? op(xin[2 * r + c / C]) * op(DD[r * PC + c % C]) : 0.f;
+                   },
+                   [&](int c) { return SG + L::EMB_W + c; }, red);
+        for (int r = threadIdx.x; r < real; r += THREADS) {
+          float d0 = 0.f, d1 = 0.f;
+          for (int c = 0; c < C; ++c) {
+            d0 = fmaf(op(DD[r * PC + c]), op(w[L::EMB_W + c]), d0);
+            d1 = fmaf(op(DD[r * PC + c]), op(w[L::EMB_W + C + c]), d1);
+          }
+          __stcs(dx + ((size_t)f0 * P + r) * 2, d0);  // streamed: read by no one here
+          __stcs(dx + ((size_t)f0 * P + r) * 2 + 1, d1);
+        }
+      }
+      __syncthreads();
     }
-    for (int i = threadIdx.x; i < 2 * blocks * nf; i += THREADS) {
-      const int row = i / nf, f = i % nf;
-      float sum = 0.f;
-      for (int p = 0; p < P; ++p) sum += RSA[row * R + f * P + p];
-      __stcs(ddp + (size_t)row * frames + f0 + f, sum);
+    // BF16: the block's dW into its gradient row, once
+    for (int i = threadIdx.x; i < T::DW; i += THREADS) {
+      const int m = i / (C * C), e = i % (C * C);
+      const int off = m < 3 ? L::WQ + m * (C * C + C) + e
+                      : m == 3 ? L::WP + e
+                      : m < 6 ? L::W1 + i - T::DW_W1 : L::W2 + i - T::DW_W2;
+      gb[off] = DWS[i];
     }
     __syncthreads();
   }
@@ -834,8 +972,7 @@ template <int C, bool BF16>
 cudaError_t launch(const float* x, const float* g, const float* scales, const float* params,
                    float* dx, float* ddp, float* partial, float* scratch, int frames,
                    int blocks, int workers, cudaStream_t stream) {
-  const size_t smem =
-      sizeof(float) * (Tile<C>::FLOATS + small_floats<C>(blocks) + 2 * (size_t)blocks * R);
+  const size_t smem = sizeof(float) * (Tile<C, BF16>::FLOATS + small_floats<C>(blocks));
   int dev = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
@@ -843,7 +980,7 @@ cudaError_t launch(const float* x, const float* g, const float* scales, const fl
   if (err != cudaSuccess) return err;
   if (smem > (size_t)optin) return cudaErrorInvalidValue;
   err = cudaFuncSetAttribute(spatial_bwd_tc_kernel<C, BF16>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   spatial_bwd_tc_kernel<C, BF16><<<workers, THREADS, smem, stream>>>(
       x, g, scales, params, dx, ddp, partial, scratch, frames, blocks,
@@ -867,8 +1004,14 @@ extern "C" int spatial_bwd_workers(int c, int depth, int blocks, int frames) {
   return tiles < sms ? tiles : sms;
 }
 
-// Floats of checkpoint scratch spatial_bwd_f32 needs per gradient row.
-extern "C" int spatial_bwd_scratch_floats(int c, int blocks) { return (2 * blocks + 1) * R * c; }
+// Floats of scratch spatial_bwd_f32 needs per gradient row (thread block)
+// with `workers` of them: per tile of the block's, 2 x blocks + 1 slices of
+// 128 x c (the checkpoints, the contexts, the residual stream's gradient).
+extern "C" int spatial_bwd_scratch_floats(int c, int blocks, int frames, int workers) {
+  if (frames <= 0 || workers <= 0) return 0;
+  const int tiles = (frames + TF - 1) / TF, per = (tiles + workers - 1) / workers;
+  return per * (2 * blocks + 1) * R * c;
+}
 
 namespace {
 

@@ -68,14 +68,17 @@ __device__ __forceinline__ float gelu(float v) {
 // out[r, n] = epi(r, n, sum_k a(r, k) b(k, n)) for the warp's 16 rows (warp w
 // of its group: rows 16w..16w+15); epi returns a value summed per row into
 // rsum[r] when rsum is given. b_at(k, n) points at a staged weight's big TF32
-// half, its small half `small` floats further. FRESH: each 8-deep step's
+// half, its small half `small` floats further; SPLIT_B (K4): at the weight
+// itself, split into its halves as it is read (the same bits as staged
+// halves; `small` unused). FRESH: each 8-deep step's
 // three products go into a fresh partial that joins the fp32 accumulators
 // with a rounded add (the tensor cores round toward zero as they accumulate);
 // else one running sum per output in the tensor cores, which meets the
 // float64 criterion for K <= 64 (tests/test_torch_spatial_tc.py). BF16 (the
 // running sums only: K1's and K4's bf16 instances): A rounded to bf16, b_at a
 // staged weight already rounded (no small half), one TF32 product per pair.
-template <int K, int N, bool FRESH = true, bool BF16 = false, class A, class B, class Epi>
+template <int K, int N, bool FRESH = true, bool BF16 = false, bool SPLIT_B = false, class A,
+          class B, class Epi>
 __device__ __forceinline__ void rows_gemm(A a_at, B b_at, int small, Epi epi, float* rsum) {
   static_assert(!(BF16 && FRESH), "the bf16 mode keeps one running sum per output");
   constexpr int NJ = N / 8;
@@ -108,8 +111,16 @@ __device__ __forceinline__ void rows_gemm(A a_at, B b_at, int small, Epi epi, fl
     for (int j = 0; j < NJ; ++j) {
       const float* b0 = b_at(8 * kk + t, 8 * j + g);
       const float* b1 = b_at(8 * kk + t + 4, 8 * j + g);
-      const uint32_t bb[2] = {__float_as_uint(b0[0]), __float_as_uint(b1[0])};
-      const uint32_t bs[2] = {__float_as_uint(b0[small]), __float_as_uint(b1[small])};
+      uint32_t bb[2], bs[2];
+      if constexpr (SPLIT_B) {
+        uu::tf32_split(b0[0], bb[0], bs[0]);
+        uu::tf32_split(b1[0], bb[1], bs[1]);
+      } else {
+        bb[0] = __float_as_uint(b0[0]);
+        bb[1] = __float_as_uint(b1[0]);
+        bs[0] = __float_as_uint(b0[small]);
+        bs[1] = __float_as_uint(b1[small]);
+      }
       if (FRESH) {
         float part[4] = {0.f, 0.f, 0.f, 0.f};
         uu::mma_3xtf32(part, ab, as, bb, bs);

@@ -72,7 +72,7 @@ _SIGNATURES = {
     "strided": {"strided_conv_f32": "pppppiiiiiiip", "strided_conv_bf16": "pppppiiiiiiip"},
     "spatial_bwd": {
         "spatial_bwd_workers": "iiii",
-        "spatial_bwd_scratch_floats": "ii",
+        "spatial_bwd_scratch_floats": "iiii",
         "spatial_bwd_f32": "ppppppppiiiiip",
         "spatial_bwd_bf16": "ppppppppiiiiip",
         "sum_rows_f32": "ppiip",

@@ -4,9 +4,11 @@
 depth (`spatial.spatial_stack_plain` with scales) for an output gradient g:
 the gradients of all 21 stacked operands, dx (F, 17, 2) and dscales (2L, F),
 the three things `pallas_spatial_bwd.fused_spatial_stack_bwd` returns. On a
-CUDA tensor it launches `csrc/spatial_bwd.cu` (one kernel: tiles of 7 frames,
-the dense products on the tensor cores) and a fixed-order sum of the
-per-thread-block gradient rows; on a CPU tensor it runs
+CUDA tensor it launches `csrc/spatial_bwd.cu` (one kernel: tiles of 7 frames
+walked block-major by one thread block per SM, the dense products on the
+tensor cores; its scratch holds each tile's checkpoints, contexts and
+residual gradient, 545 MB at 25,600 frames and C = 32) and a fixed-order sum
+of the per-thread-block gradient rows; on a CPU tensor it runs
 `spatial_stack_bwd_plain`, torch.autograd of the plain version. On the bf16
 rung ("default") the kernel's bf16 instance (`spatial_bwd_bf16`): its forward
 replay rounds as K1's bf16 instance does, and every backward product takes
@@ -72,7 +74,7 @@ def spatial_stack_bwd(x: torch.Tensor, ops: Dict, scales: torch.Tensor, g: torch
         if workers <= 0:
             raise RuntimeError(f"spatial_bwd_workers: CUDA error {-workers}")
         partial = torch.empty((workers, packed.numel()), dtype=torch.float32, device=x.device)
-        scratch = torch.empty((workers, lib.spatial_bwd_scratch_floats(c, blocks)),
+        scratch = torch.empty((workers, lib.spatial_bwd_scratch_floats(c, blocks, f, workers)),
                               dtype=torch.float32, device=x.device)
         cuda_lib.launch("spatial_bwd", entry, COUNTER, x, g, scales, packed,
                         dx, ddp, partial, scratch, f, c, c // num_heads, blocks, workers)
