@@ -201,6 +201,23 @@ Phases (one line each; any failure ends the run with a non-zero exit):
      the recorded bits (`GEMM_DIGESTS`: the build before the pipelined
      kernel; `DW_DIGESTS`) and on a second call, its time beside the build
      before its kernel's redesign (`PARENT_MS`);
+ 16. the rest of the training path (run before phase 15's report), one line
+     a part, h36m_351 full width at B=512: (a) training at COMPUTE_DTYPE
+     bfloat16 at "high" and "default": the kernel path (K1/K4, K5 on fp32
+     operands, the tail bf16) against `kernels=False` (the model whole at
+     bf16) on one batch, the loss's and every gradient's distance from the
+     float32 step within 2x the plain bf16 path's, 10 steps ending within
+     2 % of float32's loss, ms per step and windows/s; (b) DROP_RATE,
+     ATTENTION_DROP_RATE and TOKEN_MASK_RATE 0.1 at the shipped rung: 10
+     steps on the plain path (no kernel stage launched), finite losses,
+     every dropout site's keep share and the token mask's share within 4
+     sigma, a repeat with the same seed equal bit for bit, ms per step; (c)
+     row 11 under mp = 2: the eval pass with USE_PALLAS_ATTENTION in phase
+     10's gloo ranks against one process (gap, row 11's launches per rank);
+     (d) the three training tools as subprocesses at a cut length, each
+     printing its JSON: `tools/rung_convergence.py` (2 epochs x 25 steps at
+     "default,high"), `tools/profile_train.py` (every variant once) and
+     `tools/soak_train.py` (a kill as epoch 3 starts, then `--resume`);
  15. one JSON line of per-kernel numbers, the card line again, and the last
      line `{"ok": true, "device": {...}}`.
 
@@ -1867,6 +1884,7 @@ TP_RANKS = 2     # gloo ranks sharing the card: dp = 1, mp = 2
 TP_WINDOWS = 64  # (a)'s split passes and (b)'s serving forward
 TP_BATCH = 64    # (b)'s train batch
 TP_STEPS = 3
+TP_PALLAS = {}  # phase 16 (c)'s line and verdict, computed in phase 10's ranks
 
 
 def tp_batches(np, rng, config):
@@ -1965,6 +1983,18 @@ def tp_rank(rank, world, store, seed, data, out_dir):
     out.update(serve=central.cpu(), serve_counts=dict(cuda_lib.LAUNCHES),
                serve_ms=time_ms(torch, lambda: step(uq, win_idx, sm), 3))
     del model, fp, step
+    # phase 16 (c): the eval pass with USE_PALLAS_ATTENTION, row 11 on the rank's heads
+    pconfig = get_config("h36m_351")
+    pconfig.USE_PALLAS_ATTENTION = True
+    model = build_uplift_upsample_transformer(pconfig, device=dev, seed=seed, tp=tp)
+    xw, smw = (t.to(dev) for t in data["pallas"])
+    torch.cuda.synchronize()
+    cuda_lib.reset_launches()
+    with torch.no_grad():
+        central = model(xw, smw)[1]
+    torch.cuda.synchronize()
+    out.update(pallas=central.cpu(), pallas_counts=dict(cuda_lib.LAUNCHES))
+    del model
     t0 = time.perf_counter()
     out["train"] = tp_train_steps(torch, tp_train_config(get_config), seed, data["batches"],
                                   dev, mesh)
@@ -2104,8 +2134,17 @@ def tp_phase(args, torch, np, rng, failed) -> None:
     t0 = time.perf_counter()
     ref = tp_train_steps(torch, tp_train_config(get_config), args.seed, batches, "cuda")
     ref_s_train = time.perf_counter() - t0
-    data = dict(split=(y.cpu(), key_mask.cpu()), shared=shared, batches=batches)
-    del model, fp, serve, local
+    # phase 16 (c)'s eval pass with USE_PALLAS_ATTENTION: the windows of (b) in one process
+    xw = torch.from_numpy(x2d[win] * sm_b[..., None, None])
+    smw = torch.from_numpy(sm_b)
+    pconfig = get_config("h36m_351")
+    pconfig.USE_PALLAS_ATTENTION = True
+    pmodel = build_uplift_upsample_transformer(pconfig, device="cuda", seed=args.seed)
+    with torch.no_grad():
+        pallas_ref = pmodel(xw.cuda(), smw.cuda())[1].cpu()
+    data = dict(split=(y.cpu(), key_mask.cpu()), shared=shared, batches=batches,
+                pallas=(xw, smw))
+    del model, fp, serve, local, pmodel
     torch.cuda.empty_cache()
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -2190,6 +2229,19 @@ def tp_phase(args, torch, np, rng, failed) -> None:
             + f" s, 1-process {ref_s_train:.1f} s")
         if not ok:
             failed.append("tp_train")
+        gaps = [float((r["pallas"] - pallas_ref).abs().max()) for r in ranks]
+        tol = 1e-5 * float(pallas_ref.abs().max())
+        row11 = [r["pallas_counts"].get("packed_attention", 0) for r in ranks]
+        layers = (config.SPATIAL_TRANSFORMER_BLOCKS + config.TEMPORAL_TRANSFORMER_BLOCKS
+                  + len(config.STRIDES))
+        ok = max(gaps) <= tol and all(c_ == layers for c_ in row11)
+        TP_PALLAS.update(line=(
+            f"phase 16 (c) row 11 under mp = {TP_RANKS} (phase 10's gloo ranks): the eval "
+            f"pass with USE_PALLAS_ATTENTION on {TP_WINDOWS} windows, each rank's heads "
+            f"({config.NUM_HEADS // TP_RANKS}) through row 11: largest gap to one process "
+            f"{max(gaps):.3e} (bar 1e-5 x max |ref| = {tol:.3e}); row 11 launches per rank "
+            f"{row11} (want {layers}, one per attention layer) ({card}); "
+            f"{'ok' if ok else 'FAILED'}"), ok=ok)
     log(f"phase 10 (a)+(b) the ranks' spawn to exit {spawn_s:.1f} s")
 
     # (c) the dry-run tool over 4 gloo ranks on the card
@@ -3071,6 +3123,234 @@ def train_rungs_phase(args, torch, np, rng, failed, record):
         failed.append("train_rung_bench_cli")
     log(f"phase 12 wall {time.perf_counter() - t_phase:.1f} s ({card_line()})")
     return counts
+
+
+# ---- phase 16: the rest of the training path ----------------------------------
+
+BF16_TRAIN_BAR = 2.0     # (a): the kernel path's distance within 2x the plain bf16 path's
+BF16_LOSS_BAR = 0.02     # (a): 10 bf16 steps end within 2 % of float32's loss
+DROP_KNOBS = dict(DROP_RATE=0.1, ATTENTION_DROP_RATE=0.1, TOKEN_MASK_RATE=0.1)
+TRAIN_KERNEL_KEYS = ("spatial_stack", "spatial_bwd", "temporal_train_fwd",
+                     "temporal_train_bwd", "strided_train_fwd", "strided_train_bwd")
+TOOL_STEPS = 25          # (d): rung_convergence's steps an epoch
+
+
+def training_slice_phase(args, torch, np, rng, failed) -> None:
+    """Phase 16: (a) bf16 activations in training, (b) dropout and token
+    masking, (c) row 11 under mp = 2 (computed in phase 10's ranks), (d) the
+    three training tools; one line a part (module docstring)."""
+    from uplift_upsample_torch.configs import get_config
+    from uplift_upsample_torch.data.fast_batcher import FastH36mBatcher
+    from uplift_upsample_torch.models import build_uplift_upsample_transformer
+    from uplift_upsample_torch.models.primitives import Dropout
+    from uplift_upsample_torch.ops import cuda_lib
+    from uplift_upsample_torch.parallel import make_optimizer, make_train_step
+    from uplift_upsample_torch.parallel.train_step import (batch_to_device, make_loss_fn,
+                                                           step_generator)
+    from uplift_upsample_torch.tools.profile_train import VARIANTS
+
+    dev = torch.device("cuda")
+    card = card_line()
+    base = get_config("h36m_351")  # B=512, mask strides [5, 10, 20], stochastic depth
+    b, steps = base.BATCH_SIZE, WARMUP_STEPS + TIMED_STEPS
+    seqs = train_sequences(np, rng, base.NUM_KEYPOINTS)
+    feed = FastH36mBatcher(train_generator(np, base, *seqs), batch_size=b).batches()
+    batches, host_ms = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        batches.append(batch_to_device(next(feed), dev))
+        host_ms.append(1e3 * (time.perf_counter() - t0))
+    host = float(np.mean(host_ms[WARMUP_STEPS:]))
+
+    def configured(**over):
+        config = base.copy()
+        config.update_from(over)
+        return config
+
+    def one_batch(config, kernels):
+        """The loss and every gradient of one step's batch."""
+        model = build_uplift_upsample_transformer(config, device=dev, seed=args.seed).train()
+        loss = make_loss_fn(model, config, kernels=kernels)(
+            batches[0], step_generator(config.SHUFFLE_SEED, 0))
+        loss.backward()
+        out = float(loss), {k: p.grad.detach().clone() for k, p in model.named_parameters()}
+        del model
+        return out
+
+    def run_steps(config, stats=None):
+        """`steps` steps on the batches: (losses, card ms per step after the
+        warm-up, launches of those, the final parameters)."""
+        model = build_uplift_upsample_transformer(config, device=dev, seed=args.seed)
+        opt, _, _ = make_optimizer(config)
+        state = opt.init(model, ema=bool(config.EMA_ENABLED))
+        step = make_train_step(model, opt, config, device=dev)
+        losses, ms = [], []
+        for i, batch in enumerate(batches):
+            if i == WARMUP_STEPS:
+                torch.cuda.synchronize()
+                cuda_lib.reset_launches()
+            if stats is not None and i == 0:
+                stats(model, True)
+            ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            ev0.record()
+            state, loss = step(state, batch)
+            ev1.record()
+            ev1.synchronize()
+            if stats is not None and i == 0:
+                stats(model, False)
+            losses.append(float(loss))
+            ms.append(ev0.elapsed_time(ev1))
+        launches = dict(cuda_lib.LAUNCHES)
+        params = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        del model, state, step
+        torch.cuda.empty_cache()
+        return losses, float(np.mean(ms[WARMUP_STEPS:])), launches, params
+
+    # (a) bf16 activations in training
+    t0 = time.perf_counter()
+    parts, ok = [], True
+    for rung in ("high", "default"):
+        l32, g32 = one_batch(configured(TRAIN_MATMUL_PRECISION=rung), False)
+        bf16 = configured(TRAIN_MATMUL_PRECISION=rung, COMPUTE_DTYPE="bfloat16")
+        lk, gk = one_batch(bf16, True)
+        lp, gp = one_batch(bf16, False)
+        worst, worst_key = 0.0, None
+        for key, ref in g32.items():
+            if key.endswith("attn.wk.bias"):  # a true gradient of 0: noise on every side
+                continue
+            dk = float((gk[key] - ref).abs().mean())
+            dpl = float((gp[key] - ref).abs().mean()) + 1e-7 * float(ref.abs().max())
+            if dk / dpl > worst:
+                worst, worst_key = dk / dpl, key
+        loss_ratio = abs(lk - l32) / max(abs(lp - l32), 1e-12)
+        del g32, gk, gp
+        losses16, ms16, seen, _ = run_steps(bf16)
+        losses32, ms32, _, _ = run_steps(configured(TRAIN_MATMUL_PRECISION=rung))
+        gap = abs(losses16[-1] - losses32[-1]) / abs(losses32[-1])
+        launched = all(seen.get(k, 0) > 0 for k in TRAIN_KERNEL_KEYS[:4])
+        good = (worst <= BF16_TRAIN_BAR and loss_ratio <= BF16_TRAIN_BAR and gap <= BF16_LOSS_BAR
+                and launched and all(map(math.isfinite, losses16)))
+        ok = ok and good
+        parts.append(
+            f"{rung}: loss distance to float32 {abs(lk - l32):.3e} (kernel) vs "
+            f"{abs(lp - l32):.3e} (plain bf16), ratio {loss_ratio:.3f}; worst gradient ratio "
+            f"{worst:.3f} ({worst_key}); 10 steps end {losses16[-1]:.6f} vs float32 "
+            f"{losses32[-1]:.6f} (gap {gap:.2e}); card {ms16:.3f} ms/step (float32 {ms32:.3f}), "
+            f"host batch {host:.3f} ms, {b / ((ms16 + host) / 1e3):.1f} windows/s; K1/K4/K5 "
+            f"launched {'yes' if launched else 'NO'}; {'ok' if good else 'FAILED'}")
+    log(f"phase 16 (a) training at COMPUTE_DTYPE bfloat16, B={b}, bars: ratios <= "
+        f"{BF16_TRAIN_BAR}, loss gap <= {BF16_LOSS_BAR}: " + " | ".join(parts)
+        + f" ({card}); wall {time.perf_counter() - t0:.1f} s")
+    if not ok:
+        failed.append("train_bf16")
+
+    # (b) dropout and token masking at the shipped rung
+    t0 = time.perf_counter()
+    dconfig = configured(**DROP_KNOBS)
+    shares = {}
+
+    def record_draws(model, on):
+        """The first step's draws: each site's (kept, elements), the token
+        mask (the frames its zero token replaced)."""
+        for name, site in model.named_modules():
+            if isinstance(site, Dropout) and site.rate > 0:
+                site.stats = shares.setdefault(name, []) if on else None
+        if not on:
+            del model._token_mask  # the class's method again
+            return
+        real = model._token_mask
+
+        def token_mask(x):
+            out = real(x)
+            shares.setdefault("token_mask", []).append((out == 0).all(-1))
+            return out
+        model._token_mask = token_mask
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        losses, ms, seen, params = run_steps(dconfig, stats=record_draws)
+        again, _, _, params_again = run_steps(dconfig)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    outside = []
+    for name, recs in shares.items():
+        if name == "token_mask":
+            masked = recs[0]
+            mid = base.SEQUENCE_LENGTH // 2
+            ok_mid = not bool(masked[:, mid].any())
+            others = torch.cat([masked[:, :mid], masked[:, mid + 1:]], 1)
+            p_, count, hit = DROP_KNOBS["TOKEN_MASK_RATE"], others.numel(), float(others.sum())
+            if not ok_mid:
+                outside.append("token_mask central")
+        else:
+            (kept, count), = recs
+            p_, hit = 1.0 - DROP_KNOBS["DROP_RATE"], float(kept)
+        if abs(hit / count - p_) > 4 * math.sqrt(p_ * (1 - p_) / count):
+            outside.append(name)
+    fused = {k: seen.get(k, 0) for k in TRAIN_KERNEL_KEYS if seen.get(k, 0)}
+    same = again == losses and all(torch.equal(v, params_again[k]) for k, v in params.items())
+    good = (not fused and all(map(math.isfinite, losses)) and not outside and same
+            and len(shares) > 1)
+    log(f"phase 16 (b) h36m_351 with {DROP_KNOBS} at the shipped rung "
+        f"({base.TRAIN_MATMUL_PRECISION!r}), B={b}: {len(losses)} steps on the plain path, "
+        f"losses {losses[0]:.6f} -> {losses[-1]:.6f}; kernel launches {fused or 'none'}; "
+        f"{len(shares) - 1} dropout sites and the token mask drawn, shares outside 4 sigma: "
+        f"{outside or 'none'}; a repeat with the same seed equal bit for bit: "
+        f"{'yes' if same else 'NO'}; card {ms:.3f} ms/step, host batch {host:.3f} ms, "
+        f"{b / ((ms + host) / 1e3):.1f} windows/s ({card}); {'ok' if good else 'FAILED'}; "
+        f"wall {time.perf_counter() - t0:.1f} s")
+    if not good:
+        failed.append("train_dropout")
+    del params, params_again
+    torch.cuda.empty_cache()
+
+    # (c) row 11 under mp = 2, from phase 10's ranks
+    log(TP_PALLAS.get("line", "phase 16 (c) row 11 under mp = 2: phase 10's ranks gave no "
+                              "result; FAILED"))
+    if not TP_PALLAS.get("ok"):
+        failed.append("tp_pallas")
+
+    # (d) the three training tools at a cut length
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        data = ["--data-dir", os.path.join(tmp, "data"), "--action-frames", "600"]
+        mod = "uplift_upsample_torch.tools."
+        tools = [
+            ("rung_convergence", [sys.executable, "-m", mod + "rung_convergence", "--rungs",
+                                  "default,high", "--epochs", "2", "--steps-per-epoch",
+                                  str(TOOL_STEPS), "--validation-examples", "1024",
+                                  "--out-base", os.path.join(tmp, "rc"), *data], 3),
+            ("profile_train", [sys.executable, "-m", mod + "profile_train", "--reps", "1",
+                               "--logdir", os.path.join(tmp, "trace")], len(VARIANTS) + 1),
+            ("soak_train (killed)", [sys.executable, "-m", mod + "soak_train", "--epochs", "3",
+                                     "--steps-per-epoch", "20", "--checkpoint-interval", "1",
+                                     "--validation-interval", "1", "--validation-examples",
+                                     "1024", "--rss-interval", "2", "--log-every", "10",
+                                     "--kill-after-epoch", "2", "--out-dir",
+                                     os.path.join(tmp, "soak"), *data], 0),
+            ("soak_train --resume", [sys.executable, "-m", mod + "soak_train", "--epochs", "3",
+                                     "--steps-per-epoch", "20", "--checkpoint-interval", "1",
+                                     "--validation-interval", "1", "--validation-examples",
+                                     "1024", "--rss-interval", "2", "--log-every", "10",
+                                     "--resume", "--out-dir", os.path.join(tmp, "soak"),
+                                     *data], 1)]
+        parts, ok = [], True
+        for label, cmd, want in tools:
+            rc, lines, wall = run_cli(cmd, timeout=300)
+            out = [ln for ln in lines if ln.startswith("{")]
+            good = (rc == (3 if "killed" in label else 0)) and len(out) >= want
+            if label == "rung_convergence" and good:
+                good = json.loads(out[-1]).get("within_bar") is not None
+            if label == "soak_train --resume" and good:
+                good = json.loads(out[-1])["continuity"]["continues"]
+            ok = ok and good
+            parts.append(f"{label}: exit {rc} after {wall:.1f} s, {'ok' if good else 'FAILED'}"
+                         + "".join(f"\n    {ln}" for ln in out))
+    log("phase 16 (d) the training tools at a cut length: " + "; ".join(parts)
+        + f" ({card}); wall {time.perf_counter() - t0:.1f} s")
+    if not ok:
+        failed.append("train_tools")
 
 
 # ---- phase 13: the bf16 serving slice -----------------------------------------
@@ -4394,6 +4674,10 @@ def main(argv=None) -> int:
     log(f"phase 14 card: {card_line()}")
     if bad:
         failed.append(f"gemm_digests {bad}")
+
+    # ---- phase 16: the rest of the training path (before the report) ---------
+    starts.append(("16", time.perf_counter()))
+    training_slice_phase(args, torch, np, rng, failed)
 
     # ---- phase 15: report ----------------------------------------------------
     starts.append(("15", time.perf_counter()))

@@ -163,14 +163,24 @@ def test_config_flag_reaches_packed_attention(monkeypatch):
     torch.testing.assert_close(outs[True], outs[False], atol=2e-5, rtol=1e-4)
 
 
-def test_training_with_pallas_raises():
+def test_training_with_pallas_raises(monkeypatch):
     """The op has no backward (the JAX kernel has no VJP of its own):
-    training with USE_PALLAS_ATTENTION raises instead of differentiating
-    something else."""
+    training with USE_PALLAS_ATTENTION and no attention dropout raises
+    instead of differentiating something else. With attention dropout the
+    JAX gate takes the split-head path in training (`primitives.py:95`),
+    and so does the port: it trains without calling row 11's op."""
     model = UpliftUpsampleTransformer(use_pallas=True, **SMALL_KWARGS).train()
     x = torch.zeros(2, 9, 17, 2)
     with pytest.raises(NotImplementedError, match="USE_PALLAS_ATTENTION"):
         model(x, torch.ones(2, 9, dtype=torch.bool))
+    calls = []
+    monkeypatch.setattr(primitives, "packed_multihead_attention",
+                        lambda *a, **kw: calls.append(a))
+    model = UpliftUpsampleTransformer(use_pallas=True, attn_drop_rate=0.1,
+                                      **SMALL_KWARGS).train()
+    _, central = model(torch.randn(2, 9, 17, 2), torch.ones(2, 9, dtype=torch.bool))
+    central.sum().backward()
+    assert torch.isfinite(model.spatial_block_1.attn.wq.weight.grad).all() and not calls
 
 
 def test_wrapper_takes_plain_path_on_cpu():

@@ -296,32 +296,44 @@ def test_fp32_rungs_unchanged(case, fused):
         assert torch.equal(got, omitted(path)), rung
 
 
-def _raises_training_bf16(spatial=False):
-    from uplift_upsample_torch.parallel.train_step import make_loss_fn
+def _trains_at_bf16(spatial=False):
+    """Training at COMPUTE_DTYPE or SPATIAL_COMPUTE_DTYPE bfloat16 runs (A10):
+    one step of the plain path at the model's dtypes, a finite loss, bf16
+    outputs from the model; held against flax in test_torch_train_bf16.py."""
+    from uplift_upsample_torch.parallel.train_step import make_loss_fn, step_generator
 
     key = "SPATIAL_COMPUTE_DTYPE" if spatial else "COMPUTE_DTYPE"
-    config = _config(**{key: "bfloat16"})
-    model = build_uplift_upsample_transformer(config, device="cpu")
-    with pytest.raises(NotImplementedError, match="A10"):
-        make_loss_fn(model, config)
+    config = _config(**{key: "bfloat16", "BATCH_SIZE": 2, "TRAIN_MATMUL_PRECISION": "high"})
+    model = build_uplift_upsample_transformer(config, device="cpu").train()
+    n = config.SEQUENCE_LENGTH
+    sm = torch.from_numpy((np.arange(n) % 5 == 0)[None].repeat(2, 0))
+    x = torch.randn(2, n, 17, 2) * 0.3 * sm[:, :, None, None]
+    assert model.spatial_block_1.mlp.fc1.dtype == torch.bfloat16
+    assert model(x, sm)[1].dtype == (torch.float32 if spatial else torch.bfloat16)
+    loss = make_loss_fn(model, config)((torch.randn(2, n, 17, 3), x, sm), step_generator(0, 0))
+    loss.backward()
+    assert loss.dtype == torch.float32 and torch.isfinite(loss)
+    assert torch.isfinite(model.keypoint_embedding.weight.grad).all()
 
 
-def _raises_bench_train_bf16():
+def _bench_trains_at_bf16():
+    """`bench --train --dtype bfloat16` prints its train line (A10)."""
     from uplift_upsample_torch import bench
 
-    with pytest.raises(NotImplementedError, match="A10"):
-        bench.main(["--device", "cpu", "--train", "--dtype", "bfloat16", "--batch", "2",
-                    "--iters", "2"])
+    bench.main(["--device", "cpu", "--train", "--dtype", "bfloat16", "--batch", "2",
+                "--iters", "2", "--train-precision", "high"])
 
 
-def _raises_pallas_split():
+def _pallas_splits_over_mp():
+    """USE_PALLAS_ATTENTION builds under mp > 1 (A7): the packed op on the
+    rank's heads; against one process in test_torch_packed_attention_tp.py."""
     from uplift_upsample_torch.models.primitives import MultiHeadAttention
 
     class Split:  # an mp group of two
         size, rank = 2, 0
 
-    with pytest.raises(NotImplementedError, match="A7"):
-        MultiHeadAttention(64, num_heads=8, use_pallas=True, tp=Split())
+    attn = MultiHeadAttention(64, num_heads=8, use_pallas=True, tp=Split())
+    assert attn.use_pallas and attn.num_heads == 4 and attn.wq.weight.shape == (32, 64)
 
 
 def _raises_pallas_training():
@@ -338,25 +350,28 @@ def _raises_unknown_rung():
 
 
 STILL_RAISES = {
-    "training_compute_dtype": _raises_training_bf16,
-    "training_spatial_compute_dtype": lambda: _raises_training_bf16(spatial=True),
-    "bench_train_bf16": _raises_bench_train_bf16,
-    "pallas_split_over_mp": _raises_pallas_split,
+    "training_compute_dtype": _trains_at_bf16,
+    "training_spatial_compute_dtype": lambda: _trains_at_bf16(spatial=True),
+    "bench_train_bf16": _bench_trains_at_bf16,
+    "pallas_split_over_mp": _pallas_splits_over_mp,
     "pallas_in_training": _raises_pallas_training,
     "unknown_rung": _raises_unknown_rung,
 }
 
 
 @pytest.mark.parametrize("what", list(STILL_RAISES))
-def test_what_is_not_ported_still_raises(what, monkeypatch):
-    """(f): what stays unported raises: training at COMPUTE_DTYPE or
-    SPATIAL_COMPUTE_DTYPE bfloat16 (the step and the bench's --train; ROADMAP
-    A10), USE_PALLAS_ATTENTION split over mp > 1 or in training (A7), and a
-    rung the eval does not know. bf16 activations, row 11 on the bf16 rung and
-    the bf16 rung under mp > 1 no longer raise (`test_torch_bf16_model.py`,
-    `test_torch_packed_attention_bf16.py`, `test_torch_tensor_parallel.py`)."""
+def test_what_is_not_ported_still_raises(what, monkeypatch, capsys):
+    """(f): what raises still raises: USE_PALLAS_ATTENTION in training
+    without attention dropout (the JAX step fails there too) and a rung the
+    eval does not know. The cases that raised until the port had them now
+    check that they run: training at COMPUTE_DTYPE or SPATIAL_COMPUTE_DTYPE
+    bfloat16, in the step and the bench's --train (A10), and
+    USE_PALLAS_ATTENTION split over mp > 1 (A7)."""
     monkeypatch.setenv("BENCH_BUDGET_S", "0")
     STILL_RAISES[what]()
+    if what == "bench_train_bf16":
+        result = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+        assert result["metric"] == "train_windows_per_sec_per_chip_n351" and result["value"] > 0
 
 
 def test_drift_matrix_on_the_cpu(capsys):

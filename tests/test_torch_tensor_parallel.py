@@ -19,8 +19,8 @@ against one process and the JAX package's TP mesh (tests/test_parallel.py):
   - the dry-run tool at `--device cpu --config tiny --devices 4`: exit 0,
     MULTICHIP_CORE_OK and 9/9 stages; without a card and without
     `--device cpu` it raises;
-  - the bench routes other than the default and USE_PALLAS_ATTENTION raise
-    under mp > 1.
+  - the bench routes other than the default raise under mp > 1;
+    USE_PALLAS_ATTENTION builds there.
 
 Each multi-process run stays inside one test function, on a `file://` store
 under tmp_path; torch runs on one thread.
@@ -355,6 +355,9 @@ def test_other_routes_raise_under_tp():
                   dict(temporal_attn="banded", fuse_s2t=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP A6"):
             bench_forward(model, x, sm, fused_params={}, **route)
+    # USE_PALLAS_ATTENTION builds under mp > 1: row 11 on the rank's heads
+    # (against one process: tests/test_torch_packed_attention_tp.py)
     config.USE_PALLAS_ATTENTION = True
-    with pytest.raises(NotImplementedError, match="USE_PALLAS_ATTENTION"):
-        build_uplift_upsample_transformer(config, device="cpu", tp=fake)
+    model = build_uplift_upsample_transformer(config, device="cpu", tp=fake)
+    attn = model.temporal_block_1.attn
+    assert attn.use_pallas and attn.num_heads == config.NUM_HEADS // 2

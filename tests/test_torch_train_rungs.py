@@ -85,6 +85,38 @@ def test_rung_map(monkeypatch, rung, fused):
     """Each stage receives the rung of section 1's table: the spatial kernels
     (K1 / K4) the first, K5 and K6 the second, the plain products (the s2t
     Dense, head1, the tail) and the stages that run plain the third."""
+    seen = _rungs_seen(monkeypatch, rung, fused)
+    sp, tm, plain = TABLE[rung]
+    assert train_rungs(rung) == TABLE[rung]
+    assert seen["plain"] == {plain}
+    if fused:
+        assert seen["spatial"] == {sp} and seen["temporal"] == {tm} and seen["strided"] == {tm}
+        assert "spatial_plain" not in seen and "temporal_plain" not in seen
+    else:
+        assert seen["spatial_plain"] == {plain} and seen["spatial_attention"] == {plain}
+        assert seen["temporal_plain"] == {plain}
+        assert not {"spatial", "temporal", "strided"} & set(seen)
+
+
+@pytest.mark.parametrize("fused", [True, False])
+@pytest.mark.parametrize("unset", [None, ""])
+def test_unset_rung_is_mixed(monkeypatch, capsys, tmp_path, unset, fused):
+    """C8: a null or empty TRAIN_MATMUL_PRECISION (`Config.load` reads a JSON
+    null as None) trains at "mixed", as the JAX step reads it
+    (`uplift_upsample_tpu/parallel/train_step.py:218`): every stage gets
+    "mixed"'s rung, and the CLI's log line names that map."""
+    from uplift_upsample_torch import train
+
+    assert _rungs_seen(monkeypatch, unset, fused) == _rungs_seen(monkeypatch, "mixed", fused)
+    with pytest.raises(Exception):  # no dataset: it stops after the log line
+        train.train_and_validate(config=_config(TRAIN_MATMUL_PRECISION=unset),
+                                 out_dir=str(tmp_path), device="cpu", export_h5=False)
+    assert f"rungs {TABLE['mixed']}" in capsys.readouterr().out
+
+
+def _rungs_seen(monkeypatch, rung, fused):
+    """{stage: the rungs it ran at} over one step at TRAIN_MATMUL_PRECISION
+    `rung`, with the three kernel stages on (`fused`) or plain."""
     seen = {}
 
     def record(name, fn):
@@ -110,16 +142,8 @@ def test_rung_map(monkeypatch, rung, fused):
             lambda m, i, o: seen.setdefault("plain", set()).add(precision.current()))
     opt, _, _ = make_optimizer(config)
     make_train_step(model, opt, config, device="cpu")(opt.init(model, ema=False), _batch())
-    sp, tm, plain = TABLE[rung]
-    assert train_rungs(rung) == TABLE[rung]
-    assert seen["plain"] == {plain}
-    if fused:
-        assert seen["spatial"] == {sp} and seen["temporal"] == {tm} and seen["strided"] == {tm}
-        assert "spatial_plain" not in seen and "temporal_plain" not in seen
-    else:
-        assert seen["spatial_plain"] == {plain} and seen["spatial_attention"] == {plain}
-        assert seen["temporal_plain"] == {plain}
-        assert not {"spatial", "temporal", "strided"} & set(seen)
+    monkeypatch.undo()
+    return seen
 
 
 def test_unknown_rungs_raise(monkeypatch, tmp_path):

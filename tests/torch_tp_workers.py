@@ -55,6 +55,22 @@ def forward(rank, world, store, dp, mp, config_values, init_path, inputs, out_di
     mesh.close()
 
 
+def packed_forward(rank, world, store, dp, mp, config_values, init_path, inputs, out_dir):
+    """`forward` with every call of the packed attention op recorded: its
+    q's shape and head count per call."""
+    from uplift_upsample_torch.models import primitives
+
+    calls, op = [], primitives.packed_multihead_attention
+
+    def recording(q, k, v, mask=None, *, num_heads, precision="high"):
+        calls.append((tuple(q.shape), num_heads))
+        return op(q, k, v, mask, num_heads=num_heads, precision=precision)
+
+    primitives.packed_multihead_attention = recording
+    forward(rank, world, store, dp, mp, config_values, init_path, inputs, out_dir)
+    _save(out_dir, f"{rank}_calls", calls)
+
+
 def train_steps(rank, world, store, dp, mp, runs, out_dir):
     """Per run {name: (config values, init_path, global batches)}, the TP
     train step on the rank's dp rows of each batch: losses, the rank's local

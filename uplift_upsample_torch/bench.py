@@ -34,9 +34,9 @@ Prints ONE JSON line on stdout; progress and a summary line on stderr.
 kernels' bf16 instances, `precision.py`); --train-precision puts the
 training rung (TRAIN_MATMUL_PRECISION: "default", "mixed", "high",
 "highest") into the train step's config, as the JAX bench does; --dtype
-bfloat16 (COMPUTE_DTYPE: bf16 activations) runs the eval step's model at
-bf16 (the fused kernels keep fp32 operands, the tail runs bf16) and raises
-with --train (ROADMAP A10). --eval-wpt, --spatial-block-f,
+bfloat16 (COMPUTE_DTYPE: bf16 activations) runs the model at bf16 in the
+eval step or, with --train, in the train step (the kernels keep fp32
+operands, the tail runs bf16). --eval-wpt, --spatial-block-f,
 --train-spatial-attn and --train-wpt are TPU kernel tilings: they are read
 and logged, and change nothing.
 """
@@ -168,7 +168,8 @@ def bench_train(args, bench: Bench, torch, dev):
         "TRAIN_FUSED_SPATIAL": args.train_fused,
         "TRAIN_FUSED_TEMPORAL": args.train_fused_temporal,
         "TRAIN_MATMUL_PRECISION": args.train_precision,
-        "COMPUTE_DTYPE": args.dtype,  # bfloat16 raises in the step (ROADMAP A10)
+        # bfloat16: the kernels on fp32 operands, the tail at bf16 (train_step.py)
+        "COMPUTE_DTYPE": args.dtype,
     })
     bench.progress("building model + optimizer state")
     model = build_uplift_upsample_transformer(config, device=dev, seed=0)
@@ -359,8 +360,8 @@ def parse_args(argv=None):
                         help="batch size (default: 2048 eval / 512 train)")
     parser.add_argument("--iters", type=int, default=32)
     parser.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"],
-                        help="COMPUTE_DTYPE of the eval step's model; bfloat16 with "
-                             "--train raises (ROADMAP A10)")
+                        help="COMPUTE_DTYPE of the model, in the eval step or with "
+                             "--train in the train step (bf16 activations)")
     parser.add_argument("--flip-tta", action="store_true")
     parser.add_argument("--pallas", action="store_true",
                         help="USE_PALLAS_ATTENTION: the packed attention kernel in the "

@@ -74,6 +74,8 @@ def model_kwargs(config: UpliftUpsampleConfig) -> dict:
         num_heads=config.NUM_HEADS,
         mlp_ratio=config.MLP_RATIO,
         qkv_bias=config.QKV_BIAS,
+        attn_drop_rate=config.ATTENTION_DROP_RATE,
+        drop_rate=config.DROP_RATE,
         drop_path_rate=(tuple(config.DROP_PATH_RATE)
                         if isinstance(config.DROP_PATH_RATE, list) else config.DROP_PATH_RATE),
         output_bn=config.OUTPUT_BN,

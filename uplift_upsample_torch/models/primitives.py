@@ -8,14 +8,23 @@ Numeric parity targets (reference `vision_transformer.py`, strided variants in
     (`ops/packed_attention.py`, row 11) where the JAX package runs its Pallas
     kernel: S <= 128 and no mask or a (B, 1, 1, S) key mask.
   - Pre-norm blocks with LayerNorm eps 1e-5.
-  - MLP: Linear(hidden) → act → Linear(out).
-  - StridedMlp: pointwise Linear → act → explicit zero-pad →
-    Conv1d(k=3, stride=s, VALID); this is the temporal downsampler.
+  - MLP: Linear(hidden) → act → inner dropout → Linear(out) → dropout.
+  - StridedMlp: pointwise Linear → act → inner dropout → explicit zero-pad →
+    Conv1d(k=3, stride=s, VALID) → dropout; this is the temporal downsampler.
+  - Dropout (DROP_RATE, ATTENTION_DROP_RATE) at flax's sites: each block's
+    MLP output and attention output (proj), the attention weights, and the
+    MLP's hidden layer where the JAX block sets `inner_dropout` (temporal
+    and strided blocks, not spatial ones). `Dropout` is flax's nn.Dropout,
+    drawn on the activation's device from a generator the train step sets;
+    the identity under `model.eval()`. Attention-weight dropout sends
+    `use_pallas` layers to the split-head path, as the JAX gate does.
   - StridedTransformerBlock's residual path: crop one frame per unpadded end,
     then take every s-th frame (MaxPool1D(pool_size=1, strides=s) semantics).
   - DropPath (stochastic depth) drops whole samples with probability rate and
     scales the kept ones by 1/keep in training (`model.train()`); it is the
-    identity under `model.eval()`.
+    identity under `model.eval()`. A block can instead take its two
+    branches' per-sample scales (`droppath=`), as the train step's plain
+    stages take the kernels' draws.
   - Products follow the matmul precision context (`precision.py`): the Dense
     layers (`Dense`), the strided conv (`StridedConv1d`) and the attention's
     two products round their operands to bf16 on the "default" rung and run
@@ -28,8 +37,9 @@ Numeric parity targets (reference `vision_transformer.py`, strided variants in
     flax's Dense(dtype=bfloat16) on the TPU, whatever the rung); LayerNorm
     takes its statistics in fp32 and returns `dtype`; the attention's logits
     and softmax are fp32, the probabilities rounded to bf16 for P·V and the
-    context bf16 (`ops/attention.py`). Parameters stay fp32. Training at a
-    dtype other than the parameters' raises (`parallel/train_step.py`).
+    context bf16 (`ops/attention.py`). Parameters stay fp32; in training
+    autograd takes the backward of the bf16 products as they run (bf16
+    operands, a bf16 gradient cast back to the fp32 parameter).
 
 Tensor parallelism (`tp`, a `parallel.sharding.TensorParallel` with size >
 1): MultiHeadAttention, Mlp and StridedMlp hold their mp rank's shard (the
@@ -38,7 +48,11 @@ of fc2's or the conv's inputs), take their input through `copy_to_tp` and
 sum the proj / fc2 / conv partials with `reduce_from_tp`, adding the
 replicated bias after the reduction: the Megatron pairing that GSPMD runs
 for the JAX package's `shard_params_tp`. The state_dict keys stay the same;
-the tensors are the shards.
+the tensors are the shards. With `use_pallas` the packed attention op runs
+on the rank's heads (whole heads: no collective) before the split proj.
+A dropout site on a split tensor (the attention weights' heads, the MLP's
+hidden channels) draws the whole tensor's mask and keeps the rank's block,
+so the ranks apply one process's draws.
 
 Sub-module names follow the flax names (norm1, attn.wq, mlp.fc1, ...), so a
 flax parameter path maps onto a state_dict key by renaming leaves only
@@ -212,10 +226,79 @@ def _mp(tp: Optional[TensorParallel]) -> int:
     return 1 if active(tp) is None else tp.size
 
 
+class Dropout(nn.Module):
+    """flax's nn.Dropout: in training each element is kept when U[0, 1) <
+    keep = 1 - rate and the output is where(kept, x / keep, 0) in x's dtype
+    (zeros at rate 1); the identity under eval or at rate 0.
+
+    U is drawn on x's device from `self.generator` (set by the train step;
+    the device's default generator when None). `rows` = (start, count,
+    total): x holds windows [start, start + count) of a batch of `total`
+    along dim 0, each window dim 0's rows x.shape[0] / count (frames in
+    the spatial stage): U is drawn for the whole batch and those rows kept.
+    `part` = (dim, index, parts): x holds block `index` of `parts` equal
+    blocks of dim `dim` (a tensor-parallel shard): U is drawn whole and the
+    block kept. Both make a rank apply the one-process draws.
+
+    Hooks: `fixed_keep`, a boolean mask of x's shape used instead of a draw;
+    `stats`, a list to which each draw appends (kept count, elements).
+    """
+
+    def __init__(self, rate: float = 0.0, part: Optional[Tuple[int, int, int]] = None):
+        super().__init__()
+        self.rate = float(rate)
+        self.part = part
+        self.generator: Optional[torch.Generator] = None
+        self.rows: Optional[Tuple[int, int, int]] = None
+        self.fixed_keep: Optional[torch.Tensor] = None
+        self.stats: Optional[list] = None
+
+    def draw(self, x: torch.Tensor) -> torch.Tensor:
+        """The boolean keep mask of x's shape."""
+        shape, index = list(x.shape), [slice(None)] * x.dim()
+        if self.rows is not None:
+            start, count, total = self.rows
+            per = x.shape[0] // count
+            shape[0] = total * per
+            index[0] = slice(start * per, (start + count) * per)
+        if self.part is not None:
+            dim, block, parts = self.part
+            dim %= x.dim()
+            shape[dim] = x.shape[dim] * parts
+            index[dim] = slice(block * x.shape[dim], (block + 1) * x.shape[dim])
+        u = torch.rand(shape, generator=self.generator, device=x.device)
+        return (u < 1.0 - self.rate)[tuple(index)]
+
+    def forward(self, x):
+        if not self.training or self.rate == 0.0:
+            return x
+        if self.rate >= 1.0:
+            return torch.zeros_like(x)
+        keep = self.fixed_keep if self.fixed_keep is not None else self.draw(x)
+        if self.stats is not None:
+            self.stats.append((keep.sum(), keep.numel()))
+        return torch.where(keep.to(x.device), x / (1.0 - self.rate), torch.zeros_like(x))
+
+
+def _scaled(y: torch.Tensor, droppath: nn.Module, scales) -> torch.Tensor:
+    """A residual branch under stochastic depth: the block's DropPath, or the
+    given per-sample scales."""
+    if scales is None:
+        return droppath(y)
+    return y * scales.to(y.dtype).reshape((-1,) + (1,) * (y.dim() - 1))
+
+
+def _part(tp: Optional[TensorParallel], dim: int) -> Optional[Tuple[int, int, int]]:
+    """A dropout site's `part` on a tensor split over mp along `dim`."""
+    tp = active(tp)
+    return None if tp is None else (dim, tp.rank, tp.size)
+
+
 class Mlp(nn.Module):
     def __init__(self, in_features: int, out_features: int,
                  hidden_features: Optional[int] = None,
-                 activation: Callable = gelu_exact, generator=None,
+                 activation: Callable = gelu_exact, dropout: float = 0.0,
+                 inner_dropout: float = 0.0, generator=None,
                  tp: Optional[TensorParallel] = None):
         super().__init__()
         hidden = out_features if hidden_features is None else hidden_features
@@ -223,26 +306,25 @@ class Mlp(nn.Module):
         self.fc1 = dense(in_features, hidden // _mp(tp), generator=generator)
         self.fc2 = dense(hidden // _mp(tp), out_features, generator=generator)
         self.activation = activation
+        self.inner_drop = Dropout(inner_dropout, part=_part(tp, -1))
+        self.drop = Dropout(dropout)
 
     def forward(self, x):
         if self.tp is None:
-            return self.fc2(self.activation(self.fc1(x)))
-        h = self.activation(self.fc1(copy_to_tp(x, self.tp)))
+            return self.drop(self.fc2(self.inner_drop(self.activation(self.fc1(x)))))
+        h = self.inner_drop(self.activation(self.fc1(copy_to_tp(x, self.tp))))
         part = linear(h, self.fc2.weight, None, self.fc2.dtype)
-        return reduce_from_tp(part, self.tp) + self.fc2.bias.to(part.dtype)
+        return self.drop(reduce_from_tp(part, self.tp) + self.fc2.bias.to(part.dtype))
 
 
 class MultiHeadAttention(nn.Module):
     def __init__(self, dim: int, num_heads: int = 8, qkv_bias: bool = False,
+                 attn_drop: float = 0.0, proj_drop: float = 0.0,
                  use_pallas: bool = False, generator=None,
                  tp: Optional[TensorParallel] = None):
         super().__init__()
         assert dim % num_heads == 0
         self.tp = active(tp)
-        if self.tp is not None and use_pallas:
-            raise NotImplementedError(
-                "USE_PALLAS_ATTENTION under tensor parallelism (mp > 1) is not ported: "
-                "row 11 has no split (ROADMAP A7)")
         mp = _mp(tp)
         self.dim = dim // mp                 # the rank's heads × the head depth
         self.num_heads = num_heads // mp
@@ -251,6 +333,14 @@ class MultiHeadAttention(nn.Module):
         self.wk = dense(dim, self.dim, bias=qkv_bias, generator=generator)
         self.wv = dense(dim, self.dim, bias=qkv_bias, generator=generator)
         self.proj = dense(self.dim, dim, generator=generator)
+        self.attn_drop = Dropout(attn_drop, part=_part(tp, 1))
+        self.proj_drop = Dropout(proj_drop)
+
+    def _proj(self, out):
+        if self.tp is None:
+            return self.proj_drop(self.proj(out))
+        part = linear(out, self.proj.weight, None, self.proj.dtype)
+        return self.proj_drop(reduce_from_tp(part, self.tp) + self.proj.bias.to(part.dtype))
 
     def forward(self, x, mask=None):
         b, s, _ = x.shape
@@ -258,55 +348,61 @@ class MultiHeadAttention(nn.Module):
         if self.tp is not None:
             x = copy_to_tp(x, self.tp)
         # The JAX package's gate (primitives.py:95-98): packed q/k/v, a key
-        # mask broadcast from (B, 1, 1, S), S <= 128. Other shapes take the
-        # split-head path there too.
+        # mask broadcast from (B, 1, 1, S), S <= 128, and no attention
+        # dropout in training. Other cases take the split-head path there too.
         mask_ok = mask is None or (mask.dim() == 4 and mask.shape[1] == 1
                                    and mask.shape[2] == 1)
-        if self.use_pallas and mask_ok and s <= MAX_SEQ:
+        packed_ok = self.attn_drop.rate == 0.0 or not self.training
+        if self.use_pallas and packed_ok and mask_ok and s <= MAX_SEQ:
             if self.training:
                 raise NotImplementedError(
-                    "USE_PALLAS_ATTENTION in training is not ported (the packed "
-                    "attention op has no backward)")
+                    "USE_PALLAS_ATTENTION in training without attention dropout: the "
+                    "packed attention op has no backward, and the JAX step fails there "
+                    "too (its Pallas kernel has no VJP)")
             key_mask = None if mask is None else mask[:, 0, 0, :].expand(b, s)
+            # under mp > 1: the rank's whole heads, no collective before proj
             out = packed_multihead_attention(self.wq(x), self.wk(x), self.wv(x),
                                              key_mask, num_heads=self.num_heads,
                                              precision=current())
-            return self.proj(out), None
+            return self._proj(out), None
 
         def split(t):
             return t.reshape(b, s, self.num_heads, depth).transpose(1, 2)
 
         out, weights = scaled_dot_product_attention(
-            split(self.wq(x)), split(self.wk(x)), split(self.wv(x)), mask)
-        out = out.transpose(1, 2).reshape(b, s, self.dim)
-        if self.tp is None:
-            return self.proj(out), weights
-        part = linear(out, self.proj.weight, None, self.proj.dtype)
-        return reduce_from_tp(part, self.tp) + self.proj.bias.to(part.dtype), weights
+            split(self.wq(x)), split(self.wk(x)), split(self.wv(x)), mask,
+            weights_dropout=self.attn_drop)
+        return self._proj(out.transpose(1, 2).reshape(b, s, self.dim)), weights
 
 
 class TransformerBlock(nn.Module):
     """Pre-norm block: x + attn(LN(x)), then + mlp(LN(x))."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
-                 qkv_bias: bool = False, drop_path_rate: float = 0.0,
+                 qkv_bias: bool = False, attn_dropout: float = 0.0, dropout: float = 0.0,
+                 inner_dropout: float = 0.0, drop_path_rate: float = 0.0,
                  activation: Callable = gelu_exact, use_pallas: bool = False,
                  generator=None, tp: Optional[TensorParallel] = None):
         super().__init__()
         self.norm1 = LayerNorm(dim, eps=1e-5)
         self.attn = MultiHeadAttention(dim, num_heads=num_heads, qkv_bias=qkv_bias,
+                                       attn_drop=attn_dropout, proj_drop=dropout,
                                        use_pallas=use_pallas, generator=generator, tp=tp)
         self.norm2 = LayerNorm(dim, eps=1e-5)
         self.mlp = Mlp(dim, dim, hidden_features=int(dim * mlp_ratio),
-                       activation=activation, generator=generator, tp=tp)
+                       activation=activation, dropout=dropout, inner_dropout=inner_dropout,
+                       generator=generator, tp=tp)
         self.drop_path = DropPath(drop_path_rate)
 
-    def forward(self, x, pos_encoding=None, mask=None):
+    def forward(self, x, pos_encoding=None, mask=None, droppath=None):
+        """droppath: (attention branch, MLP branch) per-sample scales in
+        place of the DropPath draws, or None."""
+        s_attn, s_mlp = (None, None) if droppath is None else droppath
         if pos_encoding is not None:
             x = x + pos_encoding
         y, attn = self.attn(self.norm1(x), mask=mask)
-        x = x + self.drop_path(y)
-        x = x + self.drop_path(self.mlp(self.norm2(x)))
+        x = x + _scaled(y, self.drop_path, s_attn)
+        x = x + _scaled(self.mlp(self.norm2(x)), self.drop_path, s_mlp)
         return x, attn
 
 
@@ -323,7 +419,8 @@ class StridedMlp(nn.Module):
 
     def __init__(self, in_features: int, out_features: int,
                  hidden_features: Optional[int] = None,
-                 activation: Callable = gelu_exact, kernel_size: int = 3,
+                 activation: Callable = gelu_exact, dropout: float = 0.0,
+                 inner_dropout: float = 0.0, kernel_size: int = 3,
                  stride: int = 1, padding=None, generator=None,
                  tp: Optional[TensorParallel] = None):
         super().__init__()
@@ -338,17 +435,19 @@ class StridedMlp(nn.Module):
                         out_features * kernel_size, generator)
         nn.init.zeros_(self.fc2.bias)
         self.activation = activation
+        self.inner_drop = Dropout(inner_dropout, part=_part(tp, -1))
+        self.drop = Dropout(dropout)
 
     def forward(self, x):  # (B, S, C_in) → (B, S_out, C_out)
         if self.tp is not None:
             x = copy_to_tp(x, self.tp)
-        x = self.activation(self.fc1(x))
+        x = self.inner_drop(self.activation(self.fc1(x)))
         x = F.pad(x.transpose(1, 2), self.pad)  # explicit zero pad, then VALID
         if self.tp is None:
-            return self.fc2(x).transpose(1, 2)
+            return self.drop(self.fc2(x).transpose(1, 2))
         part = conv1d(x, self.fc2.weight, None, self.stride, self.fc2.dtype)
-        return (reduce_from_tp(part, self.tp)
-                + self.fc2.bias.to(part.dtype)[:, None]).transpose(1, 2)
+        return self.drop((reduce_from_tp(part, self.tp)
+                          + self.fc2.bias.to(part.dtype)[:, None]).transpose(1, 2))
 
 
 class StridedTransformerBlock(nn.Module):
@@ -359,7 +458,8 @@ class StridedTransformerBlock(nn.Module):
     """
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
-                 qkv_bias: bool = False, drop_path_rate: float = 0.0,
+                 qkv_bias: bool = False, attn_dropout: float = 0.0, dropout: float = 0.0,
+                 inner_dropout: float = 0.0, drop_path_rate: float = 0.0,
                  activation: Callable = gelu_exact, kernel_size: int = 3,
                  stride: int = 3, padding=None, use_pallas: bool = False,
                  generator=None, tp: Optional[TensorParallel] = None):
@@ -368,10 +468,12 @@ class StridedTransformerBlock(nn.Module):
         self.pad = resolve_padding(padding, kernel_size)
         self.norm1 = LayerNorm(dim, eps=1e-5)
         self.attn = MultiHeadAttention(dim, num_heads=num_heads, qkv_bias=qkv_bias,
+                                       attn_drop=attn_dropout, proj_drop=dropout,
                                        use_pallas=use_pallas, generator=generator, tp=tp)
         self.norm2 = LayerNorm(dim, eps=1e-5)
         self.mlp = StridedMlp(dim, dim, hidden_features=int(dim * mlp_ratio),
-                              activation=activation, kernel_size=kernel_size,
+                              activation=activation, dropout=dropout,
+                              inner_dropout=inner_dropout, kernel_size=kernel_size,
                               stride=stride, padding=padding,
                               generator=generator, tp=tp)
         self.drop_path = DropPath(drop_path_rate)

@@ -13,13 +13,21 @@ as the JAX package's `models/uplift_upsample.py` implements it:
   → strided transformer stack shrinking N → 1
   → head2: Linear(3*K) on the final token → central-frame output (B, 17, 3)
 
-`model.train()` turns on stochastic depth (DropPath) in every block, the
-training forward of the JAX model (`uplift_upsample.py:112-268`); the train
-step runs the spatial and temporal stacks through their kernels and only the
-tail (the `temporal_input` splice) through this module. Output BatchNorm,
-dropout, random token masking and `use_pallas` (USE_PALLAS_ATTENTION: the
-packed attention op, row 11, in every attention layer) in training are not
-ported and raise NotImplementedError. Sub-modules carry the flax names
+`model.train()` turns on the training forward of the JAX model
+(`uplift_upsample.py:112-268`): stochastic depth (DropPath) in every block,
+dropout (DROP_RATE, ATTENTION_DROP_RATE: after the keypoint embedding and
+at the blocks' sites, `primitives.py`) and random token masking
+(TOKEN_MASK_RATE: after the s2t Dense, each frame but the central one
+replaced by the zero token with probability rate, drawn on the device from
+`token_mask_generator`). The train step runs the spatial and temporal
+stacks through their kernels where no dropout knob is set, and this module
+whole where one is. Two training features raise NotImplementedError,
+because the JAX step fails on them and there is no function to match:
+OUTPUT_BN (flax's BatchNorm finds no `batch_stats` collection) and token
+masking with LEARNABLE_MASKED_TOKEN (the `masked_token` parameter exists
+only in training, not in the initialised parameters). `use_pallas`
+(USE_PALLAS_ATTENTION: the packed attention op, row 11) raises in training
+where it would run (no attention dropout). Sub-modules carry the flax names
 (`spatial_block_1`, `temporal_pe`, ...), so state_dict keys map one to one
 onto the JAX package's parameter paths.
 
@@ -48,8 +56,18 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..parallel.sharding import TensorParallel, active, check_divides
-from .primitives import (LayerNorm, StridedTransformerBlock, TransformerBlock, dense,
+from .primitives import (Dropout, LayerNorm, StridedTransformerBlock, TransformerBlock, dense,
                          gelu_exact, pe_init_, set_dtype)
+
+OUTPUT_BN_TRAINING = (
+    "training with OUTPUT_BN is not ported: the JAX step fails there too (flax's "
+    "BatchNorm raises ScopeCollectionNotFound: the batch_stats collection is empty, "
+    "since the step applies {'params'} only), so there is no function to match")
+LEARNABLE_TOKEN_TRAINING = (
+    "training with TOKEN_MASK_RATE > 0 and LEARNABLE_MASKED_TOKEN is not ported: the "
+    "JAX step fails there too (ScopeParamNotFoundError for 'masked_token', a parameter "
+    "created only in training, absent from the initialised parameters), so there is "
+    "no function to match")
 
 
 def strided_sequence_lengths(num_frames: int, strides, paddings) -> list:
@@ -70,7 +88,8 @@ class UpliftUpsampleTransformer(nn.Module):
                  temporal_depth: int = 3, strides: Sequence[int] = (3, 3, 3),
                  paddings: Optional[Sequence[Sequence[int]]] = None,
                  num_heads: int = 8, mlp_ratio: float = 2.0,
-                 qkv_bias: bool = True,
+                 qkv_bias: bool = True, attn_drop_rate: float = 0.0,
+                 drop_rate: float = 0.0,
                  drop_path_rate: Union[float, Sequence[float]] = 0.0,
                  output_bn: bool = False, has_strided_input: bool = False,
                  first_strided_token_attention_layer: int = 0,
@@ -106,6 +125,9 @@ class UpliftUpsampleTransformer(nn.Module):
         self.token_mask_rate = token_mask_rate
         self.learnable_masked_token = learnable_masked_token
         self.use_pallas = use_pallas
+        self.token_mask_generator: Optional[torch.Generator] = None
+        self.token_mask_rows: Optional[tuple] = None
+        self.fixed_token_mask: Optional[torch.Tensor] = None
         self.dtype = dtype
         self.spatial_dtype = dtype if spatial_dtype is None else spatial_dtype
         g = generator
@@ -118,15 +140,17 @@ class UpliftUpsampleTransformer(nn.Module):
                 return [0.0] * depth
             return [top * i / (depth - 1) for i in range(depth)]
 
+        drops = dict(attn_dropout=attn_drop_rate, dropout=drop_rate)
         if spatial_depth > 0:
             self.keypoint_embedding = dense(2, cs, generator=g)
             self.spatial_pe = nn.Parameter(torch.empty(p, cs))
             pe_init_(self.spatial_pe, g)
+            self.embedding_drop = Dropout(drop_rate)
             for i, rate in enumerate(dpr(0, spatial_depth)):
                 self.add_module(f"spatial_block_{i + 1}", TransformerBlock(
                     cs, num_heads, mlp_ratio=mlp_ratio, qkv_bias=qkv_bias,
                     drop_path_rate=rate, activation=gelu_exact,
-                    use_pallas=use_pallas, generator=g, tp=tp))
+                    use_pallas=use_pallas, generator=g, tp=tp, **drops))
             self.spatial_norm = LayerNorm(cs, eps=1e-6)
             s2t_in = p * cs
         else:
@@ -144,7 +168,7 @@ class UpliftUpsampleTransformer(nn.Module):
             self.add_module(f"temporal_block_{i + 1}", TransformerBlock(
                 ct, num_heads, mlp_ratio=mlp_ratio, qkv_bias=qkv_bias,
                 drop_path_rate=rate, activation=F.relu, use_pallas=use_pallas,
-                generator=g, tp=tp))
+                generator=g, tp=tp, inner_dropout=drop_rate, **drops))
 
         out_dim = 3 * num_keypoints
         if full_output and temporal_depth > 0:
@@ -165,7 +189,7 @@ class UpliftUpsampleTransformer(nn.Module):
                                 qkv_bias=qkv_bias, drop_path_rate=rate,
                                 activation=F.relu, kernel_size=3, stride=s,
                                 padding=pad, use_pallas=use_pallas, generator=g,
-                                tp=tp))
+                                tp=tp, inner_dropout=drop_rate, **drops))
         if output_bn:
             self.strided_temporal_norm = nn.BatchNorm1d(ct, eps=1e-5)
         self.strided_temporal_fc = dense(ct, out_dim, generator=g)
@@ -185,9 +209,27 @@ class UpliftUpsampleTransformer(nn.Module):
         """Block i (1-based) of a stage: "spatial", "temporal" or "strided_temporal"."""
         return getattr(self, f"{name}_block_{i}")
 
+    def _token_mask(self, x: torch.Tensor) -> torch.Tensor:
+        """Random token masking with the zero token (`uplift_upsample.py:
+        167-179` of the JAX model): frame j of each window is replaced when
+        U[0, 1) < TOKEN_MASK_RATE, never the central frame. U is drawn on x's
+        device from `token_mask_generator`; with `token_mask_rows` = (start,
+        total) x holds windows [start, start + B) of a batch of `total` and
+        U is drawn for the whole batch. `fixed_token_mask` (a test hook) is a
+        (B, N) boolean mask used instead of a draw."""
+        b, n = x.shape[:2]
+        masked = self.fixed_token_mask
+        if masked is None:
+            start, total = (0, b) if self.token_mask_rows is None else self.token_mask_rows
+            u = torch.rand((total, n), generator=self.token_mask_generator, device=x.device)
+            masked = u[start:start + b] < self.token_mask_rate
+        masked = masked.to(x.device) & (torch.arange(n, device=x.device)
+                                        != self.num_frames // 2)
+        return x * (1.0 - masked[..., None].to(x.dtype))
+
     def forward(self, x, stride_mask=None, *, temporal_input: bool = False,
                 strided_entry: int = 0, spatial_input: bool = False,
-                s2t_output: bool = False, s2t_input: bool = False):
+                s2t_output: bool = False, s2t_input: bool = False, droppath=None):
         """x: (B, N, K, 2) [already masked at non-keyframes when strided input].
 
         Splices (the JAX model's flags of the same names, uplift_upsample.py:
@@ -201,12 +243,17 @@ class UpliftUpsampleTransformer(nn.Module):
             the heads and the strided stack run; `strided_entry` leading
             strided blocks have then been applied already (the fused path's
             K3) and head1 is skipped.
+        `droppath` = (spatial (2L, B·N), temporal (L, 2, B)) stochastic-depth
+        scales, either None: the spatial and temporal blocks' branches take
+        them instead of their DropPath draws (the train step's draws).
         Returns (full_output | None, central (B, K, 3)), or the s2t output.
         """
         p = self.num_keypoints
-        if self.training and (self.output_bn or self.token_mask_rate > 0):
-            raise NotImplementedError(
-                "training with OUTPUT_BN or TOKEN_MASK_RATE > 0 is not ported")
+        if self.training and self.output_bn:
+            raise NotImplementedError(OUTPUT_BN_TRAINING)
+        if self.training and self.token_mask_rate > 0 and self.learnable_masked_token:
+            raise NotImplementedError(LEARNABLE_TOKEN_TRAINING)
+        sp_scales, tm_scales = (None, None) if droppath is None else droppath
         if temporal_input:
             return self._heads_and_strided(self._cast(x), stride_mask, strided_entry)
         b, n = x.shape[:2]
@@ -223,8 +270,10 @@ class UpliftUpsampleTransformer(nn.Module):
             sdtype = self.spatial_dtype
             x = self._cast(x.reshape(b * n, p, x.shape[-1]), sdtype)
             x = self.keypoint_embedding(x) + self._cast(self.spatial_pe, sdtype)
+            x = self.embedding_drop(x)
             for i in range(1, self.spatial_depth + 1):
-                x, _ = self.block("spatial", i)(x)
+                x, _ = self.block("spatial", i)(
+                    x, droppath=None if sp_scales is None else sp_scales[2 * i - 2:2 * i])
             x = self.spatial_norm(self._cast(x)).reshape(b, n, p * self.spatial_d_model)
         if not s2t_input:
             x = self.spatial_to_temporal_fc(x)
@@ -232,6 +281,8 @@ class UpliftUpsampleTransformer(nn.Module):
             return x
 
         # ---- temporal transformer over frames -----------------------------
+        if self.training and self.token_mask_rate > 0:
+            x = self._token_mask(x)
         if self.has_strided_input:
             sm = stride_mask.to(x.dtype)[..., None]
             x = sm * x + (1.0 - sm) * self._cast(self.strided_input_token)
@@ -242,7 +293,8 @@ class UpliftUpsampleTransformer(nn.Module):
                     and i <= self.first_strided_token_attention_layer):
                 # Block attention onto masked-frame keys for early layers
                 attn_mask = (1.0 - stride_mask.float())[:, None, None, :]
-            x, _ = self.block("temporal", i)(x, mask=attn_mask)
+            x, _ = self.block("temporal", i)(
+                x, mask=attn_mask, droppath=None if tm_scales is None else tm_scales[i - 1])
         return self._heads_and_strided(x, stride_mask, 0)
 
     def _bn(self, name, h):

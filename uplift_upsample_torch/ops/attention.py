@@ -13,12 +13,17 @@ On bf16 q, k and v (COMPUTE_DTYPE bfloat16) it is the JAX function's dtype
 handling (`uplift_upsample_tpu/ops/attention.py:36-46`): fp32 logits from
 the bf16 operands (exact products, fp32 sums), an fp32 softmax, the weights
 rounded to bf16 for P·V with fp32 sums, and the context returned in bf16.
+
+`weights_dropout` (attention dropout in training, a `primitives.Dropout`)
+acts on the fp32 weights before P·V, as the flax attention drops them
+(`uplift_upsample_tpu/models/primitives.py:109-113`); the dropped weights
+are returned.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
@@ -30,6 +35,7 @@ def scaled_dot_product_attention(
     k: torch.Tensor,  # (B, H, Sk, D)
     v: torch.Tensor,  # (B, H, Sk, D)
     mask: Optional[torch.Tensor] = None,  # broadcastable to (B, H, Sq, Sk); 1 = blocked
+    weights_dropout: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
 ):
     """Returns (output (B, H, Sq, D), attention weights (B, H, Sq, Sk))."""
     scale = 1.0 / math.sqrt(q.shape[-1])
@@ -42,6 +48,8 @@ def scaled_dot_product_attention(
     if mask is not None:
         logits = logits + mask.to(logits.dtype) * -1e9
     weights = torch.softmax(logits, dim=-1)
+    if weights_dropout is not None:
+        weights = weights_dropout(weights)
     if dtype == torch.bfloat16:
         return rung_matmul(round_bf16(weights), v).to(dtype), weights
     return rung_matmul(weights, v), weights

@@ -30,6 +30,31 @@ optimizer are plain PyTorch. Stochastic depth is drawn per step from a
 `torch.Generator` seeded from SHUFFLE_SEED and the step: per frame for the
 spatial stack, per window for the temporal stack and the tail.
 
+Dropout (DROP_RATE, ATTENTION_DROP_RATE) and token masking
+(TOKEN_MASK_RATE): any of these above 0 turns every kernel stage off, as
+the JAX step's eligibility does (`train_step.py:174-179`), and the step
+applies the model whole in training mode, its Dropout sites and token mask
+included (the JAX step's plain path, `model.apply(..., training=True)`),
+with the stochastic depth of its spatial and temporal blocks taken from the
+step's draws. Dropout and the token mask draw on the step's device from two
+generators of their own per step (`stream_generator`: streams 1 and 2 of
+the stochastic-depth generator's seed, so SHUFFLE_SEED and the step fix
+them); under dp each site draws for the global batch and keeps the rank's
+rows, and under TP a site on a split tensor keeps the rank's block, so the
+ranks apply the one-process draws. OUTPUT_BN, and token masking with
+LEARNABLE_MASKED_TOKEN, raise: the JAX step fails on both
+(`models/uplift_upsample.py`).
+
+bf16 activations (COMPUTE_DTYPE / SPATIAL_COMPUTE_DTYPE bfloat16: the
+model's `dtype` / `spatial_dtype`) run each stage at the JAX step's dtype:
+with no kernel stage, the model whole at its dtypes under autograd (the
+step's stochastic-depth draws, as above); with the kernels, K1 / K4 on fp32
+inputs, the s2t Dense, the temporal kernels and head1 in fp32 (the JAX
+step's `_temporal_train`, `train_step.py:226-288`), and the model's tail
+(the `temporal_input` or `strided_entry=1` splice, or the `spatial_input`
+one when only the spatial kernels run) at the model's dtype. The loss takes
+the predictions cast to fp32.
+
 AMASS batches (world-space poses and an 18-vector camera) go through
 `ops/camera.world_to_cam_and_2d` inside the step, on the step's device.
 `make_train_step` / `make_val_step` take a `data.device_feed` feed as
@@ -74,12 +99,8 @@ The JAX step opens no precision context, so on the TPU its XLA products run
 one bf16 pass at every rung; the port follows it at "default" and "mixed"
 and keeps fp32 at "high" and "highest", the function the JAX step computes
 on the CPU (ROADMAP, departures). The val step runs fp32 at every rung.
-Another value raises ValueError.
-
-Not ported (NotImplementedError): OUTPUT_BN, dropout, attention dropout and
-token masking in training, and a model at COMPUTE_DTYPE or
-SPATIAL_COMPUTE_DTYPE other than float32 (bf16 activations serve only:
-ROADMAP A10).
+Another value raises ValueError; None or "" (a JSON null) is "mixed", as
+the JAX step reads the key (`precision.config_train_rungs`).
 """
 
 from __future__ import annotations
@@ -95,7 +116,8 @@ import torch
 from ..config import UpliftUpsampleConfig
 from ..data.multihost import gather_rows, host_row_slice
 from ..models.build import resolve_device
-from ..models.primitives import DropPath
+from ..models.primitives import DropPath, Dropout, linear
+from ..models.uplift_upsample import LEARNABLE_TOKEN_TRAINING, OUTPUT_BN_TRAINING
 from ..ops.camera import world_to_cam_and_2d
 from ..ops.spatial import (make_droppath_scales, spatial_stack_plain, spatial_stack_train,
                            stack_spatial_params)
@@ -103,7 +125,7 @@ from ..ops.strided import stack_strided_block1_params
 from ..ops.strided_train import strided_block1_train
 from ..ops.temporal import stack_temporal_params, temporal_stack_plain
 from ..ops.temporal_train import temporal_stack_train
-from ..precision import matmul_precision, train_rungs
+from ..precision import config_train_rungs, matmul_precision
 from ..utils.schedules import scheduler_by_name
 from .mesh import DataParallel, all_reduce_sum_
 from .sharding import TensorParallel, check_model_tp, gather_params_tp
@@ -235,6 +257,14 @@ def keyframe_budget(model, config: UpliftUpsampleConfig,
     return budget if budget < b * n else None
 
 
+DROPOUT_KEYS = ("DROP_RATE", "ATTENTION_DROP_RATE", "TOKEN_MASK_RATE")
+
+
+def has_dropout(config: UpliftUpsampleConfig) -> bool:
+    """Whether any dropout knob (DROPOUT_KEYS) is above 0."""
+    return any(getattr(config, key, 0) for key in DROPOUT_KEYS)
+
+
 def _flag(model, config: UpliftUpsampleConfig, key: str) -> bool:
     """A TRAIN_FUSED_* flag resolved: "auto" means the model is on a CUDA
     device, as the JAX package's `is_tpu_backend()`."""
@@ -251,8 +281,9 @@ def fused_stages(model, config: UpliftUpsampleConfig, kernels: bool) -> Tuple[bo
     TRAIN_FUSED_TEMPORAL only with the spatial kernels and a temporal stack;
     TRAIN_FUSED_STRIDED only with the temporal kernels, strided blocks,
     paddings (0, 0) in block 1, head1 and no output BN. `kernels=False`
-    turns all three off."""
-    spatial = (kernels and model.spatial_depth > 0
+    turns all three off, and so does any dropout knob above 0 (the kernels
+    have no dropout: the JAX step's eligibility, `train_step.py:174-179`)."""
+    spatial = (kernels and not has_dropout(config) and model.spatial_depth > 0
                and _flag(model, config, "TRAIN_FUSED_SPATIAL"))
     temporal = (spatial and model.temporal_depth > 0
                 and _flag(model, config, "TRAIN_FUSED_TEMPORAL"))
@@ -261,6 +292,12 @@ def fused_stages(model, config: UpliftUpsampleConfig, kernels: bool) -> Tuple[bo
                and tuple(model.paddings[0]) == (0, 0)
                and model.full_output and not model.output_bn)
     return spatial, temporal, strided
+
+
+def _fp32_dense(layer, x: torch.Tensor) -> torch.Tensor:
+    """A Dense in fp32 whatever its dtype: the s2t Dense and head1 beside
+    the kernels, as the JAX step's `_temporal_train` runs them."""
+    return layer(x) if layer.dtype is None else linear(x, layer.weight, layer.bias)
 
 
 def prepare_batch(tensors, dataset_name: str):
@@ -286,17 +323,11 @@ def make_loss_fn(model, config: UpliftUpsampleConfig, dataset_name: str = "h36m"
     if dataset_name not in ("h36m", "amass"):
         raise ValueError(f"unknown dataset {dataset_name!r}")
     tp = check_model_tp(model, tp)
-    for key in ("DROP_RATE", "ATTENTION_DROP_RATE", "TOKEN_MASK_RATE"):
-        if getattr(config, key, 0):
-            raise NotImplementedError(f"training with {key} > 0 is not ported")
     if config.OUTPUT_BN:
-        raise NotImplementedError("training with OUTPUT_BN is not ported")
-    if model.dtype is not None or model.spatial_dtype is not None:
-        raise NotImplementedError(
-            "training at COMPUTE_DTYPE / SPATIAL_COMPUTE_DTYPE bfloat16 is not ported: bf16 "
-            "activations run in eval, predict and the bench's eval measure (ROADMAP A10)")
-    sp_rung, tm_rung, plain_rung = train_rungs(
-        getattr(config, "TRAIN_MATMUL_PRECISION", "default") or "default")
+        raise NotImplementedError(OUTPUT_BN_TRAINING)
+    if config.TOKEN_MASK_RATE > 0 and config.LEARNABLE_MASKED_TOKEN:
+        raise NotImplementedError(LEARNABLE_TOKEN_TRAINING)
+    sp_rung, tm_rung, plain_rung = config_train_rungs(config)
     root = config.ROOT_KEYTPOINT
     mid = config.SEQUENCE_LENGTH // 2
     b, n, k = config.BATCH_SIZE, config.SEQUENCE_LENGTH, config.NUM_KEYPOINTS
@@ -305,6 +336,12 @@ def make_loss_fn(model, config: UpliftUpsampleConfig, dataset_name: str = "h36m"
     rates_t = _droppath_rates(config, 1, model.temporal_depth)
     fmb = model.first_strided_token_attention_layer if model.has_strided_input else 0
     fused_spatial, fused_temporal, fused_strided = fused_stages(model, config, kernels)
+    dropout = has_dropout(config)
+    # the model applied whole (no kernel stage, and dropout or bf16
+    # activations), or from the spatial stack's output at its dtype
+    whole_model = not fused_spatial and (
+        dropout or model.dtype is not None or model.spatial_dtype is not None)
+    tail_at_dtype = fused_spatial and not fused_temporal and model.dtype is not None
     rows = None if dp is None else host_row_slice(b, dp.rank, dp.world)
     # only the spatial kernels take a keyframe budget; the plain path applies
     # the model to every frame (the JAX package's `train_step.py:302-304`).
@@ -345,14 +382,23 @@ def make_loss_fn(model, config: UpliftUpsampleConfig, dataset_name: str = "h36m"
         full = make_droppath_scales(generator, rates, b * per_window)
         return full[:, rows.start * per_window:rows.stop * per_window]
 
+    def temporal_draws(generator, bb, device):
+        """The temporal stack's scales, (L, 2, bb) on `device`."""
+        return draws(generator, rates_t, 1, bb).reshape(model.temporal_depth, 2, bb).to(device)
+
     @matmul_precision(plain_rung)
     def apply_model(x, stride_mask, generator):
+        bb, nn_, pp, cc = x.shape
+        frames = bb * nn_
+        if whole_model:
+            scales_s = (draws(generator, rates_s, nn_, bb).to(x.device)
+                        if model.spatial_depth > 0 else None)
+            scales_t = temporal_draws(generator, bb, x.device) if model.temporal_depth else None
+            return model(x, stride_mask, droppath=(scales_s, scales_t))
         params = dict(model.named_parameters())
         if tp is not None:
             params.update(gather_params_tp(
                 {k: v for k, v in params.items() if k.startswith(whole)}, tp))
-        bb, nn_, pp, cc = x.shape
-        frames = bb * nn_
         if model.spatial_depth > 0:
             ops = stack_spatial_params(params, model.spatial_depth)
             scales = draws(generator, rates_s, nn_, bb).to(x.device)
@@ -373,7 +419,10 @@ def make_loss_fn(model, config: UpliftUpsampleConfig, dataset_name: str = "h36m"
             sp = sp.reshape(bb, nn_, -1)
         else:
             sp = x.reshape(bb, nn_, pp * cc)
-        y = model.spatial_to_temporal_fc(sp)
+        if tail_at_dtype:
+            return model(sp, stride_mask, spatial_input=True,
+                         droppath=(None, temporal_draws(generator, bb, x.device)))
+        y = _fp32_dense(model.spatial_to_temporal_fc, sp)
         key_mask = None
         if model.has_strided_input:
             sm = stride_mask.to(y.dtype)[..., None]
@@ -381,13 +430,12 @@ def make_loss_fn(model, config: UpliftUpsampleConfig, dataset_name: str = "h36m"
             key_mask = 1.0 - stride_mask.to(_F32)
         y = y + model.temporal_pe
         if model.temporal_depth > 0:
-            scales_t = draws(generator, rates_t, 1, bb).reshape(
-                model.temporal_depth, 2, bb).to(x.device)
+            scales_t = temporal_draws(generator, bb, x.device)
             y = temporal(y, stack_temporal_params(
                 params, model.temporal_depth,
                 precision=tm_rung if fused_temporal else plain_rung), key_mask, scales_t)
         if fused_strided:
-            full = model.temporal_fc(y).reshape(bb, nn_, model.num_keypoints, 3)
+            full = _fp32_dense(model.temporal_fc, y).reshape(bb, nn_, model.num_keypoints, 3)
             y2 = strided_block1_train(y, stack_strided_block1_params(params, precision=tm_rung),
                                       num_heads=heads, stride=model.strides[0],
                                       paddings=model.paddings[0], precision=tm_rung)
@@ -399,15 +447,21 @@ def make_loss_fn(model, config: UpliftUpsampleConfig, dataset_name: str = "h36m"
         set_droppath_generator(model, generator,
                                None if rows is None else (rows.start, b))
         seq3d, seq2d, stride_mask = prepare_batch(batch, dataset_name)
+        if dropout:
+            set_dropout_generators(
+                model, stream_generator(generator, 1, seq2d.device),
+                stream_generator(generator, 2, seq2d.device),
+                None if rows is None else (rows.start, rows.stop - rows.start, b))
         keypoints3d = seq3d - seq3d[:, :, root:root + 1, :]
         central_gt = keypoints3d[:, mid]
         x = seq2d
         if model.has_strided_input:
             x = x * stride_mask[:, :, None, None].to(x.dtype)
         pred_seq, pred_central = apply_model(x, stride_mask, generator)
-        central = torch.linalg.vector_norm(central_gt - pred_central, dim=-1).sum() / (b * k)
+        central = torch.linalg.vector_norm(central_gt - pred_central.float(),
+                                           dim=-1).sum() / (b * k)
         if config.TEMPORAL_TRANSFORMER_BLOCKS > 0:
-            sequence = torch.linalg.vector_norm(keypoints3d - pred_seq,
+            sequence = torch.linalg.vector_norm(keypoints3d - pred_seq.float(),
                                                 dim=-1).sum() / (b * n * k)
             return (config.LOSS_WEIGHT_CENTER * central
                     + config.LOSS_WEIGHT_SEQUENCE * sequence)
@@ -419,6 +473,31 @@ def make_loss_fn(model, config: UpliftUpsampleConfig, dataset_name: str = "h36m"
 def step_generator(seed: int, step: int) -> torch.Generator:
     """The CPU generator of one step's random draws (stochastic depth)."""
     return torch.Generator().manual_seed(int(seed) * (1 << 32) + int(step))
+
+
+def stream_generator(generator: torch.Generator, stream: int, device) -> torch.Generator:
+    """A generator on `device` for random stream `stream` (1: dropout, 2:
+    token masking) of the step whose stochastic-depth generator is
+    `generator` (`step_generator`): seeded from that generator's seed and
+    the stream, so SHUFFLE_SEED and the step fix it and no two streams
+    share a seed."""
+    words = np.random.SeedSequence([generator.initial_seed(), stream]).generate_state(
+        2, np.uint32)
+    return torch.Generator(device=device).manual_seed(int(words[0]) << 32 | int(words[1]))
+
+
+def set_dropout_generators(model: torch.nn.Module, dropout: torch.Generator,
+                           token_mask: torch.Generator,
+                           rows: Optional[Tuple[int, int, int]] = None) -> None:
+    """The model's Dropout draws from `dropout` and its token mask from
+    `token_mask`; with rows = (start, count, total), for a rank's windows
+    [start, start + count) of a global batch of `total` (`Dropout.rows`,
+    `UpliftUpsampleTransformer._token_mask`)."""
+    for module in model.modules():
+        if isinstance(module, Dropout):
+            module.generator, module.rows = dropout, rows
+    model.token_mask_generator = token_mask
+    model.token_mask_rows = None if rows is None else (rows[0], rows[2])
 
 
 def set_droppath_generator(model: torch.nn.Module, generator: torch.Generator,
@@ -506,8 +585,10 @@ def make_val_step(model, config: UpliftUpsampleConfig, dataset_name: str = "h36m
     """val_step(params, batch) → (pred_central, central_gt, loss), on the device.
 
     The plain model in eval mode, as the JAX step applies the flax model
-    (`train_step.py:450-505`); `params` (e.g. the EMA weights, keyed like
-    `model.named_parameters()`) replace the model's own for the call, or None
+    (`train_step.py:450-505`), at its dtype (bf16 activations: the
+    predictions averaged in bf16, returned in fp32, the loss in fp32);
+    `params` (e.g. the EMA weights, keyed like `model.named_parameters()`)
+    replace the model's own for the call, or None
     keeps them. The loss is the unweighted central + sequence loss of the
     unflipped pass; with EVAL_FLIP the central prediction is the average with
     the flipped input's, unflipped. With `device_feed`, batches are its plans.
@@ -542,9 +623,10 @@ def make_val_step(model, config: UpliftUpsampleConfig, dataset_name: str = "h36m
         keypoints3d = keypoints3d - keypoints3d[:, :, root:root + 1, :]
         central_gt = keypoints3d[:, mid]
         pred_seq, pred_central = forward(params, keypoints2d, stride_mask)
-        loss = torch.linalg.vector_norm(central_gt - pred_central, dim=-1).sum() / (b * k)
+        loss = torch.linalg.vector_norm(central_gt - pred_central.float(),
+                                        dim=-1).sum() / (b * k)
         if config.TEMPORAL_TRANSFORMER_BLOCKS > 0:
-            loss = loss + torch.linalg.vector_norm(keypoints3d - pred_seq,
+            loss = loss + torch.linalg.vector_norm(keypoints3d - pred_seq.float(),
                                                    dim=-1).sum() / (b * n * k)
         if config.EVAL_FLIP:
             flipped_in = torch.cat([-keypoints2d[..., :1], keypoints2d[..., 1:]],
@@ -552,7 +634,8 @@ def make_val_step(model, config: UpliftUpsampleConfig, dataset_name: str = "h36m
             _, f_central = forward(params, flipped_in, stride_mask)
             f_central = torch.cat([-f_central[..., :1], f_central[..., 1:]],
                                   dim=-1)[:, flip_idx]
-            pred_central = (pred_central + f_central) / 2.0
+            pred_central = (pred_central + f_central) / 2.0  # in the model's dtype
+        pred_central = pred_central.float()
         if dp is not None:
             all_reduce_sum_(dp, [loss])
             pred_central, central_gt = gather_rows(dp, pred_central), gather_rows(dp, central_gt)

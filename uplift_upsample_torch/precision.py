@@ -218,3 +218,10 @@ def train_rungs(rung: str):
         raise ValueError(f"TRAIN_MATMUL_PRECISION {rung!r}: expected one of {TRAIN_RUNGS}")
     return {"default": (BF16, BF16, BF16), "mixed": ("highest", BF16, BF16),
             "high": ("high", "high", "high"), "highest": ("highest", "highest", "highest")}[rung]
+
+
+def config_train_rungs(config):
+    """`train_rungs` of config.TRAIN_MATMUL_PRECISION; None or "" (a JSON
+    null) is "mixed", as the JAX step reads the key
+    (`uplift_upsample_tpu/parallel/train_step.py:218`)."""
+    return train_rungs(getattr(config, "TRAIN_MATMUL_PRECISION", "mixed") or "mixed")

@@ -66,7 +66,7 @@ from .models.build import build_uplift_upsample_transformer, resolve_device
 from .parallel.mesh import (broadcast_params_, check_data_parallel_devices,
                             init_data_parallel, launch_world, rank0_stdout)
 from .parallel.train_step import TrainState, make_optimizer, make_train_step, make_val_step
-from .precision import train_rungs
+from .precision import config_train_rungs
 from .utils import eval_protocol
 from .utils.metric_history import MetricHistory
 from .utils.scalar_log import ScalarLogger
@@ -290,7 +290,7 @@ def train_and_validate(config: UpliftUpsampleConfig, out_dir, dataset_name="h36m
     written()
     log(f"TRAIN_MATMUL_PRECISION={getattr(config, 'TRAIN_MATMUL_PRECISION', None)!r}: "
         f"(spatial, temporal, plain) rungs "
-        f"{train_rungs(getattr(config, 'TRAIN_MATMUL_PRECISION', 'default') or 'default')}")
+        f"{config_train_rungs(config)}")
 
     # ---- datasets ---------------------------------------------------------
     val_subset_name = None if val_dataset_name != dataset_name else val_subset
