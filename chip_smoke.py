@@ -25,8 +25,8 @@ Phases (one line each; any failure ends the run with a non-zero exit):
      cores (gemm_tc.cuh) at every main-path shape: K2's qkv, proj, fc1 and
      fc2 at 72,704 rows, K5's forward products (gemm_f32, the scaled-branch
      gemm_branch_f32), dX and dW at the train step's 36,352 rows, each beside
-     addmm / torch.mm; the strided conv's products, its taps gathered from
-     h1 (strided_conv_f32 at 1,024 and 512 windows beside F.conv1d + the
+     addmm / torch.mm; the strided conv's products, its taps read from h1
+     by TMA (strided_conv_f32 at 1,024 and 512 windows beside F.conv1d + the
      residual add; dH1 and dWc at 512 windows beside convolution_backward);
      every 3xTF32 kernel (those, the window attention of attention.cuh, the
      s2t prologue) is also held against a float64 reference beside its
@@ -1573,7 +1573,7 @@ def dp_phase(args, torch, np, rng, failed):
 
 # Substrings of each kernel's CUDA kernel names in a trace of a serving call:
 # K1's tiles, K2's LayerNorm and window attention, K3's conv (the persistent
-# GEMM with its taps gathered from h1)
+# GEMM with its taps read from h1 by TMA, ConvTapsTma)
 TRACE_KERNELS = {"K1": ("spatial_stack_tc_kernel",),
                  "K2": ("layernorm_kernel", "head_attention_tc_kernel", "gemm_tc_kernel"),
                  "K3": ("ConvTaps",)}
@@ -4041,7 +4041,7 @@ def main(argv=None) -> int:
     del model81
 
     # The conv of strided block 1 alone, K3's and K6's products over the taps
-    # matrix T (B·n_out, 3·hidden) that the kernels gather from h1, beside
+    # matrix T (B·n_out, 3·hidden) that the kernels read from h1, beside
     # one cuDNN call each (TF32 off, as the package sets it) on operands laid
     # out as cuDNN wants them: the forward against F.conv1d on a transposed
     # h1 plus the residual add; dH1 and dWc against convolution_backward.
@@ -4511,8 +4511,8 @@ def main(argv=None) -> int:
     del out6, saved6, ref6, dx6, gk6, dxp6, gp6, pairs6, cot6, x_t
     torch.cuda.empty_cache()
 
-    # K6's conv alone at the train step's shapes: the forward, then dH1 (the
-    # taps' gradient scattered onto the h1 rows they read, relu-masked) and
+    # K6's conv alone at the train step's shapes: the forward, then dH1 (each
+    # h1 row the sum of the taps' gradients that read it, relu-masked) and
     # dWc = Tᵀ·g, each against convolution_backward for its own output (and
     # for the pair, the call the backward would make).
     conv_fwd_record("strided_conv_train", st_ops, bt, s0, (0, 0), "train_cli")

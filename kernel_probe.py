@@ -32,16 +32,22 @@ Builds patched copies of `csrc/` under `uplift_upsample_torch/_build/probe/`
   converter" (the consumers write no operand buffer: no transpose and TF32
   split of dY, or no bf16 rounding); 3xTF32 also "no splits" and "one
   pass, no splits";
-- the conv forward (`strided.cu`'s strided_conv_f32 at serving, 1,024
-  windows x 23 selected rows, K = 3 x 768 -> 384, its taps gathered from h1,
-  beside F.conv1d + the residual add): the kernel; "dense A" (gemm_f32 on
+- the conv forward (`strided.cu`'s strided_conv_f32 and strided_conv_bf16 at
+  serving, 1,024 windows x 23 selected rows, K = 3 x 768 -> 384, T read
+  from h1 by TMA's im2col mode, conv_taps.cuh ConvTapsTma) and its dH1
+  (`strided_bwd.cu`'s strided_dh1_f32 and strided_dh1_bf16 at the train
+  step, 512 windows, s0 3: 11,776 rows x 384 -> 3 x 768, Dh1Rows), each in
+  3xTF32 and on the bf16 rung
+  (native bf16, Wc's torch.bfloat16 plane; one build holds both), beside
+  F.conv1d + the residual add / convolution_backward's input gradient on
+  operands prepared beforehand (bf16: pre-rounded) and on the same inputs as
+  the kernel (layouts, casts, the residual or the relu mask timed): the
+  kernel; "dense A" (the conv only: gemm_f32 / gemm_bf16, the TF32 pass, on
   the taps matrix written out, read by TMA: the same products without the
-  gather); "no gathered copies" (the loader threads issue no cp.async);
-  "no products" (no wgmma); "no epilogue"; "no splits"; "no register
-  split";
-- the conv's dH1 (`strided_bwd.cu`'s strided_dh1_f32 at the train step,
-  11,776 rows x 384 -> 3 x 768, beside convolution_backward's input
-  gradient): the kernel; "no epilogue"; "no register split";
+  taps' boxes); "no A copies" (the loader issues W's boxes only: no box of
+  h1 or g); "no products" (no wgmma); "no epilogue" (the conv: the epilogue
+  warps read and write nothing; dH1: no mask brought into the staging tile,
+  no tile stored); "no splits" (3xTF32 only); "no register split";
 - with `--parent DIR` (a copy of an earlier `csrc/`) every caller of
   gemm_tc_kernel and gemm_atb_kernel, 3xTF32 and bf16 (`uplift_upsample_
   torch/tools/gemm_digests.py`), from this checkout's build and DIR's,
@@ -92,7 +98,9 @@ Builds patched copies of `csrc/` under `uplift_upsample_torch/_build/probe/`
 
 `--only` runs a subset: "dense" is the attention, GEMM, dW, conv and dH1
 groups (and the A/B of every GEMM caller with `--parent`), "dw" the dW
-groups alone (and the A/B).
+groups alone (and the A/B), "conv" the conv and dH1 groups (and, with
+`--parent`, the A/B of the strided conv's cases: conv, dH1, dWc; an
+earlier build that reads the bf16 plane in fp32 is handed one).
 
 Each prints one line. The patched versions compute nothing meaningful; only
 each kernel as it is is checked against its plain version. Needs a CUDA card
@@ -124,42 +132,55 @@ ATTENTION = {
     "no splits": NO_SPLITS,
     "one pass, no splits": NO_SPLITS + ONE_MMA,
 }
-_TMA = ("              mbar_expect_tx(full + 8 * s, kBf16 ? 2 * TC_TILE_BYTES : TC_STAGE_BYTES);\n"
-        "              tma_load_2d(st, &map_a, kt * TC_BK, m0, full + 8 * s);\n"
-        "              tma_load_2d(st + TC_TILE_BYTES, &map_w, kt * TC_BK, n0, full + 8 * s);\n"
-        "              if constexpr (!kBf16)\n"
-        "                tma_load_2d(st + 2 * TC_TILE_BYTES, &map_w, kt * TC_BK, w_small + n0,\n"
-        "                            full + 8 * s);\n")
-_SMALL_WGMMA = ("      wgmma_m64n64k8_tf32(d, f.small[j], desc_big + 2 * j);\n"
-                "      wgmma_m64n64k8_tf32(d, f.big[j], desc_small + 2 * j);\n")
-_BIG_WGMMA = "    wgmma_m64n64k8_tf32(d, f.big[j], desc_big + 2 * j);\n"
-_ROWS = "        const int rows = min(TC_BM, m - m0);\n"
+_TMA = ("          mbar_expect_tx(full + 8 * s, a_src.a_bytes() + L::kWLoad);\n"
+        "          const int2 wk = a_src.load(st, &map_a, tm, kt, full + 8 * s);\n"
+        "          tma_load_2d(st + TC_TILE_BYTES, &map_w, wk.x, wk.y + n0, full + 8 * s);\n"
+        "          if constexpr (kMode == TC_3XTF32)\n"
+        "            tma_load_2d(st + 2 * TC_TILE_BYTES, &map_w, wk.x, w_small + wk.y + n0,\n"
+        "                        full + 8 * s);\n")
+_SMALL_WGMMA = ("        wgmma_m64n64k8_tf32(d, f.small[j], desc_big + 2 * j);\n"
+                "        wgmma_m64n64k8_tf32(d, f.big[j], desc_small + 2 * j);\n")
+_BIG_WGMMA = "      wgmma_m64n64k8_tf32(d, f.big[j], desc_big + 2 * j);\n"
+_NATIVE_WGMMA = "    for (int s = 0; s < 2; ++s) wgmma_m64n64k16_bf16_rs(d, f.big[s], desc_big + 2 * s);\n"
+_ROWS = "        const int rows = a_src.rows(tm, m);\n"
 # the register split (setmaxnreg) of the loader / epilogue and consumer warpgroups
-_SETMAXNREG = '    asm volatile("setmaxnreg.{}.sync.aligned.u32 %0;\\n" :: "n"(R::k{}Regs));\n'
-REGS = [("gemm_tc.cuh", _SETMAXNREG.format("dec", "Loader"), ""),
-        ("gemm_tc.cuh", "  " + _SETMAXNREG.format("inc", "Consumer")[4:], "")]
+_SETMAXNREG = '    asm volatile("setmaxnreg.{}.sync.aligned.u32 %0;\\n" :: "n"(TC_{}_REGS));\n'
+REGS = [("gemm_tc.cuh", _SETMAXNREG.format("dec", "LOADER"), ""),
+        ("gemm_tc.cuh", "  " + _SETMAXNREG.format("inc", "CONSUMER")[4:], "")]
 GEMM = {
     "kernel": [],
-    "products only": [("gemm_tc.cuh", _TMA, "              mbar_arrive(full + 8 * s);\n")],
+    "products only": [("gemm_tc.cuh", _TMA, "          mbar_arrive(full + 8 * s);\n")],
     "copies only": [("gemm_tc.cuh", _SMALL_WGMMA, ""), ("gemm_tc.cuh", _BIG_WGMMA, "")],
-    "no epilogue": [("gemm_tc.cuh", _ROWS, "        const int rows = k > 0 ? 0 : TC_BM;\n")],
+    "no epilogue": [("gemm_tc.cuh", _ROWS, "        const int rows = k > 0 ? 0 : a_src.rows(tm, m);\n")],
     "no splits": NO_SPLITS,
     "one pass, no splits": NO_SPLITS + [("gemm_tc.cuh", _SMALL_WGMMA, "")],
     "no register split": REGS,
 }
-_GATHER = "              cp_async16(at + r * 32 + (q ^ (r % 8)) * 4,"
-_CP = "      cp_async16({t}s + kk * AB_LD + c4,"
 NO_EPILOGUE = GEMM["no epilogue"]
+# the conv's A boxes (ConvTapsTma) and dH1's (Dh1Rows): the loader issues W's
+# boxes only and expects their bytes
+_A_BYTES = ("gemm_tc.cuh", "          mbar_expect_tx(full + 8 * s, a_src.a_bytes() + L::kWLoad);\n",
+            "          mbar_expect_tx(full + 8 * s, L::kWLoad);\n")
+_CONV_BOX = "    tma_load_im2col_3d(dst, map, c0, stride * t - p0, b, (uint16_t)j, bar);\n"
+_DH1_BOX = "    tma_load_3d(dst, map, c0, (at.x + p0 - j) / stride + at.y, at.z, bar);\n"
+NO_PRODUCTS = [("gemm_tc.cuh", _SMALL_WGMMA, ""), ("gemm_tc.cuh", _BIG_WGMMA, ""),
+               ("gemm_tc.cuh", _NATIVE_WGMMA, "")]
 CONV = {
     "kernel": [],
-    "no gathered copies": [("gemm_tc.cuh", _GATHER, "              if (k < 0) " + _GATHER[14:])],
-    "no products": [("gemm_tc.cuh", _SMALL_WGMMA, ""), ("gemm_tc.cuh", _BIG_WGMMA, "")],
-    "no epilogue": [("gemm_tc.cuh", "      const int row0 = m0 + r, row1 = row0 + 8;",
-                     "      const int row0 = m0 + r + (k > 0 ? m : 0), row1 = row0 + 8;")],
+    "no A copies": [_A_BYTES, ("conv_taps.cuh", _CONV_BOX, "    if (kt < 0)\n" + _CONV_BOX)],
+    "no products": NO_PRODUCTS,
+    "no epilogue": NO_EPILOGUE,
     "no splits": NO_SPLITS,
     "no register split": REGS,
 }
-DH1 = {"kernel": [], "no epilogue": NO_EPILOGUE, "no register split": REGS}
+# dH1's epilogue: no mask loaded into the staging tile, no tile stored
+_BOXES = "          const int boxes = min(TC_BN / 32, (n - n0 + 31) / 32);\n"
+DH1 = {"kernel": [],
+       "no A copies": [_A_BYTES, ("conv_taps.cuh", _DH1_BOX, "    if (kt < 0)\n" + _DH1_BOX)],
+       "no products": NO_PRODUCTS,
+       "no epilogue": [("gemm_tc.cuh", _BOXES, "          const int boxes = k > 0 ? 0 : min(TC_BN / 32, (n - n0 + 31) / 32);\n")],
+       "no register split": REGS}
+NOT_BF16 = ("no splits",)  # variants the bf16 instances skip: they split nothing
 _SINK = "if ({} == 1.2345e-30f) "  # a store the compiler cannot drop, never taken
 ATTN_BWD = {
     "kernel": [],
@@ -263,8 +284,9 @@ SHORT = {
 }
 # the probes --only selects; "dense" is the attention, GEMM, dW and conv
 # groups, "dw" the dW groups alone
-PROBES = ("dense", "dw", "attn_bwd", "k4", "k1", "short")
+PROBES = ("dense", "dw", "conv", "attn_bwd", "k4", "k1", "short")
 DW_GROUPS = ("dw", "dw_bf16", "dwc")
+CONV_GROUPS = ("conv", "dh1", "gemm")  # "dense A" reads the GEMM
 # gemm_atb_kernel (the dW product) without its parts: the loader's TMA
 # loads and gathers, the products, the consumers' operand buffers, the splits
 _DW_TMA = "      if (threadIdx.x == 0) {\n        mbar_expect_tx("
@@ -372,9 +394,12 @@ def main(argv=None) -> int:
                                     ("attn_bwd", "temporal_bwd", ATTN_BWD),
                                     ("k4", "spatial_bwd", K4), ("k1", "spatial", K1),
                                     ("short", "attention", SHORT)):
-        probes = ({group} if group in PROBES else
-                  {"dense", "dw"} if group in DW_GROUPS else {"dense"})
+        probes = ({group} if group in PROBES and group != "conv" else
+                  {"dense", "dw"} if group in DW_GROUPS else
+                  {"dense", "conv"} if group in CONV_GROUPS else {"dense"})
         for name, reps in variants.items() if probes & only else ():
+            if group == "gemm" and only & probes == {"conv"} and name != "kernel":
+                continue  # "conv" reads only the GEMM as it is ("dense A")
             builds[group, name] = start_build(cuda_lib, f"{group} {name}", source, reps)
     if "short" in only and args.parent:
         builds["short", "parent"] = start_build(cuda_lib, "short parent", "attention", [],
@@ -392,7 +417,7 @@ def main(argv=None) -> int:
         # registers and spills of each K1 accumulation, each short variant and
         # each dW kernel as it is
         if ((key[0] == "k1" and key[1] in K1_AB) or key[0] == "short"
-                or (key[0] in DW_GROUPS and key[1] == "kernel")
+                or (key[0] in DW_GROUPS + ("conv", "dh1") and key[1] == "kernel")
                 or (key[0] == "k4" and key[1] in ("kernel", "parent"))):
             for kernel, line in ptxas_report(report):
                 print(f"ptxas {key[0]} {key[1]}, {kernel}: {line}", flush=True)
@@ -405,10 +430,13 @@ def main(argv=None) -> int:
 
     if "dense" in only:
         probe_dense(torch, F, builds, rand, rng, dev, stream)
-    elif "dw" in only:
-        probe_dw(torch, builds, rand, rng, dev, stream)
-    if args.parent and only & {"dense", "dw"}:
-        probe_gemm_parent(args.parent, args.seed)
+    else:
+        if "dw" in only:
+            probe_dw(torch, builds, rand, rng, dev, stream)
+        if "conv" in only:
+            probe_conv(torch, F, builds, rand, dev, stream)
+    if args.parent and only & {"dense", "dw", "conv"}:
+        probe_gemm_parent(args.parent, args.seed, conv_only=not only & {"dense", "dw"})
     if "attn_bwd" in only:
         probe_attention_bwd(torch, F, builds, rand, rng, dev, stream)
     if "k4" in only:
@@ -425,8 +453,6 @@ def probe_dense(torch, F, builds, rand, rng, dev, stream):
     conv forward and its dH1, each beside its PyTorch call."""
     from chip_smoke import time_ms
     from uplift_upsample_torch.ops.packed_attention import packed_attention_plain
-    from uplift_upsample_torch.ops.strided import conv_taps_plain, strided_conv_plain
-    from uplift_upsample_torch.ops.strided_train import conv_dh1_plain
     from uplift_upsample_torch.ops.temporal import tf32_halves
 
     heads, c = 8, 384
@@ -479,60 +505,126 @@ def probe_dense(torch, F, builds, rand, rng, dev, stream):
 
     probe_dw(torch, builds, rand, rng, dev, stream)
 
+    probe_conv(torch, F, builds, rand, dev, stream)
+
+
+def probe_conv(torch, F, builds, rand, dev, stream):
+    """The conv forward at serving (1,024 windows x 23 selected rows, K = 3 x
+    768 -> 384) and its dH1 at the train step (512 windows), each in 3xTF32
+    ("high") and on the bf16 rung ("default"), with every variant of CONV and
+    DH1 (one build holds both instances), beside the PyTorch call on
+    operands prepared beforehand and on the same inputs as the kernel (h1 or
+    g as the kernel takes them: layouts, casts and the relu mask timed)."""
+    from chip_smoke import time_ms
+    from uplift_upsample_torch.ops.strided import conv_taps_plain, strided_conv_plain
+    from uplift_upsample_torch.ops.strided_train import conv_dh1_plain
+    from uplift_upsample_torch.ops.temporal import bf16_plane, tf32_halves
+
+    c = 384
+    bf = torch.bfloat16
     b, n, hid, s0 = 1024, 71, 2 * c, 3
     n_out = (n - 3) // s0 + 1
     h1, x = torch.relu(rand(b, n, hid)), rand(b, n, c)
     wc, bc = rand(3 * hid, c, scale=0.03), rand(c, scale=0.1)
-    halves = tf32_halves(wc)
+    operands = {"f32": tf32_halves(wc), "bf16": conv_plane(torch, wc, transpose=True)}
     res = x[:, 1: 1 + s0 * (n_out - 1) + 1: s0]
     h1t, wt = h1.transpose(1, 2).contiguous(), wc.reshape(3, hid, c).permute(2, 1, 0).contiguous()
-    conv1d = time_ms(torch, lambda: res + F.conv1d(h1t, wt, bc, stride=s0).transpose(1, 2), 20)
-    ref = strided_conv_plain(h1, x, wc, bc, stride=s0, paddings=(0, 0))
+    wt_bf, h1t_bf, bc_bf = wt.to(bf), h1t.to(bf), bc.to(bf)
+    library = {
+        "f32": time_ms(torch, lambda: res + F.conv1d(h1t, wt, bc, stride=s0).transpose(1, 2), 20),
+        "bf16": time_ms(torch, lambda: res + F.conv1d(h1t_bf, wt_bf, bc_bf, stride=s0)
+                        .transpose(1, 2).float(), 20)}
+    same = {
+        "f32": time_ms(torch, lambda: res + (F.conv1d(h1.transpose(1, 2), wt, None, stride=s0)
+                                             .transpose(1, 2) + bc), 20),
+        "bf16": time_ms(torch, lambda: res + (F.conv1d(h1.to(bf).transpose(1, 2), wt_bf, None,
+                                                       stride=s0).float().transpose(1, 2) + bc),
+                        20)}
     out = torch.empty((b * n_out, c), device=dev)
-    taps, res = conv_taps_plain(h1, s0, (0, 0)).reshape(-1, 3 * hid), res.reshape(-1, c)
+    taps = conv_taps_plain(h1, s0, (0, 0)).reshape(-1, 3 * hid)
+    res2 = res.reshape(-1, c)
     dense = bind(builds["gemm", "kernel"][1], "gemm_f32", 5, 4)
-    variants = {"dense A": lambda: dense(taps.data_ptr(), halves.data_ptr(), bc.data_ptr(),
-                                         res.data_ptr(), out.data_ptr(), b * n_out, c,
-                                         3 * hid, 0, stream())}
-    for name in CONV:
-        fn = bind(builds["conv", name][1], "strided_conv_f32", 5, 7)
-        variants[name] = lambda fn=fn: fn(h1.data_ptr(), x.data_ptr(), halves.data_ptr(),
-                                          bc.data_ptr(), out.data_ptr(), b, n, hid, c, s0, 0,
-                                          n_out, stream())
-    for name in ["kernel", "dense A", *list(CONV)[1:]]:
-        call = variants[name]
-        if call() != 0:
-            raise RuntimeError(f"conv {name}: launch failed")
-        torch.cuda.synchronize()
-        err = ""
-        if name in ("kernel", "dense A"):
-            err = f" max_abs_err {float((out.reshape(ref.shape) - ref).abs().max()):.3e};"
-        print(f"probe conv {name}: {b * n_out} x {3 * hid} -> {c}:{err} ms "
-              f"{time_ms(torch, call, 20):.4f} (F.conv1d + add {conv1d:.4f})", flush=True)
-    del h1, x, taps, res, out
+    dense_bf = bind(builds["gemm", "kernel"][1], "gemm_bf16", 5, 4)
+    plane_dense = bf16_plane(wc)  # gemm_bf16's fp32 plane (c, 3 x hidden)
+    for mode, entry, rung in (("f32", "strided_conv_f32", "high"),
+                              ("bf16", "strided_conv_bf16", "default")):
+        w = operands[mode]
+        ref = strided_conv_plain(h1, x, wc, bc, stride=s0, paddings=(0, 0), precision=rung)
+        wd, fd = (plane_dense, dense_bf) if mode == "bf16" else (w, dense)
+        variants = {"dense A": lambda wd=wd, fd=fd: fd(taps.data_ptr(), wd.data_ptr(),
+                                                       bc.data_ptr(), res2.data_ptr(),
+                                                       out.data_ptr(), b * n_out, c, 3 * hid,
+                                                       0, stream())}
+        for name in CONV:
+            fn = bind(builds["conv", name][1], entry, 5, 7)
+            variants[name] = lambda fn=fn, w=w: fn(h1.data_ptr(), x.data_ptr(), w.data_ptr(),
+                                                   bc.data_ptr(), out.data_ptr(), b, n, hid, c,
+                                                   s0, 0, n_out, stream())
+        for name in ["kernel", "dense A", *list(CONV)[1:]]:
+            if mode == "bf16" and name in NOT_BF16:
+                continue
+            call = variants[name]
+            if call() != 0:
+                raise RuntimeError(f"conv {mode} {name}: launch failed")
+            torch.cuda.synchronize()
+            err = ""
+            if name in ("kernel", "dense A"):
+                err = f" max_abs_err {float((out.reshape(ref.shape) - ref).abs().max()):.3e};"
+            print(f"probe conv {mode} {name}: {entry} {b * n_out} x {3 * hid} -> {c}:{err} ms "
+                  f"{time_ms(torch, call, 20):.4f} (F.conv1d + add {library[mode]:.4f}, same "
+                  f"inputs {same[mode]:.4f})", flush=True)
+    del h1, x, taps, res, res2, out, h1t, h1t_bf
 
     b = 512
     h1, g = torch.relu(rand(b, n, hid)), rand(b, n_out, c, scale=1.0)
-    halves_dx = tf32_halves(wc, transpose=False)
-    ref = conv_dh1_plain(g, wc, h1, stride=s0, paddings=(0, 0))
+    operands = {"f32": tf32_halves(wc, transpose=False),
+                "bf16": conv_plane(torch, wc, transpose=False)}
     dh1 = torch.empty_like(h1)
     g_t = g.transpose(1, 2).contiguous()
     h1t = h1.transpose(1, 2).contiguous()
-    lib = time_ms(torch, lambda: torch.ops.aten.convolution_backward(
-        g_t, h1t, wt, None, [s0], [0], [1], False, [0], 1, [True, False, False]), 20)
-    for name in DH1:
-        fn = bind(builds["dh1", name][1], "strided_dh1_f32", 4, 7)
-        call = lambda: fn(g.data_ptr(), halves_dx.data_ptr(), h1.data_ptr(), dh1.data_ptr(), b,
-                          n, hid, c, s0, 0, n_out, stream())
-        if call() != 0:
-            raise RuntimeError(f"dh1 {name}: launch failed")
-        torch.cuda.synchronize()
-        err = f" max_abs_err {float((dh1 - ref).abs().max()):.3e};" if name == "kernel" else ""
-        print(f"probe dh1 {name}: {b * n_out} x {c} -> {3 * hid}:{err} ms "
-              f"{time_ms(torch, call, 20):.4f} (convolution_backward, input {lib:.4f})",
-              flush=True)
-    del h1, g, dh1, g_t, h1t
+    h1t_bf, g_t_bf = h1t.to(bf), g_t.to(bf)
+    mask = [True, False, False]  # the input's gradient only
+    bwd = torch.ops.aten.convolution_backward
+    library = {
+        "f32": time_ms(torch, lambda: bwd(g_t, h1t, wt, None, [s0], [0], [1], False, [0], 1,
+                                          mask), 20),
+        "bf16": time_ms(torch, lambda: bwd(g_t_bf, h1t_bf, wt_bf, None, [s0], [0], [1], False,
+                                           [0], 1, mask), 20)}
+    same = {
+        "f32": time_ms(torch, lambda: torch.where(
+            h1 > 0, bwd(g.transpose(1, 2), h1t, wt, None, [s0], [0], [1], False, [0], 1,
+                        mask)[0].transpose(1, 2), 0.0), 20),
+        "bf16": time_ms(torch, lambda: torch.where(
+            h1 > 0, bwd(g.to(bf).transpose(1, 2), h1t_bf, wt_bf, None, [s0], [0], [1], False,
+                        [0], 1, mask)[0].float().transpose(1, 2), 0.0), 20)}
+    for mode, entry, rung in (("f32", "strided_dh1_f32", "high"),
+                              ("bf16", "strided_dh1_bf16", "default")):
+        w = operands[mode]
+        ref = conv_dh1_plain(g, wc, h1, stride=s0, paddings=(0, 0), precision=rung)
+        for name in DH1:
+            if mode == "bf16" and name in NOT_BF16:
+                continue
+            fn = bind(builds["dh1", name][1], entry, 4, 7)
+            call = lambda: fn(g.data_ptr(), w.data_ptr(), h1.data_ptr(), dh1.data_ptr(), b, n,
+                              hid, c, s0, 0, n_out, stream())
+            if call() != 0:
+                raise RuntimeError(f"dh1 {mode} {name}: launch failed")
+            torch.cuda.synchronize()
+            err = (f" max_abs_err {float((dh1 - ref).abs().max()):.3e};" if name == "kernel"
+                   else "")
+            print(f"probe dh1 {mode} {name}: {entry} {b * n_out} x {c} -> {3 * hid}:{err} ms "
+                  f"{time_ms(torch, call, 20):.4f} (convolution_backward, input "
+                  f"{library[mode]:.4f}, same inputs {same[mode]:.4f})", flush=True)
+    del h1, g, dh1, g_t, h1t, h1t_bf, g_t_bf
     torch.cuda.empty_cache()
+
+
+def conv_plane(torch, wc, transpose):
+    """What the conv's bf16 instances read of Wc (3·hidden, C): its bf16
+    plane as a torch.bfloat16 tensor, (C, 3·hidden) with `transpose`, else
+    as stored."""
+    from uplift_upsample_torch.ops.temporal import bf16_plane
+    return bf16_plane(wc, transpose=transpose).to(torch.bfloat16)
 
 
 def probe_dw(torch, builds, rand, rng, dev, stream):
@@ -609,12 +701,14 @@ def probe_dw(torch, builds, rand, rng, dev, stream):
     torch.cuda.empty_cache()
 
 
-def probe_gemm_parent(parent, seed):
-    """Every caller of gemm_tc_kernel (tools/gemm_digests.py: K2's four
-    products, the scaled branch, dX, the conv at two geometries, dH1 at two
-    strides, s2t; 3xTF32 and bf16) from this checkout's build and from
-    `parent`'s, timed in turn (parent, kernel, kernel, parent; 3 rounds of 10
-    launches), with both builds' digests."""
+def probe_gemm_parent(parent, seed, conv_only=False):
+    """Every caller of gemm_tc_kernel and gemm_atb_kernel
+    (tools/gemm_digests.py: K2's four products, the scaled branch, dX, the
+    conv at two geometries, dH1 at two strides, s2t, dW, dWc; 3xTF32 and
+    bf16), or with `conv_only` the strided conv's (conv, dH1, dWc), from
+    this checkout's build and from `parent`'s, timed in turn (parent,
+    kernel, kernel, parent; 3 rounds of 10 launches), with both builds'
+    digests."""
     from pathlib import Path
 
     from uplift_upsample_torch.ops import cuda_lib
@@ -623,7 +717,9 @@ def probe_gemm_parent(parent, seed):
     libs = gemm_digests.build_libs(Path(parent).resolve(), cuda_lib.BUILD_DIR / "probe" /
                                    "gemm_parent")
     failed = gemm_digests.check(gemm_digests.port_libs(), libs, seed, rounds=3,
-                                log=lambda s: print(f"probe {s}", flush=True))
+                                log=lambda s: print(f"probe {s}", flush=True),
+                                parent_fp32_planes=gemm_digests.reads_fp32_planes(parent),
+                                libs_of=("strided", "strided_bwd") if conv_only else None)
     if failed:
         raise RuntimeError(f"gemm callers differ from the parent's bits: {failed}")
 

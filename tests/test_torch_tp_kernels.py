@@ -187,7 +187,7 @@ def test_bf16_launches_at_split_widths(part):
     elif part == "conv":
         h1, x = torch.relu(_rand(rng, windows, N_TOKENS, 384)), _rand(rng, windows, N_TOKENS, 384)
         ops = dict(wc=_rand(rng, 3 * 384, 384, scale=0.03), bc=_rand(rng, 384, scale=0.1))
-        ops["wc_bf"] = bf16_plane(ops["wc"])
+        ops["wc_bf"] = bf16_plane(ops["wc"]).to(torch.bfloat16)  # the native bf16 conv's operand
         kw = dict(stride=3, paddings=(0, 0))
         run = lambda r: strided_conv(h1, x, ops, counter="test", precision=r, **kw)
         plain = lambda r: strided_conv_plain(h1, x, ops["wc"], ops["bc"], precision=r, **kw)

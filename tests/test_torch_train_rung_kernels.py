@@ -46,7 +46,7 @@ from uplift_upsample_torch.ops import cuda_lib
 from uplift_upsample_torch.ops.spatial import PARAM_ORDER, spatial_stack, spatial_stack_plain
 from uplift_upsample_torch.ops.spatial_bwd import spatial_stack_bwd, spatial_stack_bwd_plain
 from uplift_upsample_torch.ops.strided import DENSE as STRIDED_DENSE
-from uplift_upsample_torch.ops.strided import output_length
+from uplift_upsample_torch.ops.strided import add_strided_bf16_planes, output_length
 from uplift_upsample_torch.ops.strided_train import (ORDER as STRIDED_ORDER,
                                                      saved_relu_mask, strided_block1_bwd_plain,
                                                      strided_block1_train_plain,
@@ -282,11 +282,14 @@ def strided_ops(rng, n, c, hidden, dev, precision):
     def rand(*shape, scale=0.1):
         return torch.tensor(rng.normal(size=shape) * scale, dtype=torch.float32, device=dev)
 
-    return add_weight_operands(dict(
+    ops = dict(
         pe=rand(n, c), ln1_g=1 + rand(c), ln1_b=rand(c), wqkv=rand(c, 3 * c, scale=0.05),
         bqkv=rand(3 * c), wp=rand(c, c, scale=0.05), bp=rand(c), ln2_g=1 + rand(c),
         ln2_b=rand(c), w1=rand(c, hidden, scale=0.05), b1=rand(hidden),
-        wc=rand(3 * hidden, c, scale=0.03), bc=rand(c)), STRIDED_DENSE, precision)
+        wc=rand(3 * hidden, c, scale=0.03), bc=rand(c))
+    if precision == "default":  # Wc's planes as torch.bfloat16, as the block's operands hold them
+        return add_strided_bf16_planes(ops, dx=True)
+    return add_weight_operands(ops, STRIDED_DENSE, precision)
 
 
 @pytest.mark.gpu

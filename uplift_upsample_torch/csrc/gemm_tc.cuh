@@ -1,48 +1,54 @@
 // Tensor-core GEMMs at fp32-level error for Hopper: 3xTF32 (tf32.cuh), in
 // two kernels. They carry every product of K2, K3, K5 and K6 outside the
 // attention: the dense layers (forward, and the backward's dX and dW), the
-// strided conv's three products (strided.cu, strided_bwd.cu: its taps
-// gathered from h1 by the loaders, conv_taps.cuh) and the s2t prologue.
+// strided conv's three products (strided.cu, strided_bwd.cu: its operands
+// as conv_taps.cuh reads them) and the s2t prologue.
 //
-// 1. gemm_tc_kernel: out = epilogue(A · B), A (m, k) fp32 row-major, B the
-//    two TF32 halves of an (n, k) K-major matrix in one (2, n, k) buffer
+// 1. gemm_tc_kernel: out = epilogue(A · B), A fp32, B the two TF32 halves
+//    of an (n, k) K-major matrix in one (2, n, k) buffer
 //    (`launch_tf32_halves`): for x·W with W (k, n) the halves of Wᵀ, for the
 //    backward's dX = dY·Wᵀ the halves of W as it is stored. The epilogue is
 //    a functor (`BiasActResidual` below says what it provides) that writes
-//    each output element from its sum. A comes by
-//    TMA (`launch_gemm_tc`) or, for the conv's taps, gathered row by row
-//    (`launch_gemm_tc_gather`).
+//    each output element from its sum. A comes by TMA as its source says:
+//    TmaA, (m, k) row-major (`launch_gemm_tc`); the strided conv's taps of
+//    h1, a box of whole windows a stage (ConvTapsTma), or dH1's shifted rows
+//    of g (Dh1Rows), whose tiles also leave by TMA (an epilogue with
+//    kTmaStore).
 //
 //    Bound: operations. 3xTF32 takes three TF32 products per fp32 one; K2's
 //    qkv product (72,704 x 384 -> 1,152) is 3 x 64.3 GFLOP, 0.390 ms at the
 //    495 TFLOP/s dense TF32 peak, against 0.133 ms for its 447 MB.
 //
-//    The bf16 mode (kBf16, the one-pass bf16 rung; `launch_gemm_tc<true>`):
-//    B is W's bf16-rounded plane (n, k) in place of the halves, A is rounded
-//    to bf16 (tf32.cuh bf16_round) as it leaves shared memory, and each
-//    8-deep step is one wgmma on the plane instead of three; the loader
-//    loads no small half. A simple instance: one TF32 pass on operands that
-//    bf16 holds exactly, so the stages keep fp32 tiles at TF32's rate. With
-//    A read as TmaAScaled (the backward's dX in training) each row of A is
-//    multiplied by its factor before the rounding, as the TPU rounds the
-//    droppath-scaled gradient (`launch_gemm_tc_scaled`).
+//    The bf16 rung has two modes. TC_BF16_TF32 (`launch_gemm_tc<true>`, K2,
+//    K5, s2t): B is W's bf16-rounded plane (n, k) in fp32 in place of the
+//    halves, A is rounded to bf16 (tf32.cuh bf16_round) as it leaves shared
+//    memory, and each 8-deep step is one wgmma on the plane instead of
+//    three; the loader loads no small half. A simple instance: one TF32
+//    pass on operands that bf16 holds exactly, so the stages keep fp32
+//    tiles at TF32's rate. With A read as TmaAScaled (the backward's dX in
+//    training) each row of A is multiplied by its factor before the
+//    rounding, as the TPU rounds the droppath-scaled gradient
+//    (`launch_gemm_tc_scaled`). TC_BF16 (native, the strided conv's): W's
+//    plane in bf16 (torch.bfloat16) by TMA into 64-byte rows with the
+//    64-byte swizzle, A's fp32 tile rounded by the consumers to bf16 pairs
+//    (cvt.rn.bf16x2) as wgmma's register operand, two wgmma.m64n64k16 per
+//    32-deep stage and half; a stage is 24 KB, so the ring holds 6.
 //
-//    Design: persistent, one block per SM walking 128 x 128 output tiles in
-//    order, n fastest (the blocks running together share A tiles, so A
-//    comes from device memory about once), 384 threads; warpgroup 0 gives
-//    registers to the two consumer warpgroups (setmaxnreg: 56 and 224 a
-//    thread, the launch's 168 on average; 72 and 216 with a gathered A):
-//     - the loaders: one thread keeps a ring of 3 shared-memory stages
-//       filled with TMA loads (A 128 x 32, W_big and W_small 128 x 32,
-//       128-byte swizzle), each stage guarded by a full and an empty
-//       mbarrier. It runs on into the next tile's loads while the consumers
-//       finish the current one: with K = 384-1,152 a tile is only 12-36
-//       stages deep. A gathered A (TMA takes no row list) is fetched by all
-//       128 threads of warpgroup 0 into a ring of 4 stages instead, with
-//       cp.async in 16-byte pieces written where the swizzle puts them,
-//       zero-filled where the gather says so; each thread's copies arrive
-//       on the stage's full mbarrier as they land
-//       (cp.async.mbarrier.arrive), beside the TMA bytes of W;
+//    Design: persistent, one block per SM walking output tiles of up to 128
+//    rows x 128 columns in order, n fastest (the blocks running together
+//    share A tiles, so A comes from device memory about once), 384 threads;
+//    warpgroup 0 gives registers to the two consumer warpgroups
+//    (setmaxnreg: 56 and 224 a thread, the launch's 168 on average):
+//     - the loader: one thread keeps a ring of shared-memory stages (3 of
+//       A 128 x 32, W_big and W_small 128 x 32, 128-byte swizzle) filled
+//       with TMA loads, each stage guarded by a full and an empty mbarrier.
+//       It runs on into the next tile's loads while the consumers finish the
+//       current one: with K = 384-1,152 a tile is only 12-36 stages deep.
+//       Before A came by TMA for the conv, its taps were gathered by all 128
+//       threads of warpgroup 0 with cp.async (72 / 216 registers, a ring of
+//       4, no epilogue warps): 0.73 ms at serving where the same products
+//       from a dense A took 0.41 (kernel_probe.py, NVIDIA H100 80GB HBM3,
+//       700 W);
 //     - the consumers, 64 rows each: per 32-deep stage a thread loads its A
 //       fragments from shared memory and splits them into TF32 halves in
 //       registers; per 64-column half of the tile it issues wgmma.m64n64k8
@@ -53,25 +59,28 @@
 //       product of K = 768 added into one sum that came to ~10x the fp32
 //       plain version's error on the card, and a partial per stage brings it
 //       back to fp32's level. Both halves' products are in flight together
-//       (wgmma.wait_group 1, then 0), the next stage's A is read under them
-//       (A by TMA), and a stage is released as soon as its second half
-//       retires (`mainloop`). With A by TMA the consumers then write their
-//       sums to a staging tile in shared memory and go on to the next tile;
-//       with a gathered A they pass them through the epilogue themselves,
-//       two columns at a time (8-byte loads and stores);
-//     - the epilogue (A by TMA: warps 1-3 of warpgroup 0): it reads a staged
-//       tile and passes it through the epilogue functor, 4 columns a thread
-//       (16-byte loads and stores, a few rows' loads in flight), while the
-//       consumers run the next tile's products. Run from the consumers'
-//       registers after the last stage, as the kernel did before this
-//       pipeline, it took ~0.34 of qkv's 0.87 ms (kernel_probe.py, NVIDIA
-//       H100 80GB HBM3, 700 W).
-//    Only rows < m and columns < n are written; TMA fills rows and columns
-//    past the ends of A with zeros. Each output element is read (a residual
-//    may alias out) and written by one thread; A must not alias out. Every
-//    output's sum is the one the kernel took before the pipeline (the same
-//    partials, added in stage order), so its outputs are the same bits
-//    (uplift_upsample_torch/tools/gemm_digests.py, GEMM_DIGESTS).
+//       (wgmma.wait_group 1, then 0), the next stage's A is read under them,
+//       and a stage is released as soon as its second half retires
+//       (`mainloop`). The consumers then write their sums to a staging tile
+//       in shared memory and go on to the next tile;
+//     - the epilogue (warps 1-3 of warpgroup 0): it reads a staged tile and
+//       passes it through the epilogue functor, 4 columns a thread (16-byte
+//       loads and stores, a few rows' loads in flight), while the consumers
+//       run the next tile's products. Run from the consumers' registers
+//       after the last stage, as the kernel did before this pipeline, it
+//       took ~0.34 of qkv's 0.87 ms (kernel_probe.py, NVIDIA H100 80GB HBM3,
+//       700 W). With kTmaStore one of its threads brings the tile's mask by
+//       TMA into the staging tile (TMA's layout) once the last tile's store
+//       has read it, the consumers write their sums where the mask passes,
+//       and the thread stores the tile by TMA.
+//    Only rows < m (the source's rows of a tile) and columns < n are
+//    written; TMA fills rows and columns past the ends of A with zeros. Each
+//    output element is read (a residual may alias out) and written by one
+//    thread; A must not alias out. Every output's sum is the one the kernel
+//    took before the pipeline (the same partials, added in stage order), so
+//    its outputs are the same bits (uplift_upsample_torch/tools/
+//    gemm_digests.py, GEMM_DIGESTS); so are the conv's in 3xTF32, whose
+//    stages are T's 32-column slices in order.
 //
 // 2. gemm_atb_kernel: part[z] = Xᵀ · (s ⊙ dY) over chunk z of the rows, X
 //    (rows, m) and dY (rows, n) row-major: the backward's dW (K5: qkv, proj,
@@ -139,22 +148,32 @@ constexpr int TC_TILE_BYTES = TC_BM * TC_BK * 4;   // 16 KB, = TC_BN x TC_BK
 constexpr int TC_STAGE_BYTES = 3 * TC_TILE_BYTES;  // A, W_big, W_small
 constexpr int TC_LDS = TC_BN + 8;                  // floats per staged output row
 constexpr int TC_OUT_BYTES = TC_BM * TC_LDS * 4;   // one tile's sums, 68 KB
+// Registers per thread after setmaxnreg: warpgroup 0's and the consumers',
+// 128 x 56 + 256 x 224 = 384 x 168, the launch's own (__launch_bounds__).
+constexpr int TC_LOADER_REGS = 56, TC_CONSUMER_REGS = 224;
+constexpr int TC_EPILOGUE = 96;  // warps 1-3 of warpgroup 0
+constexpr uint64_t kHalf = 64 * TC_BK * 4 >> 4;  // rows 64.. of a K-major fp32 tile of 32
 
-// Warpgroup 0's roles and the shared memory by A's source: with A by TMA,
-// warp 0 loads (one thread) and warps 1-3 run the epilogue from a staging
-// tile, beside a ring of 3 stages; a gathered A takes all 128 threads to
-// load (each keeps its 8 rows' offsets), a ring of 4 stages, and the
-// consumers write their tiles themselves. Registers per thread after
-// setmaxnreg: warpgroup 0's and the consumers', 128 x 56 + 256 x 224 (or
-// 128 x 72 + 256 x 216) = 384 x 168, the launch's own (__launch_bounds__).
-template <bool kGather>
-struct TcRoles {
-  static constexpr int kStages = kGather ? 4 : 3;
-  static constexpr int kLoaderRegs = kGather ? 72 : 56, kConsumerRegs = kGather ? 216 : 224;
-  static constexpr int kLoaders = kGather ? 128 : 32;
-  static constexpr int kEpilogue = 128 - kLoaders;  // epilogue threads
-  static constexpr int kSmem =
-      kStages * TC_STAGE_BYTES + (kGather ? 0 : TC_OUT_BYTES) + (2 * kStages + 2) * 8 + 1024;
+// The products' modes: 3xTF32; the bf16 rung as one TF32 pass on fp32 tiles
+// (A rounded as it leaves shared memory, W's bf16 plane kept in fp32); and
+// native bf16 (the strided conv's: W's plane in bf16, A rounded into
+// registers, wgmma k16 on bf16 operands).
+constexpr int TC_3XTF32 = 0, TC_BF16_TF32 = 1, TC_BF16 = 2;
+
+// A ring stage by mode: A's 128 x 32 fp32 tile (128-byte rows, 128-byte
+// swizzle), then W's: two fp32 tiles of 128 rows x 32 (the TF32 pass reads
+// the first), or in native bf16 one tile of 128 rows of 32 bf16 (64-byte
+// rows, 64-byte swizzle), which leaves room for twice the stages.
+template <int kMode>
+struct TcStage {
+  static constexpr bool kNative = kMode == TC_BF16;
+  static constexpr int kBytes = kNative ? TC_TILE_BYTES + TC_BN * TC_BK * 2 : TC_STAGE_BYTES;
+  static constexpr int kStages = kNative ? 6 : 3;
+  static constexpr int kWLoad =  // W's bytes a stage brings
+      kMode == TC_3XTF32 ? 2 * TC_TILE_BYTES : kNative ? TC_BN * TC_BK * 2 : TC_TILE_BYTES;
+  static constexpr uint64_t kWHalf =  // W's rows 64.. of a stage tile, in descriptor units
+      kNative ? 64 * TC_BK * 2 >> 4 : kHalf;
+  static constexpr int kSmem = kStages * kBytes + TC_OUT_BYTES + (2 * kStages + 2) * 8 + 1024;
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -190,15 +209,18 @@ __device__ __forceinline__ void cp_async_mbar_arrive(uint32_t bar) {
   asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" :: "r"(bar) : "memory");
 }
 
-// Wait until the phase of parity `parity` has completed.
+// Wait until the phase of parity `parity` has completed; trap instead of
+// spinning forever if it never does.
 __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
+  for (uint32_t spins = 0;; ++spins) {
+    uint32_t done;
     asm volatile(
         "{\n.reg .pred p;\n"
         "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
         "selp.u32 %0, 1, 0, p;\n}\n"
         : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    if (done) return;
+    if (spins == (1u << 24)) __trap();
   }
 }
 
@@ -212,12 +234,54 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+// One 3D TMA box into shared memory, completing on `bar`; coordinates may
+// be negative (what lies outside the tensor reads as zeros).
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, int c0,
+                                            int c1, int c2, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// One 3D TMA box from shared memory to the tensor (what lies outside it is
+// not written), in this thread's bulk group.
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, uint32_t src, int c0,
+                                             int c1, int c2) {
+  asm volatile("cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n"
+               :: "l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1), "r"(c2)
+               : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// The bulk groups' stores have read their shared memory (kRead) or are done.
+template <bool kRead>
+__device__ __forceinline__ void bulk_wait_all() {
+  if constexpr (kRead)
+    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+  else
+    asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
 // wgmma descriptor of a K-major tile with 128-byte rows, 128-byte swizzle:
 // 8-row groups 1,024 bytes apart. The tile starts 1,024-byte aligned; a
 // step of 8 along K adds 32 bytes (2 in the address field).
 __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
          ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+// The same for a K-major bf16 tile with 64-byte rows, 64-byte swizzle
+// (16-byte chunk c of row r at chunk c ^ ((r / 2) % 4)): 8-row groups 512
+// bytes apart. The tile starts 512-byte aligned; a step of 16 along K adds
+// 32 bytes.
+__device__ __forceinline__ uint64_t sw64_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(512 >> 4) << 32) | ((uint64_t)2 << 62);
 }
 
 // d (64 x 64 per warpgroup) += a (64 x 8, registers) · b (8 x 64, shared memory)
@@ -237,6 +301,32 @@ __device__ __forceinline__ void wgmma_m64n64k8_tf32(float (&d)[32], const uint32
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
+// d (64 x 64 per warpgroup) += a (64 x 16 bf16, registers: four pairs a
+// thread) · b (16 x 64 bf16, K-major in shared memory)
+__device__ __forceinline__ void wgmma_m64n64k16_bf16_rs(float (&d)[32], const uint32_t (&a)[4],
+                                                        uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// Two fp32 values rounded to bf16 (to nearest, ties to even, as bf16_round)
+// and packed, lo in the low half.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  uint32_t r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+
 // Keeps the compiler from moving reads or writes of x across the wgmma
 // issues and waits around it (the tensor cores write x asynchronously).
 template <int N>
@@ -254,9 +344,12 @@ __device__ __forceinline__ void fence_regs(float (&x)[N]) {
 //                                    they read, then what they write, each
 //                                    element exactly as operator() computes it.
 // The epilogue threads load a few rows' Ld before storing any, so their reads
-// are in flight together. With a gathered A (ConvResidual) the consumers
-// write their tiles themselves: quads() and pair(r, c, v0, v1), columns c
-// and c + 1 of row r, take the place of Ld, load4 and store4.
+// are in flight together. An epilogue with `kTmaStore` (strided_bwd.cu's
+// dH1) instead comes with two arrays of tensor maps (its Maps: `in`, `out`)
+// of the output's row sets that its A source's `out_at` names: the tile's
+// mask comes by TMA through in[·] into the staging tile, the consumers
+// write their sums where the mask passes, and the tile leaves by TMA
+// through out[·].
 //
 // out[r, c] = act(v + bias[c]) + residual[r, c]; bias and residual optional.
 // residual may alias out: each element is read and written by one thread.
@@ -290,16 +383,47 @@ struct BiasActResidual {
   }
 };
 
-// A read by TMA through map_a.
-struct TmaA {
-  static constexpr bool kGather = false;
+// The tensor maps of an epilogue with kTmaStore (its type Maps), passed to
+// the kernel as a __grid_constant__ parameter of their own: the TMA needs
+// their address. The epilogue itself stays an ordinary parameter (marked
+// __grid_constant__ too, K2's GEMMs ran 0-18 % slower, in turn, NVIDIA H100
+// 80GB HBM3, 700 W).
+struct NoMaps {};
+template <class E, class = void>
+struct TmaStored {
+  static constexpr bool value = false;
+  typedef NoMaps Maps;
+};
+template <class E>
+struct TmaStored<E, decltype(void(E::kTmaStore))> {
+  static constexpr bool value = E::kTmaStore;
+  typedef typename E::Maps Maps;
 };
 
-// A read by TMA through map_a, each row r multiplied by scale[r /
-// rows_per_scale] (1 without a scale) as it leaves shared memory; the bf16
-// mode only.
-struct TmaAScaled {
-  static constexpr bool kGather = false;
+// A's source: for m-tile tm, m0(tm) the tile's first output row and
+// rows(tm, m) its output rows (the row-major epilogues'); ktiles(tm, k) its
+// 32-deep stages; a_bytes() the bytes of A a stage brings; load(dst, map,
+// tm, kt, bar) issues stage kt's A by TMA and returns W's coordinates for
+// it (k, then a row offset added to the tile's first column n0); tiles_m(m)
+// (host and device) the m-tiles.
+//
+// A (m, k) row-major by TMA through map_a, tiles of 128 rows.
+struct TmaA {
+  __host__ __device__ int tiles_m(int m) const { return (m + TC_BM - 1) / TC_BM; }
+  __host__ __device__ int a_bytes() const { return TC_TILE_BYTES; }
+  __device__ __forceinline__ int m0(int tm) const { return tm * TC_BM; }
+  __device__ __forceinline__ int rows(int tm, int m) const { return min(TC_BM, m - tm * TC_BM); }
+  __device__ __forceinline__ int ktiles(int, int k) const { return (k + TC_BK - 1) / TC_BK; }
+  __device__ __forceinline__ int2 load(uint32_t dst, const CUtensorMap* map, int tm, int kt,
+                                       uint32_t bar) const {
+    tma_load_2d(dst, map, kt * TC_BK, tm * TC_BM, bar);
+    return make_int2(kt * TC_BK, 0);
+  }
+};
+
+// TmaA with each row r multiplied by scale[r / rows_per_scale] (1 without a
+// scale) as it leaves shared memory; the bf16 mode only.
+struct TmaAScaled : TmaA {
   const float* scale;
   int rows_per_scale;
   __device__ __forceinline__ float factor(int row, int m) const {
@@ -316,61 +440,94 @@ struct RowScaled<TmaAScaled> {
   static constexpr bool value = true;
 };
 
-// A consumer thread's A fragments of one 32-deep stage, split into TF32
-// halves (kBf16: rounded to bf16, no small half). Step j's fragment:
-// (r, 8j+t), (r+8, 8j+t), (r, 8j+t+4), (r+8, 8j+t+4).
-template <bool kBf16>
+// A consumer thread's A fragments of one 32-deep stage: TF32 halves; in the
+// TF32 pass A rounded to bf16 (no small half), step j's fragment (r, 8j+t),
+// (r+8, 8j+t), (r, 8j+t+4), (r+8, 8j+t+4); native bf16, two k16 steps of
+// four bf16 pairs, step s's (r, 16s+2t..), (r+8, 16s+2t..), (r, 16s+8+2t..),
+// (r+8, 16s+8+2t..).
+template <int kMode>
 struct AFrag {
-  uint32_t big[4][4], small[kBf16 ? 1 : 4][4];
+  uint32_t big[kMode == TC_BF16 ? 2 : 4][4], small[kMode == TC_3XTF32 ? 4 : 1][4];
 };
 
 // The thread's 16 values of A in stage tile `at`, in fragment order;
 // element (row, col) of the swizzled tile sits at
 // row*32 + ((col/4) ^ (row%8))*4 + col%4.
+template <int kMode>
 __device__ __forceinline__ void load_a(float (&x)[16], const float* at, int r, int g, int t) {
+  if constexpr (kMode == TC_BF16) {
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int lo = ((2 * j) ^ g) * 4 + t, hi = ((2 * j + 1) ^ g) * 4 + t;
-    x[4 * j] = at[r * 32 + lo];
-    x[4 * j + 1] = at[(r + 8) * 32 + lo];
-    x[4 * j + 2] = at[r * 32 + hi];
-    x[4 * j + 3] = at[(r + 8) * 32 + hi];
+    for (int s = 0; s < 2; ++s)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int at_col = (((4 * s + 2 * h + t / 2) ^ g) * 4) + 2 * (t % 2);
+        const float2 lo = *reinterpret_cast<const float2*>(at + r * 32 + at_col);
+        const float2 hi = *reinterpret_cast<const float2*>(at + (r + 8) * 32 + at_col);
+        x[8 * s + 4 * h] = lo.x;
+        x[8 * s + 4 * h + 1] = lo.y;
+        x[8 * s + 4 * h + 2] = hi.x;
+        x[8 * s + 4 * h + 3] = hi.y;
+      }
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int lo = ((2 * j) ^ g) * 4 + t, hi = ((2 * j + 1) ^ g) * 4 + t;
+      x[4 * j] = at[r * 32 + lo];
+      x[4 * j + 1] = at[(r + 8) * 32 + lo];
+      x[4 * j + 2] = at[r * 32 + hi];
+      x[4 * j + 3] = at[(r + 8) * 32 + hi];
+    }
   }
 }
 
-// The fragments of x: its TF32 halves, or in the bf16 mode x rounded to
-// bf16, rows r and r + 8 first times their factors fr0, fr1 (kScaled).
-template <bool kBf16, bool kScaled>
-__device__ __forceinline__ void make_frag(AFrag<kBf16>& f, const float (&x)[16], float fr0,
+// The fragments of x: its TF32 halves, or x rounded to bf16 (the TF32
+// pass: one value a register, rows r and r + 8 first times their factors
+// fr0, fr1 with kScaled; native: two a register, cvt.rn.bf16x2).
+template <int kMode, bool kScaled>
+__device__ __forceinline__ void make_frag(AFrag<kMode>& f, const float (&x)[16], float fr0,
                                           float fr1) {
+  if constexpr (kMode == TC_BF16) {
+    static_assert(!kScaled, "native bf16 takes no row factors");
 #pragma unroll
-  for (int j = 0; j < 4; ++j)
+    for (int s = 0; s < 2; ++s)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      if constexpr (kBf16)
-        f.big[j][e] = bf16_round(kScaled ? x[4 * j + e] * (e % 2 ? fr1 : fr0) : x[4 * j + e]);
-      else
-        tf32_split(x[4 * j + e], f.big[j][e], f.small[j][e]);
-    }
+      for (int e = 0; e < 4; ++e) f.big[s][e] = pack_bf16(x[8 * s + 2 * e], x[8 * s + 2 * e + 1]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if constexpr (kMode == TC_BF16_TF32)
+          f.big[j][e] = bf16_round(kScaled ? x[4 * j + e] * (e % 2 ? fr1 : fr0) : x[4 * j + e]);
+        else
+          tf32_split(x[4 * j + e], f.big[j][e], f.small[j][e]);
+      }
+  }
 }
 
 // One 64-column half's products of a stage into the partial d: per 8-deep
-// step A_small·W_big, A_big·W_small, A_big·W_big (kBf16: the one product),
-// issued as a wgmma group and not waited for.
-template <bool kBf16>
-__device__ __forceinline__ void issue_half(float (&d)[32], const AFrag<kBf16>& f,
+// step A_small·W_big, A_big·W_small, A_big·W_big (the TF32 pass: the one
+// product); native bf16, one k16 product per 16-deep step; issued as a
+// wgmma group and not waited for.
+template <int kMode>
+__device__ __forceinline__ void issue_half(float (&d)[32], const AFrag<kMode>& f,
                                            uint64_t desc_big, uint64_t desc_small) {
 #pragma unroll
   for (int i = 0; i < 32; ++i) d[i] = 0.f;
   fence_regs(d);
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+  if constexpr (kMode == TC_BF16) {
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    if constexpr (!kBf16) {
-      wgmma_m64n64k8_tf32(d, f.small[j], desc_big + 2 * j);
-      wgmma_m64n64k8_tf32(d, f.big[j], desc_small + 2 * j);
+    for (int s = 0; s < 2; ++s) wgmma_m64n64k16_bf16_rs(d, f.big[s], desc_big + 2 * s);
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if constexpr (kMode == TC_3XTF32) {
+        wgmma_m64n64k8_tf32(d, f.small[j], desc_big + 2 * j);
+        wgmma_m64n64k8_tf32(d, f.big[j], desc_small + 2 * j);
+      }
+      wgmma_m64n64k8_tf32(d, f.big[j], desc_big + 2 * j);
     }
-    wgmma_m64n64k8_tf32(d, f.big[j], desc_big + 2 * j);
   }
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
@@ -385,18 +542,21 @@ __device__ __forceinline__ void retire_into(float (&acc)[64], float (&d)[32]) {
   for (int i = 0; i < 32; ++i) acc[kOff + i] += d[i];
 }
 
-template <int kStages>
+template <int kMode>
 __device__ __forceinline__ const float* stage_at(const float* tiles, uint32_t i) {
-  return tiles + (i % kStages) * (TC_STAGE_BYTES / 4);
+  typedef TcStage<kMode> L;
+  return tiles + (i % L::kStages) * (L::kBytes / 4);
 }
 
 // The descriptor of stage i's W_big tile (which = 0) or W_small tile (1);
-// + kHalf: its second 64 columns.
-template <int kStages>
+// + TcStage::kWHalf: its second 64 columns.
+template <int kMode>
 __device__ __forceinline__ uint64_t w_desc(uint32_t base, uint32_t i, int which) {
-  return sw128_desc(base + (i % kStages) * TC_STAGE_BYTES + (1 + which) * TC_TILE_BYTES);
+  typedef TcStage<kMode> L;
+  const uint32_t at = base + (i % L::kStages) * L::kBytes + TC_TILE_BYTES;
+  if constexpr (L::kNative) return sw64_desc(at);
+  return sw128_desc(at + which * TC_TILE_BYTES);
 }
-constexpr uint64_t kHalf = 64 * TC_BK * 4 >> 4;  // W's rows 64.. of a stage tile
 
 // Stage i's shared memory may be refilled: one arrival per consumer warp.
 template <int kStages>
@@ -405,160 +565,148 @@ __device__ __forceinline__ void release(uint32_t empty, uint32_t i) {
   if (threadIdx.x % 32 == 0) mbar_arrive(empty + 8 * (i % kStages));
 }
 
-// A consumer's products of one tile into acc, over the ring of kStages
-// stages from stage `it` on. The tensor cores add each product into their
-// accumulator rounding toward zero, an error that grows with the number of
-// adds into one sum (~1e-5 relative over K = 768 where the fp32 plain
-// version keeps ~1e-6). So each 32-deep stage sums into a fresh partial per
-// 64-column half (32 registers), which then joins acc with a rounded fp32
-// add, stage by stage. The two halves' groups are in flight together, and
-// a stage is released once its second half retires. With A by TMA
-// (kAhead) the next stage's A is read from shared memory under the current
-// stage's products, and split (or rounded) once they retire: a second
-// buffer of fragments, to issue stage kt+1 before stage kt retires, does
-// not fit in 224 registers beside the partials (3xTF32 spilled; the bf16
-// mode ran 1.3x slower, ptxas serializing its wgmma; NVIDIA H100 80GB HBM3,
-// 700 W). A gathered A is slow to arrive: there the consumers release each
-// stage before they wait for the next, so the loaders keep every stage but
-// one in flight.
-template <bool kBf16, bool kScaled, bool kAhead, int kStages>
+// A consumer's products of one tile into acc, over the ring from stage `it`
+// on. The tensor cores add each product into their accumulator rounding
+// toward zero, an error that grows with the number of adds into one sum
+// (~1e-5 relative over K = 768 where the fp32 plain version keeps ~1e-6).
+// So each 32-deep stage sums into a fresh partial per 64-column half (32
+// registers), which then joins acc with a rounded fp32 add, stage by stage.
+// The two halves' groups are in flight together, the next stage's A is read
+// from shared memory under them and split (or rounded) once they retire, and
+// a stage is released once its second half retires. A second buffer of
+// fragments, to issue stage kt+1 before stage kt retires, does not fit in
+// 224 registers beside the partials (3xTF32 spilled; the TF32 pass ran 1.3x
+// slower, ptxas serializing its wgmma; NVIDIA H100 80GB HBM3, 700 W).
+template <int kMode, bool kScaled>
 __device__ __forceinline__ void mainloop(float (&acc)[64], int ktiles, uint32_t it,
                                          uint32_t base, const float* tiles, uint32_t full,
                                          uint32_t empty, int r, int g, int t, float fr0,
                                          float fr1) {
+  constexpr int S = TcStage<kMode>::kStages;
+  constexpr uint64_t kWHalf = TcStage<kMode>::kWHalf;
   float p0[32], p1[32], x[16];
-  mbar_wait(full + 8 * (it % kStages), (it / kStages) & 1);
-  load_a(x, stage_at<kStages>(tiles, it), r, g, t);
+  mbar_wait(full + 8 * (it % S), (it / S) & 1);
+  load_a<kMode>(x, stage_at<kMode>(tiles, it), r, g, t);
   for (int kt = 0; kt < ktiles; ++kt) {
-    AFrag<kBf16> f;
-    make_frag<kBf16, kScaled>(f, x, fr0, fr1);
-    const uint64_t db = w_desc<kStages>(base, it + kt, 0);
-    const uint64_t ds = w_desc<kStages>(base, it + kt, 1);
-    issue_half<kBf16>(p0, f, db, ds);
-    issue_half<kBf16>(p1, f, db + kHalf, ds + kHalf);
+    AFrag<kMode> f;
+    make_frag<kMode, kScaled>(f, x, fr0, fr1);
+    const uint64_t db = w_desc<kMode>(base, it + kt, 0);
+    const uint64_t ds = w_desc<kMode>(base, it + kt, 1);
+    issue_half<kMode>(p0, f, db, ds);
+    issue_half<kMode>(p1, f, db + kWHalf, ds + kWHalf);
     const uint32_t next = it + kt + 1;
-    if (kAhead && kt + 1 < ktiles) {
-      mbar_wait(full + 8 * (next % kStages), (next / kStages) & 1);
-      load_a(x, stage_at<kStages>(tiles, next), r, g, t);
+    if (kt + 1 < ktiles) {
+      mbar_wait(full + 8 * (next % S), (next / S) & 1);
+      load_a<kMode>(x, stage_at<kMode>(tiles, next), r, g, t);
     }
     retire_into<1, 0>(acc, p0);
     retire_into<0, 32>(acc, p1);
-    release<kStages>(empty, it + kt);
-    if (!kAhead && kt + 1 < ktiles) {
-      mbar_wait(full + 8 * (next % kStages), (next / kStages) & 1);
-      load_a(x, stage_at<kStages>(tiles, next), r, g, t);
-    }
+    release<S>(empty, it + kt);
   }
 }
 
-// map_w holds W's big half in rows [0, n) and its small half in rows
-// [w_small, w_small + n) (kBf16: the bf16 plane in rows [0, n), no small
-// half); A comes through map_a (ASrc = TmaA) or through the gather `a_at`
-// (ASrc::kGather: `row(r)` once per tile row, `at(row, k)` a pointer to
-// A[r, k..k+3] or nullptr for zeros). `quads`: epi.quads() on the host.
-template <class Epilogue, class ASrc, bool kBf16>
+// map_w holds W's big half in rows [0, w_small) and its small half in rows
+// [w_small, 2·w_small) (the TF32 pass and native bf16: the bf16 plane, no
+// small half); A comes through map_a as the source `a_src` says (TmaA: A
+// row-major; conv_taps.cuh: the strided conv's taps of h1 and its dH1's
+// rows of g). `quads`: epi.quads() on the host.
+template <class Epilogue, class ASrc, int kMode>
 __global__ void __launch_bounds__(TC_THREADS, 1)
 gemm_tc_kernel(const __grid_constant__ CUtensorMap map_a,
                const __grid_constant__ CUtensorMap map_w, int m, int n, int k, int w_small,
-               ASrc a_at, Epilogue epi, int quads) {
-  typedef TcRoles<ASrc::kGather> R;
-  constexpr int S = R::kStages;
+               ASrc a_src, Epilogue epi,
+               const __grid_constant__ typename TmaStored<Epilogue>::Maps maps, int quads) {
+  typedef TcStage<kMode> L;
+  constexpr int S = L::kStages;
+  constexpr bool kTmaStore = TmaStored<Epilogue>::value;
   extern __shared__ float4 tc_smem[];
   unsigned char* smem_raw = reinterpret_cast<unsigned char*>(tc_smem);
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t base = (raw + 1023) & ~1023u;  // 128-byte swizzle wants 1,024 alignment
   float* tiles = reinterpret_cast<float*>(smem_raw + (base - raw));
-  float* outs = tiles + S * TC_STAGE_BYTES / 4;  // the staged sums (A by TMA)
-  const uint32_t full = base + S * TC_STAGE_BYTES + (ASrc::kGather ? 0 : TC_OUT_BYTES);
-  const uint32_t empty = full + S * 8;           // S mbarriers each
-  const uint32_t staged = empty + S * 8;         // a tile's sums are in `outs`
-  const uint32_t drained = staged + 8;           // the epilogue is done with them
-  const int ktiles = (k + TC_BK - 1) / TC_BK;
+  float* outs = tiles + S * L::kBytes / 4;  // the staged sums
+  const uint32_t outs_at = base + S * L::kBytes;
+  const uint32_t full = outs_at + TC_OUT_BYTES;
+  const uint32_t empty = full + S * 8;    // S mbarriers each
+  const uint32_t staged = empty + S * 8;  // a tile's sums are in `outs`
+  // the epilogue is done with them (kTmaStore: the tile's mask is in `outs`)
+  const uint32_t drained = staged + 8;
   const int tiles_n = (n + TC_BN - 1) / TC_BN;
-  const int tile_count = tiles_n * ((m + TC_BM - 1) / TC_BM);
+  const int tile_count = tiles_n * a_src.tiles_m(m);
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < S; ++s) {
-      mbar_init(full + 8 * s, ASrc::kGather ? 1 + R::kLoaders : 1);  // + each gathering thread
+      mbar_init(full + 8 * s, 1);
       mbar_init(empty + 8 * s, 8);  // one arrival per consumer warp
     }
-    mbar_init(staged, 256);                              // every consumer thread
-    mbar_init(drained, R::kEpilogue ? R::kEpilogue : 1);  // every epilogue thread
+    mbar_init(staged, 256);                             // every consumer thread
+    mbar_init(drained, kTmaStore ? 1 : TC_EPILOGUE);    // every epilogue thread
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  // Loaders and consumers count the stages they have used, `it`, across
+  // The loader and consumers count the stages they have used, `it`, across
   // tiles: stage it % S, in its (it / S)-th round. Consumers and epilogue
   // count tiles, `lt`: the sums of the block's lt-th tile pass through
   // `outs` in phase lt of `staged` and `drained`.
   if (threadIdx.x < 128) {
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(R::kLoaderRegs));
-    if (threadIdx.x < R::kLoaders) {
-      if constexpr (!ASrc::kGather) {  // one thread issues every load
-        if (threadIdx.x == 0) {
-          uint32_t it = 0;
-          for (int tile = blockIdx.x; tile < tile_count; tile += gridDim.x) {
-            const int n0 = (tile % tiles_n) * TC_BN, m0 = (tile / tiles_n) * TC_BM;
-            for (int kt = 0; kt < ktiles; ++kt, ++it) {
-              const int s = it % S;
-              const uint32_t round = it / S;
-              if (round > 0) mbar_wait(empty + 8 * s, (round - 1) & 1);
-              const uint32_t st = base + s * TC_STAGE_BYTES;
-              mbar_expect_tx(full + 8 * s, kBf16 ? 2 * TC_TILE_BYTES : TC_STAGE_BYTES);
-              tma_load_2d(st, &map_a, kt * TC_BK, m0, full + 8 * s);
-              tma_load_2d(st + TC_TILE_BYTES, &map_w, kt * TC_BK, n0, full + 8 * s);
-              if constexpr (!kBf16)
-                tma_load_2d(st + 2 * TC_TILE_BYTES, &map_w, kt * TC_BK, w_small + n0,
-                            full + 8 * s);
-            }
-          }
-        }
-      } else {
-        // Thread p copies 16-byte piece q = p % 8 of the tile rows p / 8 + 16i;
-        // in the 128-byte swizzle piece q of row r sits at piece q ^ (r % 8).
-        const int p = threadIdx.x, q = p % 8, r0 = p / 8;
-        uint32_t it = 0;
-        for (int tile = blockIdx.x; tile < tile_count; tile += gridDim.x) {
-          const int n0 = (tile % tiles_n) * TC_BN, m0 = (tile / tiles_n) * TC_BM;
-          typename ASrc::Row rows[TC_BM / 16];
-#pragma unroll
-          for (int i = 0; i < TC_BM / 16; ++i) rows[i] = a_at.row(m0 + r0 + 16 * i);
-          for (int kt = 0; kt < ktiles; ++kt, ++it) {
-            const int s = it % S;
-            const uint32_t round = it / S;
-            if (round > 0) mbar_wait(empty + 8 * s, (round - 1) & 1);
-            const uint32_t st = base + s * TC_STAGE_BYTES;
-            if (p == 0) {
-              mbar_expect_tx(full + 8 * s, kBf16 ? TC_TILE_BYTES : 2 * TC_TILE_BYTES);
-              tma_load_2d(st + TC_TILE_BYTES, &map_w, kt * TC_BK, n0, full + 8 * s);
-              if constexpr (!kBf16)
-                tma_load_2d(st + 2 * TC_TILE_BYTES, &map_w, kt * TC_BK, w_small + n0,
-                            full + 8 * s);
-            }
-            float* at = tiles + s * (TC_STAGE_BYTES / 4);
-            const int kk = kt * TC_BK + 4 * q;
-#pragma unroll
-            for (int i = 0; i < TC_BM / 16; ++i) {
-              const int r = r0 + 16 * i;
-              const float* src = kk < k ? a_at.at(rows[i], kk) : nullptr;
-              cp_async16(at + r * 32 + (q ^ (r % 8)) * 4, src ? src : a_at.h1, src ? 16 : 0);
-            }
-            cp_async_mbar_arrive(full + 8 * s);
-          }
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(TC_LOADER_REGS));
+    if (threadIdx.x == 0) {  // one thread issues every load
+      uint32_t it = 0;
+      for (int tile = blockIdx.x; tile < tile_count; tile += gridDim.x) {
+        const int n0 = (tile % tiles_n) * TC_BN, tm = tile / tiles_n;
+        const int kts = a_src.ktiles(tm, k);
+        for (int kt = 0; kt < kts; ++kt, ++it) {
+          const int s = it % S;
+          const uint32_t round = it / S;
+          if (round > 0) mbar_wait(empty + 8 * s, (round - 1) & 1);
+          const uint32_t st = base + s * L::kBytes;
+          mbar_expect_tx(full + 8 * s, a_src.a_bytes() + L::kWLoad);
+          const int2 wk = a_src.load(st, &map_a, tm, kt, full + 8 * s);
+          tma_load_2d(st + TC_TILE_BYTES, &map_w, wk.x, wk.y + n0, full + 8 * s);
+          if constexpr (kMode == TC_3XTF32)
+            tma_load_2d(st + 2 * TC_TILE_BYTES, &map_w, wk.x, w_small + wk.y + n0,
+                        full + 8 * s);
         }
       }
-    } else if constexpr (!ASrc::kGather) {
+    } else if (threadIdx.x < 32) {
+      // warp 0's other lanes: nothing
+    } else if constexpr (kTmaStore) {
+      // thread 32: each tile's mask into `outs` through maps.in[·] once the
+      // last tile's store has read it; the tile out through maps.out[·] once
+      // the consumers staged it (the maps and coordinates a_src.out_at
+      // gives). Column boxes of 32 past n are skipped.
+      if (threadIdx.x == 32) {
+        uint32_t lt = 0;
+        for (int tile = blockIdx.x; tile < tile_count; tile += gridDim.x, ++lt) {
+          const int n0 = (tile % tiles_n) * TC_BN, tm = tile / tiles_n;
+          const int3 at = a_src.out_at(tm);  // (map, row, window)
+          const int boxes = min(TC_BN / 32, (n - n0 + 31) / 32);
+          if (lt > 0) bulk_wait_all<true>();
+          mbar_expect_tx(drained, boxes * a_src.a_bytes());
+          for (int q = 0; q < boxes; ++q)
+            tma_load_3d(outs_at + q * TC_TILE_BYTES, &maps.in[at.x], n0 + 32 * q, at.y, at.z,
+                        drained);
+          mbar_wait(staged, lt & 1);
+          for (int q = 0; q < boxes; ++q)
+            tma_store_3d(&maps.out[at.x], outs_at + q * TC_TILE_BYTES, n0 + 32 * q, at.y,
+                         at.z);
+          bulk_commit();
+        }
+        bulk_wait_all<false>();
+      }
+    } else {
       // The epilogue: each tile's sums from `outs` through epi, while the
       // consumers run the next tile's products. Warp e2 takes rows e2,
       // e2 + kWarps, ...; a lane 4 columns (or every 32nd column without quads).
-      constexpr int kWarps = R::kEpilogue / 32;
+      constexpr int kWarps = TC_EPILOGUE / 32;
       constexpr int kRows = sizeof(typename Epilogue::Ld) <= 16 ? 4 : 2;  // loads in flight
-      const int e = threadIdx.x - R::kLoaders, e2 = e / 32, lane = e % 32;
+      const int e = threadIdx.x - 32, e2 = e / 32, lane = e % 32;
       uint32_t lt = 0;
       for (int tile = blockIdx.x; tile < tile_count; tile += gridDim.x, ++lt) {
-        const int n0 = (tile % tiles_n) * TC_BN, m0 = (tile / tiles_n) * TC_BM;
-        const int rows = min(TC_BM, m - m0);
+        const int n0 = (tile % tiles_n) * TC_BN, tm = tile / tiles_n;
+        const int m0 = a_src.m0(tm);
+        const int rows = a_src.rows(tm, m);
         mbar_wait(staged, lt & 1);
         if (quads) {
           const int c = n0 + 4 * lane;  // n % 4 == 0: c + 3 < n with it
@@ -587,48 +735,47 @@ gemm_tc_kernel(const __grid_constant__ CUtensorMap map_a,
   }
 
   // consumers: warpgroup cw owns rows 64cw..64cw+63 of each tile
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(R::kConsumerRegs));
-  static_assert(kBf16 || !RowScaled<ASrc>::value, "A's row factors are a bf16-mode input");
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(TC_CONSUMER_REGS));
+  static_assert(kMode == TC_BF16_TF32 || !RowScaled<ASrc>::value,
+                "A's row factors are an input of the TF32 pass");
   const int cw = threadIdx.x / 128 - 1, tid = threadIdx.x % 128;
   const int warp = tid / 32, lane = tid % 32, g = lane >> 2, t = lane & 3;
   const int r = cw * 64 + warp * 16 + g;  // this thread's rows r and r + 8 (r % 8 == g)
   uint32_t it = 0, lt = 0;
   for (int tile = blockIdx.x; tile < tile_count; tile += gridDim.x, ++lt) {
-    const int n0 = (tile % tiles_n) * TC_BN, m0 = (tile / tiles_n) * TC_BM;
+    const int tm = tile / tiles_n;
     float fr0 = 1.f, fr1 = 1.f;  // the rows' factors (TmaAScaled)
     if constexpr (RowScaled<ASrc>::value) {
-      fr0 = a_at.factor(m0 + r, m);
-      fr1 = a_at.factor(m0 + r + 8, m);
+      fr0 = a_src.factor(a_src.m0(tm) + r, m);
+      fr1 = a_src.factor(a_src.m0(tm) + r + 8, m);
     }
     float acc[64];
 #pragma unroll
     for (int i = 0; i < 64; ++i) acc[i] = 0.f;
-    mainloop<kBf16, RowScaled<ASrc>::value, !ASrc::kGather, S>(acc, ktiles, it, base, tiles,
-                                                                full, empty, r, g, t, fr0, fr1);
-    it += ktiles;
+    const int kts = a_src.ktiles(tm, k);
+    if (kts > 0)
+      mainloop<kMode, RowScaled<ASrc>::value>(acc, kts, it, base, tiles, full, empty, r, g, t,
+                                               fr0, fr1);
+    it += kts;
 
     // accumulator i: column 8(i/4) + 2t + (i%2), row r + 8((i/2)%2)
-    if constexpr (ASrc::kGather) {
-      // the gather takes warpgroup 0: the consumers write their tile, two
-      // columns at a time with quads (epi.pair)
-      const int row0 = m0 + r, row1 = row0 + 8;
+    if constexpr (kTmaStore) {
+      // the tile's mask is in `outs`, four boxes of 32 columns in TMA's
+      // layout (row i of a box at 128 i bytes, 16-byte chunk c at c ^ (i % 8)):
+      // each sum where its mask is above 0, else 0, in its place
+      mbar_wait(drained, lt & 1);
 #pragma unroll
       for (int j = 0; j < 16; ++j) {
-        const int col = n0 + 8 * j + 2 * t;
-        if (quads) {  // n % 4 == 0: col + 1 < n with col
-          if (col < n && row0 < m) epi.pair(row0, col, acc[4 * j], acc[4 * j + 1]);
-          if (col < n && row1 < m) epi.pair(row1, col, acc[4 * j + 2], acc[4 * j + 3]);
-          continue;
-        }
-        if (row0 < m) {
-          if (col < n) epi(row0, col, acc[4 * j]);
-          if (col + 1 < n) epi(row0, col + 1, acc[4 * j + 1]);
-        }
-        if (row1 < m) {
-          if (col < n) epi(row1, col, acc[4 * j + 2]);
-          if (col + 1 < n) epi(row1, col + 1, acc[4 * j + 3]);
-        }
+        const int at = (j / 4) * (TC_TILE_BYTES / 4) + (((2 * (j % 4) + t / 2) ^ g) * 4) +
+                       2 * (t % 2);
+        float2* p0 = reinterpret_cast<float2*>(outs + at + r * 32);
+        float2* p1 = reinterpret_cast<float2*>(outs + at + (r + 8) * 32);
+        const float2 m0 = *p0, m1 = *p1;
+        *p0 = make_float2(m0.x > 0.f ? acc[4 * j] : 0.f, m0.y > 0.f ? acc[4 * j + 1] : 0.f);
+        *p1 = make_float2(m1.x > 0.f ? acc[4 * j + 2] : 0.f, m1.y > 0.f ? acc[4 * j + 3] : 0.f);
       }
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      mbar_arrive(staged);
     } else {
       // stage the sums for the epilogue warps once they are done with the
       // last tile's, and go on to the next tile
@@ -707,6 +854,21 @@ inline bool make_tile_map(CUtensorMap* map, const float* ptr, int rows, int cols
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// A (rows, cols) bf16 row-major tensor map, boxes of 128 rows x 32 with the
+// 64-byte swizzle (native bf16's W tiles); out-of-range elements read as zero.
+inline bool make_bf16_tile_map(CUtensorMap* map, const void* ptr, int rows, int cols) {
+  const TensorMapEncodeTiled encode = tensor_map_encoder();
+  if (!encode || cols % 8) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  const cuuint32_t box[2] = {(cuuint32_t)TC_BK, (cuuint32_t)TC_BN};
+  const cuuint32_t elem[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims, strides,
+                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_64B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 inline int sm_count() {
   static int count = 0;
   if (!count) {
@@ -718,28 +880,35 @@ inline int sm_count() {
   return count;
 }
 
-template <bool kBf16, class Epilogue, class ASrc>
-inline cudaError_t launch_tc(const CUtensorMap& map_a, ASrc a_at, const float* halves,
-                             int w_small, int m, int n, int k, Epilogue epi,
-                             cudaStream_t stream) {
-  if (m <= 0 || n <= 0 || k <= 0 || k % 4 != 0 || w_small < n) return cudaErrorInvalidValue;
-  if (reinterpret_cast<uintptr_t>(halves) % 16) return cudaErrorInvalidValue;
-  const long long tiles =
-      (long long)((m + TC_BM - 1) / TC_BM) * ((n + TC_BN - 1) / TC_BN);
+// gemm_tc_kernel<kMode> over A's source a_src (through map_a) and W (map_w,
+// its small half w_small rows on in 3xTF32) into epi (with kTmaStore, its
+// maps); one block per SM.
+template <int kMode, class Epilogue, class ASrc>
+inline cudaError_t launch_tc(const CUtensorMap& map_a, ASrc a_src, const CUtensorMap& map_w,
+                             int w_small, int m, int n, int k, const Epilogue& epi,
+                             cudaStream_t stream,
+                             const typename TmaStored<Epilogue>::Maps& maps = {}) {
+  if (m <= 0 || n <= 0 || k <= 0) return cudaErrorInvalidValue;
+  const long long tiles = (long long)a_src.tiles_m(m) * ((n + TC_BN - 1) / TC_BN);
   const int sms = sm_count();
   if (tiles > (1LL << 30) || sms <= 0) return cudaErrorInvalidValue;
-  CUtensorMap map_w;
-  if (!make_tile_map(&map_w, halves, kBf16 ? n : w_small + n, k, TC_BN))
-    return cudaErrorInvalidValue;
-  auto kernel = gemm_tc_kernel<Epilogue, ASrc, kBf16>;
-  constexpr int smem = TcRoles<ASrc::kGather>::kSmem;
+  auto kernel = gemm_tc_kernel<Epilogue, ASrc, kMode>;
+  constexpr int smem = TcStage<kMode>::kSmem;
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const int grid = tiles < sms ? (int)tiles : sms;
-  kernel<<<grid, TC_THREADS, smem, stream>>>(map_a, map_w, m, n, k, w_small, a_at, epi,
+  kernel<<<grid, TC_THREADS, smem, stream>>>(map_a, map_w, m, n, k, w_small, a_src, epi, maps,
                                              epi.quads() ? 1 : 0);
   return cudaGetLastError();
+}
+
+// The map of W's TF32 halves (kBf16: its bf16-rounded plane in fp32) with
+// n of its rows used, the small half w_small rows after the big.
+template <bool kBf16>
+inline bool make_w_map(CUtensorMap* map, const float* halves, int n, int k, int w_small) {
+  if (k % 4 != 0 || w_small < n || !aligned16(halves)) return false;
+  return make_tile_map(map, halves, kBf16 ? n : w_small + n, k, TC_BN);
 }
 
 // out = epi(A · B) with A (m, k) row-major and halves (2, n, k) from
@@ -752,10 +921,12 @@ inline cudaError_t launch_gemm_tc(const float* a, const float* halves, int m, in
                                   Epilogue epi, cudaStream_t stream, int w_small = 0) {
   if (m <= 0 || k <= 0 || k % 4 != 0 || reinterpret_cast<uintptr_t>(a) % 16)
     return cudaErrorInvalidValue;
-  CUtensorMap map_a;
-  if (!make_tile_map(&map_a, a, m, k, TC_BM)) return cudaErrorInvalidValue;
-  return launch_tc<kBf16>(map_a, TmaA{}, halves, w_small > 0 ? w_small : n, m, n, k, epi,
-                          stream);
+  w_small = w_small > 0 ? w_small : n;
+  CUtensorMap map_a, map_w;
+  if (!make_tile_map(&map_a, a, m, k, TC_BM) || !make_w_map<kBf16>(&map_w, halves, n, k, w_small))
+    return cudaErrorInvalidValue;
+  return launch_tc<kBf16 ? TC_BF16_TF32 : TC_3XTF32>(map_a, TmaA{}, map_w, w_small, m, n, k,
+                                                      epi, stream);
 }
 
 // launch_gemm_tc<true> with row r of A multiplied by scale[r / rows_per_scale]
@@ -767,20 +938,13 @@ inline cudaError_t launch_gemm_tc_scaled(const float* a, const float* plane, int
   if (m <= 0 || k <= 0 || k % 4 != 0 || reinterpret_cast<uintptr_t>(a) % 16 ||
       (scale && rows_per_scale <= 0))
     return cudaErrorInvalidValue;
-  CUtensorMap map_a;
-  if (!make_tile_map(&map_a, a, m, k, TC_BM)) return cudaErrorInvalidValue;
-  return launch_tc<true>(map_a, TmaAScaled{scale, rows_per_scale}, plane, n, m, n, k, epi,
-                         stream);
-}
-
-// out = epi(A · B) with A (m, k) read through the gather `a_at` (a ConvTaps,
-// conv_taps.cuh) and halves (2, n, k) (kBf16: the bf16 plane (n, k)).
-template <bool kBf16 = false, class Epilogue, class Gather>
-inline cudaError_t launch_gemm_tc_gather(Gather a_at, const float* halves, int m, int n, int k,
-                                         Epilogue epi, cudaStream_t stream) {
-  CUtensorMap unused;
-  memset(&unused, 0, sizeof(unused));
-  return launch_tc<kBf16>(unused, a_at, halves, n, m, n, k, epi, stream);
+  CUtensorMap map_a, map_w;
+  if (!make_tile_map(&map_a, a, m, k, TC_BM) || !make_w_map<true>(&map_w, plane, n, k, n))
+    return cudaErrorInvalidValue;
+  TmaAScaled src;
+  src.scale = scale;
+  src.rows_per_scale = rows_per_scale;
+  return launch_tc<TC_BF16_TF32>(map_a, src, map_w, n, m, n, k, epi, stream);
 }
 
 // ---- gemm_atb_kernel -------------------------------------------------------
@@ -821,20 +985,6 @@ __device__ __forceinline__ int ab_at(int k, int c) {
 struct DenseRows {
   static constexpr bool kGather = false;
 };
-
-// mbar_wait that traps instead of spinning forever if a phase never completes.
-__device__ __forceinline__ void mbar_wait_or_trap(uint32_t bar, uint32_t parity) {
-  for (uint32_t spins = 0;; ++spins) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-    if (done) return;
-    if (spins == (1u << 24)) __trap();
-  }
-}
 
 // wgmma descriptor of one 64-column atom of an MN-major bf16 tile with the
 // 128-byte swizzle: 8-row (k) groups 1,024 bytes apart (the stride byte
@@ -881,14 +1031,6 @@ __device__ __forceinline__ void wgmma_m64n64k16_bf16_mn(float (&d)[32], uint64_t
         "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(desc_a), "l"(desc_b), "r"(acc));
-}
-
-// Two fp32 values rounded to bf16 (to nearest, ties to even, as bf16_round)
-// and packed, lo in the low half.
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  uint32_t r;
-  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
-  return r;
 }
 
 // Warpgroup 0's share of a stage's gathered X rows (ConvTaps): thread p
@@ -968,7 +1110,7 @@ gemm_atb_kernel(const __grid_constant__ CUtensorMap map_x,
       for (int b = 0; b < 4; ++b) taps[b] = (m0 + 32 * b + 4 * (threadIdx.x % 8)) / x_at.hidden;
     for (int it = 0; it < ktiles; ++it) {
       const int s = it % S;
-      if (it >= S) mbar_wait_or_trap(empty + 8 * s, (it / S - 1) & 1);
+      if (it >= S) mbar_wait(empty + 8 * s, (it / S - 1) & 1);
       const int k0 = k_begin + it * AB_BK;
       const uint32_t xs = smem_addr(xs_of(s)), ys = xs + AB_ROWS_BYTES;
       if (threadIdx.x == 0) {
@@ -1004,7 +1146,7 @@ gemm_atb_kernel(const __grid_constant__ CUtensorMap map_x,
   auto convert = [&](int it) {
     const int s = it % S, k0 = k_begin + it * AB_BK, valid = k_end - k0;
     const float f_lane = scale && lane < valid ? scale[(k0 + lane) / rows_per_scale] : 1.f;
-    mbar_wait_or_trap(full + 8 * s, (it / S) & 1);
+    mbar_wait(full + 8 * s, (it / S) & 1);
     const float* xs = xs_of(s);
     const float* ys = xs + AB_ROWS_BYTES / 4;
     unsigned char* ops = ops_smem + (it % 2) * L::kOps;

@@ -12,22 +12,28 @@
 // where a tap outside [0, N) reads zero. That covers paddings (0,0) (crop-1
 // residual, h36m_351) and (1,1) (zero-padded conv, uncropped residual, h36m_81).
 //
-// Bound: a GEMM of (B*n_out) x (3*hidden) x C, operations: at serving
-// 23,552 x 2,304 x 384 = 41.7 GFLOP, three TF32 products each in 3xTF32,
-// 0.253 ms at the 495 TFLOP/s TF32 peak, against 0.087 ms for its ~290 MB.
-// Design: the persistent TMA + wgmma kernel of gemm_tc.cuh (3xTF32, a fresh
-// partial per 32-deep stage: K = 2,304 is 72 of them), with A = the taps
-// matrix T gathered from h1 by the producer warpgroup (conv_taps.cuh:
-// cp.async, zero-fill for taps outside the window), so neither T, the padded
-// h1 nor the unselected rows are ever written. Wc's TF32 halves are split
-// once, with the block's dense matrices (ops/strided.py). The bf16 rung
-// (`strided_conv_bf16`): the same kernel's bf16 mode, T rounded to bf16 as
-// it leaves shared memory, one TF32 pass on Wc's bf16-rounded plane.
+// Bound: a GEMM of (B*n_out) x (3*hidden) x C. In 3xTF32 operations: at
+// serving 23,552 x 2,304 x 384 = 41.7 GFLOP, three TF32 products each, 0.253
+// ms at the 495 TFLOP/s TF32 peak, against 0.087 ms for its ~290 MB. On the
+// bf16 rung bytes: the products take 0.042 ms at the 989 TFLOP/s bf16 peak.
+// Design: the persistent TMA + wgmma kernel of gemm_tc.cuh (a fresh partial
+// per 32-deep stage: K = 2,304 is 72 of them) with A = the taps matrix T
+// read by TMA's im2col mode from h1 (conv_taps.cuh ConvTapsTma: a box a
+// stage of 128 of T's rows across windows, each tap's rows s0 apart, zeros
+// for taps outside the window), so neither T, the padded h1 nor the
+// unselected rows are ever written; the tiles are a dense A's 128 rows
+// (whole windows, 11 x 11 = 121 rows at h36m_81, took 141 tiles where 132
+// SMs run 132 at once: two rounds, 0.1753 ms against 0.1518 before, NVIDIA
+// H100 80GB HBM3, 700 W), and the epilogue warps write them from the
+// staged sums under the next tile's products. Wc's TF32 halves are
+// split once, with the block's dense matrices (ops/strided.py). The bf16
+// rung (`strided_conv_bf16`): native bf16, Wc's bf16 plane (torch.bfloat16,
+// prepared with the block's operands) by TMA, T rounded to bf16 pairs
+// (cvt.rn.bf16x2) into wgmma's register operand, wgmma k16 with fp32 sums.
 
 #include <cuda_runtime.h>
 
 #include "conv_taps.cuh"
-#include "gemm_tc.cuh"
 
 namespace {
 
@@ -41,29 +47,40 @@ struct ConvResidual {
     out[(size_t)r * c + col] =
         x[((size_t)b * n + stride * t + res_off) * c + col] + (v + bias[col]);
   }
-  // columns col and col + 1 (col even) of row r, with 8-byte loads and stores
   bool quads() const { return c % 4 == 0 && uu::aligned16(x) && uu::aligned16(out); }
-  __device__ __forceinline__ void pair(int r, int col, float v0, float v1) const {
+  struct Ld {
+    float4 x;
+  };
+  __device__ __forceinline__ Ld load4(int r, int col) const {
     const int b = r / n_out, t = r - b * n_out;
-    const float2 xv =
-        *reinterpret_cast<const float2*>(x + ((size_t)b * n + stride * t + res_off) * c + col);
-    *reinterpret_cast<float2*>(out + (size_t)r * c + col) =
-        make_float2(xv.x + (v0 + bias[col]), xv.y + (v1 + bias[col + 1]));
+    return {uu::ld4(x + ((size_t)b * n + stride * t + res_off) * c + col)};
+  }
+  __device__ __forceinline__ void store4(int r, int col, float4 v, const Ld& l) const {
+    uu::st4(out + (size_t)r * c + col,
+            make_float4(l.x.x + (v.x + bias[col]), l.x.y + (v.y + bias[col + 1]),
+                        l.x.z + (v.z + bias[col + 2]), l.x.w + (v.w + bias[col + 3])));
   }
 };
 
-template <bool kBf16>
-int conv(const float* h1, const float* x, const float* halves, const float* bias, float* out,
+template <int kMode>
+int conv(const float* h1, const float* x, const void* w, const float* bias, float* out,
          int windows, int n, int hidden, int c, int stride, int p0, int n_out, void* stream) {
-  if (windows <= 0 || n_out <= 0 || stride <= 0 || p0 < 0 || p0 > 1 || hidden <= 0 ||
-      hidden % 4 || reinterpret_cast<uintptr_t>(h1) % 16)
+  if (windows <= 0 || n_out <= 0 || stride <= 0 || stride > uu::CONV_MAX_STRIDE || p0 < 0 ||
+      p0 > 1 || hidden <= 0 || hidden % 4 || c <= 0 || !uu::aligned16(h1) || !uu::aligned16(w))
     return cudaErrorInvalidValue;
   const int res_off = p0 == 0 ? 1 : 0;
   if (stride * (n_out - 1) + res_off >= n) return cudaErrorInvalidValue;
-  return uu::launch_gemm_tc_gather<kBf16>(
-      uu::ConvTaps{h1, windows, n, hidden, n_out, stride, p0}, halves, windows * n_out, c,
-      3 * hidden, ConvResidual{x, bias, out, n, c, n_out, stride, res_off},
-      (cudaStream_t)stream);
+  const uu::ConvTapsTma taps{{}, n_out, stride, p0, hidden, (hidden + uu::TC_BK - 1) / uu::TC_BK};
+  CUtensorMap map_a, map_w;
+  if (!uu::make_taps_map(&map_a, h1, hidden, n, windows, stride, p0, n_out))
+    return cudaErrorInvalidValue;
+  const int k = 3 * hidden;
+  if (kMode == uu::TC_BF16 ? !uu::make_bf16_tile_map(&map_w, w, c, k)
+                           : !uu::make_w_map<false>(&map_w, static_cast<const float*>(w), c, k, c))
+    return cudaErrorInvalidValue;
+  return uu::launch_tc<kMode>(map_a, taps, map_w, c, windows * n_out, c, k,
+                              ConvResidual{x, bias, out, n, c, n_out, stride, res_off},
+                              (cudaStream_t)stream);
 }
 
 }  // namespace
@@ -74,15 +91,15 @@ extern "C" int strided_conv_f32(const float* h1, const float* x, const float* ha
                                 const float* bias, float* out, int windows, int n,
                                 int hidden, int c, int stride, int p0, int n_out,
                                 void* stream) {
-  return conv<false>(h1, x, halves, bias, out, windows, n, hidden, c, stride, p0, n_out,
-                     stream);
+  return conv<uu::TC_3XTF32>(h1, x, halves, bias, out, windows, n, hidden, c, stride, p0,
+                             n_out, stream);
 }
 
-// The bf16 rung: plane (c, 3 * hidden), Wc's bf16-rounded plane transposed.
-extern "C" int strided_conv_bf16(const float* h1, const float* x, const float* plane,
+// The bf16 rung: plane (c, 3 * hidden) bf16, Wc rounded to bf16 and transposed.
+extern "C" int strided_conv_bf16(const float* h1, const float* x, const void* plane,
                                  const float* bias, float* out, int windows, int n,
                                  int hidden, int c, int stride, int p0, int n_out,
                                  void* stream) {
-  return conv<true>(h1, x, plane, bias, out, windows, n, hidden, c, stride, p0, n_out,
-                    stream);
+  return conv<uu::TC_BF16>(h1, x, plane, bias, out, windows, n, hidden, c, stride, p0, n_out,
+                           stream);
 }

@@ -15,16 +15,21 @@
 // Backward: everything up to h1 reuses K5's kernels (temporal_bwd.cu: dX and
 // dW GEMMs, column sums, LayerNorm and window-attention backward). The conv's
 // backward is new, and lives here; both of its products run on the tensor
-// cores in 3xTF32 (gemm_tc.cuh) over the taps matrix T (conv_taps.cuh):
-//   strided_dh1_f32   dH1 = g . Wc^T, column j*hidden + i placed at channel i
-//                     of the h1 row tap j read, zeroed where relu cut
-//                     (h1 <= 0): the persistent TMA + wgmma kernel with A = g
-//                     and Wc's halves as stored (the K-major B it wants, as
-//                     dX reads W). With s0 >= 3 the taps read disjoint rows
-//                     and one launch writes them all; with s0 < 3 one launch
-//                     per tap in tap order, each adding into what the one
-//                     before wrote, so rows several taps read sum in a fixed
-//                     order. Rows no tap reads stay 0.
+// cores (gemm_tc.cuh) over the conv's operands (conv_taps.cuh):
+//   strided_dh1_f32   dH1 = relu'(h1) · (the taps of g · Wcᵀ added back onto
+//                     the h1 rows they read): the persistent TMA + wgmma
+//                     kernel over dH1's rows, phase by phase (Dh1Rows: rows
+//                     ρ, ρ + s0, ... of a window; the taps j ≡ ρ + p0 mod s0
+//                     reach them, each one product of g's shifted rows, read
+//                     by TMA with zeros outside [0, n_out), and Wc's rows of
+//                     tap j as stored: the K-major B it wants, as dX reads
+//                     W), so a row's taps sum in the accumulator in tap
+//                     order and every row of dH1 is written once: one
+//                     launch at every s0, no memset, no read-modify-write. Its
+//                     epilogue (Dh1Store) brings the tile's h1 by TMA into the
+//                     staging tile, the consumers write their sums where h1 >
+//                     0 (else 0), and the tile leaves by TMA, both through a
+//                     map of the phase's rows (rows no tap reads come out 0).
 //   strided_dwc_f32   dWc = T^T . g: gemm_atb_kernel (wgmma) with X
 //                     gathered from h1, split over the selected rows into
 //                     partials that sum_rows_f32 adds in a fixed order.
@@ -34,68 +39,39 @@
 // atomics anywhere, so a second backward gives the same bits.
 //
 // The bf16 rung (TRAIN_MATMUL_PRECISION "default" and "mixed";
-// pallas_strided_bwd.py at DEFAULT): strided_dh1_bf16 (g and Wc's
-// bf16-rounded plane as stored, one TF32 pass: gemm_tc.cuh kBf16),
-// strided_dwc_bf16 (the taps and g rounded: gemm_atb_kernel kBf16) and
-// sum_rows_bf16, the PE's gradient as the sum over windows of the input
-// gradient rounded to bf16 (the TPU kernel takes it with a DEFAULT dot
-// against a one-hot matrix, pallas_strided_bwd.py:152). The TPU's conv is
-// three tap dots summed in fp32; one product over 3*hidden on the same
-// rounded operands is the same sum in another order.
+// pallas_strided_bwd.py at DEFAULT): strided_dh1_bf16 (native bf16: Wc's
+// bf16 plane as stored, torch.bfloat16, and g rounded to bf16 pairs into
+// wgmma's register operand; gemm_tc.cuh TC_BF16), strided_dwc_bf16 (the
+// taps and g rounded: gemm_atb_kernel kBf16) and sum_rows_bf16, the PE's
+// gradient as the sum over windows of the input gradient rounded to bf16
+// (the TPU kernel takes it with a DEFAULT dot against a one-hot matrix,
+// pallas_strided_bwd.py:152). The TPU's conv is three tap dots summed in
+// fp32; one product over the taps on the same rounded operands is the same
+// sum in another order.
 //
-// What bounds it: the GEMMs, operations. At 512 windows the backward's dense
-// and conv products are ~0.17 TFLOP (each of the conv's two 20.8 GFLOP, 0.126
-// ms in 3xTF32 at the 495 TFLOP/s TF32 peak); its attention backward runs on
-// the CUDA cores (temporal_bwd.cu).
+// What bounds it: at 512 windows the backward's dense and conv products are
+// ~0.17 TFLOP (each of the conv's two 20.8 GFLOP, 0.126 ms in 3xTF32 at the
+// 495 TFLOP/s TF32 peak); on the bf16 rung dH1 is bytes (g, h1 and dH1:
+// 0.072 ms at 3.35 TB/s); its attention backward runs on the CUDA cores
+// (temporal_bwd.cu).
 
 #include <cuda_runtime.h>
 
+#include <string.h>
+
 #include "conv_taps.cuh"
-#include "gemm_tc.cuh"
 
 namespace {
 
-// Selected row r = b*n_out + t, column col of g . Wc^T (tap tap0 + col /
-// hidden, channel col % hidden) lands in the h1 row that tap read, 0 where
-// relu cut; with `accumulate` it adds to what is there.
-struct TapScatter {
-  const float* h1;  // the forward's relu output: the mask
-  float* out;       // (windows * n, hidden)
-  int n, n_out, hidden, stride, p0, tap0, accumulate;
-  // out's offset of column col of selected row r, or -1 where the tap falls
-  // outside the window
-  __device__ __forceinline__ long long offset(int r, int col) const {
-    const int b = r / n_out, t = r - b * n_out;
-    const int j = col / hidden;
-    const int src = stride * t + tap0 + j - p0;
-    if (src < 0 || src >= n) return -1;
-    return ((long long)b * n + src) * hidden + (col - j * hidden);
-  }
-  __device__ __forceinline__ void operator()(int r, int col, float v) const {
-    const long long o = offset(r, col);
-    if (o < 0) return;
-    out[o] = h1[o] > 0.f ? (accumulate ? out[o] + v : v) : 0.f;
-  }
-  // 4 columns of one tap (hidden % 4 == 0)
-  bool quads() const { return hidden % 4 == 0 && uu::aligned16(h1) && uu::aligned16(out); }
-  struct Ld {
-    float4 h, old;
+// dH1's epilogue: the tile's h1 (the relu mask) in through in[ρ] and the
+// masked sums out through out[ρ], the maps of phase ρ's rows of h1 and of
+// dH1 (make_phase_map).
+struct Dh1Store {
+  static constexpr bool kTmaStore = true;
+  struct Maps {
+    CUtensorMap in[uu::CONV_MAX_STRIDE], out[uu::CONV_MAX_STRIDE];
   };
-  __device__ __forceinline__ Ld load4(int r, int col) const {
-    const long long o = offset(r, col);
-    const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (o < 0) return {zero, zero};
-    return {uu::ld4(h1 + o), accumulate ? uu::ld4(out + o) : zero};
-  }
-  __device__ __forceinline__ void store4(int r, int col, float4 v, const Ld& l) const {
-    const long long o = offset(r, col);
-    if (o < 0) return;
-    auto one = [&](float h, float old, float x) {
-      return h > 0.f ? (accumulate ? old + x : x) : 0.f;
-    };
-    uu::st4(out + o, make_float4(one(l.h.x, l.old.x, v.x), one(l.h.y, l.old.y, v.y),
-                                 one(l.h.z, l.old.z, v.z), one(l.h.w, l.old.w, v.w)));
-  }
+  bool quads() const { return false; }
 };
 
 __global__ void crop_residual_add_kernel(const float* __restrict__ g, float* __restrict__ dx2,
@@ -131,31 +107,38 @@ bool geometry_ok(int windows, int n, int hidden, int c, int stride, int p0, int 
 
 // dh1 (windows*n, hidden) = relu'(h1) * sum over taps j of the selected rows
 // of g (windows*n_out, c) times W_j^T, placed at the h1 row each tap read.
-// halves (2, 3*hidden, c): Wc's TF32 halves as stored (tf32_halves_f32 without
-// the transpose); dh1 must not alias h1.
+// w: Wc's TF32 halves (2, 3*hidden, c) as stored (tf32_halves_f32 without
+// the transpose), or its bf16 plane (3*hidden, c); dh1 must not alias h1.
 namespace {
 
-template <bool kBf16>
-int dh1_entry(const float* g, const float* w, const float* h1, float* dh1, int windows, int n,
+template <int kMode>
+int dh1_entry(const float* g, const void* w, const float* h1, float* dh1, int windows, int n,
               int hidden, int c, int stride, int p0, int n_out, void* stream) {
-  if (!geometry_ok(windows, n, hidden, c, stride, p0, n_out) || dh1 == h1)
+  if (!geometry_ok(windows, n, hidden, c, stride, p0, n_out) || stride > uu::CONV_MAX_STRIDE ||
+      dh1 == h1 || !uu::aligned16(g) || !uu::aligned16(h1) || !uu::aligned16(dh1) ||
+      !uu::aligned16(w))
     return cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t err =
-      cudaMemsetAsync(dh1, 0, sizeof(float) * (size_t)windows * n * hidden, s);
-  if (err != cudaSuccess) return err;
-  const int m = windows * n_out;
-  if (stride >= 3)
-    return uu::launch_gemm_tc<kBf16>(g, w, m, 3 * hidden, c,
-                                     TapScatter{h1, dh1, n, n_out, hidden, stride, p0, 0, 0},
-                                     s);
-  for (int j = 0; j < 3; ++j) {  // tap j: rows j*hidden.. of each half (kBf16: of the plane)
-    err = uu::launch_gemm_tc<kBf16>(g, w + (size_t)j * hidden * c, m, hidden, c,
-                                    TapScatter{h1, dh1, n, n_out, hidden, stride, p0, j, 1}, s,
-                                    3 * hidden);
-    if (err != cudaSuccess) return err;
-  }
-  return cudaSuccess;
+  const int per = (n + stride - 1) / stride;  // rows of phase 0 a window
+  const uu::TileRows tr = uu::tile_rows(per);
+  const int phases = stride < n ? stride : n;
+  const uu::Dh1Rows rows{windows, hidden, n_out, stride, p0, (c + uu::TC_BK - 1) / uu::TC_BK,
+                         (windows + tr.wpt - 1) / tr.wpt, tr, phases};
+  CUtensorMap map_a, map_w;
+  Dh1Store::Maps maps;
+  memset(&maps, 0, sizeof(maps));
+  if (!uu::make_box_map(&map_a, g, c, n_out, windows, tr))
+    return cudaErrorInvalidValue;
+  for (int rho = 0; rho < phases; ++rho)
+    if (!uu::make_phase_map(&maps.in[rho], h1, hidden, n, windows, stride, rho, tr) ||
+        !uu::make_phase_map(&maps.out[rho], dh1, hidden, n, windows, stride, rho, tr))
+      return cudaErrorInvalidValue;
+  if (kMode == uu::TC_BF16
+          ? !uu::make_bf16_tile_map(&map_w, w, 3 * hidden, c)
+          : !uu::make_w_map<false>(&map_w, static_cast<const float*>(w), 3 * hidden, c,
+                                   3 * hidden))
+    return cudaErrorInvalidValue;
+  return uu::launch_tc<kMode>(map_a, rows, map_w, 3 * hidden, windows * n, hidden, c,
+                              Dh1Store{}, (cudaStream_t)stream, maps);
 }
 
 template <bool kBf16>
@@ -175,16 +158,17 @@ int dwc_entry(const float* h1, const float* g, float* part, int windows, int n, 
 extern "C" int strided_dh1_f32(const float* g, const float* halves, const float* h1,
                                float* dh1, int windows, int n, int hidden, int c, int stride,
                                int p0, int n_out, void* stream) {
-  return dh1_entry<false>(g, halves, h1, dh1, windows, n, hidden, c, stride, p0, n_out,
-                          stream);
+  return dh1_entry<uu::TC_3XTF32>(g, halves, h1, dh1, windows, n, hidden, c, stride, p0, n_out,
+                                  stream);
 }
 
-// strided_dh1_f32 on the bf16 rung: plane (3*hidden, c), Wc rounded to bf16
-// as stored; g rounded as it is read.
-extern "C" int strided_dh1_bf16(const float* g, const float* plane, const float* h1,
-                                float* dh1, int windows, int n, int hidden, int c, int stride,
-                                int p0, int n_out, void* stream) {
-  return dh1_entry<true>(g, plane, h1, dh1, windows, n, hidden, c, stride, p0, n_out, stream);
+// strided_dh1_f32 on the bf16 rung: plane (3*hidden, c) bf16, Wc rounded to
+// bf16 as stored; g rounded as it is read.
+extern "C" int strided_dh1_bf16(const float* g, const void* plane, const float* h1, float* dh1,
+                                int windows, int n, int hidden, int c, int stride, int p0,
+                                int n_out, void* stream) {
+  return dh1_entry<uu::TC_BF16>(g, plane, h1, dh1, windows, n, hidden, c, stride, p0, n_out,
+                                stream);
 }
 
 // part (splits, 3*hidden, c): chunk z of dWc = T^T . g over the selected rows;

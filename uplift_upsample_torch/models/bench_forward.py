@@ -72,8 +72,8 @@ import torch
 from ..ops.s2t import s2t_params, s2t_prologue
 from ..ops.spatial import (pack_spatial_params, spatial_stack, spatial_stack_apply,
                            stack_spatial_params)
-from ..ops.strided import DENSE as STRIDED_DENSE
-from ..ops.strided import stack_strided_block1_params, strided_block1
+from ..ops.strided import (add_strided_bf16_planes, stack_strided_block1_params,
+                           strided_block1)
 from ..ops.temporal import add_bf16_planes, folded_q_scale, stack_temporal_params, temporal_stack
 from ..parallel.sharding import gather_params_tp
 from ..precision import BF16, check_rung, current, matmul_precision, rung_linear
@@ -133,7 +133,7 @@ def prepare_fused_params(model: UpliftUpsampleTransformer, precision: str = "hig
     if bf16:
         ops["temporal"] = add_bf16_planes(ops["temporal"])
         if ops["strided"] is not None:
-            ops["strided"] = add_bf16_planes(ops["strided"], STRIDED_DENSE)
+            ops["strided"] = add_strided_bf16_planes(ops["strided"])
     ops["spatial_packed"] = pack_spatial_params(ops["spatial"])
     return ops
 

@@ -13,8 +13,10 @@ replace `pallas_strided.make_strided_b1_epilogue`); on a CPU tensor it runs
 `strided_block1_plain`, the same function in plain PyTorch. Every product,
 the conv's too, runs on the tensor cores in 3xTF32 from TF32 halves split
 once with the operands (DENSE, `temporal.add_tf32_halves`); the conv's
-operand T, its three taps of h1 side by side, is gathered as it is loaded
-(`conv_tap_rows` is its index).
+operand T, its three taps of h1 side by side, is read from h1 by TMA's
+im2col mode, 128 of its rows a stage across windows (`conv_forward_tiles`
+and `tma_im2col` mirror the kernel's boxes in PyTorch; `conv_tap_rows` is
+T's index).
 
 K3 is also the counterpart of the TPU's other strided-block-1 kernels (rows
 of the kernel table in PERF.md), which compute the same function in other
@@ -30,9 +32,10 @@ Mosaic layouts:
     rows s0·t; `strided_block1` returns only those rows, (B, n_out, C).
 
 Precision (`precision.py`): "default", the TPU's one-pass bf16 rung, runs
-the bf16 instances of K2's GEMM and attention and `strided_conv_bf16` (T
-rounded to bf16 as it leaves shared memory, one TF32 pass on Wc's bf16
-plane "wc_bf"); the planes come from `temporal.add_bf16_planes` (DENSE).
+the bf16 instances of K2's GEMM and attention and `strided_conv_bf16`
+(native bf16: T rounded to bf16 pairs for wgmma k16, Wc's bf16 plane
+"wc_bf", fp32 sums); the planes come from `add_strided_bf16_planes` (DENSE;
+Wc's, `CONV_PLANES`, as torch.bfloat16 tensors).
 "high" and "highest" run the 3xTF32 kernels. The eval's operands fold
 1/sqrt(D) into q's columns (`stack_strided_block1_params(q_scale=)`, as
 `pallas_strided.stack_strided_block1_params(fold_q_scale=True)`), and the
@@ -57,11 +60,13 @@ import torch.nn.functional as F
 from ..parallel.sharding import TensorParallel, active, all_reduce_sum
 from ..precision import BF16, check_rung, mm, round_bf16
 from . import cuda_lib
-from .temporal import (add_weight_operands, attention_sublayer, check_bf16_planes, fold_q,
-                       gemm, layernorm, split_attention_sublayer, window_attention_plain)
+from .temporal import (add_bf16_planes, add_weight_operands, attention_sublayer,
+                       check_bf16_planes, fold_q, gemm, layernorm, split_attention_sublayer,
+                       window_attention_plain)
 
 COUNTER = "strided_block1"
 DENSE = ("wqkv", "wp", "w1", "wc")  # the block's (in, out) matrices on the tensor cores
+CONV_PLANES = ("wc_bf", "wc_bf_dx")  # Wc's bf16 planes, held as torch.bfloat16
 
 
 def output_length(n: int, stride: int, paddings: Tuple[int, int]) -> int:
@@ -80,7 +85,7 @@ def conv_tap_rows(n: int, stride: int, paddings: Tuple[int, int]) -> torch.Tenso
 
 def conv_taps_plain(h1: torch.Tensor, stride: int, paddings: Tuple[int, int]) -> torch.Tensor:
     """(B, n, hidden) → T (B, n_out, 3·hidden) through `conv_tap_rows`: the
-    matrix the conv's products gather and never write out."""
+    matrix the conv's products read in place and never write out."""
     b, n, hidden = h1.shape
     rows = conv_tap_rows(n, stride, paddings).to(h1.device)
     taps = torch.where((rows >= 0)[None, :, :, None], h1[:, rows.clamp(min=0)], 0.0)
@@ -101,6 +106,108 @@ def conv_scatter_plain(dtaps: torch.Tensor, n: int, stride: int,
         ok = rows[:, j] >= 0
         out[:, rows[ok, j]] += d[:, ok, j]
     return out
+
+
+TILE_ROWS = 128  # gemm_tc_kernel's output tile (TC_BM)
+
+
+def conv_tile_rows(per: int) -> Tuple[int, int, int]:
+    """(rb, wpt, chunks) as `csrc/conv_taps.cuh` `tile_rows` cuts dH1's
+    tiles: `per` rows of a phase a window (ceil(n / s0)) as boxes of rb rows
+    a window and wpt windows, at most 128 rows; or a window in `chunks`
+    tiles of rb rows."""
+    if per <= TILE_ROWS:
+        return per, TILE_ROWS // per, 1
+    return TILE_ROWS, 1, -(-per // TILE_ROWS)
+
+
+def tma_box(x: torch.Tensor, col: int, row: int, window: int, rows: int,
+            windows: int) -> torch.Tensor:
+    """One TMA box of x (W, R, C) seen as the map (C, R, W): 32 columns from
+    `col`, `rows` rows from `row`, `windows` windows from `window`, zeros
+    outside x (negative coordinates too), as it lands in shared memory:
+    (windows · rows, 32), window-major (swizzle aside)."""
+    w_idx = torch.arange(window, window + windows)
+    r_idx = torch.arange(row, row + rows)
+    c_idx = torch.arange(col, col + 32)
+    ok = (((w_idx >= 0) & (w_idx < x.shape[0]))[:, None, None]
+          & ((r_idx >= 0) & (r_idx < x.shape[1]))[None, :, None]
+          & ((c_idx >= 0) & (c_idx < x.shape[2]))[None, None, :])
+    box = x[w_idx.clamp(0, x.shape[0] - 1)][:, r_idx.clamp(0, x.shape[1] - 1)][
+        :, :, c_idx.clamp(0, x.shape[2] - 1)]
+    return torch.where(ok, box, 0.0).reshape(windows * rows, 32)
+
+
+def tma_box_store(y: torch.Tensor, box: torch.Tensor, col: int, row: int, window: int,
+                  rows: int, windows: int) -> None:
+    """The store of `tma_box`'s layout into y (W, R, C) at (col, row,
+    window): what falls outside y is not written."""
+    box = box.reshape(windows, rows, 32)
+    for w in range(windows):
+        for r in range(rows):
+            ww, rr = window + w, row + r
+            if 0 <= ww < y.shape[0] and 0 <= rr < y.shape[1]:
+                cols = min(32, y.shape[2] - col)
+                if cols > 0:
+                    y[ww, rr, col: col + cols] = box[w, r, :cols]
+
+
+def tma_im2col(x: torch.Tensor, col: int, origin: int, window: int, offset: int,
+               stride: int, lower: int, upper: int, pixels: int = TILE_ROWS) -> torch.Tensor:
+    """One box of TMA's im2col mode over x (W, n, C) seen as the map (C, n,
+    W): `pixels` origins from (origin, window) on, stepping `stride` from
+    `lower` to n − 1 + `upper` within a window and then on to the next
+    window's `lower`; pixel i reads row origin_i + offset, 32 columns from
+    `col`, zeros outside x: (pixels, 32)."""
+    out = torch.zeros(pixels, 32, dtype=x.dtype)
+    w, b = origin, window
+    last = x.shape[1] - 1 + upper
+    width = max(0, min(32, x.shape[2] - col))
+    for i in range(pixels):
+        row = w + offset
+        if b < x.shape[0] and 0 <= row < x.shape[1]:
+            out[i, :width] = x[b, row, col: col + width]
+        w += stride
+        if w > last:
+            w, b = lower, b + 1
+    return out
+
+
+def conv_forward_tiles(windows: int, n: int, hidden: int, stride: int,
+                       paddings: Tuple[int, int]):
+    """The conv forward's tiles as `ConvTapsTma` walks them: 128 of T's rows
+    a tile, as a dense A's; per m-tile (m0, rows, stages), each stage (j,
+    c0, (col, origin, window, offset) of its im2col box of h1, `tma_im2col`
+    with stride s0 and corners −p0, s0·(n_out − 1) − p0 − (n − 1)), with W's
+    columns j·hidden + c0.."""
+    p0 = int(paddings[0])
+    n_out = output_length(n, stride, paddings)
+    kc, m = -(-hidden // 32), windows * n_out
+    for tm in range(-(-m // TILE_ROWS)):
+        m0 = tm * TILE_ROWS
+        b, t = divmod(m0, n_out)
+        stages = [(j, 32 * kk, (32 * kk, stride * t - p0, b, j))
+                  for j in range(3) for kk in range(kc)]
+        yield m0, min(TILE_ROWS, m - m0), stages
+
+
+def dh1_tiles(windows: int, n: int, hidden: int, c: int, stride: int,
+              paddings: Tuple[int, int]):
+    """dH1's tiles as `Dh1Rows` walks them: per m-tile (ρ, t0, b0, stages):
+    rows ρ + s0 (t0 + i) of windows b0.. (phase ρ's map, `make_phase_map`),
+    each stage (j, c0, (col, row, window) of its box of g) for the taps j ≡
+    ρ + p0 (mod s0) in order, against W's rows j·hidden.. and columns c0..;
+    boxes of rb rows and wpt windows (`conv_tile_rows(ceil(n / s0))`)."""
+    p0 = int(paddings[0])
+    rb, wpt, chunks = conv_tile_rows(-(-n // stride))
+    wblocks, kc = -(-windows // wpt), -(-c // 32)
+    for tm in range(min(stride, n) * wblocks * chunks):
+        rho, rest = divmod(tm, wblocks * chunks)
+        wb, q = divmod(rest, chunks)
+        taps = [j for j in range(3) if (rho + p0 - j) % stride == 0]
+        stages = [(j, 32 * kk, (32 * kk, (rho + p0 - j) // stride + q * rb, wb * wpt))
+                  for j in taps for kk in range(kc)]
+        yield rho, q * rb, wb * wpt, stages
 
 
 def strided_conv_plain(h1: torch.Tensor, x: torch.Tensor, wc: torch.Tensor, bc: torch.Tensor,
@@ -124,9 +231,10 @@ def strided_conv(h1: torch.Tensor, x: torch.Tensor, ops: Dict, *, stride: int,
                  paddings: Tuple[int, int], counter: Optional[str] = COUNTER,
                  precision: str = "high") -> torch.Tensor:
     """`strided_conv_plain` on a CPU tensor; on a CUDA tensor one launch of
-    `strided_conv_f32` (T · Wc on the tensor cores in 3xTF32, T gathered from
-    h1 as it is read, Wc's halves "wc_tc") or, with `precision` "default",
-    of `strided_conv_bf16` (Wc's bf16 plane "wc_bf"), counted for `counter`."""
+    `strided_conv_f32` (T · Wc on the tensor cores in 3xTF32, T read from h1
+    by TMA's im2col mode, Wc's halves "wc_tc") or, with
+    `precision` "default", of `strided_conv_bf16` (native bf16: Wc's bf16
+    plane "wc_bf", a torch.bfloat16 tensor), counted for `counter`."""
     bf16 = check_rung(precision) == BF16
     if h1.device.type == "cpu":
         return strided_conv_plain(h1, x, ops["wc"], ops["bc"], stride=stride, paddings=paddings,
@@ -138,9 +246,13 @@ def strided_conv(h1: torch.Tensor, x: torch.Tensor, ops: Dict, *, stride: int,
     x = x.reshape(b * n, c).contiguous()
     cuda_lib.check_cuda("h1", h1)
     cuda_lib.check_cuda("x", x, device=h1.device)
+    if bf16 and hidden % 8:
+        raise ValueError(f"strided_conv_bf16 reads Wc's bf16 plane by TMA in rows of 3·hidden: "
+                         f"hidden={hidden} must be a multiple of 8 (16 bytes)")
     w = ops["wc_bf"] if bf16 else ops["wc_tc"]
     cuda_lib.check_cuda("wc_bf" if bf16 else "wc_tc", w,
-                        shape=(c, 3 * hidden) if bf16 else (2, c, 3 * hidden), device=h1.device)
+                        shape=(c, 3 * hidden) if bf16 else (2, c, 3 * hidden), device=h1.device,
+                        dtype=torch.bfloat16 if bf16 else torch.float32)
     cuda_lib.check_cuda("bc", ops["bc"], shape=(c,), device=h1.device)
     out = torch.empty((b * n_out, c), dtype=torch.float32, device=h1.device)
     cuda_lib.launch("strided", "strided_conv_bf16" if bf16 else "strided_conv_f32", counter,
@@ -192,7 +304,19 @@ def stack_strided_block1_params(state: Mapping[str, torch.Tensor],
     if q_scale is not None:
         ops["wqkv"], ops["bqkv"] = fold_q(ops["wqkv"], ops["bqkv"], c_local, q_scale)
         ops["q_scale"] = torch.full((1,), q_scale, dtype=torch.float32, device=pe.device)
+    if check_rung(precision) == BF16:
+        return add_strided_bf16_planes(ops, dx=True)
     return add_weight_operands(ops, DENSE, precision)
+
+
+def add_strided_bf16_planes(ops: Dict, dx: bool = False) -> Dict:
+    """`temporal.add_bf16_planes` of the block's dense matrices, with Wc's
+    planes ("wc_bf"; with `dx` also "wc_bf_dx", as stored) held as
+    torch.bfloat16 tensors (`CONV_PLANES`): the conv's native bf16
+    instances read them as they are (the planes are bf16-rounded, so the
+    cast is exact)."""
+    out = add_bf16_planes(ops, [name for name in DENSE if name in ops], dx=dx)
+    return {k: v.to(torch.bfloat16) if k in CONV_PLANES else v for k, v in out.items()}
 
 
 class _RoundGrad(torch.autograd.Function):

@@ -15,9 +15,10 @@ tensor it is `StridedBlock1Train`:
     GEMMs, window attention, the conv on the selected rows), keeping every
     intermediate the backward reads;
   - backward (`strided_train_bwd`): K5's backward kernels up to h1 and the
-    conv's backward of `csrc/strided_bwd.cu` (`conv_dh1`: g · Wcᵀ scattered
-    into the rows the taps read; `conv_dwc`: Tᵀ · g with the taps gathered
-    from h1; both on the tensor cores; the crop residual), returning
+    conv's backward of `csrc/strided_bwd.cu` (`conv_dh1`: each h1 row the
+    sum of the taps of g · Wcᵀ that read it, one launch, rows by TMA;
+    `conv_dwc`: Tᵀ · g with the taps gathered from h1; both on the tensor
+    cores; the crop residual), returning
     dx and the grads of all 13 operands (dpe the fixed-order sum of dx over
     windows), as `_fsb_bwd_rule` does.
 The wrappers count one per call: "strided_train_fwd" on the forward's last
@@ -26,7 +27,8 @@ launch, "strided_train_bwd" on the backward's last launch.
 The bf16 rung (`precision` "default"; `pallas_strided_bwd.py` at DEFAULT):
 the forward launches K3's bf16 instances with K5's training attention
 (`window_attention_train_bf16`); the backward K5's bf16 instances,
-`strided_dh1_bf16` (g and Wc's bf16 plane as stored), `strided_dwc_bf16`
+`strided_dh1_bf16` (native bf16: g rounded, Wc's bf16 plane as stored, a
+torch.bfloat16 tensor), `strided_dwc_bf16`
 (the taps and g rounded) and `sum_rows_bf16` for the PE's gradient (the sum
 over windows of the bf16-rounded input gradient: the JAX kernel takes it
 with a DEFAULT dot against a one-hot matrix). The JAX conv is three tap
@@ -43,7 +45,7 @@ import torch
 
 from ..precision import BF16, check_rung, mm
 from . import cuda_lib
-from .strided import (DENSE, conv_scatter_plain, conv_taps_plain, output_length,
+from .strided import (CONV_PLANES, DENSE, conv_scatter_plain, conv_taps_plain, output_length,
                       strided_block1_plain, strided_conv)
 from .temporal import check_unfolded, gemm, layernorm, weight_keys
 from .temporal_train import (_sum_rows, colsum, dw_splits, gemm_dw, gemm_dx, layernorm_bwd,
@@ -76,9 +78,11 @@ def conv_dwc_plain(h1: torch.Tensor, g: torch.Tensor, *, stride: int, paddings,
 def conv_dh1(g: torch.Tensor, ops: Dict, h1: torch.Tensor, *, stride: int,
              paddings, precision: str = "high") -> torch.Tensor:
     """(B, n_out, C), (B, n, hidden) → dH1 (B, n, hidden). CPU tensor: the
-    plain version; CUDA tensor: `strided_dh1_f32` (g · Wcᵀ on the tensor
-    cores from Wc's halves as stored, "wc_tc_dx", scattered in the epilogue),
-    or at "default" `strided_dh1_bf16` (Wc's bf16 plane "wc_bf_dx")."""
+    plain version; CUDA tensor: one launch of `strided_dh1_f32` (each h1 row
+    the sum of its taps' g · W_jᵀ on the tensor cores from Wc's halves as
+    stored, "wc_tc_dx", the relu mask read and the rows written by TMA), or
+    at "default" `strided_dh1_bf16` (native bf16: Wc's bf16 plane
+    "wc_bf_dx", a torch.bfloat16 tensor)."""
     if g.device.type == "cpu":
         return conv_dh1_plain(g, ops["wc"], h1, stride=stride, paddings=paddings,
                               precision=precision)
@@ -88,9 +92,12 @@ def conv_dh1(g: torch.Tensor, ops: Dict, h1: torch.Tensor, *, stride: int,
     g = g.reshape(b * n_out, c).contiguous()
     cuda_lib.check_cuda("g", g)
     cuda_lib.check_cuda("h1", h1, device=g.device)
+    if bf16 and c % 8:
+        raise ValueError(f"strided_dh1_bf16 reads Wc's bf16 plane by TMA in rows of C: C={c} "
+                         "must be a multiple of 8 (16 bytes)")
     w = ops["wc_bf_dx"] if bf16 else ops["wc_tc_dx"]
     cuda_lib.check_cuda("wc_dx", w, shape=(3 * hidden, c) if bf16 else (2, 3 * hidden, c),
-                        device=g.device)
+                        device=g.device, dtype=torch.bfloat16 if bf16 else torch.float32)
     out = torch.empty_like(h1)  # never h1 itself: the relu mask is read as dH1 is written
     cuda_lib.launch("strided_bwd", "strided_dh1_bf16" if bf16 else "strided_dh1_f32", None, g,
                     w, h1, out, b, n, hidden, c, stride, int(paddings[0]), n_out)
@@ -138,7 +145,8 @@ def strided_train_fwd(x: torch.Tensor, ops: Dict, *, num_heads: int, stride: int
     if c % num_heads != 0:
         raise ValueError(f"C={c} does not split into {num_heads} heads")
     for name in ORDER + weight_keys(DENSE, precision):
-        cuda_lib.check_cuda(name, ops[name], device=x.device)
+        cuda_lib.check_cuda(name, ops[name], device=x.device,
+                            dtype=torch.bfloat16 if name in CONV_PLANES else torch.float32)
     cuda_lib.check_cuda("pe", ops["pe"], shape=(n, c))
     w = "_bf" if check_rung(precision) == BF16 else "_tc"
     rung = dict(precision=precision)

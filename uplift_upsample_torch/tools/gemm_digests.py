@@ -8,15 +8,17 @@ mode: K2's four dense products at serving (`gemm_f32`: qkv, proj + residual,
 fc1 + relu, fc2 + a residual that aliases the output; 1,024 windows x 71),
 K5's scaled branch (`gemm_branch_f32`) and dX with its row scale and relu
 mask (`gemm_dx_f32`; the bf16 mode scales A's rows before their rounding)
-at the train step's 512 windows x 71, the strided conv with its taps
-gathered from h1 at h36m_351's stride 3, paddings (0, 0), 1,024 windows, and
+at the train step's 512 windows x 71, the strided conv with its taps read
+from h1 by TMA at h36m_351's stride 3, paddings (0, 0), 1,024 windows, and
 at h36m_81's stride 4, paddings (1, 1), 512 windows (`strided_conv_f32`),
-its dH1 at stride 3 (one launch) and stride 2 (a launch per tap, each on a
-slice of the weights: `w_small`), and the s2t prologue (`s2t_prologue_f32`,
+its dH1 at strides 3 and 2 (one launch each, h1's rows phase by phase), and
+the s2t prologue (`s2t_prologue_f32`,
 72,704 x 544 -> 384 with the stride mask). Each case's inputs come from
 numpy with a fixed seed; the weights' TF32 halves and bf16 planes are made
 on the host (`tf32_halves_plain`, `round_bf16`), so they do not depend on
-the build under test.
+the build under test; the conv's and dH1's bf16 cases hand their plane over
+as torch.bfloat16 (`fp32_args`: in fp32 to a build from before its native
+bf16, `reads_fp32_planes`).
 
 `gemm_atb_kernel` (the backward's weight gradients, split over the rows and
 summed in a fixed order) serves two more C entries, each in both modes: K5's
@@ -51,13 +53,20 @@ import shutil
 import subprocess
 import sys
 from pathlib import Path
-from typing import Callable, Dict, List, NamedTuple
+from typing import Callable, Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 # sha256 of each case's outputs from the build before the pipelined kernel
-# (NVIDIA H100 80GB HBM3, nvcc 12.9, sm_90a)
+# (NVIDIA H100 80GB HBM3, nvcc 12.9, sm_90a), except five re-taken when the
+# strided conv's products were redesigned, whose sums changed by design:
+# "dh1 s2" (each h1 row's taps now sum in one accumulator in tap order,
+# where a launch per tap added each tap's finished product into dH1) and
+# the conv's and dH1's bf16 cases (native bf16: two k16 products per 32-deep
+# stage on the bf16 plane, where one TF32 pass took four k8 products; the
+# same exact products summed in another order). The conv's and "dh1 s3"'s
+# 3xTF32 bits are the earlier ones: reading T by TMA changes no operand.
 GEMM_DIGESTS: Dict[str, str] = {
     "gemm qkv":
         "911fbd98f40bd03ab3392aebbcb3d36d24d40aa75eaa859707ff1698ee4c7d33",
@@ -78,7 +87,7 @@ GEMM_DIGESTS: Dict[str, str] = {
     "dh1 s3":
         "874c23288bfb1898c1a38e8b697819159e8c81f4d578432fb1800f4e559daaf3",
     "dh1 s2":
-        "30b16395efb0d8109532ab1ed218992dc6f0f9dc9e76bbce48047f8a555c645d",
+        "ba9e48ed04bd44cb6f6829dc4f218de8a6c404fe9a6c68d9c6e9f944e162146b",
     "s2t":
         "96e50ab69b1312f7d6c4bcd0197aaa323a2a4f76b86b4ee931cd2636a4c260a4",
     "gemm qkv_bf16":
@@ -94,18 +103,20 @@ GEMM_DIGESTS: Dict[str, str] = {
     "dx fc2_bf16":
         "6926b34e1ce76c64ffe8e2e91af89051fdeaa17db03c77837d90046df552c101",
     "conv 351_bf16":
-        "c7f8f07e74311e8e2699ac87f794198c7657e1a6471d4f2a4e17fc3b701e82bc",
+        "0483c8adb80320d3e02d60bb910c0ea9280348bd3db1fc3a55121e8a96c29fed",
     "conv 81_bf16":
-        "9b92a886fe130a1446c2f81fc122ab7c4e99d924f61086a7ece5076aac7da422",
+        "a5c0860f8fa4dfff2bb2414113e5f9bec920abc47b263b1f7fc423a39e1e88c9",
     "dh1 s3_bf16":
-        "e9e01a3677176f9523ebb7ef51c98820a000ea65e7f323cb23ff02f4911ba1e3",
+        "0ba990a85c9b9af26297bd83bbf26ecbfd96267d5be0bbe356b7f5e501056417",
     "dh1 s2_bf16":
-        "d996f7a94c7af36c77cf5edb7e088cad41853ce276d339f6be45c7e6eca240f5",
+        "cc85000391e0601c359b713f9f8dfecfd4a45281ab1f6ff5dd712e3eb8311626",
     "s2t_bf16":
         "2c0a52553747cf21a9ab890cc9952a23b6a86c4d6f18a2b5cb382134a69e9136",
 }
 
-# that build's ms per case (CUDA events), NVIDIA H100 80GB HBM3, 700.00 W
+# that build's ms per case (CUDA events), NVIDIA H100 80GB HBM3, 700.00 W;
+# the conv's and dH1's: the build before their redesign (the gathered taps, a
+# launch per tap at s0 < 3, the TF32 pass at bf16), timed in turn with it
 PARENT_MS: Dict[str, float] = {
     "gemm qkv": 0.8605,
     "gemm proj": 0.3928,
@@ -113,10 +124,10 @@ PARENT_MS: Dict[str, float] = {
     "gemm fc2": 0.5467,
     "branch fc2": 0.4033,
     "dx fc2": 0.5392,
-    "conv 351": 0.7261,
-    "conv 81": 0.1518,
-    "dh1 s3": 0.6066,
-    "dh1 s2": 1.3113,
+    "conv 351": 0.7296,
+    "conv 81": 0.1531,
+    "dh1 s3": 0.4699,
+    "dh1 s2": 0.7716,
     "s2t": 0.4653,
     "gemm qkv_bf16": 0.674,
     "gemm proj_bf16": 0.3243,
@@ -124,10 +135,10 @@ PARENT_MS: Dict[str, float] = {
     "gemm fc2_bf16": 0.4142,
     "branch fc2_bf16": 0.3285,
     "dx fc2_bf16": 0.3655,
-    "conv 351_bf16": 0.6318,
-    "conv 81_bf16": 0.1419,
-    "dh1 s3_bf16": 0.5003,
-    "dh1 s2_bf16": 1.1473,
+    "conv 351_bf16": 0.6222,
+    "conv 81_bf16": 0.1392,
+    "dh1 s3_bf16": 0.4037,
+    "dh1 s2_bf16": 0.6755,
     "s2t_bf16": 0.3505,
     # gemm_atb_kernel's callers: the mma.sync build
     "dw qkv": 0.6772,
@@ -194,6 +205,7 @@ class Case(NamedTuple):
     outputs: list       # tensors hashed after the launch
     reset: Callable     # restores inputs a launch overwrites (the aliased residual)
     then: tuple = ()    # (lib, fn, args) launched after it: dW's fixed-order sum
+    fp32_args: Optional[list] = None  # args for a build whose conv reads an fp32 bf16 plane
 
 
 def _halves(w: np.ndarray, bf16: bool, transpose: bool = True) -> torch.Tensor:
@@ -206,6 +218,18 @@ def _halves(w: np.ndarray, bf16: bool, transpose: bool = True) -> torch.Tensor:
         plane = round_bf16(t)
         return (plane.t() if transpose else plane).contiguous()
     return tf32_halves_plain(t, transpose=transpose)
+
+
+def _native(args: list, i: int, bf16: bool) -> list:
+    """args with the conv's bf16 plane args[i] as the torch.bfloat16 tensor
+    its native bf16 instances read (the fp32 plane holds bf16 values: exact)."""
+    return args if not bf16 else args[:i] + [args[i].to(torch.bfloat16)] + args[i + 1:]
+
+
+def reads_fp32_planes(csrc: Path) -> bool:
+    """Whether the build of `csrc` runs the conv's bf16 instances as a TF32
+    pass on an fp32 plane (the design before its native bf16)."""
+    return "TC_BF16" not in (Path(csrc) / "gemm_tc.cuh").read_text()
 
 
 def cases(seed: int, bf16: bool, dev) -> List[Case]:
@@ -256,16 +280,18 @@ def cases(seed: int, bf16: bool, dev) -> List[Case]:
         h1, x = cuda(np.maximum(rand(b * n, HID), 0)), cuda(rand(b * n, C))
         wc, bc = w_of(3 * HID, C), cuda(rand(C, scale=0.1))
         o = torch.empty((b * n_out, C), device=dev)
+        args = [h1, x, wc, bc, o, b, n, HID, C, stride, p0, n_out]
         out.append(Case(f"conv {label}" + "_bf16" * bf16, "strided", "strided_conv" + sfx,
-                        [h1, x, wc, bc, o, b, n, HID, C, stride, p0, n_out], [o], none))
+                        _native(args, 2, bf16), [o], none, fp32_args=args if bf16 else None))
     b, n = DH1_WINDOWS, 71
     for stride in (3, 2):
         n_out = (n - 3) // stride + 1
         g, h1 = cuda(rand(b * n_out, C, scale=1.0)), cuda(np.maximum(rand(b * n, HID), 0))
         wc = w_of(3 * HID, C, transpose=False)
         o = torch.empty((b * n, HID), device=dev)
+        args = [g, wc, h1, o, b, n, HID, C, stride, 0, n_out]
         out.append(Case(f"dh1 s{stride}" + "_bf16" * bf16, "strided_bwd", "strided_dh1" + sfx,
-                        [g, wc, h1, o, b, n, HID, C, stride, 0, n_out], [o], none))
+                        _native(args, 1, bf16), [o], none, fp32_args=args if bf16 else None))
 
     m, k, pe_rows = SERVING, 17 * 32, 71
     sp, w, bias = cuda(rand(m, k)), w_of(k, C), cuda(rand(C, scale=0.1))
@@ -352,10 +378,13 @@ def build_libs(csrc: Path, out_dir: Path) -> Dict[str, ctypes.CDLL]:
     return libs
 
 
-def launcher(libs: Dict[str, ctypes.CDLL], case: Case) -> Callable[[], None]:
-    """One launch of the case's C entry from `libs`, then its `then` launches;
+def launcher(libs: Dict[str, ctypes.CDLL], case: Case,
+             fp32_planes: bool = False) -> Callable[[], None]:
+    """One launch of the case's C entry from `libs` (`fp32_planes`: a build
+    that reads the conv's bf16 plane in fp32), then its `then` launches;
     raises on a launch error."""
-    steps = [(libs[case.lib], case.fn, case.args)]
+    args = case.fp32_args if fp32_planes and case.fp32_args is not None else case.args
+    steps = [(libs[case.lib], case.fn, args)]
     steps += [(libs[lib], fn, args) for lib, fn, args in case.then]
     bound = [(getattr(lib, fn), fn, [ctypes.c_void_p(a.data_ptr()) if isinstance(a, torch.Tensor)
                                      else ctypes.c_void_p(0) if a is None else a for a in args])
@@ -370,10 +399,10 @@ def launcher(libs: Dict[str, ctypes.CDLL], case: Case) -> Callable[[], None]:
     return call
 
 
-def digest(libs: Dict[str, ctypes.CDLL], case: Case) -> str:
+def digest(libs: Dict[str, ctypes.CDLL], case: Case, fp32_planes: bool = False) -> str:
     """The case's outputs' sha256 after one launch from its reset inputs."""
     case.reset()
-    launcher(libs, case)()
+    launcher(libs, case, fp32_planes)()
     torch.cuda.synchronize()
     h = hashlib.sha256()
     for t in case.outputs:
@@ -394,12 +423,17 @@ def time_ms(call: Callable[[], None], iters: int = 10, warmup: int = 2) -> float
     return start.elapsed_time(end) / iters
 
 
-def check(libs, parent_libs=None, seed: int = 0, rounds: int = 3, log=print) -> List[str]:
+def check(libs, parent_libs=None, seed: int = 0, rounds: int = 3, log=print,
+          parent_fp32_planes: bool = False, libs_of=None) -> List[str]:
     """Every case: its digest against GEMM_DIGESTS, a second call bit for
     bit, its time beside PARENT_MS (and beside the parent build's digest and
-    time, taken in turn, with `parent_libs`); returns the failed cases."""
+    time, taken in turn, with `parent_libs`; `parent_fp32_planes`: that
+    build reads the conv's bf16 plane in fp32, `reads_fp32_planes`; `libs_of`:
+    only the cases of those libraries); returns the failed cases."""
     failed = []
     for case in all_cases(seed, torch.device("cuda")):
+        if libs_of is not None and case.lib not in libs_of:
+            continue
         first = digest(libs, case)
         again = digest(libs, case)
         want = DIGESTS.get(case.name)
@@ -413,8 +447,8 @@ def check(libs, parent_libs=None, seed: int = 0, rounds: int = 3, log=print) -> 
             ms = min(time_ms(call) for _ in range(rounds))
             line += f"; ms {ms:.4f}"
         else:
-            parent_first = digest(parent_libs, case)
-            pcall = launcher(parent_libs, case)
+            parent_first = digest(parent_libs, case, parent_fp32_planes)
+            pcall = launcher(parent_libs, case, parent_fp32_planes)
             mine, theirs = [], []
             for _ in range(rounds):
                 theirs.append(time_ms(pcall))
@@ -426,7 +460,7 @@ def check(libs, parent_libs=None, seed: int = 0, rounds: int = 3, log=print) -> 
                      f"({'same bits' if parent_first == first else 'OTHER BITS'}); ms "
                      f"{ms:.4f} against the parent's {min(theirs):.4f} in turn "
                      f"({ms / min(theirs):.3f}x)")
-            if parent_first != first:
+            if parent_first != first and want is None:
                 failed.append(case.name + " vs parent")
         if case.name in PARENT_MS:
             line += f"; recorded parent {PARENT_MS[case.name]:.4f} ({ms / PARENT_MS[case.name]:.3f}x)"
@@ -450,7 +484,8 @@ def main(argv=None) -> int:
     if args.parent:
         parent = build_libs(Path(args.parent).resolve(), cuda_lib.BUILD_DIR / "parent_gemm")
     failed = check(port_libs(), parent, args.seed, args.rounds,
-                   log=lambda s: print(s, flush=True))
+                   log=lambda s: print(s, flush=True),
+                   parent_fp32_planes=bool(args.parent) and reads_fp32_planes(args.parent))
     if failed:
         print(f"gemm_digests: FAILED {failed}", flush=True)
         return 1
