@@ -260,7 +260,7 @@ PEAK_TF32_FLOPS = 495e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
 L2_BYTES = 50 * 2**20
-F32 = 4
+F32, BF16 = 4, 2  # bytes an element
 
 
 def log(msg: str) -> None:
@@ -2348,8 +2348,14 @@ def bf16_phase(args, torch, np, rng, failed, record, eval_data):
 
     def case(name, replaces, source, kernel, plain, counter, bf16_flops, nbytes, flops=0.0,
              library=None, mean_frac=BF16_DRIFT_FRAC, listed=True, phase="predict bf16",
-             extra=None):
-        """kernel(rung) against plain(rung, dtype), timed beside kernel("high")."""
+             extra=None, library_pre=None):
+        """kernel(rung) against plain(rung, dtype), timed beside kernel("high").
+        `library`: one PyTorch computation of the same function (`library_ms`;
+        for a dense product from the same fp32 inputs, casts timed);
+        `library_pre`: a bf16 product on operands rounded beforehand
+        (`library_prerounded_ms`)."""
+        if library_pre is not None:
+            extra = dict(extra or {}, library_prerounded_ms=time_ms(torch, library_pre, 10))
         got = kernel("default")
         check, nums = rung_checks(torch, got, plain("default", f32), plain("high", f32),
                                   plain("default", f64), mean_frac)
@@ -2370,9 +2376,9 @@ def bf16_phase(args, torch, np, rng, failed, record, eval_data):
     c, hid, p, cs = (config.TEMPORAL_EMBED_DIM, int(config.TEMPORAL_EMBED_DIM * config.MLP_RATIO),
                      config.NUM_KEYPOINTS, config.SPATIAL_EMBED_DIM)
     rows, frames = windows * n, windows * n
-    plane_bytes = lambda ops: sum(v.numel() for k, v in ops.items()
+    plane_bytes = lambda ops: sum(v.numel() * v.element_size() for k, v in ops.items()
                                   if k.endswith("_bf") or not (k.endswith("_tc") or "_tc_" in k
-                                                               or f"{k}_bf" in ops)) * F32
+                                                               or f"{k}_bf" in ops))
 
     # (a) each bf16 instance against its plain version
     x_sp, sp_ops = rand(frames, p, 2), fp["spatial"]
@@ -2429,15 +2435,21 @@ def bf16_phase(args, torch, np, rng, failed, record, eval_data):
         planes = {"default": tm_ops[wname + "_bf"][0], "high": tm_ops[wname + "_tc"][0]}
         act = torch.relu if relu else (lambda t: t)
         a_bf, w_bf = a.to(torch.bfloat16), w.to(torch.bfloat16)
+        w_op = planes["default"].t()  # W's bf16 plane, (K, N)
         case(name, f"{v3}:{line}", "uplift_upsample_torch/csrc/gemm_tc.cuh",
              lambda r: gemm(a, planes[r], bias, relu=relu, residual=res, counter="probe",
                             precision=r),
              lambda r, d: act(mm(a.to(d), w.to(d), r) + bias.to(d)) + (
                  0 if res is None else res.to(d)),
              "gemm_bf16", 2 * rows * k_in * w.shape[1],
-             (a.numel() + w.numel() + w.shape[1] + rows * w.shape[1] * (2 if residual else 1))
-             * F32, library=lambda: torch.matmul(a_bf, w_bf))  # bf16 in, bf16 out
-        del a, res, a_bf, w_bf
+             (a.numel() + w.shape[1] + rows * w.shape[1] * (2 if residual else 1)) * F32
+             + w.numel() * BF16,
+             # from the same fp32 inputs: A cast, fp32 out, bias, relu, residual
+             library=lambda: act(torch.addmm(bias, a.to(torch.bfloat16), w_op,
+                                             out_dtype=torch.float32)) + (
+                 0 if res is None else res),
+             library_pre=lambda: torch.matmul(a_bf, w_bf))  # bf16 in, bf16 out
+        del a, res, a_bf, w_bf, w_op
 
     def strided_case(name, model_, fp_, x_, listed):
         s0, pads = model_.strides[0], model_.paddings[0]
@@ -2489,9 +2501,12 @@ def bf16_phase(args, torch, np, rng, failed, record, eval_data):
          lambda r: s2t_prologue(sp, s2t, sm, precision=r),
          lambda r, d: s2t_prologue_plain(sp.to(d), cast(s2t, d), sm, precision=r),
          "s2t_prologue_bf16", 2 * rows * kk * c,
-         (sp.numel() + rows * c + sm.numel() + kk * c + 2 * c + n * c) * F32,
+         (sp.numel() + rows * c + sm.numel() + 2 * c + n * c) * F32 + kk * c * BF16,
          phase="route tiled bf16",
-         library=lambda: torch.where(sm[..., None], torch.addmm(b_bf, sp_bf, w_bf).reshape(
+         library=lambda: torch.where(sm[..., None], torch.addmm(
+             s2t["bias"], sp.reshape(rows, kk).to(torch.bfloat16), s2t["w_bf"].t(),
+             out_dtype=torch.float32).reshape(windows, n, c), s2t["token"]) + s2t["pe"],
+         library_pre=lambda: torch.where(sm[..., None], torch.addmm(b_bf, sp_bf, w_bf).reshape(
              windows, n, c), tok_bf) + pe_bf)
     del sp, sp_bf, w_bf, x_tm
     torch.cuda.empty_cache()
@@ -2891,20 +2906,29 @@ def train_rungs_phase(args, torch, np, rng, failed, record):
     w = {"default": (o1["default"]["w2_bf"][0], o1["default"]["w2_bf_dx"][0]),
          "high": (o1["high"]["w2_tc"][0], o1["high"]["w2_tc_dx"][0])}
     a_bf, w_bf, g_bf = h1.to(torch.bfloat16), w2.to(torch.bfloat16), sg.to(torch.bfloat16)
-    mm_bytes = (rows * (hid + 2 * c) + hid * c) * F32
+    mm_bytes = rows * (hid + 2 * c) * F32 + hid * c * BF16
+    b2 = o1["default"]["b2"][0]
+    s2_rows = s2.repeat_interleave(n)[:, None]
+
+    def branch_lib():  # from the same fp32 inputs: A cast, fp32 out, bias, row scale
+        z = torch.addmm(b2, h1.to(torch.bfloat16), w["default"][0].t(), out_dtype=f32)
+        return torch.addcmul(res, z, s2.repeat_interleave(n)[:, None]), z
+
     case("gemm_branch_bf16", f"{src}:446", "uplift_upsample_torch/csrc/gemm_tc.cuh",
          lambda r: list(_branch_gemm(h1, w[r][0], o1[r]["b2"][0], s2, n, res, precision=r)),
          lambda r, d: (lambda z: [res.to(d) + z * s2.to(d).repeat_interleave(n)[:, None], z])(
-             mm(h1.to(d), w2.to(d), r) + o1["default"]["b2"][0].to(d)),
+             mm(h1.to(d), w2.to(d), r) + b2.to(d)),
          "gemm_branch_bf16", 2 * rows * hid * c, mm_bytes + rows * c * F32,
-         library=lambda: torch.matmul(a_bf, w_bf))
+         library=branch_lib, library_pre=lambda: torch.matmul(a_bf, w_bf))
     case("gemm_dx_bf16", f"{src}:496", "uplift_upsample_torch/csrc/gemm_tc.cuh",
          lambda r: [gemm_dx(g, s2, n, w[r][1], mask=h1, precision=r)],
          lambda r, d: [torch.where(h1.to(d) > 0, mm(sg.to(d), w2.t().to(d), r), 0.0)],
          "gemm_dx_bf16", 2 * rows * hid * c, mm_bytes,
-         library=lambda: torch.matmul(g_bf, w_bf.t()))
+         library=lambda: torch.where(h1 > 0, torch.mm((g * s2.repeat_interleave(n)[:, None])
+                                                      .to(torch.bfloat16), w["default"][1].t(),
+                                                      out_dtype=f32), 0.0),
+         library_pre=lambda: torch.matmul(g_bf, w_bf.t()))
     dw_out = torch.empty((hid, c), dtype=f32, device=dev)
-    s2_rows = s2.repeat_interleave(n)[:, None]
     case("gemm_dw_bf16", f"{src}:493", "uplift_upsample_torch/csrc/gemm_tc.cuh",
          lambda r: (gemm_dw(h1, g, s2, n, dw_out, precision=r), [dw_out.clone()])[1],
          lambda r, d: [mm(h1.t().to(d), sg.to(d), r)],

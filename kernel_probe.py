@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """What bounds the hand-written kernels on the card (csrc/).
 
-    python3 kernel_probe.py [--seed 0] [--only dense,dw,attn_bwd,k4,k1,short]
+    python3 kernel_probe.py [--seed 0] [--only dense,dense_bf16,dw,attn_bwd,k4,k1,short,e2e]
                             [--parent DIR]
 
 Builds patched copies of `csrc/` under `uplift_upsample_torch/_build/probe/`
@@ -21,6 +21,22 @@ Builds patched copies of `csrc/` under `uplift_upsample_torch/_build/probe/`
   "no epilogue" (the epilogue warps read and write nothing; the consumers
   still stage their sums); "no splits", "one pass, no splits" as above;
   "no register split" (no setmaxnreg: every warpgroup at the launch's 168);
+- the bf16 rung of that GEMM at its dense callers ("dense_bf16"):
+  `temporal.cu`'s gemm_bf16 at K2's four serving products (72,704 rows:
+  qkv, proj + residual, fc1 + relu, fc2 + the residual aliasing the
+  output), `temporal_bwd.cu`'s gemm_branch_bf16 and gemm_dx_bf16 (row
+  scale, relu mask) at fc2 on the train step's 36,352 rows, and `s2t.cu`'s
+  s2t_prologue_bf16 (72,704 x 544 -> 384): the kernel, "copies only",
+  "products only", "no epilogue" (no tile brought in by TMA, nothing
+  written by the consumers or the epilogue warps) and "no register split"
+  as above,
+  "copies only, no epilogue" and "products only, no epilogue", and for
+  gemm_bf16 "warps' epilogue" (with a residual, the sums through the
+  staging tile and the epilogue warps, BiasActResidual, in place of the
+  TMA-stored tiles, DenseTmaStore), alone and with "copies only", beside
+  torch.matmul on operands rounded to bf16 beforehand and the same function
+  from the same fp32 inputs (the fastest PyTorch sequence tried: casts,
+  fp32 out, bias, relu, residual, row scale, mask, token, PE);
 - the dW product (`gemm_tc.cuh`'s gemm_atb_kernel) as `temporal_bwd.cu`'s
   gemm_dw_f32 at the qkv weight's 384 x 1,152 over 36,352 rows and
   gemm_dw_bf16 at fc2's 768 x 384 with the per-window row scale, and as
@@ -42,7 +58,7 @@ Builds patched copies of `csrc/` under `uplift_upsample_torch/_build/probe/`
   F.conv1d + the residual add / convolution_backward's input gradient on
   operands prepared beforehand (bf16: pre-rounded) and on the same inputs as
   the kernel (layouts, casts, the residual or the relu mask timed): the
-  kernel; "dense A" (the conv only: gemm_f32 / gemm_bf16, the TF32 pass, on
+  kernel; "dense A" (the conv only: gemm_f32 / gemm_bf16, native bf16, on
   the taps matrix written out, read by TMA: the same products without the
   taps' boxes); "no A copies" (the loader issues W's boxes only: no box of
   h1 or g); "no products" (no wgmma); "no epilogue" (the conv: the epilogue
@@ -96,8 +112,16 @@ Builds patched copies of `csrc/` under `uplift_upsample_torch/_build/probe/`
   384 it stays in L2); the kernel's and parent's back-to-back time with the
   host in it; ptxas's registers and spills of every variant first.
 
-`--only` runs a subset: "dense" is the attention, GEMM, dW, conv and dH1
-groups (and the A/B of every GEMM caller with `--parent`), "dw" the dW
+- end to end ("e2e", with `--parent DIR`, DIR the `uplift_upsample_torch/csrc`
+  of another checkout): the serving call (`bench_forward` on 1,024 h36m_351
+  windows, "high" and "default") and the B=512 training step at "default"
+  (`tools/profile_train.py` full, fwd, temporal), in that checkout and in
+  this one in turn (parent, this, this, parent), each in its own process.
+
+`--only` runs a subset: "dense" is the attention, GEMM, bf16 GEMM, dW, conv
+and dH1 groups (and the A/B of every GEMM caller with `--parent`),
+"dense_bf16" the bf16 GEMM group alone (and, with `--parent`, the A/B of
+its seven cases), "dw" the dW
 groups alone (and the A/B), "conv" the conv and dH1 groups (and, with
 `--parent`, the A/B of the strided conv's cases: conv, dH1, dWc; an
 earlier build that reads the bf16 plane in fp32 is handed one).
@@ -138,33 +162,38 @@ _TMA = ("          mbar_expect_tx(full + 8 * s, a_src.a_bytes() + L::kWLoad);\n"
         "          if constexpr (kMode == TC_3XTF32)\n"
         "            tma_load_2d(st + 2 * TC_TILE_BYTES, &map_w, wk.x, w_small + wk.y + n0,\n"
         "                        full + 8 * s);\n")
-_SMALL_WGMMA = ("        wgmma_m64n64k8_tf32(d, f.small[j], desc_big + 2 * j);\n"
-                "        wgmma_m64n64k8_tf32(d, f.big[j], desc_small + 2 * j);\n")
-_BIG_WGMMA = "      wgmma_m64n64k8_tf32(d, f.big[j], desc_big + 2 * j);\n"
-_NATIVE_WGMMA = "    for (int s = 0; s < 2; ++s) wgmma_m64n64k16_bf16_rs(d, f.big[s], desc_big + 2 * s);\n"
+_SMALL_WGMMA = ("    wgmma_m64n64k8_tf32(d, f.small[j], desc_big + 2 * j);\n"
+                "    wgmma_m64n64k8_tf32(d, f.big[j], desc_small + 2 * j);\n")
+_BIG_WGMMA = "    wgmma_m64n64k8_tf32(d, f.big[j], desc_big + 2 * j);\n"
+_NATIVE_WGMMA = ("  wgmma_m64n64k16_bf16_rs_first(d, f.big[0], desc);\n"
+                 "  wgmma_m64n64k16_bf16_rs(d, f.big[1], desc + 2);\n")
 _ROWS = "        const int rows = a_src.rows(tm, m);\n"
 # the register split (setmaxnreg) of the loader / epilogue and consumer warpgroups
 _SETMAXNREG = '    asm volatile("setmaxnreg.{}.sync.aligned.u32 %0;\\n" :: "n"(TC_{}_REGS));\n'
+NO_PRODUCTS = [("gemm_tc.cuh", _SMALL_WGMMA, ""), ("gemm_tc.cuh", _BIG_WGMMA, ""),
+               ("gemm_tc.cuh", _NATIVE_WGMMA, "")]
 REGS = [("gemm_tc.cuh", _SETMAXNREG.format("dec", "LOADER"), ""),
         ("gemm_tc.cuh", "  " + _SETMAXNREG.format("inc", "CONSUMER")[4:], "")]
 GEMM = {
     "kernel": [],
     "products only": [("gemm_tc.cuh", _TMA, "          mbar_arrive(full + 8 * s);\n")],
-    "copies only": [("gemm_tc.cuh", _SMALL_WGMMA, ""), ("gemm_tc.cuh", _BIG_WGMMA, "")],
-    "no epilogue": [("gemm_tc.cuh", _ROWS, "        const int rows = k > 0 ? 0 : a_src.rows(tm, m);\n")],
+    "copies only": NO_PRODUCTS,
+    "no epilogue": [],  # below: the epilogue warps' and the TMA epilogue's
     "no splits": NO_SPLITS,
     "one pass, no splits": NO_SPLITS + [("gemm_tc.cuh", _SMALL_WGMMA, "")],
     "no register split": REGS,
 }
-NO_EPILOGUE = GEMM["no epilogue"]
+NO_EPILOGUE = [("gemm_tc.cuh", _ROWS, "        const int rows = k > 0 ? 0 : a_src.rows(tm, m);\n")]
+# gemm_tc_kernel's bf16 rung at its dense callers, without its parts (the
+# "gemm" group's builds serve temporal.cu's gemm_bf16)
+BF16_DENSE = {name: GEMM[name] for name in ("kernel", "copies only", "products only",
+                                            "no epilogue", "no register split")}
 # the conv's A boxes (ConvTapsTma) and dH1's (Dh1Rows): the loader issues W's
 # boxes only and expects their bytes
 _A_BYTES = ("gemm_tc.cuh", "          mbar_expect_tx(full + 8 * s, a_src.a_bytes() + L::kWLoad);\n",
             "          mbar_expect_tx(full + 8 * s, L::kWLoad);\n")
 _CONV_BOX = "    tma_load_im2col_3d(dst, map, c0, stride * t - p0, b, (uint16_t)j, bar);\n"
 _DH1_BOX = "    tma_load_3d(dst, map, c0, (at.x + p0 - j) / stride + at.y, at.z, bar);\n"
-NO_PRODUCTS = [("gemm_tc.cuh", _SMALL_WGMMA, ""), ("gemm_tc.cuh", _BIG_WGMMA, ""),
-               ("gemm_tc.cuh", _NATIVE_WGMMA, "")]
 CONV = {
     "kernel": [],
     "no A copies": [_A_BYTES, ("conv_taps.cuh", _CONV_BOX, "    if (kt < 0)\n" + _CONV_BOX)],
@@ -173,12 +202,42 @@ CONV = {
     "no splits": NO_SPLITS,
     "no register split": REGS,
 }
-# dH1's epilogue: no mask loaded into the staging tile, no tile stored
+# dH1's epilogue (kTmaStore): no mask loaded into the staging tile, no tile
+# stored; the consumers' epilogue (kDirect): no tile brought in, nothing written
 _BOXES = "          const int boxes = min(TC_BN / 32, (n - n0 + 31) / 32);\n"
+_NO_BOXES = "          const int boxes = k > 0 ? 0 : min(TC_BN / 32, (n - n0 + 31) / 32);\n"
+_STORE_WAIT = "          if (lt > 0) bulk_wait_all<true>();\n"
+_IN_WAIT = "          if (lt > 0) mbar_wait(staged, (lt - 1) & 1);\n"
+NO_TMA_EPILOGUE = [("gemm_tc.cuh", _BOXES + _STORE_WAIT, _NO_BOXES + _STORE_WAIT)]
+NO_DIRECT_EPILOGUE = [("gemm_tc.cuh", _BOXES + _IN_WAIT, _NO_BOXES + _IN_WAIT),
+                      ("gemm_tc.cuh",
+                       "        const int c = c0 + 8 * j;  // n even: c + 1 < n with it\n"
+                       "        if (c < n) {\n",
+                       "        const int c = c0 + 8 * j;  // n even: c + 1 < n with it\n"
+                       "        if (c < n && k < 0) {\n")]
+# every epilogue: the warps', the TMA-stored one's and the consumers'
+GEMM["no epilogue"] += NO_EPILOGUE + NO_TMA_EPILOGUE + NO_DIRECT_EPILOGUE
+BF16_DENSE["copies only, no epilogue"] = NO_PRODUCTS + GEMM["no epilogue"]
+BF16_DENSE["products only, no epilogue"] = GEMM["products only"] + GEMM["no epilogue"]
+# K2's products with a residual (`temporal.cu`'s gemm_bf16) through the
+# epilogue warps (BiasActResidual) in place of the TMA-stored tiles
+# (DenseTmaStore)
+_WARPS_EPI = [("temporal.cu",
+               "  if (residual)\n"
+               "    return uu::launch_gemm_bf16_tma(a, plane, m, n, k, "
+               "uu::DenseTmaStore{bias, n, relu, 1},\n"
+               "                                    residual, out, (cudaStream_t)stream);\n",
+               "  if (residual)\n"
+               "    return uu::launch_gemm_bf16(a, plane, m, n, k,\n"
+               "                                uu::BiasActResidual{bias, residual, out, n, "
+               "relu},\n"
+               "                                (cudaStream_t)stream);\n")]
+BF16_GEMM = {**BF16_DENSE, "warps' epilogue": _WARPS_EPI,
+             "copies only, warps' epilogue": NO_PRODUCTS + _WARPS_EPI}
 DH1 = {"kernel": [],
        "no A copies": [_A_BYTES, ("conv_taps.cuh", _DH1_BOX, "    if (kt < 0)\n" + _DH1_BOX)],
        "no products": NO_PRODUCTS,
-       "no epilogue": [("gemm_tc.cuh", _BOXES, "          const int boxes = k > 0 ? 0 : min(TC_BN / 32, (n - n0 + 31) / 32);\n")],
+       "no epilogue": NO_TMA_EPILOGUE,
        "no register split": REGS}
 NOT_BF16 = ("no splits",)  # variants the bf16 instances skip: they split nothing
 _SINK = "if ({} == 1.2345e-30f) "  # a store the compiler cannot drop, never taken
@@ -284,9 +343,12 @@ SHORT = {
 }
 # the probes --only selects; "dense" is the attention, GEMM, dW and conv
 # groups, "dw" the dW groups alone
-PROBES = ("dense", "dw", "conv", "attn_bwd", "k4", "k1", "short")
+PROBES = ("dense", "dense_bf16", "dw", "conv", "attn_bwd", "k4", "k1", "short", "e2e")
 DW_GROUPS = ("dw", "dw_bf16", "dwc")
 CONV_GROUPS = ("conv", "dh1", "gemm")  # "dense A" reads the GEMM
+# "dense_bf16"'s builds: gemm_bf16 from "gemm"; the library each group builds
+BF16_LIBS = {"gemm": "temporal", "bf16 bwd": "temporal_bwd", "bf16 s2t": "s2t"}
+BF16_GROUPS = tuple(BF16_LIBS)
 # gemm_atb_kernel (the dW product) without its parts: the loader's TMA
 # loads and gathers, the products, the consumers' operand buffers, the splits
 _DW_TMA = "      if (threadIdx.x == 0) {\n        mbar_expect_tx("
@@ -387,18 +449,24 @@ def main(argv=None) -> int:
         raise SystemExit(f"--only takes {','.join(PROBES)}")
     builds = {}
     for group, source, variants in (("attention", "attention", ATTENTION),
-                                    ("gemm", "temporal", GEMM), ("dw", "temporal_bwd", DW),
+                                    ("gemm", "temporal", {**GEMM, **BF16_GEMM}),
+                                    ("dw", "temporal_bwd", DW),
                                     ("dw_bf16", "temporal_bwd", DW_BF16),
                                     ("dwc", "strided_bwd", DWC),
+                                    ("bf16 bwd", "temporal_bwd", BF16_DENSE),
+                                    ("bf16 s2t", "s2t", BF16_DENSE),
                                     ("conv", "strided", CONV), ("dh1", "strided_bwd", DH1),
                                     ("attn_bwd", "temporal_bwd", ATTN_BWD),
                                     ("k4", "spatial_bwd", K4), ("k1", "spatial", K1),
                                     ("short", "attention", SHORT)):
         probes = ({group} if group in PROBES and group != "conv" else
                   {"dense", "dw"} if group in DW_GROUPS else
-                  {"dense", "conv"} if group in CONV_GROUPS else {"dense"})
+                  {"dense", "conv", "dense_bf16"} if group == "gemm" else
+                  {"dense", "conv"} if group in CONV_GROUPS else
+                  {"dense", "dense_bf16"} if group in BF16_GROUPS else {"dense"})
         for name, reps in variants.items() if probes & only else ():
-            if group == "gemm" and only & probes == {"conv"} and name != "kernel":
+            if group == "gemm" and "dense" not in only and not (
+                    name == "kernel" or ("dense_bf16" in only and name in BF16_GEMM)):
                 continue  # "conv" reads only the GEMM as it is ("dense A")
             builds[group, name] = start_build(cuda_lib, f"{group} {name}", source, reps)
     if "short" in only and args.parent:
@@ -417,7 +485,8 @@ def main(argv=None) -> int:
         # registers and spills of each K1 accumulation, each short variant and
         # each dW kernel as it is
         if ((key[0] == "k1" and key[1] in K1_AB) or key[0] == "short"
-                or (key[0] in DW_GROUPS + ("conv", "dh1") and key[1] == "kernel")
+                or (key[0] in DW_GROUPS + ("conv", "dh1") + BF16_GROUPS
+                    and key[1] == "kernel")
                 or (key[0] == "k4" and key[1] in ("kernel", "parent"))):
             for kernel, line in ptxas_report(report):
                 print(f"ptxas {key[0]} {key[1]}, {kernel}: {line}", flush=True)
@@ -431,12 +500,16 @@ def main(argv=None) -> int:
     if "dense" in only:
         probe_dense(torch, F, builds, rand, rng, dev, stream)
     else:
+        if "dense_bf16" in only:
+            probe_dense_bf16(torch, builds, rand, rng, dev, stream)
         if "dw" in only:
             probe_dw(torch, builds, rand, rng, dev, stream)
         if "conv" in only:
             probe_conv(torch, F, builds, rand, dev, stream)
-    if args.parent and only & {"dense", "dw", "conv"}:
-        probe_gemm_parent(args.parent, args.seed, conv_only=not only & {"dense", "dw"})
+    if args.parent and only & {"dense", "dense_bf16", "dw", "conv"}:
+        probe_gemm_parent(args.parent, args.seed,
+                          None if only & {"dense", "dw"} else
+                          "conv" if "conv" in only else "dense_bf16")
     if "attn_bwd" in only:
         probe_attention_bwd(torch, F, builds, rand, rng, dev, stream)
     if "k4" in only:
@@ -445,6 +518,8 @@ def main(argv=None) -> int:
         probe_spatial(torch, builds, rand, args.seed, dev, stream)
     if "short" in only:
         probe_short(torch, F, builds, rand, dev, stream)
+    if "e2e" in only:
+        probe_end_to_end(args.parent, args.seed)
     return 0
 
 
@@ -503,9 +578,216 @@ def probe_dense(torch, F, builds, rand, rng, dev, stream):
               f"(addmm {addmm:.4f})", flush=True)
     del a, out
 
+    probe_dense_bf16(torch, builds, rand, rng, dev, stream)
+
     probe_dw(torch, builds, rand, rng, dev, stream)
 
     probe_conv(torch, F, builds, rand, dev, stream)
+
+
+# The serving call's card time in the checkout at the working directory:
+# bench_forward on 1,024 h36m_351 windows (seeded weights, MASK_STRIDE 5),
+# "high" and "default", 3 rounds of 10 calls after 3, CUDA events; one line
+# "E2E_FORWARD {json}".
+FORWARD_TIMER = """
+import json, os, sys
+sys.path.insert(0, os.getcwd())
+import numpy as np
+import torch
+from uplift_upsample_torch.configs import get_config
+from uplift_upsample_torch.models import build_uplift_upsample_transformer
+from uplift_upsample_torch.models.bench_forward import bench_forward, prepare_fused_params
+torch.backends.cuda.matmul.allow_tf32 = False
+cfg = get_config("h36m_351")
+model = build_uplift_upsample_transformer(cfg, device="cuda", seed=SEED)
+rng = np.random.default_rng(SEED)
+b, n = 1024, cfg.SEQUENCE_LENGTH
+x = torch.from_numpy(rng.standard_normal((b, n, 17, 2)).astype(np.float32)).cuda()
+mask = torch.from_numpy((np.arange(n)[None] + rng.integers(0, 5, size=(b, 1))) % 5 == 0).cuda()
+x = x * mask[..., None, None]
+out = {}
+for rung in ("high", "default"):
+    fp = prepare_fused_params(model, rung)
+    call = lambda: bench_forward(model, x, mask, fp, precision=rung)
+    for _ in range(3):
+        call()
+    best = []
+    for _ in range(3):
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        for _ in range(10):
+            call()
+        e.record()
+        e.synchronize()
+        best.append(s.elapsed_time(e) / 10)
+    out[rung] = min(best)
+print("E2E_FORWARD " + json.dumps(out), flush=True)
+"""
+
+
+def probe_end_to_end(parent, seed):
+    """The serving call (FORWARD_TIMER) and the B=512 training step at
+    "default" (`tools/profile_train.py`: the full step, its forward and K5
+    alone, slopes of 4 and 16 chained calls) in the checkout whose
+    `uplift_upsample_torch/csrc` is `parent` and in this one, in turn
+    (parent, this, this, parent), each in a process of its own started in
+    that checkout (which builds its own kernels)."""
+    from pathlib import Path
+
+    if parent is None:
+        raise SystemExit("--only e2e needs --parent <checkout>/uplift_upsample_torch/csrc")
+    trees = {"parent": Path(parent).resolve().parents[1], "this": Path(ROOT)}
+    for label in ("parent", "this", "this", "parent"):
+        tree = trees[label]
+        fwd = subprocess.run([sys.executable, "-c", FORWARD_TIMER.replace("SEED", str(seed))],
+                             cwd=tree, capture_output=True, text=True, timeout=900)
+        lines = [ln for ln in fwd.stdout.splitlines() if ln.startswith("E2E_FORWARD")]
+        print(f"probe e2e {label} forward: {lines[-1][12:] if lines else fwd.stderr[-2000:]}",
+              flush=True)
+        train = subprocess.run([sys.executable, "-m", "uplift_upsample_torch.tools.profile_train",
+                                "--variants", "full,fwd,temporal", "--precision", "default"],
+                               cwd=tree, capture_output=True, text=True, timeout=900)
+        for ln in train.stdout.splitlines() or [train.stderr[-2000:]]:
+            print(f"probe e2e {label} train: {ln}", flush=True)
+
+
+def probe_dense_bf16(torch, builds, rand, rng, dev, stream):
+    """gemm_tc_kernel's bf16 rung at its dense callers, with every variant of
+    BF16_DENSE: gemm_bf16 at K2's four serving products (72,704 rows: qkv,
+    proj + residual, fc1 + relu, fc2 + the residual aliasing the output),
+    gemm_branch_bf16 and gemm_dx_bf16 (row scale, relu mask) at fc2 on the
+    train step's 36,352 rows, s2t_prologue_bf16 (72,704 x 544 -> 384, the
+    stride mask). Beside each: torch.matmul on operands rounded to bf16
+    beforehand (bf16 out), and the same function from the same fp32 inputs as
+    the fastest PyTorch sequence tried (A cast to bf16, W's bf16 plane, fp32
+    out with `out_dtype`, then bias, relu, residual, row scale, mask, token
+    and PE; every cast timed)."""
+    from chip_smoke import time_ms
+    from uplift_upsample_torch.ops import cuda_lib
+    from uplift_upsample_torch.ops.temporal import bf16_plane
+    from uplift_upsample_torch.precision import mm
+
+    bf, f32 = torch.bfloat16, torch.float32
+
+    def fastest(seqs):
+        """(label, ms) of the fastest sequence that runs on this torch."""
+        best = None
+        for label, fn in seqs:
+            try:
+                fn()
+            except (RuntimeError, TypeError):
+                continue
+            ms = time_ms(torch, fn, 20)
+            if best is None or ms < best[1]:
+                best = (label, ms)
+        return best or ("none ran", float("nan"))
+
+    def addmm_f32(bias, a, w):  # bf16 operands, fp32 sums and output
+        return torch.addmm(bias, a, w, out_dtype=f32)
+
+    def mm_f32(a, w):
+        return torch.mm(a, w, out_dtype=f32)
+
+    def run(case, entry, group, args, got, ref, pre, seqs):
+        """Each variant of `entry` from `group`'s builds (BF16_GEMM for
+        gemm_bf16, else BF16_DENSE) on `args` (the kernel's outputs `got()`
+        against `ref`), beside the library."""
+        same = fastest(seqs)
+        lib_pre = time_ms(torch, pre, 20)
+        sig = cuda_lib._SIGNATURES[BF16_LIBS[group]][entry]
+        for name in BF16_GEMM if group == "gemm" else BF16_DENSE:
+            fn = getattr(ctypes.CDLL(str(builds[group, name][1])), entry)
+            fn.argtypes = [cuda_lib._CTYPES[ch] for ch in sig]
+            fn.restype = ctypes.c_int
+            cargs = [None if a is None else a.data_ptr() if torch.is_tensor(a) else a
+                     for a in args]
+            call = lambda: fn(*cargs, stream())
+            if call() != 0:
+                raise RuntimeError(f"{case} {name}: launch failed")
+            torch.cuda.synchronize()
+            err = (f" max_abs_err {float((got() - ref).abs().max()):.3e};"
+                   if name == "kernel" else "")
+            print(f"probe bf16 {case} {name}: {entry}:{err} ms {time_ms(torch, call, 20):.4f} "
+                  f"(torch.matmul on pre-rounded bf16 {lib_pre:.4f}; same inputs "
+                  f"{same[1]:.4f}, {same[0]})", flush=True)
+
+    c, hid = 384, 768
+    m = 1024 * 71
+    for label, k, n, relu, residual in (("qkv", c, 3 * c, 0, None), ("proj", c, c, 0, "res"),
+                                        ("fc1", c, hid, 1, None), ("fc2", hid, c, 0, "alias")):
+        a, w, bias = rand(m, k), rand(k, n, scale=0.05), rand(n, scale=0.1)
+        plane, w_bf, a_bf = bf16_plane(w), w.to(bf), a.to(bf)
+        res = rand(m, n) if residual else None
+        out = torch.empty((m, n), device=dev)
+        act = torch.relu if relu else (lambda t: t)
+        ref = act(mm(a, w, "default") + bias) + (0 if res is None else res)
+        if residual == "alias":  # out = h + (a·w + b), written over h
+            h0 = res.clone()
+            out = res
+        seqs = [("addmm out_dtype", lambda: act(addmm_f32(bias, a.to(bf), w_bf))),
+                ("mm out_dtype + bias", lambda: act(mm_f32(a.to(bf), w_bf) + bias))]
+        if residual:
+            seqs = [("addmm out_dtype + residual",
+                     lambda: addmm_f32(bias, a.to(bf), w_bf).add_(h0 if residual == "alias"
+                                                                  else res)),
+                    ("addmm(residual) out_dtype + bias",
+                     lambda: addmm_f32(h0 if residual == "alias" else res, a.to(bf),
+                                       w_bf).add_(bias))]
+        if residual == "alias":
+            res.copy_(h0)
+            ref = mm(a, w, "default") + bias + h0
+        run(label, "gemm_bf16", "gemm", [a, plane, bias, res, out, m, n, k, relu],
+            lambda: out, ref, lambda: torch.matmul(a_bf, w_bf), seqs)
+        if residual == "alias":
+            res.copy_(h0)
+        del a, w, plane, w_bf, a_bf, res, out, ref
+
+    m, per = 512 * 71, 71
+    scale = torch.from_numpy(np.where(rng.uniform(size=512) < 0.9, 1 / 0.9, 0.0)
+                             .astype(np.float32)).to(dev)
+    srow = lambda: scale.repeat_interleave(per)[:, None]
+    a, w, bias, res = rand(m, hid), rand(hid, c, scale=0.05), rand(c, scale=0.1), rand(m, c)
+    plane, w_bf, a_bf = bf16_plane(w), w.to(bf), a.to(bf)
+    branch, out = torch.empty((m, c), device=dev), torch.empty((m, c), device=dev)
+    z = mm(a, w, "default") + bias
+    ref = torch.cat([res + z * srow(), z], 1)
+
+    def branch_seq():
+        z_ = addmm_f32(bias, a.to(bf), w_bf)
+        return torch.addcmul(res, z_, srow()), z_
+    run("branch fc2", "gemm_branch_bf16", "bf16 bwd",
+        [a, plane, bias, scale, per, res, branch, out, m, c, hid, 0],
+        lambda: torch.cat([out, branch], 1), ref, lambda: torch.matmul(a_bf, w_bf),
+        [("addmm out_dtype + addcmul", branch_seq)])
+    del a, plane, a_bf, branch, out, z, ref
+
+    g, mask = rand(m, c, scale=1.0), torch.relu(rand(m, hid))
+    w2 = w  # (hid, c) as stored: dX = (s·g)·w2ᵀ
+    plane, w2_bf, g_bf = bf16_plane(w2, transpose=False), w2.to(bf), (g * srow()).to(bf)
+    out = torch.empty((m, hid), device=dev)
+    ref = torch.where(mask > 0, mm(g * srow(), w2.t(), "default"), 0.0)
+    run("dx fc2", "gemm_dx_bf16", "bf16 bwd", [g, scale, per, plane, mask, out, m, hid, c],
+        lambda: out, ref, lambda: torch.matmul(g_bf, w2_bf.t()),
+        [("mm out_dtype + where", lambda: torch.where(
+            mask > 0, mm_f32((g * srow()).to(bf), w2_bf.t()), 0.0))])
+    del g, mask, w, w2, plane, w2_bf, g_bf, out, ref, res
+
+    m, k, n_t = 1024 * 71, 17 * 32, 71
+    sp, w, bias = rand(m, k, scale=1.0), rand(k, c, scale=0.05), rand(c, scale=0.1)
+    smask = torch.from_numpy((rng.uniform(size=m) < 0.3).astype(np.float32)).to(dev)
+    token, pe = rand(c), rand(n_t, c)
+    plane, w_bf, sp_bf = bf16_plane(w), w.to(bf), sp.to(bf)
+    out = torch.empty((m, c), device=dev)
+    y = mm(sp, w, "default") + bias
+    ref = (smask[:, None] * y + (1 - smask[:, None]) * token).reshape(-1, n_t, c) + pe
+    run("s2t", "s2t_prologue_bf16", "bf16 s2t",
+        [sp, plane, bias, smask, token, pe, out, m, c, k, n_t], lambda: out, ref.reshape(m, c),
+        lambda: torch.matmul(sp_bf, w_bf),
+        [("addmm out_dtype + where + pe", lambda: (torch.where(
+            smask[:, None] > 0, addmm_f32(bias, sp.to(bf), w_bf), token).reshape(-1, n_t, c)
+            + pe))])
+    del sp, w, plane, w_bf, sp_bf, out, ref, y
+    torch.cuda.empty_cache()
 
 
 def probe_conv(torch, F, builds, rand, dev, stream):
@@ -526,7 +808,7 @@ def probe_conv(torch, F, builds, rand, dev, stream):
     n_out = (n - 3) // s0 + 1
     h1, x = torch.relu(rand(b, n, hid)), rand(b, n, c)
     wc, bc = rand(3 * hid, c, scale=0.03), rand(c, scale=0.1)
-    operands = {"f32": tf32_halves(wc), "bf16": conv_plane(torch, wc, transpose=True)}
+    operands = {"f32": tf32_halves(wc), "bf16": bf16_plane(wc)}
     res = x[:, 1: 1 + s0 * (n_out - 1) + 1: s0]
     h1t, wt = h1.transpose(1, 2).contiguous(), wc.reshape(3, hid, c).permute(2, 1, 0).contiguous()
     wt_bf, h1t_bf, bc_bf = wt.to(bf), h1t.to(bf), bc.to(bf)
@@ -545,7 +827,7 @@ def probe_conv(torch, F, builds, rand, dev, stream):
     res2 = res.reshape(-1, c)
     dense = bind(builds["gemm", "kernel"][1], "gemm_f32", 5, 4)
     dense_bf = bind(builds["gemm", "kernel"][1], "gemm_bf16", 5, 4)
-    plane_dense = bf16_plane(wc)  # gemm_bf16's fp32 plane (c, 3 x hidden)
+    plane_dense = bf16_plane(wc)  # gemm_bf16's plane (c, 3 x hidden)
     for mode, entry, rung in (("f32", "strided_conv_f32", "high"),
                               ("bf16", "strided_conv_bf16", "default")):
         w = operands[mode]
@@ -578,7 +860,7 @@ def probe_conv(torch, F, builds, rand, dev, stream):
     b = 512
     h1, g = torch.relu(rand(b, n, hid)), rand(b, n_out, c, scale=1.0)
     operands = {"f32": tf32_halves(wc, transpose=False),
-                "bf16": conv_plane(torch, wc, transpose=False)}
+                "bf16": bf16_plane(wc, transpose=False)}
     dh1 = torch.empty_like(h1)
     g_t = g.transpose(1, 2).contiguous()
     h1t = h1.transpose(1, 2).contiguous()
@@ -617,14 +899,6 @@ def probe_conv(torch, F, builds, rand, dev, stream):
                   f"{library[mode]:.4f}, same inputs {same[mode]:.4f})", flush=True)
     del h1, g, dh1, g_t, h1t, h1t_bf, g_t_bf
     torch.cuda.empty_cache()
-
-
-def conv_plane(torch, wc, transpose):
-    """What the conv's bf16 instances read of Wc (3·hidden, C): its bf16
-    plane as a torch.bfloat16 tensor, (C, 3·hidden) with `transpose`, else
-    as stored."""
-    from uplift_upsample_torch.ops.temporal import bf16_plane
-    return bf16_plane(wc, transpose=transpose).to(torch.bfloat16)
 
 
 def probe_dw(torch, builds, rand, rng, dev, stream):
@@ -701,25 +975,32 @@ def probe_dw(torch, builds, rand, rng, dev, stream):
     torch.cuda.empty_cache()
 
 
-def probe_gemm_parent(parent, seed, conv_only=False):
+# the seven cases of gemm_digests the bf16 rung's dense callers run
+BF16_DENSE_CASES = ("gemm qkv_bf16", "gemm proj_bf16", "gemm fc1_bf16", "gemm fc2_bf16",
+                    "branch fc2_bf16", "dx fc2_bf16", "s2t_bf16")
+
+
+def probe_gemm_parent(parent, seed, only):
     """Every caller of gemm_tc_kernel and gemm_atb_kernel
     (tools/gemm_digests.py: K2's four products, the scaled branch, dX, the
     conv at two geometries, dH1 at two strides, s2t, dW, dWc; 3xTF32 and
-    bf16), or with `conv_only` the strided conv's (conv, dH1, dWc), from
-    this checkout's build and from `parent`'s, timed in turn (parent,
-    kernel, kernel, parent; 3 rounds of 10 launches), with both builds'
-    digests."""
+    bf16), or with `only` "conv" the strided conv's (conv, dH1, dWc), with
+    "dense_bf16" the bf16 rung's seven dense cases, from this checkout's
+    build and from `parent`'s, timed in turn (parent, kernel, kernel,
+    parent; 3 rounds of 10 launches), with both builds' digests."""
     from pathlib import Path
 
     from uplift_upsample_torch.ops import cuda_lib
     from uplift_upsample_torch.tools import gemm_digests
 
+    select = {"conv": lambda case: case.lib in ("strided", "strided_bwd"),
+              "dense_bf16": lambda case: case.name in BF16_DENSE_CASES}.get(only)
     libs = gemm_digests.build_libs(Path(parent).resolve(), cuda_lib.BUILD_DIR / "probe" /
                                    "gemm_parent")
     failed = gemm_digests.check(gemm_digests.port_libs(), libs, seed, rounds=3,
                                 log=lambda s: print(f"probe {s}", flush=True),
-                                parent_fp32_planes=gemm_digests.reads_fp32_planes(parent),
-                                libs_of=("strided", "strided_bwd") if conv_only else None)
+                                parent_fp32_libs=gemm_digests.fp32_plane_libs(parent),
+                                select=select)
     if failed:
         raise RuntimeError(f"gemm callers differ from the parent's bits: {failed}")
 

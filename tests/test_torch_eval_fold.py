@@ -191,12 +191,11 @@ def test_eval_operands_are_the_jax_kernels_folded_operands(case):
         assert np.array_equal(t["wqkv"][blk].numpy().T, jt[2])
         assert np.array_equal(t["bqkv"][blk].numpy(), jt[3][:, 0])
         assert np.array_equal(t["wp"][blk].numpy().T, jt[4])
-        assert torch.equal(t["wqkv_bf"][blk],
-                           torch.from_numpy(jt[2].copy()).to(torch.bfloat16).float())
+        assert torch.equal(t["wqkv_bf"][blk], torch.from_numpy(jt[2].copy()).to(torch.bfloat16))
     assert np.array_equal(s["wqkv"].numpy().T, case["strided"]["wqkv"])
     assert np.array_equal(s["bqkv"].numpy(), case["strided"]["bqkv"][:, 0])
     assert torch.equal(s["wqkv_bf"], torch.from_numpy(case["strided"]["wqkv"].copy())
-                       .to(torch.bfloat16).float())
+                       .to(torch.bfloat16))
     c = model.temporal_d_model
     unfolded = stack_temporal_params(_state(model), 2)
     assert torch.equal(t["wqkv"][..., c:], unfolded["wqkv"][..., c:])

@@ -204,6 +204,43 @@ def test_3xtf32_emulation_meets_float64_criterion(k, n, dw):
     assert not _f64_ok(one_pass, plain, ref64)[0]
 
 
+# the depths of gemm_tc_kernel's dense bf16 callers: qkv, proj and fc1's 384,
+# s2t's 544, fc2's 768, dX of qkv's 1,152; split over mp = 2, proj's 192
+# and fc2's 384, qkv's N 576 (dX of the split qkv: K 576)
+NATIVE_DEPTHS = (384, 544, 768, 1152, 192, 576)
+
+
+@pytest.mark.parametrize("scaled", [False, True])
+@pytest.mark.parametrize("k", NATIVE_DEPTHS)
+def test_native_bf16_emulation_meets_rung_bars(k, scaled):
+    """gemm_tc_kernel's native bf16 sums (on bf16-rounded operands: per
+    32-deep stage a fresh partial of two k16 products, each rounded toward
+    zero as the tensor cores add, joined to fp32 accumulators with a rounded
+    add) meet the eval rung bar (mean and largest distance to the rung with
+    float64 sums within 2x the fp32 plain version's) and so the training
+    bar (largest 4x) at every dense caller's depth, split or not. With
+    `scaled` A's rows carry dX's droppath factors (0 or 1/0.9), applied
+    before the rounding as the kernel and the TPU do: a factor that is no
+    power of two rounds another value than scaling after the product."""
+    rng = np.random.default_rng(k + scaled)
+    m, cols = 64, 32
+    a = rng.normal(size=(m, k)).astype(np.float32)
+    b = (rng.normal(size=(k, cols)) * 0.05).astype(np.float32)
+    if scaled:
+        s = np.where(rng.uniform(size=m) < 0.9, 1 / 0.9, 0.0).astype(np.float32)
+        assert not np.array_equal(_bf16(a * s[:, None]), _bf16(a) * s[:, None])
+        a = a * s[:, None]
+    a, b = _bf16(a), _bf16(b)
+    rung64 = a.astype(np.float64) @ b.astype(np.float64)
+    plain = (torch.from_numpy(a) @ torch.from_numpy(b)).numpy().astype(np.float64)
+    got = _emulate_bf16(a, b, k, 2).astype(np.float64)
+    err, err_plain = np.abs(got - rung64), np.abs(plain - rung64)
+    slack = 1e-6 * float(np.abs(rung64).max())
+    assert err.mean() <= 2 * err_plain.mean() + slack, (err.mean(), err_plain.mean())
+    assert err.max() <= 2 * err_plain.max() + slack, (err.max(), err_plain.max())
+    assert _rung_bar(got, plain, rung64)[0]
+
+
 def _atb_walk(m, n, rows, splits, run_end=None):
     """gemm_atb_kernel's walk as `launch_gemm_atb` and the kernel cut it: a
     block per (n tile, m tile, chunk) of 128 x 128 outputs and k_split rows
@@ -373,7 +410,12 @@ def test_gemm_digest_cases_fit_the_c_entries(monkeypatch):
         else:
             w = case.args[3] if case.fn.startswith("gemm_dx") else \
                 case.args[2] if case.fn.startswith("strided_conv") else case.args[1]
-            assert w.dim() == (2 if case.fn.endswith("_bf16") else 3), case.name
+            bf16 = case.fn.endswith("_bf16")
+            assert w.dim() == (2 if bf16 else 3), case.name
+            assert w.dtype == (torch.bfloat16 if bf16 else torch.float32), case.name
+            if bf16:  # a build from before native bf16 is handed the same plane in fp32
+                w32 = case.fp32_args[next(i for i, a in enumerate(case.args) if a is w)]
+                assert w32.dtype == torch.float32 and torch.equal(w32.to(torch.bfloat16), w)
         assert all(t.dtype == torch.float32 for t in case.outputs)
 
 
@@ -651,7 +693,7 @@ def test_bf16_row_scale(m):
     assert torch.equal(got, again)
     a_r = _bf16_round(dy * scale.repeat_interleave(per)[:m, None])
     keep = (mask > 0).float()
-    ref = a_r @ plane.t() * keep
+    ref = a_r @ plane.float().t() * keep
     assert _grad_close(got, ref)
     ok, err, err_plain = _f64_card(got, ref, a_r.double() @ plane.double().t() * keep.double())
     assert ok, (err, err_plain)

@@ -16,8 +16,8 @@ sys.path.insert(0, str(ROOT))
 import kernel_probe  # noqa: E402
 
 CSRC = ROOT / "uplift_upsample_torch" / "csrc"
-TABLES = ("ATTENTION", "GEMM", "DW", "DW_BF16", "DWC", "CONV", "DH1", "ATTN_BWD", "K4", "K1",
-          "SHORT")
+TABLES = ("ATTENTION", "GEMM", "BF16_DENSE", "BF16_GEMM", "DW", "DW_BF16", "DWC", "CONV", "DH1",
+          "ATTN_BWD", "K4", "K1", "SHORT")
 
 
 @pytest.mark.parametrize("table", TABLES)

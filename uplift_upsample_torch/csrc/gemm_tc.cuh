@@ -19,20 +19,20 @@
 //    qkv product (72,704 x 384 -> 1,152) is 3 x 64.3 GFLOP, 0.390 ms at the
 //    495 TFLOP/s dense TF32 peak, against 0.133 ms for its 447 MB.
 //
-//    The bf16 rung has two modes. TC_BF16_TF32 (`launch_gemm_tc<true>`, K2,
-//    K5, s2t): B is W's bf16-rounded plane (n, k) in fp32 in place of the
-//    halves, A is rounded to bf16 (tf32.cuh bf16_round) as it leaves shared
-//    memory, and each 8-deep step is one wgmma on the plane instead of
-//    three; the loader loads no small half. A simple instance: one TF32
-//    pass on operands that bf16 holds exactly, so the stages keep fp32
-//    tiles at TF32's rate. With A read as TmaAScaled (the backward's dX in
-//    training) each row of A is multiplied by its factor before the
-//    rounding, as the TPU rounds the droppath-scaled gradient
-//    (`launch_gemm_tc_scaled`). TC_BF16 (native, the strided conv's): W's
-//    plane in bf16 (torch.bfloat16) by TMA into 64-byte rows with the
-//    64-byte swizzle, A's fp32 tile rounded by the consumers to bf16 pairs
-//    (cvt.rn.bf16x2) as wgmma's register operand, two wgmma.m64n64k16 per
-//    32-deep stage and half; a stage is 24 KB, so the ring holds 6.
+//    The bf16 rung (TC_BF16, `launch_gemm_bf16`: K2's and K3's dense layers,
+//    K5's forward and dX, s2t; the strided conv and its dH1 through their A
+//    sources) runs native bf16: W's plane in bf16 (torch.bfloat16) by TMA
+//    into 64-byte rows with the 64-byte swizzle, A's fp32 tile rounded by the
+//    consumers to bf16 pairs (cvt.rn.bf16x2) as wgmma's register operand,
+//    two wgmma.m64n64k16 per 32-deep stage and half; a stage is 24 KB, so
+//    the ring holds 6 (a ring of 4 beside two staging tiles ran the dense
+//    products 1.04-1.27x slower). With A read as TmaAScaled (the backward's
+//    dX in training) each row of A is multiplied by its factor before the
+//    rounding, as the TPU rounds the droppath-scaled gradient. Its own
+//    mainloop (`mainloop_native`) staggers the two halves' wgmma groups by
+//    half a stage, so one half's products run while the other's partial is
+//    added. Bound: bytes at serving (qkv's 447 MB, 0.134 ms; its products
+//    0.065 ms at the 989 TFLOP/s dense bf16 peak).
 //
 //    Design: persistent, one block per SM walking output tiles of up to 128
 //    rows x 128 columns in order, n fastest (the blocks running together
@@ -69,10 +69,13 @@
 //       run the next tile's products. Run from the consumers' registers
 //       after the last stage, as the kernel did before this pipeline, it
 //       took ~0.34 of qkv's 0.87 ms (kernel_probe.py, NVIDIA H100 80GB HBM3,
-//       700 W). With kTmaStore one of its threads brings the tile's mask by
-//       TMA into the staging tile (TMA's layout) once the last tile's store
-//       has read it, the consumers write their sums where the mask passes,
-//       and the thread stores the tile by TMA.
+//       700 W). With kTmaStore one of its threads brings the tile's mask or
+//       residual by TMA into the staging tile (TMA's layout) once the last
+//       tile's store has read it, the consumers write their outputs there,
+//       and the thread stores the tile by TMA (dH1; the bf16 rung's products
+//       with a residual or a relu mask). With kDirect the consumers write
+//       their outputs themselves from their registers (the bf16 rung's
+//       branch and s2t prologue).
 //    Only rows < m (the source's rows of a tile) and columns < n are
 //    written; TMA fills rows and columns past the ends of A with zeros. Each
 //    output element is read (a residual may alias out) and written by one
@@ -154,23 +157,20 @@ constexpr int TC_LOADER_REGS = 56, TC_CONSUMER_REGS = 224;
 constexpr int TC_EPILOGUE = 96;  // warps 1-3 of warpgroup 0
 constexpr uint64_t kHalf = 64 * TC_BK * 4 >> 4;  // rows 64.. of a K-major fp32 tile of 32
 
-// The products' modes: 3xTF32; the bf16 rung as one TF32 pass on fp32 tiles
-// (A rounded as it leaves shared memory, W's bf16 plane kept in fp32); and
-// native bf16 (the strided conv's: W's plane in bf16, A rounded into
-// registers, wgmma k16 on bf16 operands).
-constexpr int TC_3XTF32 = 0, TC_BF16_TF32 = 1, TC_BF16 = 2;
+// The products' modes: 3xTF32, and the bf16 rung's native bf16 (W's plane in
+// bf16, A rounded into registers, wgmma k16 on bf16 operands).
+constexpr int TC_3XTF32 = 0, TC_BF16 = 1;
 
 // A ring stage by mode: A's 128 x 32 fp32 tile (128-byte rows, 128-byte
-// swizzle), then W's: two fp32 tiles of 128 rows x 32 (the TF32 pass reads
-// the first), or in native bf16 one tile of 128 rows of 32 bf16 (64-byte
-// rows, 64-byte swizzle), which leaves room for twice the stages.
+// swizzle), then W's: its two TF32 halves, fp32 tiles of 128 rows x 32, or in
+// native bf16 one tile of 128 rows of 32 bf16 (64-byte rows, 64-byte
+// swizzle), which leaves room for twice the stages.
 template <int kMode>
 struct TcStage {
   static constexpr bool kNative = kMode == TC_BF16;
   static constexpr int kBytes = kNative ? TC_TILE_BYTES + TC_BN * TC_BK * 2 : TC_STAGE_BYTES;
   static constexpr int kStages = kNative ? 6 : 3;
-  static constexpr int kWLoad =  // W's bytes a stage brings
-      kMode == TC_3XTF32 ? 2 * TC_TILE_BYTES : kNative ? TC_BN * TC_BK * 2 : TC_TILE_BYTES;
+  static constexpr int kWLoad = kNative ? TC_BN * TC_BK * 2 : 2 * TC_TILE_BYTES;  // W a stage
   static constexpr uint64_t kWHalf =  // W's rows 64.. of a stage tile, in descriptor units
       kNative ? 64 * TC_BK * 2 >> 4 : kHalf;
   static constexpr int kSmem = kStages * kBytes + TC_OUT_BYTES + (2 * kStages + 2) * 8 + 1024;
@@ -319,6 +319,25 @@ __device__ __forceinline__ void wgmma_m64n64k16_bf16_rs(float (&d)[32], const ui
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
+// d (64 x 64) = a (64 x 16 bf16, registers) · b (16 x 64 bf16), d's old
+// values unread: a partial's first product, so nothing zeroes d first
+__device__ __forceinline__ void wgmma_m64n64k16_bf16_rs_first(float (&d)[32],
+                                                              const uint32_t (&a)[4],
+                                                              uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]), "=f"(d[6]),
+        "=f"(d[7]), "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]),
+        "=f"(d[14]), "=f"(d[15]), "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]), "=f"(d[20]),
+        "=f"(d[21]), "=f"(d[22]), "=f"(d[23]), "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]),
+        "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(0));
+}
+
 // Two fp32 values rounded to bf16 (to nearest, ties to even, as bf16_round)
 // and packed, lo in the low half.
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -344,12 +363,32 @@ __device__ __forceinline__ void fence_regs(float (&x)[N]) {
 //                                    they read, then what they write, each
 //                                    element exactly as operator() computes it.
 // The epilogue threads load a few rows' Ld before storing any, so their reads
-// are in flight together. An epilogue with `kTmaStore` (strided_bwd.cu's
-// dH1) instead comes with two arrays of tensor maps (its Maps: `in`, `out`)
-// of the output's row sets that its A source's `out_at` names: the tile's
-// mask comes by TMA through in[·] into the staging tile, the consumers
-// write their sums where the mask passes, and the tile leaves by TMA
-// through out[·].
+// are in flight together. An epilogue with `kTmaStore` (DenseTmaStore
+// below, strided_bwd.cu's dH1) instead comes with two arrays of tensor maps
+// (its Maps: `in`, `out`) of the output's row sets that its A source's
+// `out_at` names, and provides
+//   tile_in()                        whether a tile of values (a residual, a
+//                                    relu mask) comes in first;
+//   value(c, v, in)                  what column c's sum v becomes, `in` the
+//                                    value that came in at its place;
+// the tile's incoming values come by TMA through in[·] into the staging
+// tile, the consumers write value(·) of their sums in their place, and the
+// tile leaves by TMA through out[·]. An epilogue with `kDirect` (K5's
+// branch, the s2t prologue) is written by the consumers from their
+// registers, with no staging and no epilogue warps; it comes with Maps
+// (`in`) and provides
+//   tile_in()                        whether a tile of values (a residual, a
+//                                    relu mask) comes in first, by TMA
+//                                    through in[·] into the staging tile;
+//   Row row(r)                       what row r's outputs need (a factor, a
+//                                    mask), read once a tile;
+//   put(r, c, v0, v1, in, row)       columns c, c + 1 of row r (r < m,
+//                                    c + 1 < n) from their sums and the
+//                                    values that came in at their place.
+// Written from the staging tile by the warps, a residual's loads (four rows
+// in flight a warp) bound proj's product: 0.1884 ms, 0.1327 with the
+// residual by TMA and the tile stored by TMA (kernel_probe.py, NVIDIA H100
+// 80GB HBM3, 700 W).
 //
 // out[r, c] = act(v + bias[c]) + residual[r, c]; bias and residual optional.
 // residual may alias out: each element is read and written by one thread.
@@ -383,6 +422,29 @@ struct BiasActResidual {
   }
 };
 
+// A dense (m, n) output stored by TMA (kTmaStore), n % 4 == 0: out[r, c] =
+// act(v + bias[c]) + in[r, c] (`in_kind` 1: the residual; 0: no `in`), as
+// BiasActResidual computes it, or the sum where in[r, c] > 0, else 0
+// (`in_kind` 2: the backward's dX, `in` its relu mask). `in` comes through
+// in[0], the tile leaves through out[0] (make_rows_map); the residual may
+// alias out.
+struct DenseTmaStore {
+  static constexpr bool kTmaStore = true;
+  struct Maps {
+    CUtensorMap in[1], out[1];
+  };
+  const float* bias;
+  int n, relu, in_kind;
+  bool quads() const { return false; }
+  __device__ __forceinline__ bool tile_in() const { return in_kind != 0; }
+  __device__ __forceinline__ float value(int c, float v, float in) const {
+    if (in_kind == 2) return in > 0.f ? v : 0.f;
+    if (bias) v += c < n ? bias[c] : 0.f;
+    if (relu) v = fmaxf(v, 0.f);
+    return in_kind == 1 ? v + in : v;
+  }
+};
+
 // The tensor maps of an epilogue with kTmaStore (its type Maps), passed to
 // the kernel as a __grid_constant__ parameter of their own: the TMA needs
 // their address. The epilogue itself stays an ordinary parameter (marked
@@ -398,6 +460,14 @@ template <class E>
 struct TmaStored<E, decltype(void(E::kTmaStore))> {
   static constexpr bool value = E::kTmaStore;
   typedef typename E::Maps Maps;
+};
+template <class E, class = void>
+struct Direct {
+  static constexpr bool value = false;
+};
+template <class E>
+struct Direct<E, decltype(void(E::kDirect))> {
+  static constexpr bool value = E::kDirect;
 };
 
 // A's source: for m-tile tm, m0(tm) the tile's first output row and
@@ -419,10 +489,12 @@ struct TmaA {
     tma_load_2d(dst, map, kt * TC_BK, tm * TC_BM, bar);
     return make_int2(kt * TC_BK, 0);
   }
+  // (map, row, 0) of m-tile tm's output rows in an epilogue's maps (kTmaStore)
+  __device__ __forceinline__ int3 out_at(int tm) const { return make_int3(0, tm * TC_BM, 0); }
 };
 
 // TmaA with each row r multiplied by scale[r / rows_per_scale] (1 without a
-// scale) as it leaves shared memory; the bf16 mode only.
+// scale) before its rounding to bf16; the bf16 mode only.
 struct TmaAScaled : TmaA {
   const float* scale;
   int rows_per_scale;
@@ -440,14 +512,13 @@ struct RowScaled<TmaAScaled> {
   static constexpr bool value = true;
 };
 
-// A consumer thread's A fragments of one 32-deep stage: TF32 halves; in the
-// TF32 pass A rounded to bf16 (no small half), step j's fragment (r, 8j+t),
-// (r+8, 8j+t), (r, 8j+t+4), (r+8, 8j+t+4); native bf16, two k16 steps of
-// four bf16 pairs, step s's (r, 16s+2t..), (r+8, 16s+2t..), (r, 16s+8+2t..),
-// (r+8, 16s+8+2t..).
+// A consumer thread's A fragments of one 32-deep stage: TF32 halves, step j's
+// fragment (r, 8j+t), (r+8, 8j+t), (r, 8j+t+4), (r+8, 8j+t+4); native bf16,
+// two k16 steps of four bf16 pairs, step s's (r, 16s+2t..), (r+8, 16s+2t..),
+// (r, 16s+8+2t..), (r+8, 16s+8+2t..).
 template <int kMode>
 struct AFrag {
-  uint32_t big[kMode == TC_BF16 ? 2 : 4][4], small[kMode == TC_3XTF32 ? 4 : 1][4];
+  uint32_t big[kMode == TC_BF16 ? 2 : 4][4], small[kMode == TC_BF16 ? 1 : 4][4];
 };
 
 // The thread's 16 values of A in stage tile `at`, in fragment order;
@@ -480,56 +551,67 @@ __device__ __forceinline__ void load_a(float (&x)[16], const float* at, int r, i
   }
 }
 
-// The fragments of x: its TF32 halves, or x rounded to bf16 (the TF32
-// pass: one value a register, rows r and r + 8 first times their factors
-// fr0, fr1 with kScaled; native: two a register, cvt.rn.bf16x2).
+// The fragments of x: its TF32 halves, or x rounded to bf16 two to a register
+// (cvt.rn.bf16x2; with kScaled rows r and r + 8 first times their factors
+// fr0, fr1, as the TPU rounds the droppath-scaled gradient).
 template <int kMode, bool kScaled>
 __device__ __forceinline__ void make_frag(AFrag<kMode>& f, const float (&x)[16], float fr0,
                                           float fr1) {
   if constexpr (kMode == TC_BF16) {
-    static_assert(!kScaled, "native bf16 takes no row factors");
 #pragma unroll
     for (int s = 0; s < 2; ++s)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) f.big[s][e] = pack_bf16(x[8 * s + 2 * e], x[8 * s + 2 * e + 1]);
+      for (int e = 0; e < 4; ++e) {  // pairs e = 0, 2 of row r, e = 1, 3 of row r + 8
+        const float fr = e % 2 ? fr1 : fr0;
+        f.big[s][e] = kScaled ? pack_bf16(x[8 * s + 2 * e] * fr, x[8 * s + 2 * e + 1] * fr)
+                              : pack_bf16(x[8 * s + 2 * e], x[8 * s + 2 * e + 1]);
+      }
   } else {
+    static_assert(!kScaled, "A's row factors are an input of the bf16 mode");
 #pragma unroll
     for (int j = 0; j < 4; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        if constexpr (kMode == TC_BF16_TF32)
-          f.big[j][e] = bf16_round(kScaled ? x[4 * j + e] * (e % 2 ? fr1 : fr0) : x[4 * j + e]);
-        else
-          tf32_split(x[4 * j + e], f.big[j][e], f.small[j][e]);
-      }
+      for (int e = 0; e < 4; ++e) tf32_split(x[4 * j + e], f.big[j][e], f.small[j][e]);
   }
 }
 
 // One 64-column half's products of a stage into the partial d: per 8-deep
-// step A_small·W_big, A_big·W_small, A_big·W_big (the TF32 pass: the one
-// product); native bf16, one k16 product per 16-deep step; issued as a
-// wgmma group and not waited for.
-template <int kMode>
-__device__ __forceinline__ void issue_half(float (&d)[32], const AFrag<kMode>& f,
+// step A_small·W_big, A_big·W_small, A_big·W_big; issued as a wgmma group
+// and not waited for.
+__device__ __forceinline__ void issue_half(float (&d)[32], const AFrag<TC_3XTF32>& f,
                                            uint64_t desc_big, uint64_t desc_small) {
 #pragma unroll
   for (int i = 0; i < 32; ++i) d[i] = 0.f;
   fence_regs(d);
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-  if constexpr (kMode == TC_BF16) {
 #pragma unroll
-    for (int s = 0; s < 2; ++s) wgmma_m64n64k16_bf16_rs(d, f.big[s], desc_big + 2 * s);
-  } else {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      if constexpr (kMode == TC_3XTF32) {
-        wgmma_m64n64k8_tf32(d, f.small[j], desc_big + 2 * j);
-        wgmma_m64n64k8_tf32(d, f.big[j], desc_small + 2 * j);
-      }
-      wgmma_m64n64k8_tf32(d, f.big[j], desc_big + 2 * j);
-    }
+  for (int j = 0; j < 4; ++j) {
+    wgmma_m64n64k8_tf32(d, f.small[j], desc_big + 2 * j);
+    wgmma_m64n64k8_tf32(d, f.big[j], desc_small + 2 * j);
+    wgmma_m64n64k8_tf32(d, f.big[j], desc_big + 2 * j);
   }
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// The same in native bf16: the partial d = the stage's first k16 product
+// (d unread) + its second, one wgmma group.
+__device__ __forceinline__ void issue_half(float (&d)[32], const AFrag<TC_BF16>& f,
+                                           uint64_t desc) {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+  wgmma_m64n64k16_bf16_rs_first(d, f.big[0], desc);
+  wgmma_m64n64k16_bf16_rs(d, f.big[1], desc + 2);
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// Keeps a fragment's registers live up to here, past the wait for the wgmma
+// that read them, so nothing else is written there while they are read (a
+// use that only reads them: a write would be a hazard against the wgmma that
+// ptxas resolves by serializing every wgmma of the kernel).
+__device__ __forceinline__ void hold(const AFrag<TC_BF16>& f) {
+#pragma unroll
+  for (int s = 0; s < 2; ++s)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" ::"r"(f.big[s][e]) : "memory");
 }
 
 // Waits until at most `kLeft` wgmma groups are in flight, then adds the
@@ -592,8 +674,8 @@ __device__ __forceinline__ void mainloop(float (&acc)[64], int ktiles, uint32_t 
     make_frag<kMode, kScaled>(f, x, fr0, fr1);
     const uint64_t db = w_desc<kMode>(base, it + kt, 0);
     const uint64_t ds = w_desc<kMode>(base, it + kt, 1);
-    issue_half<kMode>(p0, f, db, ds);
-    issue_half<kMode>(p1, f, db + kWHalf, ds + kWHalf);
+    issue_half(p0, f, db, ds);
+    issue_half(p1, f, db + kWHalf, ds + kWHalf);
     const uint32_t next = it + kt + 1;
     if (kt + 1 < ktiles) {
       mbar_wait(full + 8 * (next % S), (next / S) & 1);
@@ -605,11 +687,77 @@ __device__ __forceinline__ void mainloop(float (&acc)[64], int ktiles, uint32_t 
   }
 }
 
+// A consumer thread's place in the native mainloop: the ring, its rows.
+struct NativeRing {
+  uint32_t base, full, empty;
+  const float* tiles;
+  int r, g, t;
+  float fr0, fr1;  // the rows' factors (TmaAScaled)
+};
+
+// Waits for stage i and rounds its A into f.
+template <bool kScaled>
+__device__ __forceinline__ void native_read(const NativeRing& q, AFrag<TC_BF16>& f,
+                                            float (&x)[16], uint32_t i) {
+  constexpr int S = TcStage<TC_BF16>::kStages;
+  mbar_wait(q.full + 8 * (i % S), (i / S) & 1);
+  load_a<TC_BF16>(x, stage_at<TC_BF16>(q.tiles, i), q.r, q.g, q.t);
+  make_frag<TC_BF16, kScaled>(f, x, q.fr0, q.fr1);
+}
+
+// Stage i's halves are in flight from `cur`; issues stage i + 1's from `nxt`
+// as stage i's retire. No wgmma is issued or waited for under a branch.
+template <bool kScaled>
+__device__ __forceinline__ void native_step(const NativeRing& q, float (&acc)[64],
+                                            float (&p0)[32], float (&p1)[32], float (&x)[16],
+                                            const AFrag<TC_BF16>& cur, AFrag<TC_BF16>& nxt,
+                                            uint32_t i) {
+  constexpr int S = TcStage<TC_BF16>::kStages;
+  constexpr uint64_t kWHalf = TcStage<TC_BF16>::kWHalf;
+  native_read<kScaled>(q, nxt, x, i + 1);
+  retire_into<1, 0>(acc, p0);
+  issue_half(p0, nxt, w_desc<TC_BF16>(q.base, i + 1, 0));
+  retire_into<1, 32>(acc, p1);
+  hold(cur);
+  release<S>(q.empty, i);
+  issue_half(p1, nxt, w_desc<TC_BF16>(q.base, i + 1, 0) + kWHalf);
+}
+
+// The native bf16 mainloop: the same partials added in the same order, with
+// the halves' groups staggered by half a stage: half 0 of stage kt + 1 is
+// issued as soon as half 0 of stage kt retired, while half 1 of stage kt
+// still runs, so the tensor cores are not left idle while a partial is
+// added. Stage kt + 1's A is read and rounded into the second fragment
+// buffer under stage kt's products (8 registers a buffer, where 3xTF32's
+// 32 did not fit beside the partials).
+template <bool kScaled>
+__device__ __forceinline__ void mainloop_native(float (&acc)[64], int ktiles, uint32_t it,
+                                                const NativeRing& q) {
+  constexpr int S = TcStage<TC_BF16>::kStages;
+  constexpr uint64_t kWHalf = TcStage<TC_BF16>::kWHalf;
+  float p0[32], p1[32], x[16];
+  AFrag<TC_BF16> f0, f1;
+  native_read<kScaled>(q, f0, x, it);
+  issue_half(p0, f0, w_desc<TC_BF16>(q.base, it, 0));
+  issue_half(p1, f0, w_desc<TC_BF16>(q.base, it, 0) + kWHalf);
+  const uint32_t last = it + ktiles - 1;
+  for (uint32_t i = it; i < last;) {  // the buffers alternate: two stages a turn
+    native_step<kScaled>(q, acc, p0, p1, x, f0, f1, i++);
+    if (i == last) break;
+    native_step<kScaled>(q, acc, p0, p1, x, f1, f0, i++);
+  }
+  retire_into<1, 0>(acc, p0);
+  retire_into<0, 32>(acc, p1);
+  hold(f0);
+  hold(f1);
+  release<S>(q.empty, last);
+}
+
 // map_w holds W's big half in rows [0, w_small) and its small half in rows
-// [w_small, 2·w_small) (the TF32 pass and native bf16: the bf16 plane, no
-// small half); A comes through map_a as the source `a_src` says (TmaA: A
-// row-major; conv_taps.cuh: the strided conv's taps of h1 and its dH1's
-// rows of g). `quads`: epi.quads() on the host.
+// [w_small, 2·w_small) (native bf16: the bf16 plane, no small half); A comes
+// through map_a as the source `a_src` says (TmaA: A row-major; conv_taps.cuh:
+// the strided conv's taps of h1 and its dH1's rows of g). `quads`:
+// epi.quads() on the host.
 template <class Epilogue, class ASrc, int kMode>
 __global__ void __launch_bounds__(TC_THREADS, 1)
 gemm_tc_kernel(const __grid_constant__ CUtensorMap map_a,
@@ -618,7 +766,7 @@ gemm_tc_kernel(const __grid_constant__ CUtensorMap map_a,
                const __grid_constant__ typename TmaStored<Epilogue>::Maps maps, int quads) {
   typedef TcStage<kMode> L;
   constexpr int S = L::kStages;
-  constexpr bool kTmaStore = TmaStored<Epilogue>::value;
+  constexpr bool kTmaStore = TmaStored<Epilogue>::value, kDirect = Direct<Epilogue>::value;
   extern __shared__ float4 tc_smem[];
   unsigned char* smem_raw = reinterpret_cast<unsigned char*>(tc_smem);
   const uint32_t raw = smem_addr(smem_raw);
@@ -628,8 +776,11 @@ gemm_tc_kernel(const __grid_constant__ CUtensorMap map_a,
   const uint32_t outs_at = base + S * L::kBytes;
   const uint32_t full = outs_at + TC_OUT_BYTES;
   const uint32_t empty = full + S * 8;    // S mbarriers each
-  const uint32_t staged = empty + S * 8;  // a tile's sums are in `outs`
-  // the epilogue is done with them (kTmaStore: the tile's mask is in `outs`)
+  // a tile's sums are in `outs` (kDirect: the consumers have read the tile's
+  // incoming values there)
+  const uint32_t staged = empty + S * 8;
+  // the epilogue is done with them (kTmaStore, kDirect: the tile's incoming
+  // values are in `outs`)
   const uint32_t drained = staged + 8;
   const int tiles_n = (n + TC_BN - 1) / TC_BN;
   const int tile_count = tiles_n * a_src.tiles_m(m);
@@ -639,8 +790,8 @@ gemm_tc_kernel(const __grid_constant__ CUtensorMap map_a,
       mbar_init(full + 8 * s, 1);
       mbar_init(empty + 8 * s, 8);  // one arrival per consumer warp
     }
-    mbar_init(staged, 256);                             // every consumer thread
-    mbar_init(drained, kTmaStore ? 1 : TC_EPILOGUE);    // every epilogue thread
+    mbar_init(staged, 256);                                      // every consumer thread
+    mbar_init(drained, kTmaStore || kDirect ? 1 : TC_EPILOGUE);  // every epilogue thread
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
@@ -672,10 +823,11 @@ gemm_tc_kernel(const __grid_constant__ CUtensorMap map_a,
     } else if (threadIdx.x < 32) {
       // warp 0's other lanes: nothing
     } else if constexpr (kTmaStore) {
-      // thread 32: each tile's mask into `outs` through maps.in[·] once the
-      // last tile's store has read it; the tile out through maps.out[·] once
-      // the consumers staged it (the maps and coordinates a_src.out_at
-      // gives). Column boxes of 32 past n are skipped.
+      // thread 32: each tile's incoming values (epi.tile_in()) into `outs`
+      // through maps.in[·] once the last tile's store has read it; the tile
+      // out through maps.out[·] once the consumers staged it (the maps and
+      // coordinates a_src.out_at gives). Column boxes of 32 past n are
+      // skipped.
       if (threadIdx.x == 32) {
         uint32_t lt = 0;
         for (int tile = blockIdx.x; tile < tile_count; tile += gridDim.x, ++lt) {
@@ -683,10 +835,14 @@ gemm_tc_kernel(const __grid_constant__ CUtensorMap map_a,
           const int3 at = a_src.out_at(tm);  // (map, row, window)
           const int boxes = min(TC_BN / 32, (n - n0 + 31) / 32);
           if (lt > 0) bulk_wait_all<true>();
-          mbar_expect_tx(drained, boxes * a_src.a_bytes());
-          for (int q = 0; q < boxes; ++q)
-            tma_load_3d(outs_at + q * TC_TILE_BYTES, &maps.in[at.x], n0 + 32 * q, at.y, at.z,
-                        drained);
+          if (epi.tile_in()) {
+            mbar_expect_tx(drained, boxes * a_src.a_bytes());
+            for (int q = 0; q < boxes; ++q)
+              tma_load_3d(outs_at + q * TC_TILE_BYTES, &maps.in[at.x], n0 + 32 * q, at.y, at.z,
+                          drained);
+          } else {
+            mbar_arrive(drained);
+          }
           mbar_wait(staged, lt & 1);
           for (int q = 0; q < boxes; ++q)
             tma_store_3d(&maps.out[at.x], outs_at + q * TC_TILE_BYTES, n0 + 32 * q, at.y,
@@ -694,6 +850,23 @@ gemm_tc_kernel(const __grid_constant__ CUtensorMap map_a,
           bulk_commit();
         }
         bulk_wait_all<false>();
+      }
+    } else if constexpr (kDirect) {
+      // thread 32: each tile's incoming values (epi.tile_in()) into `outs`
+      // through maps.in[·] once the consumers have read the last tile's.
+      // Column boxes of 32 past n are skipped.
+      if (threadIdx.x == 32 && epi.tile_in()) {
+        uint32_t lt = 0;
+        for (int tile = blockIdx.x; tile < tile_count; tile += gridDim.x, ++lt) {
+          const int n0 = (tile % tiles_n) * TC_BN, tm = tile / tiles_n;
+          const int3 at = a_src.out_at(tm);  // (map, row, window)
+          const int boxes = min(TC_BN / 32, (n - n0 + 31) / 32);
+          if (lt > 0) mbar_wait(staged, (lt - 1) & 1);
+          mbar_expect_tx(drained, boxes * a_src.a_bytes());
+          for (int q = 0; q < boxes; ++q)
+            tma_load_3d(outs_at + q * TC_TILE_BYTES, &maps.in[at.x], n0 + 32 * q, at.y, at.z,
+                        drained);
+        }
       }
     } else {
       // The epilogue: each tile's sums from `outs` through epi, while the
@@ -736,8 +909,6 @@ gemm_tc_kernel(const __grid_constant__ CUtensorMap map_a,
 
   // consumers: warpgroup cw owns rows 64cw..64cw+63 of each tile
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(TC_CONSUMER_REGS));
-  static_assert(kMode == TC_BF16_TF32 || !RowScaled<ASrc>::value,
-                "A's row factors are an input of the TF32 pass");
   const int cw = threadIdx.x / 128 - 1, tid = threadIdx.x % 128;
   const int warp = tid / 32, lane = tid % 32, g = lane >> 2, t = lane & 3;
   const int r = cw * 64 + warp * 16 + g;  // this thread's rows r and r + 8 (r % 8 == g)
@@ -753,29 +924,66 @@ gemm_tc_kernel(const __grid_constant__ CUtensorMap map_a,
 #pragma unroll
     for (int i = 0; i < 64; ++i) acc[i] = 0.f;
     const int kts = a_src.ktiles(tm, k);
-    if (kts > 0)
-      mainloop<kMode, RowScaled<ASrc>::value>(acc, kts, it, base, tiles, full, empty, r, g, t,
-                                               fr0, fr1);
+    if (kts > 0) {
+      if constexpr (kMode == TC_BF16)
+        mainloop_native<RowScaled<ASrc>::value>(
+            acc, kts, it, NativeRing{base, full, empty, tiles, r, g, t, fr0, fr1});
+      else
+        mainloop<kMode, RowScaled<ASrc>::value>(acc, kts, it, base, tiles, full, empty, r, g,
+                                                 t, fr0, fr1);
+    }
     it += kts;
 
-    // accumulator i: column 8(i/4) + 2t + (i%2), row r + 8((i/2)%2)
+    // accumulator i: column 8(i/4) + 2t + (i%2), row r + 8((i/2)%2); a box
+    // of 32 columns in TMA's layout holds row i at 128 i bytes, 16-byte chunk
+    // c at c ^ (i % 8)
+    auto boxed = [&](int j) {  // float offset of (row r, columns 8j + 2t..) in `outs`
+      return (j / 4) * (TC_TILE_BYTES / 4) + (((2 * (j % 4) + t / 2) ^ g) * 4) + 2 * (t % 2) +
+             r * 32;
+    };
     if constexpr (kTmaStore) {
-      // the tile's mask is in `outs`, four boxes of 32 columns in TMA's
-      // layout (row i of a box at 128 i bytes, 16-byte chunk c at c ^ (i % 8)):
-      // each sum where its mask is above 0, else 0, in its place
+      // the tile's incoming values are in `outs`, four boxes of 32 columns:
+      // each sum's epi.value in its place
       mbar_wait(drained, lt & 1);
+      const int c0 = (tile % tiles_n) * TC_BN + 2 * t;
 #pragma unroll
       for (int j = 0; j < 16; ++j) {
-        const int at = (j / 4) * (TC_TILE_BYTES / 4) + (((2 * (j % 4) + t / 2) ^ g) * 4) +
-                       2 * (t % 2);
-        float2* p0 = reinterpret_cast<float2*>(outs + at + r * 32);
-        float2* p1 = reinterpret_cast<float2*>(outs + at + (r + 8) * 32);
+        const int c = c0 + 8 * j;
+        float2* p0 = reinterpret_cast<float2*>(outs + boxed(j));
+        float2* p1 = reinterpret_cast<float2*>(outs + boxed(j) + 8 * 32);  // row r + 8
         const float2 m0 = *p0, m1 = *p1;
-        *p0 = make_float2(m0.x > 0.f ? acc[4 * j] : 0.f, m0.y > 0.f ? acc[4 * j + 1] : 0.f);
-        *p1 = make_float2(m1.x > 0.f ? acc[4 * j + 2] : 0.f, m1.y > 0.f ? acc[4 * j + 3] : 0.f);
+        *p0 = make_float2(epi.value(c, acc[4 * j], m0.x), epi.value(c + 1, acc[4 * j + 1], m0.y));
+        *p1 = make_float2(epi.value(c, acc[4 * j + 2], m1.x),
+                          epi.value(c + 1, acc[4 * j + 3], m1.y));
       }
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
       mbar_arrive(staged);
+    } else if constexpr (kDirect) {
+      // each pair of sums written through epi.put from the registers, beside
+      // the tile's incoming values (four boxes of 32 columns in `outs`)
+      const bool in = epi.tile_in();
+      if (in) mbar_wait(drained, lt & 1);
+      const int m0 = a_src.m0(tm), rows = a_src.rows(tm, m);
+      const int c0 = (tile % tiles_n) * TC_BN + 2 * t;
+      const typename Epilogue::Row row0 = epi.row(m0 + min(r, rows - 1));
+      const typename Epilogue::Row row1 = epi.row(m0 + min(r + 8, rows - 1));
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int c = c0 + 8 * j;  // n even: c + 1 < n with it
+        if (c < n) {
+          float2 i0 = make_float2(0.f, 0.f), i1 = i0;
+          if (in) {
+            i0 = *reinterpret_cast<const float2*>(outs + boxed(j));
+            i1 = *reinterpret_cast<const float2*>(outs + boxed(j) + 8 * 32);
+          }
+          if (r < rows) epi.put(m0 + r, c, acc[4 * j], acc[4 * j + 1], i0, row0);
+          if (r + 8 < rows) epi.put(m0 + r + 8, c, acc[4 * j + 2], acc[4 * j + 3], i1, row1);
+        }
+      }
+      if (in) {
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        mbar_arrive(staged);
+      }
     } else {
       // stage the sums for the epilogue warps once they are done with the
       // last tile's, and go on to the next tile
@@ -869,6 +1077,22 @@ inline bool make_bf16_tile_map(CUtensorMap* map, const void* ptr, int rows, int 
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// A (rows, cols) fp32 row-major output as a 3D tensor map (cols, rows, 1),
+// boxes of 32 x 128 x 1 with the 128-byte swizzle: an epilogue's maps
+// (DenseTmaStore, out_at (0, row, 0)); cols % 4 == 0, 16-byte aligned.
+inline bool make_rows_map(CUtensorMap* map, const float* ptr, int rows, int cols) {
+  const TensorMapEncodeTiled encode = tensor_map_encoder();
+  if (!encode || cols % 4 || !aligned16(ptr)) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows, 1};
+  const cuuint64_t strides[2] = {(cuuint64_t)cols * 4, (cuuint64_t)rows * cols * 4};
+  const cuuint32_t box[3] = {(cuuint32_t)TC_BK, (cuuint32_t)TC_BM, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<float*>(ptr), dims, strides,
+                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 inline int sm_count() {
   static int count = 0;
   if (!count) {
@@ -903,48 +1127,58 @@ inline cudaError_t launch_tc(const CUtensorMap& map_a, ASrc a_src, const CUtenso
   return cudaGetLastError();
 }
 
-// The map of W's TF32 halves (kBf16: its bf16-rounded plane in fp32) with
-// n of its rows used, the small half w_small rows after the big.
-template <bool kBf16>
+// The map of W's TF32 halves with n of its rows used, the small half w_small
+// rows after the big.
 inline bool make_w_map(CUtensorMap* map, const float* halves, int n, int k, int w_small) {
   if (k % 4 != 0 || w_small < n || !aligned16(halves)) return false;
-  return make_tile_map(map, halves, kBf16 ? n : w_small + n, k, TC_BN);
+  return make_tile_map(map, halves, w_small + n, k, TC_BN);
 }
 
-// out = epi(A · B) with A (m, k) row-major and halves (2, n, k) from
-// launch_tf32_halves; or, with w_small > 0, a slice of n rows of larger
-// halves whose small half starts w_small rows after `halves`. kBf16: the
-// bf16 mode, `halves` W's bf16-rounded plane (n, k). TMA needs 16-byte
-// aligned rows: k % 4 == 0 and 16-byte aligned pointers.
-template <bool kBf16 = false, class Epilogue>
+// out = epi(A · B) in 3xTF32 with A (m, k) row-major and halves (2, n, k)
+// from launch_tf32_halves; or, with w_small > 0, a slice of n rows of larger
+// halves whose small half starts w_small rows after `halves`. TMA needs
+// 16-byte aligned rows: k % 4 == 0 and 16-byte aligned pointers.
+template <class Epilogue>
 inline cudaError_t launch_gemm_tc(const float* a, const float* halves, int m, int n, int k,
                                   Epilogue epi, cudaStream_t stream, int w_small = 0) {
   if (m <= 0 || k <= 0 || k % 4 != 0 || reinterpret_cast<uintptr_t>(a) % 16)
     return cudaErrorInvalidValue;
   w_small = w_small > 0 ? w_small : n;
   CUtensorMap map_a, map_w;
-  if (!make_tile_map(&map_a, a, m, k, TC_BM) || !make_w_map<kBf16>(&map_w, halves, n, k, w_small))
+  if (!make_tile_map(&map_a, a, m, k, TC_BM) || !make_w_map(&map_w, halves, n, k, w_small))
     return cudaErrorInvalidValue;
-  return launch_tc<kBf16 ? TC_BF16_TF32 : TC_3XTF32>(map_a, TmaA{}, map_w, w_small, m, n, k,
-                                                      epi, stream);
+  return launch_tc<TC_3XTF32>(map_a, TmaA{}, map_w, w_small, m, n, k, epi, stream);
 }
 
-// launch_gemm_tc<true> with row r of A multiplied by scale[r / rows_per_scale]
-// (scale may be null: 1) before its rounding to bf16.
-template <class Epilogue>
-inline cudaError_t launch_gemm_tc_scaled(const float* a, const float* plane, int m, int n,
-                                         int k, const float* scale, int rows_per_scale,
-                                         Epilogue epi, cudaStream_t stream) {
-  if (m <= 0 || k <= 0 || k % 4 != 0 || reinterpret_cast<uintptr_t>(a) % 16 ||
-      (scale && rows_per_scale <= 0))
+// The bf16 rung in native bf16: out = epi(bf16(A) · plane) with A (m, k)
+// fp32 row-major and plane (n, k) W's bf16 plane (torch.bfloat16), fp32
+// sums. With a_src a TmaAScaled, row r of A is multiplied by its factor
+// before its rounding. TMA needs 16-byte aligned rows: k % 8 == 0 and
+// 16-byte aligned pointers.
+template <class Epilogue, class ASrc = TmaA>
+inline cudaError_t launch_gemm_bf16(const float* a, const void* plane, int m, int n, int k,
+                                    Epilogue epi, cudaStream_t stream, ASrc a_src = {},
+                                    const typename TmaStored<Epilogue>::Maps& maps = {}) {
+  if (m <= 0 || k <= 0 || k % 8 != 0 || !aligned16(a) || !aligned16(plane))
     return cudaErrorInvalidValue;
   CUtensorMap map_a, map_w;
-  if (!make_tile_map(&map_a, a, m, k, TC_BM) || !make_w_map<true>(&map_w, plane, n, k, n))
+  if (!make_tile_map(&map_a, a, m, k, TC_BM) || !make_bf16_tile_map(&map_w, plane, n, k))
     return cudaErrorInvalidValue;
-  TmaAScaled src;
-  src.scale = scale;
-  src.rows_per_scale = rows_per_scale;
-  return launch_tc<TC_BF16_TF32>(map_a, src, map_w, n, m, n, k, epi, stream);
+  return launch_tc<TC_BF16>(map_a, a_src, map_w, n, m, n, k, epi, stream, maps);
+}
+
+// launch_gemm_bf16 into out (m, n) through DenseTmaStore: `in` (the residual
+// with in_kind 1, the mask with 2; else null) comes in by TMA.
+template <class ASrc = TmaA>
+inline cudaError_t launch_gemm_bf16_tma(const float* a, const void* plane, int m, int n, int k,
+                                        DenseTmaStore epi, const float* in, float* out,
+                                        cudaStream_t stream, ASrc a_src = {}) {
+  DenseTmaStore::Maps maps;
+  memset(&maps, 0, sizeof(maps));
+  if (m <= 0 || (epi.in_kind != 0) != (in != nullptr) ||
+      !make_rows_map(&maps.out[0], out, m, n) || (in && !make_rows_map(&maps.in[0], in, m, n)))
+    return cudaErrorInvalidValue;
+  return launch_gemm_bf16(a, plane, m, n, k, epi, stream, a_src, maps);
 }
 
 // ---- gemm_atb_kernel -------------------------------------------------------

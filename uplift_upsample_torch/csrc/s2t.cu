@@ -20,8 +20,8 @@
 // accumulator registers, so the Dense's output is written once and never
 // read back. W's halves come from `tf32_halves_f32` (temporal.cu), split
 // once when the operands are prepared (ops/s2t.py s2t_params). The bf16 rung
-// (`s2t_prologue_bf16`): gemm_tc.cuh's bf16 mode on W's bf16-rounded plane,
-// the same epilogue.
+// (`s2t_prologue_bf16`): gemm_tc.cuh's native bf16 mode on W's bf16 plane
+// (torch.bfloat16), the same epilogue.
 
 #include <cuda_runtime.h>
 
@@ -60,6 +60,32 @@ struct BiasTokenPe {
   }
 };
 
+// BiasTokenPe written by the consumers (gemm_tc.cuh's kDirect): the
+// row's mask and PE row read once a tile, the bias, token and PE from the
+// caches; nothing comes in by TMA. The same arithmetic.
+struct BiasTokenPeDirect {
+  static constexpr bool kTmaStore = false, kDirect = true;
+  struct Maps {
+    CUtensorMap in[1];
+  };
+  struct Row {
+    float m;
+    const float* pe;
+  };
+  BiasTokenPe e;
+  bool quads() const { return false; }
+  __device__ __forceinline__ bool tile_in() const { return false; }
+  __device__ __forceinline__ Row row(int r) const {
+    return {e.mask ? e.mask[r] : 0.f, e.pe + (size_t)(r % e.pe_rows) * e.c};
+  }
+  __device__ __forceinline__ void put(int r, int col, float v0, float v1, float2,
+                                      const Row& row) const {
+    const float2 pe = *reinterpret_cast<const float2*>(row.pe + col);
+    *reinterpret_cast<float2*>(e.out + (size_t)r * e.c + col) =
+        make_float2(e.value(col, v0, row.m, pe.x), e.value(col + 1, v1, row.m, pe.y));
+  }
+};
+
 }  // namespace
 
 // sp: (rows, k) row-major, k % 4 == 0; split (2, c, k): the TF32 halves of
@@ -75,13 +101,16 @@ extern "C" int s2t_prologue_f32(const float* sp, const float* split, const float
                             (cudaStream_t)stream);
 }
 
-// The bf16 rung: plane (c, k), w's bf16-rounded plane transposed.
-extern "C" int s2t_prologue_bf16(const float* sp, const float* plane, const float* bias,
+// The bf16 rung: plane (c, k) bf16, w rounded to bf16 and transposed; sp
+// rounded as it is read; the output written by the consumers
+// (BiasTokenPeDirect); k % 8 == 0, c % 4 == 0, 16-byte aligned out.
+extern "C" int s2t_prologue_bf16(const float* sp, const void* plane, const float* bias,
                                  const float* mask, const float* token, const float* pe,
                                  float* out, int rows, int c, int k, int pe_rows,
                                  void* stream) {
-  if (pe_rows <= 0 || (mask && !token)) return cudaErrorInvalidValue;
-  return uu::launch_gemm_tc<true>(sp, plane, rows, c, k,
-                                  BiasTokenPe{bias, mask, token, pe, out, c, pe_rows},
-                                  (cudaStream_t)stream);
+  if (pe_rows <= 0 || (mask && !token) || c % 4 || !uu::aligned16(out) || !uu::aligned16(pe))
+    return cudaErrorInvalidValue;
+  return uu::launch_gemm_bf16(sp, plane, rows, c, k,
+                              BiasTokenPeDirect{{bias, mask, token, pe, out, c, pe_rows}},
+                              (cudaStream_t)stream);
 }

@@ -76,7 +76,7 @@ int conv(const float* h1, const float* x, const void* w, const float* bias, floa
     return cudaErrorInvalidValue;
   const int k = 3 * hidden;
   if (kMode == uu::TC_BF16 ? !uu::make_bf16_tile_map(&map_w, w, c, k)
-                           : !uu::make_w_map<false>(&map_w, static_cast<const float*>(w), c, k, c))
+                           : !uu::make_w_map(&map_w, static_cast<const float*>(w), c, k, c))
     return cudaErrorInvalidValue;
   return uu::launch_tc<kMode>(map_a, taps, map_w, c, windows * n_out, c, k,
                               ConvResidual{x, bias, out, n, c, n_out, stride, res_off},

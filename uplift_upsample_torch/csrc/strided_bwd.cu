@@ -72,6 +72,10 @@ struct Dh1Store {
     CUtensorMap in[uu::CONV_MAX_STRIDE], out[uu::CONV_MAX_STRIDE];
   };
   bool quads() const { return false; }
+  __device__ __forceinline__ bool tile_in() const { return true; }
+  __device__ __forceinline__ float value(int, float v, float h1) const {
+    return h1 > 0.f ? v : 0.f;
+  }
 };
 
 __global__ void crop_residual_add_kernel(const float* __restrict__ g, float* __restrict__ dx2,
@@ -134,8 +138,7 @@ int dh1_entry(const float* g, const void* w, const float* h1, float* dh1, int wi
       return cudaErrorInvalidValue;
   if (kMode == uu::TC_BF16
           ? !uu::make_bf16_tile_map(&map_w, w, 3 * hidden, c)
-          : !uu::make_w_map<false>(&map_w, static_cast<const float*>(w), 3 * hidden, c,
-                                   3 * hidden))
+          : !uu::make_w_map(&map_w, static_cast<const float*>(w), 3 * hidden, c, 3 * hidden))
     return cudaErrorInvalidValue;
   return uu::launch_tc<kMode>(map_a, rows, map_w, 3 * hidden, windows * n, hidden, c,
                               Dh1Store{}, (cudaStream_t)stream, maps);

@@ -23,13 +23,13 @@
 //
 // The bf16 rung (the TPU's one-pass DEFAULT dots): `gemm_bf16` and
 // `window_attention_bf16` launch the same kernels' bf16 instances (operands
-// rounded to bf16, one TF32 pass, fp32 sums; gemm_tc.cuh, attention.cuh),
-// the GEMM on W's bf16-rounded plane; the LayerNorm is the same fp32 kernel.
+// rounded to bf16, fp32 sums; gemm_tc.cuh, attention.cuh): the GEMM native
+// bf16 (wgmma k16) on W's bf16 plane; the LayerNorm is the same fp32 kernel.
 // On every rung the eval's operands carry 1/sqrt(D) in q's columns of wqkv
 // and bqkv, as the TPU's eval kernels fold it, so the attention rounds
 // q·1/sqrt(D) and scales nothing after its product (`q_folded`).
 // Bound at 1,024 windows: ~0.17 TFLOP per block at the 989 TFLOP/s dense
-// bf16 peak, 0.18 ms; this simple instance runs one TF32 pass (495 TFLOP/s).
+// bf16 peak, 0.18 ms, below the bytes the four products move (0.47 ms).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -81,13 +81,22 @@ extern "C" int gemm_f32(const float* a, const float* halves, const float* bias,
                             (cudaStream_t)stream);
 }
 
-// gemm_f32 on the bf16 rung: plane (n, k), w's bf16-rounded plane transposed.
-extern "C" int gemm_bf16(const float* a, const float* plane, const float* bias,
+// gemm_f32 on the bf16 rung: plane (n, k) bf16, w rounded to bf16 and
+// transposed; a rounded as it is read; k % 8 == 0, n % 4 == 0, 16-byte
+// aligned pointers. With a residual it comes in and the output leaves by
+// TMA (uu::DenseTmaStore: the epilogue warps' residual loads bound proj);
+// without one the epilogue warps write the output (qkv, fc1: 335 and 223
+// MB of it, which the warps' stores moved faster than one TMA store a
+// tile; kernel_probe.py, NVIDIA H100 80GB HBM3, 700 W).
+extern "C" int gemm_bf16(const float* a, const void* plane, const float* bias,
                          const float* residual, float* out, int m, int n, int k,
                          int relu, void* stream) {
-  return uu::launch_gemm_tc<true>(a, plane, m, n, k,
-                                  uu::BiasActResidual{bias, residual, out, n, relu},
-                                  (cudaStream_t)stream);
+  if (residual)
+    return uu::launch_gemm_bf16_tma(a, plane, m, n, k, uu::DenseTmaStore{bias, n, relu, 1},
+                                    residual, out, (cudaStream_t)stream);
+  return uu::launch_gemm_bf16(a, plane, m, n, k,
+                              uu::BiasActResidual{bias, nullptr, out, n, relu},
+                              (cudaStream_t)stream);
 }
 
 // w (batch, k, n) row-major -> halves (batch, 2, n, k) with transpose (for

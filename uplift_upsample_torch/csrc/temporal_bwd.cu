@@ -39,10 +39,11 @@
 //
 // The bf16 rung (TRAIN_MATMUL_PRECISION "default" and "mixed";
 // pallas_temporal_bwd.py at DEFAULT, where every dot rounds both operands):
-// each product's bf16 instance, one TF32 pass on bf16-rounded operands with
-// fp32 sums (tf32.cuh; dW native bf16 wgmma), reading W's bf16 plane for the
-// dense layers:
-//   gemm_branch_bf16  the forward's scaled branch (gemm_tc.cuh kBf16)
+// each product's bf16 instance on bf16-rounded operands with fp32 sums:
+// native bf16 wgmma for the dense layers (gemm_tc.cuh TC_BF16, W's bf16 plane
+// as a torch.bfloat16 tensor) and dW, one TF32 pass for the attention
+// (tf32.cuh):
+//   gemm_branch_bf16  the forward's scaled branch
 //   window_attention_train_bf16  the forward's attention (attention.cuh QS:
 //                     q·1/sqrt(D) rounded, as the training kernel scales q
 //                     before its dot; K2's eval instance rounds q unscaled)
@@ -110,6 +111,33 @@ struct ScaledBranch {
     const float f = uu::row_factor(scale, rows_per_scale, r);
     uu::st4(out + o, make_float4(post(b.x, f, l.res.x), post(b.y, f, l.res.y),
                                  post(b.z, f, l.res.z), post(b.w, f, l.res.w)));
+  }
+};
+
+// ScaledBranch written by the consumers (gemm_tc.cuh's kDirect): the
+// residual comes in by TMA (e.residual only marks it), the row's factor is
+// read once a tile.
+struct ScaledBranchDirect {
+  static constexpr bool kTmaStore = false, kDirect = true;
+  struct Maps {
+    CUtensorMap in[1];
+  };
+  struct Row {
+    float f;
+  };
+  ScaledBranch e;
+  bool quads() const { return false; }
+  __device__ __forceinline__ bool tile_in() const { return e.residual != nullptr; }
+  __device__ __forceinline__ Row row(int r) const {
+    return {uu::row_factor(e.scale, e.rows_per_scale, r)};
+  }
+  __device__ __forceinline__ void put(int r, int c, float v0, float v1, float2 in,
+                                      const Row& row) const {
+    const size_t o = (size_t)r * e.n + c;
+    const float2 b = make_float2(e.pre(c, v0), e.pre(c + 1, v1));
+    if (e.branch) *reinterpret_cast<float2*>(e.branch + o) = b;
+    *reinterpret_cast<float2*>(e.out + o) =
+        make_float2(e.post(b.x, row.f, in.x), e.post(b.y, row.f, in.y));
   }
 };
 
@@ -652,17 +680,23 @@ extern "C" int gemm_branch_f32(const float* a, const float* halves, const float*
       (cudaStream_t)stream);
 }
 
-// gemm_branch_f32 on the bf16 rung: plane (n, k), w's bf16-rounded plane
-// transposed.
-extern "C" int gemm_branch_bf16(const float* a, const float* plane, const float* bias,
+// gemm_branch_f32 on the bf16 rung: plane (n, k) bf16, w rounded to bf16 and
+// transposed; a rounded as it is read; the residual in by TMA, both outputs
+// written by the consumers (ScaledBranchDirect); k % 8 == 0, n % 4 == 0,
+// 16-byte aligned pointers.
+extern "C" int gemm_branch_bf16(const float* a, const void* plane, const float* bias,
                                 const float* scale, int rows_per_scale, const float* residual,
                                 float* branch, float* out, int m, int n, int k, int relu,
                                 void* stream) {
-  if (scale && rows_per_scale <= 0) return cudaErrorInvalidValue;
-  return uu::launch_gemm_tc<true>(
+  ScaledBranchDirect::Maps maps;
+  memset(&maps, 0, sizeof(maps));
+  if ((scale && rows_per_scale <= 0) || m <= 0 || n % 4 || !uu::aligned16(out) ||
+      !uu::aligned16(branch) || (residual && !uu::make_rows_map(&maps.in[0], residual, m, n)))
+    return cudaErrorInvalidValue;
+  return uu::launch_gemm_bf16(
       a, plane, m, n, k,
-      ScaledBranch{bias, scale, rows_per_scale, residual, branch, out, n, relu},
-      (cudaStream_t)stream);
+      ScaledBranchDirect{{bias, scale, rows_per_scale, residual, branch, out, n, relu}},
+      (cudaStream_t)stream, uu::TmaA{}, maps);
 }
 
 // out (m, n) = ((a * scale[row / rows_per_scale]) . w^T), zeroed where
@@ -677,14 +711,20 @@ extern "C" int gemm_dx_f32(const float* a, const float* scale, int rows_per_scal
                             (cudaStream_t)stream);
 }
 
-// gemm_dx_f32 on the bf16 rung: plane (n, k), w's bf16-rounded plane as
-// stored; a * scale rounded to bf16 (the factor applied before the rounding).
+// gemm_dx_f32 on the bf16 rung: plane (n, k) bf16, w rounded to bf16 as
+// stored; a * scale rounded to bf16 (the factor applied before the rounding);
+// the mask in and the output out by TMA (uu::DenseTmaStore); k % 8 == 0,
+// n % 4 == 0, 16-byte aligned pointers.
 extern "C" int gemm_dx_bf16(const float* a, const float* scale, int rows_per_scale,
-                            const float* plane, const float* mask, float* out, int m, int n,
+                            const void* plane, const float* mask, float* out, int m, int n,
                             int k, void* stream) {
-  return uu::launch_gemm_tc_scaled(a, plane, m, n, k, scale, rows_per_scale,
-                                   ScaledMaskStore{nullptr, 1, mask, out, n},
-                                   (cudaStream_t)stream);
+  if (scale && rows_per_scale <= 0) return cudaErrorInvalidValue;
+  uu::TmaAScaled src;
+  src.scale = scale;
+  src.rows_per_scale = rows_per_scale;
+  return uu::launch_gemm_bf16_tma(a, plane, m, n, k,
+                                  uu::DenseTmaStore{nullptr, n, 0, mask ? 2 : 0}, mask, out,
+                                  (cudaStream_t)stream, src);
 }
 
 // part (splits, m, n): chunk z of x^T . (dy * scale[row / rows_per_scale])

@@ -25,15 +25,15 @@ import torch
 
 from ..precision import BF16, check_rung, mm
 from . import cuda_lib
-from .temporal import bf16_plane, tf32_halves
+from .temporal import bf16_plane, check_gemm_depth, check_weight, tf32_halves
 
 COUNTER = "s2t_prologue"
 
 
 def add_s2t_operands(ops: Dict, precision: str = "high") -> Dict:
     """`ops` with W's TF32 halves "w_tc" (2, C, K) and, on the bf16 rung
-    (`precision` "default"), its bf16 plane "w_bf" (C, K): what the kernel
-    reads, prepared once."""
+    (`precision` "default"), its bf16 plane "w_bf" (C, K), a torch.bfloat16
+    tensor: what the kernel reads, prepared once."""
     out = dict(ops, w_tc=tf32_halves(ops["w"]))
     if check_rung(precision) == BF16:
         out["w_bf"] = bf16_plane(ops["w"])
@@ -75,14 +75,13 @@ def s2t_prologue(sp: torch.Tensor, ops: Dict,
     bf16 = check_rung(precision) == BF16
     b, n, k = sp.shape
     c = ops["w"].shape[1]
-    if k % 4:
-        raise ValueError(f"the s2t kernel loads rows of 16 bytes: K={k} is not a multiple of 4")
+    check_gemm_depth(k, bf16, c if bf16 else None)
     name = "w_bf" if bf16 else "w_tc"
     if name not in ops:
         raise ValueError(f"the s2t kernel reads {name}: prepare it with add_s2t_operands")
     x = sp.reshape(b * n, k).contiguous()
     cuda_lib.check_cuda("sp", x)
-    cuda_lib.check_cuda(name, ops[name], shape=(c, k) if bf16 else (2, c, k), device=x.device)
+    check_weight(ops[name], c, k, bf16, x.device)
     cuda_lib.check_cuda("bias", ops["bias"], shape=(c,), device=x.device)
     cuda_lib.check_cuda("pe", ops["pe"], shape=(n, c), device=x.device)
     mask = token = None

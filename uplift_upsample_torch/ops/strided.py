@@ -34,8 +34,8 @@ Mosaic layouts:
 Precision (`precision.py`): "default", the TPU's one-pass bf16 rung, runs
 the bf16 instances of K2's GEMM and attention and `strided_conv_bf16`
 (native bf16: T rounded to bf16 pairs for wgmma k16, Wc's bf16 plane
-"wc_bf", fp32 sums); the planes come from `add_strided_bf16_planes` (DENSE;
-Wc's, `CONV_PLANES`, as torch.bfloat16 tensors).
+"wc_bf", fp32 sums); the planes (torch.bfloat16, every matrix of DENSE)
+come from `add_strided_bf16_planes`.
 "high" and "highest" run the 3xTF32 kernels. The eval's operands fold
 1/sqrt(D) into q's columns (`stack_strided_block1_params(q_scale=)`, as
 `pallas_strided.stack_strided_block1_params(fold_q_scale=True)`), and the
@@ -61,12 +61,11 @@ from ..parallel.sharding import TensorParallel, active, all_reduce_sum
 from ..precision import BF16, check_rung, mm, round_bf16
 from . import cuda_lib
 from .temporal import (add_bf16_planes, add_weight_operands, attention_sublayer,
-                       check_bf16_planes, fold_q, gemm, layernorm, split_attention_sublayer,
-                       window_attention_plain)
+                       check_bf16_planes, check_weight, fold_q, gemm, layernorm,
+                       split_attention_sublayer, window_attention_plain)
 
 COUNTER = "strided_block1"
 DENSE = ("wqkv", "wp", "w1", "wc")  # the block's (in, out) matrices on the tensor cores
-CONV_PLANES = ("wc_bf", "wc_bf_dx")  # Wc's bf16 planes, held as torch.bfloat16
 
 
 def output_length(n: int, stride: int, paddings: Tuple[int, int]) -> int:
@@ -250,9 +249,7 @@ def strided_conv(h1: torch.Tensor, x: torch.Tensor, ops: Dict, *, stride: int,
         raise ValueError(f"strided_conv_bf16 reads Wc's bf16 plane by TMA in rows of 3·hidden: "
                          f"hidden={hidden} must be a multiple of 8 (16 bytes)")
     w = ops["wc_bf"] if bf16 else ops["wc_tc"]
-    cuda_lib.check_cuda("wc_bf" if bf16 else "wc_tc", w,
-                        shape=(c, 3 * hidden) if bf16 else (2, c, 3 * hidden), device=h1.device,
-                        dtype=torch.bfloat16 if bf16 else torch.float32)
+    check_weight(w, c, 3 * hidden, bf16, h1.device)
     cuda_lib.check_cuda("bc", ops["bc"], shape=(c,), device=h1.device)
     out = torch.empty((b * n_out, c), dtype=torch.float32, device=h1.device)
     cuda_lib.launch("strided", "strided_conv_bf16" if bf16 else "strided_conv_f32", counter,
@@ -310,13 +307,9 @@ def stack_strided_block1_params(state: Mapping[str, torch.Tensor],
 
 
 def add_strided_bf16_planes(ops: Dict, dx: bool = False) -> Dict:
-    """`temporal.add_bf16_planes` of the block's dense matrices, with Wc's
-    planes ("wc_bf"; with `dx` also "wc_bf_dx", as stored) held as
-    torch.bfloat16 tensors (`CONV_PLANES`): the conv's native bf16
-    instances read them as they are (the planes are bf16-rounded, so the
-    cast is exact)."""
-    out = add_bf16_planes(ops, [name for name in DENSE if name in ops], dx=dx)
-    return {k: v.to(torch.bfloat16) if k in CONV_PLANES else v for k, v in out.items()}
+    """`temporal.add_bf16_planes` of the block's dense matrices present in
+    `ops` (Wc's "wc_bf"; with `dx` also "wc_bf_dx", as stored)."""
+    return add_bf16_planes(ops, [name for name in DENSE if name in ops], dx=dx)
 
 
 class _RoundGrad(torch.autograd.Function):

@@ -45,9 +45,9 @@ import torch
 
 from ..precision import BF16, check_rung, mm
 from . import cuda_lib
-from .strided import (CONV_PLANES, DENSE, conv_scatter_plain, conv_taps_plain, output_length,
+from .strided import (DENSE, conv_scatter_plain, conv_taps_plain, output_length,
                       strided_block1_plain, strided_conv)
-from .temporal import check_unfolded, gemm, layernorm, weight_keys
+from .temporal import check_unfolded, check_weight, gemm, layernorm, operand_dtype, weight_keys
 from .temporal_train import (_sum_rows, colsum, dw_splits, gemm_dw, gemm_dx, layernorm_bwd,
                              window_attention_bwd, window_attention_train)
 
@@ -96,8 +96,7 @@ def conv_dh1(g: torch.Tensor, ops: Dict, h1: torch.Tensor, *, stride: int,
         raise ValueError(f"strided_dh1_bf16 reads Wc's bf16 plane by TMA in rows of C: C={c} "
                          "must be a multiple of 8 (16 bytes)")
     w = ops["wc_bf_dx"] if bf16 else ops["wc_tc_dx"]
-    cuda_lib.check_cuda("wc_dx", w, shape=(3 * hidden, c) if bf16 else (2, 3 * hidden, c),
-                        device=g.device, dtype=torch.bfloat16 if bf16 else torch.float32)
+    check_weight(w, 3 * hidden, c, bf16, g.device)
     out = torch.empty_like(h1)  # never h1 itself: the relu mask is read as dH1 is written
     cuda_lib.launch("strided_bwd", "strided_dh1_bf16" if bf16 else "strided_dh1_f32", None, g,
                     w, h1, out, b, n, hidden, c, stride, int(paddings[0]), n_out)
@@ -145,8 +144,7 @@ def strided_train_fwd(x: torch.Tensor, ops: Dict, *, num_heads: int, stride: int
     if c % num_heads != 0:
         raise ValueError(f"C={c} does not split into {num_heads} heads")
     for name in ORDER + weight_keys(DENSE, precision):
-        cuda_lib.check_cuda(name, ops[name], device=x.device,
-                            dtype=torch.bfloat16 if name in CONV_PLANES else torch.float32)
+        cuda_lib.check_cuda(name, ops[name], device=x.device, dtype=operand_dtype(name))
     cuda_lib.check_cuda("pe", ops["pe"], shape=(n, c))
     w = "_bf" if check_rung(precision) == BF16 else "_tc"
     rung = dict(precision=precision)

@@ -37,11 +37,12 @@ once for serving, anew from each step's weights in training.
 
 Precision (`precision.py`): "high" and "highest" run the 3xTF32 GEMM and
 attention (`gemm_f32`, `window_attention_f32`); "default", the TPU's
-one-pass bf16 rung, their bf16 instances (`gemm_bf16`: A rounded to bf16 as
-it leaves shared memory, one TF32 pass per 8-deep step on W's bf16-rounded
-plane "<w>_bf" from `add_bf16_planes`; `window_attention_bf16`: q, k, the
-normalised probabilities and v rounded, fp32 sums). The LayerNorms are fp32
-on every rung. The plain versions take the same `precision=`.
+one-pass bf16 rung, their bf16 instances (`gemm_bf16`: native bf16, A
+rounded to bf16 pairs as the consumers read it, wgmma k16 on W's bf16 plane
+"<w>_bf", a torch.bfloat16 tensor from `add_bf16_planes`;
+`window_attention_bf16`: q, k, the normalised probabilities and v rounded,
+fp32 sums). The LayerNorms are fp32 on every rung. The plain versions take
+the same `precision=` and round W themselves.
 
 Split over mp (`tp`, tensor parallelism: the operands stacked from an mp
 rank's shard of the weights, `parallel/sharding.py`), each block runs per
@@ -63,7 +64,7 @@ import torch
 import torch.nn.functional as F
 
 from ..parallel.sharding import TensorParallel, active, all_reduce_sum
-from ..precision import BF16, check_rung, mm, round_bf16
+from ..precision import BF16, check_rung, mm
 from . import cuda_lib
 
 COUNTER = "temporal_stack"
@@ -106,18 +107,29 @@ def add_tf32_halves(ops: Dict, names: Sequence[str] = DENSE) -> Dict:
     return out
 
 
+PLANE_DTYPE = torch.bfloat16  # the bf16 planes' dtype
+
+
 def bf16_plane(w: torch.Tensor, transpose: bool = True) -> torch.Tensor:
     """(…, K, N) → (…, N, K) with `transpose`, else (…, K, N): w rounded to
-    bf16 (to nearest, even), kept in fp32, the operand the bf16 GEMM reads
-    (`gemm_bf16` transposed; the backward's `gemm_dx` as stored)."""
-    plane = round_bf16(w.detach().float())
+    bf16 (to nearest, even) as a torch.bfloat16 tensor, the operand the bf16
+    GEMMs read (`gemm_bf16` transposed; the backward's `gemm_dx` as stored;
+    the strided conv's Wc likewise)."""
+    plane = w.detach().float().to(PLANE_DTYPE)
     return (plane.transpose(-1, -2) if transpose else plane).contiguous()
 
 
+def operand_dtype(key: str) -> torch.dtype:
+    """The dtype of a kernel operand by its key: the bf16 planes ("<w>_bf",
+    "<w>_bf_dx") bf16, every other operand fp32."""
+    return PLANE_DTYPE if key.endswith(("_bf", "_bf_dx")) else torch.float32
+
+
 def add_bf16_planes(ops: Dict, names: Sequence[str] = DENSE, dx: bool = False) -> Dict:
-    """`ops` with each named matrix's bf16 plane beside it, "<name>_bf": the
-    weights of the bf16 rung, prepared once (`models/bench_forward.prepare_fused_params`);
-    with `dx` also "<name>_bf_dx", the plane as stored, for dy @ wᵀ (training)."""
+    """`ops` with each named matrix's bf16 plane (`bf16_plane`) beside it,
+    "<name>_bf": the weights of the bf16 rung, prepared once
+    (`models/bench_forward.prepare_fused_params`); with `dx` also
+    "<name>_bf_dx", the plane as stored, for dy @ wᵀ (training)."""
     out = {**ops, **{f"{name}_bf": bf16_plane(ops[name]) for name in names}}
     if dx:
         out.update({f"{name}_bf_dx": bf16_plane(ops[name], transpose=False) for name in names})
@@ -304,17 +316,14 @@ def gemm(a: torch.Tensor, w_tc: torch.Tensor, bias: Optional[torch.Tensor], *,
          precision: str = "high") -> torch.Tensor:
     """act(a @ w + bias) + residual on the card; a (M, K) row-major, w_tc
     (2, N, K) the TF32 halves of w (K, N) (`tf32_halves`), or on the bf16
-    rung (`precision` "default") its bf16 plane (N, K) (`bf16_plane`).
-    `out` may be `residual`, never `a`."""
+    rung (`precision` "default") its bf16 plane (N, K), a torch.bfloat16
+    tensor (`bf16_plane`). `out` may be `residual`, never `a`."""
     bf16 = check_rung(precision) == BF16
     m, k = a.shape
     n = w_tc.shape[-2]
-    if k % 4:
-        raise ValueError(f"the tensor-core GEMM loads rows of 16 bytes: K={k} is not a "
-                         "multiple of 4")
+    check_gemm_depth(k, bf16, n if bf16 else None)
     cuda_lib.check_cuda("a", a)
-    cuda_lib.check_cuda("w_bf" if bf16 else "w_tc", w_tc, shape=(n, k) if bf16 else (2, n, k),
-                        device=a.device)
+    check_weight(w_tc, n, k, bf16, a.device)
     if bias is not None:
         cuda_lib.check_cuda("bias", bias, shape=(n,), device=a.device)
     if residual is not None:
@@ -324,6 +333,28 @@ def gemm(a: torch.Tensor, w_tc: torch.Tensor, bias: Optional[torch.Tensor], *,
     cuda_lib.launch("temporal", "gemm_bf16" if bf16 else "gemm_f32", counter, a, w_tc, bias,
                     residual, out, m, n, k, int(relu))
     return out
+
+
+def check_gemm_depth(k: int, bf16: bool, n_stored: Optional[int] = None) -> None:
+    """Raise unless the tensor-core GEMM can load rows of depth K by TMA: rows
+    of 16 bytes, K % 4 == 0 in fp32; the bf16 plane's rows too, K % 8 == 0.
+    `n_stored`: the width of an output the bf16 rung's consumers write in
+    pairs from 16-byte aligned rows (`gemm_bf16`, `gemm_branch_bf16`,
+    `gemm_dx_bf16`, `s2t_prologue_bf16`), N % 4 == 0."""
+    if k % (8 if bf16 else 4):
+        raise ValueError(f"the tensor-core GEMM loads rows of 16 bytes: K={k} is not a "
+                         f"multiple of {8 if bf16 else 4}")
+    if n_stored is not None and n_stored % 4:
+        raise ValueError(f"the bf16 GEMM writes rows of 16-byte multiples: N={n_stored} is "
+                         "not a multiple of 4")
+
+
+def check_weight(w: torch.Tensor, n: int, k: int, bf16: bool, device) -> None:
+    """Raise unless w is what the GEMM reads of W: its TF32 halves (2, N, K)
+    in fp32, or on the bf16 rung its bf16 plane (N, K) as torch.bfloat16 (an
+    fp32 plane raises)."""
+    cuda_lib.check_cuda("w_bf" if bf16 else "w_tc", w, shape=(n, k) if bf16 else (2, n, k),
+                        device=device, dtype=PLANE_DTYPE if bf16 else torch.float32)
 
 
 def layernorm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, eps: float,

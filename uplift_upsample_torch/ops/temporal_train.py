@@ -22,11 +22,12 @@ Launches count as "temporal_train_fwd" and "temporal_train_bwd".
 
 The bf16 rung (`precision` "default", TRAIN_MATMUL_PRECISION "default" and
 "mixed"; `pallas_temporal_bwd.py` at DEFAULT, where every dot comes from
-`_dot_maker` and rounds both operands): each entry's bf16 instance, one
-TF32 pass on bf16-rounded operands with fp32 sums, reading the weights'
-bf16 planes (`temporal.add_weight_operands`: "<w>_bf" for x·W, "<w>_bf_dx"
-for dY·Wᵀ) in place of the halves: `gemm_bf16` and `gemm_branch_bf16`
-forward; `window_attention_train_bf16`, whose logits round q·1/sqrt(D) (the
+`_dot_maker` and rounds both operands): each entry's bf16 instance on
+bf16-rounded operands with fp32 sums, reading the weights' bf16 planes
+(torch.bfloat16 tensors, `temporal.add_weight_operands`: "<w>_bf" for x·W,
+"<w>_bf_dx" for dY·Wᵀ) in place of the halves: `gemm_bf16` and
+`gemm_branch_bf16` forward (native bf16 wgmma, as `gemm_dx_bf16`);
+`window_attention_train_bf16`, whose logits round q·1/sqrt(D) (the
 training kernel scales q before its dot; the eval's `window_attention_bf16`
 rounds q and scales the logits); `gemm_dx_bf16` (dY scaled by the droppath
 factor, then rounded), `gemm_dw_bf16` (bf16 wgmma on the rounded
@@ -47,8 +48,9 @@ import torch
 
 from ..precision import BF16, check_rung
 from . import cuda_lib
-from .temporal import (DENSE, check_unfolded, gemm, layernorm, temporal_stack_plain,
-                       weight_keys, window_attention, window_attention_plain)
+from .temporal import (DENSE, check_gemm_depth, check_unfolded, check_weight, gemm, layernorm,
+                       operand_dtype, temporal_stack_plain, weight_keys, window_attention,
+                       window_attention_plain)
 
 COUNTER_FWD = "temporal_train_fwd"
 COUNTER_BWD = "temporal_train_bwd"
@@ -67,11 +69,12 @@ def _branch_gemm(a, w_tc, bias, scale, rows_per_scale, residual, relu=False,
                  precision="high"):
     """(residual + scale · act(a @ w + bias), act(a @ w + bias)) on the card;
     w_tc (2, N, K) the TF32 halves of w (K, N), or on the bf16 rung its bf16
-    plane (N, K)."""
+    plane (N, K), a torch.bfloat16 tensor."""
     bf16 = check_rung(precision) == BF16
     m, k = a.shape
     n = w_tc.shape[-2]
-    cuda_lib.check_cuda("w", w_tc, shape=(n, k) if bf16 else (2, n, k), device=a.device)
+    check_gemm_depth(k, bf16, n if bf16 else None)
+    check_weight(w_tc, n, k, bf16, a.device)
     out, branch = _empty((m, n), a), _empty((m, n), a)
     cuda_lib.launch("temporal_bwd", "gemm_branch_bf16" if bf16 else "gemm_branch_f32",
                     COUNTER_FWD, a, w_tc, bias, scale, rows_per_scale, residual, branch, out,
@@ -86,7 +89,7 @@ def _check(x: torch.Tensor, ops: Dict, dp_all: torch.Tensor, num_heads: int, pre
     blocks = ops["ln1_g"].shape[0]
     cuda_lib.check_cuda("dp_all", dp_all, shape=(blocks, 2, b), device=x.device)
     for name in ORDER + weight_keys(DENSE, precision):
-        cuda_lib.check_cuda(name, ops[name], device=x.device)
+        cuda_lib.check_cuda(name, ops[name], device=x.device, dtype=operand_dtype(name))
 
 
 def window_attention_train(qkv, key_mask, *, windows, n, num_heads, counter,
@@ -152,15 +155,13 @@ def gemm_dx(dy, scale, rows_per_scale, w_tc_dx, mask=None, counter=COUNTER_BWD,
             precision="high"):
     """(dy · scale[row // rows_per_scale]) @ wᵀ, zeroed where mask <= 0; w_tc_dx
     (2, N, K) the TF32 halves of w (N, K) as stored (`tf32_halves(w,
-    transpose=False)`), or on the bf16 rung its bf16 plane (N, K) as stored
-    (dy · scale rounded to bf16 as the kernel reads it)."""
+    transpose=False)`), or on the bf16 rung its bf16 plane (N, K) as stored, a
+    torch.bfloat16 tensor (dy · scale rounded to bf16 as the kernel reads it)."""
     bf16 = check_rung(precision) == BF16
     m, k = dy.shape
     n = w_tc_dx.shape[-2]
-    if k % 4:
-        raise ValueError(f"the tensor-core GEMM loads rows of 16 bytes: K={k} is not a "
-                         "multiple of 4")
-    cuda_lib.check_cuda("w_dx", w_tc_dx, shape=(n, k) if bf16 else (2, n, k), device=dy.device)
+    check_gemm_depth(k, bf16, n if bf16 else None)
+    check_weight(w_tc_dx, n, k, bf16, dy.device)
     out = _empty((m, n), dy)
     cuda_lib.launch("temporal_bwd", "gemm_dx_bf16" if bf16 else "gemm_dx_f32", counter, dy,
                     scale, rows_per_scale, w_tc_dx, mask, out, m, n, k)

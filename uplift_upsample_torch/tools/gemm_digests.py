@@ -16,9 +16,9 @@ the s2t prologue (`s2t_prologue_f32`,
 72,704 x 544 -> 384 with the stride mask). Each case's inputs come from
 numpy with a fixed seed; the weights' TF32 halves and bf16 planes are made
 on the host (`tf32_halves_plain`, `round_bf16`), so they do not depend on
-the build under test; the conv's and dH1's bf16 cases hand their plane over
-as torch.bfloat16 (`fp32_args`: in fp32 to a build from before its native
-bf16, `reads_fp32_planes`).
+the build under test; every bf16 case hands its plane over as
+torch.bfloat16 (`fp32_args`: in fp32 to a build from before native bf16
+reached its entry, `fp32_plane_libs`).
 
 `gemm_atb_kernel` (the backward's weight gradients, split over the rows and
 summed in a fixed order) serves two more C entries, each in both modes: K5's
@@ -59,14 +59,16 @@ import numpy as np
 import torch
 
 # sha256 of each case's outputs from the build before the pipelined kernel
-# (NVIDIA H100 80GB HBM3, nvcc 12.9, sm_90a), except five re-taken when the
-# strided conv's products were redesigned, whose sums changed by design:
-# "dh1 s2" (each h1 row's taps now sum in one accumulator in tap order,
-# where a launch per tap added each tap's finished product into dH1) and
-# the conv's and dH1's bf16 cases (native bf16: two k16 products per 32-deep
-# stage on the bf16 plane, where one TF32 pass took four k8 products; the
-# same exact products summed in another order). The conv's and "dh1 s3"'s
-# 3xTF32 bits are the earlier ones: reading T by TMA changes no operand.
+# (NVIDIA H100 80GB HBM3, nvcc 12.9, sm_90a), except those re-taken when a
+# redesign changed their sums by design: "dh1 s2" (each h1 row's taps now
+# sum in one accumulator in tap order, where a launch per tap added each
+# tap's finished product into dH1), and every bf16 case (native bf16: two
+# k16 products per 32-deep stage on the bf16 plane, where one TF32 pass
+# took four k8 products; the same exact products summed in another order),
+# the conv's and dH1's with the strided conv's redesign, the seven dense
+# ones ("gemm *_bf16", "branch fc2_bf16", "dx fc2_bf16", "s2t_bf16") with
+# the dense callers' move to native bf16. The conv's and "dh1 s3"'s 3xTF32
+# bits are the earlier ones: reading T by TMA changes no operand.
 GEMM_DIGESTS: Dict[str, str] = {
     "gemm qkv":
         "911fbd98f40bd03ab3392aebbcb3d36d24d40aa75eaa859707ff1698ee4c7d33",
@@ -91,17 +93,17 @@ GEMM_DIGESTS: Dict[str, str] = {
     "s2t":
         "96e50ab69b1312f7d6c4bcd0197aaa323a2a4f76b86b4ee931cd2636a4c260a4",
     "gemm qkv_bf16":
-        "ba2ce4b9df2c236373b11f0af5499db68f3947df16b192c30ee486aa76ea0d87",
+        "d5a1fa0b6e9f8836a974a170fcc9f2366f8421bb313299784f3152c726c513ef",
     "gemm proj_bf16":
-        "82a466b789601f640b66e1dfc1e6c98ae351164a995ad53294449bd902e21ed2",
+        "e62da11fd7fef979717b70afe6addb7ed37963ae28c904f2085fefb3724d6fff",
     "gemm fc1_bf16":
-        "e5fe660dda1e247f29854b63e2a8ca93de801e54609870c33db33948abce29c4",
+        "dbca9f503e563953d609de82573a138cbee73d6ca44cbce08e09d04b6642ca3f",
     "gemm fc2_bf16":
-        "c0933307944feccca1e0273ce1dd7bf57db8fbec01d54279cc6d4c0ec7509884",
+        "c45ae7f612adc5d90bc2eee055b57ea6d372f7b46e1af68dc7b36cb9b39a35e5",
     "branch fc2_bf16":
-        "153eb95b6a7ec18716480909fb0d3acdb89d25ece750ba066de81efd0aee1314",
+        "3dbc27115310e8533ab6e385bfee4d8a4eaba35c1fc9c4a1f8f1168b1cd9ea38",
     "dx fc2_bf16":
-        "6926b34e1ce76c64ffe8e2e91af89051fdeaa17db03c77837d90046df552c101",
+        "76558dc824370ed458f623c08b616837e53c163ee5dcfbbb90c09a616d7980a6",
     "conv 351_bf16":
         "0483c8adb80320d3e02d60bb910c0ea9280348bd3db1fc3a55121e8a96c29fed",
     "conv 81_bf16":
@@ -111,12 +113,14 @@ GEMM_DIGESTS: Dict[str, str] = {
     "dh1 s2_bf16":
         "cc85000391e0601c359b713f9f8dfecfd4a45281ab1f6ff5dd712e3eb8311626",
     "s2t_bf16":
-        "2c0a52553747cf21a9ab890cc9952a23b6a86c4d6f18a2b5cb382134a69e9136",
+        "1ff4b597d9b599cc3dcd696f66a1481797e6b834b45c658298eeee1acf5eb60a",
 }
 
 # that build's ms per case (CUDA events), NVIDIA H100 80GB HBM3, 700.00 W;
 # the conv's and dH1's: the build before their redesign (the gathered taps, a
-# launch per tap at s0 < 3, the TF32 pass at bf16), timed in turn with it
+# launch per tap at s0 < 3, the TF32 pass at bf16), timed in turn with it;
+# the seven dense bf16 cases: the build before their native bf16 (the TF32
+# pass on an fp32 plane), timed in turn with it
 PARENT_MS: Dict[str, float] = {
     "gemm qkv": 0.8605,
     "gemm proj": 0.3928,
@@ -129,17 +133,17 @@ PARENT_MS: Dict[str, float] = {
     "dh1 s3": 0.4699,
     "dh1 s2": 0.7716,
     "s2t": 0.4653,
-    "gemm qkv_bf16": 0.674,
-    "gemm proj_bf16": 0.3243,
-    "gemm fc1_bf16": 0.4258,
-    "gemm fc2_bf16": 0.4142,
-    "branch fc2_bf16": 0.3285,
-    "dx fc2_bf16": 0.3655,
+    "gemm qkv_bf16": 0.3623,
+    "gemm proj_bf16": 0.2011,
+    "gemm fc1_bf16": 0.2416,
+    "gemm fc2_bf16": 0.2347,
+    "branch fc2_bf16": 0.1781,
+    "dx fc2_bf16": 0.1838,
     "conv 351_bf16": 0.6222,
     "conv 81_bf16": 0.1392,
     "dh1 s3_bf16": 0.4037,
     "dh1 s2_bf16": 0.6755,
-    "s2t_bf16": 0.3505,
+    "s2t_bf16": 0.2453,
     # gemm_atb_kernel's callers: the mma.sync build
     "dw qkv": 0.6772,
     "dw proj": 0.2275,
@@ -205,12 +209,13 @@ class Case(NamedTuple):
     outputs: list       # tensors hashed after the launch
     reset: Callable     # restores inputs a launch overwrites (the aliased residual)
     then: tuple = ()    # (lib, fn, args) launched after it: dW's fixed-order sum
-    fp32_args: Optional[list] = None  # args for a build whose conv reads an fp32 bf16 plane
+    fp32_args: Optional[list] = None  # args for a build whose entry reads an fp32 bf16 plane
 
 
 def _halves(w: np.ndarray, bf16: bool, transpose: bool = True) -> torch.Tensor:
     """What the kernels read of W (K, N): its TF32 halves (2, N, K), or at
-    bf16 its bf16-rounded plane (N, K); `transpose` False keeps W as stored."""
+    bf16 its bf16-rounded plane (N, K) in fp32 (`_native` hands it over in
+    bf16); `transpose` False keeps W as stored."""
     from ..ops.temporal import tf32_halves_plain
     from ..precision import round_bf16
     t = torch.from_numpy(w)
@@ -221,15 +226,19 @@ def _halves(w: np.ndarray, bf16: bool, transpose: bool = True) -> torch.Tensor:
 
 
 def _native(args: list, i: int, bf16: bool) -> list:
-    """args with the conv's bf16 plane args[i] as the torch.bfloat16 tensor
-    its native bf16 instances read (the fp32 plane holds bf16 values: exact)."""
+    """args with the bf16 plane args[i] as the torch.bfloat16 tensor the
+    native bf16 instances read (the fp32 plane holds bf16 values: exact)."""
     return args if not bf16 else args[:i] + [args[i].to(torch.bfloat16)] + args[i + 1:]
 
 
-def reads_fp32_planes(csrc: Path) -> bool:
-    """Whether the build of `csrc` runs the conv's bf16 instances as a TF32
-    pass on an fp32 plane (the design before its native bf16)."""
-    return "TC_BF16" not in (Path(csrc) / "gemm_tc.cuh").read_text()
+def fp32_plane_libs(csrc: Path) -> tuple:
+    """The libraries whose bf16 instances the build of `csrc` runs as a TF32
+    pass on an fp32 plane: every one before native bf16, the dense callers'
+    (temporal, temporal_bwd, s2t) while only the strided conv's had it."""
+    text = (Path(csrc) / "gemm_tc.cuh").read_text()
+    if "TC_BF16" not in text:
+        return LIBS
+    return ("temporal", "temporal_bwd", "s2t") if "TC_BF16_TF32" in text else ()
 
 
 def cases(seed: int, bf16: bool, dev) -> List[Case]:
@@ -259,20 +268,24 @@ def cases(seed: int, bf16: bool, dev) -> List[Case]:
         elif residual == "alias":  # the fc2 sublayer: gemm(..., residual=h, out=h)
             h0 = cuda(rand(m, n))
             res, reset = o, (lambda o=o, h0=h0: o.copy_(h0))
+        args = [a, w, bias, res, o, m, n, k, relu]
         out.append(Case(f"gemm {name}" + "_bf16" * bf16, "temporal", "gemm" + sfx,
-                        [a, w, bias, res, o, m, n, k, relu], [o], reset))
+                        _native(args, 1, bf16), [o], reset, fp32_args=args if bf16 else None))
 
     m, per = TRAIN, 71
     scale = cuda(np.where(rng.uniform(size=m // per) < 0.9, 1 / 0.9, 0.0).astype(np.float32))
     a, w, bias, res = cuda(rand(m, HID)), w_of(HID, C), cuda(rand(C, scale=0.1)), cuda(rand(m, C))
     branch, o = torch.empty((m, C), device=dev), torch.empty((m, C), device=dev)
+    args = [a, w, bias, scale, per, res, branch, o, m, C, HID, 0]
     out.append(Case("branch fc2" + "_bf16" * bf16, "temporal_bwd", "gemm_branch" + sfx,
-                    [a, w, bias, scale, per, res, branch, o, m, C, HID, 0], [branch, o], none))
+                    _native(args, 1, bf16), [branch, o], none,
+                    fp32_args=args if bf16 else None))
     # dX of fc2: (s · g) · w2ᵀ with w2 (HID, C) as stored, relu mask of h1
     g, w2 = cuda(rand(m, C, scale=1.0)), w_of(HID, C, transpose=False)
     mask, o = cuda(np.maximum(rand(m, HID), 0)), torch.empty((m, HID), device=dev)
+    args = [g, scale, per, w2, mask, o, m, HID, C]
     out.append(Case("dx fc2" + "_bf16" * bf16, "temporal_bwd", "gemm_dx" + sfx,
-                    [g, scale, per, w2, mask, o, m, HID, C], [o], none))
+                    _native(args, 3, bf16), [o], none, fp32_args=args if bf16 else None))
 
     for label, b, n, stride, p0 in (("351", CONV_WINDOWS[0], 71, 3, 0),
                                     ("81", CONV_WINDOWS[1], 41, 4, 1)):
@@ -298,8 +311,9 @@ def cases(seed: int, bf16: bool, dev) -> List[Case]:
     smask = cuda((rng.uniform(size=m) < 0.3).astype(np.float32))
     token, pe = cuda(rand(C)), cuda(rand(pe_rows, C))
     o = torch.empty((m, C), device=dev)
+    args = [sp, w, bias, smask, token, pe, o, m, C, k, pe_rows]
     out.append(Case("s2t" + "_bf16" * bf16, "s2t", "s2t_prologue" + sfx,
-                    [sp, w, bias, smask, token, pe, o, m, C, k, pe_rows], [o], none))
+                    _native(args, 1, bf16), [o], none, fp32_args=args if bf16 else None))
     return out
 
 
@@ -379,11 +393,11 @@ def build_libs(csrc: Path, out_dir: Path) -> Dict[str, ctypes.CDLL]:
 
 
 def launcher(libs: Dict[str, ctypes.CDLL], case: Case,
-             fp32_planes: bool = False) -> Callable[[], None]:
-    """One launch of the case's C entry from `libs` (`fp32_planes`: a build
-    that reads the conv's bf16 plane in fp32), then its `then` launches;
-    raises on a launch error."""
-    args = case.fp32_args if fp32_planes and case.fp32_args is not None else case.args
+             fp32_libs: tuple = ()) -> Callable[[], None]:
+    """One launch of the case's C entry from `libs` (`fp32_libs`: the
+    libraries of a build that read the bf16 plane in fp32), then its `then`
+    launches; raises on a launch error."""
+    args = case.fp32_args if case.fp32_args is not None and case.lib in fp32_libs else case.args
     steps = [(libs[case.lib], case.fn, args)]
     steps += [(libs[lib], fn, args) for lib, fn, args in case.then]
     bound = [(getattr(lib, fn), fn, [ctypes.c_void_p(a.data_ptr()) if isinstance(a, torch.Tensor)
@@ -399,10 +413,10 @@ def launcher(libs: Dict[str, ctypes.CDLL], case: Case,
     return call
 
 
-def digest(libs: Dict[str, ctypes.CDLL], case: Case, fp32_planes: bool = False) -> str:
+def digest(libs: Dict[str, ctypes.CDLL], case: Case, fp32_libs: tuple = ()) -> str:
     """The case's outputs' sha256 after one launch from its reset inputs."""
     case.reset()
-    launcher(libs, case, fp32_planes)()
+    launcher(libs, case, fp32_libs)()
     torch.cuda.synchronize()
     h = hashlib.sha256()
     for t in case.outputs:
@@ -424,15 +438,16 @@ def time_ms(call: Callable[[], None], iters: int = 10, warmup: int = 2) -> float
 
 
 def check(libs, parent_libs=None, seed: int = 0, rounds: int = 3, log=print,
-          parent_fp32_planes: bool = False, libs_of=None) -> List[str]:
+          parent_fp32_libs: tuple = (), select=None) -> List[str]:
     """Every case: its digest against GEMM_DIGESTS, a second call bit for
     bit, its time beside PARENT_MS (and beside the parent build's digest and
-    time, taken in turn, with `parent_libs`; `parent_fp32_planes`: that
-    build reads the conv's bf16 plane in fp32, `reads_fp32_planes`; `libs_of`:
-    only the cases of those libraries); returns the failed cases."""
+    time, taken in turn, with `parent_libs`; `parent_fp32_libs`: the
+    libraries where that build reads the bf16 plane in fp32,
+    `fp32_plane_libs`; `select`: only the cases it holds true); returns the
+    failed cases."""
     failed = []
     for case in all_cases(seed, torch.device("cuda")):
-        if libs_of is not None and case.lib not in libs_of:
+        if select is not None and not select(case):
             continue
         first = digest(libs, case)
         again = digest(libs, case)
@@ -447,8 +462,8 @@ def check(libs, parent_libs=None, seed: int = 0, rounds: int = 3, log=print,
             ms = min(time_ms(call) for _ in range(rounds))
             line += f"; ms {ms:.4f}"
         else:
-            parent_first = digest(parent_libs, case, parent_fp32_planes)
-            pcall = launcher(parent_libs, case, parent_fp32_planes)
+            parent_first = digest(parent_libs, case, parent_fp32_libs)
+            pcall = launcher(parent_libs, case, parent_fp32_libs)
             mine, theirs = [], []
             for _ in range(rounds):
                 theirs.append(time_ms(pcall))
@@ -485,7 +500,7 @@ def main(argv=None) -> int:
         parent = build_libs(Path(args.parent).resolve(), cuda_lib.BUILD_DIR / "parent_gemm")
     failed = check(port_libs(), parent, args.seed, args.rounds,
                    log=lambda s: print(s, flush=True),
-                   parent_fp32_planes=bool(args.parent) and reads_fp32_planes(args.parent))
+                   parent_fp32_libs=fp32_plane_libs(args.parent) if args.parent else ())
     if failed:
         print(f"gemm_digests: FAILED {failed}", flush=True)
         return 1
