@@ -3647,9 +3647,10 @@ def bf16_serving_phase(args, torch, np, rng, failed, record, results, eval_data,
                 sdpa_ms = time_ms(torch, sdpa, 10)
         pairs = 2 * f_ * s_ * s_ * c_  # one of the two products
         logit = dict(flops=pairs) if d_a <= 8 else dict(bf16_flops=pairs)  # fp32 FMAs at D <= 8
-        # at "high": the short kernels' FMAs on the CUDA cores, else 3xTF32 on the tensor cores
+        # at "high" on bf16 tensors: the short kernels' FMAs on the CUDA cores, else native
+        # bf16 on the tensor cores: Q·Kᵀ one pass, P·V three (P in three bf16 terms)
         high_ops = dict(flops=2 * pairs) if s_ * c_ <= ROW11_SHORT_FLOATS else dict(
-            tc_flops=2 * pairs)
+            bf16_flops=4 * pairs)
         mask_bytes = 0 if mask is None else mask.numel() * F32
         for name, tensors, rungs, entry in (
                 ("packed_attention_bf16", (q, k, v), ("default",), "packed_attention_bf16"),
@@ -4463,7 +4464,7 @@ def main(argv=None) -> int:
     repeat_identical("window_attention_bwd", [got], [ab_fn()])
     ref64 = window_attention_bwd_plain(qkv_t.double(), dctx_t.double(), km_t.double(),
                                        windows=bt, n=nt, num_heads=heads)
-    # four products (dP, dq, dk, dv) of 2·n²·d per head, in 3xTF32
+    # five products (S recomputed, dP, dq, dk, dv) of 2·n²·d per head, in 3xTF32
     record("window_attention_bwd", "uplift_upsample_torch/csrc/temporal_bwd.cu",
            "uplift_upsample_tpu/ops/pallas_temporal_bwd.py:514",
            grad_check(torch, [(got, ref)]), time_ms(torch, ab_fn, 10), time_ms(torch, ab_plain, 5),
@@ -4471,7 +4472,7 @@ def main(argv=None) -> int:
            library_ms=time_ms(torch, lambda: torch.autograd.grad(
                out_lib, (q, k, v), g_lib, retain_graph=True), 10),
            counter="window_attention_bwd_f32", phase="train",
-           f64=f64_check(torch, got, ref, ref64), tc_flops=bt * 8 * nt * nt * c)
+           f64=f64_check(torch, got, ref, ref64), tc_flops=bt * 10 * nt * nt * c)
     del ref64
     del qkv_req, out_plain, q, k, v, out_lib
     x_ln, dy_ln = rand(rows_t, c), rand(rows_t, c, scale=1.0)

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """What bounds the hand-written kernels on the card (csrc/).
 
-    python3 kernel_probe.py [--seed 0] [--only dense,dense_bf16,dw,attn_bwd,k4,k1,short,e2e]
+    python3 kernel_probe.py [--seed 0]
+        [--only dense,dense_bf16,dw,conv,attn_bwd,attn_bf16io,k4,k1,short,e2e]
                             [--parent DIR]
 
 Builds patched copies of `csrc/` under `uplift_upsample_torch/_build/probe/`
@@ -70,10 +71,28 @@ Builds patched copies of `csrc/` under `uplift_upsample_torch/_build/probe/`
   timed in turn (parent, kernel, kernel, parent) with both builds' output
   digests: the A/B of a redesign of either kernel.
 - K5's window-attention backward (`temporal_bwd.cu`'s
-  window_attention_bwd_f32 at the train step, 512 windows x 71 tokens x
-  384, 8 heads, a key mask, beside SDPA's backward): the kernel; "no
-  products" (no mma.sync, so no splits either); "no splits"; "no gradient
-  writes" (dq, dk, dv computed, not stored);
+  window_attention_bwd_f32, 3xTF32, and window_attention_bwd_bf16, the bf16
+  rung on native bf16 mma.sync, at the train step: 512 windows x 71 tokens
+  x 384, 8 heads, a key mask; beside SDPA's backward on fp32 and on bf16):
+  the kernel; "copies only" (no products, no softmax: the staging and the
+  stores); "no products" (no mma.sync); "no splits" (no TF32 splits, bf16
+  pairs packed by truncation: no rounding conversions); "no gradient writes"
+  (dq, dk, dv computed, not stored); "bf16 3 blocks, 3xTF32 2 blocks per
+  SM" (the register caps of the launch bounds at 71 tokens: the bf16
+  kernel at 3 blocks an SM, not 4; the 3xTF32 one at 2, not 3); with
+  `--parent DIR` also DIR's build,
+  timed in turn (parent, kernel, kernel, parent) with and without the key
+  mask, both builds' output digests;
+- row 11 on bf16 tensors ("attn_bf16io": `attention_bf16.cu`'s
+  packed_attention_bf16io, "high", and packed_attention_bf16io_bf16,
+  "default", at 1,024 sequences x 71 tokens x 384 with a key mask and 1,024
+  x 23 x 384, 8 heads, beside SDPA on bf16): the kernel; "copies only" (no
+  logits, softmax or products: q, k and v staged, the context stored);
+  "no products"; "no splits" ("high": P in one bf16 term, not three); "no
+  stores" (the context computed, not written); "3 blocks per SM" (at 71
+  tokens a 136-register cap, not 4 blocks at 96); with `--parent DIR` DIR's
+  build in turn (parent, kernel, kernel, parent, SDPA) and both builds'
+  digests; ptxas's registers and spills of each build's instances at D = 48;
 - K4 (`spatial_bwd.cu`'s spatial_bwd_f32 and spatial_bwd_bf16 at the train
   step's 25,600 keyframes, C = 32, 4 blocks, random weights from the seed;
   3 rounds of 20 launches per variant, taken in turn): the kernel; "no
@@ -152,7 +171,8 @@ ATTENTION = {
     "kernel": [],
     "products only": [("attention.cuh", f"  stage_head({t}s", f"  if (n < 0) stage_head({t}s")
                       for t in "qkv"],
-    "copies only": [("attention.cuh", "nt = nk / 8;", "nt = nk / 8 - 100;")],
+    "copies only": [("attention.cuh", "nk = (n + 7) & ~7, nt = nk / 8;",
+                     "nk = (n + 7) & ~7, nt = nk / 8 - 100;")],
     "no splits": NO_SPLITS,
     "one pass, no splits": NO_SPLITS + ONE_MMA,
 }
@@ -241,15 +261,63 @@ DH1 = {"kernel": [],
        "no register split": REGS}
 NOT_BF16 = ("no splits",)  # variants the bf16 instances skip: they split nothing
 _SINK = "if ({} == 1.2345e-30f) "  # a store the compiler cannot drop, never taken
+# the attention backward's two kernels (temporal_bwd.cu: the 3xTF32 one, the
+# bf16 rung's on native bf16) without their parts
+_BWD_PRODUCTS = [
+    ("temporal_bwd.cu", "  uu::mma_3xtf32(part, ab, as, bb, bs);\n", ""),
+    ("temporal_bwd.cu", "            uu::mma_bf16(part, a, bb[2 * u], bb[2 * u + 1]);\n", ""),
+    ("temporal_bwd.cu", "              uu::mma_bf16(part, a, b[2 * u], b[2 * u + 1]);\n", ""),
+    ("temporal_bwd.cu", "            uu::mma_bf16(pk, as, bq[2 * u], bq[2 * u + 1]);\n"
+                        "            uu::mma_bf16(pv, ap, bg[2 * u], bg[2 * u + 1]);\n", "")]
+_BWD_NT = [("temporal_bwd.cu", "nq = 16 * warps, nt = (n + 7) / 8;\n",
+            "nq = 16 * warps, nt = (n + 7) / 8 - 100;\n"),
+           ("temporal_bwd.cu", "nk = (n + 7) & ~7, nt = nk / 8;\n",
+            "nk = (n + 7) & ~7, nt = nk / 8 - 100;\n")]
+# bf16 pairs packed by truncation: no rounding conversions
+_NO_ROUNDING = [("mma_bf16.cuh",
+                 '  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\\n" : "=r"(r) : "f"(hi), "f"(lo));\n',
+                 "  r = (__float_as_uint(hi) & 0xffff0000u) | (__float_as_uint(lo) >> 16);\n")]
 ATTN_BWD = {
     "kernel": [],
-    "no products": [("temporal_bwd.cu", "  uu::mma_3xtf32(part, ab, as, bb, bs);\n", "")],
-    "no splits": NO_SPLITS,
-    "no gradient writes": [("temporal_bwd.cu", f"({r} < n)", f"({r} < n - 4096)")
-                           for r in ("row0", "row1")]
-                          + [("temporal_bwd.cu", f"{r} < n && {c} < d", f"{r} < n - 4096 && {c} < d")
-                             for r in ("key0", "key1") for c in ("col", "col + 1")],
+    "copies only": _BWD_PRODUCTS + _BWD_NT,
+    "no products": _BWD_PRODUCTS,
+    "no splits": NO_SPLITS + _NO_ROUNDING,
+    "no gradient writes": [("temporal_bwd.cu", "    if (row < n && col < d)\n      *reinterpret_cast",
+                            "    if (row < n - 4096 && col < d)\n      *reinterpret_cast")],
+    # the blocks an SM holds at 71 tokens (launch bounds: the register cap)
+    "bf16 3 blocks, 3xTF32 2 blocks per SM": [
+        ("temporal_bwd.cu", "NT <= 10 ? 4 : 1)\nwindow_attention_bwd_bf16_kernel",
+         "NT <= 10 ? 3 : 1)\nwindow_attention_bwd_bf16_kernel"),
+        ("temporal_bwd.cu", "NT <= 9 ? 3 : 1)\nwindow_attention_bwd_tc_kernel",
+         "NT <= 9 ? 2 : 1)\nwindow_attention_bwd_tc_kernel")],
 }
+# the entries the attention backward's probe times: 3xTF32 ("high") and the bf16 rung
+ATTN_BWD_ENTRIES = (("window_attention_bwd_f32", "high"), ("window_attention_bwd_bf16", "default"))
+# row 11 on bf16 tensors (attention.cuh's head_attention_bf16_kernel) without its parts
+ATTN_BF16IO = {
+    "kernel": [],
+    "copies only": [("attention.cuh", "nk = (n + 15) & ~15, nt = nk / 8;",
+                     "nk = (n + 15) & ~15, nt = nk / 8 - 100;")],
+    "no products": [("attention.cuh", text, "") for text in (
+        "          mma_bf16(p0, a, b[0], b[1]);\n          mma_bf16(p1, a, b[2], b[3]);\n",
+        "          mma_bf16(s[j], a, b[0], b[1]);\n          mma_bf16(s[j + 1], a, b[2], b[3]);\n",
+        "              mma_bf16(o[cc], a1, b[0], b[1]);\n"
+        "              mma_bf16(o[cc + 1], a1, b[2], b[3]);\n",
+        "                mma_bf16(p, a3, b[2 * u], b[2 * u + 1]);\n"
+        "                mma_bf16(p, a2, b[2 * u], b[2 * u + 1]);\n"
+        "                mma_bf16(p, a1, b[2 * u], b[2 * u + 1]);\n")],
+    # "high": P in one bf16 term, not three
+    "no splits": [("attention.cuh", "            a2[e] = pack_bf16(r0, r1);\n"
+                   "            a3[e] = pack_bf16(r0 - bf16_lo(a2[e]), r1 - bf16_hi(a2[e]));\n",
+                   "            a2[e] = a3[e] = a1[e] + (r0 == r1 + 1.2345e30f);\n")],
+    "no stores": [("attention.cuh", "      if (row0 + r < n)\n        *reinterpret_cast<uint4*>",
+                   "      if (row0 + r < n - 4096)\n        *reinterpret_cast<uint4*>")],
+    # 3 blocks of 5 warps an SM at 71 tokens (a 136-register cap), not 4 (96)
+    "3 blocks per SM": [("attention.cuh", "attn_min_blocks(NT / 2))\nhead_attention_bf16_kernel",
+                         "NT == 10 ? 3 : attn_min_blocks(NT / 2))\nhead_attention_bf16_kernel")],
+}
+ATTN_BF16IO_ENTRIES = (("packed_attention_bf16io", "high"),
+                       ("packed_attention_bf16io_bf16", "default"))
 _MMA = "      uu::mma_3xtf32(part, ab, as, bb, bs);\n"
 # rows_gemm's products (spatial_common.cuh): a running sum, fresh partials
 _RUNNING = "        uu::mma_3xtf32(acc[j], ab, as, bb, bs);\n"
@@ -343,7 +411,8 @@ SHORT = {
 }
 # the probes --only selects; "dense" is the attention, GEMM, dW and conv
 # groups, "dw" the dW groups alone
-PROBES = ("dense", "dense_bf16", "dw", "conv", "attn_bwd", "k4", "k1", "short", "e2e")
+PROBES = ("dense", "dense_bf16", "dw", "conv", "attn_bwd", "attn_bf16io", "k4", "k1", "short",
+          "e2e")
 DW_GROUPS = ("dw", "dw_bf16", "dwc")
 CONV_GROUPS = ("conv", "dh1", "gemm")  # "dense A" reads the GEMM
 # "dense_bf16"'s builds: gemm_bf16 from "gemm"; the library each group builds
@@ -428,7 +497,9 @@ def main(argv=None) -> int:
                         help=f"a comma-separated subset of {','.join(PROBES)}")
     parser.add_argument("--parent", default=None,
                         help="a copy of an earlier csrc/: 'short' times its "
-                             "packed_attention_f32 beside the kernels, 'dense' every "
+                             "packed_attention_f32 beside the kernels, 'attn_bwd' and "
+                             "'attn_bf16io' its attention backward and row 11 on bf16 "
+                             "tensors in turn with this build's, 'dense' every "
                              "caller of gemm_tc_kernel, 'k4' its K4 in turn with this "
                              "build's (and K1's digests from both)")
     args = parser.parse_args(argv)
@@ -457,6 +528,7 @@ def main(argv=None) -> int:
                                     ("bf16 s2t", "s2t", BF16_DENSE),
                                     ("conv", "strided", CONV), ("dh1", "strided_bwd", DH1),
                                     ("attn_bwd", "temporal_bwd", ATTN_BWD),
+                                    ("attn_bf16io", "attention_bf16", ATTN_BF16IO),
                                     ("k4", "spatial_bwd", K4), ("k1", "spatial", K1),
                                     ("short", "attention", SHORT)):
         probes = ({group} if group in PROBES and group != "conv" else
@@ -472,6 +544,10 @@ def main(argv=None) -> int:
     if "short" in only and args.parent:
         builds["short", "parent"] = start_build(cuda_lib, "short parent", "attention", [],
                                                 csrc=os.path.abspath(args.parent))
+    for group, source in (("attn_bwd", "temporal_bwd"), ("attn_bf16io", "attention_bf16")):
+        if group in only and args.parent:
+            builds[group, "parent"] = start_build(cuda_lib, f"{group} parent", source, [],
+                                                  csrc=os.path.abspath(args.parent))
     if "k4" in only and args.parent:
         builds["k4", "parent"] = start_build(cuda_lib, "k4 parent", "spatial_bwd", [],
                                              csrc=os.path.abspath(args.parent))
@@ -489,6 +565,9 @@ def main(argv=None) -> int:
                     and key[1] == "kernel")
                 or (key[0] == "k4" and key[1] in ("kernel", "parent"))):
             for kernel, line in ptxas_report(report):
+                print(f"ptxas {key[0]} {key[1]}, {kernel}: {line}", flush=True)
+        elif key[0] in ("attn_bwd", "attn_bf16io"):
+            for kernel, line in attention_ptxas(report, key[0]):
                 print(f"ptxas {key[0]} {key[1]}, {kernel}: {line}", flush=True)
 
     dev = torch.device("cuda")
@@ -512,6 +591,8 @@ def main(argv=None) -> int:
                           "conv" if "conv" in only else "dense_bf16")
     if "attn_bwd" in only:
         probe_attention_bwd(torch, F, builds, rand, rng, dev, stream)
+    if "attn_bf16io" in only:
+        probe_attention_bf16io(torch, F, builds, rand, rng, dev, stream)
     if "k4" in only:
         probe_spatial_bwd(torch, builds, rand, args.seed, dev, stream)
     if "k1" in only:
@@ -1005,34 +1086,175 @@ def probe_gemm_parent(parent, seed, only):
         raise RuntimeError(f"gemm callers differ from the parent's bits: {failed}")
 
 
+def attention_ptxas(report, group):
+    """(kernel, line) of ptxas's report for the attention kernels a probe
+    times: the backward's instances, and row 11's tensor-core instances on
+    bf16 tensors (a kernel of their own, or the fp32 kernel's T =
+    __nv_bfloat16 before it; ptxas_report names a kernel with a type among
+    its template arguments by its mangled symbol)."""
+    from chip_smoke import ptxas_report
+
+    for kernel, line in ptxas_report(report):
+        if group == "attn_bwd" and "window_attention_bwd" in kernel:
+            yield kernel, line
+        elif group == "attn_bf16io" and ("head_attention_bf16" in kernel or (
+                "head_attention" in kernel and "nv_bfloat16" in kernel)):
+            yield kernel, line
+
+
+def digest(t) -> str:
+    import hashlib
+
+    import torch
+
+    t = t.detach().contiguous()
+    if t.dtype == torch.bfloat16:
+        t = t.view(torch.int16)
+    return hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+def in_turn(torch, calls, rounds=3, iters=20):
+    """{label: [ms per round]}: each label's call timed (CUDA events, `iters`
+    launches) in the order given, `rounds` times."""
+    from chip_smoke import time_ms
+
+    times = {label: [] for label in calls}
+    for _ in range(rounds):
+        for label, call in calls.items():
+            times[label].append(time_ms(torch, call, iters))
+    return times
+
+
 def probe_attention_bwd(torch, F, builds, rand, rng, dev, stream):
     """K5's window-attention backward at the train step (512 windows x 71
-    tokens x 384, 8 heads, a key mask), beside SDPA's backward."""
+    tokens x 384, 8 heads) at both rungs (window_attention_bwd_f32 "high",
+    window_attention_bwd_bf16 "default"), with a key mask, every variant,
+    beside SDPA's backward on fp32 and on bf16; with a parent build, both
+    builds in turn (parent, kernel, kernel, parent; with and without the key
+    mask) with their outputs' digests."""
     from chip_smoke import time_ms
-    from uplift_upsample_torch.ops.temporal import window_attention_plain
+    from uplift_upsample_torch.ops.temporal_train import window_attention_bwd_plain
 
     b, n, c, heads = 512, 71, 384, 8
     qkv, dctx = rand(b * n, 3 * c), rand(b * n, c, scale=1.0)
     km = torch.from_numpy((rng.uniform(size=(b, n)) < 0.5).astype(np.float32)).to(dev)
-    qkv_req = qkv.reshape(b, n, 3 * c).clone().requires_grad_(True)
-    ref = torch.autograd.grad(window_attention_plain(qkv_req, km, heads), qkv_req,
-                              dctx.reshape(b, n, c))[0].reshape(b * n, 3 * c)
-    q, k, v = (t.reshape(b, n, heads, c // heads).transpose(1, 2).detach().requires_grad_(True)
-               for t in qkv.split(c, dim=-1))
-    out = F.scaled_dot_product_attention(q, k, v, attn_mask=(km * -1e9)[:, None, None, :])
-    g = dctx.reshape(b, n, heads, c // heads).transpose(1, 2)
-    sdpa = time_ms(torch, lambda: torch.autograd.grad(out, (q, k, v), g, retain_graph=True), 10)
-    dqkv = torch.empty_like(qkv)
-    for name in ATTN_BWD:
-        fn = bind(builds["attn_bwd", name][1], "window_attention_bwd_f32", 4, 4)
-        call = lambda: fn(qkv.data_ptr(), dctx.data_ptr(), km.data_ptr(), dqkv.data_ptr(), b, n,
-                          c, heads, stream())
-        if call() != 0:
-            raise RuntimeError(f"attention backward {name}: launch failed")
-        torch.cuda.synchronize()
-        err = f" max_abs_err {float((dqkv - ref).abs().max()):.3e};" if name == "kernel" else ""
-        print(f"probe attn_bwd {name}: {b} x {n} x {c}, key mask True:{err} ms "
-              f"{time_ms(torch, call, 20):.4f} (SDPA backward {sdpa:.4f})", flush=True)
+    kw = dict(windows=b, n=n, num_heads=heads)
+    sdpa = {}
+    for dt in (torch.float32, torch.bfloat16):
+        q, k, v = (t.reshape(b, n, heads, c // heads).transpose(1, 2).to(dt).detach()
+                   .requires_grad_(True) for t in qkv.split(c, dim=-1))
+        out = F.scaled_dot_product_attention(
+            q, k, v, attn_mask=(km * -1e9)[:, None, None, :].to(dt))
+        g = dctx.reshape(b, n, heads, c // heads).transpose(1, 2).to(dt)
+        sdpa[dt] = time_ms(torch, lambda: torch.autograd.grad(out, (q, k, v), g,
+                                                              retain_graph=True), 10)
+        del q, k, v, out, g
+    names = [name for name in (*ATTN_BWD, "parent") if ("attn_bwd", name) in builds]
+    for entry, rung in ATTN_BWD_ENTRIES:
+        ref = window_attention_bwd_plain(qkv, dctx, km, precision=rung, **kw)
+        lib = sdpa[torch.float32 if rung == "high" else torch.bfloat16]
+        fns = {name: bind(builds["attn_bwd", name][1], entry, 4, 4) for name in names}
+        outs = {name: torch.empty_like(qkv) for name in names}
+
+        def call(name, mask=km):
+            return fns[name](qkv.data_ptr(), dctx.data_ptr(),
+                             None if mask is None else mask.data_ptr(),
+                             outs[name].data_ptr(), b, n, c, heads, stream())
+
+        for name in names:
+            if call(name) != 0:
+                raise RuntimeError(f"attention backward {name} ({entry}): launch failed")
+            torch.cuda.synchronize()
+            err = ""
+            if name in ("kernel", "parent"):
+                got = outs[name].clone()
+                call(name)
+                err = (f" max_abs_err {float((got - ref).abs().max()):.3e}, repeat "
+                       f"bit-identical {'yes' if torch.equal(got, outs[name]) else 'NO'}, "
+                       f"digest {digest(got)};")
+            print(f"probe attn_bwd {entry} {name}: {b} x {n} x {c}, key mask True:{err} ms "
+                  f"{time_ms(torch, lambda: call(name), 20):.4f} (SDPA backward "
+                  f"{'fp32' if rung == 'high' else 'bf16'} {lib:.4f})", flush=True)
+        if "parent" in names:
+            for mask in (km, None):
+                times = in_turn(torch, {"parent": lambda: call("parent", mask),
+                                        "kernel": lambda: call("kernel", mask),
+                                        "kernel ": lambda: call("kernel", mask),
+                                        "parent ": lambda: call("parent", mask)})
+                digests = []
+                for name in ("parent", "kernel"):
+                    call(name, mask)
+                    torch.cuda.synchronize()
+                    digests.append(digest(outs[name]))
+                print(f"probe attn_bwd {entry} in turn, key mask {mask is not None}: "
+                      + "; ".join(f"{label.strip()} {min(t):.4f} ({', '.join(f'{x:.4f}' for x in t)})"
+                                  for label, t in times.items())
+                      + f"; digests parent {digests[0]}, kernel {digests[1]}", flush=True)
+        del ref, outs
+        torch.cuda.empty_cache()
+
+
+def probe_attention_bf16io(torch, F, builds, rand, rng, dev, stream):
+    """Row 11 on bf16 tensors (attention_bf16.cu's packed_attention_bf16io,
+    "high", and packed_attention_bf16io_bf16, "default") at 1,024 x 71 x 384
+    with the key mask and 1,024 x 23 x 384, 8 heads, every variant, beside
+    SDPA on bf16; with a parent build, both builds in turn (parent, kernel,
+    kernel, parent) with their outputs' digests."""
+    from chip_smoke import time_ms
+    from uplift_upsample_torch.ops.packed_attention import packed_attention_plain
+
+    heads, c, f = 8, 384, 1024
+    bf = torch.bfloat16
+    names = [name for name in (*ATTN_BF16IO, "parent") if ("attn_bf16io", name) in builds]
+    for s, masked in ((71, True), (23, False)):
+        q, k, v = (rand(f, s, c, scale=1.0).to(bf) for _ in range(3))
+        km = (torch.from_numpy((rng.uniform(size=(f, s)) < 0.5).astype(np.float32)).to(dev)
+              if masked else None)
+        split = lambda t: t.reshape(f, s, heads, c // heads).transpose(1, 2)
+        add_mask = None if km is None else (km * -1e9)[:, None, None, :].to(bf)
+        sdpa = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            split(q), split(k), split(v), attn_mask=add_mask), 20)
+        for entry, rung in ATTN_BF16IO_ENTRIES:
+            ref = packed_attention_plain(q, k, v, km, num_heads=heads, precision=rung)
+            ref64 = packed_attention_plain(q.double(), k.double(), v.double(), km,
+                                           num_heads=heads, precision=rung)
+            fns = {name: bind(builds["attn_bf16io", name][1], entry, 5, 4) for name in names}
+            outs = {name: torch.empty_like(q) for name in names}
+
+            def call(name):
+                return fns[name](q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                 None if km is None else km.data_ptr(), outs[name].data_ptr(),
+                                 f, s, c, heads, stream())
+
+            for name in names:
+                if call(name) != 0:
+                    raise RuntimeError(f"row 11 {name} ({entry}): launch failed")
+                torch.cuda.synchronize()
+                err = ""
+                if name in ("kernel", "parent"):
+                    got = outs[name].clone()
+                    call(name)
+                    err = (f" max_abs_err {float((got.float() - ref.float()).abs().max()):.3e}, "
+                           f"vs float64 {float((got.double() - ref64).abs().max()):.3e} (plain "
+                           f"{float((ref.double() - ref64).abs().max()):.3e}), repeat "
+                           f"bit-identical {'yes' if torch.equal(got, outs[name]) else 'NO'}, "
+                           f"digest {digest(got)};")
+                print(f"probe attn_bf16io {entry} {name}: {f} x {s} x {c}, key mask {masked}:"
+                      f"{err} ms {time_ms(torch, lambda: call(name), 20):.4f} (SDPA on bf16 "
+                      f"{sdpa:.4f})", flush=True)
+            if "parent" in names:
+                times = in_turn(torch, {"parent": lambda: call("parent"),
+                                        "kernel": lambda: call("kernel"),
+                                        "kernel ": lambda: call("kernel"),
+                                        "parent ": lambda: call("parent"),
+                                        "SDPA": lambda: F.scaled_dot_product_attention(
+                                            split(q), split(k), split(v), attn_mask=add_mask)})
+                print(f"probe attn_bf16io {entry} in turn, {f} x {s}: "
+                      + "; ".join(f"{label.strip()} {min(t):.4f} ({', '.join(f'{x:.4f}' for x in t)})"
+                                  for label, t in times.items()), flush=True)
+            del ref, ref64, outs
+        del q, k, v, km
+        torch.cuda.empty_cache()
 
 
 def probe_spatial_bwd(torch, builds, rand, seed, dev, stream):

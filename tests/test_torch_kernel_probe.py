@@ -17,7 +17,7 @@ import kernel_probe  # noqa: E402
 
 CSRC = ROOT / "uplift_upsample_torch" / "csrc"
 TABLES = ("ATTENTION", "GEMM", "BF16_DENSE", "BF16_GEMM", "DW", "DW_BF16", "DWC", "CONV", "DH1",
-          "ATTN_BWD", "K4", "K1", "SHORT")
+          "ATTN_BWD", "ATTN_BF16IO", "K4", "K1", "SHORT")
 
 
 @pytest.mark.parametrize("table", TABLES)

@@ -14,10 +14,11 @@
 //    product and masked; the softmax in fp32; P·V on bf16(normalised P) and
 //    bf16(v), fp32 sums. The long sequences take attention.cuh's BF16 mode
 //    without QS, whose logits' factor is log2(e)/sqrt(D);
-//  - bf16 tensors: loaded as bf16, widened in registers (or in the staged
-//    tiles), the rung's function in fp32, the context rounded to bf16 (to
-//    nearest even) as it is stored. No fp32 copy of q, k, v or the output
-//    is made.
+//  - bf16 tensors: loaded as bf16, the rung's function with fp32-level sums
+//    (the short kernels widen in registers; the long sequences take
+//    attention.cuh's head_attention_bf16_kernel, native bf16 products on
+//    bf16 tiles), the context rounded to bf16 (to nearest even) as it is
+//    stored. No fp32 copy of q, k, v or the output is made.
 //
 // Bound: as attention.cu's, bytes; bf16 tensors halve them. The products on
 // the tensor cores at 989 TFLOP/s (bf16) take a fraction of the bytes' time.

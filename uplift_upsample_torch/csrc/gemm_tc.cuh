@@ -141,6 +141,7 @@
 #include <stdint.h>
 #include <string.h>
 
+#include "mma_bf16.cuh"
 #include "tf32.cuh"
 
 namespace uu {
@@ -336,14 +337,6 @@ __device__ __forceinline__ void wgmma_m64n64k16_bf16_rs_first(float (&d)[32],
         "=f"(d[21]), "=f"(d[22]), "=f"(d[23]), "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]),
         "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(0));
-}
-
-// Two fp32 values rounded to bf16 (to nearest, ties to even, as bf16_round)
-// and packed, lo in the low half.
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  uint32_t r;
-  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
-  return r;
 }
 
 // Keeps the compiler from moving reads or writes of x across the wgmma
